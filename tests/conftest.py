@@ -9,3 +9,9 @@ import pytest
 @pytest.fixture
 def rng():
     return np.random.default_rng(1024)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the port's kernels); skips "
+        "with a reason where there is none")

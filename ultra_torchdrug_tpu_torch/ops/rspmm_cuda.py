@@ -1,0 +1,126 @@
+"""Kernel K1: the relational SpMM forward with sum aggregation, by hand for
+Hopper (csrc/rspmm_fwd.cu), and its plain PyTorch version.
+
+Replaces ultra_torchdrug_tpu/ops/rspmm_pallas.py::rspmm_gather1 in modes
+``mul_rel`` / ``add_rel`` with agg ``add`` (via rspmm_fwd_pallas):
+
+    out[v] = Σ_{e=(s→v, r)} w[eid_e] · (rel[r] ⊙ x[s])      (mul_rel)
+    out[v] = Σ_{e=(s→v, r)} w[eid_e] · (rel[r] + x[s])      (add_rel)
+
+over a destination-sorted CSR (data/graph.py::Graph.prepare_csr). Operands
+are flat: x [V_in, F], relation [R, F], edge_weight [E] in original edge
+order, all float32; out [V, F] with V = len(rowptr) - 1.
+
+``rspmm_fwd_cuda`` launches the kernel for CUDA tensors and counts each
+launch in ``launches``; for CPU tensors it runs ``rspmm_fwd_plain``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .cuda_build import load_library
+
+MODES = {"mul_rel": 0, "add_rel": 1}
+
+# launches of the K1 kernel since import (or since the caller last reset it)
+launches = 0
+
+
+def rspmm_plain_edges(src, dst, etype, weight, relation, x, mode: str,
+                      num_nodes: int) -> torch.Tensor:
+    """The plain version over edge arrays: index_select the operands per edge,
+    form the messages, index_add_ them into their destination rows."""
+    rel_e = relation.index_select(0, etype)
+    x_e = x.index_select(0, src)
+    if mode == "mul_rel":
+        msg = rel_e * x_e
+    elif mode == "add_rel":
+        msg = rel_e + x_e
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    msg = msg * weight.reshape((-1,) + (1,) * (msg.dim() - 1))
+    out = torch.zeros((num_nodes,) + tuple(x.shape[1:]), dtype=msg.dtype,
+                      device=x.device)
+    return out.index_add_(0, dst, msg)
+
+
+def rspmm_fwd_plain(rowptr, src, etype, eid, edge_weight, relation, x,
+                    mode: str) -> torch.Tensor:
+    """The same function as the kernel, in plain PyTorch, on the same CSR."""
+    num_nodes = rowptr.numel() - 1
+    counts = (rowptr[1:] - rowptr[:-1]).long()
+    dst = torch.repeat_interleave(
+        torch.arange(num_nodes, device=rowptr.device), counts)
+    return rspmm_plain_edges(src.long(), dst, etype.long(),
+                             edge_weight.index_select(0, eid.long()),
+                             relation, x, mode, num_nodes)
+
+
+def _check(name, t, dtype, device, dim):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != dim:
+        raise ValueError(f"{name} must be {dim}-D, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def rspmm_fwd_cuda(rowptr, src, etype, eid, edge_weight, relation, x,
+                   mode: str) -> torch.Tensor:
+    """K1 on CUDA tensors; the plain version on CPU tensors."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {tuple(MODES)}, got {mode!r}")
+    if x.device.type == "cpu":
+        return rspmm_fwd_plain(rowptr, src, etype, eid, edge_weight, relation,
+                               x, mode)
+    device = x.device
+    if device.type != "cuda":
+        raise ValueError(f"K1 runs on CUDA tensors, got {device}")
+    for name, t in (("rowptr", rowptr), ("src", src), ("etype", etype),
+                    ("eid", eid)):
+        _check(name, t, torch.int32, device, 1)
+    _check("edge_weight", edge_weight, torch.float32, device, 1)
+    _check("relation", relation, torch.float32, device, 2)
+    _check("x", x, torch.float32, device, 2)
+    num_edges = src.numel()
+    if (etype.numel() != num_edges or eid.numel() != num_edges
+            or edge_weight.numel() != num_edges):
+        raise ValueError("src, etype, eid and edge_weight must have one "
+                         "entry per edge")
+    if relation.shape[1] != x.shape[1]:
+        raise ValueError(f"relation width {relation.shape[1]} != x width "
+                         f"{x.shape[1]}")
+    num_rows, num_features = rowptr.numel() - 1, x.shape[1]
+    if num_rows < 0:
+        raise ValueError("rowptr must have at least one entry")
+    out = torch.empty((num_rows, num_features), dtype=torch.float32,
+                      device=device)
+    fn = _kernel()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(rowptr.data_ptr(), src.data_ptr(), etype.data_ptr(),
+                 eid.data_ptr(), edge_weight.data_ptr(), relation.data_ptr(),
+                 x.data_ptr(), out.data_ptr(), num_rows, num_features,
+                 MODES[mode], stream)
+    if err != 0:
+        raise RuntimeError(f"rspmm_fwd_k1 launch failed with CUDA error {err}")
+    global launches
+    launches += 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    fn = load_library("rspmm_fwd").rspmm_fwd_k1
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
