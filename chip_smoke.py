@@ -3,7 +3,7 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py                # on a machine with the card
-    python3 chip_smoke.py --device cpu   # rehearsal of phases 2-3, reduced size
+    python3 chip_smoke.py --device cpu   # rehearsal of phases 2-5, reduced size
 
 Phases, each of which raises on failure (the script then exits nonzero):
 
@@ -11,14 +11,24 @@ Phases, each of which raises on failure (the script then exits nonzero):
               all at once, and print the build time and ptxas' resource lines;
   1. kernels  hold K1 (the rspmm forward, csrc/rspmm_fwd.cu) against its plain
               PyTorch version in modes mul_rel and add_rel, at small and ragged
-              shapes and at the slice's full-width shape, and time it;
+              shapes and at the eval and training shapes, and time it; hold K2
+              (the rspmm backward, csrc/rspmm_bwd.cu) against its plain
+              version at small and ragged shapes and at the training shape,
+              check that two calls agree bitwise, and time it;
   2. slice    zero-shot evaluation of ULTRA (6x64 towers, seeded weights) on a
               synthetic KG of FB15k-237's size: 64 test triples in batches of
               16, through TransductiveKGTask.evaluate; K1 must launch 12 times
               per batch, the metrics must be finite; then one more batch under
               torch.profiler for device time by kernel;
   3. parity   the card's tail and head scores for 2 test queries against the
-              port's own CPU run (plain versions) on the same graph and weights.
+              port's own CPU run (plain versions) on the same graph and weights;
+  4. train    training steps of the same model through Engine.train (batch 64,
+              128 strict negatives, AdamW): one warm-up step, then timed steps;
+              K1 and K2 must each launch 6 times per step, every loss and
+              gradient norm must be finite; then one step under torch.profiler;
+  5. train parity  one loss step (2 queries, 8 injected negatives, the full
+              graph) on the card against the port's CPU run: the loss and
+              every parameter's gradient.
 
 The last lines are a JSON object with one entry per kernel, then
 {"ok": true, "device": {...}}. With no card the script prints no result and
@@ -53,6 +63,11 @@ REHEARSAL = dict(num_nodes=1500, num_edges=20000, num_relations=40)
 EVAL_BATCH = 16
 FAST_TEST = 64
 K1_LAUNCHES_PER_BATCH = 12  # 6 entity layers x (tail + head scoring)
+# training: config/transductive/pretrain_3g.yaml's engine batch and negatives
+TRAIN = dict(batch=64, negatives=128, steps=5)
+TRAIN_REHEARSAL = dict(batch=8, negatives=16, steps=2)
+K_LAUNCHES_PER_STEP = 6  # 6 entity layers, one pass over the flipped batch
+FEAT = 64  # the model's feature width
 
 
 def log(*args):
@@ -125,18 +140,32 @@ def k1_operands(graph, feat: int, seed: int, device):
     return (csr.rowptr, csr.src, csr.etype, csr.eid, w, rel, x)
 
 
-def k1_bound_ms(operands) -> tuple:
-    """Least time for K1's work on this card: each input read once and the
-    output written once over the memory rate, against 3 fp32 operations per
-    edge and feature (message, weight, sum) over the fp32 peak."""
-    rowptr, src, etype, eid, w, rel, x = operands
-    E, F = src.numel(), x.shape[1]
-    V = rowptr.numel() - 1
-    nbytes = sum(t.numel() * t.element_size() for t in operands) + V * F * 4
-    flops = 3 * E * F
+def roofline_ms(nbytes: int, flops: int) -> tuple:
+    """(the larger of nbytes over the memory rate and flops over the fp32
+    peak, in ms; which of the two it is)."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def edge_bytes(num_edges: int) -> int:
+    """The compulsory bytes of a graph's edges: one int32 edge list (source,
+    destination, type) and one fp32 weight per edge, read once. The kernels'
+    own layouts (CSRs, eid arrays, chunks) are a design's cost, not the
+    function's."""
+    return num_edges * (3 * 4 + 4)
+
+
+def k1_bound_ms(operands) -> tuple:
+    """Least time for K1's work on this card: the edges, rel and x read once
+    and the output written once over the memory rate, against 3 fp32
+    operations per edge and feature (message, weight, sum) over the fp32
+    peak."""
+    rowptr, src, etype, eid, w, rel, x = operands
+    E = src.numel()
+    V, F = rowptr.numel() - 1, x.shape[1]
+    nbytes = edge_bytes(E) + (rel.numel() + x.numel() + V * F) * 4
+    return roofline_ms(nbytes, 3 * E * F)
 
 
 def phase_kernels(dataset, device):
@@ -204,10 +233,115 @@ def phase_kernels(dataset, device):
     return entry
 
 
+def k2_bound_ms(csr, w, rel, x, g) -> tuple:
+    """Least time for K2's work on this card: the edges, x, g and rel read
+    once and dx and dr written once over the memory rate, against 6 fp32
+    operations per edge and feature (3 for dx, 3 for dr) over the fp32
+    peak."""
+    E, F = w.numel(), x.shape[1]
+    nbytes = edge_bytes(E) + (x.numel() + g.numel() + rel.numel()) * 4
+    nbytes += (x.numel() + rel.numel()) * 4  # dx, dr
+    return roofline_ms(nbytes, 6 * E * F)
+
+
+def k2_operands(graph, feat: int, seed: int, device):
+    """K2's operands on ``graph``: the layouts, masked weights (a fifth 0),
+    rel [R, F], x and g [V, F] ~ N(0, 1)."""
+    _, _, _, _, w, rel, x = k1_operands(graph, feat, seed, device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    g = torch.randn(x.shape, generator=gen, device=device)
+    return graph.csr.to(device), w, rel, x, g
+
+
+def phase_kernels_k2(und, device):
+    """K2 against its plain version; returns its kernels-line entry."""
+    from ultra_torchdrug_tpu_torch.data.graph import Graph
+    from ultra_torchdrug_tpu_torch.ops import rspmm_bwd_cuda
+
+    # dr rows sum up to ~1000 products of N(0, 1) values per relation in
+    # another order than the plain version: 1e-4 absolute
+    tol = dict(rtol=1e-5, atol=1e-4)
+
+    def check(ops, label):
+        dx, dr = rspmm_bwd_cuda.rspmm_bwd_cuda(*ops)
+        torch.cuda.synchronize()
+        dx2, dr2 = rspmm_bwd_cuda.rspmm_bwd_cuda(*ops)
+        torch.cuda.synchronize()
+        if not (torch.equal(dx, dx2) and torch.equal(dr, dr2)):
+            raise AssertionError(f"K2 {label}: two calls differ")
+        want_dx, want_dr = rspmm_bwd_cuda.rspmm_bwd_plain(*ops)
+        torch.testing.assert_close(dx, want_dx, **tol)
+        torch.testing.assert_close(dr, want_dr, **tol)
+        err = max((dx - want_dx).abs().max().item(),
+                  (dr - want_dr).abs().max().item())
+        log(f"[kernels] K2 {label}: max_abs_err {err:.3g}, bitwise equal "
+            "across two calls")
+        return dx, dr, err
+
+    # (a) small and ragged shapes: F = 10 and 12 scalar, 64 float4, 1028 two
+    # feature tiles; the last 5 rows send no edge and the last relation has
+    # none; the (60, 1400, 3) graph spreads ~700 edges over each of two
+    # relations, three chunks each
+    rng = np.random.default_rng(1)
+    for V, E, R, F in ((37, 300, 6, 10), (37, 300, 6, 64), (37, 300, 6, 1028),
+                       (50, 20, 3, 12), (60, 1400, 3, 64)):
+        tri = np.stack([rng.integers(0, V - 5, E), rng.integers(0, V - 5, E),
+                        rng.integers(0, R - 1, E)], 1)
+        g = Graph.from_triplets(tri, V, R).prepare_csr(backward=True)
+        dx, dr, _ = check(k2_operands(g, F, seed=V + F, device=device),
+                          f"V={V} E={E} R={R} F={F}")
+        if not (torch.all(dx[V - 5:] == 0) and torch.all(dr[R - 1] == 0)):
+            raise AssertionError("K2 wrote nonzero rows without edges")
+
+    # (b) the training shape: F = 64 queries x 64 features
+    F = TRAIN["batch"] * FEAT
+    ops = k2_operands(und, F, seed=2, device=device)
+    label = (f"training shape V={und.num_nodes} E={und.num_edges} "
+             f"R={und.num_relations} F={F}")
+    _, _, err = check(ops, label)
+    torch.cuda.empty_cache()
+    ms = cuda_time_ms(lambda: rspmm_bwd_cuda.rspmm_bwd_cuda(*ops), 20)
+    plain_ms = cuda_time_ms(lambda: rspmm_bwd_cuda.rspmm_bwd_plain(*ops), 3,
+                            warmup=1)
+    bound_ms, bound_by = k2_bound_ms(*ops)
+    log(f"[kernels] K2 {label}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms by {bound_by}, {bound_ms / ms:.1%} of it), "
+        "library_ms: null (no single PyTorch call computes this function)")
+    log('[kernels] kernels ["K2"]')
+    return dict(name="K2", route="cuda",
+                source=f"{PACKAGE}/csrc/rspmm_bwd.cu",
+                replaces="ultra_torchdrug_tpu/ops/rspmm_pallas.py:2110",
+                launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def time_k1_train_shape(und, device) -> dict:
+    """K1 (mul_rel) at the training shape, F = 64 x 64: time, plain time and
+    bound, as extra keys of K1's kernels-line entry."""
+    from ultra_torchdrug_tpu_torch.ops import rspmm_cuda
+
+    ops = k1_operands(und, TRAIN["batch"] * FEAT, seed=3, device=device)
+    got = rspmm_cuda.rspmm_fwd_cuda(*ops, "mul_rel")
+    want = rspmm_cuda.rspmm_fwd_plain(*ops, "mul_rel")
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    err = (got - want).abs().max().item()
+    del got, want
+    torch.cuda.empty_cache()
+    ms = cuda_time_ms(lambda: rspmm_cuda.rspmm_fwd_cuda(*ops, "mul_rel"), 20)
+    plain_ms = cuda_time_ms(
+        lambda: rspmm_cuda.rspmm_fwd_plain(*ops, "mul_rel"), 3, warmup=1)
+    bound_ms, bound_by = k1_bound_ms(ops)
+    log(f"[kernels] K1 mul_rel training shape F={ops[-1].shape[1]}: "
+        f"max_abs_err {err:.3g}, {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms by {bound_by}, {bound_ms / ms:.1%} of it)")
+    return dict(max_abs_err_train=err, ms_train=ms, plain_ms_train=plain_ms,
+                bound_ms_train=bound_ms, bound_by_train=bound_by)
+
+
 def phase_slice(task, model, device):
     """Zero-shot evaluation through the task's entry point; returns K1's
     launches in the measured run."""
-    from ultra_torchdrug_tpu_torch.ops import rspmm_cuda
+    from ultra_torchdrug_tpu_torch.ops import rspmm_bwd_cuda, rspmm_cuda
 
     # one batch first: cuBLAS handles, allocator pools and the kernel library
     # load are set-up, not evaluation
@@ -216,7 +350,7 @@ def phase_slice(task, model, device):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     batches = math.ceil(FAST_TEST / EVAL_BATCH)
-    rspmm_cuda.launches = 0
+    rspmm_cuda.launches = rspmm_bwd_cuda.launches = 0
     t0 = time.perf_counter()
     metrics = task.evaluate(model, "test", batch_size=EVAL_BATCH,
                             fast_test=FAST_TEST)
@@ -225,6 +359,8 @@ def phase_slice(task, model, device):
     seconds = time.perf_counter() - t0
     launches = rspmm_cuda.launches
     want = K1_LAUNCHES_PER_BATCH * batches if device.type == "cuda" else 0
+    if rspmm_bwd_cuda.launches:
+        raise AssertionError("K2 launched during evaluation")
     if launches != want:
         raise AssertionError(f"K1 launched {launches} times in {batches} "
                              f"eval batches, expected {want}")
@@ -241,16 +377,15 @@ def phase_slice(task, model, device):
     return launches
 
 
-def phase_profile(task, model):
-    """Device time by kernel over one eval batch (torch.profiler), and the
-    device's busy share of that batch's wall time under the profiler."""
+def profile_device_time(label: str, fn):
+    """Device time by kernel over one call of fn (torch.profiler), and the
+    device's busy share of that call's wall time under the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        task.evaluate(model, "test", batch_size=EVAL_BATCH,
-                      fast_test=EVAL_BATCH)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only: a host op's entry repeats its kernels' time
@@ -259,15 +394,22 @@ def phase_profile(task, model):
               and e.self_device_time_total > 0]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     if not events:
-        log("[profile] the profiler recorded no device time: not measured")
+        log(f"[profile] {label}: the profiler recorded no device time: not "
+            "measured")
         return
-    log(f"[profile] one eval batch: device busy {device_ms:.3f} ms of "
+    log(f"[profile] {label}: device busy {device_ms:.3f} ms of "
         f"{wall_ms:.3f} ms wall under the profiler "
         f"({device_ms / wall_ms:.1%} busy)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         ms = e.self_device_time_total / 1e3
         log(f"[profile] {ms:9.3f} ms {ms / device_ms:6.1%} x{e.count:<5d} "
             f"{e.key[:90]}")
+
+
+def phase_profile(task, model):
+    """Device time by kernel over one eval batch."""
+    profile_device_time("one eval batch", lambda: task.evaluate(
+        model, "test", batch_size=EVAL_BATCH, fast_test=EVAL_BATCH))
 
 
 def phase_parity(task, model, device):
@@ -296,11 +438,115 @@ def phase_parity(task, model, device):
             f"max_abs_err {(a - b).abs().max().item():.3g}")
 
 
+def phase_train(dataset, device):
+    """Training steps through Engine.train; returns (engine, K1 launches,
+    K2 launches) of the timed run."""
+    from ultra_torchdrug_tpu_torch.engine.engine import Engine
+    from ultra_torchdrug_tpu_torch.models.ultra import UltraConfig
+    from ultra_torchdrug_tpu_torch.ops import rspmm_bwd_cuda, rspmm_cuda
+    from ultra_torchdrug_tpu_torch.tasks.task import (
+        TaskConfig,
+        TransductiveKGTask,
+    )
+    from ultra_torchdrug_tpu_torch.utils.logging import get_root_logger
+
+    size = TRAIN if device.type == "cuda" else TRAIN_REHEARSAL
+    t0 = time.perf_counter()
+    task = TransductiveKGTask(
+        dataset, UltraConfig.default(dataset.num_relations),
+        TaskConfig(num_negative=size["negatives"]), device=device)
+    engine = Engine(task, batch_size=size["batch"], lr=5e-4, seed=0,
+                    log_interval=10**9, logger=get_root_logger(None))
+    log(f"[train] task and engine set-up {time.perf_counter() - t0:.1f} s "
+        f"(batch {size['batch']}, {size['negatives']} negatives)")
+    # one step first: allocator pools and cuBLAS handles are set-up
+    engine.train(batch_per_epoch=1)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    steps = size["steps"]
+    rspmm_cuda.launches = rspmm_bwd_cuda.launches = 0
+    t0 = time.perf_counter()
+    engine.train(batch_per_epoch=steps)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    k1, k2 = rspmm_cuda.launches, rspmm_bwd_cuda.launches
+    want = K_LAUNCHES_PER_STEP * steps if device.type == "cuda" else 0
+    if (k1, k2) != (want, want):
+        raise AssertionError(f"{steps} train steps launched K1 {k1} and K2 "
+                             f"{k2} times, expected {want} each")
+    window = engine.meter.last_window
+    if len(window) != steps or not all(
+            math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+            for m in window):
+        raise AssertionError(f"non-finite or missing step metrics {window}")
+    peak = (torch.cuda.max_memory_allocated() / 2**30
+            if device.type == "cuda" else float("nan"))
+    log(f"[train] {steps} steps of {size['batch']} triples: "
+        f"{seconds * 1e3 / steps:.2f} ms per step, "
+        f"{steps * size['batch'] / seconds:.1f} triples/s, peak device "
+        f"memory {peak:.3f} GiB ({device})")
+    log(f"[train] K1 launches {k1}, K2 launches {k2} "
+        f"({k1 / steps:.0f} and {k2 / steps:.0f} per step)")
+    for i, m in enumerate(window):
+        log(f"[train] step {i}: " + ", ".join(
+            f"{k} {v:.6g}" for k, v in sorted(m.items())))
+    return engine, k1, k2
+
+
+def phase_train_parity(engine, device):
+    """One loss step on the card against the port's CPU run: the same
+    weights, the same 2 train triples and 8 injected negatives, on the full
+    graph. Gradients are compared norm-wise per parameter: each is a sum
+    over ~500k edges and V*B rows, taken in another order on the card, so
+    single small entries may differ in relative terms where the tensor as a
+    whole agrees to fp32 rounding."""
+    from ultra_torchdrug_tpu_torch.tasks.task import (
+        TaskConfig,
+        TransductiveKGTask,
+    )
+
+    task = engine.task
+    batch = task.train_triples[:2]
+    neg = torch.from_numpy(np.random.default_rng(5).integers(
+        0, task.dataset.num_entities, (2, 8)))
+    cpu = torch.device("cpu")
+    cpu_task = TransductiveKGTask(task.dataset, task.model_cfg,
+                                  TaskConfig(num_negative=8), device=cpu)
+    results = []
+    for t, m, dev in ((task, engine.model, device),
+                      (cpu_task, copy.deepcopy(engine.model).to(cpu), cpu)):
+        m.zero_grad(set_to_none=True)
+        loss, _ = t.loss_step(m, None, batch, neg=neg.to(dev))
+        loss.backward()
+        results.append((loss.item(), {k: p.grad.detach().cpu()
+                                      for k, p in m.named_parameters()}))
+        m.zero_grad(set_to_none=True)
+    (loss_dev, g_dev), (loss_cpu, g_cpu) = results
+    if not math.isfinite(loss_dev) or abs(loss_dev - loss_cpu) > 1e-5 * max(
+            1.0, abs(loss_cpu)):
+        raise AssertionError(f"loss {device} {loss_dev} vs cpu {loss_cpu}")
+    worst, worst_abs = 0.0, 0.0
+    for k in g_cpu:
+        a, b = g_dev[k], g_cpu[k]
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"non-finite gradient {k} on {device}")
+        rel = ((a - b).norm() / b.norm().clamp(min=1e-12)).item()
+        if rel > 1e-4:
+            raise AssertionError(f"gradient {k}: relative error {rel:.3g}")
+        worst = max(worst, rel)
+        worst_abs = max(worst_abs, (a - b).abs().max().item())
+    log(f"[train parity] loss {device} {loss_dev:.8g} vs cpu {loss_cpu:.8g}; "
+        f"{len(g_cpu)} gradients: worst norm-wise relative error "
+        f"{worst:.3g} (limit 1e-4), max_abs_err {worst_abs:.3g}")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
-        help="cpu rehearses phases 2-3 at a reduced size with the plain "
+        help="cpu rehearses phases 2-5 at a reduced size with the plain "
              "versions and reports no result")
     args = parser.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -317,7 +563,7 @@ def main(argv=None) -> int:
     size = FULL if device.type == "cuda" else REHEARSAL
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
-    entry = None
+    entry = k2_entry = None
     if device.type == "cuda":
         log(nvidia_smi_line())
         log(f"[env] device {torch.cuda.get_device_name(0)}, "
@@ -331,6 +577,12 @@ def main(argv=None) -> int:
         f"({time.perf_counter() - t0:.1f} s)")
     if device.type == "cuda":
         entry = phase_kernels(dataset, device)
+        und = dataset.fact_graph(None)[0].undirected_with_inverse()
+        und = und.prepare_csr(backward=True)
+        entry.update(time_k1_train_shape(und, device))
+        k2_entry = phase_kernels_k2(und, device)
+        del und
+        torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     task = TransductiveKGTask(dataset, UltraConfig.default(
@@ -343,14 +595,23 @@ def main(argv=None) -> int:
     if device.type == "cuda":
         phase_profile(task, model)
     phase_parity(task, model, device)
+    del task, model
+
+    engine, k1_train, k2_train = phase_train(dataset, device)
+    if device.type == "cuda":
+        profile_device_time("one train step",
+                            lambda: engine.train(batch_per_epoch=1))
+    phase_train_parity(engine, device)
 
     if device.type != "cuda":
-        log("[rehearsal] phases 2-3 ran on the CPU; no kernel ran and no "
+        log("[rehearsal] phases 2-5 ran on the CPU; no kernel ran and no "
             "result is reported")
         return 1
-    entry["launches"] = launches
+    entry.update(launches=launches + k1_train, launches_eval=launches,
+                 launches_train=k1_train)
+    k2_entry["launches"] = k2_train
     log(nvidia_smi_line())
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [entry, k2_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,8 +5,9 @@ card; the decision is taken inside the ``cuda_device`` fixture, at run time.
 Run on a machine with the card:
     python -m pytest -m cuda tests/test_torch_kernels_cuda.py -q
 
-Tolerance atol = rtol = 1e-5: the kernel sums each row's edges in CSR order,
-the plain version with index_add_ in another order.
+Tolerance atol = rtol = 1e-5 for K1: the kernel sums each row's edges in CSR
+order, the plain version with index_add_ in another order. K2 uses rtol 1e-5,
+atol 1e-4: its dr rows sum up to a few hundred products of N(0, 1) values.
 """
 
 import numpy as np
@@ -14,12 +15,13 @@ import pytest
 import torch
 
 from ultra_torchdrug_tpu_torch.data.graph import Graph
-from ultra_torchdrug_tpu_torch.ops import rspmm_cuda
+from ultra_torchdrug_tpu_torch.ops import rspmm_bwd_cuda, rspmm_cuda
 from ultra_torchdrug_tpu_torch.ops.rspmm import generalized_rspmm
 
 pytestmark = pytest.mark.cuda
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+K2_TOL = dict(rtol=1e-5, atol=1e-4)
 
 
 @pytest.fixture
@@ -30,13 +32,14 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _graph(rng, V, E, R, empty_rows=0):
-    tri = np.stack([rng.integers(0, V, E),
+def _graph(rng, V, E, R, empty_rows=0, empty_rels=0):
+    tri = np.stack([rng.integers(0, V - empty_rows, E),
                     rng.integers(0, V - empty_rows, E),
-                    rng.integers(0, R, E)], 1)
+                    rng.integers(0, R - empty_rels, E)], 1)
     w = rng.uniform(0.5, 1.5, E).astype(np.float32)
     w[rng.uniform(size=E) < 0.2] = 0.0  # masked edges
-    return Graph.from_triplets(tri, V, R, edge_weight=w).prepare_csr()
+    return Graph.from_triplets(tri, V, R,
+                               edge_weight=w).prepare_csr(backward=True)
 
 
 # (V, E, R, F): the small/ragged shapes of the CPU tests (F = 10 takes the
@@ -100,3 +103,94 @@ def test_k1_rejects_bad_operands(cuda_device, rng):
     with pytest.raises(ValueError):  # operand on the CPU
         rspmm_cuda.rspmm_fwd_cuda(csr.rowptr, csr.src, csr.etype, csr.eid,
                                   g.edge_weight, rel.cpu(), x, "mul_rel")
+
+
+# (V, E, R, F): scalar (F = 10) and float4 (F = 64) widths, two feature tiles
+# (F = 1028), more rows than edges, and ~700 edges on each of two relations
+# (three chunks each) beside a relation without edges
+K2_SHAPES = [(37, 300, 6, 10), (37, 300, 6, 64), (37, 300, 6, 1028),
+             (50, 20, 3, 12), (60, 1400, 3, 64)]
+
+
+def _k2_operands(rng, V, E, R, F, device):
+    g = _graph(rng, V, E, R, empty_rows=5, empty_rels=1).to(device)
+    ops = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device)
+           for s in ((R, F), (V, F), (V, F))]
+    return g, ops
+
+
+@pytest.mark.parametrize("V,E,R,F", K2_SHAPES)
+def test_k2_matches_plain(cuda_device, rng, V, E, R, F):
+    g, (rel, x, grad) = _k2_operands(rng, V, E, R, F, cuda_device)
+    before = rspmm_bwd_cuda.launches
+    dx, dr = rspmm_bwd_cuda.rspmm_bwd_cuda(g.csr, g.edge_weight, rel, x, grad)
+    torch.cuda.synchronize()
+    assert rspmm_bwd_cuda.launches == before + 1
+    want_dx, want_dr = rspmm_bwd_cuda.rspmm_bwd_plain(g.csr, g.edge_weight,
+                                                      rel, x, grad)
+    torch.testing.assert_close(dx, want_dx, **K2_TOL)
+    torch.testing.assert_close(dr, want_dr, **K2_TOL)
+    assert torch.all(dx[V - 5:] == 0)  # rows that send no edge
+    assert torch.all(dr[R - 1] == 0)  # the relation without edges
+    # one half alone
+    dx2, none = rspmm_bwd_cuda.rspmm_bwd_cuda(g.csr, g.edge_weight, rel, x,
+                                              grad, need_dr=False)
+    none2, dr2 = rspmm_bwd_cuda.rspmm_bwd_cuda(g.csr, g.edge_weight, rel, x,
+                                               grad, need_dx=False)
+    assert none is None and none2 is None
+    assert torch.equal(dx2, dx) and torch.equal(dr2, dr)
+
+
+def test_k2_is_deterministic(cuda_device, rng):
+    g, (rel, x, grad) = _k2_operands(rng, 60, 1400, 3, 64, cuda_device)
+    a = rspmm_bwd_cuda.rspmm_bwd_cuda(g.csr, g.edge_weight, rel, x, grad)
+    b = rspmm_bwd_cuda.rspmm_bwd_cuda(g.csr, g.edge_weight, rel, x, grad)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_k2_rejects_bad_operands(cuda_device, rng):
+    g, (rel, x, grad) = _k2_operands(rng, 37, 300, 6, 8, cuda_device)
+    csr, w = g.csr, g.edge_weight
+    with pytest.raises(TypeError):  # float64 gradient
+        rspmm_bwd_cuda.rspmm_bwd_cuda(csr, w, rel, x, grad.double())
+    with pytest.raises(ValueError):  # non-contiguous x
+        rspmm_bwd_cuda.rspmm_bwd_cuda(csr, w, rel,
+                                      torch.zeros((8, 37), device=cuda_device).T,
+                                      grad)
+    with pytest.raises(ValueError):  # relation with the wrong row count
+        rspmm_bwd_cuda.rspmm_bwd_cuda(csr, w, rel[:5].contiguous(), x, grad)
+    with pytest.raises(ValueError):  # layouts on the CPU
+        rspmm_bwd_cuda.rspmm_bwd_cuda(csr.to("cpu"), w, rel, x, grad)
+
+
+@pytest.mark.parametrize("shared_rel", [False, True])
+def test_generalized_rspmm_gradient_card_matches_cpu(cuda_device, rng,
+                                                     shared_rel):
+    """Autograd through the op on the card (K1 forward, K2 backward) against
+    its CPU path, in the [V, B, D] form; the add_rel backward raises."""
+    V, E, R, B, D = 37, 300, 6, 3, 16
+    g = _graph(rng, V, E, R)
+    rel_shape = (R, D) if shared_rel else (R, B, D)
+    rel = torch.from_numpy(rng.normal(size=rel_shape).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(V, B, D)).astype(np.float32))
+    cot = torch.from_numpy(rng.normal(size=(V, B, D)).astype(np.float32))
+    gc = g.to(cuda_device)
+    grads = []
+    for graph, dev in ((g, "cpu"), (gc, cuda_device)):
+        r = rel.to(dev).requires_grad_()
+        xx = x.to(dev).requires_grad_()
+        out = generalized_rspmm(graph.edge_index, graph.edge_type,
+                                graph.edge_weight, r, xx, msg="mul",
+                                num_nodes=V, csr=graph.csr)
+        before = rspmm_bwd_cuda.launches
+        grads.append([t.cpu() for t in torch.autograd.grad(
+            out, (r, xx), cot.to(dev))])
+        assert rspmm_bwd_cuda.launches == before + (graph is gc)
+    for a, b in zip(*grads):
+        torch.testing.assert_close(b, a, **K2_TOL)
+    r = rel.to(cuda_device).requires_grad_()
+    out = generalized_rspmm(gc.edge_index, gc.edge_type, gc.edge_weight, r,
+                            x.to(cuda_device), msg="add", num_nodes=V,
+                            csr=gc.csr)
+    with pytest.raises(NotImplementedError, match="K3"):
+        out.sum().backward()

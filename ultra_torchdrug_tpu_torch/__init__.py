@@ -1,7 +1,7 @@
 """PyTorch/CUDA port of ultra_torchdrug_tpu for one NVIDIA Hopper card.
 
-Mirrors the JAX package's module layout (data/, nn/, ops/, models/, tasks/)
-so that every module has a counterpart of the same name. The hand-written
+Mirrors the JAX package's module layout (data/, nn/, ops/, models/, tasks/,
+engine/, utils/) so that every module has a counterpart of the same name. The hand-written
 CUDA kernels live in csrc/ and are built with nvcc at first use
 (ops/cuda_build.py). Numerics are fp32 end to end with TF32 off, as in the
 reference.

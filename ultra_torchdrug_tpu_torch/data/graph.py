@@ -14,26 +14,81 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops.match import PatternJoinIndex, build_pattern_join
+
+# edges per chunk of the relation-sorted order (the dr pass of the rspmm
+# backward reduces one chunk per CTA, then each relation's chunks in order)
+DR_CHUNK_EDGES = 256
+
 
 @dataclasses.dataclass(frozen=True)
 class Csr:
-    """Destination-sorted CSR of a graph's topology, the layout of the rspmm
-    forward kernel (ops/rspmm_cuda.py). A pure function of topology: edge
-    weights are gathered per call through ``eid``, so masked weights need no
-    new layout.
+    """The rspmm kernels' layouts of a graph's topology (ops/rspmm_cuda.py,
+    ops/rspmm_bwd_cuda.py). A pure function of topology: edge weights are
+    gathered per call through the ``*eid`` arrays, so masked weights need no
+    new layout. All int32.
 
-      rowptr: int32 [V + 1] — edges of row v are [rowptr[v], rowptr[v+1])
-      src, etype, eid: int32 [E] — source node, edge type and original edge
-        index of each edge, in destination order (stable within a row)
+    Destination-sorted CSR (the forward, K1):
+      rowptr [V + 1] — edges of row v are [rowptr[v], rowptr[v+1])
+      src, etype, eid [E] — source node, edge type and original edge index
+        of each edge, in destination order (stable within a row)
+    The backward's layouts (K2), None unless ``prepare_csr(backward=True)``
+    built them:
+    Source-sorted CSR (the dx pass):
+      src_rowptr [V + 1]; src_dst, src_etype, src_eid [E] in source order
+    Relation-sorted edges cut into chunks of at most DR_CHUNK_EDGES edges,
+    none of which crosses a relation (the dr pass):
+      rel_src, rel_dst, rel_eid [E] — in relation order (stable)
+      chunk_ptr [C + 1] — chunk c is [chunk_ptr[c], chunk_ptr[c+1])
+      chunk_rel [C] — the relation of each chunk
+      rel_chunk_ptr [R + 1] — relation r owns chunks
+        [rel_chunk_ptr[r], rel_chunk_ptr[r+1]) (none when it has no edge)
     """
 
     rowptr: torch.Tensor
     src: torch.Tensor
     etype: torch.Tensor
     eid: torch.Tensor
+    src_rowptr: Optional[torch.Tensor] = None
+    src_dst: Optional[torch.Tensor] = None
+    src_etype: Optional[torch.Tensor] = None
+    src_eid: Optional[torch.Tensor] = None
+    rel_src: Optional[torch.Tensor] = None
+    rel_dst: Optional[torch.Tensor] = None
+    rel_eid: Optional[torch.Tensor] = None
+    chunk_ptr: Optional[torch.Tensor] = None
+    chunk_rel: Optional[torch.Tensor] = None
+    rel_chunk_ptr: Optional[torch.Tensor] = None
+
+    @property
+    def has_backward(self) -> bool:
+        return self.src_rowptr is not None
 
     def to(self, device) -> "Csr":
-        return Csr(*(t.to(device) for t in dataclasses.astuple(self)))
+        return Csr(**{f.name: None if (t := getattr(self, f.name)) is None
+                      else t.to(device) for f in dataclasses.fields(self)})
+
+
+def _rowptr(keys: np.ndarray, num_rows: int) -> np.ndarray:
+    rowptr = np.zeros(num_rows + 1, np.int64)
+    np.cumsum(np.bincount(keys, minlength=num_rows), out=rowptr[1:])
+    return rowptr
+
+
+def _relation_chunks(etype_sorted: np.ndarray, num_relations: int,
+                     chunk_edges: int):
+    """(chunk_ptr [C+1], chunk_rel [C], rel_chunk_ptr [R+1]) for edges
+    already sorted by relation."""
+    counts = np.bincount(etype_sorted, minlength=num_relations)
+    rel_start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    per_rel = -(-counts // chunk_edges)
+    rel_chunk_ptr = np.zeros(num_relations + 1, np.int64)
+    np.cumsum(per_rel, out=rel_chunk_ptr[1:])
+    chunk_rel = np.repeat(np.arange(num_relations), per_rel)
+    local = np.arange(len(chunk_rel)) - rel_chunk_ptr[chunk_rel]
+    chunk_ptr = np.append(rel_start[chunk_rel] + local * chunk_edges,
+                          len(etype_sorted))
+    return chunk_ptr, chunk_rel, rel_chunk_ptr
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,10 +99,12 @@ class Graph:
       edge_type: int64 [E] — relation id per edge
       edge_weight: float32 [E] — multiplicative edge weight (0 == masked out)
       num_nodes, num_relations: vocabulary sizes
-      csr: optional destination-sorted CSR (``prepare_csr``)
+      csr: optional kernel layouts (``prepare_csr``)
       dense_adj: optional dense per-etype adjacency [T, N, N] with
         A[t, d, s] = summed edge weight (``prepare_dense``). Weights are
         folded in, so weight-only transforms drop it.
+      join_index, join_index_ht: optional ``ops.match.PatternJoinIndex``
+        over (h, t, r) and over (h, t) (``prepare_join``); topology only
     """
 
     edge_index: torch.Tensor
@@ -57,6 +114,8 @@ class Graph:
     num_relations: int
     csr: Optional[Csr] = None
     dense_adj: Optional[torch.Tensor] = None
+    join_index: Optional[PatternJoinIndex] = None
+    join_index_ht: Optional[PatternJoinIndex] = None
 
     @staticmethod
     def from_triplets(triplets, num_nodes: int, num_relations: int,
@@ -89,6 +148,10 @@ class Graph:
             csr=None if self.csr is None else self.csr.to(device),
             dense_adj=None if self.dense_adj is None
             else self.dense_adj.to(device),
+            join_index=None if self.join_index is None
+            else self.join_index.to(device),
+            join_index_ht=None if self.join_index_ht is None
+            else self.join_index_ht.to(device),
         )
 
     @property
@@ -121,7 +184,8 @@ class Graph:
         )
 
     def with_edge_weight(self, edge_weight: torch.Tensor) -> "Graph":
-        # dense_adj has the old weights folded in; the CSR is topology only
+        # dense_adj has the old weights folded in; the CSR and the join
+        # indexes are topology only
         return dataclasses.replace(self, edge_weight=edge_weight,
                                    dense_adj=None)
 
@@ -130,24 +194,53 @@ class Graph:
         return self.with_edge_weight(
             self.edge_weight * keep_mask.to(self.edge_weight.dtype))
 
-    def prepare_csr(self) -> "Graph":
-        """Attach the destination-sorted CSR (stable within a row). Host-side,
-        once per topology."""
+    def prepare_csr(self, backward: bool = False) -> "Graph":
+        """Attach the kernels' layouts (``Csr``): the destination-sorted CSR
+        and, with ``backward`` (graphs that a loss is differentiated over),
+        the source-sorted CSR and the relation-sorted chunks, all stable.
+        Host-side, once per topology."""
         ei = self.edge_index.cpu().numpy()
         et = self.edge_type.cpu().numpy()
-        order = np.argsort(ei[:, 1], kind="stable")
-        counts = np.bincount(ei[:, 1], minlength=self.num_nodes)
-        rowptr = np.zeros(self.num_nodes + 1, np.int64)
-        np.cumsum(counts, out=rowptr[1:])
-        if rowptr[-1] > np.iinfo(np.int32).max:
-            raise ValueError(f"{rowptr[-1]} edges exceed the int32 CSR")
+        if len(ei) > np.iinfo(np.int32).max:
+            raise ValueError(f"{len(ei)} edges exceed the int32 CSR")
+        if len(et) and (et.min() < 0 or et.max() >= self.num_relations):
+            raise ValueError(f"edge types must lie in [0, "
+                             f"{self.num_relations})")
 
         def i32(a):
             return torch.from_numpy(a.astype(np.int32)).to(self.device)
 
-        csr = Csr(rowptr=i32(rowptr), src=i32(ei[order, 0]),
-                  etype=i32(et[order]), eid=i32(order))
-        return dataclasses.replace(self, csr=csr)
+        by_dst = np.argsort(ei[:, 1], kind="stable")
+        layouts = dict(
+            rowptr=i32(_rowptr(ei[:, 1], self.num_nodes)),
+            src=i32(ei[by_dst, 0]), etype=i32(et[by_dst]), eid=i32(by_dst))
+        if backward:
+            by_src = np.argsort(ei[:, 0], kind="stable")
+            by_rel = np.argsort(et, kind="stable")
+            chunk_ptr, chunk_rel, rel_chunk_ptr = _relation_chunks(
+                et[by_rel], self.num_relations, DR_CHUNK_EDGES)
+            layouts.update(
+                src_rowptr=i32(_rowptr(ei[:, 0], self.num_nodes)),
+                src_dst=i32(ei[by_src, 1]), src_etype=i32(et[by_src]),
+                src_eid=i32(by_src),
+                rel_src=i32(ei[by_rel, 0]), rel_dst=i32(ei[by_rel, 1]),
+                rel_eid=i32(by_rel), chunk_ptr=i32(chunk_ptr),
+                chunk_rel=i32(chunk_rel), rel_chunk_ptr=i32(rel_chunk_ptr))
+        return dataclasses.replace(self, csr=Csr(**layouts))
+
+    def prepare_join(self, one_hop: bool = False) -> "Graph":
+        """Attach the sorted-edge ``PatternJoinIndex`` for the per-step
+        easy-edge mask (models/ultra.py::_mask_easy_edges): the join's sort
+        happens once here, on the host. ``one_hop`` also builds the
+        wildcard-relation index (remove_one_hop configs)."""
+        ei, et = self.edge_index.cpu().numpy(), self.edge_type.cpu().numpy()
+        ji = self.join_index or build_pattern_join(ei, et)
+        ji_ht = self.join_index_ht
+        if one_hop and ji_ht is None:
+            ji_ht = build_pattern_join(ei, et, wildcard_rel=True)
+        return dataclasses.replace(
+            self, join_index=None if ji is None else ji.to(self.device),
+            join_index_ht=None if ji_ht is None else ji_ht.to(self.device))
 
     def prepare_dense(self, max_bytes: int = 64 * 1024 * 1024,
                       min_density: float = 0.02) -> "Graph":

@@ -15,7 +15,7 @@ Propagation state is carried flat, [V, B*D] with b-major features.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -153,20 +153,30 @@ def rel_nbfnet_apply(tower: NBFNet, rel_graph, query_rels) -> torch.Tensor:
 
 
 def entity_nbfnet_score_all(tower: NBFNet, graph, rel_queries,
-                            source: torch.Tensor,
-                            query_rel: torch.Tensor) -> torch.Tensor:
-    """Score every entity as the target of (source[b], query_rel[b], ?).
+                            source: torch.Tensor, query_rel: torch.Tensor,
+                            targets: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Score entities as the target of (source[b], query_rel[b], ?).
 
     graph: undirected+inverse entity graph (2R relation types)
     rel_queries: [B, 2R, D] per-query relation representations
     source: int [B]; query_rel: int [B] in [0, 2R)
-    Returns [B, V] scores.
+    targets: optional int [B, T] candidates; the head then runs on those
+      rows only
+    Returns [B, V] scores, or [B, T] with targets.
     """
     B = source.shape[0]
     query = rel_queries[torch.arange(B, device=source.device), query_rel]
     V = graph.num_nodes
     boundary = _flat_boundary(V, B, tower.cfg.input_dim, source, query)
     final = _propagate(tower, graph, boundary, rel_injected=rel_queries)
+    if targets is not None:
+        # flat [V, B*feat] viewed [V*B, feat]: row v*B + b is state(v, b),
+        # so the (b, t) rows are targets*B + b
+        feat = final.shape[1] // B
+        rows = targets * B + torch.arange(B, device=targets.device)[:, None]
+        feats = final.reshape(V * B, feat)[rows]  # [B, T, feat]
+        return _mlp_head_targets(tower.mlp, feats, query)
     return _score_tail(tower, final, query, V, B)
 
 
@@ -184,6 +194,21 @@ def _mlp_head_split(mlp: MLP, final, query):
     for layer in mlp.layers[1:]:
         h = layer(torch.relu(h))
     return h
+
+
+def _mlp_head_targets(mlp: MLP, feats, query):
+    """The target-gathered head: feats [B, T, feat], query [B, D] -> [B, T].
+    The split-weight formulation of _mlp_head_split, with the query term
+    broadcast over T."""
+    first = mlp.layers[0]
+    w0 = first.weight
+    dq = query.shape[-1]
+    h = (torch.matmul(feats, w0[:, :-dq].T)
+         + torch.matmul(query, w0[:, -dq:].T)[:, None, :]
+         + first.bias)
+    for layer in mlp.layers[1:]:
+        h = layer(torch.relu(h))
+    return h[..., 0]
 
 
 def _score_tail(tower: NBFNet, final, query, V, B):

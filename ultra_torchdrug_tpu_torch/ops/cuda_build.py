@@ -2,8 +2,9 @@
 
 Every ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled
 by ``nvcc`` for Hopper (``sm_90a``) into ``ultra_torchdrug_tpu_torch/build/``
-and loaded with ctypes. The library's file name carries a hash of its source,
-so an edited source is rebuilt and a stale library is never loaded. Build
+and loaded with ctypes. The library's file name carries a hash of its source
+and of the shared headers (``csrc/*.cuh``), so an edited source or header is
+rebuilt and a stale library is never loaded. Build
 errors raise with nvcc's output. Nothing here runs at import time.
 """
 
@@ -46,9 +47,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    text = (CSRC_DIR / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        (CSRC_DIR / f"{name}.cu").read_bytes()
-        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

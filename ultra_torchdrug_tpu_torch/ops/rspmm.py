@@ -7,16 +7,20 @@ This slice covers MSG in {mul (distmult), add (transe)} with AGG add, in the
 flat form (x [V, F], relation [R, F]) and the [V, B, D] form (relation
 [R, D] shared across the batch, or [R, B, D]).
 
-On CUDA tensors the op launches kernel K1 (ops/rspmm_cuda.py) over the
-graph's destination-sorted CSR; on CPU tensors it runs the plain
-index_select + index_add_ version. Forward only: the backward (kernel K2)
-comes with the training slice.
+On CUDA tensors the op is an autograd node over the graph's layouts
+(``Graph.prepare_csr``): its forward launches kernel K1
+(ops/rspmm_cuda.py) and, for distmult messages, its backward launches
+kernel K2 (ops/rspmm_bwd_cuda.py). The transe backward (kernel K3) and
+gradients to the edge weights are not ported yet and raise. On CPU tensors
+the op runs the plain index_select + index_add_ version, whose gradients
+come from autograd.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .rspmm_bwd_cuda import rspmm_bwd_cuda
 from .rspmm_cuda import rspmm_fwd_cuda, rspmm_plain_edges
 
 __all__ = ["generalized_rspmm", "broadcast_rel_flat"]
@@ -32,19 +36,29 @@ def broadcast_rel_flat(relation: torch.Tensor, B: int) -> torch.Tensor:
     return relation.reshape(relation.shape[0], -1)
 
 
-class _RspmmForwardK1(torch.autograd.Function):
-    """K1 as an autograd node whose backward is not ported yet, so a
-    gradient through the card's path raises instead of being wrong."""
+class _RspmmK1K2(torch.autograd.Function):
+    """K1 forward, K2 backward (mul_rel) over a graph's ``Csr``. Flat
+    operands: edge_weight [E], relation [R, F], x [V, F]."""
 
     @staticmethod
-    def forward(ctx, rowptr, src, etype, eid, edge_weight, relation, x, mode):
-        return rspmm_fwd_cuda(rowptr, src, etype, eid, edge_weight, relation,
-                              x, mode)
+    def forward(ctx, csr, edge_weight, relation, x, mode):
+        ctx.csr, ctx.mode = csr, mode
+        ctx.save_for_backward(edge_weight, relation, x)
+        return rspmm_fwd_cuda(csr.rowptr, csr.src, csr.etype, csr.eid,
+                              edge_weight, relation, x, mode)
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "the rspmm backward (kernel K2) comes with the training slice")
+        if ctx.mode != "mul_rel":
+            raise NotImplementedError(
+                "the transe (add_rel) rspmm backward is kernel K3, not "
+                "ported yet")
+        edge_weight, relation, x = ctx.saved_tensors
+        need_dr, need_dx = ctx.needs_input_grad[2], ctx.needs_input_grad[3]
+        dx, dr = rspmm_bwd_cuda(ctx.csr, edge_weight, relation, x,
+                                grad_out.contiguous(), need_dx=need_dx,
+                                need_dr=need_dr)
+        return None, None, dr, dx, None
 
 
 def generalized_rspmm(edge_index, edge_type, edge_weight, relation, x, *,
@@ -54,7 +68,9 @@ def generalized_rspmm(edge_index, edge_type, edge_weight, relation, x, *,
 
     edge_index [E, 2], edge_type [E], edge_weight [E] in original edge order;
     csr: the graph's ``Csr`` (data/graph.py), required on CUDA.
-    Returns the layout of x with num_nodes rows.
+    Returns the layout of x with num_nodes rows. On CUDA, gradients flow to
+    relation and x; an edge_weight that requires grad raises (the
+    edge-gradient path of classic NBFNet is not ported yet).
     """
     if msg not in _MODES:
         raise NotImplementedError(
@@ -78,7 +94,10 @@ def generalized_rspmm(edge_index, edge_type, edge_weight, relation, x, *,
         if csr.rowptr.numel() != num_nodes + 1:
             raise ValueError(f"CSR has {csr.rowptr.numel() - 1} rows, "
                              f"expected {num_nodes}")
-        out = _RspmmForwardK1.apply(
-            csr.rowptr, csr.src, csr.etype, csr.eid,
-            edge_weight.contiguous(), rel.contiguous(), xf.contiguous(), mode)
+        if edge_weight.requires_grad and torch.is_grad_enabled():
+            raise NotImplementedError(
+                "gradients to edge weights (classic NBFNet's edge-gradient "
+                "path) are not ported yet")
+        out = _RspmmK1K2.apply(csr, edge_weight.contiguous(),
+                               rel.contiguous(), xf.contiguous(), mode)
     return out if flat else out.reshape(num_nodes, *x.shape[1:])

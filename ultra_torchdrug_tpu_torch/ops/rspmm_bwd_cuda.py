@@ -1,0 +1,131 @@
+"""Kernel K2: the relational SpMM backward for distmult messages with sum
+aggregation, by hand for Hopper (csrc/rspmm_bwd.cu), and its plain PyTorch
+version.
+
+Replaces ultra_torchdrug_tpu/ops/rspmm_pallas.py::rspmm_bwd_fused in mode
+``mul`` (via rspmm_bwd_pallas), the backward of K1's ``mul_rel``:
+
+    dx[s] = Σ_{e=(s→v, r)} w[eid_e] · rel[r] ⊙ g[v]
+    dr[r] = Σ_{e with type r} w[eid_e] · x[s_e] ⊙ g[v_e]
+
+over the graph's source-sorted CSR (dx) and relation-sorted chunks (dr),
+both from data/graph.py::Graph.prepare_csr. Operands are flat: x, g [V, F],
+relation [R, F], edge_weight [E] in original edge order, all float32.
+
+``rspmm_bwd_cuda`` launches the kernel for CUDA tensors and counts each
+call in ``launches`` (one call is up to three device launches, see the
+source); for CPU tensors it runs ``rspmm_bwd_plain``. The result is
+deterministic: no float atomics, sums in a fixed order.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .cuda_build import load_library
+from .rspmm_cuda import _check, csr_rows, rspmm_plain_edges
+
+# calls that launched K2 since import (or since the caller last reset it)
+launches = 0
+
+
+def _require_backward_layouts(csr):
+    if not csr.has_backward:
+        raise ValueError("the CSR has no backward layouts: build it with "
+                         "Graph.prepare_csr(backward=True)")
+
+
+def rspmm_bwd_plain(csr, edge_weight, relation, x, grad, need_dx=True,
+                    need_dr=True):
+    """The same function as the kernel, in plain PyTorch (index_select and
+    index_add_), over the source-sorted CSR only: dx by source row, dr by
+    edge type. The relation chunks are the kernel's own and not used here.
+    Returns (dx, dr), None for a half that is not needed."""
+    _require_backward_layouts(csr)
+    src = csr_rows(csr.src_rowptr)
+    dst, etype = csr.src_dst.long(), csr.src_etype.long()
+    w = edge_weight.index_select(0, csr.src_eid.long())
+    dx = dr = None
+    if need_dx:
+        dx = rspmm_plain_edges(dst, src, etype, w, relation, grad, "mul_rel",
+                               csr.src_rowptr.numel() - 1)
+    if need_dr:
+        msg = x.index_select(0, src)
+        msg.mul_(grad.index_select(0, dst))
+        msg.mul_(w[:, None])
+        dr = torch.zeros_like(relation).index_add_(0, etype, msg)
+    return dx, dr
+
+
+def rspmm_bwd_cuda(csr, edge_weight, relation, x, grad, need_dx=True,
+                   need_dr=True):
+    """K2 on CUDA tensors; the plain version on CPU tensors. Returns (dx, dr),
+    None for a half that is not needed."""
+    if x.device.type == "cpu":
+        return rspmm_bwd_plain(csr, edge_weight, relation, x, grad, need_dx,
+                               need_dr)
+    device = x.device
+    if device.type != "cuda":
+        raise ValueError(f"K2 runs on CUDA tensors, got {device}")
+    _require_backward_layouts(csr)
+    layout = ("src_rowptr", "src_dst", "src_etype", "src_eid", "chunk_ptr",
+              "rel_chunk_ptr", "rel_src", "rel_dst", "rel_eid")
+    for name in layout:
+        _check(name, getattr(csr, name), torch.int32, device, 1)
+    for name, t in (("edge_weight", edge_weight), ("relation", relation),
+                    ("x", x), ("grad", grad)):
+        _check(name, t, torch.float32, device, 1 if name == "edge_weight"
+               else 2)
+    num_edges = edge_weight.numel()
+    if any(getattr(csr, n).numel() != num_edges for n in
+           ("src_dst", "src_etype", "src_eid", "rel_src", "rel_dst",
+            "rel_eid")):
+        raise ValueError("the layouts and edge_weight must have one entry "
+                         "per edge")
+    num_rows, num_features = x.shape
+    num_relations = csr.rel_chunk_ptr.numel() - 1
+    num_chunks = csr.chunk_ptr.numel() - 1
+    if grad.shape != x.shape:
+        raise ValueError(f"grad {tuple(grad.shape)} != x {tuple(x.shape)}")
+    if csr.src_rowptr.numel() - 1 != num_rows:
+        raise ValueError(f"source CSR has {csr.src_rowptr.numel() - 1} rows, "
+                         f"x has {num_rows}")
+    if tuple(relation.shape) != (num_relations, num_features):
+        raise ValueError(f"relation {tuple(relation.shape)} != "
+                         f"({num_relations}, {num_features})")
+    dx = (torch.empty((num_rows, num_features), dtype=torch.float32,
+                      device=device) if need_dx else None)
+    dr = partial = None
+    if need_dr:
+        dr = torch.empty((num_relations, num_features), dtype=torch.float32,
+                         device=device)
+        partial = torch.empty((num_chunks, num_features), dtype=torch.float32,
+                              device=device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    fn = _kernel()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*(getattr(csr, n).data_ptr() for n in layout),
+                 edge_weight.data_ptr(), relation.data_ptr(), x.data_ptr(),
+                 grad.data_ptr(), ptr(dx), ptr(dr), ptr(partial), num_rows,
+                 num_relations, num_chunks, num_features, stream)
+    if err != 0:
+        raise RuntimeError(f"rspmm_bwd_k2 launch failed with CUDA error {err}")
+    global launches
+    launches += 1
+    return dx, dr
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    fn = load_library("rspmm_bwd").rspmm_bwd_k2
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn

@@ -48,14 +48,18 @@ def rspmm_plain_edges(src, dst, etype, weight, relation, x, mode: str,
     return out.index_add_(0, dst, msg)
 
 
+def csr_rows(rowptr: torch.Tensor) -> torch.Tensor:
+    """The row of each entry of a CSR: rowptr [N + 1] -> int64 [nnz]."""
+    return torch.repeat_interleave(
+        torch.arange(rowptr.numel() - 1, device=rowptr.device),
+        (rowptr[1:] - rowptr[:-1]).long())
+
+
 def rspmm_fwd_plain(rowptr, src, etype, eid, edge_weight, relation, x,
                     mode: str) -> torch.Tensor:
     """The same function as the kernel, in plain PyTorch, on the same CSR."""
     num_nodes = rowptr.numel() - 1
-    counts = (rowptr[1:] - rowptr[:-1]).long()
-    dst = torch.repeat_interleave(
-        torch.arange(num_nodes, device=rowptr.device), counts)
-    return rspmm_plain_edges(src.long(), dst, etype.long(),
+    return rspmm_plain_edges(src.long(), csr_rows(rowptr), etype.long(),
                              edge_weight.index_select(0, eid.long()),
                              relation, x, mode, num_nodes)
 

@@ -1,10 +1,16 @@
-"""Task layer, evaluation half (counterpart of ultra_torchdrug_tpu/tasks/task.py).
+"""Task layer (counterpart of ultra_torchdrug_tpu/tasks/task.py): the loss
+step for training and filtered-ranking evaluation.
 
 ``TransductiveKGTask`` holds one knowledge graph: the fact graph (train
 edges) that the model propagates over, the relation graph built from it, and
-the filter graph (all splits) for filtered ranking. ``evaluate`` scores each
-(h, r, ?) and (?, r, t) query against every entity and turns the filtered
-ranks into metrics. It runs eagerly under ``torch.inference_mode()``.
+the filter graph (all splits) for filtered ranking.
+
+  * ``loss_step`` draws strict negatives for a batch of train triples,
+    masks the batch's easy edges, scores the positive and the negatives and
+    returns the loss (a tensor to call ``backward`` on) with its metrics.
+  * ``evaluate`` scores each (h, r, ?) and (?, r, t) query against every
+    entity and turns the filtered ranks into metrics, eagerly under
+    ``torch.inference_mode()``.
 """
 
 from __future__ import annotations
@@ -19,9 +25,21 @@ from .. import default_device
 from ..data.datasets import TransductiveDataset
 from ..data.graph import Graph
 from ..data.relgraph import build_relation_graph
-from ..models.ultra import UltraConfig, ultra_eval_scores, ultra_init
+from ..models.ultra import (
+    UltraConfig,
+    ultra_eval_scores,
+    ultra_init,
+    ultra_train_scores,
+)
 from ..ops.match import head_truth_mask, tail_truth_mask
-from .kg import evaluate_ranking, filtered_ranking
+from ..ops.sampling import strict_negatives
+from .kg import (
+    bce_self_adversarial,
+    cross_entropy_positive,
+    evaluate_ranking,
+    filtered_ranking,
+    margin_ranking,
+)
 
 DEFAULT_TRANSDUCTIVE_METRICS = (
     "mr", "mrr", "hits@1", "hits@3", "hits@10",
@@ -31,9 +49,36 @@ DEFAULT_TRANSDUCTIVE_METRICS = (
 
 @dataclasses.dataclass(frozen=True)
 class TaskConfig:
+    num_negative: int = 128
+    adversarial_temperature: float = 1.0
+    strict_negative: bool = True
     filtered_ranking: bool = True
+    criterion: str = "bce"
+    margin: float = 6.0
     metrics: Sequence[str] = DEFAULT_TRANSDUCTIVE_METRICS
+    sample_weight: bool = False
     fact_ratio: Optional[float] = None
+
+
+def _criterion_loss(cfg: TaskConfig, scores, sample_weight=None):
+    if cfg.criterion == "bce":
+        return bce_self_adversarial(scores, cfg.adversarial_temperature,
+                                    sample_weight)
+    if cfg.criterion == "ce":
+        return cross_entropy_positive(scores)
+    if cfg.criterion == "ranking":
+        return margin_ranking(scores, cfg.margin)
+    raise ValueError(f"unknown criterion {cfg.criterion!r}")
+
+
+def _degree_weights(train: np.ndarray, num_entities: int, num_relations: int):
+    """The sample_weight degree tables: (h, r) and (t, r) counts of the
+    train triples."""
+    deg_hr = np.zeros((num_entities, num_relations), np.int64)
+    deg_tr = np.zeros((num_entities, num_relations), np.int64)
+    np.add.at(deg_hr, (train[:, 0], train[:, 2]), 1)
+    np.add.at(deg_tr, (train[:, 1], train[:, 2]), 1)
+    return deg_hr, deg_tr
 
 
 class _TaskBase:
@@ -45,15 +90,51 @@ class _TaskBase:
         """A freshly initialized model on the task's device."""
         return ultra_init(self.model_cfg, seed, self.device)
 
-    def _prepare_graphs(self, fact_graph: Graph, rel_graph: Graph):
-        """The undirected propagation graph with its CSR (the rspmm kernel's
-        layout), and the relation graph with its dense adjacency when it is
-        small and dense enough (else its CSR), on the task's device."""
-        und = fact_graph.undirected_with_inverse().prepare_csr()
+    def _prepare_graphs(self, fact_graph: Graph, rel_graph: Graph,
+                        backward: bool = False):
+        """The undirected propagation graph with its CSR (the rspmm kernels'
+        layouts, the backward's too when ``backward``), and the relation
+        graph with its dense adjacency when it is small and dense enough
+        (else its CSR), on the task's device."""
+        und = fact_graph.undirected_with_inverse().prepare_csr(backward)
         rel_graph = rel_graph.prepare_dense()
         if rel_graph.dense_adj is None:
-            rel_graph = rel_graph.prepare_csr()
+            rel_graph = rel_graph.prepare_csr(backward)
         return und.to(self.device), rel_graph.to(self.device)
+
+    def _build_loss_fn(self, fact_graph: Graph, rel_graph: Graph,
+                       num_nodes: int):
+        """Returns fn(model, generator, batch [B, 3] on the device,
+        sample_weight=None, neg=None) -> (loss, metrics). Negatives are
+        strict (or uniform) draws from ``generator`` unless ``neg`` [B, N]
+        is given."""
+        cfg = self.cfg
+        # pre-sorted edges: the per-step easy-edge mask joins by binary
+        # search instead of sorting the edges and the batch every step
+        fact_graph = fact_graph.prepare_join(
+            one_hop=self.model_cfg.remove_one_hop).to(self.device)
+        fact_und, rel_graph = self._prepare_graphs(fact_graph, rel_graph,
+                                                   backward=True)
+        fact_edges = fact_graph.edge_list
+
+        def loss_fn(model, generator, batch, sample_weight=None, neg=None):
+            h, t, r = batch[:, 0], batch[:, 1], batch[:, 2]
+            if neg is None and cfg.strict_negative:
+                neg = strict_negatives(generator, fact_edges, h, t, r,
+                                       num_nodes, cfg.num_negative)
+            elif neg is None:
+                neg = torch.randint(0, num_nodes,
+                                    (batch.shape[0], cfg.num_negative),
+                                    generator=generator, device=batch.device)
+            scores = ultra_train_scores(model, fact_graph, rel_graph, h, t, r,
+                                        neg, fact_graph_und=fact_und)
+            loss = _criterion_loss(cfg, scores, sample_weight)
+            metrics = {"loss": loss.detach(),
+                       "pos_score": scores[:, 0].detach().mean(),
+                       "neg_score": scores[:, 1:].detach().mean()}
+            return loss, metrics
+
+        return loss_fn
 
     def _build_eval_fn(self, fact_graph: Graph, rel_graph: Graph,
                        filter_graph: Graph):
@@ -117,8 +198,33 @@ class TransductiveKGTask(_TaskBase):
             cfg.fact_ratio, seed=seed)
         self.rel_graph = build_relation_graph(self.fact_graph)
         self.graph = dataset.graph  # filter graph
+        if cfg.sample_weight:
+            self.deg_hr, self.deg_tr = _degree_weights(
+                self.train_triples, dataset.num_entities,
+                dataset.num_relations)
+        self._loss_fn = self._build_loss_fn(self.fact_graph, self.rel_graph,
+                                            dataset.num_entities)
         self._eval_fn = self._build_eval_fn(self.fact_graph, self.rel_graph,
                                             self.graph)
+
+    def sample_weight_for(self, batch: np.ndarray):
+        """Per-triple loss weights 1 / sqrt(deg(h, r) * deg(t, r)) when
+        ``sample_weight`` is on, else None."""
+        if not self.cfg.sample_weight:
+            return None
+        w = (self.deg_hr[batch[:, 0], batch[:, 2]]
+             * self.deg_tr[batch[:, 1], batch[:, 2]])
+        return torch.as_tensor(1.0 / np.sqrt(np.maximum(w, 1)),
+                               dtype=torch.float32, device=self.device)
+
+    def loss_step(self, model, generator: torch.Generator, batch: np.ndarray,
+                  neg: Optional[torch.Tensor] = None):
+        """(loss, metrics) of one batch of train triples [B, 3]; ``neg``
+        [B, N] replaces the drawn negatives (to hold a step against
+        another implementation)."""
+        b = torch.from_numpy(np.asarray(batch, np.int64)).to(self.device)
+        return self._loss_fn(model, generator, b,
+                             self.sample_weight_for(batch), neg)
 
     def eval_triples(self, split: str) -> np.ndarray:
         return {"valid": self.dataset.valid, "test": self.dataset.test}[split]
