@@ -3,7 +3,7 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py                # on a machine with the card
-    python3 chip_smoke.py --device cpu   # rehearsal of phases 2-5, reduced size
+    python3 chip_smoke.py --device cpu   # rehearsal of phases 2-9, reduced size
 
 Phases, each of which raises on failure (the script then exits nonzero):
 
@@ -14,7 +14,12 @@ Phases, each of which raises on failure (the script then exits nonzero):
               shapes and at the eval and training shapes, and time it; hold K2
               (the rspmm backward, csrc/rspmm_bwd.cu) against its plain
               version at small and ragged shapes and at the training shape,
-              check that two calls agree bitwise, and time it;
+              check that two calls agree bitwise, and time it; hold K6 (the
+              fused max+min, both modes) and K7 (the fused moments,
+              csrc/rspmm_pna_fwd.cu) and K6b and K7b (their backward,
+              csrc/rspmm_pna_bwd.cu, bitwise across two calls) against their
+              plain versions at ragged shapes and at F=512 and F=2048, and
+              time each;
   2. slice    zero-shot evaluation of ULTRA (6x64 towers, seeded weights) on a
               synthetic KG of FB15k-237's size: 64 test triples in batches of
               16, through TransductiveKGTask.evaluate; K1 must launch 12 times
@@ -28,7 +33,19 @@ Phases, each of which raises on failure (the script then exits nonzero):
               gradient norm must be finite; then one step under torch.profiler;
   5. train parity  one loss step (2 queries, 8 injected negatives, the full
               graph) on the card against the port's CPU run: the loss and
-              every parameter's gradient.
+              every parameter's gradient;
+  6. classic  evaluation of classic NBFNet (6x32, PNA aggregation, distmult,
+              dependent relations, layer norm; seeded weights) on the same KG
+              through ClassicNBFNetTask.evaluate, 64 test triples in batches of
+              16: K6 and K7 must launch 12 times per batch and no other
+              kernel; then one batch under torch.profiler;
+  7. classic parity  as phase 3, for classic NBFNet, and a count of the PNA
+              variances clipped on one device and not the other;
+  8. classic train  Engine.train of classic NBFNet at batch 64, 32 strict
+              negatives, Adam at lr 5e-3: one warm-up step, then timed steps;
+              K6, K7, K6b and K7b must each launch 6 times per step and no
+              other kernel; then one step under torch.profiler;
+  9. classic train parity  as phase 5, for classic NBFNet.
 
 The last lines are a JSON object with one entry per kernel, then
 {"ok": true, "device": {...}}. With no card the script prints no result and
@@ -68,6 +85,20 @@ TRAIN = dict(batch=64, negatives=128, steps=5)
 TRAIN_REHEARSAL = dict(batch=8, negatives=16, steps=2)
 K_LAUNCHES_PER_STEP = 6  # 6 entity layers, one pass over the flipped batch
 FEAT = 64  # the model's feature width
+# classic NBFNet: the NBFNet paper's FB15k-237 setting (config/knowledge_graph/
+# fb15k237.yaml of DeepGraphLearning/NBFNet): 6x32, pna, distmult, dependent
+# relations, layer norm; training at batch 64 with 32 strict negatives and
+# Adam at lr 5e-3
+CLASSIC_FEAT = 32
+CLASSIC_TRAIN = dict(batch=64, negatives=32, steps=5)
+CLASSIC_TRAIN_REHEARSAL = dict(batch=8, negatives=8, steps=2)
+# card vs CPU for classic NBFNet: about 10x the largest reading of five H100
+# runs (scores 4.5e-7, gradients 5.8e-6 norm-wise); the CPU's plain K7 sums in
+# another order, and std = sqrt(clip(sq_mean - mean², 1e-6)) amplifies that
+# rounding up to 500x near the clip (phase 7 counts the entries clipped on
+# one device only); the loss is held to ULTRA's 1e-5
+CLASSIC_SCORE_ATOL = 1e-5
+CLASSIC_GRAD_RTOL = 1e-4
 
 
 def log(*args):
@@ -108,6 +139,41 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count, by kernel id."""
+    from ultra_torchdrug_tpu_torch.ops import (
+        rspmm_bwd_cuda,
+        rspmm_cuda,
+        rspmm_pna_cuda,
+    )
+
+    return {"K1": rspmm_cuda.launches, "K2": rspmm_bwd_cuda.launches,
+            **rspmm_pna_cuda.launches}
+
+
+def reset_launch_counts():
+    from ultra_torchdrug_tpu_torch.ops import (
+        rspmm_bwd_cuda,
+        rspmm_cuda,
+        rspmm_pna_cuda,
+    )
+
+    rspmm_cuda.launches = rspmm_bwd_cuda.launches = 0
+    for key in rspmm_pna_cuda.launches:
+        rspmm_pna_cuda.launches[key] = 0
+
+
+def check_launches(label: str, counts: dict, per_unit: dict, units: int,
+                   device):
+    """Each kernel in ``per_unit`` launched that many times per unit (eval
+    batch or train step) and every other kernel never; on the CPU none."""
+    want = {k: per_unit.get(k, 0) * units if device.type == "cuda" else 0
+            for k in counts}
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts} in {units} units, "
+                             f"expected {want}")
 
 
 def phase_build():
@@ -338,11 +404,191 @@ def time_k1_train_shape(und, device) -> dict:
                 bound_ms_train=bound_ms, bound_by_train=bound_by)
 
 
-def phase_slice(task, model, device):
-    """Zero-shot evaluation through the task's entry point; returns K1's
-    launches in the measured run."""
-    from ultra_torchdrug_tpu_torch.ops import rspmm_bwd_cuda, rspmm_cuda
+def pna_operands(graph, feat: int, seed: int, device):
+    """K6/K7's operands on ``graph`` (with its CSR): x [V, F] as post-ReLU
+    node states (about half the entries exactly 0, so messages tie), rel
+    [R, F] ~ N(0, 1), and edge weights in [0.5, 1.5] with a fifth masked to
+    0."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    V, R, E = graph.num_nodes, graph.num_relations, graph.num_edges
+    x = torch.randn((V, feat), generator=gen, device=device).clamp_(min=0)
+    rel = torch.randn((R, feat), generator=gen, device=device)
+    w = torch.rand((E,), generator=gen, device=device) + 0.5
+    w = w * (torch.rand((E,), generator=gen, device=device) >= 0.2)
+    return graph.csr.to(device), w, rel, x
 
+
+def pna_bound_ms(name: str, w, rel, x) -> tuple:
+    """Least time for a PNA kernel's work on this card: its dense inputs
+    read once and outputs written once, plus the edges, over the memory
+    rate, against its fp32 operations per edge and feature over the fp32
+    peak (K6: message 2, max, min; K7: message, weight, two sums, square;
+    K6b: message 2, two gates, the gated sum g_mx + g_mn, one weighting,
+    then dx and dr 2 each; K7b with w factored out and 2·g_sq formed once
+    per node, c = w·(g_s + m·(2·g_sq)): message, product, sum, weighting,
+    dx and dr 2 each)."""
+    E, V, F = w.numel(), x.shape[0], x.shape[1]
+    R = rel.shape[0]
+    reads, writes, ops = {"K6": (V, 2 * V, 4), "K7": (V, 2 * V, 5),
+                          "K6b": (5 * V, V + R, 10),
+                          "K7b": (3 * V, V + R, 8)}[name]
+    nbytes = edge_bytes(E) + (reads + R + writes) * F * 4
+    return roofline_ms(nbytes, ops * E * F)
+
+
+def phase_kernels_pna(und, device) -> dict:
+    """K6, K7, K6b and K7b against their plain versions; returns their
+    kernels-line entries by id (without the main path's launch counts)."""
+    from ultra_torchdrug_tpu_torch.data.graph import Graph
+    from ultra_torchdrug_tpu_torch.ops import rspmm_pna_cuda as pna
+
+    # K6 exactly (an extremum of the same fp32 products); K7 as K1; the
+    # backward as K2, with the absolute tolerance widened to 1e-5 of the
+    # result's largest entry: a dr row sums a thousand or more terms (K7b's
+    # carry x² and reach ~1e2), whose partial sums grow to that size, in
+    # another order than the plain version
+    tol = dict(rtol=1e-5, atol=1e-5)
+
+    def bwd_close(got, want):
+        atol = max(1e-4, 1e-5 * want.abs().max().item())
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+
+    fwd_kinds = (("K6", "maxmin", "mul_rel"), ("K6", "maxmin", "add_rel"),
+                 ("K7", "addsq", "mul_rel"))
+    bwd_kinds = (("K6b", "argext_pair", "mul_rel"),
+                 ("K6b", "argext_pair", "add_rel"),
+                 ("K7b", "moments", "mul_rel"))
+
+    def planes(kind, mode, ops, seed):
+        """The backward's planes: K6's own outputs (so the gates fire on
+        the card's bits) and seeded gradients."""
+        csr, w, rel, x = ops
+        gen = torch.Generator(device=device).manual_seed(seed)
+        g = [torch.randn(x.shape, generator=gen, device=device)
+             for _ in range(2)]
+        if kind == "moments":
+            return tuple(g)
+        mx, mn = pna.pna_fwd_cuda("maxmin", csr, w, rel, x, mode)
+        return g[0], mx, g[1], mn
+
+    def check_fwd(kid, kind, mode, ops, label):
+        got = pna.pna_fwd_cuda(kind, *ops, mode)
+        want = pna.pna_fwd_plain(kind, *ops, mode)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            if kid == "K6":
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{kid} {mode} {label}: differs from "
+                                         "its plain version")
+            else:
+                torch.testing.assert_close(a, b, **tol)
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        log(f"[kernels] {kid} {mode} {label}: max_abs_err {err:.3g}")
+        return got, err
+
+    def check_bwd(kid, kind, mode, ops, q, label):
+        dx, dr = pna.pna_bwd_cuda(kind, *ops, q, mode)
+        torch.cuda.synchronize()
+        dx2, dr2 = pna.pna_bwd_cuda(kind, *ops, q, mode)
+        torch.cuda.synchronize()
+        if not (torch.equal(dx, dx2) and torch.equal(dr, dr2)):
+            raise AssertionError(f"{kid} {mode} {label}: two calls differ")
+        want_dx, want_dr = pna.pna_bwd_plain(kind, *ops, q, mode)
+        bwd_close(dx, want_dx)
+        bwd_close(dr, want_dr)
+        err = max((dx - want_dx).abs().max().item(),
+                  (dr - want_dr).abs().max().item())
+        log(f"[kernels] {kid} {mode} {label}: max_abs_err {err:.3g}, "
+            "bitwise equal across two calls")
+        return dx, dr, err
+
+    # (a) small and ragged shapes: F = 10 and 12 scalar, 64 float4, 1028 two
+    # feature tiles; the last 5 rows neither send nor receive an edge and
+    # the last relation has none; 40 duplicated edges tie exactly
+    rng = np.random.default_rng(2)
+    for V, E, R, F in ((37, 300, 6, 10), (37, 300, 6, 64), (37, 300, 6, 1028),
+                       (50, 20, 3, 12), (60, 1400, 3, 64)):
+        tri = np.stack([rng.integers(0, V - 5, E), rng.integers(0, V - 5, E),
+                        rng.integers(0, R - 1, E)], 1)
+        tri[-min(40, E // 2):] = tri[:min(40, E // 2)]
+        g = Graph.from_triplets(tri, V, R).prepare_csr(backward=True)
+        ops = pna_operands(g, F, seed=V + F, device=device)
+        label = f"V={V} E={E} R={R} F={F}"
+        for kid, kind, mode in fwd_kinds:
+            out, _ = check_fwd(kid, kind, mode, ops, label)
+            if not all(torch.all(o[V - 5:] == 0) for o in out):
+                raise AssertionError(f"{kid} wrote nonzero rows without "
+                                     "edges")
+        for i, (kid, kind, mode) in enumerate(bwd_kinds):
+            q = planes(kind, mode, ops, seed=V + F + i)
+            dx, dr, _ = check_bwd(kid, kind, mode, ops, q, label)
+            if not (torch.all(dx[V - 5:] == 0) and torch.all(dr[R - 1] == 0)):
+                raise AssertionError(f"{kid} wrote nonzero rows without "
+                                     "edges")
+
+    # (b) the main path's shapes on the FB-sized graph: F = 16 x 32 (eval)
+    # for the forwards, F = 64 x 32 (training) for all four
+    entries = {}
+    for F, which in ((EVAL_BATCH * CLASSIC_FEAT, "eval"),
+                     (CLASSIC_TRAIN["batch"] * CLASSIC_FEAT, "train")):
+        ops = pna_operands(und, F, seed=F, device=device)
+        label = (f"{which} shape V={und.num_nodes} E={und.num_edges} "
+                 f"R={und.num_relations} F={F}")
+        timed = []
+        for kid, kind, mode in fwd_kinds:
+            out, err = check_fwd(kid, kind, mode, ops, label)
+            del out
+            timed.append((kid, mode, err,
+                          lambda kind=kind, mode=mode: pna.pna_fwd_cuda(
+                              kind, *ops, mode),
+                          lambda kind=kind, mode=mode: pna.pna_fwd_plain(
+                              kind, *ops, mode)))
+        if which == "train":
+            for i, (kid, kind, mode) in enumerate(bwd_kinds):
+                q = planes(kind, mode, ops, seed=F + i)
+                dx, dr, err = check_bwd(kid, kind, mode, ops, q, label)
+                del dx, dr
+                timed.append((kid, mode, err,
+                              lambda kind=kind, mode=mode, q=q:
+                              pna.pna_bwd_cuda(kind, *ops, q, mode),
+                              lambda kind=kind, mode=mode, q=q:
+                              pna.pna_bwd_plain(kind, *ops, q, mode)))
+        torch.cuda.empty_cache()
+        for kid, mode, err, kernel, plain in timed:
+            ms = cuda_time_ms(kernel, 20)
+            plain_ms = cuda_time_ms(plain, 3, warmup=1)
+            bound_ms, bound_by = pna_bound_ms(kid, *ops[1:])
+            log(f"[kernels] {kid} {mode} {label}: {ms:.4f} ms (plain "
+                f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}, "
+                f"{bound_ms / ms:.1%} of it), library_ms: null (no single "
+                "PyTorch call computes this function)")
+            keys = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by)
+            if mode != "mul_rel":  # the main path is distmult
+                entries[kid].update({f"ms_{mode}_{which}": ms,
+                                     f"max_abs_err_{mode}_{which}": err})
+                continue
+            if kid not in entries:
+                source = ("rspmm_pna_fwd.cu" if kid in ("K6", "K7")
+                          else "rspmm_pna_bwd.cu")
+                entries[kid] = dict(
+                    name=kid, route="cuda",
+                    source=f"{PACKAGE}/csrc/{source}",
+                    replaces="ultra_torchdrug_tpu/ops/rspmm_pallas.py:" + {
+                        "K6": "1869", "K7": "1990", "K6b": "2453",
+                        "K7b": "2453"}[kid],
+                    launches=None, library_ms=None, **keys)
+            elif which == "train":  # the forwards' second shape
+                entries[kid].update({f"{k}_train": v for k, v in keys.items()})
+        del ops
+        torch.cuda.empty_cache()
+    log('[kernels] kernels ["K6", "K7", "K6b", "K7b"]')
+    return entries
+
+
+def phase_slice(task, model, device, per_batch: dict, label: str = "slice"):
+    """Evaluation through the task's entry point; returns the launch counts
+    of the measured run, which must be ``per_batch`` per eval batch."""
     # one batch first: cuBLAS handles, allocator pools and the kernel library
     # load are set-up, not evaluation
     task.evaluate(model, "test", batch_size=EVAL_BATCH, fast_test=EVAL_BATCH)
@@ -350,31 +596,26 @@ def phase_slice(task, model, device):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     batches = math.ceil(FAST_TEST / EVAL_BATCH)
-    rspmm_cuda.launches = rspmm_bwd_cuda.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     metrics = task.evaluate(model, "test", batch_size=EVAL_BATCH,
                             fast_test=FAST_TEST)
     if device.type == "cuda":
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = rspmm_cuda.launches
-    want = K1_LAUNCHES_PER_BATCH * batches if device.type == "cuda" else 0
-    if rspmm_bwd_cuda.launches:
-        raise AssertionError("K2 launched during evaluation")
-    if launches != want:
-        raise AssertionError(f"K1 launched {launches} times in {batches} "
-                             f"eval batches, expected {want}")
+    counts = launch_counts()
+    check_launches(label, counts, per_batch, batches, device)
     if not all(math.isfinite(v) for v in metrics.values()):
         raise AssertionError(f"non-finite metrics {metrics}")
     peak = (torch.cuda.max_memory_allocated() / 2**30
             if device.type == "cuda" else float("nan"))
-    log(f"[slice] {FAST_TEST} test triples in {batches} batches of "
+    log(f"[{label}] {FAST_TEST} test triples in {batches} batches of "
         f"{EVAL_BATCH}: {seconds * 1e3 / batches:.2f} ms per eval batch, "
         f"{FAST_TEST / seconds:.1f} triples/s, peak device memory "
         f"{peak:.3f} GiB ({device})")
-    log(f"[slice] K1 launches {launches} ({launches / batches:.0f} per batch)")
-    log(f"[slice] metrics {json.dumps(metrics)}")
-    return launches
+    log(f"[{label}] launches {counts} ({batches} batches)")
+    log(f"[{label}] metrics {json.dumps(metrics)}")
+    return counts
 
 
 def profile_device_time(label: str, fn):
@@ -406,16 +647,10 @@ def profile_device_time(label: str, fn):
             f"{e.key[:90]}")
 
 
-def phase_profile(task, model):
-    """Device time by kernel over one eval batch."""
-    profile_device_time("one eval batch", lambda: task.evaluate(
-        model, "test", batch_size=EVAL_BATCH, fast_test=EVAL_BATCH))
-
-
-def phase_parity(task, model, device):
-    """Card scores for 2 test queries against the port's CPU run."""
-    from ultra_torchdrug_tpu_torch.models.ultra import ultra_eval_scores
-
+def phase_parity(task, model, device, atol: float = 1e-4,
+                 label: str = "parity"):
+    """Card scores for 2 test queries against the port's CPU run, through
+    the task's scoring hook on the graphs its eval path uses."""
     batch = torch.from_numpy(task.dataset.test[:2].astype(np.int64))
     und, rel_graph = task._prepare_graphs(task.fact_graph, task.rel_graph)
     cpu = torch.device("cpu")
@@ -426,56 +661,97 @@ def phase_parity(task, model, device):
                                      (cpu_model, cpu, und.to(cpu),
                                       rel_graph.to(cpu))):
             b = batch.to(dev)
-            t, h = ultra_eval_scores(m, task.fact_graph, g_rel, b[:, 0],
-                                     b[:, 1], b[:, 2], fact_graph_und=g_und)
+            t, h = task._eval_scores(m, task.fact_graph, g_rel, b[:, 0],
+                                     b[:, 1], b[:, 2], g_und)
             results.append((t.cpu(), h.cpu()))
     (t_dev, h_dev), (t_cpu, h_cpu) = results
     for name, a, b in (("tail", t_dev, t_cpu), ("head", h_dev, h_cpu)):
         if not torch.isfinite(a).all():
             raise AssertionError(f"non-finite {name} scores on {device}")
-        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
-        log(f"[parity] {name} scores {tuple(a.shape)} {device} vs cpu: "
-            f"max_abs_err {(a - b).abs().max().item():.3g}")
+        torch.testing.assert_close(a, b, rtol=0, atol=atol)
+        log(f"[{label}] {name} scores {tuple(a.shape)} {device} vs cpu: "
+            f"max_abs_err {(a - b).abs().max().item():.3g} (limit {atol:g})")
 
 
-def phase_train(dataset, device):
-    """Training steps through Engine.train; returns (engine, K1 launches,
-    K2 launches) of the timed run."""
-    from ultra_torchdrug_tpu_torch.engine.engine import Engine
-    from ultra_torchdrug_tpu_torch.models.ultra import UltraConfig
-    from ultra_torchdrug_tpu_torch.ops import rspmm_bwd_cuda, rspmm_cuda
-    from ultra_torchdrug_tpu_torch.tasks.task import (
-        TaskConfig,
-        TransductiveKGTask,
+def phase_clip_crossings(task, model, device):
+    """PNA's std = sqrt(clip(sq_mean - mean², EPS)) on the card and on the
+    CPU for 2 test queries, tail and head scoring: per layer, the entries
+    clipped on each device and those clipped on one and not the other,
+    where the two runs' gradients and scores can part by more than
+    rounding."""
+    from ultra_torchdrug_tpu_torch.models.layers import (
+        _MESSAGES,
+        EPS,
+        _relation_input,
+        pna_moments,
     )
+    from ultra_torchdrug_tpu_torch.ops.rspmm import broadcast_rel_flat
+
+    def clipped(m, dev):
+        masks = []
+
+        def hook(layer, args, kwargs):
+            graph, x, boundary = args
+            B = x.shape[1] // layer.cfg.input_dim
+            rel = broadcast_rel_flat(
+                _relation_input(layer, kwargs.get("query"), None), B)
+            mean, sq_mean, _ = pna_moments(layer.cfg, graph, rel, x, boundary,
+                                           _MESSAGES[layer.cfg.message_func])
+            masks.append((sq_mean - mean ** 2 <= EPS).cpu())
+
+        handles = [layer.register_forward_pre_hook(hook, with_kwargs=True)
+                   for layer in m.layers]
+        und, _ = task._prepare_graphs(task.fact_graph, task.rel_graph)
+        b = torch.from_numpy(task.dataset.test[:2].astype(np.int64)).to(dev)
+        try:
+            with torch.inference_mode():
+                task._eval_scores(m, task.fact_graph, None, b[:, 0], b[:, 1],
+                                  b[:, 2], und.to(dev))
+        finally:
+            for h in handles:
+                h.remove()
+        return masks
+
+    cpu = torch.device("cpu")
+    layers = len(model.layers)
+    for i, (a, b) in enumerate(zip(clipped(model, device),
+                                   clipped(copy.deepcopy(model).to(cpu), cpu))):
+        log(f"[classic parity] {('tail', 'head')[i // layers]} layer "
+            f"{i % layers}: {int(a.sum())} of {a.numel()} "
+            f"(node, query, feature) variances clipped on {device}, "
+            f"{int(b.sum())} on cpu, {int((a != b).sum())} on one only")
+
+
+def make_engine(task, size: dict, label: str, **opt):
+    """An Engine over ``task`` at ``size``'s batch, logging nowhere."""
+    from ultra_torchdrug_tpu_torch.engine.engine import Engine
     from ultra_torchdrug_tpu_torch.utils.logging import get_root_logger
 
-    size = TRAIN if device.type == "cuda" else TRAIN_REHEARSAL
-    t0 = time.perf_counter()
-    task = TransductiveKGTask(
-        dataset, UltraConfig.default(dataset.num_relations),
-        TaskConfig(num_negative=size["negatives"]), device=device)
-    engine = Engine(task, batch_size=size["batch"], lr=5e-4, seed=0,
-                    log_interval=10**9, logger=get_root_logger(None))
-    log(f"[train] task and engine set-up {time.perf_counter() - t0:.1f} s "
-        f"(batch {size['batch']}, {size['negatives']} negatives)")
+    engine = Engine(task, batch_size=size["batch"], seed=0,
+                    log_interval=10**9, logger=get_root_logger(None), **opt)
+    log(f"[{label}] batch {size['batch']}, {size['negatives']} negatives, "
+        f"{opt}")
+    return engine
+
+
+def phase_train(engine, size: dict, device, per_step: dict,
+                label: str = "train"):
+    """Training steps through Engine.train; returns the launch counts of
+    the timed run, which must be ``per_step`` per step."""
     # one step first: allocator pools and cuBLAS handles are set-up
     engine.train(batch_per_epoch=1)
     if device.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     steps = size["steps"]
-    rspmm_cuda.launches = rspmm_bwd_cuda.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     engine.train(batch_per_epoch=steps)
     if device.type == "cuda":
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    k1, k2 = rspmm_cuda.launches, rspmm_bwd_cuda.launches
-    want = K_LAUNCHES_PER_STEP * steps if device.type == "cuda" else 0
-    if (k1, k2) != (want, want):
-        raise AssertionError(f"{steps} train steps launched K1 {k1} and K2 "
-                             f"{k2} times, expected {want} each")
+    counts = launch_counts()
+    check_launches(label, counts, per_step, steps, device)
     window = engine.meter.last_window
     if len(window) != steps or not all(
             math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
@@ -483,37 +759,30 @@ def phase_train(dataset, device):
         raise AssertionError(f"non-finite or missing step metrics {window}")
     peak = (torch.cuda.max_memory_allocated() / 2**30
             if device.type == "cuda" else float("nan"))
-    log(f"[train] {steps} steps of {size['batch']} triples: "
+    log(f"[{label}] {steps} steps of {size['batch']} triples: "
         f"{seconds * 1e3 / steps:.2f} ms per step, "
         f"{steps * size['batch'] / seconds:.1f} triples/s, peak device "
         f"memory {peak:.3f} GiB ({device})")
-    log(f"[train] K1 launches {k1}, K2 launches {k2} "
-        f"({k1 / steps:.0f} and {k2 / steps:.0f} per step)")
+    log(f"[{label}] launches {counts} ({steps} steps)")
     for i, m in enumerate(window):
-        log(f"[train] step {i}: " + ", ".join(
+        log(f"[{label}] step {i}: " + ", ".join(
             f"{k} {v:.6g}" for k, v in sorted(m.items())))
-    return engine, k1, k2
+    return counts
 
 
-def phase_train_parity(engine, device):
-    """One loss step on the card against the port's CPU run: the same
-    weights, the same 2 train triples and 8 injected negatives, on the full
-    graph. Gradients are compared norm-wise per parameter: each is a sum
-    over ~500k edges and V*B rows, taken in another order on the card, so
-    single small entries may differ in relative terms where the tensor as a
-    whole agrees to fp32 rounding."""
-    from ultra_torchdrug_tpu_torch.tasks.task import (
-        TaskConfig,
-        TransductiveKGTask,
-    )
-
+def phase_train_parity(engine, cpu_task, device, grad_rtol: float = 1e-4,
+                       loss_rtol: float = 1e-5, label: str = "train parity"):
+    """One loss step on the card against the port's CPU run (``cpu_task``,
+    the same task on the CPU): the same weights, the same 2 train triples
+    and 8 injected negatives, on the full graph. Gradients are compared
+    norm-wise per parameter: each is a sum over ~500k edges and V*B rows,
+    taken in another order on the card, so single small entries may differ
+    in relative terms where the tensor as a whole agrees to fp32 rounding."""
     task = engine.task
     batch = task.train_triples[:2]
     neg = torch.from_numpy(np.random.default_rng(5).integers(
         0, task.dataset.num_entities, (2, 8)))
     cpu = torch.device("cpu")
-    cpu_task = TransductiveKGTask(task.dataset, task.model_cfg,
-                                  TaskConfig(num_negative=8), device=cpu)
     results = []
     for t, m, dev in ((task, engine.model, device),
                       (cpu_task, copy.deepcopy(engine.model).to(cpu), cpu)):
@@ -524,7 +793,7 @@ def phase_train_parity(engine, device):
                                       for k, p in m.named_parameters()}))
         m.zero_grad(set_to_none=True)
     (loss_dev, g_dev), (loss_cpu, g_cpu) = results
-    if not math.isfinite(loss_dev) or abs(loss_dev - loss_cpu) > 1e-5 * max(
+    if not math.isfinite(loss_dev) or abs(loss_dev - loss_cpu) > loss_rtol * max(
             1.0, abs(loss_cpu)):
         raise AssertionError(f"loss {device} {loss_dev} vs cpu {loss_cpu}")
     worst, worst_abs = 0.0, 0.0
@@ -533,20 +802,20 @@ def phase_train_parity(engine, device):
         if not torch.isfinite(a).all():
             raise AssertionError(f"non-finite gradient {k} on {device}")
         rel = ((a - b).norm() / b.norm().clamp(min=1e-12)).item()
-        if rel > 1e-4:
+        if rel > grad_rtol:
             raise AssertionError(f"gradient {k}: relative error {rel:.3g}")
         worst = max(worst, rel)
         worst_abs = max(worst_abs, (a - b).abs().max().item())
-    log(f"[train parity] loss {device} {loss_dev:.8g} vs cpu {loss_cpu:.8g}; "
+    log(f"[{label}] loss {device} {loss_dev:.8g} vs cpu {loss_cpu:.8g}; "
         f"{len(g_cpu)} gradients: worst norm-wise relative error "
-        f"{worst:.3g} (limit 1e-4), max_abs_err {worst_abs:.3g}")
+        f"{worst:.3g} (limit {grad_rtol:g}), max_abs_err {worst_abs:.3g}")
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
-        help="cpu rehearses phases 2-5 at a reduced size with the plain "
+        help="cpu rehearses phases 2-9 at a reduced size with the plain "
              "versions and reports no result")
     args = parser.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -556,15 +825,23 @@ def main(argv=None) -> int:
         return 1
     import_port()
     from ultra_torchdrug_tpu_torch.data.datasets import synthetic_transductive
+    from ultra_torchdrug_tpu_torch.models.classic_nbfnet import (
+        classic_nbfnet_config,
+    )
     from ultra_torchdrug_tpu_torch.models.ultra import UltraConfig
-    from ultra_torchdrug_tpu_torch.tasks.task import TransductiveKGTask
+    from ultra_torchdrug_tpu_torch.tasks.task import (
+        ClassicNBFNetTask,
+        TaskConfig,
+        TransductiveKGTask,
+    )
 
     device = torch.device(args.device)
-    size = FULL if device.type == "cuda" else REHEARSAL
+    cuda = device.type == "cuda"
+    size = FULL if cuda else REHEARSAL
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
-    entry = k2_entry = None
-    if device.type == "cuda":
+    entry = k2_entry = pna_entries = None
+    if cuda:
         log(nvidia_smi_line())
         log(f"[env] device {torch.cuda.get_device_name(0)}, "
             f"count {torch.cuda.device_count()}")
@@ -575,15 +852,17 @@ def main(argv=None) -> int:
     log(f"[data] synthetic KG {size}: {len(dataset.train)} train / "
         f"{len(dataset.valid)} valid / {len(dataset.test)} test triples "
         f"({time.perf_counter() - t0:.1f} s)")
-    if device.type == "cuda":
+    if cuda:
         entry = phase_kernels(dataset, device)
         und = dataset.fact_graph(None)[0].undirected_with_inverse()
         und = und.prepare_csr(backward=True)
         entry.update(time_k1_train_shape(und, device))
         k2_entry = phase_kernels_k2(und, device)
+        pna_entries = phase_kernels_pna(und, device)
         del und
         torch.cuda.empty_cache()
 
+    # ULTRA: zero-shot evaluation and training (K1, K2)
     t0 = time.perf_counter()
     task = TransductiveKGTask(dataset, UltraConfig.default(
         dataset.num_relations), device=device)
@@ -591,27 +870,84 @@ def main(argv=None) -> int:
     log(f"[slice] task set-up (relation graph {task.rel_graph.num_nodes} "
         f"nodes / {task.rel_graph.num_edges} edges, CSR, dense adjacency) "
         f"{time.perf_counter() - t0:.1f} s")
-    launches = phase_slice(task, model, device)
-    if device.type == "cuda":
-        phase_profile(task, model)
+    ultra_eval = phase_slice(task, model, device,
+                             {"K1": K1_LAUNCHES_PER_BATCH})
+    if cuda:
+        profile_device_time("one eval batch", lambda: task.evaluate(
+            model, "test", batch_size=EVAL_BATCH, fast_test=EVAL_BATCH))
     phase_parity(task, model, device)
     del task, model
 
-    engine, k1_train, k2_train = phase_train(dataset, device)
-    if device.type == "cuda":
+    train_size = TRAIN if cuda else TRAIN_REHEARSAL
+    model_cfg = UltraConfig.default(dataset.num_relations)
+    engine = make_engine(
+        TransductiveKGTask(dataset, model_cfg, TaskConfig(
+            num_negative=train_size["negatives"]), device=device),
+        train_size, "train", lr=5e-4)
+    ultra_train = phase_train(engine, train_size, device,
+                              {"K1": K_LAUNCHES_PER_STEP,
+                               "K2": K_LAUNCHES_PER_STEP})
+    if cuda:
         profile_device_time("one train step",
                             lambda: engine.train(batch_per_epoch=1))
-    phase_train_parity(engine, device)
+    phase_train_parity(engine, TransductiveKGTask(
+        dataset, model_cfg, TaskConfig(num_negative=8), device="cpu"), device)
+    del engine
 
-    if device.type != "cuda":
-        log("[rehearsal] phases 2-5 ran on the CPU; no kernel ran and no "
+    # classic NBFNet: evaluation and training (K6, K7, K6b, K7b)
+    nbf_cfg = classic_nbfnet_config(num_relations=dataset.num_relations,
+                                    layer_norm=True)
+    t0 = time.perf_counter()
+    task = ClassicNBFNetTask(dataset, nbf_cfg, device=device)
+    model = task.init_params(seed=0)
+    log(f"[classic] task set-up {time.perf_counter() - t0:.1f} s; "
+        f"{sum(p.numel() for p in model.parameters())} parameters")
+    pna_per_pass = {"K6": len(nbf_cfg.hidden_dims),
+                    "K7": len(nbf_cfg.hidden_dims)}
+    classic_eval = phase_slice(
+        task, model, device, {k: 2 * v for k, v in pna_per_pass.items()},
+        label="classic")
+    if cuda:
+        profile_device_time("one classic eval batch", lambda: task.evaluate(
+            model, "test", batch_size=EVAL_BATCH, fast_test=EVAL_BATCH))
+    phase_parity(task, model, device, atol=CLASSIC_SCORE_ATOL,
+                 label="classic parity")
+    phase_clip_crossings(task, model, device)
+    del task, model
+
+    train_size = CLASSIC_TRAIN if cuda else CLASSIC_TRAIN_REHEARSAL
+    engine = make_engine(
+        ClassicNBFNetTask(dataset, nbf_cfg, TaskConfig(
+            num_negative=train_size["negatives"], strict_negative=True,
+            adversarial_temperature=1), device=device),
+        train_size, "classic train", optimizer="Adam", lr=5e-3)
+    classic_train = phase_train(
+        engine, train_size, device,
+        {**pna_per_pass, "K6b": len(nbf_cfg.hidden_dims),
+         "K7b": len(nbf_cfg.hidden_dims)}, label="classic train")
+    if cuda:
+        profile_device_time("one classic train step",
+                            lambda: engine.train(batch_per_epoch=1))
+    phase_train_parity(
+        engine, ClassicNBFNetTask(dataset, nbf_cfg, TaskConfig(num_negative=8),
+                                  device="cpu"), device,
+        grad_rtol=CLASSIC_GRAD_RTOL, label="classic train parity")
+
+    if not cuda:
+        log("[rehearsal] phases 2-9 ran on the CPU; no kernel ran and no "
             "result is reported")
         return 1
-    entry.update(launches=launches + k1_train, launches_eval=launches,
-                 launches_train=k1_train)
-    k2_entry["launches"] = k2_train
+    entry.update(launches=ultra_eval["K1"] + ultra_train["K1"],
+                 launches_eval=ultra_eval["K1"],
+                 launches_train=ultra_train["K1"])
+    k2_entry["launches"] = ultra_train["K2"]
+    for kid, e in pna_entries.items():
+        e.update(launches=classic_eval[kid] + classic_train[kid],
+                 launches_eval=classic_eval[kid],
+                 launches_train=classic_train[kid])
     log(nvidia_smi_line())
-    print(json.dumps({"kernels": [entry, k2_entry]}))
+    print(json.dumps({"kernels": [entry, k2_entry] + [
+        pna_entries[k] for k in ("K6", "K7", "K6b", "K7b")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

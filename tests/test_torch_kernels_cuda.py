@@ -8,6 +8,11 @@ Run on a machine with the card:
 Tolerance atol = rtol = 1e-5 for K1: the kernel sums each row's edges in CSR
 order, the plain version with index_add_ in another order. K2 uses rtol 1e-5,
 atol 1e-4: its dr rows sum up to a few hundred products of N(0, 1) values.
+K6 must equal its plain version exactly (an extremum of the same fp32
+products); K7 takes K1's tolerance for the same reason. K6b/K7b take K2's,
+with the absolute tolerance widened to 1e-5 of the result's largest entry:
+a dr row sums a thousand or more terms (K7b's carry x² and reach ~1e2),
+whose partial sums grow to that size, in another order.
 """
 
 import numpy as np
@@ -15,8 +20,16 @@ import pytest
 import torch
 
 from ultra_torchdrug_tpu_torch.data.graph import Graph
-from ultra_torchdrug_tpu_torch.ops import rspmm_bwd_cuda, rspmm_cuda
-from ultra_torchdrug_tpu_torch.ops.rspmm import generalized_rspmm
+from ultra_torchdrug_tpu_torch.ops import (
+    rspmm_bwd_cuda,
+    rspmm_cuda,
+    rspmm_pna_cuda,
+)
+from ultra_torchdrug_tpu_torch.ops.rspmm import (
+    generalized_rspmm,
+    generalized_rspmm_addsq,
+    generalized_rspmm_maxmin,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -194,3 +207,138 @@ def test_generalized_rspmm_gradient_card_matches_cpu(cuda_device, rng,
                             csr=gc.csr)
     with pytest.raises(NotImplementedError, match="K3"):
         out.sum().backward()
+
+
+# ---------------------------------------------------------------------------
+# K6, K7 (the fused PNA forwards) and K6b, K7b (their backward)
+# ---------------------------------------------------------------------------
+
+# (V, E, R, F): K2's shapes, and a full-width one (F = 64 queries x 32, the
+# classic NBFNet training width) on a graph with ~30 edges per node
+PNA_SHAPES = K2_SHAPES + [(2000, 60000, 40, 2048)]
+PNA_FWD = [("maxmin", "mul_rel"), ("maxmin", "add_rel"), ("addsq", "mul_rel")]
+PNA_BWD = [("argext_pair", "mul_rel"), ("argext_pair", "add_rel"),
+           ("moments", "mul_rel")]
+
+
+def _pna_operands(rng, V, E, R, F, device):
+    """K6's operands with exact ties: duplicated edges, masked weights and
+    post-ReLU x (about half the entries 0); the last 5 rows have no edge and
+    the last relation none."""
+    g = _graph(rng, V, E, R, empty_rows=5, empty_rels=1)
+    tri = np.concatenate([g.edge_list.numpy(), g.edge_list.numpy()[:40]])
+    w = np.concatenate([g.edge_weight.numpy(), g.edge_weight.numpy()[:40]])
+    g = Graph.from_triplets(tri, V, R, edge_weight=w).prepare_csr(
+        backward=True).to(device)
+    rel = torch.from_numpy(rng.normal(size=(R, F)).astype(np.float32))
+    x = torch.from_numpy(np.maximum(rng.normal(size=(V, F)), 0).astype(
+        np.float32))
+    return g, rel.to(device), x.to(device)
+
+
+def _assert_sums_close(got, want):
+    atol = max(K2_TOL["atol"], 1e-5 * want.abs().max().item())
+    torch.testing.assert_close(got, want, rtol=K2_TOL["rtol"], atol=atol)
+
+
+@pytest.mark.parametrize("V,E,R,F", PNA_SHAPES)
+@pytest.mark.parametrize("kind,mode", PNA_FWD)
+def test_k6_k7_match_plain(cuda_device, rng, kind, mode, V, E, R, F):
+    g, rel, x = _pna_operands(rng, V, E, R, F, cuda_device)
+    kid = "K6" if kind == "maxmin" else "K7"
+    before = rspmm_pna_cuda.launches[kid]
+    got = rspmm_pna_cuda.pna_fwd_cuda(kind, g.csr, g.edge_weight, rel, x,
+                                      mode)
+    torch.cuda.synchronize()
+    assert rspmm_pna_cuda.launches[kid] == before + 1
+    want = rspmm_pna_cuda.pna_fwd_plain(kind, g.csr, g.edge_weight, rel, x,
+                                        mode)
+    for a, b in zip(got, want):
+        if kind == "maxmin":
+            assert torch.equal(a, b)
+        else:
+            torch.testing.assert_close(a, b, **TOL)
+        assert torch.all(a[V - 5:] == 0)  # rows without edges write 0
+
+
+@pytest.mark.parametrize("V,E,R,F", PNA_SHAPES)
+@pytest.mark.parametrize("kind,mode", PNA_BWD)
+def test_k6b_k7b_match_plain(cuda_device, rng, kind, mode, V, E, R, F):
+    g, rel, x = _pna_operands(rng, V, E, R, F, cuda_device)
+    grads = [torch.from_numpy(rng.normal(size=(V, F)).astype(np.float32)).to(
+        cuda_device) for _ in range(2)]
+    if kind == "argext_pair":
+        mx, mn = rspmm_pna_cuda.pna_fwd_cuda("maxmin", g.csr, g.edge_weight,
+                                             rel, x, mode)
+        planes = (grads[0], mx, grads[1], mn)
+    else:
+        planes = tuple(grads)
+    kid = "K6b" if kind == "argext_pair" else "K7b"
+    args = (kind, g.csr, g.edge_weight, rel, x, planes, mode)
+    before = rspmm_pna_cuda.launches[kid]
+    dx, dr = rspmm_pna_cuda.pna_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    assert rspmm_pna_cuda.launches[kid] == before + 1
+    want_dx, want_dr = rspmm_pna_cuda.pna_bwd_plain(*args)
+    _assert_sums_close(dx, want_dx)
+    _assert_sums_close(dr, want_dr)
+    assert torch.all(dx[V - 5:] == 0) and torch.all(dr[R - 1] == 0)
+    dx2, dr2 = rspmm_pna_cuda.pna_bwd_cuda(*args)  # deterministic
+    assert torch.equal(dx, dx2) and torch.equal(dr, dr2)
+    # one half alone
+    assert rspmm_pna_cuda.pna_bwd_cuda(*args, need_dr=False)[1] is None
+    assert torch.equal(rspmm_pna_cuda.pna_bwd_cuda(*args,
+                                                   need_dx=False)[1], dr)
+
+
+@pytest.mark.parametrize("msg", ["mul", "add"])
+def test_pna_pairs_card_match_cpu(cuda_device, rng, msg):
+    """The fused pairs route CUDA tensors through K6/K7 and K6b/K7b and
+    agree with their CPU path, values and gradients, in the [V, B, D] form
+    with a shared relation; max and min exactly."""
+    V, E, R, B, D = 37, 300, 6, 3, 16
+    g, _, _ = _pna_operands(rng, V, E, R, 4, "cpu")
+    rel = torch.from_numpy(rng.normal(size=(R, D)).astype(np.float32))
+    x = torch.from_numpy(np.maximum(rng.normal(size=(V, B, D)), 0).astype(
+        np.float32))
+    cot = [torch.from_numpy(rng.normal(size=(V, B, D)).astype(np.float32))
+           for _ in range(2)]
+    ops = [lambda *a, **k: generalized_rspmm_maxmin(*a, msg=msg, **k)]
+    if msg == "mul":
+        ops.append(generalized_rspmm_addsq)
+    gc = g.to(cuda_device)
+    for op in ops:
+        results = []
+        for graph, dev in ((g, "cpu"), (gc, cuda_device)):
+            r = rel.to(dev).requires_grad_()
+            xx = x.to(dev).requires_grad_()
+            a, b = op(graph.edge_index, graph.edge_type, graph.edge_weight, r,
+                      xx, num_nodes=V, csr=graph.csr)
+            grads = torch.autograd.grad(
+                (a * cot[0].to(dev)).sum() + (b * cot[1].to(dev)).sum(),
+                (r, xx))
+            results.append([t.detach().cpu() for t in (a, b, *grads)])
+        (a0, b0, *g0), (a1, b1, *g1) = results
+        if op is ops[0]:
+            assert torch.equal(a0, a1) and torch.equal(b0, b1)
+        else:
+            torch.testing.assert_close(a1, a0, **TOL)
+            torch.testing.assert_close(b1, b0, **TOL)
+        for u, v in zip(g1, g0):
+            _assert_sums_close(u, v)
+
+
+def test_pna_kernels_reject_bad_operands(cuda_device, rng):
+    g, rel, x = _pna_operands(rng, 37, 300, 6, 8, cuda_device)
+    csr, w = g.csr, g.edge_weight
+    with pytest.raises(TypeError):  # float64 x
+        rspmm_pna_cuda.pna_fwd_cuda("maxmin", csr, w, rel, x.double(),
+                                    "mul_rel")
+    with pytest.raises(ValueError):  # K7 is distmult only
+        rspmm_pna_cuda.pna_fwd_cuda("addsq", csr, w, rel, x, "add_rel")
+    with pytest.raises(ValueError):  # a plane of the wrong shape
+        rspmm_pna_cuda.pna_bwd_cuda("moments", csr, w, rel, x,
+                                    (x, x[:5].contiguous()), "mul_rel")
+    with pytest.raises(ValueError):  # layouts on the CPU
+        rspmm_pna_cuda.pna_bwd_cuda("moments", csr.to("cpu"), w, rel, x,
+                                    (x, x), "mul_rel")

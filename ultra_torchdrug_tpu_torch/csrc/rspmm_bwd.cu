@@ -41,10 +41,10 @@
 namespace {
 
 using rspmm::accumulate;
-using rspmm::add_to;
 using rspmm::kMaxThreads;
 using rspmm::kMulRel;
 using rspmm::ld;
+using rspmm::relation_sums;
 using rspmm::zero;
 
 // partial[c, :] = sum over e in [chunk_ptr[c], chunk_ptr[c+1]) of
@@ -69,24 +69,6 @@ chunk_partials(const int* __restrict__ chunk_ptr, const int* __restrict__ src,
     accumulate<kMulRel>(acc, ld(x + s * n + j), ld(g + d * n + j), w);
   }
   partial[static_cast<int64_t>(c) * n + j] = acc;
-}
-
-// dr[r, :] = sum over c in [rel_chunk_ptr[r], rel_chunk_ptr[r+1]) of
-//            partial[c, :], in chunk order
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
-relation_sums(const int* __restrict__ rel_chunk_ptr,
-              const T* __restrict__ partial, T* __restrict__ dr, int n) {
-  const int r = blockIdx.x;
-  const int j = blockIdx.y * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  const int begin = __ldg(rel_chunk_ptr + r);
-  const int end = __ldg(rel_chunk_ptr + r + 1);
-  T acc = zero<T>();
-  for (int c = begin; c < end; ++c) {
-    add_to(acc, ld(partial + static_cast<int64_t>(c) * n + j));
-  }
-  dr[static_cast<int64_t>(r) * n + j] = acc;
 }
 
 template <typename T>

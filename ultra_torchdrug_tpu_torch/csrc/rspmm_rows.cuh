@@ -1,5 +1,6 @@
 // Row-gather device code shared by the rspmm kernels (K1 in rspmm_fwd.cu,
-// the dx pass of K2 in rspmm_bwd.cu):
+// the dx pass of K2 in rspmm_bwd.cu; the Lanes helpers and relation_sums
+// also serve the PNA kernels K6/K7 and K6b/K7b in rspmm_pna_*.cu):
 //
 //     out[v, :] = sum over e in [rowptr[v], rowptr[v+1]) of
 //                 w[eid[e]] * msg(rel[etype[e], :], x[col[e], :])
@@ -88,6 +89,57 @@ row_gather(const int* __restrict__ rowptr, const int* __restrict__ col,
     accumulate<MODE>(acc, ld(rel + r * n + j), ld(x + c * n + j), w);
   }
   out[static_cast<int64_t>(v) * n + j] = acc;
+}
+
+// dr[r, :] = sum over c in [rel_chunk_ptr[r], rel_chunk_ptr[r+1]) of
+//            partial[c, :], in chunk order (the second kernel of the
+//            backward kernels' segmented dr reduction)
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+relation_sums(const int* __restrict__ rel_chunk_ptr,
+              const T* __restrict__ partial, T* __restrict__ dr, int n) {
+  const int r = blockIdx.x;
+  const int j = blockIdx.y * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  const int begin = __ldg(rel_chunk_ptr + r);
+  const int end = __ldg(rel_chunk_ptr + r + 1);
+  T acc = zero<T>();
+  for (int c = begin; c < end; ++c) {
+    add_to(acc, ld(partial + static_cast<int64_t>(c) * n + j));
+  }
+  dr[static_cast<int64_t>(r) * n + j] = acc;
+}
+
+// W consecutive fp32 lanes of a row (W = 4: one 16-byte float4 access, the
+// pointer 16-byte aligned; W = 1: one float), for kernels whose per-lane
+// arithmetic is written once for both widths
+template <int W>
+struct Lanes {
+  float v[W];
+};
+
+template <int W>
+__device__ __forceinline__ Lanes<W> load_lanes(const float* p) {
+  Lanes<W> out;
+  if constexpr (W == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    out.v[0] = t.x;
+    out.v[1] = t.y;
+    out.v[2] = t.z;
+    out.v[3] = t.w;
+  } else {
+    out.v[0] = __ldg(p);
+  }
+  return out;
+}
+
+template <int W>
+__device__ __forceinline__ void store_lanes(float* p, const float (&a)[W]) {
+  if constexpr (W == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
+  } else {
+    *p = a[0];
+  }
 }
 
 inline bool aligned16(const void* p) {

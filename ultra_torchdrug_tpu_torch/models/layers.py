@@ -8,10 +8,14 @@ One layer covers the three relation-parameterization modes:
   * "injected":   relation vectors supplied by the caller, optionally passed
                   through a per-layer 2-layer MLP (``relation_projection``)
 
-This slice ports the distmult / transe messages with sum aggregation (the
-architecture of every shipped config); the boundary condition is folded into
-the aggregation, ``update = spmm + boundary``. Node states are carried flat,
-[V, B*D] with b-major features, as in the JAX package.
+Messages: distmult and transe. Aggregations: sum (the architecture of every
+shipped ULTRA config) and pna (classic NBFNet's default), the latter also as
+``pna_nobound``; the boundary condition is folded into the aggregation as in
+the JAX package. PNA takes the fused pairs of ops/rspmm.py (max+min for both
+messages, sum+sum of squares for distmult; transe's second moment sums
+rel² + x², which does not factor through the message, so it keeps two sum
+calls). Node states are carried flat, [V, B*D] with b-major features, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -25,9 +29,16 @@ from torch import nn
 
 from ..nn.core import MLP, layer_norm
 from ..ops.dense import dense_rspmm
-from ..ops.rspmm import broadcast_rel_flat, generalized_rspmm
+from ..ops.rspmm import (
+    broadcast_rel_flat,
+    generalized_rspmm,
+    generalized_rspmm_addsq,
+    generalized_rspmm_maxmin,
+)
 
 _MESSAGES = {"distmult": "mul", "transe": "add"}
+_AGGREGATIONS = ("sum", "pna", "pna_nobound")
+EPS = 1e-6
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,7 +48,7 @@ class ConvConfig:
     num_relations: int
     query_input_dim: int
     message_func: str = "distmult"  # distmult | transe
-    aggregate_func: str = "sum"
+    aggregate_func: str = "sum"  # sum | pna | pna_nobound
     layer_norm: bool = False
     rel_mode: str = "injected"  # embedding | dependent | injected
     project: bool = True  # injected mode: per-layer MLP on relation vectors
@@ -48,14 +59,18 @@ class GeneralizedRelationalConv(nn.Module):
         super().__init__()
         if cfg.message_func not in _MESSAGES:
             raise NotImplementedError(
-                f"message_func={cfg.message_func!r}: rotate comes with the "
-                "other-aggregations slice")
-        if cfg.aggregate_func != "sum":
+                f"message_func={cfg.message_func!r}: rotate is not ported "
+                "yet (kernels K8f/K8b)")
+        if cfg.aggregate_func not in _AGGREGATIONS:
             raise NotImplementedError(
-                f"aggregate_func={cfg.aggregate_func!r}: mean/max/pna come "
-                "with the other-aggregations slice")
+                f"aggregate_func={cfg.aggregate_func!r}: the port has "
+                f"{', '.join(_AGGREGATIONS)}; mean, max and min are not "
+                "ported yet (max/min need kernels K4/K5)")
         self.cfg = cfg
-        self.linear = nn.Linear(cfg.input_dim * 2, cfg.output_dim)
+        # [x; update] -> output: the pna update is 4 statistics x 3 degree
+        # scalers wide
+        in_mult = 13 if cfg.aggregate_func.startswith("pna") else 2
+        self.linear = nn.Linear(cfg.input_dim * in_mult, cfg.output_dim)
         if cfg.layer_norm:
             self.layer_norm = nn.LayerNorm(cfg.output_dim)
         if cfg.rel_mode == "embedding":
@@ -116,14 +131,18 @@ def conv_apply(layer: GeneralizedRelationalConv, graph, x: torch.Tensor,
 
     msg = _MESSAGES[cfg.message_func]
     rel_flat = broadcast_rel_flat(rel, B)
-    if graph.dense_adj is not None:
-        # small dense graph (the ULTRA relation graph): per-etype matmuls
-        update = dense_rspmm(graph.dense_adj, rel_flat, x, msg=msg)
+    if cfg.aggregate_func == "sum":
+        if graph.dense_adj is not None:
+            # small dense graph (the ULTRA relation graph): per-etype matmuls
+            update = dense_rspmm(graph.dense_adj, rel_flat, x, msg=msg)
+        else:
+            update = generalized_rspmm(
+                graph.edge_index, graph.edge_type, graph.edge_weight,
+                rel_flat, x, msg=msg, agg="add", num_nodes=graph.num_nodes,
+                csr=graph.csr)
+        update = update + boundary
     else:
-        update = generalized_rspmm(
-            graph.edge_index, graph.edge_type, graph.edge_weight, rel_flat, x,
-            msg=msg, agg="add", num_nodes=graph.num_nodes, csr=graph.csr)
-    update = update + boundary
+        update = _pna_update(cfg, graph, rel_flat, x, boundary, msg)
 
     # cat([x, update]) @ W^T split into x @ W[:, :D]^T + update @ W[:, D:]^T:
     # the same math without materializing the [V, B, 2D] concat
@@ -135,3 +154,45 @@ def conv_apply(layer: GeneralizedRelationalConv, graph, x: torch.Tensor,
         out = layer_norm(layer.layer_norm, out)
     out = F.relu(out)
     return out.reshape(V, -1) if flat_in else out
+
+
+def pna_moments(cfg: ConvConfig, graph, rel_flat, x, boundary, msg):
+    """(mean, sq_mean, degree [V, 1]) of each node's in-edge messages, the
+    boundary counting as one more message unless ``pna_nobound``; degree is
+    the weighted in-degree plus one."""
+    edges = (graph.edge_index, graph.edge_type, graph.edge_weight)
+    kw = dict(num_nodes=graph.num_nodes, csr=graph.csr)
+    if msg == "mul":
+        s, sq = generalized_rspmm_addsq(*edges, rel_flat, x, **kw)
+    else:
+        s = generalized_rspmm(*edges, rel_flat, x, msg=msg, agg="add", **kw)
+        sq = generalized_rspmm(*edges, rel_flat ** 2, x ** 2, msg=msg,
+                               agg="add", **kw)
+    degree = (graph.degree_out() + 1.0)[:, None]
+    if cfg.aggregate_func == "pna":
+        return (s + boundary) / degree, (sq + boundary ** 2) / degree, degree
+    return s / degree, sq / degree, degree
+
+
+def _pna_update(cfg: ConvConfig, graph, rel_flat, x, boundary, msg):
+    """PNA's update [V, B*12D]: per (b, d) the interleaved [mean, max, min,
+    std] of the in-edge messages (with the boundary as one more message
+    unless ``pna_nobound``), each times the degree scalers [1, s, 1/s],
+    s = log(degree) normalised by its mean over the nodes."""
+    V = x.shape[0]
+    mean, sq_mean, degree = pna_moments(cfg, graph, rel_flat, x, boundary,
+                                        msg)
+    mx, mn = generalized_rspmm_maxmin(
+        graph.edge_index, graph.edge_type, graph.edge_weight, rel_flat, x,
+        msg=msg, num_nodes=graph.num_nodes, csr=graph.csr)
+    if cfg.aggregate_func == "pna":
+        # torch.maximum/minimum split the gradient at ties, as jnp's do
+        mx = torch.maximum(mx, boundary)
+        mn = torch.minimum(mn, boundary)
+    std = torch.sqrt(torch.clamp(sq_mean - mean ** 2, min=EPS))
+    features = torch.stack([mean, mx, mn, std], dim=-1)  # [V, B*D, 4]
+    scale = torch.log(degree)
+    scale = scale / (scale.sum() / graph.num_nodes)
+    inv = 1.0 / torch.clamp(scale, min=1e-2)
+    scales = torch.cat([torch.ones_like(scale), scale, inv], dim=-1)  # [V, 3]
+    return (features[:, :, :, None] * scales[:, None, None, :]).reshape(V, -1)

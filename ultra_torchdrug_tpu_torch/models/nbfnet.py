@@ -170,14 +170,22 @@ def entity_nbfnet_score_all(tower: NBFNet, graph, rel_queries,
     V = graph.num_nodes
     boundary = _flat_boundary(V, B, tower.cfg.input_dim, source, query)
     final = _propagate(tower, graph, boundary, rel_injected=rel_queries)
+    return score_heads(tower.mlp, final, query, targets)
+
+
+def score_heads(mlp: MLP, final, query, targets=None):
+    """The [state ; query] MLP head over a flat final state [V, B*feat]
+    with query [B, D]: [B, V] scores, or [B, T] for the candidates
+    ``targets`` [B, T] only (the head then runs on those rows alone)."""
+    B, V = query.shape[0], final.shape[0]
     if targets is not None:
         # flat [V, B*feat] viewed [V*B, feat]: row v*B + b is state(v, b),
         # so the (b, t) rows are targets*B + b
         feat = final.shape[1] // B
         rows = targets * B + torch.arange(B, device=targets.device)[:, None]
         feats = final.reshape(V * B, feat)[rows]  # [B, T, feat]
-        return _mlp_head_targets(tower.mlp, feats, query)
-    return _score_tail(tower, final, query, V, B)
+        return _mlp_head_targets(mlp, feats, query)
+    return _mlp_head_split(mlp, final.reshape(V, B, -1), query)[..., 0].T
 
 
 def _mlp_head_split(mlp: MLP, final, query):
@@ -209,9 +217,3 @@ def _mlp_head_targets(mlp: MLP, feats, query):
     for layer in mlp.layers[1:]:
         h = layer(torch.relu(h))
     return h[..., 0]
-
-
-def _score_tail(tower: NBFNet, final, query, V, B):
-    """cat(final, query) -> MLP -> [B, V]."""
-    score = _mlp_head_split(tower.mlp, final.reshape(V, B, -1), query)
-    return score[..., 0].T  # [B, V]

@@ -115,6 +115,24 @@ def _flip_heads_to_tails(h_index, t_index, r_index, num_relations: int):
     return new_h, new_t, new_r
 
 
+def candidate_triples(pos_h, pos_t, pos_r, neg_index):
+    """(h, t, r) index grids [B, 1 + N] of each query's positive and its N
+    negatives: the first half of the rows corrupt the tail, the second half
+    the head."""
+    B, N = neg_index.shape
+    device = pos_h.device
+    h_index = pos_h[:, None].expand(B, N + 1)
+    t_index = pos_t[:, None].expand(B, N + 1)
+    r_index = pos_r[:, None].expand(B, N + 1)
+    row_is_tail_neg = (torch.arange(B, device=device) < B // 2)[:, None]
+    is_neg_col = (torch.arange(N + 1, device=device) >= 1)[None, :]
+    t_index = torch.where(row_is_tail_neg & is_neg_col,
+                          torch.cat([pos_t[:, None], neg_index], 1), t_index)
+    h_index = torch.where(~row_is_tail_neg & is_neg_col,
+                          torch.cat([pos_h[:, None], neg_index], 1), h_index)
+    return h_index, t_index, r_index
+
+
 def ultra_train_scores(model: Ultra, fact_graph: Graph, rel_graph: Graph,
                        pos_h, pos_t, pos_r, neg_index,
                        remove_easy: bool = True,
@@ -126,19 +144,8 @@ def ultra_train_scores(model: Ultra, fact_graph: Graph, rel_graph: Graph,
     graph (edge order [directed; inverse]) whose layouts are reused with the
     batch's masked weights.
     """
-    B, N = neg_index.shape
-    half = B // 2
-    device = pos_h.device
-    h_index = pos_h[:, None].expand(B, N + 1)
-    t_index = pos_t[:, None].expand(B, N + 1)
-    r_index = pos_r[:, None].expand(B, N + 1)
-    row_is_tail_neg = (torch.arange(B, device=device) < half)[:, None]
-    is_neg_col = (torch.arange(N + 1, device=device) >= 1)[None, :]
-    t_index = torch.where(row_is_tail_neg & is_neg_col,
-                          torch.cat([pos_t[:, None], neg_index], 1), t_index)
-    h_index = torch.where(~row_is_tail_neg & is_neg_col,
-                          torch.cat([pos_h[:, None], neg_index], 1), h_index)
-
+    h_index, t_index, r_index = candidate_triples(pos_h, pos_t, pos_r,
+                                                  neg_index)
     graph = fact_graph
     if remove_easy:
         graph = _mask_easy_edges(model.cfg, graph, h_index, t_index, r_index)

@@ -3,17 +3,23 @@ ultra_torchdrug_tpu/ops/rspmm.py), the hot op of NBFNet propagation:
 
     out[t] = AGG_{e=(h,t,r)} edge_weight[e] * (relation[r] MSG x[h])
 
-This slice covers MSG in {mul (distmult), add (transe)} with AGG add, in the
-flat form (x [V, F], relation [R, F]) and the [V, B, D] form (relation
-[R, D] shared across the batch, or [R, B, D]).
+``generalized_rspmm`` covers MSG in {mul (distmult), add (transe)} with AGG
+add, in the flat form (x [V, F], relation [R, F]) and the [V, B, D] form
+(relation [R, D] shared across the batch, or [R, B, D]). On CUDA tensors it
+is an autograd node over the graph's layouts (``Graph.prepare_csr``): its
+forward launches kernel K1 (ops/rspmm_cuda.py) and, for distmult messages,
+its backward launches kernel K2 (ops/rspmm_bwd_cuda.py). The transe
+backward (kernel K3) and gradients to the edge weights are not ported yet
+and raise. On CPU tensors it runs the plain index_select + index_add_
+version, whose gradients come from autograd.
 
-On CUDA tensors the op is an autograd node over the graph's layouts
-(``Graph.prepare_csr``): its forward launches kernel K1
-(ops/rspmm_cuda.py) and, for distmult messages, its backward launches
-kernel K2 (ops/rspmm_bwd_cuda.py). The transe backward (kernel K3) and
-gradients to the edge weights are not ported yet and raise. On CPU tensors
-the op runs the plain index_select + index_add_ version, whose gradients
-come from autograd.
+PNA's fused pairs, ``generalized_rspmm_maxmin`` (the max and min of the same
+messages, mul or add) and ``generalized_rspmm_addsq`` (their sum and sum of
+squares, distmult), are autograd nodes on both devices: kernels K6/K7
+forward and K6b/K7b backward on CUDA tensors (ops/rspmm_pna_cuda.py), the
+plain versions of the same functions on CPU tensors, so both devices give
+the full max/min gradient to every tied edge. Both devices need the graph's
+``Csr``, with ``prepare_csr(backward=True)`` for gradients.
 """
 
 from __future__ import annotations
@@ -22,8 +28,10 @@ import torch
 
 from .rspmm_bwd_cuda import rspmm_bwd_cuda
 from .rspmm_cuda import rspmm_fwd_cuda, rspmm_plain_edges
+from .rspmm_pna_cuda import pna_bwd_cuda, pna_fwd_cuda
 
-__all__ = ["generalized_rspmm", "broadcast_rel_flat"]
+__all__ = ["generalized_rspmm", "generalized_rspmm_maxmin",
+           "generalized_rspmm_addsq", "broadcast_rel_flat"]
 
 _MODES = {"mul": "mul_rel", "add": "add_rel"}
 
@@ -74,30 +82,109 @@ def generalized_rspmm(edge_index, edge_type, edge_weight, relation, x, *,
     """
     if msg not in _MODES:
         raise NotImplementedError(
-            f"msg={msg!r}: this slice ports mul and add; rotate comes with "
-            "the other-aggregations slice (K8)")
+            f"msg={msg!r}: the port has mul and add; rotate waits for its "
+            "kernels K8f/K8b")
     if agg != "add":
         raise NotImplementedError(
-            f"agg={agg!r}: this slice ports sum aggregation; max/min come "
-            "with the other-aggregations slice (K4-K7)")
-    flat = x.dim() == 2
-    xf = x if flat else x.reshape(x.shape[0], -1)
-    rel = relation if flat else broadcast_rel_flat(relation, x.shape[1])
+            f"agg={agg!r}: the port has sum aggregation here (and PNA's "
+            "fused pairs, generalized_rspmm_maxmin/_addsq); max/min alone "
+            "wait for kernels K4/K5")
+    xf, rel, unflat = _flat_operands(relation, x, num_nodes)
     mode = _MODES[msg]
     if x.device.type == "cpu":
         out = rspmm_plain_edges(edge_index[:, 0], edge_index[:, 1], edge_type,
                                 edge_weight, rel, xf, mode, num_nodes)
     else:
-        if csr is None:
-            raise ValueError("the CUDA path needs the graph's CSR "
-                             "(Graph.prepare_csr)")
-        if csr.rowptr.numel() != num_nodes + 1:
-            raise ValueError(f"CSR has {csr.rowptr.numel() - 1} rows, "
-                             f"expected {num_nodes}")
-        if edge_weight.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "gradients to edge weights (classic NBFNet's edge-gradient "
-                "path) are not ported yet")
+        _check_graph(csr, edge_weight, num_nodes)
         out = _RspmmK1K2.apply(csr, edge_weight.contiguous(),
                                rel.contiguous(), xf.contiguous(), mode)
-    return out if flat else out.reshape(num_nodes, *x.shape[1:])
+    return unflat(out)
+
+
+def _flat_operands(relation, x, num_nodes):
+    """(x [V, F], relation [R, F], a function that gives an output [N, F]
+    the layout of x) for the flat or the [V, B, D] form."""
+    if x.dim() == 2:
+        return x, relation, lambda out: out
+    xf = x.reshape(x.shape[0], -1)
+    rel = broadcast_rel_flat(relation, x.shape[1])
+    return xf, rel, lambda out: out.reshape(num_nodes, *x.shape[1:])
+
+
+def _check_graph(csr, edge_weight, num_nodes):
+    if csr is None:
+        raise ValueError("the kernels and their plain versions need the "
+                         "graph's CSR (Graph.prepare_csr)")
+    if csr.rowptr.numel() != num_nodes + 1:
+        raise ValueError(f"CSR has {csr.rowptr.numel() - 1} rows, "
+                         f"expected {num_nodes}")
+    if edge_weight.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "gradients to edge weights (classic NBFNet's edge-gradient "
+            "path, ROADMAP item 12) are not ported yet")
+
+
+class _RspmmPnaPair(torch.autograd.Function):
+    """A fused PNA pair over one set of messages, on both devices: kind
+    ``maxmin`` (K6 forward, K6b backward, modes mul_rel/add_rel) or
+    ``addsq`` (K7 forward, K7b backward, mul_rel) over a graph's ``Csr``.
+    The wrappers launch the kernels on CUDA tensors and run their plain
+    versions on CPU tensors. Flat operands: edge_weight [E], relation
+    [R, F], x [V, F]."""
+
+    @staticmethod
+    def forward(ctx, kind, csr, edge_weight, relation, x, mode):
+        a, b = pna_fwd_cuda(kind, csr, edge_weight, relation, x, mode)
+        ctx.kind, ctx.csr, ctx.mode = kind, csr, mode
+        saved = (edge_weight, relation, x)
+        ctx.save_for_backward(*(saved + (a, b) if kind == "maxmin"
+                                else saved))
+        return a, b
+
+    @staticmethod
+    def backward(ctx, grad_a, grad_b):
+        edge_weight, relation, x, *out = ctx.saved_tensors
+        grad_a, grad_b = grad_a.contiguous(), grad_b.contiguous()
+        if ctx.kind == "maxmin":
+            kind, planes = "argext_pair", (grad_a, out[0], grad_b, out[1])
+        else:
+            kind, planes = "moments", (grad_a, grad_b)
+        need_dr, need_dx = ctx.needs_input_grad[3], ctx.needs_input_grad[4]
+        dx, dr = pna_bwd_cuda(kind, ctx.csr, edge_weight, relation, x, planes,
+                              ctx.mode, need_dx, need_dr)
+        return None, None, None, dr, dx, None
+
+
+def _pna_pair(kind, edge_weight, relation, x, mode, num_nodes, csr):
+    xf, rel, unflat = _flat_operands(relation, x, num_nodes)
+    _check_graph(csr, edge_weight, num_nodes)
+    a, b = _RspmmPnaPair.apply(kind, csr, edge_weight.contiguous(),
+                               rel.contiguous(), xf.contiguous(), mode)
+    return unflat(a), unflat(b)
+
+
+def generalized_rspmm_maxmin(edge_index, edge_type, edge_weight, relation,
+                             x, *, msg: str = "mul", num_nodes: int,
+                             csr=None):
+    """PNA's extremum pair: (max, min) over each node's in-edges of
+    w · (relation MSG x), rows without edges 0, in one fused pass (K6 on
+    CUDA). Shapes as for generalized_rspmm; ``csr`` is required on both
+    devices (edge_index and edge_type, the JAX signature's, are carried by
+    it), and the backward (K6b) needs ``prepare_csr(backward=True)``.
+    Gradients flow to relation and x; every edge whose message ties with the
+    extremum gets the full gradient. Returns (out_max, out_min)."""
+    if msg not in _MODES:
+        raise NotImplementedError(
+            f"msg={msg!r}: the fused max/min pair has mul and add (rotate "
+            "keeps the materialized path of the JAX package, not ported)")
+    return _pna_pair("maxmin", edge_weight, relation, x, _MODES[msg],
+                     num_nodes, csr)
+
+
+def generalized_rspmm_addsq(edge_index, edge_type, edge_weight, relation, x,
+                            *, num_nodes: int, csr=None):
+    """PNA's moments of the same distmult messages: (Σ w·(rel ⊙ x),
+    Σ w·(rel ⊙ x)²) in one fused pass (K7 on CUDA, K7b for the backward).
+    Shapes and ``csr`` as for generalized_rspmm_maxmin. Returns (s, sq)."""
+    return _pna_pair("addsq", edge_weight, relation, x, "mul_rel", num_nodes,
+                     csr)

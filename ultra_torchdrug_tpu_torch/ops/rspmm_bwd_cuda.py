@@ -38,6 +38,64 @@ def _require_backward_layouts(csr):
                          "Graph.prepare_csr(backward=True)")
 
 
+# K2's layouts, in its argument order
+_LAYOUT = ("src_rowptr", "src_dst", "src_etype", "src_eid", "chunk_ptr",
+           "rel_chunk_ptr", "rel_src", "rel_dst", "rel_eid")
+_PER_EDGE = ("src_dst", "src_etype", "src_eid", "rel_src", "rel_dst",
+             "rel_eid")
+
+
+def check_bwd_operands(kernel: str, csr, layout, edge_weight, relation, x,
+                       planes: dict) -> tuple:
+    """Device, type and shape checks of a two-pass backward kernel's
+    operands (K2, K6b, K7b): the CSR's ``layout`` fields, and ``planes``
+    (name -> tensor) shaped like x. Returns (num_rows, num_relations,
+    num_chunks, num_features)."""
+    device = x.device
+    if device.type != "cuda":
+        raise ValueError(f"{kernel} runs on CUDA tensors, got {device}")
+    _require_backward_layouts(csr)
+    for name in layout:
+        _check(name, getattr(csr, name), torch.int32, device, 1)
+    _check("edge_weight", edge_weight, torch.float32, device, 1)
+    for name, t in (("relation", relation), ("x", x), *planes.items()):
+        _check(name, t, torch.float32, device, 2)
+    for name, t in planes.items():
+        if t.shape != x.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} != x {tuple(x.shape)}")
+    num_edges = edge_weight.numel()
+    if any(getattr(csr, n).numel() != num_edges for n in _PER_EDGE):
+        raise ValueError("the layouts and edge_weight must have one entry "
+                         "per edge")
+    num_rows, num_features = x.shape
+    num_relations = csr.rel_chunk_ptr.numel() - 1
+    if csr.src_rowptr.numel() - 1 != num_rows:
+        raise ValueError(f"source CSR has {csr.src_rowptr.numel() - 1} rows, "
+                         f"x has {num_rows}")
+    if tuple(relation.shape) != (num_relations, num_features):
+        raise ValueError(f"relation {tuple(relation.shape)} != "
+                         f"({num_relations}, {num_features})")
+    return num_rows, num_relations, csr.chunk_ptr.numel() - 1, num_features
+
+
+def bwd_outputs(x, num_relations: int, num_chunks: int, need_dx: bool,
+                need_dr: bool) -> tuple:
+    """A backward kernel's outputs: (dx [V, F], dr [R, F], the dr pass's
+    per-chunk partial rows [chunks, F]), None for a half not needed."""
+    def empty(rows):
+        return torch.empty((rows, x.shape[1]), dtype=torch.float32,
+                           device=x.device)
+
+    return (empty(x.shape[0]) if need_dx else None,
+            empty(num_relations) if need_dr else None,
+            empty(num_chunks) if need_dr else None)
+
+
+def ptr(t):
+    """A tensor's device address, or None (a null pointer) for None."""
+    return None if t is None else t.data_ptr()
+
+
 def rspmm_bwd_plain(csr, edge_weight, relation, x, grad, need_dx=True,
                     need_dr=True):
     """The same function as the kernel, in plain PyTorch (index_select and
@@ -68,50 +126,14 @@ def rspmm_bwd_cuda(csr, edge_weight, relation, x, grad, need_dx=True,
         return rspmm_bwd_plain(csr, edge_weight, relation, x, grad, need_dx,
                                need_dr)
     device = x.device
-    if device.type != "cuda":
-        raise ValueError(f"K2 runs on CUDA tensors, got {device}")
-    _require_backward_layouts(csr)
-    layout = ("src_rowptr", "src_dst", "src_etype", "src_eid", "chunk_ptr",
-              "rel_chunk_ptr", "rel_src", "rel_dst", "rel_eid")
-    for name in layout:
-        _check(name, getattr(csr, name), torch.int32, device, 1)
-    for name, t in (("edge_weight", edge_weight), ("relation", relation),
-                    ("x", x), ("grad", grad)):
-        _check(name, t, torch.float32, device, 1 if name == "edge_weight"
-               else 2)
-    num_edges = edge_weight.numel()
-    if any(getattr(csr, n).numel() != num_edges for n in
-           ("src_dst", "src_etype", "src_eid", "rel_src", "rel_dst",
-            "rel_eid")):
-        raise ValueError("the layouts and edge_weight must have one entry "
-                         "per edge")
-    num_rows, num_features = x.shape
-    num_relations = csr.rel_chunk_ptr.numel() - 1
-    num_chunks = csr.chunk_ptr.numel() - 1
-    if grad.shape != x.shape:
-        raise ValueError(f"grad {tuple(grad.shape)} != x {tuple(x.shape)}")
-    if csr.src_rowptr.numel() - 1 != num_rows:
-        raise ValueError(f"source CSR has {csr.src_rowptr.numel() - 1} rows, "
-                         f"x has {num_rows}")
-    if tuple(relation.shape) != (num_relations, num_features):
-        raise ValueError(f"relation {tuple(relation.shape)} != "
-                         f"({num_relations}, {num_features})")
-    dx = (torch.empty((num_rows, num_features), dtype=torch.float32,
-                      device=device) if need_dx else None)
-    dr = partial = None
-    if need_dr:
-        dr = torch.empty((num_relations, num_features), dtype=torch.float32,
-                         device=device)
-        partial = torch.empty((num_chunks, num_features), dtype=torch.float32,
-                              device=device)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+    num_rows, num_relations, num_chunks, num_features = check_bwd_operands(
+        "K2", csr, _LAYOUT, edge_weight, relation, x, {"grad": grad})
+    dx, dr, partial = bwd_outputs(x, num_relations, num_chunks, need_dx,
+                                  need_dr)
     fn = _kernel()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*(getattr(csr, n).data_ptr() for n in layout),
+        err = fn(*(getattr(csr, n).data_ptr() for n in _LAYOUT),
                  edge_weight.data_ptr(), relation.data_ptr(), x.data_ptr(),
                  grad.data_ptr(), ptr(dx), ptr(dr), ptr(partial), num_rows,
                  num_relations, num_chunks, num_features, stream)

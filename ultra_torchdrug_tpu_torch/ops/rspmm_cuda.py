@@ -77,17 +77,14 @@ def _check(name, t, dtype, device, dim):
         raise ValueError(f"{name} must be contiguous")
 
 
-def rspmm_fwd_cuda(rowptr, src, etype, eid, edge_weight, relation, x,
-                   mode: str) -> torch.Tensor:
-    """K1 on CUDA tensors; the plain version on CPU tensors."""
-    if mode not in MODES:
-        raise ValueError(f"mode must be one of {tuple(MODES)}, got {mode!r}")
-    if x.device.type == "cpu":
-        return rspmm_fwd_plain(rowptr, src, etype, eid, edge_weight, relation,
-                               x, mode)
+def check_fwd_operands(kernel: str, rowptr, src, etype, eid, edge_weight,
+                       relation, x) -> tuple:
+    """Device, type and shape checks of a row-gather kernel's operands (K1,
+    K6, K7) over a destination-sorted CSR; returns (num_rows,
+    num_features)."""
     device = x.device
     if device.type != "cuda":
-        raise ValueError(f"K1 runs on CUDA tensors, got {device}")
+        raise ValueError(f"{kernel} runs on CUDA tensors, got {device}")
     for name, t in (("rowptr", rowptr), ("src", src), ("etype", etype),
                     ("eid", eid)):
         _check(name, t, torch.int32, device, 1)
@@ -102,9 +99,22 @@ def rspmm_fwd_cuda(rowptr, src, etype, eid, edge_weight, relation, x,
     if relation.shape[1] != x.shape[1]:
         raise ValueError(f"relation width {relation.shape[1]} != x width "
                          f"{x.shape[1]}")
-    num_rows, num_features = rowptr.numel() - 1, x.shape[1]
-    if num_rows < 0:
+    if rowptr.numel() < 1:
         raise ValueError("rowptr must have at least one entry")
+    return rowptr.numel() - 1, x.shape[1]
+
+
+def rspmm_fwd_cuda(rowptr, src, etype, eid, edge_weight, relation, x,
+                   mode: str) -> torch.Tensor:
+    """K1 on CUDA tensors; the plain version on CPU tensors."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {tuple(MODES)}, got {mode!r}")
+    if x.device.type == "cpu":
+        return rspmm_fwd_plain(rowptr, src, etype, eid, edge_weight, relation,
+                               x, mode)
+    device = x.device
+    num_rows, num_features = check_fwd_operands(
+        "K1", rowptr, src, etype, eid, edge_weight, relation, x)
     out = torch.empty((num_rows, num_features), dtype=torch.float32,
                       device=device)
     fn = _kernel()

@@ -3,7 +3,8 @@ step for training and filtered-ranking evaluation.
 
 ``TransductiveKGTask`` holds one knowledge graph: the fact graph (train
 edges) that the model propagates over, the relation graph built from it, and
-the filter graph (all splits) for filtered ranking.
+the filter graph (all splits) for filtered ranking. ``ClassicNBFNetTask``
+scores the same task with classic NBFNet, which needs no relation graph.
 
   * ``loss_step`` draws strict negatives for a batch of train triples,
     masks the batch's easy edges, scores the positive and the negatives and
@@ -25,8 +26,13 @@ from .. import default_device
 from ..data.datasets import TransductiveDataset
 from ..data.graph import Graph
 from ..data.relgraph import build_relation_graph
+from ..models.classic_nbfnet import classic_nbfnet_init, classic_score_all
+from ..models.nbfnet import NBFNetConfig
 from ..models.ultra import (
     UltraConfig,
+    _flip_heads_to_tails,
+    _mask_easy_edges,
+    candidate_triples,
     ultra_eval_scores,
     ultra_init,
     ultra_train_scores,
@@ -90,6 +96,18 @@ class _TaskBase:
         """A freshly initialized model on the task's device."""
         return ultra_init(self.model_cfg, seed, self.device)
 
+    # scoring hooks: ULTRA here; ClassicNBFNetTask overrides them
+    def _train_scores(self, model, fact_graph, rel_graph, h, t, r, neg,
+                      fact_und):
+        """[B, 1 + N] scores of each query's positive and negatives."""
+        return ultra_train_scores(model, fact_graph, rel_graph, h, t, r, neg,
+                                  fact_graph_und=fact_und)
+
+    def _eval_scores(self, model, fact_graph, rel_graph, h, t, r, fact_und):
+        """All-entity (tail [B, V], head [B, V]) scores."""
+        return ultra_eval_scores(model, fact_graph, rel_graph, h, t, r,
+                                 fact_graph_und=fact_und)
+
     def _prepare_graphs(self, fact_graph: Graph, rel_graph: Graph,
                         backward: bool = False):
         """The undirected propagation graph with its CSR (the rspmm kernels'
@@ -126,8 +144,8 @@ class _TaskBase:
                 neg = torch.randint(0, num_nodes,
                                     (batch.shape[0], cfg.num_negative),
                                     generator=generator, device=batch.device)
-            scores = ultra_train_scores(model, fact_graph, rel_graph, h, t, r,
-                                        neg, fact_graph_und=fact_und)
+            scores = self._train_scores(model, fact_graph, rel_graph, h, t, r,
+                                        neg, fact_und)
             loss = _criterion_loss(cfg, scores, sample_weight)
             metrics = {"loss": loss.detach(),
                        "pos_score": scores[:, 0].detach().mean(),
@@ -147,9 +165,8 @@ class _TaskBase:
 
         def eval_fn(model, batch):
             h, t, r = batch[:, 0], batch[:, 1], batch[:, 2]
-            t_scores, h_scores = ultra_eval_scores(
-                model, fact_graph, rel_graph, h, t, r,
-                fact_graph_und=fact_und)
+            t_scores, h_scores = self._eval_scores(
+                model, fact_graph, rel_graph, h, t, r, fact_und)
             t_truth = tail_truth_mask(filter_edges, h, r, V)
             h_truth = head_truth_mask(filter_edges, t, r, V)
             t_rank = filtered_ranking(t_scores, t, t_truth,
@@ -239,3 +256,46 @@ class TransductiveKGTask(_TaskBase):
         ranking = self._run_eval(self._eval_fn, model, triples,
                                  int(batch_size))
         return self._metrics_from_rankings(ranking)
+
+
+class ClassicNBFNetTask(TransductiveKGTask):
+    """Transductive KG completion with classic NBFNet (learned query
+    embeddings, no relation tower; models/classic_nbfnet.py). ``nbf_cfg`` is
+    an NBFNetConfig from ``classic_nbfnet_config``; ``model_cfg`` wraps it
+    as both towers of an UltraConfig, as in the JAX package, so the task's
+    machinery (the easy-edge mask with ``remove_one_hop`` off, the engine's
+    counters) applies unchanged. The relation graph is built and unused."""
+
+    def __init__(self, dataset: TransductiveDataset, nbf_cfg: NBFNetConfig,
+                 cfg: TaskConfig = TaskConfig(), seed: int = 0, device=None):
+        self.nbf_cfg = nbf_cfg
+        super().__init__(dataset, UltraConfig(entity=nbf_cfg,
+                                              relation=nbf_cfg),
+                         cfg, seed=seed, device=device)
+
+    def init_params(self, seed: int = 0):
+        return classic_nbfnet_init(self.nbf_cfg, seed, self.device)
+
+    def _prepare_graphs(self, fact_graph: Graph, rel_graph: Graph,
+                        backward: bool = False):
+        und = fact_graph.undirected_with_inverse().prepare_csr(backward)
+        return und.to(self.device), rel_graph
+
+    def _train_scores(self, model, fact_graph, rel_graph, h, t, r, neg,
+                      fact_und):
+        h_index, t_index, r_index = candidate_triples(h, t, r, neg)
+        graph = _mask_easy_edges(self.model_cfg, fact_graph, h_index,
+                                 t_index, r_index)
+        # the weighted degree of pna follows the masked weights
+        graph_und = fact_und.with_edge_weight(
+            torch.cat([graph.edge_weight, graph.edge_weight]))
+        h_index, t_index, r_index = _flip_heads_to_tails(
+            h_index, t_index, r_index, fact_graph.num_relations)
+        return classic_score_all(model, graph_und, h_index[:, 0],
+                                 r_index[:, 0], targets=t_index)
+
+    def _eval_scores(self, model, fact_graph, rel_graph, h, t, r, fact_und):
+        t_scores = classic_score_all(model, fact_und, h, r)
+        h_scores = classic_score_all(model, fact_und, t,
+                                     r + fact_graph.num_relations)
+        return t_scores, h_scores

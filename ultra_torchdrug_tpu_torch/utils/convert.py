@@ -1,5 +1,6 @@
-"""Carry a JAX-package parameter tree (as ``ultra_init`` builds it, leaves as
-numpy arrays) into the port's ``Ultra`` module.
+"""Carry a JAX-package parameter tree (as ``ultra_init`` or
+``classic_nbfnet_init`` builds it, leaves as numpy arrays) into the port's
+``Ultra`` or ``ClassicNBFNet`` module.
 
 Tree paths map onto the reference's state-dict keys:
 
@@ -11,6 +12,12 @@ Tree paths map onto the reference's state-dict keys:
     relation.layers[i].{linear, layer_norm, relation.weight}
                                                -> rel_models.0.model.layers.{i}.*
 
+and for classic NBFNet (the reference's NBFNet keys):
+
+    layers[i].{linear, layer_norm, relation_linear}  -> layers.{i}.*
+    query.weight                               -> query.weight
+    mlp.layers[j].{w, b}                       -> mlp.layers.{j}.*
+
 ``w`` is [in, out] in the JAX tree and transposed to nn.Linear's [out, in].
 Keys present on one side only raise.
 """
@@ -20,7 +27,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-_ROOTS = {"entity": "model", "relation": "rel_models.0.model"}
+_ROOTS = {"entity": "model", "relation": "rel_models.0.model",
+          "layers": "layers", "query": "query", "mlp": "mlp"}
 _LEAVES = {"w": "weight", "b": "bias", "scale": "weight"}
 
 
