@@ -3,7 +3,7 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py                # on a machine with the card
-    python3 chip_smoke.py --device cpu   # rehearsal of phases 2-9, reduced size
+    python3 chip_smoke.py --device cpu   # rehearsal of phases 2-15, reduced size
 
 Phases, each of which raises on failure (the script then exits nonzero):
 
@@ -19,7 +19,13 @@ Phases, each of which raises on failure (the script then exits nonzero):
               csrc/rspmm_pna_fwd.cu) and K6b and K7b (their backward,
               csrc/rspmm_pna_bwd.cu, bitwise across two calls) against their
               plain versions at ragged shapes and at F=512 and F=2048, and
-              time each;
+              time each; hold K4 (one extremum, max and min, both modes,
+              csrc/rspmm_pna_fwd.cu) exactly, K5 (its argext backward,
+              csrc/rspmm_pna_bwd.cu, on K4's own output) and K3 (the transe
+              backward, csrc/rspmm_bwd.cu), both bitwise across two calls,
+              against their plain versions at ragged shapes and at F=2048
+              (K4 also F=512), time each, and time K3's function as two
+              torch.sparse.mm calls;
   2. slice    zero-shot evaluation of ULTRA (6x64 towers, seeded weights) on a
               synthetic KG of FB15k-237's size: 64 test triples in batches of
               16, through TransductiveKGTask.evaluate; K1 must launch 12 times
@@ -46,9 +52,18 @@ Phases, each of which raises on failure (the script then exits nonzero):
               K6, K7, K6b and K7b must each launch 6 times per step and no
               other kernel; then one step under torch.profiler;
   9. classic train parity  as phase 5, for classic NBFNet.
+ 10-12. classic max  phases 6, 7 and 8-9 for classic NBFNet with
+              aggregate_func="max" (distmult): K4 must launch 12 times per
+              eval batch, K4 and K5 6 times each per step, and no other
+              kernel;
+ 13-15. classic transe-pna  the same for message_func="transe" (pna): K1 24
+              and K6 12 times per eval batch; K1 12, K6 6, K3 12 and K6b 6
+              times per step, and no other kernel (K7 and K7b never: transe's
+              moments are two sums).
 
-The last lines are a JSON object with one entry per kernel, then
-{"ok": true, "device": {...}}. With no card the script prints no result and
+The last lines are a JSON object with one entry per kernel (K1, K2, K6,
+K7, K6b, K7b, K3, K4, K5; launches summed over the measured runs of phases
+2-15, by path in ``launches_by_path``), then {"ok": true, "device": {...}}. With no card the script prints no result and
 exits nonzero; it imports nothing of JAX.
 """
 
@@ -92,6 +107,8 @@ FEAT = 64  # the model's feature width
 CLASSIC_FEAT = 32
 CLASSIC_TRAIN = dict(batch=64, negatives=32, steps=5)
 CLASSIC_TRAIN_REHEARSAL = dict(batch=8, negatives=8, steps=2)
+# every kernel of the port, in the order of the kernels line
+KERNEL_IDS = ("K1", "K2", "K6", "K7", "K6b", "K7b", "K3", "K4", "K5")
 # card vs CPU for classic NBFNet: about 10x the largest reading of five H100
 # runs (scores 4.5e-7, gradients 5.8e-6 norm-wise); the CPU's plain K7 sums in
 # another order, and std = sqrt(clip(sq_mean - mean², 1e-6)) amplifies that
@@ -149,8 +166,9 @@ def launch_counts() -> dict:
         rspmm_pna_cuda,
     )
 
-    return {"K1": rspmm_cuda.launches, "K2": rspmm_bwd_cuda.launches,
-            **rspmm_pna_cuda.launches}
+    counts = {"K1": rspmm_cuda.launches, **rspmm_bwd_cuda.launches,
+              **rspmm_pna_cuda.launches}
+    return {k: counts[k] for k in KERNEL_IDS}
 
 
 def reset_launch_counts():
@@ -160,9 +178,10 @@ def reset_launch_counts():
         rspmm_pna_cuda,
     )
 
-    rspmm_cuda.launches = rspmm_bwd_cuda.launches = 0
-    for key in rspmm_pna_cuda.launches:
-        rspmm_pna_cuda.launches[key] = 0
+    rspmm_cuda.launches = 0
+    for counts in (rspmm_bwd_cuda.launches, rspmm_pna_cuda.launches):
+        for key in counts:
+            counts[key] = 0
 
 
 def check_launches(label: str, counts: dict, per_unit: dict, units: int,
@@ -418,40 +437,87 @@ def pna_operands(graph, feat: int, seed: int, device):
     return graph.csr.to(device), w, rel, x
 
 
-def pna_bound_ms(name: str, w, rel, x) -> tuple:
-    """Least time for a PNA kernel's work on this card: its dense inputs
-    read once and outputs written once, plus the edges, over the memory
-    rate, against its fp32 operations per edge and feature over the fp32
-    peak (K6: message 2, max, min; K7: message, weight, two sums, square;
-    K6b: message 2, two gates, the gated sum g_mx + g_mn, one weighting,
-    then dx and dr 2 each; K7b with w factored out and 2·g_sq formed once
-    per node, c = w·(g_s + m·(2·g_sq)): message, product, sum, weighting,
-    dx and dr 2 each)."""
+# per kernel: (node rows read, relation rows read, node rows written,
+# relation rows written, fp32 operations per edge and feature). K4: message
+# 2, extremum; K6: message 2, max, min; K7: message, weight, two sums,
+# square; K6b: message 2, two gates, the gated sum g_mx + g_mn, one
+# weighting, then dx and dr 2 each; K5: message 2, one gate, one weighting,
+# dx and dr 2 each; K7b with w factored out and 2·g_sq formed once per
+# node, c = w·(g_s + m·(2·g_sq)): message, product, sum, weighting, dx and
+# dr 2 each; K3: the weighting g·w, shared by the dx and dr sums
+GATHER_WORK = {"K4": (1, 1, 1, 0, 3), "K6": (1, 1, 2, 0, 4),
+               "K7": (1, 1, 2, 0, 5), "K6b": (5, 1, 1, 1, 10),
+               "K5": (3, 1, 1, 1, 8), "K7b": (3, 1, 1, 1, 8),
+               "K3": (1, 0, 1, 1, 3)}
+
+
+def gather_bound_ms(name: str, w, rel, x) -> tuple:
+    """Least time for a gather kernel's work on this card (GATHER_WORK):
+    its dense inputs read once and outputs written once, plus the edges,
+    over the memory rate, against its fp32 operations over the fp32
+    peak."""
     E, V, F = w.numel(), x.shape[0], x.shape[1]
     R = rel.shape[0]
-    reads, writes, ops = {"K6": (V, 2 * V, 4), "K7": (V, 2 * V, 5),
-                          "K6b": (5 * V, V + R, 10),
-                          "K7b": (3 * V, V + R, 8)}[name]
-    nbytes = edge_bytes(E) + (reads + R + writes) * F * 4
-    return roofline_ms(nbytes, ops * E * F)
+    node_in, rel_in, node_out, rel_out, ops = GATHER_WORK[name]
+    rows = (node_in + node_out) * V + (rel_in + rel_out) * R
+    return roofline_ms(edge_bytes(E) + rows * F * 4, ops * E * F)
+
+
+def assert_bwd_close(got, want):
+    """A two-pass backward kernel (K3, K5, K6b, K7b) against its plain
+    version: K2's tolerance, with the absolute one widened to 1e-5 of the
+    result's largest entry: a dr row sums a thousand or more terms (K7b's
+    carry x² and reach ~1e2), whose partial sums grow to that size, in
+    another order than the plain version."""
+    atol = max(1e-4, 1e-5 * want.abs().max().item())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+
+
+def check_bwd_kernel(kid: str, run, plain, label: str) -> tuple:
+    """``run`` (a backward kernel's call) twice, bitwise equal, and within
+    assert_bwd_close of ``plain``; returns (dx, dr, max_abs_err)."""
+    dx, dr = run()
+    torch.cuda.synchronize()
+    dx2, dr2 = run()
+    torch.cuda.synchronize()
+    if not (torch.equal(dx, dx2) and torch.equal(dr, dr2)):
+        raise AssertionError(f"{kid} {label}: two calls differ")
+    want_dx, want_dr = plain()
+    assert_bwd_close(dx, want_dx)
+    assert_bwd_close(dr, want_dr)
+    err = max((dx - want_dx).abs().max().item(),
+              (dr - want_dr).abs().max().item())
+    log(f"[kernels] {kid} {label}: max_abs_err {err:.3g}, bitwise equal "
+        "across two calls")
+    return dx, dr, err
+
+
+def ragged_gather_cases(seed: int, device):
+    """Small and ragged shapes for the gather kernels, as (label, V, R,
+    seed, operands), the operands made from ``seed``: F = 10 and 12 scalar, 64 float4, 1028 two feature tiles; the
+    last 5 rows neither send nor receive an edge and the last relation has
+    none; 40 duplicated edges tie exactly."""
+    from ultra_torchdrug_tpu_torch.data.graph import Graph
+
+    rng = np.random.default_rng(seed)
+    for V, E, R, F in ((37, 300, 6, 10), (37, 300, 6, 64), (37, 300, 6, 1028),
+                       (50, 20, 3, 12), (60, 1400, 3, 64)):
+        tri = np.stack([rng.integers(0, V - 5, E), rng.integers(0, V - 5, E),
+                        rng.integers(0, R - 1, E)], 1)
+        tri[-min(40, E // 2):] = tri[:min(40, E // 2)]
+        g = Graph.from_triplets(tri, V, R).prepare_csr(backward=True)
+        yield (f"V={V} E={E} R={R} F={F}", V, R, V + F,
+               pna_operands(g, F, seed=V + F, device=device))
 
 
 def phase_kernels_pna(und, device) -> dict:
     """K6, K7, K6b and K7b against their plain versions; returns their
     kernels-line entries by id (without the main path's launch counts)."""
-    from ultra_torchdrug_tpu_torch.data.graph import Graph
     from ultra_torchdrug_tpu_torch.ops import rspmm_pna_cuda as pna
 
     # K6 exactly (an extremum of the same fp32 products); K7 as K1; the
-    # backward as K2, with the absolute tolerance widened to 1e-5 of the
-    # result's largest entry: a dr row sums a thousand or more terms (K7b's
-    # carry x² and reach ~1e2), whose partial sums grow to that size, in
-    # another order than the plain version
+    # backward as assert_bwd_close says
     tol = dict(rtol=1e-5, atol=1e-5)
-
-    def bwd_close(got, want):
-        atol = max(1e-4, 1e-5 * want.abs().max().item())
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
 
     fwd_kinds = (("K6", "maxmin", "mul_rel"), ("K6", "maxmin", "add_rel"),
                  ("K7", "addsq", "mul_rel"))
@@ -487,40 +553,20 @@ def phase_kernels_pna(und, device) -> dict:
         return got, err
 
     def check_bwd(kid, kind, mode, ops, q, label):
-        dx, dr = pna.pna_bwd_cuda(kind, *ops, q, mode)
-        torch.cuda.synchronize()
-        dx2, dr2 = pna.pna_bwd_cuda(kind, *ops, q, mode)
-        torch.cuda.synchronize()
-        if not (torch.equal(dx, dx2) and torch.equal(dr, dr2)):
-            raise AssertionError(f"{kid} {mode} {label}: two calls differ")
-        want_dx, want_dr = pna.pna_bwd_plain(kind, *ops, q, mode)
-        bwd_close(dx, want_dx)
-        bwd_close(dr, want_dr)
-        err = max((dx - want_dx).abs().max().item(),
-                  (dr - want_dr).abs().max().item())
-        log(f"[kernels] {kid} {mode} {label}: max_abs_err {err:.3g}, "
-            "bitwise equal across two calls")
-        return dx, dr, err
+        return check_bwd_kernel(
+            kid, lambda: pna.pna_bwd_cuda(kind, *ops, q, mode),
+            lambda: pna.pna_bwd_plain(kind, *ops, q, mode),
+            f"{mode} {label}")
 
-    # (a) small and ragged shapes: F = 10 and 12 scalar, 64 float4, 1028 two
-    # feature tiles; the last 5 rows neither send nor receive an edge and
-    # the last relation has none; 40 duplicated edges tie exactly
-    rng = np.random.default_rng(2)
-    for V, E, R, F in ((37, 300, 6, 10), (37, 300, 6, 64), (37, 300, 6, 1028),
-                       (50, 20, 3, 12), (60, 1400, 3, 64)):
-        tri = np.stack([rng.integers(0, V - 5, E), rng.integers(0, V - 5, E),
-                        rng.integers(0, R - 1, E)], 1)
-        tri[-min(40, E // 2):] = tri[:min(40, E // 2)]
-        g = Graph.from_triplets(tri, V, R).prepare_csr(backward=True)
-        ops = pna_operands(g, F, seed=V + F, device=device)
-        label = f"V={V} E={E} R={R} F={F}"
+    # (a) small and ragged shapes
+    for label, V, R, seed, ops in ragged_gather_cases(2, device):
         for kid, kind, mode in fwd_kinds:
             out, _ = check_fwd(kid, kind, mode, ops, label)
             if not all(torch.all(o[V - 5:] == 0) for o in out):
                 raise AssertionError(f"{kid} wrote nonzero rows without "
                                      "edges")
         for i, (kid, kind, mode) in enumerate(bwd_kinds):
-            q = planes(kind, mode, ops, seed=V + F + i)
+            q = planes(kind, mode, ops, seed=seed + i)
             dx, dr, _ = check_bwd(kid, kind, mode, ops, q, label)
             if not (torch.all(dx[V - 5:] == 0) and torch.all(dr[R - 1] == 0)):
                 raise AssertionError(f"{kid} wrote nonzero rows without "
@@ -557,7 +603,7 @@ def phase_kernels_pna(und, device) -> dict:
         for kid, mode, err, kernel, plain in timed:
             ms = cuda_time_ms(kernel, 20)
             plain_ms = cuda_time_ms(plain, 3, warmup=1)
-            bound_ms, bound_by = pna_bound_ms(kid, *ops[1:])
+            bound_ms, bound_by = gather_bound_ms(kid, *ops[1:])
             log(f"[kernels] {kid} {mode} {label}: {ms:.4f} ms (plain "
                 f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}, "
                 f"{bound_ms / ms:.1%} of it), library_ms: null (no single "
@@ -583,6 +629,181 @@ def phase_kernels_pna(und, device) -> dict:
         del ops
         torch.cuda.empty_cache()
     log('[kernels] kernels ["K6", "K7", "K6b", "K7b"]')
+    return entries
+
+
+def sparse_mm_halves(csr, w):
+    """K3's function as two library calls (timed beside K3, never used by
+    the port): dx = Aᵀ g and dr = T g, with Aᵀ[s, v] and T[r, v] the summed
+    weights of the edges s → v and of the type-r edges into v, as coalesced
+    CSR tensors. Returns (Aᵀ, T)."""
+    from ultra_torchdrug_tpu_torch.ops.rspmm_cuda import csr_rows
+
+    src = csr_rows(csr.src_rowptr)
+    dst, etype = csr.src_dst.long(), csr.src_etype.long()
+    weight = w.index_select(0, csr.src_eid.long())
+    V, R = csr.src_rowptr.numel() - 1, csr.rel_chunk_ptr.numel() - 1
+    return tuple(
+        torch.sparse_coo_tensor(torch.stack([rows, dst]), weight,
+                                (n, V)).coalesce().to_sparse_csr()
+        for rows, n in ((src, V), (etype, R)))
+
+
+def phase_kernels_ext(und, device) -> dict:
+    """K4 (one extremum), K5 (its argext backward) and K3 (the transe
+    backward) against their plain versions; returns their kernels-line
+    entries by id (without the main path's launch counts)."""
+    from ultra_torchdrug_tpu_torch.ops import rspmm_bwd_cuda
+    from ultra_torchdrug_tpu_torch.ops import rspmm_pna_cuda as pna
+
+    def check_k4(agg, mode, ops, label):
+        (got,) = pna.pna_fwd_cuda(agg, *ops, mode)
+        (want,) = pna.pna_fwd_plain(agg, *ops, mode)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K4 {agg} {mode} {label}: differs from its "
+                                 "plain version")
+        err = (got - want).abs().max().item()
+        log(f"[kernels] K4 {agg} {mode} {label}: equal to its plain version "
+            f"(max_abs_err {err:.3g})")
+        return got, err
+
+    def k5_planes(agg, mode, ops, seed):
+        """K5's planes: the card's own K4 output (so the gates fire on the
+        card's bits, ties included) and a seeded gradient."""
+        gen = torch.Generator(device=device).manual_seed(seed)
+        g = torch.randn(ops[3].shape, generator=gen, device=device)
+        return g, pna.pna_fwd_cuda(agg, *ops, mode)[0]
+
+    def k3_args(ops, seed):
+        csr, w, rel, x = ops
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return csr, w, rel, None, torch.randn(x.shape, generator=gen,
+                                              device=device)
+
+    # (a) small and ragged shapes, as for the PNA kernels
+    for label, V, R, seed, ops in ragged_gather_cases(3, device):
+        for i, (agg, mode) in enumerate(
+                (a, m) for a in ("max", "min") for m in ("mul_rel", "add_rel")):
+            out, _ = check_k4(agg, mode, ops, label)
+            q = k5_planes(agg, mode, ops, seed=seed + i)
+            dx, dr, _ = check_bwd_kernel(
+                "K5", lambda: pna.pna_bwd_cuda("argext", *ops, q, mode),
+                lambda: pna.pna_bwd_plain("argext", *ops, q, mode),
+                f"{agg} {mode} {label}")
+            if not (torch.all(out[V - 5:] == 0) and torch.all(dx[V - 5:] == 0)
+                    and torch.all(dr[R - 1] == 0)):
+                raise AssertionError("K4/K5 wrote nonzero rows without edges")
+        args = k3_args(ops, seed=seed)
+        dx, dr, _ = check_bwd_kernel(
+            "K3",
+            lambda: rspmm_bwd_cuda.rspmm_bwd_cuda(*args, mode="add_rel"),
+            lambda: rspmm_bwd_cuda.rspmm_bwd_plain(*args, mode="add_rel"),
+            label)
+        if not (torch.all(dx[V - 5:] == 0) and torch.all(dr[R - 1] == 0)):
+            raise AssertionError("K3 wrote nonzero rows without edges")
+
+    # (b) the main path's shapes on the FB-sized graph: K4 at F = 16 x 32
+    # (eval) and 64 x 32 (training), K5 and K3 at the training width
+    entries = {}
+
+    def entry(kid, source, replaces, err, ms, plain_ms, bound, library_ms,
+              **extra):
+        entries[kid] = dict(
+            name=kid, route="cuda", source=f"{PACKAGE}/csrc/{source}",
+            replaces=f"ultra_torchdrug_tpu/ops/rspmm_pallas.py:{replaces}",
+            launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound[0], bound_by=bound[1], library_ms=library_ms,
+            **extra)
+
+    def timed(kid, label, kernel, plain, ops, iters=20):
+        ms = cuda_time_ms(kernel, iters)
+        plain_ms = cuda_time_ms(plain, 3, warmup=1)
+        bound = gather_bound_ms(kid, *ops[1:])
+        log(f"[kernels] {kid} {label}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+            f"bound {bound[0]:.4f} ms by {bound[1]}, {bound[0] / ms:.1%} of "
+            "it)")
+        return ms, plain_ms, bound
+
+    for F, which in ((EVAL_BATCH * CLASSIC_FEAT, "eval"),
+                     (CLASSIC_TRAIN["batch"] * CLASSIC_FEAT, "train")):
+        ops = pna_operands(und, F, seed=F + 7, device=device)
+        label = (f"{which} shape V={und.num_nodes} E={und.num_edges} "
+                 f"R={und.num_relations} F={F}")
+        errs = {}
+        for agg in ("max", "min"):
+            for mode in ("mul_rel", "add_rel"):
+                out, errs[agg, mode] = check_k4(agg, mode, ops, label)
+                del out
+        torch.cuda.empty_cache()
+        for mode in ("mul_rel", "add_rel"):
+            ms, plain_ms, bound = timed(
+                "K4", f"max {mode} {label}",
+                lambda mode=mode: pna.pna_fwd_cuda("max", *ops, mode),
+                lambda mode=mode: pna.pna_fwd_plain("max", *ops, mode), ops)
+            if mode != "mul_rel":  # the main path is distmult max
+                entries["K4"][f"ms_{mode}_{which}"] = ms
+            elif which == "eval":
+                entry("K4", "rspmm_pna_fwd.cu", 1681, max(errs.values()), ms,
+                      plain_ms, bound, None)
+            else:
+                entries["K4"].update(
+                    max_abs_err_train=max(errs.values()), ms_train=ms,
+                    plain_ms_train=plain_ms, bound_ms_train=bound[0],
+                    bound_by_train=bound[1])
+        if which == "eval":
+            del ops
+            torch.cuda.empty_cache()
+            continue
+        # K5 on the card's own K4 output, both modes
+        for i, mode in enumerate(("mul_rel", "add_rel")):
+            q = k5_planes("max", mode, ops, seed=F + i)
+            dx, dr, err = check_bwd_kernel(
+                "K5", lambda: pna.pna_bwd_cuda("argext", *ops, q, mode),
+                lambda: pna.pna_bwd_plain("argext", *ops, q, mode),
+                f"max {mode} {label}")
+            del dx, dr
+            torch.cuda.empty_cache()
+            ms, plain_ms, bound = timed(
+                "K5", f"max {mode} {label}",
+                lambda: pna.pna_bwd_cuda("argext", *ops, q, mode),
+                lambda: pna.pna_bwd_plain("argext", *ops, q, mode), ops)
+            if mode == "mul_rel":
+                entry("K5", "rspmm_pna_bwd.cu", 2316, err, ms, plain_ms,
+                      bound, None, replaces_k5b="ultra_torchdrug_tpu/ops/"
+                                                "rspmm_pallas.py:2453")
+            else:
+                entries["K5"].update({f"ms_{mode}": ms,
+                                      f"max_abs_err_{mode}": err})
+            del q
+        # K3, and its function as two torch.sparse.mm calls
+        args = k3_args(ops, seed=F + 5)
+        dx, dr, err = check_bwd_kernel(
+            "K3", lambda: rspmm_bwd_cuda.rspmm_bwd_cuda(*args, mode="add_rel"),
+            lambda: rspmm_bwd_cuda.rspmm_bwd_plain(*args, mode="add_rel"),
+            label)
+        at, t = sparse_mm_halves(ops[0], ops[1])
+        grad = args[4]
+        assert_bwd_close(torch.sparse.mm(at, grad), dx)
+        assert_bwd_close(torch.sparse.mm(t, grad), dr)
+        del dx, dr
+        torch.cuda.empty_cache()
+        ms, plain_ms, bound = timed(
+            "K3", label,
+            lambda: rspmm_bwd_cuda.rspmm_bwd_cuda(*args, mode="add_rel"),
+            lambda: rspmm_bwd_cuda.rspmm_bwd_plain(*args, mode="add_rel"), ops)
+        lib_dx = cuda_time_ms(lambda: torch.sparse.mm(at, grad), 20)
+        lib_dr = cuda_time_ms(lambda: torch.sparse.mm(t, grad), 20)
+        log(f"[kernels] K3 {label}: library torch.sparse.mm (coalesced CSR) "
+            f"dx half {lib_dx:.4f} ms + dr half {lib_dr:.4f} ms = "
+            f"{lib_dx + lib_dr:.4f} ms against K3's {ms:.4f} ms")
+        entry("K3", "rspmm_bwd.cu", 1681, err, ms, plain_ms, bound,
+              lib_dx + lib_dr, library_ms_dx=lib_dx, library_ms_dr=lib_dr,
+              library_call="torch.sparse.mm twice: dx = A^T g, dr = T g",
+              mode="none, called by rspmm_bwd_pallas at :2816-2834")
+        del ops, args, at, t, grad
+        torch.cuda.empty_cache()
+    log('[kernels] kernels ["K4", "K5", "K3"]')
     return entries
 
 
@@ -673,7 +894,7 @@ def phase_parity(task, model, device, atol: float = 1e-4,
             f"max_abs_err {(a - b).abs().max().item():.3g} (limit {atol:g})")
 
 
-def phase_clip_crossings(task, model, device):
+def phase_clip_crossings(task, model, device, label: str):
     """PNA's std = sqrt(clip(sq_mean - mean², EPS)) on the card and on the
     CPU for 2 test queries, tail and head scoring: per layer, the entries
     clipped on each device and those clipped on one and not the other,
@@ -716,7 +937,7 @@ def phase_clip_crossings(task, model, device):
     layers = len(model.layers)
     for i, (a, b) in enumerate(zip(clipped(model, device),
                                    clipped(copy.deepcopy(model).to(cpu), cpu))):
-        log(f"[classic parity] {('tail', 'head')[i // layers]} layer "
+        log(f"[{label}] {('tail', 'head')[i // layers]} layer "
             f"{i % layers}: {int(a.sum())} of {a.numel()} "
             f"(node, query, feature) variances clipped on {device}, "
             f"{int(b.sum())} on cpu, {int((a != b).sum())} on one only")
@@ -815,7 +1036,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
-        help="cpu rehearses phases 2-9 at a reduced size with the plain "
+        help="cpu rehearses phases 2-15 at a reduced size with the plain "
              "versions and reports no result")
     args = parser.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -830,7 +1051,6 @@ def main(argv=None) -> int:
     )
     from ultra_torchdrug_tpu_torch.models.ultra import UltraConfig
     from ultra_torchdrug_tpu_torch.tasks.task import (
-        ClassicNBFNetTask,
         TaskConfig,
         TransductiveKGTask,
     )
@@ -840,7 +1060,7 @@ def main(argv=None) -> int:
     size = FULL if cuda else REHEARSAL
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
-    entry = k2_entry = pna_entries = None
+    entries, runs = {}, {}  # kernels-line entries; launch counts by path
     if cuda:
         log(nvidia_smi_line())
         log(f"[env] device {torch.cuda.get_device_name(0)}, "
@@ -853,12 +1073,13 @@ def main(argv=None) -> int:
         f"{len(dataset.valid)} valid / {len(dataset.test)} test triples "
         f"({time.perf_counter() - t0:.1f} s)")
     if cuda:
-        entry = phase_kernels(dataset, device)
+        entries["K1"] = phase_kernels(dataset, device)
         und = dataset.fact_graph(None)[0].undirected_with_inverse()
         und = und.prepare_csr(backward=True)
-        entry.update(time_k1_train_shape(und, device))
-        k2_entry = phase_kernels_k2(und, device)
-        pna_entries = phase_kernels_pna(und, device)
+        entries["K1"].update(time_k1_train_shape(und, device))
+        entries["K2"] = phase_kernels_k2(und, device)
+        entries.update(phase_kernels_pna(und, device))
+        entries.update(phase_kernels_ext(und, device))
         del und
         torch.cuda.empty_cache()
 
@@ -871,11 +1092,11 @@ def main(argv=None) -> int:
         f"nodes / {task.rel_graph.num_edges} edges, CSR, dense adjacency) "
         f"{time.perf_counter() - t0:.1f} s")
     ultra_eval = phase_slice(task, model, device,
-                             {"K1": K1_LAUNCHES_PER_BATCH})
+                             {"K1": K1_LAUNCHES_PER_BATCH}, label="ultra")
     if cuda:
-        profile_device_time("one eval batch", lambda: task.evaluate(
+        profile_device_time("one ultra eval batch", lambda: task.evaluate(
             model, "test", batch_size=EVAL_BATCH, fast_test=EVAL_BATCH))
-    phase_parity(task, model, device)
+    phase_parity(task, model, device, label="ultra parity")
     del task, model
 
     train_size = TRAIN if cuda else TRAIN_REHEARSAL
@@ -883,36 +1104,99 @@ def main(argv=None) -> int:
     engine = make_engine(
         TransductiveKGTask(dataset, model_cfg, TaskConfig(
             num_negative=train_size["negatives"]), device=device),
-        train_size, "train", lr=5e-4)
+        train_size, "ultra train", lr=5e-4)
     ultra_train = phase_train(engine, train_size, device,
                               {"K1": K_LAUNCHES_PER_STEP,
-                               "K2": K_LAUNCHES_PER_STEP})
+                               "K2": K_LAUNCHES_PER_STEP},
+                              label="ultra train")
     if cuda:
-        profile_device_time("one train step",
+        profile_device_time("one ultra train step",
                             lambda: engine.train(batch_per_epoch=1))
     phase_train_parity(engine, TransductiveKGTask(
-        dataset, model_cfg, TaskConfig(num_negative=8), device="cpu"), device)
+        dataset, model_cfg, TaskConfig(num_negative=8), device="cpu"), device,
+        label="ultra train parity")
     del engine
+    runs["ultra"] = (ultra_eval, ultra_train)
 
-    # classic NBFNet: evaluation and training (K6, K7, K6b, K7b)
+    # classic NBFNet, the NBFNet paper's FB15k-237 setting (distmult, pna)
+    # and two rows of its ablation of message and aggregation functions:
+    # (distmult, max) and (transe, pna)
+    layers = len(classic_nbfnet_config().hidden_dims)
+    runs["classic"] = run_classic(
+        dataset, device, "classic", dict(),
+        eval_per_pass={"K6": layers, "K7": layers},
+        train_per_step={"K6": layers, "K7": layers, "K6b": layers,
+                        "K7b": layers})
+    runs["classic max"] = run_classic(
+        dataset, device, "classic max", dict(aggregate_func="max"),
+        eval_per_pass={"K4": layers},
+        train_per_step={"K4": layers, "K5": layers})
+    # transe's pna moments are two K1 sums per layer (its second moment sums
+    # rel² + x², which does not factor through the message)
+    runs["classic transe-pna"] = run_classic(
+        dataset, device, "classic transe-pna", dict(message_func="transe"),
+        eval_per_pass={"K1": 2 * layers, "K6": layers},
+        train_per_step={"K1": 2 * layers, "K6": layers, "K3": 2 * layers,
+                        "K6b": layers})
+
+    if not cuda:
+        log("[rehearsal] phases 2-15 ran on the CPU; no kernel ran and no "
+            "result is reported")
+        return 1
+    for e in entries.values():
+        by_path = {f"{path} {half}": counts[e["name"]]
+                   for path, pair in runs.items()
+                   for half, counts in zip(("eval", "train"), pair)
+                   if counts[e["name"]]}
+        e.update(launches=sum(by_path.values()), launches_by_path=by_path)
+        if not e["launches"]:
+            raise AssertionError(f"{e['name']} never launched on the main "
+                                 "path")
+    log(nvidia_smi_line())
+    print(json.dumps({"kernels": [entries[k] for k in KERNEL_IDS]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def run_classic(dataset, device, label: str, variant: dict,
+                eval_per_pass: dict, train_per_step: dict) -> tuple:
+    """Classic NBFNet (6x32, dependent relations, layer norm, seeded
+    weights; ``variant`` sets the message and aggregation) on the dataset:
+    evaluation through ClassicNBFNetTask.evaluate (``eval_per_pass``
+    launches per scoring direction, two per batch), its profile and its
+    card-vs-CPU scores, then Engine.train at batch 64, 32 strict negatives
+    and Adam at lr 5e-3 (``train_per_step`` launches per step), its profile
+    and one loss step's gradients against the CPU. Returns the launch
+    counts of the measured eval and train runs."""
+    from ultra_torchdrug_tpu_torch.models.classic_nbfnet import (
+        classic_nbfnet_config,
+    )
+    from ultra_torchdrug_tpu_torch.tasks.task import (
+        ClassicNBFNetTask,
+        TaskConfig,
+    )
+
+    cuda = device.type == "cuda"
     nbf_cfg = classic_nbfnet_config(num_relations=dataset.num_relations,
-                                    layer_norm=True)
+                                    layer_norm=True, **variant)
     t0 = time.perf_counter()
     task = ClassicNBFNetTask(dataset, nbf_cfg, device=device)
     model = task.init_params(seed=0)
-    log(f"[classic] task set-up {time.perf_counter() - t0:.1f} s; "
+    log(f"[{label}] {nbf_cfg.message_func}, {nbf_cfg.aggregate_func}: task "
+        f"set-up {time.perf_counter() - t0:.1f} s; "
         f"{sum(p.numel() for p in model.parameters())} parameters")
-    pna_per_pass = {"K6": len(nbf_cfg.hidden_dims),
-                    "K7": len(nbf_cfg.hidden_dims)}
-    classic_eval = phase_slice(
-        task, model, device, {k: 2 * v for k, v in pna_per_pass.items()},
-        label="classic")
+    eval_counts = phase_slice(task, model, device,
+                              {k: 2 * v for k, v in eval_per_pass.items()},
+                              label=label)
     if cuda:
-        profile_device_time("one classic eval batch", lambda: task.evaluate(
+        profile_device_time(f"one {label} eval batch", lambda: task.evaluate(
             model, "test", batch_size=EVAL_BATCH, fast_test=EVAL_BATCH))
     phase_parity(task, model, device, atol=CLASSIC_SCORE_ATOL,
-                 label="classic parity")
-    phase_clip_crossings(task, model, device)
+                 label=f"{label} parity")
+    if nbf_cfg.aggregate_func.startswith("pna"):
+        phase_clip_crossings(task, model, device, label=f"{label} parity")
     del task, model
 
     train_size = CLASSIC_TRAIN if cuda else CLASSIC_TRAIN_REHEARSAL
@@ -920,38 +1204,17 @@ def main(argv=None) -> int:
         ClassicNBFNetTask(dataset, nbf_cfg, TaskConfig(
             num_negative=train_size["negatives"], strict_negative=True,
             adversarial_temperature=1), device=device),
-        train_size, "classic train", optimizer="Adam", lr=5e-3)
-    classic_train = phase_train(
-        engine, train_size, device,
-        {**pna_per_pass, "K6b": len(nbf_cfg.hidden_dims),
-         "K7b": len(nbf_cfg.hidden_dims)}, label="classic train")
+        train_size, f"{label} train", optimizer="Adam", lr=5e-3)
+    train_counts = phase_train(engine, train_size, device, train_per_step,
+                               label=f"{label} train")
     if cuda:
-        profile_device_time("one classic train step",
+        profile_device_time(f"one {label} train step",
                             lambda: engine.train(batch_per_epoch=1))
     phase_train_parity(
         engine, ClassicNBFNetTask(dataset, nbf_cfg, TaskConfig(num_negative=8),
                                   device="cpu"), device,
-        grad_rtol=CLASSIC_GRAD_RTOL, label="classic train parity")
-
-    if not cuda:
-        log("[rehearsal] phases 2-9 ran on the CPU; no kernel ran and no "
-            "result is reported")
-        return 1
-    entry.update(launches=ultra_eval["K1"] + ultra_train["K1"],
-                 launches_eval=ultra_eval["K1"],
-                 launches_train=ultra_train["K1"])
-    k2_entry["launches"] = ultra_train["K2"]
-    for kid, e in pna_entries.items():
-        e.update(launches=classic_eval[kid] + classic_train[kid],
-                 launches_eval=classic_eval[kid],
-                 launches_train=classic_train[kid])
-    log(nvidia_smi_line())
-    print(json.dumps({"kernels": [entry, k2_entry] + [
-        pna_entries[k] for k in ("K6", "K7", "K6b", "K7b")]}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+        grad_rtol=CLASSIC_GRAD_RTOL, label=f"{label} train parity")
+    return eval_counts, train_counts
 
 
 if __name__ == "__main__":

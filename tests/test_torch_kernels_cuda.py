@@ -8,11 +8,11 @@ Run on a machine with the card:
 Tolerance atol = rtol = 1e-5 for K1: the kernel sums each row's edges in CSR
 order, the plain version with index_add_ in another order. K2 uses rtol 1e-5,
 atol 1e-4: its dr rows sum up to a few hundred products of N(0, 1) values.
-K6 must equal its plain version exactly (an extremum of the same fp32
-products); K7 takes K1's tolerance for the same reason. K6b/K7b take K2's,
-with the absolute tolerance widened to 1e-5 of the result's largest entry:
-a dr row sums a thousand or more terms (K7b's carry x² and reach ~1e2),
-whose partial sums grow to that size, in another order.
+K6 and K4 must equal their plain versions exactly (an extremum of the same
+fp32 products); K7 takes K1's tolerance for the same reason. K3, K5 and
+K6b/K7b take K2's, with the absolute tolerance widened to 1e-5 of the
+result's largest entry: a dr row sums a thousand or more terms (K7b's carry
+x² and reach ~1e2), whose partial sums grow to that size, in another order.
 """
 
 import numpy as np
@@ -135,10 +135,10 @@ def _k2_operands(rng, V, E, R, F, device):
 @pytest.mark.parametrize("V,E,R,F", K2_SHAPES)
 def test_k2_matches_plain(cuda_device, rng, V, E, R, F):
     g, (rel, x, grad) = _k2_operands(rng, V, E, R, F, cuda_device)
-    before = rspmm_bwd_cuda.launches
+    before = rspmm_bwd_cuda.launches["K2"]
     dx, dr = rspmm_bwd_cuda.rspmm_bwd_cuda(g.csr, g.edge_weight, rel, x, grad)
     torch.cuda.synchronize()
-    assert rspmm_bwd_cuda.launches == before + 1
+    assert rspmm_bwd_cuda.launches["K2"] == before + 1
     want_dx, want_dr = rspmm_bwd_cuda.rspmm_bwd_plain(g.csr, g.edge_weight,
                                                       rel, x, grad)
     torch.testing.assert_close(dx, want_dx, **K2_TOL)
@@ -176,11 +176,13 @@ def test_k2_rejects_bad_operands(cuda_device, rng):
         rspmm_bwd_cuda.rspmm_bwd_cuda(csr.to("cpu"), w, rel, x, grad)
 
 
+@pytest.mark.parametrize("msg", ["mul", "add"])
 @pytest.mark.parametrize("shared_rel", [False, True])
 def test_generalized_rspmm_gradient_card_matches_cpu(cuda_device, rng,
-                                                     shared_rel):
-    """Autograd through the op on the card (K1 forward, K2 backward) against
-    its CPU path, in the [V, B, D] form; the add_rel backward raises."""
+                                                     shared_rel, msg):
+    """Autograd through the op on the card (K1 forward, K2 backward for
+    distmult, K3 for transe) against its CPU path (autograd through the
+    plain forward), in the [V, B, D] form."""
     V, E, R, B, D = 37, 300, 6, 3, 16
     g = _graph(rng, V, E, R)
     rel_shape = (R, D) if shared_rel else (R, B, D)
@@ -188,25 +190,58 @@ def test_generalized_rspmm_gradient_card_matches_cpu(cuda_device, rng,
     x = torch.from_numpy(rng.normal(size=(V, B, D)).astype(np.float32))
     cot = torch.from_numpy(rng.normal(size=(V, B, D)).astype(np.float32))
     gc = g.to(cuda_device)
+    kid = "K2" if msg == "mul" else "K3"
     grads = []
     for graph, dev in ((g, "cpu"), (gc, cuda_device)):
         r = rel.to(dev).requires_grad_()
         xx = x.to(dev).requires_grad_()
         out = generalized_rspmm(graph.edge_index, graph.edge_type,
-                                graph.edge_weight, r, xx, msg="mul",
+                                graph.edge_weight, r, xx, msg=msg,
                                 num_nodes=V, csr=graph.csr)
-        before = rspmm_bwd_cuda.launches
+        before = dict(rspmm_bwd_cuda.launches)
         grads.append([t.cpu() for t in torch.autograd.grad(
             out, (r, xx), cot.to(dev))])
-        assert rspmm_bwd_cuda.launches == before + (graph is gc)
+        before[kid] += graph is gc
+        assert rspmm_bwd_cuda.launches == before
     for a, b in zip(*grads):
         torch.testing.assert_close(b, a, **K2_TOL)
-    r = rel.to(cuda_device).requires_grad_()
-    out = generalized_rspmm(gc.edge_index, gc.edge_type, gc.edge_weight, r,
-                            x.to(cuda_device), msg="add", num_nodes=V,
-                            csr=gc.csr)
-    with pytest.raises(NotImplementedError, match="K3"):
-        out.sum().backward()
+
+
+@pytest.mark.parametrize("V,E,R,F", K2_SHAPES + [(2000, 60000, 40, 2048)])
+def test_k3_matches_plain(cuda_device, rng, V, E, R, F):
+    """K3 (the transe backward) reads neither x nor the relation: x is None,
+    the relation gives dr's shape only."""
+    g, (rel, _, grad) = _k2_operands(rng, V, E, R, F, cuda_device)
+    args = (g.csr, g.edge_weight, rel, None, grad)
+    before = rspmm_bwd_cuda.launches["K3"]
+    dx, dr = rspmm_bwd_cuda.rspmm_bwd_cuda(*args, mode="add_rel")
+    torch.cuda.synchronize()
+    assert rspmm_bwd_cuda.launches["K3"] == before + 1
+    want_dx, want_dr = rspmm_bwd_cuda.rspmm_bwd_plain(*args, mode="add_rel")
+    _assert_sums_close(dx, want_dx)
+    _assert_sums_close(dr, want_dr)
+    assert torch.all(dx[V - 5:] == 0) and torch.all(dr[R - 1] == 0)
+    dx2, dr2 = rspmm_bwd_cuda.rspmm_bwd_cuda(*args, mode="add_rel")
+    assert torch.equal(dx, dx2) and torch.equal(dr, dr2)  # deterministic
+    none, dr3 = rspmm_bwd_cuda.rspmm_bwd_cuda(*args, need_dx=False,
+                                              mode="add_rel")
+    assert none is None and torch.equal(dr3, dr)
+
+
+def test_k3_rejects_bad_operands(cuda_device, rng):
+    g, (rel, x, grad) = _k2_operands(rng, 37, 300, 6, 8, cuda_device)
+    csr, w = g.csr, g.edge_weight
+    with pytest.raises(TypeError):  # float64 gradient
+        rspmm_bwd_cuda.rspmm_bwd_cuda(csr, w, rel, None, grad.double(),
+                                      mode="add_rel")
+    with pytest.raises(ValueError):  # relation with the wrong row count
+        rspmm_bwd_cuda.rspmm_bwd_cuda(csr, w, rel[:5].contiguous(), None,
+                                      grad, mode="add_rel")
+    with pytest.raises(ValueError):  # layouts on the CPU
+        rspmm_bwd_cuda.rspmm_bwd_cuda(csr.to("cpu"), w, rel, None, grad,
+                                      mode="add_rel")
+    with pytest.raises(ValueError):  # an unknown mode
+        rspmm_bwd_cuda.rspmm_bwd_cuda(csr, w, rel, x, grad, mode="rot_rel")
 
 
 # ---------------------------------------------------------------------------
@@ -219,6 +254,11 @@ PNA_SHAPES = K2_SHAPES + [(2000, 60000, 40, 2048)]
 PNA_FWD = [("maxmin", "mul_rel"), ("maxmin", "add_rel"), ("addsq", "mul_rel")]
 PNA_BWD = [("argext_pair", "mul_rel"), ("argext_pair", "add_rel"),
            ("moments", "mul_rel")]
+K4_FWD = [("max", "mul_rel"), ("max", "add_rel"), ("min", "mul_rel"),
+          ("min", "add_rel")]
+K5_BWD = [("argext", "mul_rel"), ("argext", "add_rel")]
+_FWD_ID = {"maxmin": "K6", "addsq": "K7", "max": "K4", "min": "K4"}
+_BWD_ID = {"argext_pair": "K6b", "moments": "K7b", "argext": "K5"}
 
 
 def _pna_operands(rng, V, E, R, F, device):
@@ -244,8 +284,18 @@ def _assert_sums_close(got, want):
 @pytest.mark.parametrize("V,E,R,F", PNA_SHAPES)
 @pytest.mark.parametrize("kind,mode", PNA_FWD)
 def test_k6_k7_match_plain(cuda_device, rng, kind, mode, V, E, R, F):
+    _check_fwd(rng, kind, mode, V, E, R, F, cuda_device)
+
+
+@pytest.mark.parametrize("V,E,R,F", PNA_SHAPES)
+@pytest.mark.parametrize("kind,mode", K4_FWD)
+def test_k4_matches_plain(cuda_device, rng, kind, mode, V, E, R, F):
+    _check_fwd(rng, kind, mode, V, E, R, F, cuda_device)
+
+
+def _check_fwd(rng, kind, mode, V, E, R, F, cuda_device):
     g, rel, x = _pna_operands(rng, V, E, R, F, cuda_device)
-    kid = "K6" if kind == "maxmin" else "K7"
+    kid = _FWD_ID[kind]
     before = rspmm_pna_cuda.launches[kid]
     got = rspmm_pna_cuda.pna_fwd_cuda(kind, g.csr, g.edge_weight, rel, x,
                                       mode)
@@ -253,8 +303,9 @@ def test_k6_k7_match_plain(cuda_device, rng, kind, mode, V, E, R, F):
     assert rspmm_pna_cuda.launches[kid] == before + 1
     want = rspmm_pna_cuda.pna_fwd_plain(kind, g.csr, g.edge_weight, rel, x,
                                         mode)
+    assert len(got) == len(want) == (1 if kid == "K4" else 2)
     for a, b in zip(got, want):
-        if kind == "maxmin":
+        if kind != "addsq":
             assert torch.equal(a, b)
         else:
             torch.testing.assert_close(a, b, **TOL)
@@ -264,6 +315,18 @@ def test_k6_k7_match_plain(cuda_device, rng, kind, mode, V, E, R, F):
 @pytest.mark.parametrize("V,E,R,F", PNA_SHAPES)
 @pytest.mark.parametrize("kind,mode", PNA_BWD)
 def test_k6b_k7b_match_plain(cuda_device, rng, kind, mode, V, E, R, F):
+    _check_bwd(rng, kind, mode, V, E, R, F, cuda_device)
+
+
+@pytest.mark.parametrize("V,E,R,F", PNA_SHAPES)
+@pytest.mark.parametrize("kind,mode", K5_BWD)
+def test_k5_matches_plain(cuda_device, rng, kind, mode, V, E, R, F):
+    _check_bwd(rng, kind, mode, V, E, R, F, cuda_device)
+
+
+def _check_bwd(rng, kind, mode, V, E, R, F, cuda_device):
+    """The argext planes are the card's own K6 / K4 outputs, so the gates
+    fire on ties."""
     g, rel, x = _pna_operands(rng, V, E, R, F, cuda_device)
     grads = [torch.from_numpy(rng.normal(size=(V, F)).astype(np.float32)).to(
         cuda_device) for _ in range(2)]
@@ -271,9 +334,13 @@ def test_k6b_k7b_match_plain(cuda_device, rng, kind, mode, V, E, R, F):
         mx, mn = rspmm_pna_cuda.pna_fwd_cuda("maxmin", g.csr, g.edge_weight,
                                              rel, x, mode)
         planes = (grads[0], mx, grads[1], mn)
+    elif kind == "argext":
+        (mx,) = rspmm_pna_cuda.pna_fwd_cuda("max", g.csr, g.edge_weight, rel,
+                                            x, mode)
+        planes = (grads[0], mx)
     else:
         planes = tuple(grads)
-    kid = "K6b" if kind == "argext_pair" else "K7b"
+    kid = _BWD_ID[kind]
     args = (kind, g.csr, g.edge_weight, rel, x, planes, mode)
     before = rspmm_pna_cuda.launches[kid]
     dx, dr = rspmm_pna_cuda.pna_bwd_cuda(*args)
@@ -293,9 +360,10 @@ def test_k6b_k7b_match_plain(cuda_device, rng, kind, mode, V, E, R, F):
 
 @pytest.mark.parametrize("msg", ["mul", "add"])
 def test_pna_pairs_card_match_cpu(cuda_device, rng, msg):
-    """The fused pairs route CUDA tensors through K6/K7 and K6b/K7b and
-    agree with their CPU path, values and gradients, in the [V, B, D] form
-    with a shared relation; max and min exactly."""
+    """The fused pairs and the single extrema route CUDA tensors through
+    K6/K7, K4 and K6b/K7b, K5 and agree with their CPU path, values and
+    gradients, in the [V, B, D] form with a shared relation; max and min
+    exactly."""
     V, E, R, B, D = 37, 300, 6, 3, 16
     g, _, _ = _pna_operands(rng, V, E, R, 4, "cpu")
     rel = torch.from_numpy(rng.normal(size=(R, D)).astype(np.float32))
@@ -303,7 +371,9 @@ def test_pna_pairs_card_match_cpu(cuda_device, rng, msg):
         np.float32))
     cot = [torch.from_numpy(rng.normal(size=(V, B, D)).astype(np.float32))
            for _ in range(2)]
-    ops = [lambda *a, **k: generalized_rspmm_maxmin(*a, msg=msg, **k)]
+    ops = [lambda *a, **k: generalized_rspmm_maxmin(*a, msg=msg, **k),
+           lambda *a, **k: (generalized_rspmm(*a, msg=msg, agg="max", **k),
+                            generalized_rspmm(*a, msg=msg, agg="min", **k))]
     if msg == "mul":
         ops.append(generalized_rspmm_addsq)
     gc = g.to(cuda_device)
@@ -319,7 +389,7 @@ def test_pna_pairs_card_match_cpu(cuda_device, rng, msg):
                 (r, xx))
             results.append([t.detach().cpu() for t in (a, b, *grads)])
         (a0, b0, *g0), (a1, b1, *g1) = results
-        if op is ops[0]:
+        if op is not generalized_rspmm_addsq:
             assert torch.equal(a0, a1) and torch.equal(b0, b1)
         else:
             torch.testing.assert_close(a1, a0, **TOL)
@@ -342,3 +412,14 @@ def test_pna_kernels_reject_bad_operands(cuda_device, rng):
     with pytest.raises(ValueError):  # layouts on the CPU
         rspmm_pna_cuda.pna_bwd_cuda("moments", csr.to("cpu"), w, rel, x,
                                     (x, x), "mul_rel")
+    with pytest.raises(TypeError):  # K4: float64 x
+        rspmm_pna_cuda.pna_fwd_cuda("max", csr, w, rel, x.double(),
+                                    "add_rel")
+    with pytest.raises(ValueError):  # K4: an unknown kind
+        rspmm_pna_cuda.pna_fwd_cuda("mean", csr, w, rel, x, "mul_rel")
+    with pytest.raises(ValueError):  # K5: two planes, not four
+        rspmm_pna_cuda.pna_bwd_cuda("argext", csr, w, rel, x, (x, x, x, x),
+                                    "mul_rel")
+    with pytest.raises(ValueError):  # K5: a plane of the wrong shape
+        rspmm_pna_cuda.pna_bwd_cuda("argext", csr, w, rel, x,
+                                    (x, x[:5].contiguous()), "add_rel")

@@ -144,8 +144,8 @@ def test_broadcast_rel_flat_is_b_major(rng):
         torch.testing.assert_close(flat[:, b * D:(b + 1) * D], rel)
 
 
-@pytest.mark.parametrize("msg,agg", [("rotate", "add"), ("mul", "max"),
-                                     ("add", "min")])
+@pytest.mark.parametrize("msg,agg", [("rotate", "add"), ("rotate", "max"),
+                                     ("rotate", "min")])
 def test_later_slices_raise(rng, msg, agg):
     inp = make_inputs(rng)
     g = TGraph.from_triplets(inp["tri"], V, R)

@@ -187,7 +187,7 @@ def test_bwd_plain_halves_and_empty_relation(rng):
     g = TGraph.from_triplets(inp["tri"], inp["V"], inp["R"],
                              edge_weight=inp["w"]).prepare_csr(backward=True)
     args = (g.csr, g.edge_weight, _t(rel), _t(x), _t(inp["g"].reshape(x.shape)))
-    before = rspmm_bwd_cuda.launches
+    before = dict(rspmm_bwd_cuda.launches)
     dx, dr = rspmm_bwd_cuda.rspmm_bwd_cuda(*args)
     assert rspmm_bwd_cuda.launches == before
     assert rspmm_bwd_cuda.rspmm_bwd_cuda(*args, need_dx=False)[0] is None

@@ -1,31 +1,44 @@
-// Relational SpMM backward, distmult messages, sum aggregation (kernel K2 of
-// the port).
+// Relational SpMM backward, sum aggregation (kernels K2 and K3 of the port).
 //
-// Replaces the TPU kernel ultra_torchdrug_tpu/ops/rspmm_pallas.py::
+// K2 replaces the TPU kernel ultra_torchdrug_tpu/ops/rspmm_pallas.py::
 // rspmm_bwd_fused in mode mul (reached through rspmm_bwd_pallas), the
 // backward of out[v] = sum over e = (s -> v, r) of w[eid_e] * rel[r] * x[s]:
 //
 //     dx[s, :] = sum over e = (s -> v, r) of  w[eid_e] * rel[r, :] * g[v, :]
 //     dr[r, :] = sum over e with type r   of  w[eid_e] * x[s_e, :] * g[v_e, :]
 //
+// K3 replaces rspmm_gather1 in mode none as rspmm_bwd_pallas's transe branch
+// calls it (rspmm_pallas.py:2807-2834: dx over the reverse layout with
+// gather1, dr over the relation layout with gather2), the backward of
+// out[v] = sum of w[eid_e] * (rel[r] + x[s]):
+//
+//     dx[s, :] = sum over e = (s -> v, r) of  g[v, :] * w[eid_e]
+//     dr[r, :] = sum over e with type r   of  g[v_e, :] * w[eid_e]
+//
+// K3 reads neither x nor rel: it is a weighted SpMM twice, dx = A^T g and
+// dr = T g with T[r, v] the summed weights of the type-r edges into v.
+//
 // Shapes: x, g, dx [V, F]; rel, dr [R, F]; w [E] in original edge order;
 // fp32 in and out. Rows of dx and dr without edges come back 0.
 //
-// What bounds it on an H100: the compulsory traffic is one read of x, g,
-// rel and the edge arrays and one write of dx and dr; the work is 6 flops
-// per edge and feature. At the ULTRA training shape (V = 14,541,
-// E = 496,188, R = 474, F = 64 queries x 64 = 4096) that is about 738 MB,
-// 0.220 ms at 3.35 TB/s, against 12.2 GFLOP, 0.182 ms at 67 TFLOP/s fp32:
-// bytes-bound at about 0.22 ms. This design gathers one g row per edge for
-// dx and one x and one g row per edge for dr (3 * E * F * 4 bytes, about
-// 24 GB at that shape, mostly missing the 50 MB L2), so the gathers are its
+// What bounds them on an H100: the compulsory traffic is one read of the
+// dense inputs (K2: x, g, rel; K3: g) and the edge arrays and one write of
+// dx and dr; the work is 6 (K2) or 3 (K3) flops per edge and feature. At the
+// ULTRA training shape (V = 14,541, E = 496,188, R = 474, F = 64 queries x
+// 64 = 4096) K2 moves about 738 MB, 0.220 ms at 3.35 TB/s, against
+// 12.2 GFLOP, 0.182 ms at 67 TFLOP/s fp32: bytes-bound at about 0.22 ms. At
+// the classic NBFNet training shape (F = 64 x 32 = 2048) K3 moves about
+// 250 MB (0.075 ms) against 3.0 GFLOP (0.045 ms): bytes-bound. This design
+// gathers one g row per edge for dx and one x and one g row (K3: one g row)
+// per edge for dr (3 or 2 * E * F * 4 bytes, about 24 GB for K2 and 8 GB for
+// K3 at those shapes, mostly missing the 50 MB L2), so the gathers are its
 // real limit.
 //
 // What the design does about it, and what keeps it deterministic (two calls
 // on the same inputs give bitwise-equal dx and dr; no float atomics):
 //  * dx pass: the forward's row gather (rspmm_rows.cuh) over the
 //    source-sorted CSR, one CTA per source row and feature tile, the sum in
-//    registers, each row written once;
+//    registers, each row written once (K3: message kNone, g[v] alone);
 //  * dr pass, a segmented reduction in two kernels: the relation-sorted
 //    edges are cut into chunks of at most 256 edges that never cross a
 //    relation; one CTA per (chunk, feature tile) sums its chunk into a row of
@@ -41,15 +54,18 @@
 namespace {
 
 using rspmm::accumulate;
+using rspmm::kAddRel;
 using rspmm::kMaxThreads;
 using rspmm::kMulRel;
+using rspmm::kNone;
 using rspmm::ld;
 using rspmm::relation_sums;
 using rspmm::zero;
 
 // partial[c, :] = sum over e in [chunk_ptr[c], chunk_ptr[c+1]) of
-//                 w[eid[e]] * x[src[e], :] * g[dst[e], :]
-template <typename T>
+//                 w[eid[e]] * x[src[e], :] * g[dst[e], :]   (kMulRel)
+//                 g[dst[e], :] * w[eid[e]]                  (kNone)
+template <int MODE, typename T>
 __global__ void __launch_bounds__(kMaxThreads)
 chunk_partials(const int* __restrict__ chunk_ptr, const int* __restrict__ src,
                const int* __restrict__ dst, const int* __restrict__ eid,
@@ -63,15 +79,19 @@ chunk_partials(const int* __restrict__ chunk_ptr, const int* __restrict__ src,
   T acc = zero<T>();
 #pragma unroll 4
   for (int e = begin; e < end; ++e) {
-    const int64_t s = __ldg(src + e);
     const int64_t d = __ldg(dst + e);
     const float w = __ldg(weight + __ldg(eid + e));
-    accumulate<kMulRel>(acc, ld(x + s * n + j), ld(g + d * n + j), w);
+    if constexpr (MODE == kNone) {
+      accumulate<kNone>(acc, zero<T>(), ld(g + d * n + j), w);
+    } else {
+      const int64_t s = __ldg(src + e);
+      accumulate<kMulRel>(acc, ld(x + s * n + j), ld(g + d * n + j), w);
+    }
   }
   partial[static_cast<int64_t>(c) * n + j] = acc;
 }
 
-template <typename T>
+template <int MODE, typename T>
 int launch_dr(const int* chunk_ptr, const int* rel_chunk_ptr,
               const int* rel_src, const int* rel_dst, const int* rel_eid,
               const float* weight, const float* x, const float* g, float* dr,
@@ -80,7 +100,7 @@ int launch_dr(const int* chunk_ptr, const int* rel_chunk_ptr,
   int threads, tiles;
   rspmm::feature_tiles(n, &threads, &tiles);
   if (num_chunks > 0) {
-    chunk_partials<T><<<dim3(num_chunks, tiles), threads, 0, stream>>>(
+    chunk_partials<MODE, T><<<dim3(num_chunks, tiles), threads, 0, stream>>>(
         chunk_ptr, rel_src, rel_dst, rel_eid, weight,
         reinterpret_cast<const T*>(x), reinterpret_cast<const T*>(g),
         reinterpret_cast<T*>(partial), n);
@@ -93,16 +113,34 @@ int launch_dr(const int* chunk_ptr, const int* rel_chunk_ptr,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int MODE>
+int launch_dr_width(bool vec, const int* chunk_ptr, const int* rel_chunk_ptr,
+                    const int* rel_src, const int* rel_dst, const int* rel_eid,
+                    const float* weight, const float* x, const float* g,
+                    float* dr, float* partial, int num_relations,
+                    int num_chunks, int num_features, cudaStream_t stream) {
+  return vec ? launch_dr<MODE, float4>(chunk_ptr, rel_chunk_ptr, rel_src,
+                                       rel_dst, rel_eid, weight, x, g, dr,
+                                       partial, num_relations, num_chunks,
+                                       num_features / 4, stream)
+             : launch_dr<MODE, float>(chunk_ptr, rel_chunk_ptr, rel_src,
+                                      rel_dst, rel_eid, weight, x, g, dr,
+                                      partial, num_relations, num_chunks,
+                                      num_features, stream);
+}
+
 }  // namespace
 
-// The source-sorted CSR (src_rowptr / src_dst / src_etype / src_eid) drives
-// the dx pass; the relation-sorted edges (rel_src / rel_dst / rel_eid) cut at
-// chunk_ptr, with rel_chunk_ptr giving each relation's chunks, drive the dr
-// pass. partial holds num_chunks rows of F floats. dx == nullptr skips the dx
-// pass, dr == nullptr the dr pass. Returns the first nonzero
-// cudaGetLastError() code after a launch (0 on success).
-extern "C" int rspmm_bwd_k2(
-    const int* src_rowptr, const int* src_dst, const int* src_etype,
+// mode: 0 = mul_rel (K2), 1 = add_rel (K3; rel and x are not read and may
+// be null). The source-sorted CSR (src_rowptr / src_dst / src_etype /
+// src_eid) drives the dx pass; the relation-sorted edges (rel_src / rel_dst
+// / rel_eid) cut at chunk_ptr, with rel_chunk_ptr giving each relation's
+// chunks, drive the dr pass. partial holds num_chunks rows of F floats.
+// dx == nullptr skips the dx pass, dr == nullptr the dr pass. Returns the
+// first nonzero cudaGetLastError() code after a launch (0 on success); an
+// unknown mode returns cudaErrorInvalidValue without launching.
+extern "C" int rspmm_bwd(
+    int mode, const int* src_rowptr, const int* src_dst, const int* src_etype,
     const int* src_eid, const int* chunk_ptr, const int* rel_chunk_ptr,
     const int* rel_src, const int* rel_dst, const int* rel_eid,
     const float* weight, const float* rel, const float* x, const float* g,
@@ -110,25 +148,36 @@ extern "C" int rspmm_bwd_k2(
     int num_chunks, int num_features, void* stream) {
   using rspmm::aligned16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode != kMulRel && mode != kAddRel) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (num_features <= 0) return static_cast<int>(cudaGetLastError());
   const bool vec = num_features % 4 == 0 && aligned16(rel) && aligned16(x) &&
                    aligned16(g) && (dx == nullptr || aligned16(dx)) &&
                    (dr == nullptr || (aligned16(dr) && aligned16(partial)));
   if (dx != nullptr && num_rows > 0) {
-    rspmm::launch_row_gather<kMulRel>(vec, src_rowptr, src_dst, src_etype,
-                                      src_eid, weight, rel, g, dx, num_rows,
-                                      num_features, s);
+    if (mode == kMulRel) {
+      rspmm::launch_row_gather<kMulRel>(vec, src_rowptr, src_dst, src_etype,
+                                        src_eid, weight, rel, g, dx, num_rows,
+                                        num_features, s);
+    } else {
+      rspmm::launch_row_gather<kNone>(vec, src_rowptr, src_dst, src_etype,
+                                      src_eid, weight, nullptr, g, dx,
+                                      num_rows, num_features, s);
+    }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (dr != nullptr && num_relations > 0) {
-    return vec ? launch_dr<float4>(chunk_ptr, rel_chunk_ptr, rel_src, rel_dst,
-                                   rel_eid, weight, x, g, dr, partial,
-                                   num_relations, num_chunks,
-                                   num_features / 4, s)
-               : launch_dr<float>(chunk_ptr, rel_chunk_ptr, rel_src, rel_dst,
-                                  rel_eid, weight, x, g, dr, partial,
-                                  num_relations, num_chunks, num_features, s);
+    return mode == kMulRel
+               ? launch_dr_width<kMulRel>(vec, chunk_ptr, rel_chunk_ptr,
+                                          rel_src, rel_dst, rel_eid, weight, x,
+                                          g, dr, partial, num_relations,
+                                          num_chunks, num_features, s)
+               : launch_dr_width<kNone>(vec, chunk_ptr, rel_chunk_ptr, rel_src,
+                                        rel_dst, rel_eid, weight, nullptr, g,
+                                        dr, partial, num_relations,
+                                        num_chunks, num_features, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,13 +1,19 @@
-// Fused PNA aggregations, backward (kernels K6b and K7b of the port).
+// Gated and factored rspmm backward for the aggregations beyond the sum:
+// kernels K6b and K7b (the fused PNA pairs) and K5 (the single extremum).
 //
 // Replaces the TPU kernel ultra_torchdrug_tpu/ops/rspmm_pallas.py::
 // rspmm_bwd_minmax_blk in kind argext_pair (K6b, reached through
-// rspmm_bwd_pallas_maxmin, the backward of K6) and kind moments (K7b,
-// reached through rspmm_bwd_pallas_addsq, the backward of K7). Each edge
-// e = (s -> v, r) with weight w = w[eid_e] gets a coefficient c per lane,
+// rspmm_bwd_pallas_maxmin, the backward of K6), kind moments (K7b, reached
+// through rspmm_bwd_pallas_addsq, the backward of K7) and kind argext (K5b),
+// and rspmm_bwd_minmax (K5), the same single-extremum function on the
+// per-edge layouts; rspmm_bwd_pallas_minmax picks one of those two by the
+// TPU layout, which the card has no use for, so kind argext here serves
+// both ids. Each edge e = (s -> v, r) with weight w = w[eid_e] gets a
+// coefficient c per lane,
 //
 //   argext_pair:  m = (rel[r] * x[s]) * w   (or (rel[r] + x[s]) * w, add_rel)
 //                 c = [m == mx[v]] * g_mx[v] * w + [m == mn[v]] * g_mn[v] * w
+//   argext:       m as above,  c = [m == out[v]] * g[v] * w
 //   moments:      m = rel[r] * x[s]
 //                 c = g_s[v] * w + (2 m) * (g_sq[v] * w)
 //
@@ -16,27 +22,29 @@
 //     dx[s, :] = sum over e = (s -> v, r) of  rel[r, :] * c   (c for add_rel)
 //     dr[r, :] = sum over e with type r   of  x[s, :] * c     (c for add_rel)
 //
-// argext_pair recomputes K6's message in the same order and gates on
-// bitwise equality, so every edge whose message ties with the extremum gets
-// the full gradient (the convention of the TPU kernel, which the JAX package
-// documents at ops/rspmm.py:195-198). Edges of weight 0 get c = 0.
+// The argext kinds recompute the forward's message (K6's, K4's) in the
+// same order and gate on bitwise equality, so every edge whose message ties
+// with the extremum gets the full gradient (the convention of the TPU
+// kernels, which the JAX package documents at ops/rspmm.py:195-198). Edges
+// of weight 0 get c = 0. The saved extremum is the forward's output after
+// the empty-row masking; a row without edges has no edge to gate.
 //
-// Shapes: x, the planes (g_mx, mx, g_mn, mn, or g_s, g_sq), dx [V, F];
-// rel, dr [R, F]; w [E] in original edge order; fp32 in and out. Rows of dx
-// and dr without edges come back 0.
+// Shapes: x, the planes (g_mx, mx, g_mn, mn; g, out; or g_s, g_sq), dx
+// [V, F]; rel, dr [R, F]; w [E] in original edge order; fp32 in and out.
+// Rows of dx and dr without edges come back 0.
 //
 // What bounds it on an H100: the compulsory traffic is one read of x, the
 // planes, rel and the edge arrays and one write of dx and dr; the least work
-// is 10 (argext_pair) or 8 (moments, with w factored out: c = w * (g_s +
-// m * (2 g_sq)), 2 g_sq formed once per node) flops per edge and feature.
-// At the classic NBFNet training shape (V = 14,541, E = 496,188, R = 474,
-// F = 64 queries x 32 = 2048) argext_pair moves about 730 MB, 0.22 ms at
-// 3.35 TB/s, against 10.2 GFLOP (0.152 ms at 67 TFLOP/s fp32); moments
-// moves about 492 MB (0.147 ms) against 8.1 GFLOP (0.121 ms): both are
-// bytes-bound. This design gathers the
-// planes and rel once per edge for dx and x and the planes once per edge for
-// dr (9 or 5 row gathers per edge, 37 GB or 20 GB at that shape), so the
-// gathers are its real limit.
+// is 10 (argext_pair), 8 (argext) or 8 (moments, with w factored out: c =
+// w * (g_s + m * (2 g_sq)), 2 g_sq formed once per node) flops per edge and
+// feature. At the classic NBFNet training shape (V = 14,541, E = 496,188,
+// R = 474, F = 64 queries x 32 = 2048) argext_pair moves about 730 MB,
+// 0.22 ms at 3.35 TB/s, against 10.2 GFLOP (0.152 ms at 67 TFLOP/s fp32);
+// argext and moments move about 492 MB (0.147 ms) against 8.1 GFLOP
+// (0.121 ms): all are bytes-bound. This design gathers the planes and rel
+// once per edge for dx and x and the planes once per edge for dr (9, 6 or 5
+// row gathers per edge, 37, 24 or 20 GB at that shape), so the gathers are
+// its real limit.
 //
 // What the design does about it, and what keeps it deterministic (two calls
 // on the same inputs give bitwise-equal dx and dr; no float atomics), the
@@ -67,6 +75,7 @@ using rspmm::store_lanes;
 
 constexpr int kArgextPair = 0;  // K6b: planes g_mx, mx, g_mn, mn
 constexpr int kMoments = 1;     // K7b: planes g_s, g_sq
+constexpr int kArgext = 2;      // K5: planes g, out
 
 // the planes of one destination row, W lanes each
 template <int KIND, int W>
@@ -94,6 +103,9 @@ __device__ __forceinline__ float coefficient(float r, float xv, float w,
     const float c_mx = m == q.p1.v[k] ? q.p0.v[k] * w : 0.f;
     const float c_mn = m == q.p3.v[k] ? q.p2.v[k] * w : 0.f;
     return c_mx + c_mn;
+  } else if constexpr (KIND == kArgext) {
+    const float m = message<MODE>(r, xv) * w;  // K4's message, bit for bit
+    return m == q.p1.v[k] ? q.p0.v[k] * w : 0.f;
   } else {
     const float m = r * xv;
     return q.p0.v[k] * w + (2.f * m) * (q.p1.v[k] * w);
@@ -223,14 +235,15 @@ int launch_width(bool vec, const Args& a, cudaStream_t stream) {
 }  // namespace
 
 // kind: 0 = argext_pair (K6b; planes q0..q3 = g_mx, mx, g_mn, mn), 1 =
-// moments (K7b; q0, q1 = g_s, g_sq; q2, q3 unused). mode: 0 = mul_rel, 1 =
-// add_rel (K6b only). The source-sorted CSR drives the dx pass; the
-// relation-sorted edges cut at chunk_ptr (chunk_rel: each chunk's relation;
-// rel_chunk_ptr: each relation's chunks) drive the dr pass, whose partial
-// holds num_chunks rows of F floats. dx == nullptr skips the dx pass, dr ==
-// nullptr the dr pass. Returns the first nonzero cudaGetLastError() code
-// after a launch (0 on success); an unknown kind or mode, or K7b with
-// add_rel, returns cudaErrorInvalidValue without launching.
+// moments (K7b; q0, q1 = g_s, g_sq; q2, q3 unused), 2 = argext (K5; q0, q1
+// = g, out; q2, q3 unused). mode: 0 = mul_rel, 1 = add_rel (all kinds but
+// K7b). The source-sorted CSR drives the dx pass; the relation-sorted edges
+// cut at chunk_ptr (chunk_rel: each chunk's relation; rel_chunk_ptr: each
+// relation's chunks) drive the dr pass, whose partial holds num_chunks rows
+// of F floats. dx == nullptr skips the dx pass, dr == nullptr the dr pass.
+// Returns the first nonzero cudaGetLastError() code after a launch (0 on
+// success); an unknown kind or mode, or K7b with add_rel, returns
+// cudaErrorInvalidValue without launching.
 extern "C" int rspmm_pna_bwd(
     int kind, int mode, const int* src_rowptr, const int* src_dst,
     const int* src_etype, const int* src_eid, const int* chunk_ptr,
@@ -242,9 +255,9 @@ extern "C" int rspmm_pna_bwd(
     void* stream) {
   using rspmm::aligned16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool known =
-      (kind == kArgextPair && (mode == kMulRel || mode == kAddRel)) ||
-      (kind == kMoments && mode == kMulRel);
+  const bool both_modes = mode == kMulRel || mode == kAddRel;
+  const bool known = (kind == kMoments && mode == kMulRel) ||
+                     ((kind == kArgextPair || kind == kArgext) && both_modes);
   if (!known) return static_cast<int>(cudaErrorInvalidValue);
   if (num_features <= 0) return static_cast<int>(cudaGetLastError());
   const Args a{src_rowptr, src_dst,   src_etype, src_eid,  chunk_ptr,
@@ -255,10 +268,15 @@ extern "C" int rspmm_pna_bwd(
   const bool vec =
       num_features % 4 == 0 && aligned16(rel) && aligned16(x) &&
       aligned16(q0) && aligned16(q1) &&
-      (kind == kMoments || (aligned16(q2) && aligned16(q3))) &&
+      (kind != kArgextPair || (aligned16(q2) && aligned16(q3))) &&
       (dx == nullptr || aligned16(dx)) &&
       (dr == nullptr || (aligned16(dr) && aligned16(partial)));
+  const bool mul = mode == kMulRel;
   if (kind == kMoments) return launch_width<kMoments, kMulRel>(vec, a, s);
-  if (mode == kMulRel) return launch_width<kArgextPair, kMulRel>(vec, a, s);
-  return launch_width<kArgextPair, kAddRel>(vec, a, s);
+  if (kind == kArgext) {
+    return mul ? launch_width<kArgext, kMulRel>(vec, a, s)
+               : launch_width<kArgext, kAddRel>(vec, a, s);
+  }
+  return mul ? launch_width<kArgextPair, kMulRel>(vec, a, s)
+             : launch_width<kArgextPair, kAddRel>(vec, a, s);
 }

@@ -1,9 +1,12 @@
 // Row-gather device code shared by the rspmm kernels (K1 in rspmm_fwd.cu,
-// the dx pass of K2 in rspmm_bwd.cu; the Lanes helpers and relation_sums
-// also serve the PNA kernels K6/K7 and K6b/K7b in rspmm_pna_*.cu):
+// the dx passes of K2 and K3 in rspmm_bwd.cu; the Lanes helpers and
+// relation_sums also serve K4, K6/K7 and K5, K6b/K7b in rspmm_pna_*.cu):
 //
 //     out[v, :] = sum over e in [rowptr[v], rowptr[v+1]) of
 //                 w[eid[e]] * msg(rel[etype[e], :], x[col[e], :])
+//
+// with msg = rel * x (kMulRel), rel + x (kAddRel) or x alone (kNone, the
+// transe backward's message: neither rel nor etype is read).
 //
 // over a CSR (int32 rowptr / col / etype / eid), fp32 rows of width F.
 //
@@ -26,6 +29,7 @@ namespace rspmm {
 
 constexpr int kMulRel = 0;
 constexpr int kAddRel = 1;
+constexpr int kNone = 2;  // the row alone (K3's dx and dr passes)
 constexpr int kMaxThreads = 256;
 
 __device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
@@ -42,7 +46,13 @@ __device__ __forceinline__ float4 zero<float4>() {
 
 template <int MODE>
 __device__ __forceinline__ float message(float r, float xv) {
-  return MODE == kMulRel ? r * xv : r + xv;
+  if constexpr (MODE == kMulRel) {
+    return r * xv;
+  } else if constexpr (MODE == kAddRel) {
+    return r + xv;
+  } else {
+    return xv;
+  }
 }
 
 // acc += msg(a, b) * w, lane by lane
@@ -84,9 +94,13 @@ row_gather(const int* __restrict__ rowptr, const int* __restrict__ col,
 #pragma unroll 4
   for (int e = begin; e < end; ++e) {
     const int64_t c = __ldg(col + e);
-    const int64_t r = __ldg(etype + e);
     const float w = __ldg(weight + __ldg(eid + e));
-    accumulate<MODE>(acc, ld(rel + r * n + j), ld(x + c * n + j), w);
+    if constexpr (MODE == kNone) {
+      accumulate<MODE>(acc, zero<T>(), ld(x + c * n + j), w);
+    } else {
+      const int64_t r = __ldg(etype + e);
+      accumulate<MODE>(acc, ld(rel + r * n + j), ld(x + c * n + j), w);
+    }
   }
   out[static_cast<int64_t>(v) * n + j] = acc;
 }

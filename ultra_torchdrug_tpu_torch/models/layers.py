@@ -8,10 +8,14 @@ One layer covers the three relation-parameterization modes:
   * "injected":   relation vectors supplied by the caller, optionally passed
                   through a per-layer 2-layer MLP (``relation_projection``)
 
-Messages: distmult and transe. Aggregations: sum (the architecture of every
-shipped ULTRA config) and pna (classic NBFNet's default), the latter also as
-``pna_nobound``; the boundary condition is folded into the aggregation as in
-the JAX package. PNA takes the fused pairs of ops/rspmm.py (max+min for both
+Messages: distmult and transe (rotate waits for its kernels K8f/K8b).
+Aggregations: sum (the architecture of every shipped ULTRA config), mean,
+max and pna (classic NBFNet's default), each also as ``*_nobound``; the
+boundary condition is folded into the aggregation as in the JAX package.
+Sum and mean take the sum rspmm (kernel K1, its backward K2 or K3), or the
+dense per-relation matmuls on a graph that carries a dense adjacency; max
+takes the sparse extremum (K4, its backward K5) on every graph, as the JAX
+package does. PNA takes the fused pairs of ops/rspmm.py (max+min for both
 messages, sum+sum of squares for distmult; transe's second moment sums
 rel² + x², which does not factor through the message, so it keeps two sum
 calls). Node states are carried flat, [V, B*D] with b-major features, as in
@@ -37,8 +41,16 @@ from ..ops.rspmm import (
 )
 
 _MESSAGES = {"distmult": "mul", "transe": "add"}
-_AGGREGATIONS = ("sum", "pna", "pna_nobound")
+_AGGREGATIONS = tuple(f"{base}{bound}" for base in ("sum", "mean", "max", "pna")
+                      for bound in ("", "_nobound"))
 EPS = 1e-6
+
+
+def sparse_only(aggregate_func: str) -> bool:
+    """Whether the aggregation takes the sparse ops on every graph (max and
+    pna, ± ``_nobound``): its graph needs a CSR even where it carries a
+    dense adjacency, which only sum and mean use."""
+    return aggregate_func.replace("_nobound", "") in ("max", "pna")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +60,7 @@ class ConvConfig:
     num_relations: int
     query_input_dim: int
     message_func: str = "distmult"  # distmult | transe
-    aggregate_func: str = "sum"  # sum | pna | pna_nobound
+    aggregate_func: str = "sum"  # sum | mean | max | pna, each + _nobound
     layer_norm: bool = False
     rel_mode: str = "injected"  # embedding | dependent | injected
     project: bool = True  # injected mode: per-layer MLP on relation vectors
@@ -62,10 +74,9 @@ class GeneralizedRelationalConv(nn.Module):
                 f"message_func={cfg.message_func!r}: rotate is not ported "
                 "yet (kernels K8f/K8b)")
         if cfg.aggregate_func not in _AGGREGATIONS:
-            raise NotImplementedError(
-                f"aggregate_func={cfg.aggregate_func!r}: the port has "
-                f"{', '.join(_AGGREGATIONS)}; mean, max and min are not "
-                "ported yet (max/min need kernels K4/K5)")
+            raise ValueError(
+                f"aggregate_func={cfg.aggregate_func!r}: one of "
+                f"{', '.join(_AGGREGATIONS)}")
         self.cfg = cfg
         # [x; update] -> output: the pna update is 4 statistics x 3 degree
         # scalers wide
@@ -131,7 +142,19 @@ def conv_apply(layer: GeneralizedRelationalConv, graph, x: torch.Tensor,
 
     msg = _MESSAGES[cfg.message_func]
     rel_flat = broadcast_rel_flat(rel, B)
-    if cfg.aggregate_func == "sum":
+    base = cfg.aggregate_func.replace("_nobound", "")
+    bounded = not cfg.aggregate_func.endswith("_nobound")
+    if base == "pna":
+        update = _pna_update(cfg, graph, rel_flat, x, boundary, msg)
+    elif base == "max":
+        # never the dense route: a max does not decompose into matmuls
+        update = generalized_rspmm(
+            graph.edge_index, graph.edge_type, graph.edge_weight, rel_flat, x,
+            msg=msg, agg="max", num_nodes=graph.num_nodes, csr=graph.csr)
+        if bounded:
+            # torch.maximum splits the gradient at ties, as jnp.maximum does
+            update = torch.maximum(update, boundary)
+    else:  # sum, mean
         if graph.dense_adj is not None:
             # small dense graph (the ULTRA relation graph): per-etype matmuls
             update = dense_rspmm(graph.dense_adj, rel_flat, x, msg=msg)
@@ -140,9 +163,10 @@ def conv_apply(layer: GeneralizedRelationalConv, graph, x: torch.Tensor,
                 graph.edge_index, graph.edge_type, graph.edge_weight,
                 rel_flat, x, msg=msg, agg="add", num_nodes=graph.num_nodes,
                 csr=graph.csr)
-        update = update + boundary
-    else:
-        update = _pna_update(cfg, graph, rel_flat, x, boundary, msg)
+        if bounded:
+            update = update + boundary
+        if base == "mean":
+            update = update / (graph.degree_out() + 1.0)[:, None]
 
     # cat([x, update]) @ W^T split into x @ W[:, :D]^T + update @ W[:, D:]^T:
     # the same math without materializing the [V, B, 2D] concat

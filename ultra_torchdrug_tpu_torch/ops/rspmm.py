@@ -4,22 +4,29 @@ ultra_torchdrug_tpu/ops/rspmm.py), the hot op of NBFNet propagation:
     out[t] = AGG_{e=(h,t,r)} edge_weight[e] * (relation[r] MSG x[h])
 
 ``generalized_rspmm`` covers MSG in {mul (distmult), add (transe)} with AGG
-add, in the flat form (x [V, F], relation [R, F]) and the [V, B, D] form
-(relation [R, D] shared across the batch, or [R, B, D]). On CUDA tensors it
-is an autograd node over the graph's layouts (``Graph.prepare_csr``): its
-forward launches kernel K1 (ops/rspmm_cuda.py) and, for distmult messages,
-its backward launches kernel K2 (ops/rspmm_bwd_cuda.py). The transe
-backward (kernel K3) and gradients to the edge weights are not ported yet
-and raise. On CPU tensors it runs the plain index_select + index_add_
-version, whose gradients come from autograd.
+in {add, max, min}, in the flat form (x [V, F], relation [R, F]) and the
+[V, B, D] form (relation [R, D] shared across the batch, or [R, B, D]).
+
+  * AGG add: on CUDA tensors an autograd node over the graph's layouts
+    (``Graph.prepare_csr``): its forward launches kernel K1
+    (ops/rspmm_cuda.py), its backward K2 for distmult and K3 for transe
+    messages (ops/rspmm_bwd_cuda.py). On CPU tensors it runs the plain
+    index_select + index_add_ version, whose gradients come from autograd.
+  * AGG max / min: one autograd node on both devices, kernel K4 forward and
+    K5 backward on CUDA tensors (ops/rspmm_pna_cuda.py), their plain
+    versions on CPU tensors. Rows without edges give 0; weight-0 edges send
+    the message 0, which takes part.
 
 PNA's fused pairs, ``generalized_rspmm_maxmin`` (the max and min of the same
 messages, mul or add) and ``generalized_rspmm_addsq`` (their sum and sum of
-squares, distmult), are autograd nodes on both devices: kernels K6/K7
-forward and K6b/K7b backward on CUDA tensors (ops/rspmm_pna_cuda.py), the
-plain versions of the same functions on CPU tensors, so both devices give
-the full max/min gradient to every tied edge. Both devices need the graph's
-``Csr``, with ``prepare_csr(backward=True)`` for gradients.
+squares, distmult), are autograd nodes on both devices in the same way:
+kernels K6/K7 forward and K6b/K7b backward on CUDA tensors, the plain
+versions on CPU tensors. The max/min nodes give the full gradient to every
+tied edge on both devices, and need the graph's ``Csr`` on both, with
+``prepare_csr(backward=True)`` for gradients. Gradients to the edge weights
+(classic NBFNet's edge-gradient path) are not ported yet: an edge weight
+that requires grad raises on CUDA tensors, and for the max/min and pair
+nodes on both devices.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ __all__ = ["generalized_rspmm", "generalized_rspmm_maxmin",
            "generalized_rspmm_addsq", "broadcast_rel_flat"]
 
 _MODES = {"mul": "mul_rel", "add": "add_rel"}
+_AGGS = ("add", "max", "min")
 
 
 def broadcast_rel_flat(relation: torch.Tensor, B: int) -> torch.Tensor:
@@ -45,37 +53,36 @@ def broadcast_rel_flat(relation: torch.Tensor, B: int) -> torch.Tensor:
 
 
 class _RspmmK1K2(torch.autograd.Function):
-    """K1 forward, K2 backward (mul_rel) over a graph's ``Csr``. Flat
-    operands: edge_weight [E], relation [R, F], x [V, F]."""
+    """K1 forward, K2 (mul_rel) or K3 (add_rel) backward over a graph's
+    ``Csr``. Flat operands: edge_weight [E], relation [R, F], x [V, F]."""
 
     @staticmethod
     def forward(ctx, csr, edge_weight, relation, x, mode):
         ctx.csr, ctx.mode = csr, mode
-        ctx.save_for_backward(edge_weight, relation, x)
+        # K3 reads no x: the transe backward keeps none alive
+        ctx.save_for_backward(edge_weight, relation,
+                              x if mode == "mul_rel" else None)
         return rspmm_fwd_cuda(csr.rowptr, csr.src, csr.etype, csr.eid,
                               edge_weight, relation, x, mode)
 
     @staticmethod
     def backward(ctx, grad_out):
-        if ctx.mode != "mul_rel":
-            raise NotImplementedError(
-                "the transe (add_rel) rspmm backward is kernel K3, not "
-                "ported yet")
         edge_weight, relation, x = ctx.saved_tensors
         need_dr, need_dx = ctx.needs_input_grad[2], ctx.needs_input_grad[3]
         dx, dr = rspmm_bwd_cuda(ctx.csr, edge_weight, relation, x,
                                 grad_out.contiguous(), need_dx=need_dx,
-                                need_dr=need_dr)
+                                need_dr=need_dr, mode=ctx.mode)
         return None, None, dr, dx, None
 
 
 def generalized_rspmm(edge_index, edge_type, edge_weight, relation, x, *,
                       msg: str = "mul", agg: str = "add", num_nodes: int,
                       csr=None) -> torch.Tensor:
-    """Relational SpMM with sum aggregation.
+    """Relational SpMM with sum, max or min aggregation.
 
     edge_index [E, 2], edge_type [E], edge_weight [E] in original edge order;
-    csr: the graph's ``Csr`` (data/graph.py), required on CUDA.
+    csr: the graph's ``Csr`` (data/graph.py), required on CUDA and, for max
+    and min, on both devices (``prepare_csr(backward=True)`` for gradients).
     Returns the layout of x with num_nodes rows. On CUDA, gradients flow to
     relation and x; an edge_weight that requires grad raises (the
     edge-gradient path of classic NBFNet is not ported yet).
@@ -84,13 +91,13 @@ def generalized_rspmm(edge_index, edge_type, edge_weight, relation, x, *,
         raise NotImplementedError(
             f"msg={msg!r}: the port has mul and add; rotate waits for its "
             "kernels K8f/K8b")
-    if agg != "add":
-        raise NotImplementedError(
-            f"agg={agg!r}: the port has sum aggregation here (and PNA's "
-            "fused pairs, generalized_rspmm_maxmin/_addsq); max/min alone "
-            "wait for kernels K4/K5")
-    xf, rel, unflat = _flat_operands(relation, x, num_nodes)
+    if agg not in _AGGS:
+        raise ValueError(f"agg must be one of {_AGGS}, got {agg!r}")
     mode = _MODES[msg]
+    if agg != "add":
+        (out,) = _gated(agg, edge_weight, relation, x, mode, num_nodes, csr)
+        return out
+    xf, rel, unflat = _flat_operands(relation, x, num_nodes)
     if x.device.type == "cpu":
         out = rspmm_plain_edges(edge_index[:, 0], edge_index[:, 1], edge_type,
                                 edge_weight, rel, xf, mode, num_nodes)
@@ -124,43 +131,45 @@ def _check_graph(csr, edge_weight, num_nodes):
             "path, ROADMAP item 12) are not ported yet")
 
 
-class _RspmmPnaPair(torch.autograd.Function):
-    """A fused PNA pair over one set of messages, on both devices: kind
-    ``maxmin`` (K6 forward, K6b backward, modes mul_rel/add_rel) or
-    ``addsq`` (K7 forward, K7b backward, mul_rel) over a graph's ``Csr``.
-    The wrappers launch the kernels on CUDA tensors and run their plain
-    versions on CPU tensors. Flat operands: edge_weight [E], relation
-    [R, F], x [V, F]."""
+class _RspmmGated(torch.autograd.Function):
+    """The aggregations of ops/rspmm_pna_cuda.py over one set of messages,
+    on both devices: kind ``max`` / ``min`` (K4 forward, K5 backward),
+    ``maxmin`` (K6, K6b), modes mul_rel/add_rel, or ``addsq`` (K7, K7b),
+    mul_rel, over a graph's ``Csr``. The wrappers launch the kernels on
+    CUDA tensors and run their plain versions on CPU tensors. The extrema
+    are saved for the backward's gates as the forward returns them, rows
+    without edges masked to 0. Flat operands: edge_weight [E], relation
+    [R, F], x [V, F]; returns the kind's outputs as a tuple."""
 
     @staticmethod
     def forward(ctx, kind, csr, edge_weight, relation, x, mode):
-        a, b = pna_fwd_cuda(kind, csr, edge_weight, relation, x, mode)
+        outs = pna_fwd_cuda(kind, csr, edge_weight, relation, x, mode)
         ctx.kind, ctx.csr, ctx.mode = kind, csr, mode
-        saved = (edge_weight, relation, x)
-        ctx.save_for_backward(*(saved + (a, b) if kind == "maxmin"
-                                else saved))
-        return a, b
+        extrema = outs if kind != "addsq" else ()
+        ctx.save_for_backward(edge_weight, relation, x, *extrema)
+        return outs
 
     @staticmethod
-    def backward(ctx, grad_a, grad_b):
-        edge_weight, relation, x, *out = ctx.saved_tensors
-        grad_a, grad_b = grad_a.contiguous(), grad_b.contiguous()
-        if ctx.kind == "maxmin":
-            kind, planes = "argext_pair", (grad_a, out[0], grad_b, out[1])
-        else:
-            kind, planes = "moments", (grad_a, grad_b)
+    def backward(ctx, *grads):
+        edge_weight, relation, x, *extrema = ctx.saved_tensors
+        grads = [g.contiguous() for g in grads]
+        if ctx.kind == "addsq":
+            kind, planes = "moments", tuple(grads)
+        else:  # each extremum's gradient beside it
+            kind = "argext_pair" if ctx.kind == "maxmin" else "argext"
+            planes = tuple(p for pair in zip(grads, extrema) for p in pair)
         need_dr, need_dx = ctx.needs_input_grad[3], ctx.needs_input_grad[4]
         dx, dr = pna_bwd_cuda(kind, ctx.csr, edge_weight, relation, x, planes,
                               ctx.mode, need_dx, need_dr)
         return None, None, None, dr, dx, None
 
 
-def _pna_pair(kind, edge_weight, relation, x, mode, num_nodes, csr):
+def _gated(kind, edge_weight, relation, x, mode, num_nodes, csr):
     xf, rel, unflat = _flat_operands(relation, x, num_nodes)
     _check_graph(csr, edge_weight, num_nodes)
-    a, b = _RspmmPnaPair.apply(kind, csr, edge_weight.contiguous(),
-                               rel.contiguous(), xf.contiguous(), mode)
-    return unflat(a), unflat(b)
+    outs = _RspmmGated.apply(kind, csr, edge_weight.contiguous(),
+                             rel.contiguous(), xf.contiguous(), mode)
+    return tuple(unflat(o) for o in outs)
 
 
 def generalized_rspmm_maxmin(edge_index, edge_type, edge_weight, relation,
@@ -177,8 +186,8 @@ def generalized_rspmm_maxmin(edge_index, edge_type, edge_weight, relation,
         raise NotImplementedError(
             f"msg={msg!r}: the fused max/min pair has mul and add (rotate "
             "keeps the materialized path of the JAX package, not ported)")
-    return _pna_pair("maxmin", edge_weight, relation, x, _MODES[msg],
-                     num_nodes, csr)
+    return _gated("maxmin", edge_weight, relation, x, _MODES[msg], num_nodes,
+                  csr)
 
 
 def generalized_rspmm_addsq(edge_index, edge_type, edge_weight, relation, x,
@@ -186,5 +195,4 @@ def generalized_rspmm_addsq(edge_index, edge_type, edge_weight, relation, x,
     """PNA's moments of the same distmult messages: (Σ w·(rel ⊙ x),
     Σ w·(rel ⊙ x)²) in one fused pass (K7 on CUDA, K7b for the backward).
     Shapes and ``csr`` as for generalized_rspmm_maxmin. Returns (s, sq)."""
-    return _pna_pair("addsq", edge_weight, relation, x, "mul_rel", num_nodes,
-                     csr)
+    return _gated("addsq", edge_weight, relation, x, "mul_rel", num_nodes, csr)

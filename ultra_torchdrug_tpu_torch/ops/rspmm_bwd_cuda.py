@@ -1,20 +1,27 @@
-"""Kernel K2: the relational SpMM backward for distmult messages with sum
-aggregation, by hand for Hopper (csrc/rspmm_bwd.cu), and its plain PyTorch
-version.
+"""Kernels K2 and K3: the relational SpMM backward with sum aggregation, for
+distmult (K2) and transe (K3) messages, by hand for Hopper
+(csrc/rspmm_bwd.cu), and their plain PyTorch version.
 
-Replaces ultra_torchdrug_tpu/ops/rspmm_pallas.py::rspmm_bwd_fused in mode
+K2 replaces ultra_torchdrug_tpu/ops/rspmm_pallas.py::rspmm_bwd_fused in mode
 ``mul`` (via rspmm_bwd_pallas), the backward of K1's ``mul_rel``:
 
     dx[s] = Σ_{e=(s→v, r)} w[eid_e] · rel[r] ⊙ g[v]
     dr[r] = Σ_{e with type r} w[eid_e] · x[s_e] ⊙ g[v_e]
+
+K3 replaces rspmm_gather1 in mode ``none`` as rspmm_bwd_pallas's transe
+branch calls it, the backward of K1's ``add_rel``; it reads neither x nor
+the relation:
+
+    dx[s] = Σ_{e=(s→v, r)} g[v] · w[eid_e]
+    dr[r] = Σ_{e with type r} g[v_e] · w[eid_e]
 
 over the graph's source-sorted CSR (dx) and relation-sorted chunks (dr),
 both from data/graph.py::Graph.prepare_csr. Operands are flat: x, g [V, F],
 relation [R, F], edge_weight [E] in original edge order, all float32.
 
 ``rspmm_bwd_cuda`` launches the kernel for CUDA tensors and counts each
-call in ``launches`` (one call is up to three device launches, see the
-source); for CPU tensors it runs ``rspmm_bwd_plain``. The result is
+call in ``launches[<kernel id>]`` (one call is up to three device launches,
+see the source); for CPU tensors it runs ``rspmm_bwd_plain``. The result is
 deterministic: no float atomics, sums in a fixed order.
 """
 
@@ -26,10 +33,12 @@ import functools
 import torch
 
 from .cuda_build import load_library
-from .rspmm_cuda import _check, csr_rows, rspmm_plain_edges
+from .rspmm_cuda import MODES, _check, csr_rows, rspmm_plain_edges
 
-# calls that launched K2 since import (or since the caller last reset it)
-launches = 0
+# calls that launched each kernel since import (or since the caller last
+# reset them)
+launches = {"K2": 0, "K3": 0}
+_KERNEL_ID = {"mul_rel": "K2", "add_rel": "K3"}
 
 
 def _require_backward_layouts(csr):
@@ -48,26 +57,30 @@ _PER_EDGE = ("src_dst", "src_etype", "src_eid", "rel_src", "rel_dst",
 def check_bwd_operands(kernel: str, csr, layout, edge_weight, relation, x,
                        planes: dict) -> tuple:
     """Device, type and shape checks of a two-pass backward kernel's
-    operands (K2, K6b, K7b): the CSR's ``layout`` fields, and ``planes``
-    (name -> tensor) shaped like x. Returns (num_rows, num_relations,
-    num_chunks, num_features)."""
-    device = x.device
+    operands (K2, K3, K5, K6b, K7b): the CSR's ``layout`` fields, and
+    ``planes`` (name -> tensor) shaped like x. ``x`` may be None (K3 reads
+    no x; the first plane then gives the shape). Returns (num_rows,
+    num_relations, num_chunks, num_features)."""
+    like = x if x is not None else next(iter(planes.values()))
+    device = like.device
     if device.type != "cuda":
         raise ValueError(f"{kernel} runs on CUDA tensors, got {device}")
     _require_backward_layouts(csr)
     for name in layout:
         _check(name, getattr(csr, name), torch.int32, device, 1)
     _check("edge_weight", edge_weight, torch.float32, device, 1)
-    for name, t in (("relation", relation), ("x", x), *planes.items()):
+    dense = [("relation", relation), *planes.items()]
+    for name, t in dense + ([("x", x)] if x is not None else []):
         _check(name, t, torch.float32, device, 2)
     for name, t in planes.items():
-        if t.shape != x.shape:
-            raise ValueError(f"{name} {tuple(t.shape)} != x {tuple(x.shape)}")
+        if t.shape != like.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} != "
+                             f"{tuple(like.shape)}")
     num_edges = edge_weight.numel()
     if any(getattr(csr, n).numel() != num_edges for n in _PER_EDGE):
         raise ValueError("the layouts and edge_weight must have one entry "
                          "per edge")
-    num_rows, num_features = x.shape
+    num_rows, num_features = like.shape
     num_relations = csr.rel_chunk_ptr.numel() - 1
     if csr.src_rowptr.numel() - 1 != num_rows:
         raise ValueError(f"source CSR has {csr.src_rowptr.numel() - 1} rows, "
@@ -80,8 +93,9 @@ def check_bwd_operands(kernel: str, csr, layout, edge_weight, relation, x,
 
 def bwd_outputs(x, num_relations: int, num_chunks: int, need_dx: bool,
                 need_dr: bool) -> tuple:
-    """A backward kernel's outputs: (dx [V, F], dr [R, F], the dr pass's
-    per-chunk partial rows [chunks, F]), None for a half not needed."""
+    """A backward kernel's outputs: (dx [V, F] shaped like ``x``, dr [R, F],
+    the dr pass's per-chunk partial rows [chunks, F]), None for a half not
+    needed."""
     def empty(rows):
         return torch.empty((rows, x.shape[1]), dtype=torch.float32,
                            device=x.device)
@@ -96,20 +110,37 @@ def ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _check_mode(mode: str):
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {tuple(MODES)}, got {mode!r}")
+
+
 def rspmm_bwd_plain(csr, edge_weight, relation, x, grad, need_dx=True,
-                    need_dr=True):
-    """The same function as the kernel, in plain PyTorch (index_select and
-    index_add_), over the source-sorted CSR only: dx by source row, dr by
-    edge type. The relation chunks are the kernel's own and not used here.
+                    need_dr=True, mode="mul_rel"):
+    """The same function as the kernels (K2 for ``mul_rel``, K3 for
+    ``add_rel``, which reads no x: pass None), in plain PyTorch (index_select
+    and index_add_), over the source-sorted CSR only: dx by source row, dr by
+    edge type. The relation chunks are the kernels' own and not used here.
     Returns (dx, dr), None for a half that is not needed."""
+    _check_mode(mode)
     _require_backward_layouts(csr)
     src = csr_rows(csr.src_rowptr)
     dst, etype = csr.src_dst.long(), csr.src_etype.long()
     w = edge_weight.index_select(0, csr.src_eid.long())
+    num_rows = csr.src_rowptr.numel() - 1
     dx = dr = None
+    if mode == "add_rel":
+        # g[v]·w per edge, the message of both halves
+        msg = grad.index_select(0, dst).mul_(w[:, None])
+        if need_dx:
+            dx = grad.new_zeros((num_rows, grad.shape[1])).index_add_(
+                0, src, msg)
+        if need_dr:
+            dr = torch.zeros_like(relation).index_add_(0, etype, msg)
+        return dx, dr
     if need_dx:
         dx = rspmm_plain_edges(dst, src, etype, w, relation, grad, "mul_rel",
-                               csr.src_rowptr.numel() - 1)
+                               num_rows)
     if need_dr:
         msg = x.index_select(0, src)
         msg.mul_(grad.index_select(0, dst))
@@ -119,35 +150,41 @@ def rspmm_bwd_plain(csr, edge_weight, relation, x, grad, need_dx=True,
 
 
 def rspmm_bwd_cuda(csr, edge_weight, relation, x, grad, need_dx=True,
-                   need_dr=True):
-    """K2 on CUDA tensors; the plain version on CPU tensors. Returns (dx, dr),
+                   need_dr=True, mode="mul_rel"):
+    """K2 (``mul_rel``) or K3 (``add_rel``; x is not read and may be None)
+    on CUDA tensors; the plain version on CPU tensors. Returns (dx, dr),
     None for a half that is not needed."""
-    if x.device.type == "cpu":
+    _check_mode(mode)
+    if grad.device.type == "cpu":
         return rspmm_bwd_plain(csr, edge_weight, relation, x, grad, need_dx,
-                               need_dr)
-    device = x.device
+                               need_dr, mode)
+    kid = _KERNEL_ID[mode]
+    if mode == "add_rel":
+        x = None
+    device = grad.device
     num_rows, num_relations, num_chunks, num_features = check_bwd_operands(
-        "K2", csr, _LAYOUT, edge_weight, relation, x, {"grad": grad})
-    dx, dr, partial = bwd_outputs(x, num_relations, num_chunks, need_dx,
+        kid, csr, _LAYOUT, edge_weight, relation, x, {"grad": grad})
+    dx, dr, partial = bwd_outputs(grad, num_relations, num_chunks, need_dx,
                                   need_dr)
+    rel = relation if mode == "mul_rel" else None  # K3 reads no relation
     fn = _kernel()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*(getattr(csr, n).data_ptr() for n in _LAYOUT),
-                 edge_weight.data_ptr(), relation.data_ptr(), x.data_ptr(),
-                 grad.data_ptr(), ptr(dx), ptr(dr), ptr(partial), num_rows,
-                 num_relations, num_chunks, num_features, stream)
+        err = fn(MODES[mode], *(getattr(csr, n).data_ptr() for n in _LAYOUT),
+                 edge_weight.data_ptr(), ptr(rel), ptr(x), grad.data_ptr(),
+                 ptr(dx), ptr(dr), ptr(partial), num_rows, num_relations,
+                 num_chunks, num_features, stream)
     if err != 0:
-        raise RuntimeError(f"rspmm_bwd_k2 launch failed with CUDA error {err}")
-    global launches
-    launches += 1
+        raise RuntimeError(f"{kid} (rspmm_bwd) launch failed with CUDA error "
+                           f"{err}")
+    launches[kid] += 1
     return dx, dr
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    fn = load_library("rspmm_bwd").rspmm_bwd_k2
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
+    fn = load_library("rspmm_bwd").rspmm_bwd
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 16
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn

@@ -1,6 +1,7 @@
-"""Kernels K6 and K7 (the fused PNA aggregations) and K6b/K7b (their
-backward), by hand for Hopper (csrc/rspmm_pna_fwd.cu, csrc/rspmm_pna_bwd.cu),
-and their plain PyTorch versions.
+"""The row-gather aggregations beyond the sum: kernels K4 (one extremum),
+K6 and K7 (the fused PNA pairs), and their backward K5 and K6b/K7b, by hand
+for Hopper (csrc/rspmm_pna_fwd.cu, csrc/rspmm_pna_bwd.cu), and their plain
+PyTorch versions.
 
 K6 replaces ultra_torchdrug_tpu/ops/rspmm_pallas.py::rspmm_gather_maxmin
 (via rspmm_fwd_pallas_maxmin), modes ``mul_rel`` / ``add_rel``:
@@ -9,22 +10,29 @@ K6 replaces ultra_torchdrug_tpu/ops/rspmm_pallas.py::rspmm_gather_maxmin
     mx[v] = max_{e=(s→v, r)} m_e,  mn[v] = min_{e=(s→v, r)} m_e,  0 where
     v has no edge
 
+K4 replaces rspmm_gather1 with agg max / min (via rspmm_fwd_pallas): kind
+``max`` or ``min``, one of the two alone, rows without edges 0.
+
 K7 replaces rspmm_gather_addsq (via rspmm_fwd_pallas_addsq), distmult only:
 
     m_e = rel[r] ⊙ x[s],  s[v] = Σ m_e · w,  sq[v] = Σ m_e · (m_e · w)
 
 K6b and K7b replace rspmm_bwd_minmax_blk in kinds ``argext_pair`` (via
-rspmm_bwd_pallas_maxmin) and ``moments`` (via rspmm_bwd_pallas_addsq). Each
-edge gets a coefficient c per lane,
+rspmm_bwd_pallas_maxmin) and ``moments`` (via rspmm_bwd_pallas_addsq); K5
+replaces rspmm_bwd_minmax and rspmm_bwd_minmax_blk kind ``argext`` (K5b;
+rspmm_bwd_pallas_minmax picks one of the two by the TPU layout), kind
+``argext`` here. Each edge gets a coefficient c per lane,
 
     argext_pair:  c = [m_e == mx[v]] · g_mx[v] · w + [m_e == mn[v]] · g_mn[v] · w
+    argext:       c = [m_e == out[v]] · g[v] · w
     moments:      c = g_s[v] · w + (2 m_e) · (g_sq[v] · w)
 
 and dx[s] += rel[r] ⊙ c, dr[r] += x[s] ⊙ c (both += c for add_rel). The
-argext gate recomputes K6's message bit for bit, so every tied edge gets the
-full gradient, the TPU kernel's convention (ultra_torchdrug_tpu/ops/
-rspmm.py:195-198); XLA's segment_max gradient gives it to one edge and
-``scatter_reduce``'s backward splits it, so neither is used here.
+argext gates recompute the forward's message bit for bit, so every tied
+edge gets the full gradient, the TPU kernels' convention
+(ultra_torchdrug_tpu/ops/rspmm.py:195-198); XLA's segment_max gradient
+gives it to one edge and ``scatter_reduce``'s backward splits it, so
+neither is used here.
 
 Operands are flat: x and the planes [V, F], relation [R, F], edge_weight [E]
 in original edge order, all float32, over the graph's ``Csr``
@@ -32,7 +40,7 @@ in original edge order, all float32, over the graph's ``Csr``
 one to ``launches[<kernel id>]`` (a backward call is up to three device
 launches, see the source); for CPU tensors it runs the plain version. The
 sources say what bounds each kernel on the card and what its design does
-about it. Both backward kernels are deterministic: no float atomics.
+about it. The backward kernels are deterministic: no float atomics.
 """
 
 from __future__ import annotations
@@ -52,13 +60,16 @@ from .rspmm_bwd_cuda import (
 from .rspmm_cuda import MODES, check_fwd_operands, csr_rows
 
 # launches of each kernel since import (or since the caller last reset them)
-launches = {"K6": 0, "K7": 0, "K6b": 0, "K7b": 0}
+launches = {"K4": 0, "K5": 0, "K6": 0, "K7": 0, "K6b": 0, "K7b": 0}
 
-KINDS = {"maxmin": 0, "addsq": 1}  # forward kinds: K6, K7
-BWD_KINDS = {"argext_pair": 0, "moments": 1}  # backward kinds: K6b, K7b
-_FWD_ID = {"maxmin": "K6", "addsq": "K7"}
-_BWD_ID = {"argext_pair": "K6b", "moments": "K7b"}
-_PLANES = {"argext_pair": 4, "moments": 2}
+# forward kinds: K6, K7, K4 (max), K4 (min)
+KINDS = {"maxmin": 0, "addsq": 1, "max": 2, "min": 3}
+# backward kinds: K6b, K7b, K5
+BWD_KINDS = {"argext_pair": 0, "moments": 1, "argext": 2}
+_FWD_ID = {"maxmin": "K6", "addsq": "K7", "max": "K4", "min": "K4"}
+_BWD_ID = {"argext_pair": "K6b", "moments": "K7b", "argext": "K5"}
+_PLANES = {"argext_pair": 4, "moments": 2, "argext": 2}
+_REDUCE = {"max": "amax", "min": "amin"}  # K4's kinds, one output each
 
 
 def _message(rel_e, x_e, w, mode):
@@ -73,23 +84,25 @@ def _message(rel_e, x_e, w, mode):
 
 
 def pna_fwd_plain(kind: str, csr, edge_weight, relation, x, mode: str):
-    """The same function as K6 (``maxmin``) and K7 (``addsq``), in plain
-    PyTorch on the same CSR: index_select the operands per edge, then
-    scatter_reduce (amax/amin, rows without edges 0) or index_add_ into the
-    destination rows. Returns the output pair."""
+    """The same function as K6 (``maxmin``), K7 (``addsq``) and K4 (``max``,
+    ``min``), in plain PyTorch on the same CSR: index_select the operands
+    per edge, then scatter_reduce (amax/amin, rows without edges 0) or
+    index_add_ into the destination rows. Returns a tuple of the outputs
+    (two for the pairs, one for K4)."""
     src, dst = csr.src.long(), csr_rows(csr.rowptr)
     weight = edge_weight.index_select(0, csr.eid.long())
     rel_e = relation.index_select(0, csr.etype.long())
     x_e = x.index_select(0, src)
     shape = (csr.rowptr.numel() - 1, x.shape[1])
-    if kind == "maxmin":
+    if kind != "addsq":
         msg = _message(rel_e, x_e, weight, mode)
         del rel_e, x_e
         index = dst[:, None].expand_as(msg)
+        reduces = ("amax", "amin") if kind == "maxmin" else (_REDUCE[kind],)
         return tuple(torch.zeros(shape, dtype=msg.dtype, device=x.device)
                      .scatter_reduce_(0, index, msg, reduce,
                                       include_self=False)
-                     for reduce in ("amax", "amin"))
+                     for reduce in reduces)
     m = rel_e * x_e
     del rel_e, x_e
     mw = m * weight[:, None]
@@ -104,10 +117,11 @@ def pna_fwd_plain(kind: str, csr, edge_weight, relation, x, mode: str):
 def pna_bwd_plain(kind: str, csr, edge_weight, relation, x, planes,
                   mode: str, need_dx=True, need_dr=True):
     """The same function as K6b (``argext_pair``, planes (g_mx, mx, g_mn,
-    mn)) and K7b (``moments``, planes (g_s, g_sq)), in plain PyTorch over the
-    source-sorted CSR (the relation chunks are the kernel's own): an explicit
-    per-edge gate or factor, then index_add_ by source row (dx) and by edge
-    type (dr). Returns (dx, dr), None for a half not needed."""
+    mn)), K5 (``argext``, planes (g, out)) and K7b (``moments``, planes
+    (g_s, g_sq)), in plain PyTorch over the source-sorted CSR (the relation
+    chunks are the kernels' own): an explicit per-edge gate or factor, then
+    index_add_ by source row (dx) and by edge type (dr). Returns (dx, dr),
+    None for a half not needed."""
     _require_backward_layouts(csr)
     src, dst = csr_rows(csr.src_rowptr), csr.src_dst.long()
     etype = csr.src_etype.long()
@@ -115,10 +129,10 @@ def pna_bwd_plain(kind: str, csr, edge_weight, relation, x, planes,
     rel_e = relation.index_select(0, etype)
     x_e = x.index_select(0, src)
     w = weight[:, None]
-    if kind == "argext_pair":
+    if kind != "moments":
         m = _message(rel_e, x_e, weight, mode)
         c = torch.zeros_like(m)
-        for g, out in (planes[:2], planes[2:]):
+        for g, out in zip(planes[::2], planes[1::2]):
             c += torch.where(m == out.index_select(0, dst),
                              g.index_select(0, dst) * w, 0.0)
         del m
@@ -151,8 +165,9 @@ def _check_kind(kind: str, mode: str, kinds, planes=None):
 
 
 def pna_fwd_cuda(kind: str, csr, edge_weight, relation, x, mode: str):
-    """K6 (``maxmin``: returns (mx, mn)) or K7 (``addsq``: returns (s, sq))
-    on CUDA tensors; the plain version on CPU tensors."""
+    """K6 (``maxmin``: returns (mx, mn)), K7 (``addsq``: returns (s, sq)) or
+    K4 (``max``, ``min``: returns (out,)) on CUDA tensors; the plain version
+    on CPU tensors."""
     _check_kind(kind, mode, KINDS)
     if x.device.type == "cpu":
         return pna_fwd_plain(kind, csr, edge_weight, relation, x, mode)
@@ -160,21 +175,22 @@ def pna_fwd_cuda(kind: str, csr, edge_weight, relation, x, mode: str):
     num_rows, num_features = check_fwd_operands(
         _FWD_ID[kind], csr.rowptr, csr.src, csr.etype, csr.eid, edge_weight,
         relation, x)
+    outputs = 1 if kind in _REDUCE else 2
     out = [torch.empty((num_rows, num_features), dtype=torch.float32,
-                       device=device) for _ in range(2)]
+                       device=device) for _ in range(outputs)]
     fn = _fwd_kernel()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(KINDS[kind], MODES[mode], csr.rowptr.data_ptr(),
                  csr.src.data_ptr(), csr.etype.data_ptr(), csr.eid.data_ptr(),
                  edge_weight.data_ptr(), relation.data_ptr(), x.data_ptr(),
-                 out[0].data_ptr(), out[1].data_ptr(), num_rows, num_features,
-                 stream)
+                 out[0].data_ptr(), ptr(out[1] if outputs == 2 else None),
+                 num_rows, num_features, stream)
     if err != 0:
         raise RuntimeError(f"{_FWD_ID[kind]} (rspmm_pna_fwd) launch failed "
                            f"with CUDA error {err}")
     launches[_FWD_ID[kind]] += 1
-    return out[0], out[1]
+    return tuple(out)
 
 
 # the backward's layouts, in the kernel's argument order
@@ -184,9 +200,10 @@ _BWD_LAYOUT = ("src_rowptr", "src_dst", "src_etype", "src_eid", "chunk_ptr",
 
 def pna_bwd_cuda(kind: str, csr, edge_weight, relation, x, planes,
                  mode: str, need_dx=True, need_dr=True):
-    """K6b (``argext_pair``, planes (g_mx, mx, g_mn, mn)) or K7b
-    (``moments``, planes (g_s, g_sq)) on CUDA tensors; the plain version on
-    CPU tensors. Returns (dx, dr), None for a half that is not needed."""
+    """K6b (``argext_pair``, planes (g_mx, mx, g_mn, mn)), K5 (``argext``,
+    planes (g, out)) or K7b (``moments``, planes (g_s, g_sq)) on CUDA
+    tensors; the plain version on CPU tensors. Returns (dx, dr), None for a
+    half that is not needed."""
     _check_kind(kind, mode, BWD_KINDS, planes)
     if x.device.type == "cpu":
         return pna_bwd_plain(kind, csr, edge_weight, relation, x, planes,

@@ -27,6 +27,7 @@ from ..data.datasets import TransductiveDataset
 from ..data.graph import Graph
 from ..data.relgraph import build_relation_graph
 from ..models.classic_nbfnet import classic_nbfnet_init, classic_score_all
+from ..models.layers import sparse_only
 from ..models.nbfnet import NBFNetConfig
 from ..models.ultra import (
     UltraConfig,
@@ -112,11 +113,14 @@ class _TaskBase:
                         backward: bool = False):
         """The undirected propagation graph with its CSR (the rspmm kernels'
         layouts, the backward's too when ``backward``), and the relation
-        graph with its dense adjacency when it is small and dense enough
-        (else its CSR), on the task's device."""
+        graph with its dense adjacency when it is small and dense enough,
+        and its CSR when it has none or when the relation tower's
+        aggregation reaches the sparse ops on every graph (max, pna), on the
+        task's device."""
         und = fact_graph.undirected_with_inverse().prepare_csr(backward)
         rel_graph = rel_graph.prepare_dense()
-        if rel_graph.dense_adj is None:
+        if (rel_graph.dense_adj is None
+                or sparse_only(self.model_cfg.relation.aggregate_func)):
             rel_graph = rel_graph.prepare_csr(backward)
         return und.to(self.device), rel_graph.to(self.device)
 
