@@ -3,7 +3,7 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py                # on a machine with the card
-    python3 chip_smoke.py --device cpu   # rehearsal of phases 2-15, reduced size
+    python3 chip_smoke.py --device cpu   # rehearsal of phases 2-20, reduced size
 
 Phases, each of which raises on failure (the script then exits nonzero):
 
@@ -25,7 +25,12 @@ Phases, each of which raises on failure (the script then exits nonzero):
               backward, csrc/rspmm_bwd.cu), both bitwise across two calls,
               against their plain versions at ragged shapes and at F=2048
               (K4 also F=512), time each, and time K3's function as two
-              torch.sparse.mm calls;
+              torch.sparse.mm calls; hold K8f and K8b (the rotate forward
+              and backward, csrc/rspmm_rotate.cu; K8b bitwise across two
+              calls) against their plain versions at ragged shapes (D/2 = 3,
+              5 and 6 take the scalar path, 4 and 16 the float4 path) and
+              at F=512 and F=2048 with D=32, shared and per-batch
+              relations, and time each;
   2. slice    zero-shot evaluation of ULTRA (6x64 towers, seeded weights) on a
               synthetic KG of FB15k-237's size: 64 test triples in batches of
               16, through TransductiveKGTask.evaluate; K1 must launch 12 times
@@ -60,11 +65,20 @@ Phases, each of which raises on failure (the script then exits nonzero):
               and K6 12 times per eval batch; K1 12, K6 6, K3 12 and K6b 6
               times per step, and no other kernel (K7 and K7b never: transe's
               moments are two sums).
+ 16-18. classic rotate  the same for message_func="rotate" with
+              aggregate_func="sum": K8f 12 times per eval batch, K8f and K8b
+              6 times each per step, and no other kernel;
+ 19-20. classic rotate-pna  phases 6 and 7 for message_func="rotate" (pna):
+              K8f 12 times per eval batch (PNA's first moment) and no other
+              kernel (max, min and the second moment take the O(E) route in
+              plain PyTorch, as in the JAX package); no training phase: at
+              F=2048 the O(E) route would keep about 220 GB for autograd.
 
 The last lines are a JSON object with one entry per kernel (K1, K2, K6,
-K7, K6b, K7b, K3, K4, K5; launches summed over the measured runs of phases
-2-15, by path in ``launches_by_path``), then {"ok": true, "device": {...}}. With no card the script prints no result and
-exits nonzero; it imports nothing of JAX.
+K7, K6b, K7b, K3, K4, K5, K8f, K8b; launches summed over the measured runs
+of phases 2-20, by path in ``launches_by_path``), then {"ok": true,
+"device": {...}}. With no card the script prints no result and exits
+nonzero; it imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -108,7 +122,8 @@ CLASSIC_FEAT = 32
 CLASSIC_TRAIN = dict(batch=64, negatives=32, steps=5)
 CLASSIC_TRAIN_REHEARSAL = dict(batch=8, negatives=8, steps=2)
 # every kernel of the port, in the order of the kernels line
-KERNEL_IDS = ("K1", "K2", "K6", "K7", "K6b", "K7b", "K3", "K4", "K5")
+KERNEL_IDS = ("K1", "K2", "K6", "K7", "K6b", "K7b", "K3", "K4", "K5", "K8f",
+              "K8b")
 # card vs CPU for classic NBFNet: about 10x the largest reading of five H100
 # runs (scores 4.5e-7, gradients 5.8e-6 norm-wise); the CPU's plain K7 sums in
 # another order, and std = sqrt(clip(sq_mean - mean², 1e-6)) amplifies that
@@ -166,8 +181,8 @@ def launch_counts() -> dict:
         rspmm_pna_cuda,
     )
 
-    counts = {"K1": rspmm_cuda.launches, **rspmm_bwd_cuda.launches,
-              **rspmm_pna_cuda.launches}
+    counts = {"K1": rspmm_cuda.launches, "K8f": rspmm_cuda.rotate_launches,
+              **rspmm_bwd_cuda.launches, **rspmm_pna_cuda.launches}
     return {k: counts[k] for k in KERNEL_IDS}
 
 
@@ -178,7 +193,7 @@ def reset_launch_counts():
         rspmm_pna_cuda,
     )
 
-    rspmm_cuda.launches = 0
+    rspmm_cuda.launches = rspmm_cuda.rotate_launches = 0
     for counts in (rspmm_bwd_cuda.launches, rspmm_pna_cuda.launches):
         for key in counts:
             counts[key] = 0
@@ -444,11 +459,14 @@ def pna_operands(graph, feat: int, seed: int, device):
 # weighting, then dx and dr 2 each; K5: message 2, one gate, one weighting,
 # dx and dr 2 each; K7b with w factored out and 2·g_sq formed once per
 # node, c = w·(g_s + m·(2·g_sq)): message, product, sum, weighting, dx and
-# dr 2 each; K3: the weighting g·w, shared by the dx and dr sums
+# dr 2 each; K3: the weighting g·w, shared by the dx and dr sums; K8f: the
+# complex product (3 per real lane), the weight, the sum; K8b: the same for
+# dx and for dr
 GATHER_WORK = {"K4": (1, 1, 1, 0, 3), "K6": (1, 1, 2, 0, 4),
                "K7": (1, 1, 2, 0, 5), "K6b": (5, 1, 1, 1, 10),
                "K5": (3, 1, 1, 1, 8), "K7b": (3, 1, 1, 1, 8),
-               "K3": (1, 0, 1, 1, 3)}
+               "K3": (1, 0, 1, 1, 3), "K8f": (1, 1, 1, 0, 5),
+               "K8b": (2, 1, 1, 1, 10)}
 
 
 def gather_bound_ms(name: str, w, rel, x) -> tuple:
@@ -473,9 +491,11 @@ def assert_bwd_close(got, want):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
 
 
-def check_bwd_kernel(kid: str, run, plain, label: str) -> tuple:
+def check_bwd_kernel(kid: str, run, plain, label: str,
+                     dx_close=assert_bwd_close) -> tuple:
     """``run`` (a backward kernel's call) twice, bitwise equal, and within
-    assert_bwd_close of ``plain``; returns (dx, dr, max_abs_err)."""
+    assert_bwd_close of ``plain`` (dx within ``dx_close``); returns (dx, dr,
+    max_abs_err)."""
     dx, dr = run()
     torch.cuda.synchronize()
     dx2, dr2 = run()
@@ -483,7 +503,7 @@ def check_bwd_kernel(kid: str, run, plain, label: str) -> tuple:
     if not (torch.equal(dx, dx2) and torch.equal(dr, dr2)):
         raise AssertionError(f"{kid} {label}: two calls differ")
     want_dx, want_dr = plain()
-    assert_bwd_close(dx, want_dx)
+    dx_close(dx, want_dx)
     assert_bwd_close(dr, want_dr)
     err = max((dx - want_dx).abs().max().item(),
               (dr - want_dr).abs().max().item())
@@ -807,6 +827,143 @@ def phase_kernels_ext(und, device) -> dict:
     return entries
 
 
+def rotate_operands(graph, batch: int, dim: int, shared: bool, seed: int,
+                    device):
+    """K8f's and K8b's operands on ``graph`` (with its backward layouts):
+    x and g [V, batch·dim] ~ N(0, 1), rel [R, batch·dim] per batch or a
+    shared [R, dim] broadcast to every query (broadcast_rel_flat), and edge
+    weights in [0.5, 1.5] with a fifth masked to 0. Returns (csr, w, rel, x,
+    g)."""
+    from ultra_torchdrug_tpu_torch.ops.rspmm import broadcast_rel_flat
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    V, R, E = graph.num_nodes, graph.num_relations, graph.num_edges
+    F = batch * dim
+    x = torch.randn((V, F), generator=gen, device=device)
+    rel = torch.randn((R, dim) if shared else (R, F), generator=gen,
+                      device=device)
+    rel = broadcast_rel_flat(rel, batch).contiguous() if shared else rel
+    w = torch.rand((E,), generator=gen, device=device) + 0.5
+    w = w * (torch.rand((E,), generator=gen, device=device) >= 0.2)
+    g = torch.randn((V, F), generator=gen, device=device)
+    return graph.csr.to(device), w, rel, x, g
+
+
+def assert_fwd_close(got, want):
+    """K1's tolerance, the absolute one 1e-5 of the result's largest entry:
+    nvcc contracts the complex product's a·b − c·d into an FMA, which the
+    plain version rounds twice."""
+    atol = 1e-5 * max(1.0, want.abs().max().item())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+
+
+def phase_kernels_rotate(und, device) -> dict:
+    """K8f (the rotate forward) and K8b (its backward) against their plain
+    versions; returns their kernels-line entries by id (without the main
+    path's launch counts)."""
+    from ultra_torchdrug_tpu_torch.data.graph import Graph
+    from ultra_torchdrug_tpu_torch.ops import rspmm_bwd_cuda as bwd
+    from ultra_torchdrug_tpu_torch.ops import rspmm_cuda as fwd
+
+    def k8f(ops, dim):
+        csr, w, rel, x, _ = ops
+        return (lambda: fwd.rotate_fwd_cuda(csr.rowptr, csr.src, csr.etype,
+                                            csr.eid, w, rel, x, dim),
+                lambda: fwd.rspmm_fwd_plain(csr.rowptr, csr.src, csr.etype,
+                                            csr.eid, w, rel, x, "rot_rel",
+                                            dim))
+
+    def k8b(ops, dim):
+        return (lambda: bwd.rotate_bwd_cuda(*ops, dim),
+                lambda: bwd.rotate_bwd_plain(*ops, dim))
+
+    def check_fwd(ops, dim, label):
+        kernel, plain = k8f(ops, dim)
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        assert_fwd_close(got, want)
+        err = (got - want).abs().max().item()
+        log(f"[kernels] K8f {label}: max_abs_err {err:.3g}")
+        return got, err
+
+    def check_bwd(ops, dim, label):
+        kernel, plain = k8b(ops, dim)
+        return check_bwd_kernel(
+            "K8b", kernel, plain, label,
+            dx_close=lambda a, b: torch.testing.assert_close(
+                a, b, rtol=1e-5, atol=1e-4))
+
+    # (a) small and ragged shapes, (V, E, R, B, D): D/2 = 3, 5 and 6 take
+    # the scalar path, 4 and 16 the float4 path; B·D = 600 and 2080 need two
+    # feature tiles; the last 5 rows neither send nor receive an edge, the
+    # last relation has none; the (60, 1400, 3) graph has three chunks per
+    # relation; odd cases share one relation across the batch
+    rng = np.random.default_rng(5)
+    for i, (V, E, R, B, D) in enumerate(
+            ((37, 300, 6, 3, 6), (37, 300, 6, 2, 32), (37, 300, 6, 60, 10),
+             (37, 300, 6, 65, 32), (50, 20, 3, 2, 12), (60, 1400, 3, 4, 8))):
+        tri = np.stack([rng.integers(0, V - 5, E), rng.integers(0, V - 5, E),
+                        rng.integers(0, R - 1, E)], 1)
+        g = Graph.from_triplets(tri, V, R).prepare_csr(backward=True)
+        shared = i % 2 == 1
+        ops = rotate_operands(g, B, D, shared, seed=V + B * D, device=device)
+        label = (f"V={V} E={E} R={R} B={B} D={D} "
+                 f"{'shared' if shared else 'per-batch'} relation")
+        out, _ = check_fwd(ops, D, label)
+        dx, dr, _ = check_bwd(ops, D, label)
+        if not (torch.all(out[V - 5:] == 0) and torch.all(dx[V - 5:] == 0)
+                and torch.all(dr[R - 1] == 0)):
+            raise AssertionError("K8f/K8b wrote nonzero rows without edges")
+
+    # (b) the main path's shapes on the FB-sized graph, D = 32: F = 16 x 32
+    # (eval) for K8f, F = 64 x 32 (training) for both; per-batch relations
+    # (classic NBFNet's dependent mode) are timed, shared ones checked
+    entries = {}
+    for B, which in ((EVAL_BATCH, "eval"), (CLASSIC_TRAIN["batch"], "train")):
+        for shared in (True, False):
+            ops = rotate_operands(und, B, CLASSIC_FEAT, shared, seed=B + shared,
+                                  device=device)
+            label = (f"{which} shape V={und.num_nodes} E={und.num_edges} "
+                     f"R={und.num_relations} F={B * CLASSIC_FEAT} "
+                     f"{'shared' if shared else 'per-batch'} relation")
+            out, err_f = check_fwd(ops, CLASSIC_FEAT, label)
+            del out
+            if which == "train":
+                dx, dr, err_b = check_bwd(ops, CLASSIC_FEAT, label)
+                del dx, dr
+            torch.cuda.empty_cache()
+            if shared:
+                continue
+            timed = [("K8f", err_f, *k8f(ops, CLASSIC_FEAT))]
+            if which == "train":
+                timed.append(("K8b", err_b, *k8b(ops, CLASSIC_FEAT)))
+            for kid, err, kernel, plain in timed:
+                ms = cuda_time_ms(kernel, 20)
+                plain_ms = cuda_time_ms(plain, 3, warmup=1)
+                bound_ms, bound_by = gather_bound_ms(kid, *ops[1:4])
+                log(f"[kernels] {kid} {label}: {ms:.4f} ms (plain "
+                    f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+                    f"{bound_by}, {bound_ms / ms:.1%} of it), library_ms: "
+                    "null (no single PyTorch call computes this function)")
+                keys = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by)
+                if kid in entries:  # K8f's second shape
+                    entries[kid].update(
+                        {f"{k}_train": v for k, v in keys.items()})
+                    continue
+                entries[kid] = dict(
+                    name=kid, route="cuda",
+                    source=f"{PACKAGE}/csrc/rspmm_rotate.cu",
+                    replaces="ultra_torchdrug_tpu/ops/rspmm_pallas.py:"
+                             + {"K8f": "1681", "K8b": "2110"}[kid],
+                    mode={"K8f": "rot_rel", "K8b": "rotate"}[kid],
+                    launches=None, library_ms=None, **keys)
+            del ops, timed
+            torch.cuda.empty_cache()
+    log('[kernels] kernels ["K8f", "K8b"]')
+    return entries
+
+
 def phase_slice(task, model, device, per_batch: dict, label: str = "slice"):
     """Evaluation through the task's entry point; returns the launch counts
     of the measured run, which must be ``per_batch`` per eval batch."""
@@ -1036,7 +1193,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
-        help="cpu rehearses phases 2-15 at a reduced size with the plain "
+        help="cpu rehearses phases 2-20 at a reduced size with the plain "
              "versions and reports no result")
     args = parser.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -1080,6 +1237,7 @@ def main(argv=None) -> int:
         entries["K2"] = phase_kernels_k2(und, device)
         entries.update(phase_kernels_pna(und, device))
         entries.update(phase_kernels_ext(und, device))
+        entries.update(phase_kernels_rotate(und, device))
         del und
         torch.cuda.empty_cache()
 
@@ -1138,9 +1296,20 @@ def main(argv=None) -> int:
         eval_per_pass={"K1": 2 * layers, "K6": layers},
         train_per_step={"K1": 2 * layers, "K6": layers, "K3": 2 * layers,
                         "K6b": layers})
+    # rotate: its sums run K8f (K8b backward); pna's max, min and second
+    # moment take the O(E) route, which at the training width would keep
+    # about 220 GB for autograd: (rotate, pna) evaluates only
+    runs["classic rotate"] = run_classic(
+        dataset, device, "classic rotate",
+        dict(message_func="rotate", aggregate_func="sum"),
+        eval_per_pass={"K8f": layers},
+        train_per_step={"K8f": layers, "K8b": layers})
+    runs["classic rotate-pna"] = run_classic(
+        dataset, device, "classic rotate-pna", dict(message_func="rotate"),
+        eval_per_pass={"K8f": layers}, train_per_step=None)
 
     if not cuda:
-        log("[rehearsal] phases 2-15 ran on the CPU; no kernel ran and no "
+        log("[rehearsal] phases 2-20 ran on the CPU; no kernel ran and no "
             "result is reported")
         return 1
     for e in entries.values():
@@ -1161,15 +1330,16 @@ def main(argv=None) -> int:
 
 
 def run_classic(dataset, device, label: str, variant: dict,
-                eval_per_pass: dict, train_per_step: dict) -> tuple:
+                eval_per_pass: dict, train_per_step) -> tuple:
     """Classic NBFNet (6x32, dependent relations, layer norm, seeded
     weights; ``variant`` sets the message and aggregation) on the dataset:
     evaluation through ClassicNBFNetTask.evaluate (``eval_per_pass``
     launches per scoring direction, two per batch), its profile and its
-    card-vs-CPU scores, then Engine.train at batch 64, 32 strict negatives
-    and Adam at lr 5e-3 (``train_per_step`` launches per step), its profile
-    and one loss step's gradients against the CPU. Returns the launch
-    counts of the measured eval and train runs."""
+    card-vs-CPU scores, then, unless ``train_per_step`` is None,
+    Engine.train at batch 64, 32 strict negatives and Adam at lr 5e-3
+    (``train_per_step`` launches per step), its profile and one loss step's
+    gradients against the CPU. Returns the launch counts of the measured
+    eval run and, with training, of the train run."""
     from ultra_torchdrug_tpu_torch.models.classic_nbfnet import (
         classic_nbfnet_config,
     )
@@ -1198,6 +1368,8 @@ def run_classic(dataset, device, label: str, variant: dict,
     if nbf_cfg.aggregate_func.startswith("pna"):
         phase_clip_crossings(task, model, device, label=f"{label} parity")
     del task, model
+    if train_per_step is None:
+        return (eval_counts,)
 
     train_size = CLASSIC_TRAIN if cuda else CLASSIC_TRAIN_REHEARSAL
     engine = make_engine(

@@ -1,6 +1,7 @@
 """Classic NBFNet's other messages and aggregations in the PyTorch port
 against the JAX package on the CPU: the converter for every (distmult,
-transe) x (sum, mean, max, pna, each also ``*_nobound``) tree, all-entity
+transe, rotate) x (sum, mean, max, pna, each also ``*_nobound``) tree (rotate
+has the same keys; tests/test_torch_rotate.py holds its rows), all-entity
 scores, one loss step's loss and every gradient against the JAX task on
 interpret-mode Pallas for (distmult, max) and (transe, pna), and ``Engine``
 training both. The rows are those of the NBFNet paper's ablation of message
@@ -83,7 +84,7 @@ def datasets():
 
 
 @pytest.mark.parametrize("aggregate", AGGREGATIONS)
-@pytest.mark.parametrize("message", ["distmult", "transe"])
+@pytest.mark.parametrize("message", ["distmult", "transe", "rotate"])
 def test_converter_carries_every_tree(message, aggregate):
     """The linear is 2·D wide for sum, mean and max and 13·D for pna; the
     converted state equals the JAX tree leaf by leaf."""
@@ -94,11 +95,6 @@ def test_converter_carries_every_tree(message, aggregate):
     assert state["layers.0.linear.weight"].shape == (DIM, width * DIM)
     for key, value in model.state_dict().items():
         np.testing.assert_array_equal(value.numpy(), state[key].numpy())
-
-
-def test_rotate_still_raises():
-    with pytest.raises(NotImplementedError, match="K8f"):
-        ClassicNBFNet(classic_nbfnet_config(**_cfg_kw("rotate", "pna")))
 
 
 @pytest.mark.parametrize("message,aggregate", [

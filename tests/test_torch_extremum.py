@@ -24,8 +24,9 @@ Tolerances, each with its reason:
     (matmuls and layer norm in another order, then their backward);
   * whole ULTRA scores: rtol = atol = 1e-4, as for the towers in
     test_torch_ultra.py (two stacked towers of such layers).
-The max/min gradients are never compared with XLA: its segment_max gives
-the gradient to one tied edge (ROADMAP Queue 3, "Tie convention").
+The max/min gradients are never compared with XLA: its segment_max shares
+the gradient among the tied edges, where the Pallas kernels give each the
+whole of it (ROADMAP Queue 3, "Tie convention").
 """
 
 import jax
@@ -417,12 +418,12 @@ def test_injected_max_conv_takes_the_sparse_route(rng, monkeypatch):
     assert calls == [1]
 
 
-def test_conv_rejects_rotate_and_unknown_aggregations():
+def test_conv_rejects_unknown_aggregations_and_messages():
     kw = dict(input_dim=4, output_dim=4, num_relations=2, query_input_dim=4)
-    with pytest.raises(NotImplementedError, match="K8f"):
-        GeneralizedRelationalConv(ConvConfig(message_func="rotate", **kw))
     with pytest.raises(ValueError, match="aggregate_func"):
         GeneralizedRelationalConv(ConvConfig(aggregate_func="min", **kw))
+    with pytest.raises(ValueError, match="message_func"):
+        GeneralizedRelationalConv(ConvConfig(message_func="complex", **kw))
 
 
 def test_ultra_with_a_max_relation_tower(rng):

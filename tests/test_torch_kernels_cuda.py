@@ -13,6 +13,9 @@ fp32 products); K7 takes K1's tolerance for the same reason. K3, K5 and
 K6b/K7b take K2's, with the absolute tolerance widened to 1e-5 of the
 result's largest entry: a dr row sums a thousand or more terms (K7b's carry
 x² and reach ~1e2), whose partial sums grow to that size, in another order.
+K8f takes K1's with the absolute tolerance 1e-5 of its largest entry (nvcc
+contracts the complex product's a·b − c·d into an FMA); K8b takes K2's for
+dx and K3's for dr.
 """
 
 import numpy as np
@@ -423,3 +426,91 @@ def test_pna_kernels_reject_bad_operands(cuda_device, rng):
     with pytest.raises(ValueError):  # K5: a plane of the wrong shape
         rspmm_pna_cuda.pna_bwd_cuda("argext", csr, w, rel, x,
                                     (x, x[:5].contiguous()), "add_rel")
+
+
+# ---------------------------------------------------------------------------
+# K8f and K8b (the rotate forward and backward)
+# ---------------------------------------------------------------------------
+
+# (V, E, R, B, D): D/2 = 3 and 5 take the scalar path, 4 and 16 the float4
+# path; B·D = 2080 needs two feature tiles; a graph with more rows than
+# edges; ~700 edges on each of two relations; the classic training width
+ROTATE_SHAPES = [(37, 300, 6, 3, 6), (37, 300, 6, 2, 32), (50, 20, 3, 2, 10),
+                 (60, 1400, 3, 4, 8), (37, 300, 6, 65, 32),
+                 (2000, 60000, 40, 64, 32)]
+
+
+@pytest.mark.parametrize("V,E,R,B,D", ROTATE_SHAPES)
+def test_k8f_k8b_match_plain(cuda_device, rng, V, E, R, B, D):
+    g, (rel, x, grad) = _k2_operands(rng, V, E, R, B * D, cuda_device)
+    csr = g.csr
+    fwd = (csr.rowptr, csr.src, csr.etype, csr.eid, g.edge_weight, rel, x)
+    before = rspmm_cuda.rotate_launches
+    out = rspmm_cuda.rotate_fwd_cuda(*fwd, D)
+    torch.cuda.synchronize()
+    assert rspmm_cuda.rotate_launches == before + 1
+    want = rspmm_cuda.rspmm_fwd_plain(*fwd, "rot_rel", D)
+    torch.testing.assert_close(
+        out, want, rtol=1e-5, atol=1e-5 * max(1.0, want.abs().max().item()))
+    assert torch.all(out[V - 5:] == 0)  # rows with no edges write 0
+    bwd = (csr, g.edge_weight, rel, x, grad, D)
+    before = rspmm_bwd_cuda.launches["K8b"]
+    dx, dr = rspmm_bwd_cuda.rotate_bwd_cuda(*bwd)
+    torch.cuda.synchronize()
+    assert rspmm_bwd_cuda.launches["K8b"] == before + 1
+    want_dx, want_dr = rspmm_bwd_cuda.rotate_bwd_plain(*bwd)
+    torch.testing.assert_close(dx, want_dx, **K2_TOL)
+    _assert_sums_close(dr, want_dr)
+    assert torch.all(dx[V - 5:] == 0) and torch.all(dr[R - 1] == 0)
+    dx2, dr2 = rspmm_bwd_cuda.rotate_bwd_cuda(*bwd)  # deterministic
+    assert torch.equal(dx, dx2) and torch.equal(dr, dr2)
+    # one half alone
+    assert rspmm_bwd_cuda.rotate_bwd_cuda(*bwd, need_dr=False)[1] is None
+    assert torch.equal(rspmm_bwd_cuda.rotate_bwd_cuda(*bwd,
+                                                      need_dx=False)[1], dr)
+
+
+@pytest.mark.parametrize("shared_rel", [False, True])
+def test_rotate_op_card_matches_cpu(cuda_device, rng, shared_rel):
+    """The rotate sum routes CUDA tensors through K8f and K8b and agrees
+    with its CPU path (autograd through the plain forward), values and
+    gradients; a shared relation's gradient sums over the batch."""
+    V, E, R, B, D = 37, 300, 6, 3, 16
+    g = _graph(rng, V, E, R)
+    rel_shape = (R, D) if shared_rel else (R, B, D)
+    rel = torch.from_numpy(rng.normal(size=rel_shape).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(V, B, D)).astype(np.float32))
+    cot = torch.from_numpy(rng.normal(size=(V, B, D)).astype(np.float32))
+    gc = g.to(cuda_device)
+    results = []
+    for graph, dev in ((g, "cpu"), (gc, cuda_device)):
+        r = rel.to(dev).requires_grad_()
+        xx = x.to(dev).requires_grad_()
+        before = (rspmm_cuda.rotate_launches, rspmm_bwd_cuda.launches["K8b"])
+        out = generalized_rspmm(graph.edge_index, graph.edge_type,
+                                graph.edge_weight, r, xx, msg="rotate",
+                                num_nodes=V, csr=graph.csr)
+        grads = torch.autograd.grad(out, (r, xx), cot.to(dev))
+        on_card = int(graph is gc)
+        assert (rspmm_cuda.rotate_launches,
+                rspmm_bwd_cuda.launches["K8b"]) == (before[0] + on_card,
+                                                    before[1] + on_card)
+        results.append([t.detach().cpu() for t in (out, *grads)])
+    (o0, *g0), (o1, *g1) = results
+    torch.testing.assert_close(o1, o0, **TOL)
+    for u, v in zip(g1, g0):
+        _assert_sums_close(u, v)
+
+
+def test_rotate_kernels_reject_bad_operands(cuda_device, rng):
+    g, (rel, x, grad) = _k2_operands(rng, 37, 300, 6, 12, cuda_device)
+    csr, w = g.csr, g.edge_weight
+    fwd = (csr.rowptr, csr.src, csr.etype, csr.eid, w, rel)
+    with pytest.raises(ValueError):  # a block width that does not divide F
+        rspmm_cuda.rotate_fwd_cuda(*fwd, x, 8)
+    with pytest.raises(ValueError):  # an odd block width
+        rspmm_bwd_cuda.rotate_bwd_cuda(csr, w, rel, x, grad, 3)
+    with pytest.raises(TypeError):  # float64 x
+        rspmm_cuda.rotate_fwd_cuda(*fwd, x.double(), 6)
+    with pytest.raises(ValueError):  # layouts on the CPU
+        rspmm_bwd_cuda.rotate_bwd_cuda(csr.to("cpu"), w, rel, x, grad, 6)

@@ -18,8 +18,9 @@ Tolerances, each with its reason:
   * one conv layer: rtol = atol = 1e-5 for values; its gradients 1e-4, where
     std = sqrt(clip(sq_mean - mean², 1e-6)) scales rounding by up to 500x
     near the clip.
-The max/min gradients are never compared with XLA: its segment_max gives
-the gradient to one tied edge (ROADMAP Queue 3, "Tie convention").
+The max/min gradients are never compared with XLA: its segment_max shares
+the gradient among the tied edges, where the Pallas kernels give each the
+whole of it (ROADMAP Queue 3, "Tie convention").
 """
 
 import jax

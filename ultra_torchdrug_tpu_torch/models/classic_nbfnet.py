@@ -4,17 +4,19 @@ NeuralBellmanFordNetwork of Zhu et al. (NeurIPS 2021).
 
 Query vectors come from an ``Embedding(2R, D)`` table instead of a relation
 tower; the layers run in "dependent" mode (per-query relation projections)
-by default, with PNA aggregation and distmult messages. Every message of the
-port (distmult, transe) with every aggregation (sum, mean, max, pna, each
+by default, with PNA aggregation and distmult messages. Every message
+(distmult, transe, rotate) with every aggregation (sum, mean, max, pna, each
 also ``*_nobound``) builds, evaluates and trains; on the card sum and mean
 run kernel K1 (backward K2 or K3), max K4 (backward K5), pna K6/K7 (backward
-K6b/K7b) or, for transe, K6 and two K1 sums (backward K6b and K3). The
+K6b/K7b) or, for transe, K6 and two K1 sums (backward K6b and K3). Rotate's
+sums run K8f (backward K8b); its max, min and PNA's second moment take the
+O(E) route of ops/rspmm.py::rotate_aggregate, as in the JAX package. The
 module tree follows the reference's NBFNet state dict: ``layers.{i}``,
 ``query`` and ``mlp``.
 
-Not ported yet (ROADMAP Queue 1): rotate messages (kernels K8f/K8b, the
-conv raises); ``edge_gradients``, ``beam_search_paths`` and ``visualize``,
-which need gradients to the edge weights; and ``concat_hidden``.
+Not ported yet (ROADMAP Queue 1): ``edge_gradients``, ``beam_search_paths``
+and ``visualize``, which need gradients to the edge weights; and
+``concat_hidden``.
 """
 
 from __future__ import annotations

@@ -8,18 +8,20 @@ One layer covers the three relation-parameterization modes:
   * "injected":   relation vectors supplied by the caller, optionally passed
                   through a per-layer 2-layer MLP (``relation_projection``)
 
-Messages: distmult and transe (rotate waits for its kernels K8f/K8b).
-Aggregations: sum (the architecture of every shipped ULTRA config), mean,
-max and pna (classic NBFNet's default), each also as ``*_nobound``; the
-boundary condition is folded into the aggregation as in the JAX package.
-Sum and mean take the sum rspmm (kernel K1, its backward K2 or K3), or the
-dense per-relation matmuls on a graph that carries a dense adjacency; max
-takes the sparse extremum (K4, its backward K5) on every graph, as the JAX
-package does. PNA takes the fused pairs of ops/rspmm.py (max+min for both
-messages, sum+sum of squares for distmult; transe's second moment sums
-rel² + x², which does not factor through the message, so it keeps two sum
-calls). Node states are carried flat, [V, B*D] with b-major features, as in
-the JAX package.
+Messages: distmult, transe and rotate. Aggregations: sum (the architecture
+of every shipped ULTRA config), mean, max and pna (classic NBFNet's
+default), each also as ``*_nobound``; the boundary condition is folded into
+the aggregation as in the JAX package. Sum and mean take the sum rspmm
+(kernel K1, its backward K2 or K3), or the dense per-relation matmuls on a
+graph that carries a dense adjacency; max takes the sparse extremum (K4, its
+backward K5) on every graph, as the JAX package does. PNA takes the fused
+pairs of ops/rspmm.py (max+min for both messages, sum+sum of squares for
+distmult; transe's second moment sums rel² + x², which does not factor
+through the message, so it keeps two sum calls). Rotate routes as the JAX
+package's ``_spmm_raw`` does and never takes the dense route: its sums run
+K8f (backward K8b); its max, min and PNA's second moment take the O(E)
+route of ``rotate_aggregate``. Node states are carried flat, [V, B*D] with
+b-major features, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -38,19 +40,22 @@ from ..ops.rspmm import (
     generalized_rspmm,
     generalized_rspmm_addsq,
     generalized_rspmm_maxmin,
+    rotate_aggregate,
 )
 
-_MESSAGES = {"distmult": "mul", "transe": "add"}
+_MESSAGES = {"distmult": "mul", "transe": "add", "rotate": "rotate"}
 _AGGREGATIONS = tuple(f"{base}{bound}" for base in ("sum", "mean", "max", "pna")
                       for bound in ("", "_nobound"))
 EPS = 1e-6
 
 
-def sparse_only(aggregate_func: str) -> bool:
-    """Whether the aggregation takes the sparse ops on every graph (max and
-    pna, ± ``_nobound``): its graph needs a CSR even where it carries a
-    dense adjacency, which only sum and mean use."""
-    return aggregate_func.replace("_nobound", "") in ("max", "pna")
+def sparse_only(aggregate_func: str, message_func: str = "distmult") -> bool:
+    """Whether the conv takes the sparse ops on every graph (max and pna,
+    ± ``_nobound``, and every rotate aggregation): its graph needs a CSR
+    even where it carries a dense adjacency, which only distmult and transe
+    sum and mean use."""
+    return (aggregate_func.replace("_nobound", "") in ("max", "pna")
+            or message_func == "rotate")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +64,7 @@ class ConvConfig:
     output_dim: int
     num_relations: int
     query_input_dim: int
-    message_func: str = "distmult"  # distmult | transe
+    message_func: str = "distmult"  # distmult | transe | rotate
     aggregate_func: str = "sum"  # sum | mean | max | pna, each + _nobound
     layer_norm: bool = False
     rel_mode: str = "injected"  # embedding | dependent | injected
@@ -70,9 +75,9 @@ class GeneralizedRelationalConv(nn.Module):
     def __init__(self, cfg: ConvConfig):
         super().__init__()
         if cfg.message_func not in _MESSAGES:
-            raise NotImplementedError(
-                f"message_func={cfg.message_func!r}: rotate is not ported "
-                "yet (kernels K8f/K8b)")
+            raise ValueError(
+                f"message_func={cfg.message_func!r}: one of "
+                f"{', '.join(_MESSAGES)}")
         if cfg.aggregate_func not in _AGGREGATIONS:
             raise ValueError(
                 f"aggregate_func={cfg.aggregate_func!r}: one of "
@@ -124,7 +129,8 @@ def conv_apply(layer: GeneralizedRelationalConv, graph, x: torch.Tensor,
     """One message-passing step.
 
     graph: data.Graph (undirected+inverse where applicable), carrying a CSR
-      for the sparse route on the card or a dense adjacency for the dense one
+      for the sparse route on the card (and for max, pna and rotate on both
+      devices) or a dense adjacency for the dense one
     x, boundary: flat [V, B*D] node states (or [V, B, D]; the output then
       comes back [V, B, output_dim])
     query: [B, Q] ("dependent" mode); rel_injected: [R, D] or [B, R, D]
@@ -148,21 +154,16 @@ def conv_apply(layer: GeneralizedRelationalConv, graph, x: torch.Tensor,
         update = _pna_update(cfg, graph, rel_flat, x, boundary, msg)
     elif base == "max":
         # never the dense route: a max does not decompose into matmuls
-        update = generalized_rspmm(
-            graph.edge_index, graph.edge_type, graph.edge_weight, rel_flat, x,
-            msg=msg, agg="max", num_nodes=graph.num_nodes, csr=graph.csr)
+        update = _spmm(graph, rel_flat, x, msg, "max", D)
         if bounded:
             # torch.maximum splits the gradient at ties, as jnp.maximum does
             update = torch.maximum(update, boundary)
     else:  # sum, mean
-        if graph.dense_adj is not None:
+        if graph.dense_adj is not None and msg != "rotate":
             # small dense graph (the ULTRA relation graph): per-etype matmuls
             update = dense_rspmm(graph.dense_adj, rel_flat, x, msg=msg)
         else:
-            update = generalized_rspmm(
-                graph.edge_index, graph.edge_type, graph.edge_weight,
-                rel_flat, x, msg=msg, agg="add", num_nodes=graph.num_nodes,
-                csr=graph.csr)
+            update = _spmm(graph, rel_flat, x, msg, "add", D)
         if bounded:
             update = update + boundary
         if base == "mean":
@@ -180,18 +181,41 @@ def conv_apply(layer: GeneralizedRelationalConv, graph, x: torch.Tensor,
     return out.reshape(V, -1) if flat_in else out
 
 
+def _spmm(graph, rel_flat, x, msg, agg, dim):
+    """The sparse rspmm over flat [V, B*dim] states. Rotate, as the JAX
+    package's ``_spmm_raw`` routes it, works on the [V, B, dim] form: its
+    sum through generalized_rspmm (K8f forward, K8b backward on CUDA
+    tensors), max, min and sq_add (Σ w·m², PNA's second moment) the O(E)
+    route."""
+    edges = (graph.edge_index, graph.edge_type, graph.edge_weight)
+    if msg != "rotate":
+        return generalized_rspmm(*edges, rel_flat, x, msg=msg, agg=agg,
+                                 num_nodes=graph.num_nodes, csr=graph.csr)
+    B = x.shape[1] // dim
+    rel, x = rel_flat.reshape(-1, B, dim), x.reshape(x.shape[0], B, dim)
+    if agg == "sq_add":
+        out = rotate_aggregate(*edges, rel, x, agg, graph.num_nodes)
+    else:
+        out = generalized_rspmm(*edges, rel, x, msg=msg, agg=agg,
+                                num_nodes=graph.num_nodes, csr=graph.csr)
+    return out.reshape(graph.num_nodes, -1)
+
+
 def pna_moments(cfg: ConvConfig, graph, rel_flat, x, boundary, msg):
     """(mean, sq_mean, degree [V, 1]) of each node's in-edge messages, the
     boundary counting as one more message unless ``pna_nobound``; degree is
     the weighted in-degree plus one."""
-    edges = (graph.edge_index, graph.edge_type, graph.edge_weight)
-    kw = dict(num_nodes=graph.num_nodes, csr=graph.csr)
+    D = cfg.input_dim
     if msg == "mul":
-        s, sq = generalized_rspmm_addsq(*edges, rel_flat, x, **kw)
+        s, sq = generalized_rspmm_addsq(
+            graph.edge_index, graph.edge_type, graph.edge_weight, rel_flat, x,
+            num_nodes=graph.num_nodes, csr=graph.csr)
     else:
-        s = generalized_rspmm(*edges, rel_flat, x, msg=msg, agg="add", **kw)
-        sq = generalized_rspmm(*edges, rel_flat ** 2, x ** 2, msg=msg,
-                               agg="add", **kw)
+        s = _spmm(graph, rel_flat, x, msg, "add", D)
+        # rotate sums the squared message; transe sums rel² + x² (the
+        # reference's convention, which does not factor through the message)
+        sq = (_spmm(graph, rel_flat, x, msg, "sq_add", D) if msg == "rotate"
+              else _spmm(graph, rel_flat ** 2, x ** 2, msg, "add", D))
     degree = (graph.degree_out() + 1.0)[:, None]
     if cfg.aggregate_func == "pna":
         return (s + boundary) / degree, (sq + boundary ** 2) / degree, degree
@@ -206,9 +230,13 @@ def _pna_update(cfg: ConvConfig, graph, rel_flat, x, boundary, msg):
     V = x.shape[0]
     mean, sq_mean, degree = pna_moments(cfg, graph, rel_flat, x, boundary,
                                         msg)
-    mx, mn = generalized_rspmm_maxmin(
-        graph.edge_index, graph.edge_type, graph.edge_weight, rel_flat, x,
-        msg=msg, num_nodes=graph.num_nodes, csr=graph.csr)
+    if msg == "rotate":  # no fused pair: two O(E) calls, as in JAX
+        mx = _spmm(graph, rel_flat, x, msg, "max", cfg.input_dim)
+        mn = _spmm(graph, rel_flat, x, msg, "min", cfg.input_dim)
+    else:
+        mx, mn = generalized_rspmm_maxmin(
+            graph.edge_index, graph.edge_type, graph.edge_weight, rel_flat,
+            x, msg=msg, num_nodes=graph.num_nodes, csr=graph.csr)
     if cfg.aggregate_func == "pna":
         # torch.maximum/minimum split the gradient at ties, as jnp's do
         mx = torch.maximum(mx, boundary)

@@ -3,19 +3,24 @@ ultra_torchdrug_tpu/ops/rspmm.py), the hot op of NBFNet propagation:
 
     out[t] = AGG_{e=(h,t,r)} edge_weight[e] * (relation[r] MSG x[h])
 
-``generalized_rspmm`` covers MSG in {mul (distmult), add (transe)} with AGG
-in {add, max, min}, in the flat form (x [V, F], relation [R, F]) and the
-[V, B, D] form (relation [R, D] shared across the batch, or [R, B, D]).
+``generalized_rspmm`` covers MSG in {mul (distmult), add (transe), rotate}
+with AGG in {add, max, min}, in the flat form (x [V, F], relation [R, F]) and
+the [V, B, D] form (relation [R, D] shared across the batch, or [R, B, D]);
+rotate takes only the [V, B, D] form with even D, each D block holding the
+real parts in [:D/2] and the imaginary parts in [D/2:].
 
   * AGG add: on CUDA tensors an autograd node over the graph's layouts
     (``Graph.prepare_csr``): its forward launches kernel K1
     (ops/rspmm_cuda.py), its backward K2 for distmult and K3 for transe
-    messages (ops/rspmm_bwd_cuda.py). On CPU tensors it runs the plain
-    index_select + index_add_ version, whose gradients come from autograd.
+    messages (ops/rspmm_bwd_cuda.py); rotate has its own node, K8f forward
+    and K8b backward. On CPU tensors it runs the plain index_select +
+    index_add_ version, whose gradients come from autograd.
   * AGG max / min: one autograd node on both devices, kernel K4 forward and
     K5 backward on CUDA tensors (ops/rspmm_pna_cuda.py), their plain
     versions on CPU tensors. Rows without edges give 0; weight-0 edges send
-    the message 0, which takes part.
+    the message 0, which takes part. Rotate takes the O(E) route
+    (``rotate_aggregate``) on both devices, as the JAX package does: no TPU
+    kernel exists for it.
 
 PNA's fused pairs, ``generalized_rspmm_maxmin`` (the max and min of the same
 messages, mul or add) and ``generalized_rspmm_addsq`` (their sum and sum of
@@ -23,25 +28,35 @@ squares, distmult), are autograd nodes on both devices in the same way:
 kernels K6/K7 forward and K6b/K7b backward on CUDA tensors, the plain
 versions on CPU tensors. The max/min nodes give the full gradient to every
 tied edge on both devices, and need the graph's ``Csr`` on both, with
-``prepare_csr(backward=True)`` for gradients. Gradients to the edge weights
-(classic NBFNet's edge-gradient path) are not ported yet: an edge weight
-that requires grad raises on CUDA tensors, and for the max/min and pair
-nodes on both devices.
+``prepare_csr(backward=True)`` for gradients; rotate's O(E) route shares
+the gradient among tied edges, as XLA's segment_max does. Gradients to the
+edge weights (classic NBFNet's edge-gradient path) are not ported yet: an
+edge weight that requires grad raises on CUDA tensors, and for the max/min
+and pair nodes on both devices.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from .rspmm_bwd_cuda import rspmm_bwd_cuda
-from .rspmm_cuda import rspmm_fwd_cuda, rspmm_plain_edges
+from .rspmm_bwd_cuda import rotate_bwd_cuda, rspmm_bwd_cuda
+from .rspmm_cuda import (
+    rotate_fwd_cuda,
+    rotate_product,
+    rspmm_fwd_cuda,
+    rspmm_plain_edges,
+)
 from .rspmm_pna_cuda import pna_bwd_cuda, pna_fwd_cuda
 
 __all__ = ["generalized_rspmm", "generalized_rspmm_maxmin",
-           "generalized_rspmm_addsq", "broadcast_rel_flat"]
+           "generalized_rspmm_addsq", "broadcast_rel_flat",
+           "rotate_aggregate"]
 
-_MODES = {"mul": "mul_rel", "add": "add_rel"}
+_MODES = {"mul": "mul_rel", "add": "add_rel", "rotate": "rot_rel"}
 _AGGS = ("add", "max", "min")
+_REDUCE = {"max": "amax", "min": "amin"}
 
 
 def broadcast_rel_flat(relation: torch.Tensor, B: int) -> torch.Tensor:
@@ -75,6 +90,28 @@ class _RspmmK1K2(torch.autograd.Function):
         return None, None, dr, dx, None
 
 
+class _RspmmRotate(torch.autograd.Function):
+    """K8f forward, K8b backward over a graph's ``Csr``, rotate messages.
+    Flat operands: edge_weight [E], relation [R, F], x [V, F] with F a
+    multiple of ``dim``, the width of one re/im block."""
+
+    @staticmethod
+    def forward(ctx, csr, edge_weight, relation, x, dim):
+        ctx.csr, ctx.dim = csr, dim
+        ctx.save_for_backward(edge_weight, relation, x)
+        return rotate_fwd_cuda(csr.rowptr, csr.src, csr.etype, csr.eid,
+                               edge_weight, relation, x, dim)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        edge_weight, relation, x = ctx.saved_tensors
+        dx, dr = rotate_bwd_cuda(ctx.csr, edge_weight, relation, x,
+                                 grad_out.contiguous(), ctx.dim,
+                                 need_dx=ctx.needs_input_grad[3],
+                                 need_dr=ctx.needs_input_grad[2])
+        return None, None, dr, dx, None
+
+
 def generalized_rspmm(edge_index, edge_type, edge_weight, relation, x, *,
                       msg: str = "mul", agg: str = "add", num_nodes: int,
                       csr=None) -> torch.Tensor:
@@ -85,27 +122,65 @@ def generalized_rspmm(edge_index, edge_type, edge_weight, relation, x, *,
     and min, on both devices (``prepare_csr(backward=True)`` for gradients).
     Returns the layout of x with num_nodes rows. On CUDA, gradients flow to
     relation and x; an edge_weight that requires grad raises (the
-    edge-gradient path of classic NBFNet is not ported yet).
+    edge-gradient path of classic NBFNet is not ported yet). Rotate max and
+    min take the O(E) route on both devices and need no CSR.
     """
     if msg not in _MODES:
-        raise NotImplementedError(
-            f"msg={msg!r}: the port has mul and add; rotate waits for its "
-            "kernels K8f/K8b")
+        raise ValueError(f"msg must be one of {tuple(_MODES)}, got {msg!r}")
     if agg not in _AGGS:
         raise ValueError(f"agg must be one of {_AGGS}, got {agg!r}")
     mode = _MODES[msg]
-    if agg != "add":
+    dim = 0
+    if msg == "rotate":
+        if x.dim() != 3 or x.shape[-1] % 2:
+            raise ValueError("rotate needs [V, B, D] inputs with even D "
+                             "(D blocks store re in [:D/2], im in [D/2:])")
+        if agg != "add":
+            return rotate_aggregate(edge_index, edge_type, edge_weight,
+                                    relation, x, agg, num_nodes)
+        dim = x.shape[-1]
+    elif agg != "add":
         (out,) = _gated(agg, edge_weight, relation, x, mode, num_nodes, csr)
         return out
     xf, rel, unflat = _flat_operands(relation, x, num_nodes)
     if x.device.type == "cpu":
         out = rspmm_plain_edges(edge_index[:, 0], edge_index[:, 1], edge_type,
-                                edge_weight, rel, xf, mode, num_nodes)
+                                edge_weight, rel, xf, mode, num_nodes, dim)
     else:
         _check_graph(csr, edge_weight, num_nodes)
-        out = _RspmmK1K2.apply(csr, edge_weight.contiguous(),
-                               rel.contiguous(), xf.contiguous(), mode)
+        args = (csr, edge_weight.contiguous(), rel.contiguous(),
+                xf.contiguous())
+        out = (_RspmmRotate.apply(*args, dim) if msg == "rotate"
+               else _RspmmK1K2.apply(*args, mode))
     return unflat(out)
+
+
+def rotate_aggregate(edge_index, edge_type, edge_weight, relation, x,
+                     agg: str, num_nodes: int) -> torch.Tensor:
+    """Rotate messages materialized per edge and reduced by destination, on
+    both devices: the O(E) route of the JAX package
+    (models/layers.py::_rotate_messages_aggregate, ops/rspmm.py::_rspmm_xla),
+    which runs no TPU kernel, so none is ported for it. x [V, B, D] with
+    even D; relation [R, D] or [R, B, D]. agg "add", "max" or "min" reduces
+    m · w (rows without edges 0; tied edges share the gradient, as XLA's
+    segment_max does); "sq_add" reduces
+    m · m · w over the unweighted message m, PNA's second moment."""
+    rel_e = relation.index_select(0, edge_type)
+    if rel_e.dim() == 2:
+        rel_e = rel_e[:, None, :]
+    m = rotate_product(rel_e, x.index_select(0, edge_index[:, 0]))
+    w = edge_weight[:, None, None]
+    m = m * m * w if agg == "sq_add" else m * w
+    shape, dst = (num_nodes,) + tuple(m.shape[1:]), edge_index[:, 1]
+    if agg in ("add", "sq_add"):
+        return m.new_zeros(shape).index_add_(0, dst, m)
+    # scatter_reduce's backward counts the initial value among the ties even
+    # with include_self=False: start at ∓inf, never a message, then give
+    # rows without edges 0 as segment_max's caller does
+    out = m.new_full(shape, -math.inf if agg == "max" else math.inf)
+    out = out.scatter_reduce(0, dst[:, None, None].expand_as(m), m,
+                             _REDUCE[agg], include_self=False)
+    return torch.where(torch.isfinite(out), out, 0.0)
 
 
 def _flat_operands(relation, x, num_nodes):
@@ -182,10 +257,11 @@ def generalized_rspmm_maxmin(edge_index, edge_type, edge_weight, relation,
     it), and the backward (K6b) needs ``prepare_csr(backward=True)``.
     Gradients flow to relation and x; every edge whose message ties with the
     extremum gets the full gradient. Returns (out_max, out_min)."""
-    if msg not in _MODES:
-        raise NotImplementedError(
+    if msg not in ("mul", "add"):
+        raise ValueError(
             f"msg={msg!r}: the fused max/min pair has mul and add (rotate "
-            "keeps the materialized path of the JAX package, not ported)")
+            "takes generalized_rspmm's O(E) route twice, as in the JAX "
+            "package)")
     return _gated("maxmin", edge_weight, relation, x, _MODES[msg], num_nodes,
                   csr)
 

@@ -1,6 +1,7 @@
-"""Kernels K2 and K3: the relational SpMM backward with sum aggregation, for
-distmult (K2) and transe (K3) messages, by hand for Hopper
-(csrc/rspmm_bwd.cu), and their plain PyTorch version.
+"""Kernels K2, K3 and K8b: the relational SpMM backward with sum
+aggregation, for distmult (K2), transe (K3) and RotatE (K8b) messages, by
+hand for Hopper (csrc/rspmm_bwd.cu, csrc/rspmm_rotate.cu), and their plain
+PyTorch versions.
 
 K2 replaces ultra_torchdrug_tpu/ops/rspmm_pallas.py::rspmm_bwd_fused in mode
 ``mul`` (via rspmm_bwd_pallas), the backward of K1's ``mul_rel``:
@@ -15,13 +16,21 @@ the relation:
     dx[s] = Σ_{e=(s→v, r)} g[v] · w[eid_e]
     dr[r] = Σ_{e with type r} g[v_e] · w[eid_e]
 
+K8b replaces rspmm_bwd_fused in mode ``rotate`` (via
+rspmm_rotate_bwd_pallas), the backward of K8f's ``rot_rel``, with ⊗ the
+complex product over blocks of ``dim`` features (ops/rspmm_cuda.py):
+
+    dx[s] = Σ_{e=(s→v, r)} (conj(rel[r]) ⊗ g[v]) · w[eid_e]
+    dr[r] = Σ_{e with type r} (conj(x[s_e]) ⊗ g[v_e]) · w[eid_e]
+
 over the graph's source-sorted CSR (dx) and relation-sorted chunks (dr),
 both from data/graph.py::Graph.prepare_csr. Operands are flat: x, g [V, F],
 relation [R, F], edge_weight [E] in original edge order, all float32.
 
-``rspmm_bwd_cuda`` launches the kernel for CUDA tensors and counts each
-call in ``launches[<kernel id>]`` (one call is up to three device launches,
-see the source); for CPU tensors it runs ``rspmm_bwd_plain``. The result is
+``rspmm_bwd_cuda`` (K2, K3) and ``rotate_bwd_cuda`` (K8b) launch their
+kernel for CUDA tensors and count each call in ``launches[<kernel id>]``
+(one call is up to three device launches, see the sources); for CPU tensors
+they run ``rspmm_bwd_plain`` and ``rotate_bwd_plain``. The results are
 deterministic: no float atomics, sums in a fixed order.
 """
 
@@ -33,11 +42,18 @@ import functools
 import torch
 
 from .cuda_build import load_library
-from .rspmm_cuda import MODES, _check, csr_rows, rspmm_plain_edges
+from .rspmm_cuda import (
+    MODES,
+    _check,
+    check_rotate_dim,
+    csr_rows,
+    rotate_product,
+    rspmm_plain_edges,
+)
 
 # calls that launched each kernel since import (or since the caller last
 # reset them)
-launches = {"K2": 0, "K3": 0}
+launches = {"K2": 0, "K3": 0, "K8b": 0}
 _KERNEL_ID = {"mul_rel": "K2", "add_rel": "K3"}
 
 
@@ -57,7 +73,7 @@ _PER_EDGE = ("src_dst", "src_etype", "src_eid", "rel_src", "rel_dst",
 def check_bwd_operands(kernel: str, csr, layout, edge_weight, relation, x,
                        planes: dict) -> tuple:
     """Device, type and shape checks of a two-pass backward kernel's
-    operands (K2, K3, K5, K6b, K7b): the CSR's ``layout`` fields, and
+    operands (K2, K3, K5, K6b, K7b, K8b): the CSR's ``layout`` fields, and
     ``planes`` (name -> tensor) shaped like x. ``x`` may be None (K3 reads
     no x; the first plane then gives the shape). Returns (num_rows,
     num_relations, num_chunks, num_features)."""
@@ -179,6 +195,65 @@ def rspmm_bwd_cuda(csr, edge_weight, relation, x, grad, need_dx=True,
                            f"{err}")
     launches[kid] += 1
     return dx, dr
+
+
+def rotate_bwd_plain(csr, edge_weight, relation, x, grad, dim: int,
+                     need_dx=True, need_dr=True):
+    """The same function as K8b, in plain PyTorch (index_select and
+    index_add_), over the source-sorted CSR only. Returns (dx, dr), None for
+    a half that is not needed."""
+    _require_backward_layouts(csr)
+    check_rotate_dim(grad.shape[1], dim)
+    src = csr_rows(csr.src_rowptr)
+    dst, etype = csr.src_dst.long(), csr.src_etype.long()
+    w = edge_weight.index_select(0, csr.src_eid.long())
+    dx = dr = None
+    if need_dx:
+        dx = rspmm_plain_edges(dst, src, etype, w, relation, grad, "rot_conj",
+                               csr.src_rowptr.numel() - 1, dim)
+    if need_dr:
+        msg = rotate_product(x.index_select(0, src).unflatten(-1, (-1, dim)),
+                             grad.index_select(0, dst).unflatten(-1, (-1, dim)),
+                             conj=True).flatten(-2)
+        dr = torch.zeros_like(relation).index_add_(0, etype,
+                                                   msg.mul_(w[:, None]))
+    return dx, dr
+
+
+def rotate_bwd_cuda(csr, edge_weight, relation, x, grad, dim: int,
+                    need_dx=True, need_dr=True):
+    """K8b on CUDA tensors (rows of blocks ``dim`` wide); the plain version
+    on CPU tensors. Returns (dx, dr), None for a half that is not needed."""
+    if grad.device.type == "cpu":
+        return rotate_bwd_plain(csr, edge_weight, relation, x, grad, dim,
+                                need_dx, need_dr)
+    device = grad.device
+    num_rows, num_relations, num_chunks, num_features = check_bwd_operands(
+        "K8b", csr, _LAYOUT, edge_weight, relation, x, {"grad": grad})
+    check_rotate_dim(num_features, dim)
+    dx, dr, partial = bwd_outputs(grad, num_relations, num_chunks, need_dx,
+                                  need_dr)
+    fn = _rotate_kernel()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*(getattr(csr, n).data_ptr() for n in _LAYOUT),
+                 edge_weight.data_ptr(), relation.data_ptr(), x.data_ptr(),
+                 grad.data_ptr(), ptr(dx), ptr(dr), ptr(partial), num_rows,
+                 num_relations, num_chunks, num_features, dim, stream)
+    if err != 0:
+        raise RuntimeError(f"K8b (rspmm_rotate_bwd) launch failed with CUDA "
+                           f"error {err}")
+    launches["K8b"] += 1
+    return dx, dr
+
+
+@functools.lru_cache(maxsize=None)
+def _rotate_kernel():
+    fn = load_library("rspmm_rotate").rspmm_rotate_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.lru_cache(maxsize=None)

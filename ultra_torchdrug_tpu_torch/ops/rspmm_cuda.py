@@ -1,5 +1,6 @@
-"""Kernel K1: the relational SpMM forward with sum aggregation, by hand for
-Hopper (csrc/rspmm_fwd.cu), and its plain PyTorch version.
+"""Kernels K1 and K8f: the relational SpMM forward with sum aggregation, by
+hand for Hopper (csrc/rspmm_fwd.cu, csrc/rspmm_rotate.cu), and their plain
+PyTorch version.
 
 Replaces ultra_torchdrug_tpu/ops/rspmm_pallas.py::rspmm_gather1 in modes
 ``mul_rel`` / ``add_rel`` with agg ``add`` (via rspmm_fwd_pallas):
@@ -7,12 +8,21 @@ Replaces ultra_torchdrug_tpu/ops/rspmm_pallas.py::rspmm_gather1 in modes
     out[v] = Σ_{e=(s→v, r)} w[eid_e] · (rel[r] ⊙ x[s])      (mul_rel)
     out[v] = Σ_{e=(s→v, r)} w[eid_e] · (rel[r] + x[s])      (add_rel)
 
-over a destination-sorted CSR (data/graph.py::Graph.prepare_csr). Operands
-are flat: x [V_in, F], relation [R, F], edge_weight [E] in original edge
-order, all float32; out [V, F] with V = len(rowptr) - 1.
+over a destination-sorted CSR (data/graph.py::Graph.prepare_csr). K8f
+replaces rspmm_gather1 in mode ``rot_rel`` (via rspmm_rotate_fwd_pallas),
+the RotatE message:
 
-``rspmm_fwd_cuda`` launches the kernel for CUDA tensors and counts each
-launch in ``launches``; for CPU tensors it runs ``rspmm_fwd_plain``.
+    out[v] = Σ_{e=(s→v, r)} (rel[r] ⊗ x[s]) · w[eid_e]          (rot_rel)
+
+where each block of ``dim`` features holds the real parts in its first
+half and the imaginary parts in its second, and ⊗ is the complex product
+(``rotate_product``). Operands are flat: x [V_in, F], relation [R, F],
+edge_weight [E] in original edge order, all float32; out [V, F] with
+V = len(rowptr) - 1.
+
+``rspmm_fwd_cuda`` (K1) and ``rotate_fwd_cuda`` (K8f) launch their kernel
+for CUDA tensors and count each launch in ``launches`` and
+``rotate_launches``; for CPU tensors they run ``rspmm_fwd_plain``.
 """
 
 from __future__ import annotations
@@ -26,20 +36,41 @@ from .cuda_build import load_library
 
 MODES = {"mul_rel": 0, "add_rel": 1}
 
-# launches of the K1 kernel since import (or since the caller last reset it)
+# launches of the K1 and K8f kernels since import (or since the caller last
+# reset them)
 launches = 0
+rotate_launches = 0
+
+
+def rotate_product(a, b, conj: bool = False) -> torch.Tensor:
+    """a ⊗ b, or conj(a) ⊗ b, the complex product over the last axis, whose
+    first half holds the real parts and second half the imaginary parts:
+    the JAX package's formula (ultra_torchdrug_tpu/ops/rspmm.py:64-73; its
+    ``rotate_conj`` negates a's imaginary part, which is conj here)."""
+    h = a.shape[-1] // 2
+    ar, ai, br, bi = a[..., :h], a[..., h:], b[..., :h], b[..., h:]
+    if conj:
+        return torch.cat([ar * br + ai * bi, ar * bi - br * ai], dim=-1)
+    return torch.cat([ar * br - ai * bi, ar * bi + br * ai], dim=-1)
 
 
 def rspmm_plain_edges(src, dst, etype, weight, relation, x, mode: str,
-                      num_nodes: int) -> torch.Tensor:
+                      num_nodes: int, dim: int = 0) -> torch.Tensor:
     """The plain version over edge arrays: index_select the operands per edge,
-    form the messages, index_add_ them into their destination rows."""
+    form the messages, index_add_ them into their destination rows. Modes
+    ``rot_rel`` and ``rot_conj`` (rel ⊗ x and conj(rel) ⊗ x) take flat rows
+    of blocks ``dim`` wide."""
     rel_e = relation.index_select(0, etype)
     x_e = x.index_select(0, src)
     if mode == "mul_rel":
         msg = rel_e * x_e
     elif mode == "add_rel":
         msg = rel_e + x_e
+    elif mode in ("rot_rel", "rot_conj"):
+        check_rotate_dim(x_e.shape[-1], dim)
+        msg = rotate_product(rel_e.unflatten(-1, (-1, dim)),
+                             x_e.unflatten(-1, (-1, dim)),
+                             conj=mode == "rot_conj").flatten(-2)
     else:
         raise ValueError(f"unknown mode {mode!r}")
     msg = msg * weight.reshape((-1,) + (1,) * (msg.dim() - 1))
@@ -55,13 +86,21 @@ def csr_rows(rowptr: torch.Tensor) -> torch.Tensor:
         (rowptr[1:] - rowptr[:-1]).long())
 
 
+def check_rotate_dim(num_features: int, dim: int):
+    """A rotate block must be even and divide the row."""
+    if dim <= 0 or dim % 2 or num_features % dim:
+        raise ValueError(f"rotate needs an even block width dividing the "
+                         f"row: dim={dim}, {num_features} features")
+
+
 def rspmm_fwd_plain(rowptr, src, etype, eid, edge_weight, relation, x,
-                    mode: str) -> torch.Tensor:
-    """The same function as the kernel, in plain PyTorch, on the same CSR."""
+                    mode: str, dim: int = 0) -> torch.Tensor:
+    """The same function as the kernels (K1; K8f for ``rot_rel``), in plain
+    PyTorch, on the same CSR."""
     num_nodes = rowptr.numel() - 1
     return rspmm_plain_edges(src.long(), csr_rows(rowptr), etype.long(),
                              edge_weight.index_select(0, eid.long()),
-                             relation, x, mode, num_nodes)
+                             relation, x, mode, num_nodes, dim)
 
 
 def _check(name, t, dtype, device, dim):
@@ -80,7 +119,7 @@ def _check(name, t, dtype, device, dim):
 def check_fwd_operands(kernel: str, rowptr, src, etype, eid, edge_weight,
                        relation, x) -> tuple:
     """Device, type and shape checks of a row-gather kernel's operands (K1,
-    K6, K7) over a destination-sorted CSR; returns (num_rows,
+    K4, K6, K7, K8f) over a destination-sorted CSR; returns (num_rows,
     num_features)."""
     device = x.device
     if device.type != "cuda":
@@ -131,10 +170,47 @@ def rspmm_fwd_cuda(rowptr, src, etype, eid, edge_weight, relation, x,
     return out
 
 
+def rotate_fwd_cuda(rowptr, src, etype, eid, edge_weight, relation, x,
+                    dim: int) -> torch.Tensor:
+    """K8f on CUDA tensors (rows of blocks ``dim`` wide); the plain version
+    on CPU tensors."""
+    if x.device.type == "cpu":
+        return rspmm_fwd_plain(rowptr, src, etype, eid, edge_weight, relation,
+                               x, "rot_rel", dim)
+    device = x.device
+    num_rows, num_features = check_fwd_operands(
+        "K8f", rowptr, src, etype, eid, edge_weight, relation, x)
+    check_rotate_dim(num_features, dim)
+    out = torch.empty((num_rows, num_features), dtype=torch.float32,
+                      device=device)
+    fn = _rotate_kernel()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(rowptr.data_ptr(), src.data_ptr(), etype.data_ptr(),
+                 eid.data_ptr(), edge_weight.data_ptr(), relation.data_ptr(),
+                 x.data_ptr(), out.data_ptr(), num_rows, num_features, dim,
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"K8f (rspmm_rotate_fwd) launch failed with CUDA "
+                           f"error {err}")
+    global rotate_launches
+    rotate_launches += 1
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = load_library("rspmm_fwd").rspmm_fwd_k1
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int,
                                            ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _rotate_kernel():
+    fn = load_library("rspmm_rotate").rspmm_rotate_fwd
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

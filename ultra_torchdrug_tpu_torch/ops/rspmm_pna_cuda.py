@@ -30,8 +30,8 @@ rspmm_bwd_pallas_minmax picks one of the two by the TPU layout), kind
 and dx[s] += rel[r] ⊙ c, dr[r] += x[s] ⊙ c (both += c for add_rel). The
 argext gates recompute the forward's message bit for bit, so every tied
 edge gets the full gradient, the TPU kernels' convention
-(ultra_torchdrug_tpu/ops/rspmm.py:195-198); XLA's segment_max gradient
-gives it to one edge and ``scatter_reduce``'s backward splits it, so
+(ultra_torchdrug_tpu/ops/rspmm.py:195-198); XLA's segment_max gradient and
+``scatter_reduce``'s backward both share it among the tied edges, so
 neither is used here.
 
 Operands are flat: x and the planes [V, F], relation [R, F], edge_weight [E]

@@ -114,13 +114,15 @@ class _TaskBase:
         """The undirected propagation graph with its CSR (the rspmm kernels'
         layouts, the backward's too when ``backward``), and the relation
         graph with its dense adjacency when it is small and dense enough,
-        and its CSR when it has none or when the relation tower's
-        aggregation reaches the sparse ops on every graph (max, pna), on the
+        and its CSR when it has none or when the relation tower's conv
+        reaches the sparse ops on every graph (max, pna, rotate), on the
         task's device."""
         und = fact_graph.undirected_with_inverse().prepare_csr(backward)
         rel_graph = rel_graph.prepare_dense()
+        relation = self.model_cfg.relation
         if (rel_graph.dense_adj is None
-                or sparse_only(self.model_cfg.relation.aggregate_func)):
+                or sparse_only(relation.aggregate_func,
+                               relation.message_func)):
             rel_graph = rel_graph.prepare_csr(backward)
         return und.to(self.device), rel_graph.to(self.device)
 
