@@ -3,7 +3,7 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py                # on a machine with the card
-    python3 chip_smoke.py --device cpu   # rehearsal of phases 2-20, reduced size
+    python3 chip_smoke.py --device cpu   # rehearsal of phases 2-25, reduced size
 
 Phases, each of which raises on failure (the script then exits nonzero):
 
@@ -30,7 +30,12 @@ Phases, each of which raises on failure (the script then exits nonzero):
               calls) against their plain versions at ragged shapes (D/2 = 3,
               5 and 6 take the scalar path, 4 and 16 the float4 path) and
               at F=512 and F=2048 with D=32, shared and per-batch
-              relations, and time each;
+              relations, and time each; hold K1h and K2h (the bf16 operand
+              mode, csrc/rspmm_fwd.cu and csrc/rspmm_bwd.cu; K2h bitwise
+              across two calls) against their plain versions at ragged
+              shapes (F not a multiple of 8 takes the scalar path), shared
+              and per-batch relations, and at F=1024 (K1h) and F=4096
+              (both), and time each beside K1 and K2 on the same values;
   2. slice    zero-shot evaluation of ULTRA (6x64 towers, seeded weights) on a
               synthetic KG of FB15k-237's size: 64 test triples in batches of
               16, through TransductiveKGTask.evaluate; K1 must launch 12 times
@@ -73,10 +78,23 @@ Phases, each of which raises on failure (the script then exits nonzero):
               kernel (max, min and the second moment take the O(E) route in
               plain PyTorch, as in the JAX package); no training phase: at
               F=2048 the O(E) route would keep about 220 GB for autograd.
+ 21-24. ultra bf16  ULTRA with config/transductive/inference.yaml's model and
+              task sections and compute_dtype: bfloat16, built through
+              build_dataset, build_task and build_engine on the same KG:
+              evaluation (K1h 12 times per batch and no other kernel), its
+              profile, card vs CPU scores (BF16_* limits), the bf16 - fp32
+              score difference and both MRRs on the same weights; then
+              Engine.train at batch 64, 128 strict negatives, AdamW (K1h and
+              K2h 6 times each per step), its profile, and one loss step's
+              gradients against the CPU.
+    25. cli   run_full.main on config/synthetic/smoke.yaml (one epoch, its
+              checkpoint and log) and on config/transductive/inference.yaml
+              with --dataset SynthKG --epochs 0 --bpe 0 --gpus [0] --ckpt null.
 
 The last lines are a JSON object with one entry per kernel (K1, K2, K6,
-K7, K6b, K7b, K3, K4, K5, K8f, K8b; launches summed over the measured runs
-of phases 2-20, by path in ``launches_by_path``), then {"ok": true,
+K7, K6b, K7b, K3, K4, K5, K8f, K8b, K1h, K2h; launches summed over the
+measured runs of phases 2-25, by path in ``launches_by_path``), then
+{"ok": true,
 "device": {...}}. With no card the script prints no result and exits
 nonzero; it imports nothing of JAX.
 """
@@ -89,6 +107,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -123,7 +142,7 @@ CLASSIC_TRAIN = dict(batch=64, negatives=32, steps=5)
 CLASSIC_TRAIN_REHEARSAL = dict(batch=8, negatives=8, steps=2)
 # every kernel of the port, in the order of the kernels line
 KERNEL_IDS = ("K1", "K2", "K6", "K7", "K6b", "K7b", "K3", "K4", "K5", "K8f",
-              "K8b")
+              "K8b", "K1h", "K2h")
 # card vs CPU for classic NBFNet: about 10x the largest reading of five H100
 # runs (scores 4.5e-7, gradients 5.8e-6 norm-wise); the CPU's plain K7 sums in
 # another order, and std = sqrt(clip(sq_mean - mean², 1e-6)) amplifies that
@@ -131,6 +150,16 @@ KERNEL_IDS = ("K1", "K2", "K6", "K7", "K6b", "K7b", "K3", "K4", "K5", "K8f",
 # one device only); the loss is held to ULTRA's 1e-5
 CLASSIC_SCORE_ATOL = 1e-5
 CLASSIC_GRAD_RTOL = 1e-4
+# card vs CPU for ULTRA in bf16 operand mode: both round the same fp32
+# operands to bf16, but a layer's fp32 output differs in its last bits
+# between the two devices (sums in another order, ~1e-7 relative), and
+# where that straddles a bf16 rounding boundary (a share of about
+# 1e-7 / 2^-8 of the operands) the next layer's operand moves by 2^-8 of
+# itself. The limits leave room for such moves and stay well below the
+# bf16 - fp32 difference on the same weights, which is printed beside them
+BF16_SCORE_ATOL = 5e-4
+BF16_LOSS_RTOL = 2e-5
+BF16_GRAD_RTOL = 5e-3
 
 
 def log(*args):
@@ -182,7 +211,8 @@ def launch_counts() -> dict:
     )
 
     counts = {"K1": rspmm_cuda.launches, "K8f": rspmm_cuda.rotate_launches,
-              **rspmm_bwd_cuda.launches, **rspmm_pna_cuda.launches}
+              "K1h": rspmm_cuda.bf16_launches, **rspmm_bwd_cuda.launches,
+              **rspmm_pna_cuda.launches}
     return {k: counts[k] for k in KERNEL_IDS}
 
 
@@ -194,6 +224,7 @@ def reset_launch_counts():
     )
 
     rspmm_cuda.launches = rspmm_cuda.rotate_launches = 0
+    rspmm_cuda.bf16_launches = 0
     for counts in (rspmm_bwd_cuda.launches, rspmm_pna_cuda.launches):
         for key in counts:
             counts[key] = 0
@@ -257,14 +288,15 @@ def edge_bytes(num_edges: int) -> int:
 
 
 def k1_bound_ms(operands) -> tuple:
-    """Least time for K1's work on this card: the edges, rel and x read once
-    and the output written once over the memory rate, against 3 fp32
-    operations per edge and feature (message, weight, sum) over the fp32
-    peak."""
+    """Least time for K1's (or K1h's) work on this card: the edges, rel and
+    x read once (4 B a feature, 2 B for bf16 operands) and the fp32 output
+    written once over the memory rate, against 3 fp32 operations per edge
+    and feature (message, weight, sum) over the fp32 peak."""
     rowptr, src, etype, eid, w, rel, x = operands
     E = src.numel()
     V, F = rowptr.numel() - 1, x.shape[1]
-    nbytes = edge_bytes(E) + (rel.numel() + x.numel() + V * F) * 4
+    nbytes = (edge_bytes(E) + (rel.numel() + x.numel()) * x.element_size()
+              + V * F * 4)
     return roofline_ms(nbytes, 3 * E * F)
 
 
@@ -334,12 +366,13 @@ def phase_kernels(dataset, device):
 
 
 def k2_bound_ms(csr, w, rel, x, g) -> tuple:
-    """Least time for K2's work on this card: the edges, x, g and rel read
-    once and dx and dr written once over the memory rate, against 6 fp32
-    operations per edge and feature (3 for dx, 3 for dr) over the fp32
-    peak."""
+    """Least time for K2's (or K2h's) work on this card: the edges, x, g and
+    rel read once (4 B a feature, 2 B for bf16 operands) and the fp32 dx and
+    dr written once over the memory rate, against 6 fp32 operations per
+    edge and feature (3 for dx, 3 for dr) over the fp32 peak."""
     E, F = w.numel(), x.shape[1]
-    nbytes = edge_bytes(E) + (x.numel() + g.numel() + rel.numel()) * 4
+    nbytes = edge_bytes(E) + (x.numel() + g.numel() + rel.numel()) * (
+        x.element_size())
     nbytes += (x.numel() + rel.numel()) * 4  # dx, dr
     return roofline_ms(nbytes, 6 * E * F)
 
@@ -964,6 +997,145 @@ def phase_kernels_rotate(und, device) -> dict:
     return entries
 
 
+def bf16_operands(graph, batch: int, dim: int, shared: bool, seed: int,
+                  device):
+    """K1h's and K2h's operands on ``graph`` (with its backward layouts), as
+    the wrappers receive them after their cast: rotate_operands' x, g and
+    rel (shared [R, dim] broadcast to every query, or per batch) in bf16,
+    and its masked fp32 weights. Returns (csr, w, rel, x, g)."""
+    csr, w, rel, x, g = rotate_operands(graph, batch, dim, shared, seed,
+                                        device)
+    return (csr, w, *(t.to(torch.bfloat16) for t in (rel, x, g)))
+
+
+def phase_kernels_bf16(und, device) -> dict:
+    """K1h (the bf16 forward, csrc/rspmm_fwd.cu) and K2h (its backward,
+    csrc/rspmm_bwd.cu) against their plain versions; returns their
+    kernels-line entries by id (without the main path's launch counts).
+    Both get bf16 operands, so the wrappers' casts are no-ops and the
+    times are the kernels'. K1 and K2 run beside them on the same operands
+    in fp32, for the ratio the prediction names."""
+    from ultra_torchdrug_tpu_torch.data.graph import Graph
+    from ultra_torchdrug_tpu_torch.ops import rspmm_bwd_cuda as bwd
+    from ultra_torchdrug_tpu_torch.ops import rspmm_cuda as fwd
+
+    # K1h as K1: both round each message to bf16 from the same bits (the
+    # product of two bf16 values is exact in fp32), so only the order of
+    # the fp32 sums differs; K2h as assert_bwd_close says
+    tol = dict(rtol=1e-5, atol=1e-5)
+
+    def k1h(ops, mode):
+        csr, w, rel, x, _ = ops
+        args = (csr.rowptr, csr.src, csr.etype, csr.eid, w, rel, x, mode)
+        f32 = (*args[:5], rel.float(), x.float(), mode)
+        return (lambda: fwd.rspmm_fwd_bf16_cuda(*args),
+                lambda: fwd.rspmm_fwd_bf16_plain(*args),
+                lambda: fwd.rspmm_fwd_cuda(*f32))
+
+    def k2h(ops):
+        return (lambda: bwd.rspmm_bwd_bf16_cuda(*ops),
+                lambda: bwd.rspmm_bwd_bf16_plain(*ops))
+
+    def check_fwd(ops, mode, label):
+        kernel, plain, _ = k1h(ops, mode)
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **tol)
+        err = (got - want).abs().max().item()
+        log(f"[kernels] K1h {mode} {label}: max_abs_err {err:.3g}")
+        return got, err
+
+    # (a) small and ragged shapes, (V, E, R, B, D): B·D = 18, 20, 12 and
+    # 1028 are not multiples of 8 and take the scalar path, 64 and 2056 the
+    # 16-byte path (2056 in two feature tiles); the last 5 rows neither send
+    # nor receive an edge, the last relation has none; the (60, 1400, 3)
+    # graph has three chunks per relation; odd cases share one relation
+    # across the batch
+    rng = np.random.default_rng(6)
+    for i, (V, E, R, B, D) in enumerate(
+            ((37, 300, 6, 3, 6), (37, 300, 6, 2, 10), (37, 300, 6, 2, 32),
+             (37, 300, 6, 4, 257), (37, 300, 6, 8, 257), (50, 20, 3, 2, 6),
+             (60, 1400, 3, 4, 16))):
+        tri = np.stack([rng.integers(0, V - 5, E), rng.integers(0, V - 5, E),
+                        rng.integers(0, R - 1, E)], 1)
+        g = Graph.from_triplets(tri, V, R).prepare_csr(backward=True)
+        shared = i % 2 == 1
+        ops = bf16_operands(g, B, D, shared, seed=V + B * D, device=device)
+        label = (f"V={V} E={E} R={R} F={B * D} "
+                 f"{'shared' if shared else 'per-batch'} relation")
+        for mode in ("mul_rel", "add_rel"):
+            out, _ = check_fwd(ops, mode, label)
+            if not torch.all(out[V - 5:] == 0):
+                raise AssertionError("K1h wrote nonzero rows without edges")
+        dx, dr, _ = check_bwd_kernel("K2h", *k2h(ops), label)
+        if not (torch.all(dx[V - 5:] == 0) and torch.all(dr[R - 1] == 0)):
+            raise AssertionError("K2h wrote nonzero rows without edges")
+
+    # (b) the main path's shapes on the FB-sized graph: F = 16 x 64 (eval)
+    # for K1h, F = 64 x 64 (training) for both; ULTRA's injected relations
+    # are per query; shared ones are checked too
+    entries = {}
+    for B, which in ((EVAL_BATCH, "eval"), (TRAIN["batch"], "train")):
+        for shared in (True, False):
+            ops = bf16_operands(und, B, FEAT, shared, seed=B + 2 * shared,
+                                device=device)
+            label = (f"{which} shape V={und.num_nodes} E={und.num_edges} "
+                     f"R={und.num_relations} F={B * FEAT} "
+                     f"{'shared' if shared else 'per-batch'} relation")
+            out, err_f = check_fwd(ops, "mul_rel", label)
+            del out
+            if which == "train":
+                dx, dr, err_b = check_bwd_kernel("K2h", *k2h(ops), label)
+                del dx, dr
+            torch.cuda.empty_cache()
+            if shared:
+                continue
+            kernel, plain, fp32 = k1h(ops, "mul_rel")
+            timed = [("K1h", err_f, kernel, plain, fp32,
+                      k1_bound_ms((*k1_operands_of(ops), ops[2], ops[3])))]
+            if which == "train":
+                csr, w, rel, x, g = ops
+                f32 = (csr, w, rel.float(), x.float(), g.float())
+                timed.append(("K2h", err_b, *k2h(ops),
+                              lambda: bwd.rspmm_bwd_cuda(*f32),
+                              k2_bound_ms(*ops)))
+            for kid, err, kernel, plain, fp32, (bound_ms, bound_by) in timed:
+                ms = cuda_time_ms(kernel, 50 if which == "eval" else 20)
+                fp32_ms = cuda_time_ms(fp32, 50 if which == "eval" else 20)
+                plain_ms = cuda_time_ms(plain, 3, warmup=1)
+                log(f"[kernels] {kid} {label}: {ms:.4f} ms (fp32 "
+                    f"{'K1' if kid == 'K1h' else 'K2'} on the same values "
+                    f"{fp32_ms:.4f} ms, ratio {ms / fp32_ms:.3f}; plain "
+                    f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+                    f"{bound_by}, {bound_ms / ms:.1%} of it), library_ms: "
+                    "null (no single PyTorch call computes this function)")
+                keys = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            fp32_kernel_ms=fp32_ms)
+                if kid in entries:  # K1h's second shape
+                    entries[kid].update(
+                        {f"{k}_train": v for k, v in keys.items()})
+                    continue
+                entries[kid] = dict(
+                    name=kid, route="cuda",
+                    source=f"{PACKAGE}/csrc/"
+                           + {"K1h": "rspmm_fwd.cu", "K2h": "rspmm_bwd.cu"}[kid],
+                    replaces="ultra_torchdrug_tpu/ops/rspmm_pallas.py:"
+                             + {"K1h": "1681", "K2h": "2110"}[kid],
+                    mode="compute_dtype=bfloat16",
+                    launches=None, library_ms=None, **keys)
+            del ops, timed
+            torch.cuda.empty_cache()
+    log('[kernels] kernels ["K1h", "K2h"]')
+    return entries
+
+
+def k1_operands_of(ops) -> tuple:
+    """K1's CSR arrays and weights from a (csr, w, ...) operand tuple."""
+    csr, w = ops[:2]
+    return csr.rowptr, csr.src, csr.etype, csr.eid, w
+
+
 def phase_slice(task, model, device, per_batch: dict, label: str = "slice"):
     """Evaluation through the task's entry point; returns the launch counts
     of the measured run, which must be ``per_batch`` per eval batch."""
@@ -1193,7 +1365,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
-        help="cpu rehearses phases 2-20 at a reduced size with the plain "
+        help="cpu rehearses phases 2-25 at a reduced size with the plain "
              "versions and reports no result")
     args = parser.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -1238,6 +1410,7 @@ def main(argv=None) -> int:
         entries.update(phase_kernels_pna(und, device))
         entries.update(phase_kernels_ext(und, device))
         entries.update(phase_kernels_rotate(und, device))
+        entries.update(phase_kernels_bf16(und, device))
         del und
         torch.cuda.empty_cache()
 
@@ -1274,7 +1447,7 @@ def main(argv=None) -> int:
         dataset, model_cfg, TaskConfig(num_negative=8), device="cpu"), device,
         label="ultra train parity")
     del engine
-    runs["ultra"] = (ultra_eval, ultra_train)
+    runs["ultra"] = {"eval": ultra_eval, "train": ultra_train}
 
     # classic NBFNet, the NBFNet paper's FB15k-237 setting (distmult, pna)
     # and two rows of its ablation of message and aggregation functions:
@@ -1308,14 +1481,19 @@ def main(argv=None) -> int:
         dataset, device, "classic rotate-pna", dict(message_func="rotate"),
         eval_per_pass={"K8f": layers}, train_per_step=None)
 
+    # ULTRA with compute_dtype: bfloat16 (K1h, K2h), built from a config
+    # dict through the port's builders, then the CLI on two shipped configs
+    runs["ultra bf16"] = run_ultra_bf16(size, device)
+    runs["cli"] = phase_cli(device)
+
     if not cuda:
-        log("[rehearsal] phases 2-20 ran on the CPU; no kernel ran and no "
+        log("[rehearsal] phases 2-25 ran on the CPU; no kernel ran and no "
             "result is reported")
         return 1
     for e in entries.values():
         by_path = {f"{path} {half}": counts[e["name"]]
-                   for path, pair in runs.items()
-                   for half, counts in zip(("eval", "train"), pair)
+                   for path, halves in runs.items()
+                   for half, counts in halves.items()
                    if counts[e["name"]]}
         e.update(launches=sum(by_path.values()), launches_by_path=by_path)
         if not e["launches"]:
@@ -1329,6 +1507,160 @@ def main(argv=None) -> int:
     return 0
 
 
+def inference_config(dataset: dict, compute_dtype: str) -> dict:
+    """config/transductive/inference.yaml as run_full.main loads it (no
+    checkpoint, no training), with ``dataset`` and the entity tower's
+    ``compute_dtype`` set."""
+    from ultra_torchdrug_tpu_torch.utils.config import load_config
+
+    cfg = load_config(str(REPO / "config/transductive/inference.yaml"),
+                      context=dict(dataset=dataset["class"], gpus=[0],
+                                   epochs=0, bpe=0, ckpt=None))[0]
+    cfg["dataset"] = dict(dataset)
+    cfg["task"]["model"]["compute_dtype"] = compute_dtype
+    return cfg
+
+
+def run_ultra_bf16(size: dict, device) -> dict:
+    """ULTRA (config/transductive/inference.yaml's model and task: 6x64,
+    distmult, sum, layer norm, short-cut, project) with compute_dtype:
+    bfloat16, on chip_smoke's KG through build_dataset, build_task and
+    build_engine: evaluation (K1h 12 times per batch of 16, the relation
+    tower on its dense fp32 route), its profile, card vs CPU scores, the
+    bf16 − fp32 score difference and both MRRs on the same weights; then
+    Engine.train at batch 64 with 128 strict negatives and AdamW (K1h and
+    K2h 6 times each per step), its profile, and one loss step's gradients
+    against the CPU. Returns the launch counts by half."""
+    from ultra_torchdrug_tpu_torch.engine.build import (
+        build_dataset,
+        build_engine,
+        build_task,
+    )
+
+    cuda = device.type == "cuda"
+    spec = {"class": "SynthKG", **size}
+    cfg = inference_config(spec, "bfloat16")
+    t0 = time.perf_counter()
+    dataset = build_dataset(cfg["dataset"])
+    task = build_task(cfg["task"], dataset, device=device)
+    model = task.init_params(seed=0)
+    log(f"[ultra bf16] {spec}, model {cfg['task']['model']}: set-up "
+        f"{time.perf_counter() - t0:.1f} s; dense relation graph: "
+        f"{task.rel_graph.prepare_dense().dense_adj is not None}")
+    eval_counts = phase_slice(task, model, device,
+                              {"K1h": K1_LAUNCHES_PER_BATCH},
+                              label="ultra bf16")
+    if cuda:
+        profile_device_time("one ultra bf16 eval batch", lambda: task.evaluate(
+            model, "test", batch_size=EVAL_BATCH, fast_test=EVAL_BATCH))
+    phase_parity(task, model, device, atol=BF16_SCORE_ATOL,
+                 label="ultra bf16 parity")
+    f32_task = build_task(inference_config(spec, "float32")["task"], dataset,
+                          device=device)
+    compare_dtypes(task, f32_task, model, device)
+    del task, f32_task, model
+
+    train_size = TRAIN if cuda else TRAIN_REHEARSAL
+    cfg["task"]["num_negative"] = train_size["negatives"]
+    cfg["engine"].update(batch_size=train_size["batch"], log_interval=10**9)
+    with tempfile.TemporaryDirectory() as work_dir:
+        engine = build_engine(cfg, build_task(cfg["task"], dataset,
+                                              device=device),
+                              work_dir=work_dir, seed=0)
+        log(f"[ultra bf16 train] batch {train_size['batch']}, "
+            f"{train_size['negatives']} negatives, {cfg['optimizer']}")
+        train_counts = phase_train(engine, train_size, device,
+                                   {"K1h": K_LAUNCHES_PER_STEP,
+                                    "K2h": K_LAUNCHES_PER_STEP},
+                                   label="ultra bf16 train")
+        if cuda:
+            profile_device_time("one ultra bf16 train step",
+                                lambda: engine.train(batch_per_epoch=1))
+        cpu_cfg = dict(cfg["task"], num_negative=8)
+        phase_train_parity(engine, build_task(cpu_cfg, dataset, device="cpu"),
+                           device, grad_rtol=BF16_GRAD_RTOL,
+                           loss_rtol=BF16_LOSS_RTOL,
+                           label="ultra bf16 train parity")
+    return {"eval": eval_counts, "train": train_counts}
+
+
+def compare_dtypes(task, f32_task, model, device):
+    """The bf16 and the fp32 model (the conv layers carry the compute
+    dtype) on the same weights: their score difference for 2 test queries
+    and both MRRs on FAST_TEST test triples."""
+    batch = torch.from_numpy(task.dataset.test[:2].astype(np.int64)).to(device)
+    f32_model = f32_task.init_params(seed=1)
+    f32_model.load_state_dict(model.state_dict())
+    scores, mrr = [], []
+    for t, model in ((task, model), (f32_task, f32_model)):
+        und, rel_graph = t._prepare_graphs(t.fact_graph, t.rel_graph)
+        with torch.inference_mode():
+            scores.append(torch.cat(t._eval_scores(
+                model, t.fact_graph, rel_graph, batch[:, 0], batch[:, 1],
+                batch[:, 2], und)))
+        mrr.append(t.evaluate(model, "test", batch_size=EVAL_BATCH,
+                              fast_test=FAST_TEST)["mrr"])
+    diff = (scores[0] - scores[1]).abs()
+    log(f"[ultra bf16 vs fp32] same weights, 2 queries, tail and head "
+        f"scores: max |bf16 - fp32| {diff.max().item():.4g}, mean "
+        f"{diff.mean().item():.4g} (scores' spread {scores[1].std().item():.4g}"
+        f"); MRR on {FAST_TEST} test triples: bf16 {mrr[0]:.6f}, fp32 "
+        f"{mrr[1]:.6f}")
+
+
+def phase_cli(device) -> dict:
+    """The CLI on the device: ``run_full.main`` on
+    config/synthetic/smoke.yaml (one epoch of 5 steps, a checkpoint, a log,
+    anomaly mode on), then on config/transductive/inference.yaml with
+    ``--dataset SynthKG --epochs 0 --bpe 0 --gpus [0] --ckpt null`` in a
+    temporary directory (the config writes under ./output). Returns the
+    launch counts of each run; K1 and K2 must launch on the card."""
+    import os
+
+    from ultra_torchdrug_tpu_torch import run_full
+
+    counts = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = (("smoke", ["-c", str(REPO / "config/synthetic/smoke.yaml"),
+                           "--outdir", tmp]),
+                ("inference", ["-c", str(REPO / "config/transductive/"
+                                         "inference.yaml"),
+                               "--dataset", "SynthKG", "--epochs", "0",
+                               "--bpe", "0", "--gpus", "[0]", "--ckpt",
+                               "null"]))
+        try:
+            os.chdir(tmp)
+            for label, argv in runs:
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                engine = run_full.main(argv + ["--device", device.type])
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                counts[label] = launch_counts()
+                files = os.listdir(engine.work_dir)
+                metrics = engine.metrics["test"]
+                want_epoch = 1 if label == "smoke" else 0
+                if (engine.epoch != want_epoch or "log.txt" not in files
+                        or (label == "smoke"
+                            and not any(f.endswith(".ckpt") for f in files))
+                        or not all(math.isfinite(v) for v in metrics.values())):
+                    raise AssertionError(f"cli {label}: epoch {engine.epoch}, "
+                                         f"files {files}, metrics {metrics}")
+                used = {k: v for k, v in counts[label].items() if v}
+                if device.type == "cuda" and not (
+                        used.get("K1") and (label != "smoke" or used.get("K2"))):
+                    raise AssertionError(f"cli {label}: launches {used}")
+                log(f"[cli] {label}: {seconds:.1f} s on {device}, epoch "
+                    f"{engine.epoch}, files {sorted(files)}, test mrr "
+                    f"{metrics['mrr']:.6f}, launches {used}")
+                del engine
+        finally:
+            os.chdir(cwd)
+    return counts
+
+
 def run_classic(dataset, device, label: str, variant: dict,
                 eval_per_pass: dict, train_per_step) -> tuple:
     """Classic NBFNet (6x32, dependent relations, layer norm, seeded
@@ -1339,7 +1671,7 @@ def run_classic(dataset, device, label: str, variant: dict,
     Engine.train at batch 64, 32 strict negatives and Adam at lr 5e-3
     (``train_per_step`` launches per step), its profile and one loss step's
     gradients against the CPU. Returns the launch counts of the measured
-    eval run and, with training, of the train run."""
+    eval run and, with training, of the train run, by half."""
     from ultra_torchdrug_tpu_torch.models.classic_nbfnet import (
         classic_nbfnet_config,
     )
@@ -1369,7 +1701,7 @@ def run_classic(dataset, device, label: str, variant: dict,
         phase_clip_crossings(task, model, device, label=f"{label} parity")
     del task, model
     if train_per_step is None:
-        return (eval_counts,)
+        return {"eval": eval_counts}
 
     train_size = CLASSIC_TRAIN if cuda else CLASSIC_TRAIN_REHEARSAL
     engine = make_engine(
@@ -1386,7 +1718,7 @@ def run_classic(dataset, device, label: str, variant: dict,
         engine, ClassicNBFNetTask(dataset, nbf_cfg, TaskConfig(num_negative=8),
                                   device="cpu"), device,
         grad_rtol=CLASSIC_GRAD_RTOL, label=f"{label} train parity")
-    return eval_counts, train_counts
+    return {"eval": eval_counts, "train": train_counts}
 
 
 if __name__ == "__main__":

@@ -15,7 +15,10 @@ result's largest entry: a dr row sums a thousand or more terms (K7b's carry
 x² and reach ~1e2), whose partial sums grow to that size, in another order.
 K8f takes K1's with the absolute tolerance 1e-5 of its largest entry (nvcc
 contracts the complex product's a·b − c·d into an FMA); K8b takes K2's for
-dx and K3's for dr.
+dx and K3's for dr. K1h and K2h (the bf16 operand mode) take K1's and
+K2's: the operands round to the same bf16 values on both sides and each
+forward message is rounded from the same exact product, so only the order
+of the fp32 sums differs.
 """
 
 import numpy as np
@@ -514,3 +517,98 @@ def test_rotate_kernels_reject_bad_operands(cuda_device, rng):
         rspmm_cuda.rotate_fwd_cuda(*fwd, x.double(), 6)
     with pytest.raises(ValueError):  # layouts on the CPU
         rspmm_bwd_cuda.rotate_bwd_cuda(csr.to("cpu"), w, rel, x, grad, 6)
+
+
+# (V, E, R, F) for the bf16 kernels: F = 10, 12 and 1028 are not multiples
+# of 8 and take the scalar path, 64 and 2056 the 16-byte path (2056 in two
+# feature tiles), and ~700 edges on each of two relations (three chunks)
+BF16_SHAPES = [(37, 300, 6, 10), (37, 300, 6, 64), (37, 300, 6, 1028),
+               (37, 300, 6, 2056), (50, 20, 3, 12), (60, 1400, 3, 64)]
+
+
+@pytest.mark.parametrize("V,E,R,F", BF16_SHAPES)
+def test_k1h_k2h_match_plain(cuda_device, rng, V, E, R, F):
+    g, (rel, x, grad) = _k2_operands(rng, V, E, R, F, cuda_device)
+    csr, w = g.csr, g.edge_weight
+    for mode in ("mul_rel", "add_rel"):
+        args = (csr.rowptr, csr.src, csr.etype, csr.eid, w, rel, x, mode)
+        before = rspmm_cuda.bf16_launches
+        got = rspmm_cuda.rspmm_fwd_bf16_cuda(*args)
+        torch.cuda.synchronize()
+        assert rspmm_cuda.bf16_launches == before + 1
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, rspmm_cuda.rspmm_fwd_bf16_plain(*args),
+                                   **TOL)
+        assert torch.all(got[V - 5:] == 0)
+    before = rspmm_bwd_cuda.launches["K2h"]
+    dx, dr = rspmm_bwd_cuda.rspmm_bwd_bf16_cuda(csr, w, rel, x, grad)
+    torch.cuda.synchronize()
+    assert rspmm_bwd_cuda.launches["K2h"] == before + 1
+    want_dx, want_dr = rspmm_bwd_cuda.rspmm_bwd_bf16_plain(csr, w, rel, x,
+                                                           grad)
+    torch.testing.assert_close(dx, want_dx, **K2_TOL)
+    torch.testing.assert_close(dr, want_dr, **K2_TOL)
+    assert torch.all(dx[V - 5:] == 0) and torch.all(dr[R - 1] == 0)
+    again = rspmm_bwd_cuda.rspmm_bwd_bf16_cuda(csr, w, rel, x, grad)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dr)
+
+
+def test_k1h_rounds_the_product_to_bf16(cuda_device):
+    """(1 + 2^-7)² has no bf16 value: K1h sums its rounding, 1 + 2^-6."""
+    a = 1 + 2.0 ** -7
+    g = Graph.from_triplets(np.array([[1, 0, 0], [2, 0, 0]]), 3, 1)
+    csr = g.prepare_csr().csr.to(cuda_device)
+    for F in (8, 10):  # the 16-byte and the scalar path
+        rel = torch.full((1, F), a, device=cuda_device)
+        x = torch.full((3, F), a, device=cuda_device)
+        out = rspmm_cuda.rspmm_fwd_bf16_cuda(
+            csr.rowptr, csr.src, csr.etype, csr.eid,
+            torch.ones(2, device=cuda_device), rel, x, "mul_rel")
+        assert torch.all(out[0] == 2 * (1 + 2.0 ** -6))
+
+
+@pytest.mark.parametrize("msg", ["mul", "add"])
+@pytest.mark.parametrize("shared_rel", [False, True])
+def test_bf16_op_gradient_card_matches_cpu(cuda_device, rng, shared_rel, msg):
+    """Autograd through the op with compute_dtype="bfloat16" on the card
+    (K1h forward; K2h backward for distmult, K3 for transe) against the CPU
+    (their plain versions), in the [V, B, D] form."""
+    V, E, R, B, D = 37, 300, 6, 3, 16
+    g = _graph(rng, V, E, R)
+    rel_shape = (R, D) if shared_rel else (R, B, D)
+    rel = torch.from_numpy(rng.normal(size=rel_shape).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(V, B, D)).astype(np.float32))
+    cot = torch.from_numpy(rng.normal(size=(V, B, D)).astype(np.float32))
+    gc = g.to(cuda_device)
+    kid = "K2h" if msg == "mul" else "K3"
+    results = []
+    for graph, dev in ((g, "cpu"), (gc, cuda_device)):
+        r = rel.to(dev).requires_grad_()
+        xx = x.to(dev).requires_grad_()
+        fwd_before = rspmm_cuda.bf16_launches
+        out = generalized_rspmm(graph.edge_index, graph.edge_type,
+                                graph.edge_weight, r, xx, msg=msg,
+                                num_nodes=V, csr=graph.csr,
+                                compute_dtype="bfloat16")
+        assert rspmm_cuda.bf16_launches == fwd_before + (graph is gc)
+        before = dict(rspmm_bwd_cuda.launches)
+        results.append([t.detach().cpu() for t in (out, *torch.autograd.grad(
+            out, (r, xx), cot.to(dev)))])
+        before[kid] += graph is gc
+        assert rspmm_bwd_cuda.launches == before
+    torch.testing.assert_close(results[1][0], results[0][0], **TOL)
+    for a, b in zip(results[0][1:], results[1][1:]):
+        torch.testing.assert_close(b, a, **K2_TOL)
+
+
+def test_bf16_kernels_reject_bad_operands(cuda_device, rng):
+    g, (rel, x, grad) = _k2_operands(rng, 37, 300, 6, 8, cuda_device)
+    csr, w = g.csr, g.edge_weight
+    with pytest.raises(ValueError):  # relation with the wrong row count
+        rspmm_bwd_cuda.rspmm_bwd_bf16_cuda(csr, w, rel[:5], x, grad)
+    with pytest.raises(ValueError):  # operand on the CPU
+        rspmm_cuda.rspmm_fwd_bf16_cuda(csr.rowptr, csr.src, csr.etype,
+                                       csr.eid, w, rel.cpu(), x, "mul_rel")
+    with pytest.raises(ValueError, match="mode"):
+        rspmm_cuda.rspmm_fwd_bf16_cuda(csr.rowptr, csr.src, csr.etype,
+                                       csr.eid, w, rel, x, "rot_rel")

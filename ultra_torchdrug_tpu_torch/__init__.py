@@ -4,7 +4,9 @@ Mirrors the JAX package's module layout (data/, nn/, ops/, models/, tasks/,
 engine/, utils/) so that every module has a counterpart of the same name. The hand-written
 CUDA kernels live in csrc/ and are built with nvcc at first use
 (ops/cuda_build.py). Numerics are fp32 end to end with TF32 off, as in the
-reference.
+reference; a config's ``compute_dtype: bfloat16`` opts the entity tower's
+sparse sums into bf16 operands with fp32 sums (kernels K1h and K2h). The
+config-driven entry point is ``python -m ultra_torchdrug_tpu_torch.run_full``.
 """
 
 import torch

@@ -7,8 +7,11 @@ the JAX engine, so both engines see the same triples in the same order.
 Negatives come from a ``torch.Generator`` seeded with the same seed. Steps
 run eagerly: loss, ``torch.autograd.grad``, then the optimizer.
 
-Not ported yet: ``steps_per_call``, the device mesh, fail-soft OOM
-demotion, ``save``/``load`` and ``MultiGraphPretrainTask``.
+Checkpoints (``save``/``load``) are native: ``torch.save`` of the model's
+state dict, the optimizer's state and the epoch. Not ported yet:
+``steps_per_call``, the device mesh, fail-soft OOM demotion,
+``MultiGraphPretrainTask`` and ``.pth`` import with ``fix_reasoner``
+(ROADMAP Queue 1 items 7, 9, 5, 4 and 2).
 """
 
 from __future__ import annotations
@@ -87,6 +90,16 @@ class Optimizer:
         for p in self.params:
             p.grad = None
 
+    def state_dict(self) -> dict:
+        """The inner optimizer's state and the gradients accumulated towards
+        the next ``gradient_interval`` step."""
+        return {"inner": self.inner.state_dict(), "acc": self._acc,
+                "count": self._count}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.inner.load_state_dict(state["inner"])
+        self._acc, self._count = state["acc"], state["count"]
+
 
 class Engine:
     def __init__(self, task, batch_size: int = 64, optimizer: str = "AdamW",
@@ -106,6 +119,7 @@ class Engine:
             self.model.parameters(), optimizer, lr,
             gradient_interval=gradient_interval, clip_grad=clip_grad)
         self.epoch = 0
+        self.metrics = {}  # split -> the metrics of its last evaluation
 
     def _full_batch(self, edges: np.ndarray, idx: np.ndarray) -> np.ndarray:
         batch = edges[idx]
@@ -161,4 +175,29 @@ class Engine:
         metrics = self.task.evaluate(self.model, split, self.batch_size,
                                      fast_test=fast_test)
         self.meter.log_dict(metrics, category=f"{split}/epoch {self.epoch}")
+        self.metrics[split] = metrics
         return metrics
+
+    def save(self, path: str) -> None:
+        torch.save({"model": self.model.state_dict(),
+                    "optimizer": self.optimizer.state_dict(),
+                    "epoch": self.epoch}, path)
+        self.logger.info(f"Save checkpoint to {path}")
+
+    def load(self, path: str, fix_reasoner: bool = False,
+             drop_optimizer: bool = True) -> None:
+        """Load a checkpoint that ``save`` wrote: the model's weights, and
+        with ``drop_optimizer=False`` also the optimizer's state and the
+        epoch."""
+        if fix_reasoner or str(path).endswith(".pth"):
+            raise NotImplementedError(
+                "reference .pth checkpoints and fix_reasoner are not ported "
+                "yet (ROADMAP Queue 1 item 2); load a checkpoint that "
+                "Engine.save wrote")
+        self.logger.info(f"Load checkpoint from {path}")
+        state = torch.load(path, map_location=self.task.device,
+                           weights_only=True)
+        self.model.load_state_dict(state["model"])
+        if not drop_optimizer:
+            self.optimizer.load_state_dict(state["optimizer"])
+            self.epoch = state["epoch"]

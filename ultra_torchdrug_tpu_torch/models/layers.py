@@ -20,8 +20,13 @@ distmult; transe's second moment sums rel² + x², which does not factor
 through the message, so it keeps two sum calls). Rotate routes as the JAX
 package's ``_spmm_raw`` does and never takes the dense route: its sums run
 K8f (backward K8b); its max, min and PNA's second moment take the O(E)
-route of ``rotate_aggregate``. Node states are carried flat, [V, B*D] with
-b-major features, as in the JAX package.
+route of ``rotate_aggregate``. ``compute_dtype="bfloat16"`` routes as
+the JAX package's ``_spmm_raw`` and ``spmm_addsq`` do: the sparse distmult
+and transe sums take K1h (backward K2h, transe K3); the dense route, max,
+min and rotate stay fp32; distmult PNA leaves the fused moments pair (fp32
+only) for two K1h sums, (rel, x) and (rel², x²), and keeps K6 for max and
+min. Node states are carried flat, [V, B*D] with b-major features, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -69,6 +74,7 @@ class ConvConfig:
     layer_norm: bool = False
     rel_mode: str = "injected"  # embedding | dependent | injected
     project: bool = True  # injected mode: per-layer MLP on relation vectors
+    compute_dtype: str = "float32"  # bfloat16: bf16 operands, fp32 sums
 
 
 class GeneralizedRelationalConv(nn.Module):
@@ -154,7 +160,7 @@ def conv_apply(layer: GeneralizedRelationalConv, graph, x: torch.Tensor,
         update = _pna_update(cfg, graph, rel_flat, x, boundary, msg)
     elif base == "max":
         # never the dense route: a max does not decompose into matmuls
-        update = _spmm(graph, rel_flat, x, msg, "max", D)
+        update = _spmm(graph, rel_flat, x, msg, "max", D, cfg.compute_dtype)
         if bounded:
             # torch.maximum splits the gradient at ties, as jnp.maximum does
             update = torch.maximum(update, boundary)
@@ -163,7 +169,8 @@ def conv_apply(layer: GeneralizedRelationalConv, graph, x: torch.Tensor,
             # small dense graph (the ULTRA relation graph): per-etype matmuls
             update = dense_rspmm(graph.dense_adj, rel_flat, x, msg=msg)
         else:
-            update = _spmm(graph, rel_flat, x, msg, "add", D)
+            update = _spmm(graph, rel_flat, x, msg, "add", D,
+                           cfg.compute_dtype)
         if bounded:
             update = update + boundary
         if base == "mean":
@@ -181,16 +188,18 @@ def conv_apply(layer: GeneralizedRelationalConv, graph, x: torch.Tensor,
     return out.reshape(V, -1) if flat_in else out
 
 
-def _spmm(graph, rel_flat, x, msg, agg, dim):
-    """The sparse rspmm over flat [V, B*dim] states. Rotate, as the JAX
-    package's ``_spmm_raw`` routes it, works on the [V, B, dim] form: its
-    sum through generalized_rspmm (K8f forward, K8b backward on CUDA
-    tensors), max, min and sq_add (Σ w·m², PNA's second moment) the O(E)
-    route."""
+def _spmm(graph, rel_flat, x, msg, agg, dim, compute_dtype="float32"):
+    """The sparse rspmm over flat [V, B*dim] states (``compute_dtype``
+    reaches generalized_rspmm, which applies it to the distmult and transe
+    sums only). Rotate, as the JAX package's ``_spmm_raw`` routes it, works
+    on the [V, B, dim] form in fp32: its sum through generalized_rspmm (K8f
+    forward, K8b backward on CUDA tensors), max, min and sq_add (Σ w·m²,
+    PNA's second moment) the O(E) route."""
     edges = (graph.edge_index, graph.edge_type, graph.edge_weight)
     if msg != "rotate":
         return generalized_rspmm(*edges, rel_flat, x, msg=msg, agg=agg,
-                                 num_nodes=graph.num_nodes, csr=graph.csr)
+                                 num_nodes=graph.num_nodes, csr=graph.csr,
+                                 compute_dtype=compute_dtype)
     B = x.shape[1] // dim
     rel, x = rel_flat.reshape(-1, B, dim), x.reshape(x.shape[0], B, dim)
     if agg == "sq_add":
@@ -205,17 +214,19 @@ def pna_moments(cfg: ConvConfig, graph, rel_flat, x, boundary, msg):
     """(mean, sq_mean, degree [V, 1]) of each node's in-edge messages, the
     boundary counting as one more message unless ``pna_nobound``; degree is
     the weighted in-degree plus one."""
-    D = cfg.input_dim
-    if msg == "mul":
+    D, dtype = cfg.input_dim, cfg.compute_dtype
+    if msg == "mul" and dtype == "float32":
         s, sq = generalized_rspmm_addsq(
             graph.edge_index, graph.edge_type, graph.edge_weight, rel_flat, x,
             num_nodes=graph.num_nodes, csr=graph.csr)
     else:
-        s = _spmm(graph, rel_flat, x, msg, "add", D)
-        # rotate sums the squared message; transe sums rel² + x² (the
-        # reference's convention, which does not factor through the message)
+        # the fused moments pair is fp32 only: bf16 distmult takes two sums
+        s = _spmm(graph, rel_flat, x, msg, "add", D, dtype)
+        # rotate sums the squared message; distmult and transe sum rel² and
+        # x² (transe's convention, which does not factor through the
+        # message; for distmult the same sum as the squared message)
         sq = (_spmm(graph, rel_flat, x, msg, "sq_add", D) if msg == "rotate"
-              else _spmm(graph, rel_flat ** 2, x ** 2, msg, "add", D))
+              else _spmm(graph, rel_flat ** 2, x ** 2, msg, "add", D, dtype))
     degree = (graph.degree_out() + 1.0)[:, None]
     if cfg.aggregate_func == "pna":
         return (s + boundary) / degree, (sq + boundary ** 2) / degree, degree

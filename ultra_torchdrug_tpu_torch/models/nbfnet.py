@@ -15,12 +15,15 @@ Propagation state is carried flat, [V, B*D] with b-major features.
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
 from ..nn.core import MLP
+from ..ops.rspmm import COMPUTE_DTYPES
+from ..utils.logging import LOGGER_NAME
 from .layers import ConvConfig, GeneralizedRelationalConv
 
 
@@ -36,6 +39,7 @@ class NBFNetConfig:
     num_mlp_layer: int = 2
     rel_mode: str = "injected"
     project: bool = True
+    compute_dtype: str = "float32"  # bfloat16: K1h/K2h on the sparse sums
 
     def layer_configs(self):
         dims = [self.input_dim] + list(self.hidden_dims)
@@ -50,16 +54,66 @@ class NBFNetConfig:
                 layer_norm=self.layer_norm,
                 rel_mode=self.rel_mode,
                 project=self.project,
+                compute_dtype=self.compute_dtype,
             )
             for i in range(len(dims) - 1)
         ]
 
 
+# the JAX package's config options that change no result: the port runs
+# every layer stack eagerly with all activations kept (recomputation,
+# batch and scoring chunks are ROADMAP item 5)
+_MEMORY_ONLY = {"remat": (False, None, "none"), "stack": ("auto",),
+                "micro_batch": (0,), "score_chunk": (0,)}
+# options the port reproduces only at the value given, by the ROADMAP item
+# that ports the others
+_FIXED = {"concat_hidden": (False, "item 6"), "edge_axis": ("", "item 9"),
+          "ring_exchange": ("ppermute", "item 9"),
+          "learn_query": (False, "item 7")}
+
+
+def _check_options(where: str, rspmm_impl: str, options: dict):
+    """Apply the JAX package's config options that the port does not carry:
+    the memory-only ones are logged as not applied, the fixed ones must
+    have the value the port reproduces, and anything else raises."""
+    if rspmm_impl not in ("auto", "pallas"):
+        item = "item 9" if rspmm_impl == "ring" else "item 7"
+        raise NotImplementedError(
+            f"{where}: rspmm_impl={rspmm_impl!r} is not ported (ROADMAP Queue "
+            f"1 {item}); 'auto' and 'pallas' take the port's kernels")
+    for key, value in options.items():
+        if key in _MEMORY_ONLY:
+            if value not in _MEMORY_ONLY[key]:
+                logging.getLogger(LOGGER_NAME).warning(
+                    "%s: %s=%r changes memory use, not results, and is not "
+                    "applied (ROADMAP Queue 1 item 5)", where, key, value)
+        elif key in _FIXED:
+            want, item = _FIXED[key]
+            if value != want:
+                raise NotImplementedError(
+                    f"{where}: {key}={value!r} is not ported (ROADMAP Queue 1 "
+                    f"{item}); the port runs {key}={want!r}")
+        else:
+            raise TypeError(f"{where}: unknown option {key!r}")
+
+
+def _check_dtype(where: str, compute_dtype: str):
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"{where}: compute_dtype must be one of "
+                         f"{COMPUTE_DTYPES}, got {compute_dtype!r}")
+
+
 def rel_nbfnet_config(input_dim: int = 64, hidden: int = 64,
-                      num_layers: int = 6) -> NBFNetConfig:
+                      num_layers: int = 6, rspmm_impl: str = "auto",
+                      compute_dtype: str = "float32",
+                      **options) -> NBFNetConfig:
     """The fixed architecture RelNBFNet instantiates: distmult, sum
     aggregation, layer norm, short-cut, 4 relation types, learned relation
-    embeddings."""
+    embeddings. ``options`` are the JAX function's others (``edge_axis``,
+    ``learn_query``, ``remat``, ``stack``, ``ring_exchange``), applied as
+    ``_check_options`` says."""
+    _check_options("rel_nbfnet_config", rspmm_impl, options)
+    _check_dtype("rel_nbfnet_config", compute_dtype)
     return NBFNetConfig(
         input_dim=input_dim,
         hidden_dims=(hidden,) * num_layers,
@@ -70,6 +124,7 @@ def rel_nbfnet_config(input_dim: int = 64, hidden: int = 64,
         layer_norm=True,
         rel_mode="embedding",
         project=False,
+        compute_dtype=compute_dtype,
     )
 
 
@@ -77,18 +132,30 @@ def entity_nbfnet_config(input_dim: int = 64,
                          hidden_dims: Sequence[int] = (64,) * 6,
                          num_relations: int = 1,
                          message_func: str = "distmult",
-                         aggregate_func: str = "sum", **kw) -> NBFNetConfig:
+                         aggregate_func: str = "sum",
+                         rspmm_impl: str = "auto", short_cut: bool = True,
+                         layer_norm: bool = True, num_mlp_layer: int = 2,
+                         project: bool = True, compute_dtype: str = "float32",
+                         **options) -> NBFNetConfig:
+    """The entity tower (TransferNBFNet) with injected relations. The JAX
+    function's other options (``concat_hidden``, ``edge_axis``,
+    ``ring_exchange``, ``remat``, ``stack``, ``micro_batch``,
+    ``score_chunk``) are applied as ``_check_options`` says: the port
+    raises on every option or value it does not honour."""
+    _check_options("entity_nbfnet_config", rspmm_impl, options)
+    _check_dtype("entity_nbfnet_config", compute_dtype)
     return NBFNetConfig(
         input_dim=input_dim,
         hidden_dims=tuple(hidden_dims),
         num_relations=num_relations,
         message_func=message_func,
         aggregate_func=aggregate_func,
-        short_cut=kw.get("short_cut", True),
-        layer_norm=kw.get("layer_norm", True),
-        num_mlp_layer=kw.get("num_mlp_layer", 2),
+        short_cut=short_cut,
+        layer_norm=layer_norm,
+        num_mlp_layer=num_mlp_layer,
         rel_mode="injected",
-        project=kw.get("project", True),
+        project=project,
+        compute_dtype=compute_dtype,
     )
 
 

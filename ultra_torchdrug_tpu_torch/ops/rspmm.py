@@ -14,8 +14,15 @@ real parts in [:D/2] and the imaginary parts in [D/2:].
     (ops/rspmm_cuda.py), its backward K2 for distmult and K3 for transe
     messages (ops/rspmm_bwd_cuda.py); rotate has its own node, K8f forward
     and K8b backward. On CPU tensors it runs the plain index_select +
-    index_add_ version, whose gradients come from autograd.
-  * AGG max / min: one autograd node on both devices, kernel K4 forward and
+    index_add_ version, whose gradients come from autograd. With
+    ``compute_dtype="bfloat16"`` distmult and transe sums take one node on
+    both devices (it needs the CSR on both): K1h forward, K2h backward for
+    distmult and K3 (fp32, as the JAX package's transe backward) for
+    transe, their plain versions on CPU tensors; rotate ignores the mode,
+    as the JAX package does.
+  * AGG max / min: fp32 whatever ``compute_dtype`` says (the backward's
+    equality gates need the forward replayed exactly), one autograd node
+    on both devices, kernel K4 forward and
     K5 backward on CUDA tensors (ops/rspmm_pna_cuda.py), their plain
     versions on CPU tensors. Rows without edges give 0; weight-0 edges send
     the message 0, which takes part. Rotate takes the O(E) route
@@ -41,10 +48,15 @@ import math
 
 import torch
 
-from .rspmm_bwd_cuda import rotate_bwd_cuda, rspmm_bwd_cuda
+from .rspmm_bwd_cuda import (
+    rotate_bwd_cuda,
+    rspmm_bwd_bf16_cuda,
+    rspmm_bwd_cuda,
+)
 from .rspmm_cuda import (
     rotate_fwd_cuda,
     rotate_product,
+    rspmm_fwd_bf16_cuda,
     rspmm_fwd_cuda,
     rspmm_plain_edges,
 )
@@ -57,6 +69,7 @@ __all__ = ["generalized_rspmm", "generalized_rspmm_maxmin",
 _MODES = {"mul": "mul_rel", "add": "add_rel", "rotate": "rot_rel"}
 _AGGS = ("add", "max", "min")
 _REDUCE = {"max": "amax", "min": "amin"}
+COMPUTE_DTYPES = ("float32", "bfloat16")
 
 
 def broadcast_rel_flat(relation: torch.Tensor, B: int) -> torch.Tensor:
@@ -69,25 +82,36 @@ def broadcast_rel_flat(relation: torch.Tensor, B: int) -> torch.Tensor:
 
 class _RspmmK1K2(torch.autograd.Function):
     """K1 forward, K2 (mul_rel) or K3 (add_rel) backward over a graph's
-    ``Csr``. Flat operands: edge_weight [E], relation [R, F], x [V, F]."""
+    ``Csr``; with ``bf16`` K1h forward and K2h (mul_rel) backward, K3
+    staying fp32 as the JAX package's transe backward does. The wrappers
+    launch the kernels on CUDA tensors and run their plain versions on CPU
+    tensors, so on the CPU the bf16 node's gradients are the plain K2h's
+    fp32 products of bf16 operands and not autograd's bf16 arithmetic. Flat
+    fp32 operands: edge_weight [E], relation [R, F], x [V, F]."""
 
     @staticmethod
-    def forward(ctx, csr, edge_weight, relation, x, mode):
-        ctx.csr, ctx.mode = csr, mode
+    def forward(ctx, csr, edge_weight, relation, x, mode, bf16=False):
+        ctx.csr, ctx.mode, ctx.bf16 = csr, mode, bf16
         # K3 reads no x: the transe backward keeps none alive
         ctx.save_for_backward(edge_weight, relation,
                               x if mode == "mul_rel" else None)
-        return rspmm_fwd_cuda(csr.rowptr, csr.src, csr.etype, csr.eid,
-                              edge_weight, relation, x, mode)
+        fwd = rspmm_fwd_bf16_cuda if bf16 else rspmm_fwd_cuda
+        return fwd(csr.rowptr, csr.src, csr.etype, csr.eid, edge_weight,
+                   relation, x, mode)
 
     @staticmethod
     def backward(ctx, grad_out):
         edge_weight, relation, x = ctx.saved_tensors
         need_dr, need_dx = ctx.needs_input_grad[2], ctx.needs_input_grad[3]
-        dx, dr = rspmm_bwd_cuda(ctx.csr, edge_weight, relation, x,
-                                grad_out.contiguous(), need_dx=need_dx,
-                                need_dr=need_dr, mode=ctx.mode)
-        return None, None, dr, dx, None
+        grad_out = grad_out.contiguous()
+        if ctx.bf16 and ctx.mode == "mul_rel":
+            dx, dr = rspmm_bwd_bf16_cuda(ctx.csr, edge_weight, relation, x,
+                                         grad_out, need_dx, need_dr)
+        else:
+            dx, dr = rspmm_bwd_cuda(ctx.csr, edge_weight, relation, x,
+                                    grad_out, need_dx=need_dx,
+                                    need_dr=need_dr, mode=ctx.mode)
+        return None, None, dr, dx, None, None
 
 
 class _RspmmRotate(torch.autograd.Function):
@@ -114,14 +138,16 @@ class _RspmmRotate(torch.autograd.Function):
 
 def generalized_rspmm(edge_index, edge_type, edge_weight, relation, x, *,
                       msg: str = "mul", agg: str = "add", num_nodes: int,
-                      csr=None) -> torch.Tensor:
+                      csr=None, compute_dtype: str = "float32") -> torch.Tensor:
     """Relational SpMM with sum, max or min aggregation.
 
     edge_index [E, 2], edge_type [E], edge_weight [E] in original edge order;
     csr: the graph's ``Csr`` (data/graph.py), required on CUDA and, for max
-    and min, on both devices (``prepare_csr(backward=True)`` for gradients).
-    Returns the layout of x with num_nodes rows. On CUDA, gradients flow to
-    relation and x; an edge_weight that requires grad raises (the
+    and min and for bf16 sums, on both devices (``prepare_csr(backward=True)``
+    for gradients). compute_dtype: "float32", or "bfloat16" for the distmult
+    and transe sums (K1h, K2h): operands rounded to bf16, fp32 sums and
+    output. Returns the layout of x with num_nodes rows. On CUDA, gradients
+    flow to relation and x; an edge_weight that requires grad raises (the
     edge-gradient path of classic NBFNet is not ported yet). Rotate max and
     min take the O(E) route on both devices and need no CSR.
     """
@@ -129,6 +155,9 @@ def generalized_rspmm(edge_index, edge_type, edge_weight, relation, x, *,
         raise ValueError(f"msg must be one of {tuple(_MODES)}, got {msg!r}")
     if agg not in _AGGS:
         raise ValueError(f"agg must be one of {_AGGS}, got {agg!r}")
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, "
+                         f"got {compute_dtype!r}")
     mode = _MODES[msg]
     dim = 0
     if msg == "rotate":
@@ -143,7 +172,8 @@ def generalized_rspmm(edge_index, edge_type, edge_weight, relation, x, *,
         (out,) = _gated(agg, edge_weight, relation, x, mode, num_nodes, csr)
         return out
     xf, rel, unflat = _flat_operands(relation, x, num_nodes)
-    if x.device.type == "cpu":
+    bf16 = compute_dtype == "bfloat16" and msg != "rotate"
+    if x.device.type == "cpu" and not bf16:
         out = rspmm_plain_edges(edge_index[:, 0], edge_index[:, 1], edge_type,
                                 edge_weight, rel, xf, mode, num_nodes, dim)
     else:
@@ -151,7 +181,7 @@ def generalized_rspmm(edge_index, edge_type, edge_weight, relation, x, *,
         args = (csr, edge_weight.contiguous(), rel.contiguous(),
                 xf.contiguous())
         out = (_RspmmRotate.apply(*args, dim) if msg == "rotate"
-               else _RspmmK1K2.apply(*args, mode))
+               else _RspmmK1K2.apply(*args, mode, bf16))
     return unflat(out)
 
 

@@ -1,13 +1,21 @@
-"""Kernels K2, K3 and K8b: the relational SpMM backward with sum
-aggregation, for distmult (K2), transe (K3) and RotatE (K8b) messages, by
-hand for Hopper (csrc/rspmm_bwd.cu, csrc/rspmm_rotate.cu), and their plain
-PyTorch versions.
+"""Kernels K2, K2h, K3 and K8b: the relational SpMM backward with sum
+aggregation, for distmult (K2; K2h with bf16 operands), transe (K3) and
+RotatE (K8b) messages, by hand for Hopper (csrc/rspmm_bwd.cu,
+csrc/rspmm_rotate.cu), and their plain PyTorch versions.
 
 K2 replaces ultra_torchdrug_tpu/ops/rspmm_pallas.py::rspmm_bwd_fused in mode
 ``mul`` (via rspmm_bwd_pallas), the backward of K1's ``mul_rel``:
 
     dx[s] = Σ_{e=(s→v, r)} w[eid_e] · rel[r] ⊙ g[v]
     dr[r] = Σ_{e with type r} w[eid_e] · x[s_e] ⊙ g[v_e]
+
+K2h is K2 with ``compute_dtype=bfloat16`` (rspmm_bwd_fused with bf16
+operands, :2117-2153): the wrapper casts x, g and the relation to bf16
+once per call; the products are taken in fp32 from the widened values,
+with g·w formed first, and dx and dr are fp32:
+
+    dx[s] = Σ_{e=(s→v, r)} rel[r] ⊙ (g[v] · w[eid_e])
+    dr[r] = Σ_{e with type r} x[s_e] ⊙ (g[v_e] · w[eid_e])
 
 K3 replaces rspmm_gather1 in mode ``none`` as rspmm_bwd_pallas's transe
 branch calls it, the backward of K1's ``add_rel``; it reads neither x nor
@@ -27,10 +35,11 @@ over the graph's source-sorted CSR (dx) and relation-sorted chunks (dr),
 both from data/graph.py::Graph.prepare_csr. Operands are flat: x, g [V, F],
 relation [R, F], edge_weight [E] in original edge order, all float32.
 
-``rspmm_bwd_cuda`` (K2, K3) and ``rotate_bwd_cuda`` (K8b) launch their
-kernel for CUDA tensors and count each call in ``launches[<kernel id>]``
-(one call is up to three device launches, see the sources); for CPU tensors
-they run ``rspmm_bwd_plain`` and ``rotate_bwd_plain``. The results are
+``rspmm_bwd_cuda`` (K2, K3), ``rspmm_bwd_bf16_cuda`` (K2h) and
+``rotate_bwd_cuda`` (K8b) launch their kernel for CUDA tensors and count
+each call in ``launches[<kernel id>]`` (one call is up to three device
+launches, see the sources); for CPU tensors they run ``rspmm_bwd_plain``,
+``rspmm_bwd_bf16_plain`` and ``rotate_bwd_plain``. The results are
 deterministic: no float atomics, sums in a fixed order.
 """
 
@@ -45,15 +54,17 @@ from .cuda_build import load_library
 from .rspmm_cuda import (
     MODES,
     _check,
+    check_mode,
     check_rotate_dim,
     csr_rows,
     rotate_product,
     rspmm_plain_edges,
+    widen_bf16,
 )
 
 # calls that launched each kernel since import (or since the caller last
 # reset them)
-launches = {"K2": 0, "K3": 0, "K8b": 0}
+launches = {"K2": 0, "K2h": 0, "K3": 0, "K8b": 0}
 _KERNEL_ID = {"mul_rel": "K2", "add_rel": "K3"}
 
 
@@ -71,12 +82,13 @@ _PER_EDGE = ("src_dst", "src_etype", "src_eid", "rel_src", "rel_dst",
 
 
 def check_bwd_operands(kernel: str, csr, layout, edge_weight, relation, x,
-                       planes: dict) -> tuple:
+                       planes: dict, dtype=torch.float32) -> tuple:
     """Device, type and shape checks of a two-pass backward kernel's
-    operands (K2, K3, K5, K6b, K7b, K8b): the CSR's ``layout`` fields, and
-    ``planes`` (name -> tensor) shaped like x. ``x`` may be None (K3 reads
-    no x; the first plane then gives the shape). Returns (num_rows,
-    num_relations, num_chunks, num_features)."""
+    operands (K2, K2h, K3, K5, K6b, K7b, K8b): the CSR's ``layout`` fields,
+    and ``planes`` (name -> tensor) shaped like x, the dense operands of
+    ``dtype``. ``x`` may be None (K3 reads no x; the first plane then gives
+    the shape). Returns (num_rows, num_relations, num_chunks,
+    num_features)."""
     like = x if x is not None else next(iter(planes.values()))
     device = like.device
     if device.type != "cuda":
@@ -87,7 +99,7 @@ def check_bwd_operands(kernel: str, csr, layout, edge_weight, relation, x,
     _check("edge_weight", edge_weight, torch.float32, device, 1)
     dense = [("relation", relation), *planes.items()]
     for name, t in dense + ([("x", x)] if x is not None else []):
-        _check(name, t, torch.float32, device, 2)
+        _check(name, t, dtype, device, 2)
     for name, t in planes.items():
         if t.shape != like.shape:
             raise ValueError(f"{name} {tuple(t.shape)} != "
@@ -126,11 +138,6 @@ def ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _check_mode(mode: str):
-    if mode not in MODES:
-        raise ValueError(f"mode must be one of {tuple(MODES)}, got {mode!r}")
-
-
 def rspmm_bwd_plain(csr, edge_weight, relation, x, grad, need_dx=True,
                     need_dr=True, mode="mul_rel"):
     """The same function as the kernels (K2 for ``mul_rel``, K3 for
@@ -138,7 +145,7 @@ def rspmm_bwd_plain(csr, edge_weight, relation, x, grad, need_dx=True,
     and index_add_), over the source-sorted CSR only: dx by source row, dr by
     edge type. The relation chunks are the kernels' own and not used here.
     Returns (dx, dr), None for a half that is not needed."""
-    _check_mode(mode)
+    check_mode(mode)
     _require_backward_layouts(csr)
     src = csr_rows(csr.src_rowptr)
     dst, etype = csr.src_dst.long(), csr.src_etype.long()
@@ -170,7 +177,7 @@ def rspmm_bwd_cuda(csr, edge_weight, relation, x, grad, need_dx=True,
     """K2 (``mul_rel``) or K3 (``add_rel``; x is not read and may be None)
     on CUDA tensors; the plain version on CPU tensors. Returns (dx, dr),
     None for a half that is not needed."""
-    _check_mode(mode)
+    check_mode(mode)
     if grad.device.type == "cpu":
         return rspmm_bwd_plain(csr, edge_weight, relation, x, grad, need_dx,
                                need_dr, mode)
@@ -194,6 +201,59 @@ def rspmm_bwd_cuda(csr, edge_weight, relation, x, grad, need_dx=True,
         raise RuntimeError(f"{kid} (rspmm_bwd) launch failed with CUDA error "
                            f"{err}")
     launches[kid] += 1
+    return dx, dr
+
+
+def rspmm_bwd_bf16_plain(csr, edge_weight, relation, x, grad, need_dx=True,
+                         need_dr=True):
+    """The same function as K2h, in plain PyTorch (index_select and
+    index_add_), over the source-sorted CSR only: x, g and the relation
+    rounded to bf16 and widened, g·w per edge, then the fp32 products
+    summed by source row (dx) and edge type (dr). Returns (dx, dr), None
+    for a half that is not needed."""
+    _require_backward_layouts(csr)
+    src = csr_rows(csr.src_rowptr)
+    dst, etype = csr.src_dst.long(), csr.src_etype.long()
+    w = edge_weight.index_select(0, csr.src_eid.long())
+    gw = widen_bf16(grad).index_select(0, dst).mul_(w[:, None])
+    dx = dr = None
+    if need_dx:
+        msg = widen_bf16(relation).index_select(0, etype).mul_(gw)
+        dx = msg.new_zeros((csr.src_rowptr.numel() - 1, grad.shape[1]))
+        dx.index_add_(0, src, msg)
+    if need_dr:
+        msg = widen_bf16(x).index_select(0, src).mul_(gw)
+        dr = msg.new_zeros(relation.shape).index_add_(0, etype, msg)
+    return dx, dr
+
+
+def rspmm_bwd_bf16_cuda(csr, edge_weight, relation, x, grad, need_dx=True,
+                        need_dr=True):
+    """K2h on CUDA tensors (fp32 relation, x and grad, cast to bf16 here);
+    the plain version on CPU tensors. Returns fp32 (dx, dr), None for a
+    half that is not needed."""
+    if grad.device.type == "cpu":
+        return rspmm_bwd_bf16_plain(csr, edge_weight, relation, x, grad,
+                                    need_dx, need_dr)
+    device = grad.device
+    relation, x, grad = (t.to(torch.bfloat16).contiguous()
+                         for t in (relation, x, grad))
+    num_rows, num_relations, num_chunks, num_features = check_bwd_operands(
+        "K2h", csr, _LAYOUT, edge_weight, relation, x, {"grad": grad},
+        dtype=torch.bfloat16)
+    dx, dr, partial = bwd_outputs(grad, num_relations, num_chunks, need_dx,
+                                  need_dr)
+    fn = _bf16_kernel()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*(getattr(csr, n).data_ptr() for n in _LAYOUT),
+                 edge_weight.data_ptr(), relation.data_ptr(), x.data_ptr(),
+                 grad.data_ptr(), ptr(dx), ptr(dr), ptr(partial), num_rows,
+                 num_relations, num_chunks, num_features, stream)
+    if err != 0:
+        raise RuntimeError(f"K2h (rspmm_bwd_k2h) launch failed with CUDA "
+                           f"error {err}")
+    launches["K2h"] += 1
     return dx, dr
 
 
@@ -252,6 +312,15 @@ def _rotate_kernel():
     fn = load_library("rspmm_rotate").rspmm_rotate_bwd
     fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_kernel():
+    fn = load_library("rspmm_bwd").rspmm_bwd_k2h
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 

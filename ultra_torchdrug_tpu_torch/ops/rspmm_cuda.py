@@ -20,9 +20,15 @@ half and the imaginary parts in its second, and ⊗ is the complex product
 edge_weight [E] in original edge order, all float32; out [V, F] with
 V = len(rowptr) - 1.
 
-``rspmm_fwd_cuda`` (K1) and ``rotate_fwd_cuda`` (K8f) launch their kernel
-for CUDA tensors and count each launch in ``launches`` and
-``rotate_launches``; for CPU tensors they run ``rspmm_fwd_plain``.
+K1h is K1 with ``compute_dtype=bfloat16`` (rspmm_gather1 with bf16
+operands, :1689-1724): the wrapper casts relation and x to bf16 once per
+call, each message rel ⊙ x (or rel + x) is rounded to bf16 before the fp32
+weight multiplies it, and the sum and the output stay fp32.
+
+``rspmm_fwd_cuda`` (K1), ``rspmm_fwd_bf16_cuda`` (K1h) and
+``rotate_fwd_cuda`` (K8f) launch their kernel for CUDA tensors and count
+each launch in ``launches``, ``bf16_launches`` and ``rotate_launches``; for
+CPU tensors they run ``rspmm_fwd_plain`` and ``rspmm_fwd_bf16_plain``.
 """
 
 from __future__ import annotations
@@ -36,9 +42,10 @@ from .cuda_build import load_library
 
 MODES = {"mul_rel": 0, "add_rel": 1}
 
-# launches of the K1 and K8f kernels since import (or since the caller last
-# reset them)
+# launches of the K1, K1h and K8f kernels since import (or since the caller
+# last reset them)
 launches = 0
+bf16_launches = 0
 rotate_launches = 0
 
 
@@ -93,6 +100,11 @@ def check_rotate_dim(num_features: int, dim: int):
                          f"row: dim={dim}, {num_features} features")
 
 
+def check_mode(mode: str):
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {tuple(MODES)}, got {mode!r}")
+
+
 def rspmm_fwd_plain(rowptr, src, etype, eid, edge_weight, relation, x,
                     mode: str, dim: int = 0) -> torch.Tensor:
     """The same function as the kernels (K1; K8f for ``rot_rel``), in plain
@@ -101,6 +113,28 @@ def rspmm_fwd_plain(rowptr, src, etype, eid, edge_weight, relation, x,
     return rspmm_plain_edges(src.long(), csr_rows(rowptr), etype.long(),
                              edge_weight.index_select(0, eid.long()),
                              relation, x, mode, num_nodes, dim)
+
+
+def widen_bf16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16 (to nearest, ties to even) and widened back to
+    fp32: the values a bf16 kernel computes with."""
+    return t.to(torch.bfloat16).float()
+
+
+def rspmm_fwd_bf16_plain(rowptr, src, etype, eid, edge_weight, relation, x,
+                         mode: str) -> torch.Tensor:
+    """The same function as K1h, in plain PyTorch, on the same CSR: the
+    operands rounded to bf16, each message formed in fp32 (exact for a
+    product of two bf16 values) and rounded to bf16, then weighted and
+    summed in fp32."""
+    check_mode(mode)
+    etype, src = etype.long(), src.long()
+    rel_e = widen_bf16(relation).index_select(0, etype)
+    x_e = widen_bf16(x).index_select(0, src)
+    msg = widen_bf16(rel_e * x_e if mode == "mul_rel" else rel_e + x_e)
+    msg.mul_(edge_weight.index_select(0, eid.long())[:, None])
+    out = msg.new_zeros((rowptr.numel() - 1, x.shape[1]))
+    return out.index_add_(0, csr_rows(rowptr), msg)
 
 
 def _check(name, t, dtype, device, dim):
@@ -117,10 +151,10 @@ def _check(name, t, dtype, device, dim):
 
 
 def check_fwd_operands(kernel: str, rowptr, src, etype, eid, edge_weight,
-                       relation, x) -> tuple:
+                       relation, x, dtype=torch.float32) -> tuple:
     """Device, type and shape checks of a row-gather kernel's operands (K1,
-    K4, K6, K7, K8f) over a destination-sorted CSR; returns (num_rows,
-    num_features)."""
+    K1h, K4, K6, K7, K8f) over a destination-sorted CSR, relation and x of
+    ``dtype``; returns (num_rows, num_features)."""
     device = x.device
     if device.type != "cuda":
         raise ValueError(f"{kernel} runs on CUDA tensors, got {device}")
@@ -128,8 +162,8 @@ def check_fwd_operands(kernel: str, rowptr, src, etype, eid, edge_weight,
                     ("eid", eid)):
         _check(name, t, torch.int32, device, 1)
     _check("edge_weight", edge_weight, torch.float32, device, 1)
-    _check("relation", relation, torch.float32, device, 2)
-    _check("x", x, torch.float32, device, 2)
+    _check("relation", relation, dtype, device, 2)
+    _check("x", x, dtype, device, 2)
     num_edges = src.numel()
     if (etype.numel() != num_edges or eid.numel() != num_edges
             or edge_weight.numel() != num_edges):
@@ -146,8 +180,7 @@ def check_fwd_operands(kernel: str, rowptr, src, etype, eid, edge_weight,
 def rspmm_fwd_cuda(rowptr, src, etype, eid, edge_weight, relation, x,
                    mode: str) -> torch.Tensor:
     """K1 on CUDA tensors; the plain version on CPU tensors."""
-    if mode not in MODES:
-        raise ValueError(f"mode must be one of {tuple(MODES)}, got {mode!r}")
+    check_mode(mode)
     if x.device.type == "cpu":
         return rspmm_fwd_plain(rowptr, src, etype, eid, edge_weight, relation,
                                x, mode)
@@ -167,6 +200,37 @@ def rspmm_fwd_cuda(rowptr, src, etype, eid, edge_weight, relation, x,
         raise RuntimeError(f"rspmm_fwd_k1 launch failed with CUDA error {err}")
     global launches
     launches += 1
+    return out
+
+
+def rspmm_fwd_bf16_cuda(rowptr, src, etype, eid, edge_weight, relation, x,
+                        mode: str) -> torch.Tensor:
+    """K1h on CUDA tensors (fp32 relation and x, cast to bf16 here); the
+    plain version on CPU tensors. Returns fp32."""
+    check_mode(mode)
+    if x.device.type == "cpu":
+        return rspmm_fwd_bf16_plain(rowptr, src, etype, eid, edge_weight,
+                                    relation, x, mode)
+    device = x.device
+    relation = relation.to(torch.bfloat16).contiguous()
+    x = x.to(torch.bfloat16).contiguous()
+    num_rows, num_features = check_fwd_operands(
+        "K1h", rowptr, src, etype, eid, edge_weight, relation, x,
+        dtype=torch.bfloat16)
+    out = torch.empty((num_rows, num_features), dtype=torch.float32,
+                      device=device)
+    fn = _bf16_kernel()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(rowptr.data_ptr(), src.data_ptr(), etype.data_ptr(),
+                 eid.data_ptr(), edge_weight.data_ptr(), relation.data_ptr(),
+                 x.data_ptr(), out.data_ptr(), num_rows, num_features,
+                 MODES[mode], stream)
+    if err != 0:
+        raise RuntimeError(f"rspmm_fwd_k1h launch failed with CUDA error "
+                           f"{err}")
+    global bf16_launches
+    bf16_launches += 1
     return out
 
 
@@ -198,13 +262,22 @@ def rotate_fwd_cuda(rowptr, src, etype, eid, edge_weight, relation, x,
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = load_library("rspmm_fwd").rspmm_fwd_k1
+def _fwd_symbol(name: str):
+    fn = getattr(load_library("rspmm_fwd"), name)
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int,
                                            ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    return _fwd_symbol("rspmm_fwd_k1")
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_kernel():
+    return _fwd_symbol("rspmm_fwd_k1h")
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,6 +1,6 @@
 """Run logging (counterpart of ultra_torchdrug_tpu/utils/logging.py): a
-console logger with an optional log file, and a windowed meter of step
-metrics."""
+console logger with an optional log file, a windowed meter of step
+metrics, and the run's working directory."""
 
 from __future__ import annotations
 
@@ -103,3 +103,12 @@ class Meter:
         prefix = f"[{category}] " if category else ""
         for k in sorted(metrics):
             self.logger.info(f"{prefix}{k}: {float(metrics[k]):.6g}")
+
+
+def create_working_directory(output_dir: str, *names: str) -> str:
+    """output_dir/<name pieces>/<timestamp>, the reference's layout (one
+    process; runs started within the same second share the directory)."""
+    path = os.path.join(os.path.expanduser(output_dir), *names,
+                        time.strftime("%Y-%m-%d-%H-%M-%S"))
+    os.makedirs(path, exist_ok=True)
+    return path
