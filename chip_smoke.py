@@ -3,7 +3,7 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py                # on a machine with the card
-    python3 chip_smoke.py --device cpu   # rehearsal of phases 2-25, reduced size
+    python3 chip_smoke.py --device cpu   # rehearsal of phases 2-30, reduced size
 
 Phases, each of which raises on failure (the script then exits nonzero):
 
@@ -36,6 +36,12 @@ Phases, each of which raises on failure (the script then exits nonzero):
               shapes (F not a multiple of 8 takes the scalar path), shared
               and per-batch relations, and at F=1024 (K1h) and F=4096
               (both), and time each beside K1 and K2 on the same values;
+              hold K9 (the ring shift, csrc/ring_shift.cu) bitwise against
+              its plain version at ragged shapes (misaligned blocks and
+              byte tails), fp32 and bf16, n = 2, 3 and 4, and at the ring's
+              eval and training shapes (n = 4, v_block = 3,636, F = 1024
+              and 4096), and time it beside its plain version and
+              torch.roll;
   2. slice    zero-shot evaluation of ULTRA (6x64 towers, seeded weights) on a
               synthetic KG of FB15k-237's size: 64 test triples in batches of
               16, through TransductiveKGTask.evaluate; K1 must launch 12 times
@@ -90,10 +96,23 @@ Phases, each of which raises on failure (the script then exits nonzero):
     25. cli   run_full.main on config/synthetic/smoke.yaml (one epoch, its
               checkpoint and log) and on config/transductive/inference.yaml
               with --dataset SynthKG --epochs 0 --bpe 0 --gpus [0] --ckpt null.
+ 26-29. ultra ring  ULTRA (inference.yaml's model and task, fp32) with
+              parallel: {edge: 4}, rspmm_impl: ring, ring_exchange: rdma,
+              built through build_dataset, mesh_scope, build_task and
+              build_engine on the same KG, every edge shard on the card:
+              evaluation (per batch K1 once per non-empty bucket, 16 at
+              n = 4, for each layer and direction, and K9 2 x 6 x 3 = 36
+              times, no K2), its profile, the ring's scores against the
+              single-device model on the same weights on the card (1e-4);
+              then Engine.train at batch 64, 128 strict negatives, AdamW
+              (per step K1 and K2 6 x 16, K9 36), its profile, and one loss
+              step's loss and gradients against the single-device step.
+    30. ring cli  run_full.main on smoke.yaml rendered with the three keys
+              (one epoch, its checkpoint and log, K9 on the card).
 
 The last lines are a JSON object with one entry per kernel (K1, K2, K6,
-K7, K6b, K7b, K3, K4, K5, K8f, K8b, K1h, K2h; launches summed over the
-measured runs of phases 2-25, by path in ``launches_by_path``), then
+K7, K6b, K7b, K3, K4, K5, K8f, K8b, K1h, K2h, K9; launches summed over the
+measured runs of phases 2-30, by path in ``launches_by_path``), then
 {"ok": true,
 "device": {...}}. With no card the script prints no result and exits
 nonzero; it imports nothing of JAX.
@@ -102,9 +121,11 @@ nonzero; it imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -142,7 +163,14 @@ CLASSIC_TRAIN = dict(batch=64, negatives=32, steps=5)
 CLASSIC_TRAIN_REHEARSAL = dict(batch=8, negatives=8, steps=2)
 # every kernel of the port, in the order of the kernels line
 KERNEL_IDS = ("K1", "K2", "K6", "K7", "K6b", "K7b", "K3", "K4", "K5", "K8f",
-              "K8b", "K1h", "K2h")
+              "K8b", "K1h", "K2h", "K9")
+# the ring path: ULTRA's entity tower on an edge mesh of RING_SHARDS shards,
+# all on the card (parallel: {edge: 4}, rspmm_impl: ring, ring_exchange:
+# rdma); ring vs single device on the same card and weights, as the
+# single-device path is held against the CPU
+RING_SHARDS = 4
+RING_SCORE_ATOL = 1e-4
+RING_GRAD_RTOL = 1e-4
 # card vs CPU for classic NBFNet: about 10x the largest reading of five H100
 # runs (scores 4.5e-7, gradients 5.8e-6 norm-wise); the CPU's plain K7 sums in
 # another order, and std = sqrt(clip(sq_mean - mean², 1e-6)) amplifies that
@@ -187,13 +215,20 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of fn() over iters back-to-back calls (CUDA events)."""
+def cuda_time_ms(fn, iters: int, warmup: int = 2,
+                 queue_ahead: bool = False) -> float:
+    """Mean device time of fn() over iters back-to-back calls (CUDA events).
+    With ``queue_ahead`` the device first spins (about 30 ms at the H100's
+    clocks) while the host queues every call, so that a call whose host
+    side takes longer than its kernels is timed by the device, not by the
+    host's pace."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if queue_ahead:
+        torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -209,10 +244,11 @@ def launch_counts() -> dict:
         rspmm_cuda,
         rspmm_pna_cuda,
     )
+    from ultra_torchdrug_tpu_torch.parallel import rdma
 
     counts = {"K1": rspmm_cuda.launches, "K8f": rspmm_cuda.rotate_launches,
-              "K1h": rspmm_cuda.bf16_launches, **rspmm_bwd_cuda.launches,
-              **rspmm_pna_cuda.launches}
+              "K1h": rspmm_cuda.bf16_launches, "K9": rdma.launches,
+              **rspmm_bwd_cuda.launches, **rspmm_pna_cuda.launches}
     return {k: counts[k] for k in KERNEL_IDS}
 
 
@@ -223,8 +259,10 @@ def reset_launch_counts():
         rspmm_pna_cuda,
     )
 
+    from ultra_torchdrug_tpu_torch.parallel import rdma
+
     rspmm_cuda.launches = rspmm_cuda.rotate_launches = 0
-    rspmm_cuda.bf16_launches = 0
+    rspmm_cuda.bf16_launches = rdma.launches = 0
     for counts in (rspmm_bwd_cuda.launches, rspmm_pna_cuda.launches):
         for key in counts:
             counts[key] = 0
@@ -1130,6 +1168,69 @@ def phase_kernels_bf16(und, device) -> dict:
     return entries
 
 
+def phase_kernels_ring(device) -> dict:
+    """K9 against its plain version, bitwise, at ragged shapes and at the
+    ring's shapes (n = 4 shards of v_block = 3,636 rows, F = 1024 and
+    4096 fp32 features), timed beside its plain version and torch.roll;
+    returns its kernels-line entry."""
+    from ultra_torchdrug_tpu_torch.parallel import rdma
+
+    def check(n, vb, F, dtype, seed):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        x = torch.randn((n * vb, F), generator=gen, device=device).to(dtype)
+        got = rdma.ring_shift(x, n)
+        want = rdma.ring_shift_plain(x, n)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K9 n={n} v_block={vb} F={F} {dtype}: "
+                                 "differs from its plain version")
+        return x
+
+    # ragged: 7 x 5 fp32 (140 B) and 7 x 5 bf16 (70 B) blocks are not
+    # multiples of 16 bytes, so blocks after the first are misaligned and
+    # the first has a byte tail; 1 x 3 bf16 is 6 bytes
+    for n in (2, 3, 4):
+        for vb, F in ((7, 5), (1, 3), (64, 256), (3636, 1024)):
+            for dtype in (torch.float32, torch.bfloat16):
+                check(n, vb, F, dtype, seed=n * vb + F)
+    log("[kernels] K9 ragged and full shapes, fp32 and bf16, n = 2, 3, 4: "
+        "bitwise equal to its plain version")
+    n, vb = RING_SHARDS, -(-FULL["num_nodes"] // RING_SHARDS)
+    entry = None
+    for F, which in ((EVAL_BATCH * FEAT, "eval"),
+                     (TRAIN["batch"] * FEAT, "train")):
+        x = check(n, vb, F, torch.float32, seed=F)
+        # the wrapper's host side can outlast the copy: queue the calls
+        # ahead of the device, and print the host-paced time beside it
+        host_ms = cuda_time_ms(lambda: rdma.ring_shift(x, n), 50)
+        ms = cuda_time_ms(lambda: rdma.ring_shift(x, n), 50,
+                          queue_ahead=True)
+        plain_ms = cuda_time_ms(lambda: rdma.ring_shift_plain(x, n), 50,
+                                queue_ahead=True)
+        roll_ms = cuda_time_ms(lambda: torch.roll(x, vb, dims=0), 50,
+                               queue_ahead=True)
+        # a copy reads and writes every byte once; no arithmetic
+        bound_ms, bound_by = roofline_ms(2 * x.numel() * x.element_size(), 0)
+        log(f"[kernels] K9 {which} shape n={n} v_block={vb} F={F}: bitwise "
+            f"equal, {ms:.4f} ms queued ahead, {host_ms:.4f} ms at the "
+            f"host's pace (plain {plain_ms:.4f} ms, torch.roll "
+            f"{roll_ms:.4f} ms, both queued ahead; bound {bound_ms:.4f} ms "
+            f"by {bound_by}, {bound_ms / ms:.1%} of it)")
+        times = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, library_ms=roll_ms,
+                     host_paced_ms=host_ms)
+        if entry is None:
+            entry = dict(name="K9", route="cuda",
+                         source=f"{PACKAGE}/csrc/ring_shift.cu",
+                         replaces="ultra_torchdrug_tpu/parallel/rdma.py:83",
+                         launches=None, max_abs_err=0.0, **times)
+        else:
+            entry.update({f"{k}_train": v for k, v in times.items()})
+        del x
+    log('[kernels] kernels ["K9"]')
+    return entry
+
+
 def k1_operands_of(ops) -> tuple:
     """K1's CSR arrays and weights from a (csr, w, ...) operand tuple."""
     csr, w = ops[:2]
@@ -1198,28 +1299,35 @@ def profile_device_time(label: str, fn):
 
 
 def phase_parity(task, model, device, atol: float = 1e-4,
-                 label: str = "parity"):
-    """Card scores for 2 test queries against the port's CPU run, through
-    the task's scoring hook on the graphs its eval path uses."""
-    batch = torch.from_numpy(task.dataset.test[:2].astype(np.int64))
-    und, rel_graph = task._prepare_graphs(task.fact_graph, task.rel_graph)
-    cpu = torch.device("cpu")
-    cpu_model = copy.deepcopy(model).to(cpu)
+                 label: str = "parity", ref_task=None, ref_device="cpu",
+                 mesh=None, queries: int = 2):
+    """Card scores for ``queries`` test queries against the port's CPU run
+    (or ``ref_task`` on ``ref_device``), through the task's scoring hook on
+    the graphs its eval path uses; ``task`` runs under ``mesh``."""
+    from ultra_torchdrug_tpu_torch.parallel.mesh import use_mesh
+
+    batch = torch.from_numpy(task.dataset.test[:queries].astype(np.int64))
+    ref_device = torch.device(ref_device)
+    ref_model = (model if ref_device == device
+                 else copy.deepcopy(model).to(ref_device))
     results = []
-    with torch.inference_mode():
-        for m, dev, g_und, g_rel in ((model, device, und, rel_graph),
-                                     (cpu_model, cpu, und.to(cpu),
-                                      rel_graph.to(cpu))):
+    for t, m, dev, scope in ((task, model, device, use_mesh(mesh)),
+                             (ref_task or task, ref_model, ref_device,
+                              contextlib.nullcontext())):
+        with scope, torch.inference_mode():
+            g_und, g_rel = (g.to(dev) for g in t._prepare_graphs(
+                t.fact_graph, t.rel_graph))
             b = batch.to(dev)
-            t, h = task._eval_scores(m, task.fact_graph, g_rel, b[:, 0],
-                                     b[:, 1], b[:, 2], g_und)
-            results.append((t.cpu(), h.cpu()))
-    (t_dev, h_dev), (t_cpu, h_cpu) = results
-    for name, a, b in (("tail", t_dev, t_cpu), ("head", h_dev, h_cpu)):
+            s_t, s_h = t._eval_scores(m, t.fact_graph, g_rel, b[:, 0],
+                                      b[:, 1], b[:, 2], g_und)
+            results.append((s_t.cpu(), s_h.cpu()))
+    (t_dev, h_dev), (t_ref, h_ref) = results
+    ref = "single device" if ref_task is not None else str(ref_device)
+    for name, a, b in (("tail", t_dev, t_ref), ("head", h_dev, h_ref)):
         if not torch.isfinite(a).all():
             raise AssertionError(f"non-finite {name} scores on {device}")
         torch.testing.assert_close(a, b, rtol=0, atol=atol)
-        log(f"[{label}] {name} scores {tuple(a.shape)} {device} vs cpu: "
+        log(f"[{label}] {name} scores {tuple(a.shape)} {device} vs {ref}: "
             f"max_abs_err {(a - b).abs().max().item():.3g} (limit {atol:g})")
 
 
@@ -1321,10 +1429,12 @@ def phase_train(engine, size: dict, device, per_step: dict,
 
 
 def phase_train_parity(engine, cpu_task, device, grad_rtol: float = 1e-4,
-                       loss_rtol: float = 1e-5, label: str = "train parity"):
-    """One loss step on the card against the port's CPU run (``cpu_task``,
-    the same task on the CPU): the same weights, the same 2 train triples
-    and 8 injected negatives, on the full graph. Gradients are compared
+                       loss_rtol: float = 1e-5, label: str = "train parity",
+                       ref_device="cpu"):
+    """One loss step on the card (under the engine's mesh) against the
+    port's CPU run (``cpu_task``, the same task on the CPU; or another task
+    on ``ref_device``): the same weights, the same 2 train triples and 8
+    injected negatives, on the full graph. Gradients are compared
     norm-wise per parameter: each is a sum over ~500k edges and V*B rows,
     taken in another order on the card, so single small entries may differ
     in relative terms where the tensor as a whole agrees to fp32 rounding."""
@@ -1332,13 +1442,15 @@ def phase_train_parity(engine, cpu_task, device, grad_rtol: float = 1e-4,
     batch = task.train_triples[:2]
     neg = torch.from_numpy(np.random.default_rng(5).integers(
         0, task.dataset.num_entities, (2, 8)))
-    cpu = torch.device("cpu")
+    cpu = torch.device(ref_device)
     results = []
-    for t, m, dev in ((task, engine.model, device),
-                      (cpu_task, copy.deepcopy(engine.model).to(cpu), cpu)):
+    for t, m, dev, scope in ((task, engine.model, device, engine._mesh_scope()),
+                             (cpu_task, copy.deepcopy(engine.model).to(cpu),
+                              cpu, contextlib.nullcontext())):
         m.zero_grad(set_to_none=True)
-        loss, _ = t.loss_step(m, None, batch, neg=neg.to(dev))
-        loss.backward()
+        with scope:
+            loss, _ = t.loss_step(m, None, batch, neg=neg.to(dev))
+            loss.backward()
         results.append((loss.item(), {k: p.grad.detach().cpu()
                                       for k, p in m.named_parameters()}))
         m.zero_grad(set_to_none=True)
@@ -1356,7 +1468,8 @@ def phase_train_parity(engine, cpu_task, device, grad_rtol: float = 1e-4,
             raise AssertionError(f"gradient {k}: relative error {rel:.3g}")
         worst = max(worst, rel)
         worst_abs = max(worst_abs, (a - b).abs().max().item())
-    log(f"[{label}] loss {device} {loss_dev:.8g} vs cpu {loss_cpu:.8g}; "
+    log(f"[{label}] loss {device} {loss_dev:.8g} vs {ref_device} "
+        f"{loss_cpu:.8g}; "
         f"{len(g_cpu)} gradients: worst norm-wise relative error "
         f"{worst:.3g} (limit {grad_rtol:g}), max_abs_err {worst_abs:.3g}")
 
@@ -1365,7 +1478,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
-        help="cpu rehearses phases 2-25 at a reduced size with the plain "
+        help="cpu rehearses phases 2-30 at a reduced size with the plain "
              "versions and reports no result")
     args = parser.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -1411,6 +1524,7 @@ def main(argv=None) -> int:
         entries.update(phase_kernels_ext(und, device))
         entries.update(phase_kernels_rotate(und, device))
         entries.update(phase_kernels_bf16(und, device))
+        entries["K9"] = phase_kernels_ring(device)
         del und
         torch.cuda.empty_cache()
 
@@ -1485,9 +1599,13 @@ def main(argv=None) -> int:
     # dict through the port's builders, then the CLI on two shipped configs
     runs["ultra bf16"] = run_ultra_bf16(size, device)
     runs["cli"] = phase_cli(device)
+    # ULTRA on the edge-partitioned ring (K1, K2 per bucket, K9), then the
+    # CLI with the ring keys
+    runs["ultra ring"] = run_ultra_ring(size, device)
+    runs["ring cli"] = phase_ring_cli(device)
 
     if not cuda:
-        log("[rehearsal] phases 2-25 ran on the CPU; no kernel ran and no "
+        log("[rehearsal] phases 2-30 ran on the CPU; no kernel ran and no "
             "result is reported")
         return 1
     for e in entries.values():
@@ -1584,6 +1702,154 @@ def run_ultra_bf16(size: dict, device) -> dict:
     return {"eval": eval_counts, "train": train_counts}
 
 
+def ring_config(spec: dict) -> dict:
+    """inference.yaml's model and task (fp32) with the ring keys:
+    parallel: {edge: RING_SHARDS}, rspmm_impl: ring, ring_exchange: rdma."""
+    cfg = inference_config(spec, "float32")
+    cfg["parallel"] = {"edge": RING_SHARDS}
+    cfg["rspmm_impl"] = "ring"
+    cfg["task"]["model"]["ring_exchange"] = "rdma"
+    return cfg
+
+
+def run_ultra_ring(size: dict, device) -> dict:
+    """ULTRA on the ring (``ring_config``) on chip_smoke's KG through
+    build_dataset, mesh_scope, build_task and build_engine: evaluation, its
+    profile and its scores against the single-device model on the same
+    weights on the same device; then Engine.train at batch 64 with 128
+    strict negatives and AdamW, its profile, and one loss step against the
+    single-device step. Returns the launch counts by half."""
+    from ultra_torchdrug_tpu_torch.engine.build import (
+        build_dataset,
+        build_engine,
+        build_task,
+        mesh_scope,
+    )
+    from ultra_torchdrug_tpu_torch.parallel.mesh import use_mesh
+    from ultra_torchdrug_tpu_torch.parallel.ring_rspmm import (
+        build_ring_rspmm_inputs,
+    )
+
+    cuda = device.type == "cuda"
+    spec = {"class": "SynthKG", **size}
+    cfg = ring_config(spec)
+    dataset = build_dataset(cfg["dataset"])
+
+    def ring_task(cfg_task):
+        with mesh_scope(cfg, device) as (mesh, edge_axis, rel_edge_axis):
+            return mesh, build_task(cfg_task, dataset,
+                                    rspmm_impl=cfg["rspmm_impl"],
+                                    device=device, edge_axis=edge_axis,
+                                    rel_edge_axis=rel_edge_axis)
+
+    t0 = time.perf_counter()
+    mesh, task = ring_task(cfg["task"])
+    model = task.init_params(seed=0)
+    seconds = time.perf_counter() - t0
+    # the buckets the task built (balance "auto"), for the launch counts
+    und = task.fact_graph.undirected_with_inverse()
+    ri = build_ring_rspmm_inputs(und.edge_index.numpy(),
+                                 und.edge_type.numpy(), und.num_nodes,
+                                 RING_SHARDS, balance="auto")
+    buckets, steps = ri.nonempty_buckets, RING_SHARDS - 1
+    layers = len(task.model_cfg.entity.hidden_dims)
+    log(f"[ultra ring] {spec}, mesh {mesh.shape} on {mesh.device}, "
+        f"entity tower rspmm_impl={task.model_cfg.entity.rspmm_impl} "
+        f"edge_axis={task.model_cfg.entity.edge_axis!r} ring_exchange="
+        f"{task.model_cfg.entity.ring_exchange}: set-up {seconds:.1f} s; "
+        f"v_block {ri.v_block}, {buckets} of {RING_SHARDS ** 2} buckets "
+        f"with edges (min {ri.edge_counts.min()}, max "
+        f"{ri.edge_counts.max()} edges), relabelled: "
+        f"{ri.to_new is not None}")
+    with use_mesh(mesh):
+        eval_counts = phase_slice(
+            task, model, device, {"K1": 2 * layers * buckets,
+                                  "K9": 2 * layers * steps},
+            label="ultra ring")
+        if cuda:
+            profile_device_time("one ultra ring eval batch",
+                                lambda: task.evaluate(
+                                    model, "test", batch_size=EVAL_BATCH,
+                                    fast_test=EVAL_BATCH))
+    single = build_task(cfg["task"], dataset, device=device)
+    phase_parity(task, model, device, atol=RING_SCORE_ATOL,
+                 label="ultra ring parity", ref_task=single,
+                 ref_device=device, mesh=mesh, queries=EVAL_BATCH)
+    del task, model, single
+
+    train_size = TRAIN if cuda else TRAIN_REHEARSAL
+    cfg["task"]["num_negative"] = train_size["negatives"]
+    cfg["engine"].update(batch_size=train_size["batch"], log_interval=10**9)
+    with tempfile.TemporaryDirectory() as work_dir:
+        mesh, task = ring_task(cfg["task"])
+        engine = build_engine(cfg, task, work_dir=work_dir, seed=0, mesh=mesh)
+        log(f"[ultra ring train] batch {train_size['batch']}, "
+            f"{train_size['negatives']} negatives, {cfg['optimizer']}, "
+            f"engine mesh {engine.mesh.shape}")
+        train_counts = phase_train(engine, train_size, device,
+                                   {"K1": layers * buckets,
+                                    "K2": layers * buckets,
+                                    "K9": 2 * layers * steps},
+                                   label="ultra ring train")
+        if cuda:
+            profile_device_time("one ultra ring train step",
+                                lambda: engine.train(batch_per_epoch=1))
+        single = build_task(dict(cfg["task"], num_negative=8), dataset,
+                            device=device)
+        phase_train_parity(engine, single, device, grad_rtol=RING_GRAD_RTOL,
+                           label="ultra ring train parity",
+                           ref_device=device)
+    return {"eval": eval_counts, "train": train_counts}
+
+
+def phase_ring_cli(device) -> dict:
+    """``run_full.main`` on config/synthetic/smoke.yaml rendered with the
+    ring keys (``ring_config``'s three): one epoch of 5 steps, a checkpoint,
+    a log and anomaly mode on an edge mesh of RING_SHARDS shards. Returns
+    its launch counts; K1, K2 and K9 must launch on the card."""
+    import yaml
+
+    from ultra_torchdrug_tpu_torch import run_full
+
+    with tempfile.TemporaryDirectory() as tmp:
+        text = (REPO / "config/synthetic/smoke.yaml").read_text()
+        cfg = yaml.safe_load(text.replace("{{ outdir }}", tmp))
+        cfg.update(parallel={"edge": RING_SHARDS}, rspmm_impl="ring")
+        cfg["task"]["model"]["ring_exchange"] = "rdma"
+        path = Path(tmp) / "smoke_ring.yaml"
+        path.write_text(yaml.safe_dump(cfg))
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        engine = run_full.main(["-c", str(path), "--device", device.type])
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        files = os.listdir(engine.work_dir)
+        metrics = engine.metrics["test"]
+        entity = engine.task.model_cfg.entity
+        if (engine.epoch != 1 or engine.mesh is None
+                or engine.mesh.edge != RING_SHARDS
+                or entity.edge_axis != "edge"
+                or engine.task.model_cfg.relation.edge_axis != ""
+                or "log.txt" not in files
+                or not any(f.endswith(".ckpt") for f in files)
+                or not all(math.isfinite(v) for v in metrics.values())):
+            raise AssertionError(f"ring cli: epoch {engine.epoch}, mesh "
+                                 f"{engine.mesh}, files {files}, metrics "
+                                 f"{metrics}")
+        used = {k: v for k, v in counts.items() if v}
+        if device.type == "cuda" and not all(used.get(k)
+                                             for k in ("K1", "K2", "K9")):
+            raise AssertionError(f"ring cli: launches {used}")
+        log(f"[ring cli] smoke.yaml with parallel {cfg['parallel']}, "
+            f"rspmm_impl ring, ring_exchange rdma: {seconds:.1f} s on "
+            f"{device}, epoch {engine.epoch}, mesh {engine.mesh.shape}, "
+            f"files {sorted(files)}, test mrr {metrics['mrr']:.6f}, "
+            f"launches {used}")
+    return {"ring smoke": counts}
+
+
 def compare_dtypes(task, f32_task, model, device):
     """The bf16 and the fp32 model (the conv layers carry the compute
     dtype) on the same weights: their score difference for 2 test queries
@@ -1615,8 +1881,6 @@ def phase_cli(device) -> dict:
     ``--dataset SynthKG --epochs 0 --bpe 0 --gpus [0] --ckpt null`` in a
     temporary directory (the config writes under ./output). Returns the
     launch counts of each run; K1 and K2 must launch on the card."""
-    import os
-
     from ultra_torchdrug_tpu_torch import run_full
 
     counts = {}

@@ -18,7 +18,9 @@ contracts the complex product's a·b − c·d into an FMA); K8b takes K2's for
 dx and K3's for dr. K1h and K2h (the bf16 operand mode) take K1's and
 K2's: the operands round to the same bf16 values on both sides and each
 forward message is rounded from the same exact product, so only the order
-of the fp32 sums differs.
+of the fp32 sums differs. K9 (the ring shift) copies bytes: it must equal
+its plain version bitwise; the ring op on the card (K1 and K2 per bucket,
+K9 between steps) takes K1's and K2's tolerances against the CPU.
 """
 
 import numpy as np
@@ -35,6 +37,11 @@ from ultra_torchdrug_tpu_torch.ops.rspmm import (
     generalized_rspmm,
     generalized_rspmm_addsq,
     generalized_rspmm_maxmin,
+)
+from ultra_torchdrug_tpu_torch.parallel import rdma
+from ultra_torchdrug_tpu_torch.parallel.ring_rspmm import (
+    build_ring_rspmm_inputs,
+    ring_rspmm,
 )
 
 pytestmark = pytest.mark.cuda
@@ -612,3 +619,97 @@ def test_bf16_kernels_reject_bad_operands(cuda_device, rng):
     with pytest.raises(ValueError, match="mode"):
         rspmm_cuda.rspmm_fwd_bf16_cuda(csr.rowptr, csr.src, csr.etype,
                                        csr.eid, w, rel, x, "rot_rel")
+
+
+# (n shards, rows per block, features): 7 fp32 rows of 5 features are 140
+# bytes, not a multiple of 16, so the blocks after the first are misaligned
+# (the byte path) and the first one has a byte tail; 1 x 3 bf16 features are
+# 6 bytes
+K9_SHAPES = [(2, 7, 5), (3, 7, 5), (4, 7, 5), (3, 1, 3), (4, 64, 256),
+             (3, 3636, 1024)]
+
+
+@pytest.mark.parametrize("n,vb,F", K9_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k9_matches_plain_bitwise(cuda_device, n, vb, F, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(n * vb + F)
+    x = torch.randn((n * vb, F), generator=gen, device=cuda_device).to(dtype)
+    before = rdma.launches
+    got = rdma.ring_shift(x, n)
+    assert rdma.launches == before + 1
+    want = rdma.ring_shift_plain(x, n)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert torch.equal(got[vb:2 * vb], x[:vb])  # block 0 moved to shard 1
+
+
+def test_k9_takes_separate_blocks(cuda_device):
+    """Per-shard buffers, each its own allocation (the multi-card layout)."""
+    src = [torch.full((5, 3), float(s), device=cuda_device) for s in range(3)]
+    dst = [torch.empty(5, 3, device=cuda_device) for _ in range(3)]
+    rdma.ring_shift_blocks(src, dst)
+    torch.cuda.synchronize()
+    for s in range(3):
+        assert torch.all(dst[(s + 1) % 3] == s)
+
+
+def test_k9_rejects_bad_operands(cuda_device):
+    x = torch.zeros((8, 4), device=cuda_device)
+    blocks = list(x.chunk(4))
+    with pytest.raises(ValueError, match="overlap"):
+        rdma.ring_shift_blocks(blocks, blocks)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        rdma.ring_shift_blocks(blocks, [b.cpu() for b in blocks])
+    with pytest.raises(ValueError, match="one dtype and shape"):
+        rdma.ring_shift_blocks(blocks, [torch.zeros(2, 5, device=cuda_device)
+                                        for _ in blocks])
+    with pytest.raises(ValueError, match="equal blocks"):
+        rdma.ring_shift(x, 3)
+
+
+@pytest.mark.parametrize("n", [2, 3, 4])
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("block_diagonal", [False, True])
+def test_ring_rspmm_card_matches_cpu(cuda_device, rng, n, compute_dtype,
+                                     block_diagonal):
+    """The ring with per-bucket CSRs and the rdma exchange on the card (K1
+    or K1h per non-empty bucket forward, K2 or K2h backward, K9 between
+    steps) against the same op on the CPU (their plain versions), with
+    the launches counted; block_diagonal keeps every edge inside its
+    block, so only the n diagonal buckets have edges."""
+    V, E, R, B, D = 43, 300, 5, 3, 8
+    g = _graph(rng, V, E, R)
+    if block_diagonal:
+        vb = -(-V // n)
+        tri = g.edge_list.numpy().copy()
+        tri[:, 1] = np.minimum((tri[:, 0] // vb) * vb + tri[:, 1] % vb, V - 1)
+        g = Graph.from_triplets(tri, V, R, edge_weight=g.edge_weight.numpy())
+    ei, et = g.edge_index.numpy(), g.edge_type.numpy()
+    ri = build_ring_rspmm_inputs(ei, et, V, n, num_relations=R, pallas=True)
+    rel = torch.from_numpy(rng.normal(size=(R, B, D)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(V, B, D)).astype(np.float32))
+    cot = torch.from_numpy(rng.normal(size=(V, B, D)).astype(np.float32))
+    bf16 = compute_dtype == "bfloat16"
+    fwd_id, bwd_id = ("K1h", "K2h") if bf16 else ("K1", "K2")
+    results = []
+    for dev in ("cpu", cuda_device):
+        r = rel.to(dev).requires_grad_()
+        xx = x.to(dev).requires_grad_()
+        counts = (rspmm_cuda.launches, rspmm_cuda.bf16_launches,
+                  rdma.launches, rspmm_bwd_cuda.launches[bwd_id])
+        out = ring_rspmm(g.edge_weight.to(dev), ri.to(dev), r, xx, msg="mul",
+                         compute_dtype=compute_dtype, exchange="rdma")
+        grads = torch.autograd.grad(out, (r, xx), cot.to(dev))
+        results.append([t.detach().cpu() for t in (out, *grads)])
+        if dev == "cpu":
+            continue
+        k1 = (rspmm_cuda.bf16_launches - counts[1] if bf16
+              else rspmm_cuda.launches - counts[0])
+        assert k1 == ri.nonempty_buckets, fwd_id
+        assert not block_diagonal or ri.nonempty_buckets == n
+        assert (rspmm_bwd_cuda.launches[bwd_id] - counts[3]
+                == ri.nonempty_buckets)
+        assert rdma.launches - counts[2] == 2 * (n - 1)
+    torch.testing.assert_close(results[1][0], results[0][0], **TOL)
+    for a, b in zip(results[0][1:], results[1][1:]):
+        torch.testing.assert_close(b, a, **K2_TOL)

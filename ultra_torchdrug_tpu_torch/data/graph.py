@@ -91,6 +91,42 @@ def _relation_chunks(etype_sorted: np.ndarray, num_relations: int,
     return chunk_ptr, chunk_rel, rel_chunk_ptr
 
 
+def build_csr(src, dst, etype, num_nodes: int, num_relations: int,
+              backward: bool = False, edge_ids=None) -> Csr:
+    """The ``Csr`` of the edges (src[i] -> dst[i], etype[i]) over
+    ``num_nodes`` rows (host numpy arrays in, CPU tensors out). ``eid``
+    fields hold ``edge_ids[i]`` (default i), the edge's index in the weight
+    array that the kernels gather from."""
+    src = np.asarray(src, np.int64)
+    dst = np.asarray(dst, np.int64)
+    et = np.asarray(etype, np.int64)
+    if len(src) > np.iinfo(np.int32).max:
+        raise ValueError(f"{len(src)} edges exceed the int32 CSR")
+    if len(et) and (et.min() < 0 or et.max() >= num_relations):
+        raise ValueError(f"edge types must lie in [0, {num_relations})")
+    ids = (np.arange(len(src)) if edge_ids is None
+           else np.asarray(edge_ids, np.int64))
+
+    def i32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
+
+    by_dst = np.argsort(dst, kind="stable")
+    layouts = dict(rowptr=i32(_rowptr(dst, num_nodes)), src=i32(src[by_dst]),
+                   etype=i32(et[by_dst]), eid=i32(ids[by_dst]))
+    if backward:
+        by_src = np.argsort(src, kind="stable")
+        by_rel = np.argsort(et, kind="stable")
+        chunk_ptr, chunk_rel, rel_chunk_ptr = _relation_chunks(
+            et[by_rel], num_relations, DR_CHUNK_EDGES)
+        layouts.update(
+            src_rowptr=i32(_rowptr(src, num_nodes)), src_dst=i32(dst[by_src]),
+            src_etype=i32(et[by_src]), src_eid=i32(ids[by_src]),
+            rel_src=i32(src[by_rel]), rel_dst=i32(dst[by_rel]),
+            rel_eid=i32(ids[by_rel]), chunk_ptr=i32(chunk_ptr),
+            chunk_rel=i32(chunk_rel), rel_chunk_ptr=i32(rel_chunk_ptr))
+    return Csr(**layouts)
+
+
 @dataclasses.dataclass(frozen=True)
 class Graph:
     """A static-shape relational graph.
@@ -105,6 +141,8 @@ class Graph:
         folded in, so weight-only transforms drop it.
       join_index, join_index_ht: optional ``ops.match.PatternJoinIndex``
         over (h, t, r) and over (h, t) (``prepare_join``); topology only
+      ring_inputs: optional ``parallel.ring_rspmm.RingRspmmInputs``, the
+        ring path's edge buckets (``prepare_ring``); topology only
     """
 
     edge_index: torch.Tensor
@@ -116,6 +154,7 @@ class Graph:
     dense_adj: Optional[torch.Tensor] = None
     join_index: Optional[PatternJoinIndex] = None
     join_index_ht: Optional[PatternJoinIndex] = None
+    ring_inputs: Optional[object] = None
 
     @staticmethod
     def from_triplets(triplets, num_nodes: int, num_relations: int,
@@ -152,6 +191,8 @@ class Graph:
             else self.join_index.to(device),
             join_index_ht=None if self.join_index_ht is None
             else self.join_index_ht.to(device),
+            ring_inputs=None if self.ring_inputs is None
+            else self.ring_inputs.to(device),
         )
 
     @property
@@ -184,8 +225,8 @@ class Graph:
         )
 
     def with_edge_weight(self, edge_weight: torch.Tensor) -> "Graph":
-        # dense_adj has the old weights folded in; the CSR and the join
-        # indexes are topology only
+        # dense_adj has the old weights folded in; the CSR, the join
+        # indexes and the ring buckets are topology only
         return dataclasses.replace(self, edge_weight=edge_weight,
                                    dense_adj=None)
 
@@ -200,33 +241,27 @@ class Graph:
         the source-sorted CSR and the relation-sorted chunks, all stable.
         Host-side, once per topology."""
         ei = self.edge_index.cpu().numpy()
-        et = self.edge_type.cpu().numpy()
-        if len(ei) > np.iinfo(np.int32).max:
-            raise ValueError(f"{len(ei)} edges exceed the int32 CSR")
-        if len(et) and (et.min() < 0 or et.max() >= self.num_relations):
-            raise ValueError(f"edge types must lie in [0, "
-                             f"{self.num_relations})")
+        csr = build_csr(ei[:, 0], ei[:, 1], self.edge_type.cpu().numpy(),
+                        self.num_nodes, self.num_relations, backward)
+        return dataclasses.replace(self, csr=csr.to(self.device))
 
-        def i32(a):
-            return torch.from_numpy(a.astype(np.int32)).to(self.device)
+    def prepare_ring(self, n_shards: int, pallas: bool = False,
+                     balance=False, permuted_io: bool = False,
+                     backward: bool = True) -> "Graph":
+        """Attach the edge buckets of the ring path (parallel/ring_rspmm.py:
+        node rows split into ``n_shards`` blocks, one per edge shard of the
+        mesh). ``pallas`` also builds one ``Csr`` per bucket, so that each
+        ring step runs the rspmm kernels (distmult); ``backward`` gives those
+        their backward layouts. ``balance`` and ``permuted_io`` as in
+        ``build_ring_rspmm_inputs``. Host-side, once per topology."""
+        from ..parallel.ring_rspmm import build_ring_rspmm_inputs
 
-        by_dst = np.argsort(ei[:, 1], kind="stable")
-        layouts = dict(
-            rowptr=i32(_rowptr(ei[:, 1], self.num_nodes)),
-            src=i32(ei[by_dst, 0]), etype=i32(et[by_dst]), eid=i32(by_dst))
-        if backward:
-            by_src = np.argsort(ei[:, 0], kind="stable")
-            by_rel = np.argsort(et, kind="stable")
-            chunk_ptr, chunk_rel, rel_chunk_ptr = _relation_chunks(
-                et[by_rel], self.num_relations, DR_CHUNK_EDGES)
-            layouts.update(
-                src_rowptr=i32(_rowptr(ei[:, 0], self.num_nodes)),
-                src_dst=i32(ei[by_src, 1]), src_etype=i32(et[by_src]),
-                src_eid=i32(by_src),
-                rel_src=i32(ei[by_rel, 0]), rel_dst=i32(ei[by_rel, 1]),
-                rel_eid=i32(by_rel), chunk_ptr=i32(chunk_ptr),
-                chunk_rel=i32(chunk_rel), rel_chunk_ptr=i32(rel_chunk_ptr))
-        return dataclasses.replace(self, csr=Csr(**layouts))
+        ring = build_ring_rspmm_inputs(
+            self.edge_index.cpu().numpy(), self.edge_type.cpu().numpy(),
+            self.num_nodes, n_shards, num_relations=self.num_relations,
+            pallas=pallas, balance=balance, permuted_io=permuted_io,
+            backward=backward)
+        return dataclasses.replace(self, ring_inputs=ring.to(self.device))
 
     def prepare_join(self, one_hop: bool = False) -> "Graph":
         """Attach the sorted-edge ``PatternJoinIndex`` for the per-step

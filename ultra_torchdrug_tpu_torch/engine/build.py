@@ -2,9 +2,13 @@
 dicts in the reference's YAML schema -> dataset, model config, task config,
 task and engine, with the same keys and defaults as the JAX package.
 
-What the port does not carry raises with the ROADMAP Queue 1 item that will
-port it: a ``parallel`` section or ``engine.data_parallel`` > 1 (item 9,
-the port runs on one device and builds no mesh), the inductive and
+A ``parallel: {edge: N}`` section builds an N-shard edge mesh whose shards
+all live on the run's one device (``build_mesh``, ``mesh_scope``); under it
+the entity tower takes the ring with ``rspmm_impl: ring`` (``ring_exchange:
+rdma`` runs kernel K9 for the ring shift). What the port does not carry
+raises with the ROADMAP Queue 1 item that will port it: a data axis
+(``parallel.data`` or ``engine.data_parallel`` > 1) and an edge-sharded
+relation tower (``parallel.relation_edge``) (item 9), the inductive and
 multi-graph task classes (items 3 and 4), ``num_rel_models`` > 1 and the
 shared relation model (item 7), ``engine.steps_per_call`` > 1 (item 7),
 ``engine.logger: wandb`` (item 8), and the task options ``metric_per_rel``,
@@ -15,9 +19,12 @@ memory-only ones as not applied and raise on the rest.
 
 from __future__ import annotations
 
+import contextlib
+
 from ..data import catalog  # noqa: F401  (registers the datasets)
 from ..models.nbfnet import entity_nbfnet_config, rel_nbfnet_config
 from ..models.ultra import UltraConfig
+from ..parallel.mesh import current_mesh, make_mesh, use_mesh
 from ..tasks.task import (
     DEFAULT_TRANSDUCTIVE_METRICS,
     TaskConfig,
@@ -46,13 +53,37 @@ def build_dataset(cfg_dataset: dict):
     return cls(**kwargs)
 
 
-def check_single_device(cfg: dict):
-    """The port runs on one device: a mesh (``parallel``, or
-    ``engine.data_parallel`` > 1) raises."""
-    data_parallel = int(cfg.get("engine", {}).get("data_parallel", 0) or 0)
-    if cfg.get("parallel") or data_parallel > 1:
-        raise _unported("a device mesh (`parallel`, `engine.data_parallel`)",
-                        "item 9")
+def build_mesh(cfg: dict, device=None):
+    """The mesh of the top-level ``parallel: {data: N, edge: M}`` section
+    (or the legacy ``engine.data_parallel``), every shard on ``device``
+    (the card unless the caller names another); None for a 1x1 mesh. A
+    data axis raises (ROADMAP Queue 1 item 9)."""
+    par = cfg.get("parallel") or {}
+    unknown = set(par) - {"data", "edge", "relation_edge"}
+    if unknown:
+        raise KeyError(f"unknown parallel option(s) {sorted(unknown)}")
+    dp = int(par.get("data", 0) or 0)
+    ep = int(par.get("edge", 1) or 1)
+    if not dp:
+        dp = int(cfg.get("engine", {}).get("data_parallel", 0) or 0) or 1
+    if dp * ep <= 1:
+        return None
+    return make_mesh(data=dp, edge=ep, device=device)
+
+
+@contextlib.contextmanager
+def mesh_scope(cfg: dict, device=None):
+    """Build the run's mesh from cfg and make it the active mesh for the
+    scope, which the task reads when it prepares its graphs and the conv
+    when it routes. Yields (mesh, edge_axis, rel_edge_axis): edge_axis is
+    "edge" on a mesh with more than one edge shard, rel_edge_axis is ""
+    unless ``parallel.relation_edge``."""
+    mesh = build_mesh(cfg, device)
+    edge_axis = "edge" if mesh is not None and mesh.edge > 1 else ""
+    rel_edge = (edge_axis if (cfg.get("parallel") or {}).get("relation_edge")
+                else "")
+    with use_mesh(mesh):
+        yield mesh, edge_axis, rel_edge
 
 
 def _resolve_score_chunk(cfg_task: dict, m: dict) -> int:
@@ -67,7 +98,13 @@ def _resolve_score_chunk(cfg_task: dict, m: dict) -> int:
 
 
 def build_model_config(cfg_task: dict, num_relations: int,
-                       rspmm_impl: str = "auto") -> UltraConfig:
+                       rspmm_impl: str = "auto", edge_axis: str = "",
+                       rel_edge_axis: str = None) -> UltraConfig:
+    """The model config of ``cfg_task``; ``edge_axis`` edge-shards the
+    entity tower, ``rel_edge_axis`` the relation tower (not ported)."""
+    if rel_edge_axis:
+        raise _unported("an edge-sharded relation tower "
+                        "(`parallel.relation_edge`)", "item 9")
     m = cfg_task["model"]
     entity = entity_nbfnet_config(
         input_dim=m["input_dim"],
@@ -81,6 +118,7 @@ def build_model_config(cfg_task: dict, num_relations: int,
         num_mlp_layer=int(m.get("num_mlp_layer", 2)),
         project=bool(m.get("project", True)),
         rspmm_impl=rspmm_impl,
+        edge_axis=edge_axis,
         ring_exchange=str(m.get("ring_exchange", "ppermute")),
         remat=m.get("remat", cfg_task.get("remat", False)),
         compute_dtype=str(m.get("compute_dtype", "float32")),
@@ -138,23 +176,31 @@ def build_task_config(cfg_task: dict,
 
 
 def build_task(cfg_task: dict, dataset, rspmm_impl: str = "auto",
-               seed: int = 0, device=None) -> TransductiveKGTask:
+               seed: int = 0, device=None, edge_axis: str = "",
+               rel_edge_axis: str = None) -> TransductiveKGTask:
     """The task of ``cfg_task`` on ``dataset``, on ``device`` (the card
-    unless the caller names another, as ``default_device`` says)."""
+    unless the caller names another, as ``default_device`` says). Under an
+    edge mesh (``mesh_scope``) with ``edge_axis`` and ``rspmm_impl: ring``
+    its propagation graph gets the ring's buckets."""
     cls_name = cfg_task["class"]
     if cls_name in _UNPORTED_TASKS:
         raise _unported(f"task class {cls_name}", _UNPORTED_TASKS[cls_name])
     if cls_name not in _TRANSDUCTIVE:
         raise KeyError(f"unknown task class {cls_name!r}")
     model_cfg = build_model_config(cfg_task, dataset.num_relations,
-                                   rspmm_impl)
+                                   rspmm_impl, edge_axis=edge_axis,
+                                   rel_edge_axis=rel_edge_axis)
     return TransductiveKGTask(dataset, model_cfg, build_task_config(cfg_task),
                               seed=seed, device=device)
 
 
-def build_engine(cfg: dict, task, work_dir: str = ".",
-                 seed: int = 1024) -> Engine:
-    check_single_device(cfg)
+def build_engine(cfg: dict, task, work_dir: str = ".", seed: int = 1024,
+                 mesh=None) -> Engine:
+    """The engine of ``cfg`` over ``task``; its mesh is ``mesh``, else the
+    active one, else the one ``cfg`` describes (``build_mesh``)."""
+    if mesh is None:
+        mesh = current_mesh() or build_mesh(cfg, getattr(task, "device",
+                                                         None))
     opt = cfg.get("optimizer", {})
     eng_cfg = cfg.get("engine", {})
     # the reference applies train.clip_grad only under cfg.debug;
@@ -176,4 +222,5 @@ def build_engine(cfg: dict, task, work_dir: str = ".",
         log_interval=int(eng_cfg.get("log_interval", 100)),
         seed=seed,
         work_dir=work_dir,
+        mesh=mesh,
     )

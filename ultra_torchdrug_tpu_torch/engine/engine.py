@@ -8,20 +8,25 @@ Negatives come from a ``torch.Generator`` seeded with the same seed. Steps
 run eagerly: loss, ``torch.autograd.grad``, then the optimizer.
 
 Checkpoints (``save``/``load``) are native: ``torch.save`` of the model's
-state dict, the optimizer's state and the epoch. Not ported yet:
-``steps_per_call``, the device mesh, fail-soft OOM demotion,
+state dict, the optimizer's state and the epoch. ``mesh`` (parallel/mesh.py)
+is the run's device mesh: ``train`` and ``evaluate`` run under it, so that a
+task whose graphs were prepared under an edge mesh takes the ring. Not
+ported yet:
+``steps_per_call``, data parallelism, fail-soft OOM demotion,
 ``MultiGraphPretrainTask`` and ``.pth`` import with ``fix_reasoner``
 (ROADMAP Queue 1 items 7, 9, 5, 4 and 2).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..parallel.mesh import use_mesh
 from ..utils.logging import Meter, get_root_logger
 
 
@@ -105,8 +110,10 @@ class Engine:
     def __init__(self, task, batch_size: int = 64, optimizer: str = "AdamW",
                  lr: float = 5e-4, gradient_interval: int = 1,
                  clip_grad: Optional[float] = None, log_interval: int = 100,
-                 seed: int = 1024, work_dir: str = ".", logger=None):
+                 seed: int = 1024, work_dir: str = ".", logger=None,
+                 mesh=None):
         self.task = task
+        self.mesh = mesh
         self.batch_size = batch_size
         self.work_dir = work_dir
         self.logger = logger or get_root_logger(
@@ -159,8 +166,17 @@ class Engine:
         self.optimizer.step(grads)
         return metrics
 
+    def _mesh_scope(self):
+        """The engine's mesh, active; the caller's scope when it has none."""
+        return (contextlib.nullcontext() if self.mesh is None
+                else use_mesh(self.mesh))
+
     def train(self, num_epoch: int = 1,
               batch_per_epoch: Optional[int] = None) -> None:
+        with self._mesh_scope():
+            self._train(num_epoch, batch_per_epoch)
+
+    def _train(self, num_epoch: int, batch_per_epoch: Optional[int]) -> None:
         for _ in range(num_epoch):
             self.epoch += 1
             for batch in self._epoch_batches(batch_per_epoch):
@@ -172,8 +188,9 @@ class Engine:
 
     def evaluate(self, split: str, fast_test: Optional[int] = None) -> dict:
         self.logger.info(f"Evaluate on {split}")
-        metrics = self.task.evaluate(self.model, split, self.batch_size,
-                                     fast_test=fast_test)
+        with self._mesh_scope():
+            metrics = self.task.evaluate(self.model, split, self.batch_size,
+                                         fast_test=fast_test)
         self.meter.log_dict(metrics, category=f"{split}/epoch {self.epoch}")
         self.metrics[split] = metrics
         return metrics

@@ -27,6 +27,16 @@ min and rotate stay fp32; distmult PNA leaves the fused moments pair (fp32
 only) for two K1h sums, (rel, x) and (rel², x²), and keeps K6 for max and
 min. Node states are carried flat, [V, B*D] with b-major features, as in
 the JAX package.
+
+Under an active mesh with an edge axis (parallel/mesh.py), a conv with
+``rspmm_impl="ring"`` and ``edge_axis`` set sends its distmult and transe
+sums through the ring (parallel/ring_rspmm.py) when the graph carries ring
+buckets (``Graph.prepare_ring``), with the JAX package's rules: buckets
+built with ``permuted_io`` need the caller to pass block-domain states
+(``block_domain``; ``ring_block_domain`` says when the entity tower can),
+and otherwise the sums take the single-device route. Max and pna under an
+active edge mesh raise: their ring schedules are not ported yet (ROADMAP
+Queue 1 item 9). Off the mesh, ``ring`` runs the single-device kernels.
 """
 
 from __future__ import annotations
@@ -47,6 +57,8 @@ from ..ops.rspmm import (
     generalized_rspmm_maxmin,
     rotate_aggregate,
 )
+from ..parallel.mesh import current_mesh
+from ..parallel.ring_rspmm import ring_rspmm
 
 _MESSAGES = {"distmult": "mul", "transe": "add", "rotate": "rotate"}
 _AGGREGATIONS = tuple(f"{base}{bound}" for base in ("sum", "mean", "max", "pna")
@@ -75,6 +87,64 @@ class ConvConfig:
     rel_mode: str = "injected"  # embedding | dependent | injected
     project: bool = True  # injected mode: per-layer MLP on relation vectors
     compute_dtype: str = "float32"  # bfloat16: bf16 operands, fp32 sums
+    rspmm_impl: str = "auto"  # auto (the kernels) | ring (edge mesh only)
+    edge_axis: str = ""  # the mesh axis of the edge partition ("" = off)
+    ring_exchange: str = "ppermute"  # ppermute | rdma (kernel K9)
+
+
+def ring_active(cfg: ConvConfig) -> bool:
+    """Whether the conv's sums ride the ring: ``rspmm_impl="ring"`` with an
+    ``edge_axis`` that the active mesh has."""
+    if cfg.rspmm_impl != "ring" or not cfg.edge_axis:
+        return False
+    mesh = current_mesh()
+    return mesh is not None and cfg.edge_axis in mesh.axis_names
+
+
+def _check_ring_aggregation(cfg: ConvConfig):
+    base = cfg.aggregate_func.replace("_nobound", "")
+    if base not in ("sum", "mean") and cfg.message_func != "rotate":
+        raise NotImplementedError(
+            f"aggregate_func={cfg.aggregate_func!r} on the ring (the max/min "
+            "and moments ring schedules) is not ported yet (ROADMAP Queue 1 "
+            "item 9); under an active edge mesh the ring takes sum and mean")
+
+
+def ring_block_domain(cfg: ConvConfig, graph):
+    """The graph's ``RingRspmmInputs`` when every spmm of a propagation over
+    ``graph`` rides the ring with ``permuted_io`` (the model then carries
+    node states as padded block-domain rows for the whole stack), else None.
+    Mirrors conv_apply's routing: off the mesh, for rotate messages or
+    without permuted-IO buckets the states stay in original order. Raises
+    for the aggregations whose ring schedules are not ported."""
+    ri = getattr(graph, "ring_inputs", None)
+    if ri is None or not ri.permuted_io or not ring_active(cfg):
+        return None
+    if cfg.message_func not in ("distmult", "transe"):
+        return None
+    _check_ring_aggregation(cfg)
+    return ri
+
+
+def _ring_route(cfg: ConvConfig, graph, block_domain: bool):
+    """The ring inputs that this conv's sums take, or None: buckets built
+    with ``permuted_io`` must never meet original-order states."""
+    if not ring_active(cfg):
+        return None
+    ri = getattr(graph, "ring_inputs", None)
+    if ri is None or (ri.permuted_io and not block_domain):
+        return None
+    return ri
+
+
+def block_degree(graph, ring) -> torch.Tensor:
+    """The weighted in-degree plus one, [V]; with ``ring`` in its block
+    domain, [n * v_block]: pad rows get 1 and relabelled rows move."""
+    degree = graph.degree_out() + 1.0
+    if ring is None:
+        return degree
+    degree = torch.cat([degree, degree.new_ones(ring.v_pad - degree.shape[0])])
+    return degree if ring.to_old is None else degree[ring.to_old]
 
 
 class GeneralizedRelationalConv(nn.Module):
@@ -107,8 +177,10 @@ class GeneralizedRelationalConv(nn.Module):
         else:
             raise ValueError(f"unknown rel_mode {cfg.rel_mode!r}")
 
-    def forward(self, graph, x, boundary, query=None, rel_injected=None):
-        return conv_apply(self, graph, x, boundary, query, rel_injected)
+    def forward(self, graph, x, boundary, query=None, rel_injected=None,
+                block_domain=False):
+        return conv_apply(self, graph, x, boundary, query, rel_injected,
+                          block_domain)
 
 
 def _relation_input(layer: GeneralizedRelationalConv, query, rel_injected):
@@ -131,7 +203,8 @@ def _relation_input(layer: GeneralizedRelationalConv, query, rel_injected):
 
 def conv_apply(layer: GeneralizedRelationalConv, graph, x: torch.Tensor,
                boundary: torch.Tensor, query: Optional[torch.Tensor] = None,
-               rel_injected: Optional[torch.Tensor] = None) -> torch.Tensor:
+               rel_injected: Optional[torch.Tensor] = None,
+               block_domain: bool = False) -> torch.Tensor:
     """One message-passing step.
 
     graph: data.Graph (undirected+inverse where applicable), carrying a CSR
@@ -141,6 +214,8 @@ def conv_apply(layer: GeneralizedRelationalConv, graph, x: torch.Tensor,
       comes back [V, B, output_dim])
     query: [B, Q] ("dependent" mode); rel_injected: [R, D] or [B, R, D]
       ("injected" mode)
+    block_domain: x and boundary are rows of the graph's ring block domain
+      (``ring_block_domain``); required for permuted-IO ring buckets
     Returns flat [V, B*output_dim] (or [V, B, output_dim] for 3-D input).
     """
     cfg = layer.cfg
@@ -156,6 +231,9 @@ def conv_apply(layer: GeneralizedRelationalConv, graph, x: torch.Tensor,
     rel_flat = broadcast_rel_flat(rel, B)
     base = cfg.aggregate_func.replace("_nobound", "")
     bounded = not cfg.aggregate_func.endswith("_nobound")
+    if ring_active(cfg):
+        _check_ring_aggregation(cfg)
+    ring = _ring_route(cfg, graph, block_domain)
     if base == "pna":
         update = _pna_update(cfg, graph, rel_flat, x, boundary, msg)
     elif base == "max":
@@ -165,7 +243,12 @@ def conv_apply(layer: GeneralizedRelationalConv, graph, x: torch.Tensor,
             # torch.maximum splits the gradient at ties, as jnp.maximum does
             update = torch.maximum(update, boundary)
     else:  # sum, mean
-        if graph.dense_adj is not None and msg != "rotate":
+        if ring is not None and msg != "rotate":
+            update = ring_rspmm(graph.edge_weight, ring, rel_flat, x,
+                                msg=msg, compute_dtype=cfg.compute_dtype,
+                                exchange=cfg.ring_exchange)
+        elif (graph.dense_adj is not None and msg != "rotate"
+              and not cfg.edge_axis):
             # small dense graph (the ULTRA relation graph): per-etype matmuls
             update = dense_rspmm(graph.dense_adj, rel_flat, x, msg=msg)
         else:
@@ -174,7 +257,8 @@ def conv_apply(layer: GeneralizedRelationalConv, graph, x: torch.Tensor,
         if bounded:
             update = update + boundary
         if base == "mean":
-            update = update / (graph.degree_out() + 1.0)[:, None]
+            degree = block_degree(graph, ring if block_domain else None)
+            update = update / degree[:, None]
 
     # cat([x, update]) @ W^T split into x @ W[:, :D]^T + update @ W[:, D:]^T:
     # the same math without materializing the [V, B, 2D] concat

@@ -9,7 +9,11 @@ ultra_torchdrug_tpu/models/nbfnet.py).
     relation representations; boundary = query vector at the source entity;
     final [state ; query] -> MLP -> one score per entity.
 
-Propagation state is carried flat, [V, B*D] with b-major features.
+Propagation state is carried flat, [V, B*D] with b-major features. Under
+an active edge mesh with ring buckets on the entity graph
+(``layers.ring_block_domain``), the entity tower carries it in the ring's
+padded block domain, [n * v_block, B*D] rows relabelled when degree-
+balanced: only the boundary scatter and the readout map indices.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from torch import nn
 from ..nn.core import MLP
 from ..ops.rspmm import COMPUTE_DTYPES
 from ..utils.logging import LOGGER_NAME
-from .layers import ConvConfig, GeneralizedRelationalConv
+from .layers import ConvConfig, GeneralizedRelationalConv, ring_block_domain
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +44,9 @@ class NBFNetConfig:
     rel_mode: str = "injected"
     project: bool = True
     compute_dtype: str = "float32"  # bfloat16: K1h/K2h on the sparse sums
+    rspmm_impl: str = "auto"  # auto (the kernels) | ring (edge mesh only)
+    edge_axis: str = ""  # the mesh axis of the edge partition ("" = off)
+    ring_exchange: str = "ppermute"  # ppermute | rdma (kernel K9)
 
     def layer_configs(self):
         dims = [self.input_dim] + list(self.hidden_dims)
@@ -55,6 +62,9 @@ class NBFNetConfig:
                 rel_mode=self.rel_mode,
                 project=self.project,
                 compute_dtype=self.compute_dtype,
+                rspmm_impl=self.rspmm_impl,
+                edge_axis=self.edge_axis,
+                ring_exchange=self.ring_exchange,
             )
             for i in range(len(dims) - 1)
         ]
@@ -67,20 +77,37 @@ _MEMORY_ONLY = {"remat": (False, None, "none"), "stack": ("auto",),
                 "micro_batch": (0,), "score_chunk": (0,)}
 # options the port reproduces only at the value given, by the ROADMAP item
 # that ports the others
-_FIXED = {"concat_hidden": (False, "item 6"), "edge_axis": ("", "item 9"),
-          "ring_exchange": ("ppermute", "item 9"),
+_FIXED = {"concat_hidden": (False, "item 6"),
           "learn_query": (False, "item 7")}
+_EXCHANGES = ("ppermute", "rdma")
 
 
-def _check_options(where: str, rspmm_impl: str, options: dict):
-    """Apply the JAX package's config options that the port does not carry:
-    the memory-only ones are logged as not applied, the fixed ones must
-    have the value the port reproduces, and anything else raises."""
-    if rspmm_impl not in ("auto", "pallas"):
-        item = "item 9" if rspmm_impl == "ring" else "item 7"
+def _check_options(where: str, rspmm_impl: str, options: dict) -> dict:
+    """Apply the JAX package's config options: the memory-only ones are
+    logged as not applied, the fixed ones must have the value the port
+    reproduces, the edge-mesh ones (``edge_axis``, ``ring_exchange``) are
+    checked and returned with ``rspmm_impl`` ("auto" for 'auto' and
+    'pallas', which both take the port's kernels, or "ring"), and anything
+    else raises."""
+    if rspmm_impl not in ("auto", "pallas", "ring"):
         raise NotImplementedError(
             f"{where}: rspmm_impl={rspmm_impl!r} is not ported (ROADMAP Queue "
-            f"1 {item}); 'auto' and 'pallas' take the port's kernels")
+            "1 item 7); 'auto' and 'pallas' take the port's kernels, 'ring' "
+            "the edge-partitioned ring under an edge mesh")
+    edge_axis = options.pop("edge_axis", "")
+    ring_exchange = options.pop("ring_exchange", "ppermute")
+    if edge_axis not in ("", "edge"):
+        raise ValueError(f"{where}: edge_axis must be '' or 'edge', got "
+                         f"{edge_axis!r}")
+    if ring_exchange not in _EXCHANGES:
+        raise ValueError(f"{where}: ring_exchange must be one of "
+                         f"{_EXCHANGES}, got {ring_exchange!r}")
+    if edge_axis and rspmm_impl != "ring":
+        raise NotImplementedError(
+            f"{where}: edge_axis={edge_axis!r} with rspmm_impl="
+            f"{rspmm_impl!r} selects the partitioned path "
+            "(parallel/sharded_rspmm.py), which is not ported yet (ROADMAP "
+            "Queue 1 item 9); rspmm_impl='ring' takes the ring")
     for key, value in options.items():
         if key in _MEMORY_ONLY:
             if value not in _MEMORY_ONLY[key]:
@@ -95,6 +122,8 @@ def _check_options(where: str, rspmm_impl: str, options: dict):
                     f"{item}); the port runs {key}={want!r}")
         else:
             raise TypeError(f"{where}: unknown option {key!r}")
+    return dict(rspmm_impl="ring" if rspmm_impl == "ring" else "auto",
+                edge_axis=edge_axis, ring_exchange=ring_exchange)
 
 
 def _check_dtype(where: str, compute_dtype: str):
@@ -112,7 +141,7 @@ def rel_nbfnet_config(input_dim: int = 64, hidden: int = 64,
     embeddings. ``options`` are the JAX function's others (``edge_axis``,
     ``learn_query``, ``remat``, ``stack``, ``ring_exchange``), applied as
     ``_check_options`` says."""
-    _check_options("rel_nbfnet_config", rspmm_impl, options)
+    mesh_opts = _check_options("rel_nbfnet_config", rspmm_impl, options)
     _check_dtype("rel_nbfnet_config", compute_dtype)
     return NBFNetConfig(
         input_dim=input_dim,
@@ -125,6 +154,7 @@ def rel_nbfnet_config(input_dim: int = 64, hidden: int = 64,
         rel_mode="embedding",
         project=False,
         compute_dtype=compute_dtype,
+        **mesh_opts,
     )
 
 
@@ -142,7 +172,7 @@ def entity_nbfnet_config(input_dim: int = 64,
     ``ring_exchange``, ``remat``, ``stack``, ``micro_batch``,
     ``score_chunk``) are applied as ``_check_options`` says: the port
     raises on every option or value it does not honour."""
-    _check_options("entity_nbfnet_config", rspmm_impl, options)
+    mesh_opts = _check_options("entity_nbfnet_config", rspmm_impl, options)
     _check_dtype("entity_nbfnet_config", compute_dtype)
     return NBFNetConfig(
         input_dim=input_dim,
@@ -156,6 +186,7 @@ def entity_nbfnet_config(input_dim: int = 64,
         rel_mode="injected",
         project=project,
         compute_dtype=compute_dtype,
+        **mesh_opts,
     )
 
 
@@ -187,12 +218,13 @@ class RelNBFNet(nn.Module):
 
 
 def _propagate(tower: NBFNet, graph, boundary, query=None,
-               rel_injected=None):
+               rel_injected=None, block_domain=False):
     """Run the conv stack from the boundary condition; returns the final flat
-    [V, B*D] hidden state."""
+    [V, B*D] hidden state (block-domain rows with ``block_domain``)."""
     x = boundary
     for layer in tower.layers:
-        h = layer(graph, x, boundary, query=query, rel_injected=rel_injected)
+        h = layer(graph, x, boundary, query=query, rel_injected=rel_injected,
+                  block_domain=block_domain)
         if tower.cfg.short_cut and h.shape == x.shape:
             h = h + x
         x = h
@@ -235,9 +267,27 @@ def entity_nbfnet_score_all(tower: NBFNet, graph, rel_queries,
     B = source.shape[0]
     query = rel_queries[torch.arange(B, device=source.device), query_rel]
     V = graph.num_nodes
-    boundary = _flat_boundary(V, B, tower.cfg.input_dim, source, query)
-    final = _propagate(tower, graph, boundary, rel_injected=rel_queries)
-    return score_heads(tower.mlp, final, query, targets)
+    # the ring's permuted IO: the propagation runs in the padded block
+    # domain; the boundary goes to the relabelled source rows, and the
+    # readout reads the relabelled target rows (or maps the score columns
+    # back to entity order), never a pad row
+    ring = ring_block_domain(tower.cfg.layer_configs()[0], graph)
+    if ring is None:
+        rows, to_new = V, None
+    else:
+        rows, to_new = ring.v_pad, ring.to_new
+    boundary = _flat_boundary(rows, B, tower.cfg.input_dim,
+                              source if to_new is None else to_new[source],
+                              query)
+    final = _propagate(tower, graph, boundary, rel_injected=rel_queries,
+                       block_domain=ring is not None)
+    if targets is not None:
+        return score_heads(tower.mlp, final, query,
+                           targets if to_new is None else to_new[targets])
+    scores = score_heads(tower.mlp, final, query)  # [B, rows]
+    if ring is None:
+        return scores
+    return scores[:, :V] if to_new is None else scores[:, to_new]
 
 
 def score_heads(mlp: MLP, final, query, targets=None):

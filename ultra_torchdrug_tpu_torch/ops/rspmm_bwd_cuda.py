@@ -104,10 +104,11 @@ def check_bwd_operands(kernel: str, csr, layout, edge_weight, relation, x,
         if t.shape != like.shape:
             raise ValueError(f"{name} {tuple(t.shape)} != "
                              f"{tuple(like.shape)}")
-    num_edges = edge_weight.numel()
+    # edge_weight is gathered through the eid arrays: it may be longer than
+    # the layouts (a ring bucket's CSR indexes the whole graph's weights)
+    num_edges = csr.src_dst.numel()
     if any(getattr(csr, n).numel() != num_edges for n in _PER_EDGE):
-        raise ValueError("the layouts and edge_weight must have one entry "
-                         "per edge")
+        raise ValueError("the layouts must have one entry per edge")
     num_rows, num_features = like.shape
     num_relations = csr.rel_chunk_ptr.numel() - 1
     if csr.src_rowptr.numel() - 1 != num_rows:

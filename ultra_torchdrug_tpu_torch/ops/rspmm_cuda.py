@@ -164,11 +164,11 @@ def check_fwd_operands(kernel: str, rowptr, src, etype, eid, edge_weight,
     _check("edge_weight", edge_weight, torch.float32, device, 1)
     _check("relation", relation, dtype, device, 2)
     _check("x", x, dtype, device, 2)
+    # edge_weight is gathered through eid: it may be longer than the CSR
+    # (a ring bucket's CSR indexes the whole graph's weights)
     num_edges = src.numel()
-    if (etype.numel() != num_edges or eid.numel() != num_edges
-            or edge_weight.numel() != num_edges):
-        raise ValueError("src, etype, eid and edge_weight must have one "
-                         "entry per edge")
+    if etype.numel() != num_edges or eid.numel() != num_edges:
+        raise ValueError("src, etype and eid must have one entry per edge")
     if relation.shape[1] != x.shape[1]:
         raise ValueError(f"relation width {relation.shape[1]} != x width "
                          f"{x.shape[1]}")

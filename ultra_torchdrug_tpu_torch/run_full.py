@@ -6,9 +6,13 @@ config -> dataset -> task -> engine -> train and validate -> test.
 
 Undeclared template variables in the YAML become required flags, as in the
 reference's run_full. ``--gpus`` is accepted where a config asks for it and
-ignored: the port runs on one device, the card unless ``--device`` names
-another. ``main`` parses the flags and loads the YAML (the only place that
-needs yaml and jinja2); ``run`` does the rest from the loaded dict.
+ignored: the run uses one device, the card unless ``--device`` names
+another. A ``parallel: {edge: N}`` section builds an N-shard edge mesh on
+that device (engine/build.py::mesh_scope), active around the task, the
+engine, training and evaluation; with ``rspmm_impl: ring`` the entity tower
+then takes the ring path. ``main`` parses the flags and loads the YAML (the
+only place that needs yaml and jinja2); ``run`` does the rest from the
+loaded dict.
 """
 
 from __future__ import annotations
@@ -25,7 +29,12 @@ import numpy as np
 import torch
 
 from . import default_device
-from .engine.build import build_dataset, build_engine, build_task
+from .engine.build import (
+    build_dataset,
+    build_engine,
+    build_task,
+    mesh_scope,
+)
 from .engine.engine import Engine
 from .utils.debug import setup_debug_hook
 from .utils.logging import create_working_directory, get_root_logger
@@ -92,18 +101,21 @@ def run(cfg: dict, seed: int = 1024, device=None,
     if cfg.get("debug"):
         setup_debug_hook()
     dataset = build_dataset(cfg["dataset"])
-    task = build_task(cfg["task"], dataset,
-                      rspmm_impl=cfg.get("rspmm_impl", "auto"), seed=seed,
-                      device=device)
-    engine = build_engine(cfg, task, work_dir=work_dir, seed=seed)
-    if cfg.get("checkpoint") not in (None, "null", "None"):
-        engine.load(os.path.expanduser(str(cfg["checkpoint"])),
-                    fix_reasoner=bool(cfg.get("fix_reasoner", False)))
-    anomaly = (torch.autograd.detect_anomaly() if cfg.get("detect_anomaly")
-               else contextlib.nullcontext())
-    with anomaly:
-        train_and_validate(cfg, engine, logger)
-        test(cfg, engine)
+    with mesh_scope(cfg, device) as (mesh, edge_axis, rel_edge_axis):
+        task = build_task(cfg["task"], dataset,
+                          rspmm_impl=cfg.get("rspmm_impl", "auto"), seed=seed,
+                          device=device, edge_axis=edge_axis,
+                          rel_edge_axis=rel_edge_axis)
+        engine = build_engine(cfg, task, work_dir=work_dir, seed=seed,
+                              mesh=mesh)
+        if cfg.get("checkpoint") not in (None, "null", "None"):
+            engine.load(os.path.expanduser(str(cfg["checkpoint"])),
+                        fix_reasoner=bool(cfg.get("fix_reasoner", False)))
+        anomaly = (torch.autograd.detect_anomaly()
+                   if cfg.get("detect_anomaly") else contextlib.nullcontext())
+        with anomaly:
+            train_and_validate(cfg, engine, logger)
+            test(cfg, engine)
     return engine
 
 

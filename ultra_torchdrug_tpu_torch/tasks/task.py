@@ -27,7 +27,7 @@ from ..data.datasets import TransductiveDataset
 from ..data.graph import Graph
 from ..data.relgraph import build_relation_graph
 from ..models.classic_nbfnet import classic_nbfnet_init, classic_score_all
-from ..models.layers import sparse_only
+from ..models.layers import _check_ring_aggregation, ring_active, sparse_only
 from ..models.nbfnet import NBFNetConfig
 from ..models.ultra import (
     UltraConfig,
@@ -40,6 +40,7 @@ from ..models.ultra import (
 )
 from ..ops.match import head_truth_mask, tail_truth_mask
 from ..ops.sampling import strict_negatives
+from ..parallel.mesh import current_mesh
 from .kg import (
     bce_self_adversarial,
     cross_entropy_positive,
@@ -116,8 +117,18 @@ class _TaskBase:
         graph with its dense adjacency when it is small and dense enough,
         and its CSR when it has none or when the relation tower's conv
         reaches the sparse ops on every graph (max, pna, rotate), on the
-        task's device."""
+        task's device. Under an active edge mesh with ``rspmm_impl="ring"``
+        the propagation graph also gets the ring's buckets
+        (``Graph.prepare_ring``): per-bucket CSRs for distmult,
+        degree-balanced when the contiguous split is not, permuted IO. It
+        keeps its CSR for the single-device route off the mesh."""
         und = fact_graph.undirected_with_inverse().prepare_csr(backward)
+        n_shards = self._ring_shards()
+        if n_shards:
+            und = und.prepare_ring(
+                n_shards, pallas=self.model_cfg.entity.message_func
+                == "distmult", balance="auto", permuted_io=True,
+                backward=backward)
         rel_graph = rel_graph.prepare_dense()
         relation = self.model_cfg.relation
         if (rel_graph.dense_adj is None
@@ -125,6 +136,22 @@ class _TaskBase:
                                relation.message_func)):
             rel_graph = rel_graph.prepare_csr(backward)
         return und.to(self.device), rel_graph.to(self.device)
+
+    def _ring_shards(self) -> int:
+        """The edge shards of the active mesh when the entity tower rides
+        the ring (``rspmm_impl="ring"`` with an ``edge_axis`` the mesh has),
+        else 0. The relation tower stays replicated and dense; an edge axis
+        on it (``parallel.relation_edge``) raises."""
+        entity = self.model_cfg.entity
+        layer_cfg = entity.layer_configs()[0]
+        if not ring_active(layer_cfg):
+            return 0
+        if self.model_cfg.relation.edge_axis:
+            raise NotImplementedError(
+                "an edge-sharded relation tower (parallel.relation_edge) is "
+                "not ported yet (ROADMAP Queue 1 item 9)")
+        _check_ring_aggregation(layer_cfg)
+        return current_mesh().shape[entity.edge_axis]
 
     def _build_loss_fn(self, fact_graph: Graph, rel_graph: Graph,
                        num_nodes: int):
