@@ -3,7 +3,7 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py                # on a machine with the card
-    python3 chip_smoke.py --device cpu   # rehearsal of phases 2-30, reduced size
+    python3 chip_smoke.py --device cpu   # rehearsal of phases 1b-30, small
 
 Phases, each of which raises on failure (the script then exits nonzero):
 
@@ -42,6 +42,20 @@ Phases, each of which raises on failure (the script then exits nonzero):
               eval and training shapes (n = 4, v_block = 3,636, F = 1024
               and 4096), and time it beside its plain version and
               torch.roll;
+ 1b. ladder   hold every variant of the K1 strip-down ladder
+              (csrc/rspmm_ladder.cu, ops/rspmm_ladder_cuda.py) against its
+              plain version at ragged shapes (F = 10, 64, 1028; empty
+              rows; a row of 700 edges, longer than one split segment; eid
+              not the identity), full bitwise against K1 and packed, ftile
+              and nowrite against full; then run the ladder tools at their
+              default, full sizes with every variant, each between a reset
+              and a read of the launch counts: P1
+              (diagnostics/kernel_floor.py, 524,288 edges into 256 rows)
+              and P2 (diagnostics/blocked_ladder.py, bench.py's
+              heavy-tailed KG, 557,056 edges, its JSON under output/),
+              one [ladder] line per workload and variant; every variant
+              must launch and no model kernel; on the CPU a tiny size with
+              the plain versions;
   2. slice    zero-shot evaluation of ULTRA (6x64 towers, seeded weights) on a
               synthetic KG of FB15k-237's size: 64 test triples in batches of
               16, through TransductiveKGTask.evaluate; K1 must launch 12 times
@@ -112,10 +126,10 @@ Phases, each of which raises on failure (the script then exits nonzero):
 
 The last lines are a JSON object with one entry per kernel (K1, K2, K6,
 K7, K6b, K7b, K3, K4, K5, K8f, K8b, K1h, K2h, K9; launches summed over the
-measured runs of phases 2-30, by path in ``launches_by_path``), then
-{"ok": true,
-"device": {...}}. With no card the script prints no result and exits
-nonzero; it imports nothing of JAX.
+measured runs of phases 2-30, by path in ``launches_by_path``; P1 and P2
+with full's numbers and their launches in the tools' runs of phase 1b),
+then {"ok": true, "device": {...}}. With no card the script prints no
+result and exits nonzero; it imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -137,11 +151,18 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 PACKAGE = "ultra_torchdrug_tpu_torch"
-
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s outside the
-# tensor cores
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOPS = 67e12
+sys.path.insert(0, str(REPO))
+try:
+    # the timing and bound helpers, shared with the ladder tools
+    from ultra_torchdrug_tpu_torch.diagnostics.timing import (
+        cuda_time_ms,
+        edge_bytes,
+        k1_bound_ms,
+        roofline_ms,
+    )
+except ImportError as exc:
+    raise SystemExit(f"{PACKAGE}/ is not beside {Path(__file__).name}: run "
+                     f"the script from a checkout of the repository ({exc})")
 
 # slice shape: FB15k-237's entity, triple and relation counts
 FULL = dict(num_nodes=14541, num_edges=310116, num_relations=237)
@@ -161,9 +182,13 @@ FEAT = 64  # the model's feature width
 CLASSIC_FEAT = 32
 CLASSIC_TRAIN = dict(batch=64, negatives=32, steps=5)
 CLASSIC_TRAIN_REHEARSAL = dict(batch=8, negatives=8, steps=2)
-# every kernel of the port, in the order of the kernels line
+# every kernel of the port, in the order of the kernels line; P1 and P2 are
+# the ladder tools (diagnostics/kernel_floor.py, blocked_ladder.py), both on
+# csrc/rspmm_ladder.cu, whose launches count under "ladder" and must stay 0
+# on every model path
 KERNEL_IDS = ("K1", "K2", "K6", "K7", "K6b", "K7b", "K3", "K4", "K5", "K8f",
-              "K8b", "K1h", "K2h", "K9")
+              "K8b", "K1h", "K2h", "K9", "P1", "P2")
+COUNTED = KERNEL_IDS[:-2] + ("ladder",)
 # the ring path: ULTRA's entity tower on an edge mesh of RING_SHARDS shards,
 # all on the card (parallel: {edge: 4}, rspmm_impl: ring, ring_exchange:
 # rdma); ring vs single device on the same card and weights, as the
@@ -199,7 +224,6 @@ def import_port():
     if not (REPO / PACKAGE / "__init__.py").exists():
         raise SystemExit(f"{PACKAGE}/ is not beside {Path(__file__).name}: "
                          "run the script from a checkout of the repository")
-    sys.path.insert(0, str(REPO))
     import ultra_torchdrug_tpu_torch as port
 
     if Path(port.__file__).resolve().parent != REPO / PACKAGE:
@@ -215,55 +239,37 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_time_ms(fn, iters: int, warmup: int = 2,
-                 queue_ahead: bool = False) -> float:
-    """Mean device time of fn() over iters back-to-back calls (CUDA events).
-    With ``queue_ahead`` the device first spins (about 30 ms at the H100's
-    clocks) while the host queues every call, so that a call whose host
-    side takes longer than its kernels is timed by the device, not by the
-    host's pace."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    if queue_ahead:
-        torch.cuda._sleep(50_000_000)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def launch_counts() -> dict:
-    """Every kernel wrapper's launch count, by kernel id."""
+    """Every kernel wrapper's launch count, by kernel id (the ladder's
+    variants summed under "ladder")."""
     from ultra_torchdrug_tpu_torch.ops import (
         rspmm_bwd_cuda,
         rspmm_cuda,
+        rspmm_ladder_cuda,
         rspmm_pna_cuda,
     )
     from ultra_torchdrug_tpu_torch.parallel import rdma
 
     counts = {"K1": rspmm_cuda.launches, "K8f": rspmm_cuda.rotate_launches,
               "K1h": rspmm_cuda.bf16_launches, "K9": rdma.launches,
+              "ladder": sum(rspmm_ladder_cuda.launches.values()),
               **rspmm_bwd_cuda.launches, **rspmm_pna_cuda.launches}
-    return {k: counts[k] for k in KERNEL_IDS}
+    return {k: counts[k] for k in COUNTED}
 
 
 def reset_launch_counts():
     from ultra_torchdrug_tpu_torch.ops import (
         rspmm_bwd_cuda,
         rspmm_cuda,
+        rspmm_ladder_cuda,
         rspmm_pna_cuda,
     )
-
     from ultra_torchdrug_tpu_torch.parallel import rdma
 
     rspmm_cuda.launches = rspmm_cuda.rotate_launches = 0
     rspmm_cuda.bf16_launches = rdma.launches = 0
-    for counts in (rspmm_bwd_cuda.launches, rspmm_pna_cuda.launches):
+    for counts in (rspmm_bwd_cuda.launches, rspmm_pna_cuda.launches,
+                   rspmm_ladder_cuda.launches):
         for key in counts:
             counts[key] = 0
 
@@ -307,35 +313,6 @@ def k1_operands(graph, feat: int, seed: int, device):
     w = w * (torch.rand((E,), generator=gen, device=device) >= 0.2)
     csr = graph.csr.to(device)
     return (csr.rowptr, csr.src, csr.etype, csr.eid, w, rel, x)
-
-
-def roofline_ms(nbytes: int, flops: int) -> tuple:
-    """(the larger of nbytes over the memory rate and flops over the fp32
-    peak, in ms; which of the two it is)."""
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
-def edge_bytes(num_edges: int) -> int:
-    """The compulsory bytes of a graph's edges: one int32 edge list (source,
-    destination, type) and one fp32 weight per edge, read once. The kernels'
-    own layouts (CSRs, eid arrays, chunks) are a design's cost, not the
-    function's."""
-    return num_edges * (3 * 4 + 4)
-
-
-def k1_bound_ms(operands) -> tuple:
-    """Least time for K1's (or K1h's) work on this card: the edges, rel and
-    x read once (4 B a feature, 2 B for bf16 operands) and the fp32 output
-    written once over the memory rate, against 3 fp32 operations per edge
-    and feature (message, weight, sum) over the fp32 peak."""
-    rowptr, src, etype, eid, w, rel, x = operands
-    E = src.numel()
-    V, F = rowptr.numel() - 1, x.shape[1]
-    nbytes = (edge_bytes(E) + (rel.numel() + x.numel()) * x.element_size()
-              + V * F * 4)
-    return roofline_ms(nbytes, 3 * E * F)
 
 
 def phase_kernels(dataset, device):
@@ -1231,6 +1208,92 @@ def phase_kernels_ring(device) -> dict:
     return entry
 
 
+def phase_ladder_kernels(device):
+    """Every ladder variant (csrc/rspmm_ladder.cu) held to
+    ops/rspmm_ladder_cuda.py::check_ragged at ragged shapes: 40 rows, the
+    last 5 without edges, a row of 700 of 1,200 in-edges (three split
+    segments), eid not the identity; F = 10 (scalar path), 64 (float4 path)
+    and 1028 (2 feature tiles of 256 threads, 5 of ftile's 64). Each
+    against its plain version, full bitwise against K1, packed, ftile and
+    nowrite with write=True bitwise against full, nowrite with write=False
+    leaving its output as filled, rows without edges 0. On the CPU the
+    wrappers run the plain versions: a rehearsal of this Python."""
+    from ultra_torchdrug_tpu_torch.ops import rspmm_ladder_cuda as ladder
+
+    for F in (10, 64, 1028):
+        ops = ladder.ragged_operands(F, seed=8 + F, device=device)
+        errs = {name: float(f"{ladder.check_ragged(name, ops):.3g}")
+                for name in ladder.VARIANTS}
+        log(f"[ladder] ragged V={ops.num_rows} E={ops.num_edges} F={F} "
+            f"(a row of 700 edges, 5 empty rows, eid not the identity): "
+            f"max_abs_err {json.dumps(errs)}; full == K1, packed, ftile, "
+            "nowrite == full bitwise")
+    log('[ladder] kernels ["P1", "P2"] against their plain versions '
+        f"({'card' if device.type == 'cuda' else 'cpu rehearsal'})")
+
+
+def phase_ladder_tools(device) -> tuple:
+    """The ladder tools at their default, full sizes with every variant
+    (P1: diagnostics/kernel_floor.py, P2: diagnostics/blocked_ladder.py,
+    its JSON under output/), each run between a reset and a read of
+    the launch counts: every variant must launch, no model kernel may.
+    On the CPU a tiny size with the plain versions. Returns (the kernels
+    line's P1 and P2 entries, their launch counts by tool)."""
+    from ultra_torchdrug_tpu_torch.diagnostics import (
+        blocked_ladder,
+        kernel_floor,
+    )
+    from ultra_torchdrug_tpu_torch.ops import rspmm_ladder_cuda as ladder
+
+    cuda = device.type == "cuda"
+    out = REPO / "output" / blocked_ladder.DEFAULT_OUT
+    small_floor = {} if cuda else dict(edges=128, te=64, tv=8, vrows=64,
+                                       feat=256, relations=8, runlen=8)
+    small_blocked = {} if cuda else dict(nodes=300, edges=4000, relations=12,
+                                         feat=64)
+    entries, runs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tools = (
+            ("P1", "kernel_floor", "script/diagnostics/kernel_floor.py:299",
+             lambda: kernel_floor.run(variants="all", device=device,
+                                      **small_floor)),
+            ("P2", "blocked_ladder",
+             "script/diagnostics/blocked_ladder.py:47",
+             lambda: blocked_ladder.run(
+                 variants="all", device=device,
+                 out=str(out if cuda else Path(tmp) / out.name),
+                 **small_blocked)))
+        for kid, label, replaces, run in tools:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            res = run()
+            seconds = time.perf_counter() - t0
+            counts = launch_counts()
+            per_variant = dict(ladder.launches)
+            model = {k: v for k, v in counts.items() if k != "ladder" and v}
+            if model or (cuda and not all(per_variant.values())) or (
+                    not cuda and counts["ladder"]):
+                raise AssertionError(f"{label}: launches {counts}, by "
+                                     f"variant {per_variant}")
+            full = res["variants"]["full"]
+            entries[kid] = dict(
+                name=kid, route="cuda", source=f"{PACKAGE}/csrc/"
+                "rspmm_ladder.cu", replaces=replaces, launches=None,
+                max_abs_err=full["max_abs_err"], ms=full["ms"],
+                plain_ms=full.get("plain_ms"), bound_ms=res["bound_ms"],
+                bound_by=res["bound_by"], library_ms=None,
+                variant_ms={k: v["ms"] for k, v in res["variants"].items()},
+                variant_max_abs_err={k: v["max_abs_err"]
+                                     for k, v in res["variants"].items()})
+            runs[label] = {"tool": {kid: counts["ladder"]}}
+            log(f"[ladder] {label}: {seconds:.1f} s, launches by variant "
+                f"{per_variant}; library_ms: null (no single PyTorch call "
+                "computes K1's function)")
+    if cuda:
+        torch.cuda.empty_cache()
+    return entries, runs
+
+
 def k1_operands_of(ops) -> tuple:
     """K1's CSR arrays and weights from a (csr, w, ...) operand tuple."""
     csr, w = ops[:2]
@@ -1478,7 +1541,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
-        help="cpu rehearses phases 2-30 at a reduced size with the plain "
+        help="cpu rehearses phases 1b-30 at a reduced size with the plain "
              "versions and reports no result")
     args = parser.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -1527,6 +1590,12 @@ def main(argv=None) -> int:
         entries["K9"] = phase_kernels_ring(device)
         del und
         torch.cuda.empty_cache()
+    # the K1 strip-down ladder (P1, P2): its variants at ragged shapes, then
+    # both tools at full size (on the CPU, the rehearsal's plain versions)
+    phase_ladder_kernels(device)
+    ladder_entries, ladder_runs = phase_ladder_tools(device)
+    entries.update(ladder_entries)
+    runs.update(ladder_runs)
 
     # ULTRA: zero-shot evaluation and training (K1, K2)
     t0 = time.perf_counter()
@@ -1605,14 +1674,14 @@ def main(argv=None) -> int:
     runs["ring cli"] = phase_ring_cli(device)
 
     if not cuda:
-        log("[rehearsal] phases 2-30 ran on the CPU; no kernel ran and no "
+        log("[rehearsal] phases 1b-30 ran on the CPU; no kernel ran and no "
             "result is reported")
         return 1
     for e in entries.values():
         by_path = {f"{path} {half}": counts[e["name"]]
                    for path, halves in runs.items()
                    for half, counts in halves.items()
-                   if counts[e["name"]]}
+                   if counts.get(e["name"])}
         e.update(launches=sum(by_path.values()), launches_by_path=by_path)
         if not e["launches"]:
             raise AssertionError(f"{e['name']} never launched on the main "

@@ -217,12 +217,17 @@ def test_fast_test_subset_matches(tasks):
 
 
 def test_port_never_imports_jax():
-    code = ("import ultra_torchdrug_tpu_torch, sys; "
-            "import ultra_torchdrug_tpu_torch.tasks.task, "
-            "ultra_torchdrug_tpu_torch.utils.convert; "
-            "assert not any(m == 'jax' or m.startswith(('jax.', "
-            "'ultra_torchdrug_tpu.')) or m == 'ultra_torchdrug_tpu' "
-            "for m in sys.modules), sorted(sys.modules)")
+    """Every module of the port, found by walking the package, imports
+    without loading jax, the JAX package or bench.py."""
+    code = ("import importlib, pkgutil, sys, ultra_torchdrug_tpu_torch as p; "
+            "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
+            "p.__name__ + '.')]; "
+            "[importlib.import_module(n) for n in names]; "
+            "assert len(names) > 40, names; "
+            "bad = [m for m in sys.modules if m in ('jax', "
+            "'ultra_torchdrug_tpu', 'bench') or m.startswith(('jax.', "
+            "'ultra_torchdrug_tpu.'))]; "
+            "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
 

@@ -20,19 +20,28 @@ K2's: the operands round to the same bf16 values on both sides and each
 forward message is rounded from the same exact product, so only the order
 of the fp32 sums differs. K9 (the ring shift) copies bytes: it must equal
 its plain version bitwise; the ring op on the card (K1 and K2 per bucket,
-K9 between steps) takes K1's and K2's tolerances against the CPU.
+K9 between steps) takes K1's and K2's tolerances against the CPU. The K1
+strip-down ladder (P1, P2) holds each variant to
+ops/rspmm_ladder_cuda.py::check_variant: K1's tolerance plus 8 fp32 ulps
+of each entry's absolute mass (its terms sum in another order), dr 1e-4 of
+its largest entry; full equals K1, and packed, ftile and nowrite equal
+full, bitwise.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
 from ultra_torchdrug_tpu_torch.data.graph import Graph
+from ultra_torchdrug_tpu_torch.diagnostics import blocked_ladder, kernel_floor
 from ultra_torchdrug_tpu_torch.ops import (
     rspmm_bwd_cuda,
     rspmm_cuda,
     rspmm_pna_cuda,
 )
+from ultra_torchdrug_tpu_torch.ops import rspmm_ladder_cuda as ladder
 from ultra_torchdrug_tpu_torch.ops.rspmm import (
     generalized_rspmm,
     generalized_rspmm_addsq,
@@ -713,3 +722,45 @@ def test_ring_rspmm_card_matches_cpu(cuda_device, rng, n, compute_dtype,
     torch.testing.assert_close(results[1][0], results[0][0], **TOL)
     for a, b in zip(results[0][1:], results[1][1:]):
         torch.testing.assert_close(b, a, **K2_TOL)
+
+
+@pytest.mark.parametrize("F", [10, 64, 1028])
+@pytest.mark.parametrize("variant", ladder.VARIANTS)
+def test_ladder_variants_match_plain(cuda_device, variant, F):
+    """Each ladder variant held to check_ragged at ragged shapes (F = 10
+    the scalar path, 1028 several feature tiles): its plain version, rows
+    without edges 0, full equal to K1 and the bitwise variants to full;
+    one launch counted per call."""
+    ops = ladder.ragged_operands(F, seed=F, device=cuda_device)
+    before = ladder.launches[variant]
+    ladder.ladder_cuda(variant, ops)
+    assert ladder.launches[variant] == before + 1
+    ladder.check_ragged(variant, ops)
+
+
+def test_ladder_rejects_bad_operands(cuda_device):
+    ops = ladder.ragged_operands(16, seed=0, device=cuda_device)
+    with pytest.raises(ValueError, match="is on cpu"):
+        ladder.ladder_cuda("full", dataclasses.replace(
+            ops, relation=ops.relation.cpu()))
+    with pytest.raises(TypeError, match="must be torch.float32"):
+        ladder.ladder_cuda("full", dataclasses.replace(ops, x=ops.x.double()))
+    with pytest.raises(ValueError, match="out must be"):
+        ladder.ladder_cuda("nowrite", ops, out=torch.empty(
+            3, 16, device=cuda_device), write=False)
+    with pytest.raises(ValueError, match="does not fit"):
+        ladder.ladder_cuda("packed", dataclasses.replace(ops, packed=None))
+
+
+def test_ladder_tools_on_the_card(cuda_device, tmp_path):
+    """Both tools at a small size on the card: every variant timed and
+    held against its plain version."""
+    res = kernel_floor.run(variants="all", edges=16384, te=8192, tv=64,
+                           vrows=512, feat=512, relations=32, device="cuda")
+    assert all(r["ms"] > 0 for r in res["variants"].values())
+    out = tmp_path / "ladder.json"
+    data = blocked_ladder.run(variants="all", out=str(out), nodes=2000,
+                              edges=40000, relations=24, feat=256,
+                              device="cuda")
+    assert data["device"]["name"] == torch.cuda.get_device_name(0)
+    assert set(data["variants"]) == set(ladder.VARIANTS)
