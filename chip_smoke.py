@@ -22,12 +22,17 @@ Phases, each of which raises on failure (the script then exits nonzero):
               time each; hold K4 (one extremum, max and min, both modes,
               csrc/rspmm_pna_fwd.cu) exactly, K5 (its argext backward,
               csrc/rspmm_pna_bwd.cu, on K4's own output) and K3 (the transe
-              backward, csrc/rspmm_bwd.cu), both bitwise across two calls,
-              against their plain versions at ragged shapes and at F=2048
-              (K4 also F=512), time each, and time K3's function as two
-              torch.sparse.mm calls; hold K8f and K8b (the rotate forward
-              and backward, csrc/rspmm_rotate.cu; K8b bitwise across two
-              calls) against their plain versions at ragged shapes (D/2 = 3,
+              backward, csrc/rspmm_transe_bwd.cu), both bitwise across two
+              calls, against their plain versions at ragged shapes (K3 also
+              on its segment and tile layouts: a 700-edge source row, a
+              relation across three destination tiles, F = 10, 64, 1028,
+              2048) and at F=2048 (K4 also F=512), time each, and time K3
+              whole and by half beside its function as two torch.sparse.mm
+              calls, on the uniform KG and on bench.py's heavy-tailed KG
+              (its busiest source row 107,336 edges); hold K8f and K8b (the
+              rotate forward and backward, csrc/rspmm_rotate.cu; K8b
+              bitwise across two calls) against their plain versions at
+              ragged shapes (D/2 = 3,
               5 and 6 take the scalar path, 4 and 16 the float4 path) and
               at F=512 and F=2048 with D=32, shared and per-batch
               relations, and time each; hold K1h and K2h (the bf16 operand
@@ -38,10 +43,12 @@ Phases, each of which raises on failure (the script then exits nonzero):
               (both), and time each beside K1 and K2 on the same values;
               hold K9 (the ring shift, csrc/ring_shift.cu) bitwise against
               its plain version at ragged shapes (misaligned blocks and
-              byte tails), fp32 and bf16, n = 2, 3 and 4, and at the ring's
-              eval and training shapes (n = 4, v_block = 3,636, F = 1024
-              and 4096), and time it beside its plain version and
-              torch.roll;
+              byte tails; blocks of whole and of partial CTAs), fp32 and
+              bf16, n = 1 to 4, and at the ring's eval and training
+              shapes (n = 4, v_block = 3,636, F = 1024 and 4096), and
+              time it queued ahead and at the host's pace
+              beside its plain version, its library call torch.cat of the
+              rotated blocks and torch.roll;
  1b. ladder   hold every variant of the K1 strip-down ladder
               (csrc/rspmm_ladder.cu, ops/rspmm_ladder_cuda.py) against its
               plain version at ragged shapes (F = 10, 64, 1028; empty
@@ -153,12 +160,16 @@ REPO = Path(__file__).resolve().parent
 PACKAGE = "ultra_torchdrug_tpu_torch"
 sys.path.insert(0, str(REPO))
 try:
-    # the timing and bound helpers, shared with the ladder tools
+    # the timing and bound helpers, shared with the ladder tools and
+    # diagnostics/redesign_times.py
     from ultra_torchdrug_tpu_torch.diagnostics.timing import (
         cuda_time_ms,
         edge_bytes,
         k1_bound_ms,
+        k3_half_times,
+        k9_times,
         roofline_ms,
+        sparse_mm_halves,
     )
 except ImportError as exc:
     raise SystemExit(f"{PACKAGE}/ is not beside {Path(__file__).name}: run "
@@ -700,21 +711,63 @@ def phase_kernels_pna(und, device) -> dict:
     return entries
 
 
-def sparse_mm_halves(csr, w):
-    """K3's function as two library calls (timed beside K3, never used by
-    the port): dx = Aᵀ g and dr = T g, with Aᵀ[s, v] and T[r, v] the summed
-    weights of the edges s → v and of the type-r edges into v, as coalesced
-    CSR tensors. Returns (Aᵀ, T)."""
-    from ultra_torchdrug_tpu_torch.ops.rspmm_cuda import csr_rows
+def k3_halves(args, label: str) -> dict:
+    """K3's dx and dr halves each alone, beside torch.sparse.mm's halves on
+    the same operands (each half checked against its library half)."""
+    from ultra_torchdrug_tpu_torch.ops import rspmm_bwd_cuda
 
-    src = csr_rows(csr.src_rowptr)
-    dst, etype = csr.src_dst.long(), csr.src_etype.long()
-    weight = w.index_select(0, csr.src_eid.long())
-    V, R = csr.src_rowptr.numel() - 1, csr.rel_chunk_ptr.numel() - 1
-    return tuple(
-        torch.sparse_coo_tensor(torch.stack([rows, dst]), weight,
-                                (n, V)).coalesce().to_sparse_csr()
-        for rows, n in ((src, V), (etype, R)))
+    csr, w, grad = args[0], args[1], args[4]
+    at, t = sparse_mm_halves(csr, w)
+    dx, dr = rspmm_bwd_cuda.rspmm_bwd_cuda(*args, mode="add_rel")
+    assert_bwd_close(torch.sparse.mm(at, grad), dx)
+    assert_bwd_close(torch.sparse.mm(t, grad), dr)
+    del dx, dr
+    out = k3_half_times(
+        lambda need_dx, need_dr: rspmm_bwd_cuda.rspmm_bwd_cuda(
+            *args, need_dx, need_dr, mode="add_rel"),
+        at, t, grad, w.numel())
+    log(f"[kernels] K3 {label}: dx half {out['ms_dx']:.4f} ms (bound "
+        f"{out['bound_ms_dx']:.4f}), dr half {out['ms_dr']:.4f} ms (bound "
+        f"{out['bound_ms_dr']:.4f}); library torch.sparse.mm (coalesced "
+        f"CSR) dx half {out['library_ms_dx']:.4f} ms + dr half "
+        f"{out['library_ms_dr']:.4f} ms = {out['library_ms']:.4f} ms")
+    return out
+
+
+def phase_k3_hub(device) -> dict:
+    """K3 at F = 64 x 32 on bench.py's heavy-tailed KG
+    (diagnostics/workloads.py::build_workload, edges head -> tail, its
+    busiest source row 107,336 edges), held against its plain version
+    (bitwise across two calls) and timed, whole and by half, beside
+    torch.sparse.mm; returns the K3 entry's ``*_hub`` keys."""
+    from ultra_torchdrug_tpu_torch.data.graph import build_csr
+    from ultra_torchdrug_tpu_torch.diagnostics.workloads import build_workload
+    from ultra_torchdrug_tpu_torch.ops import rspmm_bwd_cuda
+
+    tri, _, _ = build_workload(features=False)
+    V, R = 15000, 474
+    csr = build_csr(tri[:, 0], tri[:, 1], tri[:, 2], V, R,
+                    backward=True).to(device)
+    F = CLASSIC_TRAIN["batch"] * CLASSIC_FEAT
+    gen = torch.Generator(device=device).manual_seed(F + 8)
+    w = torch.rand((len(tri),), generator=gen, device=device) + 0.5
+    w = w * (torch.rand((len(tri),), generator=gen, device=device) >= 0.2)
+    args = (csr, w, torch.zeros((R, F), device=device), None,
+            torch.randn((V, F), generator=gen, device=device))
+    label = f"bench.py's KG V={V} E={len(tri)} R={R} F={F}"
+    _, _, err = check_bwd_kernel(
+        "K3", lambda: rspmm_bwd_cuda.rspmm_bwd_cuda(*args, mode="add_rel"),
+        lambda: rspmm_bwd_cuda.rspmm_bwd_plain(*args, mode="add_rel"), label)
+    torch.cuda.empty_cache()
+    ms = cuda_time_ms(lambda: rspmm_bwd_cuda.rspmm_bwd_cuda(
+        *args, mode="add_rel"), 20)
+    log(f"[kernels] K3 {label}: {ms:.4f} ms")
+    halves = k3_halves(args, label)
+    out = dict(ms_hub=ms, max_abs_err_hub=err,
+               **{f"{k}_hub": v for k, v in halves.items()})
+    del args, csr
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_kernels_ext(und, device) -> dict:
@@ -770,6 +823,25 @@ def phase_kernels_ext(und, device) -> dict:
             label)
         if not (torch.all(dx[V - 5:] == 0) and torch.all(dr[R - 1] == 0)):
             raise AssertionError("K3 wrote nonzero rows without edges")
+    # K3's segments (a 700-edge row) and its (destination tile, relation)
+    # chunks across three tiles
+    for F in (10, 64, 1028, 2048):
+        args = rspmm_bwd_cuda.transe_ragged_operands(F, seed=F,
+                                                     device=device)
+        dx, dr, _ = check_bwd_kernel(
+            "K3",
+            lambda: rspmm_bwd_cuda.rspmm_bwd_cuda(*args, mode="add_rel"),
+            lambda: rspmm_bwd_cuda.rspmm_bwd_plain(*args, mode="add_rel"),
+            f"layouts V=5000 E=2700 R=4 F={F} (a 700-edge row)")
+        halves = [rspmm_bwd_cuda.rspmm_bwd_cuda(*args, need_dr=False,
+                                                mode="add_rel")[0],
+                  rspmm_bwd_cuda.rspmm_bwd_cuda(*args, need_dx=False,
+                                                mode="add_rel")[1]]
+        if not (torch.all(dx[-5:] == 0) and torch.all(dr[-1] == 0)
+                and torch.equal(halves[0], dx)
+                and torch.equal(halves[1], dr)):
+            raise AssertionError("K3: rows without edges nonzero, or a half "
+                                 "alone differs from the whole")
 
     # (b) the main path's shapes on the FB-sized graph: K4 at F = 16 x 32
     # (eval) and 64 x 32 (training), K5 and K3 at the training width
@@ -844,33 +916,28 @@ def phase_kernels_ext(und, device) -> dict:
                 entries["K5"].update({f"ms_{mode}": ms,
                                       f"max_abs_err_{mode}": err})
             del q
-        # K3, and its function as two torch.sparse.mm calls
+        # K3, and its function as two torch.sparse.mm calls, each half
+        # alone beside its library half
         args = k3_args(ops, seed=F + 5)
         dx, dr, err = check_bwd_kernel(
             "K3", lambda: rspmm_bwd_cuda.rspmm_bwd_cuda(*args, mode="add_rel"),
             lambda: rspmm_bwd_cuda.rspmm_bwd_plain(*args, mode="add_rel"),
             label)
-        at, t = sparse_mm_halves(ops[0], ops[1])
-        grad = args[4]
-        assert_bwd_close(torch.sparse.mm(at, grad), dx)
-        assert_bwd_close(torch.sparse.mm(t, grad), dr)
         del dx, dr
         torch.cuda.empty_cache()
         ms, plain_ms, bound = timed(
             "K3", label,
             lambda: rspmm_bwd_cuda.rspmm_bwd_cuda(*args, mode="add_rel"),
             lambda: rspmm_bwd_cuda.rspmm_bwd_plain(*args, mode="add_rel"), ops)
-        lib_dx = cuda_time_ms(lambda: torch.sparse.mm(at, grad), 20)
-        lib_dr = cuda_time_ms(lambda: torch.sparse.mm(t, grad), 20)
-        log(f"[kernels] K3 {label}: library torch.sparse.mm (coalesced CSR) "
-            f"dx half {lib_dx:.4f} ms + dr half {lib_dr:.4f} ms = "
-            f"{lib_dx + lib_dr:.4f} ms against K3's {ms:.4f} ms")
-        entry("K3", "rspmm_bwd.cu", 1681, err, ms, plain_ms, bound,
-              lib_dx + lib_dr, library_ms_dx=lib_dx, library_ms_dr=lib_dr,
+        halves = k3_halves(args, label)
+        entry("K3", "rspmm_transe_bwd.cu", 1681, err, ms, plain_ms, bound,
+              halves["library_ms"], **{k: v for k, v in halves.items()
+                                       if k != "library_ms"},
               library_call="torch.sparse.mm twice: dx = A^T g, dr = T g",
               mode="none, called by rspmm_bwd_pallas at :2816-2834")
-        del ops, args, at, t, grad
+        del ops, args
         torch.cuda.empty_cache()
+    entries["K3"].update(phase_k3_hub(device))
     log('[kernels] kernels ["K4", "K5", "K3"]')
     return entries
 
@@ -1148,8 +1215,9 @@ def phase_kernels_bf16(und, device) -> dict:
 def phase_kernels_ring(device) -> dict:
     """K9 against its plain version, bitwise, at ragged shapes and at the
     ring's shapes (n = 4 shards of v_block = 3,636 rows, F = 1024 and
-    4096 fp32 features), timed beside its plain version and torch.roll;
-    returns its kernels-line entry."""
+    4096 fp32 features), timed queued ahead and at the host's pace beside
+    its plain version, torch.cat of the rotated blocks (its library call)
+    and torch.roll; returns its kernels-line entry."""
     from ultra_torchdrug_tpu_torch.parallel import rdma
 
     def check(n, vb, F, dtype, seed):
@@ -1165,42 +1233,43 @@ def phase_kernels_ring(device) -> dict:
 
     # ragged: 7 x 5 fp32 (140 B) and 7 x 5 bf16 (70 B) blocks are not
     # multiples of 16 bytes, so blocks after the first are misaligned and
-    # the first has a byte tail; 1 x 3 bf16 is 6 bytes
-    for n in (2, 3, 4):
-        for vb, F in ((7, 5), (1, 3), (64, 256), (3636, 1024)):
+    # the first has a byte tail; 1 x 3 bf16 is 6 bytes; 8 x 1,024 fp32 rows
+    # fill whole 256-thread CTAs, 9 x 1,000 fp32 rows leave the last one
+    # partly idle
+    for n in (1, 2, 3, 4):
+        for vb, F in ((7, 5), (1, 3), (64, 256), (3636, 1024), (8, 1024),
+                      (9, 1000)):
             for dtype in (torch.float32, torch.bfloat16):
                 check(n, vb, F, dtype, seed=n * vb + F)
-    log("[kernels] K9 ragged and full shapes, fp32 and bf16, n = 2, 3, 4: "
-        "bitwise equal to its plain version")
+    log("[kernels] K9 ragged, CTA-sized and full shapes, fp32 and bf16, "
+        "n = 1, 2, 3, 4: bitwise equal to its plain version")
     n, vb = RING_SHARDS, -(-FULL["num_nodes"] // RING_SHARDS)
     entry = None
     for F, which in ((EVAL_BATCH * FEAT, "eval"),
                      (TRAIN["batch"] * FEAT, "train")):
         x = check(n, vb, F, torch.float32, seed=F)
-        # the wrapper's host side can outlast the copy: queue the calls
-        # ahead of the device, and print the host-paced time beside it
-        host_ms = cuda_time_ms(lambda: rdma.ring_shift(x, n), 50)
-        ms = cuda_time_ms(lambda: rdma.ring_shift(x, n), 50,
-                          queue_ahead=True)
-        plain_ms = cuda_time_ms(lambda: rdma.ring_shift_plain(x, n), 50,
-                                queue_ahead=True)
-        roll_ms = cuda_time_ms(lambda: torch.roll(x, vb, dims=0), 50,
-                               queue_ahead=True)
-        # a copy reads and writes every byte once; no arithmetic
-        bound_ms, bound_by = roofline_ms(2 * x.numel() * x.element_size(), 0)
+        # queued ahead of the device (the wrapper's host side can outlast
+        # the copy) and at the host's pace; every time the lesser of two
+        # readings in turns (diagnostics/timing.py::k9_times)
+        times = k9_times(lambda: rdma.ring_shift(x, n),
+                         lambda: rdma.ring_shift_plain(x, n), x, n)
         log(f"[kernels] K9 {which} shape n={n} v_block={vb} F={F}: bitwise "
-            f"equal, {ms:.4f} ms queued ahead, {host_ms:.4f} ms at the "
-            f"host's pace (plain {plain_ms:.4f} ms, torch.roll "
-            f"{roll_ms:.4f} ms, both queued ahead; bound {bound_ms:.4f} ms "
-            f"by {bound_by}, {bound_ms / ms:.1%} of it)")
-        times = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                     bound_by=bound_by, library_ms=roll_ms,
-                     host_paced_ms=host_ms)
+            f"equal, {times['ms']:.4f} ms queued ahead, "
+            f"{times['host_paced_ms']:.4f} ms at the host's pace (plain "
+            f"{times['plain_ms']:.4f} ms, library torch.cat "
+            f"{times['library_ms']:.4f} ms, torch.roll "
+            f"{times['roll_ms']:.4f} ms, all queued ahead; torch.cat "
+            f"{times['library_host_paced_ms']:.4f} ms at the host's pace; "
+            f"bound {times['bound_ms']:.4f} ms by {times['bound_by']}, "
+            f"{times['bound_ms'] / times['ms']:.1%} of it; each the lesser "
+            "of two readings in turns)")
         if entry is None:
             entry = dict(name="K9", route="cuda",
                          source=f"{PACKAGE}/csrc/ring_shift.cu",
                          replaces="ultra_torchdrug_tpu/parallel/rdma.py:83",
-                         launches=None, max_abs_err=0.0, **times)
+                         launches=None, max_abs_err=0.0,
+                         library_call="torch.cat of the rotated blocks",
+                         **times)
         else:
             entry.update({f"{k}_train": v for k, v in times.items()})
         del x

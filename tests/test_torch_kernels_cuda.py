@@ -266,6 +266,36 @@ def test_k3_rejects_bad_operands(cuda_device, rng):
         rspmm_bwd_cuda.rspmm_bwd_cuda(csr, w, rel, x, grad, mode="rot_rel")
 
 
+@pytest.mark.parametrize("F", [10, 64, 1028, 2048])
+def test_k3_segments_and_tiles_match_plain(cuda_device, F):
+    """K3's dx segments (a 700-edge row written through partial rows) and
+    its (destination tile, relation) chunks at ragged widths
+    (rspmm_bwd_cuda.transe_ragged_operands: a relation across three tiles,
+    one with two chunks in one tile, eid not the identity): bitwise equal
+    across two calls, within K3's tolerance of the plain version, rows and
+    relations without edges 0, each half alone equal to the whole."""
+    args = rspmm_bwd_cuda.transe_ragged_operands(F, seed=F,
+                                                 device=cuda_device)
+    V, R = args[4].shape[0], args[2].shape[0]
+    assert args[0].src_long_rows.tolist() == [3]
+    before = rspmm_bwd_cuda.launches["K3"]
+    dx, dr = rspmm_bwd_cuda.rspmm_bwd_cuda(*args, mode="add_rel")
+    dx2, dr2 = rspmm_bwd_cuda.rspmm_bwd_cuda(*args, mode="add_rel")
+    torch.cuda.synchronize()
+    assert rspmm_bwd_cuda.launches["K3"] == before + 2
+    assert torch.equal(dx, dx2) and torch.equal(dr, dr2)
+    want_dx, want_dr = rspmm_bwd_cuda.rspmm_bwd_plain(*args, mode="add_rel")
+    _assert_sums_close(dx, want_dx)
+    _assert_sums_close(dr, want_dr)
+    assert torch.all(dx[V - 5:] == 0) and torch.all(dr[R - 1] == 0)
+    dx3, none = rspmm_bwd_cuda.rspmm_bwd_cuda(*args, need_dr=False,
+                                              mode="add_rel")
+    none2, dr3 = rspmm_bwd_cuda.rspmm_bwd_cuda(*args, need_dx=False,
+                                               mode="add_rel")
+    assert none is None and none2 is None
+    assert torch.equal(dx3, dx) and torch.equal(dr3, dr)
+
+
 # ---------------------------------------------------------------------------
 # K6, K7 (the fused PNA forwards) and K6b, K7b (their backward)
 # ---------------------------------------------------------------------------
@@ -633,9 +663,11 @@ def test_bf16_kernels_reject_bad_operands(cuda_device, rng):
 # (n shards, rows per block, features): 7 fp32 rows of 5 features are 140
 # bytes, not a multiple of 16, so the blocks after the first are misaligned
 # (the byte path) and the first one has a byte tail; 1 x 3 bf16 features are
-# 6 bytes
+# 6 bytes. 8 x 1,024 fp32 rows are 32 KB, 2,048 units, a whole number of
+# 256-thread CTAs (n = 1: one block, copied to its own slot), and 9 x
+# 1,000 fp32 rows 36,000 bytes, 2,250 units, a last CTA partly idle
 K9_SHAPES = [(2, 7, 5), (3, 7, 5), (4, 7, 5), (3, 1, 3), (4, 64, 256),
-             (3, 3636, 1024)]
+             (3, 3636, 1024), (1, 8, 1024), (4, 8, 1024), (3, 9, 1000)]
 
 
 @pytest.mark.parametrize("n,vb,F", K9_SHAPES)
@@ -649,17 +681,24 @@ def test_k9_matches_plain_bitwise(cuda_device, n, vb, F, dtype):
     want = rdma.ring_shift_plain(x, n)
     torch.cuda.synchronize()
     assert got.dtype == dtype and torch.equal(got, want)
-    assert torch.equal(got[vb:2 * vb], x[:vb])  # block 0 moved to shard 1
+    # block 0 moved to shard 1 (to itself when there is one shard)
+    assert torch.equal(got[vb % (n * vb):][:vb], x[:vb])
 
 
-def test_k9_takes_separate_blocks(cuda_device):
-    """Per-shard buffers, each its own allocation (the multi-card layout)."""
-    src = [torch.full((5, 3), float(s), device=cuda_device) for s in range(3)]
-    dst = [torch.empty(5, 3, device=cuda_device) for _ in range(3)]
+@pytest.mark.parametrize("rows", [5, 4097])
+def test_k9_takes_separate_blocks(cuda_device, rows):
+    """Per-shard buffers, each its own allocation (the multi-card layout):
+    every block 16-byte aligned, so the unit path copies the body and the
+    tail's 12 bytes go byte by byte (5 x 3 fp32 rows: 3 units; 4,097 x 3:
+    3,072 units, twelve CTAs)."""
+    src = [torch.arange(rows * 3, dtype=torch.float32,
+                        device=cuda_device).view(rows, 3) + 1e5 * s
+           for s in range(3)]
+    dst = [torch.empty(rows, 3, device=cuda_device) for _ in range(3)]
     rdma.ring_shift_blocks(src, dst)
     torch.cuda.synchronize()
     for s in range(3):
-        assert torch.all(dst[(s + 1) % 3] == s)
+        assert torch.equal(dst[(s + 1) % 3], src[s])
 
 
 def test_k9_rejects_bad_operands(cuda_device):

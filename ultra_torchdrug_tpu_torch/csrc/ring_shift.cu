@@ -20,15 +20,30 @@
 // v_block = 3,636 rows: 0.036 ms for F = 1024 fp32 features, 0.142 ms for
 // F = 4096). There is no arithmetic.
 //
-// What the design does about it: a 2-D grid, y over the shards and x grid-
-// strided over 16-byte units of the block, so that each thread moves 16 bytes
-// per load and neighbouring threads touch neighbouring addresses; the bytes of
-// a block that do not fill a last 16-byte unit are copied one per thread. A
-// block whose source or destination is not 16-byte aligned (ragged block
-// sizes of blocks after the first) is copied a byte per thread, still
-// coalesced. The TPU kernel's barrier and semaphores have no counterpart: the
-// copy is ordered on the caller's stream. Overlapping the copy with the ring
-// step's aggregation (a copy engine or a second stream) is later work.
+// The first design was a grid-strided loop of one 16-byte load and
+// store per thread over a grid capped at 16 CTAs per SM, and it asked the
+// runtime for the device and its SM count on every launch: 0.0444 and
+// 0.1671 ms against torch.cat's 0.0429 and 0.1624 (NVIDIA H100 80GB HBM3,
+// 700 W; PERF.md). A persistent bulk copy (TMA: one CTA per SM streaming
+// its share through four 32 KB shared-memory stages, one thread issuing
+// every copy) was tried and took 0.0470 and 0.1830 ms on the same card, and
+// several 16-byte units per thread, with or without streaming hints, were
+// no faster than one. This design is the plainest copy:
+//  * one 16-byte unit per thread and no loop, over a grid (units / 256
+//    CTAs, n shards) that covers every block at once, so the card's block
+//    scheduler keeps every SM full to the end and no thread walks a second
+//    unit behind a partial wave;
+//  * the bytes of a block after its last whole unit (its tail) are copied
+//    one per thread by the first CTA of the block's row;
+//  * blocks whose source or destination is not 16-byte aligned (ragged
+//    block sizes after the first) are copied a byte per thread, coalesced;
+//  * no runtime query on the launch path: the grid follows from the size.
+// It takes 0.0429 and 0.1602 ms against torch.cat's 0.0433 and 0.1645 in
+// the same run (83 and 89 % of the bound), and 0.0434 ms a call at the
+// host's pace, where the first design took 0.053-0.085 ms (the same card;
+// the wrapper's host side was cut with it).
+// The TPU kernel's barrier and semaphores have no counterpart: the copy is
+// ordered on the caller's stream.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,35 +59,30 @@ struct BlockPtrs {
   unsigned char* dst[kMaxShards];
 };
 
-__device__ __forceinline__ bool aligned16(const void* a, const void* b) {
-  return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) &
-          15) == 0;
-}
-
+// grid (units / kThreads, n): thread i of row s copies unit i of block s
 __global__ void __launch_bounds__(kThreads)
-    ring_shift_kernel(BlockPtrs p, long long block_bytes) {
+    ring_shift_units(BlockPtrs p, long long block_bytes) {
   const unsigned char* src = p.src[blockIdx.y];
   unsigned char* dst = p.dst[blockIdx.y];
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (aligned16(src, dst)) {
-    const long long units = block_bytes >> 4;
-    const uint4* s4 = reinterpret_cast<const uint4*>(src);
-    uint4* d4 = reinterpret_cast<uint4*>(dst);
-    for (; i < units; i += stride) {
-      d4[i] = s4[i];
-    }
-    // the byte tail after the last whole unit
-    const long long tail = block_bytes & 15;
-    if (blockIdx.x == 0 && threadIdx.x < tail) {
-      const long long b = (units << 4) + threadIdx.x;
-      dst[b] = src[b];
-    }
-  } else {
-    for (; i < block_bytes; i += stride) {
-      dst[i] = src[i];
-    }
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long units = block_bytes >> 4;
+  if (i < units) {
+    reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[i];
   }
+  // the tail after the last whole unit
+  if (blockIdx.x == 0 && threadIdx.x < (block_bytes & 15)) {
+    const long long b = (units << 4) + threadIdx.x;
+    dst[b] = src[b];
+  }
+}
+
+// grid (bytes / kThreads, n): thread i of row s copies byte i of block s
+__global__ void __launch_bounds__(kThreads)
+    ring_shift_bytes(BlockPtrs p, long long block_bytes) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < block_bytes) p.dst[blockIdx.y][i] = p.src[blockIdx.y][i];
 }
 
 }  // namespace
@@ -90,33 +100,22 @@ extern "C" int ring_shift_k9(const void* const* src, void* const* dst, int n,
     return static_cast<int>(cudaSuccess);
   }
   BlockPtrs p;
-  bool vec = true;
+  bool aligned = true;
   for (int s = 0; s < n; ++s) {
     p.src[s] = static_cast<const unsigned char*>(src[s]);
     p.dst[s] = static_cast<unsigned char*>(dst[(s + 1) % n]);
-    vec = vec && ((reinterpret_cast<uintptr_t>(p.src[s]) |
-                   reinterpret_cast<uintptr_t>(p.dst[s])) & 15) == 0;
+    aligned = aligned && ((reinterpret_cast<uintptr_t>(p.src[s]) |
+                           reinterpret_cast<uintptr_t>(p.dst[s])) & 15) == 0;
   }
-  int device = 0;
-  int sms = 132;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) {
-    return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long work = aligned ? block_bytes >> 4 : block_bytes;
+  const long long ctas = work > 0 ? (work + kThreads - 1) / kThreads : 1;
+  if (ctas > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(ctas), static_cast<unsigned>(n));
+  if (aligned) {
+    ring_shift_units<<<grid, kThreads, 0, s>>>(p, block_bytes);
+  } else {
+    ring_shift_bytes<<<grid, kThreads, 0, s>>>(p, block_bytes);
   }
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) {
-    return static_cast<int>(err);
-  }
-  // 16 CTAs of 256 threads per SM over all shards: every SM full, each
-  // thread looping over several units of a large block
-  const long long work = vec ? (block_bytes + 15) / 16 : block_bytes;
-  long long blocks = (work + kThreads - 1) / kThreads;
-  const long long cap = sms * 16 / n > 0 ? sms * 16 / n : 1;
-  if (blocks > cap) {
-    blocks = cap;
-  }
-  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(n));
-  ring_shift_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, block_bytes);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,8 @@
 // Row-gather device code shared by the rspmm kernels (K1 and K1h in
-// rspmm_fwd.cu, the dx passes of K2, K2h and K3 in rspmm_bwd.cu; the Lanes
-// helpers and relation_sums also serve K4, K6/K7 and K5, K6b/K7b in
-// rspmm_pna_*.cu and K8f/K8b in rspmm_rotate.cu):
+// rspmm_fwd.cu, the dx passes of K2 and K2h in rspmm_bwd.cu, the K1 ladder
+// in rspmm_ladder.cu; the Lanes helpers and relation_sums also serve K3 in
+// rspmm_transe_bwd.cu, K4, K6/K7 and K5, K6b/K7b in rspmm_pna_*.cu and
+// K8f/K8b in rspmm_rotate.cu):
 //
 //     out[v, :] = sum over e in [rowptr[v], rowptr[v+1]) of
 //                 w[eid[e]] * msg(rel[etype[e], :], x[col[e], :])
@@ -44,7 +45,7 @@ namespace rspmm {
 
 constexpr int kMulRel = 0;
 constexpr int kAddRel = 1;
-constexpr int kNone = 2;      // the row alone (K3's dx and dr passes)
+constexpr int kNone = 2;      // the row alone (the transe backward's message)
 constexpr int kMulScaled = 3;  // rel * (x * w), unrounded (K2h's passes)
 constexpr int kMaxThreads = 256;
 

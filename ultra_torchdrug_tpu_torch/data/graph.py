@@ -19,6 +19,13 @@ from ..ops.match import PatternJoinIndex, build_pattern_join
 # edges per chunk of the relation-sorted order (the dr pass of the rspmm
 # backward reduces one chunk per CTA, then each relation's chunks in order)
 DR_CHUNK_EDGES = 256
+# the transe backward's (K3's) layouts: source rows are cut into segments of
+# at most SEGMENT_EDGES edges (the dx pass), and its dr pass reads the edges
+# by destination tiles of TILE_ROWS rows, so that the chunks that run
+# together gather from one tile of g (16 MB at F = 2,048) while it sits in
+# the L2
+SEGMENT_EDGES = 256
+TILE_ROWS = 2048
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +50,27 @@ class Csr:
       chunk_rel [C] — the relation of each chunk
       rel_chunk_ptr [R + 1] — relation r owns chunks
         [rel_chunk_ptr[r], rel_chunk_ptr[r+1]) (none when it has no edge)
+    The transe backward's layouts (K3), built with the others:
+    Source-row segments (its dx pass), over the source-sorted edges:
+      src_seg_ptr [S + 1] — segment i is [src_seg_ptr[i], src_seg_ptr[i+1]);
+        a row of at most SEGMENT_EDGES edges, none included, is one
+        segment, a longer row is cut into segments of SEGMENT_EDGES
+      src_seg_out [S] — where segment i's sum goes: its row (>= 0) when the
+        row is one segment, else ~slot (< 0), a row of the partial sums
+      src_long_rows [L] — the rows cut into several segments, in order
+      src_long_ptr [L + 1] — row src_long_rows[l] owns the partial slots
+        [src_long_ptr[l], src_long_ptr[l+1]), in segment order
+    (destination tile, relation) chunks (its dr pass):
+      tile_dst, tile_eid [E] — destination and original edge index of each
+        edge, sorted by destination tile (dst // TILE_ROWS), then relation,
+        then destination (stable)
+      tile_chunk_ptr [C + 1] — chunk c is [tile_chunk_ptr[c],
+        tile_chunk_ptr[c+1]): at most DR_CHUNK_EDGES edges of one relation
+        in one tile; the chunks come tile-major
+      tile_chunk_slot [C] — the partial row chunk c writes; the slots are
+        relation-major, each relation's chunks in tile order
+      tile_rel_ptr [R + 1] — relation r's slots are [tile_rel_ptr[r],
+        tile_rel_ptr[r+1]), summed in that order (none: no edge)
     """
 
     rowptr: torch.Tensor
@@ -59,6 +87,15 @@ class Csr:
     chunk_ptr: Optional[torch.Tensor] = None
     chunk_rel: Optional[torch.Tensor] = None
     rel_chunk_ptr: Optional[torch.Tensor] = None
+    src_seg_ptr: Optional[torch.Tensor] = None
+    src_seg_out: Optional[torch.Tensor] = None
+    src_long_rows: Optional[torch.Tensor] = None
+    src_long_ptr: Optional[torch.Tensor] = None
+    tile_dst: Optional[torch.Tensor] = None
+    tile_eid: Optional[torch.Tensor] = None
+    tile_chunk_ptr: Optional[torch.Tensor] = None
+    tile_chunk_slot: Optional[torch.Tensor] = None
+    tile_rel_ptr: Optional[torch.Tensor] = None
 
     @property
     def has_backward(self) -> bool:
@@ -89,6 +126,56 @@ def _relation_chunks(etype_sorted: np.ndarray, num_relations: int,
     chunk_ptr = np.append(rel_start[chunk_rel] + local * chunk_edges,
                           len(etype_sorted))
     return chunk_ptr, chunk_rel, rel_chunk_ptr
+
+
+def _row_segments(counts: np.ndarray, seg_edges: int):
+    """K3's dx segments of a CSR with ``counts`` edges per row:
+    (src_seg_ptr, src_seg_out, src_long_rows, src_long_ptr), see ``Csr``."""
+    per_row = np.maximum(1, -(-counts // seg_edges))
+    seg_row = np.repeat(np.arange(len(counts)), per_row)
+    first = np.cumsum(per_row) - per_row
+    local = np.arange(len(seg_row)) - first[seg_row]
+    row_start = np.cumsum(counts) - counts
+    seg_ptr = np.append(row_start[seg_row] + local * seg_edges, counts.sum())
+    cut = per_row > 1
+    in_long = cut[seg_row]
+    slot = np.cumsum(in_long) - 1
+    seg_out = np.where(in_long, ~slot, seg_row)
+    long_rows = np.flatnonzero(cut)
+    long_ptr = np.zeros(len(long_rows) + 1, np.int64)
+    np.cumsum(per_row[long_rows], out=long_ptr[1:])
+    return seg_ptr, seg_out, long_rows, long_ptr
+
+
+def _tile_chunks(dst: np.ndarray, etype: np.ndarray, num_relations: int,
+                 tile_rows: int, chunk_edges: int, by_dst: np.ndarray):
+    """K3's dr chunks: (edge order, tile_chunk_ptr, tile_chunk_slot,
+    tile_rel_ptr), see ``Csr``; ``by_dst`` is the stable destination
+    order."""
+    tile = dst // tile_rows
+    group = tile * num_relations + etype
+    num_groups = (int(tile.max()) + 1 if len(tile) else 0) * num_relations
+    # a stable sort by (tile, relation) of the destination order: by tile,
+    # relation, destination, then original index; 16-bit keys sort by radix
+    key = group[by_dst]
+    if num_groups <= 1 << 16:
+        key = key.astype(np.uint16)
+    order = by_dst[np.argsort(key, kind="stable")]
+    counts = np.bincount(group, minlength=num_groups)
+    per_group = -(-counts // chunk_edges)
+    group_first = np.cumsum(per_group) - per_group
+    chunk_group = np.repeat(np.arange(num_groups), per_group)
+    local = np.arange(len(chunk_group)) - group_first[chunk_group]
+    group_start = np.cumsum(counts) - counts
+    chunk_ptr = np.append(group_start[chunk_group] + local * chunk_edges,
+                          len(dst))
+    chunk_rel = chunk_group % max(num_relations, 1)
+    slot = np.empty(len(chunk_rel), np.int64)
+    slot[np.argsort(chunk_rel, kind="stable")] = np.arange(len(chunk_rel))
+    rel_ptr = np.zeros(num_relations + 1, np.int64)
+    np.cumsum(np.bincount(chunk_rel, minlength=num_relations),
+              out=rel_ptr[1:])
+    return order, chunk_ptr, slot, rel_ptr
 
 
 def build_csr(src, dst, etype, num_nodes: int, num_relations: int,
@@ -124,6 +211,17 @@ def build_csr(src, dst, etype, num_nodes: int, num_relations: int,
             rel_src=i32(src[by_rel]), rel_dst=i32(dst[by_rel]),
             rel_eid=i32(ids[by_rel]), chunk_ptr=i32(chunk_ptr),
             chunk_rel=i32(chunk_rel), rel_chunk_ptr=i32(rel_chunk_ptr))
+        seg_ptr, seg_out, long_rows, long_ptr = _row_segments(
+            np.bincount(src, minlength=num_nodes), SEGMENT_EDGES)
+        by_tile, tile_chunk_ptr, tile_chunk_slot, tile_rel_ptr = _tile_chunks(
+            dst, et, num_relations, TILE_ROWS, DR_CHUNK_EDGES, by_dst)
+        layouts.update(
+            src_seg_ptr=i32(seg_ptr), src_seg_out=i32(seg_out),
+            src_long_rows=i32(long_rows), src_long_ptr=i32(long_ptr),
+            tile_dst=i32(dst[by_tile]), tile_eid=i32(ids[by_tile]),
+            tile_chunk_ptr=i32(tile_chunk_ptr),
+            tile_chunk_slot=i32(tile_chunk_slot),
+            tile_rel_ptr=i32(tile_rel_ptr))
     return Csr(**layouts)
 
 

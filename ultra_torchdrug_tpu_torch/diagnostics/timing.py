@@ -1,5 +1,7 @@
 """Device timing and least-time bounds for the port's kernels on one NVIDIA
-H100, shared by ``chip_smoke.py`` and the ladder tools.
+H100, shared by ``chip_smoke.py``, the ladder tools and
+``redesign_times.py``. This module imports only torch: ``redesign_times.py``
+loads it by path to time another checkout's kernels with it.
 
 A bound is the least time the card could take for a function's work: the
 larger of its compulsory bytes (each input read once, each output written
@@ -41,6 +43,18 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2,
     return start.elapsed_time(end) / iters
 
 
+def times_in_turns(fns: dict, iters: int, queue_ahead: bool = False) -> dict:
+    """cuda_time_ms of each named function, read twice in turns (the
+    functions in order, then in reverse order), the lesser of its two
+    readings: the first reading after an idle or allocation-heavy phase can
+    run 15 % slow, whichever function it times (PERF.md)."""
+    reads = {name: [] for name in fns}
+    for name in list(fns) + list(fns)[::-1]:
+        reads[name].append(cuda_time_ms(fns[name], iters,
+                                        queue_ahead=queue_ahead))
+    return {name: min(r) for name, r in reads.items()}
+
+
 def roofline_ms(nbytes: int, flops: int) -> tuple:
     """(the larger of nbytes over the memory rate and flops over the fp32
     peak, in ms; which of the two it is)."""
@@ -69,6 +83,65 @@ def k1_bound_ms(operands) -> tuple:
     nbytes = (edge_bytes(E) + (rel.numel() + x.numel()) * x.element_size()
               + V * F * 4)
     return roofline_ms(nbytes, 3 * E * F)
+
+
+def sparse_mm_halves(csr, w):
+    """K3's function (the transe backward) as two library calls, timed
+    beside K3 and never used by the port: dx = Aᵀ g and dr = T g, with
+    Aᵀ[s, v] and T[r, v] the summed weights of the edges s → v and of the
+    type-r edges into v, as coalesced CSR tensors. Returns (Aᵀ, T)."""
+    V, R = csr.src_rowptr.numel() - 1, csr.rel_chunk_ptr.numel() - 1
+    counts = (csr.src_rowptr[1:] - csr.src_rowptr[:-1]).long()
+    src = torch.repeat_interleave(
+        torch.arange(V, device=counts.device), counts)
+    dst, etype = csr.src_dst.long(), csr.src_etype.long()
+    weight = w.index_select(0, csr.src_eid.long())
+    return tuple(
+        torch.sparse_coo_tensor(torch.stack([rows, dst]), weight,
+                                (n, V)).coalesce().to_sparse_csr()
+        for rows, n in ((src, V), (etype, R)))
+
+
+def k3_half_times(k3, at, t, grad, num_edges: int, iters: int = 20) -> dict:
+    """K3's halves each alone, ``k3(need_dx, need_dr)``, beside
+    torch.sparse.mm's halves (``at``, ``t`` from sparse_mm_halves) on the
+    same g, and each half's bound: g read once, its output written once,
+    the edges; a product and a sum per edge and feature. Keys ms_dx,
+    ms_dr, library_ms_dx, library_ms_dr, library_ms (their sum),
+    bound_ms_dx, bound_ms_dr."""
+    out = dict(
+        ms_dx=cuda_time_ms(lambda: k3(True, False), iters),
+        ms_dr=cuda_time_ms(lambda: k3(False, True), iters),
+        library_ms_dx=cuda_time_ms(lambda: torch.sparse.mm(at, grad), iters),
+        library_ms_dr=cuda_time_ms(lambda: torch.sparse.mm(t, grad), iters))
+    out["library_ms"] = out["library_ms_dx"] + out["library_ms_dr"]
+    (V, F), E = grad.shape, num_edges
+    for half, rows in (("dx", V), ("dr", t.shape[0])):
+        out[f"bound_ms_{half}"] = roofline_ms(
+            edge_bytes(E) + (V + rows) * F * 4, 2 * E * F)[0]
+    return out
+
+
+def k9_times(shift, plain, x: torch.Tensor, n: int, iters: int = 50) -> dict:
+    """K9 (``shift()``, the ring shift of the n blocks of x) beside its
+    plain version (``plain()``), torch.cat of the rotated blocks (its
+    library call, the views made once, outside the timing) and torch.roll,
+    all queued ahead of the device, and K9 and torch.cat at the host's
+    pace; every time the lesser of two readings in turns
+    (times_in_turns). The bound: every byte read and written once. Keys
+    ms, plain_ms, library_ms, roll_ms, host_paced_ms,
+    library_host_paced_ms, bound_ms, bound_by."""
+    blocks = list(x.chunk(n))
+    rotated = [blocks[(s - 1) % n] for s in range(n)]
+    vb = x.shape[0] // n
+    queued = times_in_turns(dict(
+        ms=shift, plain_ms=plain, library_ms=lambda: torch.cat(rotated),
+        roll_ms=lambda: torch.roll(x, vb, dims=0)), iters, queue_ahead=True)
+    paced = times_in_turns(dict(
+        host_paced_ms=shift,
+        library_host_paced_ms=lambda: torch.cat(rotated)), iters)
+    bound_ms, bound_by = roofline_ms(2 * x.numel() * x.element_size(), 0)
+    return dict(**queued, **paced, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def gpu_query() -> dict:

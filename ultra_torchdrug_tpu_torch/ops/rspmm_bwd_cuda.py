@@ -1,7 +1,8 @@
 """Kernels K2, K2h, K3 and K8b: the relational SpMM backward with sum
 aggregation, for distmult (K2; K2h with bf16 operands), transe (K3) and
 RotatE (K8b) messages, by hand for Hopper (csrc/rspmm_bwd.cu,
-csrc/rspmm_rotate.cu), and their plain PyTorch versions.
+csrc/rspmm_transe_bwd.cu, csrc/rspmm_rotate.cu), and their plain PyTorch
+versions.
 
 K2 replaces ultra_torchdrug_tpu/ops/rspmm_pallas.py::rspmm_bwd_fused in mode
 ``mul`` (via rspmm_bwd_pallas), the backward of K1's ``mul_rel``:
@@ -32,7 +33,10 @@ complex product over blocks of ``dim`` features (ops/rspmm_cuda.py):
     dr[r] = Σ_{e with type r} (conj(x[s_e]) ⊗ g[v_e]) · w[eid_e]
 
 over the graph's source-sorted CSR (dx) and relation-sorted chunks (dr),
-both from data/graph.py::Graph.prepare_csr. Operands are flat: x, g [V, F],
+both from data/graph.py::Graph.prepare_csr; K3 reads that CSR cut into
+segments of at most 256 edges (dx) and its own (destination tile,
+relation) chunks (dr), the Csr's src_seg_*, src_long_* and tile_* fields,
+built with them. Operands are flat: x, g [V, F],
 relation [R, F], edge_weight [E] in original edge order, all float32.
 
 ``rspmm_bwd_cuda`` (K2, K3), ``rspmm_bwd_bf16_cuda`` (K2h) and
@@ -48,11 +52,11 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from .cuda_build import load_library
 from .rspmm_cuda import (
-    MODES,
     _check,
     check_mode,
     check_rotate_dim,
@@ -65,7 +69,6 @@ from .rspmm_cuda import (
 # calls that launched each kernel since import (or since the caller last
 # reset them)
 launches = {"K2": 0, "K2h": 0, "K3": 0, "K8b": 0}
-_KERNEL_ID = {"mul_rel": "K2", "add_rel": "K3"}
 
 
 def _require_backward_layouts(csr):
@@ -77,8 +80,12 @@ def _require_backward_layouts(csr):
 # K2's layouts, in its argument order
 _LAYOUT = ("src_rowptr", "src_dst", "src_etype", "src_eid", "chunk_ptr",
            "rel_chunk_ptr", "rel_src", "rel_dst", "rel_eid")
+# K3's layouts, in its argument order
+_K3_LAYOUT = ("src_seg_ptr", "src_seg_out", "src_dst", "src_eid",
+              "src_long_rows", "src_long_ptr", "tile_chunk_ptr",
+              "tile_chunk_slot", "tile_dst", "tile_eid", "tile_rel_ptr")
 _PER_EDGE = ("src_dst", "src_etype", "src_eid", "rel_src", "rel_dst",
-             "rel_eid")
+             "rel_eid", "tile_dst", "tile_eid")
 
 
 def check_bwd_operands(kernel: str, csr, layout, edge_weight, relation, x,
@@ -182,27 +189,93 @@ def rspmm_bwd_cuda(csr, edge_weight, relation, x, grad, need_dx=True,
     if grad.device.type == "cpu":
         return rspmm_bwd_plain(csr, edge_weight, relation, x, grad, need_dx,
                                need_dr, mode)
-    kid = _KERNEL_ID[mode]
     if mode == "add_rel":
-        x = None
+        return _transe_bwd_cuda(csr, edge_weight, relation, grad, need_dx,
+                                need_dr)
     device = grad.device
     num_rows, num_relations, num_chunks, num_features = check_bwd_operands(
-        kid, csr, _LAYOUT, edge_weight, relation, x, {"grad": grad})
+        "K2", csr, _LAYOUT, edge_weight, relation, x, {"grad": grad})
     dx, dr, partial = bwd_outputs(grad, num_relations, num_chunks, need_dx,
                                   need_dr)
-    rel = relation if mode == "mul_rel" else None  # K3 reads no relation
     fn = _kernel()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(MODES[mode], *(getattr(csr, n).data_ptr() for n in _LAYOUT),
-                 edge_weight.data_ptr(), ptr(rel), ptr(x), grad.data_ptr(),
-                 ptr(dx), ptr(dr), ptr(partial), num_rows, num_relations,
-                 num_chunks, num_features, stream)
+        err = fn(*(getattr(csr, n).data_ptr() for n in _LAYOUT),
+                 edge_weight.data_ptr(), relation.data_ptr(), x.data_ptr(),
+                 grad.data_ptr(), ptr(dx), ptr(dr), ptr(partial), num_rows,
+                 num_relations, num_chunks, num_features, stream)
     if err != 0:
-        raise RuntimeError(f"{kid} (rspmm_bwd) launch failed with CUDA error "
+        raise RuntimeError(f"K2 (rspmm_bwd) launch failed with CUDA error "
                            f"{err}")
-    launches[kid] += 1
+    launches["K2"] += 1
     return dx, dr
+
+
+def _transe_bwd_cuda(csr, edge_weight, relation, grad, need_dx, need_dr):
+    """K3 on CUDA tensors: dx over the source rows' segments, dr over the
+    (destination tile, relation) chunks; the relation gives dr's shape
+    only."""
+    num_rows, num_relations, _, num_features = check_bwd_operands(
+        "K3", csr, _K3_LAYOUT, edge_weight, relation, None, {"grad": grad})
+    num_segments = csr.src_seg_ptr.numel() - 1
+    num_long_rows = csr.src_long_rows.numel()
+    num_chunks = csr.tile_chunk_ptr.numel() - 1
+    if (csr.src_seg_out.numel() != num_segments
+            or csr.src_long_ptr.numel() != num_long_rows + 1
+            or csr.tile_chunk_slot.numel() != num_chunks
+            or csr.tile_rel_ptr.numel() != num_relations + 1):
+        raise ValueError("K3's segment and chunk layouts do not match: build "
+                         "them with data/graph.py::build_csr")
+    # the long rows' partial rows, one per segment of a row cut in several:
+    # every other row is one segment
+    num_long_segments = num_segments - (num_rows - num_long_rows)
+    dx, dr, dr_partial = bwd_outputs(grad, num_relations, num_chunks,
+                                     need_dx, need_dr)
+    dx_partial = (grad.new_empty((num_long_segments, num_features))
+                  if need_dx and num_long_segments else None)
+    fn = _transe_kernel()
+    with torch.cuda.device(grad.device):
+        stream = torch.cuda.current_stream(grad.device).cuda_stream
+        err = fn(*(getattr(csr, n).data_ptr() for n in _K3_LAYOUT),
+                 edge_weight.data_ptr(), grad.data_ptr(), ptr(dx), ptr(dr),
+                 ptr(dx_partial), ptr(dr_partial), num_segments,
+                 num_long_rows, num_chunks, num_relations, num_features,
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"K3 (rspmm_transe_bwd) launch failed with CUDA "
+                           f"error {err}")
+    launches["K3"] += 1
+    return dx, dr
+
+
+def transe_ragged_operands(feat: int, seed: int, device):
+    """K3's operands at ragged shapes, for its checks on the card: V = 5,000
+    rows (two full destination tiles of TILE_ROWS and a ragged third), the
+    last 5 rows without an edge and the last of R = 4 relations without
+    one; source row 3 sends 700 of the E = 2,700 edges (three dx segments);
+    relation 1 has 400 edges into the first tile (chunks of one tile) and
+    relation 0 edges in every tile; eid a permutation, not the identity;
+    weights in [0.5, 1.5] with a fifth masked to 0, g ~ N(0, 1) [V, feat].
+    Returns (csr, edge_weight, relation, None, grad), rspmm_bwd_cuda's
+    arguments (the relation gives dr's shape only)."""
+    from ..data.graph import TILE_ROWS, build_csr
+
+    rng = np.random.default_rng(seed)
+    V, R, E = 5000, 4, 2700
+    src = rng.integers(0, V - 5, E)
+    dst = rng.integers(0, V - 5, E)
+    et = rng.integers(0, R - 1, E)
+    src[:700] = 3
+    et[700:1100] = 1
+    dst[700:1100] = rng.integers(0, TILE_ROWS, 400)
+    csr = build_csr(src, dst, et, V, R, backward=True,
+                    edge_ids=rng.permutation(E))
+    w = rng.uniform(0.5, 1.5, E).astype(np.float32)
+    w[rng.uniform(size=E) < 0.2] = 0.0
+    grad = rng.normal(size=(V, feat)).astype(np.float32)
+    return (csr.to(device), torch.from_numpy(w).to(device),
+            torch.zeros((R, feat), device=device), None,
+            torch.from_numpy(grad).to(device))
 
 
 def rspmm_bwd_bf16_plain(csr, edge_weight, relation, x, grad, need_dx=True,
@@ -329,7 +402,16 @@ def _bf16_kernel():
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = load_library("rspmm_bwd").rspmm_bwd
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 16
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _transe_kernel():
+    fn = load_library("rspmm_transe_bwd").rspmm_transe_bwd
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

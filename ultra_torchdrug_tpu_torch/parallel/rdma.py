@@ -19,6 +19,7 @@ serves shards on separate cards once the mesh places them there.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import Sequence
@@ -55,9 +56,21 @@ def ring_shift(x: torch.Tensor, n_shards: int) -> torch.Tensor:
     block (s + 1) mod n is block s."""
     if x.device.type == "cpu":
         return ring_shift_plain(x, n_shards)
+    if x.device.type != "cuda":
+        raise ValueError(f"K9 runs on CUDA tensors, got {x.device}")
+    _check_shards(n_shards, n_shards)
+    if x.shape[0] % n_shards:
+        raise ValueError(f"{x.shape[0]} rows do not split into {n_shards} "
+                         "equal blocks")
+    # the blocks of one contiguous tensor share its device, dtype and block
+    # shape and are contiguous; the output is a new allocation, so no block
+    # of it overlaps a source block
     x = x.contiguous()
     out = torch.empty_like(x)
-    ring_shift_blocks(_blocks(x, n_shards), _blocks(out, n_shards))
+    nbytes = x.numel() * x.element_size() // n_shards
+    src, dst = x.data_ptr(), out.data_ptr()
+    _launch(x.device, [src + s * nbytes for s in range(n_shards)],
+            [dst + s * nbytes for s in range(n_shards)], nbytes)
     return out
 
 
@@ -68,9 +81,7 @@ def ring_shift_blocks(src: Sequence[torch.Tensor],
     overlap a source. All blocks must lie on one device (shards on several
     cards are ROADMAP Queue 1 item 9)."""
     n = len(src)
-    if n != len(dst) or not 1 <= n <= MAX_SHARDS:
-        raise ValueError(f"K9 takes 1 to {MAX_SHARDS} source and as many "
-                         f"destination blocks, got {n} and {len(dst)}")
+    _check_shards(n, len(dst))
     first = src[0]
     device = first.device
     if device.type != "cuda":
@@ -90,18 +101,35 @@ def ring_shift_blocks(src: Sequence[torch.Tensor],
                 raise ValueError(f"K9 {name} blocks must be contiguous")
     nbytes = first.numel() * first.element_size()
     starts = [t.data_ptr() for t in src]
-    if nbytes and any(s < t.data_ptr() + nbytes and t.data_ptr() < s + nbytes
-                      for t in dst for s in starts):
+    targets = [t.data_ptr() for t in dst]
+    if nbytes and any(s < d + nbytes and d < s + nbytes
+                      for d in targets for s in starts):
         raise ValueError("K9 destination blocks must not overlap the "
                          "source blocks")
+    _launch(device, starts, targets, nbytes)
+
+
+def _check_shards(n_src: int, n_dst: int):
+    if n_src != n_dst or not 1 <= n_src <= MAX_SHARDS:
+        raise ValueError(f"K9 takes 1 to {MAX_SHARDS} source and as many "
+                         f"destination blocks, got {n_src} and {n_dst}")
+
+
+def _launch(device: torch.device, src: list, dst: list, nbytes: int):
+    """Launch K9 on ``device``'s current stream over the block addresses
+    ``src`` and ``dst`` (block s of src lands in block (s + 1) % n of
+    dst), each ``nbytes`` long; count the launch."""
     if nbytes == 0:
         return
-    src_ptrs = (ctypes.c_void_p * n)(*[t.data_ptr() for t in src])
-    dst_ptrs = (ctypes.c_void_p * n)(*[t.data_ptr() for t in dst])
+    n = len(src)
     fn = _kernel()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(src_ptrs, dst_ptrs, n, nbytes, stream)
+    # entering torch.cuda.device costs more than the launch: only when the
+    # blocks lie on another device than the current one
+    current = (device.index is None
+               or device.index == torch.cuda.current_device())
+    with contextlib.nullcontext() if current else torch.cuda.device(device):
+        err = fn((ctypes.c_void_p * n)(*src), (ctypes.c_void_p * n)(*dst), n,
+                 nbytes, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"K9 (ring_shift) launch failed with CUDA error "
                            f"{err}")
