@@ -9,12 +9,21 @@ Phases, each of which raises on failure (the script then exits nonzero):
 
   0. build    every kernel source in ultra_torchdrug_tpu_torch/csrc/ with nvcc,
               all at once, and print the build time and ptxas' resource lines;
-  1. kernels  hold K1 (the rspmm forward, csrc/rspmm_fwd.cu) against its plain
-              PyTorch version in modes mul_rel and add_rel, at small and ragged
-              shapes and at the eval and training shapes, and time it; hold K2
-              (the rspmm backward, csrc/rspmm_bwd.cu) against its plain
-              version at small and ragged shapes and at the training shape,
-              check that two calls agree bitwise, and time it; hold K6 (the
+  1. kernels  hold K1 (the rspmm forward, csrc/rspmm_fwd.cu and
+              rspmm_staged.cuh) against its plain PyTorch version in modes
+              mul_rel and add_rel, at small and ragged shapes, on hub rows
+              (10^3 and 10^4 edges, rows of 256 and 257, F = 10, 100, 1028,
+              with and without the segments, bitwise across two calls) and
+              with R = 2,000 (rel rows gathered), and at the eval and
+              training shapes, and time it; hold K2 (the rspmm backward,
+              csrc/rspmm_bwd.cu) against its plain version at small and
+              ragged shapes, on the same hub and large-R graphs and at the
+              training shape, check that two calls agree bitwise, and time
+              it whole and by half; time K1 and K2 (by half) on bench.py's
+              heavy-tailed KG (busiest destination row 107,150 edges,
+              source row 107,336), hub sums held within K1's or K2's
+              tolerance plus 8 fp32 ulps of each entry's absolute mass;
+              log each timed shape's slice width and rel branch; hold K6 (the
               fused max+min, both modes) and K7 (the fused moments,
               csrc/rspmm_pna_fwd.cu) and K6b and K7b (their backward,
               csrc/rspmm_pna_bwd.cu, bitwise across two calls) against their
@@ -53,16 +62,18 @@ Phases, each of which raises on failure (the script then exits nonzero):
               (csrc/rspmm_ladder.cu, ops/rspmm_ladder_cuda.py) against its
               plain version at ragged shapes (F = 10, 64, 1028; empty
               rows; a row of 700 edges, longer than one split segment; eid
-              not the identity), full bitwise against K1 and packed, ftile
-              and nowrite against full; then run the ladder tools at their
-              default, full sizes with every variant, each between a reset
+              not the identity), full bitwise against K1 on the rows of
+              one segment (K1 at full's tolerance on the rest) and packed,
+              ftile and nowrite against full; then run
+              the ladder tools at their default, full sizes with every
+              variant and the shipped K1 beside them, each between a reset
               and a read of the launch counts: P1
               (diagnostics/kernel_floor.py, 524,288 edges into 256 rows)
               and P2 (diagnostics/blocked_ladder.py, bench.py's
               heavy-tailed KG, 557,056 edges, its JSON under output/),
               one [ladder] line per workload and variant; every variant
-              must launch and no model kernel; on the CPU a tiny size with
-              the plain versions;
+              and K1 must launch and no other kernel; on the CPU a tiny
+              size with the plain versions;
   2. slice    zero-shot evaluation of ULTRA (6x64 towers, seeded weights) on a
               synthetic KG of FB15k-237's size: 64 test triples in batches of
               16, through TransductiveKGTask.evaluate; K1 must launch 12 times
@@ -163,9 +174,13 @@ try:
     # the timing and bound helpers, shared with the ladder tools and
     # diagnostics/redesign_times.py
     from ultra_torchdrug_tpu_torch.diagnostics.timing import (
+        assert_mass_close,
         cuda_time_ms,
         edge_bytes,
         k1_bound_ms,
+        k1_mass,
+        k2_half_times,
+        k2_mass,
         k3_half_times,
         k9_times,
         roofline_ms,
@@ -326,6 +341,47 @@ def k1_operands(graph, feat: int, seed: int, device):
     return (csr.rowptr, csr.src, csr.etype, csr.eid, w, rel, x)
 
 
+def plan_text(plan: dict) -> str:
+    """A K1 or K2 pass's layout (ops' k1_plan / k2_plan) in a log line."""
+    return (f"slice {plan['slice_floats']} features, rel {plan['rel']}"
+            + (f" ({plan['rel_smem_bytes']} B)" if plan["rel_smem_bytes"]
+               else "")
+            + f", {plan['slices']} slices x {plan['ctas_per_slice']} CTAs")
+
+
+def check_k1_hub(csr, w, F: int, label: str, device) -> float:
+    """K1 in both modes over ``csr`` at width F against its plain version:
+    K1's tolerance plus 8
+    fp32 ulps of each entry's absolute mass (the hub rows' partial sums run
+    in another order), rows without edges 0, two calls bitwise equal.
+    Returns the largest difference."""
+    from ultra_torchdrug_tpu_torch.ops import rspmm_cuda
+
+    V, R = csr.rowptr.numel() - 1, csr.rel_chunk_ptr.numel() - 1
+    gen = torch.Generator(device=device).manual_seed(F + R)
+    rel = torch.randn((R, F), generator=gen, device=device)
+    x = torch.randn((V, F), generator=gen, device=device)
+    ops = (csr.rowptr, csr.src, csr.etype, csr.eid, w, rel, x)
+    err = 0.0
+    for mode in ("mul_rel", "add_rel"):
+        want = rspmm_cuda.rspmm_fwd_plain(*ops, mode)
+        mass = k1_mass(ops, mode)
+        got = rspmm_cuda.rspmm_fwd_cuda(*ops, mode, segments=csr.segments)
+        again = rspmm_cuda.rspmm_fwd_cuda(*ops, mode, segments=csr.segments)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"K1 {label}: two calls differ")
+        err = max(err, assert_mass_close(got, want, mass, 1e-5, 1e-5,
+                                         f"K1 {mode} {label}"))
+        empty = (csr.rowptr[1:] == csr.rowptr[:-1]).nonzero()
+        if not torch.all(got[empty] == 0):
+            raise AssertionError(f"K1 {label}: rows without edges")
+    plan = rspmm_cuda.k1_plan(R, F, V, csr.seg_ptr.numel() - 1)
+    log(f"[kernels] K1 {label}: max_abs_err {err:.3g} within the mass "
+        f"tolerance, bitwise equal across two calls; {plan_text(plan)}")
+    return err
+
+
 def phase_kernels(dataset, device):
     """K1 against its plain version; returns its kernels-line entry (without
     the main path's launch count)."""
@@ -334,8 +390,8 @@ def phase_kernels(dataset, device):
 
     tol = dict(rtol=1e-5, atol=1e-5)
     # (a) small and ragged shapes: F = 10 and 12 take the scalar path, 64 the
-    # float4 path, 1028 two feature tiles; rows 32.. of the first graph and
-    # 45.. of the second receive no edge
+    # float4 path, 1028 several feature slices; rows 32.. of the first graph
+    # and 45.. of the second receive no edge
     rng = np.random.default_rng(0)
     for V, E, R, F, empty in ((37, 300, 6, 10, 5), (37, 300, 6, 64, 5),
                               (37, 300, 6, 1028, 5), (50, 20, 3, 12, 5)):
@@ -344,7 +400,8 @@ def phase_kernels(dataset, device):
         g = Graph.from_triplets(tri, V, R).prepare_csr()
         ops = k1_operands(g, F, seed=V + F, device=device)
         for mode in ("mul_rel", "add_rel"):
-            got = rspmm_cuda.rspmm_fwd_cuda(*ops, mode)
+            got = rspmm_cuda.rspmm_fwd_cuda(*ops, mode,
+                                            segments=g.csr.to(device).segments)
             want = rspmm_cuda.rspmm_fwd_plain(*ops, mode)
             torch.cuda.synchronize()
             torch.testing.assert_close(got, want, **tol)
@@ -353,6 +410,17 @@ def phase_kernels(dataset, device):
             err = (got - want).abs().max().item()
             log(f"[kernels] K1 {mode} V={V} E={E} R={R} F={F}: "
                 f"max_abs_err {err:.3g}")
+    # hub rows of 10^3 and 10^4 edges, rows of 256 and 257, empty rows: F =
+    # 10 the scalar path, 100 a last slice it does not fill, 1028; then R =
+    # 2,000 relations, whose rel slice exceeds the shared-memory budget, so
+    # rel rows are gathered (F = 13 scalar, 132 float4)
+    csr, w = rspmm_cuda.hub_operands(10, device)
+    for F in (10, 100, 1028):
+        check_k1_hub(csr, w, F, f"hub rows F={F}", device)
+    csr, w = rspmm_cuda.hub_operands(11, device, R=2000)
+    for F in (13, 132):
+        check_k1_hub(csr, w, F, f"R=2000 F={F}", device)
+    del csr, w
 
     # (b) the full-width shape of the slice: the undirected FB-sized fact
     # graph, F = 16 queries x 64 features
@@ -360,17 +428,21 @@ def phase_kernels(dataset, device):
     und = fact.undirected_with_inverse().prepare_csr()
     F = EVAL_BATCH * 64
     ops = k1_operands(und, F, seed=1, device=device)
+    segments = und.csr.to(device).segments
     log(f"[kernels] full-width shape V={und.num_nodes} E={und.num_edges} "
-        f"R={und.num_relations} F={F}")
+        f"R={und.num_relations} F={F}: "
+        + plan_text(rspmm_cuda.k1_plan(und.num_relations, F, und.num_nodes,
+                                       segments.num_segments)))
     entry = None
     for mode in ("mul_rel", "add_rel"):
-        got = rspmm_cuda.rspmm_fwd_cuda(*ops, mode)
+        got = rspmm_cuda.rspmm_fwd_cuda(*ops, mode, segments=segments)
         want = rspmm_cuda.rspmm_fwd_plain(*ops, mode)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, **tol)
         err = (got - want).abs().max().item()
         del got, want
-        ms = cuda_time_ms(lambda: rspmm_cuda.rspmm_fwd_cuda(*ops, mode), 50)
+        ms = cuda_time_ms(lambda: rspmm_cuda.rspmm_fwd_cuda(
+            *ops, mode, segments=segments), 50)
         plain_ms = cuda_time_ms(
             lambda: rspmm_cuda.rspmm_fwd_plain(*ops, mode), 5, warmup=1)
         bound_ms, bound_by = k1_bound_ms(ops)
@@ -387,6 +459,7 @@ def phase_kernels(dataset, device):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
         else:
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            entry["ms_add_rel"] = ms
     log('[kernels] kernels ["K1"]')
     return entry
 
@@ -413,9 +486,10 @@ def k2_operands(graph, feat: int, seed: int, device):
 
 
 def phase_kernels_k2(und, device):
-    """K2 against its plain version; returns its kernels-line entry."""
+    """K2 against its plain version; returns its kernels-line entry, with
+    each half's time and bound."""
     from ultra_torchdrug_tpu_torch.data.graph import Graph
-    from ultra_torchdrug_tpu_torch.ops import rspmm_bwd_cuda
+    from ultra_torchdrug_tpu_torch.ops import rspmm_bwd_cuda, rspmm_cuda
 
     # dr rows sum up to ~1000 products of N(0, 1) values per relation in
     # another order than the plain version: 1e-4 absolute
@@ -437,10 +511,10 @@ def phase_kernels_k2(und, device):
             "across two calls")
         return dx, dr, err
 
-    # (a) small and ragged shapes: F = 10 and 12 scalar, 64 float4, 1028 two
-    # feature tiles; the last 5 rows send no edge and the last relation has
-    # none; the (60, 1400, 3) graph spreads ~700 edges over each of two
-    # relations, three chunks each
+    # (a) small and ragged shapes: F = 10 and 12 scalar, 64 float4, 1028
+    # several feature slices; the last 5 rows send no edge and the last
+    # relation has none; the (60, 1400, 3) graph spreads ~700 edges over
+    # each of two relations, three chunks each
     rng = np.random.default_rng(1)
     for V, E, R, F in ((37, 300, 6, 10), (37, 300, 6, 64), (37, 300, 6, 1028),
                        (50, 20, 3, 12), (60, 1400, 3, 64)):
@@ -451,6 +525,15 @@ def phase_kernels_k2(und, device):
                           f"V={V} E={E} R={R} F={F}")
         if not (torch.all(dx[V - 5:] == 0) and torch.all(dr[R - 1] == 0)):
             raise AssertionError("K2 wrote nonzero rows without edges")
+    # hub rows (10^3, 10^4, 256 and 257 edges; K2's tolerance plus 8 fp32
+    # ulps of each entry's absolute mass), F = 10, 100, 1028; R = 2,000,
+    # whose rel rows the dx pass gathers, F = 13 and 132
+    for seed, R, feats in ((12, 7, (10, 100, 1028)), (13, 2000, (13, 132))):
+        csr, w = rspmm_cuda.hub_operands(seed, device, R=R)
+        for F in feats:
+            check_k2_hub(csr, w, F, f"{'hub rows' if R == 7 else 'R=2000'} "
+                         f"F={F}", device)
+        del csr, w
 
     # (b) the training shape: F = 64 queries x 64 features
     F = TRAIN["batch"] * FEAT
@@ -459,19 +542,129 @@ def phase_kernels_k2(und, device):
              f"R={und.num_relations} F={F}")
     _, _, err = check(ops, label)
     torch.cuda.empty_cache()
-    ms = cuda_time_ms(lambda: rspmm_bwd_cuda.rspmm_bwd_cuda(*ops), 20)
+    out = k2_times(ops, label)
     plain_ms = cuda_time_ms(lambda: rspmm_bwd_cuda.rspmm_bwd_plain(*ops), 3,
                             warmup=1)
     bound_ms, bound_by = k2_bound_ms(*ops)
-    log(f"[kernels] K2 {label}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms by {bound_by}, {bound_ms / ms:.1%} of it), "
-        "library_ms: null (no single PyTorch call computes this function)")
+    log(f"[kernels] K2 {label}: {out['ms']:.4f} ms (plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms by {bound_by}, {bound_ms / out['ms']:.1%} "
+        "of it), library_ms: null (no single PyTorch call computes this "
+        "function)")
     log('[kernels] kernels ["K2"]')
     return dict(name="K2", route="cuda",
                 source=f"{PACKAGE}/csrc/rspmm_bwd.cu",
                 replaces="ultra_torchdrug_tpu/ops/rspmm_pallas.py:2110",
-                launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                launches=None, max_abs_err=err, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None, **out)
+
+
+def check_k2_hub(csr, w, F: int, label: str, device) -> float:
+    """K2 over ``csr`` at width F against its plain version: K2's
+    tolerance plus 8 fp32 ulps of each entry's absolute mass, rows and
+    relations without edges 0, two calls bitwise equal, each half alone
+    equal to the whole. Returns the largest difference."""
+    from ultra_torchdrug_tpu_torch.ops import rspmm_bwd_cuda
+
+    V, R = csr.src_rowptr.numel() - 1, csr.rel_chunk_ptr.numel() - 1
+    gen = torch.Generator(device=device).manual_seed(F + R + 1)
+    args = (csr, w, *(torch.randn(shape, generator=gen, device=device)
+                      for shape in ((R, F), (V, F), (V, F))))
+    dx, dr = rspmm_bwd_cuda.rspmm_bwd_cuda(*args)
+    dx2, dr2 = rspmm_bwd_cuda.rspmm_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(dx, dx2) and torch.equal(dr, dr2)):
+        raise AssertionError(f"K2 {label}: two calls differ")
+    err = max(assert_mass_close(got, want, mass, 1e-5, 1e-4, f"K2 {label}")
+              for got, want, mass in zip(
+                  (dx, dr), rspmm_bwd_cuda.rspmm_bwd_plain(*args),
+                  k2_mass(*args)))
+    no_src = (csr.src_rowptr[1:] == csr.src_rowptr[:-1]).nonzero()
+    no_rel = (csr.tile_rel_ptr[1:] == csr.tile_rel_ptr[:-1]).nonzero()
+    if not (torch.all(dx[no_src] == 0) and torch.all(dr[no_rel] == 0)):
+        raise AssertionError(f"K2 {label}: rows without edges")
+    if not (torch.equal(rspmm_bwd_cuda.rspmm_bwd_cuda(
+            *args, need_dr=False)[0], dx) and torch.equal(
+            rspmm_bwd_cuda.rspmm_bwd_cuda(*args, need_dx=False)[1], dr)):
+        raise AssertionError(f"K2 {label}: a half alone differs")
+    plan = rspmm_bwd_cuda.k2_plan(csr, F)
+    log(f"[kernels] K2 {label}: max_abs_err {err:.3g} within the mass "
+        f"tolerance, bitwise equal across two calls and by half; dx pass "
+        f"{plan_text(plan['dx'])}; dr pass {plan_text(plan['dr'])}")
+    return err
+
+
+def k2_times(ops, label: str) -> dict:
+    """K2's time on ``ops`` (csr, w, rel, x, g), whole and each half alone
+    (the other's output pointer null), with each half's bound; logs them
+    with the passes' layouts."""
+    from ultra_torchdrug_tpu_torch.ops import rspmm_bwd_cuda
+
+    def k2(need_dx=True, need_dr=True):
+        return rspmm_bwd_cuda.rspmm_bwd_cuda(*ops, need_dx, need_dr)
+
+    out = dict(ms=cuda_time_ms(k2, 20), **k2_half_times(k2, ops))
+    plan = rspmm_bwd_cuda.k2_plan(ops[0], ops[3].shape[1])
+    log(f"[kernels] K2 {label}: {out['ms']:.4f} ms; dx half "
+        f"{out['ms_dx']:.4f} ms (bound {out['bound_ms_dx']:.4f}; "
+        f"{plan_text(plan['dx'])}), dr half {out['ms_dr']:.4f} ms (bound "
+        f"{out['bound_ms_dr']:.4f}; {plan_text(plan['dr'])})")
+    return out
+
+
+def phase_k1_k2_hub(device) -> tuple:
+    """K1 and K2 at F = 64 x 64 on bench.py's heavy-tailed KG
+    (diagnostics/workloads.py::build_workload, edges head -> tail: its
+    busiest destination row 107,150 edges, its busiest source row
+    107,336), held against their plain versions within the mass tolerance
+    (K2 bitwise across two calls) and timed, K2 whole and by half; returns
+    the K1 and K2 entries' ``*_hub`` keys."""
+    from ultra_torchdrug_tpu_torch.data.graph import build_csr
+    from ultra_torchdrug_tpu_torch.diagnostics.workloads import build_workload
+    from ultra_torchdrug_tpu_torch.ops import rspmm_bwd_cuda, rspmm_cuda
+
+    tri, _, _ = build_workload(features=False)
+    V, R, E = 15000, 474, len(tri)
+    csr = build_csr(tri[:, 0], tri[:, 1], tri[:, 2], V, R,
+                    backward=True).to(device)
+    F = TRAIN["batch"] * FEAT
+    gen = torch.Generator(device=device).manual_seed(F + 9)
+    w = torch.rand((E,), generator=gen, device=device) + 0.5
+    w = w * (torch.rand((E,), generator=gen, device=device) >= 0.2)
+    rel, x, g = (torch.randn(shape, generator=gen, device=device)
+                 for shape in ((R, F), (V, F), (V, F)))
+    label = f"bench.py's KG V={V} E={E} R={R} F={F}"
+    ops = (csr.rowptr, csr.src, csr.etype, csr.eid, w, rel, x)
+    got = rspmm_cuda.rspmm_fwd_cuda(*ops, "mul_rel", segments=csr.segments)
+    k1_err = assert_mass_close(got, rspmm_cuda.rspmm_fwd_plain(
+        *ops, "mul_rel"), k1_mass(ops), 1e-5, 1e-5, f"K1 {label}")
+    del got
+    torch.cuda.empty_cache()
+    k1_ms = cuda_time_ms(lambda: rspmm_cuda.rspmm_fwd_cuda(
+        *ops, "mul_rel", segments=csr.segments), 20)
+    k1_bound, _ = k1_bound_ms(ops)
+    log(f"[kernels] K1 {label}: max_abs_err {k1_err:.3g} within the mass "
+        f"tolerance, {k1_ms:.4f} ms (bound {k1_bound:.4f} ms); "
+        + plan_text(rspmm_cuda.k1_plan(R, F, V, csr.seg_ptr.numel() - 1)))
+    args = (csr, w, rel, x, g)
+    k2_bound, _ = k2_bound_ms(*args)
+    dx, dr = rspmm_bwd_cuda.rspmm_bwd_cuda(*args)
+    dx2, dr2 = rspmm_bwd_cuda.rspmm_bwd_cuda(*args)
+    if not (torch.equal(dx, dx2) and torch.equal(dr, dr2)):
+        raise AssertionError(f"K2 {label}: two calls differ")
+    del dx2, dr2
+    k2_err = max(assert_mass_close(a, b, m, 1e-5, 1e-4, f"K2 {label}")
+                 for a, b, m in zip((dx, dr), rspmm_bwd_cuda.rspmm_bwd_plain(
+                     *args), k2_mass(*args)))
+    del dx, dr
+    torch.cuda.empty_cache()
+    log(f"[kernels] K2 {label}: max_abs_err {k2_err:.3g} within the mass "
+        "tolerance, bitwise equal across two calls")
+    k2 = k2_times(args, label)
+    del args, ops, csr, rel, x, g
+    torch.cuda.empty_cache()
+    return (dict(ms_hub=k1_ms, max_abs_err_hub=k1_err, bound_ms_hub=k1_bound),
+            dict(max_abs_err_hub=k2_err, bound_ms_hub=k2_bound,
+                 **{f"{k}_hub": v for k, v in k2.items()}))
 
 
 def time_k1_train_shape(und, device) -> dict:
@@ -480,19 +673,24 @@ def time_k1_train_shape(und, device) -> dict:
     from ultra_torchdrug_tpu_torch.ops import rspmm_cuda
 
     ops = k1_operands(und, TRAIN["batch"] * FEAT, seed=3, device=device)
-    got = rspmm_cuda.rspmm_fwd_cuda(*ops, "mul_rel")
+    segments = und.csr.to(device).segments
+    got = rspmm_cuda.rspmm_fwd_cuda(*ops, "mul_rel", segments=segments)
     want = rspmm_cuda.rspmm_fwd_plain(*ops, "mul_rel")
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     err = (got - want).abs().max().item()
     del got, want
     torch.cuda.empty_cache()
-    ms = cuda_time_ms(lambda: rspmm_cuda.rspmm_fwd_cuda(*ops, "mul_rel"), 20)
+    ms = cuda_time_ms(lambda: rspmm_cuda.rspmm_fwd_cuda(
+        *ops, "mul_rel", segments=segments), 20)
     plain_ms = cuda_time_ms(
         lambda: rspmm_cuda.rspmm_fwd_plain(*ops, "mul_rel"), 3, warmup=1)
     bound_ms, bound_by = k1_bound_ms(ops)
-    log(f"[kernels] K1 mul_rel training shape F={ops[-1].shape[1]}: "
-        f"max_abs_err {err:.3g}, {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms by {bound_by}, {bound_ms / ms:.1%} of it)")
+    F = ops[-1].shape[1]
+    plan = rspmm_cuda.k1_plan(und.num_relations, F, und.num_nodes,
+                              segments.num_segments)
+    log(f"[kernels] K1 mul_rel training shape F={F}: max_abs_err {err:.3g}, "
+        f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+        f"{bound_by}, {bound_ms / ms:.1%} of it); {plan_text(plan)}")
     return dict(max_abs_err_train=err, ms_train=ms, plain_ms_train=plain_ms,
                 bound_ms_train=bound_ms, bound_by_train=bound_by)
 
@@ -1112,7 +1310,7 @@ def phase_kernels_bf16(und, device) -> dict:
         f32 = (*args[:5], rel.float(), x.float(), mode)
         return (lambda: fwd.rspmm_fwd_bf16_cuda(*args),
                 lambda: fwd.rspmm_fwd_bf16_plain(*args),
-                lambda: fwd.rspmm_fwd_cuda(*f32))
+                lambda: fwd.rspmm_fwd_cuda(*f32, segments=csr.segments))
 
     def k2h(ops):
         return (lambda: bwd.rspmm_bwd_bf16_cuda(*ops),
@@ -1283,7 +1481,8 @@ def phase_ladder_kernels(device):
     last 5 without edges, a row of 700 of 1,200 in-edges (three split
     segments), eid not the identity; F = 10 (scalar path), 64 (float4 path)
     and 1028 (2 feature tiles of 256 threads, 5 of ftile's 64). Each
-    against its plain version, full bitwise against K1, packed, ftile and
+    against its plain version, full bitwise against K1 on the rows of one
+    segment (K1 at full's tolerance on the 700-edge row), packed, ftile and
     nowrite with write=True bitwise against full, nowrite with write=False
     leaving its output as filled, rows without edges 0. On the CPU the
     wrappers run the plain versions: a rehearsal of this Python."""
@@ -1295,8 +1494,8 @@ def phase_ladder_kernels(device):
                 for name in ladder.VARIANTS}
         log(f"[ladder] ragged V={ops.num_rows} E={ops.num_edges} F={F} "
             f"(a row of 700 edges, 5 empty rows, eid not the identity): "
-            f"max_abs_err {json.dumps(errs)}; full == K1, packed, ftile, "
-            "nowrite == full bitwise")
+            f"max_abs_err {json.dumps(errs)}; full == K1 on rows of one "
+            "segment, packed, ftile, nowrite == full bitwise")
     log('[ladder] kernels ["P1", "P2"] against their plain versions '
         f"({'card' if device.type == 'cuda' else 'cpu rehearsal'})")
 
@@ -1305,7 +1504,8 @@ def phase_ladder_tools(device) -> tuple:
     """The ladder tools at their default, full sizes with every variant
     (P1: diagnostics/kernel_floor.py, P2: diagnostics/blocked_ladder.py,
     its JSON under output/), each run between a reset and a read of
-    the launch counts: every variant must launch, no model kernel may.
+    the launch counts: every variant and the shipped K1 (timed beside
+    them) must launch, no other model kernel may.
     On the CPU a tiny size with the plain versions. Returns (the kernels
     line's P1 and P2 entries, their launch counts by tool)."""
     from ultra_torchdrug_tpu_torch.diagnostics import (
@@ -1339,9 +1539,12 @@ def phase_ladder_tools(device) -> tuple:
             seconds = time.perf_counter() - t0
             counts = launch_counts()
             per_variant = dict(ladder.launches)
-            model = {k: v for k, v in counts.items() if k != "ladder" and v}
-            if model or (cuda and not all(per_variant.values())) or (
-                    not cuda and counts["ladder"]):
+            # the tools time the shipped K1 beside the variants
+            model = {k: v for k, v in counts.items()
+                     if k not in ("ladder", "K1") and v}
+            if model or (cuda and not (all(per_variant.values())
+                                       and counts["K1"])) or (
+                    not cuda and (counts["ladder"] or counts["K1"])):
                 raise AssertionError(f"{label}: launches {counts}, by "
                                      f"variant {per_variant}")
             full = res["variants"]["full"]
@@ -1351,13 +1554,14 @@ def phase_ladder_tools(device) -> tuple:
                 max_abs_err=full["max_abs_err"], ms=full["ms"],
                 plain_ms=full.get("plain_ms"), bound_ms=res["bound_ms"],
                 bound_by=res["bound_by"], library_ms=None,
+                shipped_k1_ms=res["k1"]["ms"],
                 variant_ms={k: v["ms"] for k, v in res["variants"].items()},
                 variant_max_abs_err={k: v["max_abs_err"]
                                      for k, v in res["variants"].items()})
             runs[label] = {"tool": {kid: counts["ladder"]}}
             log(f"[ladder] {label}: {seconds:.1f} s, launches by variant "
-                f"{per_variant}; library_ms: null (no single PyTorch call "
-                "computes K1's function)")
+                f"{per_variant}, shipped K1 {counts['K1']}; library_ms: null "
+                "(no single PyTorch call computes K1's function)")
     if cuda:
         torch.cuda.empty_cache()
     return entries, runs
@@ -1652,6 +1856,9 @@ def main(argv=None) -> int:
         und = und.prepare_csr(backward=True)
         entries["K1"].update(time_k1_train_shape(und, device))
         entries["K2"] = phase_kernels_k2(und, device)
+        k1_hub, k2_hub = phase_k1_k2_hub(device)
+        entries["K1"].update(k1_hub)
+        entries["K2"].update(k2_hub)
         entries.update(phase_kernels_pna(und, device))
         entries.update(phase_kernels_ext(und, device))
         entries.update(phase_kernels_rotate(und, device))

@@ -8,6 +8,9 @@ Run on a machine with the card:
 Tolerance atol = rtol = 1e-5 for K1: the kernel sums each row's edges in CSR
 order, the plain version with index_add_ in another order. K2 uses rtol 1e-5,
 atol 1e-4: its dr rows sum up to a few hundred products of N(0, 1) values.
+On hub rows (10^3 and 10^4 edges) K1 and K2 add 8 fp32 ulps of each
+entry's absolute mass to those (diagnostics/timing.py::assert_mass_close):
+their segments' partial rows sum in another order than the plain version.
 K6 and K4 must equal their plain versions exactly (an extremum of the same
 fp32 products); K7 takes K1's tolerance for the same reason. K3, K5 and
 K6b/K7b take K2's, with the absolute tolerance widened to 1e-5 of the
@@ -24,8 +27,9 @@ K9 between steps) takes K1's and K2's tolerances against the CPU. The K1
 strip-down ladder (P1, P2) holds each variant to
 ops/rspmm_ladder_cuda.py::check_variant: K1's tolerance plus 8 fp32 ulps
 of each entry's absolute mass (its terms sum in another order), dr 1e-4 of
-its largest entry; full equals K1, and packed, ftile and nowrite equal
-full, bitwise.
+its largest entry; full equals K1 on the rows of one segment (at most
+256 edges; a longer row K1 sums by segments, held to full's tolerance),
+and packed, ftile and nowrite equal full, bitwise.
 """
 
 import dataclasses
@@ -34,8 +38,12 @@ import numpy as np
 import pytest
 import torch
 
-from ultra_torchdrug_tpu_torch.data.graph import Graph
-from ultra_torchdrug_tpu_torch.diagnostics import blocked_ladder, kernel_floor
+from ultra_torchdrug_tpu_torch.data.graph import Graph, build_csr
+from ultra_torchdrug_tpu_torch.diagnostics import (
+    blocked_ladder,
+    kernel_floor,
+    timing,
+)
 from ultra_torchdrug_tpu_torch.ops import (
     rspmm_bwd_cuda,
     rspmm_cuda,
@@ -95,7 +103,7 @@ def test_k1_matches_plain(cuda_device, rng, mode, V, E, R, F):
     args = (csr.rowptr, csr.src, csr.etype, csr.eid, g.edge_weight, rel, x,
             mode)
     before = rspmm_cuda.launches
-    got = rspmm_cuda.rspmm_fwd_cuda(*args)
+    got = rspmm_cuda.rspmm_fwd_cuda(*args, segments=csr.segments)
     torch.cuda.synchronize()
     assert rspmm_cuda.launches == before + 1
     want = rspmm_cuda.rspmm_fwd_plain(*args)
@@ -127,17 +135,29 @@ def test_k1_rejects_bad_operands(cuda_device, rng):
     csr = g.csr
     rel = torch.zeros((6, 8), device=cuda_device)
     x = torch.zeros((37, 8), device=cuda_device)
+    seg = dict(segments=csr.segments)
     with pytest.raises(TypeError):  # int64 indices
         rspmm_cuda.rspmm_fwd_cuda(csr.rowptr.long(), csr.src, csr.etype,
-                                  csr.eid, g.edge_weight, rel, x, "mul_rel")
+                                  csr.eid, g.edge_weight, rel, x, "mul_rel",
+                                  **seg)
     with pytest.raises(ValueError):  # non-contiguous x
         rspmm_cuda.rspmm_fwd_cuda(csr.rowptr, csr.src, csr.etype, csr.eid,
                                   g.edge_weight, rel,
                                   torch.zeros((8, 37), device=cuda_device).T,
-                                  "mul_rel")
+                                  "mul_rel", **seg)
     with pytest.raises(ValueError):  # operand on the CPU
         rspmm_cuda.rspmm_fwd_cuda(csr.rowptr, csr.src, csr.etype, csr.eid,
-                                  g.edge_weight, rel.cpu(), x, "mul_rel")
+                                  g.edge_weight, rel.cpu(), x, "mul_rel",
+                                  **seg)
+    ops = (csr.rowptr, csr.src, csr.etype, csr.eid, g.edge_weight, rel, x,
+           "mul_rel")
+    with pytest.raises(TypeError):  # no segments
+        rspmm_cuda.rspmm_fwd_cuda(*ops, segments=None)
+    with pytest.raises(ValueError):  # the segments on the CPU
+        rspmm_cuda.rspmm_fwd_cuda(*ops, segments=g.csr.to("cpu").segments)
+    with pytest.raises(ValueError):  # another CSR's segments
+        rspmm_cuda.rspmm_fwd_cuda(*ops, segments=_graph(
+            rng, 40, 300, 6).to(cuda_device).csr.segments)
 
 
 # (V, E, R, F): scalar (F = 10) and float4 (F = 64) widths, two feature tiles
@@ -227,6 +247,121 @@ def test_generalized_rspmm_gradient_card_matches_cpu(cuda_device, rng,
         assert rspmm_bwd_cuda.launches == before
     for a, b in zip(*grads):
         torch.testing.assert_close(b, a, **K2_TOL)
+
+
+def _normal(rng, shape, device):
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+        device)
+
+
+@pytest.mark.parametrize("F", [10, 64, 100, 1028])
+def test_k1_k2_hub_rows_match_plain(cuda_device, rng, F):
+    """K1 (both modes, with the CSR's segments and with each row one
+    segment) and K2 on hub rows of 10^3 and 10^4 edges, rows of 256 and
+    257, empty rows and an empty relation: F = 10 the scalar path, 100 a
+    last slice of 36 features, 1028 several slices. Within the mass
+    tolerance of the plain version, rows without edges 0, bitwise equal
+    across two calls, one launch counted a call, each K2 half alone equal
+    to the whole."""
+    V, R = 3000, 7
+    csr, w = rspmm_cuda.hub_operands(F, cuda_device, V=V, R=R)
+    assert csr.long_rows.tolist() == [0, 1, 5]
+    assert csr.src_long_rows.tolist() == [2, 3, 4]
+    rel, x, grad = (_normal(rng, s, cuda_device)
+                    for s in ((R, F), (V, F), (V, F)))
+    ops = (csr.rowptr, csr.src, csr.etype, csr.eid, w, rel, x)
+    for mode in ("mul_rel", "add_rel"):
+        want = rspmm_cuda.rspmm_fwd_plain(*ops, mode)
+        mass = timing.k1_mass(ops, mode)
+        before = rspmm_cuda.launches
+        got = rspmm_cuda.rspmm_fwd_cuda(*ops, mode, segments=csr.segments)
+        again = rspmm_cuda.rspmm_fwd_cuda(*ops, mode, segments=csr.segments)
+        torch.cuda.synchronize()
+        assert rspmm_cuda.launches == before + 2
+        assert torch.equal(got, again)
+        timing.assert_mass_close(got, want, mass, 1e-5, 1e-5, f"K1 {mode}")
+        assert torch.all(got[V - 5:] == 0)
+    args = (csr, w, rel, x, grad)
+    before = rspmm_bwd_cuda.launches["K2"]
+    dx, dr = rspmm_bwd_cuda.rspmm_bwd_cuda(*args)
+    dx2, dr2 = rspmm_bwd_cuda.rspmm_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    assert rspmm_bwd_cuda.launches["K2"] == before + 2
+    assert torch.equal(dx, dx2) and torch.equal(dr, dr2)
+    masses = timing.k2_mass(*args)
+    for got, want, mass in zip((dx, dr),
+                               rspmm_bwd_cuda.rspmm_bwd_plain(*args), masses):
+        timing.assert_mass_close(got, want, mass, 1e-5, 1e-4, "K2")
+    assert torch.all(dx[V - 5:] == 0) and torch.all(dr[R - 1] == 0)
+    dx3, none = rspmm_bwd_cuda.rspmm_bwd_cuda(*args, need_dr=False)
+    none2, dr3 = rspmm_bwd_cuda.rspmm_bwd_cuda(*args, need_dx=False)
+    assert none is None and none2 is None
+    assert torch.equal(dx3, dx) and torch.equal(dr3, dr)
+
+
+def test_k1_k2_run_on_every_card(rng):
+    """K1 (its rel slice above 48 KB of shared memory) and K2 on each card
+    in turn, against their plain versions: the raised shared-memory limit
+    and the SM count are kept per device (csrc/rspmm_staged.cuh)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs: the per-device launch state")
+    V, E, R, F = 600, 6000, 237, 64  # a rel slice of 237 x 64 x 4 = 61 KB
+    g = _graph(rng, V, E, R)
+    rel, x, grad = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                    for s in ((R, F), (V, F), (V, F)))
+    want = rspmm_cuda.rspmm_fwd_plain(
+        g.csr.rowptr, g.csr.src, g.csr.etype, g.csr.eid, g.edge_weight, rel,
+        x, "mul_rel")
+    want_dx, want_dr = rspmm_bwd_cuda.rspmm_bwd_plain(
+        g.csr, g.edge_weight, rel, x, grad)
+    for index in range(torch.cuda.device_count()):
+        device = torch.device("cuda", index)
+        gd = g.to(device)
+        c = gd.csr
+        got = rspmm_cuda.rspmm_fwd_cuda(
+            c.rowptr, c.src, c.etype, c.eid, gd.edge_weight, rel.to(device),
+            x.to(device), "mul_rel", segments=c.segments)
+        torch.testing.assert_close(got.cpu(), want, **TOL)
+        dx, dr = rspmm_bwd_cuda.rspmm_bwd_cuda(
+            c, gd.edge_weight, rel.to(device), x.to(device), grad.to(device))
+        torch.testing.assert_close(dx.cpu(), want_dx, **K2_TOL)
+        torch.testing.assert_close(dr.cpu(), want_dr, **K2_TOL)
+
+
+@pytest.mark.parametrize("F", [13, 132])
+def test_k1_k2_large_r_gather_rel_rows(cuda_device, rng, F):
+    """With R = 2,000 relations the rel slice exceeds the shared-memory
+    budget (csrc/rspmm_staged.cuh: 256 KB at 32 features, 512 KB at 64)
+    and K1 and K2's dx pass gather rel rows; with R = 7 they stage it.
+    Both against the plain versions (mass tolerance: a 700-edge hub)."""
+    V, E = 3000, 30000
+    for R, where in ((2000, "gathered"), (7, "shared")):
+        rng_r = np.random.default_rng(R + F)
+        tri = np.stack([rng_r.integers(0, V, E), rng_r.integers(0, V, E),
+                        rng_r.integers(0, R, E)], 1)
+        tri[:700, 1] = 1
+        csr = build_csr(tri[:, 0], tri[:, 1], tri[:, 2], V, R,
+                        backward=True).to(cuda_device)
+        w = torch.from_numpy(rng_r.uniform(0.5, 1.5, E).astype(
+            np.float32)).to(cuda_device)
+        rel, x, grad = (_normal(rng_r, s, cuda_device)
+                        for s in ((R, F), (V, F), (V, F)))
+        plan = rspmm_cuda.k1_plan(R, F, V, csr.seg_ptr.numel() - 1)
+        assert plan["rel"] == where, plan
+        assert rspmm_bwd_cuda.k2_plan(csr, F)["dx"]["rel"] == where
+        ops = (csr.rowptr, csr.src, csr.etype, csr.eid, w, rel, x)
+        for mode in ("mul_rel", "add_rel"):
+            got = rspmm_cuda.rspmm_fwd_cuda(*ops, mode,
+                                            segments=csr.segments)
+            timing.assert_mass_close(
+                got, rspmm_cuda.rspmm_fwd_plain(*ops, mode),
+                timing.k1_mass(ops, mode), 1e-5, 1e-5, f"K1 R={R} {mode}")
+        args = (csr, w, rel, x, grad)
+        for got, want, mass in zip(rspmm_bwd_cuda.rspmm_bwd_cuda(*args),
+                                   rspmm_bwd_cuda.rspmm_bwd_plain(*args),
+                                   timing.k2_mass(*args)):
+            timing.assert_mass_close(got, want, mass, 1e-5, 1e-4,
+                                     f"K2 R={R}")
 
 
 @pytest.mark.parametrize("V,E,R,F", K2_SHAPES + [(2000, 60000, 40, 2048)])
@@ -763,12 +898,48 @@ def test_ring_rspmm_card_matches_cpu(cuda_device, rng, n, compute_dtype,
         torch.testing.assert_close(b, a, **K2_TOL)
 
 
+def test_ring_rspmm_hub_buckets_card_matches_cpu(cuda_device, rng):
+    """The ring's per-bucket CSRs carry their own segments: with a
+    1,200-edge destination hub and a 1,200-edge source hub over 4 shards,
+    buckets hold rows of more than 256 edges (long rows), and the ring on
+    the card (K1 and K2 per bucket, K9 between steps) agrees with the CPU
+    run (rtol 1e-5 besides K1's and K2's absolute tolerances: the hubs'
+    sums reach tens)."""
+    V, E, R, B, D, n = 400, 6000, 5, 3, 8, 4
+    tri = np.stack([rng.integers(0, V, E), rng.integers(0, V, E),
+                    rng.integers(0, R, E)], 1)
+    tri[:1200, 1] = 7
+    tri[1200:2400, 0] = 11
+    w = rng.uniform(0.5, 1.5, E).astype(np.float32)
+    g = Graph.from_triplets(tri, V, R, edge_weight=w)
+    ri = build_ring_rspmm_inputs(tri[:, :2], tri[:, 2], V, n,
+                                 num_relations=R, pallas=True)
+    assert any(c.long_rows.numel() for row in ri.csr for c in row)
+    assert any(c.src_long_rows.numel() for row in ri.csr for c in row)
+    rel = torch.from_numpy(rng.normal(size=(R, B, D)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(V, B, D)).astype(np.float32))
+    cot = torch.from_numpy(rng.normal(size=(V, B, D)).astype(np.float32))
+    results = []
+    for dev in ("cpu", cuda_device):
+        r = rel.to(dev).requires_grad_()
+        xx = x.to(dev).requires_grad_()
+        out = ring_rspmm(g.edge_weight.to(dev), ri.to(dev), r, xx, msg="mul",
+                         exchange="rdma")
+        grads = torch.autograd.grad(out, (r, xx), cot.to(dev))
+        results.append([t.detach().cpu() for t in (out, *grads)])
+    torch.testing.assert_close(results[1][0], results[0][0], rtol=1e-5,
+                               atol=1e-5)
+    for a, b in zip(results[0][1:], results[1][1:]):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-4)
+
+
 @pytest.mark.parametrize("F", [10, 64, 1028])
 @pytest.mark.parametrize("variant", ladder.VARIANTS)
 def test_ladder_variants_match_plain(cuda_device, variant, F):
     """Each ladder variant held to check_ragged at ragged shapes (F = 10
     the scalar path, 1028 several feature tiles): its plain version, rows
-    without edges 0, full equal to K1 and the bitwise variants to full;
+    without edges 0, full equal to K1 on rows of one segment and the
+    bitwise variants to full;
     one launch counted per call."""
     ops = ladder.ragged_operands(F, seed=F, device=cuda_device)
     before = ladder.launches[variant]

@@ -120,7 +120,7 @@ def test_csr_wrapper_on_cpu_matches_edge_form(rng, msg):
     got = rspmm_cuda.rspmm_fwd_cuda(
         g.csr.rowptr, g.csr.src, g.csr.etype, g.csr.eid, g.edge_weight,
         torch.from_numpy(rel), torch.from_numpy(x),
-        "mul_rel" if msg == "mul" else "add_rel")
+        "mul_rel" if msg == "mul" else "add_rel", segments=g.csr.segments)
     assert rspmm_cuda.launches == before  # the plain version is no launch
     np.testing.assert_allclose(got.numpy(), _port(inp, rel, x, msg), **TOL)
 

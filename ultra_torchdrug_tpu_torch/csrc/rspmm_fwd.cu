@@ -17,70 +17,154 @@
 // and the edge arrays and one write of out; the work is 3 flops per edge and
 // feature, so the function is memory-bound (about 12 flops per byte at the
 // ULTRA entity-graph shape, below the card's 20 flops per byte fp32 balance
-// point: 67 TFLOP/s over 3.35 TB/s). This design reads one x row per edge
-// (E * F * 4 bytes for K1, E * F * 2 for K1h, many times the x table), so
-// its real limit is the gather traffic that misses L2, not the compulsory
-// bytes; K1h halves that traffic.
+// point: 67 TFLOP/s over 3.35 TB/s). A row gather reads one x row per edge
+// (E * F * 4 bytes for K1, 8.1 GB at the training shape, many times the x
+// table), so what a design reaches is set by where those gathers are
+// served (the 50 MB L2 or the memory) and by which other bytes ride along.
 //
-// What the design does about it: one CTA per destination row and feature
-// tile, the sum in registers, each row written once (rspmm_rows.cuh says
-// how); K1h reads 8 bf16 lanes per 16-byte load and widens them in
-// registers. Keeping x rows in shared memory or ordering rows for L2 reuse
-// is the later redesign. The TPU kernel pads bf16 rows to multiples of 1024
-// features for its (16, 128) memory tiling; that has no numeric effect and
-// is not copied.
+// K1's first design (PRs 1-9, still K1h's: rspmm_rows.cuh::row_gather) ran
+// one CTA per destination row and 256-thread feature tile, every edge
+// loading col, eid, w[eid] and etype and then gathering an x row and a rel
+// row. It took 2.05 ms at the training shape (16.3 GB of gathers at about
+// 7.9 TB/s, from the L2), and 39.7 ms on bench.py's heavy-tailed KG, where
+// one row of 107,150 edges walks serially on one CTA (NVIDIA H100 80GB HBM3,
+// 700 W; PERF.md).
+//
+// What K1's design does about it (rspmm_staged.cuh, the layouts
+// data/graph.py's Csr.seg_* / long_*):
+//  * hub-aware: a row of at most 256 edges is one segment, written straight
+//    to its output row (rows without edges write 0); a longer row is cut
+//    into 256-edge segments whose partial rows a second kernel sums in
+//    segment order;
+//  * the rel slice in shared memory: each CTA stages rel[:, slice] once, so
+//    an edge gathers only its x row, half the gathered bytes (above the
+//    shared-memory budget, large R, rel rows are gathered instead);
+//  * metadata ahead of the gathers: each edge's weight is gathered through
+//    eid once per call (gather_weights), and a 16-thread stream loads its
+//    next 8 edges' (src, etype, w) with one coalesced load each while its
+//    current gathers are in flight;
+//  * narrow feature slices launched slice-major, so that the x slices
+//    gathered by the CTAs in flight stay in the L2.
+// Deterministic: each segment's sum is one warp's in a fixed order, the
+// long rows' partials are added in segment order, no atomics on floats.
+// One call makes up to three launches: the weights, the segments, the long
+// rows' sums.
+//
+// K1h keeps the first design; its redesign onto this one is later work.
 
-#include "rspmm_rows.cuh"
+#include "rspmm_staged.cuh"
 
 namespace {
 
-template <typename In>
-int launch_fwd(const int* rowptr, const int* src, const int* etype,
-               const int* eid, const float* weight, const In* rel,
-               const In* x, float* out, int num_rows, int num_features,
-               int mode, cudaStream_t stream) {
+// K1h: one CTA per row and 256-thread feature tile (rspmm_rows.cuh)
+int launch_k1h(const int* rowptr, const int* src, const int* etype,
+               const int* eid, const float* weight, const rspmm::bf16* rel,
+               const rspmm::bf16* x, float* out, int num_rows,
+               int num_features, int mode, cudaStream_t stream) {
   using namespace rspmm;
   if (mode != kMulRel && mode != kAddRel) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (num_rows > 0 && num_features > 0) {
-    const bool vec = num_features % vec_lanes<In>() == 0 && aligned16(rel) &&
-                     aligned16(x) && aligned16(out);
+    const bool vec = num_features % vec_lanes<bf16>() == 0 &&
+                     aligned16(rel) && aligned16(x) && aligned16(out);
     if (mode == kMulRel) {
-      launch_row_gather<kMulRel, In>(vec, rowptr, src, etype, eid, weight,
-                                     rel, x, out, num_rows, num_features,
-                                     stream);
+      launch_row_gather<kMulRel, bf16>(vec, rowptr, src, etype, eid, weight,
+                                       rel, x, out, num_rows, num_features,
+                                       stream);
     } else {
-      launch_row_gather<kAddRel, In>(vec, rowptr, src, etype, eid, weight,
-                                     rel, x, out, num_rows, num_features,
-                                     stream);
+      launch_row_gather<kAddRel, bf16>(vec, rowptr, src, etype, eid, weight,
+                                       rel, x, out, num_rows, num_features,
+                                       stream);
     }
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+bool k1_vec(const float* rel, const float* x, const float* out,
+            const float* partial, int num_features) {
+  using rspmm::aligned16;
+  return num_features % 4 == 0 && aligned16(rel) && aligned16(x) &&
+         aligned16(out) && (partial == nullptr || aligned16(partial));
+}
+
 }  // namespace
 
 // K1, fp32 operands. mode: 0 = mul_rel (distmult), 1 = add_rel (transe).
-// Returns the cudaGetLastError() code after the launch (0 on success); an
-// unknown mode returns cudaErrorInvalidValue without launching.
-extern "C" int rspmm_fwd_k1(const int* rowptr, const int* src, const int* etype,
-                            const int* eid, const float* weight,
-                            const float* rel, const float* x, float* out,
-                            int num_rows, int num_features, int mode,
-                            void* stream) {
-  return launch_fwd<float>(rowptr, src, etype, eid, weight, rel, x, out,
-                           num_rows, num_features, mode,
-                           static_cast<cudaStream_t>(stream));
+// The destination rows' segments (Csr.seg_ptr, seg_out, long_rows,
+// long_ptr) over the destination-sorted edges (src, etype, eid).
+// w_scratch holds num_edges floats, partial long_ptr[num_long_rows] rows of
+// F floats. Returns the first nonzero cudaGetLastError() code after a
+// launch (0 on success); an unknown mode returns cudaErrorInvalidValue
+// without launching.
+extern "C" int rspmm_fwd_k1(const int* seg_ptr, const int* seg_out,
+                            const int* long_rows, const int* long_ptr,
+                            const int* src, const int* etype, const int* eid,
+                            const float* weight, const float* rel,
+                            const float* x, float* out, float* w_scratch,
+                            float* partial, int num_segments,
+                            int num_long_rows, int num_edges,
+                            int num_relations, int num_x_rows,
+                            int num_features, int mode, void* stream) {
+  using namespace rspmm;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode != kMulRel && mode != kAddRel) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (num_segments <= 0 || num_features <= 0) {
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaError_t err =
+      staged::launch_gather_weights(eid, weight, w_scratch, num_edges, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const staged::Rows a{seg_ptr, seg_out, src,          etype,
+                       w_scratch, rel,   x,            out,
+                       partial,   num_segments, num_edges, num_relations,
+                       num_features};
+  const bool vec = k1_vec(rel, x, out, partial, num_features);
+  if (mode == kMulRel) {
+    const staged::Plan p = staged::rows_plan<kMulRel>(
+        vec, num_relations, num_features, num_x_rows, num_segments);
+    err = staged::launch_rows<kMulRel>(vec, p, a, long_rows, long_ptr,
+                                       num_long_rows, s);
+  } else {
+    const staged::Plan p = staged::rows_plan<kAddRel>(
+        vec, num_relations, num_features, num_x_rows, num_segments);
+    err = staged::launch_rows<kAddRel>(vec, p, a, long_rows, long_ptr,
+                                       num_long_rows, s);
+  }
+  return static_cast<int>(err);
 }
 
-// K1h, bf16 rel and x, fp32 weight and out; modes and return as for K1.
+// How K1 lays out a call of this shape (the plan of rspmm_staged.cuh),
+// written to out[0..4]: features a slice, 1 when the rel slice sits in
+// shared memory (0: rel rows gathered), its bytes, the slices, the CTAs a
+// slice. vec: 1 for the 16-byte path (F % 4 == 0 and aligned operands).
+extern "C" int rspmm_k1_plan(int vec, int num_relations, int num_features,
+                             int num_x_rows, int num_segments, int mode,
+                             int* out) {
+  using namespace rspmm;
+  const staged::Plan p =
+      mode == kMulRel
+          ? staged::rows_plan<kMulRel>(vec != 0, num_relations, num_features,
+                                       num_x_rows, num_segments)
+          : staged::rows_plan<kAddRel>(vec != 0, num_relations, num_features,
+                                       num_x_rows, num_segments);
+  out[0] = p.slice;
+  out[1] = p.shared_rel ? 1 : 0;
+  out[2] = static_cast<int>(p.smem);
+  out[3] = p.slices;
+  out[4] = p.ctas_per_slice;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1h, bf16 rel and x, fp32 weight and out, over the destination-sorted CSR
+// (rowptr / src / etype / eid); modes and return as for K1 (no segments).
 extern "C" int rspmm_fwd_k1h(const int* rowptr, const int* src,
                              const int* etype, const int* eid,
                              const float* weight, const __nv_bfloat16* rel,
                              const __nv_bfloat16* x, float* out, int num_rows,
                              int num_features, int mode, void* stream) {
-  return launch_fwd<__nv_bfloat16>(rowptr, src, etype, eid, weight, rel, x,
-                                   out, num_rows, num_features, mode,
-                                   static_cast<cudaStream_t>(stream));
+  return launch_k1h(rowptr, src, etype, eid, weight, rel, x, out, num_rows,
+                    num_features, mode, static_cast<cudaStream_t>(stream));
 }

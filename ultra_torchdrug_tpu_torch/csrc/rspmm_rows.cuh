@@ -1,8 +1,8 @@
-// Row-gather device code shared by the rspmm kernels (K1 and K1h in
-// rspmm_fwd.cu, the dx passes of K2 and K2h in rspmm_bwd.cu, the K1 ladder
-// in rspmm_ladder.cu; the Lanes helpers and relation_sums also serve K3 in
-// rspmm_transe_bwd.cu, K4, K6/K7 and K5, K6b/K7b in rspmm_pna_*.cu and
-// K8f/K8b in rspmm_rotate.cu):
+// Row-gather device code shared by the rspmm kernels (row_gather serves
+// K1h in rspmm_fwd.cu, K2h's dx pass in rspmm_bwd.cu and the K1 ladder in
+// rspmm_ladder.cu; the Lanes helpers, relation_sums and long_row_sums also
+// serve K1 and K2 in rspmm_staged.cuh, K3 in rspmm_transe_bwd.cu, K4,
+// K6/K7 and K5, K6b/K7b in rspmm_pna_*.cu and K8f/K8b in rspmm_rotate.cu):
 //
 //     out[v, :] = sum over e in [rowptr[v], rowptr[v+1]) of
 //                 w[eid[e]] * msg(rel[etype[e], :], x[col[e], :])
@@ -106,6 +106,28 @@ relation_sums(const int* __restrict__ rel_chunk_ptr,
     add_to(acc, ld(partial + static_cast<int64_t>(c) * n + j));
   }
   dr[static_cast<int64_t>(r) * n + j] = acc;
+}
+
+// out[rows[l], :] = sum over p in [ptr[l], ptr[l+1]) of partial[p, :], in
+// order: the second kernel of the hub-aware row passes (K1 and K2 in
+// rspmm_staged.cuh, K3's dx pass), which sums the partial rows of each row
+// cut into several segments. A hub row of 10^5 edges has 400 and more
+// partial rows, so the loop is unrolled for its loads to overlap.
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+long_row_sums(const int* __restrict__ rows, const int* __restrict__ ptr,
+              const T* __restrict__ partial, T* __restrict__ out, int n) {
+  const int l = blockIdx.x;
+  const int j = blockIdx.y * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  const int begin = __ldg(ptr + l);
+  const int end = __ldg(ptr + l + 1);
+  T acc = zero<T>();
+#pragma unroll 8
+  for (int p = begin; p < end; ++p) {
+    add_to(acc, ld(partial + static_cast<int64_t>(p) * n + j));
+  }
+  out[static_cast<int64_t>(__ldg(rows + l)) * n + j] = acc;
 }
 
 // W consecutive lanes of a row, as fp32 values in registers. fp32 rows: W = 4

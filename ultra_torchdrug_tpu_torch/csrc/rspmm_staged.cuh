@@ -1,0 +1,596 @@
+// Hub-aware, slice-major row sums of K1 (rspmm_fwd.cu) and K2 (rspmm_bwd.cu),
+// by hand for Hopper.
+//
+//   staged_rows:    out[row of item i, slice] = sum over the item's edges e
+//                   of w_e * msg(rel[etype_e, slice], x[col_e, slice])
+//                   (K1 over the destination rows' segments, K2's dx pass
+//                   over the source rows' segments with g in place of x);
+//   staged_chunks:  partial[slot_c, slice] = sum over chunk c's edges e of
+//                   w_e * x[src_e, slice] * g[dst_e, slice]
+//                   (K2's dr pass over the (destination tile, relation)
+//                   chunks; relation_sums in rspmm_rows.cuh adds each
+//                   relation's partial rows in slot order);
+//   gather_weights: w_e = weight[eid_e] in the order of a layout, once per
+//                   call, so that no slice gathers a weight through eid.
+//
+// The layouts are data/graph.py's Csr fields: an item is a segment of at most
+// 256 edges of one row (seg_* / src_seg_*; a longer row is cut into several,
+// whose partial rows long_row_sums in rspmm_rows.cuh adds in segment order)
+// or a chunk of at most 256 edges of one relation in one destination tile
+// (tile_*).
+//
+// The design:
+//  * feature slices: a CTA owns one slice of kSlice = 64 features (picked
+//    by timing 32, 64 and 128 on the card: PERF.md) and a
+//    contiguous share of the items, cut by edge count so that hub segments
+//    spread evenly. The grid is slice-major (blockIdx.y the slice), so the
+//    CTAs that run together gather from a few slices of the gathered
+//    tables, V * kSlice * 4 bytes each (3.7 MB at V = 14,541 and 64
+//    features), which the 50 MB L2 holds; ctas_per_slice keeps about
+//    kL2Bytes of slices in flight;
+//  * staged_rows: one edge stream a segment. A stream of G threads (W
+//    lanes each, one 16-byte load) sums its segment's edges in edge order,
+//    kIn gathers in flight a thread, in a software pipeline: while an
+//    iteration's gathers are in flight, the next iteration's edge metadata
+//    (row, type, weight; one coalesced load each by kIn lanes, passed on by
+//    shuffles) and at a segment's start the next segment and its edge range
+//    are loaded. (Run with the chunks as items, this pipeline took 1.93 ms
+//    for the dr pass at the ULTRA training shape against staged_chunks'
+//    1.85, and 1.90 against 1.39 on bench.py's KG: PERF.md);
+//  * staged_chunks: one warp a chunk (see there);
+//  * the rel slice in shared memory: each CTA of K1 and K2's dx pass first
+//    copies rel[:, slice] (R * kSlice * 4 bytes, 121 KB at R = 474) into
+//    shared memory, and each edge then gathers only its x (or g) row. Where
+//    that exceeds kRelSmemBytes, the kernel gathers rel rows instead (the
+//    same kernel, a choice by shape, kSharedRel = false);
+//  * streams (warps) take segments (chunks) from the CTA's share through a
+//    shared counter (an integer atomic): each sum is one stream's or one
+//    warp's in a fixed order, whichever takes it, so two calls give
+//    bitwise-equal outputs. No float atomics.
+
+#pragma once
+
+#include <algorithm>
+
+#include "rspmm_rows.cuh"
+
+namespace rspmm {
+namespace staged {
+// internal linkage: each library that includes this header keeps its own
+// kernels and launch state (a shared-memory attribute set on one library's
+// kernel does not reach another's)
+namespace {
+
+// features of a slice on the vector path (16 threads of 4 floats); the
+// scalar path (F % 4 != 0) takes 32 one-float lanes
+constexpr int kSlice = 64;
+constexpr int kScalarSlice = 32;
+// one CTA of 1,024 threads an SM (64 registers each), whose rel slice may
+// take all of the SM's shared memory (121 KB at R = 474)
+constexpr int kThreads = 1024;
+constexpr int kWarps = kThreads / 32;
+// gathers in flight a thread: kRowInFlight edges a round, half as many
+// where each edge gathers two rows
+constexpr int kRowInFlight = 8;
+// the rel slice's budget: the shared memory of one SM, less the CTA's
+// static shared memory
+constexpr int kRelSmemBytes = 227 * 1024 - 512;
+// the gathered slices that the CTAs in flight may touch together
+constexpr int64_t kL2Bytes = 24ll << 20;
+
+// w_out[e] = weight[eid[e]]
+__global__ void gather_weights(const int* __restrict__ eid,
+                               const float* __restrict__ weight,
+                               float* __restrict__ w_out, int n) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < n) w_out[e] = __ldg(weight + __ldg(eid + e));
+}
+
+inline cudaError_t launch_gather_weights(const int* eid, const float* weight,
+                                         float* w_out, int n,
+                                         cudaStream_t stream) {
+  if (n > 0) {
+    gather_weights<<<(n + 255) / 256, 256, 0, stream>>>(eid, weight, w_out,
+                                                        n);
+  }
+  return cudaGetLastError();
+}
+
+// the first i in [0, n) with a[i] >= v, else n
+__device__ __forceinline__ int lower_bound(const int* a, int n, int v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(a + mid) < v) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// This CTA's items: those whose first edge falls in its share
+// [c * E / k, (c + 1) * E / k) of the edges (the last CTA also takes the
+// items that start at E, rows without edges at the end), as range[0..1].
+__device__ __forceinline__ void claim_items(const int* ptr, int num_items,
+                                            int num_edges, int* range) {
+  const int c = blockIdx.x, k = gridDim.x;
+  range[0] = lower_bound(ptr, num_items,
+                         static_cast<int>(int64_t{c} * num_edges / k));
+  range[1] = c + 1 == k
+                 ? num_items
+                 : lower_bound(ptr, num_items,
+                               static_cast<int>(int64_t{c + 1} * num_edges / k));
+}
+
+template <int W>
+__device__ __forceinline__ Lanes<W> load_shared(const float* p) {
+  Lanes<W> out;
+  if constexpr (W == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    out.v[0] = t.x;
+    out.v[1] = t.y;
+    out.v[2] = t.z;
+    out.v[3] = t.w;
+  } else {
+    out.v[0] = *p;
+  }
+  return out;
+}
+
+struct Rows {
+  const int* seg_ptr;  // [S + 1] the items' edge ranges
+  const int* seg_out;  // [S] row (>= 0) or ~partial slot
+  const int* col;      // [E] the gathered row of each edge
+  const int* etype;    // [E]
+  const float* w;      // [E] each edge's weight, in this order
+  const float* rel;    // [R, F]
+  const float* x;      // [V_in, F] (K2's dx pass: g)
+  float* out;          // [V, F]
+  float* partial;      // [P, F] the long rows' partial rows
+  int num_segments;
+  int num_edges;
+  int num_relations;
+  int num_features;
+};
+
+// The next item of a stream, drawn by its first lane and passed to the
+// others (every lane of the warp takes part; `draw` selects the streams
+// that need one). Returns `last` past the end.
+template <int G>
+__device__ __forceinline__ int draw_item(int* next, bool draw, int lane,
+                                         int last) {
+  int item = last;
+  if (draw && lane % G == 0) item = min(atomicAdd(next, 1), last);
+  return __shfl_sync(0xffffffffu, item, lane - lane % G);
+}
+
+// MODE kMulRel or kAddRel; W lanes a thread, G threads a stream, each
+// stream one item at a time, kIn edges an iteration
+template <int MODE, int W, int G, bool kSharedRel>
+__global__ void __launch_bounds__(kThreads, 1) staged_rows(Rows a) {
+  constexpr int S = W * G;
+  // the gathered-rel branch loads two rows an edge
+  constexpr int kIn = kSharedRel ? kRowInFlight : kRowInFlight / 2;
+  static_assert(kIn <= G, "a stream's lanes hold an iteration's edges");
+  extern __shared__ float4 smem[];
+  float* s_rel = reinterpret_cast<float*>(smem);
+  __shared__ int s_range[2];
+  __shared__ int s_next;
+  const int lane = threadIdx.x & 31;
+  const int t = lane % G;  // this thread's place in its stream
+  const int F = a.num_features;
+  const int64_t F64 = F;
+  const int f0 = blockIdx.y * S;  // the slice's first feature
+  const int f = f0 + t * W;       // this thread's first feature
+  const bool on = f < F;          // F % W == 0 on the vector path
+  if constexpr (kSharedRel) {
+    // kRowInFlight loads in flight a thread: the slice (121 KB at R = 474)
+    // arrives in about one memory latency, not one per row a thread
+    const int n = a.num_relations * G;
+    for (int i0 = threadIdx.x; i0 < n; i0 += kRowInFlight * kThreads) {
+      Lanes<W> v[kRowInFlight];
+#pragma unroll
+      for (int u = 0; u < kRowInFlight; ++u) {
+        const int i = i0 + u * kThreads, c = (i % G) * W;
+        if (i < n && f0 + c < F) {
+          v[u] = load_lanes<W>(a.rel + (i / G) * F64 + f0 + c);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kRowInFlight; ++u) {
+        const int i = i0 + u * kThreads, c = (i % G) * W;
+        if (i < n && f0 + c < F) store_lanes<W>(s_rel + (i / G) * S + c, v[u].v);
+      }
+    }
+  }
+  if (threadIdx.x == 0) {
+    claim_items(a.seg_ptr, a.num_segments, a.num_edges, s_range);
+    s_next = s_range[0] + kThreads / G;
+  }
+  __syncthreads();
+  const int last = s_range[1];
+  // a software pipeline per stream: while an iteration's kIn gathers are
+  // in flight, the next iteration's edge metadata (and, at the start of an
+  // item, the item after it and its edge range) are loaded
+  int item = min(s_range[0] + static_cast<int>(threadIdx.x) / G, last);
+  int pos = 0, end = 0;
+  if (item < last) {
+    pos = __ldg(a.seg_ptr + item);
+    end = __ldg(a.seg_ptr + item + 1);
+  }
+  int next = draw_item<G>(&s_next, true, lane, last);
+  int next_begin = 0, next_end = 0;
+  if (next < last) {
+    next_begin = __ldg(a.seg_ptr + next);
+    next_end = __ldg(a.seg_ptr + next + 1);
+  }
+  // lane t < kIn of the stream holds edge pos + t
+  int m_col = 0, m_type = 0;
+  float m_w = 0.f;
+  if (t < kIn && pos + t < end) {
+    m_col = __ldg(a.col + pos + t);
+    m_type = __ldg(a.etype + pos + t);
+    m_w = __ldg(a.w + pos + t);
+  }
+  float acc[W] = {};
+  while (__any_sync(0xffffffffu, item < last)) {
+    const int n = item < last ? min(kIn, end - pos) : 0;
+    Lanes<W> xv[kIn];
+    Lanes<W> rv[kSharedRel ? 1 : kIn];
+#pragma unroll
+    for (int u = 0; u < kIn; ++u) {
+      const int c = __shfl_sync(0xffffffffu, m_col, u, G);
+      if constexpr (kSharedRel) {
+        if (on && u < n) xv[u] = load_lanes<W>(a.x + c * F64 + f);
+      } else {
+        const int r = __shfl_sync(0xffffffffu, m_type, u, G);
+        if (on && u < n) {
+          xv[u] = load_lanes<W>(a.x + c * F64 + f);
+          rv[u] = load_lanes<W>(a.rel + r * F64 + f);
+        }
+      }
+    }
+    // where this stream goes next: on in its item, or to the next item,
+    // whose successor is drawn and whose edge range is loaded now
+    const bool done = item < last && pos + kIn >= end;
+    int new_item = item, new_pos = pos + kIn, new_end = end;
+    if (done) {
+      new_item = next;
+      new_pos = next_begin;
+      new_end = next_end;
+    }
+    const int drawn = draw_item<G>(&s_next, done && next < last, lane, last);
+    if (done) {
+      next = drawn;
+      if (next < last) {
+        next_begin = __ldg(a.seg_ptr + next);
+        next_end = __ldg(a.seg_ptr + next + 1);
+      }
+    }
+    int c_col = 0, c_type = 0;
+    float c_w = 0.f;
+    if (new_item < last && t < kIn && new_pos + t < new_end) {
+      c_col = __ldg(a.col + new_pos + t);
+      c_type = __ldg(a.etype + new_pos + t);
+      c_w = __ldg(a.w + new_pos + t);
+    }
+#pragma unroll
+    for (int u = 0; u < kIn; ++u) {
+      const float we = __shfl_sync(0xffffffffu, m_w, u, G);
+      if constexpr (kSharedRel) {
+        // the type is passed on here, not kept in a register
+        const int r = __shfl_sync(0xffffffffu, m_type, u, G);
+        if (on && u < n) {
+          accumulate<MODE, float, W>(
+              acc, load_shared<W>(s_rel + r * S + (f - f0)), xv[u], we);
+        }
+      } else if (on && u < n) {
+        accumulate<MODE, float, W>(acc, rv[u], xv[u], we);
+      }
+    }
+    if (done) {
+      if (on) {
+        const int d = __ldg(a.seg_out + item);
+        float* o = d >= 0 ? a.out + d * F64 : a.partial + int64_t{~d} * F64;
+        store_lanes<W>(o + f, acc);
+      }
+#pragma unroll
+      for (int k = 0; k < W; ++k) acc[k] = 0.f;
+    }
+    item = new_item;
+    pos = new_pos;
+    end = new_end;
+    m_col = c_col;
+    m_type = c_type;
+    m_w = c_w;
+  }
+}
+
+// K2's dr pass: partial[slot_c, slice] = sum over chunk c's edges e of
+// w_e * x[src_e, slice] * g[dst_e, slice]. One warp a chunk: its 32 / G
+// streams take every (32 / G)-th edge of a batch of 32, whose metadata the
+// warp loads with one coalesced load each, and the streams' sums are
+// combined by a fixed butterfly. A chunk's destinations are sorted and lie
+// in one tile, so the streams' g gathers fall on neighbouring rows, often
+// the same one (a destination hub), which one warp's loads share.
+struct Chunks {
+  const int* chunk_ptr;   // [C + 1] the chunks' edge ranges (tile-major)
+  const int* chunk_slot;  // [C] each chunk's partial row
+  const int* src;         // [E] in tile order
+  const int* dst;         // [E]
+  const float* w;         // [E] each edge's weight, in tile order
+  const float* x;         // [V, F]
+  const float* g;         // [V, F]
+  float* partial;         // [C, F]
+  int num_chunks;
+  int num_edges;
+  int num_features;
+};
+
+template <int W, int G>
+__global__ void __launch_bounds__(kThreads, 1)
+staged_chunks(Chunks a) {
+  constexpr int kStreams = 32 / G;
+  constexpr int kIn = kRowInFlight / 2;  // two gathers an edge
+  __shared__ int s_range[2];
+  __shared__ int s_next;
+  const int lane = threadIdx.x & 31;
+  const int stream = lane / G;
+  const int F = a.num_features;
+  const int64_t F64 = F;
+  const int f = blockIdx.y * (W * G) + (lane % G) * W;
+  const bool on = f < F;
+  if (threadIdx.x == 0) {
+    claim_items(a.chunk_ptr, a.num_chunks, a.num_edges, s_range);
+    s_next = s_range[0] + kWarps;
+  }
+  __syncthreads();
+  const int last = s_range[1];
+  int item = s_range[0] + static_cast<int>(threadIdx.x >> 5);
+  while (item < last) {
+    const int begin = __ldg(a.chunk_ptr + item);
+    const int end = __ldg(a.chunk_ptr + item + 1);
+    float acc[W] = {};
+    for (int base = begin; base < end; base += 32) {
+      const int n = min(32, end - base);
+      int m_src = 0, m_dst = 0;
+      float m_w = 0.f;
+      if (lane < n) {
+        m_src = __ldg(a.src + base + lane);
+        m_dst = __ldg(a.dst + base + lane);
+        m_w = __ldg(a.w + base + lane);
+      }
+#pragma unroll
+      for (int u0 = 0; u0 < G; u0 += kIn) {
+        if (u0 * kStreams >= n) break;
+        Lanes<W> xv[kIn];
+        Lanes<W> gv[kIn];
+#pragma unroll
+        for (int u = 0; u < kIn; ++u) {
+          const int i = (u0 + u) * kStreams + stream;
+          const int s = __shfl_sync(0xffffffffu, m_src, i);
+          const int d = __shfl_sync(0xffffffffu, m_dst, i);
+          if (on && i < n) {
+            xv[u] = load_lanes<W>(a.x + s * F64 + f);
+            gv[u] = load_lanes<W>(a.g + d * F64 + f);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kIn; ++u) {
+          const int i = (u0 + u) * kStreams + stream;
+          const float we = __shfl_sync(0xffffffffu, m_w, i);
+          if (on && i < n) accumulate<kMulRel, float, W>(acc, xv[u], gv[u], we);
+        }
+      }
+    }
+    // the streams' sums, combined over the lanes G, 2G, ... apart: the same
+    // sum in every lane, in a fixed order
+#pragma unroll
+    for (int off = G; off < 32; off <<= 1) {
+#pragma unroll
+      for (int k = 0; k < W; ++k) {
+        acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
+      }
+    }
+    if (on && stream == 0) {
+      store_lanes<W>(a.partial + __ldg(a.chunk_slot + item) * F64 + f, acc);
+    }
+    int next = 0;
+    if (lane == 0) next = atomicAdd(&s_next, 1);
+    item = __shfl_sync(0xffffffffu, next, 0);
+  }
+}
+
+// How a pass is laid out: features a slice, whether the rel slice sits in
+// shared memory (its bytes), the slices, and the CTAs of each slice.
+struct Plan {
+  int slice;
+  bool shared_rel;
+  size_t smem;
+  int slices;
+  int ctas_per_slice;
+};
+
+// CTAs of one kernel that fit on the card at once. The SM count, the
+// occupancy and the raised shared-memory limit are kept per device (a
+// cudaFuncSetAttribute acts on the current device only) and asked once per
+// kernel, device and shared-memory size; a device numbered kMaxDevices or
+// more is asked on every call.
+constexpr int kMaxDevices = 64;
+
+struct Occupancy {
+  struct Device {
+    int sms = 0;
+    size_t smem = ~size_t{0};
+    int blocks = 0;
+    bool raised = false;  // the limit above 48 KB of dynamic shared memory
+  };
+  Device devices[kMaxDevices];
+
+  template <typename Kernel>
+  int resident(Kernel kernel, size_t bytes) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    Device unkept;
+    Device& d = dev >= 0 && dev < kMaxDevices ? devices[dev] : unkept;
+    if (d.sms == 0) {
+      cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (bytes > 48 * 1024 && !d.raised) {
+      cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kRelSmemBytes);
+      d.raised = true;
+    }
+    if (bytes != d.smem) {
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&d.blocks, kernel,
+                                                    kThreads, bytes);
+      d.smem = bytes;
+    }
+    return d.sms * std::max(d.blocks, 1);
+  }
+};
+
+template <int MODE, int W, int G, bool kSharedRel>
+int rows_resident(size_t smem) {
+  static Occupancy occupancy;
+  return occupancy.resident(staged_rows<MODE, W, G, kSharedRel>, smem);
+}
+
+template <int W, int G>
+int chunks_resident() {
+  static Occupancy occupancy;
+  return occupancy.resident(staged_chunks<W, G>, 0);
+}
+
+// p.ctas_per_slice for a pass whose items gather from gathered_rows rows:
+// enough for every CTA that fits on the card (resident) to run while the
+// slices in flight gather at most kL2Bytes, rounded up to whole waves of
+// CTAs, and no more than one a kWarps items
+inline void plan_ctas(Plan* p, int resident, int64_t gathered_rows,
+                      int num_items) {
+  const int64_t slice_bytes =
+      std::max<int64_t>(1, gathered_rows * p->slice * 4);
+  const int64_t in_flight = std::max<int64_t>(1, kL2Bytes / slice_bytes);
+  int64_t k = (resident + in_flight - 1) / in_flight;
+  const int64_t waves = (k * p->slices + resident - 1) / resident;
+  k = std::max<int64_t>(k, waves * resident / p->slices);
+  k = std::min<int64_t>(k, num_items / kWarps);
+  p->ctas_per_slice = static_cast<int>(std::max<int64_t>(1, k));
+}
+
+// The plan of staged_rows over num_items items (K1's or the dx pass's
+// segments) that gather from gathered_rows rows, with rel rows of
+// num_relations in shared memory where they fit
+template <int MODE>
+Plan rows_plan(bool vec, int num_relations, int num_features,
+               int64_t gathered_rows, int num_items) {
+  Plan p;
+  p.slice = vec ? kSlice : kScalarSlice;
+  p.slices = (num_features + p.slice - 1) / p.slice;
+  const size_t rel_bytes = size_t{4} * p.slice * num_relations;
+  p.shared_rel = rel_bytes <= size_t{kRelSmemBytes};
+  p.smem = p.shared_rel ? rel_bytes : 0;
+  int resident;
+  if (vec) {
+    resident = p.shared_rel ? rows_resident<MODE, 4, kSlice / 4, true>(p.smem)
+                            : rows_resident<MODE, 4, kSlice / 4, false>(0);
+  } else {
+    resident = p.shared_rel ? rows_resident<MODE, 1, 32, true>(p.smem)
+                            : rows_resident<MODE, 1, 32, false>(0);
+  }
+  plan_ctas(&p, resident, gathered_rows, num_items);
+  return p;
+}
+
+// The plan of staged_chunks over num_chunks chunks (x's and g's rows,
+// gathered_rows together)
+inline Plan chunks_plan(bool vec, int num_features, int64_t gathered_rows,
+                        int num_chunks) {
+  Plan p;
+  p.slice = vec ? kSlice : kScalarSlice;
+  p.slices = (num_features + p.slice - 1) / p.slice;
+  p.shared_rel = false;
+  p.smem = 0;
+  plan_ctas(&p, vec ? chunks_resident<4, kSlice / 4>() : chunks_resident<1, 32>(),
+            gathered_rows, num_chunks);
+  return p;
+}
+
+// staged_rows over a's items by plan p, then long_row_sums over the long
+// rows
+template <int MODE>
+cudaError_t launch_rows(bool vec, const Plan& p, const Rows& a,
+                        const int* long_rows, const int* long_ptr,
+                        int num_long_rows, cudaStream_t stream) {
+  if (a.num_features <= 0) return cudaGetLastError();
+  if (a.num_segments > 0) {
+    const dim3 grid(p.ctas_per_slice, p.slices);
+    if (vec && p.shared_rel) {
+      staged_rows<MODE, 4, kSlice / 4, true>
+          <<<grid, kThreads, p.smem, stream>>>(a);
+    } else if (vec) {
+      staged_rows<MODE, 4, kSlice / 4, false>
+          <<<grid, kThreads, 0, stream>>>(a);
+    } else if (p.shared_rel) {
+      staged_rows<MODE, 1, 32, true><<<grid, kThreads, p.smem, stream>>>(a);
+    } else {
+      staged_rows<MODE, 1, 32, false><<<grid, kThreads, 0, stream>>>(a);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (num_long_rows > 0) {
+    const int n = vec ? a.num_features / 4 : a.num_features;
+    const int threads = n >= 64 ? 64 : ((n + 31) / 32) * 32;
+    const dim3 grid(num_long_rows, (n + threads - 1) / threads);
+    if (vec) {
+      long_row_sums<float4><<<grid, threads, 0, stream>>>(
+          long_rows, long_ptr, reinterpret_cast<const float4*>(a.partial),
+          reinterpret_cast<float4*>(a.out), n);
+    } else {
+      long_row_sums<float><<<grid, threads, 0, stream>>>(
+          long_rows, long_ptr, a.partial, a.out, n);
+    }
+  }
+  return cudaGetLastError();
+}
+
+// staged_chunks over a's chunks by plan p, then relation_sums of each
+// relation's partial rows in slot order into dr [R, F]
+inline cudaError_t launch_chunks(bool vec, const Plan& p, const Chunks& a,
+                                 const int* rel_ptr, int num_relations,
+                                 float* dr, cudaStream_t stream) {
+  if (a.num_features <= 0) return cudaGetLastError();
+  if (a.num_chunks > 0) {
+    const dim3 grid(p.ctas_per_slice, p.slices);
+    if (vec) {
+      staged_chunks<4, kSlice / 4><<<grid, kThreads, 0, stream>>>(a);
+    } else {
+      staged_chunks<1, 32><<<grid, kThreads, 0, stream>>>(a);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (num_relations > 0) {
+    const int n = vec ? a.num_features / 4 : a.num_features;
+    int threads, tiles;
+    feature_tiles(n, &threads, &tiles);
+    const dim3 grid(num_relations, tiles);
+    if (vec) {
+      relation_sums<float4><<<grid, threads, 0, stream>>>(
+          rel_ptr, reinterpret_cast<const float4*>(a.partial),
+          reinterpret_cast<float4*>(dr), n);
+    } else {
+      relation_sums<float><<<grid, threads, 0, stream>>>(rel_ptr, a.partial,
+                                                         dr, n);
+    }
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace staged
+}  // namespace rspmm

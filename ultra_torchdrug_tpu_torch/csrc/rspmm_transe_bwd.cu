@@ -69,6 +69,7 @@ namespace {
 using rspmm::aligned16;
 using rspmm::Lanes;
 using rspmm::load_lanes;
+using rspmm::long_row_sums;
 using rspmm::relation_sums;
 using rspmm::store_lanes;
 
@@ -140,26 +141,6 @@ staged_sums(const int* __restrict__ ptr, const int* __restrict__ dest,
   float* o = d >= 0 ? out + static_cast<int64_t>(d) * width
                     : partial + static_cast<int64_t>(~d) * width;
   store_lanes<W>(o + lane, acc);
-}
-
-// out[rows[l], :] = sum over p in [ptr[l], ptr[l+1]) of partial[p, :], in
-// order (the long rows of the dx pass; a hub row of 10^5 edges has 400 and
-// more partial rows, so the loop is unrolled for its loads to overlap)
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-long_row_sums(const int* __restrict__ rows, const int* __restrict__ ptr,
-              const T* __restrict__ partial, T* __restrict__ out, int n) {
-  const int l = blockIdx.x;
-  const int j = blockIdx.y * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  const int begin = __ldg(ptr + l);
-  const int end = __ldg(ptr + l + 1);
-  T acc = rspmm::zero<T>();
-#pragma unroll 8
-  for (int p = begin; p < end; ++p) {
-    rspmm::add_to(acc, rspmm::ld(partial + static_cast<int64_t>(p) * n + j));
-  }
-  out[static_cast<int64_t>(__ldg(rows + l)) * n + j] = acc;
 }
 
 // threads per CTA and feature tiles for a row of n groups of lanes

@@ -9,21 +9,23 @@ device with ``Graph.to``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..ops.match import PatternJoinIndex, build_pattern_join
+from ..ops.rspmm_cuda import RowSegments
 
 # edges per chunk of the relation-sorted order (the dr pass of the rspmm
 # backward reduces one chunk per CTA, then each relation's chunks in order)
 DR_CHUNK_EDGES = 256
-# the transe backward's (K3's) layouts: source rows are cut into segments of
-# at most SEGMENT_EDGES edges (the dx pass), and its dr pass reads the edges
-# by destination tiles of TILE_ROWS rows, so that the chunks that run
-# together gather from one tile of g (16 MB at F = 2,048) while it sits in
-# the L2
+# the hub-aware layouts of K1, K2 and K3: rows are cut into segments of at
+# most SEGMENT_EDGES edges (K1 over the destination rows, the dx passes of
+# K2 and K3 over the source rows), and the dr passes read the edges by
+# destination tiles of TILE_ROWS rows, so that the chunks that run together
+# gather from one tile of g (16 MB at F = 2,048) while it sits in the L2
 SEGMENT_EDGES = 256
 TILE_ROWS = 2048
 
@@ -39,6 +41,15 @@ class Csr:
       rowptr [V + 1] — edges of row v are [rowptr[v], rowptr[v+1])
       src, etype, eid [E] — source node, edge type and original edge index
         of each edge, in destination order (stable within a row)
+    Destination-row segments (K1), over those edges, built for every CSR:
+      seg_ptr [S + 1] — segment i is [seg_ptr[i], seg_ptr[i+1]); a row of
+        at most SEGMENT_EDGES edges, none included, is one segment, a
+        longer row is cut into segments of SEGMENT_EDGES
+      seg_out [S] — where segment i's sum goes: its row (>= 0) when the row
+        is one segment, else ~slot (< 0), a row of the partial sums
+      long_rows [L] — the rows cut into several segments, in order
+      long_ptr [L + 1] — row long_rows[l] owns the partial slots
+        [long_ptr[l], long_ptr[l+1]), in segment order
     The backward's layouts (K2), None unless ``prepare_csr(backward=True)``
     built them:
     Source-sorted CSR (the dx pass):
@@ -50,20 +61,15 @@ class Csr:
       chunk_rel [C] — the relation of each chunk
       rel_chunk_ptr [R + 1] — relation r owns chunks
         [rel_chunk_ptr[r], rel_chunk_ptr[r+1]) (none when it has no edge)
-    The transe backward's layouts (K3), built with the others:
-    Source-row segments (its dx pass), over the source-sorted edges:
-      src_seg_ptr [S + 1] — segment i is [src_seg_ptr[i], src_seg_ptr[i+1]);
-        a row of at most SEGMENT_EDGES edges, none included, is one
-        segment, a longer row is cut into segments of SEGMENT_EDGES
-      src_seg_out [S] — where segment i's sum goes: its row (>= 0) when the
-        row is one segment, else ~slot (< 0), a row of the partial sums
-      src_long_rows [L] — the rows cut into several segments, in order
-      src_long_ptr [L + 1] — row src_long_rows[l] owns the partial slots
-        [src_long_ptr[l], src_long_ptr[l+1]), in segment order
-    (destination tile, relation) chunks (its dr pass):
-      tile_dst, tile_eid [E] — destination and original edge index of each
-        edge, sorted by destination tile (dst // TILE_ROWS), then relation,
-        then destination (stable)
+    The hub-aware backward layouts (K2 and K3), built with the others:
+    Source-row segments (their dx passes), over the source-sorted edges,
+    as the destination-row segments above:
+      src_seg_ptr [S + 1], src_seg_out [S], src_long_rows [L],
+      src_long_ptr [L + 1]
+    (destination tile, relation) chunks (their dr passes):
+      tile_src, tile_dst, tile_eid [E] — source, destination and original
+        edge index of each edge, sorted by destination tile
+        (dst // TILE_ROWS), then relation, then destination (stable)
       tile_chunk_ptr [C + 1] — chunk c is [tile_chunk_ptr[c],
         tile_chunk_ptr[c+1]): at most DR_CHUNK_EDGES edges of one relation
         in one tile; the chunks come tile-major
@@ -77,6 +83,10 @@ class Csr:
     src: torch.Tensor
     etype: torch.Tensor
     eid: torch.Tensor
+    seg_ptr: Optional[torch.Tensor] = None
+    seg_out: Optional[torch.Tensor] = None
+    long_rows: Optional[torch.Tensor] = None
+    long_ptr: Optional[torch.Tensor] = None
     src_rowptr: Optional[torch.Tensor] = None
     src_dst: Optional[torch.Tensor] = None
     src_etype: Optional[torch.Tensor] = None
@@ -91,6 +101,7 @@ class Csr:
     src_seg_out: Optional[torch.Tensor] = None
     src_long_rows: Optional[torch.Tensor] = None
     src_long_ptr: Optional[torch.Tensor] = None
+    tile_src: Optional[torch.Tensor] = None
     tile_dst: Optional[torch.Tensor] = None
     tile_eid: Optional[torch.Tensor] = None
     tile_chunk_ptr: Optional[torch.Tensor] = None
@@ -100,6 +111,15 @@ class Csr:
     @property
     def has_backward(self) -> bool:
         return self.src_rowptr is not None
+
+    @functools.cached_property
+    def segments(self) -> Optional[RowSegments]:
+        """K1's destination-row segments, checked once per Csr: the
+        ``segments`` argument of ops/rspmm_cuda.py::rspmm_fwd_cuda."""
+        if self.seg_ptr is None:
+            return None
+        return RowSegments.of(self.seg_ptr, self.seg_out, self.long_rows,
+                              self.long_ptr, self.rowptr.numel() - 1)
 
     def to(self, device) -> "Csr":
         return Csr(**{f.name: None if (t := getattr(self, f.name)) is None
@@ -129,8 +149,8 @@ def _relation_chunks(etype_sorted: np.ndarray, num_relations: int,
 
 
 def _row_segments(counts: np.ndarray, seg_edges: int):
-    """K3's dx segments of a CSR with ``counts`` edges per row:
-    (src_seg_ptr, src_seg_out, src_long_rows, src_long_ptr), see ``Csr``."""
+    """The segments of a CSR with ``counts`` edges per row: (seg_ptr,
+    seg_out, long_rows, long_ptr), see ``Csr``."""
     per_row = np.maximum(1, -(-counts // seg_edges))
     seg_row = np.repeat(np.arange(len(counts)), per_row)
     first = np.cumsum(per_row) - per_row
@@ -147,9 +167,18 @@ def _row_segments(counts: np.ndarray, seg_edges: int):
     return seg_ptr, seg_out, long_rows, long_ptr
 
 
+def row_segments(rowptr: torch.Tensor) -> RowSegments:
+    """The destination-row segments (``Csr.segments``) of the CSR with
+    this rowptr, on its device."""
+    counts = np.diff(rowptr.cpu().numpy().astype(np.int64))
+    parts = (torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(
+        rowptr.device) for a in _row_segments(counts, SEGMENT_EDGES))
+    return RowSegments.of(*parts, len(counts))
+
+
 def _tile_chunks(dst: np.ndarray, etype: np.ndarray, num_relations: int,
                  tile_rows: int, chunk_edges: int, by_dst: np.ndarray):
-    """K3's dr chunks: (edge order, tile_chunk_ptr, tile_chunk_slot,
+    """The dr chunks of K2 and K3: (edge order, tile_chunk_ptr, tile_chunk_slot,
     tile_rel_ptr), see ``Csr``; ``by_dst`` is the stable destination
     order."""
     tile = dst // tile_rows
@@ -198,8 +227,12 @@ def build_csr(src, dst, etype, num_nodes: int, num_relations: int,
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
 
     by_dst = np.argsort(dst, kind="stable")
+    seg_ptr, seg_out, long_rows, long_ptr = _row_segments(
+        np.bincount(dst, minlength=num_nodes), SEGMENT_EDGES)
     layouts = dict(rowptr=i32(_rowptr(dst, num_nodes)), src=i32(src[by_dst]),
-                   etype=i32(et[by_dst]), eid=i32(ids[by_dst]))
+                   etype=i32(et[by_dst]), eid=i32(ids[by_dst]),
+                   seg_ptr=i32(seg_ptr), seg_out=i32(seg_out),
+                   long_rows=i32(long_rows), long_ptr=i32(long_ptr))
     if backward:
         by_src = np.argsort(src, kind="stable")
         by_rel = np.argsort(et, kind="stable")
@@ -218,7 +251,8 @@ def build_csr(src, dst, etype, num_nodes: int, num_relations: int,
         layouts.update(
             src_seg_ptr=i32(seg_ptr), src_seg_out=i32(seg_out),
             src_long_rows=i32(long_rows), src_long_ptr=i32(long_ptr),
-            tile_dst=i32(dst[by_tile]), tile_eid=i32(ids[by_tile]),
+            tile_src=i32(src[by_tile]), tile_dst=i32(dst[by_tile]),
+            tile_eid=i32(ids[by_tile]),
             tile_chunk_ptr=i32(tile_chunk_ptr),
             tile_chunk_slot=i32(tile_chunk_slot),
             tile_rel_ptr=i32(tile_rel_ptr))
@@ -335,9 +369,10 @@ class Graph:
 
     def prepare_csr(self, backward: bool = False) -> "Graph":
         """Attach the kernels' layouts (``Csr``): the destination-sorted CSR
-        and, with ``backward`` (graphs that a loss is differentiated over),
-        the source-sorted CSR and the relation-sorted chunks, all stable.
-        Host-side, once per topology."""
+        with its row segments and, with ``backward`` (graphs that a loss is
+        differentiated over), the source-sorted CSR with its segments, the
+        relation-sorted chunks and the (destination tile, relation) chunks,
+        all stable. Host-side, once per topology."""
         ei = self.edge_index.cpu().numpy()
         csr = build_csr(ei[:, 0], ei[:, 1], self.edge_type.cpu().numpy(),
                         self.num_nodes, self.num_relations, backward)

@@ -17,7 +17,8 @@ TPU's edge-chunked grid spreads a hub row over many grid steps. Timing and
 checks as kernel_floor.py. The JSON (``--out``, default
 KERNEL_LADDER_H100.json) holds the workload, the card's name and power
 limit, the method, and per variant ms, ns per edge, SM cycles per edge,
-share of K1's bound and max error. KERNEL_LADDER.json is the TPU ladder's
+share of K1's bound and max error, and the shipped K1's row (``k1``).
+KERNEL_LADDER.json is the TPU ladder's
 and is never written here.
 
     python -m ultra_torchdrug_tpu_torch.diagnostics.blocked_ladder
@@ -65,7 +66,7 @@ def run(variants=DEFAULT_VARIANTS, out=DEFAULT_OUT, nodes=15000,
                     median_in_degree=wl.median_in_degree,
                     split_segments=ops.seg_ptr.numel() - 1)
     print(f"[ladder] blocked_ladder: {workload} ({device})", flush=True)
-    res = run_ladder(ops, names, "blocked_ladder")
+    res = run_ladder(ops, names, "blocked_ladder", segments=csr.segments)
     results = dict(
         workload=workload, device=res["device"], measured_at=time.strftime(
             "%Y-%m-%d"),
@@ -74,7 +75,7 @@ def run(variants=DEFAULT_VARIANTS, out=DEFAULT_OUT, nodes=15000,
                 "PyTorch version first" if device.type == "cuda" else
                 "plain versions on the CPU; no time measured"),
         bound_ms=res["bound_ms"], bound_by=res["bound_by"],
-        variants=res["variants"])
+        variants=res["variants"], k1=res["k1"])
     Path(out).parent.mkdir(parents=True, exist_ok=True)
     with open(out, "w") as f:
         json.dump(results, f, indent=1)

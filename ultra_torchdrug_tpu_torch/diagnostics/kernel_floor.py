@@ -15,6 +15,9 @@ warm-up (the TPU script's chained-depth slope cancelled a remote round trip
 the card does not have), and held against its plain version. A line gives
 ms, ns per edge, SM cycles per edge (ms x the SM clock nvidia-smi read after
 the timing x the SM count / E), the share of K1's bound and the max error.
+A last line does the same for the shipped K1 (ops/rspmm_cuda.py over the
+CSR's segments), so that the strip-down reads beside the kernel that ships
+(``full`` is K1's first design, whose row loop K1h keeps).
 
     python -m ultra_torchdrug_tpu_torch.diagnostics.kernel_floor
     python -m ultra_torchdrug_tpu_torch.diagnostics.kernel_floor --variants all
@@ -34,6 +37,7 @@ import torch
 
 from .. import default_device
 from ..ops import rspmm_ladder_cuda as ladder
+from ..ops.rspmm_cuda import rspmm_fwd_cuda
 from .timing import cuda_time_ms, gpu_query, k1_bound_ms
 from .workloads import kernel_floor_workload
 
@@ -48,14 +52,17 @@ def parse_variants(spec: str) -> list:
     return names
 
 
-def run_ladder(ops: ladder.LadderOperands, variants, label: str,
-               iters: int = TIMED_ITERS) -> dict:
+def run_ladder(ops: ladder.LadderOperands, variants, label: str, *,
+               segments, iters: int = TIMED_ITERS) -> dict:
     """Every variant against its plain version on ``ops``, then timed (on
     the card) over ``iters`` back-to-back calls; prints one line each and
-    returns {"bound_ms", "bound_by", "device", "variants": {name: row}}.
-    Raises if a variant disagrees with its plain version, or with full's
-    result where it must equal it bitwise (packed, ftile, and nowrite with
-    its store on), or if nowrite writes with its store off."""
+    returns {"bound_ms", "bound_by", "device", "variants": {name: row},
+    "k1": row}. "k1" is the shipped K1 (ops/rspmm_cuda.py, over the CSR's
+    ``segments``), held to full's check and timed alike, so that the
+    strip-down reads beside the kernel that ships. Raises if a variant or K1
+    disagrees with its plain version, or a variant with full's result where
+    it must equal it bitwise (packed, ftile, and nowrite with its store
+    on), or if nowrite writes with its store off."""
     cuda = ops.x.device.type == "cuda"
     bound_ms, bound_by = k1_bound_ms((ops.rowptr, ops.src, ops.etype,
                                       ops.eid, ops.weight, ops.relation,
@@ -112,9 +119,35 @@ def run_ladder(ops: ladder.LadderOperands, variants, label: str,
             print(f"[ladder] {label} {name:9s} time not measured (cpu) "
                   f"max_abs_err {err:.3g}", flush=True)
         rows[name] = row
+    k1 = _time_k1(ops, segments, label, iters, bound_ms)
     return dict(bound_ms=bound_ms, bound_by=bound_by,
                 device=gpu and {k: gpu[k] for k in ("name", "power_limit")},
-                variants=rows)
+                variants=rows, k1=k1)
+
+
+def _time_k1(ops: ladder.LadderOperands, segments, label: str, iters: int,
+             bound_ms: float) -> dict:
+    """The shipped K1 on the ladder's operands: held to full's check
+    (ops/rspmm_ladder_cuda.py::check_variant), then timed on the card."""
+    args = (ops.rowptr, ops.src, ops.etype, ops.eid, ops.weight,
+            ops.relation, ops.x, "mul_rel")
+    got = rspmm_fwd_cuda(*args, segments=segments)
+    err = ladder.check_variant("full", got, ladder.ladder_plain("full", ops),
+                               ladder.rounding_mass("full", ops))
+    del got
+    row = dict(ms=None, share_of_bound=None, max_abs_err=err)
+    if ops.x.device.type == "cuda":
+        ms = cuda_time_ms(lambda: rspmm_fwd_cuda(*args, segments=segments),
+                          iters)
+        row.update(ms=ms, ns_per_edge=ms * 1e6 / ops.num_edges,
+                   share_of_bound=bound_ms / ms)
+        print(f"[ladder] shipped K1 on {label}: {ms:9.4f} ms "
+              f"{row['ns_per_edge']:8.4f} ns/edge {bound_ms / ms:7.2%} of "
+              f"K1's bound max_abs_err {err:.3g}", flush=True)
+    else:
+        print(f"[ladder] shipped K1 on {label}: time not measured (cpu) "
+              f"max_abs_err {err:.3g}", flush=True)
+    return row
 
 
 def floor_operands(wl, device) -> ladder.LadderOperands:
@@ -137,7 +170,8 @@ def run(edges=524288, runlen=32, variants=DEFAULT_VARIANTS, te=8192, tv=256,
     print(f"[ladder] kernel_floor: E={wl.num_edges} runlen={runlen} "
           f"te={te} tv={tv} V={vrows} R={relations} F={feat} ({device})",
           flush=True)
-    res = run_ladder(ops, parse_variants(variants), "kernel_floor")
+    res = run_ladder(ops, parse_variants(variants), "kernel_floor",
+                     segments=wl.csr.to(device).segments)
     res["workload"] = dict(E=wl.num_edges, runlen=runlen, te=te, tv=tv,
                            V=vrows, R=relations, F=feat,
                            max_in_degree=int((ops.rowptr[1:] - ops.rowptr[

@@ -1,6 +1,22 @@
-"""Times of K3 (the transe backward) and K9 (the ring shift) on the card,
-beside the PyTorch calls that compute the same functions, and the host's
+"""Times of K1 (the rspmm forward), K2 (its distmult backward), K3 (the
+transe backward) and K9 (the ring shift) on the card, beside the PyTorch
+calls that compute the same functions where there are such, and the host's
 set-up seconds of the layouts they read, written to JSON.
+
+K1 on chip_smoke.py's uniform KG (below) in mode mul_rel at F = 1,024 and
+4,096 (ULTRA's eval batch and train step) and in mode add_rel at F = 512
+and 2,048 (classic transe/pna's), and on bench.py's heavy-tailed KG at
+F = 4,096; K2 at F = 4,096, whole and each half alone (dx only, dr only),
+on both KGs. Each is held against its plain version first: K1's and K2's
+tolerances plus 8 fp32 ulps of each entry's absolute mass
+(diagnostics/timing.py::assert_mass_close), since the parent's K2 sums a dr
+row of about 1,000 terms 1.2e-4 away from the plain version at F = 4,096.
+K1's host side at the edge ring's bucket shape: the uniform KG on 4
+shards, each of its 16 buckets' CSRs at F = 1,024 (ULTRA's eval width), 192
+calls (12 rounds of the buckets, as many as a ring eval batch makes),
+microseconds of the host's clock per call with the kernels queued behind
+a device spin (timing.py::host_us_per_call), beside the device time a
+call.
 
 K3 at F = 2,048 (the classic transe/pna training width, 64 x 32): the
 whole call and each half alone (dx only, dr only), on chip_smoke.py's
@@ -44,6 +60,9 @@ from pathlib import Path
 import numpy as np
 
 K3_FEAT = 64 * 32
+K1_FEATS = (16 * 64, 64 * 64)  # ULTRA eval batch and train step widths
+K1_ADD_FEATS = (16 * 32, 64 * 32)  # classic transe/pna's, mode add_rel
+K2_FEAT = 64 * 64
 FB = dict(num_nodes=14541, num_edges=310116, num_relations=237)
 RING_SHARDS = 4
 RING_FEATS = (16 * 64, 64 * 64)  # ULTRA eval batch and train step widths
@@ -101,6 +120,101 @@ def time_k3(torch, timing, bwd, csr, w, label: str) -> dict:
     return out
 
 
+def _kw(csr) -> dict:
+    """The forward's segments where the checkout's Csr has them (a checkout
+    before the hub-aware K1 takes none)."""
+    return {"segments": csr.segments} if hasattr(csr, "segments") else {}
+
+
+def time_k1(torch, timing, fwd, csr, w, F: int, mode: str,
+            label: str) -> dict:
+    V, R = csr.rowptr.numel() - 1, csr.rel_chunk_ptr.numel() - 1
+    gen = torch.Generator(device=w.device).manual_seed(F + 1)
+    x = torch.randn((V, F), generator=gen, device=w.device)
+    rel = torch.randn((R, F), generator=gen, device=w.device)
+    ops = (csr.rowptr, csr.src, csr.etype, csr.eid, w, rel, x)
+    kw = _kw(csr)
+    got = fwd.rspmm_fwd_cuda(*ops, mode, **kw)
+    want = fwd.rspmm_fwd_plain(*ops, mode)
+    mass = timing.k1_mass(ops, mode)
+    err = timing.assert_mass_close(got, want, mass, 1e-5, 1e-5,
+                                   f"K1 {label}")
+    del got, want, mass
+    bound_ms, bound_by = timing.k1_bound_ms(ops)
+    out = dict(V=V, E=int(csr.src.numel()), R=R, F=F, mode=mode,
+               max_abs_err=err, ms=timing.cuda_time_ms(
+                   lambda: fwd.rspmm_fwd_cuda(*ops, mode, **kw),
+                   50 if F <= 1024 else 20),
+               bound_ms=bound_ms, bound_by=bound_by)
+    if hasattr(fwd, "k1_plan"):
+        out["plan"] = fwd.k1_plan(R, F, V, csr.seg_ptr.numel() - 1, mode)
+    _show(f"K1 {label} {mode} F={F}", out)
+    return out
+
+
+def k1_ring_host(torch, timing, fwd, und, w, device) -> dict:
+    """K1's host microseconds a call over the ring's bucket CSRs (see the
+    module's text), and its device microseconds a call."""
+    from ultra_torchdrug_tpu_torch.parallel.ring_rspmm import (
+        build_ring_rspmm_inputs)
+
+    ring = build_ring_rspmm_inputs(
+        und.edge_index.numpy(), und.edge_type.numpy(), und.num_nodes,
+        RING_SHARDS, num_relations=und.num_relations, pallas=True,
+        balance="auto", permuted_io=True, backward=True).to(device)
+    F, vb = K1_FEATS[0], ring.v_block
+    gen = torch.Generator(device=device).manual_seed(F + 3)
+    x = torch.randn((vb, F), generator=gen, device=device)
+    rel = torch.randn((und.num_relations, F), generator=gen, device=device)
+    buckets = [(c.rowptr, c.src, c.etype, c.eid, w, rel, x, "mul_rel",
+                _kw(c)) for row in ring.csr for c in row if c.src.numel()]
+
+    def round_of_buckets():
+        for *ops, kw in buckets:
+            fwd.rspmm_fwd_cuda(*ops, **kw)
+
+    rounds = 192 // len(buckets)
+    out = dict(buckets=len(buckets), calls=rounds * len(buckets), F=F,
+               host_us=timing.host_us_per_call(round_of_buckets, rounds)
+               / len(buckets),
+               device_us=timing.cuda_time_ms(round_of_buckets, rounds,
+                                             queue_ahead=True)
+               * 1e3 / len(buckets))
+    _show("K1 ring buckets", out)
+    return out
+
+
+def time_k2(torch, timing, bwd, csr, w, label: str) -> dict:
+    V, F = csr.src_rowptr.numel() - 1, K2_FEAT
+    R = csr.rel_chunk_ptr.numel() - 1
+    gen = torch.Generator(device=w.device).manual_seed(F + 2)
+    rel = torch.randn((R, F), generator=gen, device=w.device)
+    x = torch.randn((V, F), generator=gen, device=w.device)
+    g = torch.randn((V, F), generator=gen, device=w.device)
+    ops = (csr, w, rel, x, g)
+
+    def k2(need_dx=True, need_dr=True):
+        return bwd.rspmm_bwd_cuda(*ops, need_dx, need_dr)
+
+    got, got2 = k2(), k2()
+    if not all(torch.equal(a, b) for a, b in zip(got, got2)):
+        raise AssertionError(f"K2 {label}: two calls differ")
+    del got2
+    want = bwd.rspmm_bwd_plain(*ops)
+    masses = timing.k2_mass(*ops)
+    err = max(timing.assert_mass_close(a, b, m, 1e-5, 1e-4,
+                                       f"K2 {label} {half}")
+              for a, b, m, half in zip(got, want, masses, ("dx", "dr")))
+    del got, want, masses
+    out = dict(V=V, E=int(csr.src_dst.numel()), R=R, F=F, max_abs_err=err,
+               ms=timing.cuda_time_ms(k2, 20),
+               **timing.k2_half_times(k2, ops))
+    if hasattr(bwd, "k2_plan"):
+        out["plan"] = bwd.k2_plan(csr, F)
+    _show(f"K2 {label}", out)
+    return out
+
+
 def time_k9(torch, timing, rdma, F: int, vb: int) -> dict:
     n = RING_SHARDS
     gen = torch.Generator(device="cuda").manual_seed(F)
@@ -155,6 +269,7 @@ def main(argv=None) -> dict:
     from ultra_torchdrug_tpu_torch.data.graph import build_csr
     from ultra_torchdrug_tpu_torch.diagnostics.workloads import build_workload
     from ultra_torchdrug_tpu_torch.ops import rspmm_bwd_cuda as bwd
+    from ultra_torchdrug_tpu_torch.ops import rspmm_cuda as fwd
     from ultra_torchdrug_tpu_torch.parallel import rdma
 
     timing = _timing()
@@ -174,6 +289,21 @@ def main(argv=None) -> dict:
     tri, _, _ = build_workload(features=False)
     hub = build_csr(tri[:, 0], tri[:, 1], tri[:, 2], 15000, 474,
                     backward=True)
+    uni_csr, hub_csr = und.csr.to(device), hub.to(device)
+    uni_w, hub_w = weights(und.num_edges, 5), weights(len(tri), 6)
+    result["k1_uniform"] = [
+        time_k1(torch, timing, fwd, uni_csr, uni_w, F, mode, "uniform KG")
+        for mode, feats in (("mul_rel", K1_FEATS), ("add_rel", K1_ADD_FEATS))
+        for F in feats]
+    result["k1_ring_host"] = k1_ring_host(torch, timing, fwd, und, uni_w,
+                                          device)
+    result["k1_hub"] = time_k1(torch, timing, fwd, hub_csr, hub_w,
+                               K1_FEATS[1], "mul_rel", "bench.py's KG")
+    result["k2_uniform"] = time_k2(torch, timing, bwd, uni_csr, uni_w,
+                                   "uniform KG")
+    result["k2_hub"] = time_k2(torch, timing, bwd, hub_csr, hub_w,
+                               "bench.py's KG")
+    torch.cuda.empty_cache()
     result["k3_uniform"] = time_k3(torch, timing, bwd, und.csr.to(device),
                                    weights(und.num_edges, 7), "uniform KG")
     result["k3_hub"] = time_k3(torch, timing, bwd, hub.to(device),
@@ -181,6 +311,7 @@ def main(argv=None) -> dict:
     vb = -(-FB["num_nodes"] // RING_SHARDS)
     result["k9"] = [time_k9(torch, timing, rdma, F, vb) for F in RING_FEATS]
     result["hub_max_out_degree"] = int(np.bincount(tri[:, 0]).max())
+    result["hub_max_in_degree"] = int(np.bincount(tri[:, 1]).max())
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(result, indent=1))
     print(f"[times] wrote {args.out}", flush=True)

@@ -1,17 +1,20 @@
-"""Device timing and least-time bounds for the port's kernels on one NVIDIA
-H100, shared by ``chip_smoke.py``, the ladder tools and
-``redesign_times.py``. This module imports only torch: ``redesign_times.py``
-loads it by path to time another checkout's kernels with it.
+"""Device timing, least-time bounds and the check of hub sums for the port's
+kernels on one NVIDIA H100, shared by ``chip_smoke.py``, the ladder tools
+and ``redesign_times.py``. This module imports only torch:
+``redesign_times.py`` loads it by path to time another checkout's kernels
+with it.
 
 A bound is the least time the card could take for a function's work: the
 larger of its compulsory bytes (each input read once, each output written
 once) over the memory rate and its operations over the fp32 peak. Every
-time here is a device time from CUDA events; none is taken on the CPU.
+time here is a device time from CUDA events, but ``host_us_per_call``'s,
+which is the host's clock on what a wrapper does on the host.
 """
 
 from __future__ import annotations
 
 import subprocess
+import time
 
 import torch
 
@@ -19,6 +22,13 @@ import torch
 # tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+# a sum over a hub row of 10^3 to 10^5 edges rounds differently in another
+# order: besides a kernel's own tolerance, its check allows 8 fp32 ulps of
+# each entry's absolute mass, the sum of its terms' absolute values (the
+# ladder's allowance, ops/rspmm_ladder_cuda.py)
+MASS_ULPS = 8 * torch.finfo(torch.float32).eps
+# edges a time in the mass sums, to bound their [chunk, F] intermediates
+MASS_CHUNK = 1 << 15
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 2,
@@ -55,6 +65,25 @@ def times_in_turns(fns: dict, iters: int, queue_ahead: bool = False) -> dict:
     return {name: min(r) for name, r in reads.items()}
 
 
+def host_us_per_call(fn, calls: int, readings: int = 3) -> float:
+    """The host's microseconds per fn() call: the least of ``readings``
+    readings of ``calls`` calls queued behind a device spin (about 55 ms at
+    the H100's clocks), so that the host's clock reads only the call's host
+    side (checks, allocations, launches), not its kernels. Keep calls times
+    launches a call well below the launch queue's depth (about 1,000)."""
+    fn()
+    best = float("inf")
+    for _ in range(readings):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return best * 1e6 / calls
+
+
 def roofline_ms(nbytes: int, flops: int) -> tuple:
     """(the larger of nbytes over the memory rate and flops over the fp32
     peak, in ms; which of the two it is)."""
@@ -83,6 +112,90 @@ def k1_bound_ms(operands) -> tuple:
     nbytes = (edge_bytes(E) + (rel.numel() + x.numel()) * x.element_size()
               + V * F * 4)
     return roofline_ms(nbytes, 3 * E * F)
+
+
+def _csr_rows(rowptr: torch.Tensor) -> torch.Tensor:
+    return torch.repeat_interleave(
+        torch.arange(rowptr.numel() - 1, device=rowptr.device),
+        (rowptr[1:] - rowptr[:-1]).long())
+
+
+def _abs_sums(keys, num_rows: int, num_features: int, terms, num_edges: int):
+    """Σ over the edges of |terms(a, b)| ([b - a, F], edges [a, b)) into
+    their rows keys[a:b], MASS_CHUNK edges at a time."""
+    out = torch.zeros((num_rows, num_features), device=keys.device)
+    for a in range(0, num_edges, MASS_CHUNK):
+        b = min(a + MASS_CHUNK, num_edges)
+        out.index_add_(0, keys[a:b], terms(a, b).abs_())
+    return out
+
+
+def k1_mass(operands, mode: str = "mul_rel") -> torch.Tensor:
+    """The absolute mass of K1's sums: Σ |w · msg(rel, x)| into each output
+    entry. ``operands`` is K1's (rowptr, src, etype, eid, w, rel, x)."""
+    rowptr, src, etype, eid, w, rel, x = operands
+    w_e = w.index_select(0, eid.long())
+    src, etype = src.long(), etype.long()
+
+    def terms(a, b):
+        r, xs = rel.index_select(0, etype[a:b]), x.index_select(0, src[a:b])
+        return (r * xs if mode == "mul_rel" else r + xs) * w_e[a:b, None]
+
+    return _abs_sums(_csr_rows(rowptr), rowptr.numel() - 1, x.shape[1],
+                     terms, src.numel())
+
+
+def k2_mass(csr, w, rel, x, g) -> tuple:
+    """The absolute masses of K2's sums, (dx's, dr's): Σ |w · rel · g| into
+    each dx entry and Σ |w · x · g| into each dr entry."""
+    src = _csr_rows(csr.src_rowptr)
+    dst, etype = csr.src_dst.long(), csr.src_etype.long()
+    w_e = w.index_select(0, csr.src_eid.long())
+    E, F = dst.numel(), g.shape[1]
+
+    def dx_terms(a, b):
+        return (rel.index_select(0, etype[a:b]) * g.index_select(0, dst[a:b])
+                * w_e[a:b, None])
+
+    def dr_terms(a, b):
+        return (x.index_select(0, src[a:b]) * g.index_select(0, dst[a:b])
+                * w_e[a:b, None])
+
+    return (_abs_sums(src, x.shape[0], F, dx_terms, E),
+            _abs_sums(etype, rel.shape[0], F, dr_terms, E))
+
+
+def assert_mass_close(got, want, mass, rtol: float, atol: float,
+                      label: str) -> float:
+    """|got - want| <= atol + rtol |want| + MASS_ULPS mass, entry by entry
+    (a NaN fails); returns the largest difference."""
+    diff = (got - want).abs()
+    ok = diff <= atol + rtol * want.abs() + MASS_ULPS * mass
+    if not bool(torch.all(ok)):
+        where = torch.nonzero(~ok)[0].tolist()
+        raise AssertionError(
+            f"{label}: differs from its plain version at {where}: "
+            f"{got[tuple(where)].item()!r} vs {want[tuple(where)].item()!r} "
+            f"(mass {mass[tuple(where)].item():.4g})")
+    return diff.max().item() if diff.numel() else 0.0
+
+
+def k2_half_times(k2, operands, iters: int = 20) -> dict:
+    """K2's halves each alone, ``k2(need_dx, need_dr)``, and each half's
+    bound: dx reads the edges, g and rel and writes dx, dr reads the edges,
+    x and g and writes dr, 3 operations an edge and feature each. Keys
+    ms_dx, ms_dr, bound_ms_dx, bound_ms_dr. ``operands`` is K2's (csr, w,
+    rel, x, g)."""
+    _, w, rel, x, g = operands
+    E, F = w.numel(), x.shape[1]
+    return dict(
+        ms_dx=cuda_time_ms(lambda: k2(True, False), iters),
+        ms_dr=cuda_time_ms(lambda: k2(False, True), iters),
+        bound_ms_dx=roofline_ms(edge_bytes(E) + (2 * g.numel() + rel.numel())
+                                * 4, 3 * E * F)[0],
+        bound_ms_dr=roofline_ms(edge_bytes(E) + (x.numel() + g.numel()
+                                                 + rel.numel()) * 4,
+                                3 * E * F)[0])
 
 
 def sparse_mm_halves(csr, w):

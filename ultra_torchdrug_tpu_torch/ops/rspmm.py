@@ -95,9 +95,11 @@ class _RspmmK1K2(torch.autograd.Function):
         # K3 reads no x: the transe backward keeps none alive
         ctx.save_for_backward(edge_weight, relation,
                               x if mode == "mul_rel" else None)
-        fwd = rspmm_fwd_bf16_cuda if bf16 else rspmm_fwd_cuda
-        return fwd(csr.rowptr, csr.src, csr.etype, csr.eid, edge_weight,
-                   relation, x, mode)
+        args = (csr.rowptr, csr.src, csr.etype, csr.eid, edge_weight,
+                relation, x, mode)
+        if bf16:
+            return rspmm_fwd_bf16_cuda(*args)
+        return rspmm_fwd_cuda(*args, segments=csr.segments)
 
     @staticmethod
     def backward(ctx, grad_out):

@@ -32,11 +32,11 @@ complex product over blocks of ``dim`` features (ops/rspmm_cuda.py):
     dx[s] = Σ_{e=(s→v, r)} (conj(rel[r]) ⊗ g[v]) · w[eid_e]
     dr[r] = Σ_{e with type r} (conj(x[s_e]) ⊗ g[v_e]) · w[eid_e]
 
-over the graph's source-sorted CSR (dx) and relation-sorted chunks (dr),
-both from data/graph.py::Graph.prepare_csr; K3 reads that CSR cut into
-segments of at most 256 edges (dx) and its own (destination tile,
-relation) chunks (dr), the Csr's src_seg_*, src_long_* and tile_* fields,
-built with them. Operands are flat: x, g [V, F],
+over the graph's layouts from data/graph.py::Graph.prepare_csr: K2 and K3
+read the source-sorted CSR cut into segments of at most 256 edges (dx) and
+the (destination tile, relation) chunks (dr), the Csr's src_seg_*,
+src_long_* and tile_* fields; K2h and K8b read the source-sorted CSR
+(dx) and the relation-sorted chunks (dr). Operands are flat: x, g [V, F],
 relation [R, F], edge_weight [E] in original edge order, all float32.
 
 ``rspmm_bwd_cuda`` (K2, K3), ``rspmm_bwd_bf16_cuda`` (K2h) and
@@ -61,6 +61,8 @@ from .rspmm_cuda import (
     check_mode,
     check_rotate_dim,
     csr_rows,
+    plan_dict,
+    ptr,
     rotate_product,
     rspmm_plain_edges,
     widen_bf16,
@@ -77,15 +79,20 @@ def _require_backward_layouts(csr):
                          "Graph.prepare_csr(backward=True)")
 
 
-# K2's layouts, in its argument order
+# the first backward design's layouts (K2h, K8b), in its argument order
 _LAYOUT = ("src_rowptr", "src_dst", "src_etype", "src_eid", "chunk_ptr",
            "rel_chunk_ptr", "rel_src", "rel_dst", "rel_eid")
+# K2's layouts, in its argument order
+_K2_LAYOUT = ("src_seg_ptr", "src_seg_out", "src_dst", "src_etype", "src_eid",
+              "src_long_rows", "src_long_ptr", "tile_chunk_ptr",
+              "tile_chunk_slot", "tile_src", "tile_dst", "tile_eid",
+              "tile_rel_ptr")
 # K3's layouts, in its argument order
 _K3_LAYOUT = ("src_seg_ptr", "src_seg_out", "src_dst", "src_eid",
               "src_long_rows", "src_long_ptr", "tile_chunk_ptr",
               "tile_chunk_slot", "tile_dst", "tile_eid", "tile_rel_ptr")
 _PER_EDGE = ("src_dst", "src_etype", "src_eid", "rel_src", "rel_dst",
-             "rel_eid", "tile_dst", "tile_eid")
+             "rel_eid", "tile_src", "tile_dst", "tile_eid")
 
 
 def check_bwd_operands(kernel: str, csr, layout, edge_weight, relation, x,
@@ -141,11 +148,6 @@ def bwd_outputs(x, num_relations: int, num_chunks: int, need_dx: bool,
             empty(num_chunks) if need_dr else None)
 
 
-def ptr(t):
-    """A tensor's device address, or None (a null pointer) for None."""
-    return None if t is None else t.data_ptr()
-
-
 def rspmm_bwd_plain(csr, edge_weight, relation, x, grad, need_dx=True,
                     need_dr=True, mode="mul_rel"):
     """The same function as the kernels (K2 for ``mul_rel``, K3 for
@@ -192,23 +194,73 @@ def rspmm_bwd_cuda(csr, edge_weight, relation, x, grad, need_dx=True,
     if mode == "add_rel":
         return _transe_bwd_cuda(csr, edge_weight, relation, grad, need_dx,
                                 need_dr)
-    device = grad.device
-    num_rows, num_relations, num_chunks, num_features = check_bwd_operands(
-        "K2", csr, _LAYOUT, edge_weight, relation, x, {"grad": grad})
-    dx, dr, partial = bwd_outputs(grad, num_relations, num_chunks, need_dx,
-                                  need_dr)
+    num_rows, num_relations, _, num_features = check_bwd_operands(
+        "K2", csr, _K2_LAYOUT, edge_weight, relation, x, {"grad": grad})
+    num_segments, num_long_rows, num_chunks, num_long_segments = (
+        _segment_counts("K2", csr, num_rows, num_relations))
+    dx, dr, dr_partial = bwd_outputs(grad, num_relations, num_chunks,
+                                     need_dx, need_dr)
+    dx_partial = (grad.new_empty((num_long_segments, num_features))
+                  if need_dx and num_long_segments else None)
+    num_edges = csr.src_dst.numel()
+    w_scratch = grad.new_empty((2 * num_edges,))
     fn = _kernel()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*(getattr(csr, n).data_ptr() for n in _LAYOUT),
+    with torch.cuda.device(grad.device):
+        stream = torch.cuda.current_stream(grad.device).cuda_stream
+        err = fn(*(getattr(csr, n).data_ptr() for n in _K2_LAYOUT),
                  edge_weight.data_ptr(), relation.data_ptr(), x.data_ptr(),
-                 grad.data_ptr(), ptr(dx), ptr(dr), ptr(partial), num_rows,
-                 num_relations, num_chunks, num_features, stream)
+                 grad.data_ptr(), ptr(dx), ptr(dr), w_scratch.data_ptr(),
+                 ptr(dx_partial), ptr(dr_partial), num_rows, num_segments,
+                 num_long_rows, num_chunks, num_relations, num_edges,
+                 num_features, stream)
     if err != 0:
         raise RuntimeError(f"K2 (rspmm_bwd) launch failed with CUDA error "
                            f"{err}")
     launches["K2"] += 1
     return dx, dr
+
+
+def _segment_counts(kernel: str, csr, num_rows: int,
+                    num_relations: int) -> tuple:
+    """(segments, long rows, dr chunks, partial rows of the long rows) of
+    the source-row segments and (destination tile, relation) chunks that K2
+    and K3 read, after checking that they match."""
+    num_segments = csr.src_seg_ptr.numel() - 1
+    num_long_rows = csr.src_long_rows.numel()
+    num_chunks = csr.tile_chunk_ptr.numel() - 1
+    if (csr.src_seg_out.numel() != num_segments
+            or csr.src_long_ptr.numel() != num_long_rows + 1
+            or csr.tile_chunk_slot.numel() != num_chunks
+            or csr.tile_rel_ptr.numel() != num_relations + 1
+            or num_segments < num_rows):
+        raise ValueError(f"{kernel}'s segment and chunk layouts do not match: "
+                         "build them with data/graph.py::build_csr")
+    # the long rows' partial rows, one per segment of a row cut in several:
+    # every other row is one segment
+    return (num_segments, num_long_rows, num_chunks,
+            num_segments - (num_rows - num_long_rows))
+
+
+def k2_plan(csr, num_features: int) -> dict:
+    """How K2 lays out its passes over ``csr`` at this width on the card
+    (csrc/rspmm_staged.cuh): {"dx": ..., "dr": ...}, each as
+    ops/rspmm_cuda.py::k1_plan's (the dr pass reads no rel)."""
+    num_rows = csr.src_rowptr.numel() - 1
+    num_relations = csr.tile_rel_ptr.numel() - 1
+    num_segments, _, num_chunks, _ = _segment_counts("K2", csr, num_rows,
+                                                     num_relations)
+    vec = num_features % 4 == 0  # the 16-byte path, operands aligned
+    out = (ctypes.c_int * 10)()
+    fn = load_library("rspmm_bwd").rspmm_k2_plan
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(int(vec), num_relations, num_features, num_rows, num_segments,
+             num_chunks, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"rspmm_k2_plan failed with CUDA error {err}")
+    dr = plan_dict(out[5:10])
+    dr["rel"] = "none"
+    return {"dx": plan_dict(out[:5]), "dr": dr}
 
 
 def _transe_bwd_cuda(csr, edge_weight, relation, grad, need_dx, need_dr):
@@ -217,18 +269,8 @@ def _transe_bwd_cuda(csr, edge_weight, relation, grad, need_dx, need_dr):
     only."""
     num_rows, num_relations, _, num_features = check_bwd_operands(
         "K3", csr, _K3_LAYOUT, edge_weight, relation, None, {"grad": grad})
-    num_segments = csr.src_seg_ptr.numel() - 1
-    num_long_rows = csr.src_long_rows.numel()
-    num_chunks = csr.tile_chunk_ptr.numel() - 1
-    if (csr.src_seg_out.numel() != num_segments
-            or csr.src_long_ptr.numel() != num_long_rows + 1
-            or csr.tile_chunk_slot.numel() != num_chunks
-            or csr.tile_rel_ptr.numel() != num_relations + 1):
-        raise ValueError("K3's segment and chunk layouts do not match: build "
-                         "them with data/graph.py::build_csr")
-    # the long rows' partial rows, one per segment of a row cut in several:
-    # every other row is one segment
-    num_long_segments = num_segments - (num_rows - num_long_rows)
+    num_segments, num_long_rows, num_chunks, num_long_segments = (
+        _segment_counts("K3", csr, num_rows, num_relations))
     dx, dr, dr_partial = bwd_outputs(grad, num_relations, num_chunks,
                                      need_dx, need_dr)
     dx_partial = (grad.new_empty((num_long_segments, num_features))
@@ -402,7 +444,7 @@ def _bf16_kernel():
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = load_library("rspmm_bwd").rspmm_bwd
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

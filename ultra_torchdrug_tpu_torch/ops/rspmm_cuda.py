@@ -8,7 +8,9 @@ Replaces ultra_torchdrug_tpu/ops/rspmm_pallas.py::rspmm_gather1 in modes
     out[v] = Σ_{e=(s→v, r)} w[eid_e] · (rel[r] ⊙ x[s])      (mul_rel)
     out[v] = Σ_{e=(s→v, r)} w[eid_e] · (rel[r] + x[s])      (add_rel)
 
-over a destination-sorted CSR (data/graph.py::Graph.prepare_csr). K8f
+over a destination-sorted CSR (data/graph.py::Graph.prepare_csr); K1
+reads it cut into segments of at most 256 edges (``Csr.segments``), so that
+a hub row spreads over many warps. K8f
 replaces rspmm_gather1 in mode ``rot_rel`` (via rspmm_rotate_fwd_pallas),
 the RotatE message:
 
@@ -29,13 +31,18 @@ weight multiplies it, and the sum and the output stay fp32.
 ``rotate_fwd_cuda`` (K8f) launch their kernel for CUDA tensors and count
 each launch in ``launches``, ``bf16_launches`` and ``rotate_launches``; for
 CPU tensors they run ``rspmm_fwd_plain`` and ``rspmm_fwd_bf16_plain``.
+``k1_plan`` reports how K1 lays out a call (its feature slice and whether
+the relation slice sits in shared memory); ``hub_operands`` makes the hub
+rows its checks on the card use.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
+import numpy as np
 import torch
 
 from .cuda_build import load_library
@@ -177,9 +184,47 @@ def check_fwd_operands(kernel: str, rowptr, src, etype, eid, edge_weight,
     return rowptr.numel() - 1, x.shape[1]
 
 
+@dataclasses.dataclass(frozen=True)
+class RowSegments:
+    """K1's destination-row segments of one CSR (data/graph.py's
+    ``Csr.segments``: seg_ptr, seg_out, long_rows, long_ptr), checked once,
+    when made by ``of``: int32, 1-D and contiguous on one device, and
+    consistent with each other and with the CSR's ``num_rows`` rows.
+    ``num_partials`` counts the long rows' partial rows (every other row is
+    one segment). K1's wrapper checks only their device and row count."""
+
+    seg_ptr: torch.Tensor
+    seg_out: torch.Tensor
+    long_rows: torch.Tensor
+    long_ptr: torch.Tensor
+    num_rows: int
+    num_segments: int
+    num_long_rows: int
+    num_partials: int
+
+    @classmethod
+    def of(cls, seg_ptr, seg_out, long_rows, long_ptr,
+           num_rows: int) -> "RowSegments":
+        for name, t in (("seg_ptr", seg_ptr), ("seg_out", seg_out),
+                        ("long_rows", long_rows), ("long_ptr", long_ptr)):
+            _check(name, t, torch.int32, seg_ptr.device, 1)
+        num_segments, num_long = seg_ptr.numel() - 1, long_rows.numel()
+        if (seg_out.numel() != num_segments
+                or long_ptr.numel() != num_long + 1
+                or num_segments < num_rows):
+            raise ValueError("the segments do not match the CSR: build them "
+                             "with data/graph.py::build_csr")
+        return cls(seg_ptr, seg_out, long_rows, long_ptr, num_rows,
+                   num_segments, num_long,
+                   num_segments - (num_rows - num_long))
+
+
 def rspmm_fwd_cuda(rowptr, src, etype, eid, edge_weight, relation, x,
-                   mode: str) -> torch.Tensor:
-    """K1 on CUDA tensors; the plain version on CPU tensors."""
+                   mode: str, *, segments) -> torch.Tensor:
+    """K1 on CUDA tensors; the plain version on CPU tensors, which does not
+    read ``segments``. ``segments``: the CSR's destination-row segments
+    (``Csr.segments``, a RowSegments), which cut each row of more than 256
+    edges into segments summed apart, then in segment order."""
     check_mode(mode)
     if x.device.type == "cpu":
         return rspmm_fwd_plain(rowptr, src, etype, eid, edge_weight, relation,
@@ -187,20 +232,96 @@ def rspmm_fwd_cuda(rowptr, src, etype, eid, edge_weight, relation, x,
     device = x.device
     num_rows, num_features = check_fwd_operands(
         "K1", rowptr, src, etype, eid, edge_weight, relation, x)
+    if not isinstance(segments, RowSegments):
+        raise TypeError(f"segments must be the CSR's RowSegments "
+                        f"(Csr.segments), got {type(segments).__name__}")
+    if segments.seg_ptr.device != device or segments.num_rows != num_rows:
+        raise ValueError("the segments are not this CSR's: Csr.segments of "
+                         "the CSR on x's device")
+    num_edges = src.numel()
     out = torch.empty((num_rows, num_features), dtype=torch.float32,
                       device=device)
+    w_scratch = torch.empty((num_edges,), dtype=torch.float32, device=device)
+    partial = (torch.empty((segments.num_partials, num_features),
+                           dtype=torch.float32, device=device)
+               if segments.num_partials else None)
     fn = _kernel()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(rowptr.data_ptr(), src.data_ptr(), etype.data_ptr(),
-                 eid.data_ptr(), edge_weight.data_ptr(), relation.data_ptr(),
-                 x.data_ptr(), out.data_ptr(), num_rows, num_features,
-                 MODES[mode], stream)
+        err = fn(segments.seg_ptr.data_ptr(), segments.seg_out.data_ptr(),
+                 segments.long_rows.data_ptr(), segments.long_ptr.data_ptr(),
+                 src.data_ptr(), etype.data_ptr(), eid.data_ptr(),
+                 edge_weight.data_ptr(), relation.data_ptr(), x.data_ptr(),
+                 out.data_ptr(), w_scratch.data_ptr(), ptr(partial),
+                 segments.num_segments, segments.num_long_rows, num_edges,
+                 relation.shape[0], x.shape[0], num_features, MODES[mode],
+                 stream)
     if err != 0:
         raise RuntimeError(f"rspmm_fwd_k1 launch failed with CUDA error {err}")
     global launches
     launches += 1
     return out
+
+
+def ptr(t):
+    """A tensor's device address, or None (a null pointer) for None."""
+    return None if t is None else t.data_ptr()
+
+
+def hub_operands(seed: int, device, V: int = 3000, E: int = 40000,
+                 R: int = 7) -> tuple:
+    """K1's and K2's hub-row checks on the card: a Csr with destination hubs
+    of 10,000 and 1,000 in-edges (rows 0 and 1), source hubs of 10,000 and
+    1,000 out-edges (rows 2, 3), rows of 256 and 257 in- and out-edges
+    (rows 4, 5 and 5, 4; each of 257 is cut into two segments), the last 5
+    rows without edges and the last relation without one; eid a
+    permutation; weights in [0.5, 1.5] with a fifth masked to 0, from
+    numpy's generator seeded with ``seed``. Returns (csr, w) on
+    ``device``."""
+    from ..data.graph import build_csr
+
+    rng = np.random.default_rng(seed)
+    planted = {0: (10000, 0), 1: (1000, 0), 2: (0, 10000), 3: (0, 1000),
+               4: (256, 257), 5: (257, 256)}
+    others = np.arange(len(planted), V - 5)
+    src, dst = rng.choice(others, E), rng.choice(others, E)
+    at = 0
+    for row, (n_in, n_out) in planted.items():
+        dst[at:at + n_in] = row
+        src[at + n_in:at + n_in + n_out] = row
+        at += n_in + n_out
+    csr = build_csr(src, dst, rng.integers(0, R - 1, E), V, R, backward=True,
+                    edge_ids=rng.permutation(E))
+    w = rng.uniform(0.5, 1.5, E).astype(np.float32)
+    w[rng.uniform(size=E) < 0.2] = 0.0
+    return csr.to(device), torch.from_numpy(w).to(device)
+
+
+def k1_plan(num_relations: int, num_features: int, num_x_rows: int,
+            num_segments: int, mode: str = "mul_rel") -> dict:
+    """How K1 lays out a call of this shape on the card
+    (csrc/rspmm_staged.cuh): features a slice, where the rel slice sits
+    ("shared" memory, or rel rows "gathered" above the budget), its bytes,
+    the slices and the CTAs a slice, on the 16-byte path where F % 4 == 0
+    (operands aligned)."""
+    check_mode(mode)
+    vec = num_features % 4 == 0
+    out = (ctypes.c_int * 5)()
+    fn = load_library("rspmm_fwd").rspmm_k1_plan
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(int(vec), num_relations, num_features, num_x_rows, num_segments,
+             MODES[mode], ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"rspmm_k1_plan failed with CUDA error {err}")
+    return plan_dict(out[:5])
+
+
+def plan_dict(values) -> dict:
+    slice_floats, shared, smem, slices, ctas = values
+    return dict(slice_floats=slice_floats,
+                rel="shared" if shared else "gathered", rel_smem_bytes=smem,
+                slices=slices, ctas_per_slice=ctas)
 
 
 def rspmm_fwd_bf16_cuda(rowptr, src, etype, eid, edge_weight, relation, x,
@@ -262,22 +383,22 @@ def rotate_fwd_cuda(rowptr, src, etype, eid, edge_weight, relation, x,
     return out
 
 
-def _fwd_symbol(name: str):
-    fn = getattr(load_library("rspmm_fwd"), name)
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_void_p]
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    fn = load_library("rspmm_fwd").rspmm_fwd_k1
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    return _fwd_symbol("rspmm_fwd_k1")
-
-
-@functools.lru_cache(maxsize=None)
 def _bf16_kernel():
-    return _fwd_symbol("rspmm_fwd_k1h")
+    fn = load_library("rspmm_fwd").rspmm_fwd_k1h
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.lru_cache(maxsize=None)

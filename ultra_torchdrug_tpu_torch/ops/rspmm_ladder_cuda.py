@@ -45,7 +45,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..data.graph import DR_CHUNK_EDGES, build_csr
+from ..data.graph import (DR_CHUNK_EDGES, SEGMENT_EDGES, build_csr,
+                          row_segments)
 from .cuda_build import load_library
 from .rspmm_cuda import _check, check_fwd_operands, csr_rows, rspmm_fwd_cuda
 
@@ -169,9 +170,12 @@ def ragged_operands(F: int, seed: int, device, hub: int = 700
 
 def check_ragged(variant: str, ops: LadderOperands) -> float:
     """``variant`` on ``ops`` (ragged_operands) against its plain version
-    (check_variant), with its rows without edges 0; full bitwise equal to
-    K1 (ops/rspmm_cuda.py), packed, ftile and nowrite bitwise equal to
-    full, and nowrite with write=False leaving its output as filled.
+    (check_variant), with its rows without edges 0; K1 (ops/rspmm_cuda.py,
+    over the CSR's segments) held to full's check and bitwise equal to full
+    on the rows of at most SEGMENT_EDGES edges (one segment each, whose
+    edges K1 sums in CSR order, as full does; a longer row's segments are
+    summed apart, then in order); packed, ftile and nowrite bitwise equal
+    to full, and nowrite with write=False leaving its output as filled.
     Returns the max error; raises AssertionError."""
     got = ladder_cuda(variant, ops)
     err = check_variant(variant, got, ladder_plain(variant, ops),
@@ -182,10 +186,16 @@ def check_ragged(variant: str, ops: LadderOperands) -> float:
     full = ladder_cuda("full", ops)
     if variant in BITWISE_FULL + ("nowrite",) and not torch.equal(out, full):
         raise AssertionError(f"{variant} differs from full bitwise")
-    if variant == "full" and not torch.equal(full, rspmm_fwd_cuda(
-            ops.rowptr, ops.src, ops.etype, ops.eid, ops.weight,
-            ops.relation, ops.x, "mul_rel")):
-        raise AssertionError("full differs from K1")
+    if variant == "full":
+        k1 = rspmm_fwd_cuda(ops.rowptr, ops.src, ops.etype, ops.eid,
+                            ops.weight, ops.relation, ops.x, "mul_rel",
+                            segments=row_segments(ops.rowptr))
+        check_variant("full", k1, ladder_plain("full", ops),
+                      rounding_mass("full", ops))
+        short = ops.rowptr[1:] - ops.rowptr[:-1] <= SEGMENT_EDGES
+        if not torch.equal(full[short], k1[short]):
+            raise AssertionError("full differs from K1 on rows of one "
+                                 "segment")
     if variant == "nowrite":
         fill = torch.full_like(full, 3.0)
         if not torch.equal(ladder_cuda(variant, ops, out=fill.clone(),

@@ -221,7 +221,6 @@ def _ring_forward(inputs: RingRspmmInputs, edge_weight, relation, x, msg,
     n, vb = inputs.n_shards, inputs.v_block
     rotate = _rotate(exchange, n)
     kernels = inputs.csr is not None and msg == "mul"
-    fwd = rspmm_fwd_bf16_cuda if bf16 else rspmm_fwd_cuda
     out = x.new_zeros((inputs.v_pad, x.shape[1]), dtype=torch.float32)
     held = x
     for k in range(n):
@@ -232,8 +231,10 @@ def _ring_forward(inputs: RingRspmmInputs, edge_weight, relation, x, msg,
                     continue  # no edges: the bucket adds nothing
                 c = inputs.csr[s][b]
                 rows = slice(s * vb, (s + 1) * vb)
-                out[rows] += fwd(c.rowptr, c.src, c.etype, c.eid, edge_weight,
-                                 relation, held[rows], "mul_rel")
+                args = (c.rowptr, c.src, c.etype, c.eid, edge_weight,
+                        relation, held[rows], "mul_rel")
+                out[rows] += (rspmm_fwd_bf16_cuda(*args) if bf16 else
+                              rspmm_fwd_cuda(*args, segments=c.segments))
         else:
             g_rows, o_rows, etype, eid, valid = _step_buckets(inputs.fwd, k,
                                                               n, vb)
