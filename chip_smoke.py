@@ -26,9 +26,15 @@ Phases, each of which raises on failure (the script then exits nonzero):
               log each timed shape's slice width and rel branch; hold K6 (the
               fused max+min, both modes) and K7 (the fused moments,
               csrc/rspmm_pna_fwd.cu) and K6b and K7b (their backward,
-              csrc/rspmm_pna_bwd.cu, bitwise across two calls) against their
-              plain versions at ragged shapes and at F=512 and F=2048, and
-              time each; hold K4 (one extremum, max and min, both modes,
+              csrc/rspmm_pna_bwd.cu, bitwise across two calls and by half)
+              against their plain versions at ragged shapes and at F=512
+              and F=2048, K6b and K7b also on hub rows (10^3 and 10^4
+              edges both ways, 40 duplicated edges; F = 10, 1028) and with
+              R = 2,000 (rel rows gathered) within the mass tolerance, and
+              time each, K6b and K7b also by half beside each half's bound
+              and on bench.py's heavy-tailed KG, with the share of K6b's
+              g_mx and g_mn loads in which no feature passes its gate; hold
+              K4 (one extremum, max and min, both modes,
               csrc/rspmm_pna_fwd.cu) exactly, K5 (its argext backward,
               csrc/rspmm_pna_bwd.cu, on K4's own output) and K3 (the transe
               backward, csrc/rspmm_transe_bwd.cu), both bitwise across two
@@ -174,15 +180,20 @@ try:
     # the timing and bound helpers, shared with the ladder tools and
     # diagnostics/redesign_times.py
     from ultra_torchdrug_tpu_torch.diagnostics.timing import (
+        assert_bwd_close,
         assert_mass_close,
         cuda_time_ms,
         edge_bytes,
+        gate_skip_share,
+        gather_bound_ms,
         k1_bound_ms,
         k1_mass,
         k2_half_times,
         k2_mass,
         k3_half_times,
         k9_times,
+        pna_half_times,
+        pna_mass,
         roofline_ms,
         sparse_mm_halves,
     )
@@ -709,45 +720,6 @@ def pna_operands(graph, feat: int, seed: int, device):
     return graph.csr.to(device), w, rel, x
 
 
-# per kernel: (node rows read, relation rows read, node rows written,
-# relation rows written, fp32 operations per edge and feature). K4: message
-# 2, extremum; K6: message 2, max, min; K7: message, weight, two sums,
-# square; K6b: message 2, two gates, the gated sum g_mx + g_mn, one
-# weighting, then dx and dr 2 each; K5: message 2, one gate, one weighting,
-# dx and dr 2 each; K7b with w factored out and 2·g_sq formed once per
-# node, c = w·(g_s + m·(2·g_sq)): message, product, sum, weighting, dx and
-# dr 2 each; K3: the weighting g·w, shared by the dx and dr sums; K8f: the
-# complex product (3 per real lane), the weight, the sum; K8b: the same for
-# dx and for dr
-GATHER_WORK = {"K4": (1, 1, 1, 0, 3), "K6": (1, 1, 2, 0, 4),
-               "K7": (1, 1, 2, 0, 5), "K6b": (5, 1, 1, 1, 10),
-               "K5": (3, 1, 1, 1, 8), "K7b": (3, 1, 1, 1, 8),
-               "K3": (1, 0, 1, 1, 3), "K8f": (1, 1, 1, 0, 5),
-               "K8b": (2, 1, 1, 1, 10)}
-
-
-def gather_bound_ms(name: str, w, rel, x) -> tuple:
-    """Least time for a gather kernel's work on this card (GATHER_WORK):
-    its dense inputs read once and outputs written once, plus the edges,
-    over the memory rate, against its fp32 operations over the fp32
-    peak."""
-    E, V, F = w.numel(), x.shape[0], x.shape[1]
-    R = rel.shape[0]
-    node_in, rel_in, node_out, rel_out, ops = GATHER_WORK[name]
-    rows = (node_in + node_out) * V + (rel_in + rel_out) * R
-    return roofline_ms(edge_bytes(E) + rows * F * 4, ops * E * F)
-
-
-def assert_bwd_close(got, want):
-    """A two-pass backward kernel (K3, K5, K6b, K7b) against its plain
-    version: K2's tolerance, with the absolute one widened to 1e-5 of the
-    result's largest entry: a dr row sums a thousand or more terms (K7b's
-    carry x² and reach ~1e2), whose partial sums grow to that size, in
-    another order than the plain version."""
-    atol = max(1e-4, 1e-5 * want.abs().max().item())
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
-
-
 def check_bwd_kernel(kid: str, run, plain, label: str,
                      dx_close=assert_bwd_close) -> tuple:
     """``run`` (a backward kernel's call) twice, bitwise equal, and within
@@ -802,18 +774,6 @@ def phase_kernels_pna(und, device) -> dict:
                  ("K6b", "argext_pair", "add_rel"),
                  ("K7b", "moments", "mul_rel"))
 
-    def planes(kind, mode, ops, seed):
-        """The backward's planes: K6's own outputs (so the gates fire on
-        the card's bits) and seeded gradients."""
-        csr, w, rel, x = ops
-        gen = torch.Generator(device=device).manual_seed(seed)
-        g = [torch.randn(x.shape, generator=gen, device=device)
-             for _ in range(2)]
-        if kind == "moments":
-            return tuple(g)
-        mx, mn = pna.pna_fwd_cuda("maxmin", csr, w, rel, x, mode)
-        return g[0], mx, g[1], mn
-
     def check_fwd(kid, kind, mode, ops, label):
         got = pna.pna_fwd_cuda(kind, *ops, mode)
         want = pna.pna_fwd_plain(kind, *ops, mode)
@@ -843,11 +803,19 @@ def phase_kernels_pna(und, device) -> dict:
                 raise AssertionError(f"{kid} wrote nonzero rows without "
                                      "edges")
         for i, (kid, kind, mode) in enumerate(bwd_kinds):
-            q = planes(kind, mode, ops, seed=seed + i)
+            q = pna_args(kind, mode, ops, seed + i, device)[5]
             dx, dr, _ = check_bwd(kid, kind, mode, ops, q, label)
             if not (torch.all(dx[V - 5:] == 0) and torch.all(dr[R - 1] == 0)):
                 raise AssertionError(f"{kid} wrote nonzero rows without "
                                      "edges")
+
+    # hub rows (10^3, 10^4, 256 and 257 edges both ways, 40 duplicated
+    # edges) with the dx pass's rel slice in shared memory (R = 7), and
+    # R = 2,000, whose rel rows it gathers
+    for seed, R, feats in ((14, 7, (10, 1028)), (15, 2000, (132,))):
+        for F in feats:
+            for kid, kind, mode in bwd_kinds:
+                check_pna_hub(kid, kind, mode, F, R, seed, device)
 
     # (b) the main path's shapes on the FB-sized graph: F = 16 x 32 (eval)
     # for the forwards, F = 64 x 32 (training) for all four
@@ -868,7 +836,7 @@ def phase_kernels_pna(und, device) -> dict:
                               kind, *ops, mode)))
         if which == "train":
             for i, (kid, kind, mode) in enumerate(bwd_kinds):
-                q = planes(kind, mode, ops, seed=F + i)
+                q = pna_args(kind, mode, ops, F + i, device)[5]
                 dx, dr, err = check_bwd(kid, kind, mode, ops, q, label)
                 del dx, dr
                 timed.append((kid, mode, err,
@@ -891,6 +859,10 @@ def phase_kernels_pna(und, device) -> dict:
                 entries[kid].update({f"ms_{mode}_{which}": ms,
                                      f"max_abs_err_{mode}_{which}": err})
                 continue
+            if which == "train" and kid in ("K6b", "K7b") and (
+                    mode == "mul_rel"):
+                kind = "argext_pair" if kid == "K6b" else "moments"
+                keys.update(pna_halves(kid, kind, mode, ops, label))
             if kid not in entries:
                 source = ("rspmm_pna_fwd.cu" if kid in ("K6", "K7")
                           else "rspmm_pna_bwd.cu")
@@ -905,8 +877,146 @@ def phase_kernels_pna(und, device) -> dict:
                 entries[kid].update({f"{k}_train": v for k, v in keys.items()})
         del ops
         torch.cuda.empty_cache()
+    for kid, hub in phase_pna_hub(device).items():
+        entries[kid].update(hub)
     log('[kernels] kernels ["K6", "K7", "K6b", "K7b"]')
     return entries
+
+
+def pna_args(kind: str, mode: str, ops, seed: int, device) -> tuple:
+    """K6b's (``argext_pair``) or K7b's (``moments``) arguments on ``ops``
+    (csr, w, rel, x): the planes K6's own outputs (so that the gates fire
+    on the card's bits) and seeded gradients."""
+    from ultra_torchdrug_tpu_torch.ops import rspmm_pna_cuda as pna
+
+    csr, w, rel, x = ops
+    gen = torch.Generator(device=device).manual_seed(seed)
+    g = [torch.randn(x.shape, generator=gen, device=device) for _ in range(2)]
+    if kind == "moments":
+        planes = tuple(g)
+    else:
+        mx, mn = pna.pna_fwd_cuda("maxmin", csr, w, rel, x, mode)
+        planes = (g[0], mx, g[1], mn)
+    return (kind, csr, w, rel, x, planes, mode)
+
+
+def check_pna_mass(kid: str, args, label: str) -> float:
+    """K6b or K7b on ``args`` (pna_args) against its plain version: the
+    backward's tolerance plus 8 fp32 ulps of each entry's absolute mass,
+    two calls bitwise equal, each half alone equal to the whole, rows and
+    relations without edges 0. Returns the largest difference."""
+    from ultra_torchdrug_tpu_torch.ops import rspmm_pna_cuda as pna
+
+    dx, dr = pna.pna_bwd_cuda(*args)
+    dx2, dr2 = pna.pna_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(dx, dx2) and torch.equal(dr, dr2)):
+        raise AssertionError(f"{kid} {label}: two calls differ")
+    del dx2, dr2
+    err = 0.0
+    for got, want, mass in zip((dx, dr), pna.pna_bwd_plain(*args),
+                               pna_mass(*args)):
+        atol = max(1e-4, 1e-5 * want.abs().max().item())
+        err = max(err, assert_mass_close(got, want, mass, 1e-5, atol,
+                                         f"{kid} {label}"))
+    csr = args[1]
+    no_src = (csr.src_rowptr[1:] == csr.src_rowptr[:-1]).nonzero()
+    no_rel = (csr.tile_rel_ptr[1:] == csr.tile_rel_ptr[:-1]).nonzero()
+    if not (torch.all(dx[no_src] == 0) and torch.all(dr[no_rel] == 0)):
+        raise AssertionError(f"{kid} {label}: rows without edges")
+    if not (torch.equal(pna.pna_bwd_cuda(*args, need_dr=False)[0], dx)
+            and torch.equal(pna.pna_bwd_cuda(*args, need_dx=False)[1], dr)):
+        raise AssertionError(f"{kid} {label}: a half alone differs")
+    return err
+
+
+def check_pna_hub(kid: str, kind: str, mode: str, F: int, R: int, seed: int,
+                  device) -> float:
+    """K6b or K7b on ops/rspmm_cuda.py::hub_operands' hub rows with 40
+    duplicated edges (post-ReLU x, so that messages tie) at width F with R
+    relations, held by check_pna_mass; logs the passes' layouts."""
+    from ultra_torchdrug_tpu_torch.ops import rspmm_cuda, rspmm_pna_cuda
+
+    csr, w = rspmm_cuda.hub_operands(seed, device, R=R, duplicated=40)
+    V = csr.src_rowptr.numel() - 1
+    gen = torch.Generator(device=device).manual_seed(seed + F)
+    rel = torch.randn((R, F), generator=gen, device=device)
+    x = torch.randn((V, F), generator=gen, device=device).clamp_(min=0)
+    label = f"{mode} hub rows R={R} F={F}"
+    err = check_pna_mass(kid, pna_args(kind, mode, (csr, w, rel, x),
+                                       seed + 1, device), label)
+    plan = rspmm_pna_cuda.pna_bwd_plan(kind, csr, F, mode)
+    log(f"[kernels] {kid} {label}: max_abs_err {err:.3g} within the mass "
+        f"tolerance, bitwise equal across two calls and by half; dx pass "
+        f"{plan_text(plan['dx'])}; dr pass {plan_text(plan['dr'])}")
+    return err
+
+
+def pna_halves(kid: str, kind: str, mode: str, ops, label: str) -> dict:
+    """K6b's or K7b's halves each alone on ``ops`` (csr, w, rel, x) with
+    their bounds, the passes' layouts and, for K6b, the share of its g_mx
+    and g_mn loads (a thread's 4 features) in which no feature passes its
+    gate."""
+    from ultra_torchdrug_tpu_torch.ops import rspmm_pna_cuda as pna
+
+    args = pna_args(kind, mode, ops, ops[3].shape[1] + 7, ops[1].device)
+    out = pna_half_times(lambda need_dx, need_dr: pna.pna_bwd_cuda(
+        *args, need_dx, need_dr), kid, *ops[1:])
+    if kind == "argext_pair":
+        out["gate_skip_share"] = gate_skip_share(*args[1:6], mode)
+    plan = pna.pna_bwd_plan(kind, ops[0], ops[3].shape[1], mode)
+    log(f"[kernels] {kid} {mode} {label}: dx half {out['ms_dx']:.4f} ms "
+        f"(bound {out['bound_ms_dx']:.4f}; {plan_text(plan['dx'])}), dr half "
+        f"{out['ms_dr']:.4f} ms (bound {out['bound_ms_dr']:.4f}; "
+        f"{plan_text(plan['dr'])})"
+        + (f"; g_mx/g_mn loads no gate passes: {out['gate_skip_share']:.1%}"
+           if "gate_skip_share" in out else ""))
+    return out
+
+
+def phase_pna_hub(device) -> dict:
+    """K6b (both modes) and K7b at F = 64 x 32 on bench.py's heavy-tailed
+    KG (diagnostics/workloads.py::build_workload, its busiest source row
+    107,336 edges, destination row 107,150), held by check_pna_mass and
+    timed, whole and by half; returns their entries' ``*_hub`` keys."""
+    from ultra_torchdrug_tpu_torch.data.graph import build_csr
+    from ultra_torchdrug_tpu_torch.diagnostics.workloads import build_workload
+    from ultra_torchdrug_tpu_torch.ops import rspmm_pna_cuda as pna
+
+    tri, _, _ = build_workload(features=False)
+    V, R, E = 15000, 474, len(tri)
+    csr = build_csr(tri[:, 0], tri[:, 1], tri[:, 2], V, R,
+                    backward=True).to(device)
+    F = CLASSIC_TRAIN["batch"] * CLASSIC_FEAT
+    gen = torch.Generator(device=device).manual_seed(F + 10)
+    w = torch.rand((E,), generator=gen, device=device) + 0.5
+    w = w * (torch.rand((E,), generator=gen, device=device) >= 0.2)
+    rel = torch.randn((R, F), generator=gen, device=device)
+    x = torch.randn((V, F), generator=gen, device=device).clamp_(min=0)
+    ops = (csr, w, rel, x)
+    label = f"bench.py's KG V={V} E={E} R={R} F={F}"
+    out = {"K6b": {}, "K7b": {}}
+    for kid, kind, mode in (("K6b", "argext_pair", "mul_rel"),
+                            ("K6b", "argext_pair", "add_rel"),
+                            ("K7b", "moments", "mul_rel")):
+        args = pna_args(kind, mode, ops, F + 11, device)
+        err = check_pna_mass(kid, args, f"{mode} {label}")
+        torch.cuda.empty_cache()
+        ms = cuda_time_ms(lambda: pna.pna_bwd_cuda(*args), 20)
+        bound_ms, _ = gather_bound_ms(kid, w, rel, x)
+        log(f"[kernels] {kid} {mode} {label}: max_abs_err {err:.3g} within "
+            f"the mass tolerance, {ms:.4f} ms (bound {bound_ms:.4f} ms, "
+            f"{bound_ms / ms:.1%} of it)")
+        del args
+        keys = dict(ms=ms, max_abs_err=err)
+        if mode == "mul_rel":
+            keys.update(bound_ms=bound_ms,
+                        **pna_halves(kid, kind, mode, ops, label))
+        suffix = "_hub" if mode == "mul_rel" else f"_{mode}_hub"
+        out[kid].update({f"{k}{suffix}": v for k, v in keys.items()})
+    del ops, csr, rel, x
+    torch.cuda.empty_cache()
+    return out
 
 
 def k3_halves(args, label: str) -> dict:

@@ -25,11 +25,14 @@ from ultra_torchdrug_tpu.tasks.task import (
 from ultra_torchdrug_tpu.utils import config as j_config
 from ultra_torchdrug_tpu_torch import run_full
 from ultra_torchdrug_tpu_torch.data.datasets import JointDataset
+from ultra_torchdrug_tpu_torch.data.graph import Graph
 from ultra_torchdrug_tpu_torch.engine import build
 from ultra_torchdrug_tpu_torch.models.nbfnet import (
     entity_nbfnet_config,
     rel_nbfnet_config,
 )
+from ultra_torchdrug_tpu_torch.models.rel_inputs import build_initial_features
+from ultra_torchdrug_tpu_torch.ops.rspmm import generalized_rspmm
 from ultra_torchdrug_tpu_torch.utils import config
 from ultra_torchdrug_tpu_torch.utils.convert import load_jax_params
 
@@ -202,6 +205,26 @@ def test_build_task_raises_on_what_the_port_lacks(tmp_path, edit, match):
     dataset = build.build_dataset(cfg["dataset"])
     with pytest.raises(NotImplementedError, match=match):
         build.build_task(cfg["task"], dataset, device="cpu")
+
+
+def test_op_raises_name_their_roadmap_items():
+    """Gradients to the edge weights through the kernels' autograd nodes
+    (classic NBFNet's edge-gradient path; the sum's plain CPU route
+    differentiates them) raise with Queue 1 item 6, relation-graph input types other than
+    ``ones`` with Queue 1 item 7."""
+    rng = np.random.default_rng(0)
+    V, R, E, F = 9, 2, 30, 4
+    tri = np.stack([rng.integers(0, V, E), rng.integers(0, V, E),
+                    rng.integers(0, R, E)], 1)
+    g = Graph.from_triplets(tri, V, R).prepare_csr(backward=True)
+    w = g.edge_weight.clone().requires_grad_()
+    rel, x = torch.ones((R, F)), torch.ones((V, F), requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
+        generalized_rspmm(g.edge_index, g.edge_type, w, rel, x, msg="mul",
+                          agg="max", num_nodes=V, csr=g.csr)
+    assert build_initial_features(g, "ones", 3).eq(1).all()
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+        build_initial_features(g, "ones__rwse", 3)
 
 
 def test_run_full_cli_smoke(tmp_path):

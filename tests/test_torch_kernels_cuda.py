@@ -8,9 +8,10 @@ Run on a machine with the card:
 Tolerance atol = rtol = 1e-5 for K1: the kernel sums each row's edges in CSR
 order, the plain version with index_add_ in another order. K2 uses rtol 1e-5,
 atol 1e-4: its dr rows sum up to a few hundred products of N(0, 1) values.
-On hub rows (10^3 and 10^4 edges) K1 and K2 add 8 fp32 ulps of each
-entry's absolute mass to those (diagnostics/timing.py::assert_mass_close):
-their segments' partial rows sum in another order than the plain version.
+On hub rows (10^3 and 10^4 edges) K1, K2, K6b and K7b add 8 fp32 ulps of
+each entry's absolute mass to those (diagnostics/timing.py::
+assert_mass_close): their segments' partial rows sum in another order than
+the plain version.
 K6 and K4 must equal their plain versions exactly (an extremum of the same
 fp32 products); K7 takes K1's tolerance for the same reason. K3, K5 and
 K6b/K7b take K2's, with the absolute tolerance widened to 1e-5 of the
@@ -543,6 +544,85 @@ def _check_bwd(rng, kind, mode, V, E, R, F, cuda_device):
     assert rspmm_pna_cuda.pna_bwd_cuda(*args, need_dr=False)[1] is None
     assert torch.equal(rspmm_pna_cuda.pna_bwd_cuda(*args,
                                                    need_dx=False)[1], dr)
+
+
+def _pna_hub_args(kind, mode, F, R, seed, device):
+    """K6b's or K7b's arguments on rspmm_cuda.hub_operands' hub rows with 40
+    duplicated edges: post-ReLU x (exact zeros), the planes K6's own
+    outputs (K6b) or N(0, 1) gradients (K7b)."""
+    csr, w = rspmm_cuda.hub_operands(seed, device, R=R, duplicated=40)
+    V = csr.src_rowptr.numel() - 1
+    rng = np.random.default_rng(seed)
+    rel = _normal(rng, (R, F), device)
+    x = _normal(rng, (V, F), device).clamp_(min=0)
+    grads = [_normal(rng, (V, F), device) for _ in range(2)]
+    if kind == "argext_pair":
+        mx, mn = rspmm_pna_cuda.pna_fwd_cuda("maxmin", csr, w, rel, x, mode)
+        planes = (grads[0], mx, grads[1], mn)
+    else:
+        planes = tuple(grads)
+    return (kind, csr, w, rel, x, planes, mode)
+
+
+@pytest.mark.parametrize("F", [10, 64, 1028, 2048])
+@pytest.mark.parametrize("kind,mode", PNA_BWD)
+def test_k6b_k7b_hub_rows_match_plain(cuda_device, kind, mode, F):
+    """K6b (both modes) and K7b on hub rows of 10^3 and 10^4 edges both
+    ways, rows of 256 and 257, duplicated edges, weight-0 edges, empty rows
+    and an empty relation, with R = 7 (the dx pass's rel slice in shared
+    memory) and R = 2,000 (rel rows gathered): F = 10 the scalar path, 64
+    one slice, 1028 a last slice of 4 features, 2048 the training width.
+    Within the backward's tolerance plus 8 fp32 ulps of each entry's
+    absolute mass (timing.py::pna_mass), rows and relations without edges
+    0, bitwise equal across two calls, one launch counted a call, each half
+    alone equal to the whole."""
+    kid = _BWD_ID[kind]
+    for R, where in ((7, "shared"), (2000, "gathered")):
+        args = _pna_hub_args(kind, mode, F, R, F + R, cuda_device)
+        csr = args[1]
+        assert rspmm_pna_cuda.pna_bwd_plan(kind, csr, F, mode)["dx"][
+            "rel"] == where
+        before = rspmm_pna_cuda.launches[kid]
+        dx, dr = rspmm_pna_cuda.pna_bwd_cuda(*args)
+        dx2, dr2 = rspmm_pna_cuda.pna_bwd_cuda(*args)
+        torch.cuda.synchronize()
+        assert rspmm_pna_cuda.launches[kid] == before + 2
+        assert torch.equal(dx, dx2) and torch.equal(dr, dr2)
+        masses = timing.pna_mass(*args)
+        for got, want, mass in zip(
+                (dx, dr), rspmm_pna_cuda.pna_bwd_plain(*args), masses):
+            atol = max(K2_TOL["atol"], 1e-5 * want.abs().max().item())
+            timing.assert_mass_close(got, want, mass, K2_TOL["rtol"], atol,
+                                     f"{kid} {mode} R={R}")
+        no_src = (csr.src_rowptr[1:] == csr.src_rowptr[:-1]).nonzero()
+        assert torch.all(dx[no_src] == 0) and torch.all(dr[R - 1] == 0)
+        assert torch.equal(rspmm_pna_cuda.pna_bwd_cuda(
+            *args, need_dr=False)[0], dx)
+        assert torch.equal(rspmm_pna_cuda.pna_bwd_cuda(
+            *args, need_dx=False)[1], dr)
+
+
+def test_k6b_k7b_run_on_every_card():
+    """K6b (both modes) and K7b on each card in turn (the dx pass's rel
+    slice above 48 KB of shared memory) against their plain versions: the
+    raised shared-memory limit and the SM count are kept per device."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs: the per-device launch state")
+    F, R = 64, 237  # a rel slice of 237 x 64 x 4 = 61 KB
+    for kind, mode in PNA_BWD:
+        args = _pna_hub_args(kind, mode, F, R, R, "cpu")
+        want = rspmm_pna_cuda.pna_bwd_plain(*args)
+        masses = timing.pna_mass(*args)
+        _, csr, w, rel, x, planes, _ = args
+        for index in range(torch.cuda.device_count()):
+            device = torch.device("cuda", index)
+            got = rspmm_pna_cuda.pna_bwd_cuda(
+                kind, csr.to(device), w.to(device), rel.to(device),
+                x.to(device), tuple(p.to(device) for p in planes), mode)
+            for a, b, mass in zip(got, want, masses):
+                atol = max(K2_TOL["atol"], 1e-5 * b.abs().max().item())
+                timing.assert_mass_close(a.cpu(), b, mass, K2_TOL["rtol"],
+                                         atol, f"{kind} {mode} {device}")
 
 
 @pytest.mark.parametrize("msg", ["mul", "add"])

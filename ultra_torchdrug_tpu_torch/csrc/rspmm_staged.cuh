@@ -139,6 +139,33 @@ __device__ __forceinline__ Lanes<W> load_shared(const float* p) {
   return out;
 }
 
+// s_rel[r * W * G + c] = rel[r, f0 + c] for the W * G features of the slice
+// at f0 (those below F), every relation, by the CTA's THREADS threads:
+// kRowInFlight loads in flight a thread, so that the slice (121 KB at
+// R = 474) arrives in about one memory latency, not one per row a thread
+template <int W, int G, int THREADS>
+__device__ __forceinline__ void stage_rel(float* s_rel, const float* rel,
+                                          int num_relations, int F, int f0) {
+  constexpr int S = W * G;
+  const int64_t F64 = F;
+  const int n = num_relations * G;
+  for (int i0 = threadIdx.x; i0 < n; i0 += kRowInFlight * THREADS) {
+    Lanes<W> v[kRowInFlight];
+#pragma unroll
+    for (int u = 0; u < kRowInFlight; ++u) {
+      const int i = i0 + u * THREADS, c = (i % G) * W;
+      if (i < n && f0 + c < F) {
+        v[u] = load_lanes<W>(rel + (i / G) * F64 + f0 + c);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kRowInFlight; ++u) {
+      const int i = i0 + u * THREADS, c = (i % G) * W;
+      if (i < n && f0 + c < F) store_lanes<W>(s_rel + (i / G) * S + c, v[u].v);
+    }
+  }
+}
+
 struct Rows {
   const int* seg_ptr;  // [S + 1] the items' edge ranges
   const int* seg_out;  // [S] row (>= 0) or ~partial slot
@@ -187,7 +214,9 @@ __global__ void __launch_bounds__(kThreads, 1) staged_rows(Rows a) {
   const bool on = f < F;          // F % W == 0 on the vector path
   if constexpr (kSharedRel) {
     // kRowInFlight loads in flight a thread: the slice (121 KB at R = 474)
-    // arrives in about one memory latency, not one per row a thread
+    // arrives in about one memory latency, not one per row a thread (the
+    // loop of stage_rel, kept in place so that K1's and K2's compiled code
+    // stays as it was)
     const int n = a.num_relations * G;
     for (int i0 = threadIdx.x; i0 < n; i0 += kRowInFlight * kThreads) {
       Lanes<W> v[kRowInFlight];
@@ -430,7 +459,7 @@ struct Occupancy {
   Device devices[kMaxDevices];
 
   template <typename Kernel>
-  int resident(Kernel kernel, size_t bytes) {
+  int resident(Kernel kernel, size_t bytes, int threads = kThreads) {
     int dev = 0;
     cudaGetDevice(&dev);
     Device unkept;
@@ -446,7 +475,7 @@ struct Occupancy {
     }
     if (bytes != d.smem) {
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&d.blocks, kernel,
-                                                    kThreads, bytes);
+                                                    threads, bytes);
       d.smem = bytes;
     }
     return d.sms * std::max(d.blocks, 1);
@@ -468,16 +497,16 @@ int chunks_resident() {
 // p.ctas_per_slice for a pass whose items gather from gathered_rows rows:
 // enough for every CTA that fits on the card (resident) to run while the
 // slices in flight gather at most kL2Bytes, rounded up to whole waves of
-// CTAs, and no more than one a kWarps items
+// CTAs, and no more than one a `warps` items (the warps of a CTA)
 inline void plan_ctas(Plan* p, int resident, int64_t gathered_rows,
-                      int num_items) {
+                      int num_items, int warps = kWarps) {
   const int64_t slice_bytes =
       std::max<int64_t>(1, gathered_rows * p->slice * 4);
   const int64_t in_flight = std::max<int64_t>(1, kL2Bytes / slice_bytes);
   int64_t k = (resident + in_flight - 1) / in_flight;
   const int64_t waves = (k * p->slices + resident - 1) / resident;
   k = std::max<int64_t>(k, waves * resident / p->slices);
-  k = std::min<int64_t>(k, num_items / kWarps);
+  k = std::min<int64_t>(k, num_items / warps);
   p->ctas_per_slice = static_cast<int>(std::max<int64_t>(1, k));
 }
 
@@ -519,6 +548,54 @@ inline Plan chunks_plan(bool vec, int num_features, int64_t gathered_rows,
   return p;
 }
 
+// long_row_sums: out[long_rows[l]] = the sum of the row's partial rows in
+// segment order, for the num_long_rows rows cut into several segments
+inline cudaError_t launch_long_row_sums(bool vec, const int* long_rows,
+                                        const int* long_ptr,
+                                        int num_long_rows,
+                                        const float* partial, float* out,
+                                        int num_features,
+                                        cudaStream_t stream) {
+  if (num_long_rows > 0) {
+    const int n = vec ? num_features / 4 : num_features;
+    const int threads = n >= 64 ? 64 : ((n + 31) / 32) * 32;
+    const dim3 grid(num_long_rows, (n + threads - 1) / threads);
+    if (vec) {
+      long_row_sums<float4><<<grid, threads, 0, stream>>>(
+          long_rows, long_ptr, reinterpret_cast<const float4*>(partial),
+          reinterpret_cast<float4*>(out), n);
+    } else {
+      long_row_sums<float><<<grid, threads, 0, stream>>>(
+          long_rows, long_ptr, partial, out, n);
+    }
+  }
+  return cudaGetLastError();
+}
+
+// relation_sums: dr[r] = the sum of relation r's partial rows in slot
+// order, for every relation
+inline cudaError_t launch_relation_sums(bool vec, const int* rel_ptr,
+                                        int num_relations,
+                                        const float* partial, float* dr,
+                                        int num_features,
+                                        cudaStream_t stream) {
+  if (num_relations > 0) {
+    const int n = vec ? num_features / 4 : num_features;
+    int threads, tiles;
+    feature_tiles(n, &threads, &tiles);
+    const dim3 grid(num_relations, tiles);
+    if (vec) {
+      relation_sums<float4><<<grid, threads, 0, stream>>>(
+          rel_ptr, reinterpret_cast<const float4*>(partial),
+          reinterpret_cast<float4*>(dr), n);
+    } else {
+      relation_sums<float><<<grid, threads, 0, stream>>>(rel_ptr, partial,
+                                                         dr, n);
+    }
+  }
+  return cudaGetLastError();
+}
+
 // staged_rows over a's items by plan p, then long_row_sums over the long
 // rows
 template <int MODE>
@@ -542,20 +619,8 @@ cudaError_t launch_rows(bool vec, const Plan& p, const Rows& a,
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  if (num_long_rows > 0) {
-    const int n = vec ? a.num_features / 4 : a.num_features;
-    const int threads = n >= 64 ? 64 : ((n + 31) / 32) * 32;
-    const dim3 grid(num_long_rows, (n + threads - 1) / threads);
-    if (vec) {
-      long_row_sums<float4><<<grid, threads, 0, stream>>>(
-          long_rows, long_ptr, reinterpret_cast<const float4*>(a.partial),
-          reinterpret_cast<float4*>(a.out), n);
-    } else {
-      long_row_sums<float><<<grid, threads, 0, stream>>>(
-          long_rows, long_ptr, a.partial, a.out, n);
-    }
-  }
-  return cudaGetLastError();
+  return launch_long_row_sums(vec, long_rows, long_ptr, num_long_rows,
+                              a.partial, a.out, a.num_features, stream);
 }
 
 // staged_chunks over a's chunks by plan p, then relation_sums of each
@@ -574,21 +639,8 @@ inline cudaError_t launch_chunks(bool vec, const Plan& p, const Chunks& a,
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  if (num_relations > 0) {
-    const int n = vec ? a.num_features / 4 : a.num_features;
-    int threads, tiles;
-    feature_tiles(n, &threads, &tiles);
-    const dim3 grid(num_relations, tiles);
-    if (vec) {
-      relation_sums<float4><<<grid, threads, 0, stream>>>(
-          rel_ptr, reinterpret_cast<const float4*>(a.partial),
-          reinterpret_cast<float4*>(dr), n);
-    } else {
-      relation_sums<float><<<grid, threads, 0, stream>>>(rel_ptr, a.partial,
-                                                         dr, n);
-    }
-  }
-  return cudaGetLastError();
+  return launch_relation_sums(vec, rel_ptr, num_relations, a.partial, dr,
+                              a.num_features, stream);
 }
 
 }  // namespace

@@ -75,6 +75,8 @@ class Csr:
         in one tile; the chunks come tile-major
       tile_chunk_slot [C] — the partial row chunk c writes; the slots are
         relation-major, each relation's chunks in tile order
+      tile_chunk_rel [C] — the relation of chunk c (K6b's and K7b's dr
+        pass reads its rel row)
       tile_rel_ptr [R + 1] — relation r's slots are [tile_rel_ptr[r],
         tile_rel_ptr[r+1]), summed in that order (none: no edge)
     """
@@ -106,6 +108,7 @@ class Csr:
     tile_eid: Optional[torch.Tensor] = None
     tile_chunk_ptr: Optional[torch.Tensor] = None
     tile_chunk_slot: Optional[torch.Tensor] = None
+    tile_chunk_rel: Optional[torch.Tensor] = None
     tile_rel_ptr: Optional[torch.Tensor] = None
 
     @property
@@ -178,9 +181,9 @@ def row_segments(rowptr: torch.Tensor) -> RowSegments:
 
 def _tile_chunks(dst: np.ndarray, etype: np.ndarray, num_relations: int,
                  tile_rows: int, chunk_edges: int, by_dst: np.ndarray):
-    """The dr chunks of K2 and K3: (edge order, tile_chunk_ptr, tile_chunk_slot,
-    tile_rel_ptr), see ``Csr``; ``by_dst`` is the stable destination
-    order."""
+    """The dr chunks of K2, K3, K6b and K7b: (edge order, tile_chunk_ptr,
+    tile_chunk_slot, tile_chunk_rel, tile_rel_ptr), see ``Csr``; ``by_dst``
+    is the stable destination order."""
     tile = dst // tile_rows
     group = tile * num_relations + etype
     num_groups = (int(tile.max()) + 1 if len(tile) else 0) * num_relations
@@ -204,7 +207,7 @@ def _tile_chunks(dst: np.ndarray, etype: np.ndarray, num_relations: int,
     rel_ptr = np.zeros(num_relations + 1, np.int64)
     np.cumsum(np.bincount(chunk_rel, minlength=num_relations),
               out=rel_ptr[1:])
-    return order, chunk_ptr, slot, rel_ptr
+    return order, chunk_ptr, slot, chunk_rel, rel_ptr
 
 
 def build_csr(src, dst, etype, num_nodes: int, num_relations: int,
@@ -246,8 +249,9 @@ def build_csr(src, dst, etype, num_nodes: int, num_relations: int,
             chunk_rel=i32(chunk_rel), rel_chunk_ptr=i32(rel_chunk_ptr))
         seg_ptr, seg_out, long_rows, long_ptr = _row_segments(
             np.bincount(src, minlength=num_nodes), SEGMENT_EDGES)
-        by_tile, tile_chunk_ptr, tile_chunk_slot, tile_rel_ptr = _tile_chunks(
-            dst, et, num_relations, TILE_ROWS, DR_CHUNK_EDGES, by_dst)
+        (by_tile, tile_chunk_ptr, tile_chunk_slot, tile_chunk_rel,
+         tile_rel_ptr) = _tile_chunks(dst, et, num_relations, TILE_ROWS,
+                                      DR_CHUNK_EDGES, by_dst)
         layouts.update(
             src_seg_ptr=i32(seg_ptr), src_seg_out=i32(seg_out),
             src_long_rows=i32(long_rows), src_long_ptr=i32(long_ptr),
@@ -255,6 +259,7 @@ def build_csr(src, dst, etype, num_nodes: int, num_relations: int,
             tile_eid=i32(ids[by_tile]),
             tile_chunk_ptr=i32(tile_chunk_ptr),
             tile_chunk_slot=i32(tile_chunk_slot),
+            tile_chunk_rel=i32(tile_chunk_rel),
             tile_rel_ptr=i32(tile_rel_ptr))
     return Csr(**layouts)
 

@@ -1,7 +1,8 @@
 """Times of K1 (the rspmm forward), K2 (its distmult backward), K3 (the
-transe backward) and K9 (the ring shift) on the card, beside the PyTorch
-calls that compute the same functions where there are such, and the host's
-set-up seconds of the layouts they read, written to JSON.
+transe backward), K6b and K7b (classic NBFNet's PNA backward) and K9 (the
+ring shift) on the card, beside the PyTorch calls that compute the same
+functions where there are such, and the host's set-up seconds of the
+layouts they read, written to JSON.
 
 K1 on chip_smoke.py's uniform KG (below) in mode mul_rel at F = 1,024 and
 4,096 (ULTRA's eval batch and train step) and in mode add_rel at F = 512
@@ -17,6 +18,15 @@ calls (12 rounds of the buckets, as many as a ring eval batch makes),
 microseconds of the host's clock per call with the kernels queued behind
 a device spin (timing.py::host_us_per_call), beside the device time a
 call.
+
+K6b (``argext_pair``, modes mul_rel and add_rel, its planes K6's own
+outputs on post-ReLU x, so that messages tie) and K7b (``moments``) at
+F = 2,048 (classic NBFNet's training width, 64 x 32), whole and each half
+alone, each half beside its bound (timing.py::gather_bound_ms), on both
+KGs below, held first within the backward's tolerance plus 8 fp32 ulps of
+each entry's absolute mass and bitwise across two calls; K6b with the
+share of its gated loads that no feature passes
+(timing.py::gate_skip_share).
 
 K3 at F = 2,048 (the classic transe/pna training width, 64 x 32): the
 whole call and each half alone (dx only, dr only), on chip_smoke.py's
@@ -63,8 +73,12 @@ K3_FEAT = 64 * 32
 K1_FEATS = (16 * 64, 64 * 64)  # ULTRA eval batch and train step widths
 K1_ADD_FEATS = (16 * 32, 64 * 32)  # classic transe/pna's, mode add_rel
 K2_FEAT = 64 * 64
+PNA_FEAT = 64 * 32  # classic NBFNet's training width
+PNA_KINDS = (("K6b", "argext_pair", "mul_rel"),
+             ("K6b", "argext_pair", "add_rel"), ("K7b", "moments", "mul_rel"))
 FB = dict(num_nodes=14541, num_edges=310116, num_relations=237)
 RING_SHARDS = 4
+PARTS = ("setup", "k1", "k2", "pna", "k3", "k9")
 RING_FEATS = (16 * 64, 64 * 64)  # ULTRA eval batch and train step widths
 
 
@@ -215,6 +229,50 @@ def time_k2(torch, timing, bwd, csr, w, label: str) -> dict:
     return out
 
 
+def time_pna(torch, timing, pna, csr, w, kid: str, kind: str, mode: str,
+             label: str) -> dict:
+    V, F = csr.src_rowptr.numel() - 1, PNA_FEAT
+    R = csr.rel_chunk_ptr.numel() - 1
+    gen = torch.Generator(device=w.device).manual_seed(F + 4)
+    rel = torch.randn((R, F), generator=gen, device=w.device)
+    x = torch.randn((V, F), generator=gen, device=w.device).clamp_(min=0)
+    g = [torch.randn((V, F), generator=gen, device=w.device)
+         for _ in range(2)]
+    if kind == "argext_pair":
+        mx, mn = pna.pna_fwd_cuda("maxmin", csr, w, rel, x, mode)
+        planes = (g[0], mx, g[1], mn)
+    else:
+        planes = tuple(g)
+    ops = (csr, w, rel, x, planes, mode)
+
+    def run(need_dx=True, need_dr=True):
+        return pna.pna_bwd_cuda(kind, *ops, need_dx, need_dr)
+
+    got, got2 = run(), run()
+    if not all(torch.equal(a, b) for a, b in zip(got, got2)):
+        raise AssertionError(f"{kid} {mode} {label}: two calls differ")
+    del got2
+    want = pna.pna_bwd_plain(kind, *ops)
+    masses = timing.pna_mass(kind, *ops)
+    err = max(timing.assert_mass_close(
+        a, b, m, 1e-5, max(1e-4, 1e-5 * b.abs().max().item()),
+        f"{kid} {mode} {label} {half}")
+        for a, b, m, half in zip(got, want, masses, ("dx", "dr")))
+    del got, want, masses
+    bound_ms, bound_by = timing.gather_bound_ms(kid, w, rel, x)
+    out = dict(V=V, E=int(csr.src_dst.numel()), R=R, F=F, mode=mode,
+               max_abs_err=err, ms=timing.cuda_time_ms(run, 20),
+               bound_ms=bound_ms, bound_by=bound_by,
+               **timing.pna_half_times(run, kid, w, rel, x))
+    if kind == "argext_pair":
+        out["gated_loads_skipped"] = timing.gate_skip_share(csr, w, rel, x,
+                                                            planes, mode)
+    if hasattr(pna, "pna_bwd_plan"):
+        out["plan"] = pna.pna_bwd_plan(kind, csr, F)
+    _show(f"{kid} {label} {mode}", out)
+    return out
+
+
 def time_k9(torch, timing, rdma, F: int, vb: int) -> dict:
     n = RING_SHARDS
     gen = torch.Generator(device="cuda").manual_seed(F)
@@ -254,6 +312,10 @@ def main(argv=None) -> dict:
                     help="the checkout whose ultra_torchdrug_tpu_torch is "
                          "timed (default: this one)")
     ap.add_argument("--out", required=True, help="the JSON file to write")
+    ap.add_argument("--kernels", nargs="+", default=list(PARTS),
+                    choices=PARTS,
+                    help="what to time (default: all): the set-up seconds, "
+                         "K1, K2, K6b and K7b, K3, K9")
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -270,6 +332,7 @@ def main(argv=None) -> dict:
     from ultra_torchdrug_tpu_torch.diagnostics.workloads import build_workload
     from ultra_torchdrug_tpu_torch.ops import rspmm_bwd_cuda as bwd
     from ultra_torchdrug_tpu_torch.ops import rspmm_cuda as fwd
+    from ultra_torchdrug_tpu_torch.ops import rspmm_pna_cuda as pna
     from ultra_torchdrug_tpu_torch.parallel import rdma
 
     timing = _timing()
@@ -284,32 +347,51 @@ def main(argv=None) -> dict:
 
     fact = synthetic_transductive("SynthFB15k237", seed=0,
                                   **FB).fact_graph(None)[0]
-    result = dict(root=str(root), device=smi, **setup_seconds(fact))
+    parts = set(args.kernels)
+    result = dict(root=str(root), device=smi)
+    if "setup" in parts:
+        result.update(setup_seconds(fact))
     und = fact.undirected_with_inverse().prepare_csr(backward=True)
     tri, _, _ = build_workload(features=False)
     hub = build_csr(tri[:, 0], tri[:, 1], tri[:, 2], 15000, 474,
                     backward=True)
     uni_csr, hub_csr = und.csr.to(device), hub.to(device)
     uni_w, hub_w = weights(und.num_edges, 5), weights(len(tri), 6)
-    result["k1_uniform"] = [
-        time_k1(torch, timing, fwd, uni_csr, uni_w, F, mode, "uniform KG")
-        for mode, feats in (("mul_rel", K1_FEATS), ("add_rel", K1_ADD_FEATS))
-        for F in feats]
-    result["k1_ring_host"] = k1_ring_host(torch, timing, fwd, und, uni_w,
-                                          device)
-    result["k1_hub"] = time_k1(torch, timing, fwd, hub_csr, hub_w,
-                               K1_FEATS[1], "mul_rel", "bench.py's KG")
-    result["k2_uniform"] = time_k2(torch, timing, bwd, uni_csr, uni_w,
-                                   "uniform KG")
-    result["k2_hub"] = time_k2(torch, timing, bwd, hub_csr, hub_w,
-                               "bench.py's KG")
+    if "k1" in parts:
+        result["k1_uniform"] = [
+            time_k1(torch, timing, fwd, uni_csr, uni_w, F, mode, "uniform KG")
+            for mode, feats in (("mul_rel", K1_FEATS),
+                                ("add_rel", K1_ADD_FEATS))
+            for F in feats]
+        result["k1_ring_host"] = k1_ring_host(torch, timing, fwd, und, uni_w,
+                                              device)
+        result["k1_hub"] = time_k1(torch, timing, fwd, hub_csr, hub_w,
+                                   K1_FEATS[1], "mul_rel", "bench.py's KG")
+    if "k2" in parts:
+        result["k2_uniform"] = time_k2(torch, timing, bwd, uni_csr, uni_w,
+                                       "uniform KG")
+        result["k2_hub"] = time_k2(torch, timing, bwd, hub_csr, hub_w,
+                                   "bench.py's KG")
     torch.cuda.empty_cache()
-    result["k3_uniform"] = time_k3(torch, timing, bwd, und.csr.to(device),
-                                   weights(und.num_edges, 7), "uniform KG")
-    result["k3_hub"] = time_k3(torch, timing, bwd, hub.to(device),
-                               weights(len(tri), 8), "bench.py's KG")
-    vb = -(-FB["num_nodes"] // RING_SHARDS)
-    result["k9"] = [time_k9(torch, timing, rdma, F, vb) for F in RING_FEATS]
+    if "pna" in parts:
+        for key, csr, w in (("uniform", uni_csr, uni_w),
+                            ("hub", hub_csr, hub_w)):
+            for kid, kind, mode in PNA_KINDS:
+                result.setdefault(f"{kid.lower()}_{key}", []).append(
+                    time_pna(torch, timing, pna, csr, w, kid, kind, mode,
+                             "uniform KG" if key == "uniform"
+                             else "bench.py's KG"))
+                torch.cuda.empty_cache()
+    if "k3" in parts:
+        result["k3_uniform"] = time_k3(torch, timing, bwd, und.csr.to(device),
+                                       weights(und.num_edges, 7),
+                                       "uniform KG")
+        result["k3_hub"] = time_k3(torch, timing, bwd, hub.to(device),
+                                   weights(len(tri), 8), "bench.py's KG")
+    if "k9" in parts:
+        vb = -(-FB["num_nodes"] // RING_SHARDS)
+        result["k9"] = [time_k9(torch, timing, rdma, F, vb)
+                        for F in RING_FEATS]
     result["hub_max_out_degree"] = int(np.bincount(tri[:, 0]).max())
     result["hub_max_in_degree"] = int(np.bincount(tri[:, 1]).max())
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -198,6 +198,125 @@ def k2_half_times(k2, operands, iters: int = 20) -> dict:
                                 3 * E * F)[0])
 
 
+# per gather kernel: (node rows read, relation rows read, node rows
+# written, relation rows written, fp32 operations per edge and feature).
+# K4: message 2, extremum; K6: message 2, max, min; K7: message, weight,
+# two sums, square; K6b: message 2, two gates, the gated sum g_mx + g_mn,
+# one weighting, then dx and dr 2 each; K5: message 2, one gate, one
+# weighting, dx and dr 2 each; K7b with w factored out and 2·g_sq formed
+# once per node, c = w·(g_s + m·(2·g_sq)): message, product, sum,
+# weighting, dx and dr 2 each; K3: the weighting g·w, shared by the dx and
+# dr sums; K8f: the complex product (3 per real lane), the weight, the sum;
+# K8b: the same for dx and for dr
+GATHER_WORK = {"K4": (1, 1, 1, 0, 3), "K6": (1, 1, 2, 0, 4),
+               "K7": (1, 1, 2, 0, 5), "K6b": (5, 1, 1, 1, 10),
+               "K5": (3, 1, 1, 1, 8), "K7b": (3, 1, 1, 1, 8),
+               "K3": (1, 0, 1, 1, 3), "K8f": (1, 1, 1, 0, 5),
+               "K8b": (2, 1, 1, 1, 10)}
+
+
+def gather_bound_ms(name: str, w, rel, x, half: str = "") -> tuple:
+    """Least time for a gather kernel's work on this card (GATHER_WORK):
+    its dense inputs read once and outputs written once, plus the edges,
+    over the memory rate, against its fp32 operations over the fp32 peak.
+    ``half`` "dx" or "dr" bounds a backward kernel's half alone: the same
+    inputs (both halves recompute the coefficient), one output, and the
+    other half's product and sum left out."""
+    E, V, F = w.numel(), x.shape[0], x.shape[1]
+    R = rel.shape[0]
+    node_in, rel_in, node_out, rel_out, ops = GATHER_WORK[name]
+    if half == "dx":
+        rel_out, ops = 0, ops - 2
+    elif half == "dr":
+        node_out, ops = 0, ops - 2
+    rows = (node_in + node_out) * V + (rel_in + rel_out) * R
+    return roofline_ms(edge_bytes(E) + rows * F * 4, ops * E * F)
+
+
+def assert_bwd_close(got, want):
+    """A two-pass backward kernel (K3, K5, K6b, K7b) against its plain
+    version: K2's tolerance, with the absolute one widened to 1e-5 of the
+    result's largest entry: a dr row sums a thousand or more terms (K7b's
+    carry x² and reach ~1e2), whose partial sums grow to that size, in
+    another order than the plain version."""
+    atol = max(1e-4, 1e-5 * want.abs().max().item())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+
+
+def _pna_coefficients(kind: str, mode: str, rel_e, x_e, w_e, planes_e):
+    """K6b's (``argext_pair``) or K7b's (``moments``) coefficient c of each
+    edge, [n, F], from the edges' rel, x and weight and the planes at their
+    destinations, as ops/rspmm_pna_cuda.py's plain version forms it, and the
+    gates (a list of [n, F] bools; none for moments)."""
+    w = w_e[:, None]
+    if kind == "moments":
+        m2 = (rel_e * x_e).mul_(2.0)
+        return planes_e[0] * w + m2.mul_(planes_e[1] * w), []
+    m = (rel_e * x_e if mode == "mul_rel" else rel_e + x_e) * w
+    c, gates = torch.zeros_like(m), []
+    for g, out in zip(planes_e[::2], planes_e[1::2]):
+        gates.append(m == out)
+        c += torch.where(gates[-1], g * w, 0.0)
+    return c, gates
+
+
+def _pna_chunks(kind: str, csr, w, rel, x, planes, mode: str):
+    """Per MASS_CHUNK edges of the source-sorted CSR: (their source rows,
+    types, rel rows, x rows, coefficients c, gates)."""
+    src_all = _csr_rows(csr.src_rowptr)
+    E = src_all.numel()
+    for a in range(0, E, MASS_CHUNK):
+        b = min(a + MASS_CHUNK, E)
+        src, dst = src_all[a:b], csr.src_dst[a:b].long()
+        etype = csr.src_etype[a:b].long()
+        rel_e, x_e = rel.index_select(0, etype), x.index_select(0, src)
+        c, gates = _pna_coefficients(
+            kind, mode, rel_e, x_e, w.index_select(0, csr.src_eid[a:b].long()),
+            [p.index_select(0, dst) for p in planes])
+        yield src, etype, rel_e, x_e, c, gates
+
+
+def pna_mass(kind: str, csr, w, rel, x, planes, mode: str) -> tuple:
+    """The absolute masses of K6b's or K7b's sums, (dx's, dr's): Σ |rel · c|
+    (|c| for add_rel) into each dx entry and Σ |x · c| (|c|) into each dr
+    entry."""
+    dx, dr = torch.zeros_like(x), torch.zeros_like(rel)
+    for src, etype, rel_e, x_e, c, _ in _pna_chunks(kind, csr, w, rel, x,
+                                                    planes, mode):
+        mul = mode == "mul_rel"
+        dx.index_add_(0, src, (rel_e * c if mul else c).abs_())
+        dr.index_add_(0, etype, (x_e * c if mul else c).abs_())
+    return dx, dr
+
+
+def gate_skip_share(csr, w, rel, x, planes, mode: str, lanes: int = 4):
+    """Of K6b's loads of g_mx and of g_mn, one per edge and thread
+    (``lanes`` features, one 16-byte load), the share in which no feature
+    passes its gate (the message equals the extremum): the loads that a
+    design loading the extrema first and the gradients only where a gate
+    passes would skip (timed and dropped: csrc/rspmm_pna_bwd.cu)."""
+    skipped = total = 0
+    F = x.shape[1] - x.shape[1] % lanes
+    for *_, gates in _pna_chunks("argext_pair", csr, w, rel, x, planes,
+                                 mode):
+        for gate in gates:
+            groups = gate[:, :F].reshape(gate.shape[0], -1, lanes)
+            skipped += int((~groups.any(-1)).sum())
+            total += groups.shape[0] * groups.shape[1]
+    return skipped / max(total, 1)
+
+
+def pna_half_times(run, kid: str, w, rel, x, iters: int = 20) -> dict:
+    """K6b's or K7b's halves each alone, ``run(need_dx, need_dr)``, and
+    each half's bound (gather_bound_ms). Keys ms_dx, ms_dr, bound_ms_dx,
+    bound_ms_dr."""
+    return dict(
+        ms_dx=cuda_time_ms(lambda: run(True, False), iters),
+        ms_dr=cuda_time_ms(lambda: run(False, True), iters),
+        bound_ms_dx=gather_bound_ms(kid, w, rel, x, "dx")[0],
+        bound_ms_dr=gather_bound_ms(kid, w, rel, x, "dr")[0])
+
+
 def sparse_mm_halves(csr, w):
     """K3's function (the transe backward) as two library calls, timed
     beside K3 and never used by the port: dx = Aᵀ g and dr = T g, with

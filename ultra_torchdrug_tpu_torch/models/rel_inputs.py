@@ -1,6 +1,6 @@
 """Initial node features for relation-graph models (counterpart of
 ultra_torchdrug_tpu/models/rel_inputs.py). The shipped configs use the
-``ones`` input type only; the other types come with the auxiliaries slice.
+``ones`` input type only; the other types are ROADMAP Queue 1 item 7.
 Note that the shipped RelNBFNet conditions on the query relation alone and
 does not read these features."""
 
@@ -19,6 +19,6 @@ def build_initial_features(graph, input_type: str, dim: int) -> torch.Tensor:
             out = out + 1.0
         else:
             raise NotImplementedError(
-                f"input type {k!r}: only 'ones' is ported; the others come "
-                "with the auxiliaries slice")
+                f"input type {k!r}: only 'ones' is ported; the others are "
+                "ROADMAP Queue 1 item 7")
     return out

@@ -235,7 +235,7 @@ def _check_graph(csr, edge_weight, num_nodes):
     if edge_weight.requires_grad and torch.is_grad_enabled():
         raise NotImplementedError(
             "gradients to edge weights (classic NBFNet's edge-gradient "
-            "path, ROADMAP item 12) are not ported yet")
+            "path, ROADMAP Queue 1 item 6) are not ported yet")
 
 
 class _RspmmGated(torch.autograd.Function):

@@ -223,14 +223,15 @@ def rspmm_bwd_cuda(csr, edge_weight, relation, x, grad, need_dx=True,
 def _segment_counts(kernel: str, csr, num_rows: int,
                     num_relations: int) -> tuple:
     """(segments, long rows, dr chunks, partial rows of the long rows) of
-    the source-row segments and (destination tile, relation) chunks that K2
-    and K3 read, after checking that they match."""
+    the source-row segments and (destination tile, relation) chunks that K2,
+    K3, K6b and K7b read, after checking that they match."""
     num_segments = csr.src_seg_ptr.numel() - 1
     num_long_rows = csr.src_long_rows.numel()
     num_chunks = csr.tile_chunk_ptr.numel() - 1
     if (csr.src_seg_out.numel() != num_segments
             or csr.src_long_ptr.numel() != num_long_rows + 1
             or csr.tile_chunk_slot.numel() != num_chunks
+            or csr.tile_chunk_rel.numel() != num_chunks
             or csr.tile_rel_ptr.numel() != num_relations + 1
             or num_segments < num_rows):
         raise ValueError(f"{kernel}'s segment and chunk layouts do not match: "

@@ -269,14 +269,16 @@ def ptr(t):
 
 
 def hub_operands(seed: int, device, V: int = 3000, E: int = 40000,
-                 R: int = 7) -> tuple:
+                 R: int = 7, duplicated: int = 0) -> tuple:
     """K1's and K2's hub-row checks on the card: a Csr with destination hubs
     of 10,000 and 1,000 in-edges (rows 0 and 1), source hubs of 10,000 and
     1,000 out-edges (rows 2, 3), rows of 256 and 257 in- and out-edges
     (rows 4, 5 and 5, 4; each of 257 is cut into two segments), the last 5
     rows without edges and the last relation without one; eid a
     permutation; weights in [0.5, 1.5] with a fifth masked to 0, from
-    numpy's generator seeded with ``seed``. Returns (csr, w) on
+    numpy's generator seeded with ``seed``. With ``duplicated`` the first
+    that many edges that no planted row holds come twice, with the same
+    weight (K6b's checks: their messages tie exactly). Returns (csr, w) on
     ``device``."""
     from ..data.graph import build_csr
 
@@ -290,10 +292,14 @@ def hub_operands(seed: int, device, V: int = 3000, E: int = 40000,
         dst[at:at + n_in] = row
         src[at + n_in:at + n_in + n_out] = row
         at += n_in + n_out
-    csr = build_csr(src, dst, rng.integers(0, R - 1, E), V, R, backward=True,
-                    edge_ids=rng.permutation(E))
-    w = rng.uniform(0.5, 1.5, E).astype(np.float32)
-    w[rng.uniform(size=E) < 0.2] = 0.0
+    et = rng.integers(0, R - 1, E)
+    copies = np.arange(at, at + duplicated)
+    src, dst, et = (np.concatenate([a, a[copies]]) for a in (src, dst, et))
+    ids = rng.permutation(E + duplicated)
+    csr = build_csr(src, dst, et, V, R, backward=True, edge_ids=ids)
+    w = rng.uniform(0.5, 1.5, E + duplicated).astype(np.float32)
+    w[rng.uniform(size=E + duplicated) < 0.2] = 0.0
+    w[ids[E:]] = w[ids[copies]]
     return csr.to(device), torch.from_numpy(w).to(device)
 
 

@@ -37,10 +37,20 @@ neither is used here.
 Operands are flat: x and the planes [V, F], relation [R, F], edge_weight [E]
 in original edge order, all float32, over the graph's ``Csr``
 (data/graph.py). Each wrapper launches its kernel for CUDA tensors and adds
-one to ``launches[<kernel id>]`` (a backward call is up to three device
+one to ``launches[<kernel id>]`` (a backward call is up to six device
 launches, see the source); for CPU tensors it runs the plain version. The
 sources say what bounds each kernel on the card and what its design does
 about it. The backward kernels are deterministic: no float atomics.
+
+K6b and K7b read K2's hub-aware layouts
+(ops/rspmm_bwd_cuda.py): the dx pass the source rows cut into 256-edge
+segments (``Csr.src_seg_*``, ``src_long_*``), the rel slice in shared
+memory and each segment's x slice in registers, so that an edge gathers
+only its destination's planes; the dr pass the (destination tile,
+relation) chunks (``Csr.tile_*``, with ``tile_chunk_rel``), one warp a
+chunk; each pass reads the weights from a copy gathered once per call.
+``pna_bwd_plan`` reports how a shape is laid out. K5 keeps the first
+design's passes over the source-sorted CSR and the relation chunks.
 """
 
 from __future__ import annotations
@@ -53,11 +63,12 @@ import torch
 from .cuda_build import load_library
 from .rspmm_bwd_cuda import (
     _require_backward_layouts,
+    _segment_counts,
     bwd_outputs,
     check_bwd_operands,
     ptr,
 )
-from .rspmm_cuda import MODES, check_fwd_operands, csr_rows
+from .rspmm_cuda import MODES, check_fwd_operands, csr_rows, plan_dict
 
 # launches of each kernel since import (or since the caller last reset them)
 launches = {"K4": 0, "K5": 0, "K6": 0, "K7": 0, "K6b": 0, "K7b": 0}
@@ -193,9 +204,15 @@ def pna_fwd_cuda(kind: str, csr, edge_weight, relation, x, mode: str):
     return tuple(out)
 
 
-# the backward's layouts, in the kernel's argument order
-_BWD_LAYOUT = ("src_rowptr", "src_dst", "src_etype", "src_eid", "chunk_ptr",
-               "chunk_rel", "rel_chunk_ptr", "rel_src", "rel_dst", "rel_eid")
+# K6b's and K7b's layouts, in the kernel's argument order: K2's
+# (ops/rspmm_bwd_cuda.py) and each tile chunk's relation
+_BWD_LAYOUT = ("src_seg_ptr", "src_seg_out", "src_dst", "src_etype",
+               "src_eid", "src_long_rows", "src_long_ptr", "tile_chunk_ptr",
+               "tile_chunk_slot", "tile_chunk_rel", "tile_src", "tile_dst",
+               "tile_eid", "tile_rel_ptr")
+# K5's (the first design's), in its kernel's argument order
+_K5_LAYOUT = ("src_rowptr", "src_dst", "src_etype", "src_eid", "chunk_ptr",
+              "chunk_rel", "rel_chunk_ptr", "rel_src", "rel_dst", "rel_eid")
 
 
 def pna_bwd_cuda(kind: str, csr, edge_weight, relation, x, planes,
@@ -208,25 +225,88 @@ def pna_bwd_cuda(kind: str, csr, edge_weight, relation, x, planes,
     if x.device.type == "cpu":
         return pna_bwd_plain(kind, csr, edge_weight, relation, x, planes,
                              mode, need_dx, need_dr)
-    device = x.device
-    num_rows, num_relations, num_chunks, num_features = check_bwd_operands(
-        _BWD_ID[kind], csr, _BWD_LAYOUT, edge_weight, relation, x,
+    if kind == "argext":
+        return _argext_bwd_cuda(csr, edge_weight, relation, x, planes, mode,
+                                need_dx, need_dr)
+    kid = _BWD_ID[kind]
+    num_rows, num_relations, _, num_features = check_bwd_operands(
+        kid, csr, _BWD_LAYOUT, edge_weight, relation, x,
         {f"plane {i}": p for i, p in enumerate(planes)})
-    dx, dr, partial = bwd_outputs(x, num_relations, num_chunks, need_dx,
-                                  need_dr)
+    num_segments, num_long_rows, num_chunks, num_long_segments = (
+        _segment_counts(kid, csr, num_rows, num_relations))
+    dx, dr, dr_partial = bwd_outputs(x, num_relations, num_chunks, need_dx,
+                                     need_dr)
+    dx_partial = (x.new_empty((num_long_segments, num_features))
+                  if need_dx and num_long_segments else None)
+    num_edges = csr.src_dst.numel()
+    w_scratch = x.new_empty((2 * num_edges,))
     q = [p.data_ptr() for p in planes] + [None] * (4 - len(planes))
     fn = _bwd_kernel()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(BWD_KINDS[kind], MODES[mode],
                  *(getattr(csr, n).data_ptr() for n in _BWD_LAYOUT),
                  edge_weight.data_ptr(), relation.data_ptr(), x.data_ptr(),
-                 *q, ptr(dx), ptr(dr), ptr(partial), num_rows, num_relations,
-                 num_chunks, num_features, stream)
+                 *q, ptr(dx), ptr(dr), w_scratch.data_ptr(), ptr(dx_partial),
+                 ptr(dr_partial), num_rows, num_segments, num_long_rows,
+                 num_chunks, num_relations, num_edges, num_features, stream)
     if err != 0:
-        raise RuntimeError(f"{_BWD_ID[kind]} (rspmm_pna_bwd) launch failed "
-                           f"with CUDA error {err}")
-    launches[_BWD_ID[kind]] += 1
+        raise RuntimeError(f"{kid} (rspmm_pna_bwd) launch failed with CUDA "
+                           f"error {err}")
+    launches[kid] += 1
+    return dx, dr
+
+
+def pna_bwd_plan(kind: str, csr, num_features: int,
+                 mode: str = "mul_rel") -> dict:
+    """How K6b (``argext_pair``) or K7b (``moments``) lays out its passes
+    over ``csr`` at this width on the card (csrc/rspmm_pna_bwd.cu):
+    {"dx": ..., "dr": ...}, each as ops/rspmm_cuda.py::k1_plan's (the dr
+    pass holds its chunk's rel slice in registers)."""
+    _check_kind(kind, mode, BWD_KINDS)
+    if kind == "argext":
+        raise ValueError("K5 (argext) has no staged plan")
+    num_rows = csr.src_rowptr.numel() - 1
+    num_relations = csr.tile_rel_ptr.numel() - 1
+    num_segments, _, num_chunks, _ = _segment_counts(
+        _BWD_ID[kind], csr, num_rows, num_relations)
+    vec = num_features % 4 == 0  # the 16-byte path, operands aligned
+    out = (ctypes.c_int * 10)()
+    fn = load_library("rspmm_pna_bwd").rspmm_pna_plan
+    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(BWD_KINDS[kind], MODES[mode], int(vec), num_relations,
+             num_features, num_rows, num_segments, num_chunks,
+             ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"rspmm_pna_plan failed with CUDA error {err}")
+    dr = plan_dict(out[5:10])
+    dr["rel"] = "registers"
+    return {"dx": plan_dict(out[:5]), "dr": dr}
+
+
+def _argext_bwd_cuda(csr, edge_weight, relation, x, planes, mode, need_dx,
+                     need_dr):
+    """K5 on CUDA tensors, over the first design's layouts (the
+    source-sorted CSR and the relation chunks)."""
+    num_rows, num_relations, num_chunks, num_features = check_bwd_operands(
+        "K5", csr, _K5_LAYOUT, edge_weight, relation, x,
+        {f"plane {i}": p for i, p in enumerate(planes)})
+    dx, dr, partial = bwd_outputs(x, num_relations, num_chunks, need_dx,
+                                  need_dr)
+    fn = _argext_kernel()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(MODES[mode],
+                 *(getattr(csr, n).data_ptr() for n in _K5_LAYOUT),
+                 edge_weight.data_ptr(), relation.data_ptr(), x.data_ptr(),
+                 *(p.data_ptr() for p in planes), ptr(dx), ptr(dr),
+                 ptr(partial), num_rows, num_relations, num_chunks,
+                 num_features, stream)
+    if err != 0:
+        raise RuntimeError(f"K5 (rspmm_argext_bwd) launch failed with CUDA "
+                           f"error {err}")
+    launches["K5"] += 1
     return dx, dr
 
 
@@ -242,7 +322,16 @@ def _fwd_kernel():
 @functools.lru_cache(maxsize=None)
 def _bwd_kernel():
     fn = load_library("rspmm_pna_bwd").rspmm_pna_bwd
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 20
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 26
+                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _argext_kernel():
+    fn = load_library("rspmm_pna_bwd").rspmm_argext_bwd
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 18
                    + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
