@@ -41,16 +41,23 @@ Phases, each of which raises on failure (the script then exits nonzero):
               calls, against their plain versions at ragged shapes (K3 also
               on its segment and tile layouts: a 700-edge source row, a
               relation across three destination tiles, F = 10, 64, 1028,
-              2048) and at F=2048 (K4 also F=512), time each, and time K3
+              2048; K5, max and min, also on hub rows of 10^3 and 10^4
+              edges both ways with 40 duplicated edges, F = 10, 1028, and
+              with R = 2,000, within the mass tolerance and by half) and
+              at F=2048 (K4 also F=512), time each, K5 also by half beside
+              each half's bound and on bench.py's KG, and time K3
               whole and by half beside its function as two torch.sparse.mm
               calls, on the uniform KG and on bench.py's heavy-tailed KG
               (its busiest source row 107,336 edges); hold K8f and K8b (the
               rotate forward and backward, csrc/rspmm_rotate.cu; K8b
               bitwise across two calls) against their plain versions at
               ragged shapes (D/2 = 3,
-              5 and 6 take the scalar path, 4 and 16 the float4 path) and
+              5 and 6 take the scalar path, 4 and 16 the float4 path), K8b
+              also on hub rows (D = 32, 128 and 6; R = 7 and 2,000) within
+              the mass tolerance and by half, and
               at F=512 and F=2048 with D=32, shared and per-batch
-              relations, and time each; hold K1h and K2h (the bf16 operand
+              relations, and time each, K8b also by half and on bench.py's
+              KG; hold K1h and K2h (the bf16 operand
               mode, csrc/rspmm_fwd.cu and csrc/rspmm_bwd.cu; K2h bitwise
               across two calls) against their plain versions at ragged
               shapes (F not a multiple of 8 takes the scalar path), shared
@@ -150,8 +157,9 @@ Phases, each of which raises on failure (the script then exits nonzero):
 
 The last lines are a JSON object with one entry per kernel (K1, K2, K6,
 K7, K6b, K7b, K3, K4, K5, K8f, K8b, K1h, K2h, K9; launches summed over the
-measured runs of phases 2-30, by path in ``launches_by_path``; P1 and P2
-with full's numbers and their launches in the tools' runs of phase 1b),
+measured runs of phases 2-30, by path in ``launches_by_path``; the staged
+backward kernels' layouts under ``plan``; P1 and P2 with full's numbers
+and their launches in the tools' runs of phase 1b),
 then {"ok": true, "device": {...}}. With no card the script prints no
 result and exits nonzero; it imports nothing of JAX.
 """
@@ -195,6 +203,7 @@ try:
         pna_half_times,
         pna_mass,
         roofline_ms,
+        rotate_mass,
         sparse_mm_halves,
     )
 except ImportError as exc:
@@ -883,10 +892,12 @@ def phase_kernels_pna(und, device) -> dict:
     return entries
 
 
-def pna_args(kind: str, mode: str, ops, seed: int, device) -> tuple:
-    """K6b's (``argext_pair``) or K7b's (``moments``) arguments on ``ops``
-    (csr, w, rel, x): the planes K6's own outputs (so that the gates fire
-    on the card's bits) and seeded gradients."""
+def pna_args(kind: str, mode: str, ops, seed: int, device,
+             agg: str = "max") -> tuple:
+    """K6b's (``argext_pair``), K7b's (``moments``) or K5's (``argext``,
+    of the extremum ``agg``) arguments on ``ops`` (csr, w, rel, x): the
+    planes K6's or K4's own outputs (so that the gates fire on the card's
+    bits) and seeded gradients."""
     from ultra_torchdrug_tpu_torch.ops import rspmm_pna_cuda as pna
 
     csr, w, rel, x = ops
@@ -894,6 +905,8 @@ def pna_args(kind: str, mode: str, ops, seed: int, device) -> tuple:
     g = [torch.randn(x.shape, generator=gen, device=device) for _ in range(2)]
     if kind == "moments":
         planes = tuple(g)
+    elif kind == "argext":
+        planes = (g[0], *pna.pna_fwd_cuda(agg, csr, w, rel, x, mode))
     else:
         mx, mn = pna.pna_fwd_cuda("maxmin", csr, w, rel, x, mode)
         planes = (g[0], mx, g[1], mn)
@@ -901,7 +914,7 @@ def pna_args(kind: str, mode: str, ops, seed: int, device) -> tuple:
 
 
 def check_pna_mass(kid: str, args, label: str) -> float:
-    """K6b or K7b on ``args`` (pna_args) against its plain version: the
+    """K6b, K7b or K5 on ``args`` (pna_args) against its plain version: the
     backward's tolerance plus 8 fp32 ulps of each entry's absolute mass,
     two calls bitwise equal, each half alone equal to the whole, rows and
     relations without edges 0. Returns the largest difference."""
@@ -931,10 +944,11 @@ def check_pna_mass(kid: str, args, label: str) -> float:
 
 
 def check_pna_hub(kid: str, kind: str, mode: str, F: int, R: int, seed: int,
-                  device) -> float:
-    """K6b or K7b on ops/rspmm_cuda.py::hub_operands' hub rows with 40
-    duplicated edges (post-ReLU x, so that messages tie) at width F with R
-    relations, held by check_pna_mass; logs the passes' layouts."""
+                  device, agg: str = "max") -> float:
+    """K6b, K7b or K5 (of ``agg``) on ops/rspmm_cuda.py::hub_operands' hub
+    rows with 40 duplicated edges (post-ReLU x, so that messages tie) at
+    width F with R relations, held by check_pna_mass; logs the passes'
+    layouts."""
     from ultra_torchdrug_tpu_torch.ops import rspmm_cuda, rspmm_pna_cuda
 
     csr, w = rspmm_cuda.hub_operands(seed, device, R=R, duplicated=40)
@@ -942,9 +956,10 @@ def check_pna_hub(kid: str, kind: str, mode: str, F: int, R: int, seed: int,
     gen = torch.Generator(device=device).manual_seed(seed + F)
     rel = torch.randn((R, F), generator=gen, device=device)
     x = torch.randn((V, F), generator=gen, device=device).clamp_(min=0)
-    label = f"{mode} hub rows R={R} F={F}"
+    label = (f"{agg} " if kind == "argext" else "") + (
+        f"{mode} hub rows R={R} F={F}")
     err = check_pna_mass(kid, pna_args(kind, mode, (csr, w, rel, x),
-                                       seed + 1, device), label)
+                                       seed + 1, device, agg), label)
     plan = rspmm_pna_cuda.pna_bwd_plan(kind, csr, F, mode)
     log(f"[kernels] {kid} {label}: max_abs_err {err:.3g} within the mass "
         f"tolerance, bitwise equal across two calls and by half; dx pass "
@@ -953,10 +968,10 @@ def check_pna_hub(kid: str, kind: str, mode: str, F: int, R: int, seed: int,
 
 
 def pna_halves(kid: str, kind: str, mode: str, ops, label: str) -> dict:
-    """K6b's or K7b's halves each alone on ``ops`` (csr, w, rel, x) with
-    their bounds, the passes' layouts and, for K6b, the share of its g_mx
-    and g_mn loads (a thread's 4 features) in which no feature passes its
-    gate."""
+    """K6b's, K7b's or K5's halves each alone on ``ops`` (csr, w, rel, x)
+    with their bounds, the passes' layouts (key ``plan``) and, for K6b, the
+    share of its g_mx and g_mn loads (a thread's 4 features) in which no
+    feature passes its gate."""
     from ultra_torchdrug_tpu_torch.ops import rspmm_pna_cuda as pna
 
     args = pna_args(kind, mode, ops, ops[3].shape[1] + 7, ops[1].device)
@@ -965,6 +980,7 @@ def pna_halves(kid: str, kind: str, mode: str, ops, label: str) -> dict:
     if kind == "argext_pair":
         out["gate_skip_share"] = gate_skip_share(*args[1:6], mode)
     plan = pna.pna_bwd_plan(kind, ops[0], ops[3].shape[1], mode)
+    out["plan"] = plan
     log(f"[kernels] {kid} {mode} {label}: dx half {out['ms_dx']:.4f} ms "
         f"(bound {out['bound_ms_dx']:.4f}; {plan_text(plan['dx'])}), dr half "
         f"{out['ms_dr']:.4f} ms (bound {out['bound_ms_dr']:.4f}; "
@@ -974,31 +990,48 @@ def pna_halves(kid: str, kind: str, mode: str, ops, label: str) -> dict:
     return out
 
 
-def phase_pna_hub(device) -> dict:
-    """K6b (both modes) and K7b at F = 64 x 32 on bench.py's heavy-tailed
-    KG (diagnostics/workloads.py::build_workload, its busiest source row
-    107,336 edges, destination row 107,150), held by check_pna_mass and
-    timed, whole and by half; returns their entries' ``*_hub`` keys."""
+def bench_kg_operands(seed: int, device, relu: bool = True):
+    """Operands at F = 64 x 32 on bench.py's heavy-tailed KG
+    (diagnostics/workloads.py::build_workload, its busiest source row
+    107,336 edges, destination row 107,150): (csr with its backward
+    layouts, weights in [0.5, 1.5] with a fifth masked to 0, rel [R, F],
+    x [V, F], post-ReLU where ``relu``), and the KG's label."""
     from ultra_torchdrug_tpu_torch.data.graph import build_csr
     from ultra_torchdrug_tpu_torch.diagnostics.workloads import build_workload
-    from ultra_torchdrug_tpu_torch.ops import rspmm_pna_cuda as pna
 
     tri, _, _ = build_workload(features=False)
     V, R, E = 15000, 474, len(tri)
     csr = build_csr(tri[:, 0], tri[:, 1], tri[:, 2], V, R,
                     backward=True).to(device)
     F = CLASSIC_TRAIN["batch"] * CLASSIC_FEAT
-    gen = torch.Generator(device=device).manual_seed(F + 10)
+    gen = torch.Generator(device=device).manual_seed(seed)
     w = torch.rand((E,), generator=gen, device=device) + 0.5
     w = w * (torch.rand((E,), generator=gen, device=device) >= 0.2)
     rel = torch.randn((R, F), generator=gen, device=device)
-    x = torch.randn((V, F), generator=gen, device=device).clamp_(min=0)
-    ops = (csr, w, rel, x)
-    label = f"bench.py's KG V={V} E={E} R={R} F={F}"
-    out = {"K6b": {}, "K7b": {}}
-    for kid, kind, mode in (("K6b", "argext_pair", "mul_rel"),
-                            ("K6b", "argext_pair", "add_rel"),
-                            ("K7b", "moments", "mul_rel")):
+    x = torch.randn((V, F), generator=gen, device=device)
+    if relu:
+        x.clamp_(min=0)
+    return (csr, w, rel, x), f"bench.py's KG V={V} E={E} R={R} F={F}"
+
+
+PNA_HUB_KINDS = (("K6b", "argext_pair", "mul_rel"),
+                 ("K6b", "argext_pair", "add_rel"),
+                 ("K7b", "moments", "mul_rel"))
+K5_HUB_KINDS = (("K5", "argext", "mul_rel"), ("K5", "argext", "add_rel"))
+
+
+def phase_pna_hub(device, kinds=PNA_HUB_KINDS) -> dict:
+    """K6b (both modes) and K7b, or K5 (both modes, of K4's max), at
+    F = 64 x 32 on bench.py's heavy-tailed KG (bench_kg_operands), held by
+    check_pna_mass and timed, whole and by half; returns their entries'
+    ``*_hub`` keys."""
+    from ultra_torchdrug_tpu_torch.ops import rspmm_pna_cuda as pna
+
+    F = CLASSIC_TRAIN["batch"] * CLASSIC_FEAT
+    ops, label = bench_kg_operands(F + 10, device)
+    csr, w, rel, x = ops
+    out = {kid: {} for kid, _, _ in kinds}
+    for kid, kind, mode in kinds:
         args = pna_args(kind, mode, ops, F + 11, device)
         err = check_pna_mass(kid, args, f"{mode} {label}")
         torch.cuda.empty_cache()
@@ -1131,6 +1164,15 @@ def phase_kernels_ext(und, device) -> dict:
             label)
         if not (torch.all(dx[V - 5:] == 0) and torch.all(dr[R - 1] == 0)):
             raise AssertionError("K3 wrote nonzero rows without edges")
+    # K5 on hub rows (10^3, 10^4, 256 and 257 edges both ways, 40
+    # duplicated edges) with the dx pass's rel slice in shared memory
+    # (R = 7), and R = 2,000, whose rel rows it gathers
+    for seed, R, feats in ((24, 7, (10, 1028)), (25, 2000, (132,))):
+        for F in feats:
+            for agg in ("max", "min"):
+                for mode in ("mul_rel", "add_rel"):
+                    check_pna_hub("K5", "argext", mode, F, R, seed, device,
+                                  agg)
     # K3's segments (a 700-edge row) and its (destination tile, relation)
     # chunks across three tiles
     for F in (10, 64, 1028, 2048):
@@ -1219,7 +1261,8 @@ def phase_kernels_ext(und, device) -> dict:
             if mode == "mul_rel":
                 entry("K5", "rspmm_pna_bwd.cu", 2316, err, ms, plain_ms,
                       bound, None, replaces_k5b="ultra_torchdrug_tpu/ops/"
-                                                "rspmm_pallas.py:2453")
+                                                "rspmm_pallas.py:2453",
+                      **pna_halves("K5", "argext", mode, ops, label))
             else:
                 entries["K5"].update({f"ms_{mode}": ms,
                                       f"max_abs_err_{mode}": err})
@@ -1246,6 +1289,7 @@ def phase_kernels_ext(und, device) -> dict:
         del ops, args
         torch.cuda.empty_cache()
     entries["K3"].update(phase_k3_hub(device))
+    entries["K5"].update(phase_pna_hub(device, K5_HUB_KINDS)["K5"])
     log('[kernels] kernels ["K4", "K5", "K3"]')
     return entries
 
@@ -1270,6 +1314,107 @@ def rotate_operands(graph, batch: int, dim: int, shared: bool, seed: int,
     w = w * (torch.rand((E,), generator=gen, device=device) >= 0.2)
     g = torch.randn((V, F), generator=gen, device=device)
     return graph.csr.to(device), w, rel, x, g
+
+
+def k8b_args(ops, dim: int, seed: int, device) -> tuple:
+    """K8b's arguments on ``ops`` (csr, w, rel, x) with a seeded gradient g
+    and blocks of ``dim``: (csr, w, rel, x, g, dim)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return (*ops, torch.randn(ops[3].shape, generator=gen, device=device),
+            dim)
+
+
+def check_k8b_mass(args, label: str) -> float:
+    """K8b on ``args`` (k8b_args) against its plain version: dx within K2's
+    tolerance, dr within K3's, each plus 8 fp32 ulps of each entry's
+    absolute mass (timing.py::rotate_mass), two calls bitwise equal, each
+    half alone equal to the whole, rows and relations without edges 0.
+    Returns the largest difference."""
+    from ultra_torchdrug_tpu_torch.ops import rspmm_bwd_cuda as bwd
+
+    dx, dr = bwd.rotate_bwd_cuda(*args)
+    dx2, dr2 = bwd.rotate_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(dx, dx2) and torch.equal(dr, dr2)):
+        raise AssertionError(f"K8b {label}: two calls differ")
+    del dx2, dr2
+    err = 0.0
+    want = bwd.rotate_bwd_plain(*args)
+    for got, want_half, mass, atol in zip(
+            (dx, dr), want, rotate_mass(*args),
+            (1e-4, max(1e-4, 1e-5 * want[1].abs().max().item()))):
+        err = max(err, assert_mass_close(got, want_half, mass, 1e-5, atol,
+                                         f"K8b {label}"))
+    del want
+    csr = args[0]
+    no_src = (csr.src_rowptr[1:] == csr.src_rowptr[:-1]).nonzero()
+    no_rel = (csr.tile_rel_ptr[1:] == csr.tile_rel_ptr[:-1]).nonzero()
+    if not (torch.all(dx[no_src] == 0) and torch.all(dr[no_rel] == 0)):
+        raise AssertionError(f"K8b {label}: rows without edges")
+    if not (torch.equal(bwd.rotate_bwd_cuda(*args, need_dr=False)[0], dx)
+            and torch.equal(bwd.rotate_bwd_cuda(*args, need_dx=False)[1],
+                            dr)):
+        raise AssertionError(f"K8b {label}: a half alone differs")
+    return err
+
+
+def check_k8b_hub(F: int, dim: int, R: int, seed: int, device) -> float:
+    """K8b on ops/rspmm_cuda.py::hub_operands' hub rows at width F, blocks
+    of ``dim``, R relations, held by check_k8b_mass; logs the passes'
+    layouts."""
+    from ultra_torchdrug_tpu_torch.ops import rspmm_bwd_cuda, rspmm_cuda
+
+    csr, w = rspmm_cuda.hub_operands(seed, device, R=R, duplicated=40)
+    V = csr.src_rowptr.numel() - 1
+    gen = torch.Generator(device=device).manual_seed(seed + F)
+    ops = (csr, w, torch.randn((R, F), generator=gen, device=device),
+           torch.randn((V, F), generator=gen, device=device))
+    label = f"hub rows R={R} F={F} D={dim}"
+    err = check_k8b_mass(k8b_args(ops, dim, seed + 1, device), label)
+    plan = rspmm_bwd_cuda.k8b_plan(csr, F, dim)
+    log(f"[kernels] K8b {label}: max_abs_err {err:.3g} within the mass "
+        f"tolerance, bitwise equal across two calls and by half; dx pass "
+        f"{plan_text(plan['dx'])}; dr pass {plan_text(plan['dr'])}")
+    return err
+
+
+def k8b_halves(args, label: str) -> dict:
+    """K8b's halves each alone on ``args`` (k8b_args) with their bounds and
+    the passes' layouts (key ``plan``)."""
+    from ultra_torchdrug_tpu_torch.ops import rspmm_bwd_cuda as bwd
+
+    csr, w, rel, x, _, dim = args
+    out = pna_half_times(lambda need_dx, need_dr: bwd.rotate_bwd_cuda(
+        *args, need_dx, need_dr), "K8b", w, rel, x)
+    out["plan"] = plan = bwd.k8b_plan(csr, x.shape[1], dim)
+    log(f"[kernels] K8b {label}: dx half {out['ms_dx']:.4f} ms (bound "
+        f"{out['bound_ms_dx']:.4f}; {plan_text(plan['dx'])}), dr half "
+        f"{out['ms_dr']:.4f} ms (bound {out['bound_ms_dr']:.4f}; "
+        f"{plan_text(plan['dr'])})")
+    return out
+
+
+def phase_k8b_hub(device) -> dict:
+    """K8b at F = 64 x 32, D = 32 on bench.py's heavy-tailed KG
+    (bench_kg_operands), held by check_k8b_mass and timed, whole and by
+    half; returns its entry's ``*_hub`` keys."""
+    from ultra_torchdrug_tpu_torch.ops import rspmm_bwd_cuda as bwd
+
+    F = CLASSIC_TRAIN["batch"] * CLASSIC_FEAT
+    ops, label = bench_kg_operands(F + 12, device, relu=False)
+    args = k8b_args(ops, CLASSIC_FEAT, F + 13, device)
+    err = check_k8b_mass(args, label)
+    torch.cuda.empty_cache()
+    ms = cuda_time_ms(lambda: bwd.rotate_bwd_cuda(*args), 20)
+    bound_ms, _ = gather_bound_ms("K8b", *ops[1:])
+    log(f"[kernels] K8b {label}: max_abs_err {err:.3g} within the mass "
+        f"tolerance, {ms:.4f} ms (bound {bound_ms:.4f} ms, "
+        f"{bound_ms / ms:.1%} of it)")
+    keys = dict(ms=ms, max_abs_err=err, bound_ms=bound_ms,
+                **k8b_halves(args, label))
+    del args, ops
+    torch.cuda.empty_cache()
+    return {f"{k}_hub": v for k, v in keys.items()}
 
 
 def assert_fwd_close(got, want):
@@ -1337,6 +1482,15 @@ def phase_kernels_rotate(und, device) -> dict:
         if not (torch.all(out[V - 5:] == 0) and torch.all(dx[V - 5:] == 0)
                 and torch.all(dr[R - 1] == 0)):
             raise AssertionError("K8f/K8b wrote nonzero rows without edges")
+    # K8b on hub rows (10^3, 10^4, 256 and 257 edges both ways) with the dx
+    # pass's rel slice in shared memory (R = 7) and R = 2,000, whose rel
+    # rows it gathers: D = 32 (a slice two blocks), 128 (half a block's
+    # real and imaginary parts), 6 (the scalar path; slices across blocks)
+    for seed, R, cases in ((34, 7, ((64, 32), (2048, 32), (1024, 128),
+                                    (66, 6))),
+                           (35, 2000, ((128, 32), (1026, 6)))):
+        for F, dim in cases:
+            check_k8b_hub(F, dim, R, seed, device)
 
     # (b) the main path's shapes on the FB-sized graph, D = 32: F = 16 x 32
     # (eval) for K8f, F = 64 x 32 (training) for both; per-batch relations
@@ -1374,6 +1528,8 @@ def phase_kernels_rotate(und, device) -> dict:
                     entries[kid].update(
                         {f"{k}_train": v for k, v in keys.items()})
                     continue
+                if kid == "K8b":
+                    keys.update(k8b_halves((*ops, CLASSIC_FEAT), label))
                 entries[kid] = dict(
                     name=kid, route="cuda",
                     source=f"{PACKAGE}/csrc/rspmm_rotate.cu",
@@ -1383,6 +1539,7 @@ def phase_kernels_rotate(und, device) -> dict:
                     launches=None, library_ms=None, **keys)
             del ops, timed
             torch.cuda.empty_cache()
+    entries["K8b"].update(phase_k8b_hub(device))
     log('[kernels] kernels ["K8f", "K8b"]')
     return entries
 

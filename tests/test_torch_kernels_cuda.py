@@ -8,8 +8,8 @@ Run on a machine with the card:
 Tolerance atol = rtol = 1e-5 for K1: the kernel sums each row's edges in CSR
 order, the plain version with index_add_ in another order. K2 uses rtol 1e-5,
 atol 1e-4: its dr rows sum up to a few hundred products of N(0, 1) values.
-On hub rows (10^3 and 10^4 edges) K1, K2, K6b and K7b add 8 fp32 ulps of
-each entry's absolute mass to those (diagnostics/timing.py::
+On hub rows (10^3 and 10^4 edges) K1, K2, K6b, K7b, K5 and K8b add 8 fp32
+ulps of each entry's absolute mass to those (diagnostics/timing.py::
 assert_mass_close): their segments' partial rows sum in another order than
 the plain version.
 K6 and K4 must equal their plain versions exactly (an extremum of the same
@@ -623,6 +623,126 @@ def test_k6b_k7b_run_on_every_card():
                 atol = max(K2_TOL["atol"], 1e-5 * b.abs().max().item())
                 timing.assert_mass_close(a.cpu(), b, mass, K2_TOL["rtol"],
                                          atol, f"{kind} {mode} {device}")
+
+
+def _k5_hub_args(agg, mode, F, R, seed, device):
+    """K5's arguments on rspmm_cuda.hub_operands' hub rows with 40
+    duplicated edges: post-ReLU x (exact zeros), the planes an N(0, 1)
+    gradient and K4's own ``agg`` output on the card."""
+    csr, w = rspmm_cuda.hub_operands(seed, device, R=R, duplicated=40)
+    V = csr.src_rowptr.numel() - 1
+    rng = np.random.default_rng(seed)
+    rel = _normal(rng, (R, F), device)
+    x = _normal(rng, (V, F), device).clamp_(min=0)
+    g = _normal(rng, (V, F), device)
+    (out,) = rspmm_pna_cuda.pna_fwd_cuda(agg, csr, w, rel, x, mode)
+    return ("argext", csr, w, rel, x, (g, out), mode)
+
+
+def _k8b_hub_args(dim, F, R, seed, device):
+    """K8b's arguments on rspmm_cuda.hub_operands' hub rows: N(0, 1) rel, x
+    and g, blocks of ``dim``."""
+    csr, w = rspmm_cuda.hub_operands(seed, device, R=R, duplicated=40)
+    V = csr.src_rowptr.numel() - 1
+    rng = np.random.default_rng(seed)
+    return (csr, w, *(_normal(rng, s, device)
+                      for s in ((R, F), (V, F), (V, F))), dim)
+
+
+def _k5_k8b_call(kid, args, **kw):
+    """K5's or K8b's wrapper on ``args``."""
+    if kid == "K5":
+        return rspmm_pna_cuda.pna_bwd_cuda(*args, **kw)
+    return rspmm_bwd_cuda.rotate_bwd_cuda(*args, **kw)
+
+
+def _k5_k8b_want(kid, args):
+    """(the plain version's (dx, dr), the masses, the atol of each half) of
+    K5 or K8b on ``args``: K5 K3's tolerance on both halves, K8b K2's on dx
+    and K3's on dr."""
+    if kid == "K5":
+        plain = rspmm_pna_cuda.pna_bwd_plain(*args)
+        return (plain, timing.pna_mass(*args),
+                [max(1e-4, 1e-5 * p.abs().max().item()) for p in plain])
+    plain = rspmm_bwd_cuda.rotate_bwd_plain(*args)
+    return (plain, timing.rotate_mass(*args),
+            [1e-4, max(1e-4, 1e-5 * plain[1].abs().max().item())])
+
+
+# (kernel, K5's extremum or K8b's block width D, K5's mode, F): F = 10 the
+# scalar path, 64 one slice, 1028 a last slice of 4 features, 2048 the
+# training width; D = 32 a slice two whole blocks, 128 half of one block's
+# real and imaginary parts, 6 the scalar path with slices across blocks
+# (F = 1026: a last slice of one complex position)
+K5_K8B_HUB = ([("K5", agg, mode, F) for agg in ("max", "min")
+               for mode in ("mul_rel", "add_rel") for F in (10, 64, 1028, 2048)]
+              + [("K8b", D, None, F) for D, F in ((32, 64), (32, 2048),
+                                                  (128, 1024), (6, 66),
+                                                  (6, 1026))])
+
+
+@pytest.mark.parametrize("kid,spec,mode,F", K5_K8B_HUB)
+def test_k5_k8b_hub_rows_match_plain(cuda_device, kid, spec, mode, F):
+    """K5 (of K4's own max or min, both modes) and K8b on hub rows of 10^3
+    and 10^4 edges both ways, rows of 256 and 257, duplicated edges (exact
+    ties, each taking all of g), weight-0 edges, empty rows and an empty
+    relation, with R = 7 (the dx pass's rel slice in shared memory) and
+    R = 2,000 (rel rows gathered). Within the tolerance plus 8 fp32 ulps of
+    each entry's absolute mass (timing.py::pna_mass, rotate_mass), rows and
+    relations without edges 0, bitwise equal across two calls, one launch
+    counted a call, each half alone equal to the whole."""
+    launches = (rspmm_pna_cuda.launches if kid == "K5"
+                else rspmm_bwd_cuda.launches)
+    for R, where in ((7, "shared"), (2000, "gathered")):
+        seed = F + R
+        args = (_k5_hub_args(spec, mode, F, R, seed, cuda_device)
+                if kid == "K5"
+                else _k8b_hub_args(spec, F, R, seed, cuda_device))
+        plain, masses, atols = _k5_k8b_want(kid, args)
+        if kid == "K5":
+            csr = args[1]
+            plan = rspmm_pna_cuda.pna_bwd_plan("argext", csr, F, mode)
+        else:
+            csr = args[0]
+            plan = rspmm_bwd_cuda.k8b_plan(csr, F, spec)
+        assert plan["dx"]["rel"] == where, plan
+        before = launches[kid]
+        dx, dr = _k5_k8b_call(kid, args)
+        dx2, dr2 = _k5_k8b_call(kid, args)
+        torch.cuda.synchronize()
+        assert launches[kid] == before + 2
+        assert torch.equal(dx, dx2) and torch.equal(dr, dr2)
+        for got, want, mass, atol in zip((dx, dr), plain, masses, atols):
+            timing.assert_mass_close(got, want, mass, K2_TOL["rtol"], atol,
+                                     f"{kid} {spec} {mode} R={R}")
+        no_src = (csr.src_rowptr[1:] == csr.src_rowptr[:-1]).nonzero()
+        assert torch.all(dx[no_src] == 0) and torch.all(dr[R - 1] == 0)
+        assert torch.equal(_k5_k8b_call(kid, args, need_dr=False)[0], dx)
+        assert torch.equal(_k5_k8b_call(kid, args, need_dx=False)[1], dr)
+
+
+def test_k5_k8b_run_on_every_card():
+    """K5 (both modes, max and min) and K8b on each card in turn (the dx
+    pass's rel slice above 48 KB of shared memory) against their plain
+    versions: the raised shared-memory limit and the SM count are kept per
+    device."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs: the per-device launch state")
+    F, R = 64, 237  # a rel slice of 237 x 64 x 4 = 61 KB
+    cases = [("K5", _k5_hub_args(agg, mode, F, R, R, "cpu"))
+             for agg, mode in (("max", "mul_rel"), ("min", "add_rel"))]
+    cases.append(("K8b", _k8b_hub_args(32, F, R, R, "cpu")))
+    for kid, args in cases:
+        plain, masses, atols = _k5_k8b_want(kid, args)
+        for index in range(torch.cuda.device_count()):
+            device = torch.device("cuda", index)
+            moved = [a.to(device) if hasattr(a, "to") else a for a in args]
+            if kid == "K5":  # the planes
+                moved[5] = tuple(p.to(device) for p in args[5])
+            got = _k5_k8b_call(kid, moved)
+            for a, b, mass, atol in zip(got, plain, masses, atols):
+                timing.assert_mass_close(a.cpu(), b, mass, K2_TOL["rtol"],
+                                         atol, f"{kid} {device}")
 
 
 @pytest.mark.parametrize("msg", ["mul", "add"])

@@ -46,15 +46,16 @@
 // row of every edge is 4.06 GB at that shape), so where those gathers are
 // served (the 50 MB L2 or the memory) and how many it makes set its time.
 //
-// K6b and K7b run K2's staged design (rspmm_staged.cuh, the
-// layouts data/graph.py's Csr.src_seg_* / src_long_* and tile_*) with
-// their own per-edge body:
+// K6b, K7b and K5 run K2's staged design (rspmm_staged.cuh, the layouts
+// data/graph.py's Csr.src_seg_* / src_long_* and tile_*), the same two
+// passes with their own planes and per-edge body (a kind):
 //  * dx pass over the source rows' 256-edge segments (long rows through
 //    partial rows that long_row_sums adds in segment order), slice-major in
 //    64-feature slices, one 16-thread stream a segment, the rel slice in
 //    shared memory (121 KB at R = 474; rel rows gathered above R = 906). A
 //    segment has one source row, so its x slice sits in registers and each
-//    edge gathers only its destination's plane slices;
+//    edge gathers only its destination's plane slices (K5: g and out, as
+//    K7b's g_s and g_sq, with K6b's gate on one extremum);
 //  * dr pass over the (destination tile, relation) chunks, one warp a
 //    chunk, the chunk's rel slice in registers; each edge gathers x[s] and
 //    the planes at its destination, which are sorted, so one warp's loads
@@ -66,7 +67,8 @@
 //    four edges' planes (16 floats each for K6b) are in flight a stream
 //    without spills, the dr pass 1,024-thread CTAs (at 1,024 threads the
 //    dx pass spilled and took 3.06 ms against 2.54 at the classic NBFNet
-//    training shape on an NVIDIA H100, PERF.md §6).
+//    training shape on an NVIDIA H100, PERF.md §6). K5, with K7b's two
+//    planes, takes the same split.
 //    Loading K6b's extrema first and g_mx or g_mn only where a gate passes
 //    (89 % of those loads skip on the uniform training KG) was timed and
 //    dropped: its dependent second round of loads cost more than the bytes
@@ -76,34 +78,26 @@
 // bitwise-equal dx and dr. One call makes up to six launches: the weights
 // of each pass, the dx segments, the long rows' sums, the dr chunks, the
 // relation sums (a half whose output pointer is null is skipped).
-//
-// K5 keeps the first design's two passes (dx_rows, dr_chunks below): one
-// CTA per source row and 256-thread feature tile over full-width rows, and
-// relation chunks of up to 256 edges in original order, each edge's weight
-// through eid.
-
-#include <type_traits>
 
 #include "rspmm_staged.cuh"
 
 namespace {
 
 using rspmm::kAddRel;
-using rspmm::kMaxThreads;
 using rspmm::kMulRel;
 using rspmm::Lanes;
 using rspmm::load_lanes;
 using rspmm::message;
-using rspmm::relation_sums;
 using rspmm::store_lanes;
 namespace staged = rspmm::staged;
 
-// the kinds of rspmm_pna_bwd (K5 is rspmm_argext_bwd)
+// the kinds of rspmm_pna_bwd
 constexpr int kArgextPair = 0;  // K6b: planes g_mx, mx, g_mn, mn
 constexpr int kMoments = 1;     // K7b: planes g_s, g_sq
+constexpr int kArgext = 2;      // K5: planes g, out
 
 // ---------------------------------------------------------------------------
-// K6b and K7b
+// K6b, K7b and K5
 // ---------------------------------------------------------------------------
 
 // threads a CTA of the dx pass (pna_rows: 512, of 128 registers, so that
@@ -117,7 +111,7 @@ __host__ __device__ constexpr int pow2_floor(int n) {
   return n >= 2 ? 2 * pow2_floor(n / 2) : 1;
 }
 
-// the plane rows an edge holds: K6b four, K7b two
+// the plane rows an edge holds: K6b four, K7b and K5 two
 template <int KIND>
 __host__ __device__ constexpr int num_planes() {
   return KIND == kArgextPair ? 4 : 2;
@@ -133,7 +127,7 @@ __host__ __device__ constexpr int edges_in_flight(int threads, int extra) {
 }
 
 // an edge's plane slices at its destination: K6b p0..p3 = g_mx, mx, g_mn,
-// mn; K7b p0, p1 = g_s, g_sq
+// mn; K7b p0, p1 = g_s, g_sq; K5 p0, p1 = g, out
 template <int W>
 struct Planes {
   Lanes<W> p0, p1, p2, p3;
@@ -154,8 +148,8 @@ __device__ __forceinline__ void load_planes(Planes<W>& q,
 }
 
 // acc += rel * c (the dx pass, DX) or x * c (the dr pass), or c for
-// add_rel, lane by lane, with c as the header says; K6b's gates recompute
-// K6's message bit for bit
+// add_rel, lane by lane, with c as the header says; K6b's and K5's gates
+// recompute K6's and K4's message bit for bit
 template <int KIND, int MODE, bool DX, int W>
 __device__ __forceinline__ void accumulate_edge(float (&acc)[W],
                                                 const Lanes<W>& r,
@@ -169,6 +163,9 @@ __device__ __forceinline__ void accumulate_edge(float (&acc)[W],
       const float c_mx = m == q.p1.v[k] ? q.p0.v[k] * w : 0.f;
       const float c_mn = m == q.p3.v[k] ? q.p2.v[k] * w : 0.f;
       c = c_mx + c_mn;
+    } else if constexpr (KIND == kArgext) {
+      const float m = message<MODE>(r.v[k], xv.v[k]) * w;
+      c = m == q.p1.v[k] ? q.p0.v[k] * w : 0.f;
     } else {
       const float m = r.v[k] * xv.v[k];
       c = q.p0.v[k] * w + (2.f * m) * (q.p1.v[k] * w);
@@ -593,153 +590,18 @@ cudaError_t launch_pna(bool vec, const PnaArgs& a, cudaStream_t s) {
   return err;
 }
 
-// ---------------------------------------------------------------------------
-// K5: the first design's passes
-// ---------------------------------------------------------------------------
-
-// the planes g, out of one destination row, W lanes each
-template <int W>
-struct ArgextPlanes {
-  Lanes<W> g, out;
-
-  __device__ __forceinline__ ArgextPlanes(const float* q0, const float* q1,
-                                          int64_t off) {
-    g = load_lanes<W>(q0 + off);
-    out = load_lanes<W>(q1 + off);
-  }
-};
-
-// K5's coefficient c of one edge in lane k (see the header comment)
-template <int MODE, int W>
-__device__ __forceinline__ float argext_coefficient(float r, float xv,
-                                                    float w,
-                                                    const ArgextPlanes<W>& q,
-                                                    int k) {
-  const float m = message<MODE>(r, xv) * w;  // K4's message, bit for bit
-  return m == q.out.v[k] ? q.g.v[k] * w : 0.f;
-}
-
-// dx[s] = sum over the out-edges of s of rel[r] * c (c for add_rel)
-template <int MODE, int W>
-__global__ void __launch_bounds__(kMaxThreads)
-dx_rows(const int* __restrict__ src_rowptr, const int* __restrict__ src_dst,
-        const int* __restrict__ src_etype, const int* __restrict__ src_eid,
-        const float* __restrict__ weight, const float* __restrict__ rel,
-        const float* __restrict__ x, const float* __restrict__ q0,
-        const float* __restrict__ q1, float* __restrict__ dx, int n) {
-  const int s = blockIdx.x;
-  const int j = blockIdx.y * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  const int64_t width = static_cast<int64_t>(n) * W;
-  const int64_t lane = static_cast<int64_t>(j) * W;
-  const int begin = __ldg(src_rowptr + s);
-  const int end = __ldg(src_rowptr + s + 1);
-  const Lanes<W> xv = load_lanes<W>(x + s * width + lane);
-  float acc[W];
-#pragma unroll
-  for (int k = 0; k < W; ++k) acc[k] = 0.f;
-#pragma unroll 2
-  for (int e = begin; e < end; ++e) {
-    const int64_t d = __ldg(src_dst + e);
-    const int64_t r = __ldg(src_etype + e);
-    const float w = __ldg(weight + __ldg(src_eid + e));
-    const Lanes<W> rv = load_lanes<W>(rel + r * width + lane);
-    const ArgextPlanes<W> q(q0, q1, d * width + lane);
-#pragma unroll
-    for (int k = 0; k < W; ++k) {
-      const float c = argext_coefficient<MODE, W>(rv.v[k], xv.v[k], w, q, k);
-      acc[k] += MODE == kMulRel ? rv.v[k] * c : c;
-    }
-  }
-  store_lanes<W>(dx + s * width + lane, acc);
-}
-
-// partial[c] = sum over the edges of chunk c (one relation) of x[s] * c
-// (c for add_rel)
-template <int MODE, int W>
-__global__ void __launch_bounds__(kMaxThreads)
-dr_chunks(const int* __restrict__ chunk_ptr, const int* __restrict__ chunk_rel,
-          const int* __restrict__ rel_src, const int* __restrict__ rel_dst,
-          const int* __restrict__ rel_eid, const float* __restrict__ weight,
-          const float* __restrict__ rel, const float* __restrict__ x,
-          const float* __restrict__ q0, const float* __restrict__ q1,
-          float* __restrict__ partial, int n) {
-  const int chunk = blockIdx.x;
-  const int j = blockIdx.y * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  const int64_t width = static_cast<int64_t>(n) * W;
-  const int64_t lane = static_cast<int64_t>(j) * W;
-  const int begin = __ldg(chunk_ptr + chunk);
-  const int end = __ldg(chunk_ptr + chunk + 1);
-  const int64_t r = __ldg(chunk_rel + chunk);
-  const Lanes<W> rv = load_lanes<W>(rel + r * width + lane);
-  float acc[W];
-#pragma unroll
-  for (int k = 0; k < W; ++k) acc[k] = 0.f;
-#pragma unroll 2
-  for (int e = begin; e < end; ++e) {
-    const int64_t s = __ldg(rel_src + e);
-    const int64_t d = __ldg(rel_dst + e);
-    const float w = __ldg(weight + __ldg(rel_eid + e));
-    const Lanes<W> xv = load_lanes<W>(x + s * width + lane);
-    const ArgextPlanes<W> q(q0, q1, d * width + lane);
-#pragma unroll
-    for (int k = 0; k < W; ++k) {
-      const float c = argext_coefficient<MODE, W>(rv.v[k], xv.v[k], w, q, k);
-      acc[k] += MODE == kMulRel ? xv.v[k] * c : c;
-    }
-  }
-  store_lanes<W>(partial + chunk * width + lane, acc);
-}
-
-struct ArgextArgs {
-  const int *src_rowptr, *src_dst, *src_etype, *src_eid;
-  const int *chunk_ptr, *chunk_rel, *rel_chunk_ptr, *rel_src, *rel_dst,
-      *rel_eid;
-  const float *weight, *rel, *x, *q0, *q1;
-  float *dx, *dr, *partial;
-  int num_rows, num_relations, num_chunks, num_features;
-};
-
-template <int MODE, int W>
-int launch_argext(const ArgextArgs& a, cudaStream_t stream) {
-  const int n = a.num_features / W;
-  int threads, tiles;
-  rspmm::feature_tiles(n, &threads, &tiles);
-  if (a.dx != nullptr && a.num_rows > 0) {
-    dx_rows<MODE, W><<<dim3(a.num_rows, tiles), threads, 0, stream>>>(
-        a.src_rowptr, a.src_dst, a.src_etype, a.src_eid, a.weight, a.rel, a.x,
-        a.q0, a.q1, a.dx, n);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (a.dr == nullptr || a.num_relations <= 0) {
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (a.num_chunks > 0) {
-    dr_chunks<MODE, W><<<dim3(a.num_chunks, tiles), threads, 0, stream>>>(
-        a.chunk_ptr, a.chunk_rel, a.rel_src, a.rel_dst, a.rel_eid, a.weight,
-        a.rel, a.x, a.q0, a.q1, a.partial, n);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  using T = typename std::conditional<W == 4, float4, float>::type;
-  relation_sums<T><<<dim3(a.num_relations, tiles), threads, 0, stream>>>(
-      a.rel_chunk_ptr, reinterpret_cast<const T*>(a.partial),
-      reinterpret_cast<T*>(a.dr), n);
-  return static_cast<int>(cudaGetLastError());
-}
-
 bool known(int kind, int mode) {
   return (kind == kMoments && mode == kMulRel) ||
-         (kind == kArgextPair && (mode == kMulRel || mode == kAddRel));
+         ((kind == kArgextPair || kind == kArgext) &&
+          (mode == kMulRel || mode == kAddRel));
 }
 
 }  // namespace
 
-// K6b and K7b. kind: 0 = argext_pair (K6b; planes q0..q3 = g_mx, mx, g_mn,
-// mn), 1 = moments (K7b; q0, q1 = g_s, g_sq; q2, q3 unused). mode: 0 =
-// mul_rel, 1 = add_rel (K6b only). The dx pass reads the source rows'
+// K6b, K7b and K5. kind: 0 = argext_pair (K6b; planes q0..q3 = g_mx, mx,
+// g_mn, mn), 1 = moments (K7b; q0, q1 = g_s, g_sq; q2, q3 unused), 2 =
+// argext (K5; q0, q1 = g, out, the saved max or min; q2, q3 unused). mode:
+// 0 = mul_rel, 1 = add_rel (K6b and K5). The dx pass reads the source rows'
 // segments (seg_ptr, seg_out, long_rows, long_ptr = Csr.src_seg_*,
 // src_long_*) over the source-sorted edges (seg_dst, seg_etype, seg_eid =
 // Csr.src_dst, src_etype, src_eid); dx_partial holds
@@ -785,6 +647,9 @@ extern "C" int rspmm_pna_bwd(
   cudaError_t err;
   if (kind == kMoments) {
     err = launch_pna<kMoments, kMulRel>(vec, a, s);
+  } else if (kind == kArgext) {
+    err = mode == kMulRel ? launch_pna<kArgext, kMulRel>(vec, a, s)
+                          : launch_pna<kArgext, kAddRel>(vec, a, s);
   } else if (mode == kMulRel) {
     err = launch_pna<kArgextPair, kMulRel>(vec, a, s);
   } else {
@@ -793,10 +658,10 @@ extern "C" int rspmm_pna_bwd(
   return static_cast<int>(err);
 }
 
-// How K6b (kind 0) or K7b (kind 1) lays out its passes at this shape,
-// written to out[0..9] as rspmm_k2_plan's: the dx pass's features a slice,
-// 1 when its rel slice sits in shared memory, its bytes, slices, CTAs a
-// slice; then the dr pass's five.
+// How K6b (kind 0), K7b (kind 1) or K5 (kind 2) lays out its passes at
+// this shape, written to out[0..9] as rspmm_k2_plan's: the dx pass's
+// features a slice, 1 when its rel slice sits in shared memory, its bytes,
+// slices, CTAs a slice; then the dr pass's five.
 extern "C" int rspmm_pna_plan(int kind, int mode, int vec, int num_relations,
                               int num_features, int num_rows,
                               int num_segments, int num_chunks, int* out) {
@@ -808,6 +673,16 @@ extern "C" int rspmm_pna_plan(int kind, int mode, int vec, int num_relations,
                                           num_rows, num_segments);
     plans[1] = dr_plan<kMoments, kMulRel>(v, num_features, num_rows,
                                           num_chunks);
+  } else if (kind == kArgext && mode == kMulRel) {
+    plans[0] = dx_plan<kArgext, kMulRel>(v, num_relations, num_features,
+                                         num_rows, num_segments);
+    plans[1] = dr_plan<kArgext, kMulRel>(v, num_features, num_rows,
+                                         num_chunks);
+  } else if (kind == kArgext) {
+    plans[0] = dx_plan<kArgext, kAddRel>(v, num_relations, num_features,
+                                         num_rows, num_segments);
+    plans[1] = dr_plan<kArgext, kAddRel>(v, num_features, num_rows,
+                                         num_chunks);
   } else if (mode == kMulRel) {
     plans[0] = dx_plan<kArgextPair, kMulRel>(v, num_relations, num_features,
                                              num_rows, num_segments);
@@ -827,42 +702,4 @@ extern "C" int rspmm_pna_plan(int kind, int mode, int vec, int num_relations,
     out[5 * i + 4] = plans[i].ctas_per_slice;
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-// K5: mode 0 = mul_rel, 1 = add_rel; planes q0, q1 = g, out. The
-// source-sorted CSR drives the dx pass; the relation-sorted edges cut at
-// chunk_ptr (chunk_rel: each chunk's relation; rel_chunk_ptr: each
-// relation's chunks) drive the dr pass, whose partial holds num_chunks rows
-// of F floats. Null outputs and the return as for rspmm_pna_bwd (an unknown
-// mode returns cudaErrorInvalidValue).
-extern "C" int rspmm_argext_bwd(
-    int mode, const int* src_rowptr, const int* src_dst,
-    const int* src_etype, const int* src_eid, const int* chunk_ptr,
-    const int* chunk_rel, const int* rel_chunk_ptr, const int* rel_src,
-    const int* rel_dst, const int* rel_eid, const float* weight,
-    const float* rel, const float* x, const float* q0, const float* q1,
-    float* dx, float* dr, float* partial, int num_rows, int num_relations,
-    int num_chunks, int num_features, void* stream) {
-  using rspmm::aligned16;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode != kMulRel && mode != kAddRel) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (num_features <= 0) return static_cast<int>(cudaGetLastError());
-  const ArgextArgs a{src_rowptr, src_dst,   src_etype, src_eid,
-                     chunk_ptr,  chunk_rel, rel_chunk_ptr, rel_src,
-                     rel_dst,    rel_eid,   weight,    rel,
-                     x,          q0,        q1,        dx,
-                     dr,         partial,   num_rows,  num_relations,
-                     num_chunks, num_features};
-  const bool vec = num_features % 4 == 0 && aligned16(rel) && aligned16(x) &&
-                   aligned16(q0) && aligned16(q1) &&
-                   (dx == nullptr || aligned16(dx)) &&
-                   (dr == nullptr || (aligned16(dr) && aligned16(partial)));
-  if (mode == kMulRel) {
-    return vec ? launch_argext<kMulRel, 4>(a, s)
-               : launch_argext<kMulRel, 1>(a, s);
-  }
-  return vec ? launch_argext<kAddRel, 4>(a, s)
-             : launch_argext<kAddRel, 1>(a, s);
 }

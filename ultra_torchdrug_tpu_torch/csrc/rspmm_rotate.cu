@@ -28,30 +28,56 @@
 // about 68.5 MB at F = 512 (0.0204 ms at 3.35 TB/s, against 1.27 GFLOP,
 // 0.019 ms at 67 TFLOP/s fp32: bytes-bound) and 250 MB at F = 2048 (0.0746 ms
 // against 0.0758 ms: just flop-bound); K8b at F = 2048 moves 373 MB
-// (0.111 ms) against 10.2 GFLOP (0.152 ms): flop-bound. This design gathers
-// one x and one rel row per edge (K8f), and g and rel (dx pass) and x and g
-// (dr pass) per edge for K8b, so, as for K1 and K2, the gathers that miss the
-// 50 MB L2 are its real limit.
+// (0.111 ms) against 10.2 GFLOP (0.152 ms): flop-bound. A design gathers a
+// row per edge of g (dx pass; rel too where it is not staged) and of x and
+// g (dr pass), so, as for K1 and K2, where those gathers are served (the
+// 50 MB L2 or the memory) is its real limit.
 //
-// What the design does about it: K1's row kernel and K2's two deterministic
-// passes (rspmm_rows.cuh, rspmm_bwd.cu), with one change: a thread owns a
-// complex lane (b, k), k < D/2, reads its real part at b*D + k and its
-// imaginary part at b*D + D/2 + k and writes both. The TPU kernel relays the
-// rows out into planar re/im halves first (_planarize, rspmm_pallas.py:2627);
-// the card indexes the halves in place. Four lanes a thread (float4 loads)
-// when D/2 % 4 == 0 and every row pointer is 16-byte aligned, else one.
-//  * K8f and K8b's dx pass: one CTA per output row and feature tile over a
-//    CSR (destination-sorted for K8f, source-sorted for dx), the sums in
-//    registers, each row written once; no atomics.
-//  * K8b's dr pass: the relation-sorted edges cut into chunks of at most 256
-//    edges that never cross a relation, one CTA per (chunk, feature tile)
-//    summing its chunk into a scratch row, then relation_sums adding each
-//    relation's chunk rows in chunk order. No float atomics: two calls give
-//    bitwise-equal dx and dr.
-// One K8b call makes up to three device launches (a half whose output pointer
-// is null is skipped).
+// Lanes: a thread owns W complex positions (b, k), k < D/2, and reads their
+// real parts at b*D + k and their imaginary parts at b*D + D/2 + k, and
+// writes both. The TPU kernel relays the rows out into planar re/im halves
+// first (_planarize, rspmm_pallas.py:2627); the card indexes the halves in
+// place. Four positions a thread (two float4 loads a row) when D/2 % 4 == 0
+// and every row pointer is 16-byte aligned, else one.
+//
+// K8f keeps the first design: one CTA per destination row and feature tile
+// over the destination-sorted CSR, the sum in registers, each row written
+// once.
+//
+// K8b runs K2's staged design (rspmm_staged.cuh; the layouts data/graph.py's
+// Csr.src_seg_* / src_long_* and tile_*) with a complex body, slice-major in
+// slices of kPositions = 32 complex positions (64 floats, K2's slice width):
+// slice i holds positions [32 i, 32 i + 32), whose real parts and
+// imaginary parts lie in separate runs of a row (at D = 32 a slice is two
+// whole blocks, at D = 128 half of one block's real and half of its
+// imaginary parts). One column map, position_offset, serves the rel
+// staging, the gathers and the stores.
+//  * dx pass: the source rows' 256-edge segments (long rows through partial
+//    rows that long_row_sums adds in segment order), one stream of G
+//    threads a segment (8 on the vector path, 32 on the scalar one) in
+//    staged_rows' software pipeline, the rel slice in shared memory (real
+//    parts, then imaginary parts, 64 floats a relation: 121 KB at R = 474;
+//    rel rows gathered above R = 906), so each edge gathers only g's slice;
+//    no x is read;
+//  * dr pass: the (destination tile, relation) chunks, one warp a chunk
+//    (its 32 / G streams take every (32 / G)-th edge, their sums combined by
+//    a fixed butterfly), each edge gathering x's and g's slices, the
+//    chunk's sorted destinations shared by the warp's loads; partial rows
+//    in relation-major slots, added by relation_sums in slot order;
+//  * both passes read each edge's weight from a copy gathered once per
+//    call in their order (gather_weights);
+//  * the dx pass runs 512-thread CTAs of up to 128 registers a thread, so
+//    that eight edges' g lanes (64 floats) are in flight a stream without
+//    spills (at 1,024 threads, four edges', it spilled), the dr pass
+//    1,024-thread CTAs, two edges' x and g lanes in flight.
+// Deterministic: every sum is one stream's or one warp's in a fixed order,
+// then partials in a fixed order; no float atomics, so two calls give
+// bitwise-equal dx and dr. One K8b call makes up to six launches: the
+// weights of each pass, the dx segments, the long rows' sums, the dr
+// chunks, the relation sums (a half whose output pointer is null is
+// skipped).
 
-#include "rspmm_rows.cuh"
+#include "rspmm_staged.cuh"
 
 namespace {
 
@@ -59,6 +85,12 @@ using rspmm::kMaxThreads;
 using rspmm::Lanes;
 using rspmm::load_lanes;
 using rspmm::store_lanes;
+namespace staged = rspmm::staged;
+using staged::kRowInFlight;
+
+// ---------------------------------------------------------------------------
+// complex lanes
+// ---------------------------------------------------------------------------
 
 // The offset of lane j's real parts in a row: lanes run over the B blocks
 // and, within a block, over its D/2 complex positions, W at a time
@@ -90,9 +122,13 @@ __device__ __forceinline__ void cplx_accumulate(float (&re)[W],
   }
 }
 
+// ---------------------------------------------------------------------------
+// K8f
+// ---------------------------------------------------------------------------
+
 // out[v] = sum over e in [rowptr[v], rowptr[v+1]) of
-//          (rel[etype[e]] (x) x[col[e]]) * w[eid[e]]  (conj(rel) with CONJ)
-template <bool CONJ, int W>
+//          (rel[etype[e]] (x) x[col[e]]) * w[eid[e]]
+template <int W>
 __global__ void __launch_bounds__(kMaxThreads)
 rotate_rows(const int* __restrict__ rowptr, const int* __restrict__ col,
             const int* __restrict__ etype, const int* __restrict__ eid,
@@ -114,114 +150,423 @@ rotate_rows(const int* __restrict__ rowptr, const int* __restrict__ col,
         rel + static_cast<int64_t>(__ldg(etype + e)) * num_features;
     const float* s = x + static_cast<int64_t>(__ldg(col + e)) * num_features;
     const float w = __ldg(weight + __ldg(eid + e));
-    cplx_accumulate<CONJ, W>(acc_re, acc_im, load_lanes<W>(r + re),
-                             load_lanes<W>(r + im), load_lanes<W>(s + re),
-                             load_lanes<W>(s + im), w);
+    cplx_accumulate<false, W>(acc_re, acc_im, load_lanes<W>(r + re),
+                              load_lanes<W>(r + im), load_lanes<W>(s + re),
+                              load_lanes<W>(s + im), w);
   }
   float* o = out + static_cast<int64_t>(v) * num_features;
   store_lanes<W>(o + re, acc_re);
   store_lanes<W>(o + im, acc_im);
 }
 
-// partial[c] = sum over e in [chunk_ptr[c], chunk_ptr[c+1]) of
-//              (conj(x[src[e]]) (x) g[dst[e]]) * w[eid[e]]
-template <int W>
-__global__ void __launch_bounds__(kMaxThreads)
-rotate_chunk_partials(const int* __restrict__ chunk_ptr,
-                      const int* __restrict__ src, const int* __restrict__ dst,
-                      const int* __restrict__ eid,
-                      const float* __restrict__ weight,
-                      const float* __restrict__ x, const float* __restrict__ g,
-                      float* __restrict__ partial, int num_features, int dim,
-                      int lanes) {
-  const int c = blockIdx.x;
-  const int j = blockIdx.y * blockDim.x + threadIdx.x;
-  if (j >= lanes) return;
-  const int64_t re = real_offset<W>(j, dim);
-  const int64_t im = re + dim / 2;
-  const int begin = __ldg(chunk_ptr + c);
-  const int end = __ldg(chunk_ptr + c + 1);
-  float acc_re[W] = {};
-  float acc_im[W] = {};
-#pragma unroll 4
-  for (int e = begin; e < end; ++e) {
-    const float* s = x + static_cast<int64_t>(__ldg(src + e)) * num_features;
-    const float* d = g + static_cast<int64_t>(__ldg(dst + e)) * num_features;
-    const float w = __ldg(weight + __ldg(eid + e));
-    cplx_accumulate<true, W>(acc_re, acc_im, load_lanes<W>(s + re),
-                             load_lanes<W>(s + im), load_lanes<W>(d + re),
-                             load_lanes<W>(d + im), w);
-  }
-  float* o = partial + static_cast<int64_t>(c) * num_features;
-  store_lanes<W>(o + re, acc_re);
-  store_lanes<W>(o + im, acc_im);
+// ---------------------------------------------------------------------------
+// K8b
+// ---------------------------------------------------------------------------
+
+// complex positions a slice (64 floats, staged::kSlice), W a thread in a
+// stream of G threads: W = 4, G = 8 on the vector path, W = 1, G = 32 on
+// the scalar one
+constexpr int kPositions = staged::kSlice / 2;
+// threads a CTA of the dx pass (rotate_seg_rows: 512, of up to 128
+// registers, so that eight edges' g lanes are in flight a thread without
+// spills) and of the dr pass (rotate_chunks), timed on the card (PERF.md)
+constexpr int kRowsThreads = 512;
+constexpr int kChunksThreads = 1024;
+
+// 16-byte loads in flight a thread in a CTA of `threads` threads:
+// kRowInFlight at 1,024 threads (64 registers each), twice as many at 512
+__host__ __device__ constexpr int loads_in_flight(int threads) {
+  return kRowInFlight * 1024 / threads;
 }
 
-// the complex lanes of a row and their CTA tiling
-struct Tiling {
-  int lanes, threads, tiles;
+// the offset of complex position p's real part in a row of blocks of
+// 2 * half features (its imaginary part lies half further)
+__device__ __forceinline__ int64_t position_offset(int p, int half) {
+  return static_cast<int64_t>(p / half) * (2 * half) + p % half;
+}
+
+// s_rel[r * 2 * kPositions + c] = rel[r, real part of position p0 + c] and
+// s_rel[r * 2 * kPositions + kPositions + c] = its imaginary part, for the
+// slice's positions below F / 2, every relation, by the CTA's THREADS
+// threads: in groups of W positions, kRowInFlight loads in flight a thread
+template <int W, int G, int THREADS>
+__device__ __forceinline__ void stage_rel(float* s_rel, const float* rel,
+                                          int num_relations, int F, int half,
+                                          int p0) {
+  const int64_t F64 = F;
+  const int n = num_relations * 2 * G;
+  for (int i0 = threadIdx.x; i0 < n; i0 += kRowInFlight * THREADS) {
+    Lanes<W> v[kRowInFlight];
+#pragma unroll
+    for (int u = 0; u < kRowInFlight; ++u) {
+      const int i = i0 + u * THREADS, j = i % (2 * G);
+      const int p = p0 + (j % G) * W;
+      if (i < n && 2 * p < F) {
+        v[u] = load_lanes<W>(rel + (i / (2 * G)) * F64 +
+                             position_offset(p, half) + (j / G) * half);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kRowInFlight; ++u) {
+      const int i = i0 + u * THREADS, j = i % (2 * G);
+      if (i < n && 2 * (p0 + (j % G) * W) < F) {
+        store_lanes<W>(s_rel + (i / (2 * G)) * (2 * kPositions) +
+                           (j / G) * kPositions + (j % G) * W,
+                       v[u].v);
+      }
+    }
+  }
+}
+
+struct RotateRows {
+  const int* seg_ptr;  // [S + 1] the source rows' segments
+  const int* seg_out;  // [S] row (>= 0) or ~partial slot
+  const int* dst;      // [E] each edge's destination, source order
+  const int* etype;    // [E]
+  const float* w;      // [E] each edge's weight, source order
+  const float* rel;    // [R, F]
+  const float* g;      // [V, F]
+  float* out;          // dx [V, F]
+  float* partial;      // [P, F] the long rows' partial rows
+  int num_segments;
+  int num_edges;
+  int num_relations;
+  int num_features;
+  int half;            // D / 2
 };
 
-Tiling tiling(int num_features, int width) {
-  Tiling t;
-  t.lanes = num_features / (2 * width);
-  rspmm::feature_tiles(t.lanes, &t.threads, &t.tiles);
-  return t;
-}
-
-template <bool CONJ>
-int launch_rows(bool vec, const int* rowptr, const int* col, const int* etype,
-                const int* eid, const float* weight, const float* rel,
-                const float* x, float* out, int num_rows, int num_features,
-                int dim, cudaStream_t stream) {
-  const Tiling t = tiling(num_features, vec ? 4 : 1);
-  const dim3 grid(num_rows, t.tiles);
-  if (vec) {
-    rotate_rows<CONJ, 4><<<grid, t.threads, 0, stream>>>(
-        rowptr, col, etype, eid, weight, rel, x, out, num_features, dim,
-        t.lanes);
-  } else {
-    rotate_rows<CONJ, 1><<<grid, t.threads, 0, stream>>>(
-        rowptr, col, etype, eid, weight, rel, x, out, num_features, dim,
-        t.lanes);
+// dx[s, slice] = sum over the out-edges of s of (conj(rel[r]) (x) g[v]) * w
+// over the source rows' segments: staged_rows' pipeline (one stream of G
+// threads a segment, the next iteration's edge metadata and the next
+// segment loaded while an iteration's gathers are in flight)
+template <int W, int G, bool kSharedRel>
+__global__ void __launch_bounds__(kRowsThreads, 1)
+rotate_seg_rows(RotateRows a) {
+  static_assert(W * G == kPositions, "a stream covers a slice");
+  // an edge gathers g's real and imaginary lanes (and rel's, unstaged)
+  constexpr int kIn = loads_in_flight(kRowsThreads) / (kSharedRel ? 2 : 4);
+  static_assert(kIn <= G, "a stream's lanes hold an iteration's edges");
+  extern __shared__ float4 smem[];
+  float* s_rel = reinterpret_cast<float*>(smem);
+  __shared__ int s_range[2];
+  __shared__ int s_next;
+  const int lane = threadIdx.x & 31;
+  const int t = lane % G;  // this thread's place in its stream
+  const int F = a.num_features;
+  const int64_t F64 = F;
+  const int p0 = blockIdx.y * kPositions;  // the slice's first position
+  const bool on = 2 * (p0 + t * W) < F;   // (F / 2) % W == 0 on the vector path
+  const int64_t re = on ? position_offset(p0 + t * W, a.half) : 0;
+  const int64_t im = re + a.half;
+  if constexpr (kSharedRel) {
+    stage_rel<W, G, kRowsThreads>(s_rel, a.rel, a.num_relations, F, a.half,
+                                  p0);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (threadIdx.x == 0) {
+    staged::claim_items(a.seg_ptr, a.num_segments, a.num_edges, s_range);
+    s_next = s_range[0] + kRowsThreads / G;
+  }
+  __syncthreads();
+  const int last = s_range[1];
+  int item = min(s_range[0] + static_cast<int>(threadIdx.x) / G, last);
+  int pos = 0, end = 0;
+  if (item < last) {
+    pos = __ldg(a.seg_ptr + item);
+    end = __ldg(a.seg_ptr + item + 1);
+  }
+  int next = staged::draw_item<G>(&s_next, true, lane, last);
+  int next_begin = 0, next_end = 0;
+  if (next < last) {
+    next_begin = __ldg(a.seg_ptr + next);
+    next_end = __ldg(a.seg_ptr + next + 1);
+  }
+  // lane t < kIn of the stream holds edge pos + t
+  int m_col = 0, m_type = 0;
+  float m_w = 0.f;
+  if (t < kIn && pos + t < end) {
+    m_col = __ldg(a.dst + pos + t);
+    m_type = __ldg(a.etype + pos + t);
+    m_w = __ldg(a.w + pos + t);
+  }
+  float acc_re[W] = {};
+  float acc_im[W] = {};
+  while (__any_sync(0xffffffffu, item < last)) {
+    const int n = item < last ? min(kIn, end - pos) : 0;
+    Lanes<W> gr[kIn], gi[kIn];
+    Lanes<W> rr[kSharedRel ? 1 : kIn], ri[kSharedRel ? 1 : kIn];
+#pragma unroll
+    for (int u = 0; u < kIn; ++u) {
+      const int d = __shfl_sync(0xffffffffu, m_col, u, G);
+      if constexpr (!kSharedRel) {
+        const int r = __shfl_sync(0xffffffffu, m_type, u, G);
+        if (on && u < n) {
+          rr[u] = load_lanes<W>(a.rel + r * F64 + re);
+          ri[u] = load_lanes<W>(a.rel + r * F64 + im);
+        }
+      }
+      if (on && u < n) {
+        gr[u] = load_lanes<W>(a.g + d * F64 + re);
+        gi[u] = load_lanes<W>(a.g + d * F64 + im);
+      }
+    }
+    // where this stream goes next: on in its item, or to the next item,
+    // whose successor is drawn and whose edge range is loaded now
+    const bool done = item < last && pos + kIn >= end;
+    int new_item = item, new_pos = pos + kIn, new_end = end;
+    if (done) {
+      new_item = next;
+      new_pos = next_begin;
+      new_end = next_end;
+    }
+    const int drawn = staged::draw_item<G>(&s_next, done && next < last,
+                                           lane, last);
+    if (done) {
+      next = drawn;
+      if (next < last) {
+        next_begin = __ldg(a.seg_ptr + next);
+        next_end = __ldg(a.seg_ptr + next + 1);
+      }
+    }
+    int c_col = 0, c_type = 0;
+    float c_w = 0.f;
+    if (new_item < last && t < kIn && new_pos + t < new_end) {
+      c_col = __ldg(a.dst + new_pos + t);
+      c_type = __ldg(a.etype + new_pos + t);
+      c_w = __ldg(a.w + new_pos + t);
+    }
+#pragma unroll
+    for (int u = 0; u < kIn; ++u) {
+      const float we = __shfl_sync(0xffffffffu, m_w, u, G);
+      if constexpr (kSharedRel) {
+        // the type is passed on here, not kept in a register
+        const int r = __shfl_sync(0xffffffffu, m_type, u, G);
+        if (on && u < n) {
+          const float* sr = s_rel + r * (2 * kPositions) + t * W;
+          cplx_accumulate<true, W>(acc_re, acc_im,
+                                   staged::load_shared<W>(sr),
+                                   staged::load_shared<W>(sr + kPositions),
+                                   gr[u], gi[u], we);
+        }
+      } else if (on && u < n) {
+        cplx_accumulate<true, W>(acc_re, acc_im, rr[u], ri[u], gr[u], gi[u],
+                                 we);
+      }
+    }
+    if (done) {
+      if (on) {
+        const int d = __ldg(a.seg_out + item);
+        float* o = d >= 0 ? a.out + d * F64 : a.partial + int64_t{~d} * F64;
+        store_lanes<W>(o + re, acc_re);
+        store_lanes<W>(o + im, acc_im);
+      }
+#pragma unroll
+      for (int k = 0; k < W; ++k) acc_re[k] = acc_im[k] = 0.f;
+    }
+    item = new_item;
+    pos = new_pos;
+    end = new_end;
+    m_col = c_col;
+    m_type = c_type;
+    m_w = c_w;
+  }
 }
 
-int launch_dr(bool vec, const int* chunk_ptr, const int* rel_chunk_ptr,
-              const int* rel_src, const int* rel_dst, const int* rel_eid,
-              const float* weight, const float* x, const float* g, float* dr,
-              float* partial, int num_relations, int num_chunks,
-              int num_features, int dim, cudaStream_t stream) {
-  if (num_chunks > 0) {
-    const Tiling t = tiling(num_features, vec ? 4 : 1);
-    const dim3 grid(num_chunks, t.tiles);
-    if (vec) {
-      rotate_chunk_partials<4><<<grid, t.threads, 0, stream>>>(
-          chunk_ptr, rel_src, rel_dst, rel_eid, weight, x, g, partial,
-          num_features, dim, t.lanes);
+struct RotateChunks {
+  const int* chunk_ptr;   // [C + 1] the chunks' edge ranges (tile-major)
+  const int* chunk_slot;  // [C] each chunk's partial row
+  const int* src;         // [E] in tile order
+  const int* dst;         // [E]
+  const float* w;         // [E] each edge's weight, in tile order
+  const float* x;         // [V, F]
+  const float* g;         // [V, F]
+  float* partial;         // [C, F]
+  int num_chunks;
+  int num_edges;
+  int num_features;
+  int half;               // D / 2
+};
+
+// partial[slot_c, slice] = sum over chunk c's edges of
+// (conj(x[s]) (x) g[v]) * w: staged_chunks' warp a chunk (its 32 / G
+// streams take every (32 / G)-th edge of a batch of 32, whose metadata the
+// warp loads with one coalesced load each; the streams' sums combined by a
+// fixed butterfly). The chunk's relation is not needed.
+template <int W, int G>
+__global__ void __launch_bounds__(kChunksThreads, 1)
+rotate_chunks(RotateChunks a) {
+  static_assert(W * G == kPositions, "a stream covers a slice");
+  constexpr int kStreams = 32 / G;
+  // an edge gathers x's and g's real and imaginary lanes
+  constexpr int kIn = loads_in_flight(kChunksThreads) / 4;
+  __shared__ int s_range[2];
+  __shared__ int s_next;
+  const int lane = threadIdx.x & 31;
+  const int stream = lane / G;
+  const int F = a.num_features;
+  const int64_t F64 = F;
+  const int p = blockIdx.y * kPositions + (lane % G) * W;
+  const bool on = 2 * p < F;
+  const int64_t re = on ? position_offset(p, a.half) : 0;
+  const int64_t im = re + a.half;
+  if (threadIdx.x == 0) {
+    staged::claim_items(a.chunk_ptr, a.num_chunks, a.num_edges, s_range);
+    s_next = s_range[0] + kChunksThreads / 32;
+  }
+  __syncthreads();
+  const int last = s_range[1];
+  int item = s_range[0] + static_cast<int>(threadIdx.x >> 5);
+  while (item < last) {
+    const int begin = __ldg(a.chunk_ptr + item);
+    const int end = __ldg(a.chunk_ptr + item + 1);
+    float acc_re[W] = {};
+    float acc_im[W] = {};
+    for (int base = begin; base < end; base += 32) {
+      const int n = min(32, end - base);
+      int m_src = 0, m_dst = 0;
+      float m_w = 0.f;
+      if (lane < n) {
+        m_src = __ldg(a.src + base + lane);
+        m_dst = __ldg(a.dst + base + lane);
+        m_w = __ldg(a.w + base + lane);
+      }
+#pragma unroll
+      for (int u0 = 0; u0 < G; u0 += kIn) {
+        if (u0 * kStreams >= n) break;
+        Lanes<W> xr[kIn], xi[kIn], gr[kIn], gi[kIn];
+#pragma unroll
+        for (int u = 0; u < kIn; ++u) {
+          const int i = (u0 + u) * kStreams + stream;
+          const int s = __shfl_sync(0xffffffffu, m_src, i);
+          const int d = __shfl_sync(0xffffffffu, m_dst, i);
+          if (on && i < n) {
+            xr[u] = load_lanes<W>(a.x + s * F64 + re);
+            xi[u] = load_lanes<W>(a.x + s * F64 + im);
+            gr[u] = load_lanes<W>(a.g + d * F64 + re);
+            gi[u] = load_lanes<W>(a.g + d * F64 + im);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kIn; ++u) {
+          const int i = (u0 + u) * kStreams + stream;
+          const float we = __shfl_sync(0xffffffffu, m_w, i);
+          if (on && i < n) {
+            cplx_accumulate<true, W>(acc_re, acc_im, xr[u], xi[u], gr[u],
+                                     gi[u], we);
+          }
+        }
+      }
+    }
+    // the streams' sums, combined over the lanes G, 2G, ... apart: the same
+    // sum in every lane, in a fixed order
+#pragma unroll
+    for (int off = G; off < 32; off <<= 1) {
+#pragma unroll
+      for (int k = 0; k < W; ++k) {
+        acc_re[k] += __shfl_xor_sync(0xffffffffu, acc_re[k], off);
+        acc_im[k] += __shfl_xor_sync(0xffffffffu, acc_im[k], off);
+      }
+    }
+    if (on && stream == 0) {
+      float* o = a.partial + __ldg(a.chunk_slot + item) * F64;
+      store_lanes<W>(o + re, acc_re);
+      store_lanes<W>(o + im, acc_im);
+    }
+    int next = 0;
+    if (lane == 0) next = atomicAdd(&s_next, 1);
+    item = __shfl_sync(0xffffffffu, next, 0);
+  }
+}
+
+template <int W, int G, bool kSharedRel>
+int rows_resident(size_t smem) {
+  static staged::Occupancy occupancy;
+  return occupancy.resident(rotate_seg_rows<W, G, kSharedRel>, smem,
+                            kRowsThreads);
+}
+
+template <int W, int G>
+int chunks_resident() {
+  static staged::Occupancy occupancy;
+  return occupancy.resident(rotate_chunks<W, G>, 0, kChunksThreads);
+}
+
+// the slices of a row of F features: kPositions complex positions each
+staged::Plan slices(int num_features) {
+  staged::Plan p;
+  p.slice = 2 * kPositions;
+  p.slices = (num_features / 2 + kPositions - 1) / kPositions;
+  p.shared_rel = false;
+  p.smem = 0;
+  return p;
+}
+
+// the dx pass's plan: rel in shared memory where it fits; the CTAs in
+// flight gather g's slices
+staged::Plan dx_plan(bool vec, int num_relations, int num_features,
+                     int num_rows, int num_segments) {
+  staged::Plan p = slices(num_features);
+  const size_t rel_bytes = size_t{4} * p.slice * num_relations;
+  p.shared_rel = rel_bytes <= size_t{staged::kRelSmemBytes};
+  p.smem = p.shared_rel ? rel_bytes : 0;
+  int resident;
+  if (vec) {
+    resident = p.shared_rel ? rows_resident<4, 8, true>(p.smem)
+                            : rows_resident<4, 8, false>(0);
+  } else {
+    resident = p.shared_rel ? rows_resident<1, 32, true>(p.smem)
+                            : rows_resident<1, 32, false>(0);
+  }
+  staged::plan_ctas(&p, resident, num_rows, num_segments, kRowsThreads / 32);
+  return p;
+}
+
+// the dr pass's plan: the CTAs in flight gather x's and g's slices
+staged::Plan dr_plan(bool vec, int num_features, int num_rows,
+                     int num_chunks) {
+  staged::Plan p = slices(num_features);
+  staged::plan_ctas(&p, vec ? chunks_resident<4, 8>() : chunks_resident<1, 32>(),
+                    int64_t{2} * num_rows, num_chunks, kChunksThreads / 32);
+  return p;
+}
+
+cudaError_t launch_dx(bool vec, const staged::Plan& p, const RotateRows& a,
+                      const int* long_rows, const int* long_ptr,
+                      int num_long_rows, cudaStream_t stream) {
+  if (a.num_segments > 0) {
+    const dim3 grid(p.ctas_per_slice, p.slices);
+    if (vec && p.shared_rel) {
+      rotate_seg_rows<4, 8, true><<<grid, kRowsThreads, p.smem, stream>>>(a);
+    } else if (vec) {
+      rotate_seg_rows<4, 8, false><<<grid, kRowsThreads, 0, stream>>>(a);
+    } else if (p.shared_rel) {
+      rotate_seg_rows<1, 32, true><<<grid, kRowsThreads, p.smem, stream>>>(a);
     } else {
-      rotate_chunk_partials<1><<<grid, t.threads, 0, stream>>>(
-          chunk_ptr, rel_src, rel_dst, rel_eid, weight, x, g, partial,
-          num_features, dim, t.lanes);
+      rotate_seg_rows<1, 32, false><<<grid, kRowsThreads, 0, stream>>>(a);
     }
     const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) return err;
   }
-  // the chunk rows are plain rows: summed 4 floats a thread where aligned
-  const int n = vec ? num_features / 4 : num_features;
-  int threads, tiles;
-  rspmm::feature_tiles(n, &threads, &tiles);
-  const dim3 grid(num_relations, tiles);
-  if (vec) {
-    rspmm::relation_sums<float4><<<grid, threads, 0, stream>>>(
-        rel_chunk_ptr, reinterpret_cast<const float4*>(partial),
-        reinterpret_cast<float4*>(dr), n);
-  } else {
-    rspmm::relation_sums<float><<<grid, threads, 0, stream>>>(
-        rel_chunk_ptr, partial, dr, n);
+  // the partial rows are plain rows: summed 4 floats a thread where aligned
+  return staged::launch_long_row_sums(vec, long_rows, long_ptr, num_long_rows,
+                                      a.partial, a.out, a.num_features,
+                                      stream);
+}
+
+cudaError_t launch_dr(bool vec, const staged::Plan& p, const RotateChunks& a,
+                      const int* rel_ptr, int num_relations, float* dr,
+                      cudaStream_t stream) {
+  if (a.num_chunks > 0) {
+    const dim3 grid(p.ctas_per_slice, p.slices);
+    if (vec) {
+      rotate_chunks<4, 8><<<grid, kChunksThreads, 0, stream>>>(a);
+    } else {
+      rotate_chunks<1, 32><<<grid, kChunksThreads, 0, stream>>>(a);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
   }
-  return static_cast<int>(cudaGetLastError());
+  return staged::launch_relation_sums(vec, rel_ptr, num_relations, a.partial,
+                                      dr, a.num_features, stream);
 }
 
 bool valid_dim(int num_features, int dim) {
@@ -247,44 +592,101 @@ extern "C" int rspmm_rotate_fwd(const int* rowptr, const int* src,
   }
   const bool vec = (dim / 2) % 4 == 0 && aligned16(rel) && aligned16(x) &&
                    aligned16(out);
-  return launch_rows<false>(vec, rowptr, src, etype, eid, weight, rel, x, out,
-                            num_rows, num_features, dim,
-                            static_cast<cudaStream_t>(stream));
+  const int width = vec ? 4 : 1;
+  const int lanes = num_features / (2 * width);
+  int threads, tiles;
+  rspmm::feature_tiles(lanes, &threads, &tiles);
+  const dim3 grid(num_rows, tiles);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    rotate_rows<4><<<grid, threads, 0, s>>>(rowptr, src, etype, eid, weight,
+                                            rel, x, out, num_features, dim,
+                                            lanes);
+  } else {
+    rotate_rows<1><<<grid, threads, 0, s>>>(rowptr, src, etype, eid, weight,
+                                            rel, x, out, num_features, dim,
+                                            lanes);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
-// K8b. The source-sorted CSR (src_rowptr / src_dst / src_etype / src_eid)
-// drives the dx pass; the relation-sorted edges (rel_src / rel_dst / rel_eid)
-// cut at chunk_ptr, with rel_chunk_ptr giving each relation's chunks, drive
-// the dr pass. partial holds num_chunks rows of F floats. dx == nullptr skips
-// the dx pass, dr == nullptr the dr pass. Returns the first nonzero
-// cudaGetLastError() code after a launch (0 on success); an invalid dim
-// returns cudaErrorInvalidValue without launching.
+// K8b, on K2's layouts and in rspmm_bwd's argument order, with dim last.
+// The dx pass reads the source rows' segments (seg_ptr, seg_out, long_rows,
+// long_ptr = Csr.src_seg_*, src_long_*) over the source-sorted edges
+// (seg_dst, seg_etype, seg_eid = Csr.src_dst, src_etype, src_eid);
+// dx_partial holds long_ptr[num_long_rows] rows of F floats. The dr pass
+// reads the (destination tile, relation) chunks (chunk_ptr, chunk_slot,
+// chunk_src, chunk_dst, chunk_eid, rel_ptr = Csr.tile_*); dr_partial holds
+// one row of F floats per chunk. w_scratch holds 2 * num_edges floats.
+// dx == nullptr skips the dx pass, dr == nullptr the dr pass. Returns the
+// first nonzero cudaGetLastError() code after a launch (0 on success); an
+// invalid dim returns cudaErrorInvalidValue without launching.
 extern "C" int rspmm_rotate_bwd(
-    const int* src_rowptr, const int* src_dst, const int* src_etype,
-    const int* src_eid, const int* chunk_ptr, const int* rel_chunk_ptr,
-    const int* rel_src, const int* rel_dst, const int* rel_eid,
-    const float* weight, const float* rel, const float* x, const float* g,
-    float* dx, float* dr, float* partial, int num_rows, int num_relations,
-    int num_chunks, int num_features, int dim, void* stream) {
+    const int* seg_ptr, const int* seg_out, const int* seg_dst,
+    const int* seg_etype, const int* seg_eid, const int* long_rows,
+    const int* long_ptr, const int* chunk_ptr, const int* chunk_slot,
+    const int* chunk_src, const int* chunk_dst, const int* chunk_eid,
+    const int* rel_ptr, const float* weight, const float* rel,
+    const float* x, const float* g, float* dx, float* dr, float* w_scratch,
+    float* dx_partial, float* dr_partial, int num_rows, int num_segments,
+    int num_long_rows, int num_chunks, int num_relations, int num_edges,
+    int num_features, int dim, void* stream) {
   using rspmm::aligned16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!valid_dim(num_features, dim)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (num_features <= 0) return static_cast<int>(cudaGetLastError());
-  const bool vec = (dim / 2) % 4 == 0 && aligned16(rel) && aligned16(x) &&
-                   aligned16(g) && (dx == nullptr || aligned16(dx)) &&
-                   (dr == nullptr || (aligned16(dr) && aligned16(partial)));
-  if (dx != nullptr && num_rows > 0) {
-    const int err = launch_rows<true>(vec, src_rowptr, src_dst, src_etype,
-                                      src_eid, weight, rel, g, dx, num_rows,
-                                      num_features, dim, s);
-    if (err != 0) return err;
+  const bool vec =
+      (dim / 2) % 4 == 0 && aligned16(rel) && aligned16(x) && aligned16(g) &&
+      (dx == nullptr ||
+       (aligned16(dx) && (dx_partial == nullptr || aligned16(dx_partial)))) &&
+      (dr == nullptr || (aligned16(dr) && aligned16(dr_partial)));
+  const int half = dim / 2;
+  cudaError_t err = cudaSuccess;
+  if (dx != nullptr && num_segments > 0) {
+    err = staged::launch_gather_weights(seg_eid, weight, w_scratch,
+                                        num_edges, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const RotateRows a{seg_ptr,   seg_out,      seg_dst,      seg_etype,
+                       w_scratch, rel,          g,            dx,
+                       dx_partial, num_segments, num_edges,   num_relations,
+                       num_features, half};
+    const staged::Plan p =
+        dx_plan(vec, num_relations, num_features, num_rows, num_segments);
+    err = launch_dx(vec, p, a, long_rows, long_ptr, num_long_rows, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (dr != nullptr && num_relations > 0) {
-    return launch_dr(vec, chunk_ptr, rel_chunk_ptr, rel_src, rel_dst, rel_eid,
-                     weight, x, g, dr, partial, num_relations, num_chunks,
-                     num_features, dim, s);
+    float* w_tile = w_scratch + num_edges;
+    err = staged::launch_gather_weights(chunk_eid, weight, w_tile, num_edges,
+                                        s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const RotateChunks a{chunk_ptr, chunk_slot, chunk_src,  chunk_dst,
+                         w_tile,    x,          g,          dr_partial,
+                         num_chunks, num_edges, num_features, half};
+    const staged::Plan p = dr_plan(vec, num_features, num_rows, num_chunks);
+    err = launch_dr(vec, p, a, rel_ptr, num_relations, dr, s);
+  }
+  return static_cast<int>(err);
+}
+
+// How K8b lays out its passes at this shape, written to out[0..9] as
+// rspmm_k2_plan's: the dx pass's floats a slice (kPositions complex
+// positions), 1 when its rel slice sits in shared memory, its bytes,
+// slices, CTAs a slice; then the dr pass's five.
+extern "C" int rspmm_rotate_plan(int vec, int num_relations, int num_features,
+                                 int num_rows, int num_segments,
+                                 int num_chunks, int* out) {
+  const staged::Plan plans[2] = {
+      dx_plan(vec != 0, num_relations, num_features, num_rows, num_segments),
+      dr_plan(vec != 0, num_features, num_rows, num_chunks)};
+  for (int i = 0; i < 2; ++i) {
+    out[5 * i] = plans[i].slice;
+    out[5 * i + 1] = plans[i].shared_rel ? 1 : 0;
+    out[5 * i + 2] = static_cast<int>(plans[i].smem);
+    out[5 * i + 3] = plans[i].slices;
+    out[5 * i + 4] = plans[i].ctas_per_slice;
   }
   return static_cast<int>(cudaGetLastError());
 }

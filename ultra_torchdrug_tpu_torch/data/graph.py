@@ -50,18 +50,20 @@ class Csr:
       long_rows [L] — the rows cut into several segments, in order
       long_ptr [L + 1] — row long_rows[l] owns the partial slots
         [long_ptr[l], long_ptr[l+1]), in segment order
-    The backward's layouts (K2), None unless ``prepare_csr(backward=True)``
+    The backward's layouts, None unless ``prepare_csr(backward=True)``
     built them:
-    Source-sorted CSR (the dx pass):
+    Source-sorted CSR (the plain versions; the edge order of the dx
+    passes):
       src_rowptr [V + 1]; src_dst, src_etype, src_eid [E] in source order
     Relation-sorted edges cut into chunks of at most DR_CHUNK_EDGES edges,
-    none of which crosses a relation (the dr pass):
+    none of which crosses a relation (K2h's dr pass):
       rel_src, rel_dst, rel_eid [E] — in relation order (stable)
       chunk_ptr [C + 1] — chunk c is [chunk_ptr[c], chunk_ptr[c+1])
       chunk_rel [C] — the relation of each chunk
       rel_chunk_ptr [R + 1] — relation r owns chunks
         [rel_chunk_ptr[r], rel_chunk_ptr[r+1]) (none when it has no edge)
-    The hub-aware backward layouts (K2 and K3), built with the others:
+    The hub-aware backward layouts (K2, K3, K5, K6b, K7b and K8b), built
+    with the others:
     Source-row segments (their dx passes), over the source-sorted edges,
     as the destination-row segments above:
       src_seg_ptr [S + 1], src_seg_out [S], src_long_rows [L],
@@ -75,8 +77,8 @@ class Csr:
         in one tile; the chunks come tile-major
       tile_chunk_slot [C] — the partial row chunk c writes; the slots are
         relation-major, each relation's chunks in tile order
-      tile_chunk_rel [C] — the relation of chunk c (K6b's and K7b's dr
-        pass reads its rel row)
+      tile_chunk_rel [C] — the relation of chunk c (K6b's, K7b's and K5's
+        dr pass reads its rel row)
       tile_rel_ptr [R + 1] — relation r's slots are [tile_rel_ptr[r],
         tile_rel_ptr[r+1]), summed in that order (none: no edge)
     """

@@ -1,0 +1,96 @@
+"""The compiled kernels of this checkout against another's, on the card's
+machine: builds every ``csrc/*.cu`` of both checkouts (ops/cuda_build.py,
+one nvcc per source, all at once), prints each kernel's registers and
+spilled bytes from nvcc's ``-Xptxas -v`` lines, and compares the two
+checkouts' SASS (``cuobjdump -sass``) kernel by kernel, with instruction
+addresses and the hashes in internal-linkage names left out. A redesign
+that must leave other kernels' code as it was shows it here: every kernel
+that both libraries hold should read "identical".
+
+    python ultra_torchdrug_tpu_torch/diagnostics/build_diff.py \\
+        --parent output/parent --out output/build_diff.txt
+
+It needs nvcc and cuobjdump (under CUDA_HOME, default /usr/local/cuda).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[2]
+
+
+def build(root: Path) -> dict:
+    """Build every kernel source of the checkout at ``root`` in a process
+    of its own (its package, not this one); returns source -> library."""
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "from ultra_torchdrug_tpu_torch.ops import cuda_build as b; "
+            "print('\\n'.join(f'{k} {v}' for k, v in "
+            "b.build(b.sources()).items()))")
+    out = subprocess.run([sys.executable, "-c", code, str(root)],
+                         check=True, capture_output=True, text=True).stdout
+    return dict(line.split(" ", 1) for line in out.splitlines())
+
+
+def resources(log: str) -> list:
+    """(kernel, registers, spilled bytes) from nvcc's ptxas lines."""
+    found = re.finditer(r"Compiling entry function '([^']+)'.*?(\d+) bytes "
+                        r"spill stores.*?Used (\d+) registers", log, re.S)
+    return [(m.group(1), int(m.group(3)), int(m.group(2))) for m in found]
+
+
+def sass(lib: str) -> dict:
+    """Kernel name (hashes as H) -> its SASS instructions."""
+    tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin"
+    out = subprocess.run([str(tool / "cuobjdump"), "-sass", lib], check=True,
+                         capture_output=True, text=True).stdout
+    kernels, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = re.sub(r"[0-9a-f]{8,}", "H", m.group(1))
+            kernels[name] = []
+        elif name and re.match(r"\s+/\*[0-9a-f]{4}\*/", line):
+            kernels[name].append(re.sub(r"/\*[0-9a-f]*\*/", "", line)
+                                 .split(";")[0].strip())
+    return kernels
+
+
+def main(argv=None) -> list:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", required=True,
+                    help="the other checkout (e.g. a git archive of the "
+                         "parent commit)")
+    ap.add_argument("--out", help="also write the report here")
+    args = ap.parse_args(argv)
+    ours, theirs = build(HERE), build(Path(args.parent).resolve())
+    lines = []
+    for name in sorted(ours):
+        log = Path(ours[name]).with_suffix(".so.log").read_text()
+        for kernel, regs, spill in resources(log):
+            lines.append(f"[regs] {name}: {kernel}: {regs} registers, "
+                         f"{spill} bytes spilled")
+        if name not in theirs:
+            lines.append(f"[sass] {name}: only in this checkout")
+            continue
+        new, old = sass(ours[name]), sass(theirs[name])
+        both = [k for k in new if k in old]
+        differ = [k for k in both if new[k] != old[k]]
+        lines.append(f"[sass] {name}: {len(both) - len(differ)} of "
+                     f"{len(both)} kernels in both identical; differ "
+                     f"{differ}; only here {len(set(new) - set(old))}, only "
+                     f"in the other {len(set(old) - set(new))}")
+    print("\n".join(lines))
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text("\n".join(lines) + "\n")
+    return lines
+
+
+if __name__ == "__main__":
+    main()

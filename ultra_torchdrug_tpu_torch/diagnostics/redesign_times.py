@@ -1,8 +1,9 @@
 """Times of K1 (the rspmm forward), K2 (its distmult backward), K3 (the
-transe backward), K6b and K7b (classic NBFNet's PNA backward) and K9 (the
-ring shift) on the card, beside the PyTorch calls that compute the same
-functions where there are such, and the host's set-up seconds of the
-layouts they read, written to JSON.
+transe backward), K6b and K7b (classic NBFNet's PNA backward), K5 (its max
+and min backward), K8b (its rotate backward) and K9 (the ring shift) on the
+card, beside the PyTorch calls that compute the same functions where there
+are such, and the host's set-up seconds of the layouts they read, written
+to JSON.
 
 K1 on chip_smoke.py's uniform KG (below) in mode mul_rel at F = 1,024 and
 4,096 (ULTRA's eval batch and train step) and in mode add_rel at F = 512
@@ -26,7 +27,13 @@ alone, each half beside its bound (timing.py::gather_bound_ms), on both
 KGs below, held first within the backward's tolerance plus 8 fp32 ulps of
 each entry's absolute mass and bitwise across two calls; K6b with the
 share of its gated loads that no feature passes
-(timing.py::gate_skip_share).
+(timing.py::gate_skip_share). K5 (``argext``, modes mul_rel and add_rel,
+its planes K4's own max on post-ReLU x) and K8b (D = 32, rel per query) the
+same way at F = 2,048, K8b held within K2's dx tolerance and K3's dr
+tolerance plus the mass (timing.py::rotate_mass), each half's bound from
+timing.py's GATHER_WORK (K8b's halves K8B_HALVES). The passes' layout is
+read where the tree has one (a tree before K5's staged design has no plan
+for K5).
 
 K3 at F = 2,048 (the classic transe/pna training width, 64 x 32): the
 whole call and each half alone (dx only, dr only), on chip_smoke.py's
@@ -76,9 +83,11 @@ K2_FEAT = 64 * 64
 PNA_FEAT = 64 * 32  # classic NBFNet's training width
 PNA_KINDS = (("K6b", "argext_pair", "mul_rel"),
              ("K6b", "argext_pair", "add_rel"), ("K7b", "moments", "mul_rel"))
+K5_KINDS = (("K5", "argext", "mul_rel"), ("K5", "argext", "add_rel"))
+ROTATE_DIM = 32  # classic NBFNet's: F = 64 queries x 32
 FB = dict(num_nodes=14541, num_edges=310116, num_relations=237)
 RING_SHARDS = 4
-PARTS = ("setup", "k1", "k2", "pna", "k3", "k9")
+PARTS = ("setup", "k1", "k2", "pna", "k5", "k8b", "k3", "k9")
 RING_FEATS = (16 * 64, 64 * 64)  # ULTRA eval batch and train step widths
 
 
@@ -241,6 +250,8 @@ def time_pna(torch, timing, pna, csr, w, kid: str, kind: str, mode: str,
     if kind == "argext_pair":
         mx, mn = pna.pna_fwd_cuda("maxmin", csr, w, rel, x, mode)
         planes = (g[0], mx, g[1], mn)
+    elif kind == "argext":
+        planes = (g[0], *pna.pna_fwd_cuda("max", csr, w, rel, x, mode))
     else:
         planes = tuple(g)
     ops = (csr, w, rel, x, planes, mode)
@@ -267,9 +278,60 @@ def time_pna(torch, timing, pna, csr, w, kid: str, kind: str, mode: str,
     if kind == "argext_pair":
         out["gated_loads_skipped"] = timing.gate_skip_share(csr, w, rel, x,
                                                             planes, mode)
-    if hasattr(pna, "pna_bwd_plan"):
-        out["plan"] = pna.pna_bwd_plan(kind, csr, F)
+    plan = _pna_plan(pna, kind, csr, F, mode)
+    if plan is not None:
+        out["plan"] = plan
     _show(f"{kid} {label} {mode}", out)
+    return out
+
+
+def _pna_plan(pna, kind: str, csr, F: int, mode: str):
+    """The passes' layout where the tree has one, else None: older trees
+    have no ``pna_bwd_plan``, and where K5 runs the first design it raises
+    ValueError for ``argext``."""
+    if not hasattr(pna, "pna_bwd_plan"):
+        return None
+    try:
+        return pna.pna_bwd_plan(kind, csr, F, mode)
+    except ValueError:
+        if kind != "argext":
+            raise
+        return None
+
+
+def time_k8b(torch, timing, bwd, csr, w, label: str) -> dict:
+    V, F = csr.src_rowptr.numel() - 1, PNA_FEAT
+    R = csr.rel_chunk_ptr.numel() - 1
+    gen = torch.Generator(device=w.device).manual_seed(F + 9)
+    rel = torch.randn((R, F), generator=gen, device=w.device)
+    x = torch.randn((V, F), generator=gen, device=w.device)
+    g = torch.randn((V, F), generator=gen, device=w.device)
+    ops = (csr, w, rel, x, g, ROTATE_DIM)
+
+    def run(need_dx=True, need_dr=True):
+        return bwd.rotate_bwd_cuda(*ops, need_dx, need_dr)
+
+    got, got2 = run(), run()
+    if not all(torch.equal(a, b) for a, b in zip(got, got2)):
+        raise AssertionError(f"K8b {label}: two calls differ")
+    del got2
+    want = bwd.rotate_bwd_plain(*ops)
+    masses = timing.rotate_mass(*ops)
+    # dx K2's tolerance, dr K3's (PERF.md), each plus the mass
+    err = max(timing.assert_mass_close(
+        a, b, m, 1e-5, atol, f"K8b {label} {half}")
+        for a, b, m, half, atol in zip(
+            got, want, masses, ("dx", "dr"),
+            (1e-4, max(1e-4, 1e-5 * want[1].abs().max().item()))))
+    del got, want, masses
+    bound_ms, bound_by = timing.gather_bound_ms("K8b", w, rel, x)
+    out = dict(V=V, E=int(csr.src_dst.numel()), R=R, F=F, dim=ROTATE_DIM,
+               max_abs_err=err, ms=timing.cuda_time_ms(run, 20),
+               bound_ms=bound_ms, bound_by=bound_by,
+               **timing.pna_half_times(run, "K8b", w, rel, x))
+    if hasattr(bwd, "k8b_plan"):
+        out["plan"] = bwd.k8b_plan(csr, F, ROTATE_DIM)
+    _show(f"K8b {label}", out)
     return out
 
 
@@ -315,7 +377,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--kernels", nargs="+", default=list(PARTS),
                     choices=PARTS,
                     help="what to time (default: all): the set-up seconds, "
-                         "K1, K2, K6b and K7b, K3, K9")
+                         "K1, K2, K6b and K7b, K5, K8b, K3, K9")
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -373,15 +435,24 @@ def main(argv=None) -> dict:
         result["k2_hub"] = time_k2(torch, timing, bwd, hub_csr, hub_w,
                                    "bench.py's KG")
     torch.cuda.empty_cache()
-    if "pna" in parts:
+    kinds = (PNA_KINDS if "pna" in parts else ()) + (
+        K5_KINDS if "k5" in parts else ())
+    if kinds:
         for key, csr, w in (("uniform", uni_csr, uni_w),
                             ("hub", hub_csr, hub_w)):
-            for kid, kind, mode in PNA_KINDS:
+            for kid, kind, mode in kinds:
                 result.setdefault(f"{kid.lower()}_{key}", []).append(
                     time_pna(torch, timing, pna, csr, w, kid, kind, mode,
                              "uniform KG" if key == "uniform"
                              else "bench.py's KG"))
                 torch.cuda.empty_cache()
+    if "k8b" in parts:
+        for key, csr, w in (("uniform", uni_csr, uni_w),
+                            ("hub", hub_csr, hub_w)):
+            result[f"k8b_{key}"] = time_k8b(
+                torch, timing, bwd, csr, w,
+                "uniform KG" if key == "uniform" else "bench.py's KG")
+            torch.cuda.empty_cache()
     if "k3" in parts:
         result["k3_uniform"] = time_k3(torch, timing, bwd, und.csr.to(device),
                                        weights(und.num_edges, 7),

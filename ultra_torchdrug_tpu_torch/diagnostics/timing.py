@@ -207,12 +207,16 @@ def k2_half_times(k2, operands, iters: int = 20) -> dict:
 # once per node, c = w·(g_s + m·(2·g_sq)): message, product, sum,
 # weighting, dx and dr 2 each; K3: the weighting g·w, shared by the dx and
 # dr sums; K8f: the complex product (3 per real lane), the weight, the sum;
-# K8b: the same for dx and for dr
+# K8b: the same for dx and for dr (its halves share no coefficient:
+# K8B_HALVES)
 GATHER_WORK = {"K4": (1, 1, 1, 0, 3), "K6": (1, 1, 2, 0, 4),
                "K7": (1, 1, 2, 0, 5), "K6b": (5, 1, 1, 1, 10),
                "K5": (3, 1, 1, 1, 8), "K7b": (3, 1, 1, 1, 8),
                "K3": (1, 0, 1, 1, 3), "K8f": (1, 1, 1, 0, 5),
                "K8b": (2, 1, 1, 1, 10)}
+# K8b's halves alone, as GATHER_WORK's rows: dx reads g and rel, dr x and
+# g, each with its own complex product, weight and sum
+K8B_HALVES = {"dx": (1, 1, 1, 0, 5), "dr": (2, 0, 0, 1, 5)}
 
 
 def gather_bound_ms(name: str, w, rel, x, half: str = "") -> tuple:
@@ -221,11 +225,13 @@ def gather_bound_ms(name: str, w, rel, x, half: str = "") -> tuple:
     over the memory rate, against its fp32 operations over the fp32 peak.
     ``half`` "dx" or "dr" bounds a backward kernel's half alone: the same
     inputs (both halves recompute the coefficient), one output, and the
-    other half's product and sum left out."""
+    other half's product and sum left out; K8b's halves as K8B_HALVES."""
     E, V, F = w.numel(), x.shape[0], x.shape[1]
     R = rel.shape[0]
     node_in, rel_in, node_out, rel_out, ops = GATHER_WORK[name]
-    if half == "dx":
+    if half and name == "K8b":
+        node_in, rel_in, node_out, rel_out, ops = K8B_HALVES[half]
+    elif half == "dx":
         rel_out, ops = 0, ops - 2
     elif half == "dr":
         node_out, ops = 0, ops - 2
@@ -234,20 +240,21 @@ def gather_bound_ms(name: str, w, rel, x, half: str = "") -> tuple:
 
 
 def assert_bwd_close(got, want):
-    """A two-pass backward kernel (K3, K5, K6b, K7b) against its plain
-    version: K2's tolerance, with the absolute one widened to 1e-5 of the
-    result's largest entry: a dr row sums a thousand or more terms (K7b's
-    carry x² and reach ~1e2), whose partial sums grow to that size, in
-    another order than the plain version."""
+    """A two-pass backward kernel (K3, K5, K6b, K7b, K8b's dr) against its
+    plain version: K2's tolerance, with the absolute one widened to 1e-5 of
+    the result's largest entry: a dr row sums a thousand or more terms
+    (K7b's carry x² and reach ~1e2), whose partial sums grow to that size,
+    in another order than the plain version."""
     atol = max(1e-4, 1e-5 * want.abs().max().item())
     torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
 
 
 def _pna_coefficients(kind: str, mode: str, rel_e, x_e, w_e, planes_e):
-    """K6b's (``argext_pair``) or K7b's (``moments``) coefficient c of each
-    edge, [n, F], from the edges' rel, x and weight and the planes at their
-    destinations, as ops/rspmm_pna_cuda.py's plain version forms it, and the
-    gates (a list of [n, F] bools; none for moments)."""
+    """K6b's (``argext_pair``), K5's (``argext``) or K7b's (``moments``)
+    coefficient c of each edge, [n, F], from the edges' rel, x and weight
+    and the planes at their destinations, as ops/rspmm_pna_cuda.py's plain
+    version forms it, and the gates (a list of [n, F] bools; none for
+    moments)."""
     w = w_e[:, None]
     if kind == "moments":
         m2 = (rel_e * x_e).mul_(2.0)
@@ -277,9 +284,9 @@ def _pna_chunks(kind: str, csr, w, rel, x, planes, mode: str):
 
 
 def pna_mass(kind: str, csr, w, rel, x, planes, mode: str) -> tuple:
-    """The absolute masses of K6b's or K7b's sums, (dx's, dr's): Σ |rel · c|
-    (|c| for add_rel) into each dx entry and Σ |x · c| (|c|) into each dr
-    entry."""
+    """The absolute masses of K6b's, K5's or K7b's sums, (dx's, dr's):
+    Σ |rel · c| (|c| for add_rel) into each dx entry and Σ |x · c| (|c|)
+    into each dr entry."""
     dx, dr = torch.zeros_like(x), torch.zeros_like(rel)
     for src, etype, rel_e, x_e, c, _ in _pna_chunks(kind, csr, w, rel, x,
                                                     planes, mode):
@@ -287,6 +294,39 @@ def pna_mass(kind: str, csr, w, rel, x, planes, mode: str) -> tuple:
         dx.index_add_(0, src, (rel_e * c if mul else c).abs_())
         dr.index_add_(0, etype, (x_e * c if mul else c).abs_())
     return dx, dr
+
+
+def _conj_product_mass(a, b, dim: int) -> torch.Tensor:
+    """|conj(a) ⊗ b|'s terms, entry by entry ([n, F] rows of blocks of
+    ``dim``): |ar br| + |ai bi| in the real parts, |ar bi| + |ai br| in the
+    imaginary parts."""
+    a, b = (t.abs().unflatten(-1, (-1, dim)) for t in (a, b))
+    h = dim // 2
+    ar, ai, br, bi = a[..., :h], a[..., h:], b[..., :h], b[..., h:]
+    return torch.cat([ar * br + ai * bi, ar * bi + ai * br], -1).flatten(-2)
+
+
+def rotate_mass(csr, w, rel, x, g, dim: int) -> tuple:
+    """The absolute masses of K8b's sums, (dx's, dr's): Σ |w| ·
+    |conj(rel) ⊗ g|'s terms into each dx entry and Σ |w| · |conj(x) ⊗ g|'s
+    into each dr entry (_conj_product_mass)."""
+    src = _csr_rows(csr.src_rowptr)
+    dst, etype = csr.src_dst.long(), csr.src_etype.long()
+    w_e = w.index_select(0, csr.src_eid.long())
+    E, F = dst.numel(), g.shape[1]
+
+    def dx_terms(a, b):
+        return _conj_product_mass(rel.index_select(0, etype[a:b]),
+                                  g.index_select(0, dst[a:b]),
+                                  dim) * w_e[a:b, None]
+
+    def dr_terms(a, b):
+        return _conj_product_mass(x.index_select(0, src[a:b]),
+                                  g.index_select(0, dst[a:b]),
+                                  dim) * w_e[a:b, None]
+
+    return (_abs_sums(src, x.shape[0], F, dx_terms, E),
+            _abs_sums(etype, rel.shape[0], F, dr_terms, E))
 
 
 def gate_skip_share(csr, w, rel, x, planes, mode: str, lanes: int = 4):
@@ -307,9 +347,9 @@ def gate_skip_share(csr, w, rel, x, planes, mode: str, lanes: int = 4):
 
 
 def pna_half_times(run, kid: str, w, rel, x, iters: int = 20) -> dict:
-    """K6b's or K7b's halves each alone, ``run(need_dx, need_dr)``, and
-    each half's bound (gather_bound_ms). Keys ms_dx, ms_dr, bound_ms_dx,
-    bound_ms_dr."""
+    """A two-pass backward kernel's halves each alone (K6b, K7b, K5,
+    K8b), ``run(need_dx, need_dr)``, and each half's bound
+    (gather_bound_ms). Keys ms_dx, ms_dr, bound_ms_dx, bound_ms_dr."""
     return dict(
         ms_dx=cuda_time_ms(lambda: run(True, False), iters),
         ms_dr=cuda_time_ms(lambda: run(False, True), iters),

@@ -32,11 +32,13 @@ complex product over blocks of ``dim`` features (ops/rspmm_cuda.py):
     dx[s] = Σ_{e=(s→v, r)} (conj(rel[r]) ⊗ g[v]) · w[eid_e]
     dr[r] = Σ_{e with type r} (conj(x[s_e]) ⊗ g[v_e]) · w[eid_e]
 
-over the graph's layouts from data/graph.py::Graph.prepare_csr: K2 and K3
-read the source-sorted CSR cut into segments of at most 256 edges (dx) and
-the (destination tile, relation) chunks (dr), the Csr's src_seg_*,
-src_long_* and tile_* fields; K2h and K8b read the source-sorted CSR
-(dx) and the relation-sorted chunks (dr). Operands are flat: x, g [V, F],
+over the graph's layouts from data/graph.py::Graph.prepare_csr: K2, K3
+and K8b read the source-sorted CSR cut into segments of at most 256 edges
+(dx) and the (destination tile, relation) chunks (dr), the Csr's src_seg_*,
+src_long_* and tile_* fields; K2h reads the source-sorted CSR (dx) and the
+relation-sorted chunks (dr). K8b's slices are 32 complex positions whose
+real and imaginary parts lie apart in a row (csrc/rspmm_rotate.cu);
+``k8b_plan`` reports how a shape is laid out. Operands are flat: x, g [V, F],
 relation [R, F], edge_weight [E] in original edge order, all float32.
 
 ``rspmm_bwd_cuda`` (K2, K3), ``rspmm_bwd_bf16_cuda`` (K2h) and
@@ -79,10 +81,10 @@ def _require_backward_layouts(csr):
                          "Graph.prepare_csr(backward=True)")
 
 
-# the first backward design's layouts (K2h, K8b), in its argument order
+# the first backward design's layouts (K2h), in its argument order
 _LAYOUT = ("src_rowptr", "src_dst", "src_etype", "src_eid", "chunk_ptr",
            "rel_chunk_ptr", "rel_src", "rel_dst", "rel_eid")
-# K2's layouts, in its argument order
+# K2's layouts, in its argument order (K8b's too)
 _K2_LAYOUT = ("src_seg_ptr", "src_seg_out", "src_dst", "src_etype", "src_eid",
               "src_long_rows", "src_long_ptr", "tile_chunk_ptr",
               "tile_chunk_slot", "tile_src", "tile_dst", "tile_eid",
@@ -224,7 +226,7 @@ def _segment_counts(kernel: str, csr, num_rows: int,
                     num_relations: int) -> tuple:
     """(segments, long rows, dr chunks, partial rows of the long rows) of
     the source-row segments and (destination tile, relation) chunks that K2,
-    K3, K6b and K7b read, after checking that they match."""
+    K3, K5, K6b, K7b and K8b read, after checking that they match."""
     num_segments = csr.src_seg_ptr.numel() - 1
     num_long_rows = csr.src_long_rows.numel()
     num_chunks = csr.tile_chunk_ptr.numel() - 1
@@ -399,24 +401,32 @@ def rotate_bwd_plain(csr, edge_weight, relation, x, grad, dim: int,
 
 def rotate_bwd_cuda(csr, edge_weight, relation, x, grad, dim: int,
                     need_dx=True, need_dr=True):
-    """K8b on CUDA tensors (rows of blocks ``dim`` wide); the plain version
-    on CPU tensors. Returns (dx, dr), None for a half that is not needed."""
+    """K8b on CUDA tensors (rows of blocks ``dim`` wide) over K2's layouts;
+    the plain version on CPU tensors. Returns (dx, dr), None for a half
+    that is not needed."""
     if grad.device.type == "cpu":
         return rotate_bwd_plain(csr, edge_weight, relation, x, grad, dim,
                                 need_dx, need_dr)
-    device = grad.device
-    num_rows, num_relations, num_chunks, num_features = check_bwd_operands(
-        "K8b", csr, _LAYOUT, edge_weight, relation, x, {"grad": grad})
+    num_rows, num_relations, _, num_features = check_bwd_operands(
+        "K8b", csr, _K2_LAYOUT, edge_weight, relation, x, {"grad": grad})
     check_rotate_dim(num_features, dim)
-    dx, dr, partial = bwd_outputs(grad, num_relations, num_chunks, need_dx,
-                                  need_dr)
+    num_segments, num_long_rows, num_chunks, num_long_segments = (
+        _segment_counts("K8b", csr, num_rows, num_relations))
+    dx, dr, dr_partial = bwd_outputs(grad, num_relations, num_chunks,
+                                     need_dx, need_dr)
+    dx_partial = (grad.new_empty((num_long_segments, num_features))
+                  if need_dx and num_long_segments else None)
+    num_edges = csr.src_dst.numel()
+    w_scratch = grad.new_empty((2 * num_edges,))
     fn = _rotate_kernel()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*(getattr(csr, n).data_ptr() for n in _LAYOUT),
+    with torch.cuda.device(grad.device):
+        stream = torch.cuda.current_stream(grad.device).cuda_stream
+        err = fn(*(getattr(csr, n).data_ptr() for n in _K2_LAYOUT),
                  edge_weight.data_ptr(), relation.data_ptr(), x.data_ptr(),
-                 grad.data_ptr(), ptr(dx), ptr(dr), ptr(partial), num_rows,
-                 num_relations, num_chunks, num_features, dim, stream)
+                 grad.data_ptr(), ptr(dx), ptr(dr), w_scratch.data_ptr(),
+                 ptr(dx_partial), ptr(dr_partial), num_rows, num_segments,
+                 num_long_rows, num_chunks, num_relations, num_edges,
+                 num_features, dim, stream)
     if err != 0:
         raise RuntimeError(f"K8b (rspmm_rotate_bwd) launch failed with CUDA "
                            f"error {err}")
@@ -424,11 +434,35 @@ def rotate_bwd_cuda(csr, edge_weight, relation, x, grad, dim: int,
     return dx, dr
 
 
+def k8b_plan(csr, num_features: int, dim: int) -> dict:
+    """How K8b lays out its passes over ``csr`` at this width and block
+    width on the card (csrc/rspmm_rotate.cu): {"dx": ..., "dr": ...}, each
+    as ops/rspmm_cuda.py::k1_plan's, a slice 32 complex positions (64
+    floats; the dr pass reads no rel)."""
+    check_rotate_dim(num_features, dim)
+    num_rows = csr.src_rowptr.numel() - 1
+    num_relations = csr.tile_rel_ptr.numel() - 1
+    num_segments, _, num_chunks, _ = _segment_counts("K8b", csr, num_rows,
+                                                     num_relations)
+    vec = (dim // 2) % 4 == 0  # the 16-byte path, operands aligned
+    out = (ctypes.c_int * 10)()
+    fn = load_library("rspmm_rotate").rspmm_rotate_plan
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(int(vec), num_relations, num_features, num_rows, num_segments,
+             num_chunks, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"rspmm_rotate_plan failed with CUDA error {err}")
+    dr = plan_dict(out[5:10])
+    dr["rel"] = "none"
+    return {"dx": plan_dict(out[:5]), "dr": dr}
+
+
 @functools.lru_cache(maxsize=None)
 def _rotate_kernel():
     fn = load_library("rspmm_rotate").rspmm_rotate_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p])
+    fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 

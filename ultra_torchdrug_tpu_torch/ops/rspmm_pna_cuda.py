@@ -42,15 +42,15 @@ launches, see the source); for CPU tensors it runs the plain version. The
 sources say what bounds each kernel on the card and what its design does
 about it. The backward kernels are deterministic: no float atomics.
 
-K6b and K7b read K2's hub-aware layouts
-(ops/rspmm_bwd_cuda.py): the dx pass the source rows cut into 256-edge
-segments (``Csr.src_seg_*``, ``src_long_*``), the rel slice in shared
-memory and each segment's x slice in registers, so that an edge gathers
-only its destination's planes; the dr pass the (destination tile,
-relation) chunks (``Csr.tile_*``, with ``tile_chunk_rel``), one warp a
-chunk; each pass reads the weights from a copy gathered once per call.
-``pna_bwd_plan`` reports how a shape is laid out. K5 keeps the first
-design's passes over the source-sorted CSR and the relation chunks.
+K6b, K7b and K5 read K2's hub-aware layouts (ops/rspmm_bwd_cuda.py), the
+same two passes with their own planes and gates: the dx pass the source
+rows cut into 256-edge segments (``Csr.src_seg_*``, ``src_long_*``), the
+rel slice in shared memory and each segment's x slice in registers, so
+that an edge gathers only its destination's planes; the dr pass the
+(destination tile, relation) chunks (``Csr.tile_*``, with
+``tile_chunk_rel``), one warp a chunk; each pass reads the weights from a
+copy gathered once per call. ``pna_bwd_plan`` reports how a shape is laid
+out.
 """
 
 from __future__ import annotations
@@ -204,15 +204,12 @@ def pna_fwd_cuda(kind: str, csr, edge_weight, relation, x, mode: str):
     return tuple(out)
 
 
-# K6b's and K7b's layouts, in the kernel's argument order: K2's
+# K6b's, K7b's and K5's layouts, in the kernel's argument order: K2's
 # (ops/rspmm_bwd_cuda.py) and each tile chunk's relation
 _BWD_LAYOUT = ("src_seg_ptr", "src_seg_out", "src_dst", "src_etype",
                "src_eid", "src_long_rows", "src_long_ptr", "tile_chunk_ptr",
                "tile_chunk_slot", "tile_chunk_rel", "tile_src", "tile_dst",
                "tile_eid", "tile_rel_ptr")
-# K5's (the first design's), in its kernel's argument order
-_K5_LAYOUT = ("src_rowptr", "src_dst", "src_etype", "src_eid", "chunk_ptr",
-              "chunk_rel", "rel_chunk_ptr", "rel_src", "rel_dst", "rel_eid")
 
 
 def pna_bwd_cuda(kind: str, csr, edge_weight, relation, x, planes,
@@ -225,9 +222,6 @@ def pna_bwd_cuda(kind: str, csr, edge_weight, relation, x, planes,
     if x.device.type == "cpu":
         return pna_bwd_plain(kind, csr, edge_weight, relation, x, planes,
                              mode, need_dx, need_dr)
-    if kind == "argext":
-        return _argext_bwd_cuda(csr, edge_weight, relation, x, planes, mode,
-                                need_dx, need_dr)
     kid = _BWD_ID[kind]
     num_rows, num_relations, _, num_features = check_bwd_operands(
         kid, csr, _BWD_LAYOUT, edge_weight, relation, x,
@@ -259,13 +253,12 @@ def pna_bwd_cuda(kind: str, csr, edge_weight, relation, x, planes,
 
 def pna_bwd_plan(kind: str, csr, num_features: int,
                  mode: str = "mul_rel") -> dict:
-    """How K6b (``argext_pair``) or K7b (``moments``) lays out its passes
-    over ``csr`` at this width on the card (csrc/rspmm_pna_bwd.cu):
-    {"dx": ..., "dr": ...}, each as ops/rspmm_cuda.py::k1_plan's (the dr
-    pass holds its chunk's rel slice in registers)."""
+    """How K6b (``argext_pair``), K7b (``moments``) or K5 (``argext``)
+    lays out its passes over ``csr`` at this width on the card
+    (csrc/rspmm_pna_bwd.cu): {"dx": ..., "dr": ...}, each as
+    ops/rspmm_cuda.py::k1_plan's (the dr pass holds its chunk's rel slice
+    in registers)."""
     _check_kind(kind, mode, BWD_KINDS)
-    if kind == "argext":
-        raise ValueError("K5 (argext) has no staged plan")
     num_rows = csr.src_rowptr.numel() - 1
     num_relations = csr.tile_rel_ptr.numel() - 1
     num_segments, _, num_chunks, _ = _segment_counts(
@@ -285,31 +278,6 @@ def pna_bwd_plan(kind: str, csr, num_features: int,
     return {"dx": plan_dict(out[:5]), "dr": dr}
 
 
-def _argext_bwd_cuda(csr, edge_weight, relation, x, planes, mode, need_dx,
-                     need_dr):
-    """K5 on CUDA tensors, over the first design's layouts (the
-    source-sorted CSR and the relation chunks)."""
-    num_rows, num_relations, num_chunks, num_features = check_bwd_operands(
-        "K5", csr, _K5_LAYOUT, edge_weight, relation, x,
-        {f"plane {i}": p for i, p in enumerate(planes)})
-    dx, dr, partial = bwd_outputs(x, num_relations, num_chunks, need_dx,
-                                  need_dr)
-    fn = _argext_kernel()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(MODES[mode],
-                 *(getattr(csr, n).data_ptr() for n in _K5_LAYOUT),
-                 edge_weight.data_ptr(), relation.data_ptr(), x.data_ptr(),
-                 *(p.data_ptr() for p in planes), ptr(dx), ptr(dr),
-                 ptr(partial), num_rows, num_relations, num_chunks,
-                 num_features, stream)
-    if err != 0:
-        raise RuntimeError(f"K5 (rspmm_argext_bwd) launch failed with CUDA "
-                           f"error {err}")
-    launches["K5"] += 1
-    return dx, dr
-
-
 @functools.lru_cache(maxsize=None)
 def _fwd_kernel():
     fn = load_library("rspmm_pna_fwd").rspmm_pna_fwd
@@ -327,11 +295,3 @@ def _bwd_kernel():
     fn.restype = ctypes.c_int
     return fn
 
-
-@functools.lru_cache(maxsize=None)
-def _argext_kernel():
-    fn = load_library("rspmm_pna_bwd").rspmm_argext_bwd
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 18
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
