@@ -49,20 +49,24 @@ Phases, each of which raises on failure (the script then exits nonzero):
               whole and by half beside its function as two torch.sparse.mm
               calls, on the uniform KG and on bench.py's heavy-tailed KG
               (its busiest source row 107,336 edges); hold K8f and K8b (the
-              rotate forward and backward, csrc/rspmm_rotate.cu; K8b
+              rotate forward and backward, csrc/rspmm_rotate.cu; both
               bitwise across two calls) against their plain versions at
               ragged shapes (D/2 = 3,
-              5 and 6 take the scalar path, 4 and 16 the float4 path), K8b
-              also on hub rows (D = 32, 128 and 6; R = 7 and 2,000) within
-              the mass tolerance and by half, and
+              5 and 6 take the scalar path, 4 and 16 the float4 path), both
+              also on hub rows of 10^3 to 10^5 edges (D = 32, 128 and 6;
+              R = 7 and 2,000; 40 duplicated edges) within the mass
+              tolerance, K8b by half, and
               at F=512 and F=2048 with D=32, shared and per-batch
-              relations, and time each, K8b also by half and on bench.py's
-              KG; hold K1h and K2h (the bf16 operand
+              relations, and time each, K8b also by half, both on
+              bench.py's KG; hold K1h and K2h (the bf16 operand
               mode, csrc/rspmm_fwd.cu and csrc/rspmm_bwd.cu; K2h bitwise
               across two calls) against their plain versions at ragged
               shapes (F not a multiple of 8 takes the scalar path), shared
-              and per-batch relations, and at F=1024 (K1h) and F=4096
-              (both), and time each beside K1 and K2 on the same values;
+              and per-batch relations, K2h also on hub rows of 10^3 to
+              10^5 edges (R = 7 and 2,000; 40 duplicated edges) within the
+              mass tolerance and by half, and at F=1024 (K1h) and F=4096
+              (both), and time each beside K1 and K2 on the same values,
+              K2h also by half and on bench.py's KG;
               hold K9 (the ring shift, csrc/ring_shift.cu) bitwise against
               its plain version at ragged shapes (misaligned blocks and
               byte tails; blocks of whole and of partial CTAs), fp32 and
@@ -198,6 +202,7 @@ try:
         k1_mass,
         k2_half_times,
         k2_mass,
+        k8f_mass,
         k3_half_times,
         k9_times,
         pna_half_times,
@@ -1358,23 +1363,74 @@ def check_k8b_mass(args, label: str) -> float:
     return err
 
 
-def check_k8b_hub(F: int, dim: int, R: int, seed: int, device) -> float:
-    """K8b on ops/rspmm_cuda.py::hub_operands' hub rows at width F, blocks
-    of ``dim``, R relations, held by check_k8b_mass; logs the passes'
+def check_k8b_hub(F: int, dim: int, R: int, seed: int, device,
+                  hub: int = 10000) -> float:
+    """K8b on ops/rspmm_cuda.py::hub_operands' hub rows (source hubs of
+    ``hub`` and 1,000 edges, 40 duplicated edges) at width F, blocks of
+    ``dim``, R relations, held by check_k8b_mass; logs the passes'
     layouts."""
     from ultra_torchdrug_tpu_torch.ops import rspmm_bwd_cuda, rspmm_cuda
 
-    csr, w = rspmm_cuda.hub_operands(seed, device, R=R, duplicated=40)
+    E = max(40000, 2 * hub + 20000)
+    csr, w = rspmm_cuda.hub_operands(seed, device, E=E, R=R, duplicated=40,
+                                     hub=hub)
     V = csr.src_rowptr.numel() - 1
     gen = torch.Generator(device=device).manual_seed(seed + F)
     ops = (csr, w, torch.randn((R, F), generator=gen, device=device),
            torch.randn((V, F), generator=gen, device=device))
-    label = f"hub rows R={R} F={F} D={dim}"
+    label = f"hub rows of {hub} edges R={R} F={F} D={dim}"
     err = check_k8b_mass(k8b_args(ops, dim, seed + 1, device), label)
     plan = rspmm_bwd_cuda.k8b_plan(csr, F, dim)
     log(f"[kernels] K8b {label}: max_abs_err {err:.3g} within the mass "
         f"tolerance, bitwise equal across two calls and by half; dx pass "
         f"{plan_text(plan['dx'])}; dr pass {plan_text(plan['dr'])}")
+    return err
+
+
+def check_k8f_mass(ops, dim: int, label: str) -> float:
+    """K8f on ``ops`` (csr, w, rel, x) with blocks of ``dim`` against its
+    plain version: assert_fwd_close's tolerance plus 8 fp32 ulps of each
+    entry's absolute mass (timing.py::k8f_mass), two calls bitwise equal,
+    rows without in-edges 0. Returns the largest difference."""
+    from ultra_torchdrug_tpu_torch.ops import rspmm_cuda as fwd
+
+    csr, w, rel, x = ops[:4]
+    args = (*k1_operands_of(ops), rel, x)
+    out = fwd.rotate_fwd_cuda(*args, dim, segments=csr.segments)
+    out2 = fwd.rotate_fwd_cuda(*args, dim, segments=csr.segments)
+    torch.cuda.synchronize()
+    if not torch.equal(out, out2):
+        raise AssertionError(f"K8f {label}: two calls differ")
+    del out2
+    want = fwd.rspmm_fwd_plain(*args, "rot_rel", dim)
+    err = assert_mass_close(out, want, k8f_mass(args, dim), 1e-5,
+                            1e-5 * max(1.0, want.abs().max().item()),
+                            f"K8f {label}")
+    no_dst = (csr.rowptr[1:] == csr.rowptr[:-1]).nonzero()
+    if not torch.all(out[no_dst] == 0):
+        raise AssertionError(f"K8f {label}: rows without edges")
+    return err
+
+
+def check_k8f_hub(F: int, dim: int, R: int, seed: int, device,
+                  hub: int = 10000) -> float:
+    """K8f on ops/rspmm_cuda.py::hub_operands' hub rows (destination hubs of
+    ``hub`` and 1,000 edges, 40 duplicated edges) at width F, blocks of
+    ``dim``, R relations, held by check_k8f_mass; logs the layout."""
+    from ultra_torchdrug_tpu_torch.ops import rspmm_cuda
+
+    E = max(40000, 2 * hub + 20000)
+    csr, w = rspmm_cuda.hub_operands(seed, device, E=E, R=R, duplicated=40,
+                                     hub=hub)
+    V = csr.rowptr.numel() - 1
+    gen = torch.Generator(device=device).manual_seed(seed + F)
+    ops = (csr, w, torch.randn((R, F), generator=gen, device=device),
+           torch.randn((V, F), generator=gen, device=device))
+    label = f"hub rows of {hub} edges R={R} F={F} D={dim}"
+    err = check_k8f_mass(ops, dim, label)
+    plan = rspmm_cuda.k8f_plan(R, F, V, csr.seg_ptr.numel() - 1, dim)
+    log(f"[kernels] K8f {label}: max_abs_err {err:.3g} within the mass "
+        f"tolerance, bitwise equal across two calls; {plan_text(plan)}")
     return err
 
 
@@ -1394,14 +1450,29 @@ def k8b_halves(args, label: str) -> dict:
     return out
 
 
-def phase_k8b_hub(device) -> dict:
-    """K8b at F = 64 x 32, D = 32 on bench.py's heavy-tailed KG
-    (bench_kg_operands), held by check_k8b_mass and timed, whole and by
-    half; returns its entry's ``*_hub`` keys."""
+def phase_rotate_hub(device) -> tuple:
+    """K8f and K8b at F = 64 x 32, D = 32 on bench.py's heavy-tailed KG
+    (bench_kg_operands: its busiest destination row 107,150 edges, source
+    row 107,336), held by check_k8f_mass and check_k8b_mass and timed, K8b
+    whole and by half; returns their entries' ``*_hub`` keys."""
     from ultra_torchdrug_tpu_torch.ops import rspmm_bwd_cuda as bwd
+    from ultra_torchdrug_tpu_torch.ops import rspmm_cuda as fwd
 
     F = CLASSIC_TRAIN["batch"] * CLASSIC_FEAT
     ops, label = bench_kg_operands(F + 12, device, relu=False)
+    csr, w, rel, x = ops
+    k8f_err = check_k8f_mass(ops, CLASSIC_FEAT, label)
+    torch.cuda.empty_cache()
+    k8f_ms = cuda_time_ms(lambda: fwd.rotate_fwd_cuda(
+        *k1_operands_of(ops), rel, x, CLASSIC_FEAT, segments=csr.segments),
+        20)
+    k8f_bound, _ = gather_bound_ms("K8f", w, rel, x)
+    plan = fwd.k8f_plan(rel.shape[0], F, x.shape[0],
+                        csr.seg_ptr.numel() - 1, CLASSIC_FEAT)
+    log(f"[kernels] K8f {label}: max_abs_err {k8f_err:.3g} within the mass "
+        f"tolerance, bitwise equal across two calls, {k8f_ms:.4f} ms (bound "
+        f"{k8f_bound:.4f} ms, {k8f_bound / k8f_ms:.1%} of it); "
+        f"{plan_text(plan)}")
     args = k8b_args(ops, CLASSIC_FEAT, F + 13, device)
     err = check_k8b_mass(args, label)
     torch.cuda.empty_cache()
@@ -1412,9 +1483,11 @@ def phase_k8b_hub(device) -> dict:
         f"{bound_ms / ms:.1%} of it)")
     keys = dict(ms=ms, max_abs_err=err, bound_ms=bound_ms,
                 **k8b_halves(args, label))
-    del args, ops
+    del args, ops, csr, w, rel, x
     torch.cuda.empty_cache()
-    return {f"{k}_hub": v for k, v in keys.items()}
+    return (dict(ms_hub=k8f_ms, max_abs_err_hub=k8f_err,
+                 bound_ms_hub=k8f_bound, plan_hub=plan),
+            {f"{k}_hub": v for k, v in keys.items()})
 
 
 def assert_fwd_close(got, want):
@@ -1436,7 +1509,8 @@ def phase_kernels_rotate(und, device) -> dict:
     def k8f(ops, dim):
         csr, w, rel, x, _ = ops
         return (lambda: fwd.rotate_fwd_cuda(csr.rowptr, csr.src, csr.etype,
-                                            csr.eid, w, rel, x, dim),
+                                            csr.eid, w, rel, x, dim,
+                                            segments=csr.segments),
                 lambda: fwd.rspmm_fwd_plain(csr.rowptr, csr.src, csr.etype,
                                             csr.eid, w, rel, x, "rot_rel",
                                             dim))
@@ -1447,11 +1521,14 @@ def phase_kernels_rotate(und, device) -> dict:
 
     def check_fwd(ops, dim, label):
         kernel, plain = k8f(ops, dim)
-        got, want = kernel(), plain()
+        got, again, want = kernel(), kernel(), plain()
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"K8f {label}: two calls differ")
         assert_fwd_close(got, want)
         err = (got - want).abs().max().item()
-        log(f"[kernels] K8f {label}: max_abs_err {err:.3g}")
+        log(f"[kernels] K8f {label}: max_abs_err {err:.3g}, bitwise equal "
+            "across two calls")
         return got, err
 
     def check_bwd(ops, dim, label):
@@ -1482,15 +1559,19 @@ def phase_kernels_rotate(und, device) -> dict:
         if not (torch.all(out[V - 5:] == 0) and torch.all(dx[V - 5:] == 0)
                 and torch.all(dr[R - 1] == 0)):
             raise AssertionError("K8f/K8b wrote nonzero rows without edges")
-    # K8b on hub rows (10^3, 10^4, 256 and 257 edges both ways) with the dx
-    # pass's rel slice in shared memory (R = 7) and R = 2,000, whose rel
-    # rows it gathers: D = 32 (a slice two blocks), 128 (half a block's
-    # real and imaginary parts), 6 (the scalar path; slices across blocks)
+    # K8f and K8b on hub rows (10^3, 10^4, 256 and 257 edges both ways, 40
+    # duplicated edges) with the rel slice in shared memory (R = 7) and
+    # R = 2,000, whose rel rows they gather: D = 32 (a slice two blocks),
+    # 128 (half a block's real and imaginary parts), 6 (the scalar path;
+    # slices across blocks); then hubs of 10^5 edges
     for seed, R, cases in ((34, 7, ((64, 32), (2048, 32), (1024, 128),
                                     (66, 6))),
                            (35, 2000, ((128, 32), (1026, 6)))):
         for F, dim in cases:
+            check_k8f_hub(F, dim, R, seed, device)
             check_k8b_hub(F, dim, R, seed, device)
+    check_k8f_hub(64, 32, 7, 36, device, hub=100000)
+    check_k8b_hub(64, 32, 7, 36, device, hub=100000)
 
     # (b) the main path's shapes on the FB-sized graph, D = 32: F = 16 x 32
     # (eval) for K8f, F = 64 x 32 (training) for both; per-batch relations
@@ -1512,6 +1593,10 @@ def phase_kernels_rotate(und, device) -> dict:
             if shared:
                 continue
             timed = [("K8f", err_f, *k8f(ops, CLASSIC_FEAT))]
+            plan = fwd.k8f_plan(und.num_relations, B * CLASSIC_FEAT,
+                                und.num_nodes,
+                                ops[0].seg_ptr.numel() - 1, CLASSIC_FEAT)
+            log(f"[kernels] K8f {label}: {plan_text(plan)}")
             if which == "train":
                 timed.append(("K8b", err_b, *k8b(ops, CLASSIC_FEAT)))
             for kid, err, kernel, plain in timed:
@@ -1539,7 +1624,9 @@ def phase_kernels_rotate(und, device) -> dict:
                     launches=None, library_ms=None, **keys)
             del ops, timed
             torch.cuda.empty_cache()
-    entries["K8b"].update(phase_k8b_hub(device))
+    k8f_hub, k8b_hub = phase_rotate_hub(device)
+    entries["K8f"].update(k8f_hub)
+    entries["K8b"].update(k8b_hub)
     log('[kernels] kernels ["K8f", "K8b"]')
     return entries
 
@@ -1553,6 +1640,114 @@ def bf16_operands(graph, batch: int, dim: int, shared: bool, seed: int,
     csr, w, rel, x, g = rotate_operands(graph, batch, dim, shared, seed,
                                         device)
     return (csr, w, *(t.to(torch.bfloat16) for t in (rel, x, g)))
+
+
+def check_k2h_mass(args, label: str) -> float:
+    """K2h on ``args`` (csr, w and bf16 rel, x, g) against its plain version:
+    dx within K2's tolerance, dr within K3's (1e-5 of its largest entry
+    where that is more), each plus 8 fp32 ulps of each entry's absolute
+    mass (timing.py::k2_mass on the widened values), two calls bitwise
+    equal, each half alone equal to the whole, rows and relations without
+    edges 0. Returns the largest difference."""
+    from ultra_torchdrug_tpu_torch.ops import rspmm_bwd_cuda as bwd
+
+    dx, dr = bwd.rspmm_bwd_bf16_cuda(*args)
+    dx2, dr2 = bwd.rspmm_bwd_bf16_cuda(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(dx, dx2) and torch.equal(dr, dr2)):
+        raise AssertionError(f"K2h {label}: two calls differ")
+    del dx2, dr2
+    csr, w = args[:2]
+    want = bwd.rspmm_bwd_bf16_plain(*args)
+    masses = k2_mass(csr, w, *(t.float() for t in args[2:]))
+    err = max(assert_mass_close(got, want_half, mass, 1e-5, atol,
+                                f"K2h {label}")
+              for got, want_half, mass, atol in zip(
+                  (dx, dr), want, masses,
+                  (1e-4, max(1e-4, 1e-5 * want[1].abs().max().item()))))
+    del want, masses
+    no_src = (csr.src_rowptr[1:] == csr.src_rowptr[:-1]).nonzero()
+    no_rel = (csr.tile_rel_ptr[1:] == csr.tile_rel_ptr[:-1]).nonzero()
+    if not (torch.all(dx[no_src] == 0) and torch.all(dr[no_rel] == 0)):
+        raise AssertionError(f"K2h {label}: rows without edges")
+    if not (torch.equal(bwd.rspmm_bwd_bf16_cuda(*args, need_dr=False)[0], dx)
+            and torch.equal(bwd.rspmm_bwd_bf16_cuda(*args,
+                                                    need_dx=False)[1], dr)):
+        raise AssertionError(f"K2h {label}: a half alone differs")
+    return err
+
+
+def check_k2h_hub(F: int, R: int, seed: int, device,
+                  hub: int = 10000) -> float:
+    """K2h on ops/rspmm_cuda.py::hub_operands' hub rows (hubs of ``hub``
+    and 1,000 edges both ways, 40 duplicated edges) at width F, R
+    relations, N(0, 1) operands in bf16, held by check_k2h_mass; logs the
+    passes' layouts."""
+    from ultra_torchdrug_tpu_torch.ops import rspmm_bwd_cuda, rspmm_cuda
+
+    E = max(40000, 2 * hub + 20000)
+    csr, w = rspmm_cuda.hub_operands(seed, device, E=E, R=R, duplicated=40,
+                                     hub=hub)
+    V = csr.src_rowptr.numel() - 1
+    gen = torch.Generator(device=device).manual_seed(seed + F)
+    args = (csr, w, *(torch.randn(s, generator=gen, device=device).bfloat16()
+                      for s in ((R, F), (V, F), (V, F))))
+    label = f"hub rows of {hub} edges R={R} F={F}"
+    err = check_k2h_mass(args, label)
+    plan = rspmm_bwd_cuda.k2h_plan(csr, F)
+    log(f"[kernels] K2h {label}: max_abs_err {err:.3g} within the mass "
+        f"tolerance, bitwise equal across two calls and by half; dx pass "
+        f"{plan_text(plan['dx'])}; dr pass {plan_text(plan['dr'])}")
+    return err
+
+
+def k2h_halves(ops, label: str) -> dict:
+    """K2h's halves each alone on ``ops`` (csr, w and bf16 rel, x, g) with
+    their bounds and the passes' layouts (key ``plan``)."""
+    from ultra_torchdrug_tpu_torch.ops import rspmm_bwd_cuda as bwd
+
+    out = k2_half_times(lambda need_dx, need_dr: bwd.rspmm_bwd_bf16_cuda(
+        *ops, need_dx, need_dr), ops)
+    out["plan"] = plan = bwd.k2h_plan(ops[0], ops[3].shape[1])
+    log(f"[kernels] K2h {label}: dx half {out['ms_dx']:.4f} ms (bound "
+        f"{out['bound_ms_dx']:.4f}; {plan_text(plan['dx'])}), dr half "
+        f"{out['ms_dr']:.4f} ms (bound {out['bound_ms_dr']:.4f}; "
+        f"{plan_text(plan['dr'])})")
+    return out
+
+
+def phase_k2h_hub(device) -> dict:
+    """K2h at F = 64 x 64 (ULTRA's bf16 training width) on bench.py's
+    heavy-tailed KG (its busiest source row 107,336 edges), held by
+    check_k2h_mass and timed, whole and by half; returns its entry's
+    ``*_hub`` keys."""
+    from ultra_torchdrug_tpu_torch.data.graph import build_csr
+    from ultra_torchdrug_tpu_torch.diagnostics.workloads import build_workload
+    from ultra_torchdrug_tpu_torch.ops import rspmm_bwd_cuda as bwd
+
+    tri, _, _ = build_workload(features=False)
+    V, R, E = 15000, 474, len(tri)
+    csr = build_csr(tri[:, 0], tri[:, 1], tri[:, 2], V, R,
+                    backward=True).to(device)
+    F = TRAIN["batch"] * FEAT
+    gen = torch.Generator(device=device).manual_seed(F + 14)
+    w = torch.rand((E,), generator=gen, device=device) + 0.5
+    w = w * (torch.rand((E,), generator=gen, device=device) >= 0.2)
+    args = (csr, w, *(torch.randn(s, generator=gen, device=device).bfloat16()
+                      for s in ((R, F), (V, F), (V, F))))
+    label = f"bench.py's KG V={V} E={E} R={R} F={F}"
+    err = check_k2h_mass(args, label)
+    torch.cuda.empty_cache()
+    ms = cuda_time_ms(lambda: bwd.rspmm_bwd_bf16_cuda(*args), 20)
+    bound_ms, _ = k2_bound_ms(*args)
+    log(f"[kernels] K2h {label}: max_abs_err {err:.3g} within the mass "
+        f"tolerance, bitwise equal across two calls, {ms:.4f} ms (bound "
+        f"{bound_ms:.4f} ms, {bound_ms / ms:.1%} of it)")
+    keys = dict(ms=ms, max_abs_err=err, bound_ms=bound_ms,
+                **k2h_halves(args, label))
+    del args, csr, w
+    torch.cuda.empty_cache()
+    return {f"{k}_hub": v for k, v in keys.items()}
 
 
 def phase_kernels_bf16(und, device) -> dict:
@@ -1617,6 +1812,15 @@ def phase_kernels_bf16(und, device) -> dict:
         dx, dr, _ = check_bwd_kernel("K2h", *k2h(ops), label)
         if not (torch.all(dx[V - 5:] == 0) and torch.all(dr[R - 1] == 0)):
             raise AssertionError("K2h wrote nonzero rows without edges")
+    # K2h on hub rows (10^3, 10^4, 256 and 257 edges both ways, 40
+    # duplicated edges): F = 10 and 1028 the scalar path, 64 one slice,
+    # 2056 a ragged last slice; R = 2,000, whose rel rows the dx pass
+    # gathers on the 16-byte path; then hubs of 10^5 edges
+    for seed, R, feats in ((16, 7, (10, 64, 1028, 2056)),
+                           (17, 2000, (16, 1032, 132))):
+        for F in feats:
+            check_k2h_hub(F, R, seed, device)
+    check_k2h_hub(64, 7, 18, device, hub=100000)
 
     # (b) the main path's shapes on the FB-sized graph: F = 16 x 64 (eval)
     # for K1h, F = 64 x 64 (training) for both; ULTRA's injected relations
@@ -1663,6 +1867,8 @@ def phase_kernels_bf16(und, device) -> dict:
                     entries[kid].update(
                         {f"{k}_train": v for k, v in keys.items()})
                     continue
+                if kid == "K2h":
+                    keys.update(k2h_halves(ops, label))
                 entries[kid] = dict(
                     name=kid, route="cuda",
                     source=f"{PACKAGE}/csrc/"
@@ -1673,6 +1879,7 @@ def phase_kernels_bf16(und, device) -> dict:
                     launches=None, library_ms=None, **keys)
             del ops, timed
             torch.cuda.empty_cache()
+    entries["K2h"].update(phase_k2h_hub(device))
     log('[kernels] kernels ["K1h", "K2h"]')
     return entries
 

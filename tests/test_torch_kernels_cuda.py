@@ -8,10 +8,10 @@ Run on a machine with the card:
 Tolerance atol = rtol = 1e-5 for K1: the kernel sums each row's edges in CSR
 order, the plain version with index_add_ in another order. K2 uses rtol 1e-5,
 atol 1e-4: its dr rows sum up to a few hundred products of N(0, 1) values.
-On hub rows (10^3 and 10^4 edges) K1, K2, K6b, K7b, K5 and K8b add 8 fp32
-ulps of each entry's absolute mass to those (diagnostics/timing.py::
-assert_mass_close): their segments' partial rows sum in another order than
-the plain version.
+On hub rows (10^3 to 10^5 edges) K1, K2, K2h, K6b, K7b, K5, K8f and K8b
+add 8 fp32 ulps of each entry's absolute mass to those (diagnostics/
+timing.py::assert_mass_close): their segments' partial rows sum in another
+order than the plain version.
 K6 and K4 must equal their plain versions exactly (an extremum of the same
 fp32 products); K7 takes K1's tolerance for the same reason. K3, K5 and
 K6b/K7b take K2's, with the absolute tolerance widened to 1e-5 of the
@@ -20,9 +20,9 @@ x² and reach ~1e2), whose partial sums grow to that size, in another order.
 K8f takes K1's with the absolute tolerance 1e-5 of its largest entry (nvcc
 contracts the complex product's a·b − c·d into an FMA); K8b takes K2's for
 dx and K3's for dr. K1h and K2h (the bf16 operand mode) take K1's and
-K2's: the operands round to the same bf16 values on both sides and each
-forward message is rounded from the same exact product, so only the order
-of the fp32 sums differs. K9 (the ring shift) copies bytes: it must equal
+K2's (K2h's dr on hub rows K3's): the operands round to the same bf16
+values on both sides and each forward message is rounded from the same
+exact product, so only the order of the fp32 sums differs. K9 (the ring shift) copies bytes: it must equal
 its plain version bitwise; the ring op on the card (K1 and K2 per bucket,
 K9 between steps) takes K1's and K2's tolerances against the CPU. The K1
 strip-down ladder (P1, P2) holds each variant to
@@ -301,9 +301,10 @@ def test_k1_k2_hub_rows_match_plain(cuda_device, rng, F):
 
 
 def test_k1_k2_run_on_every_card(rng):
-    """K1 (its rel slice above 48 KB of shared memory) and K2 on each card
-    in turn, against their plain versions: the raised shared-memory limit
-    and the SM count are kept per device (csrc/rspmm_staged.cuh)."""
+    """K1 (its rel slice above 48 KB of shared memory), K2, K2h and K8f on
+    each card in turn, against their plain versions: the raised
+    shared-memory limit and the SM count are kept per device and per
+    instantiation (csrc/rspmm_staged.cuh::Occupancy)."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two NVIDIA GPUs: the per-device launch state")
     V, E, R, F = 600, 6000, 237, 64  # a rel slice of 237 x 64 x 4 = 61 KB
@@ -315,6 +316,11 @@ def test_k1_k2_run_on_every_card(rng):
         x, "mul_rel")
     want_dx, want_dr = rspmm_bwd_cuda.rspmm_bwd_plain(
         g.csr, g.edge_weight, rel, x, grad)
+    want_h = rspmm_bwd_cuda.rspmm_bwd_bf16_plain(g.csr, g.edge_weight, rel,
+                                                 x, grad)
+    want_rot = rspmm_cuda.rspmm_fwd_plain(
+        g.csr.rowptr, g.csr.src, g.csr.etype, g.csr.eid, g.edge_weight, rel,
+        x, "rot_rel", 32)
     for index in range(torch.cuda.device_count()):
         device = torch.device("cuda", index)
         gd = g.to(device)
@@ -327,6 +333,14 @@ def test_k1_k2_run_on_every_card(rng):
             c, gd.edge_weight, rel.to(device), x.to(device), grad.to(device))
         torch.testing.assert_close(dx.cpu(), want_dx, **K2_TOL)
         torch.testing.assert_close(dr.cpu(), want_dr, **K2_TOL)
+        got_h = rspmm_bwd_cuda.rspmm_bwd_bf16_cuda(
+            c, gd.edge_weight, rel.to(device), x.to(device), grad.to(device))
+        for a, b in zip(got_h, want_h):
+            torch.testing.assert_close(a.cpu(), b, **K2_TOL)
+        got_rot = rspmm_cuda.rotate_fwd_cuda(
+            c.rowptr, c.src, c.etype, c.eid, gd.edge_weight, rel.to(device),
+            x.to(device), 32, segments=c.segments)
+        torch.testing.assert_close(got_rot.cpu(), want_rot, **TOL)
 
 
 @pytest.mark.parametrize("F", [13, 132])
@@ -745,6 +759,81 @@ def test_k5_k8b_run_on_every_card():
                                          atol, f"{kid} {device}")
 
 
+# (kernel, F, K8f's block width D): K2h at F = 10 and 1028 (the scalar
+# path), 64 (one slice), 2056 (a ragged last slice) and 4096 (the training
+# width); K8f at D = 32 (a slice two whole blocks), 128 (half of one
+# block's real and imaginary parts), 6 (the scalar path, slices across
+# blocks; F = 1026 a last slice of one complex position); a hub of 10^5
+# edges (the third field) for each
+K2H_K8F_HUB = ([("K2h", F, None, 10000) for F in (10, 64, 1028, 2056, 4096)]
+               + [("K8f", F, D, 10000) for D, F in ((32, 64), (32, 2048),
+                                                    (128, 1024), (6, 66),
+                                                    (6, 1026))]
+               + [("K2h", 64, None, 100000), ("K8f", 64, 32, 100000)])
+
+
+@pytest.mark.parametrize("kid,F,dim,hub", K2H_K8F_HUB)
+def test_k2h_k8f_hub_rows_match_plain(cuda_device, kid, F, dim, hub):
+    """K2h (on K2's source-row segments and tile chunks) and K8f (on K1's
+    destination-row segments) on hub rows of ``hub`` and 10^3 edges both
+    ways, rows of 256 and 257, 40 duplicated edges, weight-0 edges, empty
+    rows and an empty relation, with R = 7 (the rel slice in shared
+    memory) and R = 2,000 (rel rows gathered on the 16-byte path and K8f's
+    scalar one). Within the tolerance plus 8 fp32 ulps of each entry's
+    absolute mass (timing.py::k2_mass on the widened values, k8f_mass),
+    rows without edges 0, bitwise equal across two calls, one launch
+    counted a call; K2h's halves alone equal the whole."""
+    for R, where in ((7, "shared"), (2000, "gathered")):
+        seed = F + R + hub
+        csr, w = rspmm_cuda.hub_operands(seed, cuda_device,
+                                         E=max(40000, 2 * hub + 20000), R=R,
+                                         duplicated=40, hub=hub)
+        V = csr.src_rowptr.numel() - 1
+        rng = np.random.default_rng(seed)
+        rel, x, g = (_normal(rng, s, cuda_device)
+                     for s in ((R, F), (V, F), (V, F)))
+        if kid == "K2h":
+            args = (csr, w, rel.bfloat16(), x.bfloat16(), g.bfloat16())
+            if F % 8 == 0:
+                plan = rspmm_bwd_cuda.k2h_plan(csr, F)
+                assert plan["dx"]["rel"] == where, plan
+            before = rspmm_bwd_cuda.launches["K2h"]
+            got = rspmm_bwd_cuda.rspmm_bwd_bf16_cuda(*args)
+            again = rspmm_bwd_cuda.rspmm_bwd_bf16_cuda(*args)
+            torch.cuda.synchronize()
+            assert rspmm_bwd_cuda.launches["K2h"] == before + 2
+            want = rspmm_bwd_cuda.rspmm_bwd_bf16_plain(*args)
+            masses = timing.k2_mass(csr, w, *(t.float() for t in args[2:]))
+            atols = (1e-4, max(1e-4, 1e-5 * want[1].abs().max().item()))
+            no_src = (csr.src_rowptr[1:] == csr.src_rowptr[:-1]).nonzero()
+            assert torch.all(got[0][no_src] == 0)
+            assert torch.all(got[1][R - 1] == 0)
+            assert torch.equal(rspmm_bwd_cuda.rspmm_bwd_bf16_cuda(
+                *args, need_dr=False)[0], got[0])
+            assert torch.equal(rspmm_bwd_cuda.rspmm_bwd_bf16_cuda(
+                *args, need_dx=False)[1], got[1])
+        else:
+            ops = (csr.rowptr, csr.src, csr.etype, csr.eid, w, rel, x)
+            plan = rspmm_cuda.k8f_plan(R, F, V, csr.seg_ptr.numel() - 1, dim)
+            assert plan["rel"] == where, plan
+            before = rspmm_cuda.rotate_launches
+            got = [rspmm_cuda.rotate_fwd_cuda(*ops, dim,
+                                              segments=csr.segments)]
+            again = [rspmm_cuda.rotate_fwd_cuda(*ops, dim,
+                                                segments=csr.segments)]
+            torch.cuda.synchronize()
+            assert rspmm_cuda.rotate_launches == before + 2
+            want = [rspmm_cuda.rspmm_fwd_plain(*ops, "rot_rel", dim)]
+            masses = [timing.k8f_mass(ops, dim)]
+            atols = [1e-5 * max(1.0, want[0].abs().max().item())]
+            no_dst = (csr.rowptr[1:] == csr.rowptr[:-1]).nonzero()
+            assert torch.all(got[0][no_dst] == 0)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        for a, b, mass, atol in zip(got, want, masses, atols):
+            timing.assert_mass_close(a, b, mass, TOL["rtol"], atol,
+                                     f"{kid} F={F} R={R} hub={hub}")
+
+
 @pytest.mark.parametrize("msg", ["mul", "add"])
 def test_pna_pairs_card_match_cpu(cuda_device, rng, msg):
     """The fused pairs and the single extrema route CUDA tensors through
@@ -830,9 +919,11 @@ def test_k8f_k8b_match_plain(cuda_device, rng, V, E, R, B, D):
     csr = g.csr
     fwd = (csr.rowptr, csr.src, csr.etype, csr.eid, g.edge_weight, rel, x)
     before = rspmm_cuda.rotate_launches
-    out = rspmm_cuda.rotate_fwd_cuda(*fwd, D)
+    out = rspmm_cuda.rotate_fwd_cuda(*fwd, D, segments=csr.segments)
     torch.cuda.synchronize()
     assert rspmm_cuda.rotate_launches == before + 1
+    assert torch.equal(rspmm_cuda.rotate_fwd_cuda(*fwd, D,
+                                                  segments=csr.segments), out)
     want = rspmm_cuda.rspmm_fwd_plain(*fwd, "rot_rel", D)
     torch.testing.assert_close(
         out, want, rtol=1e-5, atol=1e-5 * max(1.0, want.abs().max().item()))
@@ -891,11 +982,14 @@ def test_rotate_kernels_reject_bad_operands(cuda_device, rng):
     csr, w = g.csr, g.edge_weight
     fwd = (csr.rowptr, csr.src, csr.etype, csr.eid, w, rel)
     with pytest.raises(ValueError):  # a block width that does not divide F
-        rspmm_cuda.rotate_fwd_cuda(*fwd, x, 8)
+        rspmm_cuda.rotate_fwd_cuda(*fwd, x, 8, segments=csr.segments)
+    with pytest.raises(TypeError):  # no segments
+        rspmm_cuda.rotate_fwd_cuda(*fwd, x, 6, segments=None)
     with pytest.raises(ValueError):  # an odd block width
         rspmm_bwd_cuda.rotate_bwd_cuda(csr, w, rel, x, grad, 3)
     with pytest.raises(TypeError):  # float64 x
-        rspmm_cuda.rotate_fwd_cuda(*fwd, x.double(), 6)
+        rspmm_cuda.rotate_fwd_cuda(*fwd, x.double(), 6,
+                                   segments=csr.segments)
     with pytest.raises(ValueError):  # layouts on the CPU
         rspmm_bwd_cuda.rotate_bwd_cuda(csr.to("cpu"), w, rel, x, grad, 6)
 

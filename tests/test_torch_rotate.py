@@ -199,7 +199,8 @@ def test_kernel_plain_versions_match_jax(rng, dim):
     grad = _t(inp["cot"]).reshape(V, F)
     before = (rspmm_cuda.rotate_launches, dict(rspmm_bwd_cuda.launches))
     out = rspmm_cuda.rotate_fwd_cuda(csr.rowptr, csr.src, csr.etype, csr.eid,
-                                     g.edge_weight, rel, x, dim)
+                                     g.edge_weight, rel, x, dim,
+                                     segments=csr.segments)
     dx, dr = rspmm_bwd_cuda.rotate_bwd_cuda(csr, g.edge_weight, rel, x, grad,
                                             dim)
     assert (rspmm_cuda.rotate_launches, rspmm_bwd_cuda.launches) == before
@@ -240,7 +241,8 @@ def test_rotate_rejects_what_the_jax_op_rejects(rng):
     with pytest.raises(ValueError, match="block width"):
         rspmm_cuda.rotate_fwd_cuda(g.csr.rowptr, g.csr.src, g.csr.etype,
                                    g.csr.eid, g.edge_weight,
-                                   torch.zeros((R, 12)), x, 8)
+                                   torch.zeros((R, 12)), x, 8,
+                                   segments=g.csr.segments)
     with pytest.raises(ValueError, match="fused max/min pair"):
         generalized_rspmm_maxmin(*edges, torch.zeros((R, 12)), x,
                                  msg="rotate", num_nodes=V, csr=g.csr)

@@ -12,8 +12,8 @@
 // K2h is the same function with compute_dtype=bfloat16 (rspmm_bwd_fused
 // with bf16 operands, :2117-2153): x, g and rel arrive as bf16, the products
 // are taken in fp32 from the widened values with g * w formed first, and dx
-// and dr are fp32. It runs K2's two passes with bf16 row loads (8 lanes per
-// 16-byte load), which halves the gathered bytes.
+// and dr are fp32. It runs K2's two passes (below) with bf16 operands, 8
+// lanes a 16-byte load, which halves the gathered bytes.
 //
 // Shapes: x, g, dx [V, F]; rel, dr [R, F]; w [E] in original edge order;
 // fp32 in and out (K2h: bf16 x, g and rel). Rows of dx and dr without edges
@@ -30,12 +30,12 @@
 // at that shape, with the rel rows of dx 32 GB), so where those gathers are
 // served (the 50 MB L2 or the memory) sets what it reaches.
 //
-// K2's first design (PRs 2-9, still K2h's) ran the forward's row loop over
+// K2's first design (K2h's too) ran the forward's row loop over
 // the source rows (one CTA per row and 256-thread feature tile, a rel and a
 // g row gathered per edge) and relation chunks of up to 256 edges in
 // original order, whose x and g rows lay anywhere, in 256-thread tiles whose
 // two 59.6 MB passes the L2 cannot hold together. It took 6.29 ms at the
-// training shape (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+// training shape, K2h 3.03 ms (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
 //
 // What K2's design does about it (rspmm_staged.cuh; the layouts
 // data/graph.py's Csr.src_seg_* / src_long_* and tile_*):
@@ -57,88 +57,85 @@
 // whose output pointer is null is skipped). One fused pass, in which a
 // source row's x stays in registers and each g gather feeds both dx and
 // dr, needs a reduction of dr across CTAs in a fixed order; it is not
-// built.
-//
-// K2h keeps the first design, whose two kernels follow; its redesign onto
-// this one is later work.
+// built. K2h's passes are the same kernels with bf16 operands
+// (rspmm_staged.cuh: slices of kBf16RowsSlice and kBf16ChunksSlice
+// features, the rel slice staged in bf16, the gathered lanes packed until
+// used), each product rel * (g * w) or x * (g * w) in fp32.
 
 #include "rspmm_staged.cuh"
 
 namespace {
 
-using rspmm::accumulate;
-using rspmm::bf16;
-using rspmm::kMaxThreads;
-using rspmm::kMulRel;
-using rspmm::kMulScaled;
-using rspmm::Lanes;
-using rspmm::load_lanes;
-using rspmm::relation_sums;
-using rspmm::store_lanes;
+namespace staged = rspmm::staged;
 
-// partial[c, :] = sum over e in [chunk_ptr[c], chunk_ptr[c+1]) of
-//                 w[eid[e]] * x[src[e], :] * g[dst[e], :]   (kMulRel)
-//                 x[src[e], :] * (g[dst[e], :] * w[eid[e]])  (kMulScaled)
-// each thread owning W lanes; n is the row width in groups of W lanes
-template <int MODE, typename In, int W>
-__global__ void __launch_bounds__(kMaxThreads)
-chunk_partials(const int* __restrict__ chunk_ptr, const int* __restrict__ src,
-               const int* __restrict__ dst, const int* __restrict__ eid,
-               const float* __restrict__ weight, const In* __restrict__ x,
-               const In* __restrict__ g, float* __restrict__ partial, int n) {
-  const int c = blockIdx.x;
-  const int j = blockIdx.y * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  const int64_t width = static_cast<int64_t>(n) * W;
-  const int64_t lane = static_cast<int64_t>(j) * W;
-  const int begin = __ldg(chunk_ptr + c);
-  const int end = __ldg(chunk_ptr + c + 1);
-  float acc[W] = {};
-#pragma unroll 4
-  for (int e = begin; e < end; ++e) {
-    const int64_t d = __ldg(dst + e);
-    const float w = __ldg(weight + __ldg(eid + e));
-    const Lanes<W> gv = load_lanes<W>(g + d * width + lane);
-    const int64_t s = __ldg(src + e);
-    accumulate<MODE, In, W>(acc, load_lanes<W>(x + s * width + lane), gv, w);
-  }
-  store_lanes<W>(partial + static_cast<int64_t>(c) * width + lane, acc);
-}
-
-// the dr pass: chunk partials (16-byte operand loads when vec), then the
-// per-relation sums of the fp32 partial rows (float4 when vec)
+// K2's passes (MODE kMulRel, fp32 operands) or K2h's (kMulScaled, bf16), in
+// rspmm_bwd's argument order
 template <int MODE, typename In>
-int launch_dr(bool vec, const int* chunk_ptr, const int* rel_chunk_ptr,
-              const int* rel_src, const int* rel_dst, const int* rel_eid,
-              const float* weight, const In* x, const In* g, float* dr,
-              float* partial, int num_relations, int num_chunks,
-              int num_features, cudaStream_t stream) {
-  constexpr int kVec = rspmm::vec_lanes<In>();
-  int threads, tiles;
-  if (num_chunks > 0) {
-    const int n = vec ? num_features / kVec : num_features;
-    rspmm::feature_tiles(n, &threads, &tiles);
-    const dim3 grid(num_chunks, tiles);
-    if (vec) {
-      chunk_partials<MODE, In, kVec><<<grid, threads, 0, stream>>>(
-          chunk_ptr, rel_src, rel_dst, rel_eid, weight, x, g, partial, n);
-    } else {
-      chunk_partials<MODE, In, 1><<<grid, threads, 0, stream>>>(
-          chunk_ptr, rel_src, rel_dst, rel_eid, weight, x, g, partial, n);
-    }
-    const cudaError_t err = cudaGetLastError();
+int run_passes(const int* seg_ptr, const int* seg_out, const int* seg_dst,
+               const int* seg_etype, const int* seg_eid, const int* long_rows,
+               const int* long_ptr, const int* chunk_ptr,
+               const int* chunk_slot, const int* chunk_src,
+               const int* chunk_dst, const int* chunk_eid, const int* rel_ptr,
+               const float* weight, const In* rel, const In* x, const In* g,
+               float* dx, float* dr, float* w_scratch, float* dx_partial,
+               float* dr_partial, int num_rows, int num_segments,
+               int num_long_rows, int num_chunks, int num_relations,
+               int num_edges, int num_features, cudaStream_t s) {
+  using rspmm::aligned16;
+  if (num_features <= 0) return static_cast<int>(cudaGetLastError());
+  const bool vec =
+      num_features % rspmm::vec_lanes<In>() == 0 && aligned16(rel) &&
+      aligned16(x) && aligned16(g) &&
+      (dx == nullptr ||
+       (aligned16(dx) && (dx_partial == nullptr || aligned16(dx_partial)))) &&
+      (dr == nullptr || (aligned16(dr) && aligned16(dr_partial)));
+  cudaError_t err = cudaSuccess;
+  if (dx != nullptr && num_segments > 0) {
+    err = staged::launch_gather_weights(seg_eid, weight, w_scratch,
+                                        num_edges, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const staged::Rows<In> a{seg_ptr,    seg_out,      seg_dst,   seg_etype,
+                             w_scratch,  rel,          g,         dx,
+                             dx_partial, num_segments, num_edges, num_relations,
+                             num_features};
+    const staged::Plan p = staged::rows_plan<MODE, In>(
+        vec, num_relations, num_features, num_rows, num_segments);
+    err = staged::launch_rows<MODE, In>(vec, p, a, long_rows, long_ptr,
+                                        num_long_rows, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int n = vec ? num_features / 4 : num_features;
-  rspmm::feature_tiles(n, &threads, &tiles);
-  const dim3 grid(num_relations, tiles);
-  if (vec) {
-    relation_sums<float4><<<grid, threads, 0, stream>>>(
-        rel_chunk_ptr, reinterpret_cast<const float4*>(partial),
-        reinterpret_cast<float4*>(dr), n);
-  } else {
-    relation_sums<float><<<grid, threads, 0, stream>>>(rel_chunk_ptr, partial,
-                                                       dr, n);
+  if (dr != nullptr && num_relations > 0) {
+    float* w_tile = w_scratch + num_edges;
+    err = staged::launch_gather_weights(chunk_eid, weight, w_tile, num_edges,
+                                        s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const staged::Chunks<In> a{chunk_ptr,  chunk_slot, chunk_src,  chunk_dst,
+                               w_tile,     x,          g,          dr_partial,
+                               num_chunks, num_edges,  num_features};
+    const staged::Plan p = staged::chunks_plan<In>(
+        vec, num_features, int64_t{2} * num_rows, num_chunks);
+    err = staged::launch_chunks<In>(vec, p, a, rel_ptr, num_relations, dr, s);
+  }
+  return static_cast<int>(err);
+}
+
+// How K2 (or K2h) lays out its passes at this shape, written to out[0..9]:
+// the dx pass's features a slice, 1 when its rel slice sits in shared
+// memory, its bytes, slices, CTAs a slice; then the dr pass's five.
+template <int MODE, typename In>
+int write_plans(int vec, int num_relations, int num_features, int num_rows,
+                int num_segments, int num_chunks, int* out) {
+  const staged::Plan plans[2] = {
+      staged::rows_plan<MODE, In>(vec != 0, num_relations, num_features,
+                                  num_rows, num_segments),
+      staged::chunks_plan<In>(vec != 0, num_features, int64_t{2} * num_rows,
+                              num_chunks)};
+  for (int i = 0; i < 2; ++i) {
+    out[5 * i] = plans[i].slice;
+    out[5 * i + 1] = plans[i].shared_rel ? 1 : 0;
+    out[5 * i + 2] = static_cast<int>(plans[i].smem);
+    out[5 * i + 3] = plans[i].slices;
+    out[5 * i + 4] = plans[i].ctas_per_slice;
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -164,44 +161,12 @@ extern "C" int rspmm_bwd(
     float* dx_partial, float* dr_partial, int num_rows, int num_segments,
     int num_long_rows, int num_chunks, int num_relations, int num_edges,
     int num_features, void* stream) {
-  using rspmm::aligned16;
-  namespace staged = rspmm::staged;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (num_features <= 0) return static_cast<int>(cudaGetLastError());
-  const bool vec =
-      num_features % 4 == 0 && aligned16(rel) && aligned16(x) &&
-      aligned16(g) &&
-      (dx == nullptr ||
-       (aligned16(dx) && (dx_partial == nullptr || aligned16(dx_partial)))) &&
-      (dr == nullptr || (aligned16(dr) && aligned16(dr_partial)));
-  cudaError_t err = cudaSuccess;
-  if (dx != nullptr && num_segments > 0) {
-    err = staged::launch_gather_weights(seg_eid, weight, w_scratch,
-                                        num_edges, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const staged::Rows a{seg_ptr,    seg_out,      seg_dst,   seg_etype,
-                         w_scratch,  rel,          g,         dx,
-                         dx_partial, num_segments, num_edges, num_relations,
-                         num_features};
-    const staged::Plan p = staged::rows_plan<kMulRel>(
-        vec, num_relations, num_features, num_rows, num_segments);
-    err = staged::launch_rows<kMulRel>(vec, p, a, long_rows, long_ptr,
-                                       num_long_rows, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (dr != nullptr && num_relations > 0) {
-    float* w_tile = w_scratch + num_edges;
-    err = staged::launch_gather_weights(chunk_eid, weight, w_tile, num_edges,
-                                        s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const staged::Chunks a{chunk_ptr, chunk_slot, chunk_src,  chunk_dst,
-                           w_tile,    x,          g,          dr_partial,
-                           num_chunks, num_edges, num_features};
-    const staged::Plan p = staged::chunks_plan(
-        vec, num_features, int64_t{2} * num_rows, num_chunks);
-    err = staged::launch_chunks(vec, p, a, rel_ptr, num_relations, dr, s);
-  }
-  return static_cast<int>(err);
+  return run_passes<rspmm::kMulRel, float>(
+      seg_ptr, seg_out, seg_dst, seg_etype, seg_eid, long_rows, long_ptr,
+      chunk_ptr, chunk_slot, chunk_src, chunk_dst, chunk_eid, rel_ptr,
+      weight, rel, x, g, dx, dr, w_scratch, dx_partial, dr_partial, num_rows,
+      num_segments, num_long_rows, num_chunks, num_relations, num_edges,
+      num_features, static_cast<cudaStream_t>(stream));
 }
 
 // How K2 lays out its passes at this shape (rspmm_staged.cuh's plans),
@@ -211,59 +176,43 @@ extern "C" int rspmm_bwd(
 extern "C" int rspmm_k2_plan(int vec, int num_relations, int num_features,
                              int num_rows, int num_segments, int num_chunks,
                              int* out) {
-  namespace staged = rspmm::staged;
-  const staged::Plan plans[2] = {
-      staged::rows_plan<kMulRel>(vec != 0, num_relations, num_features,
-                                 num_rows, num_segments),
-      staged::chunks_plan(vec != 0, num_features, int64_t{2} * num_rows,
-                          num_chunks)};
-  for (int i = 0; i < 2; ++i) {
-    out[5 * i] = plans[i].slice;
-    out[5 * i + 1] = plans[i].shared_rel ? 1 : 0;
-    out[5 * i + 2] = static_cast<int>(plans[i].smem);
-    out[5 * i + 3] = plans[i].slices;
-    out[5 * i + 4] = plans[i].ctas_per_slice;
-  }
-  return static_cast<int>(cudaGetLastError());
+  return write_plans<rspmm::kMulRel, float>(vec, num_relations, num_features,
+                                            num_rows, num_segments,
+                                            num_chunks, out);
 }
 
-// K2h: K2 (mul_rel) with bf16 rel, x and g, fp32 weight, dx, dr and partial:
+// K2h: K2 (mul_rel) with bf16 rel, x and g, fp32 weight, dx, dr and partial
+// rows:
 //     dx[s, :] = sum over e = (s -> v, r) of  rel[r, :] * (g[v, :] * w[eid_e])
 //     dr[r, :] = sum over e with type r   of  x[s_e, :] * (g[v_e, :] * w[eid_e])
 // the products in fp32 from the widened bf16 values, g * w formed first, as
-// rspmm_pallas.py's bf16 backward does (:659-666, :798-805). The first
-// design's two passes: the source-sorted CSR (src_rowptr / src_dst /
-// src_etype / src_eid) drives the dx pass, the relation-sorted edges
-// (rel_src / rel_dst / rel_eid) cut at chunk_ptr, with rel_chunk_ptr giving
-// each relation's chunks, the dr pass; partial holds num_chunks rows of F
-// floats. Two calls agree bitwise. Null outputs and return as for
-// rspmm_bwd.
+// rspmm_pallas.py's bf16 backward does (:659-666, :798-805). K2's layouts,
+// scratch, arguments, null outputs and return; the 16-byte path needs
+// F % 8 == 0.
 extern "C" int rspmm_bwd_k2h(
-    const int* src_rowptr, const int* src_dst, const int* src_etype,
-    const int* src_eid, const int* chunk_ptr, const int* rel_chunk_ptr,
-    const int* rel_src, const int* rel_dst, const int* rel_eid,
-    const float* weight, const bf16* rel, const bf16* x, const bf16* g,
-    float* dx, float* dr, float* partial, int num_rows, int num_relations,
-    int num_chunks, int num_features, void* stream) {
-  using rspmm::aligned16;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (num_features <= 0) return static_cast<int>(cudaGetLastError());
-  const bool vec = num_features % rspmm::vec_lanes<bf16>() == 0 &&
-                   aligned16(rel) && aligned16(x) && aligned16(g) &&
-                   (dx == nullptr || aligned16(dx)) &&
-                   (dr == nullptr || (aligned16(dr) && aligned16(partial)));
-  if (dx != nullptr && num_rows > 0) {
-    rspmm::launch_row_gather<kMulScaled, bf16>(
-        vec, src_rowptr, src_dst, src_etype, src_eid, weight, rel, g, dx,
-        num_rows, num_features, s);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (dr != nullptr && num_relations > 0) {
-    return launch_dr<kMulScaled, bf16>(vec, chunk_ptr, rel_chunk_ptr, rel_src,
-                                       rel_dst, rel_eid, weight, x, g, dr,
-                                       partial, num_relations, num_chunks,
-                                       num_features, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+    const int* seg_ptr, const int* seg_out, const int* seg_dst,
+    const int* seg_etype, const int* seg_eid, const int* long_rows,
+    const int* long_ptr, const int* chunk_ptr, const int* chunk_slot,
+    const int* chunk_src, const int* chunk_dst, const int* chunk_eid,
+    const int* rel_ptr, const float* weight, const rspmm::bf16* rel,
+    const rspmm::bf16* x, const rspmm::bf16* g, float* dx, float* dr,
+    float* w_scratch, float* dx_partial, float* dr_partial, int num_rows,
+    int num_segments, int num_long_rows, int num_chunks, int num_relations,
+    int num_edges, int num_features, void* stream) {
+  return run_passes<rspmm::kMulScaled, rspmm::bf16>(
+      seg_ptr, seg_out, seg_dst, seg_etype, seg_eid, long_rows, long_ptr,
+      chunk_ptr, chunk_slot, chunk_src, chunk_dst, chunk_eid, rel_ptr,
+      weight, rel, x, g, dx, dr, w_scratch, dx_partial, dr_partial, num_rows,
+      num_segments, num_long_rows, num_chunks, num_relations, num_edges,
+      num_features, static_cast<cudaStream_t>(stream));
+}
+
+// How K2h lays out its passes at this shape, as rspmm_k2_plan; vec: 1 for
+// the 16-byte path (F % 8 == 0 and aligned operands).
+extern "C" int rspmm_k2h_plan(int vec, int num_relations, int num_features,
+                              int num_rows, int num_segments, int num_chunks,
+                              int* out) {
+  return write_plans<rspmm::kMulScaled, rspmm::bf16>(
+      vec, num_relations, num_features, num_rows, num_segments, num_chunks,
+      out);
 }

@@ -22,7 +22,7 @@
 // table), so what a design reaches is set by where those gathers are
 // served (the 50 MB L2 or the memory) and by which other bytes ride along.
 //
-// K1's first design (PRs 1-9, still K1h's: rspmm_rows.cuh::row_gather) ran
+// K1's first design (still K1h's: rspmm_rows.cuh::row_gather) ran
 // one CTA per destination row and 256-thread feature tile, every edge
 // loading col, eid, w[eid] and etype and then gathering an x row and a rel
 // row. It took 2.05 ms at the training shape (16.3 GB of gathers at about
@@ -50,7 +50,8 @@
 // One call makes up to three launches: the weights, the segments, the long
 // rows' sums.
 //
-// K1h keeps the first design; its redesign onto this one is later work.
+// K1h keeps the first design; its redesign onto this one is later work
+// (K2h, K8f and the backward kernels run on rspmm_staged.cuh's blocks).
 
 #include "rspmm_staged.cuh"
 
@@ -117,21 +118,22 @@ extern "C" int rspmm_fwd_k1(const int* seg_ptr, const int* seg_out,
   cudaError_t err =
       staged::launch_gather_weights(eid, weight, w_scratch, num_edges, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const staged::Rows a{seg_ptr, seg_out, src,          etype,
-                       w_scratch, rel,   x,            out,
-                       partial,   num_segments, num_edges, num_relations,
-                       num_features};
+  const staged::Rows<float> a{seg_ptr,      seg_out,   src,
+                              etype,        w_scratch, rel,
+                              x,            out,       partial,
+                              num_segments, num_edges, num_relations,
+                              num_features};
   const bool vec = k1_vec(rel, x, out, partial, num_features);
   if (mode == kMulRel) {
-    const staged::Plan p = staged::rows_plan<kMulRel>(
+    const staged::Plan p = staged::rows_plan<kMulRel, float>(
         vec, num_relations, num_features, num_x_rows, num_segments);
-    err = staged::launch_rows<kMulRel>(vec, p, a, long_rows, long_ptr,
-                                       num_long_rows, s);
+    err = staged::launch_rows<kMulRel, float>(vec, p, a, long_rows,
+                                              long_ptr, num_long_rows, s);
   } else {
-    const staged::Plan p = staged::rows_plan<kAddRel>(
+    const staged::Plan p = staged::rows_plan<kAddRel, float>(
         vec, num_relations, num_features, num_x_rows, num_segments);
-    err = staged::launch_rows<kAddRel>(vec, p, a, long_rows, long_ptr,
-                                       num_long_rows, s);
+    err = staged::launch_rows<kAddRel, float>(vec, p, a, long_rows,
+                                              long_ptr, num_long_rows, s);
   }
   return static_cast<int>(err);
 }
@@ -146,10 +148,12 @@ extern "C" int rspmm_k1_plan(int vec, int num_relations, int num_features,
   using namespace rspmm;
   const staged::Plan p =
       mode == kMulRel
-          ? staged::rows_plan<kMulRel>(vec != 0, num_relations, num_features,
-                                       num_x_rows, num_segments)
-          : staged::rows_plan<kAddRel>(vec != 0, num_relations, num_features,
-                                       num_x_rows, num_segments);
+          ? staged::rows_plan<kMulRel, float>(vec != 0, num_relations,
+                                              num_features, num_x_rows,
+                                              num_segments)
+          : staged::rows_plan<kAddRel, float>(vec != 0, num_relations,
+                                              num_features, num_x_rows,
+                                              num_segments);
   out[0] = p.slice;
   out[1] = p.shared_rel ? 1 : 0;
   out[2] = static_cast<int>(p.smem);

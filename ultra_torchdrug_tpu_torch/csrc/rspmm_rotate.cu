@@ -40,9 +40,17 @@
 // place. Four positions a thread (two float4 loads a row) when D/2 % 4 == 0
 // and every row pointer is 16-byte aligned, else one.
 //
-// K8f keeps the first design: one CTA per destination row and feature tile
-// over the destination-sorted CSR, the sum in registers, each row written
-// once.
+// K8f's first design ran one CTA per destination row and feature tile, each
+// edge loading its etype, col and w[eid] and gathering a rel and an x row:
+// 1.30 ms at F = 2048 (NVIDIA H100 80GB HBM3, 700 W; PERF.md), a hub row
+// walked by one CTA. K8f and K8b's dx pass are one kernel, rotate_seg_rows,
+// whose template argument kConj picks rel (x) x or conj(rel) (x) g:
+//  * K8f: over K1's destination rows' 256-edge segments (Csr.seg_ptr,
+//    seg_out, long_rows, long_ptr over src, etype and eid), each edge
+//    gathering x's slice, the rel slice in shared memory, long rows
+//    through partial rows that long_row_sums adds in segment order, the
+//    weights gathered once a call; rows without edges write 0;
+//  * K8b's dx pass: the same over the source rows' segments, gathering g.
 //
 // K8b runs K2's staged design (rspmm_staged.cuh; the layouts data/graph.py's
 // Csr.src_seg_* / src_long_* and tile_*) with a complex body, slice-major in
@@ -72,16 +80,16 @@
 //    1,024-thread CTAs, two edges' x and g lanes in flight.
 // Deterministic: every sum is one stream's or one warp's in a fixed order,
 // then partials in a fixed order; no float atomics, so two calls give
-// bitwise-equal dx and dr. One K8b call makes up to six launches: the
-// weights of each pass, the dx segments, the long rows' sums, the dr
-// chunks, the relation sums (a half whose output pointer is null is
-// skipped).
+// bitwise-equal dx and dr (and K8f's out). One K8b call makes up to six
+// launches: the weights of each pass, the dx segments, the long rows' sums,
+// the dr chunks, the relation sums (a half whose output pointer is null is
+// skipped); one K8f call three: the weights, the segments, the long rows'
+// sums.
 
 #include "rspmm_staged.cuh"
 
 namespace {
 
-using rspmm::kMaxThreads;
 using rspmm::Lanes;
 using rspmm::load_lanes;
 using rspmm::store_lanes;
@@ -91,15 +99,6 @@ using staged::kRowInFlight;
 // ---------------------------------------------------------------------------
 // complex lanes
 // ---------------------------------------------------------------------------
-
-// The offset of lane j's real parts in a row: lanes run over the B blocks
-// and, within a block, over its D/2 complex positions, W at a time
-template <int W>
-__device__ __forceinline__ int64_t real_offset(int j, int dim) {
-  const int per_block = dim / (2 * W);
-  return static_cast<int64_t>(j / per_block) * dim +
-         static_cast<int64_t>(j % per_block) * W;
-}
 
 // (re, im) += (a (x) b) * w, or (conj(a) (x) b) * w with CONJ: the message
 // first, then the weight, as the TPU kernel and the plain version form it
@@ -123,53 +122,17 @@ __device__ __forceinline__ void cplx_accumulate(float (&re)[W],
 }
 
 // ---------------------------------------------------------------------------
-// K8f
-// ---------------------------------------------------------------------------
-
-// out[v] = sum over e in [rowptr[v], rowptr[v+1]) of
-//          (rel[etype[e]] (x) x[col[e]]) * w[eid[e]]
-template <int W>
-__global__ void __launch_bounds__(kMaxThreads)
-rotate_rows(const int* __restrict__ rowptr, const int* __restrict__ col,
-            const int* __restrict__ etype, const int* __restrict__ eid,
-            const float* __restrict__ weight, const float* __restrict__ rel,
-            const float* __restrict__ x, float* __restrict__ out,
-            int num_features, int dim, int lanes) {
-  const int v = blockIdx.x;
-  const int j = blockIdx.y * blockDim.x + threadIdx.x;
-  if (j >= lanes) return;
-  const int64_t re = real_offset<W>(j, dim);
-  const int64_t im = re + dim / 2;
-  const int begin = __ldg(rowptr + v);
-  const int end = __ldg(rowptr + v + 1);
-  float acc_re[W] = {};
-  float acc_im[W] = {};
-#pragma unroll 4
-  for (int e = begin; e < end; ++e) {
-    const float* r =
-        rel + static_cast<int64_t>(__ldg(etype + e)) * num_features;
-    const float* s = x + static_cast<int64_t>(__ldg(col + e)) * num_features;
-    const float w = __ldg(weight + __ldg(eid + e));
-    cplx_accumulate<false, W>(acc_re, acc_im, load_lanes<W>(r + re),
-                              load_lanes<W>(r + im), load_lanes<W>(s + re),
-                              load_lanes<W>(s + im), w);
-  }
-  float* o = out + static_cast<int64_t>(v) * num_features;
-  store_lanes<W>(o + re, acc_re);
-  store_lanes<W>(o + im, acc_im);
-}
-
-// ---------------------------------------------------------------------------
-// K8b
+// K8f and K8b
 // ---------------------------------------------------------------------------
 
 // complex positions a slice (64 floats, staged::kSlice), W a thread in a
 // stream of G threads: W = 4, G = 8 on the vector path, W = 1, G = 32 on
 // the scalar one
 constexpr int kPositions = staged::kSlice / 2;
-// threads a CTA of the dx pass (rotate_seg_rows: 512, of up to 128
-// registers, so that eight edges' g lanes are in flight a thread without
-// spills) and of the dr pass (rotate_chunks), timed on the card (PERF.md)
+// threads a CTA of K8f and the dx pass (rotate_seg_rows: 512, of up to 128
+// registers, so that eight edges' gathered lanes are in flight a thread
+// without spills) and of the dr pass (rotate_chunks), timed on the card
+// (PERF.md)
 constexpr int kRowsThreads = 512;
 constexpr int kChunksThreads = 1024;
 
@@ -219,14 +182,14 @@ __device__ __forceinline__ void stage_rel(float* s_rel, const float* rel,
 }
 
 struct RotateRows {
-  const int* seg_ptr;  // [S + 1] the source rows' segments
+  const int* seg_ptr;  // [S + 1] the rows' segments
   const int* seg_out;  // [S] row (>= 0) or ~partial slot
-  const int* dst;      // [E] each edge's destination, source order
+  const int* col;      // [E] the gathered row of each edge, in row order
   const int* etype;    // [E]
-  const float* w;      // [E] each edge's weight, source order
+  const float* w;      // [E] each edge's weight, in row order
   const float* rel;    // [R, F]
-  const float* g;      // [V, F]
-  float* out;          // dx [V, F]
+  const float* x;      // [V_in, F] (K8b's dx pass: g)
+  float* out;          // [V, F] (K8f's out, K8b's dx)
   float* partial;      // [P, F] the long rows' partial rows
   int num_segments;
   int num_edges;
@@ -235,15 +198,17 @@ struct RotateRows {
   int half;            // D / 2
 };
 
+// K8f: out[v, slice] = sum over the in-edges of v of (rel[r] (x) x[s]) * w
+// over the destination rows' segments; K8b's dx pass (kConj):
 // dx[s, slice] = sum over the out-edges of s of (conj(rel[r]) (x) g[v]) * w
-// over the source rows' segments: staged_rows' pipeline (one stream of G
+// over the source rows' segments. staged_rows' pipeline (one stream of G
 // threads a segment, the next iteration's edge metadata and the next
 // segment loaded while an iteration's gathers are in flight)
-template <int W, int G, bool kSharedRel>
+template <int W, int G, bool kSharedRel, bool kConj>
 __global__ void __launch_bounds__(kRowsThreads, 1)
 rotate_seg_rows(RotateRows a) {
   static_assert(W * G == kPositions, "a stream covers a slice");
-  // an edge gathers g's real and imaginary lanes (and rel's, unstaged)
+  // an edge gathers x's (g's) real and imaginary lanes (and rel's, unstaged)
   constexpr int kIn = loads_in_flight(kRowsThreads) / (kSharedRel ? 2 : 4);
   static_assert(kIn <= G, "a stream's lanes hold an iteration's edges");
   extern __shared__ float4 smem[];
@@ -284,7 +249,7 @@ rotate_seg_rows(RotateRows a) {
   int m_col = 0, m_type = 0;
   float m_w = 0.f;
   if (t < kIn && pos + t < end) {
-    m_col = __ldg(a.dst + pos + t);
+    m_col = __ldg(a.col + pos + t);
     m_type = __ldg(a.etype + pos + t);
     m_w = __ldg(a.w + pos + t);
   }
@@ -296,7 +261,7 @@ rotate_seg_rows(RotateRows a) {
     Lanes<W> rr[kSharedRel ? 1 : kIn], ri[kSharedRel ? 1 : kIn];
 #pragma unroll
     for (int u = 0; u < kIn; ++u) {
-      const int d = __shfl_sync(0xffffffffu, m_col, u, G);
+      const int c = __shfl_sync(0xffffffffu, m_col, u, G);
       if constexpr (!kSharedRel) {
         const int r = __shfl_sync(0xffffffffu, m_type, u, G);
         if (on && u < n) {
@@ -305,8 +270,8 @@ rotate_seg_rows(RotateRows a) {
         }
       }
       if (on && u < n) {
-        gr[u] = load_lanes<W>(a.g + d * F64 + re);
-        gi[u] = load_lanes<W>(a.g + d * F64 + im);
+        gr[u] = load_lanes<W>(a.x + c * F64 + re);
+        gi[u] = load_lanes<W>(a.x + c * F64 + im);
       }
     }
     // where this stream goes next: on in its item, or to the next item,
@@ -330,7 +295,7 @@ rotate_seg_rows(RotateRows a) {
     int c_col = 0, c_type = 0;
     float c_w = 0.f;
     if (new_item < last && t < kIn && new_pos + t < new_end) {
-      c_col = __ldg(a.dst + new_pos + t);
+      c_col = __ldg(a.col + new_pos + t);
       c_type = __ldg(a.etype + new_pos + t);
       c_w = __ldg(a.w + new_pos + t);
     }
@@ -342,14 +307,14 @@ rotate_seg_rows(RotateRows a) {
         const int r = __shfl_sync(0xffffffffu, m_type, u, G);
         if (on && u < n) {
           const float* sr = s_rel + r * (2 * kPositions) + t * W;
-          cplx_accumulate<true, W>(acc_re, acc_im,
-                                   staged::load_shared<W>(sr),
-                                   staged::load_shared<W>(sr + kPositions),
-                                   gr[u], gi[u], we);
+          cplx_accumulate<kConj, W>(acc_re, acc_im,
+                                    staged::load_shared<W>(sr),
+                                    staged::load_shared<W>(sr + kPositions),
+                                    gr[u], gi[u], we);
         }
       } else if (on && u < n) {
-        cplx_accumulate<true, W>(acc_re, acc_im, rr[u], ri[u], gr[u], gi[u],
-                                 we);
+        cplx_accumulate<kConj, W>(acc_re, acc_im, rr[u], ri[u], gr[u], gi[u],
+                                  we);
       }
     }
     if (done) {
@@ -477,10 +442,10 @@ rotate_chunks(RotateChunks a) {
   }
 }
 
-template <int W, int G, bool kSharedRel>
+template <int W, int G, bool kSharedRel, bool kConj>
 int rows_resident(size_t smem) {
   static staged::Occupancy occupancy;
-  return occupancy.resident(rotate_seg_rows<W, G, kSharedRel>, smem,
+  return occupancy.resident(rotate_seg_rows<W, G, kSharedRel, kConj>, smem,
                             kRowsThreads);
 }
 
@@ -500,23 +465,26 @@ staged::Plan slices(int num_features) {
   return p;
 }
 
-// the dx pass's plan: rel in shared memory where it fits; the CTAs in
-// flight gather g's slices
-staged::Plan dx_plan(bool vec, int num_relations, int num_features,
-                     int num_rows, int num_segments) {
+// the plan of rotate_seg_rows (K8f, or K8b's dx pass with kConj): rel in
+// shared memory where it fits; the CTAs in flight gather the slices of
+// gathered_rows rows (K8f's x, the dx pass's g)
+template <bool kConj>
+staged::Plan seg_plan(bool vec, int num_relations, int num_features,
+                      int gathered_rows, int num_segments) {
   staged::Plan p = slices(num_features);
   const size_t rel_bytes = size_t{4} * p.slice * num_relations;
   p.shared_rel = rel_bytes <= size_t{staged::kRelSmemBytes};
   p.smem = p.shared_rel ? rel_bytes : 0;
   int resident;
   if (vec) {
-    resident = p.shared_rel ? rows_resident<4, 8, true>(p.smem)
-                            : rows_resident<4, 8, false>(0);
+    resident = p.shared_rel ? rows_resident<4, 8, true, kConj>(p.smem)
+                            : rows_resident<4, 8, false, kConj>(0);
   } else {
-    resident = p.shared_rel ? rows_resident<1, 32, true>(p.smem)
-                            : rows_resident<1, 32, false>(0);
+    resident = p.shared_rel ? rows_resident<1, 32, true, kConj>(p.smem)
+                            : rows_resident<1, 32, false, kConj>(0);
   }
-  staged::plan_ctas(&p, resident, num_rows, num_segments, kRowsThreads / 32);
+  staged::plan_ctas(&p, resident, gathered_rows, num_segments,
+                    kRowsThreads / 32);
   return p;
 }
 
@@ -529,19 +497,27 @@ staged::Plan dr_plan(bool vec, int num_features, int num_rows,
   return p;
 }
 
-cudaError_t launch_dx(bool vec, const staged::Plan& p, const RotateRows& a,
-                      const int* long_rows, const int* long_ptr,
-                      int num_long_rows, cudaStream_t stream) {
+// rotate_seg_rows over a's segments by plan p, then long_row_sums over
+// the long rows
+template <bool kConj>
+cudaError_t launch_seg_rows(bool vec, const staged::Plan& p,
+                            const RotateRows& a, const int* long_rows,
+                            const int* long_ptr, int num_long_rows,
+                            cudaStream_t stream) {
   if (a.num_segments > 0) {
     const dim3 grid(p.ctas_per_slice, p.slices);
     if (vec && p.shared_rel) {
-      rotate_seg_rows<4, 8, true><<<grid, kRowsThreads, p.smem, stream>>>(a);
+      rotate_seg_rows<4, 8, true, kConj>
+          <<<grid, kRowsThreads, p.smem, stream>>>(a);
     } else if (vec) {
-      rotate_seg_rows<4, 8, false><<<grid, kRowsThreads, 0, stream>>>(a);
+      rotate_seg_rows<4, 8, false, kConj>
+          <<<grid, kRowsThreads, 0, stream>>>(a);
     } else if (p.shared_rel) {
-      rotate_seg_rows<1, 32, true><<<grid, kRowsThreads, p.smem, stream>>>(a);
+      rotate_seg_rows<1, 32, true, kConj>
+          <<<grid, kRowsThreads, p.smem, stream>>>(a);
     } else {
-      rotate_seg_rows<1, 32, false><<<grid, kRowsThreads, 0, stream>>>(a);
+      rotate_seg_rows<1, 32, false, kConj>
+          <<<grid, kRowsThreads, 0, stream>>>(a);
     }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -575,38 +551,63 @@ bool valid_dim(int num_features, int dim) {
 
 }  // namespace
 
-// K8f. dim is D, the width of one block (even, dividing num_features).
-// Returns the cudaGetLastError() code after the launch (0 on success); an
-// invalid dim returns cudaErrorInvalidValue without launching.
-extern "C" int rspmm_rotate_fwd(const int* rowptr, const int* src,
-                                const int* etype, const int* eid,
-                                const float* weight, const float* rel,
-                                const float* x, float* out, int num_rows,
-                                int num_features, int dim, void* stream) {
+// K8f, on K1's layouts and in rspmm_fwd_k1's argument order, with dim
+// before the stream: the destination rows' segments (seg_ptr, seg_out,
+// long_rows, long_ptr = Csr.seg_*, long_*) over the destination-sorted
+// edges (src, etype, eid). w_scratch holds num_edges floats, partial
+// long_ptr[num_long_rows] rows of F floats. dim is D, the width of one
+// block (even, dividing num_features). Returns the first nonzero
+// cudaGetLastError() code after a launch (0 on success); an invalid dim
+// returns cudaErrorInvalidValue without launching.
+extern "C" int rspmm_rotate_fwd(const int* seg_ptr, const int* seg_out,
+                                const int* long_rows, const int* long_ptr,
+                                const int* src, const int* etype,
+                                const int* eid, const float* weight,
+                                const float* rel, const float* x, float* out,
+                                float* w_scratch, float* partial,
+                                int num_segments, int num_long_rows,
+                                int num_edges, int num_relations,
+                                int num_x_rows, int num_features, int dim,
+                                void* stream) {
   using rspmm::aligned16;
   if (!valid_dim(num_features, dim)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (num_rows <= 0 || num_features <= 0) {
+  if (num_segments <= 0 || num_features <= 0) {
     return static_cast<int>(cudaGetLastError());
   }
-  const bool vec = (dim / 2) % 4 == 0 && aligned16(rel) && aligned16(x) &&
-                   aligned16(out);
-  const int width = vec ? 4 : 1;
-  const int lanes = num_features / (2 * width);
-  int threads, tiles;
-  rspmm::feature_tiles(lanes, &threads, &tiles);
-  const dim3 grid(num_rows, tiles);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec) {
-    rotate_rows<4><<<grid, threads, 0, s>>>(rowptr, src, etype, eid, weight,
-                                            rel, x, out, num_features, dim,
-                                            lanes);
-  } else {
-    rotate_rows<1><<<grid, threads, 0, s>>>(rowptr, src, etype, eid, weight,
-                                            rel, x, out, num_features, dim,
-                                            lanes);
-  }
+  cudaError_t err =
+      staged::launch_gather_weights(eid, weight, w_scratch, num_edges, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool vec = (dim / 2) % 4 == 0 && aligned16(rel) && aligned16(x) &&
+                   aligned16(out) && (partial == nullptr || aligned16(partial));
+  const RotateRows a{seg_ptr,   seg_out,      src,       etype,
+                     w_scratch, rel,          x,         out,
+                     partial,   num_segments, num_edges, num_relations,
+                     num_features, dim / 2};
+  const staged::Plan p = seg_plan<false>(vec, num_relations, num_features,
+                                         num_x_rows, num_segments);
+  err = launch_seg_rows<false>(vec, p, a, long_rows, long_ptr, num_long_rows,
+                               s);
+  return static_cast<int>(err);
+}
+
+// How K8f lays out a call of this shape, written to out[0..4] as
+// rspmm_k1_plan's: floats a slice (kPositions complex positions), 1 when
+// the rel slice sits in shared memory, its bytes, the slices, the CTAs a
+// slice; vec: 1 for the float4 path (D/2 % 4 == 0, operands aligned).
+extern "C" int rspmm_rotate_fwd_plan(int vec, int num_relations,
+                                     int num_features, int num_x_rows,
+                                     int num_segments, int* out) {
+  const staged::Plan p = seg_plan<false>(vec != 0, num_relations,
+                                         num_features, num_x_rows,
+                                         num_segments);
+  out[0] = p.slice;
+  out[1] = p.shared_rel ? 1 : 0;
+  out[2] = static_cast<int>(p.smem);
+  out[3] = p.slices;
+  out[4] = p.ctas_per_slice;
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -653,8 +654,10 @@ extern "C" int rspmm_rotate_bwd(
                        dx_partial, num_segments, num_edges,   num_relations,
                        num_features, half};
     const staged::Plan p =
-        dx_plan(vec, num_relations, num_features, num_rows, num_segments);
-    err = launch_dx(vec, p, a, long_rows, long_ptr, num_long_rows, s);
+        seg_plan<true>(vec, num_relations, num_features, num_rows,
+                       num_segments);
+    err = launch_seg_rows<true>(vec, p, a, long_rows, long_ptr, num_long_rows,
+                                s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (dr != nullptr && num_relations > 0) {
@@ -679,7 +682,8 @@ extern "C" int rspmm_rotate_plan(int vec, int num_relations, int num_features,
                                  int num_rows, int num_segments,
                                  int num_chunks, int* out) {
   const staged::Plan plans[2] = {
-      dx_plan(vec != 0, num_relations, num_features, num_rows, num_segments),
+      seg_plan<true>(vec != 0, num_relations, num_features, num_rows,
+                     num_segments),
       dr_plan(vec != 0, num_features, num_rows, num_chunks)};
   for (int i = 0; i < 2; ++i) {
     out[5 * i] = plans[i].slice;

@@ -1,7 +1,7 @@
 // Row-gather device code shared by the rspmm kernels (row_gather serves
-// K1h in rspmm_fwd.cu, K2h's dx pass in rspmm_bwd.cu and the K1 ladder in
-// rspmm_ladder.cu; the Lanes helpers, relation_sums and long_row_sums also
-// serve K1 and K2 in rspmm_staged.cuh, K3 in rspmm_transe_bwd.cu, K4,
+// K1h in rspmm_fwd.cu and the K1 ladder in rspmm_ladder.cu; the Lanes
+// helpers, relation_sums and long_row_sums also serve K1, K2 and K2h in
+// rspmm_staged.cuh, K3 in rspmm_transe_bwd.cu, K4,
 // K6/K7 and K5, K6b/K7b in rspmm_pna_*.cu and K8f/K8b in rspmm_rotate.cu):
 //
 //     out[v, :] = sum over e in [rowptr[v], rowptr[v+1]) of
@@ -155,17 +155,23 @@ __device__ __forceinline__ Lanes<W> load_lanes(const float* p) {
   return out;
 }
 
+// eight bf16 lanes packed in 16 bytes, widened to fp32
+__device__ __forceinline__ Lanes<8> widen_lanes(uint4 t) {
+  Lanes<8> out;
+  const uint32_t pairs[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {  // little-endian: lane 2k in the low half
+    out.v[2 * k] = __uint_as_float(pairs[k] << 16);
+    out.v[2 * k + 1] = __uint_as_float(pairs[k] & 0xffff0000u);
+  }
+  return out;
+}
+
 template <int W>
 __device__ __forceinline__ Lanes<W> load_lanes(const bf16* p) {
   Lanes<W> out;
   if constexpr (W == 8) {
-    const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
-    const uint32_t pairs[4] = {t.x, t.y, t.z, t.w};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {  // little-endian: lane 2k in the low half
-      out.v[2 * k] = __uint_as_float(pairs[k] << 16);
-      out.v[2 * k + 1] = __uint_as_float(pairs[k] & 0xffff0000u);
-    }
+    out = widen_lanes(__ldg(reinterpret_cast<const uint4*>(p)));
   } else {
     static_assert(W == 1, "bf16 rows load 8 lanes or 1");
     const unsigned short b = __ldg(reinterpret_cast<const unsigned short*>(p));

@@ -1,5 +1,5 @@
-// Hub-aware, slice-major row sums of K1 (rspmm_fwd.cu) and K2 (rspmm_bwd.cu),
-// by hand for Hopper.
+// Hub-aware, slice-major row sums of K1 (rspmm_fwd.cu) and K2 and K2h
+// (rspmm_bwd.cu), by hand for Hopper.
 //
 //   staged_rows:    out[row of item i, slice] = sum over the item's edges e
 //                   of w_e * msg(rel[etype_e, slice], x[col_e, slice])
@@ -47,10 +47,20 @@
 //    shared counter (an integer atomic): each sum is one stream's or one
 //    warp's in a fixed order, whichever takes it, so two calls give
 //    bitwise-equal outputs. No float atomics.
+//
+// Operands: the kernels, plans and launchers take the operand type In,
+// fp32 (K1, K2) or bf16 (K2h: rel, x and g bf16, weights, sums and outputs
+// fp32). A bf16 slice holds kBf16RowsSlice (staged_rows) or
+// kBf16ChunksSlice (staged_chunks) features of 8 lanes a thread (one
+// 16-byte load); the rel slice is staged in the operand type (121 KB at
+// R = 474 for 128 bf16 features) and widened where it is used. Gathered
+// bf16 lanes stay packed until they are used, and products are taken in
+// fp32 from the widened values.
 
 #pragma once
 
 #include <algorithm>
+#include <type_traits>
 
 #include "rspmm_rows.cuh"
 
@@ -65,6 +75,13 @@ namespace {
 // scalar path (F % 4 != 0) takes 32 one-float lanes
 constexpr int kSlice = 64;
 constexpr int kScalarSlice = 32;
+// features of a bf16 slice on the vector path (8 lanes a thread), picked by
+// timing in turns on the card (PERF.md): staged_rows 128 (256-byte rows, as
+// an fp32 slice; 64, with the rel slice widened to fp32, was 19 % slower),
+// staged_chunks 64 (four edge streams a warp; 128 was 10 % slower, 32
+// 52 %)
+constexpr int kBf16RowsSlice = 128;
+constexpr int kBf16ChunksSlice = 64;
 // one CTA of 1,024 threads an SM (64 registers each), whose rel slice may
 // take all of the SM's shared memory (121 KB at R = 474)
 constexpr int kThreads = 1024;
@@ -77,6 +94,18 @@ constexpr int kRowInFlight = 8;
 constexpr int kRelSmemBytes = 227 * 1024 - 512;
 // the gathered slices that the CTAs in flight may touch together
 constexpr int64_t kL2Bytes = 24ll << 20;
+
+// features a slice of staged_rows and of staged_chunks on the vector path
+// for operands of type In
+template <typename In>
+constexpr int rows_slice() {
+  return std::is_same_v<In, float> ? kSlice : kBf16RowsSlice;
+}
+template <typename In>
+constexpr int chunks_slice() {
+  return std::is_same_v<In, float> ? kSlice : kBf16ChunksSlice;
+}
+
 
 // w_out[e] = weight[eid[e]]
 __global__ void gather_weights(const int* __restrict__ eid,
@@ -139,6 +168,51 @@ __device__ __forceinline__ Lanes<W> load_shared(const float* p) {
   return out;
 }
 
+// W bf16 lanes of a staged rel slice, widened to fp32 (W = 8: one 16-byte
+// load)
+template <int W>
+__device__ __forceinline__ Lanes<W> load_shared(const bf16* p) {
+  if constexpr (W == 8) {
+    return widen_lanes(*reinterpret_cast<const uint4*>(p));
+  } else {
+    Lanes<W> out;
+    out.v[0] = __bfloat162float(*p);
+    return out;
+  }
+}
+
+// the 16 bytes (W = 8) or the element (W = 1) of bf16 lanes, as they lie
+template <int W>
+using RawLanes = std::conditional_t<W == 8, uint4, unsigned short>;
+
+// W lanes of a gathered row as they arrive: fp32 lanes, or bf16 lanes
+// packed as they lie, widened where they are used (widen), so that a
+// thread's gathers in flight take 4 registers an edge either way (widened
+// at the load, K2h's passes spilled 160-536 bytes: PERF.md)
+template <typename In, int W>
+using Gathered =
+    std::conditional_t<std::is_same_v<In, float>, Lanes<W>, RawLanes<W>>;
+
+template <int W, typename In>
+__device__ __forceinline__ Gathered<In, W> gather(const In* p) {
+  if constexpr (std::is_same_v<In, float>) {
+    return load_lanes<W>(p);
+  } else {
+    return __ldg(reinterpret_cast<const RawLanes<W>*>(p));
+  }
+}
+
+template <int W>
+__device__ __forceinline__ const Lanes<W>& widen(const Lanes<W>& v) {
+  return v;
+}
+__device__ __forceinline__ Lanes<8> widen(uint4 t) { return widen_lanes(t); }
+__device__ __forceinline__ Lanes<1> widen(unsigned short b) {
+  Lanes<1> out;
+  out.v[0] = __uint_as_float(static_cast<uint32_t>(b) << 16);
+  return out;
+}
+
 // s_rel[r * W * G + c] = rel[r, f0 + c] for the W * G features of the slice
 // at f0 (those below F), every relation, by the CTA's THREADS threads:
 // kRowInFlight loads in flight a thread, so that the slice (121 KB at
@@ -166,14 +240,15 @@ __device__ __forceinline__ void stage_rel(float* s_rel, const float* rel,
   }
 }
 
+template <typename In>
 struct Rows {
   const int* seg_ptr;  // [S + 1] the items' edge ranges
   const int* seg_out;  // [S] row (>= 0) or ~partial slot
   const int* col;      // [E] the gathered row of each edge
   const int* etype;    // [E]
   const float* w;      // [E] each edge's weight, in this order
-  const float* rel;    // [R, F]
-  const float* x;      // [V_in, F] (K2's dx pass: g)
+  const In* rel;       // [R, F]
+  const In* x;         // [V_in, F] (K2's dx pass: g)
   float* out;          // [V, F]
   float* partial;      // [P, F] the long rows' partial rows
   int num_segments;
@@ -193,16 +268,16 @@ __device__ __forceinline__ int draw_item(int* next, bool draw, int lane,
   return __shfl_sync(0xffffffffu, item, lane - lane % G);
 }
 
-// MODE kMulRel or kAddRel; W lanes a thread, G threads a stream, each
-// stream one item at a time, kIn edges an iteration
-template <int MODE, int W, int G, bool kSharedRel>
-__global__ void __launch_bounds__(kThreads, 1) staged_rows(Rows a) {
+// MODE kMulRel or kAddRel (K1, K2), kMulScaled (K2h); W lanes a thread, G
+// threads a stream, each stream one item at a time, kIn edges an iteration
+template <int MODE, int W, int G, bool kSharedRel, typename In>
+__global__ void __launch_bounds__(kThreads, 1) staged_rows(Rows<In> a) {
   constexpr int S = W * G;
   // the gathered-rel branch loads two rows an edge
   constexpr int kIn = kSharedRel ? kRowInFlight : kRowInFlight / 2;
   static_assert(kIn <= G, "a stream's lanes hold an iteration's edges");
   extern __shared__ float4 smem[];
-  float* s_rel = reinterpret_cast<float*>(smem);
+  In* s_rel = reinterpret_cast<In*>(smem);
   __shared__ int s_range[2];
   __shared__ int s_next;
   const int lane = threadIdx.x & 31;
@@ -212,7 +287,29 @@ __global__ void __launch_bounds__(kThreads, 1) staged_rows(Rows a) {
   const int f0 = blockIdx.y * S;  // the slice's first feature
   const int f = f0 + t * W;       // this thread's first feature
   const bool on = f < F;          // F % W == 0 on the vector path
-  if constexpr (kSharedRel) {
+  if constexpr (kSharedRel && std::is_same_v<In, bf16>) {
+    // bf16 rows staged as they lie, 16 bytes a load: stage_rel's loop
+    using Raw = RawLanes<W>;
+    const int n = a.num_relations * G;
+    for (int i0 = threadIdx.x; i0 < n; i0 += kRowInFlight * kThreads) {
+      Raw v[kRowInFlight];
+#pragma unroll
+      for (int u = 0; u < kRowInFlight; ++u) {
+        const int i = i0 + u * kThreads, c = (i % G) * W;
+        if (i < n && f0 + c < F) {
+          v[u] = __ldg(reinterpret_cast<const Raw*>(a.rel + (i / G) * F64 +
+                                                    f0 + c));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kRowInFlight; ++u) {
+        const int i = i0 + u * kThreads, c = (i % G) * W;
+        if (i < n && f0 + c < F) {
+          *reinterpret_cast<Raw*>(s_rel + (i / G) * S + c) = v[u];
+        }
+      }
+    }
+  } else if constexpr (kSharedRel) {
     // kRowInFlight loads in flight a thread: the slice (121 KB at R = 474)
     // arrives in about one memory latency, not one per row a thread (the
     // loop of stage_rel, kept in place so that K1's and K2's compiled code
@@ -266,18 +363,18 @@ __global__ void __launch_bounds__(kThreads, 1) staged_rows(Rows a) {
   float acc[W] = {};
   while (__any_sync(0xffffffffu, item < last)) {
     const int n = item < last ? min(kIn, end - pos) : 0;
-    Lanes<W> xv[kIn];
-    Lanes<W> rv[kSharedRel ? 1 : kIn];
+    Gathered<In, W> xv[kIn];
+    Gathered<In, W> rv[kSharedRel ? 1 : kIn];
 #pragma unroll
     for (int u = 0; u < kIn; ++u) {
       const int c = __shfl_sync(0xffffffffu, m_col, u, G);
       if constexpr (kSharedRel) {
-        if (on && u < n) xv[u] = load_lanes<W>(a.x + c * F64 + f);
+        if (on && u < n) xv[u] = gather<W>(a.x + c * F64 + f);
       } else {
         const int r = __shfl_sync(0xffffffffu, m_type, u, G);
         if (on && u < n) {
-          xv[u] = load_lanes<W>(a.x + c * F64 + f);
-          rv[u] = load_lanes<W>(a.rel + r * F64 + f);
+          xv[u] = gather<W>(a.x + c * F64 + f);
+          rv[u] = gather<W>(a.rel + r * F64 + f);
         }
       }
     }
@@ -313,10 +410,11 @@ __global__ void __launch_bounds__(kThreads, 1) staged_rows(Rows a) {
         const int r = __shfl_sync(0xffffffffu, m_type, u, G);
         if (on && u < n) {
           accumulate<MODE, float, W>(
-              acc, load_shared<W>(s_rel + r * S + (f - f0)), xv[u], we);
+              acc, load_shared<W>(s_rel + r * S + (f - f0)), widen(xv[u]),
+              we);
         }
       } else if (on && u < n) {
-        accumulate<MODE, float, W>(acc, rv[u], xv[u], we);
+        accumulate<MODE, float, W>(acc, widen(rv[u]), widen(xv[u]), we);
       }
     }
     if (done) {
@@ -343,26 +441,29 @@ __global__ void __launch_bounds__(kThreads, 1) staged_rows(Rows a) {
 // warp loads with one coalesced load each, and the streams' sums are
 // combined by a fixed butterfly. A chunk's destinations are sorted and lie
 // in one tile, so the streams' g gathers fall on neighbouring rows, often
-// the same one (a destination hub), which one warp's loads share.
+// the same one (a destination hub), which one warp's loads share. bf16
+// operands (K2h) take the bf16 backward's order, x * (g * w).
+template <typename In>
 struct Chunks {
   const int* chunk_ptr;   // [C + 1] the chunks' edge ranges (tile-major)
   const int* chunk_slot;  // [C] each chunk's partial row
   const int* src;         // [E] in tile order
   const int* dst;         // [E]
   const float* w;         // [E] each edge's weight, in tile order
-  const float* x;         // [V, F]
-  const float* g;         // [V, F]
+  const In* x;            // [V, F]
+  const In* g;            // [V, F]
   float* partial;         // [C, F]
   int num_chunks;
   int num_edges;
   int num_features;
 };
 
-template <int W, int G>
+template <int W, int G, typename In>
 __global__ void __launch_bounds__(kThreads, 1)
-staged_chunks(Chunks a) {
+staged_chunks(Chunks<In> a) {
   constexpr int kStreams = 32 / G;
   constexpr int kIn = kRowInFlight / 2;  // two gathers an edge
+  constexpr int kMode = std::is_same_v<In, float> ? kMulRel : kMulScaled;
   __shared__ int s_range[2];
   __shared__ int s_next;
   const int lane = threadIdx.x & 31;
@@ -394,23 +495,25 @@ staged_chunks(Chunks a) {
 #pragma unroll
       for (int u0 = 0; u0 < G; u0 += kIn) {
         if (u0 * kStreams >= n) break;
-        Lanes<W> xv[kIn];
-        Lanes<W> gv[kIn];
+        Gathered<In, W> xv[kIn];
+        Gathered<In, W> gv[kIn];
 #pragma unroll
         for (int u = 0; u < kIn; ++u) {
           const int i = (u0 + u) * kStreams + stream;
           const int s = __shfl_sync(0xffffffffu, m_src, i);
           const int d = __shfl_sync(0xffffffffu, m_dst, i);
           if (on && i < n) {
-            xv[u] = load_lanes<W>(a.x + s * F64 + f);
-            gv[u] = load_lanes<W>(a.g + d * F64 + f);
+            xv[u] = gather<W>(a.x + s * F64 + f);
+            gv[u] = gather<W>(a.g + d * F64 + f);
           }
         }
 #pragma unroll
         for (int u = 0; u < kIn; ++u) {
           const int i = (u0 + u) * kStreams + stream;
           const float we = __shfl_sync(0xffffffffu, m_w, i);
-          if (on && i < n) accumulate<kMulRel, float, W>(acc, xv[u], gv[u], we);
+          if (on && i < n) {
+            accumulate<kMode, float, W>(acc, widen(xv[u]), widen(gv[u]), we);
+          }
         }
       }
     }
@@ -482,26 +585,27 @@ struct Occupancy {
   }
 };
 
-template <int MODE, int W, int G, bool kSharedRel>
+template <int MODE, int W, int G, bool kSharedRel, typename In>
 int rows_resident(size_t smem) {
   static Occupancy occupancy;
-  return occupancy.resident(staged_rows<MODE, W, G, kSharedRel>, smem);
+  return occupancy.resident(staged_rows<MODE, W, G, kSharedRel, In>, smem);
 }
 
-template <int W, int G>
+template <int W, int G, typename In>
 int chunks_resident() {
   static Occupancy occupancy;
-  return occupancy.resident(staged_chunks<W, G>, 0);
+  return occupancy.resident(staged_chunks<W, G, In>, 0);
 }
 
-// p.ctas_per_slice for a pass whose items gather from gathered_rows rows:
-// enough for every CTA that fits on the card (resident) to run while the
-// slices in flight gather at most kL2Bytes, rounded up to whole waves of
-// CTAs, and no more than one a `warps` items (the warps of a CTA)
+// p.ctas_per_slice for a pass whose items gather from gathered_rows rows of
+// elem_bytes an element: enough for every CTA that fits on the card
+// (resident) to run while the slices in flight gather at most kL2Bytes,
+// rounded up to whole waves of CTAs, and no more than one a `warps` items
+// (the warps of a CTA)
 inline void plan_ctas(Plan* p, int resident, int64_t gathered_rows,
-                      int num_items, int warps = kWarps) {
+                      int num_items, int warps = kWarps, int elem_bytes = 4) {
   const int64_t slice_bytes =
-      std::max<int64_t>(1, gathered_rows * p->slice * 4);
+      std::max<int64_t>(1, gathered_rows * p->slice * elem_bytes);
   const int64_t in_flight = std::max<int64_t>(1, kL2Bytes / slice_bytes);
   int64_t k = (resident + in_flight - 1) / in_flight;
   const int64_t waves = (k * p->slices + resident - 1) / resident;
@@ -513,38 +617,41 @@ inline void plan_ctas(Plan* p, int resident, int64_t gathered_rows,
 // The plan of staged_rows over num_items items (K1's or the dx pass's
 // segments) that gather from gathered_rows rows, with rel rows of
 // num_relations in shared memory where they fit
-template <int MODE>
+template <int MODE, typename In>
 Plan rows_plan(bool vec, int num_relations, int num_features,
                int64_t gathered_rows, int num_items) {
+  constexpr int W = vec_lanes<In>(), G = rows_slice<In>() / W;
   Plan p;
-  p.slice = vec ? kSlice : kScalarSlice;
+  p.slice = vec ? rows_slice<In>() : kScalarSlice;
   p.slices = (num_features + p.slice - 1) / p.slice;
-  const size_t rel_bytes = size_t{4} * p.slice * num_relations;
+  const size_t rel_bytes = sizeof(In) * size_t{1} * p.slice * num_relations;
   p.shared_rel = rel_bytes <= size_t{kRelSmemBytes};
   p.smem = p.shared_rel ? rel_bytes : 0;
   int resident;
   if (vec) {
-    resident = p.shared_rel ? rows_resident<MODE, 4, kSlice / 4, true>(p.smem)
-                            : rows_resident<MODE, 4, kSlice / 4, false>(0);
+    resident = p.shared_rel ? rows_resident<MODE, W, G, true, In>(p.smem)
+                            : rows_resident<MODE, W, G, false, In>(0);
   } else {
-    resident = p.shared_rel ? rows_resident<MODE, 1, 32, true>(p.smem)
-                            : rows_resident<MODE, 1, 32, false>(0);
+    resident = p.shared_rel ? rows_resident<MODE, 1, 32, true, In>(p.smem)
+                            : rows_resident<MODE, 1, 32, false, In>(0);
   }
-  plan_ctas(&p, resident, gathered_rows, num_items);
+  plan_ctas(&p, resident, gathered_rows, num_items, kWarps, sizeof(In));
   return p;
 }
 
 // The plan of staged_chunks over num_chunks chunks (x's and g's rows,
 // gathered_rows together)
-inline Plan chunks_plan(bool vec, int num_features, int64_t gathered_rows,
-                        int num_chunks) {
+template <typename In>
+Plan chunks_plan(bool vec, int num_features, int64_t gathered_rows,
+                 int num_chunks) {
+  constexpr int W = vec_lanes<In>(), G = chunks_slice<In>() / W;
   Plan p;
-  p.slice = vec ? kSlice : kScalarSlice;
+  p.slice = vec ? chunks_slice<In>() : kScalarSlice;
   p.slices = (num_features + p.slice - 1) / p.slice;
   p.shared_rel = false;
   p.smem = 0;
-  plan_ctas(&p, vec ? chunks_resident<4, kSlice / 4>() : chunks_resident<1, 32>(),
-            gathered_rows, num_chunks);
+  plan_ctas(&p, vec ? chunks_resident<W, G, In>() : chunks_resident<1, 32, In>(),
+            gathered_rows, num_chunks, kWarps, sizeof(In));
   return p;
 }
 
@@ -598,23 +705,23 @@ inline cudaError_t launch_relation_sums(bool vec, const int* rel_ptr,
 
 // staged_rows over a's items by plan p, then long_row_sums over the long
 // rows
-template <int MODE>
-cudaError_t launch_rows(bool vec, const Plan& p, const Rows& a,
+template <int MODE, typename In>
+cudaError_t launch_rows(bool vec, const Plan& p, const Rows<In>& a,
                         const int* long_rows, const int* long_ptr,
                         int num_long_rows, cudaStream_t stream) {
+  constexpr int W = vec_lanes<In>(), G = rows_slice<In>() / W;
   if (a.num_features <= 0) return cudaGetLastError();
   if (a.num_segments > 0) {
     const dim3 grid(p.ctas_per_slice, p.slices);
     if (vec && p.shared_rel) {
-      staged_rows<MODE, 4, kSlice / 4, true>
-          <<<grid, kThreads, p.smem, stream>>>(a);
+      staged_rows<MODE, W, G, true, In><<<grid, kThreads, p.smem, stream>>>(a);
     } else if (vec) {
-      staged_rows<MODE, 4, kSlice / 4, false>
-          <<<grid, kThreads, 0, stream>>>(a);
+      staged_rows<MODE, W, G, false, In><<<grid, kThreads, 0, stream>>>(a);
     } else if (p.shared_rel) {
-      staged_rows<MODE, 1, 32, true><<<grid, kThreads, p.smem, stream>>>(a);
+      staged_rows<MODE, 1, 32, true, In><<<grid, kThreads, p.smem, stream>>>(
+          a);
     } else {
-      staged_rows<MODE, 1, 32, false><<<grid, kThreads, 0, stream>>>(a);
+      staged_rows<MODE, 1, 32, false, In><<<grid, kThreads, 0, stream>>>(a);
     }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -625,16 +732,18 @@ cudaError_t launch_rows(bool vec, const Plan& p, const Rows& a,
 
 // staged_chunks over a's chunks by plan p, then relation_sums of each
 // relation's partial rows in slot order into dr [R, F]
-inline cudaError_t launch_chunks(bool vec, const Plan& p, const Chunks& a,
-                                 const int* rel_ptr, int num_relations,
-                                 float* dr, cudaStream_t stream) {
+template <typename In>
+cudaError_t launch_chunks(bool vec, const Plan& p, const Chunks<In>& a,
+                          const int* rel_ptr, int num_relations, float* dr,
+                          cudaStream_t stream) {
+  constexpr int W = vec_lanes<In>(), G = chunks_slice<In>() / W;
   if (a.num_features <= 0) return cudaGetLastError();
   if (a.num_chunks > 0) {
     const dim3 grid(p.ctas_per_slice, p.slices);
     if (vec) {
-      staged_chunks<4, kSlice / 4><<<grid, kThreads, 0, stream>>>(a);
+      staged_chunks<W, G, In><<<grid, kThreads, 0, stream>>>(a);
     } else {
-      staged_chunks<1, 32><<<grid, kThreads, 0, stream>>>(a);
+      staged_chunks<1, 32, In><<<grid, kThreads, 0, stream>>>(a);
     }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;

@@ -3,12 +3,19 @@ machine: builds every ``csrc/*.cu`` of both checkouts (ops/cuda_build.py,
 one nvcc per source, all at once), prints each kernel's registers and
 spilled bytes from nvcc's ``-Xptxas -v`` lines, and compares the two
 checkouts' SASS (``cuobjdump -sass``) kernel by kernel, with instruction
-addresses and the hashes in internal-linkage names left out. A redesign
-that must leave other kernels' code as it was shows it here: every kernel
-that both libraries hold should read "identical".
+addresses and the hashes in internal-linkage names left out. Kernels are
+named as ``c++filt`` (or ``cu++filt``) demangles them, without their
+parameter lists. A redesign that must leave other kernels' code as it was
+shows it here: every kernel that both libraries hold should read
+"identical". Where a kernel gained a template argument, ``--rename
+PATTERN=REPLACEMENT`` (a regular expression, ``re.sub``'s replacement;
+repeatable) maps this checkout's name of an instantiation to the parent's,
+so that the two are compared:
 
     python ultra_torchdrug_tpu_torch/diagnostics/build_diff.py \\
-        --parent output/parent --out output/build_diff.txt
+        --parent output/parent --out output/build_diff.txt \\
+        --rename ', float>$=>' \\
+        --rename 'rotate_seg_rows<(.*), true>$=rotate_seg_rows<\\1>'
 
 It needs nvcc and cuobjdump (under CUDA_HOME, default /usr/local/cuda).
 """
@@ -44,21 +51,56 @@ def resources(log: str) -> list:
     return [(m.group(1), int(m.group(3)), int(m.group(2))) for m in found]
 
 
-def sass(lib: str) -> dict:
-    """Kernel name (hashes as H) -> its SASS instructions."""
-    tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin"
-    out = subprocess.run([str(tool / "cuobjdump"), "-sass", lib], check=True,
+TOOLS = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin"
+
+
+def without_parameters(name: str) -> str:
+    """A demangled function name without its trailing parameter list."""
+    if not name.endswith(")"):
+        return name
+    depth = 0
+    for i in range(len(name) - 1, -1, -1):
+        depth += {")": 1, "(": -1}.get(name[i], 0)
+        if depth == 0:
+            return name[:i]
+    return name
+
+
+def demangle(names: list) -> list:
+    """Each mangled name as c++filt (else cu++filt, which writes template
+    values as casts) demangles it, without its parameter list; the names as
+    they are where neither tool runs."""
+    for tool in ("c++filt", str(TOOLS / "cu++filt")):
+        try:
+            out = subprocess.run([tool], input="\n".join(names), check=True,
+                                 capture_output=True, text=True).stdout
+        except (OSError, subprocess.CalledProcessError):
+            continue
+        return [without_parameters(line) for line in out.splitlines()]
+    return names
+
+
+def sass(lib: str, renames=()) -> dict:
+    """Kernel name (demangled, hashes as H, then ``renames`` applied:
+    (pattern, replacement) pairs) -> its SASS instructions."""
+    out = subprocess.run([str(TOOLS / "cuobjdump"), "-sass", lib], check=True,
                          capture_output=True, text=True).stdout
     kernels, name = {}, None
     for line in out.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = re.sub(r"[0-9a-f]{8,}", "H", m.group(1))
+            name = m.group(1)
             kernels[name] = []
         elif name and re.match(r"\s+/\*[0-9a-f]{4}\*/", line):
             kernels[name].append(re.sub(r"/\*[0-9a-f]*\*/", "", line)
                                  .split(";")[0].strip())
-    return kernels
+    named = {}
+    for mangled, readable in zip(list(kernels), demangle(list(kernels))):
+        readable = re.sub(r"[0-9a-f]{8,}", "H", readable)
+        for pattern, replacement in renames:
+            readable = re.sub(pattern, replacement, readable)
+        named[readable] = kernels[mangled]
+    return named
 
 
 def main(argv=None) -> list:
@@ -67,7 +109,12 @@ def main(argv=None) -> list:
                     help="the other checkout (e.g. a git archive of the "
                          "parent commit)")
     ap.add_argument("--out", help="also write the report here")
+    ap.add_argument("--rename", action="append", default=[],
+                    metavar="PATTERN=REPLACEMENT",
+                    help="map this checkout's kernel names to the other's "
+                         "(re.sub on the demangled name); repeatable")
     args = ap.parse_args(argv)
+    renames = [tuple(r.split("=", 1)) for r in args.rename]
     ours, theirs = build(HERE), build(Path(args.parent).resolve())
     lines = []
     for name in sorted(ours):
@@ -78,13 +125,13 @@ def main(argv=None) -> list:
         if name not in theirs:
             lines.append(f"[sass] {name}: only in this checkout")
             continue
-        new, old = sass(ours[name]), sass(theirs[name])
+        new, old = sass(ours[name], renames), sass(theirs[name])
         both = [k for k in new if k in old]
         differ = [k for k in both if new[k] != old[k]]
         lines.append(f"[sass] {name}: {len(both) - len(differ)} of "
                      f"{len(both)} kernels in both identical; differ "
-                     f"{differ}; only here {len(set(new) - set(old))}, only "
-                     f"in the other {len(set(old) - set(new))}")
+                     f"{differ}; only here {sorted(set(new) - set(old))}, "
+                     f"only in the other {sorted(set(old) - set(new))}")
     print("\n".join(lines))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

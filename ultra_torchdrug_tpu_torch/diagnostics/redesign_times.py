@@ -1,7 +1,7 @@
-"""Times of K1 (the rspmm forward), K2 (its distmult backward), K3 (the
-transe backward), K6b and K7b (classic NBFNet's PNA backward), K5 (its max
-and min backward), K8b (its rotate backward) and K9 (the ring shift) on the
-card, beside the PyTorch calls that compute the same functions where there
+"""Times of K1 (the rspmm forward), K2 (its distmult backward), K2h (K2
+with bf16 operands), K3 (the transe backward), K6b and K7b (classic
+NBFNet's PNA backward), K5 (its max and min backward), K8f and K8b (its
+rotate forward and backward) and K9 (the ring shift) on the card, beside the PyTorch calls that compute the same functions where there
 are such, and the host's set-up seconds of the layouts they read, written
 to JSON.
 
@@ -34,6 +34,17 @@ tolerance plus the mass (timing.py::rotate_mass), each half's bound from
 timing.py's GATHER_WORK (K8b's halves K8B_HALVES). The passes' layout is
 read where the tree has one (a tree before K5's staged design has no plan
 for K5).
+
+K2h at F = 4,096 (ULTRA's bf16 training width) on both KGs, whole and each
+half alone, its operands bf16 before the call (the wrapper's cast is then
+a no-op), held first within K2's tolerance (dr: 1e-5 of the largest entry
+where that is more) plus the mass (timing.py::k2_mass on the widened
+values) and bitwise across two calls, each half beside its bound
+(timing.py::k2_half_times: bf16 reads, fp32 writes). K8f (D = 32) at
+F = 512 and 2,048 (classic rotate's eval and training widths) on the
+uniform KG and at 2,048 on bench.py's KG, held within K1's tolerance (the
+absolute one 1e-5 of the largest entry) plus the mass (timing.py::
+k8f_mass) and bitwise across two calls, beside its bound (GATHER_WORK).
 
 K3 at F = 2,048 (the classic transe/pna training width, 64 x 32): the
 whole call and each half alone (dx only, dr only), on chip_smoke.py's
@@ -87,7 +98,8 @@ K5_KINDS = (("K5", "argext", "mul_rel"), ("K5", "argext", "add_rel"))
 ROTATE_DIM = 32  # classic NBFNet's: F = 64 queries x 32
 FB = dict(num_nodes=14541, num_edges=310116, num_relations=237)
 RING_SHARDS = 4
-PARTS = ("setup", "k1", "k2", "pna", "k5", "k8b", "k3", "k9")
+PARTS = ("setup", "k1", "k2", "k2h", "pna", "k5", "k8f", "k8b", "k3", "k9")
+K8F_FEATS = (16 * 32, 64 * 32)  # classic rotate's eval and training widths
 RING_FEATS = (16 * 64, 64 * 64)  # ULTRA eval batch and train step widths
 
 
@@ -238,6 +250,75 @@ def time_k2(torch, timing, bwd, csr, w, label: str) -> dict:
     return out
 
 
+def time_k2h(torch, timing, bwd, csr, w, label: str) -> dict:
+    V, F = csr.src_rowptr.numel() - 1, K2_FEAT
+    R = csr.rel_chunk_ptr.numel() - 1
+    gen = torch.Generator(device=w.device).manual_seed(F + 12)
+    rel, x, g = (torch.randn(s, generator=gen, device=w.device).bfloat16()
+                 for s in ((R, F), (V, F), (V, F)))
+    ops = (csr, w, rel, x, g)
+
+    def k2h(need_dx=True, need_dr=True):
+        return bwd.rspmm_bwd_bf16_cuda(*ops, need_dx, need_dr)
+
+    got, got2 = k2h(), k2h()
+    if not all(torch.equal(a, b) for a, b in zip(got, got2)):
+        raise AssertionError(f"K2h {label}: two calls differ")
+    del got2
+    want = bwd.rspmm_bwd_bf16_plain(*ops)
+    masses = timing.k2_mass(csr, w, *(t.float() for t in (rel, x, g)))
+    err = max(timing.assert_mass_close(
+        a, b, m, 1e-5, atol, f"K2h {label} {half}")
+        for a, b, m, half, atol in zip(
+            got, want, masses, ("dx", "dr"),
+            (1e-4, max(1e-4, 1e-5 * want[1].abs().max().item()))))
+    del got, want, masses
+    bound_ms, bound_by = timing.roofline_ms(
+        timing.edge_bytes(w.numel()) + (x.numel() + g.numel() + rel.numel())
+        * 2 + (x.numel() + rel.numel()) * 4, 6 * w.numel() * F)
+    out = dict(V=V, E=int(csr.src_dst.numel()), R=R, F=F, max_abs_err=err,
+               ms=timing.cuda_time_ms(k2h, 20), bound_ms=bound_ms,
+               bound_by=bound_by, **timing.k2_half_times(k2h, ops))
+    if hasattr(bwd, "k2h_plan"):
+        out["plan"] = bwd.k2h_plan(csr, F)
+    _show(f"K2h {label}", out)
+    return out
+
+
+def time_k8f(torch, timing, fwd, csr, w, F: int, label: str) -> dict:
+    V, R = csr.rowptr.numel() - 1, csr.rel_chunk_ptr.numel() - 1
+    gen = torch.Generator(device=w.device).manual_seed(F + 13)
+    x = torch.randn((V, F), generator=gen, device=w.device)
+    rel = torch.randn((R, F), generator=gen, device=w.device)
+    ops = (csr.rowptr, csr.src, csr.etype, csr.eid, w, rel, x)
+    # a tree whose K8f reads no segments takes none
+    segmented = hasattr(fwd, "k8f_plan")
+    kw = {"segments": csr.segments} if segmented else {}
+
+    def k8f():
+        return fwd.rotate_fwd_cuda(*ops, ROTATE_DIM, **kw)
+
+    got, got2 = k8f(), k8f()
+    if not torch.equal(got, got2):
+        raise AssertionError(f"K8f {label}: two calls differ")
+    del got2
+    want = fwd.rspmm_fwd_plain(*ops, "rot_rel", ROTATE_DIM)
+    err = timing.assert_mass_close(
+        got, want, timing.k8f_mass(ops, ROTATE_DIM), 1e-5,
+        1e-5 * max(1.0, want.abs().max().item()), f"K8f {label}")
+    del got, want
+    bound_ms, bound_by = timing.gather_bound_ms("K8f", w, rel, x)
+    out = dict(V=V, E=int(csr.src.numel()), R=R, F=F, dim=ROTATE_DIM,
+               max_abs_err=err,
+               ms=timing.cuda_time_ms(k8f, 50 if F <= 512 else 20),
+               bound_ms=bound_ms, bound_by=bound_by)
+    if segmented:
+        out["plan"] = fwd.k8f_plan(R, F, V, csr.seg_ptr.numel() - 1,
+                                   ROTATE_DIM)
+    _show(f"K8f {label} F={F}", out)
+    return out
+
+
 def time_pna(torch, timing, pna, csr, w, kid: str, kind: str, mode: str,
              label: str) -> dict:
     V, F = csr.src_rowptr.numel() - 1, PNA_FEAT
@@ -377,7 +458,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--kernels", nargs="+", default=list(PARTS),
                     choices=PARTS,
                     help="what to time (default: all): the set-up seconds, "
-                         "K1, K2, K6b and K7b, K5, K8b, K3, K9")
+                         "K1, K2, K2h, K6b and K7b, K5, K8f, K8b, K3, K9")
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -434,6 +515,11 @@ def main(argv=None) -> dict:
                                        "uniform KG")
         result["k2_hub"] = time_k2(torch, timing, bwd, hub_csr, hub_w,
                                    "bench.py's KG")
+    if "k2h" in parts:
+        result["k2h_uniform"] = time_k2h(torch, timing, bwd, uni_csr, uni_w,
+                                         "uniform KG")
+        result["k2h_hub"] = time_k2h(torch, timing, bwd, hub_csr, hub_w,
+                                     "bench.py's KG")
     torch.cuda.empty_cache()
     kinds = (PNA_KINDS if "pna" in parts else ()) + (
         K5_KINDS if "k5" in parts else ())
@@ -446,6 +532,13 @@ def main(argv=None) -> dict:
                              "uniform KG" if key == "uniform"
                              else "bench.py's KG"))
                 torch.cuda.empty_cache()
+    if "k8f" in parts:
+        result["k8f_uniform"] = [
+            time_k8f(torch, timing, fwd, uni_csr, uni_w, F, "uniform KG")
+            for F in K8F_FEATS]
+        result["k8f_hub"] = time_k8f(torch, timing, fwd, hub_csr, hub_w,
+                                     K8F_FEATS[1], "bench.py's KG")
+        torch.cuda.empty_cache()
     if "k8b" in parts:
         for key, csr, w in (("uniform", uni_csr, uni_w),
                             ("hub", hub_csr, hub_w)):

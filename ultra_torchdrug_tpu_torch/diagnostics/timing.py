@@ -181,21 +181,21 @@ def assert_mass_close(got, want, mass, rtol: float, atol: float,
 
 
 def k2_half_times(k2, operands, iters: int = 20) -> dict:
-    """K2's halves each alone, ``k2(need_dx, need_dr)``, and each half's
-    bound: dx reads the edges, g and rel and writes dx, dr reads the edges,
-    x and g and writes dr, 3 operations an edge and feature each. Keys
-    ms_dx, ms_dr, bound_ms_dx, bound_ms_dr. ``operands`` is K2's (csr, w,
-    rel, x, g)."""
+    """K2's (or K2h's) halves each alone, ``k2(need_dx, need_dr)``, and each
+    half's bound: dx reads the edges, g and rel and writes dx, dr reads the
+    edges, x and g and writes dr (operands of their own size, 2 B for K2h's
+    bf16; fp32 outputs), 3 operations an edge and feature each. Keys ms_dx,
+    ms_dr, bound_ms_dx, bound_ms_dr. ``operands`` is K2's (csr, w, rel, x,
+    g)."""
     _, w, rel, x, g = operands
-    E, F = w.numel(), x.shape[1]
+    E, F, size = w.numel(), x.shape[1], x.element_size()
     return dict(
         ms_dx=cuda_time_ms(lambda: k2(True, False), iters),
         ms_dr=cuda_time_ms(lambda: k2(False, True), iters),
-        bound_ms_dx=roofline_ms(edge_bytes(E) + (2 * g.numel() + rel.numel())
-                                * 4, 3 * E * F)[0],
-        bound_ms_dr=roofline_ms(edge_bytes(E) + (x.numel() + g.numel()
-                                                 + rel.numel()) * 4,
-                                3 * E * F)[0])
+        bound_ms_dx=roofline_ms(edge_bytes(E) + (g.numel() + rel.numel())
+                                * size + g.numel() * 4, 3 * E * F)[0],
+        bound_ms_dr=roofline_ms(edge_bytes(E) + (x.numel() + g.numel())
+                                * size + rel.numel() * 4, 3 * E * F)[0])
 
 
 # per gather kernel: (node rows read, relation rows read, node rows
@@ -304,6 +304,23 @@ def _conj_product_mass(a, b, dim: int) -> torch.Tensor:
     h = dim // 2
     ar, ai, br, bi = a[..., :h], a[..., h:], b[..., :h], b[..., h:]
     return torch.cat([ar * br + ai * bi, ar * bi + ai * br], -1).flatten(-2)
+
+
+def k8f_mass(operands, dim: int) -> torch.Tensor:
+    """The absolute mass of K8f's sums: Σ |w| · |rel ⊗ x|'s terms into each
+    output entry (_conj_product_mass: the same absolute terms).
+    ``operands`` is K1's (rowptr, src, etype, eid, w, rel, x)."""
+    rowptr, src, etype, eid, w, rel, x = operands
+    w_e = w.index_select(0, eid.long())
+    src, etype = src.long(), etype.long()
+
+    def terms(a, b):
+        return _conj_product_mass(rel.index_select(0, etype[a:b]),
+                                  x.index_select(0, src[a:b]),
+                                  dim) * w_e[a:b, None]
+
+    return _abs_sums(_csr_rows(rowptr), rowptr.numel() - 1, x.shape[1],
+                     terms, src.numel())
 
 
 def rotate_mass(csr, w, rel, x, g, dim: int) -> tuple:

@@ -126,7 +126,8 @@ class _RspmmRotate(torch.autograd.Function):
         ctx.csr, ctx.dim = csr, dim
         ctx.save_for_backward(edge_weight, relation, x)
         return rotate_fwd_cuda(csr.rowptr, csr.src, csr.etype, csr.eid,
-                               edge_weight, relation, x, dim)
+                               edge_weight, relation, x, dim,
+                               segments=csr.segments)
 
     @staticmethod
     def backward(ctx, grad_out):

@@ -32,14 +32,16 @@ complex product over blocks of ``dim`` features (ops/rspmm_cuda.py):
     dx[s] = Σ_{e=(s→v, r)} (conj(rel[r]) ⊗ g[v]) · w[eid_e]
     dr[r] = Σ_{e with type r} (conj(x[s_e]) ⊗ g[v_e]) · w[eid_e]
 
-over the graph's layouts from data/graph.py::Graph.prepare_csr: K2, K3
+over the graph's layouts from data/graph.py::Graph.prepare_csr: K2, K2h, K3
 and K8b read the source-sorted CSR cut into segments of at most 256 edges
 (dx) and the (destination tile, relation) chunks (dr), the Csr's src_seg_*,
-src_long_* and tile_* fields; K2h reads the source-sorted CSR (dx) and the
-relation-sorted chunks (dr). K8b's slices are 32 complex positions whose
-real and imaginary parts lie apart in a row (csrc/rspmm_rotate.cu);
-``k8b_plan`` reports how a shape is laid out. Operands are flat: x, g [V, F],
-relation [R, F], edge_weight [E] in original edge order, all float32.
+src_long_* and tile_* fields. K2h's slices are 128 bf16 features in its
+dx pass and 64 in its dr pass (csrc/rspmm_staged.cuh), K8b's 32 complex
+positions whose real and
+imaginary parts lie apart in a row (csrc/rspmm_rotate.cu); ``k2_plan``,
+``k2h_plan`` and ``k8b_plan`` report how a shape is laid out. Operands are
+flat: x, g [V, F], relation [R, F], edge_weight [E] in original edge order,
+all float32.
 
 ``rspmm_bwd_cuda`` (K2, K3), ``rspmm_bwd_bf16_cuda`` (K2h) and
 ``rotate_bwd_cuda`` (K8b) launch their kernel for CUDA tensors and count
@@ -81,10 +83,11 @@ def _require_backward_layouts(csr):
                          "Graph.prepare_csr(backward=True)")
 
 
-# the first backward design's layouts (K2h), in its argument order
+# the first backward design's layouts, in its argument order: no kernel
+# reads them any more (ROADMAP: their removal from build_csr is a follow-up)
 _LAYOUT = ("src_rowptr", "src_dst", "src_etype", "src_eid", "chunk_ptr",
            "rel_chunk_ptr", "rel_src", "rel_dst", "rel_eid")
-# K2's layouts, in its argument order (K8b's too)
+# K2's layouts, in its argument order (K2h's and K8b's too)
 _K2_LAYOUT = ("src_seg_ptr", "src_seg_out", "src_dst", "src_etype", "src_eid",
               "src_long_rows", "src_long_ptr", "tile_chunk_ptr",
               "tile_chunk_slot", "tile_src", "tile_dst", "tile_eid",
@@ -196,17 +199,28 @@ def rspmm_bwd_cuda(csr, edge_weight, relation, x, grad, need_dx=True,
     if mode == "add_rel":
         return _transe_bwd_cuda(csr, edge_weight, relation, grad, need_dx,
                                 need_dr)
+    return _k2_passes("K2", _kernel(), csr, edge_weight, relation, x, grad,
+                      need_dx, need_dr)
+
+
+def _k2_passes(kid: str, fn, csr, edge_weight, relation, x, grad, need_dx,
+               need_dr, dtype=torch.float32, dim: int = 0):
+    """K2's, K2h's or K8b's two passes (``fn``, rspmm_bwd's arguments; K8b's
+    block width ``dim`` before the stream) over K2's layouts on CUDA
+    operands of ``dtype``; counts one launch of ``kid``. Returns fp32
+    (dx, dr), None for a half that is not needed."""
     num_rows, num_relations, _, num_features = check_bwd_operands(
-        "K2", csr, _K2_LAYOUT, edge_weight, relation, x, {"grad": grad})
+        kid, csr, _K2_LAYOUT, edge_weight, relation, x, {"grad": grad},
+        dtype=dtype)
     num_segments, num_long_rows, num_chunks, num_long_segments = (
-        _segment_counts("K2", csr, num_rows, num_relations))
+        _segment_counts(kid, csr, num_rows, num_relations))
     dx, dr, dr_partial = bwd_outputs(grad, num_relations, num_chunks,
                                      need_dx, need_dr)
-    dx_partial = (grad.new_empty((num_long_segments, num_features))
+    dx_partial = (grad.new_empty((num_long_segments, num_features),
+                                 dtype=torch.float32)
                   if need_dx and num_long_segments else None)
     num_edges = csr.src_dst.numel()
-    w_scratch = grad.new_empty((2 * num_edges,))
-    fn = _kernel()
+    w_scratch = edge_weight.new_empty((2 * num_edges,))
     with torch.cuda.device(grad.device):
         stream = torch.cuda.current_stream(grad.device).cuda_stream
         err = fn(*(getattr(csr, n).data_ptr() for n in _K2_LAYOUT),
@@ -214,11 +228,11 @@ def rspmm_bwd_cuda(csr, edge_weight, relation, x, grad, need_dx=True,
                  grad.data_ptr(), ptr(dx), ptr(dr), w_scratch.data_ptr(),
                  ptr(dx_partial), ptr(dr_partial), num_rows, num_segments,
                  num_long_rows, num_chunks, num_relations, num_edges,
-                 num_features, stream)
+                 num_features, *((dim,) if dim else ()), stream)
     if err != 0:
-        raise RuntimeError(f"K2 (rspmm_bwd) launch failed with CUDA error "
-                           f"{err}")
-    launches["K2"] += 1
+        raise RuntimeError(f"{kid} ({fn.__name__}) launch failed with CUDA "
+                           f"error {err}")
+    launches[kid] += 1
     return dx, dr
 
 
@@ -226,7 +240,7 @@ def _segment_counts(kernel: str, csr, num_rows: int,
                     num_relations: int) -> tuple:
     """(segments, long rows, dr chunks, partial rows of the long rows) of
     the source-row segments and (destination tile, relation) chunks that K2,
-    K3, K5, K6b, K7b and K8b read, after checking that they match."""
+    K2h, K3, K5, K6b, K7b and K8b read, after checking that they match."""
     num_segments = csr.src_seg_ptr.numel() - 1
     num_long_rows = csr.src_long_rows.numel()
     num_chunks = csr.tile_chunk_ptr.numel() - 1
@@ -248,19 +262,35 @@ def k2_plan(csr, num_features: int) -> dict:
     """How K2 lays out its passes over ``csr`` at this width on the card
     (csrc/rspmm_staged.cuh): {"dx": ..., "dr": ...}, each as
     ops/rspmm_cuda.py::k1_plan's (the dr pass reads no rel)."""
+    return _two_pass_plan("rspmm_bwd", "rspmm_k2_plan", csr, num_features,
+                          num_features % 4 == 0)
+
+
+def k2h_plan(csr, num_features: int) -> dict:
+    """How K2h lays out its passes over ``csr`` at this width on the card,
+    as k2_plan's (slices of bf16 features; the 16-byte path needs
+    F % 8 == 0)."""
+    return _two_pass_plan("rspmm_bwd", "rspmm_k2h_plan", csr, num_features,
+                          num_features % 8 == 0)
+
+
+def _two_pass_plan(library: str, name: str, csr, num_features: int,
+                   vec: bool) -> dict:
+    """The layout of a backward kernel on K2's layouts (k2_plan, k2h_plan,
+    k8b_plan) from ``name`` in ``library``, on the 16-byte path where
+    ``vec`` (operands aligned)."""
     num_rows = csr.src_rowptr.numel() - 1
     num_relations = csr.tile_rel_ptr.numel() - 1
-    num_segments, _, num_chunks, _ = _segment_counts("K2", csr, num_rows,
+    num_segments, _, num_chunks, _ = _segment_counts(name, csr, num_rows,
                                                      num_relations)
-    vec = num_features % 4 == 0  # the 16-byte path, operands aligned
     out = (ctypes.c_int * 10)()
-    fn = load_library("rspmm_bwd").rspmm_k2_plan
+    fn = getattr(load_library(library), name)
     fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(int(vec), num_relations, num_features, num_rows, num_segments,
              num_chunks, ctypes.addressof(out))
     if err != 0:
-        raise RuntimeError(f"rspmm_k2_plan failed with CUDA error {err}")
+        raise RuntimeError(f"{name} failed with CUDA error {err}")
     dr = plan_dict(out[5:10])
     dr["rel"] = "none"
     return {"dx": plan_dict(out[:5]), "dr": dr}
@@ -354,26 +384,10 @@ def rspmm_bwd_bf16_cuda(csr, edge_weight, relation, x, grad, need_dx=True,
     if grad.device.type == "cpu":
         return rspmm_bwd_bf16_plain(csr, edge_weight, relation, x, grad,
                                     need_dx, need_dr)
-    device = grad.device
     relation, x, grad = (t.to(torch.bfloat16).contiguous()
                          for t in (relation, x, grad))
-    num_rows, num_relations, num_chunks, num_features = check_bwd_operands(
-        "K2h", csr, _LAYOUT, edge_weight, relation, x, {"grad": grad},
-        dtype=torch.bfloat16)
-    dx, dr, partial = bwd_outputs(grad, num_relations, num_chunks, need_dx,
-                                  need_dr)
-    fn = _bf16_kernel()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*(getattr(csr, n).data_ptr() for n in _LAYOUT),
-                 edge_weight.data_ptr(), relation.data_ptr(), x.data_ptr(),
-                 grad.data_ptr(), ptr(dx), ptr(dr), ptr(partial), num_rows,
-                 num_relations, num_chunks, num_features, stream)
-    if err != 0:
-        raise RuntimeError(f"K2h (rspmm_bwd_k2h) launch failed with CUDA "
-                           f"error {err}")
-    launches["K2h"] += 1
-    return dx, dr
+    return _k2_passes("K2h", _bf16_kernel(), csr, edge_weight, relation, x,
+                      grad, need_dx, need_dr, dtype=torch.bfloat16)
 
 
 def rotate_bwd_plain(csr, edge_weight, relation, x, grad, dim: int,
@@ -407,31 +421,9 @@ def rotate_bwd_cuda(csr, edge_weight, relation, x, grad, dim: int,
     if grad.device.type == "cpu":
         return rotate_bwd_plain(csr, edge_weight, relation, x, grad, dim,
                                 need_dx, need_dr)
-    num_rows, num_relations, _, num_features = check_bwd_operands(
-        "K8b", csr, _K2_LAYOUT, edge_weight, relation, x, {"grad": grad})
-    check_rotate_dim(num_features, dim)
-    num_segments, num_long_rows, num_chunks, num_long_segments = (
-        _segment_counts("K8b", csr, num_rows, num_relations))
-    dx, dr, dr_partial = bwd_outputs(grad, num_relations, num_chunks,
-                                     need_dx, need_dr)
-    dx_partial = (grad.new_empty((num_long_segments, num_features))
-                  if need_dx and num_long_segments else None)
-    num_edges = csr.src_dst.numel()
-    w_scratch = grad.new_empty((2 * num_edges,))
-    fn = _rotate_kernel()
-    with torch.cuda.device(grad.device):
-        stream = torch.cuda.current_stream(grad.device).cuda_stream
-        err = fn(*(getattr(csr, n).data_ptr() for n in _K2_LAYOUT),
-                 edge_weight.data_ptr(), relation.data_ptr(), x.data_ptr(),
-                 grad.data_ptr(), ptr(dx), ptr(dr), w_scratch.data_ptr(),
-                 ptr(dx_partial), ptr(dr_partial), num_rows, num_segments,
-                 num_long_rows, num_chunks, num_relations, num_edges,
-                 num_features, dim, stream)
-    if err != 0:
-        raise RuntimeError(f"K8b (rspmm_rotate_bwd) launch failed with CUDA "
-                           f"error {err}")
-    launches["K8b"] += 1
-    return dx, dr
+    check_rotate_dim(grad.shape[1], dim)
+    return _k2_passes("K8b", _rotate_kernel(), csr, edge_weight, relation, x,
+                      grad, need_dx, need_dr, dim=dim)
 
 
 def k8b_plan(csr, num_features: int, dim: int) -> dict:
@@ -440,22 +432,8 @@ def k8b_plan(csr, num_features: int, dim: int) -> dict:
     as ops/rspmm_cuda.py::k1_plan's, a slice 32 complex positions (64
     floats; the dr pass reads no rel)."""
     check_rotate_dim(num_features, dim)
-    num_rows = csr.src_rowptr.numel() - 1
-    num_relations = csr.tile_rel_ptr.numel() - 1
-    num_segments, _, num_chunks, _ = _segment_counts("K8b", csr, num_rows,
-                                                     num_relations)
-    vec = (dim // 2) % 4 == 0  # the 16-byte path, operands aligned
-    out = (ctypes.c_int * 10)()
-    fn = load_library("rspmm_rotate").rspmm_rotate_plan
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(int(vec), num_relations, num_features, num_rows, num_segments,
-             num_chunks, ctypes.addressof(out))
-    if err != 0:
-        raise RuntimeError(f"rspmm_rotate_plan failed with CUDA error {err}")
-    dr = plan_dict(out[5:10])
-    dr["rel"] = "none"
-    return {"dx": plan_dict(out[:5]), "dr": dr}
+    return _two_pass_plan("rspmm_rotate", "rspmm_rotate_plan", csr,
+                          num_features, (dim // 2) % 4 == 0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -470,7 +448,7 @@ def _rotate_kernel():
 @functools.lru_cache(maxsize=None)
 def _bf16_kernel():
     fn = load_library("rspmm_bwd").rspmm_bwd_k2h
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

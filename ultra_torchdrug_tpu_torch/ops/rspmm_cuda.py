@@ -18,9 +18,10 @@ the RotatE message:
 
 where each block of ``dim`` features holds the real parts in its first
 half and the imaginary parts in its second, and ⊗ is the complex product
-(``rotate_product``). Operands are flat: x [V_in, F], relation [R, F],
-edge_weight [E] in original edge order, all float32; out [V, F] with
-V = len(rowptr) - 1.
+(``rotate_product``); K8f reads K1's segments too, in slices of 32
+complex positions (csrc/rspmm_rotate.cu). Operands are flat: x [V_in, F],
+relation [R, F], edge_weight [E] in original edge order, all float32;
+out [V, F] with V = len(rowptr) - 1.
 
 K1h is K1 with ``compute_dtype=bfloat16`` (rspmm_gather1 with bf16
 operands, :1689-1724): the wrapper casts relation and x to bf16 once per
@@ -31,9 +32,9 @@ weight multiplies it, and the sum and the output stay fp32.
 ``rotate_fwd_cuda`` (K8f) launch their kernel for CUDA tensors and count
 each launch in ``launches``, ``bf16_launches`` and ``rotate_launches``; for
 CPU tensors they run ``rspmm_fwd_plain`` and ``rspmm_fwd_bf16_plain``.
-``k1_plan`` reports how K1 lays out a call (its feature slice and whether
-the relation slice sits in shared memory); ``hub_operands`` makes the hub
-rows its checks on the card use.
+``k1_plan`` and ``k8f_plan`` report how K1 and K8f lay out a call (the
+feature slice and whether the relation slice sits in shared memory);
+``hub_operands`` makes the hub rows their checks on the card use.
 """
 
 from __future__ import annotations
@@ -229,9 +230,23 @@ def rspmm_fwd_cuda(rowptr, src, etype, eid, edge_weight, relation, x,
     if x.device.type == "cpu":
         return rspmm_fwd_plain(rowptr, src, etype, eid, edge_weight, relation,
                                x, mode)
-    device = x.device
     num_rows, num_features = check_fwd_operands(
         "K1", rowptr, src, etype, eid, edge_weight, relation, x)
+    out = _segment_call(_kernel(), "K1", segments, src, etype, eid,
+                        edge_weight, relation, x, num_rows, num_features,
+                        MODES[mode])
+    global launches
+    launches += 1
+    return out
+
+
+def _segment_call(fn, kid: str, segments, src, etype, eid, edge_weight,
+                  relation, x, num_rows: int, num_features: int, last: int):
+    """One call of K1's or K8f's entry point (``fn``: rspmm_fwd_k1's
+    arguments, ``last`` its mode or K8f's block width) over ``segments``,
+    with its output, weights' scratch and partial rows allocated here;
+    raises naming ``kid`` where the call fails. Returns the output."""
+    device = x.device
     if not isinstance(segments, RowSegments):
         raise TypeError(f"segments must be the CSR's RowSegments "
                         f"(Csr.segments), got {type(segments).__name__}")
@@ -245,7 +260,6 @@ def rspmm_fwd_cuda(rowptr, src, etype, eid, edge_weight, relation, x,
     partial = (torch.empty((segments.num_partials, num_features),
                            dtype=torch.float32, device=device)
                if segments.num_partials else None)
-    fn = _kernel()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(segments.seg_ptr.data_ptr(), segments.seg_out.data_ptr(),
@@ -254,12 +268,10 @@ def rspmm_fwd_cuda(rowptr, src, etype, eid, edge_weight, relation, x,
                  edge_weight.data_ptr(), relation.data_ptr(), x.data_ptr(),
                  out.data_ptr(), w_scratch.data_ptr(), ptr(partial),
                  segments.num_segments, segments.num_long_rows, num_edges,
-                 relation.shape[0], x.shape[0], num_features, MODES[mode],
-                 stream)
+                 relation.shape[0], x.shape[0], num_features, last, stream)
     if err != 0:
-        raise RuntimeError(f"rspmm_fwd_k1 launch failed with CUDA error {err}")
-    global launches
-    launches += 1
+        raise RuntimeError(f"{kid} ({fn.__name__}) launch failed with CUDA "
+                           f"error {err}")
     return out
 
 
@@ -269,21 +281,21 @@ def ptr(t):
 
 
 def hub_operands(seed: int, device, V: int = 3000, E: int = 40000,
-                 R: int = 7, duplicated: int = 0) -> tuple:
+                 R: int = 7, duplicated: int = 0, hub: int = 10000) -> tuple:
     """K1's and K2's hub-row checks on the card: a Csr with destination hubs
-    of 10,000 and 1,000 in-edges (rows 0 and 1), source hubs of 10,000 and
-    1,000 out-edges (rows 2, 3), rows of 256 and 257 in- and out-edges
-    (rows 4, 5 and 5, 4; each of 257 is cut into two segments), the last 5
-    rows without edges and the last relation without one; eid a
+    of ``hub`` (10,000) and 1,000 in-edges (rows 0 and 1), source hubs of
+    ``hub`` and 1,000 out-edges (rows 2, 3), rows of 256 and 257 in- and
+    out-edges (rows 4, 5 and 5, 4; each of 257 is cut into two segments),
+    the last 5 rows without edges and the last relation without one; eid a
     permutation; weights in [0.5, 1.5] with a fifth masked to 0, from
     numpy's generator seeded with ``seed``. With ``duplicated`` the first
     that many edges that no planted row holds come twice, with the same
-    weight (K6b's checks: their messages tie exactly). Returns (csr, w) on
-    ``device``."""
+    weight (K6b's checks: their messages tie exactly). E must exceed the
+    planted edges, 2 * hub + 3,026. Returns (csr, w) on ``device``."""
     from ..data.graph import build_csr
 
     rng = np.random.default_rng(seed)
-    planted = {0: (10000, 0), 1: (1000, 0), 2: (0, 10000), 3: (0, 1000),
+    planted = {0: (hub, 0), 1: (1000, 0), 2: (0, hub), 3: (0, 1000),
                4: (256, 257), 5: (257, 256)}
     others = np.arange(len(planted), V - 5)
     src, dst = rng.choice(others, E), rng.choice(others, E)
@@ -362,31 +374,40 @@ def rspmm_fwd_bf16_cuda(rowptr, src, etype, eid, edge_weight, relation, x,
 
 
 def rotate_fwd_cuda(rowptr, src, etype, eid, edge_weight, relation, x,
-                    dim: int) -> torch.Tensor:
-    """K8f on CUDA tensors (rows of blocks ``dim`` wide); the plain version
-    on CPU tensors."""
+                    dim: int, *, segments) -> torch.Tensor:
+    """K8f on CUDA tensors (rows of blocks ``dim`` wide) over K1's
+    destination-row segments (``Csr.segments``, as for rspmm_fwd_cuda); the
+    plain version on CPU tensors, which does not read ``segments``."""
     if x.device.type == "cpu":
         return rspmm_fwd_plain(rowptr, src, etype, eid, edge_weight, relation,
                                x, "rot_rel", dim)
-    device = x.device
     num_rows, num_features = check_fwd_operands(
         "K8f", rowptr, src, etype, eid, edge_weight, relation, x)
     check_rotate_dim(num_features, dim)
-    out = torch.empty((num_rows, num_features), dtype=torch.float32,
-                      device=device)
-    fn = _rotate_kernel()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(rowptr.data_ptr(), src.data_ptr(), etype.data_ptr(),
-                 eid.data_ptr(), edge_weight.data_ptr(), relation.data_ptr(),
-                 x.data_ptr(), out.data_ptr(), num_rows, num_features, dim,
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"K8f (rspmm_rotate_fwd) launch failed with CUDA "
-                           f"error {err}")
+    out = _segment_call(_rotate_kernel(), "K8f", segments, src, etype, eid,
+                        edge_weight, relation, x, num_rows, num_features, dim)
     global rotate_launches
     rotate_launches += 1
     return out
+
+
+def k8f_plan(num_relations: int, num_features: int, num_x_rows: int,
+             num_segments: int, dim: int) -> dict:
+    """How K8f lays out a call of this shape on the card
+    (csrc/rspmm_rotate.cu), as k1_plan's: a slice of 32 complex positions
+    (64 floats), on the float4 path where D/2 % 4 == 0 (operands
+    aligned)."""
+    check_rotate_dim(num_features, dim)
+    out = (ctypes.c_int * 5)()
+    fn = load_library("rspmm_rotate").rspmm_rotate_fwd_plan
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(int((dim // 2) % 4 == 0), num_relations, num_features,
+             num_x_rows, num_segments, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"rspmm_rotate_fwd_plan failed with CUDA error "
+                           f"{err}")
+    return plan_dict(out[:5])
 
 
 @functools.lru_cache(maxsize=None)
@@ -410,7 +431,7 @@ def _bf16_kernel():
 @functools.lru_cache(maxsize=None)
 def _rotate_kernel():
     fn = load_library("rspmm_rotate").rspmm_rotate_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
