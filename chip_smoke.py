@@ -24,7 +24,12 @@ Phases, each of which raises on failure (the script then exits nonzero):
               source row 107,336), hub sums held within K1's or K2's
               tolerance plus 8 fp32 ulps of each entry's absolute mass;
               log each timed shape's slice width and rel branch; hold K6 (the
-              fused max+min, both modes) and K7 (the fused moments,
+              fused max+min, both modes, on K1's segments: exactly, bitwise
+              across two calls, its planes through K6b within the mass
+              tolerance of the plain round trip; also on hub rows of 10^3
+              to 10^5 in-edges with 40 duplicated and weight-0 edges, F =
+              10, 1028, 2048, and with R = 2,000, rel rows gathered, and
+              timed on bench.py's KG) and K7 (the fused moments,
               csrc/rspmm_pna_fwd.cu) and K6b and K7b (their backward,
               csrc/rspmm_pna_bwd.cu, bitwise across two calls and by half)
               against their plain versions at ragged shapes and at F=512
@@ -59,14 +64,14 @@ Phases, each of which raises on failure (the script then exits nonzero):
               at F=512 and F=2048 with D=32, shared and per-batch
               relations, and time each, K8b also by half, both on
               bench.py's KG; hold K1h and K2h (the bf16 operand
-              mode, csrc/rspmm_fwd.cu and csrc/rspmm_bwd.cu; K2h bitwise
+              mode, csrc/rspmm_fwd.cu and csrc/rspmm_bwd.cu, both bitwise
               across two calls) against their plain versions at ragged
               shapes (F not a multiple of 8 takes the scalar path), shared
-              and per-batch relations, K2h also on hub rows of 10^3 to
+              and per-batch relations, both also on hub rows of 10^3 to
               10^5 edges (R = 7 and 2,000; 40 duplicated edges) within the
-              mass tolerance and by half, and at F=1024 (K1h) and F=4096
+              mass tolerance (K2h by half), and at F=1024 (K1h) and F=4096
               (both), and time each beside K1 and K2 on the same values,
-              K2h also by half and on bench.py's KG;
+              K2h also by half, both on bench.py's KG;
               hold K9 (the ring shift, csrc/ring_shift.cu) bitwise against
               its plain version at ragged shapes (misaligned blocks and
               byte tails; blocks of whole and of partial CTAs), fp32 and
@@ -200,6 +205,7 @@ try:
         gather_bound_ms,
         k1_bound_ms,
         k1_mass,
+        k1h_sums64,
         k2_half_times,
         k2_mass,
         k8f_mass,
@@ -789,16 +795,13 @@ def phase_kernels_pna(und, device) -> dict:
                  ("K7b", "moments", "mul_rel"))
 
     def check_fwd(kid, kind, mode, ops, label):
+        if kid == "K6":  # exact: no difference to report
+            return check_k6_exact(ops, mode, label), 0.0
         got = pna.pna_fwd_cuda(kind, *ops, mode)
         want = pna.pna_fwd_plain(kind, *ops, mode)
         torch.cuda.synchronize()
         for a, b in zip(got, want):
-            if kid == "K6":
-                if not torch.equal(a, b):
-                    raise AssertionError(f"{kid} {mode} {label}: differs from "
-                                         "its plain version")
-            else:
-                torch.testing.assert_close(a, b, **tol)
+            torch.testing.assert_close(a, b, **tol)
         err = max((a - b).abs().max().item() for a, b in zip(got, want))
         log(f"[kernels] {kid} {mode} {label}: max_abs_err {err:.3g}")
         return got, err
@@ -830,6 +833,14 @@ def phase_kernels_pna(und, device) -> dict:
         for F in feats:
             for kid, kind, mode in bwd_kinds:
                 check_pna_hub(kid, kind, mode, F, R, seed, device)
+    # K6 on its hub rows (10^3 and 10^4 in-edges, 256 and 257, 40
+    # duplicated edges, weight-0 edges, rows without edges): F = 10 the
+    # scalar path, 1028 a ragged last slice, 2048 the training width; R =
+    # 2,000 rel rows gathered (F = 13 scalar, 132 float4); a hub of 10^5
+    for seed, R, feats in ((20, 7, (10, 1028, 2048)), (21, 2000, (13, 132))):
+        for F in feats:
+            check_k6_hub(F, R, seed, device)
+    check_k6_hub(64, 7, 22, device, hub=100000)
 
     # (b) the main path's shapes on the FB-sized graph: F = 16 x 32 (eval)
     # for the forwards, F = 64 x 32 (training) for all four
@@ -869,6 +880,12 @@ def phase_kernels_pna(und, device) -> dict:
                 "PyTorch call computes this function)")
             keys = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bound_ms, bound_by=bound_by)
+            if kid == "K6":
+                keys["plan"] = pna.pna_fwd_plan(
+                    und.num_relations, F, und.num_nodes,
+                    ops[0].seg_ptr.numel() - 1, mode)
+                log(f"[kernels] K6 {mode} {label}: "
+                    + plan_text(keys["plan"]))
             if mode != "mul_rel":  # the main path is distmult
                 entries[kid].update({f"ms_{mode}_{which}": ms,
                                      f"max_abs_err_{mode}_{which}": err})
@@ -893,8 +910,105 @@ def phase_kernels_pna(und, device) -> dict:
         torch.cuda.empty_cache()
     for kid, hub in phase_pna_hub(device).items():
         entries[kid].update(hub)
+    entries["K6"].update(phase_k6_hub(device))
     log('[kernels] kernels ["K6", "K7", "K6b", "K7b"]')
     return entries
+
+
+def check_k6_exact(ops, mode: str, label: str) -> tuple:
+    """K6 on ``ops`` (csr, w, rel, x) against its plain version: equal under
+    == (a zero's sign may differ: fmaxf picks either of -0 and +0), two
+    calls bitwise equal, rows without edges 0; then the round trip into
+    K6b: the card's planes through K6b give the plain K6b's gradients on
+    the plain planes within the backward's tolerance plus 8 fp32 ulps of
+    each entry's absolute mass (the gate sees the same ties). Returns
+    (mx, mn)."""
+    from ultra_torchdrug_tpu_torch.ops import rspmm_pna_cuda as pna
+
+    got = pna.pna_fwd_cuda("maxmin", *ops, mode)
+    again = pna.pna_fwd_cuda("maxmin", *ops, mode)
+    want = pna.pna_fwd_plain("maxmin", *ops, mode)
+    torch.cuda.synchronize()
+    csr = ops[0]
+    no_dst = (csr.rowptr[1:] == csr.rowptr[:-1]).nonzero()
+    for a, b, c in zip(got, again, want):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"K6 {mode} {label}: two calls differ")
+        if not torch.equal(a, c):
+            raise AssertionError(f"K6 {mode} {label}: differs from its plain "
+                                 "version")
+        if not torch.all(a[no_dst] == 0):
+            raise AssertionError(f"K6 {mode} {label}: rows without edges")
+    del again
+    gen = torch.Generator(device=ops[3].device).manual_seed(
+        ops[3].shape[1] + 31)
+    g = [torch.randn(ops[3].shape, generator=gen, device=ops[3].device)
+         for _ in range(2)]
+    dx, dr = pna.pna_bwd_cuda("argext_pair", *ops, (g[0], got[0], g[1],
+                                                    got[1]), mode)
+    plain = (g[0], want[0], g[1], want[1])
+    err = 0.0
+    for a, b, mass in zip((dx, dr), pna.pna_bwd_plain("argext_pair", *ops,
+                                                      plain, mode),
+                          pna_mass("argext_pair", *ops, plain, mode)):
+        atol = max(1e-4, 1e-5 * b.abs().max().item())
+        err = max(err, assert_mass_close(a, b, mass, 1e-5, atol,
+                                         f"K6 -> K6b {mode} {label}"))
+    log(f"[kernels] K6 {mode} {label}: equal to its plain version, bitwise "
+        f"equal across two calls; K6 -> K6b max_abs_err {err:.3g} within "
+        "the mass tolerance")
+    return got
+
+
+def check_k6_hub(F: int, R: int, seed: int, device, hub: int = 10000):
+    """K6 in both modes on ops/rspmm_cuda.py::hub_operands' hub rows
+    (destination hubs of ``hub`` and 1,000 edges, 40 duplicated edges,
+    post-ReLU x) at width F with R relations, held by check_k6_exact; logs
+    the layout."""
+    from ultra_torchdrug_tpu_torch.ops import rspmm_cuda, rspmm_pna_cuda
+
+    csr, w = rspmm_cuda.hub_operands(seed, device, E=max(40000,
+                                                         2 * hub + 20000),
+                                     R=R, duplicated=40, hub=hub)
+    V = csr.rowptr.numel() - 1
+    gen = torch.Generator(device=device).manual_seed(seed + F)
+    rel = torch.randn((R, F), generator=gen, device=device)
+    x = torch.randn((V, F), generator=gen, device=device).clamp_(min=0)
+    label = f"hub rows of {hub} edges R={R} F={F}"
+    for mode in ("mul_rel", "add_rel"):
+        check_k6_exact((csr, w, rel, x), mode, label)
+    log(f"[kernels] K6 {label}: "
+        + plan_text(rspmm_pna_cuda.pna_fwd_plan(
+            R, F, V, csr.seg_ptr.numel() - 1)))
+
+
+def phase_k6_hub(device) -> dict:
+    """K6 (both modes) at F = 64 x 32 on bench.py's heavy-tailed KG
+    (bench_kg_operands: its busiest destination row 107,150 edges), held
+    by check_k6_exact and timed; returns its entry's ``*_hub`` keys."""
+    from ultra_torchdrug_tpu_torch.ops import rspmm_pna_cuda as pna
+
+    F = CLASSIC_TRAIN["batch"] * CLASSIC_FEAT
+    ops, label = bench_kg_operands(F + 15, device)
+    csr, w, rel, x = ops
+    out = {}
+    for mode in ("mul_rel", "add_rel"):
+        check_k6_exact(ops, mode, label)
+        torch.cuda.empty_cache()
+        ms = cuda_time_ms(lambda: pna.pna_fwd_cuda("maxmin", *ops, mode), 20)
+        bound_ms, _ = gather_bound_ms("K6", w, rel, x)
+        plan = pna.pna_fwd_plan(rel.shape[0], F, x.shape[0],
+                                csr.seg_ptr.numel() - 1, mode)
+        log(f"[kernels] K6 {mode} {label}: {ms:.4f} ms (bound "
+            f"{bound_ms:.4f} ms, {bound_ms / ms:.1%} of it); "
+            f"{plan_text(plan)}")
+        suffix = "_hub" if mode == "mul_rel" else f"_{mode}_hub"
+        out.update({f"ms{suffix}": ms, f"max_abs_err{suffix}": 0.0})
+        if mode == "mul_rel":
+            out.update(bound_ms_hub=bound_ms, plan_hub=plan)
+    del ops, csr, w, rel, x
+    torch.cuda.empty_cache()
+    return out
 
 
 def pna_args(kind: str, mode: str, ops, seed: int, device,
@@ -1770,7 +1884,8 @@ def phase_kernels_bf16(und, device) -> dict:
         csr, w, rel, x, _ = ops
         args = (csr.rowptr, csr.src, csr.etype, csr.eid, w, rel, x, mode)
         f32 = (*args[:5], rel.float(), x.float(), mode)
-        return (lambda: fwd.rspmm_fwd_bf16_cuda(*args),
+        return (lambda: fwd.rspmm_fwd_bf16_cuda(*args,
+                                                segments=csr.segments),
                 lambda: fwd.rspmm_fwd_bf16_plain(*args),
                 lambda: fwd.rspmm_fwd_cuda(*f32, segments=csr.segments))
 
@@ -1780,11 +1895,14 @@ def phase_kernels_bf16(und, device) -> dict:
 
     def check_fwd(ops, mode, label):
         kernel, plain, _ = k1h(ops, mode)
-        got, want = kernel(), plain()
+        got, again, want = kernel(), kernel(), plain()
         torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+            raise AssertionError(f"K1h {mode} {label}: two calls differ")
         torch.testing.assert_close(got, want, **tol)
         err = (got - want).abs().max().item()
-        log(f"[kernels] K1h {mode} {label}: max_abs_err {err:.3g}")
+        log(f"[kernels] K1h {mode} {label}: max_abs_err {err:.3g}, bitwise "
+            "equal across two calls")
         return got, err
 
     # (a) small and ragged shapes, (V, E, R, B, D): B·D = 18, 20, 12 and
@@ -1821,6 +1939,15 @@ def phase_kernels_bf16(und, device) -> dict:
         for F in feats:
             check_k2h_hub(F, R, seed, device)
     check_k2h_hub(64, 7, 18, device, hub=100000)
+    # K1h on its hub rows (10^3 and 10^4 in-edges, 256 and 257, 40
+    # duplicated edges): F = 10 and 1028 the scalar path, 64 one slice,
+    # 2056 a ragged last slice, 4096 the training width; R = 2,000 rel rows
+    # gathered; a hub of 10^5
+    for seed, R, feats in ((23, 7, (10, 64, 1028, 2056, 4096)),
+                           (24, 2000, (16, 1032, 132))):
+        for F in feats:
+            check_k1h_hub(F, R, seed, device)
+    check_k1h_hub(64, 7, 25, device, hub=100000)
 
     # (b) the main path's shapes on the FB-sized graph: F = 16 x 64 (eval)
     # for K1h, F = 64 x 64 (training) for both; ULTRA's injected relations
@@ -1863,6 +1990,11 @@ def phase_kernels_bf16(und, device) -> dict:
                 keys = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             bound_ms=bound_ms, bound_by=bound_by,
                             fp32_kernel_ms=fp32_ms)
+                if kid == "K1h":
+                    keys["plan"] = fwd.k1h_plan(
+                        und.num_relations, B * FEAT, und.num_nodes,
+                        ops[0].seg_ptr.numel() - 1)
+                    log(f"[kernels] K1h {label}: " + plan_text(keys["plan"]))
                 if kid in entries:  # K1h's second shape
                     entries[kid].update(
                         {f"{k}_train": v for k, v in keys.items()})
@@ -1880,8 +2012,94 @@ def phase_kernels_bf16(und, device) -> dict:
             del ops, timed
             torch.cuda.empty_cache()
     entries["K2h"].update(phase_k2h_hub(device))
+    entries["K1h"].update(phase_k1h_hub(device))
     log('[kernels] kernels ["K1h", "K2h"]')
     return entries
+
+
+def check_k1h_mass(ops, mode: str, label: str) -> float:
+    """K1h on ``ops`` (csr, w and bf16 rel, x) against its plain version's
+    sums taken in float64 (timing.py::k1h_sums64; the fp32 plain version's
+    own rounding on a row of 10^5 edges reaches the tolerance): K1h's
+    tolerance plus 8 fp32 ulps of each entry's absolute mass
+    (timing.py::k1_mass on the widened values), two calls bitwise equal,
+    rows without in-edges 0. Returns the largest difference."""
+    from ultra_torchdrug_tpu_torch.ops import rspmm_cuda as fwd
+
+    csr, w, rel, x = ops
+    args = (*k1_operands_of(ops), rel, x, mode)
+    got = fwd.rspmm_fwd_bf16_cuda(*args, segments=csr.segments)
+    again = fwd.rspmm_fwd_bf16_cuda(*args, segments=csr.segments)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError(f"K1h {mode} {label}: two calls differ")
+    del again
+    want = k1h_sums64(args[:7], mode)
+    mass = k1_mass((*args[:5], rel.float(), x.float()), mode)
+    err = assert_mass_close(got, want, mass, 1e-5, 1e-5,
+                            f"K1h {mode} {label}")
+    no_dst = (csr.rowptr[1:] == csr.rowptr[:-1]).nonzero()
+    if not torch.all(got[no_dst] == 0):
+        raise AssertionError(f"K1h {mode} {label}: rows without edges")
+    return err
+
+
+def check_k1h_hub(F: int, R: int, seed: int, device,
+                  hub: int = 10000) -> float:
+    """K1h in both modes on ops/rspmm_cuda.py::hub_operands' hub rows
+    (destination hubs of ``hub`` and 1,000 edges, 40 duplicated edges) at
+    width F, R relations, N(0, 1) operands in bf16, held by
+    check_k1h_mass; logs the layout."""
+    from ultra_torchdrug_tpu_torch.ops import rspmm_cuda
+
+    csr, w = rspmm_cuda.hub_operands(seed, device, E=max(40000,
+                                                         2 * hub + 20000),
+                                     R=R, duplicated=40, hub=hub)
+    V = csr.rowptr.numel() - 1
+    gen = torch.Generator(device=device).manual_seed(seed + F)
+    ops = (csr, w, *(torch.randn(s, generator=gen, device=device).bfloat16()
+                     for s in ((R, F), (V, F))))
+    label = f"hub rows of {hub} edges R={R} F={F}"
+    err = max(check_k1h_mass(ops, mode, label)
+              for mode in ("mul_rel", "add_rel"))
+    plan = rspmm_cuda.k1h_plan(R, F, V, csr.seg_ptr.numel() - 1)
+    log(f"[kernels] K1h {label}: max_abs_err {err:.3g} within the mass "
+        f"tolerance, bitwise equal across two calls; {plan_text(plan)}")
+    return err
+
+
+def phase_k1h_hub(device) -> dict:
+    """K1h at F = 64 x 64 (ULTRA's bf16 training width) on bench.py's
+    heavy-tailed KG (its busiest destination row 107,150 edges), held by
+    check_k1h_mass and timed; returns its entry's ``*_hub`` keys."""
+    from ultra_torchdrug_tpu_torch.data.graph import build_csr
+    from ultra_torchdrug_tpu_torch.diagnostics.workloads import build_workload
+    from ultra_torchdrug_tpu_torch.ops import rspmm_cuda as fwd
+
+    tri, _, _ = build_workload(features=False)
+    V, R, E = 15000, 474, len(tri)
+    csr = build_csr(tri[:, 0], tri[:, 1], tri[:, 2], V, R).to(device)
+    F = TRAIN["batch"] * FEAT
+    gen = torch.Generator(device=device).manual_seed(F + 16)
+    w = torch.rand((E,), generator=gen, device=device) + 0.5
+    w = w * (torch.rand((E,), generator=gen, device=device) >= 0.2)
+    ops = (csr, w, *(torch.randn(s, generator=gen, device=device).bfloat16()
+                     for s in ((R, F), (V, F))))
+    label = f"bench.py's KG V={V} E={E} R={R} F={F}"
+    err = check_k1h_mass(ops, "mul_rel", label)
+    torch.cuda.empty_cache()
+    args = (*k1_operands_of(ops), *ops[2:])
+    ms = cuda_time_ms(lambda: fwd.rspmm_fwd_bf16_cuda(
+        *args, "mul_rel", segments=csr.segments), 20)
+    bound_ms, _ = k1_bound_ms(args)
+    plan = fwd.k1h_plan(R, F, V, csr.seg_ptr.numel() - 1)
+    log(f"[kernels] K1h {label}: max_abs_err {err:.3g} within the mass "
+        f"tolerance, bitwise equal across two calls, {ms:.4f} ms (bound "
+        f"{bound_ms:.4f} ms, {bound_ms / ms:.1%} of it); {plan_text(plan)}")
+    del ops, args, csr, w
+    torch.cuda.empty_cache()
+    return dict(ms_hub=ms, max_abs_err_hub=err, bound_ms_hub=bound_ms,
+                plan_hub=plan)
 
 
 def phase_kernels_ring(device) -> dict:

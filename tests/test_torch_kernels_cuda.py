@@ -301,8 +301,8 @@ def test_k1_k2_hub_rows_match_plain(cuda_device, rng, F):
 
 
 def test_k1_k2_run_on_every_card(rng):
-    """K1 (its rel slice above 48 KB of shared memory), K2, K2h and K8f on
-    each card in turn, against their plain versions: the raised
+    """K1 (its rel slice above 48 KB of shared memory), K2, K2h, K8f, K1h
+    and K6 on each card in turn, against their plain versions: the raised
     shared-memory limit and the SM count are kept per device and per
     instantiation (csrc/rspmm_staged.cuh::Occupancy)."""
     if torch.cuda.device_count() < 2:
@@ -321,6 +321,11 @@ def test_k1_k2_run_on_every_card(rng):
     want_rot = rspmm_cuda.rspmm_fwd_plain(
         g.csr.rowptr, g.csr.src, g.csr.etype, g.csr.eid, g.edge_weight, rel,
         x, "rot_rel", 32)
+    want_1h = rspmm_cuda.rspmm_fwd_bf16_plain(
+        g.csr.rowptr, g.csr.src, g.csr.etype, g.csr.eid, g.edge_weight, rel,
+        x, "mul_rel")
+    want_6 = rspmm_pna_cuda.pna_fwd_plain("maxmin", g.csr, g.edge_weight,
+                                          rel, x, "mul_rel")
     for index in range(torch.cuda.device_count()):
         device = torch.device("cuda", index)
         gd = g.to(device)
@@ -341,6 +346,14 @@ def test_k1_k2_run_on_every_card(rng):
             c.rowptr, c.src, c.etype, c.eid, gd.edge_weight, rel.to(device),
             x.to(device), 32, segments=c.segments)
         torch.testing.assert_close(got_rot.cpu(), want_rot, **TOL)
+        got_1h = rspmm_cuda.rspmm_fwd_bf16_cuda(
+            c.rowptr, c.src, c.etype, c.eid, gd.edge_weight, rel.to(device),
+            x.to(device), "mul_rel", segments=c.segments)
+        torch.testing.assert_close(got_1h.cpu(), want_1h, **TOL)
+        got_6 = rspmm_pna_cuda.pna_fwd_cuda(
+            "maxmin", c, gd.edge_weight, rel.to(device), x.to(device),
+            "mul_rel")
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got_6, want_6))
 
 
 @pytest.mark.parametrize("F", [13, 132])
@@ -512,6 +525,61 @@ def _check_fwd(rng, kind, mode, V, E, R, F, cuda_device):
         else:
             torch.testing.assert_close(a, b, **TOL)
         assert torch.all(a[V - 5:] == 0)  # rows without edges write 0
+
+
+# (F, R, hub) of K6's hub rows: F = 10 the scalar path, 64 one slice, 1028
+# a ragged last slice, 2048 the training width; R = 7 the rel slice in
+# shared memory, 2,000 rel rows gathered; hubs of 10^4 and 10^5 edges
+K6_HUB = ([(F, 7, 10000) for F in (10, 64, 1028, 2048)]
+          + [(F, 2000, 10000) for F in (13, 132)] + [(64, 7, 100000)])
+
+
+@pytest.mark.parametrize("F,R,hub", K6_HUB)
+@pytest.mark.parametrize("mode", ["mul_rel", "add_rel"])
+def test_k6_hub_rows_match_plain(cuda_device, mode, F, R, hub):
+    """K6 on K1's destination-row segments: hub rows of ``hub`` and 10^3
+    in-edges, rows of 256 and 257, 40 duplicated edges, weight-0 edges
+    and post-ReLU x (messages tie, zeros of both signs), rows without edges
+    and an empty relation. Equal to the plain version under ==, bitwise
+    equal across two calls, one launch counted a call, rows without edges
+    0; the round trip K6 -> K6b gives the plain gradients within the mass
+    tolerance (K6b's gate sees the same ties)."""
+    seed = F + R + hub
+    csr, w = rspmm_cuda.hub_operands(seed, cuda_device,
+                                     E=max(40000, 2 * hub + 20000), R=R,
+                                     duplicated=40, hub=hub)
+    V = csr.rowptr.numel() - 1
+    rng = np.random.default_rng(seed)
+    rel = _normal(rng, (R, F), cuda_device)
+    x = _normal(rng, (V, F), cuda_device).clamp_(min=0)
+    if F % 4 == 0:
+        plan = rspmm_pna_cuda.pna_fwd_plan(R, F, V, csr.seg_ptr.numel() - 1,
+                                           mode)
+        assert plan["rel"] == ("shared" if R == 7 else "gathered"), plan
+    before = rspmm_pna_cuda.launches["K6"]
+    got = rspmm_pna_cuda.pna_fwd_cuda("maxmin", csr, w, rel, x, mode)
+    again = rspmm_pna_cuda.pna_fwd_cuda("maxmin", csr, w, rel, x, mode)
+    torch.cuda.synchronize()
+    assert rspmm_pna_cuda.launches["K6"] == before + 2
+    want = rspmm_pna_cuda.pna_fwd_plain("maxmin", csr, w, rel, x, mode)
+    no_dst = (csr.rowptr[1:] == csr.rowptr[:-1]).nonzero()
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert torch.equal(a, c)
+        assert torch.all(a[no_dst] == 0)
+    g_mx, g_mn = (_normal(rng, (V, F), cuda_device) for _ in range(2))
+    planes = (g_mx, got[0], g_mn, got[1])
+    dx, dr = rspmm_pna_cuda.pna_bwd_cuda("argext_pair", csr, w, rel, x,
+                                         planes, mode)
+    want_planes = (g_mx, want[0], g_mn, want[1])
+    want_bwd = rspmm_pna_cuda.pna_bwd_plain("argext_pair", csr, w, rel, x,
+                                            want_planes, mode)
+    masses = timing.pna_mass("argext_pair", csr, w, rel, x, want_planes,
+                             mode)
+    for a, b, mass in zip((dx, dr), want_bwd, masses):
+        atol = max(1e-4, 1e-5 * b.abs().max().item())
+        timing.assert_mass_close(a, b, mass, 1e-5, atol,
+                                 f"K6 -> K6b {mode} F={F} R={R}")
 
 
 @pytest.mark.parametrize("V,E,R,F", PNA_SHAPES)
@@ -1008,7 +1076,7 @@ def test_k1h_k2h_match_plain(cuda_device, rng, V, E, R, F):
     for mode in ("mul_rel", "add_rel"):
         args = (csr.rowptr, csr.src, csr.etype, csr.eid, w, rel, x, mode)
         before = rspmm_cuda.bf16_launches
-        got = rspmm_cuda.rspmm_fwd_bf16_cuda(*args)
+        got = rspmm_cuda.rspmm_fwd_bf16_cuda(*args, segments=csr.segments)
         torch.cuda.synchronize()
         assert rspmm_cuda.bf16_launches == before + 1
         assert got.dtype == torch.float32
@@ -1028,6 +1096,50 @@ def test_k1h_k2h_match_plain(cuda_device, rng, V, E, R, F):
     assert torch.equal(again[0], dx) and torch.equal(again[1], dr)
 
 
+# (F, R, hub) of K1h's hub rows: F = 10 and 1028 the scalar path, 64 one
+# slice, 2056 a ragged last slice, 4096 the training width; R = 7 the rel
+# slice in shared memory, 2,000 rel rows gathered; hubs of 10^4 and 10^5
+K1H_HUB = ([(F, 7, 10000) for F in (10, 64, 1028, 2056, 4096)]
+           + [(F, 2000, 10000) for F in (16, 132)] + [(64, 7, 100000)])
+
+
+@pytest.mark.parametrize("F,R,hub", K1H_HUB)
+@pytest.mark.parametrize("mode", ["mul_rel", "add_rel"])
+def test_k1h_hub_rows_match_plain(cuda_device, mode, F, R, hub):
+    """K1h on K1's destination-row segments: hub rows of ``hub`` and 10^3
+    in-edges, rows of 256 and 257, 40 duplicated edges, weight-0 edges,
+    rows without edges and an empty relation. Within K1h's tolerance plus 8
+    fp32 ulps of each entry's absolute mass (timing.py::k1_mass on the
+    widened values) of the plain version's sums in float64
+    (timing.py::k1h_sums64: the fp32 plain version's own rounding on a row
+    of 10^5 edges reaches the tolerance), bitwise equal across two calls,
+    one launch counted a call, rows without edges 0."""
+    seed = F + R + hub
+    csr, w = rspmm_cuda.hub_operands(seed, cuda_device,
+                                     E=max(40000, 2 * hub + 20000), R=R,
+                                     duplicated=40, hub=hub)
+    V = csr.rowptr.numel() - 1
+    rng = np.random.default_rng(seed)
+    rel = _normal(rng, (R, F), cuda_device).bfloat16()
+    x = _normal(rng, (V, F), cuda_device).bfloat16()
+    ops = (csr.rowptr, csr.src, csr.etype, csr.eid, w, rel, x)
+    if F % 8 == 0:
+        plan = rspmm_cuda.k1h_plan(R, F, V, csr.seg_ptr.numel() - 1, mode)
+        assert plan["rel"] == ("shared" if R == 7 else "gathered"), plan
+    before = rspmm_cuda.bf16_launches
+    got = rspmm_cuda.rspmm_fwd_bf16_cuda(*ops, mode, segments=csr.segments)
+    again = rspmm_cuda.rspmm_fwd_bf16_cuda(*ops, mode, segments=csr.segments)
+    torch.cuda.synchronize()
+    assert rspmm_cuda.bf16_launches == before + 2
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    want = timing.k1h_sums64(ops, mode)
+    mass = timing.k1_mass((*ops[:5], rel.float(), x.float()), mode)
+    timing.assert_mass_close(got, want, mass, TOL["rtol"], TOL["atol"],
+                             f"K1h {mode} F={F} R={R} hub={hub}")
+    no_dst = (csr.rowptr[1:] == csr.rowptr[:-1]).nonzero()
+    assert torch.all(got[no_dst] == 0)
+
+
 def test_k1h_rounds_the_product_to_bf16(cuda_device):
     """(1 + 2^-7)² has no bf16 value: K1h sums its rounding, 1 + 2^-6."""
     a = 1 + 2.0 ** -7
@@ -1038,7 +1150,8 @@ def test_k1h_rounds_the_product_to_bf16(cuda_device):
         x = torch.full((3, F), a, device=cuda_device)
         out = rspmm_cuda.rspmm_fwd_bf16_cuda(
             csr.rowptr, csr.src, csr.etype, csr.eid,
-            torch.ones(2, device=cuda_device), rel, x, "mul_rel")
+            torch.ones(2, device=cuda_device), rel, x, "mul_rel",
+            segments=csr.segments)
         assert torch.all(out[0] == 2 * (1 + 2.0 ** -6))
 
 
@@ -1081,12 +1194,16 @@ def test_bf16_kernels_reject_bad_operands(cuda_device, rng):
     csr, w = g.csr, g.edge_weight
     with pytest.raises(ValueError):  # relation with the wrong row count
         rspmm_bwd_cuda.rspmm_bwd_bf16_cuda(csr, w, rel[:5], x, grad)
+    ops = (csr.rowptr, csr.src, csr.etype, csr.eid, w)
     with pytest.raises(ValueError):  # operand on the CPU
-        rspmm_cuda.rspmm_fwd_bf16_cuda(csr.rowptr, csr.src, csr.etype,
-                                       csr.eid, w, rel.cpu(), x, "mul_rel")
+        rspmm_cuda.rspmm_fwd_bf16_cuda(*ops, rel.cpu(), x, "mul_rel",
+                                       segments=csr.segments)
     with pytest.raises(ValueError, match="mode"):
-        rspmm_cuda.rspmm_fwd_bf16_cuda(csr.rowptr, csr.src, csr.etype,
-                                       csr.eid, w, rel, x, "rot_rel")
+        rspmm_cuda.rspmm_fwd_bf16_cuda(*ops, rel, x, "rot_rel",
+                                       segments=csr.segments)
+    with pytest.raises(TypeError, match="RowSegments"):  # no segments
+        rspmm_cuda.rspmm_fwd_bf16_cuda(*ops, rel, x, "mul_rel",
+                                       segments=None)
 
 
 # (n shards, rows per block, features): 7 fp32 rows of 5 features are 140

@@ -22,13 +22,13 @@
 // table), so what a design reaches is set by where those gathers are
 // served (the 50 MB L2 or the memory) and by which other bytes ride along.
 //
-// K1's first design (still K1h's: rspmm_rows.cuh::row_gather) ran
-// one CTA per destination row and 256-thread feature tile, every edge
-// loading col, eid, w[eid] and etype and then gathering an x row and a rel
-// row. It took 2.05 ms at the training shape (16.3 GB of gathers at about
-// 7.9 TB/s, from the L2), and 39.7 ms on bench.py's heavy-tailed KG, where
-// one row of 107,150 edges walks serially on one CTA (NVIDIA H100 80GB HBM3,
-// 700 W; PERF.md).
+// K1's first design ran one CTA per destination row and 256-thread
+// feature tile, every edge loading col, eid, w[eid] and etype and then
+// gathering an x row and a rel row. It took 2.05 ms at the training shape
+// (16.3 GB of gathers at about 7.9 TB/s, from the L2), and 39.7 ms on
+// bench.py's heavy-tailed KG, where one row of 107,150 edges walks serially
+// on one CTA (NVIDIA H100 80GB HBM3, 700 W; PERF.md). K1h ran the same
+// design with bf16 operands until it moved onto K1's.
 //
 // What K1's design does about it (rspmm_staged.cuh, the layouts
 // data/graph.py's Csr.seg_* / long_*):
@@ -50,43 +50,79 @@
 // One call makes up to three launches: the weights, the segments, the long
 // rows' sums.
 //
-// K1h keeps the first design; its redesign onto this one is later work
-// (K2h, K8f and the backward kernels run on rspmm_staged.cuh's blocks).
+// K1h runs K1's passes with bf16 operands (rspmm_staged.cuh's In = bf16,
+// as K2h's dx pass): 128-feature slices of 8 lanes a thread, the rel slice
+// staged in bf16 (121 KB at R = 474; rel rows gathered above R = 906),
+// gathers kept packed until used, and each message formed in bf16
+// arithmetic (rounded once to bf16) before the fp32 weight multiplies it
+// (rspmm_staged.cuh::accumulate_packed).
 
 #include "rspmm_staged.cuh"
 
 namespace {
 
-// K1h: one CTA per row and 256-thread feature tile (rspmm_rows.cuh)
-int launch_k1h(const int* rowptr, const int* src, const int* etype,
-               const int* eid, const float* weight, const rspmm::bf16* rel,
-               const rspmm::bf16* x, float* out, int num_rows,
-               int num_features, int mode, cudaStream_t stream) {
+// staged_rows over the destination rows' segments with operands of type In
+// (K1: fp32, K1h: bf16), then long_row_sums; the arguments and the return
+// as rspmm_fwd_k1's
+template <typename In>
+int run_k1(const int* seg_ptr, const int* seg_out, const int* long_rows,
+           const int* long_ptr, const int* src, const int* etype,
+           const int* eid, const float* weight, const In* rel, const In* x,
+           float* out, float* w_scratch, float* partial, int num_segments,
+           int num_long_rows, int num_edges, int num_relations,
+           int num_x_rows, int num_features, int mode, cudaStream_t s) {
   using namespace rspmm;
   if (mode != kMulRel && mode != kAddRel) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (num_rows > 0 && num_features > 0) {
-    const bool vec = num_features % vec_lanes<bf16>() == 0 &&
-                     aligned16(rel) && aligned16(x) && aligned16(out);
-    if (mode == kMulRel) {
-      launch_row_gather<kMulRel, bf16>(vec, rowptr, src, etype, eid, weight,
-                                       rel, x, out, num_rows, num_features,
-                                       stream);
-    } else {
-      launch_row_gather<kAddRel, bf16>(vec, rowptr, src, etype, eid, weight,
-                                       rel, x, out, num_rows, num_features,
-                                       stream);
-    }
+  if (num_segments <= 0 || num_features <= 0) {
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err =
+      staged::launch_gather_weights(eid, weight, w_scratch, num_edges, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const staged::Rows<In> a{seg_ptr,      seg_out,   src,
+                           etype,        w_scratch, rel,
+                           x,            out,       partial,
+                           num_segments, num_edges, num_relations,
+                           num_features};
+  const bool vec = num_features % vec_lanes<In>() == 0 && aligned16(rel) &&
+                   aligned16(x) && aligned16(out) &&
+                   (partial == nullptr || aligned16(partial));
+  if (mode == kMulRel) {
+    const staged::Plan p = staged::rows_plan<kMulRel, In>(
+        vec, num_relations, num_features, num_x_rows, num_segments);
+    err = staged::launch_rows<kMulRel, In>(vec, p, a, long_rows, long_ptr,
+                                           num_long_rows, s);
+  } else {
+    const staged::Plan p = staged::rows_plan<kAddRel, In>(
+        vec, num_relations, num_features, num_x_rows, num_segments);
+    err = staged::launch_rows<kAddRel, In>(vec, p, a, long_rows, long_ptr,
+                                           num_long_rows, s);
+  }
+  return static_cast<int>(err);
 }
 
-bool k1_vec(const float* rel, const float* x, const float* out,
-            const float* partial, int num_features) {
-  using rspmm::aligned16;
-  return num_features % 4 == 0 && aligned16(rel) && aligned16(x) &&
-         aligned16(out) && (partial == nullptr || aligned16(partial));
+// the plan of K1 (In = float) or K1h (bf16) at this shape, written to
+// out[0..4] as rspmm_k1_plan says
+template <typename In>
+int write_plan(int vec, int num_relations, int num_features, int num_x_rows,
+               int num_segments, int mode, int* out) {
+  using namespace rspmm;
+  const staged::Plan p =
+      mode == kMulRel
+          ? staged::rows_plan<kMulRel, In>(vec != 0, num_relations,
+                                           num_features, num_x_rows,
+                                           num_segments)
+          : staged::rows_plan<kAddRel, In>(vec != 0, num_relations,
+                                           num_features, num_x_rows,
+                                           num_segments);
+  out[0] = p.slice;
+  out[1] = p.shared_rel ? 1 : 0;
+  out[2] = static_cast<int>(p.smem);
+  out[3] = p.slices;
+  out[4] = p.ctas_per_slice;
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -107,35 +143,31 @@ extern "C" int rspmm_fwd_k1(const int* seg_ptr, const int* seg_out,
                             int num_long_rows, int num_edges,
                             int num_relations, int num_x_rows,
                             int num_features, int mode, void* stream) {
-  using namespace rspmm;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode != kMulRel && mode != kAddRel) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (num_segments <= 0 || num_features <= 0) {
-    return static_cast<int>(cudaGetLastError());
-  }
-  cudaError_t err =
-      staged::launch_gather_weights(eid, weight, w_scratch, num_edges, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const staged::Rows<float> a{seg_ptr,      seg_out,   src,
-                              etype,        w_scratch, rel,
-                              x,            out,       partial,
-                              num_segments, num_edges, num_relations,
-                              num_features};
-  const bool vec = k1_vec(rel, x, out, partial, num_features);
-  if (mode == kMulRel) {
-    const staged::Plan p = staged::rows_plan<kMulRel, float>(
-        vec, num_relations, num_features, num_x_rows, num_segments);
-    err = staged::launch_rows<kMulRel, float>(vec, p, a, long_rows,
-                                              long_ptr, num_long_rows, s);
-  } else {
-    const staged::Plan p = staged::rows_plan<kAddRel, float>(
-        vec, num_relations, num_features, num_x_rows, num_segments);
-    err = staged::launch_rows<kAddRel, float>(vec, p, a, long_rows,
-                                              long_ptr, num_long_rows, s);
-  }
-  return static_cast<int>(err);
+  return run_k1<float>(seg_ptr, seg_out, long_rows, long_ptr, src, etype,
+                       eid, weight, rel, x, out, w_scratch, partial,
+                       num_segments, num_long_rows, num_edges, num_relations,
+                       num_x_rows, num_features, mode,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// K1h: K1 with bf16 rel and x (fp32 weight, partial rows and out), in
+// rspmm_fwd_k1's argument order, layouts and return.
+extern "C" int rspmm_fwd_k1h(const int* seg_ptr, const int* seg_out,
+                             const int* long_rows, const int* long_ptr,
+                             const int* src, const int* etype,
+                             const int* eid, const float* weight,
+                             const __nv_bfloat16* rel,
+                             const __nv_bfloat16* x, float* out,
+                             float* w_scratch, float* partial,
+                             int num_segments, int num_long_rows,
+                             int num_edges, int num_relations,
+                             int num_x_rows, int num_features, int mode,
+                             void* stream) {
+  return run_k1<rspmm::bf16>(seg_ptr, seg_out, long_rows, long_ptr, src,
+                             etype, eid, weight, rel, x, out, w_scratch,
+                             partial, num_segments, num_long_rows, num_edges,
+                             num_relations, num_x_rows, num_features, mode,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // How K1 lays out a call of this shape (the plan of rspmm_staged.cuh),
@@ -145,30 +177,15 @@ extern "C" int rspmm_fwd_k1(const int* seg_ptr, const int* seg_out,
 extern "C" int rspmm_k1_plan(int vec, int num_relations, int num_features,
                              int num_x_rows, int num_segments, int mode,
                              int* out) {
-  using namespace rspmm;
-  const staged::Plan p =
-      mode == kMulRel
-          ? staged::rows_plan<kMulRel, float>(vec != 0, num_relations,
-                                              num_features, num_x_rows,
-                                              num_segments)
-          : staged::rows_plan<kAddRel, float>(vec != 0, num_relations,
-                                              num_features, num_x_rows,
-                                              num_segments);
-  out[0] = p.slice;
-  out[1] = p.shared_rel ? 1 : 0;
-  out[2] = static_cast<int>(p.smem);
-  out[3] = p.slices;
-  out[4] = p.ctas_per_slice;
-  return static_cast<int>(cudaGetLastError());
+  return write_plan<float>(vec, num_relations, num_features, num_x_rows,
+                           num_segments, mode, out);
 }
 
-// K1h, bf16 rel and x, fp32 weight and out, over the destination-sorted CSR
-// (rowptr / src / etype / eid); modes and return as for K1 (no segments).
-extern "C" int rspmm_fwd_k1h(const int* rowptr, const int* src,
-                             const int* etype, const int* eid,
-                             const float* weight, const __nv_bfloat16* rel,
-                             const __nv_bfloat16* x, float* out, int num_rows,
-                             int num_features, int mode, void* stream) {
-  return launch_k1h(rowptr, src, etype, eid, weight, rel, x, out, num_rows,
-                    num_features, mode, static_cast<cudaStream_t>(stream));
+// K1h's plan, as rspmm_k1_plan's; vec: 1 for the 16-byte path (F % 8 == 0
+// and aligned operands).
+extern "C" int rspmm_k1h_plan(int vec, int num_relations, int num_features,
+                              int num_x_rows, int num_segments, int mode,
+                              int* out) {
+  return write_plan<rspmm::bf16>(vec, num_relations, num_features,
+                                 num_x_rows, num_segments, mode, out);
 }

@@ -134,7 +134,7 @@ __device__ __forceinline__ void add_edge(float (&acc)[W], const Edge& m,
       atomicAdd(d + k, t);
     }
   } else {
-    accumulate<kMulRel, float, W>(acc, rv, xv, m.w);
+    accumulate<kMulRel, W>(acc, rv, xv, m.w);
   }
 }
 

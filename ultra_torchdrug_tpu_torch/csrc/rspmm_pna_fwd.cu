@@ -40,16 +40,45 @@
 // bytes-bound. Like K1, this design gathers one x row per edge (E * F * 4
 // bytes, about 1 GB at that shape), so those gathers are its real limit.
 //
-// What the design does about it: K1's structure (rspmm_rows.cuh), one CTA
-// per destination row and feature tile, threads across features with
-// float4 accesses where aligned, with one register accumulator per lane and
-// output (two for the pairs): each x row gathered feeds every output, each
-// output row is written once, no atomics, and the result does not depend on
-// launch order.
+// K6 runs K1's staged, hub-aware design (rspmm_staged.cuh's blocks, the
+// layouts data/graph.py's Csr.seg_* / long_*), seg_stats:
+//  * over the destination rows' 256-edge segments, slice-major in 64-feature
+//    slices (32 on the scalar path), one 16-thread stream a segment in
+//    staged_rows' software pipeline (the next edges' metadata and the next
+//    segment loaded while an iteration's gathers are in flight);
+//  * the rel slice in shared memory (121 KB at R = 474), so each edge
+//    gathers one x slice row; above the budget (R > 906) rel rows are
+//    gathered, a choice by shape;
+//  * each edge's weight gathered once a call in the segments' order
+//    (gather_weights);
+//  * two register accumulators a lane, the max and the min, both planes
+//    written by the segment; a segment without edges (a row without edges)
+//    writes 0 to both;
+//  * a row of more than 256 edges is cut into segments whose partial maxima
+//    and minima go to two partial planes, which long_row_extrema reduces in
+//    segment order (the max of the maxima, the min of the minima);
+//  * 1,024-thread CTAs, 8 edges' x slices in flight a stream (kSegThreads:
+//    it spills 18-128 bytes, and still beat 512-thread CTAs of up to 128
+//    registers with 16 in flight, which do not spill, by 1-2 % on the
+//    card, PERF.md).
+// Max and min are exact, so the result equals the plain version's but for
+// the sign of a zero where a weight-0 edge's -0 meets a +0 (fmaxf may return
+// either): K6b's gate m == mx[v] treats both alike. One call makes up to
+// three launches: the weights, the segments, the long rows' extrema.
+// seg_stats takes the kind as a template argument, so that K4 and K7 can
+// join it as kinds of their own; only K6's (kMaxMin) is written.
+//
+// K7 and K4 keep the first design: K1's first structure (rspmm_rows.cuh's
+// row_gather), row_stats, one CTA per destination row and feature tile,
+// threads across features with float4 accesses where aligned, with one
+// register accumulator per lane and output (two for K7): each x row
+// gathered feeds every output, each output row is written once, no
+// atomics, and the result does not depend on launch order. A hub row walks
+// serially on one CTA.
 
 #include <math_constants.h>
 
-#include "rspmm_rows.cuh"
+#include "rspmm_staged.cuh"
 
 namespace {
 
@@ -60,15 +89,19 @@ using rspmm::Lanes;
 using rspmm::load_lanes;
 using rspmm::message;
 using rspmm::store_lanes;
+namespace staged = rspmm::staged;
 
 constexpr int kMaxMin = 0;  // K6
 constexpr int kAddSq = 1;   // K7
 constexpr int kMax = 2;     // K4, max
 constexpr int kMin = 3;     // K4, min
 
+// ---------------------------------------------------------------------------
+// K7 and K4: the first design
+// ---------------------------------------------------------------------------
+
 // one CTA per (row v, feature tile); each thread owns W consecutive lanes;
-// n is the row width in groups of W lanes; out1 is written by the pairs
-// (K6, K7) only
+// n is the row width in groups of W lanes; out1 is written by K7 only
 template <int KIND, int MODE, int W>
 __global__ void __launch_bounds__(kMaxThreads)
 row_stats(const int* __restrict__ rowptr, const int* __restrict__ col,
@@ -83,14 +116,12 @@ row_stats(const int* __restrict__ rowptr, const int* __restrict__ col,
   const int64_t lane = static_cast<int64_t>(j) * W;
   const int begin = __ldg(rowptr + v);
   const int end = __ldg(rowptr + v + 1);
-  constexpr bool kPair = KIND == kMaxMin || KIND == kAddSq;
+  constexpr bool kPair = KIND == kAddSq;
   float a[W], b[W];
 #pragma unroll
   for (int k = 0; k < W; ++k) {
-    a[k] = KIND == kMaxMin || KIND == kMax ? -CUDART_INF_F
-           : KIND == kMin                  ? CUDART_INF_F
-                                           : 0.f;
-    b[k] = KIND == kMaxMin ? CUDART_INF_F : 0.f;
+    a[k] = KIND == kMax ? -CUDART_INF_F : KIND == kMin ? CUDART_INF_F : 0.f;
+    b[k] = 0.f;
   }
 #pragma unroll 4
   for (int e = begin; e < end; ++e) {
@@ -101,11 +132,7 @@ row_stats(const int* __restrict__ rowptr, const int* __restrict__ col,
     const Lanes<W> xv = load_lanes<W>(x + c * width + lane);
 #pragma unroll
     for (int k = 0; k < W; ++k) {
-      if constexpr (KIND == kMaxMin) {
-        const float m = message<MODE>(rv.v[k], xv.v[k]) * w;
-        a[k] = fmaxf(a[k], m);
-        b[k] = fminf(b[k], m);
-      } else if constexpr (KIND == kAddSq) {
+      if constexpr (KIND == kAddSq) {
         const float m = rv.v[k] * xv.v[k];
         const float mw = m * w;
         a[k] += mw;
@@ -157,14 +184,330 @@ void launch_mode(bool mul, bool vec, const int* rowptr, const int* src,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K6: the staged, hub-aware design
+// ---------------------------------------------------------------------------
+
+// threads a CTA of seg_stats: 1,024 (64 registers each), 8 edges' x slices
+// in flight a stream; 512 (128 registers, 16 edges in flight) was 1-2 %
+// slower on the card (PERF.md)
+constexpr int kSegThreads = 1024;
+
+// edges in flight a stream: kRowInFlight rows a thread at 1,024 threads (64
+// registers each), twice as many at 512, over the rows an edge gathers (x,
+// and rel where it is not staged)
+__host__ __device__ constexpr int seg_edges_in_flight(bool shared_rel) {
+  return staged::kRowInFlight * 1024 / kSegThreads / (shared_rel ? 1 : 2);
+}
+
+// one edge's messages into the max (a) and the min (b), lane by lane, the
+// message in exactly row_stats' order (K6b recomputes it bit for bit)
+template <int MODE, int W>
+__device__ __forceinline__ void extrema_edge(float (&a)[W], float (&b)[W],
+                                             const Lanes<W>& r,
+                                             const Lanes<W>& xv, float w) {
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    const float m = message<MODE>(r.v[k], xv.v[k]) * w;
+    a[k] = fmaxf(a[k], m);
+    b[k] = fminf(b[k], m);
+  }
+}
+
+struct SegStats {
+  const int* seg_ptr;  // [S + 1] the destination rows' segments
+  const int* seg_out;  // [S] row (>= 0) or ~partial slot
+  const int* col;      // [E] each edge's source, destination order
+  const int* etype;    // [E]
+  const float* w;      // [E] each edge's weight, destination order
+  const float* rel;    // [R, F]
+  const float* x;      // [V_in, F]
+  float* out0;         // [V, F] K6: the max
+  float* out1;         // [V, F] K6: the min
+  float* partial0;     // [P, F] the long rows' partial rows of out0
+  float* partial1;     // [P, F] and of out1
+  int num_segments;
+  int num_edges;
+  int num_relations;
+  int num_features;
+};
+
+// out0[row of segment i, slice], out1[...] = the max and the min of the
+// segment's messages (a partial row's for a long row's segment), 0 for a
+// segment without edges: staged_rows' pipeline (one stream of G threads a
+// segment, the next iteration's edge metadata and the next segment loaded
+// while an iteration's gathers are in flight) with two accumulators. KIND
+// names the statistics; K6's (kMaxMin) is the only one so far, K4's and
+// K7's kinds still run row_stats.
+template <int KIND, int MODE, int W, int G, bool kSharedRel>
+__global__ void __launch_bounds__(kSegThreads, 1) seg_stats(SegStats a) {
+  static_assert(KIND == kMaxMin, "seg_stats computes K6's kind");
+  constexpr int S = W * G;
+  constexpr int kIn = seg_edges_in_flight(kSharedRel);
+  static_assert(kIn <= G, "a stream's lanes hold an iteration's edges");
+  extern __shared__ float4 smem[];
+  float* s_rel = reinterpret_cast<float*>(smem);
+  __shared__ int s_range[2];
+  __shared__ int s_next;
+  const int lane = threadIdx.x & 31;
+  const int t = lane % G;  // this thread's place in its stream
+  const int F = a.num_features;
+  const int64_t F64 = F;
+  const int f0 = blockIdx.y * S;  // the slice's first feature
+  const int f = f0 + t * W;       // this thread's first feature
+  const bool on = f < F;          // F % W == 0 on the vector path
+  if constexpr (kSharedRel) {
+    staged::stage_rel<W, G, kSegThreads>(s_rel, a.rel, a.num_relations, F,
+                                         f0);
+  }
+  if (threadIdx.x == 0) {
+    staged::claim_items(a.seg_ptr, a.num_segments, a.num_edges, s_range);
+    s_next = s_range[0] + kSegThreads / G;
+  }
+  __syncthreads();
+  const int last = s_range[1];
+  int item = min(s_range[0] + static_cast<int>(threadIdx.x) / G, last);
+  int pos = 0, end = 0;
+  if (item < last) {
+    pos = __ldg(a.seg_ptr + item);
+    end = __ldg(a.seg_ptr + item + 1);
+  }
+  bool empty = pos == end;  // the item has no edge (a row without edges)
+  int next = staged::draw_item<G>(&s_next, true, lane, last);
+  int next_begin = 0, next_end = 0;
+  if (next < last) {
+    next_begin = __ldg(a.seg_ptr + next);
+    next_end = __ldg(a.seg_ptr + next + 1);
+  }
+  // lane t < kIn of the stream holds edge pos + t
+  int m_col = 0, m_type = 0;
+  float m_w = 0.f;
+  if (t < kIn && pos + t < end) {
+    m_col = __ldg(a.col + pos + t);
+    m_type = __ldg(a.etype + pos + t);
+    m_w = __ldg(a.w + pos + t);
+  }
+  float acc0[W], acc1[W];
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    acc0[k] = -CUDART_INF_F;
+    acc1[k] = CUDART_INF_F;
+  }
+  while (__any_sync(0xffffffffu, item < last)) {
+    const int n = item < last ? min(kIn, end - pos) : 0;
+    Lanes<W> xv[kIn];
+    Lanes<W> rv[kSharedRel ? 1 : kIn];
+#pragma unroll
+    for (int u = 0; u < kIn; ++u) {
+      const int c = __shfl_sync(0xffffffffu, m_col, u, G);
+      if constexpr (kSharedRel) {
+        if (on && u < n) xv[u] = load_lanes<W>(a.x + c * F64 + f);
+      } else {
+        const int r = __shfl_sync(0xffffffffu, m_type, u, G);
+        if (on && u < n) {
+          xv[u] = load_lanes<W>(a.x + c * F64 + f);
+          rv[u] = load_lanes<W>(a.rel + r * F64 + f);
+        }
+      }
+    }
+    // where this stream goes next: on in its item, or to the next item,
+    // whose successor is drawn and whose edge range is loaded now
+    const bool done = item < last && pos + kIn >= end;
+    int new_item = item, new_pos = pos + kIn, new_end = end;
+    bool new_empty = empty;
+    if (done) {
+      new_item = next;
+      new_pos = next_begin;
+      new_end = next_end;
+      new_empty = next_begin == next_end;
+    }
+    const int drawn = staged::draw_item<G>(&s_next, done && next < last,
+                                           lane, last);
+    if (done) {
+      next = drawn;
+      if (next < last) {
+        next_begin = __ldg(a.seg_ptr + next);
+        next_end = __ldg(a.seg_ptr + next + 1);
+      }
+    }
+    int c_col = 0, c_type = 0;
+    float c_w = 0.f;
+    if (new_item < last && t < kIn && new_pos + t < new_end) {
+      c_col = __ldg(a.col + new_pos + t);
+      c_type = __ldg(a.etype + new_pos + t);
+      c_w = __ldg(a.w + new_pos + t);
+    }
+#pragma unroll
+    for (int u = 0; u < kIn; ++u) {
+      const float we = __shfl_sync(0xffffffffu, m_w, u, G);
+      if constexpr (kSharedRel) {
+        // the type is passed on here, not kept in a register
+        const int r = __shfl_sync(0xffffffffu, m_type, u, G);
+        if (on && u < n) {
+          extrema_edge<MODE, W>(
+              acc0, acc1, staged::load_shared<W>(s_rel + r * S + (f - f0)),
+              xv[u], we);
+        }
+      } else if (on && u < n) {
+        extrema_edge<MODE, W>(acc0, acc1, rv[u], xv[u], we);
+      }
+    }
+    if (done) {
+      if (on) {
+        if (empty) {
+#pragma unroll
+          for (int k = 0; k < W; ++k) acc0[k] = acc1[k] = 0.f;
+        }
+        const int d = __ldg(a.seg_out + item);
+        const int64_t off = (d >= 0 ? d : ~d) * F64 + f;
+        store_lanes<W>((d >= 0 ? a.out0 : a.partial0) + off, acc0);
+        store_lanes<W>((d >= 0 ? a.out1 : a.partial1) + off, acc1);
+      }
+#pragma unroll
+      for (int k = 0; k < W; ++k) {
+        acc0[k] = -CUDART_INF_F;
+        acc1[k] = CUDART_INF_F;
+      }
+    }
+    item = new_item;
+    pos = new_pos;
+    end = new_end;
+    empty = new_empty;
+    m_col = c_col;
+    m_type = c_type;
+    m_w = c_w;
+  }
+}
+
+__device__ __forceinline__ void max_to(float& a, float v) { a = fmaxf(a, v); }
+__device__ __forceinline__ void min_to(float& a, float v) { a = fminf(a, v); }
+__device__ __forceinline__ void max_to(float4& a, float4 v) {
+  a = make_float4(fmaxf(a.x, v.x), fmaxf(a.y, v.y), fmaxf(a.z, v.z),
+                  fmaxf(a.w, v.w));
+}
+__device__ __forceinline__ void min_to(float4& a, float4 v) {
+  a = make_float4(fminf(a.x, v.x), fminf(a.y, v.y), fminf(a.z, v.z),
+                  fminf(a.w, v.w));
+}
+
+// out0[rows[l], :] = the max over p in [ptr[l], ptr[l+1]) of p0[p, :] and
+// out1[rows[l], :] the min of p1[p, :], in segment order: K6's second
+// kernel, beside long_row_sums (rspmm_rows.cuh), for the rows cut into
+// several segments (each has two or more partial rows)
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+long_row_extrema(const int* __restrict__ rows, const int* __restrict__ ptr,
+                 const T* __restrict__ p0, const T* __restrict__ p1,
+                 T* __restrict__ out0, T* __restrict__ out1, int n) {
+  const int l = blockIdx.x;
+  const int j = blockIdx.y * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  const int begin = __ldg(ptr + l);
+  const int end = __ldg(ptr + l + 1);
+  T mx = rspmm::ld(p0 + static_cast<int64_t>(begin) * n + j);
+  T mn = rspmm::ld(p1 + static_cast<int64_t>(begin) * n + j);
+#pragma unroll 8
+  for (int p = begin + 1; p < end; ++p) {
+    max_to(mx, rspmm::ld(p0 + static_cast<int64_t>(p) * n + j));
+    min_to(mn, rspmm::ld(p1 + static_cast<int64_t>(p) * n + j));
+  }
+  const int64_t o = static_cast<int64_t>(__ldg(rows + l)) * n + j;
+  out0[o] = mx;
+  out1[o] = mn;
+}
+
+cudaError_t launch_long_row_extrema(bool vec, const int* long_rows,
+                                    const int* long_ptr, int num_long_rows,
+                                    const SegStats& a, cudaStream_t stream) {
+  if (num_long_rows > 0) {
+    const int n = vec ? a.num_features / 4 : a.num_features;
+    const int threads = n >= 64 ? 64 : ((n + 31) / 32) * 32;
+    const dim3 grid(num_long_rows, (n + threads - 1) / threads);
+    if (vec) {
+      long_row_extrema<float4><<<grid, threads, 0, stream>>>(
+          long_rows, long_ptr, reinterpret_cast<const float4*>(a.partial0),
+          reinterpret_cast<const float4*>(a.partial1),
+          reinterpret_cast<float4*>(a.out0), reinterpret_cast<float4*>(a.out1),
+          n);
+    } else {
+      long_row_extrema<float><<<grid, threads, 0, stream>>>(
+          long_rows, long_ptr, a.partial0, a.partial1, a.out0, a.out1, n);
+    }
+  }
+  return cudaGetLastError();
+}
+
+template <int KIND, int MODE, int W, int G, bool kSharedRel>
+int seg_resident(size_t smem) {
+  static staged::Occupancy occupancy;
+  return occupancy.resident(seg_stats<KIND, MODE, W, G, kSharedRel>, smem,
+                            kSegThreads);
+}
+
+// seg_stats' plan: 64-feature slices (32 on the scalar path), rel in shared
+// memory where it fits; the CTAs in flight gather x's slices
+template <int KIND, int MODE>
+staged::Plan seg_plan(bool vec, int num_relations, int num_features,
+                      int num_x_rows, int num_segments) {
+  staged::Plan p;
+  p.slice = vec ? staged::kSlice : staged::kScalarSlice;
+  p.slices = (num_features + p.slice - 1) / p.slice;
+  const size_t rel_bytes = size_t{4} * p.slice * num_relations;
+  p.shared_rel = rel_bytes <= size_t{staged::kRelSmemBytes};
+  p.smem = p.shared_rel ? rel_bytes : 0;
+  constexpr int G4 = staged::kSlice / 4;
+  int resident;
+  if (vec) {
+    resident = p.shared_rel ? seg_resident<KIND, MODE, 4, G4, true>(p.smem)
+                            : seg_resident<KIND, MODE, 4, G4, false>(0);
+  } else {
+    resident = p.shared_rel ? seg_resident<KIND, MODE, 1, 32, true>(p.smem)
+                            : seg_resident<KIND, MODE, 1, 32, false>(0);
+  }
+  staged::plan_ctas(&p, resident, num_x_rows, num_segments,
+                    kSegThreads / 32);
+  return p;
+}
+
+// the weights, seg_stats over a's segments, then the long rows' extrema
+template <int KIND, int MODE>
+cudaError_t launch_seg(bool vec, const SegStats& a, const int* eid,
+                       const float* weight, float* w_scratch,
+                       const int* long_rows, const int* long_ptr,
+                       int num_long_rows, int num_x_rows,
+                       cudaStream_t stream) {
+  cudaError_t err = staged::launch_gather_weights(eid, weight, w_scratch,
+                                                  a.num_edges, stream);
+  if (err != cudaSuccess) return err;
+  const staged::Plan p = seg_plan<KIND, MODE>(
+      vec, a.num_relations, a.num_features, num_x_rows, a.num_segments);
+  const dim3 grid(p.ctas_per_slice, p.slices);
+  constexpr int G4 = staged::kSlice / 4;
+  if (vec && p.shared_rel) {
+    seg_stats<KIND, MODE, 4, G4, true>
+        <<<grid, kSegThreads, p.smem, stream>>>(a);
+  } else if (vec) {
+    seg_stats<KIND, MODE, 4, G4, false><<<grid, kSegThreads, 0, stream>>>(a);
+  } else if (p.shared_rel) {
+    seg_stats<KIND, MODE, 1, 32, true>
+        <<<grid, kSegThreads, p.smem, stream>>>(a);
+  } else {
+    seg_stats<KIND, MODE, 1, 32, false><<<grid, kSegThreads, 0, stream>>>(a);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_long_row_extrema(vec, long_rows, long_ptr, num_long_rows, a,
+                                 stream);
+}
+
 }  // namespace
 
-// kind: 0 = max/min pair (K6; out0 = max, out1 = min), 1 = moments (K7;
-// out0 = sum, out1 = sum of squares), 2 = max (K4; out0), 3 = min (K4;
-// out0; out1 is not written by kinds 2 and 3 and may be null). mode: 0 =
-// mul_rel, 1 = add_rel (all kinds but K7). Returns the cudaGetLastError()
-// code after the launch (0 on success); an unknown kind or mode, or K7 with
-// add_rel, returns cudaErrorInvalidValue without launching.
+// K7 and K4 (the first design). kind: 1 = moments (K7; out0 = sum, out1 =
+// sum of squares), 2 = max (K4; out0), 3 = min (K4; out0; out1 is not
+// written by kinds 2 and 3 and may be null). mode: 0 = mul_rel, 1 = add_rel
+// (K4 only). Returns the cudaGetLastError() code after the launch (0 on
+// success); an unknown kind or mode (K6, kind 0, runs rspmm_pna_fwd_seg), or
+// K7 with add_rel, returns cudaErrorInvalidValue without launching.
 extern "C" int rspmm_pna_fwd(int kind, int mode, const int* rowptr,
                              const int* src, const int* etype, const int* eid,
                              const float* weight, const float* rel,
@@ -174,8 +517,7 @@ extern "C" int rspmm_pna_fwd(int kind, int mode, const int* rowptr,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool both_modes = mode == kMulRel || mode == kAddRel;
   const bool known = (kind == kAddSq && mode == kMulRel) ||
-                     ((kind == kMaxMin || kind == kMax || kind == kMin) &&
-                      both_modes);
+                     ((kind == kMax || kind == kMin) && both_modes);
   if (!known) return static_cast<int>(cudaErrorInvalidValue);
   if (num_rows > 0 && num_features > 0) {
     const bool vec = num_features % 4 == 0 && aligned16(rel) &&
@@ -184,9 +526,6 @@ extern "C" int rspmm_pna_fwd(int kind, int mode, const int* rowptr,
     if (kind == kAddSq) {
       launch<kAddSq, kMulRel>(vec, rowptr, src, etype, eid, weight, rel, x,
                               out0, out1, num_rows, num_features, s);
-    } else if (kind == kMaxMin) {
-      launch_mode<kMaxMin>(mul, vec, rowptr, src, etype, eid, weight, rel, x,
-                           out0, out1, num_rows, num_features, s);
     } else if (kind == kMax) {
       launch_mode<kMax>(mul, vec, rowptr, src, etype, eid, weight, rel, x,
                         out0, out1, num_rows, num_features, s);
@@ -195,5 +534,73 @@ extern "C" int rspmm_pna_fwd(int kind, int mode, const int* rowptr,
                         out0, out1, num_rows, num_features, s);
     }
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6 (kind 0, the max/min pair: out0 = max, out1 = min), mode 0 = mul_rel,
+// 1 = add_rel, on K1's layouts in rspmm_fwd_k1's order: the destination
+// rows' segments (seg_ptr, seg_out, long_rows, long_ptr = Csr.seg_*,
+// long_*) over the destination-sorted edges (src, etype, eid). w_scratch
+// holds num_edges floats; partial0 and partial1 each long_ptr[num_long_rows]
+// rows of F floats (null without long rows). Returns the first nonzero
+// cudaGetLastError() code after a launch (0 on success); another kind or
+// mode returns cudaErrorInvalidValue without launching.
+extern "C" int rspmm_pna_fwd_seg(
+    int kind, int mode, const int* seg_ptr, const int* seg_out,
+    const int* long_rows, const int* long_ptr, const int* src,
+    const int* etype, const int* eid, const float* weight, const float* rel,
+    const float* x, float* out0, float* out1, float* w_scratch,
+    float* partial0, float* partial1, int num_segments, int num_long_rows,
+    int num_edges, int num_relations, int num_x_rows, int num_features,
+    void* stream) {
+  using rspmm::aligned16;
+  if (kind != kMaxMin || (mode != kMulRel && mode != kAddRel)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (num_segments <= 0 || num_features <= 0) {
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = num_features % 4 == 0 && aligned16(rel) && aligned16(x) &&
+                   aligned16(out0) && aligned16(out1) &&
+                   (partial0 == nullptr ||
+                    (aligned16(partial0) && aligned16(partial1)));
+  const SegStats a{seg_ptr,   seg_out,      src,       etype,
+                   w_scratch, rel,          x,         out0,
+                   out1,      partial0,     partial1,  num_segments,
+                   num_edges, num_relations, num_features};
+  const cudaError_t err =
+      mode == kMulRel
+          ? launch_seg<kMaxMin, kMulRel>(vec, a, eid, weight, w_scratch,
+                                         long_rows, long_ptr, num_long_rows,
+                                         num_x_rows, s)
+          : launch_seg<kMaxMin, kAddRel>(vec, a, eid, weight, w_scratch,
+                                         long_rows, long_ptr, num_long_rows,
+                                         num_x_rows, s);
+  return static_cast<int>(err);
+}
+
+// How K6 (kind 0) lays out a call of this shape, written to out[0..4] as
+// rspmm_k1_plan's: features a slice, 1 when the rel slice sits in shared
+// memory, its bytes, the slices, the CTAs a slice; vec: 1 for the float4
+// path (F % 4 == 0, operands aligned).
+extern "C" int rspmm_pna_fwd_plan(int kind, int mode, int vec,
+                                  int num_relations, int num_features,
+                                  int num_x_rows, int num_segments,
+                                  int* out) {
+  if (kind != kMaxMin || (mode != kMulRel && mode != kAddRel)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const staged::Plan p =
+      mode == kMulRel
+          ? seg_plan<kMaxMin, kMulRel>(vec != 0, num_relations, num_features,
+                                       num_x_rows, num_segments)
+          : seg_plan<kMaxMin, kAddRel>(vec != 0, num_relations, num_features,
+                                       num_x_rows, num_segments);
+  out[0] = p.slice;
+  out[1] = p.shared_rel ? 1 : 0;
+  out[2] = static_cast<int>(p.smem);
+  out[3] = p.slices;
+  out[4] = p.ctas_per_slice;
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,8 @@
 // Row-gather device code shared by the rspmm kernels (row_gather serves
-// K1h in rspmm_fwd.cu and the K1 ladder in rspmm_ladder.cu; the Lanes
-// helpers, relation_sums and long_row_sums also serve K1, K2 and K2h in
-// rspmm_staged.cuh, K3 in rspmm_transe_bwd.cu, K4,
-// K6/K7 and K5, K6b/K7b in rspmm_pna_*.cu and K8f/K8b in rspmm_rotate.cu):
+// the K1 ladder in rspmm_ladder.cu, fp32 operands; the Lanes helpers,
+// message, accumulate, relation_sums and long_row_sums also serve K1, K1h,
+// K2 and K2h in rspmm_staged.cuh, K3 in rspmm_transe_bwd.cu, K4, K6/K7 and
+// K5, K6b/K7b in rspmm_pna_*.cu and K8f/K8b in rspmm_rotate.cu):
 //
 //     out[v, :] = sum over e in [rowptr[v], rowptr[v+1]) of
 //                 w[eid[e]] * msg(rel[etype[e], :], x[col[e], :])
@@ -14,24 +14,19 @@
 // over a CSR (int32 rowptr / col / etype / eid) and operand rows of width F.
 //
 // Operands are fp32 or bf16 (__nv_bfloat16, the compute_dtype=bfloat16 mode
-// of K1h and K2h); they are widened to fp32 in registers, every sum is kept
-// in fp32 and every output is fp32. With bf16 operands the forward messages
-// (kMulRel, kAddRel) are rounded to bf16 before the weight multiplies them,
-// as the TPU kernel's bf16 product is (rspmm_pallas.py:365, :497): the
-// fp32 product of two bf16 values is exact, and their fp32 sum rounds to
-// bf16 as the exact sum does (24 >= 2 * 8 + 2 bits), so one rounding of the
-// fp32 result to bf16 gives the bf16 operation's bits.
+// of K1h and K2h, whose staged kernels gather them: rspmm_staged.cuh); every
+// sum is kept in fp32 and every output is fp32.
 //
-// One CTA per output row and per feature tile of up to 256 threads; threads
-// run across the feature dimension, W lanes each, so every row gather is one
-// coalesced load of 16 bytes a thread (fp32: W = 4, a float4; bf16: W = 8,
-// a uint4 of four bf16 pairs) when F % W == 0 and every row pointer is
-// 16-byte aligned, else a scalar path (W = 1). The sum lives in registers
-// and each output row is written exactly once: no atomics, no memset (rows
-// without edges write 0), and the edge order within a row fixes the result
-// bitwise. The edge metadata of a row is the same for every thread, so it
-// is read once per warp as a broadcast load; the edge loop is unrolled by 4
-// so that four independent row gathers are in flight per thread.
+// row_gather: one CTA per output row and per feature tile of up to 256
+// threads; threads run across the feature dimension, W lanes each, so every
+// row gather is one coalesced load of 16 bytes a thread (W = 4, a float4)
+// when F % W == 0 and every row pointer is 16-byte aligned, else a scalar
+// path (W = 1). The sum lives in registers and each output row is written
+// exactly once: no atomics, no memset (rows without edges write 0), and the
+// edge order within a row fixes the result bitwise. The edge metadata of a
+// row is the same for every thread, so it is read once per warp as a
+// broadcast load; the edge loop is unrolled by 4 so that four independent
+// row gathers are in flight per thread.
 
 #pragma once
 
@@ -39,7 +34,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
 
 namespace rspmm {
 
@@ -63,22 +57,16 @@ __device__ __forceinline__ float4 zero<float4>() {
   return make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
-// the message of one lane from fp32 values; In = bf16 rounds the forward
-// messages to bf16 (the operands are bf16 values widened to fp32)
-template <int MODE, typename In = float>
+// the message of one lane from fp32 values
+template <int MODE>
 __device__ __forceinline__ float message(float r, float xv) {
-  float m;
   if constexpr (MODE == kMulRel) {
-    m = r * xv;
+    return r * xv;
   } else if constexpr (MODE == kAddRel) {
-    m = r + xv;
+    return r + xv;
   } else {
     return xv;
   }
-  if constexpr (std::is_same_v<In, bf16>) {
-    return __bfloat162float(__float2bfloat16_rn(m));
-  }
-  return m;
 }
 
 __device__ __forceinline__ void add_to(float& acc, float v) { acc += v; }
@@ -132,8 +120,9 @@ long_row_sums(const int* __restrict__ rows, const int* __restrict__ ptr,
 
 // W consecutive lanes of a row, as fp32 values in registers. fp32 rows: W = 4
 // is one 16-byte float4 access (the pointer 16-byte aligned), W = 1 one
-// float. bf16 rows: W = 8 is one 16-byte uint4 access, W = 1 one element;
-// a bf16 value is the upper half of the fp32 value it widens to.
+// float. bf16 rows (widen_lanes, rspmm_staged.cuh's widen): W = 8 is one
+// 16-byte uint4 access, W = 1 one element; a bf16 value is the upper half
+// of the fp32 value it widens to.
 template <int W>
 struct Lanes {
   float v[W];
@@ -168,19 +157,6 @@ __device__ __forceinline__ Lanes<8> widen_lanes(uint4 t) {
 }
 
 template <int W>
-__device__ __forceinline__ Lanes<W> load_lanes(const bf16* p) {
-  Lanes<W> out;
-  if constexpr (W == 8) {
-    out = widen_lanes(__ldg(reinterpret_cast<const uint4*>(p)));
-  } else {
-    static_assert(W == 1, "bf16 rows load 8 lanes or 1");
-    const unsigned short b = __ldg(reinterpret_cast<const unsigned short*>(p));
-    out.v[0] = __uint_as_float(static_cast<uint32_t>(b) << 16);
-  }
-  return out;
-}
-
-template <int W>
 __device__ __forceinline__ void store_lanes(float* p, const float (&a)[W]) {
   if constexpr (W == 8) {
     float4* q = reinterpret_cast<float4*>(p);
@@ -194,7 +170,7 @@ __device__ __forceinline__ void store_lanes(float* p, const float (&a)[W]) {
 }
 
 // acc += msg(a, b) * w lane by lane (kMulScaled: acc += a * (b * w))
-template <int MODE, typename In, int W>
+template <int MODE, int W>
 __device__ __forceinline__ void accumulate(float (&acc)[W], const Lanes<W>& a,
                                            const Lanes<W>& b, float w) {
 #pragma unroll
@@ -202,13 +178,13 @@ __device__ __forceinline__ void accumulate(float (&acc)[W], const Lanes<W>& a,
     if constexpr (MODE == kMulScaled) {
       acc[k] += a.v[k] * (b.v[k] * w);
     } else {
-      acc[k] += message<MODE, In>(a.v[k], b.v[k]) * w;
+      acc[k] += message<MODE>(a.v[k], b.v[k]) * w;
     }
   }
 }
 
-// In is float or bf16; each thread owns W lanes; n is the row width in
-// groups of W lanes
+// In is float (the ladder's operands); each thread owns W lanes; n is the
+// row width in groups of W lanes
 template <int MODE, typename In, int W>
 __global__ void __launch_bounds__(kMaxThreads)
 row_gather(const int* __restrict__ rowptr, const int* __restrict__ col,
@@ -233,8 +209,7 @@ row_gather(const int* __restrict__ rowptr, const int* __restrict__ col,
       for (int k = 0; k < W; ++k) acc[k] += xv.v[k] * w;
     } else {
       const int64_t r = __ldg(etype + e);
-      accumulate<MODE, In, W>(acc, load_lanes<W>(rel + r * width + lane), xv,
-                              w);
+      accumulate<MODE, W>(acc, load_lanes<W>(rel + r * width + lane), xv, w);
     }
   }
   store_lanes<W>(out + static_cast<int64_t>(v) * width + lane, acc);
@@ -254,28 +229,6 @@ constexpr int vec_lanes() {
 inline void feature_tiles(int n, int* threads, int* tiles) {
   *threads = n >= kMaxThreads ? kMaxThreads : ((n + 31) / 32) * 32;
   *tiles = (n + *threads - 1) / *threads;
-}
-
-// launch row_gather over num_rows rows; vec selects the 16-byte path (the
-// caller checks F % vec_lanes<In>() == 0 and the alignment of every row
-// pointer)
-template <int MODE, typename In>
-void launch_row_gather(bool vec, const int* rowptr, const int* col,
-                       const int* etype, const int* eid, const float* weight,
-                       const In* rel, const In* x, float* out, int num_rows,
-                       int num_features, cudaStream_t stream) {
-  constexpr int kVec = vec_lanes<In>();
-  const int n = vec ? num_features / kVec : num_features;
-  int threads, tiles;
-  feature_tiles(n, &threads, &tiles);
-  const dim3 grid(num_rows, tiles);
-  if (vec) {
-    row_gather<MODE, In, kVec><<<grid, threads, 0, stream>>>(
-        rowptr, col, etype, eid, weight, rel, x, out, n);
-  } else {
-    row_gather<MODE, In, 1><<<grid, threads, 0, stream>>>(
-        rowptr, col, etype, eid, weight, rel, x, out, n);
-  }
 }
 
 }  // namespace rspmm

@@ -1,5 +1,7 @@
-// Hub-aware, slice-major row sums of K1 (rspmm_fwd.cu) and K2 and K2h
-// (rspmm_bwd.cu), by hand for Hopper.
+// Hub-aware, slice-major row sums of K1 and K1h (rspmm_fwd.cu) and K2 and
+// K2h (rspmm_bwd.cu), by hand for Hopper; their blocks also serve K6
+// (rspmm_pna_fwd.cu), K6b, K7b and K5 (rspmm_pna_bwd.cu) and K8f and K8b
+// (rspmm_rotate.cu).
 //
 //   staged_rows:    out[row of item i, slice] = sum over the item's edges e
 //                   of w_e * msg(rel[etype_e, slice], x[col_e, slice])
@@ -49,13 +51,14 @@
 //    bitwise-equal outputs. No float atomics.
 //
 // Operands: the kernels, plans and launchers take the operand type In,
-// fp32 (K1, K2) or bf16 (K2h: rel, x and g bf16, weights, sums and outputs
-// fp32). A bf16 slice holds kBf16RowsSlice (staged_rows) or
+// fp32 (K1, K2) or bf16 (K1h and K2h: rel, x and g bf16, weights, sums and
+// outputs fp32). A bf16 slice holds kBf16RowsSlice (staged_rows) or
 // kBf16ChunksSlice (staged_chunks) features of 8 lanes a thread (one
 // 16-byte load); the rel slice is staged in the operand type (121 KB at
-// R = 474 for 128 bf16 features) and widened where it is used. Gathered
-// bf16 lanes stay packed until they are used, and products are taken in
-// fp32 from the widened values.
+// R = 474 for 128 bf16 features). Gathered bf16 lanes stay packed until
+// they are used. K2h's products are taken in fp32 from the widened values;
+// K1h's messages in bf16 arithmetic on the lanes as they lie, rounded once
+// to bf16 before the fp32 weight multiplies them (accumulate_packed).
 
 #pragma once
 
@@ -213,6 +216,51 @@ __device__ __forceinline__ Lanes<1> widen(unsigned short b) {
   return out;
 }
 
+// K1h's message of W bf16 lanes as they lie: rel * x (kMulRel) or rel + x
+// (kAddRel) in bf16 arithmetic, two lanes an instruction, rounded once to
+// bf16 as the TPU kernel's bf16 product is (rspmm_pallas.py:365, :497),
+// then widened and weighted into the fp32 sums, acc += m * w. The fp32
+// product of two bf16 values is exact and their fp32 sum rounds to bf16 as
+// the exact sum does (24 >= 2 * 8 + 2 bits), so the plain version's
+// rounding of the fp32 result gives the same bits at every magnitude above
+// fp32's subnormals (below 2^-126 the fp32 result may round first). With
+// the lanes widened first and the fp32 result rounded, K1h took 1.12 ms
+// against 0.86 at F = 4,096 on an NVIDIA H100 (PERF.md).
+template <int MODE, int W>
+__device__ __forceinline__ void accumulate_packed(float (&acc)[W],
+                                                  RawLanes<W> r,
+                                                  RawLanes<W> x, float w) {
+  static_assert(MODE == kMulRel || MODE == kAddRel, "K1h's modes");
+  if constexpr (W == 8) {
+    const uint32_t rp[4] = {r.x, r.y, r.z, r.w};
+    const uint32_t xp[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&rp[k]);
+      const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&xp[k]);
+      __nv_bfloat162 m;
+      if constexpr (MODE == kMulRel) {
+        m = __hmul2(a, b);
+      } else {
+        m = __hadd2(a, b);
+      }
+      const uint32_t p = *reinterpret_cast<const uint32_t*>(&m);
+      // little-endian: lane 2k in the low half
+      acc[2 * k] += __uint_as_float(p << 16) * w;
+      acc[2 * k + 1] += __uint_as_float(p & 0xffff0000u) * w;
+    }
+  } else {
+    const bf16 a = __ushort_as_bfloat16(r), b = __ushort_as_bfloat16(x);
+    bf16 m;
+    if constexpr (MODE == kMulRel) {
+      m = __hmul(a, b);
+    } else {
+      m = __hadd(a, b);
+    }
+    acc[0] += __bfloat162float(m) * w;
+  }
+}
+
 // s_rel[r * W * G + c] = rel[r, f0 + c] for the W * G features of the slice
 // at f0 (those below F), every relation, by the CTA's THREADS threads:
 // kRowInFlight loads in flight a thread, so that the slice (121 KB at
@@ -268,13 +316,16 @@ __device__ __forceinline__ int draw_item(int* next, bool draw, int lane,
   return __shfl_sync(0xffffffffu, item, lane - lane % G);
 }
 
-// MODE kMulRel or kAddRel (K1, K2), kMulScaled (K2h); W lanes a thread, G
-// threads a stream, each stream one item at a time, kIn edges an iteration
+// MODE kMulRel or kAddRel (K1, K2; K1h with In = bf16), kMulScaled (K2h);
+// W lanes a thread, G threads a stream, each stream one item at a time,
+// kIn edges an iteration
 template <int MODE, int W, int G, bool kSharedRel, typename In>
 __global__ void __launch_bounds__(kThreads, 1) staged_rows(Rows<In> a) {
   constexpr int S = W * G;
   // the gathered-rel branch loads two rows an edge
   constexpr int kIn = kSharedRel ? kRowInFlight : kRowInFlight / 2;
+  // K1h's messages in bf16 arithmetic on the lanes as they lie
+  constexpr bool kPacked = std::is_same_v<In, bf16> && MODE != kMulScaled;
   static_assert(kIn <= G, "a stream's lanes hold an iteration's edges");
   extern __shared__ float4 smem[];
   In* s_rel = reinterpret_cast<In*>(smem);
@@ -409,12 +460,23 @@ __global__ void __launch_bounds__(kThreads, 1) staged_rows(Rows<In> a) {
         // the type is passed on here, not kept in a register
         const int r = __shfl_sync(0xffffffffu, m_type, u, G);
         if (on && u < n) {
-          accumulate<MODE, float, W>(
-              acc, load_shared<W>(s_rel + r * S + (f - f0)), widen(xv[u]),
-              we);
+          if constexpr (kPacked) {
+            accumulate_packed<MODE, W>(
+                acc,
+                *reinterpret_cast<const RawLanes<W>*>(s_rel + r * S + (f - f0)),
+                xv[u], we);
+          } else {
+            accumulate<MODE, W>(
+                acc, load_shared<W>(s_rel + r * S + (f - f0)), widen(xv[u]),
+                we);
+          }
         }
       } else if (on && u < n) {
-        accumulate<MODE, float, W>(acc, widen(rv[u]), widen(xv[u]), we);
+        if constexpr (kPacked) {
+          accumulate_packed<MODE, W>(acc, rv[u], xv[u], we);
+        } else {
+          accumulate<MODE, W>(acc, widen(rv[u]), widen(xv[u]), we);
+        }
       }
     }
     if (done) {
@@ -512,7 +574,7 @@ staged_chunks(Chunks<In> a) {
           const int i = (u0 + u) * kStreams + stream;
           const float we = __shfl_sync(0xffffffffu, m_w, i);
           if (on && i < n) {
-            accumulate<kMode, float, W>(acc, widen(xv[u]), widen(gv[u]), we);
+            accumulate<kMode, W>(acc, widen(xv[u]), widen(gv[u]), we);
           }
         }
       }

@@ -7,7 +7,8 @@ addresses and the hashes in internal-linkage names left out. Kernels are
 named as ``c++filt`` (or ``cu++filt``) demangles them, without their
 parameter lists. A redesign that must leave other kernels' code as it was
 shows it here: every kernel that both libraries hold should read
-"identical". Where a kernel gained a template argument, ``--rename
+"identical" (``--show N`` prints the first N lines of each other kernel's
+diff). Where a kernel gained a template argument, ``--rename
 PATTERN=REPLACEMENT`` (a regular expression, ``re.sub``'s replacement;
 repeatable) maps this checkout's name of an instantiation to the parent's,
 so that the two are compared:
@@ -23,6 +24,7 @@ It needs nvcc and cuobjdump (under CUDA_HOME, default /usr/local/cuda).
 from __future__ import annotations
 
 import argparse
+import difflib
 import os
 import re
 import subprocess
@@ -109,6 +111,9 @@ def main(argv=None) -> list:
                     help="the other checkout (e.g. a git archive of the "
                          "parent commit)")
     ap.add_argument("--out", help="also write the report here")
+    ap.add_argument("--show", type=int, default=0, metavar="N",
+                    help="print up to N lines of each differing kernel's "
+                         "unified diff (the parent's SASS first)")
     ap.add_argument("--rename", action="append", default=[],
                     metavar="PATTERN=REPLACEMENT",
                     help="map this checkout's kernel names to the other's "
@@ -132,6 +137,12 @@ def main(argv=None) -> list:
                      f"{len(both)} kernels in both identical; differ "
                      f"{differ}; only here {sorted(set(new) - set(old))}, "
                      f"only in the other {sorted(set(old) - set(new))}")
+        for kernel in differ if args.show else ():
+            diff = list(difflib.unified_diff(old[kernel], new[kernel],
+                                             lineterm="", n=1))
+            lines.append(f"[diff] {kernel}: {len(new[kernel])} instructions "
+                         f"against {len(old[kernel])}")
+            lines += [f"[diff]   {d}" for d in diff[2:2 + args.show]]
     print("\n".join(lines))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -1,9 +1,10 @@
-"""Times of K1 (the rspmm forward), K2 (its distmult backward), K2h (K2
-with bf16 operands), K3 (the transe backward), K6b and K7b (classic
-NBFNet's PNA backward), K5 (its max and min backward), K8f and K8b (its
-rotate forward and backward) and K9 (the ring shift) on the card, beside the PyTorch calls that compute the same functions where there
-are such, and the host's set-up seconds of the layouts they read, written
-to JSON.
+"""Times of K1 (the rspmm forward), K1h (K1 with bf16 operands), K2 (its
+distmult backward), K2h (K2 with bf16 operands), K3 (the transe backward),
+K6 (classic NBFNet's PNA max/min forward), K6b and K7b (its PNA
+backward), K5 (its max and min backward), K8f and K8b (its rotate forward
+and backward) and K9 (the ring shift) on the card, beside the PyTorch
+calls that compute the same functions where there are such, and the
+host's set-up seconds of the layouts they read, written to JSON.
 
 K1 on chip_smoke.py's uniform KG (below) in mode mul_rel at F = 1,024 and
 4,096 (ULTRA's eval batch and train step) and in mode add_rel at F = 512
@@ -45,6 +46,17 @@ F = 512 and 2,048 (classic rotate's eval and training widths) on the
 uniform KG and at 2,048 on bench.py's KG, held within K1's tolerance (the
 absolute one 1e-5 of the largest entry) plus the mass (timing.py::
 k8f_mass) and bitwise across two calls, beside its bound (GATHER_WORK).
+
+K1h (mode mul_rel, bf16 operands before the call) at F = 1,024 and 4,096
+(ULTRA's bf16 eval and training widths) on the uniform KG and at 4,096 on
+bench.py's KG, held within K1's tolerance plus the mass (timing.py::
+k1_mass on the widened values) of the plain version's sums in float64
+(timing.py::k1h_sums64) and bitwise across two calls. K6 (modes
+mul_rel and add_rel, post-ReLU x, so that messages tie) at F = 512 and
+2,048 (classic pna's eval and training widths) on the uniform KG and at
+2,048 on bench.py's KG, held equal to its plain version under == and
+bitwise across two calls, beside its bound (GATHER_WORK). A tree whose
+K1h reads no segments (the first design) is timed without them.
 
 K3 at F = 2,048 (the classic transe/pna training width, 64 x 32): the
 whole call and each half alone (dx only, dr only), on chip_smoke.py's
@@ -98,7 +110,10 @@ K5_KINDS = (("K5", "argext", "mul_rel"), ("K5", "argext", "add_rel"))
 ROTATE_DIM = 32  # classic NBFNet's: F = 64 queries x 32
 FB = dict(num_nodes=14541, num_edges=310116, num_relations=237)
 RING_SHARDS = 4
-PARTS = ("setup", "k1", "k2", "k2h", "pna", "k5", "k8f", "k8b", "k3", "k9")
+PARTS = ("setup", "k1", "k2", "k2h", "pna", "k5", "k8f", "k8b", "k3", "k9",
+         "k1h", "k6")
+K1H_FEATS = K1_FEATS  # ULTRA's bf16 eval batch and train step widths
+K6_FEATS = (16 * 32, 64 * 32)  # classic pna's eval and training widths
 K8F_FEATS = (16 * 32, 64 * 32)  # classic rotate's eval and training widths
 RING_FEATS = (16 * 64, 64 * 64)  # ULTRA eval batch and train step widths
 
@@ -319,6 +334,70 @@ def time_k8f(torch, timing, fwd, csr, w, F: int, label: str) -> dict:
     return out
 
 
+def time_k1h(torch, timing, fwd, csr, w, F: int, label: str) -> dict:
+    V, R = csr.rowptr.numel() - 1, csr.rel_chunk_ptr.numel() - 1
+    gen = torch.Generator(device=w.device).manual_seed(F + 17)
+    x = torch.randn((V, F), generator=gen, device=w.device).bfloat16()
+    rel = torch.randn((R, F), generator=gen, device=w.device).bfloat16()
+    ops = (csr.rowptr, csr.src, csr.etype, csr.eid, w, rel, x)
+    # a tree whose K1h reads no segments takes none
+    segmented = hasattr(fwd, "k1h_plan")
+    kw = {"segments": csr.segments} if segmented else {}
+
+    def k1h():
+        return fwd.rspmm_fwd_bf16_cuda(*ops, "mul_rel", **kw)
+
+    got, got2 = k1h(), k1h()
+    if not torch.equal(got.view(torch.int32), got2.view(torch.int32)):
+        raise AssertionError(f"K1h {label}: two calls differ")
+    del got2
+    want = timing.k1h_sums64(ops)
+    err = timing.assert_mass_close(
+        got, want, timing.k1_mass((*ops[:5], rel.float(), x.float())), 1e-5,
+        1e-5, f"K1h {label}")
+    del got, want
+    bound_ms, bound_by = timing.k1_bound_ms(ops)
+    out = dict(V=V, E=int(csr.src.numel()), R=R, F=F, mode="mul_rel",
+               max_abs_err=err,
+               ms=timing.cuda_time_ms(k1h, 50 if F <= 1024 else 20),
+               bound_ms=bound_ms, bound_by=bound_by)
+    if segmented:
+        out["plan"] = fwd.k1h_plan(R, F, V, csr.seg_ptr.numel() - 1)
+    _show(f"K1h {label} F={F}", out)
+    return out
+
+
+def time_k6(torch, timing, pna, csr, w, F: int, mode: str,
+            label: str) -> dict:
+    V, R = csr.rowptr.numel() - 1, csr.rel_chunk_ptr.numel() - 1
+    gen = torch.Generator(device=w.device).manual_seed(F + 18)
+    rel = torch.randn((R, F), generator=gen, device=w.device)
+    x = torch.randn((V, F), generator=gen, device=w.device).clamp_(min=0)
+
+    def k6():
+        return pna.pna_fwd_cuda("maxmin", csr, w, rel, x, mode)
+
+    got, got2 = k6(), k6()
+    if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(got, got2)):
+        raise AssertionError(f"K6 {mode} {label}: two calls differ")
+    if not all(torch.equal(a, b) for a, b in zip(
+            got, pna.pna_fwd_plain("maxmin", csr, w, rel, x, mode))):
+        raise AssertionError(f"K6 {mode} {label}: differs from its plain "
+                             "version")
+    del got, got2
+    bound_ms, bound_by = timing.gather_bound_ms("K6", w, rel, x)
+    out = dict(V=V, E=int(csr.src.numel()), R=R, F=F, mode=mode,
+               max_abs_err=0.0,
+               ms=timing.cuda_time_ms(k6, 50 if F <= 512 else 20),
+               bound_ms=bound_ms, bound_by=bound_by)
+    if hasattr(pna, "pna_fwd_plan"):
+        out["plan"] = pna.pna_fwd_plan(R, F, V, csr.seg_ptr.numel() - 1,
+                                       mode)
+    _show(f"K6 {label} {mode} F={F}", out)
+    return out
+
+
 def time_pna(torch, timing, pna, csr, w, kid: str, kind: str, mode: str,
              label: str) -> dict:
     V, F = csr.src_rowptr.numel() - 1, PNA_FEAT
@@ -458,7 +537,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--kernels", nargs="+", default=list(PARTS),
                     choices=PARTS,
                     help="what to time (default: all): the set-up seconds, "
-                         "K1, K2, K2h, K6b and K7b, K5, K8f, K8b, K3, K9")
+                         "K1, K2, K2h, K6b and K7b, K5, K8f, K8b, K3, K9, "
+                         "K1h, K6")
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -538,6 +618,22 @@ def main(argv=None) -> dict:
             for F in K8F_FEATS]
         result["k8f_hub"] = time_k8f(torch, timing, fwd, hub_csr, hub_w,
                                      K8F_FEATS[1], "bench.py's KG")
+        torch.cuda.empty_cache()
+    if "k1h" in parts:
+        result["k1h_uniform"] = [
+            time_k1h(torch, timing, fwd, uni_csr, uni_w, F, "uniform KG")
+            for F in K1H_FEATS]
+        result["k1h_hub"] = time_k1h(torch, timing, fwd, hub_csr, hub_w,
+                                     K1H_FEATS[1], "bench.py's KG")
+        torch.cuda.empty_cache()
+    if "k6" in parts:
+        result["k6_uniform"] = [
+            time_k6(torch, timing, pna, uni_csr, uni_w, F, mode,
+                    "uniform KG")
+            for mode in ("mul_rel", "add_rel") for F in K6_FEATS]
+        result["k6_hub"] = [
+            time_k6(torch, timing, pna, hub_csr, hub_w, K6_FEATS[1], mode,
+                    "bench.py's KG") for mode in ("mul_rel", "add_rel")]
         torch.cuda.empty_cache()
     if "k8b" in parts:
         for key, csr, w in (("uniform", uni_csr, uni_w),

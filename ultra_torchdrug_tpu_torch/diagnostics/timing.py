@@ -145,6 +145,28 @@ def k1_mass(operands, mode: str = "mul_rel") -> torch.Tensor:
                      terms, src.numel())
 
 
+def k1h_sums64(operands, mode: str = "mul_rel") -> torch.Tensor:
+    """The plain K1h's sums (ops/rspmm_cuda.py::rspmm_fwd_bf16_plain: each
+    message of the bf16 operands rounded to bf16, then weighted) taken in
+    float64, as float64: the reference of K1h's checks on hub rows, where
+    the fp32 plain version's own rounding on the card (its index_add_
+    adds a row of 10^5 terms in any order) reaches K1h's tolerance.
+    ``operands`` is K1's (rowptr, src, etype, eid, w, rel, x)."""
+    rowptr, src, etype, eid, w, rel, x = operands
+    w_e = w.index_select(0, eid.long()).double()
+    src, etype = src.long(), etype.long()
+    rows = _csr_rows(rowptr)
+    out = torch.zeros((rowptr.numel() - 1, x.shape[1]), dtype=torch.float64,
+                      device=x.device)
+    for a in range(0, src.numel(), MASS_CHUNK):
+        b = min(a + MASS_CHUNK, src.numel())
+        r = rel.index_select(0, etype[a:b]).float()
+        xs = x.index_select(0, src[a:b]).float()
+        m = (r * xs if mode == "mul_rel" else r + xs).to(torch.bfloat16)
+        out.index_add_(0, rows[a:b], m.double() * w_e[a:b, None])
+    return out
+
+
 def k2_mass(csr, w, rel, x, g) -> tuple:
     """The absolute masses of K2's sums, (dx's, dr's): Σ |w · rel · g| into
     each dx entry and Σ |w · x · g| into each dr entry."""

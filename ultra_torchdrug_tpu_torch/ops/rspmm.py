@@ -97,9 +97,8 @@ class _RspmmK1K2(torch.autograd.Function):
                               x if mode == "mul_rel" else None)
         args = (csr.rowptr, csr.src, csr.etype, csr.eid, edge_weight,
                 relation, x, mode)
-        if bf16:
-            return rspmm_fwd_bf16_cuda(*args)
-        return rspmm_fwd_cuda(*args, segments=csr.segments)
+        fwd = rspmm_fwd_bf16_cuda if bf16 else rspmm_fwd_cuda
+        return fwd(*args, segments=csr.segments)
 
     @staticmethod
     def backward(ctx, grad_out):

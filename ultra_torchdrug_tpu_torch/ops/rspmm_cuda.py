@@ -26,14 +26,16 @@ out [V, F] with V = len(rowptr) - 1.
 K1h is K1 with ``compute_dtype=bfloat16`` (rspmm_gather1 with bf16
 operands, :1689-1724): the wrapper casts relation and x to bf16 once per
 call, each message rel ⊙ x (or rel + x) is rounded to bf16 before the fp32
-weight multiplies it, and the sum and the output stay fp32.
+weight multiplies it, and the sum and the output stay fp32. It runs K1's
+kernels with bf16 operands over K1's segments (csrc/rspmm_fwd.cu).
 
 ``rspmm_fwd_cuda`` (K1), ``rspmm_fwd_bf16_cuda`` (K1h) and
 ``rotate_fwd_cuda`` (K8f) launch their kernel for CUDA tensors and count
 each launch in ``launches``, ``bf16_launches`` and ``rotate_launches``; for
 CPU tensors they run ``rspmm_fwd_plain`` and ``rspmm_fwd_bf16_plain``.
-``k1_plan`` and ``k8f_plan`` report how K1 and K8f lay out a call (the
-feature slice and whether the relation slice sits in shared memory);
+``k1_plan``, ``k1h_plan`` and ``k8f_plan`` report how K1, K1h and K8f lay
+out a call (the feature slice and whether the relation slice sits in
+shared memory);
 ``hub_operands`` makes the hub rows their checks on the card use.
 """
 
@@ -242,17 +244,12 @@ def rspmm_fwd_cuda(rowptr, src, etype, eid, edge_weight, relation, x,
 
 def _segment_call(fn, kid: str, segments, src, etype, eid, edge_weight,
                   relation, x, num_rows: int, num_features: int, last: int):
-    """One call of K1's or K8f's entry point (``fn``: rspmm_fwd_k1's
+    """One call of K1's, K1h's or K8f's entry point (``fn``: rspmm_fwd_k1's
     arguments, ``last`` its mode or K8f's block width) over ``segments``,
     with its output, weights' scratch and partial rows allocated here;
     raises naming ``kid`` where the call fails. Returns the output."""
     device = x.device
-    if not isinstance(segments, RowSegments):
-        raise TypeError(f"segments must be the CSR's RowSegments "
-                        f"(Csr.segments), got {type(segments).__name__}")
-    if segments.seg_ptr.device != device or segments.num_rows != num_rows:
-        raise ValueError("the segments are not this CSR's: Csr.segments of "
-                         "the CSR on x's device")
+    check_segments(segments, device, num_rows)
     num_edges = src.numel()
     out = torch.empty((num_rows, num_features), dtype=torch.float32,
                       device=device)
@@ -273,6 +270,17 @@ def _segment_call(fn, kid: str, segments, src, etype, eid, edge_weight,
         raise RuntimeError(f"{kid} ({fn.__name__}) launch failed with CUDA "
                            f"error {err}")
     return out
+
+
+def check_segments(segments, device, num_rows: int):
+    """``segments`` is a CSR's RowSegments (``Csr.segments``) of
+    ``num_rows`` rows on ``device``."""
+    if not isinstance(segments, RowSegments):
+        raise TypeError(f"segments must be the CSR's RowSegments "
+                        f"(Csr.segments), got {type(segments).__name__}")
+    if segments.seg_ptr.device != device or segments.num_rows != num_rows:
+        raise ValueError("the segments are not this CSR's: Csr.segments of "
+                         "the CSR on x's device")
 
 
 def ptr(t):
@@ -322,16 +330,30 @@ def k1_plan(num_relations: int, num_features: int, num_x_rows: int,
     ("shared" memory, or rel rows "gathered" above the budget), its bytes,
     the slices and the CTAs a slice, on the 16-byte path where F % 4 == 0
     (operands aligned)."""
+    return _fwd_plan("rspmm_k1_plan", num_features % 4 == 0, num_relations,
+                     num_features, num_x_rows, num_segments, mode)
+
+
+def k1h_plan(num_relations: int, num_features: int, num_x_rows: int,
+             num_segments: int, mode: str = "mul_rel") -> dict:
+    """How K1h lays out a call of this shape on the card, as k1_plan's: bf16
+    slices of 128 features (the rel slice staged in bf16) on the 16-byte
+    path where F % 8 == 0 (operands aligned)."""
+    return _fwd_plan("rspmm_k1h_plan", num_features % 8 == 0, num_relations,
+                     num_features, num_x_rows, num_segments, mode)
+
+
+def _fwd_plan(name: str, vec: bool, num_relations: int, num_features: int,
+              num_x_rows: int, num_segments: int, mode: str) -> dict:
     check_mode(mode)
-    vec = num_features % 4 == 0
     out = (ctypes.c_int * 5)()
-    fn = load_library("rspmm_fwd").rspmm_k1_plan
+    fn = getattr(load_library("rspmm_fwd"), name)
     fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(int(vec), num_relations, num_features, num_x_rows, num_segments,
              MODES[mode], ctypes.addressof(out))
     if err != 0:
-        raise RuntimeError(f"rspmm_k1_plan failed with CUDA error {err}")
+        raise RuntimeError(f"{name} failed with CUDA error {err}")
     return plan_dict(out[:5])
 
 
@@ -343,31 +365,23 @@ def plan_dict(values) -> dict:
 
 
 def rspmm_fwd_bf16_cuda(rowptr, src, etype, eid, edge_weight, relation, x,
-                        mode: str) -> torch.Tensor:
-    """K1h on CUDA tensors (fp32 relation and x, cast to bf16 here); the
-    plain version on CPU tensors. Returns fp32."""
+                        mode: str, *, segments) -> torch.Tensor:
+    """K1h on CUDA tensors (fp32 relation and x, cast to bf16 here) over K1's
+    destination-row segments (``Csr.segments``, as for rspmm_fwd_cuda); the
+    plain version on CPU tensors, which does not read ``segments``. Returns
+    fp32."""
     check_mode(mode)
     if x.device.type == "cpu":
         return rspmm_fwd_bf16_plain(rowptr, src, etype, eid, edge_weight,
                                     relation, x, mode)
-    device = x.device
     relation = relation.to(torch.bfloat16).contiguous()
     x = x.to(torch.bfloat16).contiguous()
     num_rows, num_features = check_fwd_operands(
         "K1h", rowptr, src, etype, eid, edge_weight, relation, x,
         dtype=torch.bfloat16)
-    out = torch.empty((num_rows, num_features), dtype=torch.float32,
-                      device=device)
-    fn = _bf16_kernel()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(rowptr.data_ptr(), src.data_ptr(), etype.data_ptr(),
-                 eid.data_ptr(), edge_weight.data_ptr(), relation.data_ptr(),
-                 x.data_ptr(), out.data_ptr(), num_rows, num_features,
-                 MODES[mode], stream)
-    if err != 0:
-        raise RuntimeError(f"rspmm_fwd_k1h launch failed with CUDA error "
-                           f"{err}")
+    out = _segment_call(_bf16_kernel(), "K1h", segments, src, etype, eid,
+                        edge_weight, relation, x, num_rows, num_features,
+                        MODES[mode])
     global bf16_launches
     bf16_launches += 1
     return out
@@ -422,7 +436,7 @@ def _kernel():
 @functools.lru_cache(maxsize=None)
 def _bf16_kernel():
     fn = load_library("rspmm_fwd").rspmm_fwd_k1h
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

@@ -42,6 +42,12 @@ launches, see the source); for CPU tensors it runs the plain version. The
 sources say what bounds each kernel on the card and what its design does
 about it. The backward kernels are deterministic: no float atomics.
 
+K6 reads K1's hub-aware layout (ops/rspmm_cuda.py): the destination rows
+cut into 256-edge segments (``Csr.segments``), the rel slice in shared
+memory, two accumulators a lane, a long row's partial extrema reduced by a
+second kernel; ``pna_fwd_plan`` reports how a shape is laid out. K4 and K7
+run the first design, a CTA a destination row over ``Csr.rowptr``.
+
 K6b, K7b and K5 read K2's hub-aware layouts (ops/rspmm_bwd_cuda.py), the
 same two passes with their own planes and gates: the dx pass the source
 rows cut into 256-edge segments (``Csr.src_seg_*``, ``src_long_*``), the
@@ -68,7 +74,13 @@ from .rspmm_bwd_cuda import (
     check_bwd_operands,
     ptr,
 )
-from .rspmm_cuda import MODES, check_fwd_operands, csr_rows, plan_dict
+from .rspmm_cuda import (
+    MODES,
+    check_fwd_operands,
+    check_segments,
+    csr_rows,
+    plan_dict,
+)
 
 # launches of each kernel since import (or since the caller last reset them)
 launches = {"K4": 0, "K5": 0, "K6": 0, "K7": 0, "K6b": 0, "K7b": 0}
@@ -178,7 +190,8 @@ def _check_kind(kind: str, mode: str, kinds, planes=None):
 def pna_fwd_cuda(kind: str, csr, edge_weight, relation, x, mode: str):
     """K6 (``maxmin``: returns (mx, mn)), K7 (``addsq``: returns (s, sq)) or
     K4 (``max``, ``min``: returns (out,)) on CUDA tensors; the plain version
-    on CPU tensors."""
+    on CPU tensors. K6 reads the CSR's destination-row segments
+    (``Csr.segments``, required on CUDA tensors as K1's are)."""
     _check_kind(kind, mode, KINDS)
     if x.device.type == "cpu":
         return pna_fwd_plain(kind, csr, edge_weight, relation, x, mode)
@@ -186,22 +199,77 @@ def pna_fwd_cuda(kind: str, csr, edge_weight, relation, x, mode: str):
     num_rows, num_features = check_fwd_operands(
         _FWD_ID[kind], csr.rowptr, csr.src, csr.etype, csr.eid, edge_weight,
         relation, x)
-    outputs = 1 if kind in _REDUCE else 2
-    out = [torch.empty((num_rows, num_features), dtype=torch.float32,
-                       device=device) for _ in range(outputs)]
-    fn = _fwd_kernel()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(KINDS[kind], MODES[mode], csr.rowptr.data_ptr(),
-                 csr.src.data_ptr(), csr.etype.data_ptr(), csr.eid.data_ptr(),
-                 edge_weight.data_ptr(), relation.data_ptr(), x.data_ptr(),
-                 out[0].data_ptr(), ptr(out[1] if outputs == 2 else None),
-                 num_rows, num_features, stream)
-    if err != 0:
-        raise RuntimeError(f"{_FWD_ID[kind]} (rspmm_pna_fwd) launch failed "
-                           f"with CUDA error {err}")
+    if kind == "maxmin":
+        out = _maxmin_call(csr, edge_weight, relation, x, mode, num_rows,
+                           num_features)
+    else:
+        outputs = 1 if kind in _REDUCE else 2
+        out = [torch.empty((num_rows, num_features), dtype=torch.float32,
+                           device=device) for _ in range(outputs)]
+        fn = _fwd_kernel()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = fn(KINDS[kind], MODES[mode], csr.rowptr.data_ptr(),
+                     csr.src.data_ptr(), csr.etype.data_ptr(),
+                     csr.eid.data_ptr(), edge_weight.data_ptr(),
+                     relation.data_ptr(), x.data_ptr(), out[0].data_ptr(),
+                     ptr(out[1] if outputs == 2 else None), num_rows,
+                     num_features, stream)
+        if err != 0:
+            raise RuntimeError(f"{_FWD_ID[kind]} (rspmm_pna_fwd) launch "
+                               f"failed with CUDA error {err}")
     launches[_FWD_ID[kind]] += 1
     return tuple(out)
+
+
+def _maxmin_call(csr, edge_weight, relation, x, mode: str, num_rows: int,
+                 num_features: int) -> tuple:
+    """One call of K6's entry point over ``csr.segments``, with its planes,
+    weights' scratch and the long rows' two partial planes allocated here;
+    raises naming K6 where the call fails. Returns (mx, mn)."""
+    segments = csr.segments
+    check_segments(segments, x.device, num_rows)
+    num_edges = csr.src.numel()
+    mx, mn = (x.new_empty((num_rows, num_features)) for _ in range(2))
+    w_scratch = x.new_empty((num_edges,))
+    p0 = p1 = None  # the long rows' partial maxima and minima
+    if segments.num_partials:
+        p0, p1 = x.new_empty((2, segments.num_partials, num_features))
+    fn = _maxmin_kernel()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(KINDS["maxmin"], MODES[mode], segments.seg_ptr.data_ptr(),
+                 segments.seg_out.data_ptr(), segments.long_rows.data_ptr(),
+                 segments.long_ptr.data_ptr(), csr.src.data_ptr(),
+                 csr.etype.data_ptr(), csr.eid.data_ptr(),
+                 edge_weight.data_ptr(), relation.data_ptr(), x.data_ptr(),
+                 mx.data_ptr(), mn.data_ptr(), w_scratch.data_ptr(),
+                 ptr(p0), ptr(p1),
+                 segments.num_segments, segments.num_long_rows, num_edges,
+                 relation.shape[0], x.shape[0], num_features, stream)
+    if err != 0:
+        raise RuntimeError(f"K6 (rspmm_pna_fwd_seg) launch failed with CUDA "
+                           f"error {err}")
+    return mx, mn
+
+
+def pna_fwd_plan(num_relations: int, num_features: int, num_x_rows: int,
+                 num_segments: int, mode: str = "mul_rel") -> dict:
+    """How K6 lays out a call of this shape on the card
+    (csrc/rspmm_pna_fwd.cu), as ops/rspmm_cuda.py::k1_plan's: 64-feature
+    slices on the float4 path where F % 4 == 0 (operands aligned), the rel
+    slice in shared memory where it fits."""
+    _check_kind("maxmin", mode, KINDS)
+    out = (ctypes.c_int * 5)()
+    fn = load_library("rspmm_pna_fwd").rspmm_pna_fwd_plan
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(KINDS["maxmin"], MODES[mode], int(num_features % 4 == 0),
+             num_relations, num_features, num_x_rows, num_segments,
+             ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"rspmm_pna_fwd_plan failed with CUDA error {err}")
+    return plan_dict(out[:5])
 
 
 # K6b's, K7b's and K5's layouts, in the kernel's argument order: K2's
@@ -283,6 +351,15 @@ def _fwd_kernel():
     fn = load_library("rspmm_pna_fwd").rspmm_pna_fwd
     fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _maxmin_kernel():
+    fn = load_library("rspmm_pna_fwd").rspmm_pna_fwd_seg
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 15
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 

@@ -233,8 +233,8 @@ def _ring_forward(inputs: RingRspmmInputs, edge_weight, relation, x, msg,
                 rows = slice(s * vb, (s + 1) * vb)
                 args = (c.rowptr, c.src, c.etype, c.eid, edge_weight,
                         relation, held[rows], "mul_rel")
-                out[rows] += (rspmm_fwd_bf16_cuda(*args) if bf16 else
-                              rspmm_fwd_cuda(*args, segments=c.segments))
+                fwd = rspmm_fwd_bf16_cuda if bf16 else rspmm_fwd_cuda
+                out[rows] += fwd(*args, segments=c.segments)
         else:
             g_rows, o_rows, etype, eid, valid = _step_buckets(inputs.fwd, k,
                                                               n, vb)
