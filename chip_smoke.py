@@ -30,7 +30,10 @@ Phases, each of which raises on failure (the script then exits nonzero):
               to 10^5 in-edges with 40 duplicated and weight-0 edges, F =
               10, 1028, 2048, and with R = 2,000, rel rows gathered, and
               timed on bench.py's KG) and K7 (the fused moments,
-              csrc/rspmm_pna_fwd.cu) and K6b and K7b (their backward,
+              csrc/rspmm_pna_fwd.cu, on the same segments; on the same hub
+              rows and bench.py's KG within 1e-5 plus 8 fp32 ulps of each
+              entry's absolute mass of the plain sums taken in fp64,
+              bitwise across two calls) and K6b and K7b (their backward,
               csrc/rspmm_pna_bwd.cu, bitwise across two calls and by half)
               against their plain versions at ragged shapes and at F=512
               and F=2048, K6b and K7b also on hub rows (10^3 and 10^4
@@ -40,7 +43,10 @@ Phases, each of which raises on failure (the script then exits nonzero):
               and on bench.py's heavy-tailed KG, with the share of K6b's
               g_mx and g_mn loads in which no feature passes its gate; hold
               K4 (one extremum, max and min, both modes,
-              csrc/rspmm_pna_fwd.cu) exactly, K5 (its argext backward,
+              csrc/rspmm_pna_fwd.cu, on K1's segments) exactly, also on
+              K6's hub rows and bench.py's KG, bitwise across two calls,
+              its output through K5 to the plain gradients within the mass
+              tolerance, K5 (its argext backward,
               csrc/rspmm_pna_bwd.cu, on K4's own output) and K3 (the transe
               backward, csrc/rspmm_transe_bwd.cu), both bitwise across two
               calls, against their plain versions at ragged shapes (K3 also
@@ -796,7 +802,7 @@ def phase_kernels_pna(und, device) -> dict:
 
     def check_fwd(kid, kind, mode, ops, label):
         if kid == "K6":  # exact: no difference to report
-            return check_k6_exact(ops, mode, label), 0.0
+            return check_extrema_exact(kind, ops, mode, label), 0.0
         got = pna.pna_fwd_cuda(kind, *ops, mode)
         want = pna.pna_fwd_plain(kind, *ops, mode)
         torch.cuda.synchronize()
@@ -833,14 +839,14 @@ def phase_kernels_pna(und, device) -> dict:
         for F in feats:
             for kid, kind, mode in bwd_kinds:
                 check_pna_hub(kid, kind, mode, F, R, seed, device)
-    # K6 on its hub rows (10^3 and 10^4 in-edges, 256 and 257, 40
+    # K6 and K7 on their hub rows (10^3 and 10^4 in-edges, 256 and 257, 40
     # duplicated edges, weight-0 edges, rows without edges): F = 10 the
     # scalar path, 1028 a ragged last slice, 2048 the training width; R =
     # 2,000 rel rows gathered (F = 13 scalar, 132 float4); a hub of 10^5
     for seed, R, feats in ((20, 7, (10, 1028, 2048)), (21, 2000, (13, 132))):
         for F in feats:
-            check_k6_hub(F, R, seed, device)
-    check_k6_hub(64, 7, 22, device, hub=100000)
+            check_fwd_hub(K6_K7_KINDS, F, R, seed, device)
+    check_fwd_hub(K6_K7_KINDS, 64, 7, 22, device, hub=100000)
 
     # (b) the main path's shapes on the FB-sized graph: F = 16 x 32 (eval)
     # for the forwards, F = 64 x 32 (training) for all four
@@ -880,11 +886,12 @@ def phase_kernels_pna(und, device) -> dict:
                 "PyTorch call computes this function)")
             keys = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bound_ms, bound_by=bound_by)
-            if kid == "K6":
+            if kid in ("K6", "K7"):
                 keys["plan"] = pna.pna_fwd_plan(
                     und.num_relations, F, und.num_nodes,
-                    ops[0].seg_ptr.numel() - 1, mode)
-                log(f"[kernels] K6 {mode} {label}: "
+                    ops[0].seg_ptr.numel() - 1, mode,
+                    "maxmin" if kid == "K6" else "addsq")
+                log(f"[kernels] {kid} {mode} {label}: "
                     + plan_text(keys["plan"]))
             if mode != "mul_rel":  # the main path is distmult
                 entries[kid].update({f"ms_{mode}_{which}": ms,
@@ -910,61 +917,116 @@ def phase_kernels_pna(und, device) -> dict:
         torch.cuda.empty_cache()
     for kid, hub in phase_pna_hub(device).items():
         entries[kid].update(hub)
-    entries["K6"].update(phase_k6_hub(device))
+    F = CLASSIC_TRAIN["batch"] * CLASSIC_FEAT
+    entries["K6"].update(phase_fwd_hub(device, K6_K7_KINDS[:2], F + 15))
+    entries["K7"].update(phase_fwd_hub(device, K6_K7_KINDS[2:], F + 17))
     log('[kernels] kernels ["K6", "K7", "K6b", "K7b"]')
     return entries
 
 
-def check_k6_exact(ops, mode: str, label: str) -> tuple:
-    """K6 on ``ops`` (csr, w, rel, x) against its plain version: equal under
-    == (a zero's sign may differ: fmaxf picks either of -0 and +0), two
-    calls bitwise equal, rows without edges 0; then the round trip into
-    K6b: the card's planes through K6b give the plain K6b's gradients on
-    the plain planes within the backward's tolerance plus 8 fp32 ulps of
-    each entry's absolute mass (the gate sees the same ties). Returns
-    (mx, mn)."""
+# the forward kinds of csrc/rspmm_pna_fwd.cu and, for the extrema, the
+# backward kind that gates on their planes
+EXTREMA_BWD = {"maxmin": "argext_pair", "max": "argext", "min": "argext"}
+FWD_ID = {"maxmin": "K6", "addsq": "K7", "max": "K4", "min": "K4"}
+K4_KINDS = tuple((agg, mode) for agg in ("max", "min")
+                 for mode in ("mul_rel", "add_rel"))
+K6_K7_KINDS = (("maxmin", "mul_rel"), ("maxmin", "add_rel"),
+               ("addsq", "mul_rel"))
+
+
+def check_extrema_exact(kind: str, ops, mode: str, label: str) -> tuple:
+    """K6 (``maxmin``) or K4 (``max``, ``min``) on ``ops`` (csr, w, rel, x)
+    against its plain version: equal under == (a zero's sign may differ:
+    fmaxf picks either of -0 and +0), two calls bitwise equal, rows without
+    edges 0; then the round trip into its backward, K6b or K5: the card's
+    planes through it give the plain backward's gradients on the plain
+    planes within the backward's tolerance plus 8 fp32 ulps of each
+    entry's absolute mass (the gate sees the same ties). Returns the
+    planes."""
     from ultra_torchdrug_tpu_torch.ops import rspmm_pna_cuda as pna
 
-    got = pna.pna_fwd_cuda("maxmin", *ops, mode)
-    again = pna.pna_fwd_cuda("maxmin", *ops, mode)
-    want = pna.pna_fwd_plain("maxmin", *ops, mode)
+    kid, bwd = FWD_ID[kind], EXTREMA_BWD[kind]
+    got = pna.pna_fwd_cuda(kind, *ops, mode)
+    again = pna.pna_fwd_cuda(kind, *ops, mode)
+    want = pna.pna_fwd_plain(kind, *ops, mode)
     torch.cuda.synchronize()
     csr = ops[0]
     no_dst = (csr.rowptr[1:] == csr.rowptr[:-1]).nonzero()
+    name = f"{kid} {kind} {mode} {label}"
     for a, b, c in zip(got, again, want):
         if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
-            raise AssertionError(f"K6 {mode} {label}: two calls differ")
+            raise AssertionError(f"{name}: two calls differ")
         if not torch.equal(a, c):
-            raise AssertionError(f"K6 {mode} {label}: differs from its plain "
-                                 "version")
+            raise AssertionError(f"{name}: differs from its plain version")
         if not torch.all(a[no_dst] == 0):
-            raise AssertionError(f"K6 {mode} {label}: rows without edges")
+            raise AssertionError(f"{name}: rows without edges")
     del again
     gen = torch.Generator(device=ops[3].device).manual_seed(
         ops[3].shape[1] + 31)
     g = [torch.randn(ops[3].shape, generator=gen, device=ops[3].device)
-         for _ in range(2)]
-    dx, dr = pna.pna_bwd_cuda("argext_pair", *ops, (g[0], got[0], g[1],
-                                                    got[1]), mode)
-    plain = (g[0], want[0], g[1], want[1])
+         for _ in got]
+    planes = tuple(t for pair in zip(g, got) for t in pair)
+    plain = tuple(t for pair in zip(g, want) for t in pair)
+    dx, dr = pna.pna_bwd_cuda(bwd, *ops, planes, mode)
     err = 0.0
-    for a, b, mass in zip((dx, dr), pna.pna_bwd_plain("argext_pair", *ops,
-                                                      plain, mode),
-                          pna_mass("argext_pair", *ops, plain, mode)):
+    for a, b, mass in zip((dx, dr), pna.pna_bwd_plain(bwd, *ops, plain, mode),
+                          pna_mass(bwd, *ops, plain, mode)):
         atol = max(1e-4, 1e-5 * b.abs().max().item())
         err = max(err, assert_mass_close(a, b, mass, 1e-5, atol,
-                                         f"K6 -> K6b {mode} {label}"))
-    log(f"[kernels] K6 {mode} {label}: equal to its plain version, bitwise "
-        f"equal across two calls; K6 -> K6b max_abs_err {err:.3g} within "
-        "the mass tolerance")
+                                         f"{name} -> {bwd}"))
+    log(f"[kernels] {name}: equal to its plain version, bitwise equal "
+        f"across two calls; -> {bwd} max_abs_err {err:.3g} within the mass "
+        "tolerance")
     return got
 
 
-def check_k6_hub(F: int, R: int, seed: int, device, hub: int = 10000):
-    """K6 in both modes on ops/rspmm_cuda.py::hub_operands' hub rows
-    (destination hubs of ``hub`` and 1,000 edges, 40 duplicated edges,
-    post-ReLU x) at width F with R relations, held by check_k6_exact; logs
-    the layout."""
+def check_k7_mass(ops, label: str) -> float:
+    """K7 on ``ops`` (csr, w, rel, x) against its plain sums taken in
+    float64 (timing.py::k7_sums64; the fp32 plain version's index_add_ adds
+    a hub row in atomics order on the card): K7's tolerance (1e-5) plus 8
+    fp32 ulps of each entry's absolute mass (timing.py::k7_mass), two calls
+    bitwise equal, rows without edges 0. Returns the largest difference."""
+    from ultra_torchdrug_tpu_torch.diagnostics.timing import (
+        k7_mass,
+        k7_sums64,
+    )
+    from ultra_torchdrug_tpu_torch.ops import rspmm_pna_cuda as pna
+
+    got = pna.pna_fwd_cuda("addsq", *ops, "mul_rel")
+    again = pna.pna_fwd_cuda("addsq", *ops, "mul_rel")
+    torch.cuda.synchronize()
+    csr = ops[0]
+    no_dst = (csr.rowptr[1:] == csr.rowptr[:-1]).nonzero()
+    err = 0.0
+    for a, b, want, mass, plane in zip(got, again, k7_sums64(*ops),
+                                       k7_mass(*ops), ("s", "sq")):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"K7 {label}: two calls differ")
+        err = max(err, assert_mass_close(a, want, mass, 1e-5, 1e-5,
+                                         f"K7 {plane} {label}"))
+        if not torch.all(a[no_dst] == 0):
+            raise AssertionError(f"K7 {label}: rows without edges")
+    log(f"[kernels] K7 {label}: max_abs_err {err:.3g} against the fp64 sums "
+        "within the mass tolerance, bitwise equal across two calls")
+    return err
+
+
+def check_fwd_kind(kind: str, ops, mode: str, label: str) -> float:
+    """K4 or K6 by check_extrema_exact (0 difference), K7 by
+    check_k7_mass."""
+    if kind == "addsq":
+        return check_k7_mass(ops, label)
+    check_extrema_exact(kind, ops, mode, label)
+    return 0.0
+
+
+def check_fwd_hub(kinds, F: int, R: int, seed: int, device,
+                  hub: int = 10000):
+    """K4, K6 or K7 (``kinds``: (kind, mode) pairs) on
+    ops/rspmm_cuda.py::hub_operands' hub rows (destination hubs of ``hub``
+    and 1,000 edges, rows of 256 and 257, 40 duplicated edges, weight-0
+    edges, rows and a relation without edges, post-ReLU x) at width F with
+    R relations, held by check_fwd_kind; logs each kind's layout."""
     from ultra_torchdrug_tpu_torch.ops import rspmm_cuda, rspmm_pna_cuda
 
     csr, w = rspmm_cuda.hub_operands(seed, device, E=max(40000,
@@ -975,37 +1037,44 @@ def check_k6_hub(F: int, R: int, seed: int, device, hub: int = 10000):
     rel = torch.randn((R, F), generator=gen, device=device)
     x = torch.randn((V, F), generator=gen, device=device).clamp_(min=0)
     label = f"hub rows of {hub} edges R={R} F={F}"
-    for mode in ("mul_rel", "add_rel"):
-        check_k6_exact((csr, w, rel, x), mode, label)
-    log(f"[kernels] K6 {label}: "
-        + plan_text(rspmm_pna_cuda.pna_fwd_plan(
-            R, F, V, csr.seg_ptr.numel() - 1)))
+    for kind, mode in kinds:
+        check_fwd_kind(kind, (csr, w, rel, x), mode, label)
+    for kind in dict(kinds):
+        log(f"[kernels] {FWD_ID[kind]} {kind} {label}: "
+            + plan_text(rspmm_pna_cuda.pna_fwd_plan(
+                R, F, V, csr.seg_ptr.numel() - 1, kind=kind)))
 
 
-def phase_k6_hub(device) -> dict:
-    """K6 (both modes) at F = 64 x 32 on bench.py's heavy-tailed KG
+def phase_fwd_hub(device, kinds, seed: int) -> dict:
+    """K4, K6 or K7 (``kinds``, one kernel's (kind, mode) pairs, the main
+    path's first) at F = 64 x 32 on bench.py's heavy-tailed KG
     (bench_kg_operands: its busiest destination row 107,150 edges), held
-    by check_k6_exact and timed; returns its entry's ``*_hub`` keys."""
+    by check_fwd_kind and timed; returns its entry's ``*_hub`` keys: the first
+    pair's ms_hub, bound_ms_hub, bound_share_hub and plan_hub, the other
+    pairs' ms and max_abs_err under their kind and mode."""
     from ultra_torchdrug_tpu_torch.ops import rspmm_pna_cuda as pna
 
     F = CLASSIC_TRAIN["batch"] * CLASSIC_FEAT
-    ops, label = bench_kg_operands(F + 15, device)
+    ops, label = bench_kg_operands(seed, device)
     csr, w, rel, x = ops
     out = {}
-    for mode in ("mul_rel", "add_rel"):
-        check_k6_exact(ops, mode, label)
+    for kind, mode in kinds:
+        kid = FWD_ID[kind]
+        err = check_fwd_kind(kind, ops, mode, label)
         torch.cuda.empty_cache()
-        ms = cuda_time_ms(lambda: pna.pna_fwd_cuda("maxmin", *ops, mode), 20)
-        bound_ms, _ = gather_bound_ms("K6", w, rel, x)
+        ms = cuda_time_ms(lambda: pna.pna_fwd_cuda(kind, *ops, mode), 20)
+        bound_ms, _ = gather_bound_ms(kid, w, rel, x)
         plan = pna.pna_fwd_plan(rel.shape[0], F, x.shape[0],
-                                csr.seg_ptr.numel() - 1, mode)
-        log(f"[kernels] K6 {mode} {label}: {ms:.4f} ms (bound "
+                                csr.seg_ptr.numel() - 1, mode, kind)
+        log(f"[kernels] {kid} {kind} {mode} {label}: {ms:.4f} ms (bound "
             f"{bound_ms:.4f} ms, {bound_ms / ms:.1%} of it); "
             f"{plan_text(plan)}")
-        suffix = "_hub" if mode == "mul_rel" else f"_{mode}_hub"
-        out.update({f"ms{suffix}": ms, f"max_abs_err{suffix}": 0.0})
-        if mode == "mul_rel":
-            out.update(bound_ms_hub=bound_ms, plan_hub=plan)
+        suffix = "".join(f"_{k}" for k in (kind, mode)
+                         if k not in (kinds[0][0], "mul_rel")) + "_hub"
+        out.update({f"ms{suffix}": ms, f"max_abs_err{suffix}": err})
+        if (kind, mode) == kinds[0]:
+            out.update(bound_ms_hub=bound_ms, bound_share_hub=bound_ms / ms,
+                       plan_hub=plan)
     del ops, csr, w, rel, x
     torch.cuda.empty_cache()
     return out
@@ -1292,6 +1361,14 @@ def phase_kernels_ext(und, device) -> dict:
                 for mode in ("mul_rel", "add_rel"):
                     check_pna_hub("K5", "argext", mode, F, R, seed, device,
                                   agg)
+    # K4 (max and min, both modes) on its hub rows, as K6 on its: 10^3 and
+    # 10^4 in-edges, 256 and 257, duplicated and weight-0 edges, rows
+    # without edges; F = 10, 1028, 2048, and 13, 132 with R = 2,000 (rel
+    # rows gathered); a hub of 10^5; each through K5 to the plain gradients
+    for seed, R, feats in ((26, 7, (10, 1028, 2048)), (27, 2000, (13, 132))):
+        for F in feats:
+            check_fwd_hub(K4_KINDS, F, R, seed, device)
+    check_fwd_hub(K4_KINDS, 64, 7, 28, device, hub=100000)
     # K3's segments (a 700-edge row) and its (destination tile, relation)
     # chunks across three tiles
     for F in (10, 64, 1028, 2048):
@@ -1350,16 +1427,19 @@ def phase_kernels_ext(und, device) -> dict:
                 "K4", f"max {mode} {label}",
                 lambda mode=mode: pna.pna_fwd_cuda("max", *ops, mode),
                 lambda mode=mode: pna.pna_fwd_plain("max", *ops, mode), ops)
+            plan = pna.pna_fwd_plan(und.num_relations, F, und.num_nodes,
+                                    ops[0].seg_ptr.numel() - 1, mode, "max")
+            log(f"[kernels] K4 max {mode} {label}: {plan_text(plan)}")
             if mode != "mul_rel":  # the main path is distmult max
                 entries["K4"][f"ms_{mode}_{which}"] = ms
             elif which == "eval":
                 entry("K4", "rspmm_pna_fwd.cu", 1681, max(errs.values()), ms,
-                      plain_ms, bound, None)
+                      plain_ms, bound, None, plan=plan)
             else:
                 entries["K4"].update(
                     max_abs_err_train=max(errs.values()), ms_train=ms,
                     plain_ms_train=plain_ms, bound_ms_train=bound[0],
-                    bound_by_train=bound[1])
+                    bound_by_train=bound[1], plan_train=plan)
         if which == "eval":
             del ops
             torch.cuda.empty_cache()
@@ -1409,6 +1489,8 @@ def phase_kernels_ext(und, device) -> dict:
         torch.cuda.empty_cache()
     entries["K3"].update(phase_k3_hub(device))
     entries["K5"].update(phase_pna_hub(device, K5_HUB_KINDS)["K5"])
+    entries["K4"].update(phase_fwd_hub(
+        device, K4_KINDS, CLASSIC_TRAIN["batch"] * CLASSIC_FEAT + 16))
     log('[kernels] kernels ["K4", "K5", "K3"]')
     return entries
 

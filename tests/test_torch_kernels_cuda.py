@@ -13,7 +13,10 @@ add 8 fp32 ulps of each entry's absolute mass to those (diagnostics/
 timing.py::assert_mass_close): their segments' partial rows sum in another
 order than the plain version.
 K6 and K4 must equal their plain versions exactly (an extremum of the same
-fp32 products); K7 takes K1's tolerance for the same reason. K3, K5 and
+fp32 products), on hub rows too; K7 takes K1's tolerance for the same
+reason, on hub rows plus 8 fp32 ulps of each entry's absolute mass against
+the plain sums taken in float64 (the fp32 plain version's index_add_ adds
+a hub row in atomics order on the card). K3, K5 and
 K6b/K7b take K2's, with the absolute tolerance widened to 1e-5 of the
 result's largest entry: a dr row sums a thousand or more terms (K7b's carry
 x² and reach ~1e2), whose partial sums grow to that size, in another order.
@@ -580,6 +583,108 @@ def test_k6_hub_rows_match_plain(cuda_device, mode, F, R, hub):
         atol = max(1e-4, 1e-5 * b.abs().max().item())
         timing.assert_mass_close(a, b, mass, 1e-5, atol,
                                  f"K6 -> K6b {mode} F={F} R={R}")
+
+
+def _fwd_hub_operands(F, R, hub, device):
+    """rspmm_cuda.hub_operands' hub rows of ``hub`` and 10^3 in-edges, rows
+    of 256 and 257, 40 duplicated edges and weight-0 edges, rows and a
+    relation without edges, with N(0, 1) rel and post-ReLU x at width F
+    (messages tie, zeros of both signs); returns (csr, w, rel, x, rng)."""
+    seed = F + R + hub
+    csr, w = rspmm_cuda.hub_operands(seed, device,
+                                     E=max(40000, 2 * hub + 20000), R=R,
+                                     duplicated=40, hub=hub)
+    V = csr.rowptr.numel() - 1
+    rng = np.random.default_rng(seed)
+    rel = _normal(rng, (R, F), device)
+    x = _normal(rng, (V, F), device).clamp_(min=0)
+    return csr, w, rel, x, rng
+
+
+def _fwd_twice(kind, ops, mode):
+    """Two calls of K4, K6 or K7 on ``ops``, bitwise equal, each counted as
+    one launch; returns the first call's planes."""
+    kid = _FWD_ID[kind]
+    before = rspmm_pna_cuda.launches[kid]
+    got = rspmm_pna_cuda.pna_fwd_cuda(kind, *ops, mode)
+    again = rspmm_pna_cuda.pna_fwd_cuda(kind, *ops, mode)
+    torch.cuda.synchronize()
+    assert rspmm_pna_cuda.launches[kid] == before + 2
+    for a, b in zip(got, again):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return got
+
+
+@pytest.mark.parametrize("F,R,hub", K6_HUB)
+@pytest.mark.parametrize("kind,mode", K4_FWD)
+def test_k4_hub_rows_match_plain(cuda_device, kind, mode, F, R, hub):
+    """K4 (max and min, both modes) on K1's destination-row segments, on
+    K6's hub rows: equal to the plain version under ==, bitwise equal
+    across two calls, one launch counted a call, rows without edges 0."""
+    csr, w, rel, x, _ = _fwd_hub_operands(F, R, hub, cuda_device)
+    (got,) = _fwd_twice(kind, (csr, w, rel, x), mode)
+    (want,) = rspmm_pna_cuda.pna_fwd_plain(kind, csr, w, rel, x, mode)
+    assert torch.equal(got, want)
+    no_dst = (csr.rowptr[1:] == csr.rowptr[:-1]).nonzero()
+    assert torch.all(got[no_dst] == 0)
+
+
+@pytest.mark.parametrize("F,R,hub", K6_HUB)
+def test_k7_hub_rows_match_plain(cuda_device, F, R, hub):
+    """K7 on K1's destination-row segments, on K6's hub rows: within 1e-5
+    plus 8 fp32 ulps of each entry's absolute mass (timing.py::k7_mass) of
+    the plain sums taken in float64 (timing.py::k7_sums64: the fp32 plain
+    version's index_add_ adds a hub row in atomics order on the card),
+    bitwise equal across two calls, one launch counted a call, rows
+    without edges 0."""
+    csr, w, rel, x, _ = _fwd_hub_operands(F, R, hub, cuda_device)
+    got = _fwd_twice("addsq", (csr, w, rel, x), "mul_rel")
+    no_dst = (csr.rowptr[1:] == csr.rowptr[:-1]).nonzero()
+    for a, want, mass in zip(got, timing.k7_sums64(csr, w, rel, x),
+                             timing.k7_mass(csr, w, rel, x)):
+        timing.assert_mass_close(a, want, mass, TOL["rtol"], TOL["atol"],
+                                 f"K7 F={F} R={R} hub={hub}")
+        assert torch.all(a[no_dst] == 0)
+
+
+@pytest.mark.parametrize("F,R,hub", [(10, 7, 10000), (2048, 7, 10000),
+                                     (132, 2000, 10000), (64, 7, 100000)])
+@pytest.mark.parametrize("kind,mode", K4_FWD)
+def test_k4_k5_hub_rows_round_trip(cuda_device, kind, mode, F, R, hub):
+    """K4's planes on hub rows through K5 give the gradients that the plain
+    forward's planes give through K5's plain version, within the
+    backward's tolerance plus the mass (timing.py::pna_mass): the gate
+    m == out[v] fires on the same ties."""
+    csr, w, rel, x, rng = _fwd_hub_operands(F, R, hub, cuda_device)
+    (got,) = rspmm_pna_cuda.pna_fwd_cuda(kind, csr, w, rel, x, mode)
+    (want,) = rspmm_pna_cuda.pna_fwd_plain(kind, csr, w, rel, x, mode)
+    g = _normal(rng, x.shape, cuda_device)
+    dx, dr = rspmm_pna_cuda.pna_bwd_cuda("argext", csr, w, rel, x, (g, got),
+                                         mode)
+    args = ("argext", csr, w, rel, x, (g, want), mode)
+    for a, b, mass in zip((dx, dr), rspmm_pna_cuda.pna_bwd_plain(*args),
+                          timing.pna_mass(*args)):
+        atol = max(1e-4, 1e-5 * b.abs().max().item())
+        timing.assert_mass_close(a, b, mass, 1e-5, atol,
+                                 f"K4 -> K5 {kind} {mode} F={F} R={R}")
+
+
+@pytest.mark.parametrize("kind,mode", PNA_FWD + K4_FWD)
+def test_pna_fwd_plan_every_kind(cuda_device, kind, mode):
+    """pna_fwd_plan of K4, K6 and K7: 64-feature slices on the float4
+    path, 32 on the scalar path, the rel slice in shared memory at R = 7
+    and rel rows gathered at R = 2,000; every kind lays out K1's segments
+    alike."""
+    for R, where in ((7, "shared"), (2000, "gathered")):
+        for F, width in ((2048, 64), (13, 32)):
+            plan = rspmm_pna_cuda.pna_fwd_plan(R, F, 14541, 20000, mode,
+                                               kind=kind)
+            assert plan["rel"] == where, plan
+            assert plan["slice_floats"] == width, plan
+            assert plan["slices"] == -(-F // width), plan
+            assert plan["ctas_per_slice"] >= 1, plan
+    with pytest.raises(ValueError):  # K7 is distmult only
+        rspmm_pna_cuda.pna_fwd_plan(7, 64, 100, 10, "add_rel", kind="addsq")
 
 
 @pytest.mark.parametrize("V,E,R,F", PNA_SHAPES)

@@ -28,8 +28,8 @@
 //     m = rel[r, :] * x[s, :],  s[v, :] += m * w,  sq[v, :] += m * (m * w).
 //
 // Shapes: x [V, F], rel [R, F], w [E] in original edge order, outputs
-// [V, F]; fp32 in and out; a destination-sorted CSR (rowptr / src / etype /
-// eid, int32), the same one K1 reads.
+// [V, F]; fp32 in and out; a destination-sorted CSR (src / etype / eid,
+// int32) and its destination rows' segments, the same ones K1 reads.
 //
 // What bounds it on an H100: the compulsory traffic is one read of x, rel
 // and the edge arrays and one write of the outputs; the work is 3 (K4),
@@ -40,8 +40,9 @@
 // bytes-bound. Like K1, this design gathers one x row per edge (E * F * 4
 // bytes, about 1 GB at that shape), so those gathers are its real limit.
 //
-// K6 runs K1's staged, hub-aware design (rspmm_staged.cuh's blocks, the
-// layouts data/graph.py's Csr.seg_* / long_*), seg_stats:
+// K4, K6 and K7 run K1's staged, hub-aware design (rspmm_staged.cuh's
+// blocks, the layouts data/graph.py's Csr.seg_* / long_*), seg_stats, one
+// kernel with the kind as a template argument:
 //  * over the destination rows' 256-edge segments, slice-major in 64-feature
 //    slices (32 on the scalar path), one 16-thread stream a segment in
 //    staged_rows' software pipeline (the next edges' metadata and the next
@@ -51,30 +52,26 @@
 //    gathered, a choice by shape;
 //  * each edge's weight gathered once a call in the segments' order
 //    (gather_weights);
-//  * two register accumulators a lane, the max and the min, both planes
-//    written by the segment; a segment without edges (a row without edges)
-//    writes 0 to both;
-//  * a row of more than 256 edges is cut into segments whose partial maxima
-//    and minima go to two partial planes, which long_row_extrema reduces in
-//    segment order (the max of the maxima, the min of the minima);
-//  * 1,024-thread CTAs, 8 edges' x slices in flight a stream (kSegThreads:
-//    it spills 18-128 bytes, and still beat 512-thread CTAs of up to 128
-//    registers with 16 in flight, which do not spill, by 1-2 % on the
-//    card, PERF.md).
-// Max and min are exact, so the result equals the plain version's but for
-// the sign of a zero where a weight-0 edge's -0 meets a +0 (fmaxf may return
-// either): K6b's gate m == mx[v] treats both alike. One call makes up to
-// three launches: the weights, the segments, the long rows' extrema.
-// seg_stats takes the kind as a template argument, so that K4 and K7 can
-// join it as kinds of their own; only K6's (kMaxMin) is written.
-//
-// K7 and K4 keep the first design: K1's first structure (rspmm_rows.cuh's
-// row_gather), row_stats, one CTA per destination row and feature tile,
-// threads across features with float4 accesses where aligned, with one
-// register accumulator per lane and output (two for K7): each x row
-// gathered feeds every output, each output row is written once, no
-// atomics, and the result does not depend on launch order. A hub row walks
-// serially on one CTA.
+//  * register accumulators a lane: K4 one (the max or the min, from -inf or
+//    +inf), K6 two (the max and the min), K7 two (the sum and the sum of
+//    squares, in the order written above); a segment without edges (a row
+//    without edges) writes 0 to each of the kind's planes;
+//  * a row of more than 256 edges is cut into segments whose partial rows
+//    go to one partial plane for each output, combined in segment order by
+//    a second kernel: long_row_extrema for K4 (one plane) and K6 (the max of
+//    the maxima, the min of the minima), rspmm_rows.cuh's long_row_sums
+//    once a plane for K7;
+//  * CTAs of 1,024 threads with 8 edges' x slices in flight a stream for
+//    K4 and K6, of 512 threads with 16 in flight for K7 (seg_threads: K6
+//    spills 18-128 bytes at 1,024 and still beat 512 by 1-2 % on the card,
+//    K4, 4-16 bytes spilled, by 28 %; K7, 32-128 bytes spilled at 1,024,
+//    ran 12 % faster at 512, PERF.md).
+// Max and min are exact, so K4's and K6's results equal the plain
+// version's but for the sign of a zero where a weight-0 edge's -0 meets a
+// +0 (fmaxf may return either): the backward's gate m == out[v] treats both
+// alike. K7's sums add a segment's edges in edge order, then a long row's
+// segments in segment order. One call makes up to four launches: the
+// weights, the segments, the long rows' combine (K7 one a plane).
 
 #include <math_constants.h>
 
@@ -96,121 +93,48 @@ constexpr int kAddSq = 1;   // K7
 constexpr int kMax = 2;     // K4, max
 constexpr int kMin = 3;     // K4, min
 
-// ---------------------------------------------------------------------------
-// K7 and K4: the first design
-// ---------------------------------------------------------------------------
-
-// one CTA per (row v, feature tile); each thread owns W consecutive lanes;
-// n is the row width in groups of W lanes; out1 is written by K7 only
-template <int KIND, int MODE, int W>
-__global__ void __launch_bounds__(kMaxThreads)
-row_stats(const int* __restrict__ rowptr, const int* __restrict__ col,
-          const int* __restrict__ etype, const int* __restrict__ eid,
-          const float* __restrict__ weight, const float* __restrict__ rel,
-          const float* __restrict__ x, float* __restrict__ out0,
-          float* __restrict__ out1, int n) {
-  const int v = blockIdx.x;
-  const int j = blockIdx.y * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  const int64_t width = static_cast<int64_t>(n) * W;
-  const int64_t lane = static_cast<int64_t>(j) * W;
-  const int begin = __ldg(rowptr + v);
-  const int end = __ldg(rowptr + v + 1);
-  constexpr bool kPair = KIND == kAddSq;
-  float a[W], b[W];
-#pragma unroll
-  for (int k = 0; k < W; ++k) {
-    a[k] = KIND == kMax ? -CUDART_INF_F : KIND == kMin ? CUDART_INF_F : 0.f;
-    b[k] = 0.f;
-  }
-#pragma unroll 4
-  for (int e = begin; e < end; ++e) {
-    const int64_t c = __ldg(col + e);
-    const int64_t r = __ldg(etype + e);
-    const float w = __ldg(weight + __ldg(eid + e));
-    const Lanes<W> rv = load_lanes<W>(rel + r * width + lane);
-    const Lanes<W> xv = load_lanes<W>(x + c * width + lane);
-#pragma unroll
-    for (int k = 0; k < W; ++k) {
-      if constexpr (KIND == kAddSq) {
-        const float m = rv.v[k] * xv.v[k];
-        const float mw = m * w;
-        a[k] += mw;
-        b[k] += m * mw;
-      } else {
-        const float m = message<MODE>(rv.v[k], xv.v[k]) * w;
-        a[k] = KIND == kMax ? fmaxf(a[k], m) : fminf(a[k], m);
-      }
-    }
-  }
-  if (KIND != kAddSq && begin == end) {
-#pragma unroll
-    for (int k = 0; k < W; ++k) a[k] = b[k] = 0.f;
-  }
-  const int64_t off = static_cast<int64_t>(v) * width + lane;
-  store_lanes<W>(out0 + off, a);
-  if constexpr (kPair) store_lanes<W>(out1 + off, b);
+// the planes a kind writes: K4 one, K6 and K7 two
+__host__ __device__ constexpr int kind_planes(int kind) {
+  return kind == kMax || kind == kMin ? 1 : 2;
 }
 
-template <int KIND, int MODE>
-void launch(bool vec, const int* rowptr, const int* src, const int* etype,
-            const int* eid, const float* weight, const float* rel,
-            const float* x, float* out0, float* out1, int num_rows,
-            int num_features, cudaStream_t stream) {
-  const int n = vec ? num_features / 4 : num_features;
-  int threads, tiles;
-  rspmm::feature_tiles(n, &threads, &tiles);
-  const dim3 grid(num_rows, tiles);
-  if (vec) {
-    row_stats<KIND, MODE, 4><<<grid, threads, 0, stream>>>(
-        rowptr, src, etype, eid, weight, rel, x, out0, out1, n);
-  } else {
-    row_stats<KIND, MODE, 1><<<grid, threads, 0, stream>>>(
-        rowptr, src, etype, eid, weight, rel, x, out0, out1, n);
-  }
+// threads a CTA of seg_stats, by kind: 1,024 (64 registers each, 8 edges'
+// x slices in flight a stream) for K4 and K6, 512 (128 registers, 16 in
+// flight) for K7, each the faster on the card (PERF.md: K4 at 512 took
+// 28 % longer, K6 1-2 %; K7 at 1,024 took 12 % longer)
+__host__ __device__ constexpr int seg_threads(int kind) {
+  return kind == kAddSq ? 512 : 1024;
 }
-
-template <int KIND>
-void launch_mode(bool mul, bool vec, const int* rowptr, const int* src,
-                 const int* etype, const int* eid, const float* weight,
-                 const float* rel, const float* x, float* out0, float* out1,
-                 int num_rows, int num_features, cudaStream_t stream) {
-  if (mul) {
-    launch<KIND, kMulRel>(vec, rowptr, src, etype, eid, weight, rel, x, out0,
-                          out1, num_rows, num_features, stream);
-  } else {
-    launch<KIND, kAddRel>(vec, rowptr, src, etype, eid, weight, rel, x, out0,
-                          out1, num_rows, num_features, stream);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K6: the staged, hub-aware design
-// ---------------------------------------------------------------------------
-
-// threads a CTA of seg_stats: 1,024 (64 registers each), 8 edges' x slices
-// in flight a stream; 512 (128 registers, 16 edges in flight) was 1-2 %
-// slower on the card (PERF.md)
-constexpr int kSegThreads = 1024;
 
 // edges in flight a stream: kRowInFlight rows a thread at 1,024 threads (64
 // registers each), twice as many at 512, over the rows an edge gathers (x,
 // and rel where it is not staged)
-__host__ __device__ constexpr int seg_edges_in_flight(bool shared_rel) {
-  return staged::kRowInFlight * 1024 / kSegThreads / (shared_rel ? 1 : 2);
+__host__ __device__ constexpr int seg_edges_in_flight(int kind,
+                                                      bool shared_rel) {
+  return staged::kRowInFlight * 1024 / seg_threads(kind) /
+         (shared_rel ? 1 : 2);
 }
 
-// one edge's messages into the max (a) and the min (b), lane by lane, the
-// message in exactly row_stats' order (K6b recomputes it bit for bit)
-template <int MODE, int W>
-__device__ __forceinline__ void extrema_edge(float (&a)[W], float (&b)[W],
-                                             const Lanes<W>& r,
-                                             const Lanes<W>& xv, float w) {
+// one edge's messages into the kind's accumulators, lane by lane. An
+// extremum's message is formed exactly as the backward's gates recompute
+// it bit for bit (K6b, K5: message<MODE>(r, x) * w); K7's sums as
+// s += m * w, sq += m * (m * w), m = r * x
+template <int KIND, int MODE, int W>
+__device__ __forceinline__ void stats_edge(float (&a)[W], float (&b)[W],
+                                           const Lanes<W>& r,
+                                           const Lanes<W>& xv, float w) {
 #pragma unroll
   for (int k = 0; k < W; ++k) {
-    const float m = message<MODE>(r.v[k], xv.v[k]) * w;
-    a[k] = fmaxf(a[k], m);
-    b[k] = fminf(b[k], m);
+    if constexpr (KIND == kAddSq) {
+      const float m = r.v[k] * xv.v[k];
+      const float mw = m * w;
+      a[k] += mw;
+      b[k] += m * mw;
+    } else {
+      const float m = message<MODE>(r.v[k], xv.v[k]) * w;
+      a[k] = KIND == kMin ? fminf(a[k], m) : fmaxf(a[k], m);
+      if constexpr (KIND == kMaxMin) b[k] = fminf(b[k], m);
+    }
   }
 }
 
@@ -222,8 +146,8 @@ struct SegStats {
   const float* w;      // [E] each edge's weight, destination order
   const float* rel;    // [R, F]
   const float* x;      // [V_in, F]
-  float* out0;         // [V, F] K6: the max
-  float* out1;         // [V, F] K6: the min
+  float* out0;         // [V, F] K4's extremum, K6's max, K7's sum
+  float* out1;         // [V, F] K6's min, K7's sum of squares (K4: none)
   float* partial0;     // [P, F] the long rows' partial rows of out0
   float* partial1;     // [P, F] and of out1
   int num_segments;
@@ -232,18 +156,18 @@ struct SegStats {
   int num_features;
 };
 
-// out0[row of segment i, slice], out1[...] = the max and the min of the
-// segment's messages (a partial row's for a long row's segment), 0 for a
-// segment without edges: staged_rows' pipeline (one stream of G threads a
-// segment, the next iteration's edge metadata and the next segment loaded
-// while an iteration's gathers are in flight) with two accumulators. KIND
-// names the statistics; K6's (kMaxMin) is the only one so far, K4's and
-// K7's kinds still run row_stats.
+// out0[row of segment i, slice] (and out1 where the kind has two planes) =
+// the kind's statistics of the segment's messages (a partial row's for a
+// long row's segment), 0 for a segment without edges: staged_rows'
+// pipeline (one stream of G threads a segment, the next iteration's edge
+// metadata and the next segment loaded while an iteration's gathers are in
+// flight) with the kind's accumulators.
 template <int KIND, int MODE, int W, int G, bool kSharedRel>
-__global__ void __launch_bounds__(kSegThreads, 1) seg_stats(SegStats a) {
-  static_assert(KIND == kMaxMin, "seg_stats computes K6's kind");
+__global__ void __launch_bounds__(seg_threads(KIND), 1)
+    seg_stats(SegStats a) {
+  constexpr int kThreads = seg_threads(KIND);
   constexpr int S = W * G;
-  constexpr int kIn = seg_edges_in_flight(kSharedRel);
+  constexpr int kIn = seg_edges_in_flight(KIND, kSharedRel);
   static_assert(kIn <= G, "a stream's lanes hold an iteration's edges");
   extern __shared__ float4 smem[];
   float* s_rel = reinterpret_cast<float*>(smem);
@@ -257,12 +181,11 @@ __global__ void __launch_bounds__(kSegThreads, 1) seg_stats(SegStats a) {
   const int f = f0 + t * W;       // this thread's first feature
   const bool on = f < F;          // F % W == 0 on the vector path
   if constexpr (kSharedRel) {
-    staged::stage_rel<W, G, kSegThreads>(s_rel, a.rel, a.num_relations, F,
-                                         f0);
+    staged::stage_rel<W, G, kThreads>(s_rel, a.rel, a.num_relations, F, f0);
   }
   if (threadIdx.x == 0) {
     staged::claim_items(a.seg_ptr, a.num_segments, a.num_edges, s_range);
-    s_next = s_range[0] + kSegThreads / G;
+    s_next = s_range[0] + kThreads / G;
   }
   __syncthreads();
   const int last = s_range[1];
@@ -287,11 +210,17 @@ __global__ void __launch_bounds__(kSegThreads, 1) seg_stats(SegStats a) {
     m_type = __ldg(a.etype + pos + t);
     m_w = __ldg(a.w + pos + t);
   }
+  // the accumulators: acc0 holds K4's extremum, K6's max or K7's sum, acc1
+  // K6's min or K7's sum of squares; a max starts at -inf, a min at +inf, a
+  // sum at 0
+  const float start0 = KIND == kMin ? CUDART_INF_F
+                       : KIND == kAddSq ? 0.f : -CUDART_INF_F;
+  const float start1 = KIND == kMaxMin ? CUDART_INF_F : 0.f;
   float acc0[W], acc1[W];
 #pragma unroll
   for (int k = 0; k < W; ++k) {
-    acc0[k] = -CUDART_INF_F;
-    acc1[k] = CUDART_INF_F;
+    acc0[k] = start0;
+    acc1[k] = start1;
   }
   while (__any_sync(0xffffffffu, item < last)) {
     const int n = item < last ? min(kIn, end - pos) : 0;
@@ -344,29 +273,33 @@ __global__ void __launch_bounds__(kSegThreads, 1) seg_stats(SegStats a) {
         // the type is passed on here, not kept in a register
         const int r = __shfl_sync(0xffffffffu, m_type, u, G);
         if (on && u < n) {
-          extrema_edge<MODE, W>(
+          stats_edge<KIND, MODE, W>(
               acc0, acc1, staged::load_shared<W>(s_rel + r * S + (f - f0)),
               xv[u], we);
         }
       } else if (on && u < n) {
-        extrema_edge<MODE, W>(acc0, acc1, rv[u], xv[u], we);
+        stats_edge<KIND, MODE, W>(acc0, acc1, rv[u], xv[u], we);
       }
     }
     if (done) {
       if (on) {
-        if (empty) {
+        if constexpr (KIND != kAddSq) {  // a sum of no edges is 0 already
+          if (empty) {
 #pragma unroll
-          for (int k = 0; k < W; ++k) acc0[k] = acc1[k] = 0.f;
+            for (int k = 0; k < W; ++k) acc0[k] = acc1[k] = 0.f;
+          }
         }
         const int d = __ldg(a.seg_out + item);
         const int64_t off = (d >= 0 ? d : ~d) * F64 + f;
         store_lanes<W>((d >= 0 ? a.out0 : a.partial0) + off, acc0);
-        store_lanes<W>((d >= 0 ? a.out1 : a.partial1) + off, acc1);
+        if constexpr (kind_planes(KIND) == 2) {
+          store_lanes<W>((d >= 0 ? a.out1 : a.partial1) + off, acc1);
+        }
       }
 #pragma unroll
       for (int k = 0; k < W; ++k) {
-        acc0[k] = -CUDART_INF_F;
-        acc1[k] = CUDART_INF_F;
+        acc0[k] = start0;
+        acc1[k] = start1;
       }
     }
     item = new_item;
@@ -390,11 +323,13 @@ __device__ __forceinline__ void min_to(float4& a, float4 v) {
                   fminf(a.w, v.w));
 }
 
-// out0[rows[l], :] = the max over p in [ptr[l], ptr[l+1]) of p0[p, :] and
-// out1[rows[l], :] the min of p1[p, :], in segment order: K6's second
-// kernel, beside long_row_sums (rspmm_rows.cuh), for the rows cut into
-// several segments (each has two or more partial rows)
-template <typename T>
+// the second kernel of K6 (kMaxMin) and K4 (kMax, kMin), beside
+// long_row_sums (rspmm_rows.cuh), for the rows cut into several segments
+// (each has two or more partial rows), in segment order: K6 out0[rows[l],
+// :] = the max over p in [ptr[l], ptr[l+1]) of p0[p, :] and out1[rows[l],
+// :] the min of p1[p, :]; K4 out0[rows[l], :] = the max (or the min) of
+// p0[p, :] alone
+template <typename T, int KIND>
 __global__ void __launch_bounds__(kMaxThreads)
 long_row_extrema(const int* __restrict__ rows, const int* __restrict__ ptr,
                  const T* __restrict__ p0, const T* __restrict__ p1,
@@ -404,44 +339,65 @@ long_row_extrema(const int* __restrict__ rows, const int* __restrict__ ptr,
   if (j >= n) return;
   const int begin = __ldg(ptr + l);
   const int end = __ldg(ptr + l + 1);
-  T mx = rspmm::ld(p0 + static_cast<int64_t>(begin) * n + j);
-  T mn = rspmm::ld(p1 + static_cast<int64_t>(begin) * n + j);
+  T a = rspmm::ld(p0 + static_cast<int64_t>(begin) * n + j);
+  T b{};
+  if constexpr (KIND == kMaxMin) {
+    b = rspmm::ld(p1 + static_cast<int64_t>(begin) * n + j);
+  }
 #pragma unroll 8
   for (int p = begin + 1; p < end; ++p) {
-    max_to(mx, rspmm::ld(p0 + static_cast<int64_t>(p) * n + j));
-    min_to(mn, rspmm::ld(p1 + static_cast<int64_t>(p) * n + j));
+    if constexpr (KIND == kMin) {
+      min_to(a, rspmm::ld(p0 + static_cast<int64_t>(p) * n + j));
+    } else {
+      max_to(a, rspmm::ld(p0 + static_cast<int64_t>(p) * n + j));
+    }
+    if constexpr (KIND == kMaxMin) {
+      min_to(b, rspmm::ld(p1 + static_cast<int64_t>(p) * n + j));
+    }
   }
   const int64_t o = static_cast<int64_t>(__ldg(rows + l)) * n + j;
-  out0[o] = mx;
-  out1[o] = mn;
+  out0[o] = a;
+  if constexpr (KIND == kMaxMin) out1[o] = b;
 }
 
-cudaError_t launch_long_row_extrema(bool vec, const int* long_rows,
-                                    const int* long_ptr, int num_long_rows,
-                                    const SegStats& a, cudaStream_t stream) {
-  if (num_long_rows > 0) {
+// the long rows' partial rows combined into their rows: long_row_extrema
+// for K4 and K6, long_row_sums once a plane for K7
+template <int KIND>
+cudaError_t launch_long_rows(bool vec, const int* long_rows,
+                             const int* long_ptr, int num_long_rows,
+                             const SegStats& a, cudaStream_t stream) {
+  if (num_long_rows <= 0) return cudaGetLastError();
+  if constexpr (KIND == kAddSq) {
+    const cudaError_t err = staged::launch_long_row_sums(
+        vec, long_rows, long_ptr, num_long_rows, a.partial0, a.out0,
+        a.num_features, stream);
+    if (err != cudaSuccess) return err;
+    return staged::launch_long_row_sums(vec, long_rows, long_ptr,
+                                        num_long_rows, a.partial1, a.out1,
+                                        a.num_features, stream);
+  } else {
     const int n = vec ? a.num_features / 4 : a.num_features;
     const int threads = n >= 64 ? 64 : ((n + 31) / 32) * 32;
     const dim3 grid(num_long_rows, (n + threads - 1) / threads);
     if (vec) {
-      long_row_extrema<float4><<<grid, threads, 0, stream>>>(
+      long_row_extrema<float4, KIND><<<grid, threads, 0, stream>>>(
           long_rows, long_ptr, reinterpret_cast<const float4*>(a.partial0),
           reinterpret_cast<const float4*>(a.partial1),
           reinterpret_cast<float4*>(a.out0), reinterpret_cast<float4*>(a.out1),
           n);
     } else {
-      long_row_extrema<float><<<grid, threads, 0, stream>>>(
+      long_row_extrema<float, KIND><<<grid, threads, 0, stream>>>(
           long_rows, long_ptr, a.partial0, a.partial1, a.out0, a.out1, n);
     }
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 template <int KIND, int MODE, int W, int G, bool kSharedRel>
 int seg_resident(size_t smem) {
   static staged::Occupancy occupancy;
   return occupancy.resident(seg_stats<KIND, MODE, W, G, kSharedRel>, smem,
-                            kSegThreads);
+                            seg_threads(KIND));
 }
 
 // seg_stats' plan: 64-feature slices (32 on the scalar path), rel in shared
@@ -465,11 +421,11 @@ staged::Plan seg_plan(bool vec, int num_relations, int num_features,
                             : seg_resident<KIND, MODE, 1, 32, false>(0);
   }
   staged::plan_ctas(&p, resident, num_x_rows, num_segments,
-                    kSegThreads / 32);
+                    seg_threads(KIND) / 32);
   return p;
 }
 
-// the weights, seg_stats over a's segments, then the long rows' extrema
+// the weights, seg_stats over a's segments, then the long rows' combine
 template <int KIND, int MODE>
 cudaError_t launch_seg(bool vec, const SegStats& a, const int* eid,
                        const float* weight, float* w_scratch,
@@ -483,68 +439,76 @@ cudaError_t launch_seg(bool vec, const SegStats& a, const int* eid,
       vec, a.num_relations, a.num_features, num_x_rows, a.num_segments);
   const dim3 grid(p.ctas_per_slice, p.slices);
   constexpr int G4 = staged::kSlice / 4;
+  constexpr int kThreads = seg_threads(KIND);
   if (vec && p.shared_rel) {
-    seg_stats<KIND, MODE, 4, G4, true>
-        <<<grid, kSegThreads, p.smem, stream>>>(a);
+    seg_stats<KIND, MODE, 4, G4, true><<<grid, kThreads, p.smem, stream>>>(a);
   } else if (vec) {
-    seg_stats<KIND, MODE, 4, G4, false><<<grid, kSegThreads, 0, stream>>>(a);
+    seg_stats<KIND, MODE, 4, G4, false><<<grid, kThreads, 0, stream>>>(a);
   } else if (p.shared_rel) {
-    seg_stats<KIND, MODE, 1, 32, true>
-        <<<grid, kSegThreads, p.smem, stream>>>(a);
+    seg_stats<KIND, MODE, 1, 32, true><<<grid, kThreads, p.smem, stream>>>(a);
   } else {
-    seg_stats<KIND, MODE, 1, 32, false><<<grid, kSegThreads, 0, stream>>>(a);
+    seg_stats<KIND, MODE, 1, 32, false><<<grid, kThreads, 0, stream>>>(a);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_long_row_extrema(vec, long_rows, long_ptr, num_long_rows, a,
-                                 stream);
+  return launch_long_rows<KIND>(vec, long_rows, long_ptr, num_long_rows, a,
+                                stream);
+}
+
+// K4 and K6 take both modes, K7 mul_rel only
+bool known(int kind, int mode) {
+  const bool both_modes = mode == kMulRel || mode == kAddRel;
+  return (kind == kAddSq && mode == kMulRel) ||
+         ((kind == kMaxMin || kind == kMax || kind == kMin) && both_modes);
+}
+
+// a known kind's launches in mode
+template <int KIND>
+cudaError_t launch_kind(int mode, bool vec, const SegStats& a, const int* eid,
+                        const float* weight, float* w_scratch,
+                        const int* long_rows, const int* long_ptr,
+                        int num_long_rows, int num_x_rows,
+                        cudaStream_t stream) {
+  if constexpr (KIND != kAddSq) {
+    if (mode == kAddRel) {
+      return launch_seg<KIND, kAddRel>(vec, a, eid, weight, w_scratch,
+                                       long_rows, long_ptr, num_long_rows,
+                                       num_x_rows, stream);
+    }
+  }
+  return launch_seg<KIND, kMulRel>(vec, a, eid, weight, w_scratch, long_rows,
+                                   long_ptr, num_long_rows, num_x_rows,
+                                   stream);
+}
+
+// a known kind's plan in mode
+template <int KIND>
+staged::Plan plan_kind(int mode, bool vec, int num_relations,
+                       int num_features, int num_x_rows, int num_segments) {
+  if constexpr (KIND != kAddSq) {
+    if (mode == kAddRel) {
+      return seg_plan<KIND, kAddRel>(vec, num_relations, num_features,
+                                     num_x_rows, num_segments);
+    }
+  }
+  return seg_plan<KIND, kMulRel>(vec, num_relations, num_features,
+                                 num_x_rows, num_segments);
 }
 
 }  // namespace
 
-// K7 and K4 (the first design). kind: 1 = moments (K7; out0 = sum, out1 =
-// sum of squares), 2 = max (K4; out0), 3 = min (K4; out0; out1 is not
-// written by kinds 2 and 3 and may be null). mode: 0 = mul_rel, 1 = add_rel
-// (K4 only). Returns the cudaGetLastError() code after the launch (0 on
-// success); an unknown kind or mode (K6, kind 0, runs rspmm_pna_fwd_seg), or
-// K7 with add_rel, returns cudaErrorInvalidValue without launching.
-extern "C" int rspmm_pna_fwd(int kind, int mode, const int* rowptr,
-                             const int* src, const int* etype, const int* eid,
-                             const float* weight, const float* rel,
-                             const float* x, float* out0, float* out1,
-                             int num_rows, int num_features, void* stream) {
-  using rspmm::aligned16;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool both_modes = mode == kMulRel || mode == kAddRel;
-  const bool known = (kind == kAddSq && mode == kMulRel) ||
-                     ((kind == kMax || kind == kMin) && both_modes);
-  if (!known) return static_cast<int>(cudaErrorInvalidValue);
-  if (num_rows > 0 && num_features > 0) {
-    const bool vec = num_features % 4 == 0 && aligned16(rel) &&
-                     aligned16(x) && aligned16(out0) && aligned16(out1);
-    const bool mul = mode == kMulRel;
-    if (kind == kAddSq) {
-      launch<kAddSq, kMulRel>(vec, rowptr, src, etype, eid, weight, rel, x,
-                              out0, out1, num_rows, num_features, s);
-    } else if (kind == kMax) {
-      launch_mode<kMax>(mul, vec, rowptr, src, etype, eid, weight, rel, x,
-                        out0, out1, num_rows, num_features, s);
-    } else {
-      launch_mode<kMin>(mul, vec, rowptr, src, etype, eid, weight, rel, x,
-                        out0, out1, num_rows, num_features, s);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K6 (kind 0, the max/min pair: out0 = max, out1 = min), mode 0 = mul_rel,
-// 1 = add_rel, on K1's layouts in rspmm_fwd_k1's order: the destination
+// K4, K6 and K7 on K1's layouts in rspmm_fwd_k1's order: the destination
 // rows' segments (seg_ptr, seg_out, long_rows, long_ptr = Csr.seg_*,
-// long_*) over the destination-sorted edges (src, etype, eid). w_scratch
-// holds num_edges floats; partial0 and partial1 each long_ptr[num_long_rows]
-// rows of F floats (null without long rows). Returns the first nonzero
-// cudaGetLastError() code after a launch (0 on success); another kind or
-// mode returns cudaErrorInvalidValue without launching.
+// long_*) over the destination-sorted edges (src, etype, eid). kind: 0 =
+// the max/min pair (K6; out0 = max, out1 = min), 1 = the moments (K7,
+// mul_rel only; out0 = sum, out1 = sum of squares), 2 = max (K4; out0), 3 =
+// min (K4; out0); mode: 0 = mul_rel, 1 = add_rel. w_scratch holds
+// num_edges floats; partial0 and (but for K4) partial1 each
+// long_ptr[num_long_rows] rows of F floats (null without long rows); K4
+// reads neither out1 nor partial1, which may be null. Returns the first
+// nonzero cudaGetLastError() code after a launch (0 on success); another
+// kind or mode, or K7 with add_rel, returns cudaErrorInvalidValue without
+// launching.
 extern "C" int rspmm_pna_fwd_seg(
     int kind, int mode, const int* seg_ptr, const int* seg_out,
     const int* long_rows, const int* long_ptr, const int* src,
@@ -554,49 +518,71 @@ extern "C" int rspmm_pna_fwd_seg(
     int num_edges, int num_relations, int num_x_rows, int num_features,
     void* stream) {
   using rspmm::aligned16;
-  if (kind != kMaxMin || (mode != kMulRel && mode != kAddRel)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (!known(kind, mode)) return static_cast<int>(cudaErrorInvalidValue);
   if (num_segments <= 0 || num_features <= 0) {
     return static_cast<int>(cudaGetLastError());
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // a null pointer counts as aligned: K4 has no out1, a graph without long
+  // rows no partial rows
   const bool vec = num_features % 4 == 0 && aligned16(rel) && aligned16(x) &&
                    aligned16(out0) && aligned16(out1) &&
-                   (partial0 == nullptr ||
-                    (aligned16(partial0) && aligned16(partial1)));
+                   aligned16(partial0) && aligned16(partial1);
   const SegStats a{seg_ptr,   seg_out,      src,       etype,
                    w_scratch, rel,          x,         out0,
                    out1,      partial0,     partial1,  num_segments,
                    num_edges, num_relations, num_features};
-  const cudaError_t err =
-      mode == kMulRel
-          ? launch_seg<kMaxMin, kMulRel>(vec, a, eid, weight, w_scratch,
-                                         long_rows, long_ptr, num_long_rows,
-                                         num_x_rows, s)
-          : launch_seg<kMaxMin, kAddRel>(vec, a, eid, weight, w_scratch,
-                                         long_rows, long_ptr, num_long_rows,
-                                         num_x_rows, s);
+  cudaError_t err;
+  switch (kind) {
+    case kMaxMin:
+      err = launch_kind<kMaxMin>(mode, vec, a, eid, weight, w_scratch,
+                                 long_rows, long_ptr, num_long_rows,
+                                 num_x_rows, s);
+      break;
+    case kAddSq:
+      err = launch_kind<kAddSq>(mode, vec, a, eid, weight, w_scratch,
+                                long_rows, long_ptr, num_long_rows,
+                                num_x_rows, s);
+      break;
+    case kMax:
+      err = launch_kind<kMax>(mode, vec, a, eid, weight, w_scratch, long_rows,
+                              long_ptr, num_long_rows, num_x_rows, s);
+      break;
+    default:
+      err = launch_kind<kMin>(mode, vec, a, eid, weight, w_scratch, long_rows,
+                              long_ptr, num_long_rows, num_x_rows, s);
+  }
   return static_cast<int>(err);
 }
 
-// How K6 (kind 0) lays out a call of this shape, written to out[0..4] as
-// rspmm_k1_plan's: features a slice, 1 when the rel slice sits in shared
-// memory, its bytes, the slices, the CTAs a slice; vec: 1 for the float4
-// path (F % 4 == 0, operands aligned).
+// How K4, K6 or K7 (kind and mode as rspmm_pna_fwd_seg's) lays out a call
+// of this shape, written to out[0..4] as rspmm_k1_plan's: features a slice,
+// 1 when the rel slice sits in shared memory, its bytes, the slices, the
+// CTAs a slice; vec: 1 for the float4 path (F % 4 == 0, operands aligned).
 extern "C" int rspmm_pna_fwd_plan(int kind, int mode, int vec,
                                   int num_relations, int num_features,
                                   int num_x_rows, int num_segments,
                                   int* out) {
-  if (kind != kMaxMin || (mode != kMulRel && mode != kAddRel)) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!known(kind, mode)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool v = vec != 0;
+  staged::Plan p;
+  switch (kind) {
+    case kMaxMin:
+      p = plan_kind<kMaxMin>(mode, v, num_relations, num_features,
+                             num_x_rows, num_segments);
+      break;
+    case kAddSq:
+      p = plan_kind<kAddSq>(mode, v, num_relations, num_features, num_x_rows,
+                            num_segments);
+      break;
+    case kMax:
+      p = plan_kind<kMax>(mode, v, num_relations, num_features, num_x_rows,
+                          num_segments);
+      break;
+    default:
+      p = plan_kind<kMin>(mode, v, num_relations, num_features, num_x_rows,
+                          num_segments);
   }
-  const staged::Plan p =
-      mode == kMulRel
-          ? seg_plan<kMaxMin, kMulRel>(vec != 0, num_relations, num_features,
-                                       num_x_rows, num_segments)
-          : seg_plan<kMaxMin, kAddRel>(vec != 0, num_relations, num_features,
-                                       num_x_rows, num_segments);
   out[0] = p.slice;
   out[1] = p.shared_rel ? 1 : 0;
   out[2] = static_cast<int>(p.smem);

@@ -145,26 +145,77 @@ def k1_mass(operands, mode: str = "mul_rel") -> torch.Tensor:
                      terms, src.numel())
 
 
+def _sums64(keys, num_rows: int, num_features: int, terms,
+            num_edges: int) -> tuple:
+    """Σ over the edges of each of terms(a, b) (a tuple of float64 [b - a,
+    F], edges [a, b)) into their rows keys[a:b], in float64,
+    MASS_CHUNK edges at a time: the reference of a sum kernel's checks on
+    hub rows, where a plain fp32 version's own rounding on the card (its
+    index_add_ adds a row of 10^5 terms in any order) reaches the kernel's
+    tolerance. Returns a tuple of float64 [num_rows, F], one a term."""
+    out = None
+    for a in range(0, num_edges, MASS_CHUNK):
+        b = min(a + MASS_CHUNK, num_edges)
+        parts = terms(a, b)
+        if out is None:
+            out = tuple(torch.zeros((num_rows, num_features),
+                                    dtype=torch.float64, device=keys.device)
+                        for _ in parts)
+        for acc, t in zip(out, parts):
+            acc.index_add_(0, keys[a:b], t)
+    return out
+
+
 def k1h_sums64(operands, mode: str = "mul_rel") -> torch.Tensor:
     """The plain K1h's sums (ops/rspmm_cuda.py::rspmm_fwd_bf16_plain: each
     message of the bf16 operands rounded to bf16, then weighted) taken in
-    float64, as float64: the reference of K1h's checks on hub rows, where
-    the fp32 plain version's own rounding on the card (its index_add_
-    adds a row of 10^5 terms in any order) reaches K1h's tolerance.
-    ``operands`` is K1's (rowptr, src, etype, eid, w, rel, x)."""
+    float64 (_sums64), as float64. ``operands`` is K1's (rowptr, src,
+    etype, eid, w, rel, x)."""
     rowptr, src, etype, eid, w, rel, x = operands
     w_e = w.index_select(0, eid.long()).double()
     src, etype = src.long(), etype.long()
-    rows = _csr_rows(rowptr)
-    out = torch.zeros((rowptr.numel() - 1, x.shape[1]), dtype=torch.float64,
-                      device=x.device)
-    for a in range(0, src.numel(), MASS_CHUNK):
-        b = min(a + MASS_CHUNK, src.numel())
+
+    def terms(a, b):
         r = rel.index_select(0, etype[a:b]).float()
         xs = x.index_select(0, src[a:b]).float()
         m = (r * xs if mode == "mul_rel" else r + xs).to(torch.bfloat16)
-        out.index_add_(0, rows[a:b], m.double() * w_e[a:b, None])
-    return out
+        return (m.double() * w_e[a:b, None],)
+
+    return _sums64(_csr_rows(rowptr), rowptr.numel() - 1, x.shape[1], terms,
+                   src.numel())[0]
+
+
+def _k7_terms(csr, w, rel, x, absolute: bool):
+    """K7's terms of edges [a, b) of the destination-sorted CSR in float64:
+    (m · w, m · m · w), m = rel[r] ⊙ x[s] (their absolute values with
+    ``absolute``)."""
+    w_e = w.index_select(0, csr.eid.long()).double()
+    src, etype = csr.src.long(), csr.etype.long()
+
+    def terms(a, b):
+        m = (rel.index_select(0, etype[a:b]).double()
+             * x.index_select(0, src[a:b]).double())
+        mw = m * w_e[a:b, None]
+        out = (mw, m * mw)
+        return tuple(t.abs_() for t in out) if absolute else out
+
+    return terms
+
+
+def k7_sums64(csr, w, rel, x) -> tuple:
+    """K7's plain sums (s, sq) = (Σ m · w, Σ m · (m · w)), m = rel ⊙ x, each
+    term and sum in float64 (_sums64), as float64."""
+    return _sums64(_csr_rows(csr.rowptr), csr.rowptr.numel() - 1,
+                   x.shape[1], _k7_terms(csr, w, rel, x, False),
+                   csr.src.numel())
+
+
+def k7_mass(csr, w, rel, x) -> tuple:
+    """The absolute masses of K7's sums, (s's, sq's): Σ |m · w| and
+    Σ |m · m · w| into each output entry, as float32."""
+    return tuple(t.float() for t in _sums64(
+        _csr_rows(csr.rowptr), csr.rowptr.numel() - 1, x.shape[1],
+        _k7_terms(csr, w, rel, x, True), csr.src.numel()))
 
 
 def k2_mass(csr, w, rel, x, g) -> tuple:

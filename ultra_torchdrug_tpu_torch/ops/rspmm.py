@@ -22,9 +22,9 @@ real parts in [:D/2] and the imaginary parts in [D/2:].
     as the JAX package does.
   * AGG max / min: fp32 whatever ``compute_dtype`` says (the backward's
     equality gates need the forward replayed exactly), one autograd node
-    on both devices, kernel K4 forward and
-    K5 backward on CUDA tensors (ops/rspmm_pna_cuda.py), their plain
-    versions on CPU tensors. Rows without edges give 0; weight-0 edges send
+    on both devices, kernel K4 forward (over the CSR's destination-row
+    segments, ``Csr.segments``, as K1) and K5 backward on CUDA tensors
+    (ops/rspmm_pna_cuda.py), their plain versions on CPU tensors. Rows without edges give 0; weight-0 edges send
     the message 0, which takes part. Rotate takes the O(E) route
     (``rotate_aggregate``) on both devices, as the JAX package does: no TPU
     kernel exists for it.
@@ -32,8 +32,8 @@ real parts in [:D/2] and the imaginary parts in [D/2:].
 PNA's fused pairs, ``generalized_rspmm_maxmin`` (the max and min of the same
 messages, mul or add) and ``generalized_rspmm_addsq`` (their sum and sum of
 squares, distmult), are autograd nodes on both devices in the same way:
-kernels K6/K7 forward and K6b/K7b backward on CUDA tensors, the plain
-versions on CPU tensors. The max/min nodes give the full gradient to every
+kernels K6/K7 forward (over ``Csr.segments``, as K4) and K6b/K7b
+backward on CUDA tensors, the plain versions on CPU tensors. The max/min nodes give the full gradient to every
 tied edge on both devices, and need the graph's ``Csr`` on both, with
 ``prepare_csr(backward=True)`` for gradients; rotate's O(E) route shares
 the gradient among tied edges, as XLA's segment_max does. Gradients to the
@@ -243,9 +243,11 @@ class _RspmmGated(torch.autograd.Function):
     on both devices: kind ``max`` / ``min`` (K4 forward, K5 backward),
     ``maxmin`` (K6, K6b), modes mul_rel/add_rel, or ``addsq`` (K7, K7b),
     mul_rel, over a graph's ``Csr``. The wrappers launch the kernels on
-    CUDA tensors and run their plain versions on CPU tensors. The extrema
-    are saved for the backward's gates as the forward returns them, rows
-    without edges masked to 0. Flat operands: edge_weight [E], relation
+    CUDA tensors (the forwards over its destination-row segments) and run
+    their plain versions on CPU tensors. The extrema are saved for the
+    backward's gates as the forward returns them, rows without edges 0:
+    K5 and K6b recompute each message bit for bit and gate on equality
+    with them. Flat operands: edge_weight [E], relation
     [R, F], x [V, F]; returns the kind's outputs as a tuple."""
 
     @staticmethod

@@ -42,11 +42,13 @@ launches, see the source); for CPU tensors it runs the plain version. The
 sources say what bounds each kernel on the card and what its design does
 about it. The backward kernels are deterministic: no float atomics.
 
-K6 reads K1's hub-aware layout (ops/rspmm_cuda.py): the destination rows
-cut into 256-edge segments (``Csr.segments``), the rel slice in shared
-memory, two accumulators a lane, a long row's partial extrema reduced by a
-second kernel; ``pna_fwd_plan`` reports how a shape is laid out. K4 and K7
-run the first design, a CTA a destination row over ``Csr.rowptr``.
+K4, K6 and K7 read K1's hub-aware layout (ops/rspmm_cuda.py), one kernel
+with the kind as a template argument: the destination rows cut into
+256-edge segments (``Csr.segments``, required on CUDA tensors), the rel
+slice in shared memory, the kind's accumulators a lane (K4 one, K6 and K7
+two), a long row's partial rows combined in segment order by a second
+kernel (K4's and K6's extrema, K7's sums); ``pna_fwd_plan`` reports how a
+shape is laid out.
 
 K6b, K7b and K5 read K2's hub-aware layouts (ops/rspmm_bwd_cuda.py), the
 same two passes with their own planes and gates: the dx pass the source
@@ -190,81 +192,68 @@ def _check_kind(kind: str, mode: str, kinds, planes=None):
 def pna_fwd_cuda(kind: str, csr, edge_weight, relation, x, mode: str):
     """K6 (``maxmin``: returns (mx, mn)), K7 (``addsq``: returns (s, sq)) or
     K4 (``max``, ``min``: returns (out,)) on CUDA tensors; the plain version
-    on CPU tensors. K6 reads the CSR's destination-row segments
+    on CPU tensors. Each reads the CSR's destination-row segments
     (``Csr.segments``, required on CUDA tensors as K1's are)."""
     _check_kind(kind, mode, KINDS)
     if x.device.type == "cpu":
         return pna_fwd_plain(kind, csr, edge_weight, relation, x, mode)
-    device = x.device
     num_rows, num_features = check_fwd_operands(
         _FWD_ID[kind], csr.rowptr, csr.src, csr.etype, csr.eid, edge_weight,
         relation, x)
-    if kind == "maxmin":
-        out = _maxmin_call(csr, edge_weight, relation, x, mode, num_rows,
-                           num_features)
-    else:
-        outputs = 1 if kind in _REDUCE else 2
-        out = [torch.empty((num_rows, num_features), dtype=torch.float32,
-                           device=device) for _ in range(outputs)]
-        fn = _fwd_kernel()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = fn(KINDS[kind], MODES[mode], csr.rowptr.data_ptr(),
-                     csr.src.data_ptr(), csr.etype.data_ptr(),
-                     csr.eid.data_ptr(), edge_weight.data_ptr(),
-                     relation.data_ptr(), x.data_ptr(), out[0].data_ptr(),
-                     ptr(out[1] if outputs == 2 else None), num_rows,
-                     num_features, stream)
-        if err != 0:
-            raise RuntimeError(f"{_FWD_ID[kind]} (rspmm_pna_fwd) launch "
-                               f"failed with CUDA error {err}")
+    out = _seg_call(kind, csr, edge_weight, relation, x, mode, num_rows,
+                    num_features)
     launches[_FWD_ID[kind]] += 1
-    return tuple(out)
+    return out
 
 
-def _maxmin_call(csr, edge_weight, relation, x, mode: str, num_rows: int,
-                 num_features: int) -> tuple:
-    """One call of K6's entry point over ``csr.segments``, with its planes,
-    weights' scratch and the long rows' two partial planes allocated here;
-    raises naming K6 where the call fails. Returns (mx, mn)."""
+def _seg_call(kind: str, csr, edge_weight, relation, x, mode: str,
+              num_rows: int, num_features: int) -> tuple:
+    """One call of the forward kernels' entry point over ``csr.segments``,
+    with the kind's planes (one for K4, two for K6 and K7), the weights'
+    scratch and the long rows' partial planes (as many) allocated here;
+    raises naming the kernel where the call fails. Returns the planes."""
     segments = csr.segments
     check_segments(segments, x.device, num_rows)
     num_edges = csr.src.numel()
-    mx, mn = (x.new_empty((num_rows, num_features)) for _ in range(2))
+    planes = 1 if kind in _REDUCE else 2
+    out = tuple(x.new_empty((num_rows, num_features)) for _ in range(planes))
     w_scratch = x.new_empty((num_edges,))
-    p0 = p1 = None  # the long rows' partial maxima and minima
+    partial = (None, None)  # the long rows' partial rows of each plane
     if segments.num_partials:
-        p0, p1 = x.new_empty((2, segments.num_partials, num_features))
-    fn = _maxmin_kernel()
+        partial = x.new_empty((planes, segments.num_partials,
+                               num_features)).unbind() + (None,)
+    fn = _fwd_kernel()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(KINDS["maxmin"], MODES[mode], segments.seg_ptr.data_ptr(),
+        err = fn(KINDS[kind], MODES[mode], segments.seg_ptr.data_ptr(),
                  segments.seg_out.data_ptr(), segments.long_rows.data_ptr(),
                  segments.long_ptr.data_ptr(), csr.src.data_ptr(),
                  csr.etype.data_ptr(), csr.eid.data_ptr(),
                  edge_weight.data_ptr(), relation.data_ptr(), x.data_ptr(),
-                 mx.data_ptr(), mn.data_ptr(), w_scratch.data_ptr(),
-                 ptr(p0), ptr(p1),
+                 out[0].data_ptr(), ptr(out[1] if planes == 2 else None),
+                 w_scratch.data_ptr(), ptr(partial[0]), ptr(partial[1]),
                  segments.num_segments, segments.num_long_rows, num_edges,
                  relation.shape[0], x.shape[0], num_features, stream)
     if err != 0:
-        raise RuntimeError(f"K6 (rspmm_pna_fwd_seg) launch failed with CUDA "
-                           f"error {err}")
-    return mx, mn
+        raise RuntimeError(f"{_FWD_ID[kind]} (rspmm_pna_fwd_seg) launch "
+                           f"failed with CUDA error {err}")
+    return out
 
 
 def pna_fwd_plan(num_relations: int, num_features: int, num_x_rows: int,
-                 num_segments: int, mode: str = "mul_rel") -> dict:
-    """How K6 lays out a call of this shape on the card
-    (csrc/rspmm_pna_fwd.cu), as ops/rspmm_cuda.py::k1_plan's: 64-feature
-    slices on the float4 path where F % 4 == 0 (operands aligned), the rel
-    slice in shared memory where it fits."""
-    _check_kind("maxmin", mode, KINDS)
+                 num_segments: int, mode: str = "mul_rel",
+                 kind: str = "maxmin") -> dict:
+    """How K6 (``maxmin``), K7 (``addsq``) or K4 (``max``, ``min``) lays
+    out a call of this shape on the card (csrc/rspmm_pna_fwd.cu), as
+    ops/rspmm_cuda.py::k1_plan's: 64-feature slices on the float4 path
+    where F % 4 == 0 (operands aligned), the rel slice in shared memory
+    where it fits."""
+    _check_kind(kind, mode, KINDS)
     out = (ctypes.c_int * 5)()
     fn = load_library("rspmm_pna_fwd").rspmm_pna_fwd_plan
     fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(KINDS["maxmin"], MODES[mode], int(num_features % 4 == 0),
+    err = fn(KINDS[kind], MODES[mode], int(num_features % 4 == 0),
              num_relations, num_features, num_x_rows, num_segments,
              ctypes.addressof(out))
     if err != 0:
@@ -348,15 +337,6 @@ def pna_bwd_plan(kind: str, csr, num_features: int,
 
 @functools.lru_cache(maxsize=None)
 def _fwd_kernel():
-    fn = load_library("rspmm_pna_fwd").rspmm_pna_fwd
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
-                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.lru_cache(maxsize=None)
-def _maxmin_kernel():
     fn = load_library("rspmm_pna_fwd").rspmm_pna_fwd_seg
     fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 15
                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
