@@ -3,7 +3,7 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py                # on a machine with the card
-    python3 chip_smoke.py --device cpu   # rehearsal of phases 1b-30, small
+    python3 chip_smoke.py --device cpu   # rehearsal of phases 1b-36, small
 
 Phases, each of which raises on failure (the script then exits nonzero):
 
@@ -169,10 +169,52 @@ Phases, each of which raises on failure (the script then exits nonzero):
               step's loss and gradients against the single-device step.
     30. ring cli  run_full.main on smoke.yaml rendered with the three keys
               (one epoch, its checkpoint and log, K9 on the card).
+    31. checkpoint  (run after phase 3, on its task and model) phase 2's
+              ULTRA exported to a reference .pth with the port's exporter,
+              loaded through Engine.load into fresh engines of other seeds,
+              as written and with DDP's module. prefix on every key: phase
+              2's 64 test triples in batches of 16 must rank exactly as
+              phase 2's model ranks them, K1 12 times per batch and no other
+              kernel; with fix_reasoner every relation projection and
+              relation embedding keeps the fresh model's value bitwise and
+              every other weight is the file's; then run_full.main on
+              config/transductive/inference.yaml with --dataset SynthKG
+              --epochs 0 --bpe 0 --gpus [0] --ckpt <the .pth>.
+ 32-33. inductive  zero-shot evaluation of the .pth's weights on a
+              generated inductive KG with the counts of ILPC 2022's large
+              split (a training graph of 46,626 entities and 202,446
+              triples, an inference graph of 29,246 and 77,044, 10,179 valid
+              and 10,184 test triples, 65 relations), the task built through
+              build_task from config/inductive/inference.yaml's model and
+              task sections (its default metrics, hits@10_50 among them):
+              512 test and 64 valid triples in batches of 16 over the
+              inference graph, K1 12 times per batch and no other kernel,
+              valid and test on one prepared graph, every metric finite; one
+              batch profiled; the card's scores for 2 queries against the
+              port's CPU run (1e-4); then run_full.main on
+              config/inductive/inference.yaml with --dataset
+              SynthInductiveKG --epochs 0 and the .pth.
+ 34-36. pretrain  a JointDataset of three generated graphs with the counts
+              of FB15k-237 (14,541 entities, 237 relations, 272,115 / 17,535
+              / 20,466 triples), WN18RR (40,943; 11; 86,835 / 3,034 / 3,134)
+              and CoDEx-M (17,050; 51; 185,584 / 10,310 / 10,311), the task,
+              optimizer and engine sections of pretrain_3g.yaml through
+              build_task and build_engine (batch 64, 128 strict negatives,
+              AdamW 5e-4): Engine.train draws 12 steps from the mixture,
+              then each graph gets the steps it lacks of one warm-up and 3
+              timed steps through the engine's step; K1 and K2 6 times each
+              a step and no other kernel; per graph the ms a step, one
+              step's device time under torch.profiler and its peak memory;
+              evaluation with fast_test 64 (per_graph holds three finite
+              sets, the mean mrr is their mean; K1 12 times per batch); one
+              loss step on the graph with the fewest train triples against
+              the port's CPU run; then run_full.run on pretrain_3g.yaml
+              rendered for SynthJoint (3 graphs) with train.num_epoch 1 and
+              batch_per_epoch 3 in place of the shipped 10 and 20,000.
 
 The last lines are a JSON object with one entry per kernel (K1, K2, K6,
 K7, K6b, K7b, K3, K4, K5, K8f, K8b, K1h, K2h, K9; launches summed over the
-measured runs of phases 2-30, by path in ``launches_by_path``; the staged
+measured runs of phases 2-36, by path in ``launches_by_path``; the staged
 backward kernels' layouts under ``plan``; P1 and P2 with full's numbers
 and their launches in the tools' runs of phase 1b),
 then {"ok": true, "device": {...}}. With no card the script prints no
@@ -2347,20 +2389,22 @@ def k1_operands_of(ops) -> tuple:
     return csr.rowptr, csr.src, csr.etype, csr.eid, w
 
 
-def phase_slice(task, model, device, per_batch: dict, label: str = "slice"):
-    """Evaluation through the task's entry point; returns the launch counts
-    of the measured run, which must be ``per_batch`` per eval batch."""
+def phase_slice(task, model, device, per_batch: dict, label: str = "slice",
+                split: str = "test", triples: int = FAST_TEST):
+    """Evaluation of ``triples`` triples of ``split`` through the task's
+    entry point; returns the launch counts of the measured run, which must
+    be ``per_batch`` per eval batch."""
     # one batch first: cuBLAS handles, allocator pools and the kernel library
     # load are set-up, not evaluation
-    task.evaluate(model, "test", batch_size=EVAL_BATCH, fast_test=EVAL_BATCH)
+    task.evaluate(model, split, batch_size=EVAL_BATCH, fast_test=EVAL_BATCH)
     if device.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    batches = math.ceil(FAST_TEST / EVAL_BATCH)
+    batches = math.ceil(triples / EVAL_BATCH)
     reset_launch_counts()
     t0 = time.perf_counter()
-    metrics = task.evaluate(model, "test", batch_size=EVAL_BATCH,
-                            fast_test=FAST_TEST)
+    metrics = task.evaluate(model, split, batch_size=EVAL_BATCH,
+                            fast_test=triples)
     if device.type == "cuda":
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -2370,9 +2414,9 @@ def phase_slice(task, model, device, per_batch: dict, label: str = "slice"):
         raise AssertionError(f"non-finite metrics {metrics}")
     peak = (torch.cuda.max_memory_allocated() / 2**30
             if device.type == "cuda" else float("nan"))
-    log(f"[{label}] {FAST_TEST} test triples in {batches} batches of "
+    log(f"[{label}] {triples} {split} triples in {batches} batches of "
         f"{EVAL_BATCH}: {seconds * 1e3 / batches:.2f} ms per eval batch, "
-        f"{FAST_TEST / seconds:.1f} triples/s, peak device memory "
+        f"{triples / seconds:.1f} triples/s, peak device memory "
         f"{peak:.3f} GiB ({device})")
     log(f"[{label}] launches {counts} ({batches} batches)")
     log(f"[{label}] metrics {json.dumps(metrics)}")
@@ -2381,7 +2425,8 @@ def phase_slice(task, model, device, per_batch: dict, label: str = "slice"):
 
 def profile_device_time(label: str, fn):
     """Device time by kernel over one call of fn (torch.profiler), and the
-    device's busy share of that call's wall time under the profiler."""
+    device's busy share of that call's wall time under the profiler;
+    returns the device ms (None where the profiler recorded none)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -2398,7 +2443,7 @@ def profile_device_time(label: str, fn):
     if not events:
         log(f"[profile] {label}: the profiler recorded no device time: not "
             "measured")
-        return
+        return None
     log(f"[profile] {label}: device busy {device_ms:.3f} ms of "
         f"{wall_ms:.3f} ms wall under the profiler "
         f"({device_ms / wall_ms:.1%} busy)")
@@ -2406,14 +2451,17 @@ def profile_device_time(label: str, fn):
         ms = e.self_device_time_total / 1e3
         log(f"[profile] {ms:9.3f} ms {ms / device_ms:6.1%} x{e.count:<5d} "
             f"{e.key[:90]}")
+    return device_ms
 
 
 def phase_parity(task, model, device, atol: float = 1e-4,
                  label: str = "parity", ref_task=None, ref_device="cpu",
-                 mesh=None, queries: int = 2):
+                 mesh=None, queries: int = 2, split_graphs=None):
     """Card scores for ``queries`` test queries against the port's CPU run
     (or ``ref_task`` on ``ref_device``), through the task's scoring hook on
-    the graphs its eval path uses; ``task`` runs under ``mesh``."""
+    the graphs its eval path uses: ``split_graphs`` (the test split's fact
+    and relation graph) or the task's fact and relation graph; ``task``
+    runs under ``mesh``."""
     from ultra_torchdrug_tpu_torch.parallel.mesh import use_mesh
 
     batch = torch.from_numpy(task.dataset.test[:queries].astype(np.int64))
@@ -2424,12 +2472,12 @@ def phase_parity(task, model, device, atol: float = 1e-4,
     for t, m, dev, scope in ((task, model, device, use_mesh(mesh)),
                              (ref_task or task, ref_model, ref_device,
                               contextlib.nullcontext())):
+        fact, rel = split_graphs or (t.fact_graph, t.rel_graph)
         with scope, torch.inference_mode():
-            g_und, g_rel = (g.to(dev) for g in t._prepare_graphs(
-                t.fact_graph, t.rel_graph))
+            g_und, g_rel = (g.to(dev) for g in t._prepare_graphs(fact, rel))
             b = batch.to(dev)
-            s_t, s_h = t._eval_scores(m, t.fact_graph, g_rel, b[:, 0],
-                                      b[:, 1], b[:, 2], g_und)
+            s_t, s_h = t._eval_scores(m, fact, g_rel, b[:, 0], b[:, 1],
+                                      b[:, 2], g_und)
             results.append((s_t.cpu(), s_h.cpu()))
     (t_dev, h_dev), (t_ref, h_ref) = results
     ref = "single device" if ref_task is not None else str(ref_device)
@@ -2540,18 +2588,25 @@ def phase_train(engine, size: dict, device, per_step: dict,
 
 def phase_train_parity(engine, cpu_task, device, grad_rtol: float = 1e-4,
                        loss_rtol: float = 1e-5, label: str = "train parity",
-                       ref_device="cpu"):
+                       ref_device="cpu", graph_id=None):
     """One loss step on the card (under the engine's mesh) against the
     port's CPU run (``cpu_task``, the same task on the CPU; or another task
     on ``ref_device``): the same weights, the same 2 train triples and 8
-    injected negatives, on the full graph. Gradients are compared
+    injected negatives, on the full graph (of a multi-graph task, graph
+    ``graph_id``). Gradients are compared
     norm-wise per parameter: each is a sum over ~500k edges and V*B rows,
     taken in another order on the card, so single small entries may differ
     in relative terms where the tensor as a whole agrees to fp32 rounding."""
     task = engine.task
-    batch = task.train_triples[:2]
+    if graph_id is None:
+        batch, num_nodes, step = (task.train_triples[:2],
+                                  task.dataset.num_entities, ())
+    else:
+        batch, num_nodes, step = (task.train_triples[graph_id][:2],
+                                  task.fact_graphs[graph_id].num_nodes,
+                                  (graph_id,))
     neg = torch.from_numpy(np.random.default_rng(5).integers(
-        0, task.dataset.num_entities, (2, 8)))
+        0, num_nodes, (2, 8)))
     cpu = torch.device(ref_device)
     results = []
     for t, m, dev, scope in ((task, engine.model, device, engine._mesh_scope()),
@@ -2559,7 +2614,7 @@ def phase_train_parity(engine, cpu_task, device, grad_rtol: float = 1e-4,
                               cpu, contextlib.nullcontext())):
         m.zero_grad(set_to_none=True)
         with scope:
-            loss, _ = t.loss_step(m, None, batch, neg=neg.to(dev))
+            loss, _ = t.loss_step(m, None, batch, *step, neg=neg.to(dev))
             loss.backward()
         results.append((loss.item(), {k: p.grad.detach().cpu()
                                       for k, p in m.named_parameters()}))
@@ -2588,7 +2643,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
-        help="cpu rehearses phases 1b-30 at a reduced size with the plain "
+        help="cpu rehearses phases 1b-36 at a reduced size with the plain "
              "versions and reports no result")
     args = parser.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -2661,6 +2716,11 @@ def main(argv=None) -> int:
         profile_device_time("one ultra eval batch", lambda: task.evaluate(
             model, "test", batch_size=EVAL_BATCH, fast_test=EVAL_BATCH))
     phase_parity(task, model, device, label="ultra parity")
+    # phase 31 on phase 2's task and model; the .pth it writes serves phase
+    # 33 too
+    scratch = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    runs["checkpoint"], pth = phase_checkpoint(task, model, device,
+                                               Path(scratch.name))
     del task, model
 
     train_size = TRAIN if cuda else TRAIN_REHEARSAL
@@ -2722,9 +2782,14 @@ def main(argv=None) -> int:
     # CLI with the ring keys
     runs["ultra ring"] = run_ultra_ring(size, device)
     runs["ring cli"] = phase_ring_cli(device)
+    # zero-shot inductive evaluation (K1), then multi-graph pre-training
+    # (K1, K2): the other two shipped configs
+    runs["inductive"] = run_inductive(device, pth)
+    runs["pretrain"] = run_pretrain(device)
+    scratch.cleanup()
 
     if not cuda:
-        log("[rehearsal] phases 1b-30 ran on the CPU; no kernel ran and no "
+        log("[rehearsal] phases 1b-36 ran on the CPU; no kernel ran and no "
             "result is reported")
         return 1
     for e in entries.values():
@@ -2969,6 +3034,378 @@ def phase_ring_cli(device) -> dict:
     return {"ring smoke": counts}
 
 
+def rankings_of(task, model, triples) -> np.ndarray:
+    """The filtered rankings [N, 2] of ``triples`` through the task's eval
+    function in batches of EVAL_BATCH."""
+    return task._run_eval(task._eval_fn, model, triples, EVAL_BATCH)[0]
+
+
+def phase_checkpoint(task, model, device, pth_dir: Path) -> tuple:
+    """Phase 31: the reference .pth route. The seeded ULTRA of phase 2
+    exported with the port's exporter, loaded by Engine.load into fresh
+    engines of other seeds (the file as written, and with DDP's module.
+    prefix on every key): phase 2's FAST_TEST test triples must rank
+    exactly as phase 2's model ranks them, with K1 12 times per batch and
+    no other kernel; with fix_reasoner every relation projection and
+    relation embedding keeps the fresh model's value bitwise and every
+    other weight is the file's; then run_full.main on
+    config/transductive/inference.yaml with the file as its checkpoint.
+    Returns (launch counts by half, the .pth path)."""
+    from ultra_torchdrug_tpu_torch.engine.engine import Engine
+    from ultra_torchdrug_tpu_torch.utils.checkpoint import (
+        export_torch_checkpoint,
+        is_reasoner_key,
+    )
+    from ultra_torchdrug_tpu_torch.utils.logging import get_root_logger
+
+    def fresh_engine(seed):
+        engine = Engine(task, batch_size=EVAL_BATCH, seed=seed,
+                        log_interval=10**9, logger=get_root_logger(None))
+        if all(torch.equal(a, b) for a, b in zip(engine.model.parameters(),
+                                                 model.parameters())):
+            raise AssertionError(f"seed {seed} gave phase 2's weights")
+        return engine
+
+    path = pth_dir / "ultra_seeded.pth"
+    export_torch_checkpoint(str(path), model)
+    state = torch.load(path, weights_only=True)
+    prefixed = pth_dir / "ultra_seeded_ddp.pth"
+    torch.save({"model": {f"module.{k}": v for k, v in state["model"].items()},
+                "optimizer": {}}, prefixed)
+    log(f"[checkpoint] exported {len(state['model'])} tensors to "
+        f"{path.name} ({path.stat().st_size / 2**20:.2f} MiB), and with the "
+        "module. prefix")
+    triples = task._fast_subset(task.dataset.test, FAST_TEST)
+    want = rankings_of(task, model, triples)
+    batches = math.ceil(len(triples) / EVAL_BATCH)
+    counts = {}
+    for seed, file in ((1, path), (2, prefixed)):
+        engine = fresh_engine(seed)
+        engine.load(str(file))
+        reset_launch_counts()
+        got = rankings_of(task, engine.model, triples)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        half = f"eval {file.name}"
+        counts[half] = launch_counts()
+        check_launches(f"checkpoint {file.name}", counts[half],
+                       {"K1": K1_LAUNCHES_PER_BATCH}, batches, device)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{file.name}: rankings differ from phase "
+                                 f"2's in {int((got != want).sum())} entries")
+        log(f"[checkpoint] {file.name} into a fresh engine (seed {seed}): "
+            f"{len(triples)} test triples rank exactly as phase 2's; "
+            f"launches {counts[half]}")
+    engine = fresh_engine(3)
+    current = {k: v.clone() for k, v in engine.model.state_dict().items()}
+    engine.load(str(path), fix_reasoner=True)
+    kept = 0
+    for k, v in engine.model.state_dict().items():
+        want_v = current[k] if is_reasoner_key(k) else state["model"][k]
+        kept += is_reasoner_key(k)
+        if not torch.equal(v.cpu(), want_v.cpu()):
+            raise AssertionError(f"fix_reasoner: {k}")
+    log(f"[checkpoint] fix_reasoner: {kept} reasoner tensors kept bitwise, "
+        f"{len(current) - kept} loaded from the file")
+    del engine
+    with tempfile.TemporaryDirectory() as tmp, in_directory(tmp):
+        counts["cli"], engine = cli_run(
+            "inference .pth",
+            ["-c", str(REPO / "config/transductive/inference.yaml"),
+             "--dataset", "SynthKG", "--epochs", "0", "--bpe", "0", "--gpus",
+             "[0]", "--ckpt", str(path)], device, 0)
+        for k, v in engine.model.state_dict().items():
+            if not torch.equal(v.cpu(), state["model"][k]):
+                raise AssertionError(f"cli inference .pth: {k} not loaded")
+    return counts, path
+
+
+# ILPC 2022's "large" split (Galkin et al., 2022): the training graph's
+# entities and triples, the inference graph's, its validation and test
+# triples, and the relations both share
+ILPC_LARGE = dict(train_entities=46626, train_triples=202446,
+                  inference_entities=29246, inference_triples=77044,
+                  valid=10179, test=10184, relations=65)
+ILPC_REHEARSAL = dict(train_entities=1500, train_triples=8000,
+                      inference_entities=1000, inference_triples=4000,
+                      valid=300, test=600, relations=20)
+INDUCTIVE_TEST, INDUCTIVE_VALID = 512, 64
+
+
+def inductive_dataset(counts: dict):
+    """An inductive KG with ``counts``, from two synthetic_transductive
+    draws as synthetic_inductive makes its small one: the training graph's
+    triples (the train split and the transductive filter graph), and the
+    inference graph's, cut into its propagation edges, validation and test
+    triples (use_inductive_valid: valid and test on the inference graph)."""
+    from ultra_torchdrug_tpu_torch.data.datasets import (
+        InductiveDataset,
+        synthetic_transductive,
+    )
+    from ultra_torchdrug_tpu_torch.data.graph import Graph
+
+    R = counts["relations"]
+    trans = synthetic_transductive(
+        "ILPC-large-train", counts["train_entities"], counts["train_triples"],
+        R, seed=0, valid_frac=0.0, test_frac=0.0)
+    total = (counts["inference_triples"] + counts["valid"] + counts["test"])
+    ind = synthetic_transductive(
+        "ILPC-large-inference", counts["inference_entities"], total, R,
+        seed=1, valid_frac=counts["valid"] / total,
+        test_frac=counts["test"] / total)
+    inference = Graph.from_triplets(ind.train, ind.num_entities, R)
+    return InductiveDataset(
+        name="ILPC-large-synthetic",
+        train_graph=Graph.from_triplets(trans.train, trans.num_entities, R),
+        valid_graph=inference, test_graph=inference, graph=trans.graph,
+        inductive_graph=ind.graph, train=trans.train, valid=ind.valid,
+        test=ind.test)
+
+
+def inductive_config(ckpt) -> dict:
+    """config/inductive/inference.yaml as run_full.main loads it for
+    SynthInductiveKG with --epochs 0 and ``ckpt``."""
+    from ultra_torchdrug_tpu_torch.utils.config import load_config
+
+    return load_config(str(REPO / "config/inductive/inference.yaml"),
+                       context=dict(dataset="SynthInductiveKG", version="v1",
+                                    gpus=[0], epochs=0, bpe=0, ckpt=ckpt))[0]
+
+
+def run_inductive(device, pth: Path) -> dict:
+    """Phases 32-33: zero-shot inductive evaluation. The task of
+    config/inductive/inference.yaml's model and task sections (its default
+    metrics: hits@10_50 among them) through build_task on a generated KG
+    with ILPC 2022 large's counts, the weights of phase 31's .pth:
+    INDUCTIVE_TEST test and INDUCTIVE_VALID valid triples in batches of 16
+    over the inference graph (K1 12 times per batch and no other kernel,
+    every metric finite), one batch profiled, the card's scores for 2
+    queries against the port's CPU run; then run_full.main on the config
+    rendered for SynthInductiveKG with --epochs 0 and the .pth. Returns the
+    launch counts by half."""
+    from ultra_torchdrug_tpu_torch.engine.build import build_task
+    from ultra_torchdrug_tpu_torch.utils.checkpoint import (
+        import_torch_checkpoint,
+    )
+
+    cuda = device.type == "cuda"
+    counts = ILPC_LARGE if cuda else ILPC_REHEARSAL
+    t0 = time.perf_counter()
+    dataset = inductive_dataset(counts)
+    cfg = inductive_config(None)
+    task = build_task(cfg["task"], dataset, device=device)
+    model = task.init_params(seed=3)
+    model.load_state_dict(import_torch_checkpoint(str(pth),
+                                                  model.state_dict()))
+    graph = task.graphs["test"]
+    log(f"[inductive] {counts}: train graph {dataset.train_graph.num_nodes} "
+        f"entities / {dataset.train_graph.num_edges} triples, inference "
+        f"graph {graph.num_nodes} / {graph.num_edges}, {len(dataset.valid)} "
+        f"valid / {len(dataset.test)} test triples, {task.num_relations} "
+        f"relations; valid graph is the test graph: "
+        f"{task.graphs['valid'] is graph}; metrics {task.cfg.metrics}; "
+        f"set-up {time.perf_counter() - t0:.1f} s")
+    per_batch = {"K1": K1_LAUNCHES_PER_BATCH}
+    runs = {"eval test": phase_slice(task, model, device, per_batch,
+                                     label="inductive", split="test",
+                                     triples=INDUCTIVE_TEST),
+            "eval valid": phase_slice(task, model, device, per_batch,
+                                      label="inductive", split="valid",
+                                      triples=INDUCTIVE_VALID)}
+    if len(task._eval_fns) != 1:
+        raise AssertionError("valid and test, one graph, were prepared "
+                             f"{len(task._eval_fns)} times")
+    if cuda:
+        profile_device_time("one inductive eval batch", lambda: task.evaluate(
+            model, "test", batch_size=EVAL_BATCH, fast_test=EVAL_BATCH))
+    phase_parity(task, model, device, label="inductive parity",
+                 split_graphs=(graph, task.rel_graphs["test"]))
+    del task, model
+    with tempfile.TemporaryDirectory() as tmp, in_directory(tmp):
+        runs["cli"], engine = cli_run(
+            "inductive inference .pth",
+            ["-c", str(REPO / "config/inductive/inference.yaml"),
+             "--dataset", "SynthInductiveKG", "--version", "v1", "--epochs",
+             "0", "--bpe", "0", "--gpus", "[0]", "--ckpt", str(pth)],
+            device, 0)
+        if "hits@10_50" not in engine.metrics["test"]:
+            raise AssertionError(f"inductive cli: {engine.metrics['test']}")
+    return runs
+
+
+# the pre-training mixture of config/transductive/pretrain_3g.yaml at the
+# public datasets' counts: (name, entities, relations, train, valid, test)
+PRETRAIN_GRAPHS = (("FB15k-237", 14541, 237, 272115, 17535, 20466),
+                   ("WN18RR", 40943, 11, 86835, 3034, 3134),
+                   ("CoDEx-M", 17050, 51, 185584, 10310, 10311))
+PRETRAIN_REHEARSAL = (("FB15k-237", 1500, 40, 12000, 500, 500),
+                      ("WN18RR", 3000, 11, 5000, 300, 300),
+                      ("CoDEx-M", 1200, 20, 9000, 400, 400))
+PRETRAIN_MIX_STEPS = 12  # steps drawn from the mixture
+PRETRAIN_TIMED = 3  # timed steps a graph, after its warm-up step
+
+
+def pretrain_dataset(graphs):
+    """A JointDataset of generated graphs with ``graphs``' counts, each
+    from synthetic_transductive with its valid and test shares."""
+    from ultra_torchdrug_tpu_torch.data.datasets import (
+        JointDataset,
+        synthetic_transductive,
+    )
+
+    parts = []
+    for seed, (name, V, R, train, valid, test) in enumerate(graphs):
+        total = train + valid + test
+        parts.append(synthetic_transductive(
+            name, V, total, R, seed=seed, valid_frac=valid / total,
+            test_frac=test / total))
+    return JointDataset("pretrain-3g-synthetic", parts)
+
+
+def pretrain_config(size=None) -> dict:
+    """config/transductive/pretrain_3g.yaml as run_full loads it, logging
+    no step window; ``size`` (the CPU rehearsal's) replaces its batch and
+    negatives."""
+    from ultra_torchdrug_tpu_torch.utils.config import load_config
+
+    cfg = load_config(str(REPO / "config/transductive/pretrain_3g.yaml"),
+                      context=dict(gpus=[0]))[0]
+    if size is not None:
+        cfg["task"]["num_negative"] = size["negatives"]
+        cfg["engine"]["batch_size"] = size["batch"]
+    cfg["engine"]["log_interval"] = 10**9
+    return cfg
+
+
+def run_pretrain(device) -> dict:
+    """Phases 34-36: multi-graph pre-training. A JointDataset of three
+    generated graphs with FB15k-237's, WN18RR's and CoDEx-M's counts, the
+    task, optimizer and engine sections of pretrain_3g.yaml through
+    build_task and build_engine (batch 64, 128 strict negatives, AdamW 5e-4):
+    Engine.train draws PRETRAIN_MIX_STEPS steps from the mixture, then any
+    graph with fewer than a warm-up step and PRETRAIN_TIMED timed steps gets
+    its missing steps through the engine's step; K1 and K2 6 times each a
+    step and no other kernel; per graph the ms a step, one step's device
+    time under torch.profiler and its peak memory. Then evaluation with
+    fast_test 64 (three finite per_graph sets, the mean mrr), one loss step
+    on the graph with the fewest train triples against the port's CPU run,
+    and run_full.run on pretrain_3g.yaml rendered for SynthJoint with one
+    epoch of 3 batches. Returns the launch counts by half."""
+    from ultra_torchdrug_tpu_torch.engine.build import (
+        build_engine,
+        build_task,
+    )
+
+    cuda = device.type == "cuda"
+    cfg = pretrain_config(None if cuda else TRAIN_REHEARSAL)
+    t0 = time.perf_counter()
+    dataset = pretrain_dataset(PRETRAIN_GRAPHS if cuda
+                               else PRETRAIN_REHEARSAL)
+    with tempfile.TemporaryDirectory() as work_dir:
+        engine = build_engine(cfg, build_task(cfg["task"], dataset,
+                                              device=device),
+                              work_dir=work_dir, seed=0)
+        task = engine.task
+        names = [d.name for d in dataset.datasets]
+        log(f"[pretrain] " + "; ".join(
+            f"{d.name}: {d.num_entities} entities, {d.num_relations} "
+            f"relations, {len(d.train)} / {len(d.valid)} / {len(d.test)} "
+            f"triples" for d in dataset.datasets)
+            + f"; mixture {np.round(task._graph_probs, 4).tolist()}, "
+            f"relation count {task.num_relations}; batch "
+            f"{engine.batch_size}, {task.cfg.num_negative} negatives, "
+            f"{cfg['optimizer']}; set-up {time.perf_counter() - t0:.1f} s")
+        step_ms = {gid: [] for gid in range(task.num_graphs)}
+        run_step = engine._run_step
+
+        def timed_step(gid, batch):
+            if cuda:
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            metrics = run_step(gid, batch)
+            if cuda:
+                torch.cuda.synchronize()
+            step_ms[gid].append((time.perf_counter() - t) * 1e3)
+            if not all(math.isfinite(float(v)) for v in metrics.values()):
+                raise AssertionError(f"pretrain {names[gid]}: {metrics}")
+            return metrics
+
+        def graph_batch(gid):
+            edges = task.train_triples[gid]
+            return engine._full_batch(
+                edges, engine.rng.permutation(len(edges))[:engine.batch_size])
+
+        engine._run_step = timed_step
+        reset_launch_counts()
+        engine.train(batch_per_epoch=PRETRAIN_MIX_STEPS)
+        drawn = {names[g]: len(v) for g, v in step_ms.items()}
+        for gid in step_ms:
+            while len(step_ms[gid]) < 1 + PRETRAIN_TIMED:
+                timed_step(gid, graph_batch(gid))
+        steps = sum(len(v) for v in step_ms.values())
+        counts = {"train": launch_counts()}
+        check_launches("pretrain train", counts["train"],
+                       {"K1": K_LAUNCHES_PER_STEP, "K2": K_LAUNCHES_PER_STEP},
+                       steps, device)
+        engine._run_step = run_step
+        log(f"[pretrain] {steps} steps: {drawn} drawn from the mixture in "
+            f"{PRETRAIN_MIX_STEPS}, the rest forced; launches "
+            f"{counts['train']}")
+        for gid, name in enumerate(names):
+            timed = step_ms[gid][1:]
+            peak, device_ms = float("nan"), None
+            if cuda:
+                batch = graph_batch(gid)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                device_ms = profile_device_time(
+                    f"one pretrain step on {name}",
+                    lambda: run_step(gid, batch))
+                peak = torch.cuda.max_memory_allocated() / 2**30
+            log(f"[pretrain] {name}: {sum(timed) / len(timed):.2f} ms per "
+                f"step over {len(timed)} timed steps (warm-up "
+                f"{step_ms[gid][0]:.1f} ms), device "
+                f"{'not measured' if device_ms is None else f'{device_ms:.3f} ms'}"
+                f" a step, peak device memory {peak:.3f} GiB ({device})")
+
+        reset_launch_counts()
+        metrics = engine.evaluate("test", fast_test=FAST_TEST)
+        counts["eval"] = launch_counts()
+        batches = sum(math.ceil(min(FAST_TEST, len(d.test)) / engine.batch_size)
+                      for d in dataset.datasets)
+        check_launches("pretrain eval", counts["eval"],
+                       {"K1": K1_LAUNCHES_PER_BATCH}, batches, device)
+        per_graph = metrics["per_graph"]
+        mean = float(np.mean([m["mrr"] for m in per_graph.values()]))
+        if (set(per_graph) != set(names) or not finite_metrics(metrics)
+                or abs(metrics["mrr"] - mean) > 1e-12):
+            raise AssertionError(f"pretrain eval: {metrics}")
+        log(f"[pretrain eval] fast_test {FAST_TEST} a graph, batch "
+            f"{engine.batch_size}: mrr {metrics['mrr']:.6f} = mean of "
+            + ", ".join(f"{n} {m['mrr']:.6f}" for n, m in per_graph.items())
+            + f"; launches {counts['eval']}")
+        smallest = int(np.argmin([len(t) for t in task.train_triples]))
+        cpu_task = build_task(dict(cfg["task"], num_negative=8), dataset,
+                              device="cpu")
+        phase_train_parity(engine, cpu_task, device,
+                           label=f"pretrain train parity {names[smallest]}",
+                           graph_id=smallest)
+        del engine, task, cpu_task
+
+    cli_cfg = pretrain_config()
+    cli_cfg["dataset"] = {"class": "SynthJoint", "num_graphs": 3}
+    cli_cfg["train"].update(num_epoch=1, batch_per_epoch=3)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_cfg["output_dir"] = tmp
+        counts["cli"], engine = cli_run(
+            "pretrain_3g.yaml on SynthJoint (train.num_epoch 10 -> 1, "
+            "train.batch_per_epoch 20000 -> 3)", None, device, 1, cfg=cli_cfg)
+        if (engine.meter.global_step != 3
+                or len(engine.metrics["test"]["per_graph"]) != 3):
+            raise AssertionError(f"pretrain cli: {engine.metrics['test']}")
+    return counts
+
+
 def compare_dtypes(task, f32_task, model, device):
     """The bf16 and the fp32 model (the conv layers carry the compute
     dtype) on the same weights: their score difference for 2 test queries
@@ -2993,54 +3430,79 @@ def compare_dtypes(task, f32_task, model, device):
         f"{mrr[1]:.6f}")
 
 
+def finite_metrics(metrics: dict) -> bool:
+    """Every metric finite, a multi-graph run's ``per_graph`` ones too."""
+    return all(finite_metrics(v) if isinstance(v, dict) else math.isfinite(v)
+               for v in metrics.values())
+
+
+def cli_run(label: str, argv, device, want_epoch: int, cfg=None) -> tuple:
+    """``run_full.main(argv)`` (``run_full.run(cfg)`` when ``cfg`` is given)
+    on the device between a reset and a read of the launch counts: the
+    engine's epoch must be ``want_epoch``, its work dir must hold log.txt
+    (and a checkpoint after training), its test metrics must be finite, and
+    K1 (and K2 after training) must launch on the card. Returns (launch
+    counts, engine)."""
+    from ultra_torchdrug_tpu_torch import run_full
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    if cfg is None:
+        engine = run_full.main(list(argv) + ["--device", device.type])
+    else:
+        engine = run_full.run(cfg, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    files = os.listdir(engine.work_dir)
+    metrics = engine.metrics["test"]
+    if (engine.epoch != want_epoch or "log.txt" not in files
+            or (want_epoch and not any(f.endswith(".ckpt") for f in files))
+            or not finite_metrics(metrics)):
+        raise AssertionError(f"cli {label}: epoch {engine.epoch}, files "
+                             f"{files}, metrics {metrics}")
+    used = {k: v for k, v in counts.items() if v}
+    if device.type == "cuda" and not (
+            used.get("K1") and (not want_epoch or used.get("K2"))):
+        raise AssertionError(f"cli {label}: launches {used}")
+    log(f"[cli] {label}: {seconds:.1f} s on {device}, epoch {engine.epoch}, "
+        f"files {sorted(files)}, test mrr {metrics['mrr']:.6f}, launches "
+        f"{used}")
+    return counts, engine
+
+
+@contextlib.contextmanager
+def in_directory(path):
+    """Run the scope in ``path`` (the shipped inference and pre-training
+    configs write under ./output)."""
+    cwd = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(cwd)
+
+
 def phase_cli(device) -> dict:
     """The CLI on the device: ``run_full.main`` on
     config/synthetic/smoke.yaml (one epoch of 5 steps, a checkpoint, a log,
     anomaly mode on), then on config/transductive/inference.yaml with
     ``--dataset SynthKG --epochs 0 --bpe 0 --gpus [0] --ckpt null`` in a
-    temporary directory (the config writes under ./output). Returns the
-    launch counts of each run; K1 and K2 must launch on the card."""
-    from ultra_torchdrug_tpu_torch import run_full
-
+    temporary directory. Returns the launch counts of each run; K1 and K2
+    must launch on the card."""
     counts = {}
-    cwd = os.getcwd()
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, in_directory(tmp):
         runs = (("smoke", ["-c", str(REPO / "config/synthetic/smoke.yaml"),
-                           "--outdir", tmp]),
+                           "--outdir", tmp], 1),
                 ("inference", ["-c", str(REPO / "config/transductive/"
                                          "inference.yaml"),
                                "--dataset", "SynthKG", "--epochs", "0",
                                "--bpe", "0", "--gpus", "[0]", "--ckpt",
-                               "null"]))
-        try:
-            os.chdir(tmp)
-            for label, argv in runs:
-                reset_launch_counts()
-                t0 = time.perf_counter()
-                engine = run_full.main(argv + ["--device", device.type])
-                if device.type == "cuda":
-                    torch.cuda.synchronize()
-                seconds = time.perf_counter() - t0
-                counts[label] = launch_counts()
-                files = os.listdir(engine.work_dir)
-                metrics = engine.metrics["test"]
-                want_epoch = 1 if label == "smoke" else 0
-                if (engine.epoch != want_epoch or "log.txt" not in files
-                        or (label == "smoke"
-                            and not any(f.endswith(".ckpt") for f in files))
-                        or not all(math.isfinite(v) for v in metrics.values())):
-                    raise AssertionError(f"cli {label}: epoch {engine.epoch}, "
-                                         f"files {files}, metrics {metrics}")
-                used = {k: v for k, v in counts[label].items() if v}
-                if device.type == "cuda" and not (
-                        used.get("K1") and (label != "smoke" or used.get("K2"))):
-                    raise AssertionError(f"cli {label}: launches {used}")
-                log(f"[cli] {label}: {seconds:.1f} s on {device}, epoch "
-                    f"{engine.epoch}, files {sorted(files)}, test mrr "
-                    f"{metrics['mrr']:.6f}, launches {used}")
-                del engine
-        finally:
-            os.chdir(cwd)
+                               "null"], 0))
+        for label, argv, want_epoch in runs:
+            counts[label], engine = cli_run(label, argv, device, want_epoch)
+            del engine
     return counts
 
 

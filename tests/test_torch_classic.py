@@ -148,7 +148,7 @@ def test_classic_task_rankings_match_jax(setup):
     assert len(triples) % BATCH != 0
     jrank = np.asarray(jtask._run_eval(jtask._eval_fn, s["params"], triples,
                                        BATCH)[0])
-    trank = ttask._run_eval(ttask._eval_fn, s["model"], triples, BATCH)
+    trank, _ = ttask._run_eval(ttask._eval_fn, s["model"], triples, BATCH)
     assert trank.shape == jrank.shape == (len(triples), 2)
     differ = np.nonzero((trank != jrank).any(axis=1))[0]
     if len(differ):

@@ -4,8 +4,10 @@ package's, on the CPU: the shipped configs load to the same dicts and build
 the same model and task configs; what the port does not carry raises (or,
 for the memory-only options, is logged as not applied); the smoke config
 trains one epoch and writes its checkpoint and log; a checkpoint round trip
-reproduces the metrics; and ``--epochs 0`` on inference.yaml gives the JAX
-run's metrics on the same weights.
+(native, ``fix_reasoner`` and ``.pth``) reproduces the metrics; every
+shipped config builds its task; and ``--epochs 0`` on both inference
+configs, from a native checkpoint or a ``.pth``, gives the JAX run's
+metrics on the same weights.
 """
 
 import dataclasses
@@ -22,6 +24,7 @@ from ultra_torchdrug_tpu.engine import build as j_build
 from ultra_torchdrug_tpu.tasks.task import (
     DEFAULT_TRANSDUCTIVE_METRICS as J_METRICS,
 )
+from ultra_torchdrug_tpu.utils import checkpoint as j_checkpoint
 from ultra_torchdrug_tpu.utils import config as j_config
 from ultra_torchdrug_tpu_torch import run_full
 from ultra_torchdrug_tpu_torch.data.datasets import JointDataset
@@ -34,11 +37,13 @@ from ultra_torchdrug_tpu_torch.models.nbfnet import (
 from ultra_torchdrug_tpu_torch.models.rel_inputs import build_initial_features
 from ultra_torchdrug_tpu_torch.ops.rspmm import generalized_rspmm
 from ultra_torchdrug_tpu_torch.utils import config
+from ultra_torchdrug_tpu_torch.utils.checkpoint import export_torch_checkpoint
 from ultra_torchdrug_tpu_torch.utils.convert import load_jax_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMOKE = os.path.join(REPO, "config/synthetic/smoke.yaml")
 INFERENCE = os.path.join(REPO, "config/transductive/inference.yaml")
+INDUCTIVE = os.path.join(REPO, "config/inductive/inference.yaml")
 SHIPPED = ["config/synthetic/smoke.yaml", "config/transductive/inference.yaml",
            "config/transductive/pretrain_3g.yaml",
            "config/inductive/inference.yaml"]
@@ -188,12 +193,6 @@ def test_build_engine_raises_on_what_the_port_lacks(tmp_path, edit, match):
 
 
 @pytest.mark.parametrize("edit,match", [
-    (lambda t: t.update({"class": "InductiveKnowledgeGraphCompletionAdapted"}),
-     "item 3"),
-    (lambda t: t.update({"class": "MultiGraphPreTraining"}), "item 4"),
-    (lambda t: t.update(metric_per_rel=True), "item 3"),
-    (lambda t: t.update(toy_eval=True), "item 3"),
-    (lambda t: t.update(eval_batch_size=8), "item 3"),
     (lambda t: t["rel_models"].update(num_rel_models=2), "item 7"),
     (lambda t: t["rel_models"]["rel_model"].update(class_str="CustomNBFNet"),
      "item 7"),
@@ -261,10 +260,34 @@ def test_checkpoint_round_trip_reproduces_metrics(tmp_path):
     assert fresh.epoch == 1
     for a, b in zip(trained.model.parameters(), fresh.model.parameters()):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        fresh.load(path, fix_reasoner=True)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        fresh.load(str(tmp_path / "model.pth"))
+    # fix_reasoner on the native file: the current relation projections and
+    # relation embeddings stay, every other weight is the file's
+    other = engine(3)
+    current = {k: v.clone() for k, v in other.model.state_dict().items()}
+    other.load(path, fix_reasoner=True)
+    kept = 0
+    for k, v in other.model.state_dict().items():
+        reasoner = "relation_projection" in k or k.endswith("relation.weight")
+        kept += reasoner
+        source = current if reasoner else trained.model.state_dict()
+        assert torch.equal(v, source[k]), k
+    assert kept == 2 * 4 + 2  # smoke.yaml: 2 layers a tower
+    # the .pth route: the reference layout reproduces the metrics
+    pth = str(tmp_path / "model.pth")
+    export_torch_checkpoint(pth, trained.model)
+    fresh = engine(4)
+    fresh.load(pth)
+    assert fresh.evaluate("valid") == want
+
+
+def _jax_run_full():
+    """The JAX package's script/run_full.py as a module."""
+    sys.path.insert(0, os.path.join(REPO, "script"))
+    try:
+        import run_full as j_run_full
+    finally:
+        sys.path.remove(os.path.join(REPO, "script"))
+    return j_run_full
 
 
 def test_inference_epochs_0_matches_the_jax_run(tmp_path, monkeypatch):
@@ -274,11 +297,7 @@ def test_inference_epochs_0_matches_the_jax_run(tmp_path, monkeypatch):
     ``checkpoint``). Both rank the same triples on the same graph; the
     rankings, and so the metrics, must agree."""
     monkeypatch.chdir(tmp_path)  # inference.yaml writes under ./output
-    sys.path.insert(0, os.path.join(REPO, "script"))
-    try:
-        import run_full as j_run_full
-    finally:
-        sys.path.remove(os.path.join(REPO, "script"))
+    j_run_full = _jax_run_full()
     flags = ["-c", INFERENCE, "--dataset", "SynthKG", "--epochs", "0",
              "--bpe", "0", "--gpus", "[0]"]
     j_engine = j_run_full.main(flags + ["--ckpt", "null"])
@@ -293,11 +312,72 @@ def test_inference_epochs_0_matches_the_jax_run(tmp_path, monkeypatch):
                     jax.tree_util.tree_map(np.asarray, j_engine.params))
     ckpt = str(tmp_path / "jax_weights.ckpt")
     carrier.save(ckpt)
-    engine = run_full.main(flags + ["--ckpt", ckpt, "--device", "cpu"])
+    # the same weights as the JAX package's own reference-layout export
+    pth = str(tmp_path / "jax_weights.pth")
+    j_checkpoint.export_torch_checkpoint(
+        pth, jax.tree_util.tree_map(np.asarray, j_engine.params))
+    for path in (ckpt, pth):
+        engine = run_full.main(flags + ["--ckpt", path, "--device", "cpu"])
+        assert engine.epoch == 0
+        for split in ("valid", "test"):
+            got = engine.metrics[split]
+            assert set(got) == set(want[split])
+            for name, value in want[split].items():
+                np.testing.assert_allclose(got[name], value, rtol=1e-6,
+                                           err_msg=f"{path} {split} {name}")
+
+
+# each shipped config's dataset section replaced by its synthetic
+# counterpart (the real graphs are not in the repository)
+SYNTHETIC = {"config/synthetic/smoke.yaml": None,
+             "config/transductive/inference.yaml": {"class": "SynthKG"},
+             "config/transductive/pretrain_3g.yaml": {"class": "SynthJoint"},
+             "config/inductive/inference.yaml": {"class": "SynthInductiveKG"}}
+
+
+@pytest.mark.parametrize("path", SHIPPED)
+def test_every_shipped_config_builds_its_task(path):
+    """build_task on each shipped config's task section and its synthetic
+    dataset gives the JAX package's task class, model and task config."""
+    cfg = _load(path)[1][0]
+    if SYNTHETIC[path]:
+        cfg["dataset"] = SYNTHETIC[path]
+    dataset = build.build_dataset(cfg["dataset"])
+    task = build.build_task(cfg["task"], dataset, device="cpu")
+    want = j_build.build_task(cfg["task"], j_build.build_dataset(
+        cfg["dataset"]))
+    assert type(task).__name__ == type(want).__name__
+    assert task.num_relations == want.num_relations
+    for name, (a, b) in _common_fields(task.cfg, want.cfg).items():
+        assert a == b, name
+    assert task.model_cfg.entity.num_relations == (
+        want.model_cfg.entity.num_relations)
+
+
+def test_inductive_inference_from_a_pth_matches_the_jax_run(tmp_path,
+                                                             monkeypatch):
+    """config/inductive/inference.yaml as shipped, rendered for
+    SynthInductiveKG with ``--epochs 0`` and a .pth of seeded weights (the
+    port's export) as its checkpoint: the port's run_full and the JAX
+    package's read the same file and give the same valid and test metrics,
+    the default inductive ones (hits@10_50 among them)."""
+    monkeypatch.chdir(tmp_path)  # the config writes under ./output
+    ctx = dict(dataset="SynthInductiveKG", version="v1", epochs=0, bpe=0,
+               gpus=[0], ckpt=None)
+    cfg = config.load_config(INDUCTIVE, context=ctx)[0]
+    task = build.build_task(cfg["task"], build.build_dataset(cfg["dataset"]),
+                            device="cpu")
+    pth = str(tmp_path / "seeded.pth")
+    export_torch_checkpoint(pth, task.init_params(seed=7))
+    flags = ["-c", INDUCTIVE, "--dataset", "SynthInductiveKG", "--version",
+             "v1", "--epochs", "0", "--bpe", "0", "--gpus", "[0]", "--ckpt",
+             pth]
+    j_engine = _jax_run_full().main(flags)
+    engine = run_full.main(flags + ["--device", "cpu"])
     assert engine.epoch == 0
     for split in ("valid", "test"):
-        got = engine.metrics[split]
-        assert set(got) == set(want[split])
-        for name, value in want[split].items():
+        got, want = engine.metrics[split], j_engine.evaluate(split)
+        assert set(got) == set(want) and "hits@10_50" in got
+        for name, value in want.items():
             np.testing.assert_allclose(got[name], value, rtol=1e-6,
                                        err_msg=f"{split} {name}")

@@ -113,7 +113,7 @@ def _assert_rankings_match(tasks, triples, label):
     jtask, ttask, params, model = tasks
     jrank, _ = jtask._run_eval(jtask._eval_fn, params, triples, BATCH)
     jrank = np.asarray(jrank)
-    trank = ttask._run_eval(ttask._eval_fn, model, triples, BATCH)
+    trank, _ = ttask._run_eval(ttask._eval_fn, model, triples, BATCH)
     assert trank.shape == jrank.shape == (len(triples), 2)
     assert trank.dtype.kind == "i"
     V = ttask.fact_graph.num_nodes
@@ -167,7 +167,7 @@ def test_metrics_equal(tasks, split):
     directly against the JAX evaluate() where the rankings are identical."""
     jtask, ttask, params, model = tasks
     triples = jtask.eval_triples(split)
-    trank = ttask._run_eval(ttask._eval_fn, model, triples, BATCH)
+    trank, _ = ttask._run_eval(ttask._eval_fn, model, triples, BATCH)
     jrank, cand = jtask._run_eval(jtask._eval_fn, params, triples, BATCH)
     rel = np.stack([triples[:, 2], triples[:, 2] + jtask.num_relations], 1)
     want = jtask._metrics_from_rankings(trank.astype(np.int32), cand, rel)

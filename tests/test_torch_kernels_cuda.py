@@ -37,6 +37,7 @@ and packed, ftile and nowrite equal full, bitwise.
 """
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -1490,3 +1491,130 @@ def test_ladder_tools_on_the_card(cuda_device, tmp_path):
                               device="cuda")
     assert data["device"]["name"] == torch.cuda.get_device_name(0)
     assert set(data["variants"]) == set(ladder.VARIANTS)
+
+
+# ---------------------------------------------------------------------------
+# the slices' paths on the card: inductive evaluation, multi-graph steps and
+# a reference .pth load, each against the port's CPU run (ULTRA's limits:
+# scores 1e-4, loss 1e-5 relative, gradients 1e-4 norm-wise)
+# ---------------------------------------------------------------------------
+
+
+def _smoke_task_cfg():
+    """smoke.yaml's task section (2x8 towers, distmult, sum)."""
+    from ultra_torchdrug_tpu_torch.utils.config import load_config
+
+    root = Path(__file__).resolve().parent.parent
+    return load_config(str(root / "config/synthetic/smoke.yaml"),
+                       context={"outdir": "unused"})[0]["task"]
+
+
+def _k1_count():
+    return rspmm_cuda.launches
+
+
+def test_inductive_eval_card_matches_cpu(cuda_device):
+    """InductiveKGTask on SynthInductiveKG (2x8 towers): the test split's
+    scores over the inference graph on the card (K1) against the CPU, and
+    the card's metrics, hits@10_50 among them, finite."""
+    from ultra_torchdrug_tpu_torch.data.datasets import synthetic_inductive
+    from ultra_torchdrug_tpu_torch.engine.build import build_task
+
+    cfg = dict(_smoke_task_cfg(),
+               **{"class": "InductiveKnowledgeGraphCompletionAdapted"})
+    dataset = synthetic_inductive()
+    weights = build_task(cfg, dataset, device="cpu").init_params(
+        seed=0).state_dict()
+    scores = []
+    for dev in ("cpu", cuda_device):
+        task = build_task(cfg, dataset, device=dev)
+        model = task.init_params(seed=0)
+        model.load_state_dict(weights)  # a generator draws per device
+        graph, rel = task.graphs["test"], task.rel_graphs["test"]
+        und, rel = task._prepare_graphs(graph, rel)
+        b = torch.from_numpy(dataset.test[:8].astype(np.int64)).to(dev)
+        before = _k1_count()
+        with torch.inference_mode():
+            scores.append([s.cpu() for s in task._eval_scores(
+                model, graph, rel, b[:, 0], b[:, 1], b[:, 2], und)])
+        metrics = task.evaluate(model, "test", 16)
+    assert _k1_count() > before
+    assert "hits@10_50" in metrics
+    assert all(np.isfinite(v) for v in metrics.values())
+    for a, b in zip(*scores):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-4)
+
+
+def test_multigraph_step_card_matches_cpu(cuda_device):
+    """One loss step on each SynthJoint graph (three graphs) on the card
+    (K1, K2) against the CPU: the same weights, batch and injected
+    negatives."""
+    from ultra_torchdrug_tpu_torch.data.datasets import (
+        JointDataset,
+        synthetic_transductive,
+    )
+    from ultra_torchdrug_tpu_torch.engine.build import build_task
+
+    cfg = dict(_smoke_task_cfg(), **{"class": "MultiGraphPreTraining"})
+    dataset = JointDataset("SynthJoint", [
+        synthetic_transductive(f"synth{i}", 40 + 5 * i, 300, 5, seed=i)
+        for i in range(3)])
+    tasks = [build_task(cfg, dataset, device=dev)
+             for dev in ("cpu", cuda_device)]
+    models = [t.init_params(seed=0) for t in tasks]
+    models[1].load_state_dict(models[0].state_dict())
+    for gid in range(3):
+        batch = tasks[0].train_triples[gid][:4]
+        neg = torch.from_numpy(np.random.default_rng(gid).integers(
+            0, tasks[0].fact_graphs[gid].num_nodes, (4, 8)))
+        results = []
+        for task, model in zip(tasks, models):
+            model.zero_grad(set_to_none=True)
+            loss, _ = task.loss_step(model, None, batch, gid,
+                                     neg=neg.to(task.device))
+            loss.backward()
+            results.append((loss.item(), [p.grad.cpu()
+                                          for p in model.parameters()]))
+        (loss_cpu, g_cpu), (loss_dev, g_dev) = results
+        assert abs(loss_dev - loss_cpu) <= 1e-5 * max(1.0, abs(loss_cpu))
+        for a, b in zip(g_dev, g_cpu):
+            assert ((a - b).norm() / b.norm().clamp(min=1e-12)) <= 1e-4
+
+
+def test_pth_load_on_the_card(cuda_device, tmp_path):
+    """A .pth exported from a CPU model loads through Engine.load into an
+    engine on the card: every weight equals the file's, on the card, and
+    the loaded model scores as the CPU model does."""
+    from ultra_torchdrug_tpu_torch.data.datasets import synthetic_transductive
+    from ultra_torchdrug_tpu_torch.engine.build import build_task
+    from ultra_torchdrug_tpu_torch.engine.engine import Engine
+    from ultra_torchdrug_tpu_torch.utils.checkpoint import (
+        export_torch_checkpoint,
+    )
+
+    cfg = _smoke_task_cfg()
+    dataset = synthetic_transductive("SynthKG", 40, 300, 5, seed=0)
+    cpu_task = build_task(cfg, dataset, device="cpu")
+    cpu_model = cpu_task.init_params(seed=5)
+    path = str(tmp_path / "model.pth")
+    export_torch_checkpoint(path, cpu_model)
+    from ultra_torchdrug_tpu_torch.utils.logging import get_root_logger
+
+    engine = Engine(build_task(cfg, dataset, device=cuda_device),
+                    batch_size=16, seed=1, work_dir=str(tmp_path),
+                    logger=get_root_logger(None))
+    engine.load(path)
+    for k, v in engine.model.state_dict().items():
+        assert v.device.type == "cuda"
+        assert torch.equal(v.cpu(), cpu_model.state_dict()[k]), k
+    scores = []
+    for task, model in ((cpu_task, cpu_model), (engine.task, engine.model)):
+        und, rel = task._prepare_graphs(task.fact_graph, task.rel_graph)
+        b = torch.from_numpy(dataset.test[:4].astype(np.int64)).to(
+            task.device)
+        with torch.inference_mode():
+            scores.append([s.cpu() for s in task._eval_scores(
+                model, task.fact_graph, rel, b[:, 0], b[:, 1], b[:, 2],
+                und)])
+    for a, b in zip(*scores):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-4)

@@ -5,14 +5,16 @@ task and engine, with the same keys and defaults as the JAX package.
 A ``parallel: {edge: N}`` section builds an N-shard edge mesh whose shards
 all live on the run's one device (``build_mesh``, ``mesh_scope``); under it
 the entity tower takes the ring with ``rspmm_impl: ring`` (``ring_exchange:
-rdma`` runs kernel K9 for the ring shift). What the port does not carry
-raises with the ROADMAP Queue 1 item that will port it: a data axis
-(``parallel.data`` or ``engine.data_parallel`` > 1) and an edge-sharded
-relation tower (``parallel.relation_edge``) (item 9), the inductive and
-multi-graph task classes (items 3 and 4), ``num_rel_models`` > 1 and the
-shared relation model (item 7), ``engine.steps_per_call`` > 1 (item 7),
-``engine.logger: wandb`` (item 8), and the task options ``metric_per_rel``,
-``toy_eval`` and ``eval_batch_size`` (item 3). The model options go through
+rdma`` runs kernel K9 for the ring shift). The task classes map as in the
+JAX package: the transductive ones to ``TransductiveKGTask``, the inductive
+ones to ``InductiveKGTask`` and ``MultiGraphPreTraining`` to
+``MultiGraphPretrainTask``, each with its default metrics and relation
+count. What the port does not carry raises with the ROADMAP Queue 1 item
+that will port it: a data axis (``parallel.data`` or
+``engine.data_parallel`` > 1) and an edge-sharded relation tower
+(``parallel.relation_edge``) (item 9), ``num_rel_models`` > 1 and the
+shared relation model (item 7), ``engine.steps_per_call`` > 1 (item 7) and
+``engine.logger: wandb`` (item 8). The model options go through
 ``entity_nbfnet_config`` and ``rel_nbfnet_config``, which log the
 memory-only ones as not applied and raise on the rest.
 """
@@ -22,23 +24,35 @@ from __future__ import annotations
 import contextlib
 
 from ..data import catalog  # noqa: F401  (registers the datasets)
+from ..data.datasets import InductiveDataset, JointDataset, TransductiveDataset
 from ..models.nbfnet import entity_nbfnet_config, rel_nbfnet_config
 from ..models.ultra import UltraConfig
 from ..parallel.mesh import current_mesh, make_mesh, use_mesh
 from ..tasks.task import (
+    DEFAULT_INDUCTIVE_METRICS,
+    DEFAULT_PRETRAIN_METRICS,
     DEFAULT_TRANSDUCTIVE_METRICS,
+    InductiveKGTask,
+    MultiGraphPretrainTask,
     TaskConfig,
     TransductiveKGTask,
 )
 from ..utils.config import lookup
 from .engine import Engine
 
-_TRANSDUCTIVE = ("KnowledgeGraphCompletionAdapted",
-                 "KnowledgeGraphCompletionBase", "KnowledgeGraphCompletion")
-_UNPORTED_TASKS = {
-    "InductiveKnowledgeGraphCompletionAdapted": "item 3",
-    "InductiveKnowledgeGraphCompletion": "item 3",
-    "MultiGraphPreTraining": "item 4",
+_TASK_CLASSES = {
+    "KnowledgeGraphCompletionAdapted": TransductiveKGTask,
+    "KnowledgeGraphCompletionBase": TransductiveKGTask,
+    "KnowledgeGraphCompletion": TransductiveKGTask,
+    "InductiveKnowledgeGraphCompletionAdapted": InductiveKGTask,
+    "InductiveKnowledgeGraphCompletion": InductiveKGTask,
+    "MultiGraphPreTraining": MultiGraphPretrainTask,
+}
+# each task class's dataset type and default metrics
+_TASK_DATA = {
+    TransductiveKGTask: (TransductiveDataset, DEFAULT_TRANSDUCTIVE_METRICS),
+    InductiveKGTask: (InductiveDataset, DEFAULT_INDUCTIVE_METRICS),
+    MultiGraphPretrainTask: (JointDataset, DEFAULT_PRETRAIN_METRICS),
 }
 
 
@@ -155,11 +169,6 @@ def build_model_config(cfg_task: dict, num_relations: int,
 def build_task_config(cfg_task: dict,
                       default_metrics=DEFAULT_TRANSDUCTIVE_METRICS
                       ) -> TaskConfig:
-    for key, default in (("metric_per_rel", False), ("toy_eval", False),
-                         ("eval_batch_size", None)):
-        value = cfg_task.get(key, default)
-        if value not in (default, None):
-            raise _unported(f"task option {key}={value!r}", "item 3")
     metric = cfg_task.get("metric")
     return TaskConfig(
         num_negative=int(cfg_task.get("num_negative", 128)),
@@ -172,26 +181,40 @@ def build_task_config(cfg_task: dict,
         metrics=tuple(metric) if metric else default_metrics,
         sample_weight=bool(cfg_task.get("sample_weight", False)),
         fact_ratio=cfg_task.get("fact_ratio"),
+        metric_per_rel=bool(cfg_task.get("metric_per_rel", False)),
+        toy_eval=bool(cfg_task.get("toy_eval", False)),
+        eval_batch_size=cfg_task.get("eval_batch_size"),
     )
 
 
 def build_task(cfg_task: dict, dataset, rspmm_impl: str = "auto",
                seed: int = 0, device=None, edge_axis: str = "",
-               rel_edge_axis: str = None) -> TransductiveKGTask:
+               rel_edge_axis: str = None):
     """The task of ``cfg_task`` on ``dataset``, on ``device`` (the card
-    unless the caller names another, as ``default_device`` says). Under an
-    edge mesh (``mesh_scope``) with ``edge_axis`` and ``rspmm_impl: ring``
-    its propagation graph gets the ring's buckets."""
+    unless the caller names another, as ``default_device`` says). A
+    multi-graph task's relation count is its graphs' largest. Under an edge
+    mesh (``mesh_scope``) with ``edge_axis`` and ``rspmm_impl: ring`` the
+    propagation graph gets the ring's buckets."""
     cls_name = cfg_task["class"]
-    if cls_name in _UNPORTED_TASKS:
-        raise _unported(f"task class {cls_name}", _UNPORTED_TASKS[cls_name])
-    if cls_name not in _TRANSDUCTIVE:
+    if cls_name not in _TASK_CLASSES:
         raise KeyError(f"unknown task class {cls_name!r}")
-    model_cfg = build_model_config(cfg_task, dataset.num_relations,
-                                   rspmm_impl, edge_axis=edge_axis,
+    task_cls = _TASK_CLASSES[cls_name]
+    dataset_cls, default_metrics = _TASK_DATA[task_cls]
+    if not isinstance(dataset, dataset_cls):
+        raise TypeError(f"{cls_name} takes a {dataset_cls.__name__}, not a "
+                        f"{type(dataset).__name__}")
+    if task_cls is MultiGraphPretrainTask:
+        num_relations = max(d.num_relations for d in dataset.datasets)
+    else:
+        num_relations = dataset.num_relations
+    model_cfg = build_model_config(cfg_task, num_relations, rspmm_impl,
+                                   edge_axis=edge_axis,
                                    rel_edge_axis=rel_edge_axis)
-    return TransductiveKGTask(dataset, model_cfg, build_task_config(cfg_task),
-                              seed=seed, device=device)
+    task_cfg = build_task_config(cfg_task, default_metrics)
+    if task_cls is TransductiveKGTask:
+        return task_cls(dataset, model_cfg, task_cfg, seed=seed,
+                        device=device)
+    return task_cls(dataset, model_cfg, task_cfg, device=device)
 
 
 def build_engine(cfg: dict, task, work_dir: str = ".", seed: int = 1024,

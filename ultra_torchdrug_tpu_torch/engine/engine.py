@@ -7,14 +7,18 @@ the JAX engine, so both engines see the same triples in the same order.
 Negatives come from a ``torch.Generator`` seeded with the same seed. Steps
 run eagerly: loss, ``torch.autograd.grad``, then the optimizer.
 
-Checkpoints (``save``/``load``) are native: ``torch.save`` of the model's
-state dict, the optimizer's state and the epoch. ``mesh`` (parallel/mesh.py)
-is the run's device mesh: ``train`` and ``evaluate`` run under it, so that a
-task whose graphs were prepared under an edge mesh takes the ring. Not
-ported yet:
-``steps_per_call``, data parallelism, fail-soft OOM demotion,
-``MultiGraphPretrainTask`` and ``.pth`` import with ``fix_reasoner``
-(ROADMAP Queue 1 items 7, 9, 5, 4 and 2).
+Checkpoints (``save``/``load``, utils/checkpoint.py) are native
+(``torch.save`` of the model's state dict, the optimizer's state and the
+epoch) or, for a path ending in ``.pth``, the reference's layout;
+``fix_reasoner`` works on both. ``mesh`` (parallel/mesh.py) is the run's
+device mesh: ``train`` and ``evaluate`` run under it, so that a task whose
+graphs were prepared under an edge mesh takes the ring.
+
+A ``MultiGraphPretrainTask`` trains one graph a step: each step draws its
+graph from the task's edge-count mixture with the engine's numpy
+generator, then a batch of that graph's train triples, in the JAX engine's
+order of draws. Not ported yet: ``steps_per_call``, data parallelism and
+fail-soft OOM demotion (ROADMAP Queue 1 items 7, 9 and 5).
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import use_mesh
+from ..tasks.task import MultiGraphPretrainTask
+from ..utils import checkpoint as ckpt_io
 from ..utils.logging import Meter, get_root_logger
 
 
@@ -127,6 +133,7 @@ class Engine:
             gradient_interval=gradient_interval, clip_grad=clip_grad)
         self.epoch = 0
         self.metrics = {}  # split -> the metrics of its last evaluation
+        self._is_multigraph = isinstance(task, MultiGraphPretrainTask)
 
     def _full_batch(self, edges: np.ndarray, idx: np.ndarray) -> np.ndarray:
         batch = edges[idx]
@@ -135,17 +142,36 @@ class Engine:
             batch = np.tile(batch, (reps, 1))[: self.batch_size]
         return batch
 
-    def _edges_per_step(self) -> int:
+    def _edges_per_step(self, graph_id: int = 0) -> int:
         """Propagated edges per optimizer step (undirected entity graph x
-        layers x forward and backward), the throughput counter."""
-        layers = len(self.task.model_cfg.entity.hidden_dims)
-        return 2 * self.task.fact_graph.num_edges * layers * 2
+        layers x forward and backward) on the step's graph, the throughput
+        counter."""
+        task = self.task
+        if self._is_multigraph:
+            fact = task.fact_graphs[graph_id]
+        elif hasattr(task, "fact_graph"):
+            fact = task.fact_graph
+        else:
+            fact = task.dataset.train_graph
+        layers = len(task.model_cfg.entity.hidden_dims)
+        return 2 * fact.num_edges * layers * 2
 
     def _epoch_batches(self, batch_per_epoch: Optional[int]):
-        """Yield the epoch's batches [batch_size, 3] (numpy): consecutive
-        slices of one permutation of the train triples; a short slice wraps
-        to the start of the permutation."""
-        triples = self.task.train_triples
+        """Yield the epoch's (graph_id, batch [batch_size, 3]) (numpy).
+        One graph: graph 0, and consecutive slices of one permutation of the
+        train triples; a short slice wraps to the start of the permutation.
+        Several graphs (``batch_per_epoch`` defaults to 1000): per step one
+        draw from the mixture, then the first ``batch_size`` of a
+        permutation of that graph's train triples."""
+        task = self.task
+        if self._is_multigraph:
+            for _ in range(batch_per_epoch or 1000):
+                gid = task.sample_graph_id(self.rng)
+                edges = task.train_triples[gid]
+                yield gid, self._full_batch(
+                    edges, self.rng.permutation(len(edges))[:self.batch_size])
+            return
+        triples = task.train_triples
         order = self.rng.permutation(len(triples))
         n_batches = len(order) // self.batch_size
         bpe = min(batch_per_epoch or n_batches, n_batches) or 1
@@ -156,11 +182,17 @@ class Engine:
                 idx = np.concatenate(
                     [idx, order[: self.batch_size - len(idx)]])
             # _full_batch backstops datasets smaller than half a batch
-            yield self._full_batch(triples, idx)
+            yield 0, self._full_batch(triples, idx)
 
-    def _run_step(self, batch: np.ndarray) -> dict:
-        """One optimizer step; returns its metrics (device tensors)."""
-        loss, metrics = self.task.loss_step(self.model, self.generator, batch)
+    def _run_step(self, graph_id: int, batch: np.ndarray) -> dict:
+        """One optimizer step on graph ``graph_id``'s batch; returns its
+        metrics (device tensors)."""
+        if self._is_multigraph:
+            loss, metrics = self.task.loss_step(self.model, self.generator,
+                                                batch, graph_id)
+        else:
+            loss, metrics = self.task.loss_step(self.model, self.generator,
+                                                batch)
         grads = torch.autograd.grad(loss, self.optimizer.params)
         metrics["grad_norm"] = global_norm(grads).detach()
         self.optimizer.step(grads)
@@ -179,42 +211,44 @@ class Engine:
     def _train(self, num_epoch: int, batch_per_epoch: Optional[int]) -> None:
         for _ in range(num_epoch):
             self.epoch += 1
-            for batch in self._epoch_batches(batch_per_epoch):
-                metrics = self._run_step(batch)
+            for gid, batch in self._epoch_batches(batch_per_epoch):
+                metrics = self._run_step(gid, batch)
                 self.meter.update(
-                    metrics, rates={"edges_per_s": self._edges_per_step()})
+                    metrics, rates={"edges_per_s": self._edges_per_step(gid)})
             self.meter.log_window()
             self.logger.info(f"epoch {self.epoch} done")
 
     def evaluate(self, split: str, fast_test: Optional[int] = None) -> dict:
+        """The task's metrics on ``split``; the scalar ones are logged, and
+        all of them (a multi-graph task's ``per_graph`` too) kept in
+        ``metrics[split]``."""
         self.logger.info(f"Evaluate on {split}")
         with self._mesh_scope():
             metrics = self.task.evaluate(self.model, split, self.batch_size,
                                          fast_test=fast_test)
-        self.meter.log_dict(metrics, category=f"{split}/epoch {self.epoch}")
+        printable = {k: v for k, v in metrics.items()
+                     if not isinstance(v, dict)}
+        self.meter.log_dict(printable, category=f"{split}/epoch {self.epoch}")
         self.metrics[split] = metrics
         return metrics
 
     def save(self, path: str) -> None:
-        torch.save({"model": self.model.state_dict(),
-                    "optimizer": self.optimizer.state_dict(),
-                    "epoch": self.epoch}, path)
+        ckpt_io.save_checkpoint(path, self.model, self.optimizer.state_dict(),
+                                self.epoch)
         self.logger.info(f"Save checkpoint to {path}")
 
     def load(self, path: str, fix_reasoner: bool = False,
              drop_optimizer: bool = True) -> None:
-        """Load a checkpoint that ``save`` wrote: the model's weights, and
-        with ``drop_optimizer=False`` also the optimizer's state and the
-        epoch."""
-        if fix_reasoner or str(path).endswith(".pth"):
-            raise NotImplementedError(
-                "reference .pth checkpoints and fix_reasoner are not ported "
-                "yet (ROADMAP Queue 1 item 2); load a checkpoint that "
-                "Engine.save wrote")
+        """Load a checkpoint: a reference ``.pth`` (its live weights; it
+        holds no optimizer state or epoch) or one that ``save`` wrote (the
+        weights, and with ``drop_optimizer=False`` also the optimizer's
+        state and the epoch). ``fix_reasoner`` keeps the current model's
+        relation projections and relation embeddings on both routes."""
         self.logger.info(f"Load checkpoint from {path}")
-        state = torch.load(path, map_location=self.task.device,
-                           weights_only=True)
-        self.model.load_state_dict(state["model"])
-        if not drop_optimizer:
-            self.optimizer.load_state_dict(state["optimizer"])
-            self.epoch = state["epoch"]
+        sd, opt_state, epoch = ckpt_io.load_checkpoint(
+            path, self.model.state_dict(), fix_reasoner=fix_reasoner,
+            map_location=self.task.device)
+        self.model.load_state_dict(sd)
+        if not drop_optimizer and opt_state is not None:
+            self.optimizer.load_state_dict(opt_state)
+            self.epoch = epoch

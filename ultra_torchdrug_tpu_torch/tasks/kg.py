@@ -4,12 +4,16 @@ ultra_torchdrug_tpu/tasks/kg.py):
   * BCE with self-adversarial negative weights; margin ranking; cross
     entropy on the positive
   * filtered rank = 1 + #{allowed v : score_v >= score_pos}, ties pessimistic
-  * metrics mr, mrr, hits@k, each optionally restricted to the tail or head
-    direction by a -tail / -head suffix
+  * metrics mr, mrr, hits@k, the unbiased hits@k_N estimator against N
+    sampled negatives, each optionally restricted to the tail or head
+    direction by a -tail / -head suffix, and per relation
+  * the toy protocol: 50 sampled negatives, the optimistic/pessimistic
+    average rank
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -63,31 +67,88 @@ def filtered_ranking(scores: torch.Tensor, target: torch.Tensor,
     return geq.sum(dim=-1) + 1
 
 
-def _metric_scores(ranking: torch.Tensor, name: str) -> torch.Tensor:
-    """Per-sample scores for one metric over an integer ranking."""
+def _metric_scores(ranking: torch.Tensor, name: str,
+                   num_candidates: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """Per-sample scores for one metric over a ranking (integer, or float
+    under the toy protocol). ``hits@k_N`` is the unbiased estimate of
+    hits@k against N sampled negatives from the rank among
+    ``num_candidates`` allowed candidates: Σ_{i<k} C(N, i) p^i (1-p)^(N-i)
+    with p = (rank - 1) / num_candidates."""
     if name == "mr":
         return ranking.to(torch.float32)
     if name == "mrr":
         return 1.0 / ranking.to(torch.float32)
     if name.startswith("hits@"):
-        if "_" in name:
-            raise NotImplementedError(
-                f"{name}: the sampled hits@k estimator comes with the "
-                "inductive evaluation slice")
-        return (ranking <= int(name[5:])).to(torch.float32)
+        values = name[5:].split("_")
+        threshold = int(values[0])
+        if len(values) > 1:
+            num_sample = int(values[1])
+            fp_rate = (ranking - 1).to(torch.float32) / num_candidates
+            score = torch.zeros_like(fp_rate)
+            for i in range(threshold):
+                score = score + math.comb(num_sample, i) * (fp_rate ** i) * (
+                    (1 - fp_rate) ** (num_sample - i))
+            return score
+        return (ranking <= threshold).to(torch.float32)
     raise ValueError(f"unknown metric {name!r}")
 
 
-def evaluate_ranking(ranking: torch.Tensor,
-                     metrics: Sequence[str]) -> Dict[str, torch.Tensor]:
+def evaluate_ranking(ranking: torch.Tensor, metrics: Sequence[str],
+                     num_candidates: Optional[torch.Tensor] = None,
+                     rel_index: Optional[torch.Tensor] = None,
+                     num_relations: Optional[int] = None
+                     ) -> Dict[str, torch.Tensor]:
     """ranking: [N, 2] (tail direction in column 0, head in column 1) or
-    [N]. Metric names may carry a -tail / -head suffix."""
+    [N]. Metric names may carry a -tail / -head suffix. ``num_candidates``
+    (the ranking's shape) is the count of allowed candidates that the
+    sampled hits@k_N estimator needs; ``rel_index`` (the same shape) with
+    ``num_relations`` adds each undirected metric's mean per relation as
+    ``{metric}_rel_{r}`` (0 for a relation without samples)."""
     out = {}
     for m in metrics:
         if "-" in m:
             base, direction = m.split("-")
-            r = ranking[:, {"tail": 0, "head": 1}[direction]]
+            col = {"tail": 0, "head": 1}[direction]
+            r = ranking[:, col]
+            nc = None if num_candidates is None else num_candidates[:, col]
         else:
-            base, r = m, ranking
-        out[m] = _metric_scores(r, base).mean()
+            base, r, nc = m, ranking, num_candidates
+        score = _metric_scores(r, base, nc)
+        if rel_index is not None and num_relations is not None \
+                and "-" not in m:
+            flat_s, flat_r = score.reshape(-1), rel_index.reshape(-1)
+            sums = torch.zeros(num_relations, dtype=score.dtype).index_add_(
+                0, flat_r, flat_s)
+            counts = torch.bincount(flat_r, minlength=num_relations)
+            per_rel = sums / counts.clamp(min=1)
+            for ridx in range(num_relations):
+                out[f"{m}_rel_{ridx}"] = per_rel[ridx]
+        out[m] = score.mean()
     return out
+
+
+def toy_eval_negatives(generator: Optional[torch.Generator],
+                       allowed_mask: torch.Tensor,
+                       num_samples: int = 50) -> torch.Tensor:
+    """The toy protocol's draw: [B, min(num_samples, V)] candidate indices
+    per row, distinct, uniform without replacement among the allowed ones
+    (``allowed_mask`` [B, V]); a row with fewer allowed candidates fills up
+    with disallowed ones. The top-k of uniform keys, disallowed keys set
+    below every allowed one."""
+    B, V = allowed_mask.shape
+    keys = torch.rand((B, V), generator=generator, device=allowed_mask.device)
+    keys = torch.where(allowed_mask, keys, keys - 2.0)
+    return keys.topk(min(num_samples, V), dim=1).indices
+
+
+def toy_eval_ranking(scores_pos: torch.Tensor, scores: torch.Tensor,
+                     neg_index: torch.Tensor) -> torch.Tensor:
+    """The toy protocol's rank of each positive (``scores_pos`` [B, 1])
+    among its sampled negatives (``neg_index`` [B, S] into ``scores``
+    [B, V]): the average of the optimistic and the pessimistic rank, a
+    float (x.5 on ties)."""
+    neg = scores.gather(1, neg_index)
+    optimistic = (scores_pos < neg).sum(dim=-1)
+    pessimistic = (scores_pos <= neg).sum(dim=-1)
+    return 0.5 * (optimistic + pessimistic).to(torch.float32) + 1

@@ -1,29 +1,38 @@
 """Task layer (counterpart of ultra_torchdrug_tpu/tasks/task.py): the loss
-step for training and filtered-ranking evaluation.
+step for training and filtered-ranking evaluation, for four task classes.
 
-``TransductiveKGTask`` holds one knowledge graph: the fact graph (train
-edges) that the model propagates over, the relation graph built from it, and
-the filter graph (all splits) for filtered ranking. ``ClassicNBFNetTask``
-scores the same task with classic NBFNet, which needs no relation graph.
+  * ``TransductiveKGTask`` holds one knowledge graph: the fact graph (train
+    edges) that the model propagates over, the relation graph built from
+    it, and the filter graph (all splits) for filtered ranking.
+  * ``InductiveKGTask`` holds a propagation graph and a relation graph per
+    split (the train graph, and inference graphs with entities of their
+    own), with the filter graph each split ranks against.
+  * ``MultiGraphPretrainTask`` holds several graphs, each with its own
+    fact, relation and filter graph; a step trains on one graph, drawn from
+    an edge-count mixture, and evaluation averages the graphs' metrics.
+  * ``ClassicNBFNetTask`` scores the transductive task with classic NBFNet,
+    which needs no relation graph.
 
-  * ``loss_step`` draws strict negatives for a batch of train triples,
-    masks the batch's easy edges, scores the positive and the negatives and
-    returns the loss (a tensor to call ``backward`` on) with its metrics.
-  * ``evaluate`` scores each (h, r, ?) and (?, r, t) query against every
-    entity and turns the filtered ranks into metrics, eagerly under
-    ``torch.inference_mode()``.
+Each task's ``loss_step`` draws strict negatives for a batch of train
+triples, masks the batch's easy edges, scores the positive and the
+negatives and returns the loss (a tensor to call ``backward`` on) with its
+metrics. ``evaluate`` scores each (h, r, ?) and (?, r, t) query against
+every entity and turns the filtered ranks (or, with ``toy_eval``, the ranks
+among 50 sampled negatives) into metrics, eagerly under
+``torch.inference_mode()``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence
+import functools
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .. import default_device
-from ..data.datasets import TransductiveDataset
+from ..data.datasets import InductiveDataset, JointDataset, TransductiveDataset
 from ..data.graph import Graph
 from ..data.relgraph import build_relation_graph
 from ..models.classic_nbfnet import classic_nbfnet_init, classic_score_all
@@ -47,12 +56,19 @@ from .kg import (
     evaluate_ranking,
     filtered_ranking,
     margin_ranking,
+    toy_eval_negatives,
+    toy_eval_ranking,
 )
 
 DEFAULT_TRANSDUCTIVE_METRICS = (
     "mr", "mrr", "hits@1", "hits@3", "hits@10",
     "mrr-tail", "hits@1-tail", "hits@10-tail",
 )
+DEFAULT_INDUCTIVE_METRICS = ("mr", "mrr", "hits@1", "hits@3", "hits@10",
+                             "hits@10_50")
+DEFAULT_PRETRAIN_METRICS = ("mr", "mrr", "hits@1", "hits@3", "hits@10")
+# the sampled protocol's candidates: 50 negatives and the positive
+TOY_EVAL_SAMPLES = 50
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +82,12 @@ class TaskConfig:
     metrics: Sequence[str] = DEFAULT_TRANSDUCTIVE_METRICS
     sample_weight: bool = False
     fact_ratio: Optional[float] = None
+    metric_per_rel: bool = False
+    toy_eval: bool = False  # rank among 50 sampled negatives
+    # pins the eval batch; None evaluates at the caller's (the engine's)
+    # batch size. The JAX package sizes None to its device's memory
+    # (ROADMAP Queue 1 item 5); rankings do not depend on the batch size
+    eval_batch_size: Optional[int] = None
 
 
 def _criterion_loss(cfg: TaskConfig, scores, sample_weight=None):
@@ -189,33 +211,52 @@ class _TaskBase:
 
     def _build_eval_fn(self, fact_graph: Graph, rel_graph: Graph,
                        filter_graph: Graph):
-        """Returns fn(model, batch [B, 3] on the device) -> ranking [B, 2]
-        (int64; tail direction in column 0, head in column 1)."""
+        """Returns fn(model, batch [B, 3] on the device, generator) ->
+        (ranking [B, 2], num_candidates [B, 2] float32), tail direction in
+        column 0, head in column 1. The ranking is the filtered rank
+        (int64) among the num_candidates allowed entities, or with
+        ``toy_eval`` the float rank among TOY_EVAL_SAMPLES allowed entities
+        drawn from ``generator`` (num_candidates the samples and the
+        positive)."""
         cfg = self.cfg
         V = fact_graph.num_nodes
         fact_und, rel_graph = self._prepare_graphs(fact_graph, rel_graph)
         filter_edges = filter_graph.edge_list.to(self.device)
 
-        def eval_fn(model, batch):
+        def eval_fn(model, batch, generator=None):
             h, t, r = batch[:, 0], batch[:, 1], batch[:, 2]
             t_scores, h_scores = self._eval_scores(
                 model, fact_graph, rel_graph, h, t, r, fact_und)
             t_truth = tail_truth_mask(filter_edges, h, r, V)
             h_truth = head_truth_mask(filter_edges, t, r, V)
+            if cfg.toy_eval:
+                ranks = [toy_eval_ranking(
+                    scores.gather(1, target[:, None]), scores,
+                    toy_eval_negatives(generator, ~truth, TOY_EVAL_SAMPLES))
+                    for scores, target, truth in ((t_scores, t, t_truth),
+                                                  (h_scores, h, h_truth))]
+                ranking = torch.stack(ranks, dim=1)
+                num_cand = torch.full(ranking.shape, TOY_EVAL_SAMPLES + 1.0,
+                                      device=ranking.device)
+                return ranking, num_cand
             t_rank = filtered_ranking(t_scores, t, t_truth,
                                       cfg.filtered_ranking)
             h_rank = filtered_ranking(h_scores, h, h_truth,
                                       cfg.filtered_ranking)
-            return torch.stack([t_rank, h_rank], dim=1)
+            num_cand = torch.stack([(~t_truth).sum(-1), (~h_truth).sum(-1)],
+                                   dim=1).to(torch.float32)
+            return torch.stack([t_rank, h_rank], dim=1), num_cand
 
         return eval_fn
 
     def _run_eval(self, eval_fn, model, triples: np.ndarray,
                   batch_size: int):
         """Pad-to-batch eval loop (the last chunk repeats its row 0); returns
-        the numpy ranking [N, 2]. Results stay on the device until the split
-        is done."""
-        rankings, keeps = [], []
+        the numpy ranking [N, 2] and num_candidates [N, 2]. The toy
+        protocol's draws come from a generator seeded per batch by its
+        first row's index. Results stay on the device until the split is
+        done."""
+        rankings, cands, keeps = [], [], []
         with torch.inference_mode():
             for start in range(0, len(triples), batch_size):
                 chunk = triples[start:start + batch_size]
@@ -225,15 +266,64 @@ class _TaskBase:
                         [chunk, np.repeat(chunk[:1], pad, 0)], 0)
                 batch = torch.from_numpy(chunk.astype(np.int64)).to(
                     self.device)
-                rankings.append(eval_fn(model, batch))
+                generator = None
+                if self.cfg.toy_eval:
+                    generator = torch.Generator(
+                        device=self.device).manual_seed(1024 + start)
+                ranking, num_cand = eval_fn(model, batch, generator)
+                rankings.append(ranking)
+                cands.append(num_cand)
                 keeps.append(batch_size - pad)
         if not rankings:
-            return np.zeros((0, 2), np.int64)
-        return torch.cat([r[:k] for r, k in zip(rankings, keeps)]).cpu().numpy()
+            dtype = np.float32 if self.cfg.toy_eval else np.int64
+            return np.zeros((0, 2), dtype), np.zeros((0, 2), np.float32)
+        return tuple(torch.cat([x[:k] for x, k in zip(xs, keeps)]).cpu().numpy()
+                     for xs in (rankings, cands))
 
-    def _metrics_from_rankings(self, ranking: np.ndarray) -> Dict[str, float]:
-        m = evaluate_ranking(torch.from_numpy(ranking), self.cfg.metrics)
+    def _eval_batch_size(self, batch_size: int) -> int:
+        """``eval_batch_size`` when the config pins it, else ``batch_size``."""
+        return int(self.cfg.eval_batch_size or batch_size)
+
+    def _metrics_from_rankings(self, ranking: np.ndarray,
+                               num_cand: np.ndarray,
+                               rel: Optional[np.ndarray]) -> Dict[str, float]:
+        """The config's metrics of a split's ranking; with
+        ``metric_per_rel`` and ``rel`` (the relation id of each ranking
+        entry) also each metric's mean per relation."""
+        kwargs = {}
+        if self.cfg.metric_per_rel and rel is not None:
+            kwargs = dict(rel_index=torch.from_numpy(rel.astype(np.int64)),
+                          num_relations=self.num_relations * 2)
+        m = evaluate_ranking(torch.from_numpy(ranking), self.cfg.metrics,
+                             num_candidates=torch.from_numpy(num_cand),
+                             **kwargs)
         return {k: float(v) for k, v in m.items()}
+
+    def sample_weight_for(self, batch: np.ndarray):
+        """Per-triple loss weights 1 / sqrt(deg(h, r) * deg(t, r)) over the
+        train triples when ``sample_weight`` is on, else None."""
+        if not self.cfg.sample_weight:
+            return None
+        w = (self.deg_hr[batch[:, 0], batch[:, 2]]
+             * self.deg_tr[batch[:, 1], batch[:, 2]])
+        return torch.as_tensor(1.0 / np.sqrt(np.maximum(w, 1)),
+                               dtype=torch.float32, device=self.device)
+
+    def loss_step(self, model, generator: torch.Generator, batch: np.ndarray,
+                  neg: Optional[torch.Tensor] = None):
+        """(loss, metrics) of one batch of train triples [B, 3]; ``neg``
+        [B, N] replaces the drawn negatives (to hold a step against
+        another implementation)."""
+        b = torch.from_numpy(np.asarray(batch, np.int64)).to(self.device)
+        return self._loss_fn(model, generator, b,
+                             self.sample_weight_for(batch), neg)
+
+    def _fast_subset(self, triples: np.ndarray, fast_test) -> np.ndarray:
+        """``fast_test`` triples of ``triples``: a seeded random subset."""
+        if not fast_test:
+            return triples
+        g = np.random.default_rng(1024)
+        return triples[g.permutation(len(triples))[:fast_test]]
 
 
 class TransductiveKGTask(_TaskBase):
@@ -257,38 +347,178 @@ class TransductiveKGTask(_TaskBase):
         self._eval_fn = self._build_eval_fn(self.fact_graph, self.rel_graph,
                                             self.graph)
 
-    def sample_weight_for(self, batch: np.ndarray):
-        """Per-triple loss weights 1 / sqrt(deg(h, r) * deg(t, r)) when
-        ``sample_weight`` is on, else None."""
-        if not self.cfg.sample_weight:
-            return None
-        w = (self.deg_hr[batch[:, 0], batch[:, 2]]
-             * self.deg_tr[batch[:, 1], batch[:, 2]])
-        return torch.as_tensor(1.0 / np.sqrt(np.maximum(w, 1)),
-                               dtype=torch.float32, device=self.device)
-
-    def loss_step(self, model, generator: torch.Generator, batch: np.ndarray,
-                  neg: Optional[torch.Tensor] = None):
-        """(loss, metrics) of one batch of train triples [B, 3]; ``neg``
-        [B, N] replaces the drawn negatives (to hold a step against
-        another implementation)."""
-        b = torch.from_numpy(np.asarray(batch, np.int64)).to(self.device)
-        return self._loss_fn(model, generator, b,
-                             self.sample_weight_for(batch), neg)
-
     def eval_triples(self, split: str) -> np.ndarray:
         return {"valid": self.dataset.valid, "test": self.dataset.test}[split]
 
     def evaluate(self, model, split: str, batch_size: int, fast_test=None):
         """Filtered-ranking metrics of ``model`` on a split; ``fast_test``
         keeps a seeded random subset of that many triples."""
-        triples = self.eval_triples(split)
-        if fast_test:
-            g = np.random.default_rng(1024)
-            triples = triples[g.permutation(len(triples))[:fast_test]]
-        ranking = self._run_eval(self._eval_fn, model, triples,
-                                 int(batch_size))
-        return self._metrics_from_rankings(ranking)
+        triples = self._fast_subset(self.eval_triples(split), fast_test)
+        ranking, cand = self._run_eval(self._eval_fn, model, triples,
+                                       self._eval_batch_size(batch_size))
+        rel = np.stack([triples[:, 2], triples[:, 2] + self.num_relations], 1)
+        return self._metrics_from_rankings(ranking, cand, rel)
+
+
+def _same_graph(a: Graph, b: Graph) -> bool:
+    """The same object, or equal edge lists and edge types."""
+    return a is b or (a.num_edges == b.num_edges
+                      and torch.equal(a.edge_index, b.edge_index)
+                      and torch.equal(a.edge_type, b.edge_type))
+
+
+class InductiveKGTask(_TaskBase):
+    """Inductive KG completion: the model trains over the train graph and
+    evaluates each split over that split's propagation graph, whose
+    entities may be new, with a relation graph built from it. Valid ranks
+    against the transductive filter graph (``dataset.graph``) when the
+    valid graph is the train graph, else against the inductive one, as
+    test always does. Each distinct propagation graph is prepared once:
+    where valid and test share one, they share its layouts and relation
+    graph."""
+
+    def __init__(self, dataset: InductiveDataset, model_cfg: UltraConfig,
+                 cfg: TaskConfig = TaskConfig(
+                     metrics=DEFAULT_INDUCTIVE_METRICS),
+                 device=None):
+        self.dataset = dataset
+        self.model_cfg = model_cfg
+        self.cfg = cfg
+        self.device = default_device(device)
+        self.num_relations = dataset.num_relations
+        self.train_triples = dataset.train
+        self.graphs = {"train": dataset.train_graph,
+                       "valid": dataset.valid_graph,
+                       "test": dataset.test_graph}
+        rel_graphs = {}
+        for g in self.graphs.values():
+            if id(g) not in rel_graphs:
+                rel_graphs[id(g)] = build_relation_graph(g)
+        self.rel_graphs = {split: rel_graphs[id(g)]
+                           for split, g in self.graphs.items()}
+        valid_is_train = _same_graph(dataset.valid_graph,
+                                     dataset.train_graph)
+        self.filter_graphs = {
+            "train": dataset.graph,
+            "valid": dataset.graph if valid_is_train
+            else dataset.inductive_graph,
+            "test": dataset.inductive_graph,
+        }
+        if cfg.sample_weight:
+            self.deg_hr, self.deg_tr = _degree_weights(
+                dataset.train, dataset.train_graph.num_nodes,
+                dataset.num_relations)
+        self._eval_fns = {}
+
+    @functools.cached_property
+    def _loss_fn(self):
+        """The loss over the train graph, prepared at the first step."""
+        return self._build_loss_fn(self.dataset.train_graph,
+                                   self.rel_graphs["train"],
+                                   self.dataset.train_graph.num_nodes)
+
+    def eval_fn(self, split: str):
+        """The eval function of ``split``, built at its first use, one per
+        distinct (propagation graph, filter graph)."""
+        key = (id(self.graphs[split]), id(self.filter_graphs[split]))
+        if key not in self._eval_fns:
+            self._eval_fns[key] = self._build_eval_fn(
+                self.graphs[split], self.rel_graphs[split],
+                self.filter_graphs[split])
+        return self._eval_fns[key]
+
+    def eval_triples(self, split: str) -> np.ndarray:
+        return {"valid": self.dataset.valid, "test": self.dataset.test}[split]
+
+    def evaluate(self, model, split: str, batch_size: int, fast_test=None):
+        """Filtered-ranking metrics of ``model`` on a split, over the
+        split's graph; per relation (``metric_per_rel``) both directions
+        count under the base relation."""
+        triples = self._fast_subset(self.eval_triples(split), fast_test)
+        ranking, cand = self._run_eval(self.eval_fn(split), model, triples,
+                                       self._eval_batch_size(batch_size))
+        rel = np.stack([triples[:, 2], triples[:, 2]], 1)
+        return self._metrics_from_rankings(ranking, cand, rel)
+
+
+class MultiGraphPretrainTask(_TaskBase):
+    """Pre-training on several graphs: per graph the full graph (the
+    filter), the fact graph of its train edges that the model propagates
+    over, its relation graph and its train triples. A step trains on one
+    graph (``sample_graph_id`` draws it, weighted by the graphs' fact edge
+    counts); each graph's loss and eval functions, with its layouts on the
+    device, are built at first use and kept. ``evaluate`` returns each
+    metric's mean over the graphs, and every graph's metrics under
+    ``per_graph``."""
+
+    def __init__(self, dataset: JointDataset, model_cfg: UltraConfig,
+                 cfg: TaskConfig = TaskConfig(
+                     metrics=DEFAULT_PRETRAIN_METRICS),
+                 device=None):
+        self.dataset = dataset
+        self.model_cfg = model_cfg
+        self.cfg = cfg
+        self.device = default_device(device)
+        self.graphs: List[Graph] = []  # full graphs (filtering)
+        self.fact_graphs: List[Graph] = []  # train-edge graphs (propagation)
+        self.rel_graphs: List[Graph] = []
+        self.train_triples: List[np.ndarray] = []
+        for ds in dataset.datasets:
+            fact, train = ds.fact_graph(None)
+            self.graphs.append(ds.graph)
+            self.fact_graphs.append(fact)
+            self.rel_graphs.append(build_relation_graph(fact))
+            self.train_triples.append(train)
+        self.num_graphs = len(self.graphs)
+        self.num_relations = max(g.num_relations for g in self.graphs)
+        probs = np.array([g.num_edges for g in self.fact_graphs], np.float64)
+        self._graph_probs = probs / probs.sum()
+        self._loss_fns = {}
+        self._eval_fns = {}
+
+    def sample_graph_id(self, rng: np.random.Generator) -> int:
+        """One draw of the edge-count mixture."""
+        return int(rng.choice(self.num_graphs, p=self._graph_probs))
+
+    def ensure_loss_fn(self, graph_id: int):
+        """Graph ``graph_id``'s loss function, built at its first use."""
+        if graph_id not in self._loss_fns:
+            fact = self.fact_graphs[graph_id]
+            self._loss_fns[graph_id] = self._build_loss_fn(
+                fact, self.rel_graphs[graph_id], fact.num_nodes)
+        return self._loss_fns[graph_id]
+
+    def loss_step(self, model, generator: torch.Generator, batch: np.ndarray,
+                  graph_id: int, neg: Optional[torch.Tensor] = None):
+        """(loss, metrics) of one batch of graph ``graph_id``'s train
+        triples; ``neg`` as in ``TransductiveKGTask.loss_step``."""
+        b = torch.from_numpy(np.asarray(batch, np.int64)).to(self.device)
+        return self.ensure_loss_fn(graph_id)(model, generator, b, None, neg)
+
+    def eval_sets(self, split: str):
+        """[(graph name, graph id, triples)] of ``split``."""
+        return [(ds.name, gid, {"valid": ds.valid, "test": ds.test}[split])
+                for gid, ds in enumerate(self.dataset.datasets)]
+
+    def evaluate(self, model, split: str, batch_size: int, fast_test=None):
+        """Each metric's mean over the graphs, and ``per_graph``: graph
+        name -> its metrics; ``fast_test`` applies per graph."""
+        per_graph = {}
+        for name, gid, triples in self.eval_sets(split):
+            triples = self._fast_subset(triples, fast_test)
+            if gid not in self._eval_fns:
+                self._eval_fns[gid] = self._build_eval_fn(
+                    self.fact_graphs[gid], self.rel_graphs[gid],
+                    self.graphs[gid])
+            ranking, cand = self._run_eval(self._eval_fns[gid], model,
+                                           triples,
+                                           self._eval_batch_size(batch_size))
+            per_graph[name] = self._metrics_from_rankings(ranking, cand, None)
+        metrics = list(per_graph.values())
+        avg = {k: float(np.mean([m[k] for m in metrics]))
+               for k in metrics[0]}
+        avg["per_graph"] = per_graph
+        return avg
 
 
 class ClassicNBFNetTask(TransductiveKGTask):
