@@ -3,7 +3,7 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py                # on a machine with the card
-    python3 chip_smoke.py --device cpu   # rehearsal of phases 1b-36, small
+    python3 chip_smoke.py --device cpu   # rehearsal of phases 1b-40, small
 
 Phases, each of which raises on failure (the script then exits nonzero):
 
@@ -211,10 +211,52 @@ Phases, each of which raises on failure (the script then exits nonzero):
               the port's CPU run; then run_full.run on pretrain_3g.yaml
               rendered for SynthJoint (3 graphs) with train.num_epoch 1 and
               batch_per_epoch 3 in place of the shipped 10 and 20,000.
+    37. policies  ULTRA (UltraConfig.default, 6x64 towers) on the same KG:
+              one train step (batch 64, 128 strict negatives) from one set
+              of weights, batch and draw of negatives under remat none,
+              save_rspmm, full, and full with micro_batch 16; each mode's
+              loss and gradients against none's (1e-6 relative, 1e-5
+              norm-wise; bitwise where they are), its ms, device ms, peak
+              memory and launches (K1 6 / 6 / 12 and K2 6 for the first
+              three, K1 72 and K2 24 with micro-batches: per chunk the
+              forward, the chunk's recomputation and each layer's); one
+              eval batch with score_chunk 4096 against the unchunked scores
+              (1e-6).
+    38. atomic  pretrain_3g.yaml's task (remat: auto), optimizer and engine
+              sections through build_task and build_engine on one generated
+              graph with ATOMIC's counts (304,388 entities, 610,536 train
+              triples, 9 relations; 5,000 valid and 5,000 test triples, the
+              phase's own): the resolved policy, one warm-up and 3 timed
+              steps (ms, device ms, peak under the card's memory,
+              launches as the policy gives them), one step's loss and
+              gradients against the lowest tier pinned (full remat,
+              micro_batch 8; 1e-5 relative, 1e-4 norm-wise), 256 test
+              triples at the auto eval batch (ms a batch, peak), and the
+              first 16 queries ranked at it and at a pinned 16 (equal but
+              within a score tie of 1e-5).
+    39. failsoft  the process capped at 0.6 of phase 37's keep-everything
+              step peak (set_per_process_memory_fraction) while the budget
+              reads the whole card: a fresh task (remat: auto) and engine's
+              first step runs out of memory, demotes at least once and
+              completes with phase 37's none-mode loss (1e-5), its peak
+              within the cap; one evaluation under the cap at the auto eval
+              batch; then the cap is lifted.
+    40. classic paths  classic NBFNet (6x32, distmult, pna, layer norm,
+              seeded weights) on the same KG: edge_gradients for 2 test
+              triples (the O(E) route, no kernel), beam_search_paths
+              (num_beam 10, path_topk 10) and visualize, each timed, against
+              the port's CPU run (gradients 1e-4 norm-wise per layer, the
+              top path equal, path weights 1e-4); one concat_hidden eval
+              batch (K6, K7 12 times each) against the CPU run (1e-5).
+
+The phases that time evaluation (2, 6-24, 26-29, 32-33) pin the eval
+batch to 16; the CLI runs and pre-training's evaluation take the auto
+eval batch, and every phase that runs a shipped config logs the memory
+policies its remat: auto resolves to.
 
 The last lines are a JSON object with one entry per kernel (K1, K2, K6,
 K7, K6b, K7b, K3, K4, K5, K8f, K8b, K1h, K2h, K9; launches summed over the
-measured runs of phases 2-36, by path in ``launches_by_path``; the staged
+measured runs of phases 2-40, by path in ``launches_by_path``; the staged
 backward kernels' layouts under ``plan``; P1 and P2 with full's numbers
 and their launches in the tools' runs of phase 1b),
 then {"ok": true, "device": {...}}. With no card the script prints no
@@ -226,6 +268,8 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import dataclasses
+import gc
 import json
 import math
 import os
@@ -2500,6 +2544,7 @@ def phase_clip_crossings(task, model, device, label: str):
         EPS,
         _relation_input,
         pna_moments,
+        pna_sums,
     )
     from ultra_torchdrug_tpu_torch.ops.rspmm import broadcast_rel_flat
 
@@ -2511,8 +2556,9 @@ def phase_clip_crossings(task, model, device, label: str):
             B = x.shape[1] // layer.cfg.input_dim
             rel = broadcast_rel_flat(
                 _relation_input(layer, kwargs.get("query"), None), B)
-            mean, sq_mean, _ = pna_moments(layer.cfg, graph, rel, x, boundary,
-                                           _MESSAGES[layer.cfg.message_func])
+            sums = pna_sums(layer.cfg, graph, rel, x,
+                            _MESSAGES[layer.cfg.message_func])
+            mean, sq_mean, _ = pna_moments(layer.cfg, graph, *sums, boundary)
             masks.append((sq_mean - mean ** 2 <= EPS).cpu())
 
         handles = [layer.register_forward_pre_hook(hook, with_kwargs=True)
@@ -2643,7 +2689,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
-        help="cpu rehearses phases 1b-36 at a reduced size with the plain "
+        help="cpu rehearses phases 1b-40 at a reduced size with the plain "
              "versions and reports no result")
     args = parser.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -2705,7 +2751,8 @@ def main(argv=None) -> int:
     # ULTRA: zero-shot evaluation and training (K1, K2)
     t0 = time.perf_counter()
     task = TransductiveKGTask(dataset, UltraConfig.default(
-        dataset.num_relations), device=device)
+        dataset.num_relations), TaskConfig(eval_batch_size=EVAL_BATCH),
+        device=device)
     model = task.init_params(seed=0)
     log(f"[slice] task set-up (relation graph {task.rel_graph.num_nodes} "
         f"nodes / {task.rel_graph.num_edges} edges, CSR, dense adjacency) "
@@ -2787,9 +2834,16 @@ def main(argv=None) -> int:
     runs["inductive"] = run_inductive(device, pth)
     runs["pretrain"] = run_pretrain(device)
     scratch.cleanup()
+    # the memory policies on the FB-size KG, training an ATOMIC-sized graph
+    # with pretrain_3g.yaml's remat: auto, fail-soft demotion under a memory
+    # cap, and classic NBFNet's path tools (K6, K7 under concat_hidden)
+    runs["policies"], none_step = run_policies(dataset, device)
+    runs["atomic"] = run_atomic(device)
+    runs["failsoft"] = run_failsoft(dataset, device, none_step)
+    runs["classic paths"] = run_classic_paths(dataset, device)
 
     if not cuda:
-        log("[rehearsal] phases 1b-36 ran on the CPU; no kernel ran and no "
+        log("[rehearsal] phases 1b-40 ran on the CPU; no kernel ran and no "
             "result is reported")
         return 1
     for e in entries.values():
@@ -2812,7 +2866,8 @@ def main(argv=None) -> int:
 def inference_config(dataset: dict, compute_dtype: str) -> dict:
     """config/transductive/inference.yaml as run_full.main loads it (no
     checkpoint, no training), with ``dataset`` and the entity tower's
-    ``compute_dtype`` set."""
+    ``compute_dtype`` set, and the eval batch pinned to EVAL_BATCH (the
+    timed batches of the phases that build from it)."""
     from ultra_torchdrug_tpu_torch.utils.config import load_config
 
     cfg = load_config(str(REPO / "config/transductive/inference.yaml"),
@@ -2820,6 +2875,7 @@ def inference_config(dataset: dict, compute_dtype: str) -> dict:
                                    epochs=0, bpe=0, ckpt=None))[0]
     cfg["dataset"] = dict(dataset)
     cfg["task"]["model"]["compute_dtype"] = compute_dtype
+    cfg["task"]["eval_batch_size"] = EVAL_BATCH
     return cfg
 
 
@@ -2849,6 +2905,7 @@ def run_ultra_bf16(size: dict, device) -> dict:
     log(f"[ultra bf16] {spec}, model {cfg['task']['model']}: set-up "
         f"{time.perf_counter() - t0:.1f} s; dense relation graph: "
         f"{task.rel_graph.prepare_dense().dense_adj is not None}")
+    log_policies("ultra bf16", task, TRAIN["batch"])
     eval_counts = phase_slice(task, model, device,
                               {"K1h": K1_LAUNCHES_PER_BATCH},
                               label="ultra bf16")
@@ -2945,6 +3002,7 @@ def run_ultra_ring(size: dict, device) -> dict:
         f"with edges (min {ri.edge_counts.min()}, max "
         f"{ri.edge_counts.max()} edges), relabelled: "
         f"{ri.to_new is not None}")
+    log_policies("ultra ring", task, TRAIN["batch"])
     with use_mesh(mesh):
         eval_counts = phase_slice(
             task, model, device, {"K1": 2 * layers * buckets,
@@ -3193,6 +3251,7 @@ def run_inductive(device, pth: Path) -> dict:
     t0 = time.perf_counter()
     dataset = inductive_dataset(counts)
     cfg = inductive_config(None)
+    cfg["task"]["eval_batch_size"] = EVAL_BATCH
     task = build_task(cfg["task"], dataset, device=device)
     model = task.init_params(seed=3)
     model.load_state_dict(import_torch_checkpoint(str(pth),
@@ -3205,6 +3264,7 @@ def run_inductive(device, pth: Path) -> dict:
         f"relations; valid graph is the test graph: "
         f"{task.graphs['valid'] is graph}; metrics {task.cfg.metrics}; "
         f"set-up {time.perf_counter() - t0:.1f} s")
+    log_policies("inductive", task, TRAIN["batch"])
     per_batch = {"K1": K1_LAUNCHES_PER_BATCH}
     runs = {"eval test": phase_slice(task, model, device, per_batch,
                                      label="inductive", split="test",
@@ -3315,6 +3375,7 @@ def run_pretrain(device) -> dict:
             f"relation count {task.num_relations}; batch "
             f"{engine.batch_size}, {task.cfg.num_negative} negatives, "
             f"{cfg['optimizer']}; set-up {time.perf_counter() - t0:.1f} s")
+        log_policies("pretrain", task, engine.batch_size)
         step_ms = {gid: [] for gid in range(task.num_graphs)}
         run_step = engine._run_step
 
@@ -3371,8 +3432,11 @@ def run_pretrain(device) -> dict:
         reset_launch_counts()
         metrics = engine.evaluate("test", fast_test=FAST_TEST)
         counts["eval"] = launch_counts()
-        batches = sum(math.ceil(min(FAST_TEST, len(d.test)) / engine.batch_size)
-                      for d in dataset.datasets)
+        eval_batches = [task._resolve_eval_batch(engine.batch_size,
+                                                 g.num_nodes)
+                        for g in task.fact_graphs]
+        batches = sum(math.ceil(min(FAST_TEST, len(d.test)) / b)
+                      for d, b in zip(dataset.datasets, eval_batches))
         check_launches("pretrain eval", counts["eval"],
                        {"K1": K1_LAUNCHES_PER_BATCH}, batches, device)
         per_graph = metrics["per_graph"]
@@ -3380,8 +3444,8 @@ def run_pretrain(device) -> dict:
         if (set(per_graph) != set(names) or not finite_metrics(metrics)
                 or abs(metrics["mrr"] - mean) > 1e-12):
             raise AssertionError(f"pretrain eval: {metrics}")
-        log(f"[pretrain eval] fast_test {FAST_TEST} a graph, batch "
-            f"{engine.batch_size}: mrr {metrics['mrr']:.6f} = mean of "
+        log(f"[pretrain eval] fast_test {FAST_TEST} a graph, auto eval "
+            f"batches {eval_batches}: mrr {metrics['mrr']:.6f} = mean of "
             + ", ".join(f"{n} {m['mrr']:.6f}" for n, m in per_graph.items())
             + f"; launches {counts['eval']}")
         smallest = int(np.argmin([len(t) for t in task.train_triples]))
@@ -3469,6 +3533,7 @@ def cli_run(label: str, argv, device, want_epoch: int, cfg=None) -> tuple:
     log(f"[cli] {label}: {seconds:.1f} s on {device}, epoch {engine.epoch}, "
         f"files {sorted(files)}, test mrr {metrics['mrr']:.6f}, launches "
         f"{used}")
+    log_policies(f"cli {label}", engine.task, engine.batch_size)
     return counts, engine
 
 
@@ -3529,7 +3594,8 @@ def run_classic(dataset, device, label: str, variant: dict,
     nbf_cfg = classic_nbfnet_config(num_relations=dataset.num_relations,
                                     layer_norm=True, **variant)
     t0 = time.perf_counter()
-    task = ClassicNBFNetTask(dataset, nbf_cfg, device=device)
+    task = ClassicNBFNetTask(dataset, nbf_cfg, TaskConfig(
+        eval_batch_size=EVAL_BATCH), device=device)
     model = task.init_params(seed=0)
     log(f"[{label}] {nbf_cfg.message_func}, {nbf_cfg.aggregate_func}: task "
         f"set-up {time.perf_counter() - t0:.1f} s; "
@@ -3564,6 +3630,526 @@ def run_classic(dataset, device, label: str, variant: dict,
                                   device="cpu"), device,
         grad_rtol=CLASSIC_GRAD_RTOL, label=f"{label} train parity")
     return {"eval": eval_counts, "train": train_counts}
+
+
+def log_policies(label: str, task, batch: int):
+    """Log the memory policies that a task built from a shipped config
+    (remat: auto) resolves on each of its propagation graphs."""
+    if hasattr(task, "fact_graphs"):
+        graphs = task.fact_graphs
+    elif hasattr(task, "fact_graph"):
+        graphs = [task.fact_graph]
+    else:  # inductive: the train graph and the test split's
+        graphs = [task.graphs["train"], task.graphs["test"]]
+    for g in graphs:
+        log(f"[{label}] policies on {g.num_nodes} entities at batch {batch}: "
+            + policy_line(task, g, batch, batch))
+
+
+def policy_line(task, fact_graph, batch: int, requested: int) -> str:
+    """The memory policies a task resolves for a train step of ``batch``
+    queries on ``fact_graph`` and its eval batch for a ``requested`` one."""
+    cfg = task._train_model_cfg(fact_graph, batch)
+    return (f"entity remat={cfg.entity.remat!r} micro_batch="
+            f"{cfg.entity.micro_batch} stack={cfg.entity.stack!r}, relation "
+            f"remat={cfg.relation.remat!r}; eval batch "
+            f"{task._resolve_eval_batch(requested, fact_graph.num_nodes)} "
+            f"(budget {task._budget_bytes() / 2**30:.2f} GiB, demotion level "
+            f"{task._policy_demotion})")
+
+
+def grad_step(task, model, generator, state, batch, *step):
+    """One loss step's loss and gradients (no optimizer), with the negatives
+    drawn from ``generator`` restored to ``state``."""
+    generator.set_state(state)
+    loss, _ = task.loss_step(model, generator, batch, *step)
+    params = [p for p in model.parameters() if p.requires_grad]
+    return loss.detach(), torch.autograd.grad(loss, params)
+
+
+def compare_steps(label: str, got, want, loss_rtol: float,
+                  grad_rtol: float) -> bool:
+    """Raise unless ``got`` (loss, grads) matches ``want`` within the limits;
+    returns whether they are bitwise equal."""
+    (loss, grads), (want_loss, want_grads) = got, want
+    if abs(loss.item() - want_loss.item()) > loss_rtol * max(
+            1.0, abs(want_loss.item())):
+        raise AssertionError(f"{label}: loss {loss.item()} vs "
+                             f"{want_loss.item()}")
+    worst = 0.0
+    for a, b in zip(grads, want_grads):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{label}: non-finite gradient")
+        worst = max(worst, ((a - b).norm() / b.norm().clamp(min=1e-12)).item())
+    if worst > grad_rtol:
+        raise AssertionError(f"{label}: gradient norm-wise error {worst:.3g}")
+    bitwise = torch.equal(loss, want_loss) and all(
+        torch.equal(a, b) for a, b in zip(grads, want_grads))
+    log(f"[{label}] loss {loss.item():.8g} vs {want_loss.item():.8g}, "
+        f"{len(grads)} gradients: worst norm-wise error {worst:.3g} (limits "
+        f"{loss_rtol:g}, {grad_rtol:g}); bitwise: {bitwise}")
+    return bitwise
+
+
+def timed_grad_step(label: str, fn, device) -> dict:
+    """fn once to warm up, then once timed (host clock around a synchronised
+    call, its launches and peak memory), then once under the profiler."""
+    cuda = device.type == "cuda"
+    fn()
+    base = math.nan
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() / 2**30
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    if cuda:
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else math.nan
+    device_ms = profile_device_time(label, fn) if cuda else None
+    used = {k: v for k, v in counts.items() if v}
+    log(f"[{label}] {ms:.2f} ms a step, device "
+        f"{'not measured' if device_ms is None else f'{device_ms:.3f} ms'}, "
+        f"peak device memory {peak:.3f} GiB, {peak - base:.3f} above the "
+        f"{base:.3f} resident ({device}); launches {used}")
+    return dict(out=out, counts=counts, ms=ms, peak=peak,
+                step_peak=peak - base)
+
+
+def step_launches(cfg, batch: int) -> dict:
+    """K1 and K2 launches of one ULTRA train step under the entity tower's
+    resolved policies (fp32 sums): per chunk of the batch L K1 forward and L
+    K2, plus L K1 when the chunk is recomputed (micro-batches) and L when
+    each layer is (full remat)."""
+    from ultra_torchdrug_tpu_torch.models.nbfnet import remat_mode
+
+    ent = cfg.entity
+    layers = len(ent.hidden_dims)
+    mb = ent.micro_batch
+    chunks = batch // mb if mb and batch > mb else 1
+    full = remat_mode(ent.remat) == "full"
+    return {"K1": layers * chunks * (1 + (chunks > 1) + full),
+            "K2": layers * chunks}
+
+
+def run_policies(dataset, device) -> tuple:
+    """Phase 37: ULTRA (UltraConfig.default, 6x64 towers) on the smoke KG,
+    one train step (batch 64, 128 strict negatives) from one set of weights,
+    one batch and one draw of negatives under remat none, save_rspmm, full,
+    and full with micro_batch 16: each mode's loss and gradients against
+    none's (1e-6 relative, 1e-5 norm-wise), its ms, device ms, peak memory
+    and launches (K1 6 / 6 / 12 and K2 6 a step for the first three). Then
+    one eval batch with score_chunk 4096 against the unchunked scores
+    (1e-6). Returns (launch counts by mode, none's (loss, peak GiB))."""
+    from ultra_torchdrug_tpu_torch.engine.engine import Engine
+    from ultra_torchdrug_tpu_torch.models.ultra import UltraConfig
+    from ultra_torchdrug_tpu_torch.tasks.task import (
+        TaskConfig,
+        TransductiveKGTask,
+    )
+    from ultra_torchdrug_tpu_torch.utils.logging import get_root_logger
+
+    cuda = device.type == "cuda"
+    size = TRAIN if cuda else TRAIN_REHEARSAL
+    base = UltraConfig.default(dataset.num_relations)
+    task = TransductiveKGTask(dataset, base, TaskConfig(
+        num_negative=size["negatives"]), device=device)
+    engine = Engine(task, batch_size=size["batch"], seed=0,
+                    log_interval=10**9, logger=get_root_logger(None))
+    _, batch = next(engine._epoch_batches(1))
+    state = engine.generator.get_state()
+    mb = size["batch"] // 4
+    modes = (("none", False, 0), ("save_rspmm", "save_rspmm", 0),
+             ("full", True, 0), (f"full micro_batch {mb}", True, mb))
+    counts, results = {}, {}
+    for name, remat, micro in modes:
+        task.model_cfg = dataclasses.replace(
+            base, entity=dataclasses.replace(base.entity, remat=remat,
+                                             micro_batch=micro),
+            relation=dataclasses.replace(base.relation, remat=remat))
+        reading = timed_grad_step(
+            f"policies {name}",
+            lambda: grad_step(task, engine.model, engine.generator, state,
+                              batch), device)
+        results[name] = reading
+        counts[f"step {name}"] = reading["counts"]
+        check_launches(f"policies {name}", reading["counts"],
+                       step_launches(task.model_cfg, size["batch"]), 1,
+                       device)
+    for name, reading in results.items():
+        if name != "none":
+            compare_steps(f"policies {name} vs none", reading["out"],
+                          results["none"]["out"], 1e-6, 1e-5)
+
+    task.model_cfg = base
+    und, rel_graph = task._prepare_graphs(task.fact_graph, task.rel_graph)
+    q = torch.from_numpy(dataset.test[:EVAL_BATCH].astype(np.int64)).to(device)
+    chunked = dataclasses.replace(base, entity=dataclasses.replace(
+        base.entity, score_chunk=4096))
+    with torch.inference_mode():
+        whole, parts = (torch.cat(task._eval_scores(
+            engine.model, task.fact_graph, rel_graph, q[:, 0], q[:, 1],
+            q[:, 2], und, model_cfg=cfg)) for cfg in (base, chunked))
+    torch.testing.assert_close(parts, whole, rtol=1e-6, atol=1e-6)
+    log(f"[policies] eval batch of {EVAL_BATCH} with score_chunk 4096 over "
+        f"{task.fact_graph.num_nodes} entities: max_abs_err "
+        f"{(parts - whole).abs().max().item():.3g} against the unchunked "
+        f"scores (limit 1e-6); bitwise: {torch.equal(parts, whole)}")
+    none = results["none"]
+    return counts, (none["out"][0].item(), none["step_peak"])
+
+
+# ATOMIC (Sap et al., 2019) at the counts the JAX package calibrates its
+# memory policies on (script/diagnostics/train_memory.py): entities,
+# relations, train triples; the valid and test splits are this phase's own
+ATOMIC = dict(entities=304388, relations=9, train=610536, valid=5000,
+              test=5000)
+ATOMIC_REHEARSAL = dict(entities=3000, relations=9, train=12000, valid=300,
+                        test=300)
+ATOMIC_EVAL = 256  # test triples evaluated at the auto eval batch
+ATOMIC_TIMED = 3  # timed steps after the warm-up step
+
+
+def rank_ties(task, model, gid: int, triples: np.ndarray, band: float):
+    """Per query and direction, the allowed candidates whose score lies
+    within ``band`` of the target's ([N, 2]), from one scoring at a batch
+    of len(triples)."""
+    from ultra_torchdrug_tpu_torch.ops.match import (
+        head_truth_mask,
+        tail_truth_mask,
+    )
+
+    fact = task.fact_graphs[gid]
+    und, rel_graph = task._prepare_graphs(fact, task.rel_graphs[gid])
+    edges = task.graphs[gid].edge_list.to(task.device)
+    b = torch.from_numpy(triples.astype(np.int64)).to(task.device)
+    h, t, r = b[:, 0], b[:, 1], b[:, 2]
+    with torch.inference_mode():
+        t_scores, h_scores = task._eval_scores(model, fact, rel_graph, h, t,
+                                               r, und)
+    out = []
+    for scores, target, truth in (
+            (t_scores, t, tail_truth_mask(edges, h, r, fact.num_nodes)),
+            (h_scores, h, head_truth_mask(edges, t, r, fact.num_nodes))):
+        pos = scores.gather(1, target[:, None])
+        out.append(((scores - pos).abs() <= band) & ~truth)
+    return torch.stack([m.sum(-1) for m in out], 1).cpu().numpy()
+
+
+def run_atomic(device) -> dict:
+    """Phase 38: pretrain_3g.yaml's task (remat: auto), optimizer and engine
+    sections through build_task and build_engine on one generated graph
+    with ATOMIC's counts: the resolved policy, one warm-up and ATOMIC_TIMED
+    timed steps (ms, device ms, peak, launches; the peak under the card's
+    memory), one step's loss and gradients against the lowest tier pinned
+    (full remat, micro_batch 8: 1e-5 relative, 1e-4 norm-wise), then
+    ATOMIC_EVAL test triples at the auto eval batch, and the first 16
+    queries ranked at it and at a pinned 16 (equal but within a score tie
+    of 1e-5). Returns the launch counts by half."""
+    from ultra_torchdrug_tpu_torch.data.datasets import (
+        JointDataset,
+        synthetic_transductive,
+    )
+    from ultra_torchdrug_tpu_torch.engine.build import (
+        build_engine,
+        build_task,
+    )
+
+    cuda = device.type == "cuda"
+    counts = ATOMIC if cuda else ATOMIC_REHEARSAL
+    t0 = time.perf_counter()
+    total = counts["train"] + counts["valid"] + counts["test"]
+    graph = synthetic_transductive(
+        "ATOMIC-sized", counts["entities"], total, counts["relations"],
+        seed=0, valid_frac=counts["valid"] / total,
+        test_frac=counts["test"] / total)
+    dataset = JointDataset("atomic-synthetic", [graph])
+    cfg = pretrain_config(None if cuda else TRAIN_REHEARSAL)
+    runs = {}
+    with tempfile.TemporaryDirectory() as work_dir:
+        engine = build_engine(cfg, build_task(cfg["task"], dataset,
+                                              device=device),
+                              work_dir=work_dir, seed=0)
+        task, fact = engine.task, engine.task.fact_graphs[0]
+        log(f"[atomic] {counts}: {fact.num_nodes} entities, "
+            f"{fact.num_edges} train triples ({2 * fact.num_edges} "
+            f"undirected edges), {len(graph.valid)} valid / "
+            f"{len(graph.test)} test (this phase's own splits); batch "
+            f"{engine.batch_size}, {task.cfg.num_negative} negatives, "
+            f"{cfg['optimizer']}, remat {cfg['task']['remat']!r}; set-up "
+            f"{time.perf_counter() - t0:.1f} s")
+        log(f"[atomic] resolved: " + policy_line(task, fact, engine.batch_size,
+                                                 engine.batch_size))
+        edges = task.train_triples[0]
+
+        def next_batch():
+            return engine._full_batch(
+                edges, engine.rng.permutation(len(edges))[:engine.batch_size])
+
+        step_ms = []
+        for i in range(1 + ATOMIC_TIMED):
+            b = next_batch()
+            if i == 1:
+                if cuda:
+                    torch.cuda.reset_peak_memory_stats()
+                reset_launch_counts()
+            if cuda:
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            metrics = engine._run_step(0, b)
+            if cuda:
+                torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            if not all(math.isfinite(float(v)) for v in metrics.values()):
+                raise AssertionError(f"atomic step {i}: {metrics}")
+        runs["train"] = launch_counts()
+        check_launches("atomic train", runs["train"], step_launches(
+            task._train_model_cfg(fact, engine.batch_size),
+            engine.batch_size), ATOMIC_TIMED, device)
+        peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else math.nan
+        used = {k: v for k, v in runs["train"].items() if v}
+        if cuda:
+            total_gib = torch.cuda.get_device_properties(
+                device).total_memory / 2**30
+            if peak >= total_gib:
+                raise AssertionError(f"atomic: peak {peak:.2f} of "
+                                     f"{total_gib:.2f} GiB")
+        b = next_batch()
+        device_ms = (profile_device_time("one atomic step",
+                                         lambda: engine._run_step(0, b))
+                     if cuda else None)
+        log(f"[atomic] {ATOMIC_TIMED} timed steps: "
+            f"{sum(step_ms[1:]) / ATOMIC_TIMED:.2f} ms a step ("
+            + ", ".join(f"{ms:.1f}" for ms in step_ms[1:])
+            + f"; warm-up {step_ms[0]:.1f}), device "
+            f"{'not measured' if device_ms is None else f'{device_ms:.3f} ms'}"
+            f" a step, peak device memory {peak:.3f} GiB ({device}); "
+            f"launches {used} in {ATOMIC_TIMED} steps")
+
+        # the resolved tier against the lowest (full remat, micro_batch 8)
+        state = engine.generator.get_state()
+        b = next_batch()
+        auto_cfg = task.model_cfg
+        resolved = grad_step(task, engine.model, engine.generator, state, b,
+                             0)
+        task.model_cfg = dataclasses.replace(
+            auto_cfg, entity=dataclasses.replace(auto_cfg.entity, remat=True,
+                                                 micro_batch=8))
+        lowest = grad_step(task, engine.model, engine.generator, state, b, 0)
+        task.model_cfg = auto_cfg
+        compare_steps("atomic resolved vs full remat micro_batch 8", resolved,
+                      lowest, 1e-5, 1e-4)
+        del resolved, lowest
+
+        # evaluation at the auto eval batch
+        auto_batch = task._resolve_eval_batch(engine.batch_size,
+                                              fact.num_nodes)
+        task.evaluate(engine.model, "test", engine.batch_size,
+                      fast_test=auto_batch)  # set-up
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t = time.perf_counter()
+        metrics = task.evaluate(engine.model, "test", engine.batch_size,
+                                fast_test=ATOMIC_EVAL)
+        if cuda:
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        runs["eval"] = launch_counts()
+        batches = math.ceil(ATOMIC_EVAL / auto_batch)
+        check_launches("atomic eval", runs["eval"],
+                       {"K1": K1_LAUNCHES_PER_BATCH}, batches, device)
+        if not finite_metrics(metrics):
+            raise AssertionError(f"atomic eval: {metrics}")
+        peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else math.nan
+        log(f"[atomic eval] {ATOMIC_EVAL} test triples at the auto eval "
+            f"batch {auto_batch}: {batches} batches, "
+            f"{seconds * 1e3 / batches:.2f} ms a batch, peak device memory "
+            f"{peak:.3f} GiB; mrr {metrics['mrr']:.6f}")
+        first = graph.test[:EVAL_BATCH]
+        fn = task._eval_fns[0]
+        got = task._run_eval(fn, engine.model, first, auto_batch)[0]
+        want = task._run_eval(fn, engine.model, first, EVAL_BATCH)[0]
+        diff = np.abs(got - want)
+        if diff.any():
+            ties = rank_ties(task, engine.model, 0, first, 1e-5)
+            if (diff > ties).any():
+                raise AssertionError(f"atomic ranks at batch {auto_batch} vs "
+                                     f"{EVAL_BATCH}: {got} vs {want}")
+        log(f"[atomic eval] the first {EVAL_BATCH} queries rank at batch "
+            f"{auto_batch} as at {EVAL_BATCH}: {int((diff == 0).sum())} of "
+            f"{diff.size} ranks equal, the rest within a score tie of 1e-5")
+    return runs
+
+
+def run_failsoft(dataset, device, none_step) -> dict:
+    """Phase 39: with the process capped below phase 37's keep-everything
+    peak (torch.cuda.set_per_process_memory_fraction) while the budget still
+    reads the whole card, a fresh task (remat: auto) and engine on the smoke
+    KG: the first step must run out of memory, demote at least once and
+    complete with phase 37's none-mode loss (1e-5 relative), the peak
+    within the cap; then one evaluation under the cap at the auto eval
+    batch, and the cap is lifted. On the CPU the same steps run uncapped.
+    Returns the launch counts by half."""
+    from ultra_torchdrug_tpu_torch.models.ultra import UltraConfig
+    from ultra_torchdrug_tpu_torch.tasks.task import (
+        TaskConfig,
+        TransductiveKGTask,
+    )
+
+    cuda = device.type == "cuda"
+    size = TRAIN if cuda else TRAIN_REHEARSAL
+    none_loss, none_peak = none_step
+    base = UltraConfig.default(dataset.num_relations)
+    model_cfg = dataclasses.replace(base, entity=dataclasses.replace(
+        base.entity, remat="auto"))
+    engine = make_engine(TransductiveKGTask(dataset, model_cfg, TaskConfig(
+        num_negative=size["negatives"]), device=device), size, "failsoft",
+        lr=5e-4)
+    task = engine.task
+    log(f"[failsoft] before: " + policy_line(task, task.fact_graph,
+                                             size["batch"], size["batch"]))
+    runs = {}
+    cap = math.nan
+    index = torch.cuda.current_device() if cuda else None
+    if cuda:
+        # the earlier phases' tasks (their closures hold them in cycles)
+        # must not count as resident
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        total = torch.cuda.get_device_properties(index).total_memory
+        cap = torch.cuda.memory_allocated() + 0.6 * none_peak * 2**30
+        torch.cuda.set_per_process_memory_fraction(cap / total, index)
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        reset_launch_counts()
+        engine.train(batch_per_epoch=1)
+        if cuda:
+            torch.cuda.synchronize()
+        runs["train"] = launch_counts()
+        peak = torch.cuda.max_memory_allocated() if cuda else math.nan
+        loss = engine.meter.last_window[0]["loss"]
+        level = task._policy_demotion
+        log(f"[failsoft] cap {cap / 2**30:.3f} GiB (0.6 of phase 37's "
+            f"keep-everything peak {none_peak:.3f} GiB above what was "
+            f"resident); the first step completed at demotion level {level}: "
+            + policy_line(task, task.fact_graph, size["batch"], size["batch"])
+            + f"; peak {peak / 2**30:.3f} GiB; loss {loss:.8g} vs phase 37's "
+            f"{none_loss:.8g}")
+        if cuda and (level < 1 or peak > cap):
+            raise AssertionError(f"failsoft: level {level}, peak {peak}, cap "
+                                 f"{cap}")
+        if abs(loss - none_loss) > 1e-5 * max(1.0, abs(none_loss)):
+            raise AssertionError(f"failsoft: loss {loss} vs {none_loss}")
+        reset_launch_counts()
+        metrics = engine.evaluate("test", fast_test=128)
+        runs["eval"] = launch_counts()
+        if not finite_metrics(metrics):
+            raise AssertionError(f"failsoft eval: {metrics}")
+        log(f"[failsoft eval] 128 test triples under the cap at eval batch "
+            f"{task._resolve_eval_batch(engine.batch_size, task.fact_graph.num_nodes)}"
+            f", demotion level {task._policy_demotion}: mrr "
+            f"{metrics['mrr']:.6f}; launches "
+            f"{ {k: v for k, v in runs['eval'].items() if v} }")
+    finally:
+        if cuda:
+            torch.cuda.set_per_process_memory_fraction(1.0, index)
+    return runs
+
+
+def run_classic_paths(dataset, device) -> dict:
+    """Phase 40: classic NBFNet (6x32, distmult, pna, layer norm, seeded
+    weights) on the smoke KG: edge_gradients for 2 test triples, then
+    beam_search_paths (num_beam 10, path_topk 10) and visualize, against the
+    port's CPU run (edge gradients 1e-4 norm-wise per layer, the top path
+    equal, path weights 1e-4), with their ms; then one concat_hidden eval
+    batch's scores against the CPU run (1e-5). Returns the launch counts by
+    half."""
+    from ultra_torchdrug_tpu_torch.models.classic_nbfnet import (
+        beam_search_paths,
+        classic_nbfnet_config,
+        classic_nbfnet_init,
+        edge_gradients,
+        visualize,
+    )
+    from ultra_torchdrug_tpu_torch.tasks.task import (
+        ClassicNBFNetTask,
+        TaskConfig,
+    )
+
+    cuda = device.type == "cuda"
+    cpu = torch.device("cpu")
+    nbf_cfg = classic_nbfnet_config(num_relations=dataset.num_relations,
+                                    layer_norm=True)
+    model = classic_nbfnet_init(nbf_cfg, seed=0, device=device)
+    cpu_model = copy.deepcopy(model).to(cpu)
+    fact = dataset.fact_graph(None)[0]
+    und = fact.undirected_with_inverse()
+    graphs = {device: und.to(device), cpu: und}
+
+    def timed(fn):
+        if cuda:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    runs = {}
+    reset_launch_counts()
+    for h, t, r in dataset.test[:2]:
+        h, t, r = int(h), int(t), int(r)
+        (grads, ms) = timed(lambda: edge_gradients(model, graphs[device], h,
+                                                   t, r))
+        cpu_grads = edge_gradients(cpu_model, graphs[cpu], h, t, r)
+        worst = max(((a.cpu() - b).norm() / b.norm().clamp(min=1e-12)).item()
+                    for a, b in zip(grads, cpu_grads))
+        if worst > 1e-4:
+            raise AssertionError(f"classic paths ({h}, {r}, {t}): edge "
+                                 f"gradients {worst:.3g} norm-wise")
+        (paths, beam_ms) = timed(lambda: beam_search_paths(
+            graphs[device], grads, h, t, num_beam=10, path_topk=10))
+        (vis, vis_ms) = timed(lambda: visualize(model, fact.to(device), h, t,
+                                                r, num_beam=10, path_topk=10))
+        cpu_paths = beam_search_paths(graphs[cpu], cpu_grads, h, t,
+                                      num_beam=10, path_topk=10)
+        for label, (p, w) in (("beam", paths), ("visualize", vis)):
+            if p[:1] != cpu_paths[0][:1] or not np.allclose(
+                    w, cpu_paths[1][:len(w)], rtol=1e-4, atol=1e-6) \
+                    or len(w) != len(cpu_paths[1]):
+                raise AssertionError(f"classic paths {label} ({h}, {r}, {t}):"
+                                     f" {p[:1]} {w} vs cpu {cpu_paths}")
+        log(f"[classic paths] ({h}, {r}, {t}): edge_gradients {ms:.1f} ms "
+            f"({len(grads)} layers x {und.num_edges} edges, worst norm-wise "
+            f"error vs cpu {worst:.3g}), beam_search_paths {beam_ms:.1f} ms, "
+            f"visualize {vis_ms:.1f} ms; {len(paths[0])} paths, the top "
+            f"{paths[0][:1]} with mean gradient "
+            f"{paths[1][0] if paths[1] else float('nan'):.6g} (cpu "
+            f"{cpu_paths[1][0] if cpu_paths[1] else float('nan'):.6g})")
+    runs["paths"] = launch_counts()
+    if any(runs["paths"].values()):
+        raise AssertionError(f"classic paths launched kernels: "
+                             f"{runs['paths']}")
+
+    concat_cfg = dataclasses.replace(nbf_cfg, concat_hidden=True)
+    task = ClassicNBFNetTask(dataset, concat_cfg, TaskConfig(
+        eval_batch_size=EVAL_BATCH), device=device)
+    concat_model = task.init_params(seed=0)
+    layers = len(concat_cfg.hidden_dims)
+    reset_launch_counts()
+    task.evaluate(concat_model, "test", EVAL_BATCH, fast_test=EVAL_BATCH)
+    runs["eval concat"] = launch_counts()
+    check_launches("classic concat eval", runs["eval concat"],
+                   {"K6": 2 * layers, "K7": 2 * layers}, 1, device)
+    phase_parity(task, concat_model, device, atol=CLASSIC_SCORE_ATOL,
+                 label="classic concat_hidden parity", queries=EVAL_BATCH)
+    return runs
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 """The port's config system, builders and CLI
 (``python -m ultra_torchdrug_tpu_torch.run_full``) against the JAX
 package's, on the CPU: the shipped configs load to the same dicts and build
-the same model and task configs; what the port does not carry raises (or,
-for the memory-only options, is logged as not applied); the smoke config
+the same model and task configs; what the port does not carry raises; the
+smoke config
 trains one epoch and writes its checkpoint and log; a checkpoint round trip
 (native, ``fix_reasoner`` and ``.pth``) reproduces the metrics; every
 shipped config builds its task; and ``--epochs 0`` on both inference
@@ -139,10 +139,6 @@ def test_model_and_task_configs_match_jax(path, compute_dtype):
 
 
 def test_entity_nbfnet_config_raises_on_what_it_does_not_honour(caplog):
-    # the ROADMAP Queue 3 repro: concat_hidden=True used to build a model
-    # without the concat
-    with pytest.raises(NotImplementedError, match="concat_hidden.*item 6"):
-        entity_nbfnet_config(concat_hidden=True)
     with pytest.raises(TypeError, match="unknown option 'activation'"):
         entity_nbfnet_config(activation="gelu")
     # an edge axis needs the ring: the partitioned path is not ported
@@ -160,19 +156,27 @@ def test_entity_nbfnet_config_raises_on_what_it_does_not_honour(caplog):
         entity_nbfnet_config(compute_dtype="float16")
     with pytest.raises(NotImplementedError, match="learn_query.*item 7"):
         rel_nbfnet_config(learn_query=True)
+    with pytest.raises(ValueError, match="remat"):
+        entity_nbfnet_config(remat="sometimes")
+    with pytest.raises(ValueError, match="stack"):
+        rel_nbfnet_config(stack="loop")
     # inert values build the same config as no value at all
     plain = entity_nbfnet_config()
     assert entity_nbfnet_config(concat_hidden=False, edge_axis="",
                                 ring_exchange="ppermute",
                                 rspmm_impl="pallas") == plain
+    # concat_hidden and the memory policies build the configs they name,
+    # and nothing is logged as not applied
     with caplog.at_level(logging.WARNING):
-        cfg = entity_nbfnet_config(remat="auto", micro_batch=8, stack="scan",
-                                   score_chunk=0)
-    assert cfg == plain
-    logged = " ".join(r.getMessage() for r in caplog.records)
-    for key in ("remat", "micro_batch", "stack"):
-        assert f"{key}=" in logged
-    assert "score_chunk" not in logged and "item 5" in logged
+        cfg = entity_nbfnet_config(concat_hidden=True, remat="auto",
+                                   micro_batch=8, stack="scan",
+                                   score_chunk=4)
+        rel = rel_nbfnet_config(remat="save_rspmm", stack="unroll")
+    assert cfg == dataclasses.replace(plain, concat_hidden=True, remat="auto",
+                                      micro_batch=8, stack="scan",
+                                      score_chunk=4)
+    assert (rel.remat, rel.stack) == ("save_rspmm", "unroll")
+    assert not caplog.records
 
 
 def _smoke_cfg(tmp_path):
@@ -196,7 +200,8 @@ def test_build_engine_raises_on_what_the_port_lacks(tmp_path, edit, match):
     (lambda t: t["rel_models"].update(num_rel_models=2), "item 7"),
     (lambda t: t["rel_models"]["rel_model"].update(class_str="CustomNBFNet"),
      "item 7"),
-    (lambda t: t["model"].update(concat_hidden=True), "item 6"),
+    (lambda t: t["rel_models"]["rel_model"].update(learn_query=True),
+     "item 7"),
 ])
 def test_build_task_raises_on_what_the_port_lacks(tmp_path, edit, match):
     cfg = _smoke_cfg(tmp_path)
@@ -207,20 +212,32 @@ def test_build_task_raises_on_what_the_port_lacks(tmp_path, edit, match):
 
 
 def test_op_raises_name_their_roadmap_items():
-    """Gradients to the edge weights through the kernels' autograd nodes
-    (classic NBFNet's edge-gradient path; the sum's plain CPU route
-    differentiates them) raise with Queue 1 item 6, relation-graph input types other than
-    ``ones`` with Queue 1 item 7."""
+    """Gradients to the edge weights (classic NBFNet's path tools) take the
+    O(E) route, through the max op too, and agree with a central finite
+    difference. Relation-graph input types other than ``ones`` raise with
+    Queue 1 item 7."""
     rng = np.random.default_rng(0)
     V, R, E, F = 9, 2, 30, 4
     tri = np.stack([rng.integers(0, V, E), rng.integers(0, V, E),
                     rng.integers(0, R, E)], 1)
     g = Graph.from_triplets(tri, V, R).prepare_csr(backward=True)
-    w = g.edge_weight.clone().requires_grad_()
-    rel, x = torch.ones((R, F)), torch.ones((V, F), requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        generalized_rspmm(g.edge_index, g.edge_type, w, rel, x, msg="mul",
-                          agg="max", num_nodes=V, csr=g.csr)
+    rel = torch.from_numpy(rng.normal(size=(R, F))).double()
+    x = torch.from_numpy(rng.normal(size=(V, F))).double()
+    cot = torch.from_numpy(rng.normal(size=(V, F))).double()
+
+    def f(w):
+        return (generalized_rspmm(g.edge_index, g.edge_type, w, rel, x,
+                                  msg="mul", agg="max", num_nodes=V,
+                                  csr=g.csr) * cot).sum()
+
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, E)).requires_grad_()
+    (grad,) = torch.autograd.grad(f(w), w)
+    eps = 1e-6
+    with torch.no_grad():
+        fd = torch.stack([(f(w + eps * e) - f(w - eps * e)) / (2 * eps)
+                          for e in torch.eye(E, dtype=w.dtype)])
+    torch.testing.assert_close(grad, fd, rtol=1e-6, atol=1e-6)
+    assert grad.abs().sum() > 0
     assert build_initial_features(g, "ones", 3).eq(1).all()
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
         build_initial_features(g, "ones__rwse", 3)

@@ -382,8 +382,11 @@ def test_eval_batch_size_pins_the_batch(inductive):
         assert set(seen) == {pinned}
         seen.clear()
     assert_metrics_close(tasks[3], tasks[16])
+    # unpinned, the batch is sized to the memory budget: a graph this small
+    # is raised to the cap of 128
     unpinned = InductiveKGTask(ttask.dataset, ttask.model_cfg, device="cpu")
-    assert unpinned._eval_batch_size(64) == 64
+    assert unpinned._resolve_eval_batch(
+        64, unpinned.graphs["test"].num_nodes) == 128
 
 
 def test_inductive_dataset_is_the_jax_one():

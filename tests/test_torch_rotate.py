@@ -73,10 +73,10 @@ from ultra_torchdrug_tpu_torch.models.layers import (
 )
 from ultra_torchdrug_tpu_torch.ops import rspmm_bwd_cuda, rspmm_cuda
 from ultra_torchdrug_tpu_torch.ops.rspmm import (
+    aggregate_edges,
     broadcast_rel_flat,
     generalized_rspmm,
     generalized_rspmm_maxmin,
-    rotate_aggregate,
 )
 from ultra_torchdrug_tpu_torch.tasks.task import ClassicNBFNetTask as TTask
 from ultra_torchdrug_tpu_torch.tasks.task import TaskConfig
@@ -255,7 +255,7 @@ def test_rotate_rejects_what_the_jax_op_rejects(rng):
 
 @pytest.mark.parametrize("agg", ["add", "max", "min", "sq_add"])
 def test_o_e_route_matches_jax(rng, agg):
-    """rotate_aggregate against the JAX package's
+    """aggregate_edges (rotate) against the JAX package's
     _rotate_messages_aggregate, forward and gradients, on a graph with
     duplicated edges, weight-0 edges and all-zero x rows, so that messages
     tie exactly; generalized_rspmm sends max and min there."""
@@ -272,8 +272,8 @@ def test_o_e_route_matches_jax(rng, agg):
                                          jnp.asarray(inp["x"]))
     g = TGraph.from_triplets(inp["tri"], V, R, edge_weight=inp["w"])
     r, x = _t(rel).requires_grad_(), _t(inp["x"]).requires_grad_()
-    got = rotate_aggregate(g.edge_index, g.edge_type, g.edge_weight, r, x,
-                           agg, V)
+    got = aggregate_edges(g.edge_index, g.edge_type, g.edge_weight, r, x,
+                          msg="rotate", agg=agg, num_nodes=V)
     grads = torch.autograd.grad((got * _t(inp["cot"])).sum(), (r, x))
     tol = EXACT if agg in ("max", "min") else SUM_TOL
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **tol)

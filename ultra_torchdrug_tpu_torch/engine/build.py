@@ -15,8 +15,9 @@ that will port it: a data axis (``parallel.data`` or
 (``parallel.relation_edge``) (item 9), ``num_rel_models`` > 1 and the
 shared relation model (item 7), ``engine.steps_per_call`` > 1 (item 7) and
 ``engine.logger: wandb`` (item 8). The model options go through
-``entity_nbfnet_config`` and ``rel_nbfnet_config``, which log the
-memory-only ones as not applied and raise on the rest.
+``entity_nbfnet_config`` and ``rel_nbfnet_config``, which check the
+memory policies (``remat``, ``stack``, ``micro_batch``, ``score_chunk``;
+the task resolves "auto") and raise on what they do not honour.
 """
 
 from __future__ import annotations
@@ -102,7 +103,7 @@ def mesh_scope(cfg: dict, device=None):
 
 def _resolve_score_chunk(cfg_task: dict, m: dict) -> int:
     """`full_batch_eval: no` maps onto score_chunk unless score_chunk is
-    set, as in the JAX package (a memory option the port does not apply)."""
+    set, as in the JAX package."""
     chunk = m.get("score_chunk", cfg_task.get("score_chunk"))
     if chunk is not None:
         return int(chunk)

@@ -17,13 +17,26 @@ graphs were prepared under an edge mesh takes the ring.
 A ``MultiGraphPretrainTask`` trains one graph a step: each step draws its
 graph from the task's edge-count mixture with the engine's numpy
 generator, then a batch of that graph's train triples, in the JAX engine's
-order of draws. Not ported yet: ``steps_per_call``, data parallelism and
-fail-soft OOM demotion (ROADMAP Queue 1 items 7, 9 and 5).
+order of draws. Not ported yet: ``steps_per_call`` and data parallelism
+(ROADMAP Queue 1 items 7 and 9).
+
+Fail-soft: an out-of-memory error on the first step of a graph (or in an
+evaluation) demotes the task's auto memory policies one level
+(``task.demote_policy``) and retries: the first step snapshots the
+parameters, the optimizer's state and the negatives' generator, and a
+retry restores them, so the step it completes is the one that failed. The
+retry runs after the handler has ended, so that the failed step's tensors
+are freed, and after ``torch.cuda.empty_cache()``. Any other error, an
+out-of-memory error after a graph's first step, and one with no level left
+are raised. PyTorch's caching allocator raises at the allocation that does
+not fit, so the error is raised inside the step that caused it (the JAX
+engine can see an asynchronous one late).
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import os
 from typing import Optional, Sequence
 
@@ -34,6 +47,21 @@ from ..parallel.mesh import use_mesh
 from ..tasks.task import MultiGraphPretrainTask
 from ..utils import checkpoint as ckpt_io
 from ..utils.logging import Meter, get_root_logger
+
+
+def _is_oom_error(e: BaseException) -> bool:
+    """A device out-of-memory error: torch's, or one whose message says so
+    as XLA's do (RESOURCE_EXHAUSTED, "out of memory")."""
+    if isinstance(e, torch.cuda.OutOfMemoryError):
+        return True
+    s = str(e)
+    return ("RESOURCE_EXHAUSTED" in s or "Out of memory" in s
+            or "out of memory" in s)
+
+
+def _free_cached_memory(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -134,6 +162,7 @@ class Engine:
         self.epoch = 0
         self.metrics = {}  # split -> the metrics of its last evaluation
         self._is_multigraph = isinstance(task, MultiGraphPretrainTask)
+        self._warmed = set()  # graph ids whose first step completed
 
     def _full_batch(self, edges: np.ndarray, idx: np.ndarray) -> np.ndarray:
         batch = edges[idx]
@@ -184,7 +213,7 @@ class Engine:
             # _full_batch backstops datasets smaller than half a batch
             yield 0, self._full_batch(triples, idx)
 
-    def _run_step(self, graph_id: int, batch: np.ndarray) -> dict:
+    def _step(self, graph_id: int, batch: np.ndarray) -> dict:
         """One optimizer step on graph ``graph_id``'s batch; returns its
         metrics (device tensors)."""
         if self._is_multigraph:
@@ -197,6 +226,43 @@ class Engine:
         metrics["grad_norm"] = global_norm(grads).detach()
         self.optimizer.step(grads)
         return metrics
+
+    def _demote(self, reason: str) -> bool:
+        """Walk the task's auto policies one level down the memory ladder;
+        False when the task has no level left (or no policies)."""
+        if not hasattr(self.task, "demote_policy"):
+            return False
+        if not self.task.demote_policy(reason):
+            return False
+        self.logger.warning(f"device OOM -> demoted the auto policies to "
+                            f"level {self.task._policy_demotion}; retrying")
+        return True
+
+    def _run_step(self, graph_id: int, batch: np.ndarray) -> dict:
+        """``_step`` with fail-soft on the first step of each graph: an
+        out-of-memory error there restores the snapshot taken before it,
+        demotes the policies and retries (the module docstring)."""
+        while True:
+            first = graph_id not in self._warmed
+            if first:
+                snapshot = (copy.deepcopy(self.model.state_dict()),
+                            copy.deepcopy(self.optimizer.state_dict()),
+                            self.generator.get_state())
+            try:
+                metrics = self._step(graph_id, batch)
+                self._warmed.add(graph_id)
+                return metrics
+            except RuntimeError as e:
+                if not (first and _is_oom_error(e)):
+                    raise
+                state, opt_state, rng_state = snapshot
+                self.model.load_state_dict(state)
+                self.optimizer.load_state_dict(opt_state)
+                self.generator.set_state(rng_state)
+                if not self._demote(str(e).splitlines()[0][:200]):
+                    raise
+            # the handler has ended: the failed step's tensors are free
+            _free_cached_memory(self.task.device)
 
     def _mesh_scope(self):
         """The engine's mesh, active; the caller's scope when it has none."""
@@ -221,11 +287,21 @@ class Engine:
     def evaluate(self, split: str, fast_test: Optional[int] = None) -> dict:
         """The task's metrics on ``split``; the scalar ones are logged, and
         all of them (a multi-graph task's ``per_graph`` too) kept in
-        ``metrics[split]``."""
+        ``metrics[split]``. An out-of-memory error demotes the task's
+        policies and evaluates again."""
         self.logger.info(f"Evaluate on {split}")
-        with self._mesh_scope():
-            metrics = self.task.evaluate(self.model, split, self.batch_size,
-                                         fast_test=fast_test)
+        while True:
+            try:
+                with self._mesh_scope():
+                    metrics = self.task.evaluate(self.model, split,
+                                                 self.batch_size,
+                                                 fast_test=fast_test)
+                break
+            except RuntimeError as e:
+                if not (_is_oom_error(e)
+                        and self._demote(str(e).splitlines()[0][:200])):
+                    raise
+            _free_cached_memory(self.task.device)
         printable = {k: v for k, v in metrics.items()
                      if not isinstance(v, dict)}
         self.meter.log_dict(printable, category=f"{split}/epoch {self.epoch}")

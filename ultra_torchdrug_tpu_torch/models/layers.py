@@ -20,13 +20,22 @@ distmult; transe's second moment sums rel² + x², which does not factor
 through the message, so it keeps two sum calls). Rotate routes as the JAX
 package's ``_spmm_raw`` does and never takes the dense route: its sums run
 K8f (backward K8b); its max, min and PNA's second moment take the O(E)
-route of ``rotate_aggregate``. ``compute_dtype="bfloat16"`` routes as
+route of ``aggregate_edges``. ``compute_dtype="bfloat16"`` routes as
 the JAX package's ``_spmm_raw`` and ``spmm_addsq`` do: the sparse distmult
 and transe sums take K1h (backward K2h, transe K3); the dense route, max,
 min and rotate stay fp32; distmult PNA leaves the fused moments pair (fp32
 only) for two K1h sums, (rel, x) and (rel², x²), and keeps K6 for max and
 min. Node states are carried flat, [V, B*D] with b-major features, as in
 the JAX package.
+
+A step is ``conv_aggregate`` (the aggregation kernels' outputs, which
+``remat="save_rspmm"`` keeps: models/nbfnet.py) followed by
+``conv_update`` (the boundary, PNA's statistics, the split linear, layer
+norm and relu, which it recomputes). An edge weight that requires grad
+(classic NBFNet's path tools) sends every aggregation to the O(E) route of
+``aggregate_edges``, each op deciding it for itself (ops/rspmm.py), and
+keeps the sums off the ring, so that gradients reach the edge weights, as
+the JAX package's edge_grad takes its XLA route: no kernel runs there.
 
 Under an active mesh with an edge axis (parallel/mesh.py), a conv with
 ``rspmm_impl="ring"`` and ``edge_axis`` set sends its distmult and transe
@@ -51,11 +60,12 @@ from torch import nn
 from ..nn.core import MLP, layer_norm
 from ..ops.dense import dense_rspmm
 from ..ops.rspmm import (
+    aggregate_edges,
     broadcast_rel_flat,
     generalized_rspmm,
     generalized_rspmm_addsq,
     generalized_rspmm_maxmin,
-    rotate_aggregate,
+    needs_edge_grad,
 )
 from ..parallel.mesh import current_mesh
 from ..parallel.ring_rspmm import ring_rspmm
@@ -128,8 +138,9 @@ def ring_block_domain(cfg: ConvConfig, graph):
 
 def _ring_route(cfg: ConvConfig, graph, block_domain: bool):
     """The ring inputs that this conv's sums take, or None: buckets built
-    with ``permuted_io`` must never meet original-order states."""
-    if not ring_active(cfg):
+    with ``permuted_io`` must never meet original-order states, and an edge
+    weight that requires grad takes the O(E) route instead."""
+    if not ring_active(cfg) or needs_edge_grad(graph.edge_weight):
         return None
     ri = getattr(graph, "ring_inputs", None)
     if ri is None or (ri.permuted_io and not block_domain):
@@ -205,7 +216,7 @@ def conv_apply(layer: GeneralizedRelationalConv, graph, x: torch.Tensor,
                boundary: torch.Tensor, query: Optional[torch.Tensor] = None,
                rel_injected: Optional[torch.Tensor] = None,
                block_domain: bool = False) -> torch.Tensor:
-    """One message-passing step.
+    """One message-passing step: ``conv_aggregate``, then ``conv_update``.
 
     graph: data.Graph (undirected+inverse where applicable), carrying a CSR
       for the sparse route on the card (and for max, pna and rotate on both
@@ -218,45 +229,78 @@ def conv_apply(layer: GeneralizedRelationalConv, graph, x: torch.Tensor,
       (``ring_block_domain``); required for permuted-IO ring buckets
     Returns flat [V, B*output_dim] (or [V, B, output_dim] for 3-D input).
     """
+    flat_in = x.dim() == 2
+    V = x.shape[0]
+    x = x if flat_in else x.reshape(V, -1)
+    boundary = boundary if boundary.dim() == 2 else boundary.reshape(V, -1)
+    aggregates = conv_aggregate(layer, graph, x, query, rel_injected,
+                                block_domain)
+    out = conv_update(layer, graph, x, boundary, aggregates, block_domain)
+    return out if flat_in else out.reshape(V, -1, layer.cfg.output_dim)
+
+
+def conv_aggregate(layer: GeneralizedRelationalConv, graph, x: torch.Tensor,
+                   query: Optional[torch.Tensor] = None,
+                   rel_injected: Optional[torch.Tensor] = None,
+                   block_domain: bool = False) -> tuple:
+    """The aggregation kernels' outputs of one step over flat [V, B*D]
+    states, the ones that ``remat="save_rspmm"`` keeps (the JAX package's
+    ``checkpoint_name(..., "rspmm_out")``): (s,) for sum and mean, (mx,)
+    for max, (s, sq, mx, mn) for pna; the boundary is not folded in yet."""
     cfg = layer.cfg
     rel = _relation_input(layer, query, rel_injected)
     D = cfg.input_dim
-    flat_in = x.dim() == 2
-    V = x.shape[0]
-    B = x.shape[1] // D if flat_in else x.shape[1]
-    x = x if flat_in else x.reshape(V, B * D)
-    boundary = boundary if boundary.dim() == 2 else boundary.reshape(V, -1)
-
+    B = x.shape[1] // D
     msg = _MESSAGES[cfg.message_func]
     rel_flat = broadcast_rel_flat(rel, B)
     base = cfg.aggregate_func.replace("_nobound", "")
-    bounded = not cfg.aggregate_func.endswith("_nobound")
-    if ring_active(cfg):
+    if ring_active(cfg) and not needs_edge_grad(graph.edge_weight):
         _check_ring_aggregation(cfg)
     ring = _ring_route(cfg, graph, block_domain)
     if base == "pna":
-        update = _pna_update(cfg, graph, rel_flat, x, boundary, msg)
-    elif base == "max":
+        return (pna_sums(cfg, graph, rel_flat, x, msg)
+                + _pna_extrema(cfg, graph, rel_flat, x, msg))
+    if base == "max":
         # never the dense route: a max does not decompose into matmuls
-        update = _spmm(graph, rel_flat, x, msg, "max", D, cfg.compute_dtype)
+        return (_spmm(graph, rel_flat, x, msg, "max", D, cfg.compute_dtype),)
+    # sum, mean
+    if ring is not None and msg != "rotate":
+        return (ring_rspmm(graph.edge_weight, ring, rel_flat, x, msg=msg,
+                           compute_dtype=cfg.compute_dtype,
+                           exchange=cfg.ring_exchange),)
+    if (graph.dense_adj is not None and msg != "rotate"
+            and not cfg.edge_axis):
+        # small dense graph (the ULTRA relation graph): per-etype matmuls
+        return (dense_rspmm(graph.dense_adj, rel_flat, x, msg=msg),)
+    return (_spmm(graph, rel_flat, x, msg, "add", D, cfg.compute_dtype),)
+
+
+def conv_update(layer: GeneralizedRelationalConv, graph, x: torch.Tensor,
+                boundary: torch.Tensor, aggregates: tuple,
+                block_domain: bool = False) -> torch.Tensor:
+    """The rest of the step from ``conv_aggregate``'s outputs, the cheap
+    elementwise and dense work that ``remat="save_rspmm"`` recomputes: the
+    boundary folded in, mean's divide, PNA's statistics and scalers, the
+    split linear, layer norm and relu. Flat [V, B*D] in, [V, B*out] out."""
+    cfg = layer.cfg
+    D = cfg.input_dim
+    V = x.shape[0]
+    B = x.shape[1] // D
+    base = cfg.aggregate_func.replace("_nobound", "")
+    bounded = not cfg.aggregate_func.endswith("_nobound")
+    if base == "pna":
+        update = _pna_update(cfg, graph, boundary, *aggregates)
+    elif base == "max":
+        (update,) = aggregates
         if bounded:
             # torch.maximum splits the gradient at ties, as jnp.maximum does
             update = torch.maximum(update, boundary)
     else:  # sum, mean
-        if ring is not None and msg != "rotate":
-            update = ring_rspmm(graph.edge_weight, ring, rel_flat, x,
-                                msg=msg, compute_dtype=cfg.compute_dtype,
-                                exchange=cfg.ring_exchange)
-        elif (graph.dense_adj is not None and msg != "rotate"
-              and not cfg.edge_axis):
-            # small dense graph (the ULTRA relation graph): per-etype matmuls
-            update = dense_rspmm(graph.dense_adj, rel_flat, x, msg=msg)
-        else:
-            update = _spmm(graph, rel_flat, x, msg, "add", D,
-                           cfg.compute_dtype)
+        (update,) = aggregates
         if bounded:
             update = update + boundary
         if base == "mean":
+            ring = _ring_route(cfg, graph, block_domain)
             degree = block_degree(graph, ring if block_domain else None)
             update = update / degree[:, None]
 
@@ -268,17 +312,18 @@ def conv_apply(layer: GeneralizedRelationalConv, graph, x: torch.Tensor,
            + layer.linear.bias)
     if cfg.layer_norm:
         out = layer_norm(layer.layer_norm, out)
-    out = F.relu(out)
-    return out.reshape(V, -1) if flat_in else out
+    return F.relu(out).reshape(V, -1)
 
 
 def _spmm(graph, rel_flat, x, msg, agg, dim, compute_dtype="float32"):
     """The sparse rspmm over flat [V, B*dim] states (``compute_dtype``
     reaches generalized_rspmm, which applies it to the distmult and transe
-    sums only). Rotate, as the JAX package's ``_spmm_raw`` routes it, works
-    on the [V, B, dim] form in fp32: its sum through generalized_rspmm (K8f
-    forward, K8b backward on CUDA tensors), max, min and sq_add (Σ w·m²,
-    PNA's second moment) the O(E) route."""
+    sums only; an edge weight that requires grad takes the O(E) route
+    there). Rotate, as the JAX
+    package's ``_spmm_raw`` routes it, works on the [V, B, dim] form in
+    fp32: its sum through generalized_rspmm (K8f forward, K8b backward on
+    CUDA tensors), max, min and sq_add (Σ w·m², PNA's second moment) the
+    O(E) route."""
     edges = (graph.edge_index, graph.edge_type, graph.edge_weight)
     if msg != "rotate":
         return generalized_rspmm(*edges, rel_flat, x, msg=msg, agg=agg,
@@ -287,51 +332,61 @@ def _spmm(graph, rel_flat, x, msg, agg, dim, compute_dtype="float32"):
     B = x.shape[1] // dim
     rel, x = rel_flat.reshape(-1, B, dim), x.reshape(x.shape[0], B, dim)
     if agg == "sq_add":
-        out = rotate_aggregate(*edges, rel, x, agg, graph.num_nodes)
+        out = aggregate_edges(*edges, rel, x, msg=msg, agg=agg,
+                              num_nodes=graph.num_nodes)
     else:
         out = generalized_rspmm(*edges, rel, x, msg=msg, agg=agg,
                                 num_nodes=graph.num_nodes, csr=graph.csr)
     return out.reshape(graph.num_nodes, -1)
 
 
-def pna_moments(cfg: ConvConfig, graph, rel_flat, x, boundary, msg):
-    """(mean, sq_mean, degree [V, 1]) of each node's in-edge messages, the
-    boundary counting as one more message unless ``pna_nobound``; degree is
-    the weighted in-degree plus one."""
+def pna_sums(cfg: ConvConfig, graph, rel_flat, x, msg):
+    """(s, sq): the sums of each node's in-edge messages and of their
+    squares. Distmult in fp32 takes the fused moments pair (K7); rotate
+    sums the squared message; distmult and
+    transe otherwise sum rel² and x² (transe's convention, which does not
+    factor through the message; for distmult the same sum as the squared
+    message)."""
     D, dtype = cfg.input_dim, cfg.compute_dtype
     if msg == "mul" and dtype == "float32":
-        s, sq = generalized_rspmm_addsq(
+        return generalized_rspmm_addsq(
             graph.edge_index, graph.edge_type, graph.edge_weight, rel_flat, x,
             num_nodes=graph.num_nodes, csr=graph.csr)
-    else:
-        # the fused moments pair is fp32 only: bf16 distmult takes two sums
-        s = _spmm(graph, rel_flat, x, msg, "add", D, dtype)
-        # rotate sums the squared message; distmult and transe sum rel² and
-        # x² (transe's convention, which does not factor through the
-        # message; for distmult the same sum as the squared message)
-        sq = (_spmm(graph, rel_flat, x, msg, "sq_add", D) if msg == "rotate"
-              else _spmm(graph, rel_flat ** 2, x ** 2, msg, "add", D, dtype))
+    # the fused moments pair is fp32 only: bf16 distmult takes two sums
+    s = _spmm(graph, rel_flat, x, msg, "add", D, dtype)
+    sq = (_spmm(graph, rel_flat, x, msg, "sq_add", D) if msg == "rotate"
+          else _spmm(graph, rel_flat ** 2, x ** 2, msg, "add", D, dtype))
+    return s, sq
+
+
+def _pna_extrema(cfg: ConvConfig, graph, rel_flat, x, msg):
+    """(mx, mn): the fused max/min pair (K6), or two O(E) calls for rotate
+    (as in JAX: no fused pair)."""
+    if msg == "rotate":
+        return tuple(_spmm(graph, rel_flat, x, msg, agg, cfg.input_dim)
+                     for agg in ("max", "min"))
+    return generalized_rspmm_maxmin(
+        graph.edge_index, graph.edge_type, graph.edge_weight, rel_flat, x,
+        msg=msg, num_nodes=graph.num_nodes, csr=graph.csr)
+
+
+def pna_moments(cfg: ConvConfig, graph, s, sq, boundary):
+    """(mean, sq_mean, degree [V, 1]) of each node's in-edge messages from
+    ``pna_sums``' (s, sq), the boundary counting as one more message unless
+    ``pna_nobound``; degree is the weighted in-degree plus one."""
     degree = (graph.degree_out() + 1.0)[:, None]
     if cfg.aggregate_func == "pna":
         return (s + boundary) / degree, (sq + boundary ** 2) / degree, degree
     return s / degree, sq / degree, degree
 
 
-def _pna_update(cfg: ConvConfig, graph, rel_flat, x, boundary, msg):
+def _pna_update(cfg: ConvConfig, graph, boundary, s, sq, mx, mn):
     """PNA's update [V, B*12D]: per (b, d) the interleaved [mean, max, min,
     std] of the in-edge messages (with the boundary as one more message
     unless ``pna_nobound``), each times the degree scalers [1, s, 1/s],
     s = log(degree) normalised by its mean over the nodes."""
-    V = x.shape[0]
-    mean, sq_mean, degree = pna_moments(cfg, graph, rel_flat, x, boundary,
-                                        msg)
-    if msg == "rotate":  # no fused pair: two O(E) calls, as in JAX
-        mx = _spmm(graph, rel_flat, x, msg, "max", cfg.input_dim)
-        mn = _spmm(graph, rel_flat, x, msg, "min", cfg.input_dim)
-    else:
-        mx, mn = generalized_rspmm_maxmin(
-            graph.edge_index, graph.edge_type, graph.edge_weight, rel_flat,
-            x, msg=msg, num_nodes=graph.num_nodes, csr=graph.csr)
+    V = boundary.shape[0]
+    mean, sq_mean, degree = pna_moments(cfg, graph, s, sq, boundary)
     if cfg.aggregate_func == "pna":
         # torch.maximum/minimum split the gradient at ties, as jnp's do
         mx = torch.maximum(mx, boundary)

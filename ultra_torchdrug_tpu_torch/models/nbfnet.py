@@ -14,21 +14,45 @@ an active edge mesh with ring buckets on the entity graph
 (``layers.ring_block_domain``), the entity tower carries it in the ring's
 padded block domain, [n * v_block, B*D] rows relabelled when degree-
 balanced: only the boundary scatter and the readout map indices.
+
+Memory policies, applied while gradients are taken (none of them changes a
+result; a task resolves their "auto" values, tasks/task.py):
+
+  * ``remat``: False / "none" keeps every activation; True / "full"
+    checkpoints each layer (torch.utils.checkpoint, non-reentrant: the
+    backward re-runs the layer's aggregation kernel); "save_rspmm" keeps
+    each aggregation's output and checkpoints only the layer's update
+    (layers.conv_update), so the backward re-runs no kernel. An unresolved
+    "auto" acts as "full", as in the JAX package. Skipped under
+    ``edge_grad``.
+  * ``micro_batch``: the entity tower scores the batch in chunks of that
+    many queries, each chunk under one checkpoint, so that one chunk's
+    propagation is alive at a time.
+  * ``score_chunk``: the all-entity scoring head runs over that many entity
+    rows at a time.
+  * ``stack``: the JAX package's choice between lax.scan and an unrolled
+    layer loop; the port runs its layers in a Python loop whatever it says.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import logging
+import functools
 from typing import Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..nn.core import MLP
 from ..ops.rspmm import COMPUTE_DTYPES
-from ..utils.logging import LOGGER_NAME
-from .layers import ConvConfig, GeneralizedRelationalConv, ring_block_domain
+from .layers import (
+    ConvConfig,
+    GeneralizedRelationalConv,
+    conv_aggregate,
+    conv_update,
+    ring_block_domain,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +71,14 @@ class NBFNetConfig:
     rspmm_impl: str = "auto"  # auto (the kernels) | ring (edge mesh only)
     edge_axis: str = ""  # the mesh axis of the edge partition ("" = off)
     ring_exchange: str = "ppermute"  # ppermute | rdma (kernel K9)
+    # the final state is every layer's output side by side (the MLP head
+    # widens to match)
+    concat_hidden: bool = False
+    # the memory policies of the module docstring
+    remat: object = False  # False | "none" | True | "full" | "save_rspmm"
+    stack: str = "auto"  # auto | scan | unroll: no effect in the port
+    micro_batch: int = 0  # 0 = the whole batch at once
+    score_chunk: int = 0  # 0 = every entity row at once
 
     def layer_configs(self):
         dims = [self.input_dim] + list(self.hidden_dims)
@@ -70,25 +102,42 @@ class NBFNetConfig:
         ]
 
 
-# the JAX package's config options that change no result: the port runs
-# every layer stack eagerly with all activations kept (recomputation,
-# batch and scoring chunks are ROADMAP item 5)
-_MEMORY_ONLY = {"remat": (False, None, "none"), "stack": ("auto",),
-                "micro_batch": (0,), "score_chunk": (0,)}
 # options the port reproduces only at the value given, by the ROADMAP item
 # that ports the others
-_FIXED = {"concat_hidden": (False, "item 6"),
-          "learn_query": (False, "item 7")}
+_FIXED = {"learn_query": (False, "item 7")}
 _EXCHANGES = ("ppermute", "rdma")
+REMAT_VALUES = (False, True, None, "none", "full", "save_rspmm", "auto")
+STACK_VALUES = ("auto", "scan", "unroll")
+
+
+def remat_mode(remat) -> str:
+    """How the layer stack applies a ``remat`` value: "none" (False, None,
+    "none"), "save_rspmm", or "full" (True, "full", and an "auto" that no
+    task resolved, as the JAX package's ``_maybe_remat`` reads it)."""
+    if not remat or remat == "none":
+        return "none"
+    return "save_rspmm" if remat == "save_rspmm" else "full"
+
+
+def _check_memory(where: str, remat, stack: str, micro_batch: int,
+                  score_chunk: int):
+    if remat not in REMAT_VALUES:
+        raise ValueError(f"{where}: remat must be one of {REMAT_VALUES}, got "
+                         f"{remat!r}")
+    if stack not in STACK_VALUES:
+        raise ValueError(f"{where}: stack must be one of {STACK_VALUES}, got "
+                         f"{stack!r}")
+    if micro_batch < 0 or score_chunk < 0:
+        raise ValueError(f"{where}: micro_batch and score_chunk must be >= 0, "
+                         f"got {micro_batch} and {score_chunk}")
 
 
 def _check_options(where: str, rspmm_impl: str, options: dict) -> dict:
-    """Apply the JAX package's config options: the memory-only ones are
-    logged as not applied, the fixed ones must have the value the port
-    reproduces, the edge-mesh ones (``edge_axis``, ``ring_exchange``) are
-    checked and returned with ``rspmm_impl`` ("auto" for 'auto' and
-    'pallas', which both take the port's kernels, or "ring"), and anything
-    else raises."""
+    """Apply the JAX package's other config options: the fixed ones must
+    have the value the port reproduces, the edge-mesh ones (``edge_axis``,
+    ``ring_exchange``) are checked and returned with ``rspmm_impl`` ("auto"
+    for 'auto' and 'pallas', which both take the port's kernels, or
+    "ring"), and anything else raises."""
     if rspmm_impl not in ("auto", "pallas", "ring"):
         raise NotImplementedError(
             f"{where}: rspmm_impl={rspmm_impl!r} is not ported (ROADMAP Queue "
@@ -109,19 +158,13 @@ def _check_options(where: str, rspmm_impl: str, options: dict) -> dict:
             "(parallel/sharded_rspmm.py), which is not ported yet (ROADMAP "
             "Queue 1 item 9); rspmm_impl='ring' takes the ring")
     for key, value in options.items():
-        if key in _MEMORY_ONLY:
-            if value not in _MEMORY_ONLY[key]:
-                logging.getLogger(LOGGER_NAME).warning(
-                    "%s: %s=%r changes memory use, not results, and is not "
-                    "applied (ROADMAP Queue 1 item 5)", where, key, value)
-        elif key in _FIXED:
-            want, item = _FIXED[key]
-            if value != want:
-                raise NotImplementedError(
-                    f"{where}: {key}={value!r} is not ported (ROADMAP Queue 1 "
-                    f"{item}); the port runs {key}={want!r}")
-        else:
+        if key not in _FIXED:
             raise TypeError(f"{where}: unknown option {key!r}")
+        want, item = _FIXED[key]
+        if value != want:
+            raise NotImplementedError(
+                f"{where}: {key}={value!r} is not ported (ROADMAP Queue 1 "
+                f"{item}); the port runs {key}={want!r}")
     return dict(rspmm_impl="ring" if rspmm_impl == "ring" else "auto",
                 edge_axis=edge_axis, ring_exchange=ring_exchange)
 
@@ -134,15 +177,16 @@ def _check_dtype(where: str, compute_dtype: str):
 
 def rel_nbfnet_config(input_dim: int = 64, hidden: int = 64,
                       num_layers: int = 6, rspmm_impl: str = "auto",
-                      compute_dtype: str = "float32",
-                      **options) -> NBFNetConfig:
+                      compute_dtype: str = "float32", remat=False,
+                      stack: str = "auto", **options) -> NBFNetConfig:
     """The fixed architecture RelNBFNet instantiates: distmult, sum
     aggregation, layer norm, short-cut, 4 relation types, learned relation
     embeddings. ``options`` are the JAX function's others (``edge_axis``,
-    ``learn_query``, ``remat``, ``stack``, ``ring_exchange``), applied as
-    ``_check_options`` says."""
+    ``learn_query``, ``ring_exchange``), applied as ``_check_options``
+    says."""
     mesh_opts = _check_options("rel_nbfnet_config", rspmm_impl, options)
     _check_dtype("rel_nbfnet_config", compute_dtype)
+    _check_memory("rel_nbfnet_config", remat, stack, 0, 0)
     return NBFNetConfig(
         input_dim=input_dim,
         hidden_dims=(hidden,) * num_layers,
@@ -154,6 +198,8 @@ def rel_nbfnet_config(input_dim: int = 64, hidden: int = 64,
         rel_mode="embedding",
         project=False,
         compute_dtype=compute_dtype,
+        remat=remat,
+        stack=stack,
         **mesh_opts,
     )
 
@@ -166,14 +212,17 @@ def entity_nbfnet_config(input_dim: int = 64,
                          rspmm_impl: str = "auto", short_cut: bool = True,
                          layer_norm: bool = True, num_mlp_layer: int = 2,
                          project: bool = True, compute_dtype: str = "float32",
-                         **options) -> NBFNetConfig:
+                         concat_hidden: bool = False, remat=False,
+                         stack: str = "auto", micro_batch: int = 0,
+                         score_chunk: int = 0, **options) -> NBFNetConfig:
     """The entity tower (TransferNBFNet) with injected relations. The JAX
-    function's other options (``concat_hidden``, ``edge_axis``,
-    ``ring_exchange``, ``remat``, ``stack``, ``micro_batch``,
-    ``score_chunk``) are applied as ``_check_options`` says: the port
-    raises on every option or value it does not honour."""
+    function's other options (``edge_axis``, ``ring_exchange``) are
+    applied as ``_check_options`` says: the port raises on every option or
+    value it does not honour."""
     mesh_opts = _check_options("entity_nbfnet_config", rspmm_impl, options)
     _check_dtype("entity_nbfnet_config", compute_dtype)
+    _check_memory("entity_nbfnet_config", remat, stack, micro_batch,
+                  score_chunk)
     return NBFNetConfig(
         input_dim=input_dim,
         hidden_dims=tuple(hidden_dims),
@@ -186,6 +235,11 @@ def entity_nbfnet_config(input_dim: int = 64,
         rel_mode="injected",
         project=project,
         compute_dtype=compute_dtype,
+        concat_hidden=concat_hidden,
+        remat=remat,
+        stack=stack,
+        micro_batch=int(micro_batch),
+        score_chunk=int(score_chunk),
         **mesh_opts,
     )
 
@@ -200,7 +254,8 @@ class NBFNet(nn.Module):
         self.layers = nn.ModuleList(
             GeneralizedRelationalConv(c) for c in cfg.layer_configs())
         if scoring:
-            feature_dim = cfg.hidden_dims[-1] + cfg.input_dim
+            layers = len(cfg.hidden_dims) if cfg.concat_hidden else 1
+            feature_dim = cfg.hidden_dims[-1] * layers + cfg.input_dim
             self.mlp = MLP(feature_dim,
                            [feature_dim] * (cfg.num_mlp_layer - 1) + [1])
 
@@ -213,22 +268,65 @@ class RelNBFNet(nn.Module):
         super().__init__()
         self.model = NBFNet(cfg)
 
-    def forward(self, rel_graph, query_rels):
-        return rel_nbfnet_apply(self.model, rel_graph, query_rels)
+    def forward(self, rel_graph, query_rels, cfg=None):
+        return rel_nbfnet_apply(self.model, rel_graph, query_rels, cfg)
 
 
 def _propagate(tower: NBFNet, graph, boundary, query=None,
-               rel_injected=None, block_domain=False):
+               rel_injected=None, block_domain=False, cfg=None,
+               edge_grad=False):
     """Run the conv stack from the boundary condition; returns the final flat
-    [V, B*D] hidden state (block-domain rows with ``block_domain``)."""
+    [V, B*D] hidden state (block-domain rows with ``block_domain``), or with
+    ``concat_hidden`` every layer's state side by side per query,
+    [V, B*(L*D)]. ``graph`` is one graph, or a list of one per layer.
+    ``cfg`` (the tower's own by default) gives the short-cut, the concat
+    and the remat policy, which applies while gradients are taken and not
+    under ``edge_grad``."""
+    cfg = cfg or tower.cfg
+    mode = (remat_mode(cfg.remat)
+            if torch.is_grad_enabled() and not edge_grad else "none")
+    graphs = graph if isinstance(graph, (list, tuple)) else [graph] * len(
+        tower.layers)
+    hiddens = []
     x = boundary
-    for layer in tower.layers:
+    for layer, g in zip(tower.layers, graphs):
+        step = functools.partial(_layer_step, layer, cfg, g, boundary=boundary,
+                                 query=query, rel_injected=rel_injected,
+                                 block_domain=block_domain)
+        if mode == "full":
+            h = checkpoint(step, x, use_reentrant=False,
+                           preserve_rng_state=False)
+        elif mode == "save_rspmm":
+            aggregates = conv_aggregate(layer, g, x, query, rel_injected,
+                                        block_domain)
+            h = checkpoint(step, x, *aggregates, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            h = step(x)
+        hiddens.append(h)
+        x = h
+    if cfg.concat_hidden:
+        # per query b the layers' features side by side: concat the
+        # [V, B, *] views, then flatten back
+        V, B = boundary.shape[0], boundary.shape[1] // cfg.input_dim
+        return torch.cat([h.reshape(V, B, -1) for h in hiddens],
+                         dim=-1).reshape(V, -1)
+    return x
+
+
+def _layer_step(layer, cfg, graph, x, *aggregates, boundary, query,
+                rel_injected, block_domain):
+    """One layer (a call of the module) and its short-cut; with
+    ``aggregates`` (conv_aggregate's, computed outside a checkpoint) only
+    the update."""
+    if aggregates:
+        h = conv_update(layer, graph, x, boundary, aggregates, block_domain)
+    else:
         h = layer(graph, x, boundary, query=query, rel_injected=rel_injected,
                   block_domain=block_domain)
-        if tower.cfg.short_cut and h.shape == x.shape:
-            h = h + x
-        x = h
-    return x
+    if cfg.short_cut and h.shape == x.shape:
+        h = h + x
+    return h
 
 
 def _flat_boundary(V, B, D, rows, query):
@@ -239,33 +337,65 @@ def _flat_boundary(V, B, D, rows, query):
     return flat.index_add_(0, idx, query).reshape(V, B * D)
 
 
-def rel_nbfnet_apply(tower: NBFNet, rel_graph, query_rels) -> torch.Tensor:
+def rel_nbfnet_apply(tower: NBFNet, rel_graph, query_rels,
+                     cfg=None) -> torch.Tensor:
     """query_rels: int [B]. Returns [B, num_rel_nodes, D] conditional
-    relation representations."""
+    relation representations; ``cfg`` as for ``_propagate``."""
     B = query_rels.shape[0]
     D = tower.cfg.input_dim
     V = rel_graph.num_nodes
     query = torch.ones((B, D), dtype=torch.float32, device=query_rels.device)
     boundary = _flat_boundary(V, B, D, query_rels, query)
-    out = _propagate(tower, rel_graph, boundary)
+    out = _propagate(tower, rel_graph, boundary, cfg=cfg)
     return out.reshape(V, B, -1).transpose(0, 1)  # [B, V(=2R), D]
 
 
 def entity_nbfnet_score_all(tower: NBFNet, graph, rel_queries,
                             source: torch.Tensor, query_rel: torch.Tensor,
-                            targets: Optional[torch.Tensor] = None
+                            targets: Optional[torch.Tensor] = None,
+                            cfg: Optional[NBFNetConfig] = None
                             ) -> torch.Tensor:
     """Score entities as the target of (source[b], query_rel[b], ?).
 
     graph: undirected+inverse entity graph (2R relation types)
-    rel_queries: [B, 2R, D] per-query relation representations
+    rel_queries: [B, 2R, D] per-query relation representations, or [2R, D]
+      shared by the batch
     source: int [B]; query_rel: int [B] in [0, 2R)
     targets: optional int [B, T] candidates; the head then runs on those
       rows only
+    cfg: the tower's config with the memory policies to apply (the tower's
+      own by default): ``micro_batch``, ``score_chunk`` and, through
+      ``_propagate``, ``remat``
     Returns [B, V] scores, or [B, T] with targets.
     """
+    cfg = cfg or tower.cfg
     B = source.shape[0]
-    query = rel_queries[torch.arange(B, device=source.device), query_rel]
+    mb = cfg.micro_batch
+    if mb and B > mb:
+        if B % mb:
+            raise ValueError(f"batch {B} is not divisible by micro_batch "
+                             f"{mb}")
+        chunk = functools.partial(entity_nbfnet_score_all, tower, graph,
+                                  cfg=dataclasses.replace(cfg, micro_batch=0))
+        grad = torch.is_grad_enabled()
+        outs = []
+        for lo in range(0, B, mb):
+            part = slice(lo, lo + mb)
+            # per-query relation representations are split with the batch,
+            # shared [2R, D] ones are not
+            args = (rel_queries[part] if rel_queries.dim() == 3
+                    else rel_queries, source[part], query_rel[part],
+                    None if targets is None else targets[part])
+            # checkpointed: the backward re-runs one chunk at a time, so
+            # one chunk's propagation is alive at a time
+            outs.append(checkpoint(chunk, *args, use_reentrant=False,
+                                   preserve_rng_state=False)
+                        if grad else chunk(*args))
+        return torch.cat(outs)
+    if rel_queries.dim() == 3:
+        query = rel_queries[torch.arange(B, device=source.device), query_rel]
+    else:
+        query = rel_queries[query_rel]
     V = graph.num_nodes
     # the ring's permuted IO: the propagation runs in the padded block
     # domain; the boundary goes to the relabelled source rows, and the
@@ -280,20 +410,23 @@ def entity_nbfnet_score_all(tower: NBFNet, graph, rel_queries,
                               source if to_new is None else to_new[source],
                               query)
     final = _propagate(tower, graph, boundary, rel_injected=rel_queries,
-                       block_domain=ring is not None)
+                       block_domain=ring is not None, cfg=cfg)
     if targets is not None:
         return score_heads(tower.mlp, final, query,
                            targets if to_new is None else to_new[targets])
-    scores = score_heads(tower.mlp, final, query)  # [B, rows]
+    scores = score_heads(tower.mlp, final, query,
+                         chunk=cfg.score_chunk)  # [B, rows]
     if ring is None:
         return scores
     return scores[:, :V] if to_new is None else scores[:, to_new]
 
 
-def score_heads(mlp: MLP, final, query, targets=None):
+def score_heads(mlp: MLP, final, query, targets=None, chunk: int = 0):
     """The [state ; query] MLP head over a flat final state [V, B*feat]
     with query [B, D]: [B, V] scores, or [B, T] for the candidates
-    ``targets`` [B, T] only (the head then runs on those rows alone)."""
+    ``targets`` [B, T] only (the head then runs on those rows alone). With
+    ``chunk`` > 0 the all-entity head runs over that many rows at a time,
+    so only [chunk, B, *] intermediates are alive at once."""
     B, V = query.shape[0], final.shape[0]
     if targets is not None:
         # flat [V, B*feat] viewed [V*B, feat]: row v*B + b is state(v, b),
@@ -302,7 +435,11 @@ def score_heads(mlp: MLP, final, query, targets=None):
         rows = targets * B + torch.arange(B, device=targets.device)[:, None]
         feats = final.reshape(V * B, feat)[rows]  # [B, T, feat]
         return _mlp_head_targets(mlp, feats, query)
-    return _mlp_head_split(mlp, final.reshape(V, B, -1), query)[..., 0].T
+    step = chunk if 0 < chunk < V else V
+    scores = [_mlp_head_split(mlp, final[lo:lo + step].reshape(
+        -1, B, final.shape[1] // B), query)[..., 0]
+        for lo in range(0, V, step)]  # [rows, B] each
+    return torch.cat(scores).T
 
 
 def _mlp_head_split(mlp: MLP, final, query):

@@ -73,9 +73,9 @@ def ultra_init(cfg: UltraConfig, seed: int = 0, device=None) -> Ultra:
     return model
 
 
-def _rel_queries(model: Ultra, rel_graph, pos_r):
-    """Run the relation tower: [B, 2R, D]."""
-    return model.rel_models[0](rel_graph, pos_r)
+def _rel_queries(model: Ultra, rel_graph, pos_r, cfg=None):
+    """Run the relation tower: [B, 2R, D]; ``cfg`` its memory policies."""
+    return model.rel_models[0](rel_graph, pos_r, cfg)
 
 
 def _mask_easy_edges(cfg: UltraConfig, fact_graph: Graph, h_index, t_index,
@@ -136,14 +136,17 @@ def candidate_triples(pos_h, pos_t, pos_r, neg_index):
 def ultra_train_scores(model: Ultra, fact_graph: Graph, rel_graph: Graph,
                        pos_h, pos_t, pos_r, neg_index,
                        remove_easy: bool = True,
-                       fact_graph_und: Graph = None) -> torch.Tensor:
+                       fact_graph_und: Graph = None,
+                       model_cfg: UltraConfig = None) -> torch.Tensor:
     """Scores for [positive | negatives]: [B, 1 + N].
 
     neg_index: [B, N]; the first half of the rows are corrupted tails, the
     second half corrupted heads. fact_graph_und: the prepared undirected
     graph (edge order [directed; inverse]) whose layouts are reused with the
-    batch's masked weights.
+    batch's masked weights. model_cfg: the memory policies to apply (a
+    task's resolved config; the model's own by default).
     """
+    model_cfg = model_cfg or model.cfg
     h_index, t_index, r_index = candidate_triples(pos_h, pos_t, pos_r,
                                                   neg_index)
     graph = fact_graph
@@ -157,22 +160,27 @@ def ultra_train_scores(model: Ultra, fact_graph: Graph, rel_graph: Graph,
 
     h_index, t_index, r_index = _flip_heads_to_tails(
         h_index, t_index, r_index, fact_graph.num_relations)
-    rel_queries = _rel_queries(model, rel_graph, pos_r)  # [B, 2R, D]
+    rel_queries = _rel_queries(model, rel_graph, pos_r,
+                               model_cfg.relation)  # [B, 2R, D]
     return entity_nbfnet_score_all(
         model.model, graph_und, rel_queries, source=h_index[:, 0],
-        query_rel=r_index[:, 0], targets=t_index)
+        query_rel=r_index[:, 0], targets=t_index, cfg=model_cfg.entity)
 
 
 def ultra_eval_scores(model: Ultra, fact_graph, rel_graph, pos_h, pos_t,
-                      pos_r, fact_graph_und=None):
+                      pos_r, fact_graph_und=None,
+                      model_cfg: UltraConfig = None):
     """All-entity score matrices for tail and head prediction:
-    (t_scores [B, V], h_scores [B, V])."""
+    (t_scores [B, V], h_scores [B, V]); ``model_cfg`` as for
+    ``ultra_train_scores``."""
+    model_cfg = model_cfg or model.cfg
     graph_und = (fact_graph.undirected_with_inverse().prepare_csr()
                  if fact_graph_und is None else fact_graph_und)
-    rel_queries = _rel_queries(model, rel_graph, pos_r)
+    rel_queries = _rel_queries(model, rel_graph, pos_r, model_cfg.relation)
     t_scores = entity_nbfnet_score_all(
-        model.model, graph_und, rel_queries, source=pos_h, query_rel=pos_r)
+        model.model, graph_und, rel_queries, source=pos_h, query_rel=pos_r,
+        cfg=model_cfg.entity)
     h_scores = entity_nbfnet_score_all(
         model.model, graph_und, rel_queries, source=pos_t,
-        query_rel=pos_r + fact_graph.num_relations)
+        query_rel=pos_r + fact_graph.num_relations, cfg=model_cfg.entity)
     return t_scores, h_scores

@@ -26,7 +26,7 @@ real parts in [:D/2] and the imaginary parts in [D/2:].
     segments, ``Csr.segments``, as K1) and K5 backward on CUDA tensors
     (ops/rspmm_pna_cuda.py), their plain versions on CPU tensors. Rows without edges give 0; weight-0 edges send
     the message 0, which takes part. Rotate takes the O(E) route
-    (``rotate_aggregate``) on both devices, as the JAX package does: no TPU
+    (``aggregate_edges``) on both devices, as the JAX package does: no TPU
     kernel exists for it.
 
 PNA's fused pairs, ``generalized_rspmm_maxmin`` (the max and min of the same
@@ -36,10 +36,14 @@ kernels K6/K7 forward (over ``Csr.segments``, as K4) and K6b/K7b
 backward on CUDA tensors, the plain versions on CPU tensors. The max/min nodes give the full gradient to every
 tied edge on both devices, and need the graph's ``Csr`` on both, with
 ``prepare_csr(backward=True)`` for gradients; rotate's O(E) route shares
-the gradient among tied edges, as XLA's segment_max does. Gradients to the
-edge weights (classic NBFNet's edge-gradient path) are not ported yet: an
-edge weight that requires grad raises on CUDA tensors, and for the max/min
-and pair nodes on both devices.
+the gradient among tied edges, as XLA's segment_max does.
+
+Gradients to the edge weights (classic NBFNet's path tools) take the O(E)
+route, ``aggregate_edges``, for every message and aggregation: each op
+goes there when its edge weight requires grad (with grad enabled), as the
+JAX package's ``edge_grad`` takes its XLA segment ops. It materializes
+the [E, F] messages in plain PyTorch; no kernel runs on it, as no Pallas
+kernel runs on the JAX route.
 """
 
 from __future__ import annotations
@@ -64,7 +68,7 @@ from .rspmm_pna_cuda import pna_bwd_cuda, pna_fwd_cuda
 
 __all__ = ["generalized_rspmm", "generalized_rspmm_maxmin",
            "generalized_rspmm_addsq", "broadcast_rel_flat",
-           "rotate_aggregate"]
+           "aggregate_edges", "needs_edge_grad"]
 
 _MODES = {"mul": "mul_rel", "add": "add_rel", "rotate": "rot_rel"}
 _AGGS = ("add", "max", "min")
@@ -148,10 +152,11 @@ def generalized_rspmm(edge_index, edge_type, edge_weight, relation, x, *,
     and min and for bf16 sums, on both devices (``prepare_csr(backward=True)``
     for gradients). compute_dtype: "float32", or "bfloat16" for the distmult
     and transe sums (K1h, K2h): operands rounded to bf16, fp32 sums and
-    output. Returns the layout of x with num_nodes rows. On CUDA, gradients
-    flow to relation and x; an edge_weight that requires grad raises (the
-    edge-gradient path of classic NBFNet is not ported yet). Rotate max and
-    min take the O(E) route on both devices and need no CSR.
+    output. Returns the layout of x with num_nodes rows. Gradients flow to
+    relation and x; with an edge weight that requires grad the op takes the
+    O(E) route (``aggregate_edges``, fp32, no CSR needed) and the gradient
+    flows to the edge weights too. Rotate max and min take the O(E) route
+    on both devices and need no CSR.
     """
     if msg not in _MODES:
         raise ValueError(f"msg must be one of {tuple(_MODES)}, got {msg!r}")
@@ -166,11 +171,11 @@ def generalized_rspmm(edge_index, edge_type, edge_weight, relation, x, *,
         if x.dim() != 3 or x.shape[-1] % 2:
             raise ValueError("rotate needs [V, B, D] inputs with even D "
                              "(D blocks store re in [:D/2], im in [D/2:])")
-        if agg != "add":
-            return rotate_aggregate(edge_index, edge_type, edge_weight,
-                                    relation, x, agg, num_nodes)
         dim = x.shape[-1]
-    elif agg != "add":
+    if agg != "add" and msg == "rotate" or needs_edge_grad(edge_weight):
+        return aggregate_edges(edge_index, edge_type, edge_weight, relation,
+                               x, msg=msg, agg=agg, num_nodes=num_nodes)
+    if agg != "add":
         (out,) = _gated(agg, edge_weight, relation, x, mode, num_nodes, csr)
         return out
     xf, rel, unflat = _flat_operands(relation, x, num_nodes)
@@ -179,7 +184,7 @@ def generalized_rspmm(edge_index, edge_type, edge_weight, relation, x, *,
         out = rspmm_plain_edges(edge_index[:, 0], edge_index[:, 1], edge_type,
                                 edge_weight, rel, xf, mode, num_nodes, dim)
     else:
-        _check_graph(csr, edge_weight, num_nodes)
+        _check_graph(csr, num_nodes)
         args = (csr, edge_weight.contiguous(), rel.contiguous(),
                 xf.contiguous())
         out = (_RspmmRotate.apply(*args, dim) if msg == "rotate"
@@ -187,21 +192,34 @@ def generalized_rspmm(edge_index, edge_type, edge_weight, relation, x, *,
     return unflat(out)
 
 
-def rotate_aggregate(edge_index, edge_type, edge_weight, relation, x,
-                     agg: str, num_nodes: int) -> torch.Tensor:
-    """Rotate messages materialized per edge and reduced by destination, on
-    both devices: the O(E) route of the JAX package
-    (models/layers.py::_rotate_messages_aggregate, ops/rspmm.py::_rspmm_xla),
-    which runs no TPU kernel, so none is ported for it. x [V, B, D] with
-    even D; relation [R, D] or [R, B, D]. agg "add", "max" or "min" reduces
-    m · w (rows without edges 0; tied edges share the gradient, as XLA's
-    segment_max does); "sq_add" reduces
-    m · m · w over the unweighted message m, PNA's second moment."""
+def needs_edge_grad(edge_weight: torch.Tensor) -> bool:
+    """Whether an op takes the O(E) route: its edge weight needs a gradient,
+    which the kernels' autograd nodes do not give."""
+    return edge_weight.requires_grad and torch.is_grad_enabled()
+
+
+def aggregate_edges(edge_index, edge_type, edge_weight, relation, x, *,
+                    msg: str, agg: str, num_nodes: int) -> torch.Tensor:
+    """Messages materialized per edge and reduced by destination, on both
+    devices: the O(E) route of the JAX package (ops/rspmm.py::_rspmm_xla,
+    models/layers.py::_rotate_messages_aggregate), which runs no TPU kernel,
+    so none is ported for it. Differentiable in every operand, the edge
+    weights included. x flat [V, F] with relation [R, F], or [V, B, D] with
+    relation [R, D] or [R, B, D] (rotate: this form only, even D). agg
+    "add", "max" or "min" reduces m · w (rows without edges 0; tied edges
+    share the gradient, as XLA's segment_max does); "sq_add" reduces
+    m · m · w over the unweighted message m, rotate PNA's second moment."""
     rel_e = relation.index_select(0, edge_type)
-    if rel_e.dim() == 2:
+    x_e = x.index_select(0, edge_index[:, 0])
+    if rel_e.dim() < x_e.dim():
         rel_e = rel_e[:, None, :]
-    m = rotate_product(rel_e, x.index_select(0, edge_index[:, 0]))
-    w = edge_weight[:, None, None]
+    if msg == "mul":
+        m = rel_e * x_e
+    elif msg == "add":
+        m = rel_e + x_e
+    else:
+        m = rotate_product(rel_e, x_e)
+    w = edge_weight.reshape((-1,) + (1,) * (m.dim() - 1))
     m = m * m * w if agg == "sq_add" else m * w
     shape, dst = (num_nodes,) + tuple(m.shape[1:]), edge_index[:, 1]
     if agg in ("add", "sq_add"):
@@ -210,8 +228,8 @@ def rotate_aggregate(edge_index, edge_type, edge_weight, relation, x,
     # with include_self=False: start at ∓inf, never a message, then give
     # rows without edges 0 as segment_max's caller does
     out = m.new_full(shape, -math.inf if agg == "max" else math.inf)
-    out = out.scatter_reduce(0, dst[:, None, None].expand_as(m), m,
-                             _REDUCE[agg], include_self=False)
+    index = dst.reshape((-1,) + (1,) * (m.dim() - 1)).expand_as(m)
+    out = out.scatter_reduce(0, index, m, _REDUCE[agg], include_self=False)
     return torch.where(torch.isfinite(out), out, 0.0)
 
 
@@ -225,17 +243,13 @@ def _flat_operands(relation, x, num_nodes):
     return xf, rel, lambda out: out.reshape(num_nodes, *x.shape[1:])
 
 
-def _check_graph(csr, edge_weight, num_nodes):
+def _check_graph(csr, num_nodes):
     if csr is None:
         raise ValueError("the kernels and their plain versions need the "
                          "graph's CSR (Graph.prepare_csr)")
     if csr.rowptr.numel() != num_nodes + 1:
         raise ValueError(f"CSR has {csr.rowptr.numel() - 1} rows, "
                          f"expected {num_nodes}")
-    if edge_weight.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "gradients to edge weights (classic NBFNet's edge-gradient "
-            "path, ROADMAP Queue 1 item 6) are not ported yet")
 
 
 class _RspmmGated(torch.autograd.Function):
@@ -275,7 +289,7 @@ class _RspmmGated(torch.autograd.Function):
 
 def _gated(kind, edge_weight, relation, x, mode, num_nodes, csr):
     xf, rel, unflat = _flat_operands(relation, x, num_nodes)
-    _check_graph(csr, edge_weight, num_nodes)
+    _check_graph(csr, num_nodes)
     outs = _RspmmGated.apply(kind, csr, edge_weight.contiguous(),
                              rel.contiguous(), xf.contiguous(), mode)
     return tuple(unflat(o) for o in outs)
@@ -290,12 +304,19 @@ def generalized_rspmm_maxmin(edge_index, edge_type, edge_weight, relation,
     devices (edge_index and edge_type, the JAX signature's, are carried by
     it), and the backward (K6b) needs ``prepare_csr(backward=True)``.
     Gradients flow to relation and x; every edge whose message ties with the
-    extremum gets the full gradient. Returns (out_max, out_min)."""
+    extremum gets the full gradient. With an edge weight that requires
+    grad the pair is two calls of the O(E) route, as in the JAX package.
+    Returns (out_max, out_min)."""
     if msg not in ("mul", "add"):
         raise ValueError(
             f"msg={msg!r}: the fused max/min pair has mul and add (rotate "
             "takes generalized_rspmm's O(E) route twice, as in the JAX "
             "package)")
+    if needs_edge_grad(edge_weight):
+        return tuple(aggregate_edges(edge_index, edge_type, edge_weight,
+                                     relation, x, msg=msg, agg=agg,
+                                     num_nodes=num_nodes)
+                     for agg in ("max", "min"))
     return _gated("maxmin", edge_weight, relation, x, _MODES[msg], num_nodes,
                   csr)
 
@@ -304,5 +325,12 @@ def generalized_rspmm_addsq(edge_index, edge_type, edge_weight, relation, x,
                             *, num_nodes: int, csr=None):
     """PNA's moments of the same distmult messages: (Σ w·(rel ⊙ x),
     Σ w·(rel ⊙ x)²) in one fused pass (K7 on CUDA, K7b for the backward).
-    Shapes and ``csr`` as for generalized_rspmm_maxmin. Returns (s, sq)."""
+    Shapes, ``csr`` and the O(E) route as for generalized_rspmm_maxmin
+    (the second moment then sums rel² ⊙ x², the same sum). Returns
+    (s, sq)."""
+    if needs_edge_grad(edge_weight):
+        return tuple(aggregate_edges(edge_index, edge_type, edge_weight, r,
+                                     xx, msg="mul", agg="add",
+                                     num_nodes=num_nodes)
+                     for r, xx in ((relation, x), (relation ** 2, x ** 2)))
     return _gated("addsq", edge_weight, relation, x, "mul_rel", num_nodes, csr)

@@ -20,12 +20,27 @@ metrics. ``evaluate`` scores each (h, r, ?) and (?, r, t) query against
 every entity and turns the filtered ranks (or, with ``toy_eval``, the ranks
 among 50 sampled negatives) into metrics, eagerly under
 ``torch.inference_mode()``.
+
+The memory policies (models/nbfnet.py) set to "auto" are resolved against
+a memory budget, as the JAX package resolves them: the device's memory
+(``_device_bytes``) halved once per fail-soft demotion level
+(``demote_policy``, which the engine calls after an out-of-memory error).
+``remat="auto"`` takes the cheapest tier whose modelled peak fits 0.7 of
+the budget: keep everything, then ``save_rspmm``, then full recomputation;
+``auto_micro_batch`` then halves the entity tower's batch chunk while the
+saved layer inputs exceed ``_MB_BUDGET_FRACTION`` of the budget; the eval
+batch (``eval_batch_size: None``) is the largest power of two whose
+modelled state fits 0.75 of the budget, at most 128. The loss and eval
+functions resolve the policies at every call (the JAX package resolves
+them when it traces, and must re-trace after a demotion), so a demotion
+takes effect at the next call and no prepared graph is rebuilt.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import logging
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -50,6 +65,7 @@ from ..models.ultra import (
 from ..ops.match import head_truth_mask, tail_truth_mask
 from ..ops.sampling import strict_negatives
 from ..parallel.mesh import current_mesh
+from ..utils.logging import LOGGER_NAME
 from .kg import (
     bce_self_adversarial,
     cross_entropy_positive,
@@ -84,9 +100,8 @@ class TaskConfig:
     fact_ratio: Optional[float] = None
     metric_per_rel: bool = False
     toy_eval: bool = False  # rank among 50 sampled negatives
-    # pins the eval batch; None evaluates at the caller's (the engine's)
-    # batch size. The JAX package sizes None to its device's memory
-    # (ROADMAP Queue 1 item 5); rankings do not depend on the batch size
+    # pins the eval batch; None sizes it to the memory budget
+    # (_TaskBase._resolve_eval_batch). Rankings do not depend on it
     eval_batch_size: Optional[int] = None
 
 
@@ -111,26 +126,183 @@ def _degree_weights(train: np.ndarray, num_entities: int, num_relations: int):
     return deg_hr, deg_tr
 
 
+# the memory budget on the CPU, where no device reports one: the JAX
+# package's fallback figure (tests set it with monkeypatch)
+CPU_BUDGET_BYTES = 16 << 30
+
+
+def _device_bytes(device) -> int:
+    """The memory the auto policies size against: the card's total memory,
+    or CPU_BUDGET_BYTES for the CPU (a budget, not a measurement)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return int(torch.cuda.get_device_properties(device).total_memory)
+    return CPU_BUDGET_BYTES
+
+
+# The peak models below are in units of one flat [V, B*D] fp32 state of the
+# propagation graph (V nodes, batch B, width D), fitted to
+# torch.cuda.max_memory_allocated above the resident graphs and weights, on
+# an NVIDIA H100 80GB HBM3 at 700 W (diagnostics/policy_memory.py: ULTRA
+# 6x64, one train step at batch 64 with 128 negatives, eval batches of 16
+# and 64, on generated graphs with FB15k-237's, WN18RR's and ATOMIC's
+# counts). Each constant takes the largest of the graphs' readings.
+# keep-everything training peak, units a layer: FB15k-237 28.51 / 6 = 4.752
+# (WN18RR 4.375; ATOMIC out of memory)
+_FULL_SAVE_PEAK_FACTOR = 4.752
+# save_rspmm training peak: 2 units a layer (each layer keeps its input and
+# its aggregation's output) plus a working set: FB15k-237 19.35 - 12 = 7.35
+# (WN18RR 5.09; ATOMIC out of memory)
+_SAVE_RSPMM_UNITS_PER_LAYER = 2.0
+_SAVE_RSPMM_UNITS_BASE = 7.35
+# full recomputation's training peak, units a layer: FB15k-237 13.83 / 6 =
+# 2.305 (WN18RR 2.011, ATOMIC 2.006: 55.9 GiB). auto_micro_batch lets the
+# saved layer inputs (L units) take 0.7 / 2.305 of the budget, so that the
+# peak they stand for stays within 0.7 of it, as for the other tiers
+_MB_BUDGET_FRACTION = 0.3036
+# eval: the peak's growth a query, in [V, D] fp32 units: FB15k-237 11.10
+# (WN18RR 11.02, ATOMIC 11.01) from batches of 16 and 64
+_EVAL_STATE_COPIES = 11.10
+_EVAL_BATCH_RAISE_CAP = 128  # the auto eval batch never exceeds this
+
+
+def _save_rspmm_units(num_layers: int) -> float:
+    return (_SAVE_RSPMM_UNITS_PER_LAYER * num_layers
+            + _SAVE_RSPMM_UNITS_BASE)
+
+
+def auto_micro_batch(model_cfg: UltraConfig, num_nodes: int, batch: int,
+                     budget_bytes: int) -> UltraConfig:
+    """The entity tower's micro-batch for ``batch`` queries on a graph of
+    ``num_nodes`` nodes: with full recomputation the backward still keeps
+    one flat [V, B*D] fp32 input a layer; while those exceed
+    _MB_BUDGET_FRACTION of ``budget_bytes``, halve the chunk (while it
+    divides the batch). An explicit micro_batch, a batch of one, and a
+    batch whose inputs fit keep the config as it is."""
+    ent = model_cfg.entity
+    if ent.micro_batch or batch <= 1:
+        return model_cfg
+    layers, dim = len(ent.hidden_dims), ent.input_dim
+    budget = _MB_BUDGET_FRACTION * budget_bytes
+
+    def carry_bytes(b):
+        return layers * num_nodes * b * dim * 4
+
+    if carry_bytes(batch) <= budget:
+        return model_cfg
+    mb = batch
+    while mb > 1 and carry_bytes(mb) > budget and batch % (mb // 2) == 0:
+        mb //= 2
+    if mb == batch:
+        return model_cfg  # an odd batch: no chunk divides it
+    return dataclasses.replace(
+        model_cfg, entity=dataclasses.replace(ent, micro_batch=mb))
+
+
 class _TaskBase:
     model_cfg: UltraConfig
     cfg: TaskConfig
     device: torch.device
 
+    # fail-soft: each demotion level halves the budget that every auto
+    # policy sizes against, which walks the training policy one tier down
+    # (keep everything -> save_rspmm -> full recomputation -> halved
+    # micro-batches) and shrinks the auto eval batch; pinned values stay
+    _policy_demotion = 0
+    _MAX_POLICY_DEMOTION = 6
+
     def init_params(self, seed: int = 0):
         """A freshly initialized model on the task's device."""
         return ultra_init(self.model_cfg, seed, self.device)
 
+    def _budget_bytes(self) -> int:
+        return _device_bytes(self.device) >> self._policy_demotion
+
+    def demote_policy(self, reason: str = "") -> bool:
+        """Halve the budget of the auto policies; the next loss or eval call
+        resolves them against it. False when the ladder is exhausted."""
+        if self._policy_demotion >= self._MAX_POLICY_DEMOTION:
+            return False
+        self._policy_demotion += 1
+        logging.getLogger(LOGGER_NAME).warning(
+            "policy demotion -> level %d (budget %.1f GiB)%s",
+            self._policy_demotion, self._budget_bytes() / 2**30,
+            f": {reason}" if reason else "")
+        return True
+
+    def _resolve_model_cfg(self, fact_graph, batch: int = 64) -> UltraConfig:
+        """The model config with ``remat="auto"`` and ``stack="auto"``
+        resolved for ``batch`` queries on ``fact_graph`` (its node count):
+        per tower the first tier whose modelled peak fits 0.7 of the budget,
+        keep everything (False), then "save_rspmm", else full recomputation
+        (True); the relation tower sizes against the relation graph's 2R
+        nodes. ``stack`` resolves to "scan", as the JAX package does off the
+        TPU (it changes nothing in the port)."""
+        cfg = self.model_cfg
+        budget = 0.7 * self._budget_bytes()
+
+        def resolve(tower, num_nodes):
+            layers = len(tower.hidden_dims)
+            unit = num_nodes * batch * tower.input_dim * 4
+            if _FULL_SAVE_PEAK_FACTOR * layers * unit <= budget:
+                return False
+            if _save_rspmm_units(layers) * unit <= budget:
+                return "save_rspmm"
+            return True
+
+        towers = {}
+        for name, num_nodes in (("entity", fact_graph.num_nodes),
+                                ("relation", cfg.entity.num_relations)):
+            tower = getattr(cfg, name)
+            changes = {}
+            if tower.remat == "auto":
+                changes["remat"] = resolve(tower, num_nodes)
+            if tower.stack == "auto":
+                changes["stack"] = "scan"
+            towers[name] = (dataclasses.replace(tower, **changes) if changes
+                            else tower)
+        if all(towers[n] is getattr(cfg, n) for n in towers):
+            return cfg
+        return dataclasses.replace(cfg, **towers)
+
+    def _train_model_cfg(self, fact_graph, batch: int) -> UltraConfig:
+        """The policies a loss step of ``batch`` queries on ``fact_graph``
+        runs: the resolved remat, then the auto micro-batch."""
+        return auto_micro_batch(self._resolve_model_cfg(fact_graph, batch),
+                                fact_graph.num_nodes, batch,
+                                self._budget_bytes())
+
+    def _resolve_eval_batch(self, requested: int, num_nodes: int) -> int:
+        """The eval batch: ``eval_batch_size`` when the config pins it, else
+        the largest power of two whose modelled forward state
+        (_EVAL_STATE_COPIES [V, D] fp32 units a query) fits 0.75 of the
+        budget, at most max(``requested``, _EVAL_BATCH_RAISE_CAP)."""
+        if self.cfg.eval_batch_size:
+            return int(self.cfg.eval_batch_size)
+        per_query = (_EVAL_STATE_COPIES * num_nodes
+                     * self.model_cfg.entity.input_dim * 4)
+        fit = max(1, int(0.75 * self._budget_bytes() / per_query))
+        cap = min(fit, max(requested, _EVAL_BATCH_RAISE_CAP))
+        b = 1
+        while b * 2 <= cap:
+            b *= 2
+        return b
+
     # scoring hooks: ULTRA here; ClassicNBFNetTask overrides them
     def _train_scores(self, model, fact_graph, rel_graph, h, t, r, neg,
-                      fact_und):
-        """[B, 1 + N] scores of each query's positive and negatives."""
+                      fact_und, model_cfg=None):
+        """[B, 1 + N] scores of each query's positive and negatives, under
+        the memory policies of ``model_cfg`` (the task's by default)."""
         return ultra_train_scores(model, fact_graph, rel_graph, h, t, r, neg,
-                                  fact_graph_und=fact_und)
+                                  fact_graph_und=fact_und,
+                                  model_cfg=model_cfg or self.model_cfg)
 
-    def _eval_scores(self, model, fact_graph, rel_graph, h, t, r, fact_und):
+    def _eval_scores(self, model, fact_graph, rel_graph, h, t, r, fact_und,
+                     model_cfg=None):
         """All-entity (tail [B, V], head [B, V]) scores."""
         return ultra_eval_scores(model, fact_graph, rel_graph, h, t, r,
-                                 fact_graph_und=fact_und)
+                                 fact_graph_und=fact_und,
+                                 model_cfg=model_cfg or self.model_cfg)
 
     def _prepare_graphs(self, fact_graph: Graph, rel_graph: Graph,
                         backward: bool = False):
@@ -199,8 +371,9 @@ class _TaskBase:
                 neg = torch.randint(0, num_nodes,
                                     (batch.shape[0], cfg.num_negative),
                                     generator=generator, device=batch.device)
-            scores = self._train_scores(model, fact_graph, rel_graph, h, t, r,
-                                        neg, fact_und)
+            scores = self._train_scores(
+                model, fact_graph, rel_graph, h, t, r, neg, fact_und,
+                model_cfg=self._train_model_cfg(fact_graph, batch.shape[0]))
             loss = _criterion_loss(cfg, scores, sample_weight)
             metrics = {"loss": loss.detach(),
                        "pos_score": scores[:, 0].detach().mean(),
@@ -226,7 +399,8 @@ class _TaskBase:
         def eval_fn(model, batch, generator=None):
             h, t, r = batch[:, 0], batch[:, 1], batch[:, 2]
             t_scores, h_scores = self._eval_scores(
-                model, fact_graph, rel_graph, h, t, r, fact_und)
+                model, fact_graph, rel_graph, h, t, r, fact_und,
+                model_cfg=self._resolve_model_cfg(fact_graph))
             t_truth = tail_truth_mask(filter_edges, h, r, V)
             h_truth = head_truth_mask(filter_edges, t, r, V)
             if cfg.toy_eval:
@@ -279,10 +453,6 @@ class _TaskBase:
             return np.zeros((0, 2), dtype), np.zeros((0, 2), np.float32)
         return tuple(torch.cat([x[:k] for x, k in zip(xs, keeps)]).cpu().numpy()
                      for xs in (rankings, cands))
-
-    def _eval_batch_size(self, batch_size: int) -> int:
-        """``eval_batch_size`` when the config pins it, else ``batch_size``."""
-        return int(self.cfg.eval_batch_size or batch_size)
 
     def _metrics_from_rankings(self, ranking: np.ndarray,
                                num_cand: np.ndarray,
@@ -354,8 +524,9 @@ class TransductiveKGTask(_TaskBase):
         """Filtered-ranking metrics of ``model`` on a split; ``fast_test``
         keeps a seeded random subset of that many triples."""
         triples = self._fast_subset(self.eval_triples(split), fast_test)
-        ranking, cand = self._run_eval(self._eval_fn, model, triples,
-                                       self._eval_batch_size(batch_size))
+        ranking, cand = self._run_eval(
+            self._eval_fn, model, triples,
+            self._resolve_eval_batch(batch_size, self.fact_graph.num_nodes))
         rel = np.stack([triples[:, 2], triples[:, 2] + self.num_relations], 1)
         return self._metrics_from_rankings(ranking, cand, rel)
 
@@ -435,8 +606,10 @@ class InductiveKGTask(_TaskBase):
         split's graph; per relation (``metric_per_rel``) both directions
         count under the base relation."""
         triples = self._fast_subset(self.eval_triples(split), fast_test)
-        ranking, cand = self._run_eval(self.eval_fn(split), model, triples,
-                                       self._eval_batch_size(batch_size))
+        ranking, cand = self._run_eval(
+            self.eval_fn(split), model, triples,
+            self._resolve_eval_batch(batch_size,
+                                     self.graphs[split].num_nodes))
         rel = np.stack([triples[:, 2], triples[:, 2]], 1)
         return self._metrics_from_rankings(ranking, cand, rel)
 
@@ -510,9 +683,10 @@ class MultiGraphPretrainTask(_TaskBase):
                 self._eval_fns[gid] = self._build_eval_fn(
                     self.fact_graphs[gid], self.rel_graphs[gid],
                     self.graphs[gid])
-            ranking, cand = self._run_eval(self._eval_fns[gid], model,
-                                           triples,
-                                           self._eval_batch_size(batch_size))
+            ranking, cand = self._run_eval(
+                self._eval_fns[gid], model, triples,
+                self._resolve_eval_batch(batch_size,
+                                         self.fact_graphs[gid].num_nodes))
             per_graph[name] = self._metrics_from_rankings(ranking, cand, None)
         metrics = list(per_graph.values())
         avg = {k: float(np.mean([m[k] for m in metrics]))
@@ -544,8 +718,10 @@ class ClassicNBFNetTask(TransductiveKGTask):
         und = fact_graph.undirected_with_inverse().prepare_csr(backward)
         return und.to(self.device), rel_graph
 
+    # as in the JAX package, classic NBFNet runs the config's own policies:
+    # the resolved ones (model_cfg) are not read
     def _train_scores(self, model, fact_graph, rel_graph, h, t, r, neg,
-                      fact_und):
+                      fact_und, model_cfg=None):
         h_index, t_index, r_index = candidate_triples(h, t, r, neg)
         graph = _mask_easy_edges(self.model_cfg, fact_graph, h_index,
                                  t_index, r_index)
@@ -557,7 +733,8 @@ class ClassicNBFNetTask(TransductiveKGTask):
         return classic_score_all(model, graph_und, h_index[:, 0],
                                  r_index[:, 0], targets=t_index)
 
-    def _eval_scores(self, model, fact_graph, rel_graph, h, t, r, fact_und):
+    def _eval_scores(self, model, fact_graph, rel_graph, h, t, r, fact_und,
+                     model_cfg=None):
         t_scores = classic_score_all(model, fact_und, h, r)
         h_scores = classic_score_all(model, fact_und, t,
                                      r + fact_graph.num_relations)
