@@ -3,7 +3,7 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py                # on a machine with the card
-    python3 chip_smoke.py --device cpu   # rehearsal of phases 1b-40, small
+    python3 chip_smoke.py --device cpu   # rehearsal of phases 1b-45, small
 
 Phases, each of which raises on failure (the script then exits nonzero):
 
@@ -234,7 +234,8 @@ Phases, each of which raises on failure (the script then exits nonzero):
               triples at the auto eval batch (ms a batch, peak), and the
               first 16 queries ranked at it and at a pinned 16 (equal but
               within a score tie of 1e-5).
-    39. failsoft  the process capped at 0.6 of phase 37's keep-everything
+    39. failsoft  in a process of its own (--failsoft), on the same seeded
+              KG, capped at 0.6 of phase 37's keep-everything
               step peak (set_per_process_memory_fraction) while the budget
               reads the whole card: a fresh task (remat: auto) and engine's
               first step runs out of memory, demotes at least once and
@@ -248,6 +249,28 @@ Phases, each of which raises on failure (the script then exits nonzero):
               the port's CPU run (gradients 1e-4 norm-wise per layer, the
               top path equal, path weights 1e-4); one concat_hidden eval
               batch (K6, K7 12 times each) against the CPU run (1e-5).
+    41. towers  ULTRA 6x64 with num_rel_models 7 (one relation tower per
+              entity layer plus one) on the same KG: evaluation (K1 12 times
+              per batch, the towers on cuBLAS), its device time and the
+              relation towers' share, scores against the CPU (1e-4); one
+              train step at batch 64 x 128 negatives (K1, K2 6 times), its
+              device time, loss and gradients against the CPU (1e-5, 1e-4).
+    42. options  phase 41's readings for the shared relation model
+              (CustomNBFNet), the learned query and activation gelu, each
+              alone with one relation tower.
+    43. xla   rspmm_impl xla against the kernel route on the same card and
+              weights: an ULTRA eval batch of 16 (1e-4) and a train step at
+              batch 8 (loss 1e-5, gradients 1e-4), no kernel launched on
+              xla; a classic distmult/max eval batch (1e-5, no K4); ms,
+              device ms and peak memory of each beside the kernel route's.
+    44. steps_per_call  8 steps with K = 4 against K = 1 from one seed
+              (parameters within 1e-5; bitwise equality is logged), ms per
+              step both ways; pre-training on three generated graphs with
+              K = 3 and 5 batches an epoch takes 6 steps.
+    45. towers .pth  phase 41's model exported and loaded into a fresh
+              engine: bitwise the same scores; run_full.main on a copy of
+              config/transductive/inference.yaml with num_rel_models 7 and
+              the file as its checkpoint.
 
 The phases that time evaluation (2, 6-24, 26-29, 32-33) pin the eval
 batch to 16; the CLI runs and pre-training's evaluation take the auto
@@ -256,7 +279,7 @@ policies its remat: auto resolves to.
 
 The last lines are a JSON object with one entry per kernel (K1, K2, K6,
 K7, K6b, K7b, K3, K4, K5, K8f, K8b, K1h, K2h, K9; launches summed over the
-measured runs of phases 2-40, by path in ``launches_by_path``; the staged
+measured runs of phases 2-45, by path in ``launches_by_path``; the staged
 backward kernels' layouts under ``plan``; P1 and P2 with full's numbers
 and their launches in the tools' runs of phase 1b),
 then {"ok": true, "device": {...}}. With no card the script prints no
@@ -2584,6 +2607,14 @@ def phase_clip_crossings(task, model, device, label: str):
             f"{int(b.sum())} on cpu, {int((a != b).sum())} on one only")
 
 
+def release_device_memory() -> None:
+    """Collect the Python garbage that holds device tensors (tasks'
+    closures hold them in cycles) and return the cache's free segments."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 def make_engine(task, size: dict, label: str, **opt):
     """An Engine over ``task`` at ``size``'s batch, logging nowhere."""
     from ultra_torchdrug_tpu_torch.engine.engine import Engine
@@ -2689,8 +2720,10 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
-        help="cpu rehearses phases 1b-40 at a reduced size with the plain "
+        help="cpu rehearses phases 1b-45 at a reduced size with the plain "
              "versions and reports no result")
+    parser.add_argument("--failsoft", nargs=3, help=argparse.SUPPRESS,
+                        metavar=("LOSS", "PEAK_GIB", "OUT"))
     args = parser.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script checks the port on "
@@ -2698,6 +2731,9 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     import_port()
+    if args.failsoft:
+        loss, peak, out = args.failsoft
+        return failsoft_child(float(loss), float(peak), Path(out))
     from ultra_torchdrug_tpu_torch.data.datasets import synthetic_transductive
     from ultra_torchdrug_tpu_torch.models.classic_nbfnet import (
         classic_nbfnet_config,
@@ -2839,11 +2875,22 @@ def main(argv=None) -> int:
     # cap, and classic NBFNet's path tools (K6, K7 under concat_hidden)
     runs["policies"], none_step = run_policies(dataset, device)
     runs["atomic"] = run_atomic(device)
-    runs["failsoft"] = run_failsoft(dataset, device, none_step)
+    runs["failsoft"] = run_failsoft_fresh(dataset, device, none_step)
     runs["classic paths"] = run_classic_paths(dataset, device)
+    # ULTRA's remaining options (several towers, the shared relation model,
+    # the learned query, an activation), the xla route, steps_per_call and
+    # a multi-tower .pth
+    option_runs, towers_task, towers_model = run_options(dataset, device)
+    runs.update(option_runs)
+    runs["xla"] = run_xla(dataset, device)
+    runs["steps_per_call"] = run_steps_per_call(dataset, device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        runs["towers .pth"] = run_towers_pth(towers_task, towers_model,
+                                             device, Path(tmp))
+    del towers_task, towers_model
 
     if not cuda:
-        log("[rehearsal] phases 1b-40 ran on the CPU; no kernel ran and no "
+        log("[rehearsal] phases 1b-45 ran on the CPU; no kernel ran and no "
             "result is reported")
         return 1
     for e in entries.values():
@@ -3759,7 +3806,7 @@ def run_policies(dataset, device) -> tuple:
         num_negative=size["negatives"]), device=device)
     engine = Engine(task, batch_size=size["batch"], seed=0,
                     log_interval=10**9, logger=get_root_logger(None))
-    _, batch = next(engine._epoch_batches(1))
+    _, (batch,) = next(engine._epoch_chunks(1))
     state = engine.generator.get_state()
     mb = size["batch"] // 4
     modes = (("none", False, 0), ("save_rspmm", "save_rspmm", 0),
@@ -3986,6 +4033,39 @@ def run_atomic(device) -> dict:
     return runs
 
 
+def run_failsoft_fresh(dataset, device, none_step) -> dict:
+    """Phase 39 on the card in a process of its own (``--failsoft``): its
+    cap counts the bytes the caching allocator holds, and in this process
+    those depend on the earlier phases' history (a few long-lived tensors
+    placed in their cached segments pin GiBs that no empty_cache returns).
+    The child rebuilds the same seeded KG and reports its launch counts;
+    on the CPU the phase runs here."""
+    if device.type != "cuda":
+        return run_failsoft(dataset, device, none_step)
+    release_device_memory()  # the child needs the card's memory
+    log(f"[failsoft] this process keeps "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        out = Path(tmp) / "failsoft.json"
+        loss, peak = none_step
+        subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        "--failsoft", repr(float(loss)), repr(float(peak)),
+                        str(out)], check=True, timeout=600)
+        return json.loads(out.read_text())
+
+
+def failsoft_child(none_loss: float, none_peak: float, out: Path) -> int:
+    """``--failsoft``: phase 39 on the smoke KG in a fresh process; its
+    launch counts by half are written to ``out``."""
+    from ultra_torchdrug_tpu_torch.data.datasets import synthetic_transductive
+
+    dataset = synthetic_transductive("SynthFB15k237", seed=0, **FULL)
+    runs = run_failsoft(dataset, torch.device("cuda"), (none_loss, none_peak))
+    out.write_text(json.dumps(runs))
+    return 0
+
+
 def run_failsoft(dataset, device, none_step) -> dict:
     """Phase 39: with the process capped below phase 37's keep-everything
     peak (torch.cuda.set_per_process_memory_fraction) while the budget still
@@ -4017,13 +4097,13 @@ def run_failsoft(dataset, device, none_step) -> dict:
     cap = math.nan
     index = torch.cuda.current_device() if cuda else None
     if cuda:
-        # the earlier phases' tasks (their closures hold them in cycles)
-        # must not count as resident
-        gc.collect()
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
+        release_device_memory()
         total = torch.cuda.get_device_properties(index).total_memory
-        cap = torch.cuda.memory_allocated() + 0.6 * none_peak * 2**30
+        resident = torch.cuda.memory_allocated()
+        reserved = torch.cuda.memory_reserved()
+        cap = resident + 0.6 * none_peak * 2**30
+        log(f"[failsoft] resident {resident / 2**30:.3f} GiB allocated, "
+            f"{reserved / 2**30:.3f} GiB reserved by the caching allocator")
         torch.cuda.set_per_process_memory_fraction(cap / total, index)
         torch.cuda.reset_peak_memory_stats()
     try:
@@ -4149,6 +4229,388 @@ def run_classic_paths(dataset, device) -> dict:
                    {"K6": 2 * layers, "K7": 2 * layers}, 1, device)
     phase_parity(task, concat_model, device, atol=CLASSIC_SCORE_ATOL,
                  label="classic concat_hidden parity", queries=EVAL_BATCH)
+    return runs
+
+
+# phases 41-45: ULTRA's remaining model options on the FB-size KG at 6x64:
+# several relation towers (one per entity layer plus one), the shared
+# relation model, the learned query and an activation; the xla route; the
+# steps_per_call schedule; a multi-tower .pth
+TOWERS = 7  # num_rel_models: 6 entity layers + 1
+XLA_TRAIN_BATCH = 8  # the xla route's [E, B, D] messages: ~1 GB a tensor
+STEPS_PER_CALL = 4
+SPC_STEPS = 8
+
+
+def option_config(num_relations: int, activation=None, **ultra):
+    """UltraConfig.default with ``ultra``'s fields, ``learn_query`` on the
+    relation tower when given, and ``activation`` on both towers."""
+    from ultra_torchdrug_tpu_torch.models.ultra import UltraConfig
+
+    cfg = UltraConfig.default(num_relations)
+    relation = dataclasses.replace(
+        cfg.relation, learn_query=ultra.pop("learn_query", False))
+    entity = cfg.entity
+    if activation is not None:
+        entity = dataclasses.replace(entity, activation=activation)
+        relation = dataclasses.replace(relation, activation=activation)
+    return dataclasses.replace(cfg, entity=entity, relation=relation, **ultra)
+
+
+def run_ultra_option(dataset, device, label: str, model_cfg, cpu_task,
+                     relation_share: bool = False) -> tuple:
+    """One ULTRA option at full width: evaluation through the task (K1 12
+    times per batch, the relation towers on cuBLAS), its device time (and
+    with ``relation_share`` the relation towers' share of it) and its card
+    scores against the CPU (1e-4); then Engine.train at batch 64, 128
+    strict negatives (K1 and K2 6 times per step), its device time and one
+    loss step's loss and gradients against ``cpu_task``, which carries the
+    base config (the options live in the model) (1e-5, 1e-4). Returns
+    (launch counts by half, task, model)."""
+    from ultra_torchdrug_tpu_torch.models.ultra import _rel_queries
+    from ultra_torchdrug_tpu_torch.tasks.task import (
+        TaskConfig,
+        TransductiveKGTask,
+    )
+
+    cuda = device.type == "cuda"
+    train_size = dict(TRAIN if cuda else TRAIN_REHEARSAL, steps=1)
+    t0 = time.perf_counter()
+    task = TransductiveKGTask(dataset, model_cfg, TaskConfig(
+        eval_batch_size=EVAL_BATCH, num_negative=train_size["negatives"]),
+        device=device)
+    model = task.init_params(seed=0)
+    log(f"[{label}] towers {model_cfg.num_rel_models}, shared "
+        f"{model_cfg.rel_shared}, learn_query "
+        f"{model_cfg.relation.learn_query}, activation "
+        f"{model_cfg.entity.activation!r}: task set-up "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{sum(p.numel() for p in model.parameters())} parameters")
+    counts = {"eval": phase_slice(task, model, device,
+                                  {"K1": K1_LAUNCHES_PER_BATCH}, label=label)}
+    if cuda:
+        eval_ms = profile_device_time(
+            f"one {label} eval batch", lambda: task.evaluate(
+                model, "test", batch_size=EVAL_BATCH, fast_test=EVAL_BATCH))
+        if relation_share:
+            _, rel_graph = task._prepare_graphs(task.fact_graph,
+                                                task.rel_graph)
+            r = torch.from_numpy(dataset.test[:EVAL_BATCH, 2].astype(
+                np.int64)).to(device)
+
+            def towers():
+                with torch.inference_mode():
+                    _rel_queries(model, rel_graph, r, model_cfg.relation)
+
+            rel_ms = profile_device_time(f"{label} relation towers", towers)
+            if eval_ms and rel_ms:
+                log(f"[{label}] relation towers {rel_ms:.3f} ms of the eval "
+                    f"batch's {eval_ms:.3f} ms device time "
+                    f"({rel_ms / eval_ms:.1%})")
+    phase_parity(task, model, device, label=f"{label} parity")
+    engine = make_engine(task, train_size, f"{label} train", lr=5e-4)
+    counts["train"] = phase_train(
+        engine, train_size, device,
+        {"K1": K_LAUNCHES_PER_STEP, "K2": K_LAUNCHES_PER_STEP},
+        label=f"{label} train")
+    if cuda:
+        profile_device_time(f"one {label} train step",
+                            lambda: engine.train(batch_per_epoch=1))
+    phase_train_parity(engine, cpu_task, device,
+                       label=f"{label} train parity")
+    return counts, task, engine.model
+
+
+def run_options(dataset, device) -> tuple:
+    """Phases 41-42: several relation towers (num_rel_models 7 at 6x64),
+    then the shared relation model, the learned query and activation gelu,
+    each alone (run_ultra_option). Returns (launch counts by path, phase
+    41's task and model)."""
+    from ultra_torchdrug_tpu_torch.models.ultra import UltraConfig
+    from ultra_torchdrug_tpu_torch.tasks.task import (
+        TaskConfig,
+        TransductiveKGTask,
+    )
+
+    R = dataset.num_relations
+    cpu_task = TransductiveKGTask(dataset, UltraConfig.default(R),
+                                  TaskConfig(num_negative=8), device="cpu")
+    runs = {}
+    runs["towers"], task, model = run_ultra_option(
+        dataset, device, "towers", option_config(R, num_rel_models=TOWERS),
+        cpu_task, relation_share=True)
+    for label, option in (("shared", dict(rel_shared=True)),
+                          ("learn_query", dict(learn_query=True)),
+                          ("gelu", dict(activation="gelu"))):
+        runs[label], _, _ = run_ultra_option(
+            dataset, device, label, option_config(R, **option), cpu_task)
+    return runs, task, model
+
+
+def loss_and_grads(task, model, batch, neg):
+    """One loss step's loss and gradients with injected negatives."""
+    loss, _ = task.loss_step(model, None, batch, neg=neg)
+    params = [p for p in model.parameters() if p.requires_grad]
+    return loss.detach(), torch.autograd.grad(loss, params)
+
+
+def run_xla(dataset, device) -> dict:
+    """Phase 43: rspmm_impl xla, the O(E) route, against the kernel route
+    on the same card, weights and inputs: one ULTRA eval batch of 16
+    (scores within 1e-4, no kernel launched), one train step at batch
+    XLA_TRAIN_BATCH with 128 injected negatives (loss 1e-5, gradients 1e-4
+    norm-wise, no kernel launched), each with its ms, device ms and peak
+    memory beside the kernel route's; then a classic NBFNet distmult/max
+    eval batch (6x32) both ways (1e-5, no K4 on xla). The xla models carry
+    the kernel models' weights and run on the same prepared graphs (the
+    route is the model's config; the task's CSR goes unread). Returns the
+    launch counts by half."""
+    from ultra_torchdrug_tpu_torch.models.classic_nbfnet import (
+        ClassicNBFNet,
+        classic_nbfnet_config,
+    )
+    from ultra_torchdrug_tpu_torch.models.ultra import Ultra, UltraConfig
+    from ultra_torchdrug_tpu_torch.tasks.task import (
+        ClassicNBFNetTask,
+        TaskConfig,
+        TransductiveKGTask,
+    )
+
+    cuda = device.type == "cuda"
+    R = dataset.num_relations
+    runs = {}
+    task = TransductiveKGTask(dataset, UltraConfig.default(R), TaskConfig(
+        eval_batch_size=EVAL_BATCH), device=device)
+    model = task.init_params(seed=0)
+    xla = Ultra(UltraConfig.default(R, rspmm_impl="xla")).to(device)
+    xla.load_state_dict(model.state_dict())
+    und, rel_graph = task._prepare_graphs(task.fact_graph, task.rel_graph,
+                                          backward=True)
+    q = torch.from_numpy(dataset.test[:EVAL_BATCH].astype(np.int64)).to(
+        device)
+
+    def eval_scores(m):
+        with torch.inference_mode():
+            return torch.cat(task._eval_scores(
+                m, task.fact_graph, rel_graph, q[:, 0], q[:, 1], q[:, 2],
+                und))
+
+    readings = {}
+    for name, m in (("kernels", model), ("xla", xla)):
+        readings[name] = timed_grad_step(f"xla eval {name}",
+                                         lambda: eval_scores(m), device)
+        want = ({"K1": K1_LAUNCHES_PER_BATCH} if name == "kernels" else {})
+        check_launches(f"xla eval {name}", readings[name]["counts"], want, 1,
+                       device)
+    runs["eval"] = readings["xla"]["counts"]
+    got, want = readings["xla"]["out"], readings["kernels"]["out"]
+    if not torch.isfinite(got).all():
+        raise AssertionError("xla: non-finite scores")
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    log(f"[xla] eval batch of {EVAL_BATCH}: scores {tuple(got.shape)} vs the "
+        f"kernel route: max_abs_err {(got - want).abs().max().item():.3g} "
+        f"(limit 1e-4)")
+
+    rng = np.random.default_rng(6)
+    B = XLA_TRAIN_BATCH if cuda else 2
+    negatives = TRAIN["negatives"] if cuda else 8
+    batch = task.train_triples[:B]
+    neg = torch.from_numpy(rng.integers(0, dataset.num_entities,
+                                        (B, negatives))).to(device)
+    steps = {}
+    for name, m in (("kernels", model), ("xla", xla)):
+        steps[name] = timed_grad_step(
+            f"xla step {name} batch {B}",
+            lambda: loss_and_grads(task, m, batch, neg), device)
+        want = ({"K1": K_LAUNCHES_PER_STEP, "K2": K_LAUNCHES_PER_STEP}
+                if name == "kernels" else {})
+        check_launches(f"xla step {name}", steps[name]["counts"], want, 1,
+                       device)
+    runs["train"] = steps["xla"]["counts"]
+    compare_steps("xla step vs kernels", steps["xla"]["out"],
+                  steps["kernels"]["out"], 1e-5, 1e-4)
+    del task, model, xla, und, rel_graph, readings, steps
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    nbf_cfg = classic_nbfnet_config(num_relations=R, layer_norm=True,
+                                    aggregate_func="max")
+    ctask = ClassicNBFNetTask(dataset, nbf_cfg, TaskConfig(
+        eval_batch_size=EVAL_BATCH), device=device)
+    cmodel = ctask.init_params(seed=0)
+    cxla = ClassicNBFNet(dataclasses.replace(nbf_cfg, rspmm_impl="xla")).to(
+        device)
+    cxla.load_state_dict(cmodel.state_dict())
+    cund, _ = ctask._prepare_graphs(ctask.fact_graph, ctask.rel_graph)
+    layers = len(nbf_cfg.hidden_dims)
+    classic = {}
+    for name, m in (("kernels", cmodel), ("xla", cxla)):
+        classic[name] = timed_grad_step(
+            f"xla classic max eval {name}", lambda: torch.cat(
+                _classic_eval(ctask, m, cund, q)), device)
+        want = {"K4": 2 * layers} if name == "kernels" else {}
+        check_launches(f"xla classic max {name}", classic[name]["counts"],
+                       want, 1, device)
+    runs["classic max eval"] = classic["xla"]["counts"]
+    got, want = classic["xla"]["out"], classic["kernels"]["out"]
+    torch.testing.assert_close(got, want, rtol=0, atol=CLASSIC_SCORE_ATOL)
+    log(f"[xla] classic distmult/max eval batch of {EVAL_BATCH}: "
+        f"max_abs_err {(got - want).abs().max().item():.3g} vs the kernel "
+        f"route (limit {CLASSIC_SCORE_ATOL:g})")
+    return runs
+
+
+def _classic_eval(task, model, und, q):
+    with torch.inference_mode():
+        return task._eval_scores(model, task.fact_graph, None, q[:, 0],
+                                 q[:, 1], q[:, 2], und)
+
+
+def run_steps_per_call(dataset, device) -> dict:
+    """Phase 44: steps_per_call. SPC_STEPS steps of ULTRA (batch 64, 128
+    strict negatives, AdamW) on the FB-size KG with K = STEPS_PER_CALL and
+    with K = 1 from one seed: the parameters (equal expected; the largest
+    difference is logged), ms per step both ways, K1 and K2 6 times a step.
+    Then pre-training on three generated graphs (PRETRAIN_REHEARSAL's
+    counts, pretrain_3g.yaml's sections, steps_per_call 3, 5 batches an
+    epoch): 6 steps, each chunk on one graph. Returns the launch counts by
+    half."""
+    from ultra_torchdrug_tpu_torch.engine import build
+    from ultra_torchdrug_tpu_torch.models.ultra import UltraConfig
+    from ultra_torchdrug_tpu_torch.tasks.task import (
+        TaskConfig,
+        TransductiveKGTask,
+    )
+
+    cuda = device.type == "cuda"
+    size = dict(TRAIN if cuda else TRAIN_REHEARSAL, steps=SPC_STEPS)
+    task = TransductiveKGTask(dataset, UltraConfig.default(
+        dataset.num_relations), TaskConfig(num_negative=size["negatives"]),
+        device=device)
+    runs, params = {}, {}
+    for K in (1, STEPS_PER_CALL):
+        engine = make_engine(task, size, f"steps_per_call {K}", lr=5e-4,
+                             steps_per_call=K)
+        if cuda:
+            torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        engine.train(batch_per_epoch=SPC_STEPS)
+        if cuda:
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / SPC_STEPS
+        runs[f"train K={K}"] = launch_counts()
+        check_launches(f"steps_per_call {K}", runs[f"train K={K}"],
+                       {"K1": K_LAUNCHES_PER_STEP, "K2": K_LAUNCHES_PER_STEP},
+                       SPC_STEPS, device)
+        if engine.meter.global_step != SPC_STEPS:
+            raise AssertionError(f"steps_per_call {K}: "
+                                 f"{engine.meter.global_step} steps")
+        params[K] = [p.detach() for p in engine.model.parameters()]
+        log(f"[steps_per_call] K={K}: {SPC_STEPS} steps, {ms:.2f} ms per "
+            f"step (the first step of the engine included), loss of the "
+            f"last step {engine.meter.last_window[-1]['loss']:.6g}")
+    worst = max((a - b).abs().max().item()
+                for a, b in zip(params[1], params[STEPS_PER_CALL]))
+    equal = all(torch.equal(a, b)
+                for a, b in zip(params[1], params[STEPS_PER_CALL]))
+    if worst > 1e-5:
+        raise AssertionError(f"steps_per_call: parameters differ by {worst}")
+    log(f"[steps_per_call] K={STEPS_PER_CALL} vs K=1 after {SPC_STEPS} "
+        f"steps: parameters bitwise equal: {equal}, max_abs_err {worst:.3g}")
+    del task, engine, params
+
+    cfg = pretrain_config(None if cuda else TRAIN_REHEARSAL)
+    cfg["engine"]["steps_per_call"] = 3
+    ptask = build.build_task(cfg["task"], pretrain_dataset(PRETRAIN_REHEARSAL),
+                             device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        engine = build.build_engine(cfg, ptask, work_dir=tmp)
+    rng = copy.deepcopy(engine.rng)
+    gids = [gid for gid, _ in engine._epoch_chunks(5)]
+    engine.rng = rng
+    batch = engine.batch_size
+    want = {k: 0 for k in ("K1", "K2")}
+    for gid in gids:
+        per = step_launches(ptask._train_model_cfg(ptask.fact_graphs[gid],
+                                                   batch), batch)
+        for k in want:
+            want[k] += 3 * per[k]
+    reset_launch_counts()
+    engine.train(batch_per_epoch=5)
+    if cuda:
+        torch.cuda.synchronize()
+    runs["pretrain K=3"] = launch_counts()
+    check_launches("steps_per_call pretrain", runs["pretrain K=3"], want, 1,
+                   device)
+    window = engine.meter.last_window
+    if engine.meter.global_step != 6 or not all(
+            math.isfinite(m["loss"]) for m in window):
+        raise AssertionError(f"pretrain K=3: {engine.meter.global_step} "
+                             f"steps, {window}")
+    log(f"[steps_per_call] pre-training on 3 graphs, K=3, 5 batches an "
+        f"epoch: {engine.meter.global_step} steps, chunks on graphs {gids}, "
+        f"launches {runs['pretrain K=3']}")
+    return runs
+
+
+def run_towers_pth(task, model, device, pth_dir: Path) -> dict:
+    """Phase 45: phase 41's 7-tower model exported to a .pth, loaded by
+    Engine.load into a fresh engine (another seed): the eval batch's scores
+    bitwise equal to phase 41's model's; then run_full.main on a copy of
+    config/transductive/inference.yaml with num_rel_models 7 and the file
+    as its checkpoint (every tensor loaded). Returns the launch counts by
+    half."""
+    from ultra_torchdrug_tpu_torch.engine.engine import Engine
+    from ultra_torchdrug_tpu_torch.utils.checkpoint import (
+        export_torch_checkpoint,
+    )
+    from ultra_torchdrug_tpu_torch.utils.logging import get_root_logger
+
+    path = pth_dir / "ultra_7_towers.pth"
+    export_torch_checkpoint(str(path), model)
+    state = torch.load(path, weights_only=True)["model"]
+    towers = {k.split(".")[1] for k in state if k.startswith("rel_models.")}
+    engine = Engine(task, batch_size=EVAL_BATCH, seed=1, log_interval=10**9,
+                    logger=get_root_logger(None))
+    engine.load(str(path))
+    und, rel_graph = task._prepare_graphs(task.fact_graph, task.rel_graph)
+    q = torch.from_numpy(task.dataset.test[:EVAL_BATCH].astype(
+        np.int64)).to(device)
+    runs = {}
+    scores = []
+    for m in (model, engine.model):
+        reset_launch_counts()
+        with torch.inference_mode():
+            scores.append(torch.cat(task._eval_scores(
+                m, task.fact_graph, rel_graph, q[:, 0], q[:, 1], q[:, 2],
+                und)))
+        runs["eval .pth"] = launch_counts()
+    check_launches("towers .pth", runs["eval .pth"],
+                   {"K1": K1_LAUNCHES_PER_BATCH}, 1, device)
+    if not torch.equal(*scores):
+        raise AssertionError("towers .pth: scores differ from phase 41's")
+    log(f"[towers .pth] {len(state)} tensors, {len(towers)} relation towers "
+        f"({path.stat().st_size / 2**20:.2f} MiB): the loaded model's "
+        f"{tuple(scores[0].shape)} scores are bitwise phase 41's")
+    del engine, und, rel_graph
+    text = (REPO / "config/transductive/inference.yaml").read_text()
+    if text.count("num_rel_models: 1") != 1:
+        raise AssertionError("inference.yaml: no num_rel_models: 1")
+    with tempfile.TemporaryDirectory() as tmp, in_directory(tmp):
+        cfg_path = Path(tmp) / "inference_7_towers.yaml"
+        cfg_path.write_text(text.replace("num_rel_models: 1",
+                                         f"num_rel_models: {TOWERS}"))
+        runs["cli"], cli_engine = cli_run(
+            "inference 7 towers .pth",
+            ["-c", str(cfg_path), "--dataset", "SynthKG", "--epochs", "0",
+             "--bpe", "0", "--gpus", "[0]", "--ckpt", str(path)], device, 0)
+        if len(cli_engine.model.rel_models) != TOWERS:
+            raise AssertionError("cli: not 7 relation towers")
+        for k, v in cli_engine.model.state_dict().items():
+            if not torch.equal(v.cpu(), state[k]):
+                raise AssertionError(f"cli 7 towers .pth: {k} not loaded")
     return runs
 
 

@@ -8,6 +8,7 @@ through the JAX importer into the original tree). Weights are seeded; no
 trained checkpoint is read.
 """
 
+import dataclasses
 import warnings
 
 import jax
@@ -257,14 +258,23 @@ def test_export_emits_the_exact_real_schema(tmp_path):
 
 
 def test_a_second_relation_tower_raises(tmp_path):
-    """A JAX export of three relation towers (num_rel_models=3) names the
-    ROADMAP item that ports them."""
+    """A JAX export of three relation towers (num_rel_models=3) raises on
+    a model with one tower, as the JAX importer does, and loads into a
+    model with three (every tower's tensors the file's)."""
     jcfg, tcfg = _configs(num_rel_models=3)
     path = str(tmp_path / "multi.pth")
     j_ckpt.export_torch_checkpoint(path, _np(j_init(jax.random.PRNGKey(4),
                                                     jcfg)))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+    with pytest.raises(ValueError, match="rel_models.1 but the model has 1 "
+                       "relation tower"):
         ckpt.import_torch_checkpoint(path, Ultra(tcfg).state_dict())
+    three = Ultra(dataclasses.replace(tcfg, num_rel_models=3)).state_dict()
+    got = ckpt.import_torch_checkpoint(path, three)
+    sd = torch.load(path)["model"]
+    assert {k.split(".")[1] for k in got if k.startswith("rel_models.")} == {
+        "0", "1", "2"}
+    for k, v in got.items():
+        torch.testing.assert_close(v, sd[k], rtol=0, atol=0, msg=k)
 
 
 def test_import_checks_shapes_and_reports_unknown_keys(tmp_path):

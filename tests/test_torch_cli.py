@@ -150,12 +150,18 @@ def test_entity_nbfnet_config_raises_on_what_it_does_not_honour(caplog):
                                 ring_exchange="rdma")
     assert (ring.edge_axis, ring.rspmm_impl, ring.ring_exchange) == (
         "edge", "ring", "rdma")
-    with pytest.raises(NotImplementedError, match="rspmm_impl='xla'"):
-        entity_nbfnet_config(rspmm_impl="xla")
+    # xla builds the O(E) route; with an edge axis it would select the
+    # partitioned path, which is not ported
+    assert entity_nbfnet_config(rspmm_impl="xla").rspmm_impl == "xla"
+    with pytest.raises(NotImplementedError, match="item 9"):
+        entity_nbfnet_config(rspmm_impl="xla", edge_axis="edge")
+    with pytest.raises(ValueError, match="rspmm_impl must be one of"):
+        entity_nbfnet_config(rspmm_impl="triton")
     with pytest.raises(ValueError, match="compute_dtype"):
         entity_nbfnet_config(compute_dtype="float16")
-    with pytest.raises(NotImplementedError, match="learn_query.*item 7"):
-        rel_nbfnet_config(learn_query=True)
+    assert rel_nbfnet_config(learn_query=True).learn_query
+    with pytest.raises(TypeError, match="unknown option 'learnable_q'"):
+        rel_nbfnet_config(learnable_q=True)
     with pytest.raises(ValueError, match="remat"):
         entity_nbfnet_config(remat="sometimes")
     with pytest.raises(ValueError, match="stack"):
@@ -187,7 +193,7 @@ def _smoke_cfg(tmp_path):
     (lambda c: c.update(parallel={"data": 2}), "item 9"),
     (lambda c: c["engine"].update(data_parallel=2), "item 9"),
     (lambda c: c["engine"].update(logger="wandb"), "item 8"),
-    (lambda c: c["engine"].update(steps_per_call=4), "item 7"),
+    (lambda c: c.update(parallel={"data": 2, "edge": 2}), "item 9"),
 ])
 def test_build_engine_raises_on_what_the_port_lacks(tmp_path, edit, match):
     cfg = _smoke_cfg(tmp_path)
@@ -196,26 +202,25 @@ def test_build_engine_raises_on_what_the_port_lacks(tmp_path, edit, match):
         build.build_engine(cfg, None)
 
 
-@pytest.mark.parametrize("edit,match", [
-    (lambda t: t["rel_models"].update(num_rel_models=2), "item 7"),
-    (lambda t: t["rel_models"]["rel_model"].update(class_str="CustomNBFNet"),
-     "item 7"),
-    (lambda t: t["rel_models"]["rel_model"].update(learn_query=True),
-     "item 7"),
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(rel_edge_axis="edge"), "item 9"),
+    (dict(edge_axis="edge"), "item 9"),
+    (dict(edge_axis="edge", rspmm_impl="xla"), "item 9"),
 ])
-def test_build_task_raises_on_what_the_port_lacks(tmp_path, edit, match):
+def test_build_task_raises_on_what_the_port_lacks(tmp_path, kwargs, match):
+    """An edge-sharded relation tower, and an edge axis on any route but
+    the ring (the partitioned path), are Queue 1 item 9."""
     cfg = _smoke_cfg(tmp_path)
-    edit(cfg["task"])
     dataset = build.build_dataset(cfg["dataset"])
     with pytest.raises(NotImplementedError, match=match):
-        build.build_task(cfg["task"], dataset, device="cpu")
+        build.build_task(cfg["task"], dataset, device="cpu", **kwargs)
 
 
 def test_op_raises_name_their_roadmap_items():
     """Gradients to the edge weights (classic NBFNet's path tools) take the
     O(E) route, through the max op too, and agree with a central finite
-    difference. Relation-graph input types other than ``ones`` raise with
-    Queue 1 item 7."""
+    difference. Relation-graph input types build their features; an
+    unknown part raises, as in the JAX package."""
     rng = np.random.default_rng(0)
     V, R, E, F = 9, 2, 30, 4
     tri = np.stack([rng.integers(0, V, E), rng.integers(0, V, E),
@@ -239,7 +244,9 @@ def test_op_raises_name_their_roadmap_items():
     torch.testing.assert_close(grad, fd, rtol=1e-6, atol=1e-6)
     assert grad.abs().sum() > 0
     assert build_initial_features(g, "ones", 3).eq(1).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+    assert build_initial_features(g, "ones__zeros", 3).eq(1).all()
+    with pytest.raises(ValueError, match="unknown input type component "
+                       "'rwse'"):
         build_initial_features(g, "ones__rwse", 3)
 
 

@@ -180,13 +180,13 @@ def _engines(pretrain, seed):
 def test_engine_draws_the_jax_engines_graphs_and_batches(pretrain):
     jeng, eng = _engines(pretrain, seed=5)
     want = [(gid, np.asarray(b)) for gid, _, b, _ in jeng._epoch_chunks(20)]
-    got = list(eng._epoch_batches(20))
+    got = [(gid, b) for gid, chunk in eng._epoch_chunks(20) for b in chunk]
     assert len(got) == len(want) == 20
     assert len({gid for gid, _ in got}) == 3
     for (gid, batch), (j_gid, j_batch) in zip(got, want):
         assert gid == j_gid
         np.testing.assert_array_equal(batch, j_batch)
-    assert sum(1 for _ in eng._epoch_batches(None)) == 1000
+    assert sum(1 for _ in eng._epoch_chunks(None)) == 1000
 
 
 def test_mixture_follows_the_edge_counts(pretrain):
@@ -194,7 +194,7 @@ def test_mixture_follows_the_edge_counts(pretrain):
     edge-count weight."""
     _, eng = _engines(pretrain, seed=123)
     n = 2000
-    counts = np.bincount([gid for gid, _ in eng._epoch_batches(n)],
+    counts = np.bincount([gid for gid, _ in eng._epoch_chunks(n)],
                          minlength=3)
     p = eng.task._graph_probs
     sigma = np.sqrt(p * (1 - p) / n)

@@ -487,7 +487,8 @@ def test_engine_trains_in_the_jax_engines_batch_order(tmp_path):
     eng = Engine(TTask(tds, tcfg, TTaskConfig(**cfg), device="cpu"),
                  batch_size=16, seed=5, log_interval=100,
                  logger=get_root_logger(None))
-    pairs = list(eng._epoch_batches(4)) + list(eng._epoch_batches(None))
+    pairs = [(gid, b) for n in (4, None)
+             for gid, chunk in eng._epoch_chunks(n) for b in chunk]
     assert {gid for gid, _ in pairs} == {0}  # one graph
     got = [b for _, b in pairs]
     assert len(got) == len(want) == 4 + len(tds.train) // 16

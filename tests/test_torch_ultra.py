@@ -242,5 +242,11 @@ def test_rel_inputs_ones(setup):
     want = j_features(jax.random.PRNGKey(0), setup["jrel"], "ones", DIM)
     got = t_features(setup["trel"], "ones", DIM)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    with pytest.raises(NotImplementedError):
-        t_features(setup["trel"], "ones__glorot", DIM)
+    # ones plus glorot's U(-s, s), s = sqrt(6 / (V + D)): the draw is the
+    # port's own, so its shape and bound are held, not its values
+    V = setup["trel"].num_nodes
+    both = t_features(setup["trel"], "ones__glorot", DIM,
+                      generator=torch.Generator().manual_seed(0))
+    scale = (6.0 / (V + DIM)) ** 0.5
+    assert both.shape == (V, DIM)
+    assert (both - 1).abs().max() <= scale and (both - 1).abs().max() > 0

@@ -350,6 +350,12 @@ class Graph:
                           device=self.device)
         return deg.index_add_(0, self.edge_index[:, 1], self.edge_weight)
 
+    def degree_in(self) -> torch.Tensor:
+        """Sum of edge weights grouped by the sending node."""
+        deg = torch.zeros(self.num_nodes, dtype=self.edge_weight.dtype,
+                          device=self.device)
+        return deg.index_add_(0, self.edge_index[:, 0], self.edge_weight)
+
     def undirected_with_inverse(self) -> "Graph":
         """Append inverse edges (t, h, r + R): edge order [directed; inverse],
         twice the relation vocabulary."""
@@ -373,6 +379,21 @@ class Graph:
         """Zero the weight of dropped edges instead of removing them."""
         return self.with_edge_weight(
             self.edge_weight * keep_mask.to(self.edge_weight.dtype))
+
+    def select_edges(self, keep_mask) -> "Graph":
+        """The graph of the edges where ``keep_mask`` [E] (bool, numpy or
+        torch) is true, in their order: host-side, E changes, and the new
+        graph carries none of the prepared layouts."""
+        keep = torch.as_tensor(np.asarray(
+            keep_mask.cpu() if torch.is_tensor(keep_mask) else keep_mask,
+            dtype=bool))
+        return Graph(
+            edge_index=self.edge_index.cpu()[keep].to(self.device),
+            edge_type=self.edge_type.cpu()[keep].to(self.device),
+            edge_weight=self.edge_weight.cpu()[keep].to(self.device),
+            num_nodes=self.num_nodes,
+            num_relations=self.num_relations,
+        )
 
     def prepare_csr(self, backward: bool = False) -> "Graph":
         """Attach the kernels' layouts (``Csr``): the destination-sorted CSR
@@ -440,3 +461,9 @@ class Graph:
         return (f"Graph(num_nodes={self.num_nodes}, "
                 f"num_edges={self.num_edges}, "
                 f"num_relations={self.num_relations})")
+
+
+def pack(graphs) -> tuple:
+    """The reference packs lists of graphs into one (``data.Graph.pack``);
+    the port's graphs are plain objects, so the packed form is a tuple."""
+    return tuple(graphs)

@@ -12,17 +12,21 @@ ones to ``InductiveKGTask`` and ``MultiGraphPreTraining`` to
 count. What the port does not carry raises with the ROADMAP Queue 1 item
 that will port it: a data axis (``parallel.data`` or
 ``engine.data_parallel`` > 1) and an edge-sharded relation tower
-(``parallel.relation_edge``) (item 9), ``num_rel_models`` > 1 and the
-shared relation model (item 7), ``engine.steps_per_call`` > 1 (item 7) and
-``engine.logger: wandb`` (item 8). The model options go through
+(``parallel.relation_edge``) (item 9), and ``engine.logger: wandb`` (item
+8). The relation side reads ``rel_models.num_rel_models``,
+``rel_model.class_str: CustomNBFNet`` (the shared relation model) and
+``rel_model.learn_query`` as the JAX package does; the engine takes
+``engine.steps_per_call``. The model options go through
 ``entity_nbfnet_config`` and ``rel_nbfnet_config``, which check the
 memory policies (``remat``, ``stack``, ``micro_batch``, ``score_chunk``;
-the task resolves "auto") and raise on what they do not honour.
+the task resolves "auto") and ``rspmm_impl`` (``xla``, the O(E) route,
+is logged) and raise on what they do not honour.
 """
 
 from __future__ import annotations
 
 import contextlib
+import logging
 
 from ..data import catalog  # noqa: F401  (registers the datasets)
 from ..data.datasets import InductiveDataset, JointDataset, TransductiveDataset
@@ -39,6 +43,7 @@ from ..tasks.task import (
     TransductiveKGTask,
 )
 from ..utils.config import lookup
+from ..utils.logging import LOGGER_NAME
 from .engine import Engine
 
 _TASK_CLASSES = {
@@ -143,10 +148,6 @@ def build_model_config(cfg_task: dict, num_relations: int,
     )
     rel_models_cfg = cfg_task.get("rel_models", {})
     rm = rel_models_cfg.get("rel_model", {})
-    if int(rel_models_cfg.get("num_rel_models", 1)) != 1:
-        raise _unported("num_rel_models > 1", "item 7")
-    if rm.get("class_str") == "CustomNBFNet":
-        raise _unported("the shared relation model (CustomNBFNet)", "item 7")
     relation = rel_nbfnet_config(
         input_dim=rm.get("input_dim", 64),
         hidden=rm.get("hidden", 64),
@@ -160,10 +161,16 @@ def build_model_config(cfg_task: dict, num_relations: int,
                                  m.get("compute_dtype", "float32"))),
         stack=str(rm.get("stack", cfg_task.get("stack", "auto"))),
     )
+    if entity.rspmm_impl == "xla":
+        logging.getLogger(LOGGER_NAME).info(
+            "rspmm_impl: xla: every sparse aggregation takes the O(E) route "
+            "(ops/rspmm.py::aggregate_edges); no kernel runs")
     return UltraConfig(
         entity=entity,
         relation=relation,
         remove_one_hop=bool(m.get("remove_one_hop", False)),
+        num_rel_models=int(rel_models_cfg.get("num_rel_models", 1)),
+        rel_shared=rm.get("class_str") == "CustomNBFNet",
     )
 
 
@@ -234,8 +241,6 @@ def build_engine(cfg: dict, task, work_dir: str = ".", seed: int = 1024,
         clip_grad = cfg.get("train", {}).get("clip_grad")
     if str(eng_cfg.get("logger", "logging")).lower() == "wandb":
         raise _unported("engine.logger: wandb", "item 8")
-    if int(eng_cfg.get("steps_per_call", 1)) != 1:
-        raise _unported("engine.steps_per_call > 1", "item 7")
     return Engine(
         task,
         batch_size=int(eng_cfg.get("batch_size", 64)),
@@ -247,4 +252,5 @@ def build_engine(cfg: dict, task, work_dir: str = ".", seed: int = 1024,
         seed=seed,
         work_dir=work_dir,
         mesh=mesh,
+        steps_per_call=int(eng_cfg.get("steps_per_call", 1)),
     )

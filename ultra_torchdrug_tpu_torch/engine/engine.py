@@ -7,6 +7,12 @@ the JAX engine, so both engines see the same triples in the same order.
 Negatives come from a ``torch.Generator`` seeded with the same seed. Steps
 run eagerly: loss, ``torch.autograd.grad``, then the optimizer.
 
+``steps_per_call`` K schedules the epoch in chunks of K steps as the JAX
+engine does (it chains a chunk's steps in one jitted call): one graph's
+epoch rounds up to whole chunks, wrapping into the start of its
+permutation, and a multi-graph task draws its graph once per chunk. The K
+steps of a chunk run back to back; K = 1 is the per-step schedule.
+
 Checkpoints (``save``/``load``, utils/checkpoint.py) are native
 (``torch.save`` of the model's state dict, the optimizer's state and the
 epoch) or, for a path ending in ``.pth``, the reference's layout;
@@ -17,8 +23,7 @@ graphs were prepared under an edge mesh takes the ring.
 A ``MultiGraphPretrainTask`` trains one graph a step: each step draws its
 graph from the task's edge-count mixture with the engine's numpy
 generator, then a batch of that graph's train triples, in the JAX engine's
-order of draws. Not ported yet: ``steps_per_call`` and data parallelism
-(ROADMAP Queue 1 items 7 and 9).
+order of draws. Not ported yet: data parallelism (ROADMAP Queue 1 item 9).
 
 Fail-soft: an out-of-memory error on the first step of a graph (or in an
 evaluation) demotes the task's auto memory policies one level
@@ -26,9 +31,9 @@ evaluation) demotes the task's auto memory policies one level
 parameters, the optimizer's state and the negatives' generator, and a
 retry restores them, so the step it completes is the one that failed. The
 retry runs after the handler has ended, so that the failed step's tensors
-are freed, and after ``torch.cuda.empty_cache()``. Any other error, an
-out-of-memory error after a graph's first step, and one with no level left
-are raised. PyTorch's caching allocator raises at the allocation that does
+are freed, and after ``gc.collect()`` and ``torch.cuda.empty_cache()``.
+Any other error, an out-of-memory error after a graph's first step, and
+one with no level left are raised. PyTorch's caching allocator raises at the allocation that does
 not fit, so the error is raised inside the step that caused it (the JAX
 engine can see an asynchronous one late).
 """
@@ -37,6 +42,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import os
 from typing import Optional, Sequence
 
@@ -60,7 +66,12 @@ def _is_oom_error(e: BaseException) -> bool:
 
 
 def _free_cached_memory(device) -> None:
+    """Release the failed step's memory to the device: its tensors that
+    reference cycles hold (a traceback's frames, autograd's hooks) are
+    collected first, so that no segment they share with the retry's
+    long-lived tensors stays pinned under a cap."""
     if torch.device(device).type == "cuda":
+        gc.collect()
         torch.cuda.empty_cache()
 
 
@@ -145,10 +156,11 @@ class Engine:
                  lr: float = 5e-4, gradient_interval: int = 1,
                  clip_grad: Optional[float] = None, log_interval: int = 100,
                  seed: int = 1024, work_dir: str = ".", logger=None,
-                 mesh=None):
+                 mesh=None, steps_per_call: int = 1):
         self.task = task
         self.mesh = mesh
         self.batch_size = batch_size
+        self.steps_per_call = max(1, int(steps_per_call))
         self.work_dir = work_dir
         self.logger = logger or get_root_logger(
             os.path.join(work_dir, "log.txt"))
@@ -185,33 +197,41 @@ class Engine:
         layers = len(task.model_cfg.entity.hidden_dims)
         return 2 * fact.num_edges * layers * 2
 
-    def _epoch_batches(self, batch_per_epoch: Optional[int]):
-        """Yield the epoch's (graph_id, batch [batch_size, 3]) (numpy).
-        One graph: graph 0, and consecutive slices of one permutation of the
-        train triples; a short slice wraps to the start of the permutation.
-        Several graphs (``batch_per_epoch`` defaults to 1000): per step one
-        draw from the mixture, then the first ``batch_size`` of a
-        permutation of that graph's train triples."""
+    def _epoch_chunks(self, batch_per_epoch: Optional[int]):
+        """Yield the epoch's (graph_id, batches [K, batch_size, 3]) (numpy)
+        per chunk of K = ``steps_per_call`` steps, in the JAX engine's order
+        of draws. One graph: graph 0, and consecutive slices of one
+        permutation of the train triples, the epoch rounded up to whole
+        chunks by wrapping into the start of the permutation (as a short
+        slice wraps). Several graphs (``batch_per_epoch`` defaults to 1000):
+        per chunk one draw from the mixture, then per step the first
+        ``batch_size`` of a permutation of that graph's train triples."""
         task = self.task
+        K = self.steps_per_call
         if self._is_multigraph:
-            for _ in range(batch_per_epoch or 1000):
+            bpe = batch_per_epoch or 1000
+            for _ in range(-(-bpe // K)):
                 gid = task.sample_graph_id(self.rng)
                 edges = task.train_triples[gid]
-                yield gid, self._full_batch(
+                yield gid, np.stack([self._full_batch(
                     edges, self.rng.permutation(len(edges))[:self.batch_size])
+                    for _ in range(K)])
             return
         triples = task.train_triples
         order = self.rng.permutation(len(triples))
         n_batches = len(order) // self.batch_size
         bpe = min(batch_per_epoch or n_batches, n_batches) or 1
-        for i in range(bpe):
-            lo = i * self.batch_size
-            idx = order[lo: lo + self.batch_size]
-            if len(idx) < self.batch_size:
-                idx = np.concatenate(
-                    [idx, order[: self.batch_size - len(idx)]])
-            # _full_batch backstops datasets smaller than half a batch
-            yield 0, self._full_batch(triples, idx)
+        for c in range(-(-bpe // K)):
+            batches = []
+            for i in range(c * K, c * K + K):
+                lo = (i % bpe) * self.batch_size
+                idx = order[lo: lo + self.batch_size]
+                if len(idx) < self.batch_size:
+                    idx = np.concatenate(
+                        [idx, order[: self.batch_size - len(idx)]])
+                # _full_batch backstops datasets smaller than half a batch
+                batches.append(self._full_batch(triples, idx))
+            yield 0, np.stack(batches)
 
     def _step(self, graph_id: int, batch: np.ndarray) -> dict:
         """One optimizer step on graph ``graph_id``'s batch; returns its
@@ -222,7 +242,10 @@ class Engine:
         else:
             loss, metrics = self.task.loss_step(self.model, self.generator,
                                                 batch)
-        grads = torch.autograd.grad(loss, self.optimizer.params)
+        # a learned query of a shared relation tower takes part in no score
+        # (the JAX package's gradient is 0 there)
+        grads = torch.autograd.grad(loss, self.optimizer.params,
+                                    allow_unused=True, materialize_grads=True)
         metrics["grad_norm"] = global_norm(grads).detach()
         self.optimizer.step(grads)
         return metrics
@@ -277,10 +300,11 @@ class Engine:
     def _train(self, num_epoch: int, batch_per_epoch: Optional[int]) -> None:
         for _ in range(num_epoch):
             self.epoch += 1
-            for gid, batch in self._epoch_batches(batch_per_epoch):
-                metrics = self._run_step(gid, batch)
-                self.meter.update(
-                    metrics, rates={"edges_per_s": self._edges_per_step(gid)})
+            for gid, batches in self._epoch_chunks(batch_per_epoch):
+                for batch in batches:
+                    metrics = self._run_step(gid, batch)
+                    self.meter.update(metrics, rates={
+                        "edges_per_s": self._edges_per_step(gid)})
             self.meter.log_window()
             self.logger.info(f"epoch {self.epoch} done")
 

@@ -35,7 +35,14 @@ from torch import nn
 
 from ..nn.core import init_parameters_
 from ..ops.variadic import variadic_topk
-from .nbfnet import NBFNet, NBFNetConfig, _flat_boundary, _propagate, score_heads
+from .nbfnet import (
+    NBFNet,
+    NBFNetConfig,
+    _check_options,
+    _flat_boundary,
+    _propagate,
+    score_heads,
+)
 
 
 def classic_nbfnet_config(input_dim: int = 32,
@@ -45,9 +52,12 @@ def classic_nbfnet_config(input_dim: int = 32,
                           aggregate_func: str = "pna",
                           dependent: bool = True, short_cut: bool = True,
                           layer_norm: bool = False, concat_hidden: bool = False,
-                          num_mlp_layer: int = 2) -> NBFNetConfig:
+                          num_mlp_layer: int = 2,
+                          rspmm_impl: str = "auto") -> NBFNetConfig:
     """The classic NBFNet architecture over a graph with ``num_relations``
-    base relations (doubled by the inverse edges)."""
+    base relations (doubled by the inverse edges); ``rspmm_impl`` "auto"
+    (or "pallas") takes the kernels, "xla" the O(E) route."""
+    impl = _check_options("classic_nbfnet_config", rspmm_impl, {})
     return NBFNetConfig(
         input_dim=input_dim,
         hidden_dims=tuple(hidden_dims),
@@ -60,6 +70,7 @@ def classic_nbfnet_config(input_dim: int = 32,
         num_mlp_layer=num_mlp_layer,
         rel_mode="dependent" if dependent else "embedding",
         project=False,
+        rspmm_impl=impl["rspmm_impl"],
     )
 
 

@@ -31,11 +31,15 @@ the JAX package.
 A step is ``conv_aggregate`` (the aggregation kernels' outputs, which
 ``remat="save_rspmm"`` keeps: models/nbfnet.py) followed by
 ``conv_update`` (the boundary, PNA's statistics, the split linear, layer
-norm and relu, which it recomputes). An edge weight that requires grad
-(classic NBFNet's path tools) sends every aggregation to the O(E) route of
-``aggregate_edges``, each op deciding it for itself (ops/rspmm.py), and
-keeps the sums off the ring, so that gradients reach the edge weights, as
-the JAX package's edge_grad takes its XLA route: no kernel runs there.
+norm and the activation, which it recomputes). The activation is
+``ConvConfig.activation``: any name of ``ACTIVATIONS`` (the ``jax.nn``
+functions that keep the shape of a [V, B, out] tensor, with their default
+arguments), or None, "" or "none" for the identity. An edge weight that
+requires grad (classic NBFNet's path tools) sends every aggregation to
+the O(E) route of ``aggregate_edges``, each op deciding it for itself
+(ops/rspmm.py), and keeps the sums off the ring, so that gradients reach
+the edge weights, as the JAX package's edge_grad takes its XLA route: no
+kernel runs there.
 
 Under an active mesh with an edge axis (parallel/mesh.py), a conv with
 ``rspmm_impl="ring"`` and ``edge_axis`` set sends its distmult and transe
@@ -51,6 +55,8 @@ Queue 1 item 9). Off the mesh, ``ring`` runs the single-device kernels.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Optional
 
 import torch
@@ -76,6 +82,63 @@ _AGGREGATIONS = tuple(f"{base}{bound}" for base in ("sum", "mean", "max", "pna")
 EPS = 1e-6
 
 
+def _standardize(x, eps: float = 1e-5):
+    """jax.nn.standardize over the last axis: the variance as E[x²] - E[x]²
+    clipped at 0."""
+    mean = x.mean(-1, keepdim=True)
+    var = torch.clamp((x * x).mean(-1, keepdim=True) - mean * mean, min=0)
+    return (x - mean) * torch.rsqrt(var + eps)
+
+
+# jax.nn's shape-keeping activations under their default arguments, each as
+# the torch call with the same defaults; softmax, log_softmax and
+# standardize act over the feature axis
+ACTIVATIONS = {
+    "celu": F.celu,
+    "elu": F.elu,
+    "gelu": functools.partial(F.gelu, approximate="tanh"),
+    "hard_sigmoid": F.hardsigmoid,
+    "hard_silu": F.hardswish,
+    "hard_swish": F.hardswish,
+    "hard_tanh": F.hardtanh,
+    "identity": lambda x: x,
+    "leaky_relu": F.leaky_relu,
+    "log1mexp": lambda x: torch.where(x < math.log(2.0),
+                                      torch.log(-torch.expm1(-x)),
+                                      torch.log1p(-torch.exp(-x))),
+    "log_sigmoid": F.logsigmoid,
+    "log_softmax": functools.partial(F.log_softmax, dim=-1),
+    "mish": F.mish,
+    "relu": F.relu,
+    "relu6": F.relu6,
+    "selu": F.selu,
+    "sigmoid": torch.sigmoid,
+    "silu": F.silu,
+    "soft_sign": F.softsign,
+    "softmax": functools.partial(F.softmax, dim=-1),
+    "softplus": F.softplus,
+    "sparse_plus": lambda x: torch.where(
+        x <= -1.0, torch.zeros_like(x),
+        torch.where(x >= 1.0, x, (x + 1.0) ** 2 / 4)),
+    "sparse_sigmoid": lambda x: 0.5 * torch.clamp(x + 1.0, 0.0, 2.0),
+    "squareplus": lambda x: (x + torch.sqrt(x * x + 4.0)) / 2,
+    "standardize": _standardize,
+    "swish": F.silu,
+    "tanh": torch.tanh,
+}
+
+
+def activation_fn(name):
+    """The function of an activation name (None, "" and "none": the
+    identity); any name outside ``ACTIVATIONS`` raises."""
+    if not name or name == "none":
+        return ACTIVATIONS["identity"]
+    if name not in ACTIVATIONS:
+        raise ValueError(f"activation={name!r}: one of None, 'none' or "
+                         f"{', '.join(sorted(ACTIVATIONS))}")
+    return ACTIVATIONS[name]
+
+
 def sparse_only(aggregate_func: str, message_func: str = "distmult") -> bool:
     """Whether the conv takes the sparse ops on every graph (max and pna,
     ± ``_nobound``, and every rotate aggregation): its graph needs a CSR
@@ -94,10 +157,12 @@ class ConvConfig:
     message_func: str = "distmult"  # distmult | transe | rotate
     aggregate_func: str = "sum"  # sum | mean | max | pna, each + _nobound
     layer_norm: bool = False
+    activation: Optional[str] = "relu"  # a name of ACTIVATIONS, or none
     rel_mode: str = "injected"  # embedding | dependent | injected
     project: bool = True  # injected mode: per-layer MLP on relation vectors
     compute_dtype: str = "float32"  # bfloat16: bf16 operands, fp32 sums
-    rspmm_impl: str = "auto"  # auto (the kernels) | ring (edge mesh only)
+    # auto (the kernels) | xla (the O(E) route) | ring (edge mesh only)
+    rspmm_impl: str = "auto"
     edge_axis: str = ""  # the mesh axis of the edge partition ("" = off)
     ring_exchange: str = "ppermute"  # ppermute | rdma (kernel K9)
 
@@ -169,6 +234,7 @@ class GeneralizedRelationalConv(nn.Module):
             raise ValueError(
                 f"aggregate_func={cfg.aggregate_func!r}: one of "
                 f"{', '.join(_AGGREGATIONS)}")
+        activation_fn(cfg.activation)
         self.cfg = cfg
         # [x; update] -> output: the pna update is 4 statistics x 3 degree
         # scalers wide
@@ -254,6 +320,8 @@ def conv_aggregate(layer: GeneralizedRelationalConv, graph, x: torch.Tensor,
     msg = _MESSAGES[cfg.message_func]
     rel_flat = broadcast_rel_flat(rel, B)
     base = cfg.aggregate_func.replace("_nobound", "")
+    if cfg.rspmm_impl == "xla":
+        return _xla_aggregates(cfg, graph, rel, x, msg, base)
     if ring_active(cfg) and not needs_edge_grad(graph.edge_weight):
         _check_ring_aggregation(cfg)
     ring = _ring_route(cfg, graph, block_domain)
@@ -281,7 +349,8 @@ def conv_update(layer: GeneralizedRelationalConv, graph, x: torch.Tensor,
     """The rest of the step from ``conv_aggregate``'s outputs, the cheap
     elementwise and dense work that ``remat="save_rspmm"`` recomputes: the
     boundary folded in, mean's divide, PNA's statistics and scalers, the
-    split linear, layer norm and relu. Flat [V, B*D] in, [V, B*out] out."""
+    split linear, layer norm and the activation. Flat [V, B*D] in,
+    [V, B*out] out."""
     cfg = layer.cfg
     D = cfg.input_dim
     V = x.shape[0]
@@ -312,7 +381,33 @@ def conv_update(layer: GeneralizedRelationalConv, graph, x: torch.Tensor,
            + layer.linear.bias)
     if cfg.layer_norm:
         out = layer_norm(layer.layer_norm, out)
-    return F.relu(out).reshape(V, -1)
+    return activation_fn(cfg.activation)(out).reshape(V, -1)
+
+
+def _xla_aggregates(cfg: ConvConfig, graph, rel, x, msg, base) -> tuple:
+    """``conv_aggregate``'s outputs on the ``xla`` route: every sparse
+    aggregation by ``aggregate_edges`` over a [V, B, D] view with ``rel``
+    as given ([R, D] or [R, B, D]), fp32; PNA as the JAX package's unfused
+    pairs (rotate's second moment over its squared messages, the others'
+    over rel² and x²). Sums over a dense relation graph keep its matmuls."""
+    D = cfg.input_dim
+    B = x.shape[1] // D
+
+    def spmm(r, xx, agg):
+        if agg == "add" and msg != "rotate" and graph.dense_adj is not None:
+            return dense_rspmm(graph.dense_adj, broadcast_rel_flat(r, B), xx,
+                               msg=msg)
+        out = aggregate_edges(graph.edge_index, graph.edge_type,
+                              graph.edge_weight, r, xx.reshape(-1, B, D),
+                              msg=msg, agg=agg, num_nodes=graph.num_nodes)
+        return out.reshape(graph.num_nodes, -1)
+
+    if base == "pna":
+        sq = (spmm(rel, x, "sq_add") if msg == "rotate"
+              else spmm(rel ** 2, x ** 2, "add"))
+        return (spmm(rel, x, "add"), sq, spmm(rel, x, "max"),
+                spmm(rel, x, "min"))
+    return (spmm(rel, x, "max" if base == "max" else "add"),)
 
 
 def _spmm(graph, rel_flat, x, msg, agg, dim, compute_dtype="float32"):

@@ -2,12 +2,16 @@
 ultra_torchdrug_tpu/models/nbfnet.py).
 
   * relation tower (RelNBFNet): query-conditioned GNN over the relation
-    graph; boundary = one-hot at the query relation with an all-ones query,
-    learned 4-type relation embeddings, sum aggregation, layer norm,
-    short-cut. Output [B, 2R, D].
+    graph; boundary = one-hot at the query relation with an all-ones query
+    (or, with ``learn_query``, a learned vector), learned 4-type relation
+    embeddings, sum aggregation, layer norm, short-cut. Output [B, 2R, D];
+    the shared variant (the reference's CustomNBFNet,
+    ``rel_nbfnet_apply_shared``) marks every query relation of the batch
+    in one channel and gives one [2R, D] for the batch.
   * entity tower (TransferNBFNet): GNN over the entity graph with injected
-    relation representations; boundary = query vector at the source entity;
-    final [state ; query] -> MLP -> one score per entity.
+    relation representations, one for every layer or one per layer (several
+    relation towers); boundary = query vector at the source entity; final
+    [state ; query] -> MLP -> one score per entity.
 
 Propagation state is carried flat, [V, B*D] with b-major features. Under
 an active edge mesh with ring buckets on the entity graph
@@ -24,7 +28,8 @@ result; a task resolves their "auto" values, tasks/task.py):
     each aggregation's output and checkpoints only the layer's update
     (layers.conv_update), so the backward re-runs no kernel. An unresolved
     "auto" acts as "full", as in the JAX package. Skipped under
-    ``edge_grad``.
+    ``edge_grad`` and for distinct per-layer injections (the JAX package
+    runs those in a loop without remat).
   * ``micro_batch``: the entity tower scores the batch in chunks of that
     many queries, each chunk under one checkpoint, so that one chunk's
     propagation is alive at a time.
@@ -64,13 +69,16 @@ class NBFNetConfig:
     aggregate_func: str = "sum"
     short_cut: bool = True
     layer_norm: bool = True
+    activation: Optional[str] = "relu"  # layers.ACTIVATIONS, or none
     num_mlp_layer: int = 2
     rel_mode: str = "injected"
     project: bool = True
     compute_dtype: str = "float32"  # bfloat16: K1h/K2h on the sparse sums
-    rspmm_impl: str = "auto"  # auto (the kernels) | ring (edge mesh only)
+    # auto (the kernels) | xla (the O(E) route) | ring (edge mesh only)
+    rspmm_impl: str = "auto"
     edge_axis: str = ""  # the mesh axis of the edge partition ("" = off)
     ring_exchange: str = "ppermute"  # ppermute | rdma (kernel K9)
+    learn_query: bool = False  # relation tower: a learned query vector
     # the final state is every layer's output side by side (the MLP head
     # widens to match)
     concat_hidden: bool = False
@@ -91,6 +99,7 @@ class NBFNetConfig:
                 message_func=self.message_func,
                 aggregate_func=self.aggregate_func,
                 layer_norm=self.layer_norm,
+                activation=self.activation,
                 rel_mode=self.rel_mode,
                 project=self.project,
                 compute_dtype=self.compute_dtype,
@@ -102,9 +111,7 @@ class NBFNetConfig:
         ]
 
 
-# options the port reproduces only at the value given, by the ROADMAP item
-# that ports the others
-_FIXED = {"learn_query": (False, "item 7")}
+RSPMM_IMPLS = ("auto", "pallas", "xla", "ring")
 _EXCHANGES = ("ppermute", "rdma")
 REMAT_VALUES = (False, True, None, "none", "full", "save_rspmm", "auto")
 STACK_VALUES = ("auto", "scan", "unroll")
@@ -133,16 +140,16 @@ def _check_memory(where: str, remat, stack: str, micro_batch: int,
 
 
 def _check_options(where: str, rspmm_impl: str, options: dict) -> dict:
-    """Apply the JAX package's other config options: the fixed ones must
-    have the value the port reproduces, the edge-mesh ones (``edge_axis``,
-    ``ring_exchange``) are checked and returned with ``rspmm_impl`` ("auto"
-    for 'auto' and 'pallas', which both take the port's kernels, or
-    "ring"), and anything else raises."""
-    if rspmm_impl not in ("auto", "pallas", "ring"):
-        raise NotImplementedError(
-            f"{where}: rspmm_impl={rspmm_impl!r} is not ported (ROADMAP Queue "
-            "1 item 7); 'auto' and 'pallas' take the port's kernels, 'ring' "
-            "the edge-partitioned ring under an edge mesh")
+    """Apply the JAX package's edge-mesh options (``edge_axis``,
+    ``ring_exchange``): checked and returned with ``rspmm_impl`` ("auto"
+    for 'auto' and 'pallas', which both take the port's kernels, "xla" for
+    the O(E) route, or "ring"); any other option raises."""
+    if rspmm_impl not in RSPMM_IMPLS:
+        raise ValueError(
+            f"{where}: rspmm_impl must be one of {RSPMM_IMPLS}, got "
+            f"{rspmm_impl!r}: 'auto' and 'pallas' take the port's kernels, "
+            "'xla' the O(E) route, 'ring' the edge-partitioned ring under an "
+            "edge mesh")
     edge_axis = options.pop("edge_axis", "")
     ring_exchange = options.pop("ring_exchange", "ppermute")
     if edge_axis not in ("", "edge"):
@@ -157,15 +164,9 @@ def _check_options(where: str, rspmm_impl: str, options: dict) -> dict:
             f"{rspmm_impl!r} selects the partitioned path "
             "(parallel/sharded_rspmm.py), which is not ported yet (ROADMAP "
             "Queue 1 item 9); rspmm_impl='ring' takes the ring")
-    for key, value in options.items():
-        if key not in _FIXED:
-            raise TypeError(f"{where}: unknown option {key!r}")
-        want, item = _FIXED[key]
-        if value != want:
-            raise NotImplementedError(
-                f"{where}: {key}={value!r} is not ported (ROADMAP Queue 1 "
-                f"{item}); the port runs {key}={want!r}")
-    return dict(rspmm_impl="ring" if rspmm_impl == "ring" else "auto",
+    for key in options:
+        raise TypeError(f"{where}: unknown option {key!r}")
+    return dict(rspmm_impl="auto" if rspmm_impl == "pallas" else rspmm_impl,
                 edge_axis=edge_axis, ring_exchange=ring_exchange)
 
 
@@ -178,12 +179,13 @@ def _check_dtype(where: str, compute_dtype: str):
 def rel_nbfnet_config(input_dim: int = 64, hidden: int = 64,
                       num_layers: int = 6, rspmm_impl: str = "auto",
                       compute_dtype: str = "float32", remat=False,
-                      stack: str = "auto", **options) -> NBFNetConfig:
+                      stack: str = "auto", learn_query: bool = False,
+                      **options) -> NBFNetConfig:
     """The fixed architecture RelNBFNet instantiates: distmult, sum
     aggregation, layer norm, short-cut, 4 relation types, learned relation
-    embeddings. ``options`` are the JAX function's others (``edge_axis``,
-    ``learn_query``, ``ring_exchange``), applied as ``_check_options``
-    says."""
+    embeddings; ``learn_query`` gives the tower a learned query vector.
+    ``options`` are the JAX function's others (``edge_axis``,
+    ``ring_exchange``), applied as ``_check_options`` says."""
     mesh_opts = _check_options("rel_nbfnet_config", rspmm_impl, options)
     _check_dtype("rel_nbfnet_config", compute_dtype)
     _check_memory("rel_nbfnet_config", remat, stack, 0, 0)
@@ -200,6 +202,7 @@ def rel_nbfnet_config(input_dim: int = 64, hidden: int = 64,
         compute_dtype=compute_dtype,
         remat=remat,
         stack=stack,
+        learn_query=bool(learn_query),
         **mesh_opts,
     )
 
@@ -246,13 +249,16 @@ def entity_nbfnet_config(input_dim: int = 64,
 
 class NBFNet(nn.Module):
     """A stack of conv layers; with ``scoring`` also the entity tower's
-    scoring MLP over [state ; query]."""
+    scoring MLP over [state ; query]; with ``learn_query`` the relation
+    tower's query vector (``learnable_q``, [1, D])."""
 
     def __init__(self, cfg: NBFNetConfig, scoring: bool = False):
         super().__init__()
         self.cfg = cfg
         self.layers = nn.ModuleList(
             GeneralizedRelationalConv(c) for c in cfg.layer_configs())
+        if cfg.learn_query:
+            self.learnable_q = nn.Embedding(1, cfg.input_dim)
         if scoring:
             layers = len(cfg.hidden_dims) if cfg.concat_hidden else 1
             feature_dim = cfg.hidden_dims[-1] * layers + cfg.input_dim
@@ -268,9 +274,6 @@ class RelNBFNet(nn.Module):
         super().__init__()
         self.model = NBFNet(cfg)
 
-    def forward(self, rel_graph, query_rels, cfg=None):
-        return rel_nbfnet_apply(self.model, rel_graph, query_rels, cfg)
-
 
 def _propagate(tower: NBFNet, graph, boundary, query=None,
                rel_injected=None, block_domain=False, cfg=None,
@@ -278,18 +281,23 @@ def _propagate(tower: NBFNet, graph, boundary, query=None,
     """Run the conv stack from the boundary condition; returns the final flat
     [V, B*D] hidden state (block-domain rows with ``block_domain``), or with
     ``concat_hidden`` every layer's state side by side per query,
-    [V, B*(L*D)]. ``graph`` is one graph, or a list of one per layer.
-    ``cfg`` (the tower's own by default) gives the short-cut, the concat
-    and the remat policy, which applies while gradients are taken and not
-    under ``edge_grad``."""
+    [V, B*(L*D)]. ``graph`` and ``rel_injected`` are each one for every
+    layer, or a list of one per layer. ``cfg`` (the tower's own by default)
+    gives the short-cut, the concat and the remat policy, which applies
+    while gradients are taken, not under ``edge_grad`` and not for a list
+    of distinct injections."""
     cfg = cfg or tower.cfg
+    L = len(tower.layers)
+    graphs = graph if isinstance(graph, (list, tuple)) else [graph] * L
+    rels = (list(rel_injected) if isinstance(rel_injected, (list, tuple))
+            else [rel_injected] * L)
+    distinct = any(r is not rels[0] for r in rels[1:])
     mode = (remat_mode(cfg.remat)
-            if torch.is_grad_enabled() and not edge_grad else "none")
-    graphs = graph if isinstance(graph, (list, tuple)) else [graph] * len(
-        tower.layers)
+            if torch.is_grad_enabled() and not edge_grad and not distinct
+            else "none")
     hiddens = []
     x = boundary
-    for layer, g in zip(tower.layers, graphs):
+    for layer, g, rel_injected in zip(tower.layers, graphs, rels):
         step = functools.partial(_layer_step, layer, cfg, g, boundary=boundary,
                                  query=query, rel_injected=rel_injected,
                                  block_domain=block_domain)
@@ -340,14 +348,31 @@ def _flat_boundary(V, B, D, rows, query):
 def rel_nbfnet_apply(tower: NBFNet, rel_graph, query_rels,
                      cfg=None) -> torch.Tensor:
     """query_rels: int [B]. Returns [B, num_rel_nodes, D] conditional
-    relation representations; ``cfg`` as for ``_propagate``."""
+    relation representations: the query (all ones, or ``learnable_q``
+    broadcast) at each query relation; ``cfg`` as for ``_propagate``."""
     B = query_rels.shape[0]
     D = tower.cfg.input_dim
     V = rel_graph.num_nodes
-    query = torch.ones((B, D), dtype=torch.float32, device=query_rels.device)
+    if tower.cfg.learn_query:
+        query = tower.learnable_q.weight.expand(B, D)
+    else:
+        query = torch.ones((B, D), dtype=torch.float32,
+                           device=query_rels.device)
     boundary = _flat_boundary(V, B, D, query_rels, query)
     out = _propagate(tower, rel_graph, boundary, cfg=cfg)
     return out.reshape(V, B, -1).transpose(0, 1)  # [B, V(=2R), D]
+
+
+def rel_nbfnet_apply_shared(tower: NBFNet, rel_graph, query_rels,
+                            cfg=None) -> torch.Tensor:
+    """The shared variant (the reference's CustomNBFNet): every query
+    relation of the batch is set to 1 in one channel, so a relation that
+    the batch repeats is still 1, and the output [num_rel_nodes, D] serves
+    the whole batch; ``cfg`` as for ``_propagate``."""
+    boundary = torch.zeros((rel_graph.num_nodes, tower.cfg.input_dim),
+                           dtype=torch.float32, device=query_rels.device)
+    boundary[query_rels] = 1.0
+    return _propagate(tower, rel_graph, boundary, cfg=cfg)  # [V(=2R), D]
 
 
 def entity_nbfnet_score_all(tower: NBFNet, graph, rel_queries,
@@ -359,7 +384,9 @@ def entity_nbfnet_score_all(tower: NBFNet, graph, rel_queries,
 
     graph: undirected+inverse entity graph (2R relation types)
     rel_queries: [B, 2R, D] per-query relation representations, or [2R, D]
-      shared by the batch
+      shared by the batch, or a list of such tensors: one, injected into
+      every layer, or num_layers + 1, element 0 giving the query and
+      element i + 1 feeding layer i
     source: int [B]; query_rel: int [B] in [0, 2R)
     targets: optional int [B, T] candidates; the head then runs on those
       rows only
@@ -370,6 +397,7 @@ def entity_nbfnet_score_all(tower: NBFNet, graph, rel_queries,
     """
     cfg = cfg or tower.cfg
     B = source.shape[0]
+    listed = isinstance(rel_queries, (list, tuple))
     mb = cfg.micro_batch
     if mb and B > mb:
         if B % mb:
@@ -382,9 +410,14 @@ def entity_nbfnet_score_all(tower: NBFNet, graph, rel_queries,
         for lo in range(0, B, mb):
             part = slice(lo, lo + mb)
             # per-query relation representations are split with the batch,
-            # shared [2R, D] ones are not
-            args = (rel_queries[part] if rel_queries.dim() == 3
-                    else rel_queries, source[part], query_rel[part],
+            # shared [2R, D] ones are not (their gradients still flow
+            # through the chunk's checkpoint)
+
+            def split(r):
+                return r[part] if r.dim() == 3 else r
+
+            args = ([split(r) for r in rel_queries] if listed
+                    else split(rel_queries), source[part], query_rel[part],
                     None if targets is None else targets[part])
             # checkpointed: the backward re-runs one chunk at a time, so
             # one chunk's propagation is alive at a time
@@ -392,10 +425,19 @@ def entity_nbfnet_score_all(tower: NBFNet, graph, rel_queries,
                                    preserve_rng_state=False)
                         if grad else chunk(*args))
         return torch.cat(outs)
-    if rel_queries.dim() == 3:
-        query = rel_queries[torch.arange(B, device=source.device), query_rel]
+    L = len(tower.layers)
+    query_src, injected = rel_queries, rel_queries
+    if listed:
+        if len(rel_queries) not in (1, L + 1):
+            raise ValueError(f"{len(rel_queries)} relation representations "
+                             f"for {L} layers: give 1 or {L + 1}")
+        query_src = rel_queries[0]
+        injected = (list(rel_queries[1:]) if len(rel_queries) > 1
+                    else rel_queries[0])
+    if query_src.dim() == 3:
+        query = query_src[torch.arange(B, device=source.device), query_rel]
     else:
-        query = rel_queries[query_rel]
+        query = query_src[query_rel]
     V = graph.num_nodes
     # the ring's permuted IO: the propagation runs in the padded block
     # domain; the boundary goes to the relabelled source rows, and the
@@ -409,7 +451,7 @@ def entity_nbfnet_score_all(tower: NBFNet, graph, rel_queries,
     boundary = _flat_boundary(rows, B, tower.cfg.input_dim,
                               source if to_new is None else to_new[source],
                               query)
-    final = _propagate(tower, graph, boundary, rel_injected=rel_queries,
+    final = _propagate(tower, graph, boundary, rel_injected=injected,
                        block_domain=ring is not None, cfg=cfg)
     if targets is not None:
         return score_heads(tower.mlp, final, query,

@@ -7,13 +7,17 @@
           every entity
 
 Easy edges are "removed" by multiplying their weight by 0 (and that of
-their inverse copy), so shapes stay fixed. This port covers one relation
-tower with per-query conditioning, the configuration every shipped config
-uses.
+their inverse copy), so shapes stay fixed. The relation side is one tower
+or several (``num_rel_models``; the reference's RelationModelList: more
+than one must be num_layers + 1, the first giving the query and tower
+i + 1 feeding entity layer i), each per-query (the reference's
+CustomNBFNetFull) or, with ``rel_shared``, one [2R, D] output for the batch
+(CustomNBFNet).
 
 The module tree follows the reference's ``.pth`` keys: ``model.layers.{i}``
-and ``model.mlp`` for the entity tower, ``rel_models.0.model.layers.{i}``
-for the relation tower.
+and ``model.mlp`` for the entity tower, ``rel_models.{t}.model.layers.{i}``
+(and ``rel_models.{t}.model.learnable_q`` with ``learn_query``) for the
+relation towers.
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ from .nbfnet import (
     RelNBFNet,
     entity_nbfnet_config,
     entity_nbfnet_score_all,
+    rel_nbfnet_apply,
+    rel_nbfnet_apply_shared,
     rel_nbfnet_config,
 )
 
@@ -41,16 +47,19 @@ class UltraConfig:
     entity: NBFNetConfig
     relation: NBFNetConfig
     remove_one_hop: bool = False
+    num_rel_models: int = 1  # relation towers (RelationModelList)
+    rel_shared: bool = False  # one [2R, D] for the batch (CustomNBFNet)
 
     @staticmethod
-    def default(num_relations: int) -> "UltraConfig":
+    def default(num_relations: int,
+                rspmm_impl: str = "auto") -> "UltraConfig":
         """The architecture of every shipped config: 6x64 distmult/sum,
-        layer norm + short-cut, project."""
+        layer norm + short-cut, project; ``rspmm_impl`` on both towers."""
         return UltraConfig(
             entity=entity_nbfnet_config(
                 input_dim=64, hidden_dims=(64,) * 6,
-                num_relations=num_relations * 2),
-            relation=rel_nbfnet_config(),
+                num_relations=num_relations * 2, rspmm_impl=rspmm_impl),
+            relation=rel_nbfnet_config(rspmm_impl=rspmm_impl),
         )
 
 
@@ -59,12 +68,14 @@ class Ultra(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.model = NBFNet(cfg.entity, scoring=True)
-        self.rel_models = nn.ModuleList([RelNBFNet(cfg.relation)])
+        self.rel_models = nn.ModuleList(
+            RelNBFNet(cfg.relation) for _ in range(cfg.num_rel_models))
 
 
 def ultra_init(cfg: UltraConfig, seed: int = 0, device=None) -> Ultra:
     """An Ultra model on ``device`` with weights drawn from a generator
-    seeded with ``seed`` (torch's default initializers)."""
+    seeded with ``seed`` (torch's default initializers), in module order:
+    the entity tower, then relation towers 0, 1, ..."""
     from .. import default_device
 
     device = default_device(device)
@@ -74,8 +85,13 @@ def ultra_init(cfg: UltraConfig, seed: int = 0, device=None) -> Ultra:
 
 
 def _rel_queries(model: Ultra, rel_graph, pos_r, cfg=None):
-    """Run the relation tower: [B, 2R, D]; ``cfg`` its memory policies."""
-    return model.rel_models[0](rel_graph, pos_r, cfg)
+    """Run the relation towers: [B, 2R, D] ([2R, D] with ``rel_shared``)
+    for one tower, a list of one a tower for several; ``cfg`` the memory
+    policies, which every tower takes."""
+    apply = (rel_nbfnet_apply_shared if model.cfg.rel_shared
+             else rel_nbfnet_apply)
+    out = [apply(t.model, rel_graph, pos_r, cfg) for t in model.rel_models]
+    return out[0] if len(out) == 1 else out
 
 
 def _mask_easy_edges(cfg: UltraConfig, fact_graph: Graph, h_index, t_index,
@@ -160,8 +176,7 @@ def ultra_train_scores(model: Ultra, fact_graph: Graph, rel_graph: Graph,
 
     h_index, t_index, r_index = _flip_heads_to_tails(
         h_index, t_index, r_index, fact_graph.num_relations)
-    rel_queries = _rel_queries(model, rel_graph, pos_r,
-                               model_cfg.relation)  # [B, 2R, D]
+    rel_queries = _rel_queries(model, rel_graph, pos_r, model_cfg.relation)
     return entity_nbfnet_score_all(
         model.model, graph_und, rel_queries, source=h_index[:, 0],
         query_rel=r_index[:, 0], targets=t_index, cfg=model_cfg.entity)

@@ -12,16 +12,18 @@ against the model's shape:
     model.layers.{i}.{linear, layer_norm}.{weight, bias}
     model.layers.{i}.relation_projection.layers.{j}.{weight, bias}
     model.mlp.layers.{j}.{weight, bias}
-    rel_models.0.model.layers.{i}.{linear, layer_norm}.{weight, bias}
-    rel_models.0.model.layers.{i}.relation.weight
-    rel_models.0.model.learnable_q.weight   (only where the model has one)
+    rel_models.{t}.model.layers.{i}.{linear, layer_norm}.{weight, bias}
+    rel_models.{t}.model.layers.{i}.relation.weight
+    rel_models.{t}.model.learnable_q.weight   (only where the model has one)
 
 and these are dead in the reference's forward, or environment, and dropped:
 ``model.dist_embed.weight``, the relation tower's scoring MLP
 ``rel_models.{t}.model.mlp.*``, any ``*graph*`` buffer, ``query.weight``,
 every non-tensor value, the optimizer state and DDP's ``module.`` prefix.
-Any other key is reported in one warning. A second relation tower
-(``rel_models.1``) raises: ``num_rel_models > 1`` is ROADMAP Queue 1 item 7.
+Any other key is reported in one warning. Tower t is loaded for every t
+below the model's tower count (``num_rel_models``); a tower beyond it
+raises. The exporter writes every tower with its dead scoring MLP and, as
+the JAX package's exporter, no ``learnable_q``.
 
 ``fix_reasoner`` (frozen-reasoner fine-tuning) keeps the current model's
 relation projections, relation linears, ``relation.weight`` and
@@ -68,6 +70,8 @@ def import_torch_checkpoint(path: str, template: Dict[str, torch.Tensor],
     sd = state["model"] if isinstance(state, dict) and "model" in state \
         else state
     sd = {re.sub(r"^module\.", "", k): v for k, v in sd.items()}
+    towers = len({m.group(1) for k in template
+                  if (m := re.match(r"rel_models\.(\d+)\.", k))})
     out = dict(template)
     unmatched = []
     for key, value in sd.items():
@@ -80,11 +84,10 @@ def import_torch_checkpoint(path: str, template: Dict[str, torch.Tensor],
             if not _DEAD.search(key):
                 unmatched.append(key)
             continue
-        if live.group("tower") not in (None, "0"):
-            raise NotImplementedError(
-                f"checkpoint has {key}: more than one relation tower "
-                "(num_rel_models > 1) is not ported yet (ROADMAP Queue 1 "
-                "item 7)")
+        tower = live.group("tower")
+        if tower is not None and int(tower) >= towers:
+            raise ValueError(f"checkpoint has rel_models.{tower} but the "
+                             f"model has {towers} relation tower(s)")
         if key.endswith("learnable_q.weight") and key not in template:
             continue  # learn_query configs only
         if key not in template:
@@ -104,9 +107,10 @@ def export_torch_checkpoint(path: str, model: torch.nn.Module) -> str:
     """Write an ULTRA model as a reference-layout ``.pth``:
     ``{"model": state_dict, "optimizer": {}}`` with fp32 CPU tensors, the
     inverse of ``import_torch_checkpoint``. The dead reference parameters
-    that have no counterpart (``model.dist_embed.weight`` [10, D], the
+    that have no counterpart (``model.dist_embed.weight`` [10, D], each
     relation tower's scoring MLP [2H, 2H] and [H, 2H]) are written as zeros,
-    so that strict loaders find every key."""
+    so that strict loaders find every key. A ``learnable_q`` is not
+    written, as the JAX package's exporter writes none."""
     state = {k: v.detach().to("cpu", torch.float32).clone()
              for k, v in model.state_dict().items()}
     sd = {k: v for k, v in state.items() if k.startswith("model.")}
@@ -116,7 +120,8 @@ def export_torch_checkpoint(path: str, model: torch.nn.Module) -> str:
                      if (m := re.match(r"rel_models\.(\d+)\.", k))})
     for t in towers:
         prefix = f"rel_models.{t}.model."
-        sd.update((k, v) for k, v in state.items() if k.startswith(prefix))
+        sd.update((k, v) for k, v in state.items() if k.startswith(prefix)
+                  and not k.endswith("learnable_q.weight"))
         last = max(int(m.group(1)) for k in state if (m := re.match(
             re.escape(prefix) + r"layers\.(\d+)\.linear\.weight$", k)))
         hid = state[f"{prefix}layers.{last}.linear.weight"].shape[0]

@@ -11,6 +11,8 @@ Tree paths map onto the reference's state-dict keys:
     entity.mlp.layers[j].{w, b}                -> model.mlp.layers.{j}.*
     relation.layers[i].{linear, layer_norm, relation.weight}
                                                -> rel_models.0.model.layers.{i}.*
+    relation.learnable_q.weight                -> rel_models.0.model.learnable_q.*
+    relation[t].*  (several towers)            -> rel_models.{t}.model.*
 
 and for classic NBFNet (the reference's NBFNet keys):
 
@@ -45,15 +47,21 @@ def _flatten(tree, prefix=""):
 
 def jax_params_to_state_dict(params) -> dict:
     """The JAX tree as a torch state dict with the reference's keys."""
+    towers = isinstance(params, dict) and isinstance(params.get("relation"),
+                                                     (list, tuple))
     state = {}
     for path, value in _flatten(params):
         root, _, rest = path.partition(".")
         if root not in _ROOTS:
             raise KeyError(f"unexpected parameter {path!r}")
+        prefix = _ROOTS[root]
+        if root == "relation" and towers:
+            t, _, rest = rest.partition(".")
+            prefix = f"rel_models.{t}.model"
         *head, leaf = rest.split(".")
         if leaf == "w":
             value = value.T
-        key = ".".join([_ROOTS[root], *head, _LEAVES.get(leaf, leaf)])
+        key = ".".join([prefix, *head, _LEAVES.get(leaf, leaf)])
         state[key] = torch.tensor(np.asarray(value, np.float32))
     return state
 
