@@ -3,7 +3,8 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py                # on a machine with the card
-    python3 chip_smoke.py --device cpu   # rehearsal of phases 1b-45, small
+    python3 chip_smoke.py --device cpu   # rehearsal of phases 1b-48, small
+    python3 chip_smoke.py --only-new     # the build and phases 46-48 alone
 
 Phases, each of which raises on failure (the script then exits nonzero):
 
@@ -271,6 +272,40 @@ Phases, each of which raises on failure (the script then exits nonzero):
               engine: bitwise the same scores; run_full.main on a copy of
               config/transductive/inference.yaml with num_rel_models 7 and
               the file as its checkpoint.
+    46. catalog  files in the public downloads' formats at the catalog's
+              canonical cache layouts in a temporary directory, generated
+              from seeds with string tokens: FB15k237 (14,541 entities,
+              237 relations, 272,115 / 17,535 / 20,466 triples), WN18RR
+              (40,943; 11; 86,835 / 3,034 / 3,134), CoDExMedium (17,050;
+              51; 185,584 / 10,310 / 10,311; codex-m/) and
+              ILPC2022LargeInductive (phase 32's counts; ILPC's folders);
+              each parsed by the port (host seconds; the counts must be
+              those written); run_full.main on copies of the shipped
+              configs with only path changed and the cuts logged:
+              inference.yaml with --dataset FB15k237 (fast_test 64),
+              pretrain_3g.yaml with its dataset section as shipped (1
+              epoch of 3 batches), config/inductive/inference.yaml on
+              ILPC2022LargeInductive (fast_test 64); run_many over
+              FB15k237 and WN18RR with -reps 1 (its CSV checked); one
+              engine with engine.logger: wandb (inert: wandb's import is
+              blocked where it is installed).
+    47. data parallel  2 ranks (child processes of this script,
+              --dp-child, torchrun's environment) on card 0 over gloo,
+              ULTRA 6x64 on the FB-size KG: 256 test triples ranked in
+              round-robin shards at the initial weights and gathered
+              (equal to one process's but within a score tie of 1e-5),
+              then 3 AdamW steps at a global batch of 64 x 128 negatives,
+              32 rows a rank, against one process on the same card
+              (losses 1e-5 relative, parameters 1e-4 norm-wise); K1 12 an
+              eval batch, K1 and K2 6 a step on each rank; ms a step a
+              rank (two ranks share the card: no scaling figure). On a
+              machine with 2 or more cards, also one rank a card over
+              NCCL, as many ranks as cards (ms a step and peak memory a
+              card against the one process on one card).
+    48. composed  the same ranks with parallel: {data: 2, edge: 2},
+              rspmm_impl: ring and rdma: one step's loss (1e-5) and
+              gradients (1e-4 norm-wise) against the single-device step;
+              K1 and K2 24 and K9 12 a step on each rank.
 
 The phases that time evaluation (2, 6-24, 26-29, 32-33) pin the eval
 batch to 16; the CLI runs and pre-training's evaluation take the auto
@@ -279,7 +314,7 @@ policies its remat: auto resolves to.
 
 The last lines are a JSON object with one entry per kernel (K1, K2, K6,
 K7, K6b, K7b, K3, K4, K5, K8f, K8b, K1h, K2h, K9; launches summed over the
-measured runs of phases 2-45, by path in ``launches_by_path``; the staged
+measured runs of phases 2-48, by path in ``launches_by_path``; the staged
 backward kernels' layouts under ``plan``; P1 and P2 with full's numbers
 and their launches in the tools' runs of phase 1b),
 then {"ok": true, "device": {...}}. With no card the script prints no
@@ -291,8 +326,10 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import csv
 import dataclasses
 import gc
+import importlib.util
 import json
 import math
 import os
@@ -2720,10 +2757,15 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
-        help="cpu rehearses phases 1b-45 at a reduced size with the plain "
+        help="cpu rehearses phases 1b-48 at a reduced size with the plain "
              "versions and reports no result")
     parser.add_argument("--failsoft", nargs=3, help=argparse.SUPPRESS,
                         metavar=("LOSS", "PEAK_GIB", "OUT"))
+    parser.add_argument("--dp-child", nargs=2, help=argparse.SUPPRESS,
+                        metavar=("OUT", "CASES"))
+    parser.add_argument(
+        "--only-new", action="store_true",
+        help="run the build and phases 46-48 alone and report no result")
     args = parser.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script checks the port on "
@@ -2734,6 +2776,9 @@ def main(argv=None) -> int:
     if args.failsoft:
         loss, peak, out = args.failsoft
         return failsoft_child(float(loss), float(peak), Path(out))
+    if args.dp_child:
+        out, cases = args.dp_child
+        return dp_child(Path(out), cases.split(","), args.device)
     from ultra_torchdrug_tpu_torch.data.datasets import synthetic_transductive
     from ultra_torchdrug_tpu_torch.models.classic_nbfnet import (
         classic_nbfnet_config,
@@ -2755,6 +2800,12 @@ def main(argv=None) -> int:
         log(f"[env] device {torch.cuda.get_device_name(0)}, "
             f"count {torch.cuda.device_count()}")
         phase_build()
+    if args.only_new:
+        used = {path: {half: {k: v for k, v in c.items() if v}
+                       for half, c in halves.items()}
+                for path, halves in run_new_phases(device).items()}
+        log(f"[only-new] phases 46-48 passed; launches by path {used}")
+        return 0
 
     t0 = time.perf_counter()
     dataset = synthetic_transductive("SynthFB15k237", seed=0, **size)
@@ -2888,9 +2939,14 @@ def main(argv=None) -> int:
         runs["towers .pth"] = run_towers_pth(towers_task, towers_model,
                                              device, Path(tmp))
     del towers_task, towers_model
+    # the dataset catalog's parsers on files in the public formats, then
+    # data parallelism over two ranks (K1, K2 on each; K9 composed)
+    if cuda:
+        release_device_memory()
+    runs.update(run_new_phases(device))
 
     if not cuda:
-        log("[rehearsal] phases 1b-45 ran on the CPU; no kernel ran and no "
+        log("[rehearsal] phases 1b-48 ran on the CPU; no kernel ran and no "
             "result is reported")
         return 1
     for e in entries.values():
@@ -4612,6 +4668,617 @@ def run_towers_pth(task, model, device, pth_dir: Path) -> dict:
             if not torch.equal(v.cpu(), state[k]):
                 raise AssertionError(f"cli 7 towers .pth: {k} not loaded")
     return runs
+
+
+
+# ---------------------------------------------------------------------------
+# phases 46-48: the dataset catalog's parsers and data parallelism
+# ---------------------------------------------------------------------------
+
+# the public counts of the pre-training graphs, each at the catalog's
+# canonical cache layout with its own token style:
+# (name, file pattern, entity format, relation format, entities, relations,
+# train, valid, test)
+CATALOG_GRAPHS = (
+    ("FB15k237", "fb15k237_{s}.txt", "/m/0{:05x}", "/film/rel_{}/type",
+     14541, 237, 272115, 17535, 20466),
+    ("WN18RR", "wn18rr_{s}.txt", "{:08d}", "_rel_{}", 40943, 11, 86835,
+     3034, 3134),
+    ("CoDExMedium", "codex-m/{s}.txt", "Q{}", "P{}", 17050, 51, 185584,
+     10310, 10311),
+)
+CATALOG_REHEARSAL = (
+    ("FB15k237", "fb15k237_{s}.txt", "/m/0{:05x}", "/film/rel_{}/type",
+     600, 20, 4000, 200, 200),
+    ("WN18RR", "wn18rr_{s}.txt", "{:08d}", "_rel_{}", 900, 11, 3000, 150,
+     150),
+    ("CoDExMedium", "codex-m/{s}.txt", "Q{}", "P{}", 500, 15, 3500, 150,
+     150),
+)
+ILPC_DIR = "ilpc-large/pykeen-ilpc2022-c5ea003/data/large"
+# the cuts of phase 46: the shipped configs evaluate every valid and test
+# triple (the inference configs) or fast_test 500 a graph (pretrain_3g)
+CATALOG_FAST_TEST = 64
+CATALOG_FAST_TEST_REHEARSAL = 16
+# phases 47-48: data parallelism over 2 ranks on one card (gloo), the
+# FB-size KG, batch 64 x 128 negatives (32 rows a rank), eval batch 16
+DP_RANKS = 2
+DP_STEPS = 3
+DP_EVAL_TRIPLES = 256
+DP_LOSS_RTOL = 1e-5
+DP_PARAM_RTOL = 1e-4
+DP_TIE = 1e-5
+DP_CHILD_TIMEOUT = 600
+
+
+def catalog_rows(rng, V: int, R: int, n: int) -> np.ndarray:
+    """n (h, r, t) id rows over V entities and R relations; the first rows'
+    heads run through every entity and their relations through every
+    relation, so that a file set of n >= V rows names each."""
+    rows = np.stack([rng.integers(0, V, n), rng.integers(0, R, n),
+                     rng.integers(0, V, n)], 1)
+    k = min(V, n)
+    rows[:k, 0] = rng.permutation(V)[:k]
+    rows[:min(R, n), 1] = np.arange(min(R, n))
+    return rows
+
+
+def write_triples(path: Path, rows: np.ndarray, ent: list, rel: list,
+                  offset: int = 0) -> None:
+    """One triple file in the public downloads' format: h, r, t tokens
+    separated by tabs, one row a line."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text("".join(
+        f"{ent[h + offset]}\t{rel[r]}\t{ent[t + offset]}\n"
+        for h, r, t in rows.tolist()))
+
+
+def write_catalog(root: Path, graphs, ilpc: dict) -> dict:
+    """Write the three pre-training graphs and ILPC 2022 large at their
+    canonical cache layouts under ``root`` from seeded draws with
+    ``graphs``' and ``ilpc``'s counts; returns the counts written by
+    dataset name."""
+    written = {}
+    for seed, (name, pattern, ent_fmt, rel_fmt, V, R, *splits) in enumerate(
+            graphs):
+        rng = np.random.default_rng(100 + seed)
+        ent = [ent_fmt.format(i) for i in range(V)]
+        rel = [rel_fmt.format(i) for i in range(R)]
+        rows = catalog_rows(rng, V, R, sum(splits))
+        lo = 0
+        for split, n in zip(("train", "valid", "test"), splits):
+            write_triples(root / pattern.format(s=split), rows[lo:lo + n],
+                          ent, rel)
+            lo += n
+        written[name] = dict(entities=V, relations=R,
+                             **dict(zip(("train", "valid", "test"), splits)))
+    rng = np.random.default_rng(200)
+    R = ilpc["relations"]
+    Vt, Vi = ilpc["train_entities"], ilpc["inference_entities"]
+    ent = [f"Q{i}" for i in range(Vt + Vi)]  # inference entities after
+    rel = [f"P{i}" for i in range(R)]
+    base = root / ILPC_DIR
+    write_triples(base / "train.txt",
+                  catalog_rows(rng, Vt, R, ilpc["train_triples"]), ent, rel)
+    inference = catalog_rows(
+        rng, Vi, R, ilpc["inference_triples"] + ilpc["valid"] + ilpc["test"])
+    n_inf = ilpc["inference_triples"]
+    for f, part in (("inference", inference[:n_inf]),
+                    ("inference_validation",
+                     inference[n_inf:n_inf + ilpc["valid"]]),
+                    ("inference_test", inference[n_inf + ilpc["valid"]:])):
+        write_triples(base / f"{f}.txt", part, ent, rel, offset=Vt)
+    written["ILPC2022LargeInductive"] = dict(ilpc)
+    return written
+
+
+def parse_catalog(root: Path, written: dict) -> dict:
+    """Parse every written dataset with the port's catalog; the counts
+    must be those written. Returns the host seconds of each parse."""
+    from ultra_torchdrug_tpu_torch.utils.config import lookup
+
+    seconds = {}
+    for name, want in written.items():
+        t0 = time.perf_counter()
+        ds = lookup(name)(path=str(root))
+        seconds[name] = time.perf_counter() - t0
+        if name == "ILPC2022LargeInductive":
+            got = dict(train_entities=ds.train_graph.num_nodes,
+                       train_triples=ds.train_graph.num_edges,
+                       inference_entities=ds.test_graph.num_nodes,
+                       inference_triples=ds.test_graph.num_edges,
+                       valid=len(ds.valid), test=len(ds.test),
+                       relations=ds.num_relations)
+        else:
+            got = dict(entities=ds.num_entities, relations=ds.num_relations,
+                       train=len(ds.train), valid=len(ds.valid),
+                       test=len(ds.test))
+        if got != want:
+            raise AssertionError(f"catalog {name}: parsed {got}, wrote "
+                                 f"{want}")
+        log(f"[catalog] {name}: {got} parsed in {seconds[name]:.3f} s of "
+            f"host time")
+    return seconds
+
+
+def catalog_config(src: str, root: Path, out: Path, edits: dict) -> Path:
+    """A copy of a shipped config with ``path`` set to ``root`` and the
+    text edits ``edits`` (old -> new) applied, each of which must match."""
+    text = (REPO / src).read_text()
+    edits = {"path: ~/kg-datasets/": f"path: {root}/", **edits}
+    for old, new in edits.items():
+        if text.count(old) != 1:
+            raise AssertionError(f"{src}: {old!r} is not in it once")
+        text = text.replace(old, new)
+    out.write_text(text)
+    return out
+
+
+def run_catalog(device) -> dict:
+    """Phase 46: the dataset catalog's parsers on files written in the
+    public downloads' formats (module docstring). Returns the launch
+    counts of each run."""
+    from ultra_torchdrug_tpu_torch import run_many
+    from ultra_torchdrug_tpu_torch.engine.build import (
+        build_dataset,
+        build_engine,
+        build_task,
+    )
+    from ultra_torchdrug_tpu_torch.utils.config import load_config
+
+    cuda = device.type == "cuda"
+    graphs = CATALOG_GRAPHS if cuda else CATALOG_REHEARSAL
+    ilpc = ILPC_LARGE if cuda else ILPC_REHEARSAL
+    fast = CATALOG_FAST_TEST if cuda else CATALOG_FAST_TEST_REHEARSAL
+    counts = {}
+    # where wandb is installed its run stays offline: no network call
+    os.environ["WANDB_MODE"] = "disabled"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_kg_") as tmp, \
+            in_directory(tmp):
+        root = Path(tmp) / "kg-datasets"
+        t0 = time.perf_counter()
+        written = write_catalog(root, graphs, ilpc)
+        log(f"[catalog] wrote {len(written)} datasets in the public "
+            f"formats in {time.perf_counter() - t0:.1f} s")
+        parse_catalog(root, written)
+        cuts = [f"fast_test {fast} on the inference configs (shipped: every "
+                "valid and test triple)"]
+        inference = catalog_config(
+            "config/transductive/inference.yaml", root,
+            Path(tmp) / "inference.yaml",
+            {"metric: mrr": f"metric: mrr\nfast_test: {fast}"})
+        counts["inference FB15k237"], engine = cli_run(
+            "inference.yaml on FB15k237 files", [
+                "-c", str(inference), "--dataset", "FB15k237", "--epochs",
+                "0", "--bpe", "0", "--gpus", "[0]", "--ckpt", "null"],
+            device, 0)
+        check_launches("catalog inference", counts["inference FB15k237"],
+                       {"K1": K1_LAUNCHES_PER_BATCH},
+                       counts["inference FB15k237"]["K1"]
+                       // K1_LAUNCHES_PER_BATCH, device)
+        del engine
+        pretrain_edits = {"num_epoch: 10": "num_epoch: 1",
+                          "batch_per_epoch: 20000": "batch_per_epoch: 3"}
+        cuts.append("pretrain_3g.yaml: train.num_epoch 10 -> 1, "
+                    "batch_per_epoch 20000 -> 3")
+        if not cuda:
+            pretrain_edits["fast_test: 500"] = f"fast_test: {fast}"
+            cuts.append(f"pretrain_3g.yaml: fast_test 500 -> {fast} (CPU)")
+            pretrain_edits["batch_size: 64"] = "batch_size: 8"
+            pretrain_edits["num_negative: 128"] = "num_negative: 16"
+        pretrain = catalog_config(
+            "config/transductive/pretrain_3g.yaml", root,
+            Path(tmp) / "pretrain_3g.yaml", pretrain_edits)
+        counts["pretrain_3g"], engine = cli_run(
+            "pretrain_3g.yaml on FB15k237, WN18RR, CoDExMedium files",
+            ["-c", str(pretrain), "--gpus", "[0]"], device, 1)
+        names = [d.name for d in engine.task.dataset.datasets]
+        if (engine.meter.global_step != 3
+                or len(engine.metrics["test"]["per_graph"]) != 3
+                or names != ["FB15k237", "WN18RR", "CoDExM"]):
+            raise AssertionError(f"catalog pretrain: {names}, "
+                                 f"{engine.meter.global_step} steps, "
+                                 f"{engine.metrics['test']}")
+        del engine
+        inductive = catalog_config(
+            "config/inductive/inference.yaml", root,
+            Path(tmp) / "inductive.yaml",
+            {"metric: mrr": f"metric: mrr\nfast_test: {fast}"})
+        counts["inductive ILPC large"], engine = cli_run(
+            "inductive inference.yaml on ILPC2022LargeInductive files", [
+                "-c", str(inductive), "--dataset", "ILPC2022LargeInductive",
+                "--version", "v1", "--epochs", "0", "--bpe", "0", "--gpus",
+                "[0]", "--ckpt", "null"], device, 0)
+        if engine.task.dataset.test_graph.num_nodes != \
+                ilpc["inference_entities"]:
+            raise AssertionError("catalog inductive: not the inference graph")
+        del engine
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        csv_path = run_many.main([
+            "-c", str(inference), "-d", "FB15k237,WN18RR", "-reps", "1",
+            "--epochs", "0", "--bpe", "0", "--gpus", "[0]", "--device",
+            device.type])
+        counts["run_many"] = launch_counts()
+        with open(csv_path, newline="") as f:
+            rows = list(csv.DictReader(f))
+        if ([(r["dataset"], r["seed"]) for r in rows]
+                != [("FB15k237", "1024"), ("WN18RR", "1024")]
+                or not all(math.isfinite(float(r["mrr"])) for r in rows)):
+            raise AssertionError(f"run_many csv: {rows}")
+        log(f"[catalog] run_many over FB15k237, WN18RR (-reps 1, epochs 0): "
+            f"{time.perf_counter() - t0:.1f} s, {Path(csv_path).name} with "
+            f"{len(rows)} rows, columns {sorted(rows[0])}, mrr "
+            f"{[round(float(r['mrr']), 6) for r in rows]}; launches "
+            f"{ {k: v for k, v in counts['run_many'].items() if v} }")
+        cfg = load_config(str(inference), context=dict(
+            dataset="WN18RR", gpus=[0], epochs=0, bpe=0, ckpt=None))[0]
+        cfg["engine"].update(logger="wandb", log_interval=1)
+        task = build_task(cfg["task"], build_dataset(cfg["dataset"]),
+                          device=device)
+        # the logger runs as it does without wandb: its import is blocked
+        # for the scope, so no run starts where wandb is installed
+        installed = importlib.util.find_spec("wandb") is not None
+        saved = sys.modules.get("wandb")
+        sys.modules["wandb"] = None
+        try:
+            engine = build_engine(cfg, task, work_dir=tmp)
+        finally:
+            if saved is None:
+                del sys.modules["wandb"]
+            else:
+                sys.modules["wandb"] = saved
+        reset_launch_counts()
+        engine.train(batch_per_epoch=1)
+        counts["wandb"] = launch_counts()
+        sink = engine.meter.sink
+        if type(sink).__name__ != "WandbLogger" or sink._run is not None:
+            raise AssertionError(f"engine.logger: wandb built {sink!r}")
+        check_launches("catalog wandb", counts["wandb"],
+                       {"K1": K_LAUNCHES_PER_STEP, "K2": K_LAUNCHES_PER_STEP},
+                       1, device)
+        how = "installed, its import blocked" if installed else "absent"
+        log(f"[catalog] engine.logger: wandb on WN18RR: an inert WandbLogger "
+            f"(wandb {how}); one step, loss "
+            f"{engine.meter.last_window[0]['loss']:.6g}")
+        del engine, task
+        for cut in cuts:
+            log(f"[catalog] cut: {cut}")
+    return counts
+
+
+def run_new_phases(device) -> dict:
+    """Phases 46-48, each timed; returns their launch counts by path."""
+    runs = {}
+    t0 = time.perf_counter()
+    runs["catalog"] = run_catalog(device)
+    t1 = time.perf_counter()
+    runs["data parallel"], runs["composed"] = run_data_parallel(device)
+    log(f"[timing] phase 46 {t1 - t0:.1f} s, phases 47-48 "
+        f"{time.perf_counter() - t1:.1f} s")
+    return runs
+
+
+def dp_config(data: int, edge: int, size: dict) -> dict:
+    """inference.yaml's model and task sections (ULTRA 6x64) at ``size``'s
+    batch and negatives, eval batch EVAL_BATCH, on a mesh of ``data`` rows
+    x ``edge`` shards (the ring with rdma when edge > 1)."""
+    cfg = inference_config({"class": "SynthKG"}, "float32")
+    cfg["task"]["num_negative"] = size["negatives"]
+    cfg["engine"].update(batch_size=size["batch"], log_interval=10**9)
+    if data > 1 or edge > 1:
+        cfg["parallel"] = {"data": data, "edge": edge}
+    if edge > 1:
+        cfg["rspmm_impl"] = "ring"
+        cfg["task"]["model"]["ring_exchange"] = "rdma"
+    return cfg
+
+
+def dp_run(dataset, device, data: int, edge: int, steps: int,
+           eval_triples: int) -> dict:
+    """One process's part of phases 47-48 (every rank's, or the single
+    process's reference): the test rankings of ``eval_triples`` triples at
+    the initial weights (round-robin shards under a data axis, gathered),
+    then ``steps`` AdamW steps through Engine.train; returns the rankings,
+    the reference's near-tie counts, the logged losses, the first step's
+    gradients as the optimizer applies them, the parameters, the ms of
+    each step, the peak memory and the launch counts."""
+    from ultra_torchdrug_tpu_torch.engine.build import (
+        build_engine,
+        build_task,
+        mesh_scope,
+    )
+    from ultra_torchdrug_tpu_torch.ops.match import (
+        head_truth_mask,
+        tail_truth_mask,
+    )
+    from ultra_torchdrug_tpu_torch.parallel import distributed
+
+    cuda = device.type == "cuda"
+    size = TRAIN if cuda else TRAIN_REHEARSAL
+    cfg = dp_config(data, edge, size)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as work_dir, \
+            mesh_scope(cfg, device) as (mesh, edge_axis, rel_edge_axis):
+        task = build_task(cfg["task"], dataset,
+                          rspmm_impl=cfg.get("rspmm_impl", "auto"), seed=0,
+                          device=device, edge_axis=edge_axis,
+                          rel_edge_axis=rel_edge_axis)
+        engine = build_engine(cfg, task, work_dir=work_dir, seed=0,
+                              mesh=mesh)
+        if eval_triples:
+            triples = dataset.test[:eval_triples]
+            reset_launch_counts()
+            ranking, _ = task._run_eval(task._eval_fn, engine.model, triples,
+                                        EVAL_BATCH)
+            out.update(ranking=ranking, eval_counts=launch_counts())
+            if data == 1 and edge == 1:
+                # per query and direction: the allowed candidates whose
+                # score lies within DP_TIE of the target's
+                b = torch.from_numpy(triples.astype(np.int64)).to(device)
+                fact_und, rel_graph = task._prepare_graphs(task.fact_graph,
+                                                           task.rel_graph)
+                filter_edges = task.graph.edge_list.to(device)
+                V = task.fact_graph.num_nodes
+                ties = []
+                with torch.inference_mode():
+                    for lo in range(0, len(b), EVAL_BATCH):
+                        c = b[lo:lo + EVAL_BATCH]
+                        ts, hs = task._eval_scores(
+                            engine.model, task.fact_graph, rel_graph, c[:, 0],
+                            c[:, 1], c[:, 2], fact_und)
+                        cols = []
+                        for s, target, truth in (
+                                (ts, c[:, 1], tail_truth_mask(
+                                    filter_edges, c[:, 0], c[:, 2], V)),
+                                (hs, c[:, 0], head_truth_mask(
+                                    filter_edges, c[:, 1], c[:, 2], V))):
+                            gap = (s - s.gather(1, target[:, None])).abs()
+                            cols.append(((gap <= DP_TIE) & ~truth).sum(1))
+                        ties.append(torch.stack(cols, 1).cpu())
+                out["ties"] = torch.cat(ties).numpy()
+                del fact_und, rel_graph
+        applied, reduce = [], distributed.all_reduce_mean
+
+        def recording(flat):
+            flat = reduce(flat)
+            if not applied:
+                applied.append([flat.detach().cpu()])
+            return flat
+
+        distributed.all_reduce_mean = recording
+        step_ms, run_step = [], engine._run_step
+
+        def timed_step(gid, batch):
+            if cuda:
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            metrics = run_step(gid, batch)
+            if cuda:
+                torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            return metrics
+
+        engine._run_step = timed_step
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        try:
+            engine.train(batch_per_epoch=steps)
+        finally:
+            distributed.all_reduce_mean = reduce
+        out.update(
+            train_counts=launch_counts(), step_ms=step_ms,
+            losses=[m["loss"] for m in engine.meter.last_window],
+            grads=applied[0],
+            params={k: v.detach().cpu()
+                    for k, v in engine.model.state_dict().items()},
+            peak_gib=(torch.cuda.max_memory_allocated(device) / 2**30
+                      if cuda else float("nan")))
+    del engine, task
+    if cuda:
+        release_device_memory()
+    return out
+
+
+def dp_child(out_dir: Path, cases: list, device_type: str) -> int:
+    """``--dp-child``: one rank of phases 47-48, launched by
+    ``spawn_ranks`` with torchrun's environment variables; writes its
+    results to out_dir/rank{RANK}.pt."""
+    from ultra_torchdrug_tpu_torch import run_full
+    from ultra_torchdrug_tpu_torch.data.datasets import synthetic_transductive
+    from ultra_torchdrug_tpu_torch.parallel import distributed
+
+    device = run_full.setup_process(device_type)
+    world, rank = distributed.process_count(), distributed.process_index()
+    cuda = device.type == "cuda"
+    dataset = synthetic_transductive("SynthFB15k237", seed=0,
+                                     **(FULL if cuda else REHEARSAL))
+    result = {"backend": torch.distributed.get_backend(),
+              "device": str(device)}
+    if "dp" in cases:
+        result["dp"] = dp_run(dataset, device, world, 1, DP_STEPS,
+                              DP_EVAL_TRIPLES)
+    if "composed" in cases:
+        result["composed"] = dp_run(dataset, device, world, 2, 1, 0)
+    torch.save(result, out_dir / f"rank{rank}.pt")
+    distributed.shutdown()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(cases: list, device, share_card: bool, world: int) -> list:
+    """Run ``cases`` on ``world`` child processes of this script (torchrun's
+    environment variables, a localhost rendezvous): on card 0 alone, over
+    gloo, with ``share_card``, else one rank a card. Returns each rank's
+    results; a rank that fails or outlasts DP_CHILD_TIMEOUT fails the
+    phase, and every child is stopped."""
+    port = free_port()
+    procs = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
+        for r in range(world):
+            env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                       WORLD_SIZE=str(world),
+                       LOCAL_WORLD_SIZE=str(world),
+                       MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                       OMP_NUM_THREADS="2")
+            if share_card and device.type == "cuda":
+                env["CUDA_VISIBLE_DEVICES"] = "0"
+            logfile = open(Path(tmp) / f"rank{r}.log", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, str(REPO / "chip_smoke.py"), "--dp-child",
+                 tmp, ",".join(cases), "--device", device.type],
+                env=env, stdout=logfile, stderr=subprocess.STDOUT),
+                logfile))
+        try:
+            deadline = time.monotonic() + DP_CHILD_TIMEOUT
+            for p, _ in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        finally:
+            for p, logfile in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                logfile.close()
+        failed = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
+        if failed:
+            tails = "\n".join(
+                f"--- rank {r} ---\n" + "\n".join(
+                    (Path(tmp) / f"rank{r}.log").read_text()
+                    .splitlines()[-40:]) for r in failed)
+            raise AssertionError(f"ranks {failed} failed:\n{tails}")
+        return [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                for r in range(world)]
+
+
+def compare_to_single(label: str, got: dict, single: dict,
+                      first_step_only: bool = False) -> str:
+    """A rank's losses within DP_LOSS_RTOL and its gradients (the first
+    step's) or parameters within DP_PARAM_RTOL norm-wise of the single
+    process's; returns a summary."""
+    losses = got["losses"]
+    want = single["losses"][:len(losses)]
+    loss_err = max(abs(a - b) / max(abs(b), 1e-12)
+                   for a, b in zip(losses, want))
+    if not losses or loss_err > DP_LOSS_RTOL:
+        raise AssertionError(f"{label}: losses {losses} vs one process "
+                             f"{want}")
+    pairs = (zip(got["grads"], single["grads"]) if first_step_only
+             else ((got["params"][k], v) for k, v in single["params"].items()))
+    worst = 0.0
+    for a, b in pairs:
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{label}: non-finite values")
+        worst = max(worst, ((a - b).norm() / b.norm().clamp(min=1e-12))
+                    .item())
+    what = "first step's gradients" if first_step_only else "parameters"
+    if worst > DP_PARAM_RTOL:
+        raise AssertionError(f"{label}: {what} differ by {worst:.3g} "
+                             "norm-wise")
+    return (f"losses within {loss_err:.3g} relative (limit "
+            f"{DP_LOSS_RTOL:g}), {what} within {worst:.3g} norm-wise "
+            f"(limit {DP_PARAM_RTOL:g})")
+
+
+def check_dp_rankings(label: str, got: np.ndarray, single: dict) -> int:
+    """Rankings equal to the single process's but where candidates tie the
+    target within DP_TIE; returns how many entries differ."""
+    want, ties = single["ranking"], single["ties"]
+    diff = np.abs(got.astype(np.int64) - want.astype(np.int64))
+    bad = diff > ties
+    if got.shape != want.shape or bad.any():
+        raise AssertionError(f"{label}: rankings differ beyond ties at "
+                             f"{np.argwhere(bad)[:5].tolist()}")
+    return int((diff > 0).sum())
+
+
+def run_data_parallel(device) -> tuple:
+    """Phases 47-48: data parallelism (module docstring). Returns the
+    launch counts by half, of phase 47 and of phase 48."""
+    from ultra_torchdrug_tpu_torch.data.datasets import synthetic_transductive
+
+    cuda = device.type == "cuda"
+    size = TRAIN if cuda else TRAIN_REHEARSAL
+    dataset = synthetic_transductive("SynthFB15k237", seed=0,
+                                     **(FULL if cuda else REHEARSAL))
+    batches = DP_EVAL_TRIPLES // EVAL_BATCH
+    single = dp_run(dataset, device, 1, 1, DP_STEPS, DP_EVAL_TRIPLES)
+    check_launches("dp single eval", single["eval_counts"],
+                   {"K1": K1_LAUNCHES_PER_BATCH}, batches, device)
+    check_launches("dp single train", single["train_counts"],
+                   {"K1": K_LAUNCHES_PER_STEP, "K2": K_LAUNCHES_PER_STEP},
+                   DP_STEPS, device)
+    log(f"[dp] one process: {DP_EVAL_TRIPLES} test triples ranked, "
+        f"{DP_STEPS} steps at batch {size['batch']} x {size['negatives']}: "
+        f"{[round(t, 2) for t in single['step_ms']]} ms, losses "
+        f"{[round(x, 8) for x in single['losses']]}, peak "
+        f"{single['peak_gib']:.3f} GiB")
+    dp_runs = {"single eval": single["eval_counts"],
+               "single train": single["train_counts"]}
+    composed_runs = {}
+    # with several cards, the NCCL variant takes one rank a card
+    variants = [("gloo, one card", True, DP_RANKS)]
+    if cuda and torch.cuda.device_count() >= 2:
+        variants.append(("nccl, a card a rank", False,
+                         torch.cuda.device_count()))
+    for name, share, world in variants:
+        cases = ["dp", "composed"] if share else ["dp"]
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(cases, device, share, world)
+        log(f"[dp {name}] {world} ranks ({[r['backend'] for r in ranks]}"
+            f" on {[r['device'] for r in ranks]}) in "
+            f"{time.perf_counter() - t0:.1f} s with their start-up")
+        for r, res in enumerate(ranks):
+            got = res["dp"]
+            check_launches(f"dp {name} rank {r} eval", got["eval_counts"],
+                           {"K1": K1_LAUNCHES_PER_BATCH},
+                           batches // world, device)
+            check_launches(f"dp {name} rank {r} train", got["train_counts"],
+                           {"K1": K_LAUNCHES_PER_STEP,
+                            "K2": K_LAUNCHES_PER_STEP}, DP_STEPS, device)
+            differ = check_dp_rankings(f"dp {name} rank {r}",
+                                       got["ranking"], single)
+            summary = compare_to_single(f"dp {name} rank {r}", got, single)
+            timed = got["step_ms"][1:]
+            log(f"[dp {name}] rank {r}: {summary}; gathered rankings of "
+                f"{DP_EVAL_TRIPLES} triples equal one process's but "
+                f"{differ} entries within ties of {DP_TIE:g}; "
+                f"{size['batch'] // world} rows a rank, "
+                f"{sum(timed) / len(timed):.2f} ms per step after a "
+                f"{got['step_ms'][0]:.1f} ms first step ("
+                + ("two ranks share one card: no scaling figure"
+                   if share else "one rank a card")
+                + f"), peak {got['peak_gib']:.3f} GiB; launches eval "
+                f"{ {k: v for k, v in got['eval_counts'].items() if v} }, "
+                f"train "
+                f"{ {k: v for k, v in got['train_counts'].items() if v} }")
+            dp_runs[f"{name} rank{r} eval"] = got["eval_counts"]
+            dp_runs[f"{name} rank{r} train"] = got["train_counts"]
+            if "composed" not in res:
+                continue
+            got = res["composed"]
+            counts = got["train_counts"]
+            # a step: K1 and K2 once a non-empty bucket (4 on 2 shards) a
+            # layer, K9 once a layer each way
+            check_launches(f"composed rank {r}", counts,
+                           {"K1": 4 * K_LAUNCHES_PER_STEP,
+                            "K2": 4 * K_LAUNCHES_PER_STEP,
+                            "K9": 2 * K_LAUNCHES_PER_STEP}, 1, device)
+            summary = compare_to_single(f"composed rank {r}", got, single,
+                                        first_step_only=True)
+            log(f"[composed] rank {r}: data {world} x edge 2 (ring, "
+                f"rdma) one step vs one process on one device: {summary}; "
+                f"{got['step_ms'][0]:.1f} ms; launches "
+                f"{ {k: v for k, v in counts.items() if v} }")
+            composed_runs[f"rank{r} train"] = counts
+    return dp_runs, composed_runs
 
 
 if __name__ == "__main__":

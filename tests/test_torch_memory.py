@@ -438,17 +438,17 @@ def test_engine_survives_injected_oom(small, tmp_path, monkeypatch):
     clean = _engine(small, tmp_path)
     clean.train(num_epoch=1, batch_per_epoch=4)
     eng = _engine(small, tmp_path)
-    real = Engine._step
+    real = Engine._apply
     state = {"oomed": False}
 
-    def failing(self, graph_id, batch):
+    def failing(self, flat, grads, metrics):
         if not state["oomed"]:
             state["oomed"] = True
-            metrics = real(self, graph_id, batch)  # a step that then fails
+            real(self, flat, grads, metrics)  # an update that then fails
             raise FAKE_OOM
-        return real(self, graph_id, batch)
+        return real(self, flat, grads, metrics)
 
-    monkeypatch.setattr(Engine, "_step", failing)
+    monkeypatch.setattr(Engine, "_apply", failing)
     eng.train(num_epoch=1, batch_per_epoch=4)
     assert state["oomed"] and eng.task._policy_demotion == 1
     for a, b in zip(eng.model.parameters(), clean.model.parameters()):
@@ -465,7 +465,7 @@ def test_engine_reraises_non_oom(small, tmp_path, monkeypatch):
     def raiser(self, graph_id, batch):
         raise RuntimeError("INVALID_ARGUMENT: not an OOM")
 
-    monkeypatch.setattr(Engine, "_step", raiser)
+    monkeypatch.setattr(Engine, "_grads", raiser)
     with pytest.raises(RuntimeError, match="INVALID_ARGUMENT"):
         eng.train(num_epoch=1, batch_per_epoch=2)
     assert eng.task._policy_demotion == 0

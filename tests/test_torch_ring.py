@@ -302,7 +302,8 @@ def test_conv_routes_sums_through_the_ring_on_the_mesh_only(
 
 
 def test_mesh_raises_where_the_slice_does_not_reach():
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # a data axis runs over processes: one process cannot hold two rows
+    with pytest.raises(ValueError, match="needs 2 processes.*has 1"):
         mesh.make_mesh(data=2, edge=2, device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
         mesh.make_mesh(edge=2, devices=["cpu", "meta"])

@@ -239,8 +239,9 @@ def test_run_full_ring_cli_matches_the_single_device_run(tmp_path, ring_calls,
 
 
 @pytest.mark.parametrize("edit,error,match", [
+    # a data axis runs over processes: one process cannot hold two rows
     (lambda c: c.update(parallel={"data": 2, "edge": 2}),
-     NotImplementedError, "item 9"),
+     ValueError, "needs 2 processes"),
     (lambda c: c.update(parallel={"edge": 4, "relation_edge": True}),
      NotImplementedError, "item 9"),
     (lambda c: c.update(rspmm_impl="auto"), NotImplementedError,

@@ -2,25 +2,28 @@
 dicts in the reference's YAML schema -> dataset, model config, task config,
 task and engine, with the same keys and defaults as the JAX package.
 
-A ``parallel: {edge: N}`` section builds an N-shard edge mesh whose shards
-all live on the run's one device (``build_mesh``, ``mesh_scope``); under it
-the entity tower takes the ring with ``rspmm_impl: ring`` (``ring_exchange:
+A top-level ``parallel: {data: N, edge: M}`` section (or the legacy
+``engine.data_parallel``) builds the run's mesh (``build_mesh``,
+``mesh_scope``): a data axis of N runs over a process group of N
+processes (parallel/distributed.py, launched by torchrun), and each
+process's M edge shards live on its one device; under an edge axis the
+entity tower takes the ring with ``rspmm_impl: ring`` (``ring_exchange:
 rdma`` runs kernel K9 for the ring shift). The task classes map as in the
-JAX package: the transductive ones to ``TransductiveKGTask``, the inductive
-ones to ``InductiveKGTask`` and ``MultiGraphPreTraining`` to
+JAX package: the transductive ones to ``TransductiveKGTask``, the
+inductive ones to ``InductiveKGTask`` and ``MultiGraphPreTraining`` to
 ``MultiGraphPretrainTask``, each with its default metrics and relation
-count. What the port does not carry raises with the ROADMAP Queue 1 item
-that will port it: a data axis (``parallel.data`` or
-``engine.data_parallel`` > 1) and an edge-sharded relation tower
-(``parallel.relation_edge``) (item 9), and ``engine.logger: wandb`` (item
-8). The relation side reads ``rel_models.num_rel_models``,
-``rel_model.class_str: CustomNBFNet`` (the shared relation model) and
-``rel_model.learn_query`` as the JAX package does; the engine takes
-``engine.steps_per_call``. The model options go through
-``entity_nbfnet_config`` and ``rel_nbfnet_config``, which check the
-memory policies (``remat``, ``stack``, ``micro_batch``, ``score_chunk``;
-the task resolves "auto") and ``rspmm_impl`` (``xla``, the O(E) route,
-is logged) and raise on what they do not honour.
+count. ``engine.logger: wandb`` gives the engine's meter a
+``WandbLogger`` sink (project ``engine.wandb_project``), inert without
+wandb. What the port does not carry raises with the ROADMAP Queue 1 item
+that will port it: an edge-sharded relation tower
+(``parallel.relation_edge``, item 9). The relation side reads
+``rel_models.num_rel_models``, ``rel_model.class_str: CustomNBFNet`` (the
+shared relation model) and ``rel_model.learn_query`` as the JAX package
+does; the engine takes ``engine.steps_per_call``. The model options go
+through ``entity_nbfnet_config`` and ``rel_nbfnet_config``, which check
+the memory policies (``remat``, ``stack``, ``micro_batch``,
+``score_chunk``; the task resolves "auto") and ``rspmm_impl`` (``xla``,
+the O(E) route, is logged) and raise on what they do not honour.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from ..data import catalog  # noqa: F401  (registers the datasets)
 from ..data.datasets import InductiveDataset, JointDataset, TransductiveDataset
 from ..models.nbfnet import entity_nbfnet_config, rel_nbfnet_config
 from ..models.ultra import UltraConfig
+from ..parallel import distributed
 from ..parallel.mesh import current_mesh, make_mesh, use_mesh
 from ..tasks.task import (
     DEFAULT_INDUCTIVE_METRICS,
@@ -75,9 +79,11 @@ def build_dataset(cfg_dataset: dict):
 
 def build_mesh(cfg: dict, device=None):
     """The mesh of the top-level ``parallel: {data: N, edge: M}`` section
-    (or the legacy ``engine.data_parallel``), every shard on ``device``
-    (the card unless the caller names another); None for a 1x1 mesh. A
-    data axis raises (ROADMAP Queue 1 item 9)."""
+    (or the legacy ``engine.data_parallel``): this process's data row, its
+    edge shards on ``device`` (the card unless the caller names another;
+    the rank's own under a process group); None for a 1x1 mesh in one
+    process. A data axis other than the process group's size raises
+    (``make_mesh``)."""
     par = cfg.get("parallel") or {}
     unknown = set(par) - {"data", "edge", "relation_edge"}
     if unknown:
@@ -86,7 +92,7 @@ def build_mesh(cfg: dict, device=None):
     ep = int(par.get("edge", 1) or 1)
     if not dp:
         dp = int(cfg.get("engine", {}).get("data_parallel", 0) or 0) or 1
-    if dp * ep <= 1:
+    if dp * ep <= 1 and distributed.process_count() == 1:
         return None
     return make_mesh(data=dp, edge=ep, device=device)
 
@@ -239,8 +245,14 @@ def build_engine(cfg: dict, task, work_dir: str = ".", seed: int = 1024,
     clip_grad = eng_cfg.get("clip_grad")
     if clip_grad is None and cfg.get("debug"):
         clip_grad = cfg.get("train", {}).get("clip_grad")
-    if str(eng_cfg.get("logger", "logging")).lower() == "wandb":
-        raise _unported("engine.logger: wandb", "item 8")
+    metric_logger = None  # rank 0 logs, as it writes the files
+    if (str(eng_cfg.get("logger", "logging")).lower() == "wandb"
+            and distributed.process_index() == 0):
+        from ..utils.debug import WandbLogger
+
+        metric_logger = WandbLogger(
+            project=str(eng_cfg.get("wandb_project", "ultra_tpu")),
+            config=cfg)
     return Engine(
         task,
         batch_size=int(eng_cfg.get("batch_size", 64)),
@@ -253,4 +265,5 @@ def build_engine(cfg: dict, task, work_dir: str = ".", seed: int = 1024,
         work_dir=work_dir,
         mesh=mesh,
         steps_per_call=int(eng_cfg.get("steps_per_call", 1)),
+        metric_logger=metric_logger,
     )

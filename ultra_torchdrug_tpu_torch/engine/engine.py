@@ -23,7 +23,20 @@ graphs were prepared under an edge mesh takes the ring.
 A ``MultiGraphPretrainTask`` trains one graph a step: each step draws its
 graph from the task's edge-count mixture with the engine's numpy
 generator, then a batch of that graph's train triples, in the JAX engine's
-order of draws. Not ported yet: data parallelism (ROADMAP Queue 1 item 9).
+order of draws.
+
+Data parallelism (a mesh whose ``data`` axis P > 1, one process a data
+row, parallel/distributed.py): every rank draws the global batch, its
+graph and its negatives exactly as one process does, and scores its rows
+[r * B / P, (r + 1) * B / P) of it on the whole batch's masked graph
+(``task.loss_step(..., rows=)``); the gradients are mean-all-reduced in one
+flat buffer after the ``gradient_interval`` accumulation and before the
+clip and the optimizer, so that every rank takes the step one process
+takes, up to the order of the sums. The logged metrics are the ranks'
+mean (``Meter``); with ``gradient_interval`` 1, ``grad_norm`` is the
+reduced gradient's norm. Only rank 0 writes the checkpoints and the log
+file; every rank loads. The parameters are broadcast from rank 0 when the
+engine is built.
 
 Fail-soft: an out-of-memory error on the first step of a graph (or in an
 evaluation) demotes the task's auto memory policies one level
@@ -33,9 +46,16 @@ retry restores them, so the step it completes is the one that failed. The
 retry runs after the handler has ended, so that the failed step's tensors
 are freed, and after ``gc.collect()`` and ``torch.cuda.empty_cache()``.
 Any other error, an out-of-memory error after a graph's first step, and
-one with no level left are raised. PyTorch's caching allocator raises at the allocation that does
-not fit, so the error is raised inside the step that caused it (the JAX
-engine can see an asynchronous one late).
+one with no level left are raised. A first step runs in two phases, each
+followed by one all-reduce of the ranks' "out of memory in this phase"
+flags: the backward
+and the update's flat gradient buffer, then the gradient all-reduce, the
+clip and the optimizer. All ranks restore and demote together, or none
+does (a rank that retried alone would leave the others waiting in a
+collective); in one process the flag is the process's own. PyTorch's
+caching allocator raises at the allocation that does not fit, so the error
+is raised inside the step that caused it (the JAX engine can see an
+asynchronous one late).
 """
 
 from __future__ import annotations
@@ -49,20 +69,12 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel import distributed
 from ..parallel.mesh import use_mesh
 from ..tasks.task import MultiGraphPretrainTask
+from ..tasks.task import is_oom_error as _is_oom_error
 from ..utils import checkpoint as ckpt_io
 from ..utils.logging import Meter, get_root_logger
-
-
-def _is_oom_error(e: BaseException) -> bool:
-    """A device out-of-memory error: torch's, or one whose message says so
-    as XLA's do (RESOURCE_EXHAUSTED, "out of memory")."""
-    if isinstance(e, torch.cuda.OutOfMemoryError):
-        return True
-    s = str(e)
-    return ("RESOURCE_EXHAUSTED" in s or "Out of memory" in s
-            or "out of memory" in s)
 
 
 def _free_cached_memory(device) -> None:
@@ -93,6 +105,11 @@ class Optimizer:
       * ``gradient_interval`` k > 1: optax.MultiSteps — the inner update
         runs every k-th step on the mean of the k gradients; the steps in
         between leave the parameters as they are.
+
+    An update's gradients are one flat buffer (``accumulate``), which
+    ``update`` mean-all-reduces over the data-parallel ranks
+    (``distributed.all_reduce_mean``, nothing in one process) before the
+    clip; ``step`` is the two in turn.
     """
 
     def __init__(self, params, name: str = "AdamW", lr: float = 5e-4,
@@ -117,8 +134,19 @@ class Optimizer:
         self._count = 0
 
     @torch.no_grad()
-    def step(self, grads: Sequence[torch.Tensor]) -> None:
-        """One optimizer step with ``grads`` (one per parameter, in order)."""
+    def step(self, grads: Sequence[torch.Tensor]):
+        """One optimizer step with ``grads`` (one per parameter, in order):
+        ``update(accumulate(grads))``, or None on a step that only
+        accumulates."""
+        flat = self.accumulate(grads)
+        return None if flat is None else self.update(flat)
+
+    @torch.no_grad()
+    def accumulate(self, grads: Sequence[torch.Tensor]
+                   ) -> Optional[torch.Tensor]:
+        """Count this step's ``grads``; returns the update's gradients (the
+        mean of ``gradient_interval`` steps') as one flat buffer, or None
+        on a step that only accumulates."""
         grads = list(grads)
         if self.gradient_interval > 1:
             if self._acc is None:
@@ -127,9 +155,23 @@ class Optimizer:
                 torch._foreach_add_(self._acc, grads)
             self._count += 1
             if self._count < self.gradient_interval:
-                return
-            grads = [a / self.gradient_interval for a in self._acc]
-            self._acc, self._count = None, 0
+                return None
+            grads, self._acc, self._count = self._acc, None, 0
+            return torch.cat([g.reshape(-1) for g in grads]).div_(
+                self.gradient_interval)
+        return torch.cat([g.reshape(-1) for g in grads])
+
+    @torch.no_grad()
+    def update(self, flat: torch.Tensor):
+        """The inner step on ``flat`` (``accumulate``'s buffer), mean-all-
+        reduced over the ranks and clipped; returns the update's gradients
+        (reduced, before the clip), one per parameter."""
+        flat = distributed.all_reduce_mean(flat)
+        grads, lo = [], 0
+        for p in self.params:
+            grads.append(flat[lo:lo + p.numel()].view_as(p))
+            lo += p.numel()
+        applied = grads
         if self.clip_grad:
             norm = global_norm(grads)
             grads = [torch.where(norm < self.clip_grad, g,
@@ -139,6 +181,7 @@ class Optimizer:
         self.inner.step()
         for p in self.params:
             p.grad = None
+        return applied
 
     def state_dict(self) -> dict:
         """The inner optimizer's state and the gradients accumulated towards
@@ -156,21 +199,34 @@ class Engine:
                  lr: float = 5e-4, gradient_interval: int = 1,
                  clip_grad: Optional[float] = None, log_interval: int = 100,
                  seed: int = 1024, work_dir: str = ".", logger=None,
-                 mesh=None, steps_per_call: int = 1):
+                 mesh=None, steps_per_call: int = 1, metric_logger=None):
         self.task = task
         self.mesh = mesh
         self.batch_size = batch_size
         self.steps_per_call = max(1, int(steps_per_call))
         self.work_dir = work_dir
+        # the data axis: P ranks, this one scoring rows [r B / P, (r+1) B / P)
+        self.data = mesh.data if mesh is not None else 1
+        self.data_index = mesh.data_index if mesh is not None else 0
+        if batch_size % self.data:
+            raise ValueError(f"batch_size {batch_size} does not divide over "
+                             f"the data axis of {self.data}")
+        shard = batch_size // self.data
+        self._rows = (slice(self.data_index * shard,
+                            (self.data_index + 1) * shard)
+                      if self.data > 1 else None)
         self.logger = logger or get_root_logger(
-            os.path.join(work_dir, "log.txt"))
-        self.meter = Meter(self.logger, log_interval)
+            os.path.join(work_dir, "log.txt") if self.data_index == 0
+            else None)
+        self.meter = Meter(self.logger, log_interval, sink=metric_logger)
         self.rng = np.random.default_rng(seed)
         self.generator = torch.Generator(device=task.device).manual_seed(seed)
         self.model = task.init_params(seed)
         self.optimizer = Optimizer(
             self.model.parameters(), optimizer, lr,
             gradient_interval=gradient_interval, clip_grad=clip_grad)
+        if self.data > 1:
+            distributed.broadcast_tensors(list(self.model.parameters()))
         self.epoch = 0
         self.metrics = {}  # split -> the metrics of its last evaluation
         self._is_multigraph = isinstance(task, MultiGraphPretrainTask)
@@ -236,18 +292,33 @@ class Engine:
     def _step(self, graph_id: int, batch: np.ndarray) -> dict:
         """One optimizer step on graph ``graph_id``'s batch; returns its
         metrics (device tensors)."""
-        if self._is_multigraph:
-            loss, metrics = self.task.loss_step(self.model, self.generator,
-                                                batch, graph_id)
-        else:
-            loss, metrics = self.task.loss_step(self.model, self.generator,
-                                                batch)
+        grads, metrics = self._grads(graph_id, batch)
+        return self._apply(self.optimizer.accumulate(grads), grads, metrics)
+
+    def _grads(self, graph_id: int, batch: np.ndarray):
+        """The gradients of this rank's rows of the batch, and the step's
+        metrics."""
+        extra = (graph_id,) if self._is_multigraph else ()
+        loss, metrics = self.task.loss_step(self.model, self.generator,
+                                            batch, *extra, rows=self._rows)
         # a learned query of a shared relation tower takes part in no score
         # (the JAX package's gradient is 0 there)
         grads = torch.autograd.grad(loss, self.optimizer.params,
                                     allow_unused=True, materialize_grads=True)
+        return grads, metrics
+
+    def _apply(self, flat: Optional[torch.Tensor], grads, metrics: dict
+               ) -> dict:
+        """The optimizer's update on ``flat`` (``Optimizer.accumulate``'s
+        buffer, None on a step that only accumulates); adds ``grad_norm``
+        to the metrics: the norm of this step's gradients, as in the JAX
+        engine, which under data parallelism are the ranks' mean when each
+        step updates (``gradient_interval`` 1)."""
+        if flat is not None:
+            reduced = self.optimizer.update(flat)
+            if self.optimizer.gradient_interval == 1:
+                grads = reduced
         metrics["grad_norm"] = global_norm(grads).detach()
-        self.optimizer.step(grads)
         return metrics
 
     def _demote(self, reason: str) -> bool:
@@ -265,27 +336,66 @@ class Engine:
         """``_step`` with fail-soft on the first step of each graph: an
         out-of-memory error there restores the snapshot taken before it,
         demotes the policies and retries (the module docstring)."""
+        if graph_id in self._warmed:
+            return self._step(graph_id, batch)
         while True:
-            first = graph_id not in self._warmed
-            if first:
-                snapshot = (copy.deepcopy(self.model.state_dict()),
-                            copy.deepcopy(self.optimizer.state_dict()),
-                            self.generator.get_state())
-            try:
-                metrics = self._step(graph_id, batch)
+            metrics = self._first_step(graph_id, batch)
+            if metrics is not None:
                 self._warmed.add(graph_id)
                 return metrics
-            except RuntimeError as e:
-                if not (first and _is_oom_error(e)):
-                    raise
-                state, opt_state, rng_state = snapshot
-                self.model.load_state_dict(state)
-                self.optimizer.load_state_dict(opt_state)
-                self.generator.set_state(rng_state)
-                if not self._demote(str(e).splitlines()[0][:200]):
-                    raise
-            # the handler has ended: the failed step's tensors are free
+            # the failed attempt's tensors are free
             _free_cached_memory(self.task.device)
+
+    def _first_step(self, graph_id: int, batch: np.ndarray
+                    ) -> Optional[dict]:
+        """One attempt at a graph's first step, in the module docstring's
+        two phases; None when a rank ran out of memory in either, after
+        every rank restored the snapshot taken here and demoted."""
+        snapshot = (copy.deepcopy(self.model.state_dict()),
+                    copy.deepcopy(self.optimizer.state_dict()),
+                    self.generator.get_state())
+        error = None
+        try:
+            grads, metrics = self._grads(graph_id, batch)
+            flat = self.optimizer.accumulate(grads)
+        except RuntimeError as e:
+            if not _is_oom_error(e):
+                raise
+            error = e
+        if self._failed_on_any_rank(error, snapshot):
+            return None
+        try:
+            metrics = self._apply(flat, grads, metrics)
+        except RuntimeError as e:
+            if not _is_oom_error(e):
+                raise
+            error = e
+        if self._failed_on_any_rank(error, snapshot):
+            return None
+        return metrics
+
+    def _failed_on_any_rank(self, error: Optional[RuntimeError],
+                            snapshot) -> bool:
+        """One all-reduce of the ranks' out-of-memory flags (``error`` is
+        this rank's); if any rank failed, restore ``snapshot`` and demote,
+        or raise when no level is left."""
+        if not distributed.any_rank(error is not None, self.task.device):
+            return False
+        self._restore(snapshot)
+        reason = (str(error).splitlines()[0][:200] if error is not None
+                  else "out of memory on another rank")
+        if not self._demote(reason):
+            if error is not None:
+                raise error
+            raise RuntimeError(f"{reason} with no demotion level left "
+                               f"(rank {self.data_index})")
+        return True
+
+    def _restore(self, snapshot) -> None:
+        state, opt_state, rng_state = snapshot
+        self.model.load_state_dict(state)
+        self.optimizer.load_state_dict(opt_state)
+        self.generator.set_state(rng_state)
 
     def _mesh_scope(self):
         """The engine's mesh, active; the caller's scope when it has none."""
@@ -333,9 +443,12 @@ class Engine:
         return metrics
 
     def save(self, path: str) -> None:
-        ckpt_io.save_checkpoint(path, self.model, self.optimizer.state_dict(),
-                                self.epoch)
-        self.logger.info(f"Save checkpoint to {path}")
+        """Write a checkpoint (rank 0 only; every rank waits for it)."""
+        if self.data_index == 0:
+            ckpt_io.save_checkpoint(path, self.model,
+                                    self.optimizer.state_dict(), self.epoch)
+            self.logger.info(f"Save checkpoint to {path}")
+        distributed.barrier()
 
     def load(self, path: str, fix_reasoner: bool = False,
              drop_optimizer: bool = True) -> None:

@@ -153,14 +153,17 @@ def ultra_train_scores(model: Ultra, fact_graph: Graph, rel_graph: Graph,
                        pos_h, pos_t, pos_r, neg_index,
                        remove_easy: bool = True,
                        fact_graph_und: Graph = None,
-                       model_cfg: UltraConfig = None) -> torch.Tensor:
+                       model_cfg: UltraConfig = None,
+                       rows: slice = None) -> torch.Tensor:
     """Scores for [positive | negatives]: [B, 1 + N].
 
     neg_index: [B, N]; the first half of the rows are corrupted tails, the
     second half corrupted heads. fact_graph_und: the prepared undirected
     graph (edge order [directed; inverse]) whose layouts are reused with the
     batch's masked weights. model_cfg: the memory policies to apply (a
-    task's resolved config; the model's own by default).
+    task's resolved config; the model's own by default). rows: score only
+    these rows of the batch (a data-parallel rank's), on the graph that the
+    whole batch masks, so that the rows score as in the whole batch.
     """
     model_cfg = model_cfg or model.cfg
     h_index, t_index, r_index = candidate_triples(pos_h, pos_t, pos_r,
@@ -176,6 +179,9 @@ def ultra_train_scores(model: Ultra, fact_graph: Graph, rel_graph: Graph,
 
     h_index, t_index, r_index = _flip_heads_to_tails(
         h_index, t_index, r_index, fact_graph.num_relations)
+    if rows is not None:
+        h_index, t_index, r_index = h_index[rows], t_index[rows], r_index[rows]
+        pos_r = pos_r[rows]
     rel_queries = _rel_queries(model, rel_graph, pos_r, model_cfg.relation)
     return entity_nbfnet_score_all(
         model.model, graph_und, rel_queries, source=h_index[:, 0],

@@ -6,13 +6,23 @@ config -> dataset -> task -> engine -> train and validate -> test.
 
 Undeclared template variables in the YAML become required flags, as in the
 reference's run_full. ``--gpus`` is accepted where a config asks for it and
-ignored: the run uses one device, the card unless ``--device`` names
+ignored: a process uses one device, the card unless ``--device`` names
 another. A ``parallel: {edge: N}`` section builds an N-shard edge mesh on
 that device (engine/build.py::mesh_scope), active around the task, the
 engine, training and evaluation; with ``rspmm_impl: ring`` the entity tower
 then takes the ring path. ``main`` parses the flags and loads the YAML (the
 only place that needs yaml and jinja2); ``run`` does the rest from the
 loaded dict.
+
+Data parallelism, one process a data row (parallel/distributed.py):
+
+    torchrun --nproc_per_node N -m ultra_torchdrug_tpu_torch.run_full \
+        -c <config with parallel: {data: N}> [--device cpu]
+
+``run`` joins the process group before it builds anything: NCCL with a
+card a rank, gloo where ranks share a card or with ``--device cpu``. Rank
+0 makes the work directory, writes the log file and the checkpoints and
+logs to the console; every rank loads the checkpoints.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ from .engine.build import (
     mesh_scope,
 )
 from .engine.engine import Engine
+from .parallel import distributed
 from .utils.debug import setup_debug_hook
 from .utils.logging import create_working_directory, get_root_logger
 
@@ -82,20 +93,40 @@ def test(cfg: dict, engine: Engine):
     engine.evaluate("test", fast_test=fast_test)
 
 
+def setup_process(device=None) -> torch.device:
+    """Join the process group when torchrun started this process (a no-op
+    in one process); returns this process's device (the card unless the
+    caller names another; a rank's own card under NCCL)."""
+    distributed.initialize_distributed(device=device)
+    return default_device(distributed.rank_device(device))
+
+
+def rank_work_dir(output_dir: str, *names: str):
+    """(work dir, logger): rank 0 makes the directory and every rank gets
+    its path; rank 0 logs to the console and to log.txt there, the other
+    ranks only their warnings."""
+    work_dir = None
+    if distributed.process_index() == 0:
+        work_dir = create_working_directory(output_dir, *names)
+    work_dir = distributed.broadcast_object(work_dir)
+    log_file = (os.path.join(work_dir, "log.txt")
+                if distributed.process_index() == 0 else None)
+    return work_dir, get_root_logger(log_file)
+
+
 def run(cfg: dict, seed: int = 1024, device=None,
         config_file: Optional[str] = None) -> Engine:
     """The experiment of a loaded config dict on ``device`` (the card unless
     the caller names another); returns the engine, whose ``metrics`` hold
     the last evaluation of each split."""
-    device = default_device(device)
-    work_dir = create_working_directory(
+    device = setup_process(device)
+    work_dir, logger = rank_work_dir(
         cfg.get("output_dir", "./output"),
         cfg["task"]["class"],
         str(cfg["dataset"]["class"]),
         cfg["task"]["model"]["class"],
     )
     set_seed(seed)
-    logger = get_root_logger(os.path.join(work_dir, "log.txt"))
     logger.info(f"Config file: {config_file}")
     logger.info(pprint.pformat(cfg))
     if cfg.get("debug"):

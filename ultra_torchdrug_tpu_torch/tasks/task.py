@@ -19,7 +19,10 @@ negatives and returns the loss (a tensor to call ``backward`` on) with its
 metrics. ``evaluate`` scores each (h, r, ?) and (?, r, t) query against
 every entity and turns the filtered ranks (or, with ``toy_eval``, the ranks
 among 50 sampled negatives) into metrics, eagerly under
-``torch.inference_mode()``.
+``torch.inference_mode()``. Under data parallelism (parallel/distributed.py)
+``loss_step(..., rows=)`` scores one rank's rows of the batch as one
+process would, and ``evaluate`` scores a round-robin shard a rank and
+computes the metrics from the whole gathered ranking on every rank.
 
 The memory policies (models/nbfnet.py) set to "auto" are resolved against
 a memory budget, as the JAX package resolves them: the device's memory
@@ -64,6 +67,7 @@ from ..models.ultra import (
 )
 from ..ops.match import head_truth_mask, tail_truth_mask
 from ..ops.sampling import strict_negatives
+from ..parallel import distributed
 from ..parallel.mesh import current_mesh
 from ..utils.logging import LOGGER_NAME
 from .kg import (
@@ -103,6 +107,16 @@ class TaskConfig:
     # pins the eval batch; None sizes it to the memory budget
     # (_TaskBase._resolve_eval_batch). Rankings do not depend on it
     eval_batch_size: Optional[int] = None
+
+
+def is_oom_error(e: BaseException) -> bool:
+    """A device out-of-memory error: torch's, or one whose message says so
+    as XLA's do (RESOURCE_EXHAUSTED, "out of memory")."""
+    if isinstance(e, torch.cuda.OutOfMemoryError):
+        return True
+    s = str(e)
+    return ("RESOURCE_EXHAUSTED" in s or "Out of memory" in s
+            or "out of memory" in s)
 
 
 def _criterion_loss(cfg: TaskConfig, scores, sample_weight=None):
@@ -290,12 +304,14 @@ class _TaskBase:
 
     # scoring hooks: ULTRA here; ClassicNBFNetTask overrides them
     def _train_scores(self, model, fact_graph, rel_graph, h, t, r, neg,
-                      fact_und, model_cfg=None):
+                      fact_und, model_cfg=None, rows=None):
         """[B, 1 + N] scores of each query's positive and negatives, under
-        the memory policies of ``model_cfg`` (the task's by default)."""
+        the memory policies of ``model_cfg`` (the task's by default); only
+        ``rows`` of them, on the whole batch's masked graph, when given."""
         return ultra_train_scores(model, fact_graph, rel_graph, h, t, r, neg,
                                   fact_graph_und=fact_und,
-                                  model_cfg=model_cfg or self.model_cfg)
+                                  model_cfg=model_cfg or self.model_cfg,
+                                  rows=rows)
 
     def _eval_scores(self, model, fact_graph, rel_graph, h, t, r, fact_und,
                      model_cfg=None):
@@ -350,9 +366,13 @@ class _TaskBase:
     def _build_loss_fn(self, fact_graph: Graph, rel_graph: Graph,
                        num_nodes: int):
         """Returns fn(model, generator, batch [B, 3] on the device,
-        sample_weight=None, neg=None) -> (loss, metrics). Negatives are
-        strict (or uniform) draws from ``generator`` unless ``neg`` [B, N]
-        is given."""
+        sample_weight=None, neg=None, rows=None) -> (loss, metrics).
+        Negatives are strict (or uniform) draws from ``generator`` unless
+        ``neg`` [B, N] is given. ``rows`` (a data-parallel rank's slice of
+        the batch, one of P equal ones): the negatives and the easy-edge
+        mask are the whole batch's, as in one process, only those rows are
+        scored, and the loss is scaled so that its mean over the P ranks is
+        the whole batch's loss (and so are the metrics')."""
         cfg = self.cfg
         # pre-sorted edges: the per-step easy-edge mask joins by binary
         # search instead of sorting the edges and the batch every step
@@ -362,7 +382,8 @@ class _TaskBase:
                                                    backward=True)
         fact_edges = fact_graph.edge_list
 
-        def loss_fn(model, generator, batch, sample_weight=None, neg=None):
+        def loss_fn(model, generator, batch, sample_weight=None, neg=None,
+                    rows=None):
             h, t, r = batch[:, 0], batch[:, 1], batch[:, 2]
             if neg is None and cfg.strict_negative:
                 neg = strict_negatives(generator, fact_edges, h, t, r,
@@ -371,10 +392,22 @@ class _TaskBase:
                 neg = torch.randint(0, num_nodes,
                                     (batch.shape[0], cfg.num_negative),
                                     generator=generator, device=batch.device)
+            n_rows = batch.shape[0]
+            if rows is not None:
+                n_rows = len(range(*rows.indices(batch.shape[0])))
             scores = self._train_scores(
                 model, fact_graph, rel_graph, h, t, r, neg, fact_und,
-                model_cfg=self._train_model_cfg(fact_graph, batch.shape[0]))
-            loss = _criterion_loss(cfg, scores, sample_weight)
+                model_cfg=self._train_model_cfg(fact_graph, n_rows),
+                rows=rows)
+            scale = 1.0
+            if rows is not None and sample_weight is not None:
+                if cfg.criterion == "bce":  # the one that weighs rows
+                    # P * (this rank's weighted sum) / (the batch's weight)
+                    scale = (batch.shape[0] / n_rows
+                             * sample_weight[rows].sum()
+                             / sample_weight.sum())
+                sample_weight = sample_weight[rows]
+            loss = _criterion_loss(cfg, scores, sample_weight) * scale
             metrics = {"loss": loss.detach(),
                        "pos_score": scores[:, 0].detach().mean(),
                        "neg_score": scores[:, 1:].detach().mean()}
@@ -425,11 +458,37 @@ class _TaskBase:
 
     def _run_eval(self, eval_fn, model, triples: np.ndarray,
                   batch_size: int):
+        """The numpy ranking [N, 2] and num_candidates [N, 2] of
+        ``triples``. Under a process group each rank scores a round-robin
+        shard (``distributed.shard_eval_triples``) and every rank gets the
+        whole split's results in order (``gather_rankings``). An
+        out-of-memory error on any rank raises one on every rank (a flag
+        all-reduced before the gather), so that all ranks demote and retry
+        together."""
+        total = len(triples)
+        triples = distributed.shard_eval_triples(triples)
+        error = None
+        try:
+            ranking, cand = self._score_triples(eval_fn, model, triples,
+                                                batch_size)
+        except RuntimeError as e:
+            if not is_oom_error(e):
+                raise
+            error = e
+        if distributed.any_rank(error is not None, self.device):
+            raise error or RuntimeError(
+                "out of memory on another rank during evaluation")
+        return (distributed.gather_rankings(ranking, total),
+                distributed.gather_rankings(cand, total))
+
+    def _score_triples(self, eval_fn, model, triples: np.ndarray,
+                       batch_size: int):
         """Pad-to-batch eval loop (the last chunk repeats its row 0); returns
         the numpy ranking [N, 2] and num_candidates [N, 2]. The toy
         protocol's draws come from a generator seeded per batch by its
-        first row's index. Results stay on the device until the split is
-        done."""
+        first row's index in ``triples`` (a rank's shard under a process
+        group, as in the JAX package). Results stay on the device until the
+        split is done."""
         rankings, cands, keeps = [], [], []
         with torch.inference_mode():
             for start in range(0, len(triples), batch_size):
@@ -480,13 +539,15 @@ class _TaskBase:
                                dtype=torch.float32, device=self.device)
 
     def loss_step(self, model, generator: torch.Generator, batch: np.ndarray,
-                  neg: Optional[torch.Tensor] = None):
+                  neg: Optional[torch.Tensor] = None,
+                  rows: Optional[slice] = None):
         """(loss, metrics) of one batch of train triples [B, 3]; ``neg``
         [B, N] replaces the drawn negatives (to hold a step against
-        another implementation)."""
+        another implementation); ``rows`` scores a data-parallel rank's
+        rows (``_build_loss_fn``)."""
         b = torch.from_numpy(np.asarray(batch, np.int64)).to(self.device)
         return self._loss_fn(model, generator, b,
-                             self.sample_weight_for(batch), neg)
+                             self.sample_weight_for(batch), neg, rows)
 
     def _fast_subset(self, triples: np.ndarray, fast_test) -> np.ndarray:
         """``fast_test`` triples of ``triples``: a seeded random subset."""
@@ -662,11 +723,13 @@ class MultiGraphPretrainTask(_TaskBase):
         return self._loss_fns[graph_id]
 
     def loss_step(self, model, generator: torch.Generator, batch: np.ndarray,
-                  graph_id: int, neg: Optional[torch.Tensor] = None):
+                  graph_id: int, neg: Optional[torch.Tensor] = None,
+                  rows: Optional[slice] = None):
         """(loss, metrics) of one batch of graph ``graph_id``'s train
-        triples; ``neg`` as in ``TransductiveKGTask.loss_step``."""
+        triples; ``neg`` and ``rows`` as in ``_TaskBase.loss_step``."""
         b = torch.from_numpy(np.asarray(batch, np.int64)).to(self.device)
-        return self.ensure_loss_fn(graph_id)(model, generator, b, None, neg)
+        return self.ensure_loss_fn(graph_id)(model, generator, b, None, neg,
+                                             rows)
 
     def eval_sets(self, split: str):
         """[(graph name, graph id, triples)] of ``split``."""
@@ -721,7 +784,7 @@ class ClassicNBFNetTask(TransductiveKGTask):
     # as in the JAX package, classic NBFNet runs the config's own policies:
     # the resolved ones (model_cfg) are not read
     def _train_scores(self, model, fact_graph, rel_graph, h, t, r, neg,
-                      fact_und, model_cfg=None):
+                      fact_und, model_cfg=None, rows=None):
         h_index, t_index, r_index = candidate_triples(h, t, r, neg)
         graph = _mask_easy_edges(self.model_cfg, fact_graph, h_index,
                                  t_index, r_index)
@@ -730,6 +793,9 @@ class ClassicNBFNetTask(TransductiveKGTask):
             torch.cat([graph.edge_weight, graph.edge_weight]))
         h_index, t_index, r_index = _flip_heads_to_tails(
             h_index, t_index, r_index, fact_graph.num_relations)
+        if rows is not None:
+            h_index, t_index, r_index = (h_index[rows], t_index[rows],
+                                         r_index[rows])
         return classic_score_all(model, graph_und, h_index[:, 0],
                                  r_index[:, 0], targets=t_index)
 

@@ -1,6 +1,7 @@
 """Run logging (counterpart of ultra_torchdrug_tpu/utils/logging.py): a
 console logger with an optional log file, a windowed meter of step
-metrics, and the run's working directory."""
+metrics with an optional sink (utils/debug.py::WandbLogger), and the run's
+working directory."""
 
 from __future__ import annotations
 
@@ -18,9 +19,13 @@ LOGGER_NAME = "ultra_torchdrug_tpu_torch"
 
 def get_root_logger(log_file: Optional[str] = "log.txt") -> logging.Logger:
     """The package logger: one console handler, and one file handler at
-    ``log_file`` (retargeted when the path changes; none for None)."""
+    ``log_file`` (retargeted when the path changes; none for None). Under
+    a process group only rank 0 logs below a warning."""
+    from ..parallel import distributed  # it imports this module
+
     logger = logging.getLogger(LOGGER_NAME)
-    logger.setLevel(logging.INFO)
+    logger.setLevel(logging.INFO if distributed.process_index() == 0
+                    else logging.WARNING)
     fmt = logging.Formatter("%(asctime)-10s %(message)s", "%H:%M:%S")
     if not any(isinstance(h, logging.StreamHandler)
                and not isinstance(h, logging.FileHandler)
@@ -48,12 +53,19 @@ class Meter:
 
     Metric values may be device tensors: they are held as they are and
     fetched in one transfer per window, so the train loop does not wait on
-    the device every step. ``last_window`` keeps the last logged window's
-    per-step values as floats."""
+    the device every step. Under a process group every rank calls
+    ``log_window`` at the same step, and the window's values are the mean
+    over the ranks (one all-reduce a window). ``last_window`` keeps the
+    last logged window's per-step values as floats. ``sink`` (an object
+    with ``log(record, step=)``) gets each window's means, rates and
+    ``it_per_s``, and each ``log_dict``, at the global step, with the JAX
+    package's keys."""
 
-    def __init__(self, logger: logging.Logger, log_interval: int = 100):
+    def __init__(self, logger: logging.Logger, log_interval: int = 100,
+                 sink=None):
         self.logger = logger
         self.log_interval = log_interval
+        self.sink = sink
         self.global_step = 0
         self.last_window: list = []
         self.reset()
@@ -76,11 +88,14 @@ class Meter:
     def log_window(self):
         if not self._pending:
             return
+        from ..parallel import distributed  # it imports this module
+
         keys = sorted(self._pending[0])
         values = torch.stack([
             torch.stack([torch.as_tensor(step[k], dtype=torch.float64)
                          .to(self._device()) for k in keys])
-            for step in self._pending]).cpu()  # one transfer: [n, keys]
+            for step in self._pending])
+        values = distributed.mean_over_ranks(values).cpu()  # one transfer
         dt = time.time() - self._t0
         n = len(self._pending)
         self.last_window = [dict(zip(keys, row.tolist())) for row in values]
@@ -91,6 +106,12 @@ class Meter:
         rate = n / dt if dt > 0 else 0.0
         self.logger.info(f"step {self.global_step} | {' | '.join(parts)} | "
                          f"{rate:.2f} it/s")
+        if self.sink is not None:
+            record = dict(zip(keys, means))
+            record.update({k: (v / dt if dt > 0 else 0.0)
+                           for k, v in self._rates.items()})
+            record["it_per_s"] = rate
+            self.sink.log(record, step=self.global_step)
         self.reset()
 
     def _device(self):
@@ -103,6 +124,10 @@ class Meter:
         prefix = f"[{category}] " if category else ""
         for k in sorted(metrics):
             self.logger.info(f"{prefix}{k}: {float(metrics[k]):.6g}")
+        if self.sink is not None:
+            pre = f"{category}/" if category else ""
+            self.sink.log({f"{pre}{k}": float(v) for k, v in metrics.items()},
+                          step=self.global_step)
 
 
 def create_working_directory(output_dir: str, *names: str) -> str:
