@@ -3,8 +3,9 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py                # on a machine with the card
-    python3 chip_smoke.py --device cpu   # rehearsal of phases 1b-48, small
-    python3 chip_smoke.py --only-new     # the build and phases 46-48 alone
+    python3 chip_smoke.py --device cpu   # rehearsal of phases 1b-51, small
+    python3 chip_smoke.py --only-new     # the build and phases 49-51 alone
+    python3 chip_smoke.py --only 46-48   # the build and phases 46-48 alone
 
 Phases, each of which raises on failure (the script then exits nonzero):
 
@@ -157,16 +158,17 @@ Phases, each of which raises on failure (the script then exits nonzero):
     25. cli   run_full.main on config/synthetic/smoke.yaml (one epoch, its
               checkpoint and log) and on config/transductive/inference.yaml
               with --dataset SynthKG --epochs 0 --bpe 0 --gpus [0] --ckpt null.
- 26-29. ultra ring  ULTRA (inference.yaml's model and task, fp32) with
+ 26-29. ultra ring  ULTRA (inference.yaml's model and task, fp32, the
+              entity tower cut to RING_LAYERS = 3 layers) with
               parallel: {edge: 4}, rspmm_impl: ring, ring_exchange: rdma,
               built through build_dataset, mesh_scope, build_task and
               build_engine on the same KG, every edge shard on the card:
               evaluation (per batch K1 once per non-empty bucket, 16 at
-              n = 4, for each layer and direction, and K9 2 x 6 x 3 = 36
+              n = 4, for each layer and direction, and K9 2 x 3 x 3 = 18
               times, no K2), its profile, the ring's scores against the
               single-device model on the same weights on the card (1e-4);
               then Engine.train at batch 64, 128 strict negatives, AdamW
-              (per step K1 and K2 6 x 16, K9 36), its profile, and one loss
+              (per step K1 and K2 3 x 16, K9 18), its profile, and one loss
               step's loss and gradients against the single-device step.
     30. ring cli  run_full.main on smoke.yaml rendered with the three keys
               (one epoch, its checkpoint and log, K9 on the card).
@@ -306,15 +308,46 @@ Phases, each of which raises on failure (the script then exits nonzero):
               rspmm_impl: ring and rdma: one step's loss (1e-5) and
               gradients (1e-4 norm-wise) against the single-device step;
               K1 and K2 24 and K9 12 a step on each rank.
+    49. partitioned  ULTRA (inference.yaml's model, 6x64) on the FB-size
+              KG with parallel: {edge: 4} and rspmm_impl: auto, every shard
+              on the card: one eval batch of 16 (K1 once a shard a layer,
+              48) and one Engine.train step at batch 64 x 128 (K1, K2 24
+              each; no K9), each against the single-device run on the same
+              card and weights (scores 1e-5, loss 1e-5, gradients 1e-4
+              norm-wise, at the seeded weights); then the same at 2 entity
+              layers with compute_dtype: bfloat16 (K1h, K2h), with transe
+              messages (K1 add_rel, K3), with max (off the ring the
+              single-device K4, K5: 4 an eval batch, 2 each a step) and
+              with rspmm_impl: xla (the sharded body, no kernel; its step
+              at batch 8, as phase 43's).
+    50. ring extrema  the entity tower with max and with pna on the ring
+              (edge 4, rdma, the degree-balanced relabelling forced on,
+              permuted IO): the ring's extremum, pair and moments
+              schedules (plain PyTorch, no K1) with K9 between steps (max
+              36 an eval batch and a step, pna 72), one eval batch and one
+              step each against the single-device run (K4/K5; K6, K7,
+              K6b, K7b): scores 1e-4, gradients 1e-4 (pna 2e-3:
+              PNA_RING_GRAD_RTOL says why); pna's loss step again in
+              fp64 against the single-device model in fp64 on the CPU
+              (1e-9, pna_rounding), each fp32 route read against it.
+    51. relation_edge  parallel.relation_edge: both towers on the
+              partitioned kernels, then both on the ring (the relation
+              graph's buckets neither balanced nor permuted), one eval
+              batch each against the single-device run (1e-4); then
+              run_full.main on smoke.yaml with relation_edge, one epoch of
+              5 steps, its checkpoint and evaluation: partitioned (sum),
+              and the ring with pna and ppermute (K1, K2 on the card).
 
-The phases that time evaluation (2, 6-24, 26-29, 32-33) pin the eval
-batch to 16; the CLI runs and pre-training's evaluation take the auto
-eval batch, and every phase that runs a shipped config logs the memory
-policies its remat: auto resolves to.
+Phases 49-51 log their seconds, ms a batch and a step and peak memory
+beside the card's name and power limit. The phases that time evaluation
+(2, 6-24, 26-29, 32-33, 49-51) pin the eval batch to 16; the CLI runs
+and pre-training's evaluation take the auto eval batch, and every phase
+that runs a shipped config logs the memory policies its remat: auto
+resolves to.
 
 The last lines are a JSON object with one entry per kernel (K1, K2, K6,
 K7, K6b, K7b, K3, K4, K5, K8f, K8b, K1h, K2h, K9; launches summed over the
-measured runs of phases 2-48, by path in ``launches_by_path``; the staged
+measured runs of phases 2-51, by path in ``launches_by_path``; the staged
 backward kernels' layouts under ``plan``; P1 and P2 with full's numbers
 and their launches in the tools' runs of phase 1b),
 then {"ok": true, "device": {...}}. With no card the script prints no
@@ -403,6 +436,9 @@ COUNTED = KERNEL_IDS[:-2] + ("ladder",)
 # rdma); ring vs single device on the same card and weights, as the
 # single-device path is held against the CPU
 RING_SHARDS = 4
+# phases 26-29 run the ring's sums at this depth (the run's time budget;
+# phases 50-51 run the ring at the full 6 layers)
+RING_LAYERS = 3
 RING_SCORE_ATOL = 1e-4
 RING_GRAD_RTOL = 1e-4
 # card vs CPU for classic NBFNet: about 10x the largest reading of five H100
@@ -2560,18 +2596,20 @@ def profile_device_time(label: str, fn):
 
 def phase_parity(task, model, device, atol: float = 1e-4,
                  label: str = "parity", ref_task=None, ref_device="cpu",
-                 mesh=None, queries: int = 2, split_graphs=None):
+                 mesh=None, queries: int = 2, split_graphs=None,
+                 ref_model=None):
     """Card scores for ``queries`` test queries against the port's CPU run
-    (or ``ref_task`` on ``ref_device``), through the task's scoring hook on
-    the graphs its eval path uses: ``split_graphs`` (the test split's fact
-    and relation graph) or the task's fact and relation graph; ``task``
-    runs under ``mesh``."""
+    (or ``ref_task`` with ``ref_model``, by default the same model, on
+    ``ref_device``), through the task's scoring hook on the graphs its eval
+    path uses: ``split_graphs`` (the test split's fact and relation graph)
+    or the task's fact and relation graph; ``task`` runs under ``mesh``."""
     from ultra_torchdrug_tpu_torch.parallel.mesh import use_mesh
 
     batch = torch.from_numpy(task.dataset.test[:queries].astype(np.int64))
     ref_device = torch.device(ref_device)
-    ref_model = (model if ref_device == device
-                 else copy.deepcopy(model).to(ref_device))
+    if ref_model is None:
+        ref_model = (model if ref_device == device
+                     else copy.deepcopy(model).to(ref_device))
     results = []
     for t, m, dev, scope in ((task, model, device, use_mesh(mesh)),
                              (ref_task or task, ref_model, ref_device,
@@ -2606,16 +2644,13 @@ def phase_clip_crossings(task, model, device, label: str):
         pna_moments,
         pna_sums,
     )
-    from ultra_torchdrug_tpu_torch.ops.rspmm import broadcast_rel_flat
 
     def clipped(m, dev):
         masks = []
 
         def hook(layer, args, kwargs):
             graph, x, boundary = args
-            B = x.shape[1] // layer.cfg.input_dim
-            rel = broadcast_rel_flat(
-                _relation_input(layer, kwargs.get("query"), None), B)
+            rel = _relation_input(layer, kwargs.get("query"), None)
             sums = pna_sums(layer.cfg, graph, rel, x,
                             _MESSAGES[layer.cfg.message_func])
             mean, sq_mean, _ = pna_moments(layer.cfg, graph, *sums, boundary)
@@ -2702,10 +2737,11 @@ def phase_train(engine, size: dict, device, per_step: dict,
 
 def phase_train_parity(engine, cpu_task, device, grad_rtol: float = 1e-4,
                        loss_rtol: float = 1e-5, label: str = "train parity",
-                       ref_device="cpu", graph_id=None):
+                       ref_device="cpu", graph_id=None, ref_model=None):
     """One loss step on the card (under the engine's mesh) against the
     port's CPU run (``cpu_task``, the same task on the CPU; or another task
-    on ``ref_device``): the same weights, the same 2 train triples and 8
+    on ``ref_device``, with ``ref_model`` when given, else a copy of the
+    engine's model): the same weights, the same 2 train triples and 8
     injected negatives, on the full graph (of a multi-graph task, graph
     ``graph_id``). Gradients are compared
     norm-wise per parameter: each is a sum over ~500k edges and V*B rows,
@@ -2723,9 +2759,11 @@ def phase_train_parity(engine, cpu_task, device, grad_rtol: float = 1e-4,
         0, num_nodes, (2, 8)))
     cpu = torch.device(ref_device)
     results = []
+    if ref_model is None:
+        ref_model = copy.deepcopy(engine.model).to(cpu)
     for t, m, dev, scope in ((task, engine.model, device, engine._mesh_scope()),
-                             (cpu_task, copy.deepcopy(engine.model).to(cpu),
-                              cpu, contextlib.nullcontext())):
+                             (cpu_task, ref_model, cpu,
+                              contextlib.nullcontext())):
         m.zero_grad(set_to_none=True)
         with scope:
             loss, _ = t.loss_step(m, None, batch, *step, neg=neg.to(dev))
@@ -2757,15 +2795,18 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
-        help="cpu rehearses phases 1b-48 at a reduced size with the plain "
+        help="cpu rehearses phases 1b-51 at a reduced size with the plain "
              "versions and reports no result")
     parser.add_argument("--failsoft", nargs=3, help=argparse.SUPPRESS,
                         metavar=("LOSS", "PEAK_GIB", "OUT"))
     parser.add_argument("--dp-child", nargs=2, help=argparse.SUPPRESS,
                         metavar=("OUT", "CASES"))
     parser.add_argument(
-        "--only-new", action="store_true",
-        help="run the build and phases 46-48 alone and report no result")
+        "--only", choices=("46-48", "49-51"),
+        help="run the build and these phases alone and report no result")
+    parser.add_argument(
+        "--only-new", action="store_const", const="49-51", dest="only",
+        help="the same as --only 49-51, the newest phases")
     args = parser.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script checks the port on "
@@ -2800,11 +2841,12 @@ def main(argv=None) -> int:
         log(f"[env] device {torch.cuda.get_device_name(0)}, "
             f"count {torch.cuda.device_count()}")
         phase_build()
-    if args.only_new:
+    if args.only:
+        phases = run_new_phases if args.only == "46-48" else run_edge_phases
         used = {path: {half: {k: v for k, v in c.items() if v}
                        for half, c in halves.items()}
-                for path, halves in run_new_phases(device).items()}
-        log(f"[only-new] phases 46-48 passed; launches by path {used}")
+                for path, halves in phases(device).items()}
+        log(f"[only] phases {args.only} passed; launches by path {used}")
         return 0
 
     t0 = time.perf_counter()
@@ -2944,9 +2986,15 @@ def main(argv=None) -> int:
     if cuda:
         release_device_memory()
     runs.update(run_new_phases(device))
+    # the partitioned path, the ring's extremum, pair and moments
+    # schedules and the edge-sharded relation tower (K1, K1h, K2, K2h, K3
+    # a shard; K9 on the ring)
+    if cuda:
+        release_device_memory()
+    runs.update(run_edge_phases(device))
 
     if not cuda:
-        log("[rehearsal] phases 1b-48 ran on the CPU; no kernel ran and no "
+        log("[rehearsal] phases 1b-51 ran on the CPU; no kernel ran and no "
             "result is reported")
         return 1
     for e in entries.values():
@@ -3048,11 +3096,14 @@ def run_ultra_bf16(size: dict, device) -> dict:
 
 def ring_config(spec: dict) -> dict:
     """inference.yaml's model and task (fp32) with the ring keys:
-    parallel: {edge: RING_SHARDS}, rspmm_impl: ring, ring_exchange: rdma."""
+    parallel: {edge: RING_SHARDS}, rspmm_impl: ring, ring_exchange: rdma,
+    the entity tower cut to RING_LAYERS layers."""
     cfg = inference_config(spec, "float32")
     cfg["parallel"] = {"edge": RING_SHARDS}
     cfg["rspmm_impl"] = "ring"
     cfg["task"]["model"]["ring_exchange"] = "rdma"
+    cfg["task"]["model"]["hidden_dims"] = (
+        cfg["task"]["model"]["hidden_dims"][:RING_LAYERS])
     return cfg
 
 
@@ -5280,6 +5331,477 @@ def run_data_parallel(device) -> tuple:
             composed_runs[f"rank{r} train"] = counts
     return dp_runs, composed_runs
 
+
+# phases 49-51: ULTRA 6x64 on the FB-size KG under an edge mesh of
+# EDGE_SHARDS shards, every shard on the card, each path held against the
+# single-device run on the same card and weights; the 2-layer variants and
+# xla's train batch are cut as the module docstring says
+EDGE_SHARDS = 4
+EDGE_STEP = dict(batch=64, negatives=128, steps=1)
+EDGE_STEP_REHEARSAL = dict(batch=8, negatives=16, steps=1)
+EDGE_SCORE_ATOL = 1e-5  # the partitioned sums: each row's edges in order
+EDGE_GRAD_RTOL = 1e-4
+# pna on the ring against the single device: the moments are summed in
+# another order (ring steps with atomic index_add_, then the fused K7), and
+# std = sqrt(clip(sq_mean - mean², 1e-6)) amplifies that rounding where the
+# variance nears the clip (the constant states of unreached nodes send
+# equal messages). pna_rounding holds it to be rounding alone: in fp64 the
+# ring on the card and the single-device model on the CPU agree within
+# PNA_FP64_GRAD_RTOL, and it reads each fp32 route against that result. On an H100 the
+# fp32 ring read 1.93e-4 to 8.05e-4 from the single device in six runs on
+# the same weights and inputs (its atomic sums differ run to run);
+# PNA_RING_GRAD_RTOL is 2.5 times the worst
+PNA_RING_GRAD_RTOL = 2e-3
+PNA_FP64_GRAD_RTOL = 1e-9
+
+
+def edge_config(spec: dict, impl: str, layers: int = 6,
+                relation_edge: bool = False, compute_dtype="float32",
+                **model) -> dict:
+    """inference.yaml's model and task with ``parallel: {edge:
+    EDGE_SHARDS}`` (and ``relation_edge``), ``rspmm_impl``, rdma for the
+    ring, the entity tower cut to ``layers`` layers and ``model``'s keys
+    set."""
+    cfg = inference_config(spec, compute_dtype)
+    cfg["parallel"] = {"edge": EDGE_SHARDS, "relation_edge": relation_edge}
+    cfg["rspmm_impl"] = impl
+    m = cfg["task"]["model"]
+    m.update(ring_exchange="rdma", **model)
+    m["hidden_dims"] = m["hidden_dims"][:layers]
+    return cfg
+
+
+@contextlib.contextmanager
+def forced_balance():
+    """The ring's degree-balanced relabelling forced on: the uniform KG
+    does not need it, and phase 50 holds the relabelled block domain."""
+    from ultra_torchdrug_tpu_torch.parallel import ring_rspmm
+
+    real = ring_rspmm.resolve_balance
+    ring_rspmm.resolve_balance = lambda *args: True
+    try:
+        yield
+    finally:
+        ring_rspmm.resolve_balance = real
+
+
+def edge_launches(und, rel_graph, entity, relation, kernels: dict) -> tuple:
+    """(per eval batch, per train step) launches of an edge-mesh run, by
+    kernel id (``kernels`` names the sums' forward and backward kernels on
+    the partitioned path): the partitioned sums once a shard with edges a
+    layer, its max K4 (K5 backward) once a layer; the ring's sums K1 (K2)
+    once a bucket with edges a layer; K9 n - 1 times a rotation (one
+    rotation a layer each way, two for pna's pair and moments); the entity
+    tower runs twice an eval batch (tail and head), the relation tower
+    once."""
+    def tower(g, cfg):  # a layer's (forward, backward) launches, K9 each way
+        base = cfg.aggregate_func.replace("_nobound", "")
+        if g.part_layouts is not None:
+            if base == "max":
+                return {"K4": 1}, {"K5": 1}, 0
+            lay = g.part_layouts
+            return ({kernels["fwd"]: int(np.count_nonzero(lay.fwd_counts))},
+                    {kernels["bwd"]: int(np.count_nonzero(lay.rev_counts))},
+                    0)
+        ri = g.ring_inputs
+        if ri is None:
+            return {}, {}, 0
+        rotations = EDGE_SHARDS - 1
+        if base in ("sum", "mean") and ri.csr is not None:
+            return ({"K1": ri.nonempty_buckets}, {"K2": ri.nonempty_buckets},
+                    rotations)
+        return {}, {}, rotations * (2 if base == "pna" else 1)
+
+    def add(total, counts, times):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v * times
+
+    (ef, eb, ek9), (rf, rb, rk9) = tower(und, entity), tower(rel_graph,
+                                                              relation)
+    L, Lr = len(entity.hidden_dims), len(relation.hidden_dims)
+    per_batch = {"K9": 2 * L * ek9 + Lr * rk9}
+    add(per_batch, ef, 2 * L)
+    add(per_batch, rf, Lr)
+    per_step = {"K9": 2 * (L * ek9 + Lr * rk9)}
+    for counts, times in ((ef, L), (eb, L), (rf, Lr), (rb, Lr)):
+        add(per_step, counts, times)
+    return ({k: v for k, v in per_batch.items() if v},
+            {k: v for k, v in per_step.items() if v})
+
+
+def parity_batch(task):
+    """The 2 train triples and 8 seeded negatives that phase_train_parity
+    steps on, the negatives on the task's device."""
+    neg = torch.from_numpy(np.random.default_rng(5).integers(
+        0, task.dataset.num_entities, (2, 8)))
+    return task.train_triples[:2], neg.to(task.device)
+
+
+def step_grads(task, model, batch, neg, mesh=None, fp64: bool = False):
+    """One loss step of ``task`` (under ``mesh`` when given): its
+    gradients by name, on the CPU. With ``fp64`` a double copy of
+    ``model`` steps over double copies of the task's graphs (the edge
+    weights, and the relation graph's dense adjacency), scored and reduced
+    as the task's loss function does; the integer layouts are the
+    task's."""
+    from ultra_torchdrug_tpu_torch.parallel.mesh import use_mesh
+    from ultra_torchdrug_tpu_torch.tasks.task import _criterion_loss
+
+    scope = use_mesh(mesh) if mesh is not None else contextlib.nullcontext()
+    m = copy.deepcopy(model).double() if fp64 else model
+    m.zero_grad(set_to_none=True)
+    with scope:
+        if fp64:
+            fact = task.fact_graph.prepare_join(
+                one_hop=task.model_cfg.remove_one_hop).to(task.device)
+            fact = fact.with_edge_weight(fact.edge_weight.double())
+            rel = task.rel_graph.with_edge_weight(
+                task.rel_graph.edge_weight.double())
+            und, rel = task._prepare_graphs(fact, rel, backward=True)
+            if rel.dense_adj is not None:
+                rel = dataclasses.replace(rel, dense_adj=rel.dense_adj.double())
+            b = torch.from_numpy(np.asarray(batch, np.int64)).to(task.device)
+            scores = task._train_scores(
+                m, fact, rel, b[:, 0], b[:, 1], b[:, 2], neg, und,
+                model_cfg=task._train_model_cfg(fact, len(batch)))
+            loss = _criterion_loss(task.cfg, scores,
+                                   task.sample_weight_for(batch))
+        else:
+            loss, _ = task.loss_step(m, None, batch, neg=neg)
+        loss.backward()
+    grads = {k: p.grad.detach().cpu() for k, p in m.named_parameters()}
+    m.zero_grad(set_to_none=True)
+    return grads
+
+
+def grad_gap(got: dict, want: dict) -> float:
+    """The worst norm-wise relative difference of two gradient sets."""
+    return max(((got[k].double() - w.double()).norm()
+                / w.double().norm().clamp(min=1e-30)).item()
+               for k, w in want.items())
+
+
+def pna_rounding(dataset, cfg: dict, task, mesh, model, single,
+                 single_model, label: str) -> dict:
+    """Whether the edge run's PNA gradients differ from the single
+    device's by rounding alone, on phase_train_parity's loss step at the
+    seeded weights. The edge path on the card in fp64 must agree within
+    PNA_FP64_GRAD_RTOL with the single-device model in fp64 on the CPU
+    (the kernels' plain versions, which share their convention at ties:
+    every tied edge takes all of the gradient; the O(E) route splits it
+    and so computes another gradient where messages tie). Then each fp32
+    route on the card (the edge path, the single device's fused pairs and
+    the unfused ones that an edge axis takes off the mesh) is read against
+    that fp64 result. Raises past the limit; returns the readings."""
+    from ultra_torchdrug_tpu_torch.engine.build import build_task
+
+    batch, neg = parity_batch(task)
+    cpu = build_task(cfg["task"], dataset, rspmm_impl=cfg["rspmm_impl"],
+                     device="cpu")
+    truth = step_grads(cpu, copy.deepcopy(single_model).to("cpu"), batch,
+                       neg.cpu(), fp64=True)
+    got = {"edge fp64": step_grads(task, model, batch, neg, mesh, fp64=True),
+           "edge": step_grads(task, model, batch, neg, mesh),
+           "single fused": step_grads(single, single_model, batch, neg),
+           "single unfused": step_grads(single, model, batch, neg)}
+    gaps = {k: grad_gap(g, truth) for k, g in got.items()}
+    gaps["edge vs single fused"] = grad_gap(got["edge"], got["single fused"])
+    gaps["single unfused vs fused"] = grad_gap(got["single unfused"],
+                                               got["single fused"])
+    log(f"[{label}] PNA gradients, worst norm-wise relative difference "
+        f"from the single-device model in fp64 on the CPU: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items()))
+    if not gaps["edge fp64"] <= PNA_FP64_GRAD_RTOL:
+        raise AssertionError(f"{label}: the fp64 edge run's gradients differ "
+                             f"by {gaps['edge fp64']:.3g} (limit "
+                             f"{PNA_FP64_GRAD_RTOL:g})")
+    return gaps
+
+
+def check_partitioned_kernels(part, whole, kernels: dict,
+                              num_relations: int, label: str, device):
+    """Each shard's forward and backward kernel (``kernels``' ids) against
+    its plain version on the card at the eval width, F = EVAL_BATCH x FEAT,
+    in the shard's two row spaces: its forward CSR gathers x [V, F] into
+    v_block rows, its reverse CSR takes x [v_block, F] and the gradient
+    [V, F] (ops/rspmm_bwd_cuda.py::check_bwd_operands); logs K2's plan on
+    a shard's reverse CSR beside the one on ``whole`` (the graph's own
+    CSR). Launches made here precede the counted runs."""
+    from ultra_torchdrug_tpu_torch.ops import rspmm_bwd_cuda as bwd
+    from ultra_torchdrug_tpu_torch.ops import rspmm_cuda as fwd
+
+    F, V, vb = EVAL_BATCH * FEAT, part.num_nodes, part.v_block
+    gen = torch.Generator(device=device).manual_seed(49)
+    w = torch.rand(int(part.fwd_counts.sum()), generator=gen, device=device)
+    rel = torch.randn((num_relations, F), generator=gen, device=device)
+    x, g = (torch.randn((V, F), generator=gen, device=device)
+            for _ in range(2))
+    x_loc = torch.randn((vb, F), generator=gen, device=device)
+    mode = "add_rel" if kernels["bwd"] == "K3" else "mul_rel"
+    bf16 = kernels["fwd"] == "K1h"
+    errs = []
+    for s in range(part.n_shards):
+        c = part.fwd[s]
+        args = (c.rowptr, c.src, c.etype, c.eid, w, rel, x, mode)
+        pairs = [(fwd.rspmm_fwd_bf16_cuda if bf16 else fwd.rspmm_fwd_cuda)(
+                      *args, segments=c.segments),
+                  (fwd.rspmm_fwd_bf16_plain if bf16 else fwd.rspmm_fwd_plain)(
+                      *args)]
+        assert_fwd_close(*pairs)
+        if part.rev is not None:  # the reverse CSRs of a backward's graph
+            r = part.rev[s]
+            if bf16:
+                got = bwd.rspmm_bwd_bf16_cuda(r, w, rel, x_loc, g)
+                want = bwd.rspmm_bwd_bf16_plain(r, w, rel, x_loc, g)
+            else:
+                got = bwd.rspmm_bwd_cuda(r, w, rel, x_loc, g, mode=mode)
+                want = bwd.rspmm_bwd_plain(r, w, rel, x_loc, g, mode=mode)
+            for a, b in zip(got, want):
+                assert_bwd_close(a, b)
+                pairs += [a, b]
+        errs.append(max((a - b).abs().max().item()
+                        for a, b in zip(pairs[::2], pairs[1::2])))
+    checked = kernels["fwd"] + (f" and {kernels['bwd']}"
+                                if part.rev is not None else "")
+    log(f"[{label}] {checked} on each shard's CSRs (out {vb} of {V} rows, "
+        f"F={F}) against their plain versions: max_abs_err "
+        f"{[f'{e:.3g}' for e in errs]}")
+    if part.rev is not None and kernels["bwd"] == "K2":
+        # a shard's K2 sizes its CTA plan from the whole graph's rows
+        # (ops/rspmm_bwd_cuda.py::_plan_rows), as the single device's does
+        for name, csr in (("shard 0", part.rev[0]), ("whole graph", whole)):
+            plan = bwd.k2_plan(csr, F)
+            log(f"[{label}] K2 plan on the {name}'s reverse CSR: dx pass "
+                f"{plan_text(plan['dx'])}; dr pass {plan_text(plan['dr'])}")
+
+
+def run_edge_path(dataset, device, label: str, cfg: dict, kernels: dict,
+                  train: bool = True, train_size=None, score_atol=None,
+                  grad_rtol=None):
+    """One path of phases 49-51 on ``dataset`` (a built dataset of
+    ``cfg``): the edge task through mesh_scope and build_task, one eval
+    batch of EVAL_BATCH (with its launches; ``kernels`` names the path's
+    forward and backward kernel ids, see ``edge_launches``), the scores of
+    EVAL_BATCH queries against the single-device task on the same card and
+    weights; with ``train`` one Engine.train step at ``train_size`` and
+    one loss step's loss and gradients against the single-device step.
+    Returns the launch counts by half."""
+    from ultra_torchdrug_tpu_torch.engine.build import (
+        build_engine,
+        build_task,
+        mesh_scope,
+    )
+    from ultra_torchdrug_tpu_torch.parallel.mesh import use_mesh
+
+    cuda = device.type == "cuda"
+    t0 = time.perf_counter()
+    with mesh_scope(cfg, device) as (mesh, edge_axis, rel_edge_axis):
+        task = build_task(cfg["task"], dataset, rspmm_impl=cfg["rspmm_impl"],
+                          device=device, edge_axis=edge_axis,
+                          rel_edge_axis=rel_edge_axis)
+    model = task.init_params(seed=0)
+    # the single-device run: the same model without the edge axis, so that
+    # its convs take their single-device routes (fused PNA pairs, the
+    # relation tower's dense matmuls)
+    single = build_task(cfg["task"], dataset, rspmm_impl=cfg["rspmm_impl"],
+                        device=device)
+    single_model = single.init_params(seed=0)
+    single_model.load_state_dict(model.state_dict())
+    with use_mesh(mesh):
+        und, rel_graph = task._prepare_graphs(task.fact_graph, task.rel_graph,
+                                              backward=train)
+    entity, relation = task.model_cfg.entity, task.model_cfg.relation
+    per_batch, per_step = edge_launches(und, rel_graph, entity, relation,
+                                        kernels)
+    part = und.part_layouts
+    ring = und.ring_inputs
+    log(f"[{label}] entity {entity.aggregate_func}/{entity.message_func} "
+        f"{len(entity.hidden_dims)} layers rspmm_impl={entity.rspmm_impl} "
+        f"compute_dtype={entity.compute_dtype}, relation tower edge_axis="
+        f"{relation.edge_axis!r}; mesh {mesh.shape} on {mesh.device}; "
+        f"set-up {time.perf_counter() - t0:.1f} s; "
+        + (f"v_block {part.v_block}, shard edges in "
+           f"{part.fwd_counts.tolist()}"
+           + (f", out {part.rev_counts.tolist()}" if part.rev is not None
+              else "")
+           + f", relabelled {part.to_new is not None}"
+           if part is not None else "")
+        + (f"v_block {ring.v_block}, {ring.nonempty_buckets} of "
+           f"{EDGE_SHARDS ** 2} buckets with edges, relabelled "
+           f"{ring.to_new is not None}" if ring is not None else ""))
+    if (cuda and part is not None
+            and entity.aggregate_func.replace("_nobound", "")
+            in ("sum", "mean")):
+        check_partitioned_kernels(part, und.csr, kernels, und.num_relations,
+                                  label, device)
+    with use_mesh(mesh):
+        eval_counts = phase_slice(task, model, device, per_batch,
+                                  label=label, triples=EVAL_BATCH)
+    phase_parity(task, model, device, atol=score_atol or EDGE_SCORE_ATOL,
+                 label=f"{label} parity", ref_task=single, ref_device=device,
+                 mesh=mesh, queries=EVAL_BATCH, ref_model=single_model)
+    counts = {"eval": eval_counts}
+    if train:
+        size = train_size or (EDGE_STEP if cuda else EDGE_STEP_REHEARSAL)
+        cfg["task"]["num_negative"] = size["negatives"]
+        cfg["engine"].update(batch_size=size["batch"], log_interval=10**9)
+        with tempfile.TemporaryDirectory() as work_dir:
+            engine = build_engine(cfg, task, work_dir=work_dir, seed=0,
+                                  mesh=mesh)
+            engine.model.load_state_dict(model.state_dict())
+            # at the seeded weights, before the timed step moves them
+            phase_train_parity(engine, single, device,
+                               grad_rtol=grad_rtol or EDGE_GRAD_RTOL,
+                               label=f"{label} train parity",
+                               ref_device=device, ref_model=single_model)
+            if entity.aggregate_func.startswith("pna"):
+                pna_rounding(dataset, cfg, task, mesh, model, single,
+                             single_model, label)
+            counts["train"] = phase_train(engine, size, device, per_step,
+                                          label=f"{label} train")
+    del task, single, model, single_model
+    if cuda:
+        release_device_memory()
+    return counts
+
+
+def run_partitioned(dataset, spec, device) -> dict:
+    """Phase 49: the partitioned path (rspmm_impl auto under the edge
+    mesh): 6x64 fp32 (K1 and K2 once a shard a layer, no K9), then at 2
+    entity layers bf16 operands (K1h, K2h), transe (K1 add_rel, K3), max
+    (off the ring the single-device K4 and K5) and the xla body
+    (sharded_rspmm: no kernel; trained at XLA_TRAIN_BATCH)."""
+    cuda = device.type == "cuda"
+    runs = {}
+    paths = (
+        ("partitioned", edge_config(spec, "auto"),
+         dict(fwd="K1", bwd="K2"), None),
+        ("partitioned bf16", edge_config(spec, "auto", 2,
+                                         compute_dtype="bfloat16"),
+         dict(fwd="K1h", bwd="K2h"), None),
+        ("partitioned transe", edge_config(spec, "auto", 2,
+                                           message_func="transe"),
+         dict(fwd="K1", bwd="K3"), None),
+        ("partitioned max", edge_config(spec, "auto", 2,
+                                        aggregate_func="max"),
+         dict(fwd="K1", bwd="K2"), None),
+        ("partitioned xla", edge_config(spec, "xla", 2), {},
+         dict(batch=XLA_TRAIN_BATCH if cuda else 4,
+              negatives=128 if cuda else 16, steps=1)),
+    )
+    for label, cfg, kernels, size in paths:
+        runs[label] = run_edge_path(dataset, device, label, cfg, kernels,
+                                    train_size=size)
+    return runs
+
+
+def run_ring_extrema(dataset, spec, device) -> dict:
+    """Phase 50: the entity tower with max and with pna on the ring
+    (rdma), balance forced on and permuted IO: the ring's extremum, pair
+    and moments schedules (plain PyTorch, no K1) with K9 between steps;
+    one eval batch and one step each against the single-device run
+    (K4/K5, K6/K7)."""
+    runs = {}
+    with forced_balance():
+        for agg in ("max", "pna"):
+            label = f"ring {agg}"
+            cfg = edge_config(spec, "ring", aggregate_func=agg)
+            counts = run_edge_path(
+                dataset, device, label, cfg, dict(fwd="K1", bwd="K2"),
+                score_atol=RING_SCORE_ATOL,
+                grad_rtol=PNA_RING_GRAD_RTOL if agg == "pna" else None)
+            log(f"[{label}] K9 launches: eval batch {counts['eval']['K9']},"
+                f" train step {counts['train']['K9']}")
+            runs[label] = counts
+    return runs
+
+
+def run_relation_edge(dataset, spec, device) -> dict:
+    """Phase 51: ``parallel.relation_edge`` on each route, one eval batch
+    against the single-device run (1e-4: its relation tower takes the
+    dense matmuls): both towers on the partitioned kernels, and both on
+    the ring (the relation graph's buckets neither balanced nor
+    permuted)."""
+    runs = {}
+    for impl in ("auto", "ring"):
+        label = f"relation_edge {impl}"
+        cfg = edge_config(spec, impl, relation_edge=True)
+        # the single-device relation tower takes its dense matmuls
+        runs[label] = run_edge_path(
+            dataset, device, label, cfg, dict(fwd="K1", bwd="K2"),
+            train=False, score_atol=RING_SCORE_ATOL)
+    for impl, aggregate, exchange in (("auto", "sum", "rdma"),
+                                      ("ring", "pna", "ppermute")):
+        label = f"relation_edge cli {impl} {aggregate} {exchange}"
+        runs[label] = run_edge_cli(device, label, impl, aggregate, exchange)
+    return runs
+
+
+def run_edge_cli(device, label: str, impl: str, aggregate: str,
+                 exchange: str) -> dict:
+    """``run_full.main`` on config/synthetic/smoke.yaml with ``parallel:
+    {edge: 4, relation_edge: true}``, ``rspmm_impl``, the entity tower's
+    aggregation and exchange: one epoch of 5 steps (both towers' backward
+    on their edge layouts), its checkpoint and log, and evaluation.
+    Returns its launch counts; K1 and K2 must launch on the card."""
+    import yaml
+
+    from ultra_torchdrug_tpu_torch import run_full
+
+    with tempfile.TemporaryDirectory() as tmp:
+        text = (REPO / "config/synthetic/smoke.yaml").read_text()
+        cfg = yaml.safe_load(text.replace("{{ outdir }}", tmp))
+        cfg.update(parallel={"edge": EDGE_SHARDS, "relation_edge": True},
+                   rspmm_impl=impl)
+        cfg["task"]["model"].update(aggregate_func=aggregate,
+                                    ring_exchange=exchange)
+        path = Path(tmp) / "smoke_edge.yaml"
+        path.write_text(yaml.safe_dump(cfg))
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        engine = run_full.main(["-c", str(path), "--device", device.type])
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        files = os.listdir(engine.work_dir)
+        metrics = engine.metrics["test"]
+        towers = (engine.task.model_cfg.entity, engine.task.model_cfg.relation)
+        if (engine.epoch != 1 or engine.mesh.edge != EDGE_SHARDS
+                or any(t.edge_axis != "edge" or t.rspmm_impl != impl
+                       for t in towers)
+                or not any(f.endswith(".ckpt") for f in files)
+                or not all(math.isfinite(v) for v in metrics.values())):
+            raise AssertionError(f"{label}: epoch {engine.epoch}, towers "
+                                 f"{towers}, files {files}, metrics "
+                                 f"{metrics}")
+        used = {k: v for k, v in counts.items() if v}
+        if device.type == "cuda" and not (used.get("K1") and used.get("K2")):
+            raise AssertionError(f"{label}: launches {used}")
+        log(f"[{label}] smoke.yaml with parallel {cfg['parallel']}: "
+            f"{seconds:.1f} s on {device}, epoch {engine.epoch}, files "
+            f"{sorted(files)}, test mrr {metrics['mrr']:.6f}, launches "
+            f"{used}")
+    return {"smoke": counts}
+
+
+def run_edge_phases(device) -> dict:
+    """Phases 49-51, each timed beside the card's name and power limit;
+    returns their launch counts by path."""
+    from ultra_torchdrug_tpu_torch.engine.build import build_dataset
+
+    cuda = device.type == "cuda"
+    spec = {"class": "SynthKG", **(FULL if cuda else REHEARSAL)}
+    dataset = build_dataset(dict(spec))
+    card = nvidia_smi_line() if cuda else str(device)
+    runs = {}
+    for phase, fn in ((49, run_partitioned), (50, run_ring_extrema),
+                      (51, run_relation_edge)):
+        t0 = time.perf_counter()
+        runs.update(fn(dataset, spec, device))
+        log(f"[timing] phase {phase} {time.perf_counter() - t0:.1f} s "
+            f"({card})")
+    return runs
 
 if __name__ == "__main__":
     sys.exit(main())

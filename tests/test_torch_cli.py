@@ -144,20 +144,19 @@ def test_model_and_task_configs_match_jax(path, compute_dtype):
 def test_entity_nbfnet_config_raises_on_what_it_does_not_honour(caplog):
     with pytest.raises(TypeError, match="unknown option 'activation'"):
         entity_nbfnet_config(activation="gelu")
-    # an edge axis needs the ring: the partitioned path is not ported
-    with pytest.raises(NotImplementedError, match="item 9"):
-        entity_nbfnet_config(edge_axis="edge")
+    # an edge axis takes the partitioned path with the kernels (auto and
+    # pallas), its sharded body with xla, or the ring
+    for impl, want in (("auto", "auto"), ("pallas", "auto"), ("xla", "xla")):
+        part = entity_nbfnet_config(edge_axis="edge", rspmm_impl=impl)
+        assert (part.edge_axis, part.rspmm_impl) == ("edge", want)
     with pytest.raises(ValueError, match="ring_exchange"):
         entity_nbfnet_config(ring_exchange="nccl")
     ring = entity_nbfnet_config(edge_axis="edge", rspmm_impl="ring",
                                 ring_exchange="rdma")
     assert (ring.edge_axis, ring.rspmm_impl, ring.ring_exchange) == (
         "edge", "ring", "rdma")
-    # xla builds the O(E) route; with an edge axis it would select the
-    # partitioned path, which is not ported
+    # xla builds the O(E) route
     assert entity_nbfnet_config(rspmm_impl="xla").rspmm_impl == "xla"
-    with pytest.raises(NotImplementedError, match="item 9"):
-        entity_nbfnet_config(rspmm_impl="xla", edge_axis="edge")
     with pytest.raises(ValueError, match="rspmm_impl must be one of"):
         entity_nbfnet_config(rspmm_impl="triton")
     with pytest.raises(ValueError, match="compute_dtype"):
@@ -217,17 +216,48 @@ def test_build_engine_raises_on_what_the_port_lacks(tmp_path, edit, match):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(rel_edge_axis="edge"), "item 9"),
-    (dict(edge_axis="edge"), "item 9"),
-    (dict(edge_axis="edge", rspmm_impl="xla"), "item 9"),
+    pytest.param(dict(rel_edge_axis="edge"), "relation", id="kwargs0-item 9"),
+    pytest.param(dict(edge_axis="edge"), "entity", id="kwargs1-item 9"),
+    pytest.param(dict(edge_axis="edge", rspmm_impl="xla"), "entity",
+                 id="kwargs2-item 9"),
 ])
 def test_build_task_raises_on_what_the_port_lacks(tmp_path, kwargs, match):
-    """An edge-sharded relation tower, and an edge axis on any route but
-    the ring (the partitioned path), are Queue 1 item 9."""
+    """An edge-sharded relation tower, and an edge axis on the kernels'
+    route (the partitioned path) or on xla (its sharded body), once
+    Queue 1 item 9, build their task: under an edge mesh of 4 the sharded
+    tower's graph carries the per-shard CSRs with the kernels (none with
+    xla, whose body needs none) and 4 test triples score as the
+    single-device task does (1e-5)."""
+    from ultra_torchdrug_tpu_torch.parallel.mesh import make_mesh, use_mesh
+
     cfg = _smoke_cfg(tmp_path)
     dataset = build.build_dataset(cfg["dataset"])
-    with pytest.raises(NotImplementedError, match=match):
-        build.build_task(cfg["task"], dataset, device="cpu", **kwargs)
+    impl = kwargs.get("rspmm_impl", "auto")
+    mesh = make_mesh(edge=4, device="cpu")
+    with use_mesh(mesh):
+        task = build.build_task(cfg["task"], dataset, device="cpu", **kwargs)
+        und, rel_graph = task._prepare_graphs(task.fact_graph,
+                                              task.rel_graph)
+    sharded = und if match == "entity" else rel_graph
+    assert (sharded.part_layouts is not None) == (impl == "auto")
+    tower = getattr(task.model_cfg, match)
+    assert (tower.edge_axis, tower.rspmm_impl) == ("edge", impl)
+    single = build.build_task(cfg["task"], dataset, device="cpu",
+                              rspmm_impl=impl)
+    model = single.init_params(seed=0)
+    b = torch.from_numpy(dataset.test[:4].astype(np.int64))
+    edge_model = task.init_params(seed=0)
+    edge_model.load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        s_und, s_rel = single._prepare_graphs(single.fact_graph,
+                                              single.rel_graph)
+        want = single._eval_scores(model, single.fact_graph, s_rel, b[:, 0],
+                                   b[:, 1], b[:, 2], s_und)
+        with use_mesh(mesh):
+            got = task._eval_scores(edge_model, task.fact_graph, rel_graph,
+                                    b[:, 0], b[:, 1], b[:, 2], und)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
 
 
 def test_op_raises_name_their_roadmap_items():

@@ -64,6 +64,12 @@ from ultra_torchdrug_tpu_torch.parallel import rdma
 from ultra_torchdrug_tpu_torch.parallel.ring_rspmm import (
     build_ring_rspmm_inputs,
     ring_rspmm,
+    ring_rspmm_addsq,
+    ring_rspmm_maxmin,
+)
+from ultra_torchdrug_tpu_torch.parallel.sharded_rspmm import (
+    build_partitioned_rspmm_inputs,
+    partitioned_rspmm,
 )
 
 pytestmark = pytest.mark.cuda
@@ -1358,7 +1364,7 @@ def test_k9_rejects_bad_operands(cuda_device):
     blocks = list(x.chunk(4))
     with pytest.raises(ValueError, match="overlap"):
         rdma.ring_shift_blocks(blocks, blocks)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 9, several cards"):
         rdma.ring_shift_blocks(blocks, [b.cpu() for b in blocks])
     with pytest.raises(ValueError, match="one dtype and shape"):
         rdma.ring_shift_blocks(blocks, [torch.zeros(2, 5, device=cuda_device)
@@ -1412,6 +1418,85 @@ def test_ring_rspmm_card_matches_cpu(cuda_device, rng, n, compute_dtype,
         assert rdma.launches - counts[2] == 2 * (n - 1)
     torch.testing.assert_close(results[1][0], results[0][0], **TOL)
     for a, b in zip(results[0][1:], results[1][1:]):
+        torch.testing.assert_close(b, a, **K2_TOL)
+
+
+@pytest.mark.parametrize("msg,compute_dtype", [
+    ("mul", "float32"), ("mul", "bfloat16"), ("add", "float32")])
+@pytest.mark.parametrize("balance", [False, True])
+def test_partitioned_rspmm_card_matches_cpu(cuda_device, rng, msg,
+                                            compute_dtype, balance):
+    """The partitioned op on the card (K1 or K1h a shard forward; K2, K2h
+    or K3 a shard backward, in the shard's two row spaces: x of v_block
+    rows, the gradient of V rows) against the same op on the CPU (their
+    plain versions), with one launch of each a shard with edges."""
+    V, E, R, B, D, n = 43, 300, 5, 3, 8, 4
+    g = _graph(rng, V, E, R)
+    lay = build_partitioned_rspmm_inputs(g.edge_index.numpy(),
+                                         g.edge_type.numpy(), V, R, n,
+                                         balance=balance)
+    rel = torch.from_numpy(rng.normal(size=(R, B, D)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(V, B, D)).astype(np.float32))
+    cot = torch.from_numpy(rng.normal(size=(V, B, D)).astype(np.float32))
+    bf16 = compute_dtype == "bfloat16"
+    bwd_id = "K3" if msg == "add" else ("K2h" if bf16 else "K2")
+    results = []
+    for dev in ("cpu", cuda_device):
+        r, xx = rel.to(dev).requires_grad_(), x.to(dev).requires_grad_()
+        counts = (rspmm_cuda.bf16_launches if bf16 else rspmm_cuda.launches,
+                  rspmm_bwd_cuda.launches[bwd_id])
+        out = partitioned_rspmm(g.edge_weight.to(dev), lay.to(dev), r, xx,
+                                msg=msg, compute_dtype=compute_dtype)
+        grads = torch.autograd.grad(out, (r, xx), cot.to(dev))
+        results.append([t.detach().cpu() for t in (out, *grads)])
+        if dev == "cpu":
+            continue
+        fwd = rspmm_cuda.bf16_launches if bf16 else rspmm_cuda.launches
+        assert fwd - counts[0] == n and (
+            rspmm_bwd_cuda.launches[bwd_id] - counts[1] == n)
+    torch.testing.assert_close(results[1][0], results[0][0], **TOL)
+    for a, b in zip(results[0][1:], results[1][1:]):
+        torch.testing.assert_close(b, a, **K2_TOL)
+
+
+@pytest.mark.parametrize("schedule", ["max", "min", "maxmin", "addsq"])
+def test_ring_schedules_card_match_cpu(cuda_device, rng, schedule):
+    """The ring's extremum, pair and moments schedules on the card (plain
+    PyTorch steps, K9 between them: one shift of the packed planes a
+    step each way) against the same op on the CPU: extrema equal, their
+    gradients and the moments within K2's tolerance."""
+    V, E, R, B, D, n = 43, 300, 5, 3, 8, 4
+    g = _graph(rng, V, E, R)
+    ri = build_ring_rspmm_inputs(g.edge_index.numpy(), g.edge_type.numpy(),
+                                 V, n, num_relations=R, balance=True,
+                                 permuted_io=False)
+    fn, kw = {"max": (ring_rspmm, dict(msg="mul", agg="max")),
+              "min": (ring_rspmm, dict(msg="add", agg="min")),
+              "maxmin": (ring_rspmm_maxmin, dict(msg="mul")),
+              "addsq": (ring_rspmm_addsq, {})}[schedule]
+    rel = torch.from_numpy(rng.normal(size=(R, B, D)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(V, B, D)).astype(np.float32))
+    cots = [torch.from_numpy(rng.normal(size=(V, B, D)).astype(np.float32))
+            for _ in range(2)]
+    results = []
+    for dev in ("cpu", cuda_device):
+        r, xx = rel.to(dev).requires_grad_(), x.to(dev).requires_grad_()
+        k9 = rdma.launches
+        out = fn(g.edge_weight.to(dev), ri.to(dev), r, xx,
+                 exchange="rdma", **kw)
+        out = out if isinstance(out, tuple) else (out,)
+        loss = sum((o * c.to(dev)).sum() for o, c in zip(out, cots))
+        grads = torch.autograd.grad(loss, (r, xx))
+        results.append([t.detach().cpu() for t in (*out, *grads)])
+        if dev != "cpu":
+            assert rdma.launches - k9 == 2 * (n - 1)
+    outs = len(results[0]) - 2
+    for a, b in zip(results[0][:outs], results[1][:outs]):
+        if schedule == "addsq":
+            torch.testing.assert_close(b, a, **TOL)
+        else:
+            assert torch.equal(a, b)
+    for a, b in zip(results[0][outs:], results[1][outs:]):
         torch.testing.assert_close(b, a, **K2_TOL)
 
 

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_ring_ultra import one_torch_thread  # noqa: F401  (a fixture)
 
 from ultra_torchdrug_tpu.ops.rspmm import generalized_rspmm as j_rspmm
 from ultra_torchdrug_tpu.parallel.balance import (
@@ -262,17 +263,35 @@ def _ring_graph(n=4, permuted_io=False):
 
 @pytest.mark.parametrize("aggregate_func", ["max", "pna", "max_nobound",
                                             "pna_nobound"])
-def test_unported_aggregations_raise_under_an_edge_mesh(aggregate_func):
+def test_unported_aggregations_raise_under_an_edge_mesh(aggregate_func,
+                                                        monkeypatch):
+    """Max and pna under an edge mesh, which raised before the ring's
+    extremum, pair and moments schedules were ported, now ride the ring
+    (each schedule called once) and agree with the single-device conv;
+    ``ring_rspmm(agg="max")`` agrees with the single-device op."""
+    from ultra_torchdrug_tpu_torch.ops.rspmm import generalized_rspmm
+
+    calls = []
+    for name in ("_RingExtremum", "_RingMaxMin", "_RingAddSq"):
+        fn = getattr(ring_mod, name)
+        monkeypatch.setattr(fn, "apply", lambda *a, real=fn.apply:
+                            calls.append(1) or real(*a))
     g = _ring_graph()
     layer = _conv(aggregate_func, **RING)
     x = torch.randn(V, B * D)
+    want = conv_apply(layer, g, x, x)  # off the mesh: single-device kernels
+    assert not calls
     with mesh.use_mesh(mesh.make_mesh(edge=4, device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            conv_apply(layer, g, x, x)
-    conv_apply(layer, g, x, x)  # off the mesh: the single-device kernels
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ring_rspmm(g.edge_weight, g.ring_inputs, torch.randn(R, B * D), x,
-                   msg="mul", agg="max")
+        got = conv_apply(layer, g, x, x)
+    assert len(calls) == (1 if aggregate_func.startswith("max") else 2)
+    torch.testing.assert_close(got, want, **TOL)
+    rel = torch.randn(R, B * D)
+    torch.testing.assert_close(
+        ring_rspmm(g.edge_weight, g.ring_inputs, rel, x, msg="mul",
+                   agg="max"),
+        generalized_rspmm(g.edge_index, g.edge_type, g.edge_weight, rel, x,
+                          msg="mul", agg="max", num_nodes=V, csr=g.csr),
+        rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("aggregate_func", ["sum", "mean", "mean_nobound"])
@@ -305,7 +324,7 @@ def test_mesh_raises_where_the_slice_does_not_reach():
     # a data axis runs over processes: one process cannot hold two rows
     with pytest.raises(ValueError, match="needs 2 processes.*has 1"):
         mesh.make_mesh(data=2, edge=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 9.*several cards"):
         mesh.make_mesh(edge=2, devices=["cpu", "meta"])
     m = mesh.make_mesh(edge=4, device="cpu")
     assert m.shape == {"data": 1, "edge": 4} and m.axis_names == (

@@ -64,6 +64,19 @@ SCORE_TOL = dict(rtol=1e-5, atol=1e-5)
 RING = dict(rspmm_impl="ring", edge_axis="edge", ring_exchange="rdma")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module's tests: the ring and the
+    partitioned path run many small operations, for which torch's thread
+    pool costs more than it saves, and far more on a loaded machine (one
+    plain K1 call at these sizes: about 0.1 ms on one thread, 1.5 ms to
+    65 ms on eight beside other test workers)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def setup():
     jds = j_synth("SynthKG", NUM_NODES, NUM_EDGES, NUM_REL, seed=0)
@@ -85,9 +98,11 @@ def setup():
     batch = train[rng.choice(len(train), 6, replace=False)]
     neg = rng.integers(0, NUM_NODES, (6, 9)).astype(np.int32)
     test = jds.test[:8]
-    # the JAX package's single-device scores, loss and gradients
-    scores = j_scores(params, jcfg, jfact, jrel,
-                      *(jnp.asarray(test[:, i]) for i in range(3)))
+    # the JAX package's single-device scores, loss and gradients, each
+    # jitted (one compilation, not one per operation)
+    scores = jax.jit(lambda p: j_scores(
+        p, jcfg, jfact, jrel, *(jnp.asarray(test[:, i]) for i in range(3))))(
+            params)
 
     def j_loss(params):
         train_scores = j_train_scores(
@@ -95,7 +110,7 @@ def setup():
             *(jnp.asarray(batch[:, i]) for i in range(3)), jnp.asarray(neg))
         return j_criterion(JTaskConfig(), train_scores, None)
 
-    loss, grads = jax.value_and_grad(j_loss)(params)
+    loss, grads = jax.jit(jax.value_and_grad(j_loss))(params)
     return dict(tds=tds, tcfg=tcfg, model=model, batch=batch, neg=neg,
                 test=test, scores=[np.asarray(a) for a in scores],
                 loss=float(loss), grads=jax_params_to_state_dict(
@@ -242,12 +257,16 @@ def test_run_full_ring_cli_matches_the_single_device_run(tmp_path, ring_calls,
     # a data axis runs over processes: one process cannot hold two rows
     (lambda c: c.update(parallel={"data": 2, "edge": 2}),
      ValueError, "needs 2 processes"),
-    (lambda c: c.update(parallel={"edge": 4, "relation_edge": True}),
-     NotImplementedError, "item 9"),
-    (lambda c: c.update(rspmm_impl="auto"), NotImplementedError,
-     "partitioned path"),
-    (lambda c: c["task"]["model"].update(aggregate_func="pna"),
-     NotImplementedError, "item 9"),
+    # the edge-sharded relation tower, the partitioned path and the ring's
+    # pna run: error None, their scores against the single-device task's
+    pytest.param(lambda c: c.update(parallel={"edge": 4,
+                                              "relation_edge": True}),
+                 None, "relation_edge",
+                 id="<lambda>-NotImplementedError-item 9_0"),
+    pytest.param(lambda c: c.update(rspmm_impl="auto"), None, "partitioned",
+                 id="<lambda>-NotImplementedError-partitioned path"),
+    pytest.param(lambda c: c["task"]["model"].update(aggregate_func="pna"),
+                 None, "pna", id="<lambda>-NotImplementedError-item 9_1"),
     (lambda c: c["task"]["model"].update(ring_exchange="nccl"), ValueError,
      "ring_exchange"),
     (lambda c: c.update(parallel={"edge": 4, "tensor": 2}), KeyError,
@@ -255,12 +274,47 @@ def test_run_full_ring_cli_matches_the_single_device_run(tmp_path, ring_calls,
 ])
 def test_ring_cli_raises_where_the_slice_does_not_reach(tmp_path, edit, error,
                                                         match):
+    """The ring CLI's config with one edit: the edits the port does not
+    take raise; the edge-sharded relation tower (the ring on the relation
+    graph too), ``rspmm_impl: auto`` under the edge mesh (the partitioned
+    path) and a pna entity tower on the ring build their task through
+    ``mesh_scope`` and score 4 test triples as the single-device task on
+    the same weights does (1e-5)."""
     cfg = yaml.safe_load(open(_ring_yaml(tmp_path)))
     edit(cfg)
     dataset = build.build_dataset(cfg["dataset"])
-    with pytest.raises(error, match=match):
-        with build.mesh_scope(cfg, "cpu") as (_, edge_axis, rel_edge_axis):
-            build.build_task(cfg["task"], dataset,
-                             rspmm_impl=cfg["rspmm_impl"], device="cpu",
-                             edge_axis=edge_axis,
-                             rel_edge_axis=rel_edge_axis)
+
+    def edge_task():
+        with build.mesh_scope(cfg, "cpu") as (mesh, edge_axis,
+                                              rel_edge_axis):
+            return mesh, build.build_task(
+                cfg["task"], dataset, rspmm_impl=cfg["rspmm_impl"],
+                device="cpu", edge_axis=edge_axis,
+                rel_edge_axis=rel_edge_axis)
+
+    if error is not None:
+        with pytest.raises(error, match=match):
+            edge_task()
+        return
+    mesh, task = edge_task()
+    single = build.build_task(cfg["task"], dataset, device="cpu")
+    cfgm = task.model_cfg
+    assert cfgm.entity.edge_axis == "edge"
+    assert cfgm.relation.edge_axis == ("edge" if match == "relation_edge"
+                                       else "")
+    assert cfgm.entity.rspmm_impl == ("auto" if match == "partitioned"
+                                      else "ring")
+    single_model = single.init_params(seed=0)
+    model = task.init_params(seed=0)
+    model.load_state_dict(single_model.state_dict())
+    b = torch.from_numpy(dataset.test[:4].astype(np.int64))
+    scores = []
+    for t, m, scope in ((task, model, use_mesh(mesh)),
+                        (single, single_model, use_mesh(None))):
+        with scope, torch.inference_mode():
+            und, rel = t._prepare_graphs(t.fact_graph, t.rel_graph)
+            scores.append(t._eval_scores(m, t.fact_graph, rel, b[:, 0],
+                                         b[:, 1], b[:, 2], und))
+    assert (und.ring_inputs, und.part_layouts) == (None, None)
+    for got, want in zip(*scores):
+        torch.testing.assert_close(got, want, **SCORE_TOL)

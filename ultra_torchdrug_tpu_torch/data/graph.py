@@ -213,11 +213,15 @@ def _tile_chunks(dst: np.ndarray, etype: np.ndarray, num_relations: int,
 
 
 def build_csr(src, dst, etype, num_nodes: int, num_relations: int,
-              backward: bool = False, edge_ids=None) -> Csr:
+              backward: bool = False, edge_ids=None,
+              num_src_nodes: Optional[int] = None) -> Csr:
     """The ``Csr`` of the edges (src[i] -> dst[i], etype[i]) over
-    ``num_nodes`` rows (host numpy arrays in, CPU tensors out). ``eid``
-    fields hold ``edge_ids[i]`` (default i), the edge's index in the weight
-    array that the kernels gather from."""
+    ``num_nodes`` destination rows (host numpy arrays in, CPU tensors out).
+    ``eid`` fields hold ``edge_ids[i]`` (default i), the edge's index in the
+    weight array that the kernels gather from. ``num_src_nodes`` (default
+    ``num_nodes``) is the source side's row count, which the backward's
+    source-sorted layouts span: a partitioned shard's reverse CSR has a
+    block of source rows and gathers from every destination row."""
     src = np.asarray(src, np.int64)
     dst = np.asarray(dst, np.int64)
     et = np.asarray(etype, np.int64)
@@ -225,6 +229,8 @@ def build_csr(src, dst, etype, num_nodes: int, num_relations: int,
         raise ValueError(f"{len(src)} edges exceed the int32 CSR")
     if len(et) and (et.min() < 0 or et.max() >= num_relations):
         raise ValueError(f"edge types must lie in [0, {num_relations})")
+    if num_src_nodes is None:
+        num_src_nodes = num_nodes
     ids = (np.arange(len(src)) if edge_ids is None
            else np.asarray(edge_ids, np.int64))
 
@@ -244,13 +250,14 @@ def build_csr(src, dst, etype, num_nodes: int, num_relations: int,
         chunk_ptr, chunk_rel, rel_chunk_ptr = _relation_chunks(
             et[by_rel], num_relations, DR_CHUNK_EDGES)
         layouts.update(
-            src_rowptr=i32(_rowptr(src, num_nodes)), src_dst=i32(dst[by_src]),
+            src_rowptr=i32(_rowptr(src, num_src_nodes)),
+            src_dst=i32(dst[by_src]),
             src_etype=i32(et[by_src]), src_eid=i32(ids[by_src]),
             rel_src=i32(src[by_rel]), rel_dst=i32(dst[by_rel]),
             rel_eid=i32(ids[by_rel]), chunk_ptr=i32(chunk_ptr),
             chunk_rel=i32(chunk_rel), rel_chunk_ptr=i32(rel_chunk_ptr))
         seg_ptr, seg_out, long_rows, long_ptr = _row_segments(
-            np.bincount(src, minlength=num_nodes), SEGMENT_EDGES)
+            np.bincount(src, minlength=num_src_nodes), SEGMENT_EDGES)
         (by_tile, tile_chunk_ptr, tile_chunk_slot, tile_chunk_rel,
          tile_rel_ptr) = _tile_chunks(dst, et, num_relations, TILE_ROWS,
                                       DR_CHUNK_EDGES, by_dst)
@@ -282,6 +289,9 @@ class Graph:
         over (h, t, r) and over (h, t) (``prepare_join``); topology only
       ring_inputs: optional ``parallel.ring_rspmm.RingRspmmInputs``, the
         ring path's edge buckets (``prepare_ring``); topology only
+      part_layouts: optional ``parallel.sharded_rspmm.
+        PartitionedRspmmLayouts``, the partitioned path's per-shard CSRs
+        (``prepare_csr_sharded``); topology only
     """
 
     edge_index: torch.Tensor
@@ -294,6 +304,7 @@ class Graph:
     join_index: Optional[PatternJoinIndex] = None
     join_index_ht: Optional[PatternJoinIndex] = None
     ring_inputs: Optional[object] = None
+    part_layouts: Optional[object] = None
 
     @staticmethod
     def from_triplets(triplets, num_nodes: int, num_relations: int,
@@ -332,6 +343,8 @@ class Graph:
             else self.join_index_ht.to(device),
             ring_inputs=None if self.ring_inputs is None
             else self.ring_inputs.to(device),
+            part_layouts=None if self.part_layouts is None
+            else self.part_layouts.to(device),
         )
 
     @property
@@ -423,6 +436,24 @@ class Graph:
             pallas=pallas, balance=balance, permuted_io=permuted_io,
             backward=backward)
         return dataclasses.replace(self, ring_inputs=ring.to(self.device))
+
+    def prepare_csr_sharded(self, n_shards: int, backward: bool = False,
+                            balance="auto") -> "Graph":
+        """Attach the partitioned path's per-shard CSRs
+        (parallel/sharded_rspmm.py: node rows split into ``n_shards``
+        output blocks, one per edge shard of the mesh, each with the CSR of
+        the edges into its block and, with ``backward``, of the edges out of
+        it). ``balance`` as in ``build_partitioned_rspmm_inputs``. The
+        graph keeps its own CSR for the ops off the partitioned path, as
+        the JAX package composes ``prepare_pallas`` with
+        ``prepare_pallas_sharded``. Host-side, once per topology."""
+        from ..parallel.sharded_rspmm import build_partitioned_rspmm_inputs
+
+        part = build_partitioned_rspmm_inputs(
+            self.edge_index.cpu().numpy(), self.edge_type.cpu().numpy(),
+            self.num_nodes, max(self.num_relations, 1), n_shards,
+            backward=backward, balance=balance)
+        return dataclasses.replace(self, part_layouts=part.to(self.device))
 
     def prepare_join(self, one_hop: bool = False) -> "Graph":
         """Attach the sorted-edge ``PatternJoinIndex`` for the per-step

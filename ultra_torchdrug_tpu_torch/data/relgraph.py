@@ -28,10 +28,11 @@ def build_relation_graph(graph: Graph) -> Graph:
     V, R2 = g.num_nodes, g.num_relations
 
     def incidence(nodes, relations):
-        pairs = np.unique(np.stack([nodes, relations], axis=1), axis=0)
-        data = np.ones(len(pairs), dtype=bool)
-        return sp.csr_matrix((data, (pairs[:, 0], pairs[:, 1])),
-                             shape=(V, R2))
+        # the distinct (node, relation) pairs, by one key a pair (a 1-D
+        # unique sorts as the row-wise one does, at a tenth of its time)
+        keys = np.unique(nodes.astype(np.int64) * R2 + relations)
+        data = np.ones(len(keys), dtype=bool)
+        return sp.csr_matrix((data, (keys // R2, keys % R2)), shape=(V, R2))
 
     Eh = incidence(heads, rels)  # entity-heads-relation
     Et = incidence(tails, rels)  # entity-tails-relation

@@ -8,15 +8,15 @@ A top-level ``parallel: {data: N, edge: M}`` section (or the legacy
 processes (parallel/distributed.py, launched by torchrun), and each
 process's M edge shards live on its one device; under an edge axis the
 entity tower takes the ring with ``rspmm_impl: ring`` (``ring_exchange:
-rdma`` runs kernel K9 for the ring shift). The task classes map as in the
-JAX package: the transductive ones to ``TransductiveKGTask``, the
-inductive ones to ``InductiveKGTask`` and ``MultiGraphPreTraining`` to
-``MultiGraphPretrainTask``, each with its default metrics and relation
-count. ``engine.logger: wandb`` gives the engine's meter a
-``WandbLogger`` sink (project ``engine.wandb_project``), inert without
-wandb. What the port does not carry raises with the ROADMAP Queue 1 item
-that will port it: an edge-sharded relation tower
-(``parallel.relation_edge``, item 9). The relation side reads
+rdma`` runs kernel K9 for the ring shift), with ``auto``/``pallas`` the
+partitioned kernels and with ``xla`` their sharded O(E) body;
+``parallel.relation_edge`` edge-shards the relation tower the same way.
+The task classes map as in the JAX package: the transductive ones to
+``TransductiveKGTask``, the inductive ones to ``InductiveKGTask`` and
+``MultiGraphPreTraining`` to ``MultiGraphPretrainTask``, each with its
+default metrics and relation count. ``engine.logger: wandb`` gives the
+engine's meter a ``WandbLogger`` sink (project ``engine.wandb_project``),
+inert without wandb. The relation side reads
 ``rel_models.num_rel_models``, ``rel_model.class_str: CustomNBFNet`` (the
 shared relation model) and ``rel_model.learn_query`` as the JAX package
 does; the engine takes ``engine.steps_per_call``. The model options go
@@ -64,11 +64,6 @@ _TASK_DATA = {
     InductiveKGTask: (InductiveDataset, DEFAULT_INDUCTIVE_METRICS),
     MultiGraphPretrainTask: (JointDataset, DEFAULT_PRETRAIN_METRICS),
 }
-
-
-def _unported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
-                               f"{item})")
 
 
 def build_dataset(cfg_dataset: dict):
@@ -127,10 +122,9 @@ def build_model_config(cfg_task: dict, num_relations: int,
                        rspmm_impl: str = "auto", edge_axis: str = "",
                        rel_edge_axis: str = None) -> UltraConfig:
     """The model config of ``cfg_task``; ``edge_axis`` edge-shards the
-    entity tower, ``rel_edge_axis`` the relation tower (not ported)."""
-    if rel_edge_axis:
-        raise _unported("an edge-sharded relation tower "
-                        "(`parallel.relation_edge`)", "item 9")
+    entity tower, ``rel_edge_axis`` the relation tower (off unless
+    ``parallel.relation_edge``: the relation graph is small, and its dense
+    matmuls replicated cost less than its shards)."""
     m = cfg_task["model"]
     entity = entity_nbfnet_config(
         input_dim=m["input_dim"],
@@ -159,6 +153,7 @@ def build_model_config(cfg_task: dict, num_relations: int,
         hidden=rm.get("hidden", 64),
         num_layers=rm.get("num_layers", 6),
         rspmm_impl=rspmm_impl,
+        edge_axis=rel_edge_axis or "",
         ring_exchange=str(rm.get("ring_exchange",
                                  m.get("ring_exchange", "ppermute"))),
         learn_query=bool(rm.get("learn_query", False)),

@@ -41,15 +41,24 @@ the O(E) route of ``aggregate_edges``, each op deciding it for itself
 the edge weights, as the JAX package's edge_grad takes its XLA route: no
 kernel runs there.
 
-Under an active mesh with an edge axis (parallel/mesh.py), a conv with
-``rspmm_impl="ring"`` and ``edge_axis`` set sends its distmult and transe
-sums through the ring (parallel/ring_rspmm.py) when the graph carries ring
-buckets (``Graph.prepare_ring``), with the JAX package's rules: buckets
-built with ``permuted_io`` need the caller to pass block-domain states
-(``block_domain``; ``ring_block_domain`` says when the entity tower can),
-and otherwise the sums take the single-device route. Max and pna under an
-active edge mesh raise: their ring schedules are not ported yet (ROADMAP
-Queue 1 item 9). Off the mesh, ``ring`` runs the single-device kernels.
+Under an active mesh with an edge axis (parallel/mesh.py; ``edge_axis``
+set), the distmult and transe aggregations route as the JAX package's
+``_spmm_raw`` does. With ``rspmm_impl="ring"`` and the graph's ring
+buckets (``Graph.prepare_ring``) every aggregation rides the ring
+(parallel/ring_rspmm.py): sums, max and min, PNA's extremum pair and, for
+distmult, its moments in one rotation each; buckets built with
+``permuted_io`` need the caller to pass block-domain states
+(``block_domain``; ``ring_block_domain`` says when the entity tower can).
+With "auto" the sums take the partitioned kernels with the graph's
+``part_layouts`` (``Graph.prepare_csr_sharded``; a graph without them
+raises: no plain route stands in for the kernels) and max and min the
+single-device kernels; with "xla" the sums take its sharded body
+(parallel/sharded_rspmm.py). "ring" without buckets that the states may
+meet takes the single-device kernels. PNA's pairs are not fused under an
+edge axis.
+Rotate takes the O(E) route for every aggregation under an edge axis, and
+the dense route is skipped there. Off the mesh, ``ring`` runs the
+single-device kernels.
 """
 
 from __future__ import annotations
@@ -74,7 +83,12 @@ from ..ops.rspmm import (
     needs_edge_grad,
 )
 from ..parallel.mesh import current_mesh
-from ..parallel.ring_rspmm import ring_rspmm
+from ..parallel.ring_rspmm import (
+    ring_rspmm,
+    ring_rspmm_addsq,
+    ring_rspmm_maxmin,
+)
+from ..parallel.sharded_rspmm import partitioned_rspmm, sharded_rspmm
 
 _MESSAGES = {"distmult": "mul", "transe": "add", "rotate": "rotate"}
 _AGGREGATIONS = tuple(f"{base}{bound}" for base in ("sum", "mean", "max", "pna")
@@ -167,45 +181,42 @@ class ConvConfig:
     ring_exchange: str = "ppermute"  # ppermute | rdma (kernel K9)
 
 
-def ring_active(cfg: ConvConfig) -> bool:
-    """Whether the conv's sums ride the ring: ``rspmm_impl="ring"`` with an
-    ``edge_axis`` that the active mesh has."""
-    if cfg.rspmm_impl != "ring" or not cfg.edge_axis:
+def edge_active(cfg: ConvConfig) -> bool:
+    """Whether the conv runs under an edge mesh: an ``edge_axis`` that the
+    active mesh has."""
+    if not cfg.edge_axis:
         return False
     mesh = current_mesh()
     return mesh is not None and cfg.edge_axis in mesh.axis_names
 
 
-def _check_ring_aggregation(cfg: ConvConfig):
-    base = cfg.aggregate_func.replace("_nobound", "")
-    if base not in ("sum", "mean") and cfg.message_func != "rotate":
-        raise NotImplementedError(
-            f"aggregate_func={cfg.aggregate_func!r} on the ring (the max/min "
-            "and moments ring schedules) is not ported yet (ROADMAP Queue 1 "
-            "item 9); under an active edge mesh the ring takes sum and mean")
+def ring_active(cfg: ConvConfig) -> bool:
+    """Whether the conv rides the ring: ``rspmm_impl="ring"`` under an edge
+    mesh."""
+    return cfg.rspmm_impl == "ring" and edge_active(cfg)
 
 
 def ring_block_domain(cfg: ConvConfig, graph):
     """The graph's ``RingRspmmInputs`` when every spmm of a propagation over
     ``graph`` rides the ring with ``permuted_io`` (the model then carries
     node states as padded block-domain rows for the whole stack), else None.
-    Mirrors conv_apply's routing: off the mesh, for rotate messages or
-    without permuted-IO buckets the states stay in original order. Raises
-    for the aggregations whose ring schedules are not ported."""
+    Mirrors conv_aggregate's routing: off the mesh, for rotate messages or
+    without permuted-IO buckets the states stay in original order."""
     ri = getattr(graph, "ring_inputs", None)
     if ri is None or not ri.permuted_io or not ring_active(cfg):
         return None
     if cfg.message_func not in ("distmult", "transe"):
         return None
-    _check_ring_aggregation(cfg)
     return ri
 
 
 def _ring_route(cfg: ConvConfig, graph, block_domain: bool):
-    """The ring inputs that this conv's sums take, or None: buckets built
-    with ``permuted_io`` must never meet original-order states, and an edge
-    weight that requires grad takes the O(E) route instead."""
-    if not ring_active(cfg) or needs_edge_grad(graph.edge_weight):
+    """The ring inputs that this conv's distmult and transe aggregations
+    take, or None: buckets built with ``permuted_io`` must never meet
+    original-order states, and an edge weight that requires grad takes the
+    O(E) route instead."""
+    if (not ring_active(cfg) or cfg.message_func == "rotate"
+            or needs_edge_grad(graph.edge_weight)):
         return None
     ri = getattr(graph, "ring_inputs", None)
     if ri is None or (ri.permuted_io and not block_domain):
@@ -315,32 +326,16 @@ def conv_aggregate(layer: GeneralizedRelationalConv, graph, x: torch.Tensor,
     for max, (s, sq, mx, mn) for pna; the boundary is not folded in yet."""
     cfg = layer.cfg
     rel = _relation_input(layer, query, rel_injected)
-    D = cfg.input_dim
-    B = x.shape[1] // D
     msg = _MESSAGES[cfg.message_func]
-    rel_flat = broadcast_rel_flat(rel, B)
     base = cfg.aggregate_func.replace("_nobound", "")
-    if cfg.rspmm_impl == "xla":
-        return _xla_aggregates(cfg, graph, rel, x, msg, base)
-    if ring_active(cfg) and not needs_edge_grad(graph.edge_weight):
-        _check_ring_aggregation(cfg)
     ring = _ring_route(cfg, graph, block_domain)
     if base == "pna":
-        return (pna_sums(cfg, graph, rel_flat, x, msg)
-                + _pna_extrema(cfg, graph, rel_flat, x, msg))
+        return (pna_sums(cfg, graph, rel, x, msg, ring)
+                + _pna_extrema(cfg, graph, rel, x, msg, ring))
     if base == "max":
-        # never the dense route: a max does not decompose into matmuls
-        return (_spmm(graph, rel_flat, x, msg, "max", D, cfg.compute_dtype),)
+        return (_extremum(cfg, graph, rel, x, msg, "max", ring),)
     # sum, mean
-    if ring is not None and msg != "rotate":
-        return (ring_rspmm(graph.edge_weight, ring, rel_flat, x, msg=msg,
-                           compute_dtype=cfg.compute_dtype,
-                           exchange=cfg.ring_exchange),)
-    if (graph.dense_adj is not None and msg != "rotate"
-            and not cfg.edge_axis):
-        # small dense graph (the ULTRA relation graph): per-etype matmuls
-        return (dense_rspmm(graph.dense_adj, rel_flat, x, msg=msg),)
-    return (_spmm(graph, rel_flat, x, msg, "add", D, cfg.compute_dtype),)
+    return (_sum(cfg, graph, rel, x, msg, ring),)
 
 
 def conv_update(layer: GeneralizedRelationalConv, graph, x: torch.Tensor,
@@ -358,7 +353,8 @@ def conv_update(layer: GeneralizedRelationalConv, graph, x: torch.Tensor,
     base = cfg.aggregate_func.replace("_nobound", "")
     bounded = not cfg.aggregate_func.endswith("_nobound")
     if base == "pna":
-        update = _pna_update(cfg, graph, boundary, *aggregates)
+        update = _pna_update(cfg, graph, boundary, *aggregates,
+                             ring=graph.ring_inputs if block_domain else None)
     elif base == "max":
         (update,) = aggregates
         if bounded:
@@ -369,8 +365,8 @@ def conv_update(layer: GeneralizedRelationalConv, graph, x: torch.Tensor,
         if bounded:
             update = update + boundary
         if base == "mean":
-            ring = _ring_route(cfg, graph, block_domain)
-            degree = block_degree(graph, ring if block_domain else None)
+            degree = block_degree(graph, graph.ring_inputs if block_domain
+                                  else None)
             update = update / degree[:, None]
 
     # cat([x, update]) @ W^T split into x @ W[:, :D]^T + update @ W[:, D:]^T:
@@ -384,30 +380,81 @@ def conv_update(layer: GeneralizedRelationalConv, graph, x: torch.Tensor,
     return activation_fn(cfg.activation)(out).reshape(V, -1)
 
 
-def _xla_aggregates(cfg: ConvConfig, graph, rel, x, msg, base) -> tuple:
-    """``conv_aggregate``'s outputs on the ``xla`` route: every sparse
-    aggregation by ``aggregate_edges`` over a [V, B, D] view with ``rel``
-    as given ([R, D] or [R, B, D]), fp32; PNA as the JAX package's unfused
-    pairs (rotate's second moment over its squared messages, the others'
-    over rel² and x²). Sums over a dense relation graph keep its matmuls."""
+def _oe(graph, rel, x, msg, agg, dim):
+    """``aggregate_edges`` (the O(E) route) over a [V, B, dim] view of flat
+    x with ``rel`` as given ([R, dim] or [R, B, dim]); flat out."""
+    B = x.shape[1] // dim
+    out = aggregate_edges(graph.edge_index, graph.edge_type,
+                          graph.edge_weight, rel, x.reshape(-1, B, dim),
+                          msg=msg, agg=agg, num_nodes=graph.num_nodes)
+    return out.reshape(graph.num_nodes, -1)
+
+
+def _sum(cfg: ConvConfig, graph, rel, x, msg, ring):
+    """The sum of each node's weighted in-edge messages, flat [V, B*D] in
+    and out, ``rel`` [R, D] or [R, B, D], routed as the JAX package's
+    ``_spmm_raw``:
+
+      * under an edge mesh (distmult, transe; no edge-weight gradient): the
+        ring with ``ring``'s buckets; ``sharded_rspmm`` for
+        ``rspmm_impl="xla"``; the partitioned kernels with the graph's
+        ``part_layouts`` for "auto" (a graph without them raises: no plain
+        route stands in for the kernels); "ring" without buckets that
+        these states may meet takes the single-device kernels;
+      * the dense per-relation matmuls where the graph carries a dense
+        adjacency, off an edge axis;
+      * ``rspmm_impl="xla"``, or rotate with an ``edge_axis``: the O(E)
+        route;
+      * else the single-device op (K1 / K1h / K8f)."""
     D = cfg.input_dim
     B = x.shape[1] // D
+    edge_grad = needs_edge_grad(graph.edge_weight)
+    if msg != "rotate" and edge_active(cfg) and not edge_grad:
+        if ring is not None:
+            return ring_rspmm(graph.edge_weight, ring,
+                              broadcast_rel_flat(rel, B), x, msg=msg,
+                              compute_dtype=cfg.compute_dtype,
+                              exchange=cfg.ring_exchange)
+        if cfg.rspmm_impl == "xla":
+            out = sharded_rspmm(graph.edge_index, graph.edge_type,
+                                graph.edge_weight, rel, x.reshape(-1, B, D),
+                                msg=msg, num_nodes=graph.num_nodes,
+                                n_shards=current_mesh().shape[cfg.edge_axis])
+            return out.reshape(graph.num_nodes, -1)
+        if cfg.rspmm_impl == "auto":
+            if graph.part_layouts is None:
+                raise ValueError(
+                    "rspmm_impl='auto' under an edge mesh takes the "
+                    "partitioned kernels, which need the graph's per-shard "
+                    "CSRs (Graph.prepare_csr_sharded)")
+            return partitioned_rspmm(graph.edge_weight, graph.part_layouts,
+                                     broadcast_rel_flat(rel, B), x, msg=msg,
+                                     compute_dtype=cfg.compute_dtype)
+    if (msg != "rotate" and graph.dense_adj is not None
+            and not cfg.edge_axis and not edge_grad):
+        # small dense graph (the ULTRA relation graph): per-etype matmuls
+        return dense_rspmm(graph.dense_adj, broadcast_rel_flat(rel, B), x,
+                           msg=msg)
+    if cfg.rspmm_impl == "xla" or (msg == "rotate" and cfg.edge_axis):
+        return _oe(graph, rel, x, msg, "add", D)
+    return _spmm(graph, broadcast_rel_flat(rel, B), x, msg, "add", D,
+                 cfg.compute_dtype)
 
-    def spmm(r, xx, agg):
-        if agg == "add" and msg != "rotate" and graph.dense_adj is not None:
-            return dense_rspmm(graph.dense_adj, broadcast_rel_flat(r, B), xx,
-                               msg=msg)
-        out = aggregate_edges(graph.edge_index, graph.edge_type,
-                              graph.edge_weight, r, xx.reshape(-1, B, D),
-                              msg=msg, agg=agg, num_nodes=graph.num_nodes)
-        return out.reshape(graph.num_nodes, -1)
 
-    if base == "pna":
-        sq = (spmm(rel, x, "sq_add") if msg == "rotate"
-              else spmm(rel ** 2, x ** 2, "add"))
-        return (spmm(rel, x, "add"), sq, spmm(rel, x, "max"),
-                spmm(rel, x, "min"))
-    return (spmm(rel, x, "max" if base == "max" else "add"),)
+def _extremum(cfg: ConvConfig, graph, rel, x, msg, agg, ring):
+    """The max or min of each node's weighted in-edge messages, flat: the
+    ring's schedule with ``ring``; the O(E) route under ``xla`` or for
+    rotate; else K4, on an edge mesh too, as the JAX package's partitioned
+    paths leave extrema to the single-device kernels (never the dense
+    route: an extremum does not decompose into matmuls)."""
+    D = cfg.input_dim
+    if cfg.rspmm_impl == "xla" or msg == "rotate":
+        return _oe(graph, rel, x, msg, agg, D)
+    rel_flat = broadcast_rel_flat(rel, x.shape[1] // D)
+    if ring is not None:
+        return ring_rspmm(graph.edge_weight, ring, rel_flat, x, msg=msg,
+                          agg=agg, exchange=cfg.ring_exchange)
+    return _spmm(graph, rel_flat, x, msg, agg, D)
 
 
 def _spmm(graph, rel_flat, x, msg, agg, dim, compute_dtype="float32"):
@@ -435,53 +482,70 @@ def _spmm(graph, rel_flat, x, msg, agg, dim, compute_dtype="float32"):
     return out.reshape(graph.num_nodes, -1)
 
 
-def pna_sums(cfg: ConvConfig, graph, rel_flat, x, msg):
+def pna_sums(cfg: ConvConfig, graph, rel, x, msg, ring=None):
     """(s, sq): the sums of each node's in-edge messages and of their
-    squares. Distmult in fp32 takes the fused moments pair (K7); rotate
-    sums the squared message; distmult and
-    transe otherwise sum rel² and x² (transe's convention, which does not
-    factor through the message; for distmult the same sum as the squared
-    message)."""
-    D, dtype = cfg.input_dim, cfg.compute_dtype
-    if msg == "mul" and dtype == "float32":
+    squares, ``rel`` [R, D] or [R, B, D]. Distmult takes one ring rotation
+    for both with ``ring`` (``ring_rspmm_addsq``), else in fp32 off an edge
+    axis and off ``xla`` the fused moments pair (K7); rotate sums its
+    squared message on the O(E) route; otherwise two sums (``_sum``'s
+    routes) of (rel, x) and (rel², x²), transe's convention, which does not
+    factor through the message, and for distmult the same sum as the
+    squared message."""
+    D, B = cfg.input_dim, x.shape[1] // cfg.input_dim
+    if msg == "mul" and ring is not None:
+        return ring_rspmm_addsq(graph.edge_weight, ring,
+                                broadcast_rel_flat(rel, B), x,
+                                exchange=cfg.ring_exchange)
+    if (msg == "mul" and cfg.compute_dtype == "float32"
+            and not cfg.edge_axis and cfg.rspmm_impl != "xla"):
         return generalized_rspmm_addsq(
-            graph.edge_index, graph.edge_type, graph.edge_weight, rel_flat, x,
-            num_nodes=graph.num_nodes, csr=graph.csr)
-    # the fused moments pair is fp32 only: bf16 distmult takes two sums
-    s = _spmm(graph, rel_flat, x, msg, "add", D, dtype)
-    sq = (_spmm(graph, rel_flat, x, msg, "sq_add", D) if msg == "rotate"
-          else _spmm(graph, rel_flat ** 2, x ** 2, msg, "add", D, dtype))
+            graph.edge_index, graph.edge_type, graph.edge_weight,
+            broadcast_rel_flat(rel, B), x, num_nodes=graph.num_nodes,
+            csr=graph.csr)
+    s = _sum(cfg, graph, rel, x, msg, ring)
+    sq = (_oe(graph, rel, x, msg, "sq_add", D) if msg == "rotate"
+          else _sum(cfg, graph, rel ** 2, x ** 2, msg, ring))
     return s, sq
 
 
-def _pna_extrema(cfg: ConvConfig, graph, rel_flat, x, msg):
-    """(mx, mn): the fused max/min pair (K6), or two O(E) calls for rotate
-    (as in JAX: no fused pair)."""
-    if msg == "rotate":
-        return tuple(_spmm(graph, rel_flat, x, msg, agg, cfg.input_dim)
+def _pna_extrema(cfg: ConvConfig, graph, rel, x, msg, ring=None):
+    """(mx, mn): one ring rotation for both with ``ring``
+    (``ring_rspmm_maxmin``); the fused pair (K6) off an edge axis and off
+    ``xla``; otherwise two ``_extremum`` calls (K4 twice, or the O(E)
+    route for rotate and ``xla``), as the JAX package's unfused pair."""
+    B = x.shape[1] // cfg.input_dim
+    if ring is not None:
+        return ring_rspmm_maxmin(graph.edge_weight, ring,
+                                 broadcast_rel_flat(rel, B), x, msg=msg,
+                                 exchange=cfg.ring_exchange)
+    if msg == "rotate" or cfg.edge_axis or cfg.rspmm_impl == "xla":
+        return tuple(_extremum(cfg, graph, rel, x, msg, agg, None)
                      for agg in ("max", "min"))
     return generalized_rspmm_maxmin(
-        graph.edge_index, graph.edge_type, graph.edge_weight, rel_flat, x,
-        msg=msg, num_nodes=graph.num_nodes, csr=graph.csr)
+        graph.edge_index, graph.edge_type, graph.edge_weight,
+        broadcast_rel_flat(rel, B), x, msg=msg, num_nodes=graph.num_nodes,
+        csr=graph.csr)
 
 
-def pna_moments(cfg: ConvConfig, graph, s, sq, boundary):
-    """(mean, sq_mean, degree [V, 1]) of each node's in-edge messages from
-    ``pna_sums``' (s, sq), the boundary counting as one more message unless
-    ``pna_nobound``; degree is the weighted in-degree plus one."""
-    degree = (graph.degree_out() + 1.0)[:, None]
+def pna_moments(cfg: ConvConfig, graph, s, sq, boundary, ring=None):
+    """(mean, sq_mean, degree [rows, 1]) of each node's in-edge messages
+    from ``pna_sums``' (s, sq), the boundary counting as one more message
+    unless ``pna_nobound``; degree is the weighted in-degree plus one, in
+    ``ring``'s block domain when the states are (``block_degree``)."""
+    degree = block_degree(graph, ring)[:, None]
     if cfg.aggregate_func == "pna":
         return (s + boundary) / degree, (sq + boundary ** 2) / degree, degree
     return s / degree, sq / degree, degree
 
 
-def _pna_update(cfg: ConvConfig, graph, boundary, s, sq, mx, mn):
+def _pna_update(cfg: ConvConfig, graph, boundary, s, sq, mx, mn, ring=None):
     """PNA's update [V, B*12D]: per (b, d) the interleaved [mean, max, min,
     std] of the in-edge messages (with the boundary as one more message
     unless ``pna_nobound``), each times the degree scalers [1, s, 1/s],
-    s = log(degree) normalised by its mean over the nodes."""
+    s = log(degree) normalised by its mean over the nodes (the block
+    domain's pad rows have degree 1 and add nothing)."""
     V = boundary.shape[0]
-    mean, sq_mean, degree = pna_moments(cfg, graph, s, sq, boundary)
+    mean, sq_mean, degree = pna_moments(cfg, graph, s, sq, boundary, ring)
     if cfg.aggregate_func == "pna":
         # torch.maximum/minimum split the gradient at ties, as jnp's do
         mx = torch.maximum(mx, boundary)

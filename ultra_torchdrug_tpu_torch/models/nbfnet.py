@@ -56,8 +56,10 @@ from .layers import (
     GeneralizedRelationalConv,
     conv_aggregate,
     conv_update,
+    edge_active,
     ring_block_domain,
 )
+from ..parallel.mesh import current_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,6 +119,29 @@ REMAT_VALUES = (False, True, None, "none", "full", "save_rspmm", "auto")
 STACK_VALUES = ("auto", "scan", "unroll")
 
 
+def edge_shards(tower: NBFNetConfig) -> int:
+    """The edge shards of the active mesh when ``tower`` runs under it (an
+    ``edge_axis`` the mesh has), else 0."""
+    if not edge_active(tower.layer_configs()[0]):
+        return 0
+    return current_mesh().shape[tower.edge_axis]
+
+
+def edge_layouts(graph, tower: NBFNetConfig, backward: bool, **ring):
+    """``graph`` with the layouts ``tower`` takes under the active edge
+    mesh: the ring's buckets for ``rspmm_impl="ring"`` (per-bucket CSRs
+    for distmult; ``ring`` as ``Graph.prepare_ring`` takes it), the
+    partitioned path's per-shard CSRs for "auto"; none off the mesh or
+    for "xla"."""
+    n = edge_shards(tower)
+    if n and tower.rspmm_impl == "ring":
+        return graph.prepare_ring(n, pallas=tower.message_func == "distmult",
+                                  backward=backward, **ring)
+    if n and tower.rspmm_impl == "auto":
+        return graph.prepare_csr_sharded(n, backward)
+    return graph
+
+
 def remat_mode(remat) -> str:
     """How the layer stack applies a ``remat`` value: "none" (False, None,
     "none"), "save_rspmm", or "full" (True, "full", and an "auto" that no
@@ -142,13 +167,15 @@ def _check_memory(where: str, remat, stack: str, micro_batch: int,
 def _check_options(where: str, rspmm_impl: str, options: dict) -> dict:
     """Apply the JAX package's edge-mesh options (``edge_axis``,
     ``ring_exchange``): checked and returned with ``rspmm_impl`` ("auto"
-    for 'auto' and 'pallas', which both take the port's kernels, "xla" for
-    the O(E) route, or "ring"); any other option raises."""
+    for 'auto' and 'pallas', which both take the port's kernels, and under
+    an edge mesh the partitioned path; "xla" for the O(E) route, under an
+    edge mesh its sharded body; or "ring"); any other option raises."""
     if rspmm_impl not in RSPMM_IMPLS:
         raise ValueError(
             f"{where}: rspmm_impl must be one of {RSPMM_IMPLS}, got "
-            f"{rspmm_impl!r}: 'auto' and 'pallas' take the port's kernels, "
-            "'xla' the O(E) route, 'ring' the edge-partitioned ring under an "
+            f"{rspmm_impl!r}: 'auto' and 'pallas' take the port's kernels "
+            "(the partitioned path under an edge mesh), 'xla' the O(E) "
+            "route, 'ring' the edge-partitioned ring under an "
             "edge mesh")
     edge_axis = options.pop("edge_axis", "")
     ring_exchange = options.pop("ring_exchange", "ppermute")
@@ -158,12 +185,6 @@ def _check_options(where: str, rspmm_impl: str, options: dict) -> dict:
     if ring_exchange not in _EXCHANGES:
         raise ValueError(f"{where}: ring_exchange must be one of "
                          f"{_EXCHANGES}, got {ring_exchange!r}")
-    if edge_axis and rspmm_impl != "ring":
-        raise NotImplementedError(
-            f"{where}: edge_axis={edge_axis!r} with rspmm_impl="
-            f"{rspmm_impl!r} selects the partitioned path "
-            "(parallel/sharded_rspmm.py), which is not ported yet (ROADMAP "
-            "Queue 1 item 9); rspmm_impl='ring' takes the ring")
     for key in options:
         raise TypeError(f"{where}: unknown option {key!r}")
     return dict(rspmm_impl="auto" if rspmm_impl == "pallas" else rspmm_impl,
@@ -345,6 +366,12 @@ def _flat_boundary(V, B, D, rows, query):
     return flat.index_add_(0, idx, query).reshape(V, B * D)
 
 
+def _param_dtype(tower: NBFNet) -> torch.dtype:
+    """The dtype of the tower's weights (fp32, or fp64 for a double
+    copy): the relation tower's constant boundary takes it."""
+    return next(tower.parameters()).dtype
+
+
 def rel_nbfnet_apply(tower: NBFNet, rel_graph, query_rels,
                      cfg=None) -> torch.Tensor:
     """query_rels: int [B]. Returns [B, num_rel_nodes, D] conditional
@@ -356,7 +383,7 @@ def rel_nbfnet_apply(tower: NBFNet, rel_graph, query_rels,
     if tower.cfg.learn_query:
         query = tower.learnable_q.weight.expand(B, D)
     else:
-        query = torch.ones((B, D), dtype=torch.float32,
+        query = torch.ones((B, D), dtype=_param_dtype(tower),
                            device=query_rels.device)
     boundary = _flat_boundary(V, B, D, query_rels, query)
     out = _propagate(tower, rel_graph, boundary, cfg=cfg)
@@ -370,7 +397,7 @@ def rel_nbfnet_apply_shared(tower: NBFNet, rel_graph, query_rels,
     the batch repeats is still 1, and the output [num_rel_nodes, D] serves
     the whole batch; ``cfg`` as for ``_propagate``."""
     boundary = torch.zeros((rel_graph.num_nodes, tower.cfg.input_dim),
-                           dtype=torch.float32, device=query_rels.device)
+                           dtype=_param_dtype(tower), device=query_rels.device)
     boundary[query_rels] = 1.0
     return _propagate(tower, rel_graph, boundary, cfg=cfg)  # [V(=2R), D]
 

@@ -34,6 +34,7 @@ from .nbfnet import (
     NBFNet,
     NBFNetConfig,
     RelNBFNet,
+    edge_layouts,
     entity_nbfnet_config,
     entity_nbfnet_score_all,
     rel_nbfnet_apply,
@@ -149,6 +150,19 @@ def candidate_triples(pos_h, pos_t, pos_r, neg_index):
     return h_index, t_index, r_index
 
 
+def propagation_graph(fact_graph: Graph, entity: NBFNetConfig,
+                      backward: bool = False) -> Graph:
+    """The entity tower's propagation graph: ``fact_graph`` made undirected
+    (edge order [directed; inverse]) with the kernels' CSR (the backward's
+    layouts too with ``backward``) and, under an active edge mesh, the
+    layouts that ``entity`` takes there (``edge_layouts``: the ring's
+    buckets, degree-balanced when the contiguous split is not, with
+    permuted IO; or the per-shard CSRs)."""
+    und = fact_graph.undirected_with_inverse().prepare_csr(backward)
+    return edge_layouts(und, entity, backward, balance="auto",
+                        permuted_io=True)
+
+
 def ultra_train_scores(model: Ultra, fact_graph: Graph, rel_graph: Graph,
                        pos_h, pos_t, pos_r, neg_index,
                        remove_easy: bool = True,
@@ -172,7 +186,7 @@ def ultra_train_scores(model: Ultra, fact_graph: Graph, rel_graph: Graph,
     if remove_easy:
         graph = _mask_easy_edges(model.cfg, graph, h_index, t_index, r_index)
     if fact_graph_und is None:
-        graph_und = graph.undirected_with_inverse().prepare_csr(backward=True)
+        graph_und = propagation_graph(graph, model.cfg.entity, backward=True)
     else:
         graph_und = fact_graph_und.with_edge_weight(
             torch.cat([graph.edge_weight, graph.edge_weight]))
@@ -195,7 +209,7 @@ def ultra_eval_scores(model: Ultra, fact_graph, rel_graph, pos_h, pos_t,
     (t_scores [B, V], h_scores [B, V]); ``model_cfg`` as for
     ``ultra_train_scores``."""
     model_cfg = model_cfg or model.cfg
-    graph_und = (fact_graph.undirected_with_inverse().prepare_csr()
+    graph_und = (propagation_graph(fact_graph, model.cfg.entity)
                  if fact_graph_und is None else fact_graph_und)
     rel_queries = _rel_queries(model, rel_graph, pos_r, model_cfg.relation)
     t_scores = entity_nbfnet_score_all(

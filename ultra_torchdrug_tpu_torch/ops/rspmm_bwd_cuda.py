@@ -104,11 +104,14 @@ def check_bwd_operands(kernel: str, csr, layout, edge_weight, relation, x,
                        planes: dict, dtype=torch.float32) -> tuple:
     """Device, type and shape checks of a two-pass backward kernel's
     operands (K2, K2h, K3, K5, K6b, K7b, K8b): the CSR's ``layout`` fields,
-    and ``planes`` (name -> tensor) shaped like x, the dense operands of
-    ``dtype``. ``x`` may be None (K3 reads no x; the first plane then gives
-    the shape). Returns (num_rows, num_relations, num_chunks,
-    num_features)."""
-    like = x if x is not None else next(iter(planes.values()))
+    and ``planes`` (name -> tensor), the dense operands of ``dtype``. The
+    kernels index two row spaces apart: x and dx have the source CSR's
+    rows, the planes (g, a saved extremum) the destination rows that the
+    edges gather from, ``csr.rowptr``'s. The two are one on a graph's own
+    CSR and differ on a partitioned shard's reverse CSR
+    (parallel/sharded_rspmm.py). ``x`` may be None (K3 reads no x). Returns
+    (num_rows of dx, num_relations, num_chunks, num_features)."""
+    like = next(iter(planes.values()))
     device = like.device
     if device.type != "cuda":
         raise ValueError(f"{kernel} runs on CUDA tensors, got {device}")
@@ -119,36 +122,38 @@ def check_bwd_operands(kernel: str, csr, layout, edge_weight, relation, x,
     dense = [("relation", relation), *planes.items()]
     for name, t in dense + ([("x", x)] if x is not None else []):
         _check(name, t, dtype, device, 2)
+    num_features = like.shape[1]
+    rows = csr.rowptr.numel() - 1
     for name, t in planes.items():
-        if t.shape != like.shape:
-            raise ValueError(f"{name} {tuple(t.shape)} != "
-                             f"{tuple(like.shape)}")
+        if tuple(t.shape) != (rows, num_features):
+            raise ValueError(f"{name} {tuple(t.shape)} != the destination "
+                             f"CSR's ({rows}, {num_features})")
     # edge_weight is gathered through the eid arrays: it may be longer than
     # the layouts (a ring bucket's CSR indexes the whole graph's weights)
     num_edges = csr.src_dst.numel()
     if any(getattr(csr, n).numel() != num_edges for n in _PER_EDGE):
         raise ValueError("the layouts must have one entry per edge")
-    num_rows, num_features = like.shape
+    num_rows = csr.src_rowptr.numel() - 1
     num_relations = csr.rel_chunk_ptr.numel() - 1
-    if csr.src_rowptr.numel() - 1 != num_rows:
-        raise ValueError(f"source CSR has {csr.src_rowptr.numel() - 1} rows, "
-                         f"x has {num_rows}")
+    if x is not None and tuple(x.shape) != (num_rows, num_features):
+        raise ValueError(f"x {tuple(x.shape)} != the source CSR's "
+                         f"({num_rows}, {num_features})")
     if tuple(relation.shape) != (num_relations, num_features):
         raise ValueError(f"relation {tuple(relation.shape)} != "
                          f"({num_relations}, {num_features})")
     return num_rows, num_relations, csr.chunk_ptr.numel() - 1, num_features
 
 
-def bwd_outputs(x, num_relations: int, num_chunks: int, need_dx: bool,
-                need_dr: bool) -> tuple:
-    """A backward kernel's outputs: (dx [V, F] shaped like ``x``, dr [R, F],
-    the dr pass's per-chunk partial rows [chunks, F]), None for a half not
-    needed."""
+def bwd_outputs(like, num_rows: int, num_relations: int, num_chunks: int,
+                need_dx: bool, need_dr: bool) -> tuple:
+    """A backward kernel's outputs on ``like``'s device and width: (dx
+    [num_rows, F], dr [R, F], the dr pass's per-chunk partial rows
+    [chunks, F]), None for a half not needed."""
     def empty(rows):
-        return torch.empty((rows, x.shape[1]), dtype=torch.float32,
-                           device=x.device)
+        return torch.empty((rows, like.shape[1]), dtype=torch.float32,
+                           device=like.device)
 
-    return (empty(x.shape[0]) if need_dx else None,
+    return (empty(num_rows) if need_dx else None,
             empty(num_relations) if need_dr else None,
             empty(num_chunks) if need_dr else None)
 
@@ -214,8 +219,8 @@ def _k2_passes(kid: str, fn, csr, edge_weight, relation, x, grad, need_dx,
         dtype=dtype)
     num_segments, num_long_rows, num_chunks, num_long_segments = (
         _segment_counts(kid, csr, num_rows, num_relations))
-    dx, dr, dr_partial = bwd_outputs(grad, num_relations, num_chunks,
-                                     need_dx, need_dr)
+    dx, dr, dr_partial = bwd_outputs(grad, num_rows, num_relations,
+                                     num_chunks, need_dx, need_dr)
     dx_partial = (grad.new_empty((num_long_segments, num_features),
                                  dtype=torch.float32)
                   if need_dx and num_long_segments else None)
@@ -226,14 +231,24 @@ def _k2_passes(kid: str, fn, csr, edge_weight, relation, x, grad, need_dx,
         err = fn(*(getattr(csr, n).data_ptr() for n in _K2_LAYOUT),
                  edge_weight.data_ptr(), relation.data_ptr(), x.data_ptr(),
                  grad.data_ptr(), ptr(dx), ptr(dr), w_scratch.data_ptr(),
-                 ptr(dx_partial), ptr(dr_partial), num_rows, num_segments,
-                 num_long_rows, num_chunks, num_relations, num_edges,
-                 num_features, *((dim,) if dim else ()), stream)
+                 ptr(dx_partial), ptr(dr_partial), _plan_rows(csr),
+                 num_segments, num_long_rows, num_chunks, num_relations,
+                 num_edges, num_features, *((dim,) if dim else ()), stream)
     if err != 0:
         raise RuntimeError(f"{kid} ({fn.__name__}) launch failed with CUDA "
                            f"error {err}")
     launches[kid] += 1
     return dx, dr
+
+
+def _plan_rows(csr) -> int:
+    """The row count that sizes K2's, K2h's and K8b's CTA plans
+    (csrc/rspmm_staged.cuh::plan_ctas: the rows that a pass gathers, the
+    dr pass twice it for x and g): g's rows, ``csr.rowptr``'s. A
+    partitioned shard's reverse CSR gathers g over the whole graph while
+    its x and dx have the shard's rows, so the shard runs the plan of the
+    whole graph's CSR; on a graph's own CSR the two counts are one."""
+    return csr.rowptr.numel() - 1
 
 
 def _segment_counts(kernel: str, csr, num_rows: int,
@@ -287,8 +302,8 @@ def _two_pass_plan(library: str, name: str, csr, num_features: int,
     fn = getattr(load_library(library), name)
     fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(int(vec), num_relations, num_features, num_rows, num_segments,
-             num_chunks, ctypes.addressof(out))
+    err = fn(int(vec), num_relations, num_features, _plan_rows(csr),
+             num_segments, num_chunks, ctypes.addressof(out))
     if err != 0:
         raise RuntimeError(f"{name} failed with CUDA error {err}")
     dr = plan_dict(out[5:10])
@@ -304,8 +319,8 @@ def _transe_bwd_cuda(csr, edge_weight, relation, grad, need_dx, need_dr):
         "K3", csr, _K3_LAYOUT, edge_weight, relation, None, {"grad": grad})
     num_segments, num_long_rows, num_chunks, num_long_segments = (
         _segment_counts("K3", csr, num_rows, num_relations))
-    dx, dr, dr_partial = bwd_outputs(grad, num_relations, num_chunks,
-                                     need_dx, need_dr)
+    dx, dr, dr_partial = bwd_outputs(grad, num_rows, num_relations,
+                                     num_chunks, need_dx, need_dr)
     dx_partial = (grad.new_empty((num_long_segments, num_features))
                   if need_dx and num_long_segments else None)
     fn = _transe_kernel()

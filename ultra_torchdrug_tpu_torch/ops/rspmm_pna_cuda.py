@@ -285,8 +285,8 @@ def pna_bwd_cuda(kind: str, csr, edge_weight, relation, x, planes,
         {f"plane {i}": p for i, p in enumerate(planes)})
     num_segments, num_long_rows, num_chunks, num_long_segments = (
         _segment_counts(kid, csr, num_rows, num_relations))
-    dx, dr, dr_partial = bwd_outputs(x, num_relations, num_chunks, need_dx,
-                                     need_dr)
+    dx, dr, dr_partial = bwd_outputs(x, num_rows, num_relations, num_chunks,
+                                     need_dx, need_dr)
     dx_partial = (x.new_empty((num_long_segments, num_features))
                   if need_dx and num_long_segments else None)
     num_edges = csr.src_dst.numel()

@@ -16,8 +16,8 @@ caller names it), as in the JAX package's virtual-device mesh (one host
 driving many shards): the whole ring algorithm runs, each shard's block a
 slice of one tensor on the device. So data across processes x edge within
 each process is the JAX package's composed layout. Not ported yet, and
-raising here (ROADMAP Queue 1 item 9): a row's shards on more than one
-device (the ring shift's writes over NVLink).
+raising here (ROADMAP Queue 1 item 9, several cards): a row's shards on
+more than one device (the ring shift's writes over NVLink).
 """
 
 from __future__ import annotations
@@ -60,9 +60,10 @@ _CURRENT_MESH: Optional[Mesh] = None
 
 
 def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
-                               "item 9); the port's mesh places every edge "
-                               "shard on one device")
+    return NotImplementedError(f"{what}: a row's shards on several cards are "
+                               "not ported yet (ROADMAP Queue 1 item 9, "
+                               "several cards); the port's mesh places every "
+                               "edge shard on one device")
 
 
 def launch_command(data: int) -> str:

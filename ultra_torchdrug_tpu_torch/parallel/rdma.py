@@ -79,7 +79,7 @@ def ring_shift_blocks(src: Sequence[torch.Tensor],
     """K9: copy src[s] into dst[(s + 1) % n] for every shard s, on CUDA
     tensors of one dtype and one size, each contiguous; no destination may
     overlap a source. All blocks must lie on one device (shards on several
-    cards are ROADMAP Queue 1 item 9)."""
+    cards are ROADMAP Queue 1 item 9, several cards)."""
     n = len(src)
     _check_shards(n, len(dst))
     first = src[0]
@@ -91,8 +91,8 @@ def ring_shift_blocks(src: Sequence[torch.Tensor],
             if t.device != device:
                 raise NotImplementedError(
                     f"K9 {name} block on {t.device}, expected {device}: "
-                    "shards on several devices are not ported yet (ROADMAP "
-                    "Queue 1 item 9)")
+                    "shards on several cards are not ported yet (ROADMAP "
+                    "Queue 1 item 9, several cards)")
             if t.dtype != first.dtype or t.shape != first.shape:
                 raise ValueError(f"K9 blocks must share one dtype and shape: "
                                  f"{t.dtype} {tuple(t.shape)} vs "

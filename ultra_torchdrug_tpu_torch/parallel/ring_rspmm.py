@@ -1,5 +1,6 @@
-"""The ring-pipelined edge-partitioned rspmm, sum aggregation (counterpart of
-ultra_torchdrug_tpu/parallel/ring_rspmm.py).
+"""The ring-pipelined edge-partitioned rspmm (counterpart of
+ultra_torchdrug_tpu/parallel/ring_rspmm.py): sums, extrema, PNA's extremum
+pair and its moments.
 
 Node rows are split into n contiguous blocks of v_block = ceil(V/n) rows,
 one per edge shard of the mesh (parallel/mesh.py). Shard s owns output block
@@ -24,10 +25,29 @@ skipping buckets without edges, as the JAX package runs its Pallas kernels
 per bucket. Otherwise (transe, or no CSRs) a step gathers and scatters the
 bucket arrays in plain PyTorch, as the JAX package runs XLA segment ops.
 
-Not ported yet (ROADMAP Queue 1 item 9): the max/min and moments ring
-schedules (``ring_rspmm_maxmin``, ``ring_rspmm_addsq``) and shards on several
-devices. Reference analogue: none (the reference replicates the graph on
-every GPU).
+The other schedules are the JAX package's XLA segment ops, in plain
+PyTorch here (``scatter_reduce``, ``index_add_``) over the same buckets,
+each an autograd node over block-domain operands with the same exchanges:
+
+  * ``ring_rspmm(agg="max"|"min")``: each step folds its bucket's
+    extrema into the owner's rows; padding edges are neutral, a real
+    weight-0 edge sends the message 0, a row without edges gives 0. The
+    backward rotates the upstream gradient and the saved extremum together
+    through the transposed ring, and every edge whose recomputed message
+    equals the extremum takes all of the gradient (the kernels'
+    convention, not XLA's sharing among ties).
+  * ``ring_rspmm_maxmin``: both extrema of one rotation; the backward
+    rotates the four planes (g_max, max, g_min, min) through one
+    transposed ring.
+  * ``ring_rspmm_addsq`` (distmult): Σ w·m and Σ w·m² of one rotation; the
+    backward rotates (g_s, g_sq) and both gradients factor through
+    w·g_s + 2m·w·g_sq.
+
+The planes that rotate together are packed side by side into one
+[n * v_block, k * F] tensor once, so that each step shifts them in one
+exchange (one K9 launch with ``rdma``). Not ported yet (ROADMAP Queue 1
+item 9): shards on several cards. Reference analogue: none (the reference
+replicates the graph on every GPU).
 """
 
 from __future__ import annotations
@@ -314,23 +334,194 @@ class _RingRspmm(torch.autograd.Function):
         return None, None, dr, dx, None, None, None
 
 
-def ring_rspmm(edge_weight, inputs: RingRspmmInputs, relation, x, *,
-               msg: str, agg: str = "add", compute_dtype: str = "float32",
-               exchange: str = "ppermute") -> torch.Tensor:
-    """The ring rspmm (module docstring), sum aggregation.
+_BIG = 1e30  # the JAX package's neutral value of an extremum
+_REDUCE = {"max": "amax", "min": "amin"}
 
-    edge_weight [E] in original edge order; relation [R, F], [R, D] shared
-    or [R, B, D] per batch element; x flat [rows, F] or [rows, B, D], with
-    rows = n * v_block block-domain rows when ``inputs.permuted_io``, else V
-    original rows (padded and relabelled on entry, mapped back on exit).
-    Returns the layout of x. ``compute_dtype="bfloat16"`` runs K1h/K2h on
-    the kernel route (distmult with per-bucket CSRs) and changes nothing on
-    the plain one, as in the JAX package. ``exchange``: "ppermute" (the
-    plain shift) or "rdma" (K9 on CUDA tensors)."""
-    if agg != "add":
-        raise NotImplementedError(
-            f"agg={agg!r} on the ring (the max/min and moments schedules) is "
-            "not ported yet (ROADMAP Queue 1 item 9)")
+
+def _messages(relation, etype, rows, msg):
+    rel_e = relation[etype]
+    return rel_e * rows if msg == "mul" else rel_e + rows
+
+
+def _fold_extremum(out, o_rows, mw, valid, agg):
+    """Fold one step's weighted messages mw [k, F] into out [v_pad, F] by
+    their owner rows, padding edges neutral."""
+    neutral = -_BIG if agg == "max" else _BIG
+    mw = torch.where(valid[:, None] > 0, mw, neutral)
+    index = o_rows[:, None].expand_as(mw)
+    return out.scatter_reduce_(0, index, mw, _REDUCE[agg], include_self=True)
+
+
+def _empty_to_zero(out, agg):
+    """Rows that no edge reached keep the neutral value: they give 0."""
+    empty = out <= -_BIG / 2 if agg == "max" else out >= _BIG / 2
+    return out.masked_fill_(empty, 0.0)
+
+
+def _ring_pass(inputs, planes, exchange, step):
+    """Run ``step(g_rows, o_rows, etype, eid, valid, held)`` for the n
+    steps of the transposed ring, ``held`` the packed ``planes`` that
+    shard s holds at step k (block (s - k) mod n), shifted between steps
+    by one exchange."""
+    n, vb = inputs.n_shards, inputs.v_block
+    rotate = _rotate(exchange, n)
+    held = planes[0] if len(planes) == 1 else torch.cat(planes, dim=1)
+    for k in range(n):
+        step(*_step_buckets(inputs.rev, k, n, vb), held)
+        if k + 1 < n:
+            held = rotate(held)
+
+
+def _ring_messages_pass(inputs, edge_weight, relation, x, msg, exchange,
+                        step):
+    """The forward ring: ``step(o_rows, m, w, valid)`` for each step's
+    messages m (unweighted) of every shard's bucket, x rotating."""
+    n, vb = inputs.n_shards, inputs.v_block
+    rotate = _rotate(exchange, n)
+    held = x
+    for k in range(n):
+        g_rows, o_rows, etype, eid, valid = _step_buckets(inputs.fwd, k, n,
+                                                          vb)
+        m = _messages(relation, etype, held[g_rows], msg)
+        step(o_rows, m, (edge_weight[eid] * valid)[:, None], valid)
+        if k + 1 < n:
+            held = rotate(held)
+
+
+def _gated_backward(inputs, edge_weight, relation, x, planes, msg, exchange,
+                    need_dx, need_dr):
+    """The extrema's transposed ring: planes (g, out) per extremum, each
+    edge's coefficient the sum of w·g over the extrema that its recomputed
+    weighted message equals. Returns (dx, dr)."""
+    F = x.shape[1]
+    dx = x.new_zeros(x.shape) if need_dx else None
+    dr = relation.new_zeros(relation.shape) if need_dr else None
+
+    def step(g_rows, o_rows, etype, eid, valid, held):
+        w = (edge_weight[eid] * valid)[:, None]
+        rel_e, x_e = relation[etype], x[o_rows]
+        mw = (rel_e * x_e if msg == "mul" else rel_e + x_e) * w
+        rows = held[g_rows]
+        c = None
+        for i in range(0, len(planes), 2):
+            g_e = rows[:, i * F:(i + 1) * F]
+            gate = (mw == rows[:, (i + 1) * F:(i + 2) * F]).to(g_e.dtype)
+            c = g_e * gate if c is None else c + g_e * gate
+        c = c * w
+        if need_dx:
+            dx.index_add_(0, o_rows, rel_e * c if msg == "mul" else c)
+        if need_dr:
+            dr.index_add_(0, etype, x_e * c if msg == "mul" else c)
+
+    _ring_pass(inputs, planes, exchange, step)
+    return dx, dr
+
+
+class _RingExtremum(torch.autograd.Function):
+    """The ring's max or min over block-domain operands: edge_weight [E],
+    relation [R, F], x [n * v_block, F]; returns [n * v_block, F]. No
+    gradient flows to edge_weight."""
+
+    @staticmethod
+    def forward(ctx, inputs, edge_weight, relation, x, msg, agg, exchange):
+        out = x.new_full((inputs.v_pad, x.shape[1]),
+                         -_BIG if agg == "max" else _BIG)
+        _ring_messages_pass(
+            inputs, edge_weight, relation, x, msg, exchange,
+            lambda o_rows, m, w, valid: _fold_extremum(out, o_rows, m * w,
+                                                       valid, agg))
+        out = _empty_to_zero(out, agg)
+        ctx.inputs, ctx.msg, ctx.exchange = inputs, msg, exchange
+        ctx.save_for_backward(edge_weight, relation, x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        edge_weight, relation, x, out = ctx.saved_tensors
+        dx, dr = _gated_backward(ctx.inputs, edge_weight, relation, x,
+                                 (grad_out, out), ctx.msg, ctx.exchange,
+                                 ctx.needs_input_grad[3],
+                                 ctx.needs_input_grad[2])
+        return None, None, dr, dx, None, None, None
+
+
+class _RingMaxMin(torch.autograd.Function):
+    """Both extrema of one rotation over block-domain operands; returns
+    (max, min), each [n * v_block, F]."""
+
+    @staticmethod
+    def forward(ctx, inputs, edge_weight, relation, x, msg, exchange):
+        shape = (inputs.v_pad, x.shape[1])
+        mx, mn = x.new_full(shape, -_BIG), x.new_full(shape, _BIG)
+
+        def step(o_rows, m, w, valid):
+            mw = m * w
+            _fold_extremum(mx, o_rows, mw, valid, "max")
+            _fold_extremum(mn, o_rows, mw, valid, "min")
+
+        _ring_messages_pass(inputs, edge_weight, relation, x, msg, exchange,
+                            step)
+        mx, mn = _empty_to_zero(mx, "max"), _empty_to_zero(mn, "min")
+        ctx.inputs, ctx.msg, ctx.exchange = inputs, msg, exchange
+        ctx.save_for_backward(edge_weight, relation, x, mx, mn)
+        return mx, mn
+
+    @staticmethod
+    def backward(ctx, g_mx, g_mn):
+        edge_weight, relation, x, mx, mn = ctx.saved_tensors
+        planes = (g_mx.contiguous(), mx, g_mn.contiguous(), mn)
+        dx, dr = _gated_backward(ctx.inputs, edge_weight, relation, x, planes,
+                                 ctx.msg, ctx.exchange,
+                                 ctx.needs_input_grad[3],
+                                 ctx.needs_input_grad[2])
+        return None, None, dr, dx, None, None
+
+
+class _RingAddSq(torch.autograd.Function):
+    """Σ w·m and Σ w·m² of one rotation, distmult, over block-domain
+    operands; returns (s, sq), each [n * v_block, F]."""
+
+    @staticmethod
+    def forward(ctx, inputs, edge_weight, relation, x, exchange):
+        s = x.new_zeros((inputs.v_pad, x.shape[1]))
+        sq = torch.zeros_like(s)
+
+        def step(o_rows, m, w, valid):
+            mw = m * w
+            s.index_add_(0, o_rows, mw)
+            sq.index_add_(0, o_rows, m * mw)
+
+        _ring_messages_pass(inputs, edge_weight, relation, x, "mul", exchange,
+                            step)
+        ctx.inputs, ctx.exchange = inputs, exchange
+        ctx.save_for_backward(edge_weight, relation, x)
+        return s, sq
+
+    @staticmethod
+    def backward(ctx, g_s, g_sq):
+        edge_weight, relation, x = ctx.saved_tensors
+        need_dr, need_dx = ctx.needs_input_grad[2], ctx.needs_input_grad[3]
+        F = x.shape[1]
+        dx = x.new_zeros(x.shape) if need_dx else None
+        dr = relation.new_zeros(relation.shape) if need_dr else None
+
+        def step(g_rows, o_rows, etype, eid, valid, held):
+            w = (edge_weight[eid] * valid)[:, None]
+            rel_e, x_e = relation[etype], x[o_rows]
+            rows = held[g_rows]
+            inner = rows[:, :F] * w + (2.0 * (rel_e * x_e)) * (rows[:, F:]
+                                                              * w)
+            if need_dx:
+                dx.index_add_(0, o_rows, rel_e * inner)
+            if need_dr:
+                dr.index_add_(0, etype, x_e * inner)
+
+        _ring_pass(ctx.inputs, (g_s.contiguous(), g_sq.contiguous()),
+                   ctx.exchange, step)
+        return None, None, dr, dx, None
+
+
+def _check_ring_args(msg, exchange, compute_dtype="float32"):
     if msg not in _MODES:
         raise ValueError(f"msg must be one of {tuple(_MODES)}, got {msg!r}")
     if compute_dtype not in COMPUTE_DTYPES:
@@ -339,6 +530,13 @@ def ring_rspmm(edge_weight, inputs: RingRspmmInputs, relation, x, *,
     if exchange not in EXCHANGES:
         raise ValueError(f"exchange must be one of {EXCHANGES}, got "
                          f"{exchange!r}")
+
+
+def _to_blocks(inputs: RingRspmmInputs, relation, x):
+    """(relation [R, F], x as block-domain rows [n * v_block, F]) from the
+    caller's operands: x flat [rows, F] or [rows, B, D], with rows = n *
+    v_block when ``inputs.permuted_io``, else V original rows (padded and
+    relabelled here)."""
     shape = x.shape
     xf = x.reshape(shape[0], -1)
     rel = (relation if x.dim() == 2 and relation.dim() == 2
@@ -347,19 +545,68 @@ def ring_rspmm(edge_weight, inputs: RingRspmmInputs, relation, x, *,
         if shape[0] != inputs.v_pad:
             raise ValueError(f"permuted_io: x has {shape[0]} rows, the block "
                              f"domain {inputs.v_pad}")
-        blocks = xf
-    else:
-        if shape[0] != inputs.num_nodes:
-            raise ValueError(f"x has {shape[0]} rows, the graph "
-                             f"{inputs.num_nodes} nodes")
-        pad = xf.new_zeros((inputs.v_pad - shape[0], xf.shape[1]))
-        blocks = torch.cat([xf, pad])
-        if inputs.to_old is not None:
-            blocks = blocks[inputs.to_old]
-    out = _RingRspmm.apply(inputs, edge_weight, rel.contiguous(),
-                           blocks.contiguous(), msg, exchange,
-                           compute_dtype == "bfloat16")
+        return rel.contiguous(), xf.contiguous()
+    if shape[0] != inputs.num_nodes:
+        raise ValueError(f"x has {shape[0]} rows, the graph "
+                         f"{inputs.num_nodes} nodes")
+    blocks = torch.cat([xf, xf.new_zeros((inputs.v_pad - shape[0],
+                                          xf.shape[1]))])
+    if inputs.to_old is not None:
+        blocks = blocks[inputs.to_old]
+    return rel.contiguous(), blocks.contiguous()
+
+
+def _from_blocks(inputs: RingRspmmInputs, out, shape):
+    """Block-domain rows back to the caller's layout ``shape`` (and to
+    original order unless ``inputs.permuted_io``)."""
     if not inputs.permuted_io:
         out = (out[:inputs.num_nodes] if inputs.to_new is None
                else out[inputs.to_new])
     return out.reshape(out.shape[0], *shape[1:])
+
+
+def ring_rspmm(edge_weight, inputs: RingRspmmInputs, relation, x, *,
+               msg: str, agg: str = "add", compute_dtype: str = "float32",
+               exchange: str = "ppermute") -> torch.Tensor:
+    """The ring rspmm (module docstring), sum, max or min aggregation.
+
+    edge_weight [E] in original edge order; relation [R, F], [R, D] shared
+    or [R, B, D] per batch; x flat [rows, F] or [rows, B, D], with rows = n *
+    v_block block-domain rows when ``inputs.permuted_io``, else V original
+    rows (padded and relabelled on entry, mapped back on exit). Returns the
+    layout of x. ``compute_dtype="bfloat16"`` runs K1h/K2h on the sums'
+    kernel route (distmult with per-bucket CSRs) and changes nothing on the
+    plain one or for max and min, as in the JAX package. ``exchange``:
+    "ppermute" (the plain shift) or "rdma" (K9 on CUDA tensors)."""
+    _check_ring_args(msg, exchange, compute_dtype)
+    if agg not in ("add", "max", "min"):
+        raise ValueError(f"agg must be one of ('add', 'max', 'min'), got "
+                         f"{agg!r}")
+    rel, blocks = _to_blocks(inputs, relation, x)
+    if agg == "add":
+        out = _RingRspmm.apply(inputs, edge_weight, rel, blocks, msg,
+                               exchange, compute_dtype == "bfloat16")
+    else:
+        out = _RingExtremum.apply(inputs, edge_weight, rel, blocks, msg, agg,
+                                  exchange)
+    return _from_blocks(inputs, out, x.shape)
+
+
+def ring_rspmm_maxmin(edge_weight, inputs: RingRspmmInputs, relation, x, *,
+                      msg: str, exchange: str = "ppermute") -> tuple:
+    """PNA's extremum pair over one ring rotation: (max, min) of each row's
+    weighted messages, shapes and layouts as ``ring_rspmm``'s."""
+    _check_ring_args(msg, exchange)
+    rel, blocks = _to_blocks(inputs, relation, x)
+    pair = _RingMaxMin.apply(inputs, edge_weight, rel, blocks, msg, exchange)
+    return tuple(_from_blocks(inputs, o, x.shape) for o in pair)
+
+
+def ring_rspmm_addsq(edge_weight, inputs: RingRspmmInputs, relation, x, *,
+                     exchange: str = "ppermute") -> tuple:
+    """PNA's moments of distmult messages over one ring rotation: (Σ w·m,
+    Σ w·m²), m = rel ⊙ x, shapes and layouts as ``ring_rspmm``'s."""
+    _check_ring_args("mul", exchange)
+    rel, blocks = _to_blocks(inputs, relation, x)
+    pair = _RingAddSq.apply(inputs, edge_weight, rel, blocks, exchange)
+    return tuple(_from_blocks(inputs, o, x.shape) for o in pair)

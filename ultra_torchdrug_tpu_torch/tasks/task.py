@@ -54,13 +54,14 @@ from ..data.datasets import InductiveDataset, JointDataset, TransductiveDataset
 from ..data.graph import Graph
 from ..data.relgraph import build_relation_graph
 from ..models.classic_nbfnet import classic_nbfnet_init, classic_score_all
-from ..models.layers import _check_ring_aggregation, ring_active, sparse_only
-from ..models.nbfnet import NBFNetConfig
+from ..models.layers import sparse_only
+from ..models.nbfnet import NBFNetConfig, edge_layouts, edge_shards
 from ..models.ultra import (
     UltraConfig,
     _flip_heads_to_tails,
     _mask_easy_edges,
     candidate_triples,
+    propagation_graph,
     ultra_eval_scores,
     ultra_init,
     ultra_train_scores,
@@ -68,7 +69,6 @@ from ..models.ultra import (
 from ..ops.match import head_truth_mask, tail_truth_mask
 from ..ops.sampling import strict_negatives
 from ..parallel import distributed
-from ..parallel.mesh import current_mesh
 from ..utils.logging import LOGGER_NAME
 from .kg import (
     bce_self_adversarial,
@@ -325,43 +325,27 @@ class _TaskBase:
         """The undirected propagation graph with its CSR (the rspmm kernels'
         layouts, the backward's too when ``backward``), and the relation
         graph with its dense adjacency when it is small and dense enough,
-        and its CSR when it has none or when the relation tower's conv
-        reaches the sparse ops on every graph (max, pna, rotate), on the
-        task's device. Under an active edge mesh with ``rspmm_impl="ring"``
-        the propagation graph also gets the ring's buckets
-        (``Graph.prepare_ring``): per-bucket CSRs for distmult,
-        degree-balanced when the contiguous split is not, permuted IO. It
-        keeps its CSR for the single-device route off the mesh."""
-        und = fact_graph.undirected_with_inverse().prepare_csr(backward)
-        n_shards = self._ring_shards()
-        if n_shards:
-            und = und.prepare_ring(
-                n_shards, pallas=self.model_cfg.entity.message_func
-                == "distmult", balance="auto", permuted_io=True,
-                backward=backward)
+        and its CSR when it has none, when the relation tower's conv
+        reaches the sparse ops on every graph (max, pna, rotate) or when the
+        tower is edge-sharded, on the task's device. Under an active edge
+        mesh, as the JAX package's ``_prepare_graphs``: the entity graph
+        gets the ring's buckets with ``rspmm_impl="ring"``
+        (``Graph.prepare_ring``: per-bucket CSRs for distmult,
+        degree-balanced when the contiguous split is not, permuted IO) and
+        the partitioned path's per-shard CSRs with "auto"
+        (``prepare_csr_sharded``); under ``parallel.relation_edge`` the
+        relation graph gets the ring's buckets (not balanced, not permuted)
+        or the per-shard CSRs the same way. "xla" needs neither. Each graph
+        keeps its own CSR for the single-device routes off the mesh."""
+        entity, relation = self.model_cfg.entity, self.model_cfg.relation
+        und = propagation_graph(fact_graph, entity, backward)
         rel_graph = rel_graph.prepare_dense()
-        relation = self.model_cfg.relation
-        if (rel_graph.dense_adj is None
+        if (rel_graph.dense_adj is None or edge_shards(relation)
                 or sparse_only(relation.aggregate_func,
                                relation.message_func)):
             rel_graph = rel_graph.prepare_csr(backward)
+        rel_graph = edge_layouts(rel_graph, relation, backward)
         return und.to(self.device), rel_graph.to(self.device)
-
-    def _ring_shards(self) -> int:
-        """The edge shards of the active mesh when the entity tower rides
-        the ring (``rspmm_impl="ring"`` with an ``edge_axis`` the mesh has),
-        else 0. The relation tower stays replicated and dense; an edge axis
-        on it (``parallel.relation_edge``) raises."""
-        entity = self.model_cfg.entity
-        layer_cfg = entity.layer_configs()[0]
-        if not ring_active(layer_cfg):
-            return 0
-        if self.model_cfg.relation.edge_axis:
-            raise NotImplementedError(
-                "an edge-sharded relation tower (parallel.relation_edge) is "
-                "not ported yet (ROADMAP Queue 1 item 9)")
-        _check_ring_aggregation(layer_cfg)
-        return current_mesh().shape[entity.edge_axis]
 
     def _build_loss_fn(self, fact_graph: Graph, rel_graph: Graph,
                        num_nodes: int):
