@@ -6,6 +6,7 @@ NVIDIA GPU.
     python3 chip_smoke.py --device cpu   # rehearsal of phases 1b-51, small
     python3 chip_smoke.py --only-new     # the build and phases 49-51 alone
     python3 chip_smoke.py --only 46-48   # the build and phases 46-48 alone
+    python3 chip_smoke.py --only 52-53   # several cards (a host with four)
 
 Phases, each of which raises on failure (the script then exits nonzero):
 
@@ -337,8 +338,31 @@ Phases, each of which raises on failure (the script then exits nonzero):
               run_full.main on smoke.yaml with relation_edge, one epoch of
               5 steps, its checkpoint and evaluation: partitioned (sum),
               and the ring with pna and ppermute (K1, K2 on the card).
+              Phases 26-30 and 49-51 pin every shard to card 0 (the
+              one-card mesh), also on a host with several cards.
+    52. cards     where there are 2 or more cards: edge = min(4, cards)
+              shards, each on a card of its own (the mesh's placement),
+              home on card 0. K9 between cards exactly against its plain
+              version (PyTorch's copies) at ragged and full shapes, 200
+              shifts of distinct fills back to back read after one
+              synchronize, and timed beside the plain version and a peer
+              copy_ a block against NVLink's 450 GB/s (the "K9 cards"
+              entry); then ULTRA 6x64 on the FB-size KG, one eval batch
+              and one step a path against the single-device run on card
+              0 with the same weights: partitioned (scores bitwise), the
+              ring's sums with rdma and with ppermute, ring max and pna,
+              and at 2 entity layers partitioned bf16, transe, max and
+              xla (step at batch 8), relation_edge on both routes (eval);
+              ms, peak memory and launches by card, every shard's
+              kernels on its own card. On one card it logs that it is
+              not run.
+    53. data 2 x edge 2  where there are 4 or more cards: two NCCL ranks
+              of two cards each (rank r at home on card 2r), the ring
+              (rdma) and then the partitioned path, one step each against
+              the single-device step (loss 1e-5 relative, gradients 1e-4
+              norm-wise), launches by rank and by card.
 
-Phases 49-51 log their seconds, ms a batch and a step and peak memory
+Phases 49-53 log their seconds, ms a batch and a step and peak memory
 beside the card's name and power limit. The phases that time evaluation
 (2, 6-24, 26-29, 32-33, 49-51) pin the eval batch to 16; the CLI runs
 and pre-training's evaluation take the auto eval batch, and every phase
@@ -346,8 +370,9 @@ that runs a shipped config logs the memory policies its remat: auto
 resolves to.
 
 The last lines are a JSON object with one entry per kernel (K1, K2, K6,
-K7, K6b, K7b, K3, K4, K5, K8f, K8b, K1h, K2h, K9; launches summed over the
-measured runs of phases 2-51, by path in ``launches_by_path``; the staged
+K7, K6b, K7b, K3, K4, K5, K8f, K8b, K1h, K2h, K9, and "K9 cards" where
+phase 52 ran; launches summed over the measured runs of phases 2-53, by
+path in ``launches_by_path``; the staged
 backward kernels' layouts under ``plan``; P1 and P2 with full's numbers
 and their launches in the tools' runs of phase 1b),
 then {"ok": true, "device": {...}}. With no card the script prints no
@@ -512,11 +537,72 @@ def reset_launch_counts():
     from ultra_torchdrug_tpu_torch.parallel import rdma
 
     rspmm_cuda.launches = rspmm_cuda.rotate_launches = 0
-    rspmm_cuda.bf16_launches = rdma.launches = 0
+    rspmm_cuda.bf16_launches = rdma.launches = rdma.peer_launches = 0
+    CARD_LAUNCHES.clear()
     for counts in (rspmm_bwd_cuda.launches, rspmm_pna_cuda.launches,
                    rspmm_ladder_cuda.launches):
         for key in counts:
             counts[key] = 0
+
+
+# phase 52-53's launches by (kernel id, card index) since the last
+# reset_launch_counts, recorded by card_launch_spy
+CARD_LAUNCHES = {}
+
+
+@contextlib.contextmanager
+def card_launch_spy():
+    """Record the card of every launch that the edge paths make through
+    their kernel wrappers (K1, K1h, K2, K2h, K3 in parallel/ring_rspmm.py
+    and parallel/sharded_rspmm.py; K9 in parallel/rdma.py) in
+    CARD_LAUNCHES; the wrappers' own counts are untouched."""
+    from ultra_torchdrug_tpu_torch.parallel import rdma, ring_rspmm
+    from ultra_torchdrug_tpu_torch.parallel import sharded_rspmm
+
+    def spy(fn, kid_of, device_of):
+        def wrapped(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            key = (kid_of(kwargs), device_of(args).index)
+            CARD_LAUNCHES[key] = CARD_LAUNCHES.get(key, 0) + 1
+            return out
+        return wrapped
+
+    def bwd_kid(kwargs):
+        return "K3" if kwargs.get("mode") == "add_rel" else "K2"
+
+    patches = [(rdma, "_launch", spy(rdma._launch, lambda kw: "K9",
+                                     lambda a: a[0]))]
+    for mod in (ring_rspmm, sharded_rspmm):
+        patches += [
+            (mod, "rspmm_fwd_cuda", spy(mod.rspmm_fwd_cuda,
+                                        lambda kw: "K1",
+                                        lambda a: a[6].device)),
+            (mod, "rspmm_fwd_bf16_cuda", spy(mod.rspmm_fwd_bf16_cuda,
+                                             lambda kw: "K1h",
+                                             lambda a: a[6].device)),
+            (mod, "rspmm_bwd_cuda", spy(mod.rspmm_bwd_cuda, bwd_kid,
+                                        lambda a: a[4].device)),
+            (mod, "rspmm_bwd_bf16_cuda", spy(mod.rspmm_bwd_bf16_cuda,
+                                             lambda kw: "K2h",
+                                             lambda a: a[4].device))]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, fn in patches:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def reset_peaks(cards) -> None:
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+
+
+def peaks_text(cards) -> str:
+    return ", ".join(f"{c} {torch.cuda.max_memory_allocated(c) / 2**30:.3f}"
+                     for c in cards if c.type == "cuda") + " GiB"
 
 
 def check_launches(label: str, counts: dict, per_unit: dict, units: int,
@@ -2367,18 +2453,24 @@ def phase_k1h_hub(device) -> dict:
 
 
 def phase_kernels_ring(device) -> dict:
-    """K9 against its plain version, bitwise, at ragged shapes and at the
-    ring's shapes (n = 4 shards of v_block = 3,636 rows, F = 1024 and
-    4096 fp32 features), timed queued ahead and at the host's pace beside
-    its plain version, torch.cat of the rotated blocks (its library call)
-    and torch.roll; returns its kernels-line entry."""
+    """K9 through the wrapper the ring calls (parallel/rdma.py::
+    shift_blocks, the n row blocks of one tensor, every shard on this
+    card) against its plain version (``shift_blocks_plain``), bitwise, at
+    ragged shapes and at the ring's shapes (n = 4 shards of v_block =
+    3,636 rows, F = 1024 and 4096 fp32 features), timed queued ahead and
+    at the host's pace beside its plain version, torch.cat of the rotated
+    blocks (its library call) and torch.roll; returns its kernels-line
+    entry."""
     from ultra_torchdrug_tpu_torch.parallel import rdma
+
+    def shift(x, n, wrapper):
+        return wrapper(list(x.chunk(n)), [x.device] * n)
 
     def check(n, vb, F, dtype, seed):
         gen = torch.Generator(device=device).manual_seed(seed)
         x = torch.randn((n * vb, F), generator=gen, device=device).to(dtype)
-        got = rdma.ring_shift(x, n)
-        want = rdma.ring_shift_plain(x, n)
+        got = torch.cat(shift(x, n, rdma.shift_blocks))
+        want = torch.cat(shift(x, n, rdma.shift_blocks_plain))
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"K9 n={n} v_block={vb} F={F} {dtype}: "
@@ -2405,8 +2497,8 @@ def phase_kernels_ring(device) -> dict:
         # queued ahead of the device (the wrapper's host side can outlast
         # the copy) and at the host's pace; every time the lesser of two
         # readings in turns (diagnostics/timing.py::k9_times)
-        times = k9_times(lambda: rdma.ring_shift(x, n),
-                         lambda: rdma.ring_shift_plain(x, n), x, n)
+        times = k9_times(lambda: shift(x, n, rdma.shift_blocks),
+                         lambda: shift(x, n, rdma.shift_blocks_plain), x, n)
         log(f"[kernels] K9 {which} shape n={n} v_block={vb} F={F}: bitwise "
             f"equal, {times['ms']:.4f} ms queued ahead, "
             f"{times['host_paced_ms']:.4f} ms at the host's pace (plain "
@@ -2530,16 +2622,18 @@ def k1_operands_of(ops) -> tuple:
 
 
 def phase_slice(task, model, device, per_batch: dict, label: str = "slice",
-                split: str = "test", triples: int = FAST_TEST):
+                split: str = "test", triples: int = FAST_TEST, cards=None):
     """Evaluation of ``triples`` triples of ``split`` through the task's
     entry point; returns the launch counts of the measured run, which must
-    be ``per_batch`` per eval batch."""
+    be ``per_batch`` per eval batch. ``cards``: the cards whose peak
+    memory it logs beside the device's (an edge mesh on several cards)."""
     # one batch first: cuBLAS handles, allocator pools and the kernel library
     # load are set-up, not evaluation
     task.evaluate(model, split, batch_size=EVAL_BATCH, fast_test=EVAL_BATCH)
     if device.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        reset_peaks(cards or [])
     batches = math.ceil(triples / EVAL_BATCH)
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -2557,7 +2651,8 @@ def phase_slice(task, model, device, per_batch: dict, label: str = "slice",
     log(f"[{label}] {triples} {split} triples in {batches} batches of "
         f"{EVAL_BATCH}: {seconds * 1e3 / batches:.2f} ms per eval batch, "
         f"{triples / seconds:.1f} triples/s, peak device memory "
-        f"{peak:.3f} GiB ({device})")
+        f"{peak:.3f} GiB ({device})"
+        + (f"; peak by card {peaks_text(cards)}" if cards else ""))
     log(f"[{label}] launches {counts} ({batches} batches)")
     log(f"[{label}] metrics {json.dumps(metrics)}")
     return counts
@@ -2700,20 +2795,24 @@ def make_engine(task, size: dict, label: str, **opt):
 
 
 def phase_train(engine, size: dict, device, per_step: dict,
-                label: str = "train"):
+                label: str = "train", cards=None):
     """Training steps through Engine.train; returns the launch counts of
-    the timed run, which must be ``per_step`` per step."""
+    the timed run, which must be ``per_step`` per step. ``cards`` as in
+    ``phase_slice``."""
     # one step first: allocator pools and cuBLAS handles are set-up
     engine.train(batch_per_epoch=1)
     if device.type == "cuda":
-        torch.cuda.synchronize()
+        for c in cards or [device]:
+            torch.cuda.synchronize(c)
         torch.cuda.reset_peak_memory_stats()
+        reset_peaks(cards or [])
     steps = size["steps"]
     reset_launch_counts()
     t0 = time.perf_counter()
     engine.train(batch_per_epoch=steps)
     if device.type == "cuda":
-        torch.cuda.synchronize()
+        for c in cards or [device]:
+            torch.cuda.synchronize(c)
     seconds = time.perf_counter() - t0
     counts = launch_counts()
     check_launches(label, counts, per_step, steps, device)
@@ -2727,7 +2826,8 @@ def phase_train(engine, size: dict, device, per_step: dict,
     log(f"[{label}] {steps} steps of {size['batch']} triples: "
         f"{seconds * 1e3 / steps:.2f} ms per step, "
         f"{steps * size['batch'] / seconds:.1f} triples/s, peak device "
-        f"memory {peak:.3f} GiB ({device})")
+        f"memory {peak:.3f} GiB ({device})"
+        + (f"; peak by card {peaks_text(cards)}" if cards else ""))
     log(f"[{label}] launches {counts} ({steps} steps)")
     for i, m in enumerate(window):
         log(f"[{label}] step {i}: " + ", ".join(
@@ -2791,6 +2891,23 @@ def phase_train_parity(engine, cpu_task, device, grad_rtol: float = 1e-4,
         f"{worst:.3g} (limit {grad_rtol:g}), max_abs_err {worst_abs:.3g}")
 
 
+def finish_entries(entries: dict, runs: dict, counted_as: dict) -> None:
+    """Each kernels-line entry's launches on the main path, by path and in
+    all, from the runs' launch counts (``counted_as`` maps an entry to the
+    count it reads, its name by default); raises for a kernel that never
+    launched."""
+    for key, e in entries.items():
+        kid = counted_as.get(key, e["name"])
+        by_path = {f"{path} {half}": counts[kid]
+                   for path, halves in runs.items()
+                   for half, counts in halves.items()
+                   if counts.get(kid)}
+        e.update(launches=sum(by_path.values()), launches_by_path=by_path)
+        if not e["launches"]:
+            raise AssertionError(f"{e['name']} never launched on the main "
+                                 "path")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -2802,8 +2919,9 @@ def main(argv=None) -> int:
     parser.add_argument("--dp-child", nargs=2, help=argparse.SUPPRESS,
                         metavar=("OUT", "CASES"))
     parser.add_argument(
-        "--only", choices=("46-48", "49-51"),
-        help="run the build and these phases alone and report no result")
+        "--only", choices=("46-48", "49-51", "52-53"),
+        help="run the build and these phases alone and report no result "
+             "(52-53 print their kernels line)")
     parser.add_argument(
         "--only-new", action="store_const", const="49-51", dest="only",
         help="the same as --only 49-51, the newest phases")
@@ -2842,11 +2960,19 @@ def main(argv=None) -> int:
             f"count {torch.cuda.device_count()}")
         phase_build()
     if args.only:
-        phases = run_new_phases if args.only == "46-48" else run_edge_phases
+        entry = None
+        if args.only == "52-53":
+            ran, entry = run_card_phases(device)
+        else:
+            ran = (run_new_phases if args.only == "46-48"
+                   else run_edge_phases)(device)
         used = {path: {half: {k: v for k, v in c.items() if v}
                        for half, c in halves.items()}
-                for path, halves in phases(device).items()}
+                for path, halves in ran.items()}
         log(f"[only] phases {args.only} passed; launches by path {used}")
+        if entry is not None:
+            finish_entries({"K9 cards": entry}, ran, {"K9 cards": "K9x"})
+            print(json.dumps({"kernels": [entry]}))
         return 0
 
     t0 = time.perf_counter()
@@ -2956,8 +3082,8 @@ def main(argv=None) -> int:
     runs["cli"] = phase_cli(device)
     # ULTRA on the edge-partitioned ring (K1, K2 per bucket, K9), then the
     # CLI with the ring keys
-    runs["ultra ring"] = run_ultra_ring(size, device)
-    runs["ring cli"] = phase_ring_cli(device)
+    runs["ultra ring"] = run_ultra_ring(size, one_card(device))
+    runs["ring cli"] = phase_ring_cli(one_card(device))
     # zero-shot inductive evaluation (K1), then multi-graph pre-training
     # (K1, K2): the other two shipped configs
     runs["inductive"] = run_inductive(device, pth)
@@ -2992,22 +3118,24 @@ def main(argv=None) -> int:
     if cuda:
         release_device_memory()
     runs.update(run_edge_phases(device))
+    # edge shards on several cards and data 2 x edge 2 on four (each logs
+    # that it is not run on a host with too few cards)
+    if cuda:
+        release_device_memory()
+    card_runs, k9_cards = run_card_phases(device)
+    runs.update(card_runs)
+    ids = list(KERNEL_IDS)
+    if k9_cards is not None:
+        entries["K9 cards"] = k9_cards
+        ids.append("K9 cards")
 
     if not cuda:
-        log("[rehearsal] phases 1b-51 ran on the CPU; no kernel ran and no "
+        log("[rehearsal] phases 1b-53 ran on the CPU; no kernel ran and no "
             "result is reported")
         return 1
-    for e in entries.values():
-        by_path = {f"{path} {half}": counts[e["name"]]
-                   for path, halves in runs.items()
-                   for half, counts in halves.items()
-                   if counts.get(e["name"])}
-        e.update(launches=sum(by_path.values()), launches_by_path=by_path)
-        if not e["launches"]:
-            raise AssertionError(f"{e['name']} never launched on the main "
-                                 "path")
+    finish_entries(entries, runs, {"K9 cards": "K9x"})
     log(nvidia_smi_line())
-    print(json.dumps({"kernels": [entries[k] for k in KERNEL_IDS]}))
+    print(json.dumps({"kernels": [entries[k] for k in ids]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -3216,7 +3344,7 @@ def phase_ring_cli(device) -> dict:
         path.write_text(yaml.safe_dump(cfg))
         reset_launch_counts()
         t0 = time.perf_counter()
-        engine = run_full.main(["-c", str(path), "--device", device.type])
+        engine = run_full.main(["-c", str(path), "--device", str(device)])
         if device.type == "cuda":
             torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
@@ -5010,30 +5138,33 @@ def run_new_phases(device) -> dict:
     return runs
 
 
-def dp_config(data: int, edge: int, size: dict) -> dict:
+def dp_config(data: int, edge: int, size: dict, impl: str = "ring") -> dict:
     """inference.yaml's model and task sections (ULTRA 6x64) at ``size``'s
     batch and negatives, eval batch EVAL_BATCH, on a mesh of ``data`` rows
-    x ``edge`` shards (the ring with rdma when edge > 1)."""
+    x ``edge`` shards (``impl`` when edge > 1: the ring with rdma, or the
+    partitioned kernels with "auto")."""
     cfg = inference_config({"class": "SynthKG"}, "float32")
     cfg["task"]["num_negative"] = size["negatives"]
     cfg["engine"].update(batch_size=size["batch"], log_interval=10**9)
     if data > 1 or edge > 1:
         cfg["parallel"] = {"data": data, "edge": edge}
     if edge > 1:
-        cfg["rspmm_impl"] = "ring"
+        cfg["rspmm_impl"] = impl
         cfg["task"]["model"]["ring_exchange"] = "rdma"
     return cfg
 
 
 def dp_run(dataset, device, data: int, edge: int, steps: int,
-           eval_triples: int) -> dict:
+           eval_triples: int, impl: str = "ring") -> dict:
     """One process's part of phases 47-48 (every rank's, or the single
     process's reference): the test rankings of ``eval_triples`` triples at
     the initial weights (round-robin shards under a data axis, gathered),
     then ``steps`` AdamW steps through Engine.train; returns the rankings,
     the reference's near-tie counts, the logged losses, the first step's
     gradients as the optimizer applies them, the parameters, the ms of
-    each step, the peak memory and the launch counts."""
+    each step, the peak memory and the launch counts (of the steps also
+    by card, where card_launch_spy records them, and K9's stores to
+    another card)."""
     from ultra_torchdrug_tpu_torch.engine.build import (
         build_engine,
         build_task,
@@ -5047,7 +5178,7 @@ def dp_run(dataset, device, data: int, edge: int, steps: int,
 
     cuda = device.type == "cuda"
     size = TRAIN if cuda else TRAIN_REHEARSAL
-    cfg = dp_config(data, edge, size)
+    cfg = dp_config(data, edge, size, impl)
     out = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as work_dir, \
             mesh_scope(cfg, device) as (mesh, edge_axis, rel_edge_axis):
@@ -5118,8 +5249,14 @@ def dp_run(dataset, device, data: int, edge: int, steps: int,
             engine.train(batch_per_epoch=steps)
         finally:
             distributed.all_reduce_mean = reduce
+        from ultra_torchdrug_tpu_torch.parallel import rdma
+
         out.update(
             train_counts=launch_counts(), step_ms=step_ms,
+            card_counts=dict(CARD_LAUNCHES), peer_k9=rdma.peer_launches,
+            home=str(mesh.device if mesh is not None else device),
+            shards=[str(d) for d in mesh.devices] if mesh is not None
+            else [str(device)],
             losses=[m["loss"] for m in engine.meter.last_window],
             grads=applied[0],
             params={k: v.detach().cpu()
@@ -5140,7 +5277,8 @@ def dp_child(out_dir: Path, cases: list, device_type: str) -> int:
     from ultra_torchdrug_tpu_torch.data.datasets import synthetic_transductive
     from ultra_torchdrug_tpu_torch.parallel import distributed
 
-    device = run_full.setup_process(device_type)
+    cards = [c for c in cases if c.startswith("cards")]
+    device = run_full.setup_process(device_type, edge=2 if cards else 1)
     world, rank = distributed.process_count(), distributed.process_index()
     cuda = device.type == "cuda"
     dataset = synthetic_transductive("SynthFB15k237", seed=0,
@@ -5152,6 +5290,10 @@ def dp_child(out_dir: Path, cases: list, device_type: str) -> int:
                               DP_EVAL_TRIPLES)
     if "composed" in cases:
         result["composed"] = dp_run(dataset, device, world, 2, 1, 0)
+    for case in cards:  # "cards ring", "cards partitioned"
+        impl = "ring" if case.endswith("ring") else "auto"
+        with card_launch_spy():
+            result[case] = dp_run(dataset, device, world, 2, 1, 0, impl=impl)
     torch.save(result, out_dir / f"rank{rank}.pt")
     distributed.shutdown()
     return 0
@@ -5332,6 +5474,79 @@ def run_data_parallel(device) -> tuple:
     return dp_runs, composed_runs
 
 
+def run_data_edge_cards(device) -> dict:
+    """Phase 53: data 2 x edge 2 on four cards, two NCCL ranks of two
+    cards each (rank r at home on card 2r), the ring with rdma and then
+    the partitioned kernels: one step each against the single-device step
+    on card 0 (loss DP_LOSS_RTOL relative, the first step's gradients
+    DP_PARAM_RTOL norm-wise), with the launches by rank and by card. On
+    fewer cards it logs that it is not run."""
+    from ultra_torchdrug_tpu_torch.data.datasets import synthetic_transductive
+
+    count = torch.cuda.device_count() if device.type == "cuda" else 1
+    if count < 4:
+        log(f"[phase 53] not run: {count} card(s) ({device}); data 2 x edge "
+            "2 needs four")
+        return {}
+    t0 = time.perf_counter()
+    dataset = synthetic_transductive("SynthFB15k237", seed=0, **FULL)
+    single = dp_run(dataset, one_card(device), 1, 1, 1, 0)
+    cases = ["cards ring", "cards partitioned"]
+    ranks = spawn_ranks(cases, device, False, 2)
+    runs = {}
+    # a step: the ring's K1 and K2 once a non-empty bucket (4 on 2 shards)
+    # a layer, 2 a card, K9 once a source card a shift (one shift a layer
+    # each way), every launch storing to the other card; the partitioned
+    # K1 and K2 once a shard a layer
+    L = K_LAUNCHES_PER_STEP
+    want = {"cards ring": ({"K1": 4 * L, "K2": 4 * L, "K9": 4 * L},
+                           {"K1": 2 * L, "K2": 2 * L, "K9": 2 * L}),
+            "cards partitioned": ({"K1": 2 * L, "K2": 2 * L},
+                                  {"K1": L, "K2": L})}
+    for r, res in enumerate(ranks):
+        if (res["backend"], res["device"]) != ("nccl", f"cuda:{2 * r}"):
+            raise AssertionError(f"phase 53 rank {r}: {res['backend']} on "
+                                 f"{res['device']}, expected nccl on "
+                                 f"cuda:{2 * r}")
+        for case in cases:
+            got = res[case]
+            total, per_card = want[case]
+            check_launches(f"{case} rank {r}", got["train_counts"], total, 1,
+                           device)
+            cards = [2 * r, 2 * r + 1]
+            expect = {(k, c): v for k, v in per_card.items() for c in cards}
+            k9x = total.get("K9", 0)
+            if got["card_counts"] != expect or got["peer_k9"] != k9x:
+                raise AssertionError(
+                    f"{case} rank {r}: launches by card {got['card_counts']}"
+                    f", K9 to another card {got['peer_k9']}; expected "
+                    f"{expect}, {k9x}")
+            summary = compare_to_single(f"{case} rank {r}", got, single,
+                                        first_step_only=True)
+            log(f"[phase 53] {case} rank {r} (home {got['home']}, shards "
+                f"{got['shards']}): data 2 x edge 2 one step vs one card: "
+                f"{summary}; {got['step_ms'][0]:.1f} ms (the first step), "
+                f"peak {got['peak_gib']:.3f} GiB on its home; launches by "
+                f"card {dict(sorted(got['card_counts'].items()))}, K9 to "
+                f"another card {got['peer_k9']}")
+            runs[f"{case} rank{r} train"] = dict(got["train_counts"],
+                                                 K9x=got["peer_k9"])
+    log(f"[timing] phase 53 {time.perf_counter() - t0:.1f} s "
+        f"({nvidia_smi_line()})")
+    return {"data 2 x edge 2": runs}
+
+
+def run_card_phases(device) -> tuple:
+    """Phases 52-53 (several cards); each logs that it is not run where
+    the host has too few. Returns (launch counts by path, the "K9 cards"
+    kernels-line entry or None)."""
+    runs, entry = run_cards(device)
+    if device.type == "cuda":
+        release_device_memory()
+    runs.update(run_data_edge_cards(device))
+    return runs, entry
+
+
 # phases 49-51: ULTRA 6x64 on the FB-size KG under an edge mesh of
 # EDGE_SHARDS shards, every shard on the card, each path held against the
 # single-device run on the same card and weights; the 2-layer variants and
@@ -5357,16 +5572,16 @@ PNA_FP64_GRAD_RTOL = 1e-9
 
 def edge_config(spec: dict, impl: str, layers: int = 6,
                 relation_edge: bool = False, compute_dtype="float32",
-                **model) -> dict:
-    """inference.yaml's model and task with ``parallel: {edge:
-    EDGE_SHARDS}`` (and ``relation_edge``), ``rspmm_impl``, rdma for the
-    ring, the entity tower cut to ``layers`` layers and ``model``'s keys
-    set."""
+                shards: int = EDGE_SHARDS, **model) -> dict:
+    """inference.yaml's model and task with ``parallel: {edge: shards}``
+    (and ``relation_edge``), ``rspmm_impl``, rdma for the ring (unless
+    ``model`` names the exchange), the entity tower cut to ``layers``
+    layers and ``model``'s keys set."""
     cfg = inference_config(spec, compute_dtype)
-    cfg["parallel"] = {"edge": EDGE_SHARDS, "relation_edge": relation_edge}
+    cfg["parallel"] = {"edge": shards, "relation_edge": relation_edge}
     cfg["rspmm_impl"] = impl
     m = cfg["task"]["model"]
-    m.update(ring_exchange="rdma", **model)
+    m.update({"ring_exchange": "rdma", **model})
     m["hidden_dims"] = m["hidden_dims"][:layers]
     return cfg
 
@@ -5385,32 +5600,64 @@ def forced_balance():
         ring_rspmm.resolve_balance = real
 
 
-def edge_launches(und, rel_graph, entity, relation, kernels: dict) -> tuple:
+def k9_shift_launches(devices) -> dict:
+    """K9's launches a shift of a ring whose shard s lies on
+    ``devices[s]``: {card index: (launches, of them storing to another
+    card)}, one launch a source card (parallel/rdma.py::shift_blocks)."""
+    n = len(devices)
+    return {a.index: (1, int(any(devices[(s + 1) % n] != a for s in range(n)
+                                 if devices[s] == a)))
+            for a in dict.fromkeys(devices)}
+
+
+def edge_launches(und, rel_graph, entity, relation, kernels: dict,
+                  by_card: bool = False) -> tuple:
     """(per eval batch, per train step) launches of an edge-mesh run, by
     kernel id (``kernels`` names the sums' forward and backward kernels on
     the partitioned path): the partitioned sums once a shard with edges a
     layer, its max K4 (K5 backward) once a layer; the ring's sums K1 (K2)
-    once a bucket with edges a layer; K9 n - 1 times a rotation (one
-    rotation a layer each way, two for pna's pair and moments); the entity
-    tower runs twice an eval batch (tail and head), the relation tower
-    once."""
+    once a bucket with edges a layer; K9 once a source card a shift, n - 1
+    shifts a rotation with the rdma exchange (one rotation a layer each
+    way, two for pna's pair and moments); "K9x" the K9 launches that store
+    to another card; the entity tower runs twice an eval batch (tail and
+    head), the relation tower once. With ``by_card`` the keys are (kernel
+    id, card index) of the shards' kernels and K9, as card_launch_spy
+    records them (K4, K5 and K9x left out)."""
     def tower(g, cfg):  # a layer's (forward, backward) launches, K9 each way
         base = cfg.aggregate_func.replace("_nobound", "")
+        fwd, bwd, k9 = {}, {}, {}
+
+        def add_to(counts, kid, card, times):
+            key = (kid, card) if by_card else kid
+            if times:
+                counts[key] = counts.get(key, 0) + times
+
         if g.part_layouts is not None:
             if base == "max":
-                return {"K4": 1}, {"K5": 1}, 0
+                return ({}, {}, {}) if by_card else ({"K4": 1}, {"K5": 1}, {})
             lay = g.part_layouts
-            return ({kernels["fwd"]: int(np.count_nonzero(lay.fwd_counts))},
-                    {kernels["bwd"]: int(np.count_nonzero(lay.rev_counts))},
-                    0)
+            for s, d in enumerate(lay.devices):
+                add_to(fwd, kernels["fwd"], d.index, int(lay.fwd_counts[s] > 0))
+                add_to(bwd, kernels["bwd"], d.index, int(lay.rev_counts[s] > 0))
+            return fwd, bwd, k9
         ri = g.ring_inputs
         if ri is None:
-            return {}, {}, 0
-        rotations = EDGE_SHARDS - 1
-        if base in ("sum", "mean") and ri.csr is not None:
-            return ({"K1": ri.nonempty_buckets}, {"K2": ri.nonempty_buckets},
-                    rotations)
-        return {}, {}, rotations * (2 if base == "pna" else 1)
+            return fwd, bwd, k9
+        sums = base in ("sum", "mean") and ri.csr is not None
+        if sums:
+            for s, d in enumerate(ri.devices):
+                add_to(fwd, "K1", d.index,
+                       int(np.count_nonzero(ri.edge_counts[s])))
+                add_to(bwd, "K2", d.index,
+                       int(np.count_nonzero(ri.edge_counts[:, s])))
+        if cfg.ring_exchange == "rdma":
+            shifts = (ri.n_shards - 1) * (2 if base == "pna" else 1)
+            for card, (n, remote) in k9_shift_launches(ri.devices).items():
+                # CPU blocks take K9's plain version, which launches nothing
+                add_to(k9, "K9", card, n * shifts * (card is not None))
+                if not by_card:
+                    add_to(k9, "K9x", card, remote * shifts)
+        return fwd, bwd, k9
 
     def add(total, counts, times):
         for k, v in counts.items():
@@ -5419,14 +5666,13 @@ def edge_launches(und, rel_graph, entity, relation, kernels: dict) -> tuple:
     (ef, eb, ek9), (rf, rb, rk9) = tower(und, entity), tower(rel_graph,
                                                               relation)
     L, Lr = len(entity.hidden_dims), len(relation.hidden_dims)
-    per_batch = {"K9": 2 * L * ek9 + Lr * rk9}
-    add(per_batch, ef, 2 * L)
-    add(per_batch, rf, Lr)
-    per_step = {"K9": 2 * (L * ek9 + Lr * rk9)}
-    for counts, times in ((ef, L), (eb, L), (rf, Lr), (rb, Lr)):
+    per_batch, per_step = {}, {}
+    for counts, times in ((ek9, 2 * L), (ef, 2 * L), (rk9, Lr), (rf, Lr)):
+        add(per_batch, counts, times)
+    for counts, times in ((ek9, 2 * L), (rk9, 2 * Lr), (ef, L), (eb, L),
+                          (rf, Lr), (rb, Lr)):
         add(per_step, counts, times)
-    return ({k: v for k, v in per_batch.items() if v},
-            {k: v for k, v in per_step.items() if v})
+    return per_batch, per_step
 
 
 def parity_batch(task):
@@ -5542,6 +5788,9 @@ def check_partitioned_kernels(part, whole, kernels: dict,
     errs = []
     for s in range(part.n_shards):
         c = part.fwd[s]
+        # the operands on the shard's card (phase 52: a card of its own)
+        w, rel, x, g, x_loc = (t.to(c.rowptr.device)
+                               for t in (w, rel, x, g, x_loc))
         args = (c.rowptr, c.src, c.etype, c.eid, w, rel, x, mode)
         pairs = [(fwd.rspmm_fwd_bf16_cuda if bf16 else fwd.rspmm_fwd_cuda)(
                       *args, segments=c.segments),
@@ -5577,15 +5826,20 @@ def check_partitioned_kernels(part, whole, kernels: dict,
 
 def run_edge_path(dataset, device, label: str, cfg: dict, kernels: dict,
                   train: bool = True, train_size=None, score_atol=None,
-                  grad_rtol=None):
-    """One path of phases 49-51 on ``dataset`` (a built dataset of
+                  grad_rtol=None, cards=None, pna_fp64: bool = True):
+    """One path of phases 49-52 on ``dataset`` (a built dataset of
     ``cfg``): the edge task through mesh_scope and build_task, one eval
     batch of EVAL_BATCH (with its launches; ``kernels`` names the path's
     forward and backward kernel ids, see ``edge_launches``), the scores of
     EVAL_BATCH queries against the single-device task on the same card and
     weights; with ``train`` one Engine.train step at ``train_size`` and
     one loss step's loss and gradients against the single-device step.
-    Returns the launch counts by half."""
+    ``device`` with an index pins every shard to it (phases 49-51);
+    "cuda" spreads them over the cards (phase 52), and ``cards`` then
+    names the cards whose peak memory is logged and whose launches by
+    card (card_launch_spy) must be each shard's on its own card.
+    ``pna_fp64`` runs ``pna_rounding`` on a pna tower. Returns the launch
+    counts by half, with "K9x" (K9's stores to another card)."""
     from ultra_torchdrug_tpu_torch.engine.build import (
         build_engine,
         build_task,
@@ -5613,12 +5867,15 @@ def run_edge_path(dataset, device, label: str, cfg: dict, kernels: dict,
     entity, relation = task.model_cfg.entity, task.model_cfg.relation
     per_batch, per_step = edge_launches(und, rel_graph, entity, relation,
                                         kernels)
+    by_card = edge_launches(und, rel_graph, entity, relation, kernels,
+                            by_card=True)
     part = und.part_layouts
     ring = und.ring_inputs
     log(f"[{label}] entity {entity.aggregate_func}/{entity.message_func} "
         f"{len(entity.hidden_dims)} layers rspmm_impl={entity.rspmm_impl} "
         f"compute_dtype={entity.compute_dtype}, relation tower edge_axis="
-        f"{relation.edge_axis!r}; mesh {mesh.shape} on {mesh.device}; "
+        f"{relation.edge_axis!r}; mesh {mesh.shape}, home {mesh.device}, "
+        f"shards on {[str(d) for d in mesh.devices]}; "
         f"set-up {time.perf_counter() - t0:.1f} s; "
         + (f"v_block {part.v_block}, shard edges in "
            f"{part.fwd_counts.tolist()}"
@@ -5627,8 +5884,14 @@ def run_edge_path(dataset, device, label: str, cfg: dict, kernels: dict,
            + f", relabelled {part.to_new is not None}"
            if part is not None else "")
         + (f"v_block {ring.v_block}, {ring.nonempty_buckets} of "
-           f"{EDGE_SHARDS ** 2} buckets with edges, relabelled "
-           f"{ring.to_new is not None}" if ring is not None else ""))
+           f"{ring.n_shards ** 2} buckets with edges, relabelled "
+           f"{ring.to_new is not None}" if ring is not None else "")
+        + (f"; layouts by card {layout_gib(und, rel_graph)}" if cards
+           else "")
+        + (f"; of them the second copies of off-diagonal bucket CSRs "
+           f"{ring_copy_gib(ring):.4f} GiB on all cards together" if cards
+           and ring is not None
+           and ring.csr is not None else ""))
     if (cuda and part is not None
             and entity.aggregate_func.replace("_nobound", "")
             in ("sum", "mean")):
@@ -5636,8 +5899,11 @@ def run_edge_path(dataset, device, label: str, cfg: dict, kernels: dict,
                                   label, device)
     with use_mesh(mesh):
         eval_counts = phase_slice(task, model, device, per_batch,
-                                  label=label, triples=EVAL_BATCH)
-    phase_parity(task, model, device, atol=score_atol or EDGE_SCORE_ATOL,
+                                  label=label, triples=EVAL_BATCH,
+                                  cards=cards)
+    check_by_card(label, eval_counts, per_batch, by_card[0], cards)
+    phase_parity(task, model, device,
+                 atol=EDGE_SCORE_ATOL if score_atol is None else score_atol,
                  label=f"{label} parity", ref_task=single, ref_device=device,
                  mesh=mesh, queries=EVAL_BATCH, ref_model=single_model)
     counts = {"eval": eval_counts}
@@ -5654,15 +5920,88 @@ def run_edge_path(dataset, device, label: str, cfg: dict, kernels: dict,
                                grad_rtol=grad_rtol or EDGE_GRAD_RTOL,
                                label=f"{label} train parity",
                                ref_device=device, ref_model=single_model)
-            if entity.aggregate_func.startswith("pna"):
+            if pna_fp64 and entity.aggregate_func.startswith("pna"):
                 pna_rounding(dataset, cfg, task, mesh, model, single,
                              single_model, label)
             counts["train"] = phase_train(engine, size, device, per_step,
-                                          label=f"{label} train")
+                                          label=f"{label} train",
+                                          cards=cards)
+            check_by_card(f"{label} train", counts["train"], per_step,
+                          by_card[1], cards, size["steps"])
     del task, single, model, single_model
     if cuda:
         release_device_memory()
     return counts
+
+
+def check_by_card(label: str, counts: dict, per_unit: dict, by_card: dict,
+                  cards, units: int = 1) -> None:
+    """Add "K9x" (K9 launches that stored to another card, read from
+    parallel/rdma.py) to ``counts`` and hold it to ``per_unit``'s; with
+    ``cards``, hold card_launch_spy's launches by (kernel, card) to
+    ``by_card`` (each shard's kernels on its own card) and log them."""
+    from ultra_torchdrug_tpu_torch.parallel import rdma
+
+    counts["K9x"] = rdma.peer_launches
+    want = per_unit.get("K9x", 0) * units
+    if counts["K9x"] != want:
+        raise AssertionError(f"{label}: {counts['K9x']} K9 launches stored "
+                             f"to another card, expected {want}")
+    if not cards:
+        return
+    want_cards = {k: v * units for k, v in by_card.items() if v}
+    got = {k: v for k, v in CARD_LAUNCHES.items() if v}
+    if got != want_cards:
+        raise AssertionError(f"{label}: launches by (kernel, card) {got}, "
+                             f"expected {want_cards}")
+    log(f"[{label}] launches by (kernel, card) {dict(sorted(got.items()))}, "
+        f"each shard's on its own card; K9 stores to another card "
+        f"{counts['K9x']}")
+
+
+def ring_copy_gib(ri) -> float:
+    """The GiB of the ring's backward-bucket CSRs that its placement
+    copied to a second card (``RingRspmmInputs.csr_rev`` entries whose
+    forward pair lies on another card)."""
+    return sum(t.numel() * t.element_size()
+               for s, row in enumerate(ri.csr_rev) for b, c in enumerate(row)
+               if ri.devices[s] != ri.devices[b]
+               for t in vars(c).values() if torch.is_tensor(t)) / 2**30
+
+
+def layout_gib(*graphs) -> str:
+    """The GiB of the graphs' placed edge layouts on each device."""
+    sizes = {}
+
+    def add(t):
+        if torch.is_tensor(t):
+            sizes[t.device] = sizes.get(t.device, 0) + t.numel() * (
+                t.element_size())
+
+    seen = set()
+    for g in graphs:
+        for lay in (g.ring_inputs, g.part_layouts):
+            if lay is None:
+                continue
+            csrs = []
+            if getattr(lay, "csr", None) is not None:
+                csrs += [c for row in lay.csr for c in row]
+                csrs += [c for row in lay.csr_rev or () for c in row]
+            for family in ("fwd", "rev"):
+                fam = getattr(lay, family)
+                if isinstance(fam, tuple):
+                    csrs += [c for c in fam if c is not None]
+                elif fam is not None:
+                    for f in dataclasses.fields(fam):
+                        for t in getattr(fam, f.name):
+                            add(t)
+            for c in csrs:
+                for t in vars(c).values():
+                    if torch.is_tensor(t) and id(t) not in seen:
+                        seen.add(id(t))
+                        add(t)
+    return ", ".join(f"{d} {b / 2**30:.4f}" for d, b in sorted(
+        sizes.items(), key=lambda kv: str(kv[0]))) + " GiB"
 
 
 def run_partitioned(dataset, spec, device) -> dict:
@@ -5759,7 +6098,7 @@ def run_edge_cli(device, label: str, impl: str, aggregate: str,
         path.write_text(yaml.safe_dump(cfg))
         reset_launch_counts()
         t0 = time.perf_counter()
-        engine = run_full.main(["-c", str(path), "--device", device.type])
+        engine = run_full.main(["-c", str(path), "--device", str(device)])
         if device.type == "cuda":
             torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
@@ -5785,9 +6124,15 @@ def run_edge_cli(device, label: str, impl: str, aggregate: str,
     return {"smoke": counts}
 
 
+def one_card(device) -> torch.device:
+    """The device that pins every edge shard to card 0 (phases 26-30 and
+    49-51 run on the one-card mesh, also on a host with several cards)."""
+    return torch.device("cuda", 0) if device.type == "cuda" else device
+
+
 def run_edge_phases(device) -> dict:
-    """Phases 49-51, each timed beside the card's name and power limit;
-    returns their launch counts by path."""
+    """Phases 49-51 on the one-card mesh, each timed beside the card's
+    name and power limit; returns their launch counts by path."""
     from ultra_torchdrug_tpu_torch.engine.build import build_dataset
 
     cuda = device.type == "cuda"
@@ -5798,10 +6143,296 @@ def run_edge_phases(device) -> dict:
     for phase, fn in ((49, run_partitioned), (50, run_ring_extrema),
                       (51, run_relation_edge)):
         t0 = time.perf_counter()
-        runs.update(fn(dataset, spec, device))
+        runs.update(fn(dataset, spec, one_card(device)))
         log(f"[timing] phase {phase} {time.perf_counter() - t0:.1f} s "
             f"({card})")
     return runs
+
+
+# phase 52: the edge paths with each shard on a card of its own; the K9
+# bound between cards: a block over NVLink's 450 GB/s each way (every card
+# pushes one block on its own link at once)
+NVLINK_BYTES_PER_S = 450e9
+K9_STRESS_SHIFTS = 200
+RING_OP_ITERS = 3
+
+
+def sync_cards(cards) -> None:
+    for c in cards:
+        torch.cuda.synchronize(c)
+
+
+def topology() -> str:
+    """``nvidia-smi topo -m``, and each card's NVLink links and their
+    rates (``nvidia-smi nvlink --status``, summed), or why either could
+    not be read."""
+    lines = []
+    for args in (["topo", "-m"], ["nvlink", "--status"]):
+        try:
+            out = subprocess.run(["nvidia-smi", *args], check=True,
+                                 capture_output=True, text=True,
+                                 timeout=60).stdout
+        except (OSError, subprocess.SubprocessError) as exc:
+            lines.append(f"(nvidia-smi {' '.join(args)} failed: {exc})")
+            continue
+        if args[0] == "topo":
+            lines.append(out.rstrip())
+            continue
+        card, rates = None, {}
+        for line in out.splitlines():
+            if line.startswith("GPU "):
+                card = line.split(":")[0]
+                rates[card] = []
+            elif card and "GB/s" in line:
+                rates[card].append(float(line.split(":")[-1].split()[0]))
+        lines += [f"{c}: {len(r)} NVLink links at "
+                  f"{', '.join(sorted({f'{x:g}' for x in r}))} GB/s, "
+                  f"{sum(r):.1f} GB/s in all (nvidia-smi nvlink --status)"
+                  for c, r in rates.items()]
+    return "\n".join(lines)
+
+
+def phase_k9_cards(cards) -> dict:
+    """K9 between cards (the ring's n = len(cards) shards, one a card):
+    exactly equal to its plain version (PyTorch's copies between cards) at
+    ragged and at the ring's shapes, fp32 and bf16; timed at v_block =
+    3,636 and F = 1024 and 4096 beside its plain version and its library
+    call (one peer ``dst.copy_(src, non_blocking=True)`` a block into
+    preallocated blocks) against the NVLink bound, each queued ahead and
+    at the host's pace (the ``*host_paced_ms`` keys); then K9_STRESS_SHIFTS
+    shifts back to back of distinct fills, each result dropped at once but
+    every twentieth, read after one synchronize. Returns the kernels-line
+    entry "K9 cards"."""
+    from ultra_torchdrug_tpu_torch.diagnostics.timing import cards_time_ms
+    from ultra_torchdrug_tpu_torch.parallel import rdma
+
+    n = len(cards)
+    peers = {f"{a.index}->{b.index}": torch.cuda.can_device_access_peer(a, b)
+             for a in cards for b in cards if a != b}
+    log(f"[cards] peer access {peers}")
+    log("[cards] nvidia-smi topo -m:\n" + topology())
+
+    def blocks_of(vb, F, dtype, seed):
+        gen = torch.Generator().manual_seed(seed)
+        return [torch.randn((vb, F), generator=gen).to(dtype).to(c)
+                for c in cards]
+
+    def check(blocks):
+        got = rdma.shift_blocks(blocks, cards)
+        want = rdma.shift_blocks_plain(blocks, cards)
+        sync_cards(cards)
+        for s in range(n):
+            if got[s].device != cards[s] or not torch.equal(got[s], want[s]):
+                raise AssertionError(f"K9 between cards differs from its "
+                                     f"plain version at shard {s} "
+                                     f"{tuple(blocks[s].shape)} "
+                                     f"{blocks[s].dtype}")
+
+    for vb, F in ((7, 5), (1, 3), (64, 256), (9, 1000), (3636, 1024)):
+        for dtype in (torch.float32, torch.bfloat16):
+            check(blocks_of(vb, F, dtype, vb * F))
+    log(f"[cards] K9 between {n} cards at ragged and full shapes, fp32 and "
+        "bf16: exactly equal to its plain version")
+
+    # ordering and the allocator: distinct fills, results dropped at once
+    src = [torch.empty((3636, 1024), device=c) for c in cards]
+    kept = {}
+    t0 = time.perf_counter()
+    for i in range(K9_STRESS_SHIFTS):
+        for s, b in enumerate(src):
+            b.fill_(float(i * 8 + s))
+        out = rdma.shift_blocks(src, cards)
+        if i % 20 == 19:
+            kept[i] = out
+    sync_cards(cards)
+    for i, out in kept.items():
+        for s in range(n):
+            if not bool((out[s] == float(i * 8 + (s - 1) % n)).all()):
+                raise AssertionError(f"K9 stress: shift {i} shard {s} holds "
+                                     "another shift's fill")
+    log(f"[cards] K9 stress: {K9_STRESS_SHIFTS} shifts of distinct fills "
+        f"between {n} cards back to back, every 20th kept and read after "
+        f"one synchronize, all exact ({time.perf_counter() - t0:.2f} s)")
+    del src, kept, out
+
+    entry = None
+    vb = -(-FULL["num_nodes"] // 4)
+    for F, which in ((EVAL_BATCH * FEAT, "eval"),
+                     (TRAIN["batch"] * FEAT, "train")):
+        blocks = blocks_of(vb, F, torch.float32, F)
+        check(blocks)
+        dst = [torch.empty_like(blocks[(s - 1) % n], device=cards[s])
+               for s in range(n)]
+
+        def library():
+            for s in range(n):
+                dst[s].copy_(blocks[(s - 1) % n], non_blocking=True)
+
+        fns = dict(ms=lambda: rdma.shift_blocks(blocks, cards),
+                   plain_ms=lambda: rdma.shift_blocks_plain(blocks, cards),
+                   library_ms=library)
+        reads = {}
+        for queued in (True, False):
+            for name in list(fns) + list(fns)[::-1]:
+                key = name if queued else name.replace("ms", "host_paced_ms")
+                reads.setdefault(key, []).append(cards_time_ms(
+                    fns[name], cards, 50, queue_ahead=queued))
+        times = {k: min(v) for k, v in reads.items()}
+        nbytes = blocks[0].numel() * blocks[0].element_size()
+        bound = nbytes / NVLINK_BYTES_PER_S * 1e3
+        log(f"[cards] K9 between {n} cards, {which} shape v_block={vb} "
+            f"F={F} ({nbytes:,} B a block): {times['ms']:.4f} ms a shift "
+            f"(plain {times['plain_ms']:.4f}, library peer copy_ "
+            f"{times['library_ms']:.4f}); bound {bound:.4f} ms a block over "
+            f"450 GB/s, {bound / times['ms']:.1%} of it; each the lesser of "
+            "two readings in turns, queued ahead on every card; at the "
+            f"host's pace {times['host_paced_ms']:.4f} ms (plain "
+            f"{times['plain_host_paced_ms']:.4f}, library "
+            f"{times['library_host_paced_ms']:.4f})")
+        if entry is None:
+            entry = dict(name="K9 cards", route="cuda",
+                         source=f"{PACKAGE}/csrc/ring_shift.cu",
+                         replaces="ultra_torchdrug_tpu/parallel/rdma.py:83",
+                         launches=None, max_abs_err=0.0, **times,
+                         bound_ms=bound, bound_by="bytes",
+                         library_call="peer dst.copy_(src, non_blocking=True)"
+                                      " a block")
+        else:
+            entry.update({f"{k}_train": v for k, v in times.items()},
+                         bound_ms_train=bound)
+        del blocks, dst
+    return entry
+
+
+def ring_op_times(dataset, cards) -> dict:
+    """One ring sum alone (parallel/ring_rspmm.py::ring_rspmm, forward, K1
+    a bucket) on the FB-size KG's entity graph at the eval width, a shard
+    a card, with each exchange, queued ahead (the cards' work) and at the
+    host's pace: where the two exchanges differ only at the host's pace,
+    the host's work a shift, not the cards', separates them end to end.
+    Each the lesser of two readings in turns; returns them with the
+    shifts an op. Three ops a reading, so that the host queues them all
+    within the cards' spin (about 25 ms) while an op's host side takes
+    under 8 ms; the log says whether it did."""
+    from ultra_torchdrug_tpu_torch.diagnostics.timing import cards_time_ms
+    from ultra_torchdrug_tpu_torch.parallel.ring_rspmm import (
+        build_ring_rspmm_inputs,
+        ring_rspmm,
+    )
+
+    und = dataset.fact_graph(None)[0].undirected_with_inverse()
+    V, R, n = und.num_nodes, und.num_relations, len(cards)
+    ri = build_ring_rspmm_inputs(
+        und.edge_index.numpy(), und.edge_type.numpy(), V, n,
+        num_relations=R, pallas=True, balance=True).to_mesh(cards)
+    gen = torch.Generator().manual_seed(52)
+    F = EVAL_BATCH * FEAT
+    w = torch.ones(und.num_edges).to(cards[0])
+    rel, x = (torch.randn(s, generator=gen).to(cards[0])
+              for s in ((R, F), (V, F)))
+    reads = {}
+    with torch.no_grad():
+        for queued in (True, False):
+            order = ("rdma", "ppermute", "ppermute", "rdma")
+            for exchange in order:
+                key = f"{exchange}_{'ms' if queued else 'host_paced_ms'}"
+                reads.setdefault(key, []).append(cards_time_ms(
+                    lambda: ring_rspmm(w, ri, rel, x, msg="mul",
+                                       exchange=exchange),
+                    cards, RING_OP_ITERS, queue_ahead=queued))
+    times = {k: min(v) for k, v in reads.items()}
+    # the spin covers the host's queueing when the calls at the host's
+    # pace take less than it in all
+    within = RING_OP_ITERS * max(times["rdma_host_paced_ms"],
+                                 times["ppermute_host_paced_ms"]) < 25.0
+    log(f"[cards] one ring sum alone (V={V}, E={und.num_edges}, F={F}, "
+        f"{n} shards a card, {n - 1} shifts, K1 a non-empty bucket): rdma "
+        f"{times['rdma_ms']:.4f} ms queued ahead, "
+        f"{times['rdma_host_paced_ms']:.4f} ms at the host's pace; "
+        f"ppermute {times['ppermute_ms']:.4f} / "
+        f"{times['ppermute_host_paced_ms']:.4f} ms; each the lesser of two "
+        "readings in turns; the host queued every op within the spin: "
+        f"{within}")
+    del ri, w, rel, x
+    torch.cuda.empty_cache()
+    return dict(times, shifts=n - 1, F=F, queued_within_spin=within)
+
+
+def run_cards(device) -> tuple:
+    """Phase 52: the edge paths with edge = min(4, cards) shards, each on a
+    card of its own (the mesh's placement), against the single-device run
+    on card 0 with the same weights: one eval batch and one Engine.train
+    step each (module docstring's list); logs ms, peak memory by card and
+    launches by card. Returns (launch counts by path, the "K9 cards"
+    entry); on one card it logs that it is not run."""
+    from ultra_torchdrug_tpu_torch.engine.build import build_dataset
+
+    count = torch.cuda.device_count() if device.type == "cuda" else 1
+    if count < 2:
+        log(f"[phase 52] not run: {count} card ({device}); edge shards on "
+            "several cards need two or more")
+        return {}, None
+    edge = min(4, count)
+    cards = [torch.device("cuda", i) for i in range(edge)]
+    log(f"[phase 52] edge {edge} on {[str(c) for c in cards]}: "
+        f"{nvidia_smi_line()}")
+    entry = phase_k9_cards(cards)
+    spec = {"class": "SynthKG", **FULL}
+    dataset = build_dataset(dict(spec))
+    home = torch.device("cuda")
+    runs = {}
+    paths = (
+        ("cards partitioned", edge_config(spec, "auto", shards=edge),
+         dict(fwd="K1", bwd="K2"), {}),
+        ("cards ring rdma", edge_config(spec, "ring", shards=edge),
+         dict(fwd="K1", bwd="K2"), dict(score_atol=RING_SCORE_ATOL)),
+        ("cards ring ppermute", edge_config(spec, "ring", shards=edge,
+                                            ring_exchange="ppermute"),
+         dict(fwd="K1", bwd="K2"), dict(score_atol=RING_SCORE_ATOL)),
+        ("cards ring max", edge_config(spec, "ring", shards=edge,
+                                       aggregate_func="max"),
+         dict(fwd="K1", bwd="K2"), dict(score_atol=RING_SCORE_ATOL)),
+        ("cards ring pna", edge_config(spec, "ring", shards=edge,
+                                       aggregate_func="pna"),
+         dict(fwd="K1", bwd="K2"),
+         dict(score_atol=RING_SCORE_ATOL, grad_rtol=PNA_RING_GRAD_RTOL)),
+        ("cards partitioned bf16", edge_config(
+            spec, "auto", 2, compute_dtype="bfloat16", shards=edge),
+         dict(fwd="K1h", bwd="K2h"), {}),
+        ("cards partitioned transe", edge_config(
+            spec, "auto", 2, message_func="transe", shards=edge),
+         dict(fwd="K1", bwd="K3"), {}),
+        ("cards partitioned max", edge_config(
+            spec, "auto", 2, aggregate_func="max", shards=edge),
+         dict(fwd="K1", bwd="K2"), {}),
+        ("cards partitioned xla", edge_config(spec, "xla", 2, shards=edge),
+         {}, dict(train_size=dict(batch=XLA_TRAIN_BATCH, negatives=128,
+                                  steps=1))),
+        ("cards relation_edge auto", edge_config(
+            spec, "auto", relation_edge=True, shards=edge),
+         dict(fwd="K1", bwd="K2"), dict(train=False,
+                                        score_atol=RING_SCORE_ATOL)),
+        ("cards relation_edge ring", edge_config(
+            spec, "ring", relation_edge=True, shards=edge),
+         dict(fwd="K1", bwd="K2"), dict(train=False,
+                                        score_atol=RING_SCORE_ATOL)),
+    )
+    entry["ring_op"] = ring_op_times(dataset, cards)
+    t0 = time.perf_counter()
+    with card_launch_spy():
+        for label, cfg, kernels, opt in paths:
+            if label == "cards partitioned":
+                opt = dict(opt, score_atol=0.0)  # scores bitwise
+            balance = (forced_balance() if label.endswith(("ring max",
+                                                           "ring pna"))
+                       else contextlib.nullcontext())
+            with balance:
+                runs[label] = run_edge_path(dataset, home, label, cfg,
+                                            kernels, cards=cards,
+                                            pna_fp64=False, **opt)
+    log(f"[timing] phase 52 {time.perf_counter() - t0:.1f} s "
+        f"({nvidia_smi_line()})")
+    return runs, entry
 
 if __name__ == "__main__":
     sys.exit(main())

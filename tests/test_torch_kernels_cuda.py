@@ -1333,27 +1333,28 @@ K9_SHAPES = [(2, 7, 5), (3, 7, 5), (4, 7, 5), (3, 1, 3), (4, 64, 256),
 def test_k9_matches_plain_bitwise(cuda_device, n, vb, F, dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(n * vb + F)
     x = torch.randn((n * vb, F), generator=gen, device=cuda_device).to(dtype)
+    blocks, devices = list(x.chunk(n)), [cuda_device] * n
     before = rdma.launches
-    got = rdma.ring_shift(x, n)
+    got = rdma.shift_blocks(blocks, devices)
     assert rdma.launches == before + 1
-    want = rdma.ring_shift_plain(x, n)
+    want = rdma.shift_blocks_plain(blocks, devices)
     torch.cuda.synchronize()
-    assert got.dtype == dtype and torch.equal(got, want)
+    assert got[0].dtype == dtype
+    assert torch.equal(torch.cat(got), torch.cat(want))
     # block 0 moved to shard 1 (to itself when there is one shard)
-    assert torch.equal(got[vb % (n * vb):][:vb], x[:vb])
+    assert torch.equal(got[1 % n], x[:vb])
 
 
 @pytest.mark.parametrize("rows", [5, 4097])
 def test_k9_takes_separate_blocks(cuda_device, rows):
-    """Per-shard buffers, each its own allocation (the multi-card layout):
-    every block 16-byte aligned, so the unit path copies the body and the
-    tail's 12 bytes go byte by byte (5 x 3 fp32 rows: 3 units; 4,097 x 3:
-    3,072 units, twelve CTAs)."""
+    """Per-shard source blocks, each its own allocation (the multi-card
+    layout): every source 16-byte aligned, the destinations rows of one
+    buffer (5 x 3 fp32 rows: 60 bytes, so the second and third are
+    misaligned; 4,097 x 3: 3,072 units, twelve CTAs)."""
     src = [torch.arange(rows * 3, dtype=torch.float32,
                         device=cuda_device).view(rows, 3) + 1e5 * s
            for s in range(3)]
-    dst = [torch.empty(rows, 3, device=cuda_device) for _ in range(3)]
-    rdma.ring_shift_blocks(src, dst)
+    dst = rdma.shift_blocks(src, [cuda_device] * 3)
     torch.cuda.synchronize()
     for s in range(3):
         assert torch.equal(dst[(s + 1) % 3], src[s])
@@ -1362,15 +1363,33 @@ def test_k9_takes_separate_blocks(cuda_device, rows):
 def test_k9_rejects_bad_operands(cuda_device):
     x = torch.zeros((8, 4), device=cuda_device)
     blocks = list(x.chunk(4))
-    with pytest.raises(ValueError, match="overlap"):
-        rdma.ring_shift_blocks(blocks, blocks)
-    with pytest.raises(NotImplementedError, match="item 9, several cards"):
-        rdma.ring_shift_blocks(blocks, [b.cpu() for b in blocks])
+    devices = [cuda_device] * 4
+    with pytest.raises(ValueError, match="a block on cpu"):
+        rdma.shift_blocks(blocks[:3] + [blocks[3].cpu()], devices)
+    with pytest.raises(ValueError, match="4 blocks and 3 devices"):
+        rdma.shift_blocks(blocks, devices[:3])
+    # blocks on another card: K9 pushes across cards, or raises only where
+    # the host offers no peer access between them
+    if torch.cuda.device_count() >= 2:
+        other = torch.device("cuda", 1)
+        cards = [x.device] * 2 + [other] * 2
+        split = [b.to(d) for b, d in zip(blocks, cards)]
+        split = [b + s for s, b in enumerate(split)]
+        if torch.cuda.can_device_access_peer(x.device, other):
+            got = rdma.shift_blocks(split, cards)
+            torch.cuda.synchronize()
+            assert all(got[(s + 1) % 4].device == cards[(s + 1) % 4]
+                       and torch.equal(got[(s + 1) % 4].cpu(),
+                                       split[s].cpu()) for s in range(4))
+        else:
+            with pytest.raises(RuntimeError, match="peer access"):
+                rdma.shift_blocks(split, cards)
     with pytest.raises(ValueError, match="one dtype and shape"):
-        rdma.ring_shift_blocks(blocks, [torch.zeros(2, 5, device=cuda_device)
-                                        for _ in blocks])
-    with pytest.raises(ValueError, match="equal blocks"):
-        rdma.ring_shift(x, 3)
+        rdma.shift_blocks(blocks[:3] + [torch.zeros(2, 5,
+                                                    device=cuda_device)],
+                          devices)
+    with pytest.raises(ValueError, match="contiguous"):
+        rdma.shift_blocks([b.t() for b in blocks], devices)
 
 
 @pytest.mark.parametrize("n", [2, 3, 4])

@@ -65,8 +65,9 @@ def test_buckets_match_jax(n, balanced):
     for family in ("fwd", "rev"):
         for name in ("gather_local", "out_local", "etype", "edge_id",
                      "valid"):
+            # one row [n, Emax] an owner block
             np.testing.assert_array_equal(
-                getattr(getattr(got, family), name).numpy(),
+                torch.stack(getattr(getattr(got, family), name)).numpy(),
                 np.asarray(getattr(getattr(want, family), name)),
                 err_msg=f"{family}.{name}")
     if balanced:
@@ -235,11 +236,13 @@ def test_exchanges_agree_bitwise(csr_route):
 @pytest.mark.parametrize("n", [1, 2, 3, 4])
 def test_ring_shift_plain_moves_each_block_one_shard_right(n):
     x = torch.arange(n * 6, dtype=torch.float32).reshape(n * 3, 2)
-    got = rdma.ring_shift(x, n)  # a CPU tensor: the plain version
+    before = x.clone()
+    blocks = list(x.chunk(n))
+    # CPU blocks: the plain version
+    got = rdma.shift_blocks(blocks, ["cpu"] * n)
     for s in range(n):
-        assert torch.equal(got[((s + 1) % n) * 3:((s + 1) % n + 1) * 3],
-                           x[s * 3:(s + 1) * 3])
-    assert got.data_ptr() != x.data_ptr()
+        assert torch.equal(got[(s + 1) % n], x[s * 3:(s + 1) * 3])
+    assert torch.equal(x, before)
 
 
 def _conv(aggregate_func, **ring):
@@ -324,8 +327,13 @@ def test_mesh_raises_where_the_slice_does_not_reach():
     # a data axis runs over processes: one process cannot hold two rows
     with pytest.raises(ValueError, match="needs 2 processes.*has 1"):
         mesh.make_mesh(data=2, edge=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9.*several cards"):
+    # a row's shards share one device type
+    with pytest.raises(ValueError, match="share one device type"):
         mesh.make_mesh(edge=2, devices=["cpu", "meta"])
+    # shards on four cards: placement only, nothing runs on them
+    cards = mesh.make_mesh(edge=4, devices=[f"cuda:{i}" for i in range(4)])
+    assert cards.devices == tuple(torch.device("cuda", i) for i in range(4))
+    assert cards.device == torch.device("cuda", 0)
     m = mesh.make_mesh(edge=4, device="cpu")
     assert m.shape == {"data": 1, "edge": 4} and m.axis_names == (
         "data", "edge")

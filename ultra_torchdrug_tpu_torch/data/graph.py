@@ -292,6 +292,9 @@ class Graph:
       part_layouts: optional ``parallel.sharded_rspmm.
         PartitionedRspmmLayouts``, the partitioned path's per-shard CSRs
         (``prepare_csr_sharded``); topology only
+    ``to`` moves every layout; the ring's and the partitioned path's,
+    once spread over several devices, keep each shard's layouts where
+    they are and move only their index maps.
     """
 
     edge_index: torch.Tensor
@@ -421,13 +424,16 @@ class Graph:
 
     def prepare_ring(self, n_shards: int, pallas: bool = False,
                      balance=False, permuted_io: bool = False,
-                     backward: bool = True) -> "Graph":
+                     backward: bool = True, devices=None) -> "Graph":
         """Attach the edge buckets of the ring path (parallel/ring_rspmm.py:
         node rows split into ``n_shards`` blocks, one per edge shard of the
         mesh). ``pallas`` also builds one ``Csr`` per bucket, so that each
         ring step runs the rspmm kernels (distmult); ``backward`` gives those
         their backward layouts. ``balance`` and ``permuted_io`` as in
-        ``build_ring_rspmm_inputs``. Host-side, once per topology."""
+        ``build_ring_rspmm_inputs``. ``devices`` (the mesh's, one a shard)
+        places each shard's layouts on its device (``RingRspmmInputs.
+        to_mesh``), the graph's for every shard by default. Host-side, once
+        per topology."""
         from ..parallel.ring_rspmm import build_ring_rspmm_inputs
 
         ring = build_ring_rspmm_inputs(
@@ -435,10 +441,11 @@ class Graph:
             self.num_nodes, n_shards, num_relations=self.num_relations,
             pallas=pallas, balance=balance, permuted_io=permuted_io,
             backward=backward)
-        return dataclasses.replace(self, ring_inputs=ring.to(self.device))
+        ring = ring.to_mesh(devices or (self.device,) * n_shards)
+        return dataclasses.replace(self, ring_inputs=ring)
 
     def prepare_csr_sharded(self, n_shards: int, backward: bool = False,
-                            balance="auto") -> "Graph":
+                            balance="auto", devices=None) -> "Graph":
         """Attach the partitioned path's per-shard CSRs
         (parallel/sharded_rspmm.py: node rows split into ``n_shards``
         output blocks, one per edge shard of the mesh, each with the CSR of
@@ -446,14 +453,18 @@ class Graph:
         it). ``balance`` as in ``build_partitioned_rspmm_inputs``. The
         graph keeps its own CSR for the ops off the partitioned path, as
         the JAX package composes ``prepare_pallas`` with
-        ``prepare_pallas_sharded``. Host-side, once per topology."""
+        ``prepare_pallas_sharded``. ``devices`` (the mesh's, one a shard)
+        places each shard's CSRs on its device (``PartitionedRspmmLayouts.
+        to_mesh``), the graph's for every shard by default. Host-side, once
+        per topology."""
         from ..parallel.sharded_rspmm import build_partitioned_rspmm_inputs
 
         part = build_partitioned_rspmm_inputs(
             self.edge_index.cpu().numpy(), self.edge_type.cpu().numpy(),
             self.num_nodes, max(self.num_relations, 1), n_shards,
             backward=backward, balance=balance)
-        return dataclasses.replace(self, part_layouts=part.to(self.device))
+        part = part.to_mesh(devices or (self.device,) * n_shards)
+        return dataclasses.replace(self, part_layouts=part)
 
     def prepare_join(self, one_hop: bool = False) -> "Graph":
         """Attach the sorted-edge ``PatternJoinIndex`` for the per-step

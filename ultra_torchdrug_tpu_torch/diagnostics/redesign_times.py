@@ -71,7 +71,10 @@ E = 496,188, R = 474) and on bench.py's heavy-tailed KG
 (diagnostics/workloads.py::build_workload, V = 15,000, E = 557,056,
 R = 474, edges head -> tail), each beside ``torch.sparse.mm``'s two halves.
 K9 at the ring's shapes (n = 4 shards of v_block = 3,636 rows, F = 1,024
-and 4,096 fp32): queued ahead of the device and at the host's pace, beside
+and 4,096 fp32), through the ring's wrapper (parallel/rdma.py::
+shift_blocks over the row blocks of one tensor, so the package under
+``--root`` needs that wrapper): queued ahead of the device and at the
+host's pace, beside
 ``torch.cat`` of the rotated blocks and ``torch.roll``. Every kernel result
 is held against its plain version before it is timed. Set-up: the seconds
 of ``prepare_csr(backward=True)`` on the uniform KG (what a training task
@@ -551,11 +554,16 @@ def time_k9(torch, timing, rdma, F: int, vb: int) -> dict:
     n = RING_SHARDS
     gen = torch.Generator(device="cuda").manual_seed(F)
     x = torch.randn((n * vb, F), generator=gen, device="cuda")
-    if not torch.equal(rdma.ring_shift(x, n), rdma.ring_shift_plain(x, n)):
+
+    def shift(wrapper):
+        return wrapper(list(x.chunk(n)), [x.device] * n)
+
+    if not torch.equal(torch.cat(shift(rdma.shift_blocks)),
+                       torch.cat(shift(rdma.shift_blocks_plain))):
         raise AssertionError(f"K9 F={F}: differs from its plain version")
     out = dict(n=n, v_block=vb, F=F, **timing.k9_times(
-        lambda: rdma.ring_shift(x, n), lambda: rdma.ring_shift_plain(x, n),
-        x, n))
+        lambda: shift(rdma.shift_blocks),
+        lambda: shift(rdma.shift_blocks_plain), x, n))
     _show(f"K9 F={F}", out)
     return out
 

@@ -53,6 +53,36 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2,
     return start.elapsed_time(end) / iters
 
 
+def cards_time_ms(fn, cards, iters: int, warmup: int = 2,
+                  queue_ahead: bool = True) -> float:
+    """Mean device time of fn() over iters back-to-back calls whose work
+    spans ``cards``: the window runs from each card's start event to its
+    end event, and the longest card's window over iters is the time. With
+    ``queue_ahead`` every card first spins (about 30 ms) while the host
+    queues every call, so that the devices' work is timed; without, the
+    calls run at the host's pace."""
+    for _ in range(warmup):
+        fn()
+    for c in cards:
+        torch.cuda.synchronize(c)
+    starts, ends = [], []
+    for c in cards:
+        with torch.cuda.device(c):
+            if queue_ahead:
+                torch.cuda._sleep(50_000_000)
+            starts.append(torch.cuda.Event(enable_timing=True))
+            starts[-1].record()
+    for _ in range(iters):
+        fn()
+    for c in cards:
+        with torch.cuda.device(c):
+            ends.append(torch.cuda.Event(enable_timing=True))
+            ends[-1].record()
+    for c in cards:
+        torch.cuda.synchronize(c)
+    return max(a.elapsed_time(b) for a, b in zip(starts, ends)) / iters
+
+
 def times_in_turns(fns: dict, iters: int, queue_ahead: bool = False) -> dict:
     """cuda_time_ms of each named function, read twice in turns (the
     functions in order, then in reverse order), the lesser of its two

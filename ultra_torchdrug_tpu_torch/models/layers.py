@@ -416,10 +416,12 @@ def _sum(cfg: ConvConfig, graph, rel, x, msg, ring):
                               compute_dtype=cfg.compute_dtype,
                               exchange=cfg.ring_exchange)
         if cfg.rspmm_impl == "xla":
+            mesh = current_mesh()
             out = sharded_rspmm(graph.edge_index, graph.edge_type,
                                 graph.edge_weight, rel, x.reshape(-1, B, D),
                                 msg=msg, num_nodes=graph.num_nodes,
-                                n_shards=current_mesh().shape[cfg.edge_axis])
+                                n_shards=mesh.shape[cfg.edge_axis],
+                                devices=mesh.devices)
             return out.reshape(graph.num_nodes, -1)
         if cfg.rspmm_impl == "auto":
             if graph.part_layouts is None:

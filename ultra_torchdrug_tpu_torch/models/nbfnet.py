@@ -129,16 +129,19 @@ def edge_shards(tower: NBFNetConfig) -> int:
 
 def edge_layouts(graph, tower: NBFNetConfig, backward: bool, **ring):
     """``graph`` with the layouts ``tower`` takes under the active edge
-    mesh: the ring's buckets for ``rspmm_impl="ring"`` (per-bucket CSRs
-    for distmult; ``ring`` as ``Graph.prepare_ring`` takes it), the
-    partitioned path's per-shard CSRs for "auto"; none off the mesh or
-    for "xla"."""
+    mesh, each shard's on its device (``Mesh.devices``): the ring's
+    buckets for ``rspmm_impl="ring"`` (per-bucket CSRs for distmult;
+    ``ring`` as ``Graph.prepare_ring`` takes it), the partitioned path's
+    per-shard CSRs for "auto"; none off the mesh or for "xla"."""
     n = edge_shards(tower)
-    if n and tower.rspmm_impl == "ring":
+    if not n:
+        return graph
+    devices = current_mesh().devices
+    if tower.rspmm_impl == "ring":
         return graph.prepare_ring(n, pallas=tower.message_func == "distmult",
-                                  backward=backward, **ring)
-    if n and tower.rspmm_impl == "auto":
-        return graph.prepare_csr_sharded(n, backward)
+                                  backward=backward, devices=devices, **ring)
+    if tower.rspmm_impl == "auto":
+        return graph.prepare_csr_sharded(n, backward, devices=devices)
     return graph
 
 

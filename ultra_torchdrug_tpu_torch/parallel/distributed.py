@@ -8,13 +8,16 @@ mean-all-reduces its gradients; evaluation scores a round-robin shard of
 the eval triples on every rank and gathers the rankings in their original
 order.
 
-Backend rule (``initialize_distributed`` logs the one it takes):
-  * ``nccl`` when every rank has a card of its own: the device is "cuda"
-    with no index and the host has at least as many cards as local ranks;
-    rank r then runs on ``cuda:LOCAL_RANK``;
-  * ``gloo`` when ranks share a card (fewer cards than local ranks, or a
-    device with an index, which every rank then names) or run on the CPU;
-    NCCL refuses two ranks on one card.
+Backend rule (``initialize_distributed`` logs the one it takes). A rank's
+home card is the first card of its data row's edge shards
+(parallel/mesh.py::shard_cards): local rank r of a mesh ``edge`` shards
+wide is at home on ``cuda:(r * edge) mod cuda_count``, so data 2 x edge 2
+on four cards puts rank 1 at home on card 2.
+  * ``nccl`` when every rank's home card is its own: the device is "cuda"
+    with no index and the local ranks' home cards differ;
+  * ``gloo`` when ranks share a home card (fewer cards than rows x
+    shards wrap around, or a device with an index, which every rank then
+    names) or run on the CPU; NCCL refuses two ranks on one card.
 Under gloo, ``all_reduce`` and ``broadcast`` take CUDA tensors; gloo takes
 none for ``all_gather``, so ``gather_rankings`` gathers on the host under
 gloo. This is a fixed rule of the backend, not a fallback.
@@ -31,8 +34,12 @@ import torch
 import torch.distributed as dist
 
 from ..utils.logging import LOGGER_NAME
+from .mesh import shard_cards
 
-_STATE = {"device": None}
+# this rank's home device, and its data row when its shards follow the
+# placement rule on the host's cards (None when the ranks were pinned to a
+# device)
+_STATE = {"device": None, "row": None}
 
 
 def _env_int(name: str, default: int) -> int:
@@ -41,9 +48,9 @@ def _env_int(name: str, default: int) -> int:
 
 
 def backend_rule(device, local_rank: int, local_world_size: int,
-                 cuda_count: Optional[int] = None):
-    """(backend, this rank's device) for ranks on ``device`` (the module
-    docstring's rule)."""
+                 cuda_count: Optional[int] = None, edge: int = 1):
+    """(backend, this rank's home device) for ranks on ``device`` whose
+    data rows are ``edge`` shards wide (the module docstring's rule)."""
     device = torch.device(device)
     if device.type != "cuda":
         return "gloo", torch.device("cpu")
@@ -54,9 +61,10 @@ def backend_rule(device, local_rank: int, local_world_size: int,
     if cuda_count < 1:
         raise RuntimeError("CUDA is not available; pass device='cpu' to run "
                            "the ranks on the CPU")
-    if cuda_count >= local_world_size:
-        return "nccl", torch.device("cuda", local_rank)
-    return "gloo", torch.device("cuda", local_rank % cuda_count)
+    homes = [shard_cards(r, int(edge), cuda_count)[0]
+             for r in range(local_world_size)]
+    backend = "nccl" if len(set(homes)) == local_world_size else "gloo"
+    return backend, torch.device("cuda", homes[local_rank])
 
 
 def initialize_distributed(world_size: Optional[int] = None,
@@ -64,15 +72,17 @@ def initialize_distributed(world_size: Optional[int] = None,
                            init_method: Optional[str] = None,
                            device=None,
                            local_rank: Optional[int] = None,
-                           local_world_size: Optional[int] = None) -> bool:
+                           local_world_size: Optional[int] = None,
+                           edge: int = 1) -> bool:
     """Join the process group. The arguments default to torchrun's
     ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE`` and
     ``MASTER_ADDR``/``MASTER_PORT`` (``init_method`` "env://"); explicit
     values take their place, as a coordinator address does in the JAX
     package (e.g. ``init_method="tcp://localhost:29500"``). With one
     process it is a no-op and returns False. ``device`` is where the ranks
-    run ("cuda" unless the caller names another); ``rank_device`` then
-    gives this rank's."""
+    run ("cuda" unless the caller names another) and ``edge`` the edge
+    shards of a data row (the config's ``parallel.edge``); ``rank_device``
+    then gives this rank's home."""
     world_size = _env_int("WORLD_SIZE", 1) if world_size is None \
         else int(world_size)
     if world_size <= 1:
@@ -82,8 +92,9 @@ def initialize_distributed(world_size: Optional[int] = None,
         local_rank = _env_int("LOCAL_RANK", rank)
     if local_world_size is None:
         local_world_size = _env_int("LOCAL_WORLD_SIZE", world_size)
-    backend, rank_dev = backend_rule(
-        "cuda" if device is None else device, local_rank, local_world_size)
+    requested = torch.device("cuda" if device is None else device)
+    backend, rank_dev = backend_rule(requested, local_rank, local_world_size,
+                                     edge=edge)
     if dist.is_initialized():
         if dist.get_world_size() != world_size:
             raise RuntimeError(
@@ -95,6 +106,8 @@ def initialize_distributed(world_size: Optional[int] = None,
     dist.init_process_group(backend, init_method=init_method or "env://",
                             world_size=world_size, rank=rank)
     _STATE["device"] = rank_dev
+    _STATE["row"] = (local_rank if requested.type == "cuda"
+                     and requested.index is None else None)
     logging.getLogger(LOGGER_NAME).info(
         "process group: rank %d of %d, backend %s, device %s", rank,
         world_size, backend, rank_dev)
@@ -105,7 +118,7 @@ def shutdown() -> None:
     """Leave the process group (a no-op without one)."""
     if dist.is_initialized():
         dist.destroy_process_group()
-    _STATE["device"] = None
+    _STATE["device"] = _STATE["row"] = None
 
 
 def is_distributed() -> bool:
@@ -122,11 +135,20 @@ def process_index() -> int:
 
 
 def rank_device(device=None) -> torch.device:
-    """This rank's device under a process group (``backend_rule``), else
-    ``device`` as the caller named it."""
+    """This rank's home device under a process group (``backend_rule``:
+    the first card of its data row's edge shards), else ``device`` as the
+    caller named it."""
     if is_distributed() and _STATE["device"] is not None:
         return _STATE["device"]
     return torch.device("cuda" if device is None else device)
+
+
+def rank_row() -> Optional[int]:
+    """This rank's data row on the host's cards (its local rank) when the
+    ranks were asked for "cuda" without an index, so that its shards
+    follow the placement rule (parallel/mesh.py::shard_cards); else
+    None."""
+    return _STATE["row"] if is_distributed() else None
 
 
 def all_reduce_mean(flat: torch.Tensor) -> torch.Tensor:

@@ -7,14 +7,18 @@ through ``rdma_rotate``), the TPU's remote-copy boundary exchange: after the
 call, shard s holds what shard s - 1 held, the function of
 ``jax.lax.ppermute(perm=[(i, (i + 1) % n)])``, for any dtype and shape.
 
-The ring keeps the n shards' blocks as one block-stacked tensor
-[n * v_block, ...] on the mesh's one device (parallel/mesh.py), block s
-being shard s's. ``ring_shift`` returns a new tensor whose block (s + 1) mod n
-is a copy of block s: ``ring_shift_blocks`` (K9) on CUDA tensors, counting
-each launch in ``launches``, and ``ring_shift_plain`` on CPU tensors.
-``ring_shift_plain`` is also the ``ppermute`` exchange on both devices.
-``ring_shift_blocks`` takes per-shard block lists, so that the same kernel
-serves shards on separate cards once the mesh places them there.
+The ring (parallel/ring_rspmm.py) keeps one block a shard, block s on
+shard s's device (parallel/mesh.py). ``shift_blocks`` returns the shifted
+list: K9 on CUDA blocks, each source device pushing its blocks into the
+right neighbours' new blocks with one launch, as the TPU kernel pushes a
+shard's block into its right neighbour's buffer; ``shift_blocks_plain``
+(PyTorch's copies between devices) is its plain version and the
+``ppermute`` exchange. Across cards a launch stores to peer memory: peer
+access is checked and enabled once a pair of cards, outside the launch
+path (``enable_peer_access``), and the launch is ordered against both
+cards' current streams with events (``_launch_ordered``). With every
+block on one device one launch shifts them all. Each launch adds one to
+``launches``, and one to ``peer_launches`` when it stores to another card.
 """
 
 from __future__ import annotations
@@ -27,92 +31,134 @@ from typing import Sequence
 import torch
 
 from ..ops.cuda_build import load_library
+from .placement import indexed
 
 MAX_SHARDS = 64  # csrc/ring_shift.cu's kMaxShards
 
-# launches of K9 since import (or since the caller last reset it)
+# launches of K9 since import (or since the caller last reset them), and
+# those of them that stored to another card
 launches = 0
+peer_launches = 0
 
 
-def _blocks(x: torch.Tensor, n_shards: int) -> list:
-    if x.shape[0] % n_shards:
-        raise ValueError(f"{x.shape[0]} rows do not split into {n_shards} "
-                         "equal blocks")
-    return list(x.chunk(n_shards, dim=0)) if x.shape[0] else [x] * n_shards
+def shift_blocks_plain(blocks: Sequence[torch.Tensor],
+                       devices: Sequence) -> list:
+    """The plain version over per-shard blocks: entry s of the result is
+    block s - 1 on ``devices[s]`` (the block itself where it already lies
+    there; no block is written in place)."""
+    n = len(blocks)
+    return [blocks[(s - 1) % n].to(devices[s]) for s in range(n)]
 
 
-def ring_shift_plain(x: torch.Tensor, n_shards: int) -> torch.Tensor:
-    """The plain version: a new tensor whose block s is a copy of block
-    s - 1 of the block-stacked x [n_shards * v_block, ...]."""
-    if n_shards == 1:
-        return x.clone()
-    blocks = _blocks(x, n_shards)
-    return torch.cat([blocks[(s - 1) % n_shards] for s in range(n_shards)])
-
-
-def ring_shift(x: torch.Tensor, n_shards: int) -> torch.Tensor:
-    """K9 on a CUDA tensor, the plain version on a CPU tensor: x
-    [n_shards * v_block, ...] block-stacked, returns a new tensor whose
-    block (s + 1) mod n is block s."""
-    if x.device.type == "cpu":
-        return ring_shift_plain(x, n_shards)
-    if x.device.type != "cuda":
-        raise ValueError(f"K9 runs on CUDA tensors, got {x.device}")
-    _check_shards(n_shards, n_shards)
-    if x.shape[0] % n_shards:
-        raise ValueError(f"{x.shape[0]} rows do not split into {n_shards} "
-                         "equal blocks")
-    # the blocks of one contiguous tensor share its device, dtype and block
-    # shape and are contiguous; the output is a new allocation, so no block
-    # of it overlaps a source block
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    nbytes = x.numel() * x.element_size() // n_shards
-    src, dst = x.data_ptr(), out.data_ptr()
-    _launch(x.device, [src + s * nbytes for s in range(n_shards)],
-            [dst + s * nbytes for s in range(n_shards)], nbytes)
+def shift_blocks(blocks: Sequence[torch.Tensor], devices: Sequence) -> list:
+    """K9 over per-shard blocks, block s on ``devices[s]``: returns new
+    blocks whose entry (s + 1) mod n is a copy of block s on ``devices[(s
+    + 1) % n]``, one allocation a destination device and one launch a
+    source device (one launch in all when every block lies on one device).
+    The blocks share one dtype and shape and are contiguous. CPU blocks
+    take the plain version."""
+    first = blocks[0]
+    if first.device.type == "cpu":
+        return shift_blocks_plain(blocks, devices)
+    n = len(blocks)
+    devices = [indexed(d) for d in devices]
+    _check_blocks(blocks, devices)
+    out = [None] * n
+    for d in dict.fromkeys(devices):
+        shards = [t for t in range(n) if devices[t] == d]
+        buf = torch.empty((len(shards),) + tuple(first.shape),
+                          dtype=first.dtype, device=d)
+        for i, t in enumerate(shards):
+            out[t] = buf[i]
+    nbytes = first.numel() * first.element_size()
+    plan = []
+    for a in dict.fromkeys(devices):
+        pairs = [(s, (s + 1) % n) for s in range(n) if devices[s] == a]
+        dst = [0] * len(pairs)
+        for i, (_, t) in enumerate(pairs):
+            # K9 sends source block i to destination block (i + 1) mod m
+            dst[(i + 1) % len(pairs)] = out[t].data_ptr()
+        peers = list(dict.fromkeys(devices[t] for _, t in pairs
+                                   if devices[t] != a))
+        for peer in peers:
+            enable_peer_access(a, peer)
+        plan.append((a, peers, [blocks[s].data_ptr() for s, _ in pairs], dst,
+                     nbytes))
+    _launch_ordered(plan)
     return out
 
 
-def ring_shift_blocks(src: Sequence[torch.Tensor],
-                      dst: Sequence[torch.Tensor]) -> None:
-    """K9: copy src[s] into dst[(s + 1) % n] for every shard s, on CUDA
-    tensors of one dtype and one size, each contiguous; no destination may
-    overlap a source. All blocks must lie on one device (shards on several
-    cards are ROADMAP Queue 1 item 9, several cards)."""
-    n = len(src)
-    _check_shards(n, len(dst))
-    first = src[0]
-    device = first.device
-    if device.type != "cuda":
-        raise ValueError(f"K9 runs on CUDA tensors, got {device}")
-    for name, blocks in (("source", src), ("destination", dst)):
-        for t in blocks:
-            if t.device != device:
-                raise NotImplementedError(
-                    f"K9 {name} block on {t.device}, expected {device}: "
-                    "shards on several cards are not ported yet (ROADMAP "
-                    "Queue 1 item 9, several cards)")
-            if t.dtype != first.dtype or t.shape != first.shape:
-                raise ValueError(f"K9 blocks must share one dtype and shape: "
-                                 f"{t.dtype} {tuple(t.shape)} vs "
-                                 f"{first.dtype} {tuple(first.shape)}")
-            if not t.is_contiguous():
-                raise ValueError(f"K9 {name} blocks must be contiguous")
-    nbytes = first.numel() * first.element_size()
-    starts = [t.data_ptr() for t in src]
-    targets = [t.data_ptr() for t in dst]
-    if nbytes and any(s < d + nbytes and d < s + nbytes
-                      for d in targets for s in starts):
-        raise ValueError("K9 destination blocks must not overlap the "
-                         "source blocks")
-    _launch(device, starts, targets, nbytes)
+def _check_blocks(blocks: Sequence[torch.Tensor], devices: Sequence):
+    n, first = len(blocks), blocks[0]
+    if len(devices) != n or not 1 <= n <= MAX_SHARDS:
+        raise ValueError(f"K9 takes 1 to {MAX_SHARDS} blocks and a device "
+                         f"each, got {n} blocks and {len(devices)} devices")
+    for t, d in zip(blocks, devices):
+        if d.type != "cuda" or t.device != d:
+            raise ValueError(f"K9 runs on CUDA blocks, each on its shard's "
+                             f"device: a block on {t.device} for {d}")
+        if t.dtype != first.dtype or t.shape != first.shape:
+            raise ValueError(f"K9 blocks must share one dtype and shape: "
+                             f"{t.dtype} {tuple(t.shape)} vs "
+                             f"{first.dtype} {tuple(first.shape)}")
+        if not t.is_contiguous():
+            raise ValueError("K9 blocks must be contiguous")
 
 
-def _check_shards(n_src: int, n_dst: int):
-    if n_src != n_dst or not 1 <= n_src <= MAX_SHARDS:
-        raise ValueError(f"K9 takes 1 to {MAX_SHARDS} source and as many "
-                         f"destination blocks, got {n_src} and {n_dst}")
+# (card, peer) pairs whose peer access this process has enabled
+_PEERS = set()
+
+
+def enable_peer_access(device, peer) -> None:
+    """Let ``device``'s kernels store to ``peer``'s memory (once a pair,
+    outside the launch path). Raises where the host offers no peer access
+    between the two cards: K9 then cannot push between them, and the
+    ``ppermute`` exchange is the one that runs there."""
+    device, peer = torch.device(device), torch.device(peer)
+    key = (device.index, peer.index)
+    if key in _PEERS:
+        return
+    if not torch.cuda.can_device_access_peer(device, peer):
+        raise RuntimeError(
+            f"K9 between cards needs peer access from {device} to {peer}, "
+            "which this host does not offer (ring_exchange: ppermute copies "
+            "through PyTorch instead)")
+    fn = _enable_peer()
+    with torch.cuda.device(device):
+        err = fn(peer.index)
+    if err != 0:
+        raise RuntimeError(f"enabling peer access from {device} to {peer} "
+                           f"failed with CUDA error {err}")
+    _PEERS.add(key)
+
+
+def _launch_ordered(launches: list):
+    """``_launch`` each of ``launches`` ((device, peers, source addresses,
+    destination addresses, block bytes), one a source card) on its card's current stream, ordered against the current
+    streams of the peers that own its destination blocks: first every
+    sender waits for the work that its receivers queued before (the
+    allocator may have handed a destination block out of memory that they
+    were still reading), then every card launches, then every receiver
+    waits for its senders' stores before anything it queues next, its
+    frees included, so a destination block is not reused while a store to
+    it is in flight. A receiver's wait comes after its own launch, so the
+    cards' launches of one shift do not wait for one another."""
+    for device, peers, *_ in launches:
+        for peer in peers:
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(peer))
+            torch.cuda.current_stream(device).wait_event(ready)
+    for device, peers, src, dst, nbytes in launches:
+        _launch(device, src, dst, nbytes)
+        if peers:
+            global peer_launches
+            peer_launches += 1
+    for device, peers, *_ in launches:
+        if peers:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(device))
+            for peer in peers:
+                torch.cuda.current_stream(peer).wait_event(done)
 
 
 def _launch(device: torch.device, src: list, dst: list, nbytes: int):
@@ -135,6 +181,14 @@ def _launch(device: torch.device, src: list, dst: list, nbytes: int):
                            f"{err}")
     global launches
     launches += 1
+
+
+@functools.lru_cache(maxsize=None)
+def _enable_peer():
+    fn = load_library("ring_shift").ring_shift_enable_peer
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.lru_cache(maxsize=None)

@@ -16,14 +16,24 @@ source lies in it) and rotates the upstream gradient's blocks with the
 mirrored bucket family; each step's d_relation partial uses the shard's own x
 block, and the partials are summed over shards (the JAX package's psum).
 
-In this port every shard lives on the mesh's one device: the n blocks are
-row blocks of one [n * v_block, F] tensor, and each shard's work is one
-call per bucket. With per-bucket CSRs (``build_ring_rspmm_inputs(pallas=
-True)``) and distmult messages each step runs kernel K1 per bucket forward
-and K2 per bucket backward (K1h and K2h with ``compute_dtype="bfloat16"``),
-skipping buckets without edges, as the JAX package runs its Pallas kernels
-per bucket. Otherwise (transe, or no CSRs) a step gathers and scatters the
-bucket arrays in plain PyTorch, as the JAX package runs XLA segment ops.
+Each shard works on its own device (parallel/mesh.py; parallel/
+placement.py): the op is one autograd node whose operands and results
+live on the home device (shard 0's). At entry x (or the packed planes) is
+cut into its n blocks, block s sent to shard s's device; the held blocks
+and the owner's output block stay there for all n steps and the exchange
+moves the held blocks device to device; at exit the output blocks come
+home, and the d_relation partials are summed there. The edge weight and
+the relation operand are copied to each shard device once an op. With
+per-bucket CSRs (``build_ring_rspmm_inputs(pallas=True)``) and distmult
+messages each step runs kernel K1 per bucket forward and K2 per bucket
+backward (K1h and K2h with ``compute_dtype="bfloat16"``) on the shard's
+device, skipping buckets without edges, as the JAX package runs its
+Pallas kernels per bucket. Otherwise (transe, or no CSRs) a step gathers
+and scatters the bucket's arrays in plain PyTorch, as the JAX package runs
+XLA segment ops. The layouts keep each shard's buckets and CSRs on its
+device (``RingRspmmInputs.to_mesh``; built on the CPU). With every shard
+on one device the blocks are views of one tensor, one K9 launch shifts
+all of them, and the schedule is the single-device one.
 
 The other schedules are the JAX package's XLA segment ops, in plain
 PyTorch here (``scatter_reduce``, ``index_add_``) over the same buckets,
@@ -45,9 +55,8 @@ each an autograd node over block-domain operands with the same exchanges:
 
 The planes that rotate together are packed side by side into one
 [n * v_block, k * F] tensor once, so that each step shifts them in one
-exchange (one K9 launch with ``rdma``). Not ported yet (ROADMAP Queue 1
-item 9): shards on several cards. Reference analogue: none (the reference
-replicates the graph on every GPU).
+exchange (one K9 launch a source device with ``rdma``). Reference
+analogue: none (the reference replicates the graph on every GPU).
 """
 
 from __future__ import annotations
@@ -63,7 +72,18 @@ from ..ops.rspmm import COMPUTE_DTYPES, broadcast_rel_flat
 from ..ops.rspmm_bwd_cuda import rspmm_bwd_bf16_cuda, rspmm_bwd_cuda
 from ..ops.rspmm_cuda import rspmm_fwd_bf16_cuda, rspmm_fwd_cuda
 from .balance import degree_balanced_permutation, resolve_balance
-from .rdma import ring_shift, ring_shift_plain
+from .placement import (
+    add_partial,
+    blocks_on,
+    collect,
+    home_buffer,
+    indexed,
+    replicate,
+    shard_devices,
+    sum_home,
+    zero_partial,
+)
+from .rdma import shift_blocks, shift_blocks_plain
 
 EXCHANGES = ("ppermute", "rdma")
 _MODES = {"mul": "mul_rel", "add": "add_rel"}
@@ -75,20 +95,29 @@ def _to(t, device):
 
 @dataclasses.dataclass(frozen=True)
 class RingBuckets:
-    """One direction's edge buckets, int64 arrays [n, n, Emax] indexed
-    [owner block, held block, edge]: ``gather_local`` indexes the held
-    block, ``out_local`` the owner's block, ``edge_id`` is global (the
-    weight's index); ``valid`` (float32) is 0 on padding."""
+    """One direction's edge buckets, each field a tuple of the n owner
+    blocks' int64 rows [n, Emax] indexed [held block, edge], row s on
+    shard s's device: ``gather_local`` indexes the held block,
+    ``out_local`` the owner's block, ``edge_id`` is global (the weight's
+    index); ``valid`` (float32) is 0 on padding."""
 
-    gather_local: torch.Tensor
-    out_local: torch.Tensor
-    etype: torch.Tensor
-    edge_id: torch.Tensor
-    valid: torch.Tensor
+    gather_local: tuple
+    out_local: tuple
+    etype: tuple
+    edge_id: tuple
+    valid: tuple
 
-    def to(self, device) -> "RingBuckets":
-        return RingBuckets(**{f.name: getattr(self, f.name).to(device)
+    def to_mesh(self, devices) -> "RingBuckets":
+        """Owner s's row on ``devices[s]``."""
+        return RingBuckets(**{f.name: tuple(getattr(self, f.name)[s].to(d)
+                                            for s, d in enumerate(devices))
                               for f in dataclasses.fields(self)})
+
+    def bucket(self, s: int, b: int) -> tuple:
+        """Bucket (owner s, held b): (gather_local, out_local, etype,
+        edge_id, valid), each [Emax]."""
+        return tuple(getattr(self, f.name)[s][b]
+                     for f in dataclasses.fields(self))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,8 +129,12 @@ class RingRspmmInputs:
       csr: None, or csr[i][j] — the ``Csr`` (data/graph.py) of the edges
         whose destination lies in block i and source in block j, over
         block-local rows and gather indices, global eid, with the backward
-        layouts when built with ``backward``. The forward's bucket (s, b) is
-        csr[s][b], the backward's bucket (s, b) csr[b][s].
+        layouts when built with ``backward``: the forward's bucket (s, b),
+        on shard s's device
+      csr_rev: None, or csr_rev[s][b] — the backward's bucket (s, b), the
+        forward's pair csr[b][s], on shard s's device: an off-diagonal CSR
+        is kept on both of its shards' devices (one object where they
+        share a device)
       edge_counts: int [n, n], the edges of csr[i][j]
       to_old: int64 [n * v_block] new row -> original node (empty slots ->
         the zero pad row ``num_nodes``), to_new: int64 [V] original -> new;
@@ -109,6 +142,9 @@ class RingRspmmInputs:
       permuted_io: the caller keeps node states in the padded block domain
         ([n * v_block] rows, relabelled when balanced) for the whole
         propagation; the op then takes and returns block-domain rows
+      devices: each shard's device (``to_mesh``): the buckets' row s and
+        csr[s], csr_rev[s] on devices[s]; to_old and to_new on the home
+        (devices[0])
     """
 
     fwd: RingBuckets
@@ -121,6 +157,8 @@ class RingRspmmInputs:
     n_shards: int = 1
     num_nodes: int = 0
     permuted_io: bool = False
+    csr_rev: Optional[tuple] = None
+    devices: tuple = ()
 
     @property
     def v_pad(self) -> int:
@@ -132,11 +170,37 @@ class RingRspmmInputs:
         return int(np.count_nonzero(self.edge_counts))
 
     def to(self, device) -> "RingRspmmInputs":
-        csr = None if self.csr is None else tuple(
-            tuple(c.to(device) for c in row) for row in self.csr)
+        """Layouts whose shards share one device go to ``device`` whole;
+        layouts spread over several devices keep their shards' devices and
+        move only the home's index maps."""
+        if len(set(self.devices)) == 1:
+            return self.to_mesh((device,) * self.n_shards)
+        return dataclasses.replace(self, to_old=_to(self.to_old, device),
+                                   to_new=_to(self.to_new, device))
+
+    def to_mesh(self, devices) -> "RingRspmmInputs":
+        """Each shard's buckets and CSRs on its device ``devices[s]``, the
+        index maps on the home (``devices[0]``). Nothing is copied where a
+        layout lies on its device already."""
+        devices = tuple(indexed(d) for d in devices)
+        if len(devices) != self.n_shards:
+            raise ValueError(f"{self.n_shards} shards, {len(devices)} "
+                             "devices")
+        csr = csr_rev = None
+        if self.csr is not None:
+            n = self.n_shards
+            csr = tuple(tuple(self.csr[s][b].to(d) for b in range(n))
+                        for s, d in enumerate(devices))
+            # where both shards of a pair share a device, one CSR serves
+            csr_rev = tuple(tuple(csr[b][s] if devices[b] == d
+                                  else self.csr_rev[s][b].to(d)
+                                  for b in range(n))
+                            for s, d in enumerate(devices))
         return dataclasses.replace(
-            self, fwd=self.fwd.to(device), rev=self.rev.to(device), csr=csr,
-            to_old=_to(self.to_old, device), to_new=_to(self.to_new, device))
+            self, fwd=self.fwd.to_mesh(devices),
+            rev=self.rev.to_mesh(devices), csr=csr, csr_rev=csr_rev,
+            to_old=_to(self.to_old, devices[0]),
+            to_new=_to(self.to_new, devices[0]), devices=devices)
 
 
 def build_ring_rspmm_inputs(edge_index, edge_type, num_nodes: int,
@@ -144,7 +208,7 @@ def build_ring_rspmm_inputs(edge_index, edge_type, num_nodes: int,
                             pallas: bool = False, balance=False,
                             permuted_io: bool = False,
                             backward: bool = True) -> RingRspmmInputs:
-    """Host-side bucket build (numpy; CPU tensors out).
+    """Host-side bucket build (numpy; every shard's layouts on the CPU).
 
     Buckets are padded to the largest (owner, held) pair, rounded up to a
     multiple of 8, as in the JAX package. ``balance`` (True, False or
@@ -189,17 +253,19 @@ def build_ring_rspmm_inputs(edge_index, edge_type, num_nodes: int,
                 arrays["etype"][s, b, :m] = et[ids]
                 arrays["edge_id"][s, b, :m] = ids
                 valid[s, b, :m] = 1.0
-        return RingBuckets(
-            **{k: torch.from_numpy(a) for k, a in arrays.items()},
-            valid=torch.from_numpy(valid))
+        arrays["valid"] = valid
+        return RingBuckets(**{k: tuple(torch.from_numpy(a[s])
+                                       for s in range(n))
+                              for k, a in arrays.items()})
 
-    csr = None
+    csr = csr_rev = None
     if pallas:
         csr = tuple(
             tuple(build_csr(src[ids] - j * vb, dst[ids] - i * vb, et[ids], vb,
                             num_relations, backward, edge_ids=ids)
                   for j, ids in enumerate(row))
             for i, row in enumerate(pair))
+        csr_rev = tuple(tuple(csr[b][s] for b in range(n)) for s in range(n))
 
     def long(a):
         return None if a is None else torch.from_numpy(a.astype(np.int64))
@@ -208,107 +274,167 @@ def build_ring_rspmm_inputs(edge_index, edge_type, num_nodes: int,
         fwd=family(owner_dst=True), rev=family(owner_dst=False), csr=csr,
         edge_counts=counts, to_old=long(to_old), to_new=long(to_new),
         v_block=vb, n_shards=n, num_nodes=int(num_nodes),
-        permuted_io=permuted_io)
+        permuted_io=permuted_io, csr_rev=csr_rev,
+        devices=(torch.device("cpu"),) * n)
 
 
-def _rotate(exchange: str, n: int):
-    """The boundary transport of one ring step, shard s -> s + 1 (mod n):
-    ``ppermute`` the plain shift, ``rdma`` kernel K9 (its plain version on
-    CPU tensors)."""
+def _exchange(exchange: str):
+    """The boundary transport of one ring step, shard s -> s + 1 (mod n),
+    over per-shard blocks: ``ppermute`` the plain shift (PyTorch's copies
+    between devices), ``rdma`` kernel K9 (its plain version on CPU
+    tensors)."""
     if exchange == "rdma":
-        return lambda t: ring_shift(t, n)
+        return shift_blocks
     if exchange == "ppermute":
-        return lambda t: ring_shift_plain(t, n)
+        return shift_blocks_plain
     raise ValueError(f"exchange must be one of {EXCHANGES}, got {exchange!r}")
 
 
-def _step_buckets(buckets: RingBuckets, k: int, n: int, vb: int):
-    """Step k's bucket of every shard s (held block (s - k) mod n), as flat
-    rows of the block-stacked [n * v_block] domain: (gather rows, out rows,
-    etype, edge_id, valid), each [n * Emax]."""
-    shards = torch.arange(n, device=buckets.valid.device)
-    held = (shards - k) % n
-    offset = (shards * vb)[:, None]
-    return ((buckets.gather_local[shards, held] + offset).reshape(-1),
-            (buckets.out_local[shards, held] + offset).reshape(-1),
-            buckets.etype[shards, held].reshape(-1),
-            buckets.edge_id[shards, held].reshape(-1),
-            buckets.valid[shards, held].reshape(-1))
+def _shards(inputs: RingRspmmInputs, home: torch.device) -> tuple:
+    return shard_devices(inputs.devices, home)
+
+
+def _ring_pass(inputs, planes, exchange, step):
+    """Run ``step(s, b, held)`` for shard s at each of the n ring steps:
+    ``held`` the block b = (s - k) mod n of the packed ``planes`` (the
+    caller's [n * v_block, ...] operands side by side, on the home) that
+    shard s holds at step k, on its device; the blocks shift between steps
+    by one exchange."""
+    n, vb = inputs.n_shards, inputs.v_block
+    packed = planes[0] if len(planes) == 1 else torch.cat(planes, dim=1)
+    devs = _shards(inputs, packed.device)
+    shift = _exchange(exchange)
+    held = blocks_on(packed, vb, devs)
+    for k in range(n):
+        for s in range(n):
+            step(s, (s - k) % n, held[s])
+        if k + 1 < n:
+            # consumed only at the next step
+            held = shift(held, devs)
+
+
+def _ring_messages_pass(inputs, edge_weight, relation, x, msg, exchange,
+                        step):
+    """The forward ring: ``step(s, o_local, m, w, valid)`` for each step's
+    messages m (unweighted) of shard s's bucket, on its device, x's blocks
+    rotating."""
+    devs = _shards(inputs, x.device)
+    w, rel = replicate(edge_weight, devs), replicate(relation, devs)
+
+    def messages(s, b, held):
+        d = devs[s]
+        g_loc, o_loc, etype, eid, valid = inputs.fwd.bucket(s, b)
+        step(s, o_loc, _messages(rel[d], etype, held[g_loc], msg),
+             (w[d][eid] * valid)[:, None], valid)
+
+    _ring_pass(inputs, (x,), exchange, messages)
 
 
 def _ring_forward(inputs: RingRspmmInputs, edge_weight, relation, x, msg,
                   exchange, bf16):
-    n, vb = inputs.n_shards, inputs.v_block
-    rotate = _rotate(exchange, n)
-    kernels = inputs.csr is not None and msg == "mul"
-    out = x.new_zeros((inputs.v_pad, x.shape[1]), dtype=torch.float32)
-    held = x
-    for k in range(n):
-        if kernels:
-            for s in range(n):
-                b = (s - k) % n
-                if not inputs.edge_counts[s, b]:
-                    continue  # no edges: the bucket adds nothing
-                c = inputs.csr[s][b]
-                rows = slice(s * vb, (s + 1) * vb)
-                args = (c.rowptr, c.src, c.etype, c.eid, edge_weight,
-                        relation, held[rows], "mul_rel")
-                fwd = rspmm_fwd_bf16_cuda if bf16 else rspmm_fwd_cuda
-                out[rows] += fwd(*args, segments=c.segments)
-        else:
-            g_rows, o_rows, etype, eid, valid = _step_buckets(inputs.fwd, k,
-                                                              n, vb)
-            w = edge_weight[eid] * valid
-            rel_e, x_e = relation[etype], held[g_rows]
-            m = rel_e * x_e if msg == "mul" else rel_e + x_e
-            out.index_add_(0, o_rows, m * w[:, None])
-        if k + 1 < n:
-            # consumed only at the next step
-            held = rotate(held)
-    return out
+    """The sums: K1 (K1h) per bucket with edges with per-bucket CSRs and
+    distmult messages, else the plain gathers and scatters."""
+    devs = _shards(inputs, x.device)
+    out, blocks = home_buffer(x, inputs.v_block, devs, dtype=torch.float32)
+    if inputs.csr is not None and msg == "mul":
+        w, rel = replicate(edge_weight, devs), replicate(relation, devs)
+        fwd = rspmm_fwd_bf16_cuda if bf16 else rspmm_fwd_cuda
+
+        def step(s, b, held):
+            if inputs.edge_counts[s, b]:  # a bucket without edges adds 0
+                c, d = inputs.csr[s][b], devs[s]
+                blocks[s] += fwd(c.rowptr, c.src, c.etype, c.eid, w[d],
+                                 rel[d], held, "mul_rel", segments=c.segments)
+
+        _ring_pass(inputs, (x,), exchange, step)
+    else:
+        _ring_messages_pass(
+            inputs, edge_weight, relation, x, msg, exchange,
+            lambda s, o_loc, m, w, valid: blocks[s].index_add_(0, o_loc,
+                                                                m * w))
+    return collect(out, blocks)
+
+
+class _BackwardShards:
+    """A transposed ring's per-shard operands and results: the edge
+    weight and relation on every shard device, x's blocks, dx's blocks
+    (views of the home's dx where a shard is at home) and the
+    d_relation partials a device."""
+
+    def __init__(self, inputs, edge_weight, relation, x, need_dx, need_dr):
+        vb = inputs.v_block
+        self.devs = _shards(inputs, x.device)
+        self.w = replicate(edge_weight, self.devs)
+        self.rel = replicate(relation, self.devs)
+        self.x = blocks_on(x, vb, self.devs)
+        self.dx, self.dx_blocks = (home_buffer(x, vb, self.devs) if need_dx
+                                   else (None, None))
+        self.dr_parts = {}
+        self.relation, self.need_dx, self.need_dr = relation, need_dx, need_dr
+
+    def operands(self, s, etype, eid, valid, o_loc):
+        """(w [k, 1], rel_e, x_e) of shard s's bucket edges."""
+        d = self.devs[s]
+        return ((self.w[d][eid] * valid)[:, None], self.rel[d][etype],
+                self.x[s][o_loc])
+
+    def add(self, s, o_loc, etype, dx_e, dr_e):
+        """Scatter shard s's edge terms into its dx block and its device's
+        d_relation partial."""
+        if self.need_dx:
+            self.dx_blocks[s].index_add_(0, o_loc, dx_e)
+        if self.need_dr:
+            zero_partial(self.dr_parts,
+                         self.rel[self.devs[s]]).index_add_(0, etype, dr_e)
+
+    def results(self):
+        """(dx, dr) on the home device."""
+        home = self.devs[0]
+        dx = collect(self.dx, self.dx_blocks) if self.need_dx else None
+        dr = None
+        if self.need_dr:
+            dr = sum_home(self.dr_parts, home)
+            if dr is None:  # no bucket has an edge
+                dr = torch.zeros_like(self.relation)
+        return dx, dr
 
 
 def _ring_backward(inputs: RingRspmmInputs, edge_weight, relation, x, g, msg,
                    exchange, bf16, need_dx, need_dr):
-    n, vb = inputs.n_shards, inputs.v_block
-    rotate = _rotate(exchange, n)
+    """The sums' transposed ring: K2 (K2h) per bucket with edges with
+    per-bucket CSRs and distmult messages, else the plain gathers and
+    scatters. Returns (dx, dr)."""
+    sh = _BackwardShards(inputs, edge_weight, relation, x, need_dx, need_dr)
     kernels = inputs.csr is not None and msg == "mul"
-    dx = g.new_zeros((inputs.v_pad, g.shape[1])) if need_dx else None
-    dr = relation.new_zeros(relation.shape) if need_dr else None
-    held = g
-    for k in range(n):
+
+    def step(s, b, held):
+        d = sh.devs[s]
         if kernels:
-            for s in range(n):
-                b = (s - k) % n
-                # the backward's bucket (s, b): source block s, destination
-                # block b, i.e. the forward's pair csr[b][s]
-                if not inputs.edge_counts[b, s]:
-                    continue
-                rows = slice(s * vb, (s + 1) * vb)
-                args = (inputs.csr[b][s], edge_weight, relation, x[rows],
-                        held[rows], need_dx, need_dr)
-                dx_p, dr_p = (rspmm_bwd_bf16_cuda(*args) if bf16
-                              else rspmm_bwd_cuda(*args, mode="mul_rel"))
-                if need_dx:
-                    dx[rows] += dx_p
-                if need_dr:
-                    dr += dr_p
-        else:
-            g_rows, o_rows, etype, eid, valid = _step_buckets(inputs.rev, k,
-                                                              n, vb)
-            gw = held[g_rows] * (edge_weight[eid] * valid)[:, None]
-            if msg == "mul":
-                dx_e = relation[etype] * gw if need_dx else None
-                dr_e = x[o_rows] * gw if need_dr else None
-            else:  # transe: the message's derivative is 1 in x and in rel
-                dx_e = dr_e = gw
+            # the backward's bucket (s, b): source block s, destination
+            # block b, i.e. the forward's pair csr[b][s]
+            if not inputs.edge_counts[b, s]:
+                return
+            args = (inputs.csr_rev[s][b], sh.w[d], sh.rel[d], sh.x[s], held,
+                    need_dx, need_dr)
+            dx_p, dr_p = (rspmm_bwd_bf16_cuda(*args) if bf16
+                          else rspmm_bwd_cuda(*args, mode="mul_rel"))
             if need_dx:
-                dx.index_add_(0, o_rows, dx_e)
+                sh.dx_blocks[s] += dx_p
             if need_dr:
-                dr.index_add_(0, etype, dr_e)
-        if k + 1 < n:
-            held = rotate(held)
-    return dx, dr
+                add_partial(sh.dr_parts, d, dr_p)
+            return
+        g_loc, o_loc, etype, eid, valid = inputs.rev.bucket(s, b)
+        if msg == "mul":
+            w, rel_e, x_e = sh.operands(s, etype, eid, valid, o_loc)
+            gw = held[g_loc] * w
+            sh.add(s, o_loc, etype, rel_e * gw if need_dx else None,
+                   x_e * gw if need_dr else None)
+        else:  # transe: the message's derivative is 1 in x and in rel
+            gw = held[g_loc] * (sh.w[d][eid] * valid)[:, None]
+            sh.add(s, o_loc, etype, gw, gw)
+
+    _ring_pass(inputs, (g,), exchange, step)
+    return sh.results()
 
 
 class _RingRspmm(torch.autograd.Function):
@@ -358,63 +484,31 @@ def _empty_to_zero(out, agg):
     return out.masked_fill_(empty, 0.0)
 
 
-def _ring_pass(inputs, planes, exchange, step):
-    """Run ``step(g_rows, o_rows, etype, eid, valid, held)`` for the n
-    steps of the transposed ring, ``held`` the packed ``planes`` that
-    shard s holds at step k (block (s - k) mod n), shifted between steps
-    by one exchange."""
-    n, vb = inputs.n_shards, inputs.v_block
-    rotate = _rotate(exchange, n)
-    held = planes[0] if len(planes) == 1 else torch.cat(planes, dim=1)
-    for k in range(n):
-        step(*_step_buckets(inputs.rev, k, n, vb), held)
-        if k + 1 < n:
-            held = rotate(held)
-
-
-def _ring_messages_pass(inputs, edge_weight, relation, x, msg, exchange,
-                        step):
-    """The forward ring: ``step(o_rows, m, w, valid)`` for each step's
-    messages m (unweighted) of every shard's bucket, x rotating."""
-    n, vb = inputs.n_shards, inputs.v_block
-    rotate = _rotate(exchange, n)
-    held = x
-    for k in range(n):
-        g_rows, o_rows, etype, eid, valid = _step_buckets(inputs.fwd, k, n,
-                                                          vb)
-        m = _messages(relation, etype, held[g_rows], msg)
-        step(o_rows, m, (edge_weight[eid] * valid)[:, None], valid)
-        if k + 1 < n:
-            held = rotate(held)
-
-
 def _gated_backward(inputs, edge_weight, relation, x, planes, msg, exchange,
                     need_dx, need_dr):
     """The extrema's transposed ring: planes (g, out) per extremum, each
     edge's coefficient the sum of w·g over the extrema that its recomputed
     weighted message equals. Returns (dx, dr)."""
     F = x.shape[1]
-    dx = x.new_zeros(x.shape) if need_dx else None
-    dr = relation.new_zeros(relation.shape) if need_dr else None
+    sh = _BackwardShards(inputs, edge_weight, relation, x, need_dx, need_dr)
 
-    def step(g_rows, o_rows, etype, eid, valid, held):
-        w = (edge_weight[eid] * valid)[:, None]
-        rel_e, x_e = relation[etype], x[o_rows]
+    def step(s, b, held):
+        g_loc, o_loc, etype, eid, valid = inputs.rev.bucket(s, b)
+        w, rel_e, x_e = sh.operands(s, etype, eid, valid, o_loc)
         mw = (rel_e * x_e if msg == "mul" else rel_e + x_e) * w
-        rows = held[g_rows]
+        rows = held[g_loc]
         c = None
         for i in range(0, len(planes), 2):
             g_e = rows[:, i * F:(i + 1) * F]
             gate = (mw == rows[:, (i + 1) * F:(i + 2) * F]).to(g_e.dtype)
             c = g_e * gate if c is None else c + g_e * gate
         c = c * w
-        if need_dx:
-            dx.index_add_(0, o_rows, rel_e * c if msg == "mul" else c)
-        if need_dr:
-            dr.index_add_(0, etype, x_e * c if msg == "mul" else c)
+        sh.add(s, o_loc, etype,
+               (rel_e * c if msg == "mul" else c) if need_dx else None,
+               (x_e * c if msg == "mul" else c) if need_dr else None)
 
     _ring_pass(inputs, planes, exchange, step)
-    return dx, dr
+    return sh.results()
 
 
 class _RingExtremum(torch.autograd.Function):
@@ -424,13 +518,14 @@ class _RingExtremum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, inputs, edge_weight, relation, x, msg, agg, exchange):
-        out = x.new_full((inputs.v_pad, x.shape[1]),
-                         -_BIG if agg == "max" else _BIG)
+        devs = _shards(inputs, x.device)
+        out, blocks = home_buffer(x, inputs.v_block, devs,
+                                  -_BIG if agg == "max" else _BIG)
         _ring_messages_pass(
             inputs, edge_weight, relation, x, msg, exchange,
-            lambda o_rows, m, w, valid: _fold_extremum(out, o_rows, m * w,
-                                                       valid, agg))
-        out = _empty_to_zero(out, agg)
+            lambda s, o_loc, m, w, valid: _fold_extremum(
+                blocks[s], o_loc, m * w, valid, agg))
+        out = _empty_to_zero(collect(out, blocks), agg)
         ctx.inputs, ctx.msg, ctx.exchange = inputs, msg, exchange
         ctx.save_for_backward(edge_weight, relation, x, out)
         return out
@@ -451,17 +546,19 @@ class _RingMaxMin(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, inputs, edge_weight, relation, x, msg, exchange):
-        shape = (inputs.v_pad, x.shape[1])
-        mx, mn = x.new_full(shape, -_BIG), x.new_full(shape, _BIG)
+        devs = _shards(inputs, x.device)
+        mx, mx_blocks = home_buffer(x, inputs.v_block, devs, -_BIG)
+        mn, mn_blocks = home_buffer(x, inputs.v_block, devs, _BIG)
 
-        def step(o_rows, m, w, valid):
+        def step(s, o_loc, m, w, valid):
             mw = m * w
-            _fold_extremum(mx, o_rows, mw, valid, "max")
-            _fold_extremum(mn, o_rows, mw, valid, "min")
+            _fold_extremum(mx_blocks[s], o_loc, mw, valid, "max")
+            _fold_extremum(mn_blocks[s], o_loc, mw, valid, "min")
 
         _ring_messages_pass(inputs, edge_weight, relation, x, msg, exchange,
                             step)
-        mx, mn = _empty_to_zero(mx, "max"), _empty_to_zero(mn, "min")
+        mx = _empty_to_zero(collect(mx, mx_blocks), "max")
+        mn = _empty_to_zero(collect(mn, mn_blocks), "min")
         ctx.inputs, ctx.msg, ctx.exchange = inputs, msg, exchange
         ctx.save_for_backward(edge_weight, relation, x, mx, mn)
         return mx, mn
@@ -483,41 +580,41 @@ class _RingAddSq(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, inputs, edge_weight, relation, x, exchange):
-        s = x.new_zeros((inputs.v_pad, x.shape[1]))
-        sq = torch.zeros_like(s)
+        devs = _shards(inputs, x.device)
+        s, s_blocks = home_buffer(x, inputs.v_block, devs)
+        sq, sq_blocks = home_buffer(x, inputs.v_block, devs)
 
-        def step(o_rows, m, w, valid):
+        def step(i, o_loc, m, w, valid):
             mw = m * w
-            s.index_add_(0, o_rows, mw)
-            sq.index_add_(0, o_rows, m * mw)
+            s_blocks[i].index_add_(0, o_loc, mw)
+            sq_blocks[i].index_add_(0, o_loc, m * mw)
 
         _ring_messages_pass(inputs, edge_weight, relation, x, "mul", exchange,
                             step)
         ctx.inputs, ctx.exchange = inputs, exchange
         ctx.save_for_backward(edge_weight, relation, x)
-        return s, sq
+        return collect(s, s_blocks), collect(sq, sq_blocks)
 
     @staticmethod
     def backward(ctx, g_s, g_sq):
         edge_weight, relation, x = ctx.saved_tensors
         need_dr, need_dx = ctx.needs_input_grad[2], ctx.needs_input_grad[3]
         F = x.shape[1]
-        dx = x.new_zeros(x.shape) if need_dx else None
-        dr = relation.new_zeros(relation.shape) if need_dr else None
+        sh = _BackwardShards(ctx.inputs, edge_weight, relation, x, need_dx,
+                             need_dr)
 
-        def step(g_rows, o_rows, etype, eid, valid, held):
-            w = (edge_weight[eid] * valid)[:, None]
-            rel_e, x_e = relation[etype], x[o_rows]
-            rows = held[g_rows]
+        def step(s, b, held):
+            g_loc, o_loc, etype, eid, valid = ctx.inputs.rev.bucket(s, b)
+            w, rel_e, x_e = sh.operands(s, etype, eid, valid, o_loc)
+            rows = held[g_loc]
             inner = rows[:, :F] * w + (2.0 * (rel_e * x_e)) * (rows[:, F:]
                                                               * w)
-            if need_dx:
-                dx.index_add_(0, o_rows, rel_e * inner)
-            if need_dr:
-                dr.index_add_(0, etype, x_e * inner)
+            sh.add(s, o_loc, etype, rel_e * inner if need_dx else None,
+                   x_e * inner if need_dr else None)
 
         _ring_pass(ctx.inputs, (g_s.contiguous(), g_sq.contiguous()),
                    ctx.exchange, step)
+        dx, dr = sh.results()
         return None, None, dr, dx, None
 
 

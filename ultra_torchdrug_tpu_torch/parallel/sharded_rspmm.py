@@ -21,9 +21,18 @@ Two bodies, as in the JAX package:
     d_relation partial, gathering from the replicated upstream gradient.
     The dr partials are summed over shards.
 
-In this port every shard lives on the mesh's one device (parallel/mesh.py):
-the shards' calls run one after another, each writing its own block of
-rows. A shard without edges launches nothing and gives zero rows. The
+Each shard works on its own device (parallel/mesh.py; parallel/
+placement.py) inside one autograd node whose operands and results live on
+the home device (shard 0's): x (the upstream gradient in the backward),
+the edge weight and the relation operand are copied to every shard device
+(a tree of copies from the home), each shard's kernels run there on its
+layouts, the output (dx) blocks come home to be concatenated, and the
+d_relation partials are summed at home (the JAX package's psum); the
+``xla`` body copies each shard's edge range to its device and sums the
+[V, ...] partials at home. With every shard on one device the shards'
+calls run one after another on it, each writing its own block of rows,
+and nothing is copied. A shard without edges launches nothing and gives
+zero rows. The
 layouts are the port's ``Csr`` (data/graph.py), one per shard and family;
 the TPU's chunk padding to a common count is not needed. A shard's
 reverse CSR spans the v_block source rows of its block and every
@@ -51,8 +60,20 @@ from ..ops.rspmm import COMPUTE_DTYPES, aggregate_edges, broadcast_rel_flat
 from ..ops.rspmm_bwd_cuda import rspmm_bwd_bf16_cuda, rspmm_bwd_cuda
 from ..ops.rspmm_cuda import rspmm_fwd_bf16_cuda, rspmm_fwd_cuda
 from .balance import degree_balanced_permutation, resolve_balance
+from .placement import (
+    add_partial,
+    indexed,
+    replicate,
+    shard_devices,
+    sum_home,
+    zero_partial,
+)
 
 _MODES = {"mul": "mul_rel", "add": "add_rel"}
+
+
+def _to(t, device):
+    return None if t is None else t.to(device)
 
 
 def _check_msg(msg: str):
@@ -63,49 +84,57 @@ def _check_msg(msg: str):
 class _ShardedRspmm(torch.autograd.Function):
     """The ``xla`` body over n contiguous edge ranges: edge_index [E, 2],
     edge_type [E], edge_weight [E] (E a multiple of n), relation [R, D] or
-    [R, B, D] with x [V, B, D], or flat [R, F] with x [V, F]."""
+    [R, B, D] with x [V, B, D], or flat [R, F] with x [V, F]; range s on
+    ``devices[s]``."""
 
     @staticmethod
     def forward(ctx, edge_index, edge_type, edge_weight, relation, x, msg,
-                num_nodes, n):
-        ctx.msg, ctx.n = msg, n
+                num_nodes, n, devices):
+        devs = shard_devices(devices, x.device)
+        ctx.msg, ctx.n, ctx.devs = msg, n, devs
         ctx.save_for_backward(edge_index, edge_type, edge_weight, relation, x)
-        out = None
-        for lo, hi in _ranges(edge_index.shape[0], n):
-            partial = aggregate_edges(edge_index[lo:hi], edge_type[lo:hi],
-                                      edge_weight[lo:hi], relation, x,
-                                      msg=msg, agg="add",
-                                      num_nodes=num_nodes)
-            out = partial if out is None else out.add_(partial)
-        return out
+        rels, xs = replicate(relation, devs), replicate(x, devs)
+        parts = {}
+        for d, (lo, hi) in zip(devs, _ranges(edge_index.shape[0], n)):
+            add_partial(parts, d, aggregate_edges(
+                edge_index[lo:hi].to(d), edge_type[lo:hi].to(d),
+                edge_weight[lo:hi].to(d), rels[d], xs[d], msg=msg, agg="add",
+                num_nodes=num_nodes))
+        return sum_home(parts, x.device)
 
     @staticmethod
     def backward(ctx, g):
         edge_index, edge_type, edge_weight, relation, x = ctx.saved_tensors
         need_dr, need_dx = ctx.needs_input_grad[3], ctx.needs_input_grad[4]
-        dx = torch.zeros_like(x) if need_dx else None
-        dr = (relation.new_zeros((relation.shape[0],) + tuple(g.shape[1:]))
-              if need_dr else None)
-        for lo, hi in _ranges(edge_index.shape[0], ctx.n):
-            src, dst = edge_index[lo:hi, 0], edge_index[lo:hi, 1]
-            etype = edge_type[lo:hi]
-            w = edge_weight[lo:hi].reshape((-1,) + (1,) * (g.dim() - 1))
-            gw = g.index_select(0, dst) * w
+        devs = ctx.devs
+        gs, rels = replicate(g, devs), replicate(relation, devs)
+        xs = replicate(x, devs) if need_dr and ctx.msg == "mul" else None
+        dx_parts, dr_parts = {}, {}
+        for d, (lo, hi) in zip(devs, _ranges(edge_index.shape[0], ctx.n)):
+            src, dst = (edge_index[lo:hi, i].to(d) for i in (0, 1))
+            etype = edge_type[lo:hi].to(d)
+            w = edge_weight[lo:hi].to(d).reshape((-1,) + (1,) * (g.dim() - 1))
+            gw = gs[d].index_select(0, dst) * w
             if ctx.msg == "mul":
-                rel_e = relation.index_select(0, etype)
+                rel_e = rels[d].index_select(0, etype)
                 if rel_e.dim() < gw.dim():
                     rel_e = rel_e[:, None, :]
                 dx_e = rel_e * gw if need_dx else None
-                dr_e = x.index_select(0, src) * gw if need_dr else None
+                dr_e = xs[d].index_select(0, src) * gw if need_dr else None
             else:  # transe: the message's derivative is 1 in x and in rel
                 dx_e = dr_e = gw
             if need_dx:
-                dx.index_add_(0, src, dx_e)
+                zero_partial(dx_parts, gs[d], x.shape).index_add_(0, src,
+                                                                  dx_e)
             if need_dr:
-                dr.index_add_(0, etype, dr_e)
+                zero_partial(dr_parts, rels[d], (relation.shape[0],)
+                             + tuple(g.shape[1:])).index_add_(0, etype, dr_e)
+        home = x.device
+        dx = sum_home(dx_parts, home) if need_dx else None
+        dr = sum_home(dr_parts, home) if need_dr else None
         if need_dr and relation.dim() < dr.dim():
             dr = dr.sum(dim=tuple(range(1, dr.dim() - relation.dim() + 1)))
-        return None, None, None, dr, dx, None, None, None
+        return None, None, None, dr, dx, None, None, None, None
 
 
 def _ranges(num_edges: int, n: int):
@@ -114,14 +143,19 @@ def _ranges(num_edges: int, n: int):
 
 
 def sharded_rspmm(edge_index, edge_type, edge_weight, relation, x, *,
-                  msg: str, num_nodes: int, n_shards: int) -> torch.Tensor:
+                  msg: str, num_nodes: int, n_shards: int,
+                  devices=None) -> torch.Tensor:
     """The sum rspmm over ``n_shards`` contiguous edge ranges, the JAX
     package's ``xla`` body (module docstring). edge_index [E, 2],
     edge_type [E], edge_weight [E] for any E (padded here with weight-0
     edges); relation [R, D] or [R, B, D] with x [V, B, D], or relation
-    [R, F] with x [V, F]. Returns x's layout with num_nodes rows;
-    gradients flow to relation and x."""
+    [R, F] with x [V, F]. ``devices``: each range's device (the mesh's;
+    shard 0's is the operands'), x's for every range by default. Returns
+    x's layout with num_nodes rows; gradients flow to relation and x."""
     _check_msg(msg)
+    devices = (x.device,) * n_shards if devices is None else tuple(devices)
+    if len(devices) != n_shards:
+        raise ValueError(f"{n_shards} shards, {len(devices)} devices")
     pad = (-edge_index.shape[0]) % n_shards
     if pad:
         edge_index = torch.cat([edge_index,
@@ -129,8 +163,9 @@ def sharded_rspmm(edge_index, edge_type, edge_weight, relation, x, *,
         edge_type = torch.cat([edge_type, edge_type.new_zeros((pad,))])
         edge_weight = torch.cat([edge_weight,
                                  edge_weight.new_zeros((pad,))])
-    return _ShardedRspmm.apply(edge_index, edge_type, edge_weight, relation,
-                               x, msg, int(num_nodes), int(n_shards))
+    return _ShardedRspmm.apply(
+        edge_index, edge_type, edge_weight, relation, x, msg, int(num_nodes),
+        int(n_shards), devices)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,6 +184,9 @@ class PartitionedRspmmLayouts:
         the zero pad row ``num_nodes``), to_new: int64 [V] original -> new,
         relabelling the output row space only; None when blocks are
         contiguous original ids
+      devices: each shard's device (``to_mesh``; built on the CPU):
+        fwd[s] and rev[s] on devices[s], to_old and to_new on the home
+        (devices[0])
     Every eid is global: per-batch edge weights stay one [E] tensor."""
 
     fwd: tuple
@@ -160,30 +198,47 @@ class PartitionedRspmmLayouts:
     v_block: int = 0
     n_shards: int = 1
     num_nodes: int = 0
+    devices: tuple = ()
 
     @property
     def v_pad(self) -> int:
         return self.v_block * self.n_shards
 
     def to(self, device) -> "PartitionedRspmmLayouts":
-        def move(family):
-            return None if family is None else tuple(c.to(device)
-                                                     for c in family)
+        """Layouts whose shards share one device go to ``device`` whole;
+        layouts spread over several devices keep their shards' devices and
+        move only the home's index maps."""
+        if len(set(self.devices)) == 1:
+            return self.to_mesh((device,) * self.n_shards)
+        return dataclasses.replace(self, to_old=_to(self.to_old, device),
+                                   to_new=_to(self.to_new, device))
 
-        def to(t):
-            return None if t is None else t.to(device)
+    def to_mesh(self, devices) -> "PartitionedRspmmLayouts":
+        """Each shard's CSRs on its device ``devices[s]``, the index maps
+        on the home (``devices[0]``); nothing is copied where a layout
+        lies on its device already."""
+        devices = tuple(indexed(d) for d in devices)
+        if len(devices) != self.n_shards:
+            raise ValueError(f"{self.n_shards} shards, {len(devices)} "
+                             "devices")
+
+        def move(family):
+            return None if family is None else tuple(
+                c.to(d) for c, d in zip(family, devices))
 
         return dataclasses.replace(self, fwd=move(self.fwd),
                                    rev=move(self.rev),
-                                   to_old=to(self.to_old),
-                                   to_new=to(self.to_new))
+                                   to_old=_to(self.to_old, devices[0]),
+                                   to_new=_to(self.to_new, devices[0]),
+                                   devices=devices)
 
 
 def build_partitioned_rspmm_inputs(edge_index, edge_type, num_nodes: int,
                                    num_relations: int, n_shards: int,
                                    backward: bool = True,
                                    balance="auto") -> PartitionedRspmmLayouts:
-    """Host-side build of the per-shard layouts (numpy; CPU tensors out).
+    """Host-side build of the per-shard layouts (numpy; every shard's on
+    the CPU).
     Shard s owns output rows [s * v_block, (s + 1) * v_block), v_block =
     ceil(V / n): its forward CSR holds the edges whose destination lands
     in the block, its reverse CSR (with ``backward``) those whose source
@@ -227,7 +282,7 @@ def build_partitioned_rspmm_inputs(edge_index, edge_type, num_nodes: int,
         fwd_counts=np.array([len(i) for i in fwd_ids], np.int64),
         rev_counts=np.array([len(i) for i in rev_ids], np.int64),
         to_old=long(to_old), to_new=long(to_new), v_block=vb, n_shards=n,
-        num_nodes=int(num_nodes))
+        num_nodes=int(num_nodes), devices=(torch.device("cpu"),) * n)
 
 
 def _from_blocks(layouts: PartitionedRspmmLayouts, rows: torch.Tensor):
@@ -240,8 +295,8 @@ def _from_blocks(layouts: PartitionedRspmmLayouts, rows: torch.Tensor):
 class _PartitionedRspmm(torch.autograd.Function):
     """The kernel body over flat operands: edge_weight [E], relation
     [R, F], x [V, F]; returns [V, F]. K1 (K1h) a shard forward, K2 (K2h,
-    or K3 for ``add_rel``) a shard backward, both skipping shards without
-    edges; no gradient to edge_weight."""
+    or K3 for ``add_rel``) a shard backward, each on its shard's device,
+    both skipping shards without edges; no gradient to edge_weight."""
 
     @staticmethod
     def forward(ctx, layouts, edge_weight, relation, x, mode, bf16):
@@ -249,14 +304,18 @@ class _PartitionedRspmm(torch.autograd.Function):
         ctx.save_for_backward(edge_weight, relation,
                               x if mode == "mul_rel" else None)
         fwd = rspmm_fwd_bf16_cuda if bf16 else rspmm_fwd_cuda
-        vb = layouts.v_block
+        vb, home = layouts.v_block, x.device
+        devs = shard_devices(layouts.devices, home)
+        xs, ws, rels = (replicate(t, devs) for t in (x, edge_weight,
+                                                     relation))
         blocks = []
-        for s, c in enumerate(layouts.fwd):
+        for s, (c, d) in enumerate(zip(layouts.fwd, devs)):
             if not layouts.fwd_counts[s]:
                 blocks.append(x.new_zeros((vb, x.shape[1])))
                 continue
-            blocks.append(fwd(c.rowptr, c.src, c.etype, c.eid, edge_weight,
-                              relation, x, mode, segments=c.segments))
+            blocks.append(fwd(c.rowptr, c.src, c.etype, c.eid, ws[d],
+                              rels[d], xs[d], mode,
+                              segments=c.segments).to(home))
         return _from_blocks(layouts, torch.cat(blocks))
 
     @staticmethod
@@ -269,30 +328,34 @@ class _PartitionedRspmm(torch.autograd.Function):
                              "(Graph.prepare_csr_sharded)")
         need_dr, need_dx = ctx.needs_input_grad[2], ctx.needs_input_grad[3]
         g = grad_out.contiguous()
-        vb, F = layouts.v_block, g.shape[1]
+        vb, F, home = layouts.v_block, g.shape[1], g.device
+        devs = shard_devices(layouts.devices, home)
+        gs, ws, rels = (replicate(t, devs) for t in (g, edge_weight,
+                                                     relation))
         x_blocks = None
         if x is not None:  # K3 (transe) reads no x
             x_blocks = torch.cat([x, x.new_zeros((layouts.v_pad - x.shape[0],
                                                   F))])
             if layouts.to_old is not None:
                 x_blocks = x_blocks[layouts.to_old]
-        dx_blocks, dr = [], None
-        for s, c in enumerate(layouts.rev):
+        dx_blocks, dr_parts = [], {}
+        for s, (c, d) in enumerate(zip(layouts.rev, devs)):
             if not layouts.rev_counts[s]:
                 dx_blocks.append(g.new_zeros((vb, F)))
                 continue
             x_s = (None if x_blocks is None
-                   else x_blocks[s * vb:(s + 1) * vb])
+                   else x_blocks[s * vb:(s + 1) * vb].to(d))
             if ctx.bf16 and ctx.mode == "mul_rel":
-                dx_s, dr_s = rspmm_bwd_bf16_cuda(c, edge_weight, relation,
-                                                 x_s, g, need_dx, need_dr)
+                dx_s, dr_s = rspmm_bwd_bf16_cuda(c, ws[d], rels[d], x_s,
+                                                 gs[d], need_dx, need_dr)
             else:
-                dx_s, dr_s = rspmm_bwd_cuda(c, edge_weight, relation, x_s, g,
+                dx_s, dr_s = rspmm_bwd_cuda(c, ws[d], rels[d], x_s, gs[d],
                                             need_dx=need_dx, need_dr=need_dr,
                                             mode=ctx.mode)
-            dx_blocks.append(dx_s)
+            dx_blocks.append(None if dx_s is None else dx_s.to(home))
             if need_dr:
-                dr = dr_s if dr is None else dr.add_(dr_s)
+                add_partial(dr_parts, d, dr_s)
+        dr = sum_home(dr_parts, home) if need_dr else None
         if need_dr and dr is None:  # no shard has an edge
             dr = torch.zeros_like(relation)
         dx = _from_blocks(layouts, torch.cat(dx_blocks)) if need_dx else None

@@ -93,11 +93,12 @@ def test(cfg: dict, engine: Engine):
     engine.evaluate("test", fast_test=fast_test)
 
 
-def setup_process(device=None) -> torch.device:
+def setup_process(device=None, edge: int = 1) -> torch.device:
     """Join the process group when torchrun started this process (a no-op
     in one process); returns this process's device (the card unless the
-    caller names another; a rank's own card under NCCL)."""
-    distributed.initialize_distributed(device=device)
+    caller names another; a rank's home card, the first of its ``edge``
+    shards' cards, under NCCL)."""
+    distributed.initialize_distributed(device=device, edge=edge)
     return default_device(distributed.rank_device(device))
 
 
@@ -119,7 +120,8 @@ def run(cfg: dict, seed: int = 1024, device=None,
     """The experiment of a loaded config dict on ``device`` (the card unless
     the caller names another); returns the engine, whose ``metrics`` hold
     the last evaluation of each split."""
-    device = setup_process(device)
+    device = setup_process(
+        device, edge=int((cfg.get("parallel") or {}).get("edge", 1) or 1))
     work_dir, logger = rank_work_dir(
         cfg.get("output_dir", "./output"),
         cfg["task"]["class"],
