@@ -354,13 +354,17 @@ Phases, each of which raises on failure (the script then exits nonzero):
               and at 2 entity layers partitioned bf16, transe, max and
               xla (step at batch 8), relation_edge on both routes (eval);
               ms, peak memory and launches by card, every shard's
-              kernels on its own card. On one card it logs that it is
+              kernels on its own card. The ring's entity tower keeps its
+              states on the shards' cards: on each ring path's step card
+              0 may peak at most 1.25 x the largest other card's + 0.5
+              GiB (check_home_peak). On one card it logs that it is
               not run.
     53. data 2 x edge 2  where there are 4 or more cards: two NCCL ranks
               of two cards each (rank r at home on card 2r), the ring
-              (rdma) and then the partitioned path, one step each against
-              the single-device step (loss 1e-5 relative, gradients 1e-4
-              norm-wise), launches by rank and by card.
+              (rdma, the tower's states on each rank's two cards) and then
+              the partitioned path, one step each against the
+              single-device step (loss 1e-5 relative, gradients 1e-4
+              norm-wise), launches and peak memory by rank and by card.
 
 Phases 49-53 log their seconds, ms a batch and a step and peak memory
 beside the card's name and power limit. The phases that time evaluation
@@ -2806,6 +2810,9 @@ def phase_train(engine, size: dict, device, per_step: dict,
             torch.cuda.synchronize(c)
         torch.cuda.reset_peak_memory_stats()
         reset_peaks(cards or [])
+    held = (", ".join(f"{c} {torch.cuda.memory_allocated(c) / 2**30:.3f}"
+                      for c in cards) + " GiB" if cards and device.type
+            == "cuda" else "")
     steps = size["steps"]
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -2827,7 +2834,8 @@ def phase_train(engine, size: dict, device, per_step: dict,
         f"{seconds * 1e3 / steps:.2f} ms per step, "
         f"{steps * size['batch'] / seconds:.1f} triples/s, peak device "
         f"memory {peak:.3f} GiB ({device})"
-        + (f"; peak by card {peaks_text(cards)}" if cards else ""))
+        + (f"; peak by card {peaks_text(cards)}, held at the start "
+           f"{held}" if cards else ""))
     log(f"[{label}] launches {counts} ({steps} steps)")
     for i, m in enumerate(window):
         log(f"[{label}] step {i}: " + ", ".join(
@@ -5242,8 +5250,11 @@ def dp_run(dataset, device, data: int, edge: int, steps: int,
             return metrics
 
         engine._run_step = timed_step
+        cards = list(dict.fromkeys(mesh.devices if mesh is not None
+                                   else [device]))
         if cuda:
             torch.cuda.reset_peak_memory_stats()
+            reset_peaks(cards)
         reset_launch_counts()
         try:
             engine.train(batch_per_epoch=steps)
@@ -5262,7 +5273,10 @@ def dp_run(dataset, device, data: int, edge: int, steps: int,
             params={k: v.detach().cpu()
                     for k, v in engine.model.state_dict().items()},
             peak_gib=(torch.cuda.max_memory_allocated(device) / 2**30
-                      if cuda else float("nan")))
+                      if cuda else float("nan")),
+            card_peaks_gib={str(c): (torch.cuda.max_memory_allocated(c)
+                                     / 2**30 if cuda else float("nan"))
+                            for c in cards})
     del engine, task
     if cuda:
         release_device_memory()
@@ -5526,7 +5540,10 @@ def run_data_edge_cards(device) -> dict:
             log(f"[phase 53] {case} rank {r} (home {got['home']}, shards "
                 f"{got['shards']}): data 2 x edge 2 one step vs one card: "
                 f"{summary}; {got['step_ms'][0]:.1f} ms (the first step), "
-                f"peak {got['peak_gib']:.3f} GiB on its home; launches by "
+                f"peak {got['peak_gib']:.3f} GiB on its home, by card "
+                + ", ".join(f"{c} {v:.3f}" for c, v in
+                            got["card_peaks_gib"].items())
+                + " GiB; launches by "
                 f"card {dict(sorted(got['card_counts'].items()))}, K9 to "
                 f"another card {got['peer_k9']}")
             runs[f"{case} rank{r} train"] = dict(got["train_counts"],
@@ -5923,6 +5940,11 @@ def run_edge_path(dataset, device, label: str, cfg: dict, kernels: dict,
             if pna_fp64 and entity.aggregate_func.startswith("pna"):
                 pna_rounding(dataset, cfg, task, mesh, model, single,
                              single_model, label)
+            if cards and cuda:
+                # the single-device reference leaves the home card before
+                # the step whose peak a card phase 52 holds
+                single = single_model = None
+                release_device_memory()
             counts["train"] = phase_train(engine, size, device, per_step,
                                           label=f"{label} train",
                                           cards=cards)
@@ -6153,6 +6175,21 @@ def run_edge_phases(device) -> dict:
 # bound between cards: a block over NVLink's 450 GB/s each way (every card
 # pushes one block on its own link at once)
 NVLINK_BYTES_PER_S = 450e9
+# the ring's entity tower keeps its states on the shards' cards: a ring
+# path's step peaks on card 0 (the home) at most HOME_PEAK_FACTOR times the
+# largest other card's plus HOME_PEAK_SLACK_GIB, which covers what only the
+# home holds (the parameters, the relation tower, the optimizer, the loss
+# and the targets' gathered rows)
+HOME_PEAK_FACTOR = 1.25
+HOME_PEAK_SLACK_GIB = 0.5
+# the step peaks (GiB, card 0 and the largest of cards 1-3) of the ring
+# paths with the tower's states on the home card, each ring op cutting
+# them to the cards and bringing its result home (four NVIDIA H100 80GB
+# HBM3 at 700 W, edge 4, the same weights and batch)
+HOME_STATE_PEAKS = {"cards ring rdma": (6.908, 0.321),
+                    "cards ring ppermute": (6.929, 0.344),
+                    "cards ring max": (12.859, 4.611),
+                    "cards ring pna": (31.950, 5.674)}
 K9_STRESS_SHIFTS = 200
 RING_OP_ITERS = 3
 
@@ -6304,6 +6341,27 @@ def phase_k9_cards(cards) -> dict:
     return entry
 
 
+def check_home_peak(label: str, cards) -> None:
+    """The ring's tower keeps its activations on the shards' cards: the
+    train step's peak on card 0 (run_edge_path's timed step, the last one
+    that reset the peaks) at most HOME_PEAK_FACTOR times the largest other
+    card's plus HOME_PEAK_SLACK_GIB. Logs every card's peak beside the
+    peaks with the states on the home."""
+    peaks = [torch.cuda.max_memory_allocated(c) / 2**30 for c in cards]
+    limit = HOME_PEAK_FACTOR * max(peaks[1:]) + HOME_PEAK_SLACK_GIB
+    home, others = HOME_STATE_PEAKS[label]
+    log(f"[{label} train] step peak by card "
+        + ", ".join(f"{c} {p:.3f}" for c, p in zip(cards, peaks))
+        + f" GiB; card 0's limit {limit:.3f} GiB; with the states on the "
+        f"home card {home:.3f} on card 0, {others:.3f} on each other")
+    if peaks[0] > limit:
+        raise AssertionError(f"{label}: card 0's step peak {peaks[0]:.3f} "
+                             f"GiB exceeds {HOME_PEAK_FACTOR} x the largest "
+                             f"other card's + {HOME_PEAK_SLACK_GIB} GiB = "
+                             f"{limit:.3f}: the tower's states sit on the "
+                             "home")
+
+
 def ring_op_times(dataset, cards) -> dict:
     """One ring sum alone (parallel/ring_rspmm.py::ring_rspmm, forward, K1
     a bucket) on the FB-size KG's entity graph at the eval width, a shard
@@ -6426,10 +6484,15 @@ def run_cards(device) -> tuple:
             balance = (forced_balance() if label.endswith(("ring max",
                                                            "ring pna"))
                        else contextlib.nullcontext())
+            # the previous path's task and engine (held in cycles) leave
+            # the cards first
+            release_device_memory()
             with balance:
                 runs[label] = run_edge_path(dataset, home, label, cfg,
                                             kernels, cards=cards,
                                             pna_fp64=False, **opt)
+            if label in HOME_STATE_PEAKS:
+                check_home_peak(label, cards)
     log(f"[timing] phase 52 {time.perf_counter() - t0:.1f} s "
         f"({nvidia_smi_line()})")
     return runs, entry

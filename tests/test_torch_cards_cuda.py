@@ -15,15 +15,27 @@ pair and moments) on several cards is held against the same path on one
 card and on the CPU (see the test's docstring for each tolerance). The
 partitioned path on several cards must give the one-card run's scores
 bitwise (each shard's kernel computes the same rows from the same
-copies).
+copies). ULTRA's ring tower with its states kept on the shards' cards
+(parallel/card_rows.py) is held, eval scores, loss and every gradient,
+against one card and the CPU, and each card's state tensor must lie on
+the card its shards name.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from ultra_torchdrug_tpu_torch.data.datasets import synthetic_transductive
 from ultra_torchdrug_tpu_torch.data.graph import Graph
+from ultra_torchdrug_tpu_torch.models.nbfnet import (
+    entity_nbfnet_config,
+    rel_nbfnet_config,
+)
+from ultra_torchdrug_tpu_torch.models.ultra import UltraConfig, ultra_init
 from ultra_torchdrug_tpu_torch.parallel import rdma
+from ultra_torchdrug_tpu_torch.parallel import ring_rspmm as ring_mod
+from ultra_torchdrug_tpu_torch.parallel.card_rows import card_groups
+from ultra_torchdrug_tpu_torch.parallel.mesh import make_mesh, use_mesh
 from ultra_torchdrug_tpu_torch.parallel.ring_rspmm import (
     build_ring_rspmm_inputs,
     ring_rspmm,
@@ -35,6 +47,7 @@ from ultra_torchdrug_tpu_torch.parallel.sharded_rspmm import (
     partitioned_rspmm,
     sharded_rspmm,
 )
+from ultra_torchdrug_tpu_torch.tasks.task import TaskConfig, TransductiveKGTask
 
 pytestmark = pytest.mark.cuda
 
@@ -186,3 +199,73 @@ def test_edge_paths_on_cards_match_one_card_and_the_cpu(cards, path):
             else:
                 err = float((a - b).norm() / b.norm())
                 assert err <= 1e-4, (path, i, err)
+
+
+def _ultra_ring(devices, model, dataset, cfg, batch, neg, test):
+    """ULTRA's eval scores of ``test``, loss and gradients of one step on
+    ``batch`` with ``neg``, its entity tower on the ring over 4 shards on
+    ``devices`` (a pinned device or one a shard) with ``model``'s weights;
+    each ring op's (layout, the cards' state tensors' devices)."""
+    mesh = (make_mesh(edge=4, device=devices) if isinstance(devices, str)
+            else make_mesh(edge=4, devices=devices))
+    home = mesh.device
+    model = model.to(home)
+    calls = []
+    real = ring_mod._RingRspmm.apply
+    ring_mod._RingRspmm.apply = lambda *a: calls.append(
+        (a[1], [t.device for t in a[7:]])) or real(*a)
+    try:
+        with use_mesh(mesh):
+            task = TransductiveKGTask(dataset, cfg, TaskConfig(),
+                                      device=home)
+            b = torch.from_numpy(test.astype(np.int64)).to(home)
+            with torch.inference_mode():
+                und, rel_graph = task._prepare_graphs(task.fact_graph,
+                                                      task.rel_graph)
+                scores = task._eval_scores(model, task.fact_graph, rel_graph,
+                                           b[:, 0], b[:, 1], b[:, 2], und)
+            model.zero_grad(set_to_none=True)
+            loss, _ = task.loss_step(model, None, batch, neg=neg.to(home))
+            loss.backward()
+    finally:
+        ring_mod._RingRspmm.apply = real
+    grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return ([s.cpu() for s in scores], loss.item(), grads, calls)
+
+
+@pytest.mark.parametrize("exchange", ["rdma", "ppermute"])
+def test_ultra_ring_states_on_the_cards(cards, exchange):
+    """ULTRA 2x32 (4 shards over the cards, the rdma or ppermute ring,
+    balance "auto") against 4 shards on card 0 and on the CPU: eval scores
+    1e-4, the loss 1e-5 relative and every gradient 1e-4 norm-wise (the
+    card-vs-CPU limits); every ring op takes a state tensor a card, on the
+    card of that card's shards (``card_groups``)."""
+    dataset = synthetic_transductive("SynthKG", 1003, 12000, 7, seed=0)
+    cfg = UltraConfig(
+        entity=entity_nbfnet_config(
+            input_dim=32, hidden_dims=(32, 32), num_relations=14,
+            rspmm_impl="ring", edge_axis="edge", ring_exchange=exchange),
+        relation=rel_nbfnet_config(input_dim=32, hidden=32, num_layers=2))
+    model = ultra_init(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(5)
+    batch = dataset.train[rng.choice(len(dataset.train), 8, replace=False)]
+    neg = torch.from_numpy(rng.integers(0, 1003, (8, 16)))
+    test = dataset.test[:8]
+    devices = _shard_devices(cards, 4)
+    many = _ultra_ring(devices, model, dataset, cfg, batch, neg, test)
+    groups = card_groups(devices)
+    assert many[3] and all(
+        layout.devices == tuple(devices) and layout.groups == groups
+        and placed == [devices[g[0]] for g in groups]
+        for layout, placed in many[3])
+    for ref in (_ultra_ring("cuda:0", model, dataset, cfg, batch, neg, test),
+                _ultra_ring("cpu", model, dataset, cfg, batch, neg, test)):
+        assert all(len(placed) == 1 for _, placed in ref[3])
+        for got, want in zip(many[0], ref[0]):
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        assert abs(many[1] - ref[1]) <= 1e-5 * abs(ref[1])
+        for name, want in ref[2].items():
+            err = float((many[2][name] - want).norm()
+                        / want.norm().clamp(min=1e-12))
+            assert err <= 1e-4, (exchange, name, err)

@@ -48,7 +48,10 @@ buckets (``Graph.prepare_ring``) every aggregation rides the ring
 (parallel/ring_rspmm.py): sums, max and min, PNA's extremum pair and, for
 distmult, its moments in one rotation each; buckets built with
 ``permuted_io`` need the caller to pass block-domain states
-(``block_domain``; ``ring_block_domain`` says when the entity tower can).
+(``block_domain``; ``ring_block_domain`` says when the entity tower can),
+which the entity tower keeps on the shards' cards (``CardRows``,
+parallel/card_rows.py): the ring ops take and return them, and
+``conv_update`` runs once a card.
 With "auto" the sums take the partitioned kernels with the graph's
 ``part_layouts`` (``Graph.prepare_csr_sharded``; a graph without them
 raises: no plain route stands in for the kernels) and max and min the
@@ -72,7 +75,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.core import MLP, layer_norm
+from ..nn.core import LAYER_NORM_EPS, MLP
 from ..ops.dense import dense_rspmm
 from ..ops.rspmm import (
     aggregate_edges,
@@ -82,6 +85,7 @@ from ..ops.rspmm import (
     generalized_rspmm_maxmin,
     needs_edge_grad,
 )
+from ..parallel.card_rows import CardRows
 from ..parallel.mesh import current_mesh
 from ..parallel.ring_rspmm import (
     ring_rspmm,
@@ -303,9 +307,16 @@ def conv_apply(layer: GeneralizedRelationalConv, graph, x: torch.Tensor,
     query: [B, Q] ("dependent" mode); rel_injected: [R, D] or [B, R, D]
       ("injected" mode)
     block_domain: x and boundary are rows of the graph's ring block domain
-      (``ring_block_domain``); required for permuted-IO ring buckets
+      (``ring_block_domain``); required for permuted-IO ring buckets. They
+      may then be ``CardRows`` (the rows kept on the shards' cards), and
+      the output is too
     Returns flat [V, B*output_dim] (or [V, B, output_dim] for 3-D input).
     """
+    if isinstance(x, CardRows):
+        aggregates = conv_aggregate(layer, graph, x, query, rel_injected,
+                                    block_domain)
+        return conv_update(layer, graph, x, boundary, aggregates,
+                           block_domain)
     flat_in = x.dim() == 2
     V = x.shape[0]
     x = x if flat_in else x.reshape(V, -1)
@@ -323,12 +334,17 @@ def conv_aggregate(layer: GeneralizedRelationalConv, graph, x: torch.Tensor,
     """The aggregation kernels' outputs of one step over flat [V, B*D]
     states, the ones that ``remat="save_rspmm"`` keeps (the JAX package's
     ``checkpoint_name(..., "rspmm_out")``): (s,) for sum and mean, (mx,)
-    for max, (s, sq, mx, mn) for pna; the boundary is not folded in yet."""
+    for max, (s, sq, mx, mn) for pna; the boundary is not folded in yet.
+    ``CardRows`` states take the ring and give ``CardRows``."""
     cfg = layer.cfg
     rel = _relation_input(layer, query, rel_injected)
     msg = _MESSAGES[cfg.message_func]
     base = cfg.aggregate_func.replace("_nobound", "")
     ring = _ring_route(cfg, graph, block_domain)
+    if isinstance(x, CardRows) and ring is None:
+        raise ValueError("states kept on the cards take the ring: "
+                         "rspmm_impl='ring' under the edge mesh, permuted-IO "
+                         "buckets, distmult or transe messages")
     if base == "pna":
         return (pna_sums(cfg, graph, rel, x, msg, ring)
                 + _pna_extrema(cfg, graph, rel, x, msg, ring))
@@ -345,16 +361,53 @@ def conv_update(layer: GeneralizedRelationalConv, graph, x: torch.Tensor,
     elementwise and dense work that ``remat="save_rspmm"`` recomputes: the
     boundary folded in, mean's divide, PNA's statistics and scalers, the
     split linear, layer norm and the activation. Flat [V, B*D] in,
-    [V, B*out] out."""
+    [V, B*out] out. States kept on the cards (``CardRows``) are updated
+    once a card: the layer's parameters are copied to each card (their
+    gradients come home through the copies and add up there), and the
+    per-row constants (mean's degree, PNA's degree and scalers) are
+    computed on the home from the whole graph, then cut a card."""
     cfg = layer.cfg
+    consts = _row_constants(cfg, graph,
+                            graph.ring_inputs if block_domain else None)
+    params = (layer.linear.weight, layer.linear.bias,
+              *((layer.layer_norm.weight, layer.layer_norm.bias)
+                if cfg.layer_norm else ()))
+    if not isinstance(x, CardRows):
+        return _update(cfg, x, boundary, aggregates, consts, params)
+    layout, k = x.layout, len(aggregates)
+    cut = [layout.cut(t) for t in consts]
+    copies = [layout.replicate(p) for p in params]
+    per_card = [(tuple(t[c] for t in cut), tuple(p[c] for p in copies))
+                for c in range(len(layout.groups))]
+    return x.map(lambda xt, bt, *rest: _update(cfg, xt, bt, rest[:k],
+                                               *rest[k]),
+                 boundary, *aggregates, consts=(per_card,))
+
+
+def _row_constants(cfg: ConvConfig, graph, ring) -> tuple:
+    """The update's per-row constants over the graph's rows (``ring``'s
+    block domain with ``ring``): (degree [rows],) for mean, (degree
+    [rows, 1], scalers [rows, 3]) for pna (``pna_scales``), () else."""
+    base = cfg.aggregate_func.replace("_nobound", "")
+    if base == "mean":
+        return (block_degree(graph, ring),)
+    if base == "pna":
+        degree = block_degree(graph, ring)[:, None]
+        return degree, pna_scales(degree, graph.num_nodes)
+    return ()
+
+
+def _update(cfg: ConvConfig, x, boundary, aggregates, consts, params):
+    """``conv_update`` over flat rows with their per-row ``consts``
+    (``_row_constants``') and the layer's ``params`` (linear weight and
+    bias, then layer norm's when ``cfg.layer_norm``)."""
     D = cfg.input_dim
     V = x.shape[0]
     B = x.shape[1] // D
     base = cfg.aggregate_func.replace("_nobound", "")
     bounded = not cfg.aggregate_func.endswith("_nobound")
     if base == "pna":
-        update = _pna_update(cfg, graph, boundary, *aggregates,
-                             ring=graph.ring_inputs if block_domain else None)
+        update = _pna_update(cfg, boundary, *aggregates, *consts)
     elif base == "max":
         (update,) = aggregates
         if bounded:
@@ -365,18 +418,18 @@ def conv_update(layer: GeneralizedRelationalConv, graph, x: torch.Tensor,
         if bounded:
             update = update + boundary
         if base == "mean":
-            degree = block_degree(graph, graph.ring_inputs if block_domain
-                                  else None)
+            (degree,) = consts
             update = update / degree[:, None]
 
     # cat([x, update]) @ W^T split into x @ W[:, :D]^T + update @ W[:, D:]^T:
     # the same math without materializing the [V, B, 2D] concat
-    w = layer.linear.weight  # [out, 2D]
+    w, bias = params[:2]  # [out, 2D], [out]
     out = (torch.matmul(x.reshape(V, B, D), w[:, :D].T)
            + torch.matmul(update.reshape(V, B, -1), w[:, D:].T)
-           + layer.linear.bias)
+           + bias)
     if cfg.layer_norm:
-        out = layer_norm(layer.layer_norm, out)
+        out = F.layer_norm(out, (cfg.output_dim,), *params[2:],
+                           LAYER_NORM_EPS)
     return activation_fn(cfg.activation)(out).reshape(V, -1)
 
 
@@ -505,9 +558,10 @@ def pna_sums(cfg: ConvConfig, graph, rel, x, msg, ring=None):
             broadcast_rel_flat(rel, B), x, num_nodes=graph.num_nodes,
             csr=graph.csr)
     s = _sum(cfg, graph, rel, x, msg, ring)
-    sq = (_oe(graph, rel, x, msg, "sq_add", D) if msg == "rotate"
-          else _sum(cfg, graph, rel ** 2, x ** 2, msg, ring))
-    return s, sq
+    if msg == "rotate":
+        return s, _oe(graph, rel, x, msg, "sq_add", D)
+    x2 = x.map(lambda t: t ** 2) if isinstance(x, CardRows) else x ** 2
+    return s, _sum(cfg, graph, rel ** 2, x2, msg, ring)
 
 
 def _pna_extrema(cfg: ConvConfig, graph, rel, x, msg, ring=None):
@@ -535,27 +589,38 @@ def pna_moments(cfg: ConvConfig, graph, s, sq, boundary, ring=None):
     unless ``pna_nobound``; degree is the weighted in-degree plus one, in
     ``ring``'s block domain when the states are (``block_degree``)."""
     degree = block_degree(graph, ring)[:, None]
+    return (*_moments(cfg, s, sq, boundary, degree), degree)
+
+
+def _moments(cfg: ConvConfig, s, sq, boundary, degree):
     if cfg.aggregate_func == "pna":
-        return (s + boundary) / degree, (sq + boundary ** 2) / degree, degree
-    return s / degree, sq / degree, degree
+        return (s + boundary) / degree, (sq + boundary ** 2) / degree
+    return s / degree, sq / degree
 
 
-def _pna_update(cfg: ConvConfig, graph, boundary, s, sq, mx, mn, ring=None):
+def pna_scales(degree: torch.Tensor, num_nodes: int) -> torch.Tensor:
+    """PNA's degree scalers [rows, 3] from degree [rows, 1]: [1, s, 1/s],
+    s = log(degree) normalised by its mean over the graph's ``num_nodes``
+    nodes (the block domain's pad rows have degree 1 and add nothing). The
+    mean is over the whole graph: states kept on the cards take their rows
+    of these scalers, never a mean of their own rows."""
+    scale = torch.log(degree)
+    scale = scale / (scale.sum() / num_nodes)
+    inv = 1.0 / torch.clamp(scale, min=1e-2)
+    return torch.cat([torch.ones_like(scale), scale, inv], dim=-1)
+
+
+def _pna_update(cfg: ConvConfig, boundary, s, sq, mx, mn, degree, scales):
     """PNA's update [V, B*12D]: per (b, d) the interleaved [mean, max, min,
     std] of the in-edge messages (with the boundary as one more message
-    unless ``pna_nobound``), each times the degree scalers [1, s, 1/s],
-    s = log(degree) normalised by its mean over the nodes (the block
-    domain's pad rows have degree 1 and add nothing)."""
+    unless ``pna_nobound``), each times the rows' degree ``scales``
+    (``pna_scales``)."""
     V = boundary.shape[0]
-    mean, sq_mean, degree = pna_moments(cfg, graph, s, sq, boundary, ring)
+    mean, sq_mean = _moments(cfg, s, sq, boundary, degree)
     if cfg.aggregate_func == "pna":
         # torch.maximum/minimum split the gradient at ties, as jnp's do
         mx = torch.maximum(mx, boundary)
         mn = torch.minimum(mn, boundary)
     std = torch.sqrt(torch.clamp(sq_mean - mean ** 2, min=EPS))
     features = torch.stack([mean, mx, mn, std], dim=-1)  # [V, B*D, 4]
-    scale = torch.log(degree)
-    scale = scale / (scale.sum() / graph.num_nodes)
-    inv = 1.0 / torch.clamp(scale, min=1e-2)
-    scales = torch.cat([torch.ones_like(scale), scale, inv], dim=-1)  # [V, 3]
     return (features[:, :, :, None] * scales[:, None, None, :]).reshape(V, -1)

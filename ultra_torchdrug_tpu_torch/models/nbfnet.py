@@ -17,7 +17,13 @@ Propagation state is carried flat, [V, B*D] with b-major features. Under
 an active edge mesh with ring buckets on the entity graph
 (``layers.ring_block_domain``), the entity tower carries it in the ring's
 padded block domain, [n * v_block, B*D] rows relabelled when degree-
-balanced: only the boundary scatter and the readout map indices.
+balanced, kept on the shards' cards (parallel/card_rows.py: one tensor a
+card, the rows of its shards) from the boundary to the readout: each card
+builds its boundary rows, the convs and the short-cut run once a card,
+and the readout scores each card's rows there (eval: the [B, rows] score
+columns come home) or gathers the targets it holds and sends their rows
+home, where the head runs (training). Only the boundary scatter and the
+readout map indices.
 
 Memory policies, applied while gradients are taken (none of them changes a
 result; a task resolves their "auto" values, tasks/task.py):
@@ -46,6 +52,7 @@ import functools
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -59,6 +66,7 @@ from .layers import (
     edge_active,
     ring_block_domain,
 )
+from ..parallel.card_rows import CardLayout, CardRows
 from ..parallel.mesh import current_mesh
 
 
@@ -303,7 +311,8 @@ def _propagate(tower: NBFNet, graph, boundary, query=None,
                rel_injected=None, block_domain=False, cfg=None,
                edge_grad=False):
     """Run the conv stack from the boundary condition; returns the final flat
-    [V, B*D] hidden state (block-domain rows with ``block_domain``), or with
+    [V, B*D] hidden state (block-domain rows with ``block_domain``, then
+    ``CardRows`` where the boundary is), or with
     ``concat_hidden`` every layer's state side by side per query,
     [V, B*(L*D)]. ``graph`` and ``rel_injected`` are each one for every
     layer, or a list of one per layer. ``cfg`` (the tower's own by default)
@@ -340,9 +349,16 @@ def _propagate(tower: NBFNet, graph, boundary, query=None,
     if cfg.concat_hidden:
         # per query b the layers' features side by side: concat the
         # [V, B, *] views, then flatten back
-        V, B = boundary.shape[0], boundary.shape[1] // cfg.input_dim
-        return torch.cat([h.reshape(V, B, -1) for h in hiddens],
-                         dim=-1).reshape(V, -1)
+        B = boundary.shape[1] // cfg.input_dim
+
+        def concat(*hs):
+            V = hs[0].shape[0]
+            return torch.cat([h.reshape(V, B, -1) for h in hs],
+                             dim=-1).reshape(V, -1)
+
+        if isinstance(x, CardRows):
+            return hiddens[0].map(concat, *hiddens[1:])
+        return concat(*hiddens)
     return x
 
 
@@ -357,7 +373,7 @@ def _layer_step(layer, cfg, graph, x, *aggregates, boundary, query,
         h = layer(graph, x, boundary, query=query, rel_injected=rel_injected,
                   block_domain=block_domain)
     if cfg.short_cut and h.shape == x.shape:
-        h = h + x
+        h = h.map(torch.add, x) if isinstance(h, CardRows) else h + x
     return h
 
 
@@ -367,6 +383,27 @@ def _flat_boundary(V, B, D, rows, query):
     flat = torch.zeros((V * B, D), dtype=query.dtype, device=query.device)
     idx = rows * B + torch.arange(B, device=rows.device)
     return flat.index_add_(0, idx, query).reshape(V, B * D)
+
+
+def _card_boundary(layout: CardLayout, B, D, rows, query) -> CardRows:
+    """``_flat_boundary`` in the block domain kept on the cards: each
+    card's [rows(c), B*D] zeros, built on the card, with query[b] at
+    (rows[b], b) for the block-domain rows ``rows`` [B] that it holds."""
+    if len(layout.groups) == 1:
+        return CardRows(layout, (_flat_boundary(layout.v_pad, B, D, rows,
+                                                query),))
+    card, local = layout.locate(rows)
+    idx = local * B + torch.arange(B, device=rows.device)
+    parts = []
+    for c, (dev, q) in enumerate(zip(layout.cards, layout.replicate(query))):
+        mine = (card == c).to(dev)
+        # the others' queries add 0 at row 0: no host sync for a count
+        flat = torch.zeros((layout.rows(c) * B, D), dtype=q.dtype,
+                           device=dev)
+        flat.index_add_(0, torch.where(mine, idx.to(dev), 0),
+                        torch.where(mine[:, None], q, 0.0))
+        parts.append(flat.reshape(layout.rows(c), B * D))
+    return CardRows(layout, tuple(parts))
 
 
 def _param_dtype(tower: NBFNet) -> torch.dtype:
@@ -468,29 +505,66 @@ def entity_nbfnet_score_all(tower: NBFNet, graph, rel_queries,
         query = query_src[torch.arange(B, device=source.device), query_rel]
     else:
         query = query_src[query_rel]
-    V = graph.num_nodes
+    V, D = graph.num_nodes, tower.cfg.input_dim
     # the ring's permuted IO: the propagation runs in the padded block
-    # domain; the boundary goes to the relabelled source rows, and the
-    # readout reads the relabelled target rows (or maps the score columns
-    # back to entity order), never a pad row
+    # domain, kept on the shards' cards; the boundary goes to the
+    # relabelled source rows, and the readout reads the relabelled target
+    # rows (or maps the score columns back to entity order), never a pad
+    # row
     ring = ring_block_domain(tower.cfg.layer_configs()[0], graph)
     if ring is None:
-        rows, to_new = V, None
-    else:
-        rows, to_new = ring.v_pad, ring.to_new
-    boundary = _flat_boundary(rows, B, tower.cfg.input_dim,
-                              source if to_new is None else to_new[source],
-                              query)
-    final = _propagate(tower, graph, boundary, rel_injected=injected,
-                       block_domain=ring is not None, cfg=cfg)
+        final = _propagate(tower, graph, _flat_boundary(V, B, D, source,
+                                                        query),
+                           rel_injected=injected, cfg=cfg)
+        if targets is not None:
+            return score_heads(tower.mlp, final, query, targets)
+        return score_heads(tower.mlp, final, query, chunk=cfg.score_chunk)
+
+    def new(ids):
+        return ids if ring.to_new is None else ring.to_new[ids]
+
+    layout = CardLayout.of(ring.devices, ring.v_block)
+    final = _propagate(tower, graph,
+                       _card_boundary(layout, B, D, new(source), query),
+                       rel_injected=injected, block_domain=True, cfg=cfg)
     if targets is not None:
-        return score_heads(tower.mlp, final, query,
-                           targets if to_new is None else to_new[targets])
-    scores = score_heads(tower.mlp, final, query,
-                         chunk=cfg.score_chunk)  # [B, rows]
-    if ring is None:
-        return scores
-    return scores[:, :V] if to_new is None else scores[:, to_new]
+        return _card_target_scores(tower.mlp, final, query, new(targets))
+    scores = _card_scores(tower.mlp, final, query, cfg.score_chunk)
+    return scores[:, :V] if ring.to_new is None else scores[:, ring.to_new]
+
+
+def _card_scores(mlp: MLP, final: CardRows, query, chunk: int):
+    """The all-entity head over the states kept on the cards: each card
+    scores its rows there (``score_heads``' chunks), and the D-free [B,
+    rows] score columns come home in block order: [B, n * v_block]."""
+    layout = final.layout
+    linears = _card_linears(mlp, layout)
+    return layout.join([_score_rows(lin, t, q, chunk) for lin, t, q in zip(
+        linears, final.tensors, layout.replicate(query))], dim=1)
+
+
+def _card_target_scores(mlp: MLP, final: CardRows, query, targets):
+    """The head on the candidates ``targets`` [B, T] (block-domain rows)
+    over the states kept on the cards, in the JAX package's order: each
+    card gathers the [B, T, feat] rows of the targets it holds and sends
+    them home, where the head runs. A card gathers its row 0 in place of
+    the others' targets, and their owners' rows replace those entries, so
+    that no count of a card's targets syncs the host."""
+    layout = final.layout
+    if len(layout.groups) == 1:
+        return score_heads(mlp, final.tensors[0], query, targets)
+    B = query.shape[0]
+    feat = final.shape[1] // B
+    card, local = layout.locate(targets)
+    flat = local * B + torch.arange(B, device=targets.device)[:, None]
+    feats = None
+    for c, t in enumerate(final.tensors):
+        mine = card == c
+        rows = torch.where(mine, flat, 0).to(t.device)
+        part = t.reshape(-1, feat)[rows].to(query.device)  # [B, T, feat]
+        feats = (part if feats is None
+                 else torch.where(mine[..., None], part, feats))
+    return _mlp_head_targets(_linears(mlp), feats, query)
 
 
 def score_heads(mlp: MLP, final, query, targets=None, chunk: int = 0):
@@ -506,40 +580,58 @@ def score_heads(mlp: MLP, final, query, targets=None, chunk: int = 0):
         feat = final.shape[1] // B
         rows = targets * B + torch.arange(B, device=targets.device)[:, None]
         feats = final.reshape(V * B, feat)[rows]  # [B, T, feat]
-        return _mlp_head_targets(mlp, feats, query)
+        return _mlp_head_targets(_linears(mlp), feats, query)
+    return _score_rows(_linears(mlp), final, query, chunk)
+
+
+def _linears(mlp: MLP) -> list:
+    """The MLP's (weight, bias) a layer."""
+    return [(layer.weight, layer.bias) for layer in mlp.layers]
+
+
+def _card_linears(mlp: MLP, layout: CardLayout) -> list:
+    """``_linears`` copied to each card of ``layout``: a list a card."""
+    copies = [(layout.replicate(w), layout.replicate(b))
+              for w, b in _linears(mlp)]
+    return [[(w[c], b[c]) for w, b in copies]
+            for c in range(len(layout.groups))]
+
+
+def _score_rows(linears, final, query, chunk: int):
+    """The all-entity head [B, V] over flat final [V, B*feat], ``chunk``
+    rows at a time (all of them at 0)."""
+    B, V = query.shape[0], final.shape[0]
     step = chunk if 0 < chunk < V else V
-    scores = [_mlp_head_split(mlp, final[lo:lo + step].reshape(
+    scores = [_mlp_head_split(linears, final[lo:lo + step].reshape(
         -1, B, final.shape[1] // B), query)[..., 0]
         for lo in range(0, V, step)]  # [rows, B] each
     return torch.cat(scores).T
 
 
-def _mlp_head_split(mlp: MLP, final, query):
+def _mlp_head_split(linears, final, query):
     """mlp(cat([final, broadcast(query)], -1)) without materializing the
-    concat: the first layer's weight is split into its state columns
-    ``w0[:, :-dq]`` and its query columns ``w0[:, -dq:]`` (the MLP input is
-    ordered [state; query])."""
-    first = mlp.layers[0]
-    w0 = first.weight  # [H, feat + dq]
+    concat, the MLP given as its ``linears``: the first layer's weight is
+    split into its state columns ``w0[:, :-dq]`` and its query columns
+    ``w0[:, -dq:]`` (the MLP input is ordered [state; query])."""
+    w0, b0 = linears[0]  # [H, feat + dq], [H]
     dq = query.shape[-1]
     h = (torch.matmul(final, w0[:, :-dq].T)
          + torch.matmul(query, w0[:, -dq:].T)[None]
-         + first.bias)
-    for layer in mlp.layers[1:]:
-        h = layer(torch.relu(h))
+         + b0)
+    for w, b in linears[1:]:
+        h = F.linear(torch.relu(h), w, b)
     return h
 
 
-def _mlp_head_targets(mlp: MLP, feats, query):
+def _mlp_head_targets(linears, feats, query):
     """The target-gathered head: feats [B, T, feat], query [B, D] -> [B, T].
     The split-weight formulation of _mlp_head_split, with the query term
     broadcast over T."""
-    first = mlp.layers[0]
-    w0 = first.weight
+    w0, b0 = linears[0]
     dq = query.shape[-1]
     h = (torch.matmul(feats, w0[:, :-dq].T)
          + torch.matmul(query, w0[:, -dq:].T)[:, None, :]
-         + first.bias)
-    for layer in mlp.layers[1:]:
-        h = layer(torch.relu(h))
+         + b0)
+    for w, b in linears[1:]:
+        h = F.linear(torch.relu(h), w, b)
     return h[..., 0]

@@ -35,11 +35,6 @@ class MLP(nn.Module):
         return x
 
 
-def layer_norm(module: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
-    return F.layer_norm(x, module.normalized_shape, module.weight,
-                        module.bias, LAYER_NORM_EPS)
-
-
 @torch.no_grad()
 def init_parameters_(module: nn.Module, generator: torch.Generator) -> None:
     """Re-draw every parameter of ``module`` from ``generator`` (on the

@@ -18,10 +18,13 @@ cuda_count`` (``shard_cards``). One card holds every shard; four cards and
 0's shards on cards 0 and 1 and rank 1's on 2 and 3; with fewer cards than
 shards the shards share cards in turn. Under a process group a rank's
 row is its local rank (``distributed.rank_row``), and its home card, its
-NCCL device, is that row's first card (``distributed.backend_rule``). Shard 0's card is the row's home (``Mesh.device``): the model's
-parameters, the node states between convs, the loss and the optimizer
-live there, and each edge path copies its operands to the shards' cards
-and their results home inside its autograd node. A device with an index
+NCCL device, is that row's first card (``distributed.backend_rule``).
+Shard 0's card is the row's home (``Mesh.device``): the model's
+parameters, the loss and the optimizer live there. The partitioned path
+and the ``xla`` body copy their operands to the shards' cards and their
+results home inside their autograd nodes; the ring's entity tower keeps
+its node states on the shards' cards from the boundary to the readout
+(parallel/card_rows.py). A device with an index
 (``cuda:0``, or ``cpu``) pins every shard to it, and ``devices`` may name
 each shard's device. ``make_mesh`` logs where every shard went.
 """
@@ -59,8 +62,9 @@ class Mesh:
 
     @property
     def device(self) -> torch.device:
-        """The row's home: shard 0's device, where the parameters, the node
-        states between convs, the loss and the optimizer live."""
+        """The row's home: shard 0's device, where the parameters, the loss
+        and the optimizer live (and the node states between convs, but for
+        the ring's entity tower, which keeps them on the shards' cards)."""
         return self.devices[0]
 
 

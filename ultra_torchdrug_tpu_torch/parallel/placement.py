@@ -1,17 +1,19 @@
 """Operands of the edge paths between a data row's home device and its
 shards' devices (parallel/mesh.py).
 
-Each edge path (the ring, the partitioned kernels and the ``xla`` body) is
-one autograd node whose inputs and outputs live on the home device, shard
-0's. Inside it, shard s works on ``devices[s]``: the operands that every
-shard reads are copied to each shard device once (``replicate``), a
-block-domain operand is cut into row blocks, block s on shard s's device
-(``blocks_on``), and the shards' results come home (``collect``,
-``sum_home``). Where a shard's device is the home, its block is a view and
-nothing is copied, so that with every shard on one device the paths run
-exactly the single-device schedule. The copies are PyTorch's: between two
-cards they are ordered on both cards' current streams and never block the
-host, so the shards' cards overlap.
+The partitioned path and the ``xla`` body are each one autograd node whose
+inputs and outputs live on the home device, shard 0's: inside it, shard s
+works on ``devices[s]``, the operands that every shard reads are copied to
+each shard device once (``replicate``) and the shards' partials are
+summed on the home (``sum_home``). The ring keeps its node states on the
+shards' cards instead (parallel/card_rows.py, whose ``CardLayout.cut``
+takes a home tensor's row blocks with ``blocks_on``); only its relation
+operand and its d_relation partials pass through the home. Where a shard's
+device is the home, its block is a view and nothing is copied, so that
+with every shard on one device the paths run exactly the single-device
+schedule. The copies are PyTorch's: between two cards they are ordered on
+both cards' current streams and never block the host, so the shards'
+cards overlap.
 """
 
 from __future__ import annotations
@@ -61,32 +63,6 @@ def blocks_on(full: torch.Tensor, v_block: int, devices: Sequence) -> list:
     ``devices[s]``: a view where that is ``full``'s device, else a copy."""
     return [full[s * v_block:(s + 1) * v_block].to(d)
             for s, d in enumerate(devices)]
-
-
-def home_buffer(like: torch.Tensor, v_block: int, devices: Sequence,
-                fill: float = 0.0, dtype=None) -> tuple:
-    """(full, blocks): ``full`` [n * v_block, F] of ``dtype`` (``like``'s
-    by default) filled with ``fill`` on the home device (``like``'s, shard
-    0's), and each shard's block of it to
-    accumulate into, a view of ``full`` where the shard's device is the
-    home and a buffer of its own on the shard's device else
-    (``collect`` brings those home)."""
-    n, F = len(devices), like.shape[1]
-    full = like.new_full((n * v_block, F), fill, dtype=dtype)
-    blocks = [full[s * v_block:(s + 1) * v_block] if d == full.device
-              else full.new_full((v_block, F), fill, device=d)
-              for s, d in enumerate(devices)]
-    return full, blocks
-
-
-def collect(full: torch.Tensor, blocks: Sequence) -> torch.Tensor:
-    """Copy every block that lies off the home device into its rows of
-    ``full`` (``home_buffer``'s); returns ``full``."""
-    v_block = full.shape[0] // len(blocks)
-    for s, b in enumerate(blocks):
-        if b.device != full.device:
-            full[s * v_block:(s + 1) * v_block].copy_(b)
-    return full
 
 
 def zero_partial(parts: dict, like: torch.Tensor,

@@ -16,14 +16,20 @@ source lies in it) and rotates the upstream gradient's blocks with the
 mirrored bucket family; each step's d_relation partial uses the shard's own x
 block, and the partials are summed over shards (the JAX package's psum).
 
-Each shard works on its own device (parallel/mesh.py; parallel/
-placement.py): the op is one autograd node whose operands and results
-live on the home device (shard 0's). At entry x (or the packed planes) is
-cut into its n blocks, block s sent to shard s's device; the held blocks
-and the owner's output block stay there for all n steps and the exchange
-moves the held blocks device to device; at exit the output blocks come
-home, and the d_relation partials are summed there. The edge weight and
-the relation operand are copied to each shard device once an op. With
+Each shard works on its own device (parallel/mesh.py). Each op is one
+autograd node over the node states as one tensor a card
+(parallel/card_rows.py: the rows of the card's shards), its separate
+inputs and outputs, so that x, the output and their gradients stay on
+the shards' cards: the held blocks start as views of x's, the owner's
+output block is a view of its card's output, both stay there for all n
+steps, and the exchange moves the held blocks device to device. The
+backward takes the upstream gradient a card and returns dx a card. The
+edge weight and the relation operand stay on the home (shard 0's
+device) and are copied to each shard device once an op; the d_relation
+partials are summed there (parallel/placement.py). The entity tower
+keeps its block-domain states on the cards (``CardRows``) for the whole
+propagation; a caller that passes a home tensor has it cut to the cards
+at entry and the results brought home at exit, outside the node. With
 per-bucket CSRs (``build_ring_rspmm_inputs(pallas=True)``) and distmult
 messages each step runs kernel K1 per bucket forward and K2 per bucket
 backward (K1h and K2h with ``compute_dtype="bfloat16"``) on the shard's
@@ -72,14 +78,11 @@ from ..ops.rspmm import COMPUTE_DTYPES, broadcast_rel_flat
 from ..ops.rspmm_bwd_cuda import rspmm_bwd_bf16_cuda, rspmm_bwd_cuda
 from ..ops.rspmm_cuda import rspmm_fwd_bf16_cuda, rspmm_fwd_cuda
 from .balance import degree_balanced_permutation, resolve_balance
+from .card_rows import CardLayout, CardRows
 from .placement import (
     add_partial,
-    blocks_on,
-    collect,
-    home_buffer,
     indexed,
     replicate,
-    shard_devices,
     sum_home,
     zero_partial,
 )
@@ -290,35 +293,50 @@ def _exchange(exchange: str):
     raise ValueError(f"exchange must be one of {EXCHANGES}, got {exchange!r}")
 
 
-def _shards(inputs: RingRspmmInputs, home: torch.device) -> tuple:
-    return shard_devices(inputs.devices, home)
 
 
-def _ring_pass(inputs, planes, exchange, step):
+def _check_cards(inputs: RingRspmmInputs, layout: CardLayout):
+    if layout.devices != inputs.devices or layout.v_block != inputs.v_block:
+        raise ValueError(
+            f"states on {[str(d) for d in layout.devices]} in blocks of "
+            f"{layout.v_block} rows, but the ring's shards lie on "
+            f"{[str(d) for d in inputs.devices]} in blocks of "
+            f"{inputs.v_block}")
+
+
+def _ring_pass(inputs, layout, planes, exchange, step):
     """Run ``step(s, b, held)`` for shard s at each of the n ring steps:
-    ``held`` the block b = (s - k) mod n of the packed ``planes`` (the
-    caller's [n * v_block, ...] operands side by side, on the home) that
-    shard s holds at step k, on its device; the blocks shift between steps
-    by one exchange."""
-    n, vb = inputs.n_shards, inputs.v_block
-    packed = planes[0] if len(planes) == 1 else torch.cat(planes, dim=1)
-    devs = _shards(inputs, packed.device)
+    ``held`` the block b = (s - k) mod n of the packed ``planes`` (each a
+    list of the cards' tensors, packed side by side a card) that shard s
+    holds at step k, on its device; the blocks shift between steps by one
+    exchange."""
+    n = inputs.n_shards
+    packed = [cards[0] if len(cards) == 1 else torch.cat(cards, dim=1)
+              for cards in zip(*planes)]
+    held = [layout.block(packed, s) for s in range(n)]
     shift = _exchange(exchange)
-    held = blocks_on(packed, vb, devs)
     for k in range(n):
         for s in range(n):
             step(s, (s - k) % n, held[s])
         if k + 1 < n:
             # consumed only at the next step
-            held = shift(held, devs)
+            held = shift(held, inputs.devices)
 
 
-def _ring_messages_pass(inputs, edge_weight, relation, x, msg, exchange,
-                        step):
+def _card_buffers(layout, like, fill: float = 0.0, dtype=None) -> tuple:
+    """(buffers, blocks): a [rows(c), F] buffer on each card filled with
+    ``fill`` (``like``'s cards' tensors give F, dtype and device) and each
+    shard's block of its card's buffer to accumulate into."""
+    bufs = [t.new_full(t.shape, fill, dtype=dtype) for t in like]
+    return bufs, [layout.block(bufs, s) for s in range(len(layout.devices))]
+
+
+def _ring_messages_pass(inputs, layout, edge_weight, relation, xs, msg,
+                        exchange, step):
     """The forward ring: ``step(s, o_local, m, w, valid)`` for each step's
     messages m (unweighted) of shard s's bucket, on its device, x's blocks
     rotating."""
-    devs = _shards(inputs, x.device)
+    devs = inputs.devices
     w, rel = replicate(edge_weight, devs), replicate(relation, devs)
 
     def messages(s, b, held):
@@ -327,16 +345,17 @@ def _ring_messages_pass(inputs, edge_weight, relation, x, msg, exchange,
         step(s, o_loc, _messages(rel[d], etype, held[g_loc], msg),
              (w[d][eid] * valid)[:, None], valid)
 
-    _ring_pass(inputs, (x,), exchange, messages)
+    _ring_pass(inputs, layout, (xs,), exchange, messages)
 
 
-def _ring_forward(inputs: RingRspmmInputs, edge_weight, relation, x, msg,
-                  exchange, bf16):
-    """The sums: K1 (K1h) per bucket with edges with per-bucket CSRs and
-    distmult messages, else the plain gathers and scatters."""
-    devs = _shards(inputs, x.device)
-    out, blocks = home_buffer(x, inputs.v_block, devs, dtype=torch.float32)
+def _ring_forward(inputs, layout, edge_weight, relation, xs, msg, exchange,
+                  bf16) -> list:
+    """The sums, a tensor a card: K1 (K1h) per bucket with edges with
+    per-bucket CSRs and distmult messages, else the plain gathers and
+    scatters."""
+    out, blocks = _card_buffers(layout, xs, dtype=torch.float32)
     if inputs.csr is not None and msg == "mul":
+        devs = inputs.devices
         w, rel = replicate(edge_weight, devs), replicate(relation, devs)
         fwd = rspmm_fwd_bf16_cuda if bf16 else rspmm_fwd_cuda
 
@@ -346,28 +365,28 @@ def _ring_forward(inputs: RingRspmmInputs, edge_weight, relation, x, msg,
                 blocks[s] += fwd(c.rowptr, c.src, c.etype, c.eid, w[d],
                                  rel[d], held, "mul_rel", segments=c.segments)
 
-        _ring_pass(inputs, (x,), exchange, step)
+        _ring_pass(inputs, layout, (xs,), exchange, step)
     else:
         _ring_messages_pass(
-            inputs, edge_weight, relation, x, msg, exchange,
+            inputs, layout, edge_weight, relation, xs, msg, exchange,
             lambda s, o_loc, m, w, valid: blocks[s].index_add_(0, o_loc,
                                                                 m * w))
-    return collect(out, blocks)
+    return out
 
 
 class _BackwardShards:
     """A transposed ring's per-shard operands and results: the edge
-    weight and relation on every shard device, x's blocks, dx's blocks
-    (views of the home's dx where a shard is at home) and the
-    d_relation partials a device."""
+    weight and relation on every shard device, x's blocks, dx a buffer a
+    card (each shard's block a view of it) and the d_relation partials a
+    device."""
 
-    def __init__(self, inputs, edge_weight, relation, x, need_dx, need_dr):
-        vb = inputs.v_block
-        self.devs = _shards(inputs, x.device)
+    def __init__(self, inputs, layout, edge_weight, relation, xs, need_dx,
+                 need_dr):
+        self.devs = inputs.devices
         self.w = replicate(edge_weight, self.devs)
         self.rel = replicate(relation, self.devs)
-        self.x = blocks_on(x, vb, self.devs)
-        self.dx, self.dx_blocks = (home_buffer(x, vb, self.devs) if need_dx
+        self.x = CardRows(layout, tuple(xs))
+        self.dx, self.dx_blocks = (_card_buffers(layout, xs) if need_dx
                                    else (None, None))
         self.dr_parts = {}
         self.relation, self.need_dx, self.need_dr = relation, need_dx, need_dr
@@ -376,7 +395,7 @@ class _BackwardShards:
         """(w [k, 1], rel_e, x_e) of shard s's bucket edges."""
         d = self.devs[s]
         return ((self.w[d][eid] * valid)[:, None], self.rel[d][etype],
-                self.x[s][o_loc])
+                self.x.block(s)[o_loc])
 
     def add(self, s, o_loc, etype, dx_e, dr_e):
         """Scatter shard s's edge terms into its dx block and its device's
@@ -388,23 +407,23 @@ class _BackwardShards:
                          self.rel[self.devs[s]]).index_add_(0, etype, dr_e)
 
     def results(self):
-        """(dx, dr) on the home device."""
-        home = self.devs[0]
-        dx = collect(self.dx, self.dx_blocks) if self.need_dx else None
+        """(dx a tensor a card, or None; dr on the relation's device, the
+        home)."""
         dr = None
         if self.need_dr:
-            dr = sum_home(self.dr_parts, home)
+            dr = sum_home(self.dr_parts, self.relation.device)
             if dr is None:  # no bucket has an edge
                 dr = torch.zeros_like(self.relation)
-        return dx, dr
+        return self.dx, dr
 
 
-def _ring_backward(inputs: RingRspmmInputs, edge_weight, relation, x, g, msg,
+def _ring_backward(inputs, layout, edge_weight, relation, xs, gs, msg,
                    exchange, bf16, need_dx, need_dr):
     """The sums' transposed ring: K2 (K2h) per bucket with edges with
     per-bucket CSRs and distmult messages, else the plain gathers and
-    scatters. Returns (dx, dr)."""
-    sh = _BackwardShards(inputs, edge_weight, relation, x, need_dx, need_dr)
+    scatters. Returns (dx a tensor a card, dr)."""
+    sh = _BackwardShards(inputs, layout, edge_weight, relation, xs, need_dx,
+                         need_dr)
     kernels = inputs.csr is not None and msg == "mul"
 
     def step(s, b, held):
@@ -414,8 +433,8 @@ def _ring_backward(inputs: RingRspmmInputs, edge_weight, relation, x, g, msg,
             # block b, i.e. the forward's pair csr[b][s]
             if not inputs.edge_counts[b, s]:
                 return
-            args = (inputs.csr_rev[s][b], sh.w[d], sh.rel[d], sh.x[s], held,
-                    need_dx, need_dr)
+            args = (inputs.csr_rev[s][b], sh.w[d], sh.rel[d], sh.x.block(s),
+                    held, need_dx, need_dr)
             dx_p, dr_p = (rspmm_bwd_bf16_cuda(*args) if bf16
                           else rspmm_bwd_cuda(*args, mode="mul_rel"))
             if need_dx:
@@ -433,31 +452,44 @@ def _ring_backward(inputs: RingRspmmInputs, edge_weight, relation, x, g, msg,
             gw = held[g_loc] * (sh.w[d][eid] * valid)[:, None]
             sh.add(s, o_loc, etype, gw, gw)
 
-    _ring_pass(inputs, (g,), exchange, step)
+    _ring_pass(inputs, layout, (gs,), exchange, step)
     return sh.results()
+
+
+def _grads(xs, dx, dr, before: int) -> tuple:
+    """An op's backward result: None for its ``before`` leading inputs but
+    the relation (the fourth, ``dr``), then dx a card (None where not
+    needed)."""
+    head = [None] * before
+    head[3] = dr
+    return tuple(head) + (tuple(dx) if dx is not None
+                          else (None,) * len(xs))
 
 
 class _RingRspmm(torch.autograd.Function):
     """The ring over block-domain operands: edge_weight [E], relation
-    [R, F], x [n * v_block, F]; returns [n * v_block, F]. No gradient flows
-    to edge_weight (the JAX package's ring returns zeros there)."""
+    [R, F], x as a tensor a card of ``layout`` (``CardRows.tensors``);
+    returns a tensor a card. No gradient flows to edge_weight (the JAX
+    package's ring returns zeros there)."""
 
     @staticmethod
-    def forward(ctx, inputs, edge_weight, relation, x, msg, exchange, bf16):
-        ctx.inputs, ctx.msg, ctx.exchange, ctx.bf16 = (inputs, msg, exchange,
-                                                       bf16)
-        ctx.save_for_backward(edge_weight, relation, x)
-        return _ring_forward(inputs, edge_weight, relation, x, msg, exchange,
-                             bf16)
+    def forward(ctx, inputs, layout, edge_weight, relation, msg, exchange,
+                bf16, *xs):
+        ctx.inputs, ctx.layout, ctx.msg = inputs, layout, msg
+        ctx.exchange, ctx.bf16 = exchange, bf16
+        ctx.save_for_backward(edge_weight, relation, *xs)
+        return tuple(_ring_forward(inputs, layout, edge_weight, relation, xs,
+                                   msg, exchange, bf16))
 
     @staticmethod
-    def backward(ctx, grad_out):
-        edge_weight, relation, x = ctx.saved_tensors
+    def backward(ctx, *grads):
+        edge_weight, relation, *xs = ctx.saved_tensors
         dx, dr = _ring_backward(
-            ctx.inputs, edge_weight, relation, x, grad_out.contiguous(),
-            ctx.msg, ctx.exchange, ctx.bf16,
-            need_dx=ctx.needs_input_grad[3], need_dr=ctx.needs_input_grad[2])
-        return None, None, dr, dx, None, None, None
+            ctx.inputs, ctx.layout, edge_weight, relation, xs,
+            [g.contiguous() for g in grads], ctx.msg, ctx.exchange, ctx.bf16,
+            need_dx=any(ctx.needs_input_grad[7:]),
+            need_dr=ctx.needs_input_grad[3])
+        return _grads(xs, dx, dr, 7)
 
 
 _BIG = 1e30  # the JAX package's neutral value of an extremum
@@ -484,13 +516,15 @@ def _empty_to_zero(out, agg):
     return out.masked_fill_(empty, 0.0)
 
 
-def _gated_backward(inputs, edge_weight, relation, x, planes, msg, exchange,
-                    need_dx, need_dr):
-    """The extrema's transposed ring: planes (g, out) per extremum, each
-    edge's coefficient the sum of w·g over the extrema that its recomputed
-    weighted message equals. Returns (dx, dr)."""
-    F = x.shape[1]
-    sh = _BackwardShards(inputs, edge_weight, relation, x, need_dx, need_dr)
+def _gated_backward(inputs, layout, edge_weight, relation, xs, planes, msg,
+                    exchange, need_dx, need_dr):
+    """The extrema's transposed ring: planes (g, out) per extremum, each a
+    list of the cards' tensors, each edge's coefficient the sum of w·g
+    over the extrema that its recomputed weighted message equals. Returns
+    (dx a tensor a card, dr)."""
+    F = xs[0].shape[1]
+    sh = _BackwardShards(inputs, layout, edge_weight, relation, xs, need_dx,
+                         need_dr)
 
     def step(s, b, held):
         g_loc, o_loc, etype, eid, valid = inputs.rev.bucket(s, b)
@@ -507,101 +541,114 @@ def _gated_backward(inputs, edge_weight, relation, x, planes, msg, exchange,
                (rel_e * c if msg == "mul" else c) if need_dx else None,
                (x_e * c if msg == "mul" else c) if need_dr else None)
 
-    _ring_pass(inputs, planes, exchange, step)
+    _ring_pass(inputs, layout, planes, exchange, step)
     return sh.results()
+
+
+def _extremum_pass(inputs, layout, edge_weight, relation, xs, msg, exchange,
+                   aggs) -> list:
+    """The forward ring folding each step's weighted messages into one
+    buffer a card for each of ``aggs`` ("max", "min"); rows that no edge
+    reached give 0. Returns the buffers, a list a card for each of
+    ``aggs``."""
+    folds = [_card_buffers(layout, xs, -_BIG if agg == "max" else _BIG)
+             for agg in aggs]
+
+    def step(s, o_loc, m, w, valid):
+        mw = m * w
+        for agg, (_, blocks) in zip(aggs, folds):
+            _fold_extremum(blocks[s], o_loc, mw, valid, agg)
+
+    _ring_messages_pass(inputs, layout, edge_weight, relation, xs, msg,
+                        exchange, step)
+    return [[_empty_to_zero(t, agg) for t in bufs]
+            for agg, (bufs, _) in zip(aggs, folds)]
 
 
 class _RingExtremum(torch.autograd.Function):
     """The ring's max or min over block-domain operands: edge_weight [E],
-    relation [R, F], x [n * v_block, F]; returns [n * v_block, F]. No
-    gradient flows to edge_weight."""
+    relation [R, F], x a tensor a card of ``layout``; returns a tensor a
+    card. No gradient flows to edge_weight."""
 
     @staticmethod
-    def forward(ctx, inputs, edge_weight, relation, x, msg, agg, exchange):
-        devs = _shards(inputs, x.device)
-        out, blocks = home_buffer(x, inputs.v_block, devs,
-                                  -_BIG if agg == "max" else _BIG)
-        _ring_messages_pass(
-            inputs, edge_weight, relation, x, msg, exchange,
-            lambda s, o_loc, m, w, valid: _fold_extremum(
-                blocks[s], o_loc, m * w, valid, agg))
-        out = _empty_to_zero(collect(out, blocks), agg)
-        ctx.inputs, ctx.msg, ctx.exchange = inputs, msg, exchange
-        ctx.save_for_backward(edge_weight, relation, x, out)
-        return out
+    def forward(ctx, inputs, layout, edge_weight, relation, msg, agg,
+                exchange, *xs):
+        (out,) = _extremum_pass(inputs, layout, edge_weight, relation, xs,
+                                msg, exchange, (agg,))
+        ctx.inputs, ctx.layout, ctx.msg, ctx.exchange = (inputs, layout, msg,
+                                                         exchange)
+        ctx.cards = len(xs)
+        ctx.save_for_backward(edge_weight, relation, *xs, *out)
+        return tuple(out)
 
     @staticmethod
-    def backward(ctx, grad_out):
-        edge_weight, relation, x, out = ctx.saved_tensors
-        dx, dr = _gated_backward(ctx.inputs, edge_weight, relation, x,
-                                 (grad_out, out), ctx.msg, ctx.exchange,
-                                 ctx.needs_input_grad[3],
-                                 ctx.needs_input_grad[2])
-        return None, None, dr, dx, None, None, None
+    def backward(ctx, *grads):
+        edge_weight, relation, *saved = ctx.saved_tensors
+        xs, out = saved[:ctx.cards], saved[ctx.cards:]
+        dx, dr = _gated_backward(
+            ctx.inputs, ctx.layout, edge_weight, relation, xs,
+            ([g.contiguous() for g in grads], out), ctx.msg, ctx.exchange,
+            any(ctx.needs_input_grad[7:]), ctx.needs_input_grad[3])
+        return _grads(xs, dx, dr, 7)
 
 
 class _RingMaxMin(torch.autograd.Function):
     """Both extrema of one rotation over block-domain operands; returns
-    (max, min), each [n * v_block, F]."""
+    the max's tensors a card, then the min's."""
 
     @staticmethod
-    def forward(ctx, inputs, edge_weight, relation, x, msg, exchange):
-        devs = _shards(inputs, x.device)
-        mx, mx_blocks = home_buffer(x, inputs.v_block, devs, -_BIG)
-        mn, mn_blocks = home_buffer(x, inputs.v_block, devs, _BIG)
-
-        def step(s, o_loc, m, w, valid):
-            mw = m * w
-            _fold_extremum(mx_blocks[s], o_loc, mw, valid, "max")
-            _fold_extremum(mn_blocks[s], o_loc, mw, valid, "min")
-
-        _ring_messages_pass(inputs, edge_weight, relation, x, msg, exchange,
-                            step)
-        mx = _empty_to_zero(collect(mx, mx_blocks), "max")
-        mn = _empty_to_zero(collect(mn, mn_blocks), "min")
-        ctx.inputs, ctx.msg, ctx.exchange = inputs, msg, exchange
-        ctx.save_for_backward(edge_weight, relation, x, mx, mn)
-        return mx, mn
+    def forward(ctx, inputs, layout, edge_weight, relation, msg, exchange,
+                *xs):
+        mx, mn = _extremum_pass(inputs, layout, edge_weight, relation, xs,
+                                msg, exchange, ("max", "min"))
+        ctx.inputs, ctx.layout, ctx.msg, ctx.exchange = (inputs, layout, msg,
+                                                         exchange)
+        ctx.cards = len(xs)
+        ctx.save_for_backward(edge_weight, relation, *xs, *mx, *mn)
+        return tuple(mx) + tuple(mn)
 
     @staticmethod
-    def backward(ctx, g_mx, g_mn):
-        edge_weight, relation, x, mx, mn = ctx.saved_tensors
-        planes = (g_mx.contiguous(), mx, g_mn.contiguous(), mn)
-        dx, dr = _gated_backward(ctx.inputs, edge_weight, relation, x, planes,
+    def backward(ctx, *grads):
+        edge_weight, relation, *saved = ctx.saved_tensors
+        k = ctx.cards
+        xs, mx, mn = saved[:k], saved[k:2 * k], saved[2 * k:]
+        g = [t.contiguous() for t in grads]
+        dx, dr = _gated_backward(ctx.inputs, ctx.layout, edge_weight,
+                                 relation, xs, (g[:k], mx, g[k:], mn),
                                  ctx.msg, ctx.exchange,
-                                 ctx.needs_input_grad[3],
-                                 ctx.needs_input_grad[2])
-        return None, None, dr, dx, None, None
+                                 any(ctx.needs_input_grad[6:]),
+                                 ctx.needs_input_grad[3])
+        return _grads(xs, dx, dr, 6)
 
 
 class _RingAddSq(torch.autograd.Function):
     """Σ w·m and Σ w·m² of one rotation, distmult, over block-domain
-    operands; returns (s, sq), each [n * v_block, F]."""
+    operands; returns the sum's tensors a card, then the squares'."""
 
     @staticmethod
-    def forward(ctx, inputs, edge_weight, relation, x, exchange):
-        devs = _shards(inputs, x.device)
-        s, s_blocks = home_buffer(x, inputs.v_block, devs)
-        sq, sq_blocks = home_buffer(x, inputs.v_block, devs)
+    def forward(ctx, inputs, layout, edge_weight, relation, exchange, *xs):
+        (s, s_blocks), (sq, sq_blocks) = (_card_buffers(layout, xs)
+                                          for _ in range(2))
 
         def step(i, o_loc, m, w, valid):
             mw = m * w
             s_blocks[i].index_add_(0, o_loc, mw)
             sq_blocks[i].index_add_(0, o_loc, m * mw)
 
-        _ring_messages_pass(inputs, edge_weight, relation, x, "mul", exchange,
-                            step)
-        ctx.inputs, ctx.exchange = inputs, exchange
-        ctx.save_for_backward(edge_weight, relation, x)
-        return collect(s, s_blocks), collect(sq, sq_blocks)
+        _ring_messages_pass(inputs, layout, edge_weight, relation, xs, "mul",
+                            exchange, step)
+        ctx.inputs, ctx.layout, ctx.exchange = inputs, layout, exchange
+        ctx.save_for_backward(edge_weight, relation, *xs)
+        return tuple(s) + tuple(sq)
 
     @staticmethod
-    def backward(ctx, g_s, g_sq):
-        edge_weight, relation, x = ctx.saved_tensors
-        need_dr, need_dx = ctx.needs_input_grad[2], ctx.needs_input_grad[3]
-        F = x.shape[1]
-        sh = _BackwardShards(ctx.inputs, edge_weight, relation, x, need_dx,
-                             need_dr)
+    def backward(ctx, *grads):
+        edge_weight, relation, *xs = ctx.saved_tensors
+        need_dr = ctx.needs_input_grad[3]
+        need_dx = any(ctx.needs_input_grad[5:])
+        F, k = xs[0].shape[1], len(xs)
+        sh = _BackwardShards(ctx.inputs, ctx.layout, edge_weight, relation,
+                             xs, need_dx, need_dr)
 
         def step(s, b, held):
             g_loc, o_loc, etype, eid, valid = ctx.inputs.rev.bucket(s, b)
@@ -612,10 +659,11 @@ class _RingAddSq(torch.autograd.Function):
             sh.add(s, o_loc, etype, rel_e * inner if need_dx else None,
                    x_e * inner if need_dr else None)
 
-        _ring_pass(ctx.inputs, (g_s.contiguous(), g_sq.contiguous()),
-                   ctx.exchange, step)
+        g = [t.contiguous() for t in grads]
+        _ring_pass(ctx.inputs, ctx.layout, (g[:k], g[k:]), ctx.exchange,
+                   step)
         dx, dr = sh.results()
-        return None, None, dr, dx, None
+        return _grads(xs, dx, dr, 5)
 
 
 def _check_ring_args(msg, exchange, compute_dtype="float32"):
@@ -662,31 +710,67 @@ def _from_blocks(inputs: RingRspmmInputs, out, shape):
     return out.reshape(out.shape[0], *shape[1:])
 
 
+def _card_operands(inputs: RingRspmmInputs, relation, x, outputs: int):
+    """(relation [R, F], layout, x's tensors a card, back): a ``CardRows``
+    x (the block domain, ``inputs.permuted_io``) passes as it is, and
+    ``back`` wraps an op's tensors a card (``outputs`` results side by
+    side) as ``CardRows``; a home tensor is cut into block-domain rows
+    (``_to_blocks``) and each card's share (``CardRows.from_home``), and
+    ``back`` brings the results home in x's layout."""
+    if isinstance(x, CardRows):
+        if not inputs.permuted_io:
+            raise ValueError("states kept on the cards are block-domain "
+                             "rows: the ring's buckets need permuted_io")
+        _check_cards(inputs, x.layout)
+        if relation.dim() != 2:
+            raise ValueError(f"states on the cards are flat [rows, F]: the "
+                             f"relation must be [R, F], got "
+                             f"{tuple(relation.shape)}")
+        layout, rows = x.layout, x
+    else:
+        relation, full = _to_blocks(inputs, relation, x)
+        layout = CardLayout.of(inputs.devices, inputs.v_block)
+        rows = CardRows.from_home(full, layout)
+    k = len(layout.groups)
+
+    def back(outs):
+        parts = [CardRows(layout, tuple(outs[i * k:(i + 1) * k]))
+                 for i in range(outputs)]
+        if not isinstance(x, CardRows):
+            parts = [_from_blocks(inputs, p.to_home(), x.shape)
+                     for p in parts]
+        return parts[0] if outputs == 1 else tuple(parts)
+
+    return (relation.contiguous(), layout,
+            [t.contiguous() for t in rows.tensors], back)
+
+
 def ring_rspmm(edge_weight, inputs: RingRspmmInputs, relation, x, *,
                msg: str, agg: str = "add", compute_dtype: str = "float32",
-               exchange: str = "ppermute") -> torch.Tensor:
+               exchange: str = "ppermute"):
     """The ring rspmm (module docstring), sum, max or min aggregation.
 
     edge_weight [E] in original edge order; relation [R, F], [R, D] shared
-    or [R, B, D] per batch; x flat [rows, F] or [rows, B, D], with rows = n *
-    v_block block-domain rows when ``inputs.permuted_io``, else V original
-    rows (padded and relabelled on entry, mapped back on exit). Returns the
-    layout of x. ``compute_dtype="bfloat16"`` runs K1h/K2h on the sums'
-    kernel route (distmult with per-bucket CSRs) and changes nothing on the
-    plain one or for max and min, as in the JAX package. ``exchange``:
-    "ppermute" (the plain shift) or "rdma" (K9 on CUDA tensors)."""
+    or [R, B, D] per batch; x flat [rows, F] or [rows, B, D] on the home,
+    with rows = n * v_block block-domain rows when ``inputs.permuted_io``,
+    else V original rows (padded and relabelled on entry, mapped back on
+    exit), or a ``CardRows`` (block-domain rows kept on the shards' cards,
+    relation [R, F]). Returns the layout of x. ``compute_dtype="bfloat16"``
+    runs K1h/K2h on the sums' kernel route (distmult with per-bucket CSRs)
+    and changes nothing on the plain one or for max and min, as in the JAX
+    package. ``exchange``: "ppermute" (the plain shift) or "rdma" (K9 on
+    CUDA tensors)."""
     _check_ring_args(msg, exchange, compute_dtype)
     if agg not in ("add", "max", "min"):
         raise ValueError(f"agg must be one of ('add', 'max', 'min'), got "
                          f"{agg!r}")
-    rel, blocks = _to_blocks(inputs, relation, x)
+    rel, layout, xs, back = _card_operands(inputs, relation, x, 1)
     if agg == "add":
-        out = _RingRspmm.apply(inputs, edge_weight, rel, blocks, msg,
-                               exchange, compute_dtype == "bfloat16")
-    else:
-        out = _RingExtremum.apply(inputs, edge_weight, rel, blocks, msg, agg,
-                                  exchange)
-    return _from_blocks(inputs, out, x.shape)
+        return back(_RingRspmm.apply(inputs, layout, edge_weight, rel, msg,
+                                     exchange, compute_dtype == "bfloat16",
+                                     *xs))
+    return back(_RingExtremum.apply(inputs, layout, edge_weight, rel, msg,
+                                    agg, exchange, *xs))
 
 
 def ring_rspmm_maxmin(edge_weight, inputs: RingRspmmInputs, relation, x, *,
@@ -694,9 +778,9 @@ def ring_rspmm_maxmin(edge_weight, inputs: RingRspmmInputs, relation, x, *,
     """PNA's extremum pair over one ring rotation: (max, min) of each row's
     weighted messages, shapes and layouts as ``ring_rspmm``'s."""
     _check_ring_args(msg, exchange)
-    rel, blocks = _to_blocks(inputs, relation, x)
-    pair = _RingMaxMin.apply(inputs, edge_weight, rel, blocks, msg, exchange)
-    return tuple(_from_blocks(inputs, o, x.shape) for o in pair)
+    rel, layout, xs, back = _card_operands(inputs, relation, x, 2)
+    return back(_RingMaxMin.apply(inputs, layout, edge_weight, rel, msg,
+                                  exchange, *xs))
 
 
 def ring_rspmm_addsq(edge_weight, inputs: RingRspmmInputs, relation, x, *,
@@ -704,6 +788,6 @@ def ring_rspmm_addsq(edge_weight, inputs: RingRspmmInputs, relation, x, *,
     """PNA's moments of distmult messages over one ring rotation: (Σ w·m,
     Σ w·m²), m = rel ⊙ x, shapes and layouts as ``ring_rspmm``'s."""
     _check_ring_args("mul", exchange)
-    rel, blocks = _to_blocks(inputs, relation, x)
-    pair = _RingAddSq.apply(inputs, edge_weight, rel, blocks, exchange)
-    return tuple(_from_blocks(inputs, o, x.shape) for o in pair)
+    rel, layout, xs, back = _card_operands(inputs, relation, x, 2)
+    return back(_RingAddSq.apply(inputs, layout, edge_weight, rel, exchange,
+                                 *xs))
