@@ -3,10 +3,11 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py                # on a machine with the card
-    python3 chip_smoke.py --device cpu   # rehearsal of phases 1b-51, small
+    python3 chip_smoke.py --device cpu   # rehearsal of phases 1b-55, small
     python3 chip_smoke.py --only-new     # the build and phases 49-51 alone
     python3 chip_smoke.py --only 46-48   # the build and phases 46-48 alone
     python3 chip_smoke.py --only 52-53   # several cards (a host with four)
+    python3 chip_smoke.py --only 54-55   # the build and phases 54-55 alone
 
 Phases, each of which raises on failure (the script then exits nonzero):
 
@@ -365,8 +366,35 @@ Phases, each of which raises on failure (the script then exits nonzero):
               the partitioned path, one step each against the
               single-device step (loss 1e-5 relative, gradients 1e-4
               norm-wise), launches and peak memory by rank and by card.
+    54. learning  diagnostics/learning.py's check (the JAX repo's
+              convergence_check.py): ULTRA 6x64 with remat auto on the
+              offsets KG (1,000 entities, 8 compositional relations), 64
+              strict negatives, batch 64, AdamW 5e-4; valid MRR on 200
+              triples, 400 steps, MRR again, which must exceed max(10 x
+              the first, 0.05): in fp32 (K1, K2 6 a step), bf16 (K1h, K2h
+              6) and on the ring on the one-card mesh (edge 4, rdma: K1
+              and K2 6 x the non-empty buckets, K9 36 a step); ms a step,
+              launches a step, peak memory, each window's mean loss. Then
+              the fp32 model's first 20 steps on the card against the
+              port's CPU run from the same weights, batches and injected
+              negatives: each step taken on the card from the CPU run's
+              state within 1e-4 (loss, relative) and 1e-3 (parameters,
+              norm-wise), the whole run within 1e-2 and 1e-1 (fp32
+              rounding compounds step by step; in fp64 the two runs
+              agree to about 1e-15, diagnostics/learning.py
+              --trajectory --fp64).
+    55. endurance  diagnostics/endurance.py's run in short form: the
+              three-graph pre-training mixture (FB15k-237's, WN18RR's and
+              CoDEx-M's counts), batch 64, 128 strict negatives, 300
+              steps in windows of 50, a checkpoint and an evaluation
+              (fast_test 64) at 150 and 300, and the resume check at 150
+              (5 steps from the checkpoint with the kept random states:
+              losses and parameters 1e-5); memory_allocated at each
+              window's end within 64 MiB and VmRSS within 256 MiB of the
+              second window's, every loss finite, each window's K1 and K2
+              launches those of its graphs' steps.
 
-Phases 49-53 log their seconds, ms a batch and a step and peak memory
+Phases 49-55 log their seconds, ms a batch and a step and peak memory
 beside the card's name and power limit. The phases that time evaluation
 (2, 6-24, 26-29, 32-33, 49-51) pin the eval batch to 16; the CLI runs
 and pre-training's evaluation take the auto eval batch, and every phase
@@ -375,7 +403,7 @@ resolves to.
 
 The last lines are a JSON object with one entry per kernel (K1, K2, K6,
 K7, K6b, K7b, K3, K4, K5, K8f, K8b, K1h, K2h, K9, and "K9 cards" where
-phase 52 ran; launches summed over the measured runs of phases 2-53, by
+phase 52 ran; launches summed over the measured runs of phases 2-55, by
 path in ``launches_by_path``; the staged
 backward kernels' layouts under ``plan``; P1 and P2 with full's numbers
 and their launches in the tools' runs of phase 1b),
@@ -2920,14 +2948,14 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
-        help="cpu rehearses phases 1b-51 at a reduced size with the plain "
+        help="cpu rehearses phases 1b-55 at a reduced size with the plain "
              "versions and reports no result")
     parser.add_argument("--failsoft", nargs=3, help=argparse.SUPPRESS,
                         metavar=("LOSS", "PEAK_GIB", "OUT"))
     parser.add_argument("--dp-child", nargs=2, help=argparse.SUPPRESS,
                         metavar=("OUT", "CASES"))
     parser.add_argument(
-        "--only", choices=("46-48", "49-51", "52-53"),
+        "--only", choices=("46-48", "49-51", "52-53", "54-55"),
         help="run the build and these phases alone and report no result "
              "(52-53 print their kernels line)")
     parser.add_argument(
@@ -2972,8 +3000,8 @@ def main(argv=None) -> int:
         if args.only == "52-53":
             ran, entry = run_card_phases(device)
         else:
-            ran = (run_new_phases if args.only == "46-48"
-                   else run_edge_phases)(device)
+            ran = {"46-48": run_new_phases, "49-51": run_edge_phases,
+                   "54-55": run_training_phases}[args.only](device)
         used = {path: {half: {k: v for k, v in c.items() if v}
                        for half, c in halves.items()}
                 for path, halves in ran.items()}
@@ -3132,13 +3160,19 @@ def main(argv=None) -> int:
         release_device_memory()
     card_runs, k9_cards = run_card_phases(device)
     runs.update(card_runs)
+    # training at length: the learning check on three paths with the card
+    # vs CPU trajectory, and the endurance run's short form (K1, K2; K1h,
+    # K2h; K9)
+    if cuda:
+        release_device_memory()
+    runs.update(run_training_phases(device))
     ids = list(KERNEL_IDS)
     if k9_cards is not None:
         entries["K9 cards"] = k9_cards
         ids.append("K9 cards")
 
     if not cuda:
-        log("[rehearsal] phases 1b-53 ran on the CPU; no kernel ran and no "
+        log("[rehearsal] phases 1b-55 ran on the CPU; no kernel ran and no "
             "result is reported")
         return 1
     finish_entries(entries, runs, {"K9 cards": "K9x"})
@@ -4017,12 +4051,9 @@ def step_launches(cfg, batch: int) -> dict:
     from ultra_torchdrug_tpu_torch.models.nbfnet import remat_mode
 
     ent = cfg.entity
-    layers = len(ent.hidden_dims)
-    mb = ent.micro_batch
-    chunks = batch // mb if mb and batch > mb else 1
-    full = remat_mode(ent.remat) == "full"
-    return {"K1": layers * chunks * (1 + (chunks > 1) + full),
-            "K2": layers * chunks}
+    return policy_step_launches(
+        {"remat": remat_mode(ent.remat), "micro_batch": ent.micro_batch},
+        batch, len(ent.hidden_dims))
 
 
 def run_policies(dataset, device) -> tuple:
@@ -5703,32 +5734,18 @@ def parity_batch(task):
 def step_grads(task, model, batch, neg, mesh=None, fp64: bool = False):
     """One loss step of ``task`` (under ``mesh`` when given): its
     gradients by name, on the CPU. With ``fp64`` a double copy of
-    ``model`` steps over double copies of the task's graphs (the edge
-    weights, and the relation graph's dense adjacency), scored and reduced
-    as the task's loss function does; the integer layouts are the
-    task's."""
+    ``model`` steps through diagnostics/learning.py's ``fp64_loss`` (double
+    copies of the task's graphs, scored and reduced as the task's loss
+    function does)."""
+    from ultra_torchdrug_tpu_torch.diagnostics.learning import fp64_loss
     from ultra_torchdrug_tpu_torch.parallel.mesh import use_mesh
-    from ultra_torchdrug_tpu_torch.tasks.task import _criterion_loss
 
     scope = use_mesh(mesh) if mesh is not None else contextlib.nullcontext()
     m = copy.deepcopy(model).double() if fp64 else model
     m.zero_grad(set_to_none=True)
     with scope:
         if fp64:
-            fact = task.fact_graph.prepare_join(
-                one_hop=task.model_cfg.remove_one_hop).to(task.device)
-            fact = fact.with_edge_weight(fact.edge_weight.double())
-            rel = task.rel_graph.with_edge_weight(
-                task.rel_graph.edge_weight.double())
-            und, rel = task._prepare_graphs(fact, rel, backward=True)
-            if rel.dense_adj is not None:
-                rel = dataclasses.replace(rel, dense_adj=rel.dense_adj.double())
-            b = torch.from_numpy(np.asarray(batch, np.int64)).to(task.device)
-            scores = task._train_scores(
-                m, fact, rel, b[:, 0], b[:, 1], b[:, 2], neg, und,
-                model_cfg=task._train_model_cfg(fact, len(batch)))
-            loss = _criterion_loss(task.cfg, scores,
-                                   task.sample_weight_for(batch))
+            loss = fp64_loss(task)(m, batch, neg)
         else:
             loss, _ = task.loss_step(m, None, batch, neg=neg)
         loss.backward()
@@ -6496,6 +6513,172 @@ def run_cards(device) -> tuple:
     log(f"[timing] phase 52 {time.perf_counter() - t0:.1f} s "
         f"({nvidia_smi_line()})")
     return runs, entry
+
+
+# phases 54-55: training at length. The learning check's runs (400 steps on
+# the card; a few on the CPU, where the verdict is logged, not held) and
+# the card vs CPU trajectory from injected draws
+LEARNING_STEPS = 400
+LEARNING_REHEARSAL = dict(steps=4, window=2)
+LEARNING_RUNS = (("fp32", {}), ("bf16", dict(compute_dtype="bfloat16")),
+                 ("ring", dict(ring=True)))
+TRAJECTORY_STEPS = 20
+TRAJECTORY_REHEARSAL_STEPS = 3
+# the endurance run's short form, and its CPU rehearsal
+ENDURANCE = dict(steps=300, window=50, eval_every=150, ckpt_every=150,
+                 resume_check_at=150)
+ENDURANCE_REHEARSAL = dict(steps=4, window=2, eval_every=4, ckpt_every=4,
+                           resume_check_at=2)
+
+
+def policy_step_launches(policy: dict, batch: int, layers: int = 6,
+                         fwd: str = "K1", bwd: str = "K2") -> dict:
+    """``step_launches`` for a resolved policy {"remat", "micro_batch"}
+    (as diagnostics/learning.py's ``entity_policy`` reports it), counted
+    under ``fwd`` and ``bwd``."""
+    mb = policy["micro_batch"]
+    chunks = batch // mb if mb and batch > mb else 1
+    full = policy["remat"] == "full"
+    return {fwd: layers * chunks * (1 + (chunks > 1) + full),
+            bwd: layers * chunks}
+
+
+def learning_launches(label: str, readings: dict, buckets: int) -> dict:
+    """The launches a step of phase 54's run ``label``: those of phases 2-3
+    (fp32), the bf16 phase (K1h, K2h) and phases 26-29 (the ring: K1 and
+    K2 once a non-empty bucket a layer, K9 between the ring's steps,
+    forward and transposed)."""
+    layers = 6
+    if label == "ring":
+        if readings["policy"] != {"remat": "none", "micro_batch": 0}:
+            raise AssertionError(f"learning ring: policy "
+                                 f"{readings['policy']}, expected none")
+        steps = RING_SHARDS - 1
+        return {"K1": layers * buckets, "K2": layers * buckets,
+                "K9": 2 * layers * steps}
+    if label == "bf16":
+        return policy_step_launches(readings["policy"], readings["batch"],
+                                    layers, "K1h", "K2h")
+    return policy_step_launches(readings["policy"], readings["batch"],
+                                layers)
+
+
+def learning_trajectory(device) -> None:
+    """Phase 54's trajectory (diagnostics/learning.py's ``trajectory``):
+    the fp32 learning model's first TRAJECTORY_STEPS steps on the card
+    against the port's CPU run from the same weights, batches and injected
+    negatives, whole and step by step from the CPU run's states, each held
+    to ``learning.TRAJECTORY_LIMITS``."""
+    from ultra_torchdrug_tpu_torch.diagnostics import learning
+
+    cuda = device.type == "cuda"
+    size = learning.FULL if cuda else learning.REHEARSAL
+    steps = TRAJECTORY_STEPS if cuda else TRAJECTORY_REHEARSAL_STEPS
+    out = learning.trajectory(device, steps=steps, batch=size["batch"],
+                              negatives=size["negatives"], log=log)
+    failed = learning.trajectory_failures(out)
+    if failed:
+        raise AssertionError(f"learning trajectory: {failed}")
+
+
+def run_learning(device) -> dict:
+    """Phase 54: diagnostics/learning.py's check on the card (fp32, bf16,
+    the ring on the one-card mesh), LEARNING_STEPS steps each, each held to
+    the reference's criterion and to the launches a step its path expects;
+    then ``learning_trajectory``. Returns the launch counts by path."""
+    from ultra_torchdrug_tpu_torch.diagnostics import learning
+    from ultra_torchdrug_tpu_torch.parallel.ring_rspmm import (
+        build_ring_rspmm_inputs,
+    )
+
+    cuda = device.type == "cuda"
+    size = learning.FULL if cuda else learning.REHEARSAL
+    sched = dict(steps=LEARNING_STEPS) if cuda else LEARNING_REHEARSAL
+    und = learning.offsets_dataset().fact_graph(None)[0]
+    und = und.undirected_with_inverse()
+    buckets = build_ring_rspmm_inputs(
+        und.edge_index.numpy(), und.edge_type.numpy(), und.num_nodes,
+        learning.RING_SHARDS, balance="auto").nonempty_buckets
+    runs = {}
+    for label, kwargs in LEARNING_RUNS:
+        if cuda:
+            release_device_memory()
+        readings = learning.run(device=device, log=log, **kwargs, **sched,
+                                **size)
+        check_launches(f"learning {label}", readings["launches"],
+                       learning_launches(label, readings, buckets),
+                       sched["steps"], device)
+        log(f"[learning {label}] MRR {readings['mrr_before']:.6f} -> "
+            f"{readings['mrr_after']:.6f} [{readings['verdict']}], "
+            f"{readings['ms_per_step']:.2f} ms a step, launches a step "
+            f"{readings['launches_per_step']}, max_memory_allocated "
+            + ("not measured" if readings["max_memory_allocated"] is None
+               else f"{readings['max_memory_allocated'] / 2**20:.1f} MiB")
+            + f" ({readings['card']})")
+        if not all(w["finite"] for w in readings["windows"]):
+            raise AssertionError(f"learning {label}: {readings['windows']}")
+        if cuda and not readings["ok"]:
+            raise AssertionError(f"learning {label}: {readings['verdict']} "
+                                 f"under {readings['criterion']}")
+        runs[f"learning {label}"] = {"train": readings["launches"]}
+    if cuda:
+        release_device_memory()
+    learning_trajectory(device)
+    return runs
+
+
+def run_endurance(device) -> dict:
+    """Phase 55: diagnostics/endurance.py's run in its short form
+    (ENDURANCE): every loss finite, the resume check within its limits,
+    memory_allocated at each window's end within 64 MiB and VmRSS within
+    256 MiB of the second window's from the second window on
+    (``endurance.failures``), each window's K1 and K2 launches those of its
+    graphs' steps under their resolved policies. Returns the launch counts
+    of the windows' steps."""
+    from ultra_torchdrug_tpu_torch.diagnostics import endurance
+
+    cuda = device.type == "cuda"
+    summary = endurance.run(device=device, log=log,
+                            **(ENDURANCE if cuda else ENDURANCE_REHEARSAL),
+                            **(endurance.FULL if cuda
+                               else endurance.REHEARSAL))
+    batch = summary["batch"]
+    for w in summary["windows"]:
+        want = {k: 0 for k in w["launches"]}
+        for name, n in w["graphs"].items():
+            for k, v in policy_step_launches(summary["policies"][name],
+                                             batch).items():
+                want[k] += v * n
+        check_launches(f"endurance window {w['step']}", w["launches"],
+                       want, 1, device)
+    failed = endurance.failures(summary)
+    log(f"[endurance] {summary['steps']} steps (+ the resume check's "
+        f"{endurance.RESUME_STEPS}): steady "
+        f"{summary['steady_ms_per_step']:.2f} ms a step, drift {summary['drift_second_half_vs_first']:+.4f}, "
+        f"rss {summary['rss_start_bytes']} -> {summary['rss_end_bytes']} B "
+        f"(creep {summary['host_creep_bytes']} B), allocated "
+        f"{summary['allocated_start_bytes']} -> "
+        f"{summary['allocated_end_bytes']} B (creep "
+        f"{summary['device_creep_bytes']} B), projected 200k steps "
+        f"{summary['projected_200k_steps_hours']:.2f} h; resume check "
+        f"{summary['resume_check']['ok']}; failures {failed} "
+        f"({summary['card']})")
+    if failed:
+        raise AssertionError(f"endurance: {failed}")
+    return {"endurance": {"train": summary["launches"]}}
+
+
+def run_training_phases(device) -> dict:
+    """Phases 54-55, each timed; returns their launch counts by path."""
+    card = nvidia_smi_line() if device.type == "cuda" else str(device)
+    runs = {}
+    for phase, fn in ((54, run_learning), (55, run_endurance)):
+        t0 = time.perf_counter()
+        runs.update(fn(device))
+        log(f"[timing] phase {phase} {time.perf_counter() - t0:.1f} s "
+            f"({card})")
+    return runs
+
 
 if __name__ == "__main__":
     sys.exit(main())

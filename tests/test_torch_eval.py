@@ -224,6 +224,8 @@ def test_port_never_imports_jax():
             "p.__name__ + '.')]; "
             "[importlib.import_module(n) for n in names]; "
             "assert len(names) > 40, names; "
+            "assert {p.__name__ + '.diagnostics.learning', p.__name__ + "
+            "'.diagnostics.endurance'} <= set(names), names; "
             "bad = [m for m in sys.modules if m in ('jax', "
             "'ultra_torchdrug_tpu', 'bench') or m.startswith(('jax.', "
             "'ultra_torchdrug_tpu.'))]; "

@@ -69,6 +69,7 @@ from ..models.ultra import (
 from ..ops.match import head_truth_mask, tail_truth_mask
 from ..ops.sampling import strict_negatives
 from ..parallel import distributed
+from ..parallel.mesh import current_mesh
 from ..utils.logging import LOGGER_NAME
 from .kg import (
     bce_self_adversarial,
@@ -320,6 +321,29 @@ class _TaskBase:
                                  fact_graph_und=fact_und,
                                  model_cfg=model_cfg or self.model_cfg)
 
+    def _shared_graphs(self, fact_graph: Graph, rel_graph: Graph,
+                       backward: bool = False):
+        """``_prepare_graphs``' result, prepared once a task for each pair
+        of graphs (by identity) under each active mesh, so that each
+        graph's layouts sit on the device once: a request for the forward
+        layouts takes an entry that has the backward ones too (they come
+        beside the same forward ones), and a request for the backward
+        layouts replaces a forward-only entry. Eval functions fetch their
+        layouts here at each call, so that they take the loss function's
+        entry whichever of the two was built first, and keep no entry
+        alive that was replaced."""
+        mesh = current_mesh()
+        cache = self.__dict__.setdefault("_prepared", [])
+        for i, (fact, rel, on, bwd, graphs) in enumerate(cache):
+            if fact is fact_graph and rel is rel_graph and on is mesh:
+                if bwd or not backward:
+                    return graphs
+                del cache[i]
+                break
+        graphs = self._prepare_graphs(fact_graph, rel_graph, backward)
+        cache.append((fact_graph, rel_graph, mesh, backward, graphs))
+        return graphs
+
     def _prepare_graphs(self, fact_graph: Graph, rel_graph: Graph,
                         backward: bool = False):
         """The undirected propagation graph with its CSR (the rspmm kernels'
@@ -358,12 +382,12 @@ class _TaskBase:
         scored, and the loss is scaled so that its mean over the P ranks is
         the whole batch's loss (and so are the metrics')."""
         cfg = self.cfg
+        fact_und, rel_graph = self._shared_graphs(fact_graph, rel_graph,
+                                                  backward=True)
         # pre-sorted edges: the per-step easy-edge mask joins by binary
         # search instead of sorting the edges and the batch every step
         fact_graph = fact_graph.prepare_join(
             one_hop=self.model_cfg.remove_one_hop).to(self.device)
-        fact_und, rel_graph = self._prepare_graphs(fact_graph, rel_graph,
-                                                   backward=True)
         fact_edges = fact_graph.edge_list
 
         def loss_fn(model, generator, batch, sample_weight=None, neg=None,
@@ -410,13 +434,13 @@ class _TaskBase:
         positive)."""
         cfg = self.cfg
         V = fact_graph.num_nodes
-        fact_und, rel_graph = self._prepare_graphs(fact_graph, rel_graph)
         filter_edges = filter_graph.edge_list.to(self.device)
 
         def eval_fn(model, batch, generator=None):
+            fact_und, rel = self._shared_graphs(fact_graph, rel_graph)
             h, t, r = batch[:, 0], batch[:, 1], batch[:, 2]
             t_scores, h_scores = self._eval_scores(
-                model, fact_graph, rel_graph, h, t, r, fact_und,
+                model, fact_graph, rel, h, t, r, fact_und,
                 model_cfg=self._resolve_model_cfg(fact_graph))
             t_truth = tail_truth_mask(filter_edges, h, r, V)
             h_truth = head_truth_mask(filter_edges, t, r, V)
