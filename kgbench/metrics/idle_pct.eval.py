@@ -1,0 +1,7 @@
+"""The device's idle share of a traced window of ranking requests."""
+
+from kgbench.lib import readers
+
+
+def read(ctx):
+    return readers.idle_pct(ctx)
